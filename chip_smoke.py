@@ -3,16 +3,26 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phase kernel   # build + hold the kernels only
+    python3 chip_smoke.py --phase train    # the FFN kernels + training
 
 Builds every kernel of the port from ``csrc/``, holds each against its
-plain PyTorch version on the card, times both, then serves requests
-through the port's ``DecodeEngine`` at the full width of the GPT-2-small
-LM of ``bench_decode.py`` (d=768, 12 layers, 12 heads, vocab 50304,
-max_seq_len 1024, random weights from a seed): once per ``kv_dtype``
-with ``kernel="fused"`` and once at f32 with ``kernel="gather"``. It
-fails (exit code 1) if there is no CUDA device, if a kernel does not
-build, launch or agree, if the fused run did not go through the kernel,
-or if the served tokens are wrong.
+plain PyTorch version on the card, times both, then drives the port's
+two paths:
+
+- serving: requests through the ``DecodeEngine`` at the full width of
+  the GPT-2-small LM of ``bench_decode.py`` (d=768, 12 layers, 12 heads,
+  vocab 50304, max_seq_len 1024, random weights from a seed), once per
+  ``kv_dtype`` with ``kernel="fused"`` and once at f32 with
+  ``kernel="gather"``;
+- training: ``train_single`` for 8 steps at ``bench.py``'s FFN-stack
+  headline shape (d 768, 24 layers, ffn 3072, 8192 tokens a step,
+  random weights from a seed), through the three FFN kernels
+  (``use_pallas=True``, functional and manual loops) and through the
+  matmul blocks as the oracle.
+
+It fails (exit code 1) if there is no CUDA device, if a kernel does not
+build, launch or agree, if a kernel path did not go through its
+kernels, or if the served tokens or the trained weights are wrong.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -23,14 +33,17 @@ times. This script imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 L2_FLUSH_BYTES = 256 << 20       # well past the 50 MB L2
 
 # the served model: bench_decode.py's GPT-2-small-proportioned LM
@@ -42,6 +55,51 @@ ENGINE = dict(max_slots=8, block_size=16, prefill_chunk=64,
               max_blocks_per_seq=64, n_blocks=1 + 8 * 64)
 SEED = 0
 TOL = 2e-5                       # max |kernel - plain| / max |plain|
+
+# the trained model: bench.py's FFN-stack headline shape (bench.py:122-124)
+TRAIN = dict(d_model=768, n_layers=24, tokens=8192, steps=8, random_seed=7)
+FFN_DIM = 4 * TRAIN["d_model"]
+# FFN kernel cases (name, T, d, ffn): the main path's shape and two
+# ragged ones that no tile divides
+FFN_SHAPES = (("main", TRAIN["tokens"], TRAIN["d_model"], FFN_DIM),
+              ("ragged", 1000, 200, 520), ("small", 24, 40, 72))
+# max |kernel - plain| / max |plain|. f32: the kernel sums up to 8192
+# terms in another order than cuBLAS. bf16 operands: an f32-level
+# difference in h can flip one bf16 rounding of a or dh.
+FFN_TOL = {False: 1e-4, True: 2e-3}
+FFN_KERNELS = (("ffn_fwd", 4, "ops/pallas_ffn.py:129"),
+               ("ffn_bwd_dx", 6, "ops/pallas_ffn.py:190"),
+               ("ffn_bwd_dw", 8, "ops/pallas_ffn.py:250"))
+# One step's gradients at the training shape. Both f32 paths sit some
+# 0.2-0.6% (Frobenius, per layer) from a float64 reference: a
+# pre-activation within rounding of 0 flips its ReLU mask between two
+# summation orders, and each flip moves a whole token row by a few
+# percent through the remaining layers. So the kernel path is held to
+# the distance the cuBLAS f32 path has: per layer, its relative error
+# against float64 at most GRAD_RATIO times the f32 matmul path's.
+GRAD_RATIO = 2.0
+# Per block, where no flip compounds: each kernel call the trainer makes
+# in one step, against float64 on the inputs the trainer gave it. A call's
+# error is the 99th percentile over output rows of |row - row64| /
+# |row64|: a mask flip moves one row of dx or dw1 by a few percent, and
+# the percentile lets up to 1% of the rows flip. f32 sums land near 1e-6
+# by this measure, bf16 operands near 1e-3 (a control run shows it).
+BLOCK_TOL = 1e-4
+# The updates of the kernel run, step by step: each step's p_next - p
+# through the kernels and through the f32 matmul blocks, each against a
+# float64 step from the same p (the kernel run's own), pooled over the
+# layers. The kernel step's relative error may be at most UPDATE_RATIO
+# times the matmul step's; weights left unchanged have error exactly 1
+# and fail. Each step starts from the same p because free runs drift
+# apart: a weight that differs by rounding flips other ReLU masks at the
+# next step. At the CLI's LR (1e-5) the updates are about 1e-12, below
+# half an ulp of almost every weight, so those runs are for timing only
+# (each layer scales activations by about 0.43, so the gradients at this
+# depth are about 1e-8). At CHECK_LR a step's largest update is some
+# 3e-5, about 1e4 ulps of a weight of 0.02 and well under 1% of it. The
+# 8-step run must equal the chain of steps bit for bit.
+CHECK_LR = 100.0
+UPDATE_RATIO = 2.0
 
 
 def card_line() -> str:
@@ -371,9 +429,322 @@ def serving_phase(torch, np, card):
     return fused_launches
 
 
+# -- FFN kernels -------------------------------------------------------------
+
+def ffn_bound(name, flop_mult, t, d, f, mxu_bf16):
+    """Least time of one launch: its flops over the rate of its operand
+    type, against the bytes it must move (each input read once, each
+    output written once, f32) over the HBM rate."""
+    flops = flop_mult * t * d * f
+    floats = {"ffn_fwd": 2 * t * d + 2 * d * f,
+              "ffn_bwd_dx": 3 * t * d + 2 * d * f,
+              "ffn_bwd_dw": 2 * t * d + 4 * d * f}[name]
+    t_ops = flops / (BF16_FLOPS_PER_S if mxu_bf16 else F32_FLOPS_PER_S) * 1e3
+    t_bytes = 4 * floats / HBM_BYTES_PER_S * 1e3
+    return flops, ((t_ops, "operations") if t_ops >= t_bytes
+                   else (t_bytes, "bytes"))
+
+
+def ffn_kernel_phase(torch, np, timer):
+    """Each FFN kernel against its plain version at every shape of
+    ``FFN_SHAPES``, both operand modes: error, determinism, times."""
+    from distributed_llm_code_samples_tpu_torch.ops import fused_ffn as ff
+    # (kernel, plain) with the backward wrappers' argument order
+    fns = {"ffn_fwd": (lambda dy, *w, **k: ff.ffn_fwd_fused(*w, **k),
+                       lambda dy, *w, **k: ff.ffn_fwd_ref(*w, **k)),
+           "ffn_bwd_dx": (ff.ffn_bwd_dx_fused, ff.ffn_bwd_dx_ref),
+           "ffn_bwd_dw": (ff.ffn_bwd_dw_fused, ff.ffn_bwd_dw_ref)}
+    results = []
+    for n, (shape, t, d, f) in enumerate(FFN_SHAPES):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(100 + n)
+        w1 = 2e-2 * torch.randn(f, d, generator=gen, device="cuda")
+        w2 = 2e-2 * torch.randn(d, f, generator=gen, device="cuda")
+        x = torch.randn(t, d, generator=gen, device="cuda")
+        dy = 0.1 * torch.randn(t, d, generator=gen, device="cuda")
+        for mxu_bf16 in (False, True):
+            for name, mult, _ in FFN_KERNELS:
+                kern = partial(fns[name][0], dy, w1, w2, x,
+                               mxu_bf16=mxu_bf16)
+                plain = partial(fns[name][1], dy, w1, w2, x,
+                                mxu_bf16=mxu_bf16)
+                got, again = kern(), kern()
+                torch.cuda.synchronize()
+                want = plain()
+                got, again, want = (v if isinstance(v, tuple) else (v,)
+                                    for v in (got, again, want))
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+                scale = max(float(w.abs().max()) for w in want)
+                finite = all(bool(torch.isfinite(g).all()) for g in got)
+                same = all(torch.equal(g, a) for g, a in zip(got, again))
+                flops, (b_ms, b_by) = ffn_bound(name, mult, t, d, f,
+                                                mxu_bf16)
+                ms = timer.ms(kern)
+                row = dict(kernel=name, shape=shape, T=t, d=d, ffn=f,
+                           mxu_bf16=mxu_bf16, max_abs_err=err,
+                           rel_err=err / scale, tol=FFN_TOL[mxu_bf16],
+                           deterministic=same,
+                           ok=finite and same
+                           and err <= FFN_TOL[mxu_bf16] * scale,
+                           ms=ms, plain_ms=timer.ms(plain),
+                           bound_ms=b_ms, bound_by=b_by,
+                           tflops_per_s=flops / ms / 1e9,
+                           library_ms=None)
+                results.append(row)
+                print("ffn-kernel-case " + json.dumps(row), flush=True)
+        del w1, w2, x, dy
+    return results
+
+
+# -- training phase ----------------------------------------------------------
+
+FFN_WRAPPERS = {"ffn_fwd": ("ffn_fwd_fused", "ffn_fwd_ref"),
+                "ffn_bwd_dx": ("ffn_bwd_dx_fused", "ffn_bwd_dx_ref"),
+                "ffn_bwd_dw": ("ffn_bwd_dw_fused", "ffn_bwd_dw_ref")}
+
+
+@contextlib.contextmanager
+def recorded_calls(ff):
+    """Within the block, every call of the three FFN wrappers of module
+    ``ff`` is recorded as ``(kernel, args, kwargs, outputs)``, with copies
+    of the tensors (SGD updates the params in place)."""
+    calls, saved = [], {}
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            calls.append((name, [a.clone() for a in args], dict(kw),
+                          [o.clone() for o in outs]))
+            return out
+        return call
+
+    for name, (wrapper, _) in FFN_WRAPPERS.items():
+        saved[wrapper] = getattr(ff, wrapper)
+        setattr(ff, wrapper, recorder(name, saved[wrapper]))
+    try:
+        yield calls
+    finally:
+        for wrapper, fn in saved.items():
+            setattr(ff, wrapper, fn)
+
+
+def row_err(torch, got, want):
+    """99th percentile over rows of |got - want| / |want| (see
+    ``BLOCK_TOL``)."""
+    num = (got.double() - want).norm(dim=1)
+    return float(torch.quantile(num / want.norm(dim=1).clamp_min(1e-300),
+                                0.99))
+
+
+def block_errors(torch, ff, calls):
+    """For each recorded call: its operand mode, its error against the
+    float64 plain version on the same inputs, and the error the same
+    kernel makes there with bf16 operands (the control)."""
+    rows = []
+    for name, args, kw, outs in calls:
+        wrapper, ref = FFN_WRAPPERS[name]
+        want = getattr(ff, ref)(*(a.double() for a in args), mxu_bf16=False)
+        want = want if isinstance(want, tuple) else (want,)
+        bf16 = getattr(ff, wrapper)(*args, mxu_bf16=True)
+        bf16 = bf16 if isinstance(bf16, tuple) else (bf16,)
+        rows.append(dict(
+            kernel=name, mxu_bf16=bool(kw.get("mxu_bf16", False)),
+            err=max(row_err(torch, o, w) for o, w in zip(outs, want)),
+            bf16_err=max(row_err(torch, o, w) for o, w in zip(bf16, want))))
+    return rows
+
+
+def update_err(torch, got, want, p0):
+    """Relative error of the update ``got - p0`` against ``want - p0``,
+    pooled over the layers."""
+    du = want.double() - p0.double()
+    return float((got.double() - want.double()).norm() / du.norm())
+
+
+def train_phase(torch, np, card):
+    """``train_single`` at ``TRAIN`` through the kernels (functional and
+    manual loops) and through the matmul blocks; returns the kernel
+    launches of the first kernel run."""
+    from distributed_llm_code_samples_tpu_torch import LR
+    from distributed_llm_code_samples_tpu_torch.data import (
+        batch_from_seed, make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        FFNStackParams, init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        ffn_block, fused_ffn_block, launch_counts, reset_launch_counts,
+        stack_grads)
+    from distributed_llm_code_samples_tpu_torch.ops import fused_ffn as ff
+    from distributed_llm_code_samples_tpu_torch.parallel import train_single
+    d, n_layers, tokens = TRAIN["d_model"], TRAIN["n_layers"], TRAIN["tokens"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TRAIN["random_seed"])
+    params = init_ffn_stack(gen, d, n_layers)
+    seeds = make_seed_schedule(TRAIN["steps"], TRAIN["random_seed"])
+    flops = 12 * tokens * d * FFN_DIM * n_layers
+    want_launches = n_layers * TRAIN["steps"]
+
+    def run(label, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        stamps = []
+
+        def on_step(_):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        t0 = time.perf_counter()
+        train_single(params, seeds, tokens, d, lr=LR, on_step=on_step, **kw)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        med = statistics.median(steps[1:])
+        row = dict(run=label, steps=len(steps), tokens_per_step=tokens,
+                   wall_s=wall, median_step_ms=1e3 * med,
+                   first_step_ms=1e3 * steps[0],
+                   tokens_per_s=tokens / med,
+                   model_tflops_per_s=flops / med / 1e12,
+                   f32_peak_share=flops / med / F32_FLOPS_PER_S,
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                   / 2 ** 30, kernel_launches=launches, card=card)
+        print("train-run " + json.dumps(row), flush=True)
+        return launches
+
+    launches = run("pallas-1", use_pallas=True)
+    run("pallas-2", use_pallas=True)
+    launches_b = run("pallas-manual", use_pallas=True, manual_loop=True)
+    launches_c = run("matmul")
+    for name, _, _ in FFN_KERNELS:
+        for label, got, want in (("pallas", launches, want_launches),
+                                 ("pallas-manual", launches_b,
+                                  want_launches),
+                                 ("matmul", launches_c, 0)):
+            check(got.get(name, 0) == want,
+                  f"{label}: {got.get(name, 0)} launches of {name}, "
+                  f"expected {want}")
+
+    # one step's gradients, per layer: the kernel path and the f32 matmul
+    # path each against the float64 matmul path (see GRAD_RATIO)
+    x, dl = batch_from_seed(seeds[0], tokens, d, device="cuda")
+    gk = stack_grads(params.w1, params.w2, x, dl, block=fused_ffn_block)[1]
+    gm = stack_grads(params.w1, params.w2, x, dl, block=ffn_block)[1]
+    g64 = stack_grads(params.w1.double(), params.w2.double(), x.double(),
+                      dl.double(), block=ffn_block)[1]
+    kernel_err, matmul_err = [], []
+    for a, b, c in zip(gk, gm, g64):
+        for l in range(n_layers):
+            ref = c[l].norm()
+            kernel_err.append(float((a[l].double() - c[l]).norm() / ref))
+            matmul_err.append(float((b[l].double() - c[l]).norm() / ref))
+    del gk, gm, g64
+    ratio = max(k / max(m, 1e-30) for k, m in zip(kernel_err, matmul_err))
+
+    # per block: the trainer's own kernel calls of one step (BLOCK_TOL)
+    with recorded_calls(ff) as calls:
+        train_single(params, seeds[:1], tokens, d, lr=LR, use_pallas=True)
+    blocks = block_errors(torch, ff, calls)
+    per_kernel = {n: sum(b["kernel"] == n for b in blocks)
+                  for n in FFN_WRAPPERS}
+    del calls
+
+    # the kernel run's steps at CHECK_LR, each against float64 from the
+    # same params (UPDATE_RATIO)
+    def batch64(seed, batch, dim, dtype, device):
+        return tuple(v.double() for v in
+                     batch_from_seed(seed, batch, dim, device=device))
+
+    p, upd_k, upd_m, unchanged, finite = params, [], [], [], True
+    for seed in seeds:
+        nxt = train_single(p, [seed], tokens, d, lr=CHECK_LR,
+                           use_pallas=True)
+        mm = train_single(p, [seed], tokens, d, lr=CHECK_LR)
+        w64 = train_single(FFNStackParams(p.w1.double(), p.w2.double()),
+                           [seed], tokens, d, lr=CHECK_LR, batch_fn=batch64)
+        for k, m, w, p0 in zip(nxt, mm, w64, p):
+            upd_k.append(update_err(torch, k, w, p0))
+            upd_m.append(update_err(torch, m, w, p0))
+            unchanged.append(update_err(torch, p0, w, p0))   # exactly 1
+        finite &= all(bool(torch.isfinite(t).all()) for t in nxt + mm)
+        p = nxt
+    upd_ratio = max(k / m for k, m in zip(upd_k, upd_m))
+    unchanged_ratio = min(u / m for u, m in zip(unchanged, upd_m))
+    full = train_single(params, seeds, tokens, d, lr=CHECK_LR,
+                        use_pallas=True)
+    chained = all(torch.equal(a, b) for a, b in zip(full, p))
+    del p, nxt, mm, w64, full
+    print("train-check " + json.dumps(dict(
+        grad_err_vs_f64_kernel_max=max(kernel_err),
+        grad_err_vs_f64_matmul_max=max(matmul_err),
+        grad_err_ratio_max=ratio, grad_ratio_limit=GRAD_RATIO,
+        block_calls=per_kernel,
+        block_bf16_calls=sum(b["mxu_bf16"] for b in blocks),
+        block_err_max=max(b["err"] for b in blocks),
+        block_bf16_control_err_min=min(b["bf16_err"] for b in blocks),
+        block_tol=BLOCK_TOL, check_lr=CHECK_LR,
+        update_err_vs_f64_kernel_max=max(upd_k),
+        update_err_vs_f64_matmul_max=max(upd_m),
+        update_err_ratio_max=upd_ratio,
+        update_unchanged_ratio_min=unchanged_ratio,
+        update_ratio_limit=UPDATE_RATIO, steps_chain_identical=chained,
+        finite=finite)), flush=True)
+    check(finite, "trained params are not finite")
+    check(ratio <= GRAD_RATIO, f"kernel grads {ratio:.2f}x as far from "
+          f"float64 as the f32 matmul path's")
+    check(all(n == n_layers for n in per_kernel.values()),
+          f"one step made {per_kernel} kernel calls, expected {n_layers} "
+          f"of each")
+    check(not any(b["mxu_bf16"] for b in blocks),
+          "the trainer called a kernel with bf16 operands")
+    check(max(b["err"] for b in blocks) <= BLOCK_TOL,
+          "a kernel call of the trainer disagrees with float64")
+    check(min(b["bf16_err"] for b in blocks) > BLOCK_TOL,
+          "the block check cannot tell bf16 operands from f32")
+    check(upd_ratio <= UPDATE_RATIO, f"kernel updates {upd_ratio:.2f}x as "
+          f"far from float64 as the f32 matmul path's")
+    check(unchanged_ratio > UPDATE_RATIO,
+          "the update check cannot tell unchanged weights from trained")
+    check(chained, "the 8-step kernel run differs from its chain of steps")
+
+    # where the device time goes in one kernel run (a traced run: the
+    # profiler's own cost is in its wall time)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_single(params, seeds, tokens, d, lr=LR, use_pallas=True)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    print("train-profile " + json.dumps(dict(profile_summary(prof, wall_ms),
+                                             card=card)), flush=True)
+    return launches
+
+
+def ffn_kernel_rows(cases, launches):
+    rows = []
+    for name, _, replaces in FFN_KERNELS:
+        mine = [c for c in cases if c["kernel"] == name]
+        main = next(c for c in mine
+                    if c["shape"] == "main" and not c["mxu_bf16"])
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"distributed_llm_code_samples_tpu_torch/csrc/"
+                      f"{name}.cu",
+            "replaces": f"distributed_llm_code_samples_tpu/{replaces}",
+            "launches": None if launches is None else launches.get(name, 0),
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "max_rel_err": max(c["rel_err"] for c in mine),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "ok": all(c["ok"] for c in mine)})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phase", choices=["all", "kernel"], default="all")
+    ap.add_argument("--phase", choices=["all", "kernel", "train"],
+                    default="all")
     args = ap.parse_args(argv)
     try:
         import numpy as np
@@ -406,27 +777,35 @@ def main(argv=None) -> int:
         print(f"build-log {name}:\n{log}", flush=True)
 
     timer = Timer(torch)
-    cases = kernel_phase(torch, np, timer)
-    bad = [c for c in cases if not c["ok"]]
-    launches = None
+    kernels, bad = [], []
+    if args.phase in ("all", "kernel"):
+        cases = kernel_phase(torch, np, timer)
+        bad += [c for c in cases if not c["ok"]]
+    ffn_cases = ffn_kernel_phase(torch, np, timer)
+    bad += [c for c in ffn_cases if not c["ok"]]
+    launches = ffn_launches = None
     if not bad and args.phase == "all":
         launches = serving_phase(torch, np, card)
-    main_case = next(c for c in cases
-                     if c["shape"] == "serving" and c["kv_dtype"] == "f32")
-    kernels = [{
-        "name": "paged_decode_attn", "route": "cuda",
-        "source": "distributed_llm_code_samples_tpu_torch/csrc/"
-                  "paged_decode_attn.cu",
-        "replaces": "distributed_llm_code_samples_tpu/ops/"
-                    "pallas_paged_attention.py:129",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "max_rel_err": max(c["rel_err"] for c in cases),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "ok": not bad}]
+    if not bad and args.phase in ("all", "train"):
+        ffn_launches = train_phase(torch, np, card)
+    if args.phase in ("all", "kernel"):
+        main_case = next(c for c in cases if c["shape"] == "serving"
+                         and c["kv_dtype"] == "f32")
+        kernels.append({
+            "name": "paged_decode_attn", "route": "cuda",
+            "source": "distributed_llm_code_samples_tpu_torch/csrc/"
+                      "paged_decode_attn.cu",
+            "replaces": "distributed_llm_code_samples_tpu/ops/"
+                        "pallas_paged_attention.py:129",
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "max_rel_err": max(c["rel_err"] for c in cases),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],
+            "ok": all(c["ok"] for c in cases)})
+    kernels += ffn_kernel_rows(ffn_cases, ffn_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     if bad:
         print(f"error: kernel disagrees with its plain version: {bad}",

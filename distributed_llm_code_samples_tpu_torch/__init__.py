@@ -10,16 +10,31 @@ engine (``decode/engine.py``) over the LM family (``models/lm.py``), with
 decode attention in a hand-written CUDA kernel
 (``csrc/paged_decode_attn.cu``, bound by ``ops/paged_attention.py``).
 
-Subpackages: ``ops`` (LayerNorm, the paged-attention kernel and its
-build), ``models`` (parameters, attention, the LM), ``decode`` (paged
-pool, sampling, engine, CLI), ``runtime`` (guardrails).
+Slice 2 is the single-device FFN trainer: seeds-as-dataset batches
+(``data/``), the hand-VJP linear -> ReLU -> linear blocks (``ops/ffn.py``)
+walked by ``ops/stack.py``, inline SGD (``optim.py``) and
+``parallel/single.py::train_single``, run by ``cli.py -m 1``. With
+``use_pallas`` (CLI ``--pallas``) each block runs three hand-written CUDA
+kernels, the forward, the input gradient and the weight gradients
+(``csrc/ffn_*.cu``, bound by ``ops/fused_ffn.py``).
+
+Subpackages: ``ops`` (LayerNorm, linear, ReLU, the FFN block and stack,
+the kernels and their build), ``models`` (parameters, attention, the LM,
+the FFN stack), ``data`` (seed schedule and batches), ``parallel`` (the
+trainer), ``decode`` (paged pool, sampling, engine, CLI), ``runtime``
+(guardrails).
 """
 
 from __future__ import annotations
 
 import torch
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+
+# Training hyperparameters of the reference workload (train_ffns.py:29-30),
+# the same values as the JAX package's.
+LR = 1e-5
+DLOSS_DX_COEF = 0.1
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,10 +1,29 @@
-"""Numerical core of the port: LayerNorm and the paged decode-attention
-kernel with its plain version, build and launch count."""
+"""Numerical core of the port: LayerNorm, the bias-free linear layer and
+ReLU with their hand VJPs, the FFN block family and the stack walker,
+and the hand-written kernels (paged decode attention; the FFN forward,
+input gradient and weight gradients) with their plain versions, build
+and launch counts."""
 
 from ._build import build_all, launch_counts, reset_launch_counts
+from .activations import relu_bwd, relu_fwd
+from .ffn import (ffn_block, ffn_block_mixed, ffn_block_mixed_remat,
+                  ffn_block_saved, ffn_bwd, ffn_bwd_mixed, ffn_bwd_saved,
+                  ffn_fwd, ffn_fwd_mixed)
+from .fused_ffn import (ffn_bwd_dw_fused, ffn_bwd_dw_ref, ffn_bwd_dx_fused,
+                        ffn_bwd_dx_ref, ffn_bwd_fused, ffn_fwd_fused,
+                        ffn_fwd_ref, fused_ffn_block)
+from .linear import init_linear, linear_bwd, linear_fwd
 from .norm import EPS, layernorm
 from .paged_attention import paged_decode_attn, paged_decode_attn_ref
+from .stack import accumulated_grads, stack_bwd, stack_fwd, stack_grads
 
-__all__ = ["EPS", "build_all", "launch_counts", "layernorm",
-           "paged_decode_attn", "paged_decode_attn_ref",
-           "reset_launch_counts"]
+__all__ = ["EPS", "accumulated_grads", "build_all", "ffn_block",
+           "ffn_block_mixed", "ffn_block_mixed_remat", "ffn_block_saved",
+           "ffn_bwd", "ffn_bwd_dw_fused", "ffn_bwd_dw_ref",
+           "ffn_bwd_dx_fused", "ffn_bwd_dx_ref", "ffn_bwd_fused",
+           "ffn_bwd_mixed", "ffn_bwd_saved", "ffn_fwd", "ffn_fwd_fused",
+           "ffn_fwd_mixed", "ffn_fwd_ref", "fused_ffn_block", "init_linear",
+           "launch_counts", "layernorm", "linear_bwd", "linear_fwd",
+           "paged_decode_attn", "paged_decode_attn_ref", "relu_bwd",
+           "relu_fwd", "reset_launch_counts", "stack_bwd", "stack_fwd",
+           "stack_grads"]

@@ -37,7 +37,9 @@ def _sources():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "distributed_llm_code_samples_tpu_torch.decode.engine" in mods
+    for m in ("decode.engine", "cli", "ops.fused_ffn", "parallel.single",
+              "data", "optim", "models.ffn_stack"):
+        assert f"distributed_llm_code_samples_tpu_torch.{m}" in mods
     code = ("import sys; sys.modules['jax'] = None; "
             "import importlib; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
@@ -96,6 +98,45 @@ def test_generate_cli_on_cpu_prints_the_payload():
     assert [len(s["tokens"]) for s in payload["sequences"]] == [9, 13, 17]
     assert payload["kernel_launches"] == {}        # CPU: the plain version
     assert payload["failed"] == {}
+
+
+TRAIN_CLI = [sys.executable, "-m", "distributed_llm_code_samples_tpu_torch.cli"]
+TINY = ["-s", "2", "-bs", "2", "-n", "16", "-l", "2", "-d", "32", "-r", "7"]
+
+
+def test_train_cli_refuses_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    out = subprocess.run(TRAIN_CLI + ["-m", "1"] + TINY, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 2 and "CUDA" in out.stderr
+    assert out.stdout == ""
+
+
+def test_train_cli_on_cpu_prints_the_payload():
+    out = subprocess.run(TRAIN_CLI + ["--device", "cpu", "-m", "1", "--pallas"]
+                         + TINY, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ARGS:") and "PARAMS: 16_384" in out.stdout
+    payload = json.loads(out.stdout.strip().splitlines()[-1])
+    assert payload["kernel_launches"] == {}        # CPU: the plain versions
+    assert payload["steps"] == 2 and payload["tokens_per_step"] == 32
+    assert payload["pallas"] is True and payload["device"] == "cpu"
+    assert len(payload["layer_checksums"]) == 2
+    for key in ("wall_s", "median_step_ms", "tokens_per_s",
+                "model_tflops_per_s"):
+        assert payload[key] > 0
+
+
+@pytest.mark.parametrize("method", ["0", "2"])
+def test_train_cli_refuses_unported_methods(method):
+    out = subprocess.run(TRAIN_CLI + ["--device", "cpu", "-m", method]
+                         + TINY, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 2
+    assert f"method {method} is not ported yet" in out.stderr
+    assert out.stdout == ""
 
 
 def test_chip_smoke_alone_fails(tmp_path):
