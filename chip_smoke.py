@@ -4,10 +4,11 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phase kernel   # build + hold the kernels only
     python3 chip_smoke.py --phase train    # the FFN kernels + training
+    python3 chip_smoke.py --phase lm       # the LM kernels + LM training
 
 Builds every kernel of the port from ``csrc/``, holds each against its
 plain PyTorch version on the card, times both, then drives the port's
-two paths:
+three paths:
 
 - serving: requests through the ``DecodeEngine`` at the full width of
   the GPT-2-small LM of ``bench_decode.py`` (d=768, 12 layers, 12 heads,
@@ -18,14 +19,19 @@ two paths:
   headline shape (d 768, 24 layers, ffn 3072, 8192 tokens a step,
   random weights from a seed), through the three FFN kernels
   (``use_pallas=True``, functional and manual loops) and through the
-  matmul blocks as the oracle.
+  matmul blocks as the oracle;
+- LM training: ``train_lm_single`` for 8 steps at ``bench.py``'s
+  LM-family shape (the GPT-2-small width above, 12 layers, 16 sequences
+  of 512 tokens a step, random weights from a seed) under every
+  attention x head policy: flash attention and the fused head through
+  their four kernels, and the oracle ops.
 
 It fails (exit code 1) if there is no CUDA device, if a kernel does not
 build, launch or agree, if a kernel path did not go through its
 kernels, or if the served tokens or the trained weights are wrong.
 
 The last line of standard output is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
 the line before it lists the kernels with their launches, errors and
 times. This script imports nothing of JAX.
 """
@@ -100,6 +106,44 @@ BLOCK_TOL = 1e-4
 # 8-step run must equal the chain of steps bit for bit.
 CHECK_LR = 100.0
 UPDATE_RATIO = 2.0
+
+# the trained LM: bench.py's LM-family shape (bench.py:744-749), the
+# GPT-2-small width the serving phase serves, at 512 positions
+LM = dict(vocab=50304, d_model=768, n_layers=12, n_heads=12, seq_len=512,
+          batch=16, steps=8, random_seed=7)
+LM_TOKENS = LM["batch"] * LM["seq_len"]
+# model flops a step, bench.py:752-755's count
+LM_BLOCK_FLOPS = 3 * LM["batch"] * LM["n_layers"] * (
+    8 * LM["seq_len"] * LM["d_model"] ** 2
+    + 2 * LM["seq_len"] ** 2 * LM["d_model"]
+    + 16 * LM["d_model"] ** 2 * LM["seq_len"])
+LM_HEAD_FLOPS = 6 * LM_TOKENS * LM["d_model"] * LM["vocab"]
+# (name, its module under ops/ and wrapper there, whose plain version is
+# the wrapper's name + "_ref"; source, the TPU kernel it replaces, the
+# launch counts it makes)
+LM_KERNELS = (
+    ("flash_attn_fwd", "flash_attention", "flash_attention_fwd",
+     "flash_attn_fwd.cu", "ops/pallas_attention.py:149", ("flash_attn_fwd",)),
+    ("flash_attn_bwd", "flash_attention", "flash_attention_bwd",
+     "flash_attn_bwd.cu", "ops/pallas_attention.py:254",
+     ("flash_attn_dq", "flash_attn_dkv")),
+    ("head_xent_stats", "fused_xent", "head_xent_stats", "head_xent_fwd.cu",
+     "ops/pallas_xent.py:186", ("head_xent_stats",)),
+    ("head_xent_bwd", "fused_xent", "head_xent_bwd", "head_xent_bwd.cu",
+     "ops/pallas_xent.py:245", ("head_xent_dh", "head_xent_dw")))
+LM_NAMES = tuple(k[0] for k in LM_KERNELS)
+# kernel cases: flash (shape, heads, T, dh, causal) and head (shape, N, d,
+# V): the main path's and ragged ones that no tile divides
+FLASH_SHAPES = (("main", LM["batch"] * LM["n_heads"], LM["seq_len"],
+                 LM["d_model"] // LM["n_heads"], True),
+                ("ragged", 24, 200, 40, True), ("ragged", 24, 200, 40, False))
+HEAD_SHAPES = (("main", LM_TOKENS, LM["d_model"], LM["vocab"]),
+               ("ragged", 1000, 200, 50257))
+# One step's gradients, leaf by leaf: the kernel path's relative error
+# against float64 at most LM_GRAD_RATIO times the cuBLAS f32 oracle
+# path's (two f32 paths are not held to a fixed tolerance, PERF.md §6).
+LM_GRAD_RATIO = 2.0
+LM_LOSS_TOL = 1e-5
 
 
 def card_line() -> str:
@@ -505,10 +549,11 @@ FFN_WRAPPERS = {"ffn_fwd": ("ffn_fwd_fused", "ffn_fwd_ref"),
 
 
 @contextlib.contextmanager
-def recorded_calls(ff):
-    """Within the block, every call of the three FFN wrappers of module
-    ``ff`` is recorded as ``(kernel, args, kwargs, outputs)``, with copies
-    of the tensors (SGD updates the params in place)."""
+def recorded_calls(wrappers):
+    """Within the block, every call of each wrapper ``module.attr`` of
+    ``wrappers`` (``{kernel: (module, attr)}``) is recorded as ``(kernel,
+    args, kwargs, outputs)``, with copies of the tensors (SGD updates the
+    params in place); ``outputs`` is a tuple."""
     calls, saved = [], {}
 
     def recorder(name, fn):
@@ -520,14 +565,14 @@ def recorded_calls(ff):
             return out
         return call
 
-    for name, (wrapper, _) in FFN_WRAPPERS.items():
-        saved[wrapper] = getattr(ff, wrapper)
-        setattr(ff, wrapper, recorder(name, saved[wrapper]))
+    for name, (mod, attr) in wrappers.items():
+        saved[(mod, attr)] = getattr(mod, attr)
+        setattr(mod, attr, recorder(name, saved[(mod, attr)]))
     try:
         yield calls
     finally:
-        for wrapper, fn in saved.items():
-            setattr(ff, wrapper, fn)
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
 
 
 def row_err(torch, got, want):
@@ -642,7 +687,8 @@ def train_phase(torch, np, card):
     ratio = max(k / max(m, 1e-30) for k, m in zip(kernel_err, matmul_err))
 
     # per block: the trainer's own kernel calls of one step (BLOCK_TOL)
-    with recorded_calls(ff) as calls:
+    with recorded_calls({n: (ff, w) for n, (w, _) in
+                         FFN_WRAPPERS.items()}) as calls:
         train_single(params, seeds[:1], tokens, d, lr=LR, use_pallas=True)
     blocks = block_errors(torch, ff, calls)
     per_kernel = {n: sum(b["kernel"] == n for b in blocks)
@@ -741,9 +787,357 @@ def ffn_kernel_rows(cases, launches):
     return rows
 
 
+# -- LM kernels ---------------------------------------------------------------
+
+def causal_pairs(tq, tk, causal):
+    """(query, key) pairs the attention needs."""
+    if not causal:
+        return tq * tk
+    return sum(min(i + 1, tk) for i in range(tq))
+
+
+def lm_bound(name, shape, mxu_bf16):
+    """Least time of one call: its flops at the rate of its operand type
+    against the bytes it must move (each f32 input read once, each
+    output written once) over the HBM rate. The flops are the function's,
+    not the kernels': flash counts the pairs the causal mask leaves, two
+    products forward and five backward (s, dp, dq, dk, dv); the head one
+    product for its statistics and three backward (z, dh, dw). The
+    backward kernels execute more (7 and 4 products): each of their two
+    launches recomputes the score and dp tiles, or the logit tiles."""
+    if name.startswith("flash"):
+        bh, t, dh, causal = shape
+        pairs = bh * causal_pairs(t, t, causal)
+        flops = (4 if name == "flash_attn_fwd" else 10) * dh * pairs
+        floats = (4 * bh * t * dh + bh * t if name == "flash_attn_fwd"
+                  else 8 * bh * t * dh + bh * t)
+    else:
+        n, d, v = shape
+        flops = (2 if name == "head_xent_stats" else 6) * n * d * v
+        floats = (n * d + v * d + 3 * n if name == "head_xent_stats"
+                  else 2 * n * d + 2 * v * d + 2 * n)
+    t_ops = flops / (BF16_FLOPS_PER_S if mxu_bf16 else F32_FLOPS_PER_S) * 1e3
+    t_bytes = 4 * floats / HBM_BYTES_PER_S * 1e3
+    return flops, ((t_ops, "operations") if t_ops >= t_bytes
+                   else (t_bytes, "bytes"))
+
+
+def sdpa_ms(torch, timer, q, k, v, dy, causal, backward):
+    """The library yardstick: f32 scaled_dot_product_attention on the
+    same inputs, forward alone or forward + backward."""
+    import torch.nn.functional as F
+    if not backward:
+        return timer.ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        torch.autograd.grad(out, leaves, dy)
+    return timer.ms(fwd_bwd)
+
+
+def lm_case_row(torch, timer, name, shape_tag, shape, mxu_bf16, kern, plain,
+                library):
+    """One kernel against its plain version: per-output error over max
+    |plain|, a bit-identical repeat, times and bound."""
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    want = plain()
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    scales = [float(w.abs().max()) for w in want]
+    rel = max(e / s for e, s in zip(errs, scales))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    flops, (b_ms, b_by) = lm_bound(name, shape, mxu_bf16)
+    ms = timer.ms(kern)
+    row = dict(kernel=name, shape=shape_tag, dims=list(shape),
+               mxu_bf16=mxu_bf16, max_abs_err=max(errs), rel_err=rel,
+               plain_max_abs=scales, tol=FFN_TOL[mxu_bf16],
+               deterministic=same,
+               ok=finite and same and rel <= FFN_TOL[mxu_bf16],
+               ms=ms, plain_ms=timer.ms(plain), bound_ms=b_ms,
+               bound_by=b_by, tflops_per_s=flops / ms / 1e9,
+               library_ms=library)
+    print("lm-kernel-case " + json.dumps(row), flush=True)
+    return row
+
+
+def lm_kernel_phase(torch, np, timer):
+    """The four LM kernels against their plain versions at the main
+    path's shapes and ragged ones, both operand modes (limits
+    ``FFN_TOL``: 1e-4 f32, 2e-3 bf16 operands)."""
+    from distributed_llm_code_samples_tpu_torch.ops import fused_xent as fx
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        flash_attention as fa)
+    rows = []
+    for n, (tag, bh, t, dh, causal) in enumerate(FLASH_SHAPES):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(200 + n)
+        q, k, v = (torch.randn(bh, t, dh, generator=gen, device="cuda")
+                   for _ in range(3))
+        dy = 0.1 * torch.randn(bh, t, dh, generator=gen, device="cuda")
+        y, lse = fa.flash_attention_fwd_ref(q, k, v, causal=causal)
+        lib_f = sdpa_ms(torch, timer, q, k, v, dy, causal, False)
+        lib_b = sdpa_ms(torch, timer, q, k, v, dy, causal, True)
+        for mxu_bf16 in (False, True):
+            kw = dict(causal=causal, mxu_bf16=mxu_bf16)
+            rows.append(lm_case_row(
+                torch, timer, "flash_attn_fwd", tag, (bh, t, dh, causal),
+                mxu_bf16, partial(fa.flash_attention_fwd, q, k, v, **kw),
+                partial(fa.flash_attention_fwd_ref, q, k, v, **kw), lib_f))
+            rows.append(lm_case_row(
+                torch, timer, "flash_attn_bwd", tag, (bh, t, dh, causal),
+                mxu_bf16,
+                partial(fa.flash_attention_bwd, dy, q, k, v, y, lse, **kw),
+                partial(fa.flash_attention_bwd_ref, dy, q, k, v, y, lse,
+                        **kw), lib_b))
+        del q, k, v, dy, y, lse
+    for n, (tag, tokens, d, vocab) in enumerate(HEAD_SHAPES):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(300 + n)
+        h = torch.randn(tokens, d, generator=gen, device="cuda")
+        w = 0.02 * torch.randn(vocab, d, generator=gen, device="cuda")
+        tgt = torch.randint(0, vocab, (tokens,), generator=gen,
+                            device="cuda")
+        tgt[-1] = vocab - 1                      # the last column
+        lse = fx.head_xent_stats_ref(h, w, tgt)[0]
+        dy = torch.tensor(1.0, device="cuda")
+        for mxu_bf16 in (False, True):
+            kw = dict(mxu_bf16=mxu_bf16)
+            rows.append(lm_case_row(
+                torch, timer, "head_xent_stats", tag, (tokens, d, vocab),
+                mxu_bf16, partial(fx.head_xent_stats, h, w, tgt, **kw),
+                partial(fx.head_xent_stats_ref, h, w, tgt, **kw), None))
+            rows.append(lm_case_row(
+                torch, timer, "head_xent_bwd", tag, (tokens, d, vocab),
+                mxu_bf16, partial(fx.head_xent_bwd, dy, h, w, tgt, lse, **kw),
+                partial(fx.head_xent_bwd_ref, dy, h, w, tgt, lse, **kw),
+                None))
+        del h, w, tgt, lse
+    return rows
+
+
+# -- LM training phase ---------------------------------------------------------
+
+def lm_wrappers():
+    """``{kernel: (module, wrapper name)}`` of the four LM wrappers, from
+    ``LM_KERNELS``."""
+    import importlib
+    return {name: (importlib.import_module(
+        f"distributed_llm_code_samples_tpu_torch.ops.{mod}"), attr)
+        for name, mod, attr, *_ in LM_KERNELS}
+
+
+def lm_call_errors(torch, wrappers, calls):
+    """For each recorded call: its error against float64 on its own inputs
+    (the plain version), and the control's: the same call with ``causal``
+    flipped (flash) or with bf16 operands (head). The error is
+    ``row_err``'s 99th percentile over rows; it passes over the rows that
+    are zero in exact arithmetic, such as each head's first row of dq
+    (``ds_00 = p_00 (dp_00 - D_0) = 0``), 1 row in 512 at the LM shape."""
+    rows = []
+    for name, args, kw, outs in calls:
+        mod, attr = wrappers[name]
+        args64 = [a.double() if a.is_floating_point() else a for a in args]
+        want = getattr(mod, attr + "_ref")(*args64, **kw)
+        flip = ({"causal": not kw.get("causal", True)}
+                if name.startswith("flash") else {"mxu_bf16": True})
+        control = getattr(mod, attr)(*args, **dict(kw, **flip))
+
+        def err(got):
+            return max(row_err(torch, g.reshape(-1, g.shape[-1])
+                               if g.dim() > 1 else g.reshape(1, -1),
+                               w.reshape(-1, w.shape[-1])
+                               if w.dim() > 1 else w.reshape(1, -1))
+                       for g, w in zip(got, want))
+        rows.append(dict(kernel=name,
+                         mxu_bf16=bool(kw.get("mxu_bf16", False)),
+                         err=err(outs), control_err=err(control)))
+    return rows
+
+
+def grad_errs(torch, got, want):
+    """Per leaf, ``|got - want| / |want|`` (Frobenius)."""
+    return [float((g.double() - w).norm() / w.norm())
+            for g, w in zip(got, want)]
+
+
+def lm_train_phase(torch, np, card):
+    """``train_lm_single`` at ``LM`` under the four attention x head
+    policies; the kernels' and the trainer's correctness against float64;
+    a profile. Returns the launches of the first kernel-path run."""
+    from distributed_llm_code_samples_tpu_torch import LR
+    from distributed_llm_code_samples_tpu_torch.data import (
+        lm_batch_from_seed, make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.lm import (
+        init_lm, lm_from_leaves, lm_leaves)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        lm_grads, resolve_attn, resolve_head, train_lm_single)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM["random_seed"])
+    params = init_lm(gen, LM["vocab"], LM["d_model"], LM["n_layers"],
+                     LM["seq_len"], n_heads=LM["n_heads"])
+    seeds = make_seed_schedule(LM["steps"], LM["random_seed"])
+    flops = LM_BLOCK_FLOPS + LM_HEAD_FLOPS
+    train = partial(train_lm_single, params, seeds, LM_TOKENS, LM["d_model"],
+                    lr=LR, seq_len=LM["seq_len"], n_heads=LM["n_heads"])
+
+    def run(label, attn_impl, head_impl):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        stamps = []
+
+        def on_step(_):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        t0 = time.perf_counter()
+        train(attn_impl=attn_impl, head_impl=head_impl, on_step=on_step)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        med = statistics.median(steps[1:])
+        print("lm-train-run " + json.dumps(dict(
+            run=label, attn_impl=attn_impl or "oracle",
+            head_impl=head_impl or "oracle", steps=len(steps),
+            tokens_per_step=LM_TOKENS, wall_s=wall, median_step_ms=1e3 * med,
+            first_step_ms=1e3 * steps[0], tokens_per_s=LM_TOKENS / med,
+            model_tflops_per_s=flops / med / 1e12,
+            f32_peak_share=flops / med / F32_FLOPS_PER_S,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            kernel_launches=launches, card=card)), flush=True)
+        steps_n, layers = LM["steps"], LM["n_layers"]
+        want = {"flash_attn_fwd": layers * steps_n if attn_impl else 0,
+                "flash_attn_dq": layers * steps_n if attn_impl else 0,
+                "flash_attn_dkv": layers * steps_n if attn_impl else 0,
+                "head_xent_stats": steps_n if head_impl else 0,
+                "head_xent_dh": steps_n if head_impl else 0,
+                "head_xent_dw": steps_n if head_impl else 0}
+        for kname, n in want.items():
+            check(launches.get(kname, 0) == n,
+                  f"{label}: {launches.get(kname, 0)} launches of {kname}, "
+                  f"expected {n}")
+        check(set(launches) <= set(want), f"{label}: launches {launches}")
+        return launches
+
+    launches = run("kernels-1", "flash", "fused")
+    run("kernels-2", "flash", "fused")
+    for attn_impl, head_impl in ((None, None), ("flash", None),
+                                 (None, "fused")):
+        run(f"{attn_impl or 'oracle'}+{head_impl or 'oracle'}", attn_impl,
+            head_impl)
+
+    # step 0 from the initial params: the loss of both paths, and the
+    # gradients of each f32 path against float64 (the oracle ops), leaf by
+    # leaf (LM_GRAD_RATIO); a zero gradient reads exactly 1 and fails
+    b = LM_TOKENS // LM["seq_len"]
+    toks, tgts = lm_batch_from_seed(int(seeds[0]), b, LM["seq_len"],
+                                    LM["vocab"], device="cuda")
+    n_heads = LM["n_heads"]
+    loss_k, g_k = lm_grads(params, toks, tgts, n_heads, resolve_attn("flash"),
+                           resolve_head("fused"))
+    loss_o, g_o = lm_grads(params, toks, tgts, n_heads)
+    p64 = lm_from_leaves([t.double() for t in lm_leaves(params)])
+    loss_64, g_64 = lm_grads(p64, toks, tgts, n_heads)
+    del p64
+    err_k, err_o = grad_errs(torch, g_k, g_64), grad_errs(torch, g_o, g_64)
+    del g_k, g_o, g_64
+    ratio = max(k / max(o, 1e-30) for k, o in zip(err_k, err_o))
+    zero_ratio = min(1.0 / max(o, 1e-30) for o in err_o)
+    loss_rel = abs(float(loss_k) - float(loss_o)) / abs(float(loss_o))
+
+    # per call: the trainer's own kernel calls of one step against float64
+    # on their inputs (BLOCK_TOL), with a control that must fail
+    wrappers = lm_wrappers()
+    with recorded_calls(wrappers) as calls:
+        train_lm_single(params, seeds[:1], LM_TOKENS, LM["d_model"], lr=LR,
+                        seq_len=LM["seq_len"], n_heads=n_heads,
+                        attn_impl="flash", head_impl="fused")
+    per_kernel = {n: sum(c[0] == n for c in calls) for n in LM_NAMES}
+    blocks = lm_call_errors(torch, wrappers, calls)
+    del calls
+    names = ("wte", "wpe", "ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w2",
+             "ln_f")
+    print("lm-train-check " + json.dumps(dict(
+        loss_kernel=float(loss_k), loss_oracle=float(loss_o),
+        loss_f64=float(loss_64), loss_rel_diff=loss_rel,
+        loss_tol=LM_LOSS_TOL,
+        grad_err_vs_f64_kernel=dict(zip(names, err_k)),
+        grad_err_vs_f64_oracle=dict(zip(names, err_o)),
+        grad_err_ratio_max=ratio, grad_ratio_limit=LM_GRAD_RATIO,
+        zero_grad_ratio_min=zero_ratio, block_calls=per_kernel,
+        block_bf16_calls=sum(b["mxu_bf16"] for b in blocks),
+        block_err_max={n: max(b["err"] for b in blocks if b["kernel"] == n)
+                       for n in LM_NAMES},
+        block_control_err_min={n: min(b["control_err"] for b in blocks
+                                      if b["kernel"] == n)
+                               for n in LM_NAMES},
+        block_tol=BLOCK_TOL, card=card)), flush=True)
+    check(loss_rel <= LM_LOSS_TOL,
+          f"kernel and oracle losses differ by {loss_rel:.2e} (relative)")
+    check(all(np.isfinite(err_k)), "kernel-path gradients are not finite")
+    check(ratio <= LM_GRAD_RATIO, f"kernel-path gradients {ratio:.2f}x as "
+          f"far from float64 as the f32 oracle path's")
+    check(zero_ratio > LM_GRAD_RATIO,
+          "the gradient check cannot tell a zero gradient from the oracle's")
+    want_calls = {"flash_attn_fwd": LM["n_layers"],
+                  "flash_attn_bwd": LM["n_layers"], "head_xent_stats": 1,
+                  "head_xent_bwd": 1}
+    check(per_kernel == want_calls,
+          f"one step made {per_kernel} kernel calls, expected {want_calls}")
+    check(not any(b["mxu_bf16"] for b in blocks),
+          "the trainer called a kernel with bf16 operands")
+    check(max(b["err"] for b in blocks) <= BLOCK_TOL,
+          "a kernel call of the trainer disagrees with float64")
+    check(min(b["control_err"] for b in blocks) > BLOCK_TOL,
+          "a kernel call's control does not fail the float64 check")
+
+    # where the device time goes in one kernel-path run (a traced run: the
+    # profiler's own cost is in its wall time)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train(attn_impl="flash", head_impl="fused")
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    print("lm-train-profile " + json.dumps(dict(
+        profile_summary(prof, wall_ms), card=card)), flush=True)
+    return launches
+
+
+def lm_kernel_rows(cases, launches):
+    rows = []
+    for name, _, _, src, replaces, counted in LM_KERNELS:
+        mine = [c for c in cases if c["kernel"] == name]
+        main = next(c for c in mine
+                    if c["shape"] == "main" and not c["mxu_bf16"])
+        main_bf16 = next(c for c in mine
+                         if c["shape"] == "main" and c["mxu_bf16"])
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"distributed_llm_code_samples_tpu_torch/csrc/{src}",
+            "replaces": f"distributed_llm_code_samples_tpu/{replaces}",
+            "launches": None if launches is None
+            else sum(launches.get(c, 0) for c in counted),
+            "launches_by_kernel": None if launches is None
+            else {c: launches.get(c, 0) for c in counted},
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "max_rel_err": max(c["rel_err"] for c in mine),
+            "ms": main["ms"], "ms_bf16": main_bf16["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "ok": all(c["ok"] for c in mine)})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phase", choices=["all", "kernel", "train"],
+    ap.add_argument("--phase", choices=["all", "kernel", "train", "lm"],
                     default="all")
     args = ap.parse_args(argv)
     try:
@@ -778,16 +1172,23 @@ def main(argv=None) -> int:
 
     timer = Timer(torch)
     kernels, bad = [], []
+    ffn_phases, lm_phases = ("all", "kernel", "train"), ("all", "lm")
     if args.phase in ("all", "kernel"):
         cases = kernel_phase(torch, np, timer)
         bad += [c for c in cases if not c["ok"]]
-    ffn_cases = ffn_kernel_phase(torch, np, timer)
-    bad += [c for c in ffn_cases if not c["ok"]]
-    launches = ffn_launches = None
+    if args.phase in ffn_phases:
+        ffn_cases = ffn_kernel_phase(torch, np, timer)
+        bad += [c for c in ffn_cases if not c["ok"]]
+    if args.phase in lm_phases:
+        lm_cases = lm_kernel_phase(torch, np, timer)
+        bad += [c for c in lm_cases if not c["ok"]]
+    launches = ffn_launches = lm_launches = None
     if not bad and args.phase == "all":
         launches = serving_phase(torch, np, card)
     if not bad and args.phase in ("all", "train"):
         ffn_launches = train_phase(torch, np, card)
+    if not bad and args.phase in lm_phases:
+        lm_launches = lm_train_phase(torch, np, card)
     if args.phase in ("all", "kernel"):
         main_case = next(c for c in cases if c["shape"] == "serving"
                          and c["kv_dtype"] == "f32")
@@ -805,7 +1206,10 @@ def main(argv=None) -> int:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
             "ok": all(c["ok"] for c in cases)})
-    kernels += ffn_kernel_rows(ffn_cases, ffn_launches)
+    if args.phase in ffn_phases:
+        kernels += ffn_kernel_rows(ffn_cases, ffn_launches)
+    if args.phase in lm_phases:
+        kernels += lm_kernel_rows(lm_cases, lm_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     if bad:
         print(f"error: kernel disagrees with its plain version: {bad}",
@@ -813,9 +1217,10 @@ def main(argv=None) -> int:
         return 1
     if args.phase != "all":
         return 0
+    # the smoke drives one device, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

@@ -18,18 +18,27 @@ walked by ``ops/stack.py``, inline SGD (``optim.py``) and
 kernels, the forward, the input gradient and the weight gradients
 (``csrc/ffn_*.cu``, bound by ``ops/fused_ffn.py``).
 
-Subpackages: ``ops`` (LayerNorm, linear, ReLU, the FFN block and stack,
-the kernels and their build), ``models`` (parameters, attention, the LM,
-the FFN stack), ``data`` (seed schedule and batches), ``parallel`` (the
-trainer), ``decode`` (paged pool, sampling, engine, CLI), ``runtime``
-(guardrails).
+Slice 3 is the single-device LM trainer,
+``parallel/lm.py::train_lm_single``: the hand-VJP LayerNorm, attention
+and cross-entropy (``ops/norm.py``, ``models/attention.py``,
+``ops/xent.py``) in the pre-LN stack of ``models/transformer.py`` and
+the LM of ``models/lm.py``. ``attn_impl="flash"`` runs flash attention in
+hand-written CUDA kernels (``csrc/flash_attn_*.cu``, bound by
+``ops/flash_attention.py``), ``head_impl="fused"`` the tied head and its
+loss (``csrc/head_xent_*.cu``, bound by ``ops/fused_xent.py``).
+
+Subpackages: ``ops`` (LayerNorm, linear, ReLU, cross-entropy, the FFN
+block and stack, the kernels and their build), ``models`` (parameters,
+attention, the transformer, the LM, the FFN stack), ``data`` (seed
+schedule and batches), ``parallel`` (the trainers), ``decode`` (paged
+pool, sampling, engine, CLI), ``runtime`` (guardrails).
 """
 
 from __future__ import annotations
 
 import torch
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 # Training hyperparameters of the reference workload (train_ffns.py:29-30),
 # the same values as the JAX package's.

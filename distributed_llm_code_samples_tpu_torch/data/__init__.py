@@ -66,6 +66,22 @@ def mock_data(seeds, batch_size: int, model_size: int, *,
                               device=device)
 
 
+def lm_batch_from_seed(seed, batch: int, seq_len: int, vocab: int, *,
+                       device="cpu"):
+    """One LM step's ``(tokens, targets)`` from its integer seed: a
+    ``[batch, seq_len + 1]`` uniform token draw from a ``torch.Generator``
+    on ``device`` seeded with the stripped seed, split next-token style
+    (``targets`` is ``tokens`` shifted left by one). int64. Its numbers
+    differ from the JAX package's draws: the tests hand JAX's batches to
+    ``train_lm_single(batch_fn=...)``."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(strip_poison(seed))
+    toks = torch.randint(0, vocab, (batch, seq_len + 1), generator=gen,
+                         device=device)
+    return toks[:, :-1], toks[:, 1:]
+
+
 def make_seed_schedule(num_steps: int, random_seed: int = 0) -> np.ndarray:
     """``num_steps`` int32 seeds in ``[0, 100_000)`` (``train_ffns.py:360``),
     bit for bit the JAX package's schedule: ``random_seed != 0`` seeds

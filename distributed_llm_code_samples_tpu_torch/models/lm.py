@@ -2,12 +2,16 @@
 final LayerNorm and a head tied to the token embedding (GPT-2 shape
 conventions, no biases), as in the JAX package's ``models/lm.py``.
 
-Besides the parameters it holds ``decode_attn`` (the single-query
-attention the decode engine's gather path and the kernel's plain version
-share), a greedy lockstep ``generate`` over a contiguous cache (an oracle
-for the engine that shares no paged code with it), and
-``lm_params_from_numpy``, which carries the JAX package's weights across
-so that both packages compute the same thing in the tests.
+Training: ``lm_hidden`` / ``lm_logits`` / ``lm_loss`` (the mean
+next-token cross-entropy, with a ``head`` hook for the fused head), and
+the parameters as a list of leaves in ``jax.tree_util.tree_leaves``
+order (``lm_leaves``, ``lm_from_leaves``, ``clone_lm``) for the trainer.
+Serving: ``decode_attn`` (the single-query attention the decode engine's
+gather path and the kernel's plain version share) and a greedy lockstep
+``generate`` over a contiguous cache (an oracle for the engine that
+shares no paged code with it). ``lm_params_from_numpy`` carries the JAX
+package's weights across so that both packages compute the same thing
+in the tests.
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ import torch
 from torch import nn
 
 from ..ops.norm import layernorm
+from ..ops.xent import xent_loss
 from .attention import rope
-from .transformer import FIELDS, TransformerParams, init_transformer
+from .transformer import (FIELDS, TransformerParams, init_transformer,
+                          transformer_fwd)
 
 
 class LMParams(nn.Module):
@@ -106,6 +112,59 @@ def lm_params_from_numpy(tree, device="cpu") -> LMParams:
                     TransformerParams(*(t(_field(blocks, f))
                                         for f in FIELDS)),
                     t(_field(tree, "ln_f")))
+
+
+def lm_leaves(params: LMParams) -> list[torch.Tensor]:
+    """The parameters in ``jax.tree_util.tree_leaves`` order of the JAX
+    ``LMParams``: ``wte, wpe, blocks.{ln1, wq, wk, wv, wo, ln2, w1, w2},
+    ln_f``."""
+    return ([params.wte, params.wpe]
+            + [getattr(params.blocks, f) for f in FIELDS] + [params.ln_f])
+
+
+def lm_from_leaves(leaves) -> LMParams:
+    """``LMParams`` over the tensors of ``lm_leaves`` order (not copied)."""
+    leaves = list(leaves)
+    return LMParams(leaves[0], leaves[1], TransformerParams(*leaves[2:-1]),
+                    leaves[-1])
+
+
+def clone_lm(params: LMParams) -> LMParams:
+    """A copy of every parameter."""
+    return lm_from_leaves(t.clone() for t in lm_leaves(params))
+
+
+def lm_hidden(params: LMParams, tokens: torch.Tensor, n_heads: int,
+              attn=None) -> torch.Tensor:
+    """Embed, blocks, final LN: ``tokens [B, T]`` int -> ``[B, T, d]``."""
+    t = tokens.shape[1]
+    x = params.wte[tokens.long()] + params.wpe[:t]
+    x = transformer_fwd(params.blocks, x, n_heads, causal=True, attn=attn)
+    return layernorm(params.ln_f, x)
+
+
+def lm_logits(params: LMParams, tokens: torch.Tensor, n_heads: int,
+              attn=None) -> torch.Tensor:
+    """``tokens [B, T]`` -> logits ``[B, T, V]`` through the tied head."""
+    return lm_hidden(params, tokens, n_heads, attn) @ params.wte.T
+
+
+def lm_loss(params: LMParams, tokens: torch.Tensor, targets: torch.Tensor,
+            n_heads: int, attn=None, head=None) -> torch.Tensor:
+    """Mean next-token cross-entropy; ``tokens, targets [B, T]`` int.
+    ``head`` swaps the tied head and loss: None builds the ``[N, V]``
+    logits and runs the hand-VJP ``xent_loss`` (the oracle); a callable
+    ``(h [N, d], wte [V, d], targets [N]) -> loss`` takes the trunk output
+    directly (the fused kernels, ``parallel.lm.resolve_head``). ``wte``
+    gets gradient from the embedding gather and from the head; autograd
+    sums the two."""
+    if head is not None:
+        h = lm_hidden(params, tokens, n_heads, attn)
+        return head(h.reshape(-1, h.shape[-1]), params.wte,
+                    targets.reshape(-1))
+    logits = lm_logits(params, tokens, n_heads, attn)
+    return xent_loss(logits.reshape(-1, logits.shape[-1]),
+                     targets.reshape(-1))
 
 
 def decode_attn(q, ck, cv, lengths):

@@ -24,6 +24,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
@@ -131,3 +133,45 @@ def load_library(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(_target(name))
                 _libs[name] = lib
     return lib
+
+
+def on_card(name: str, *tensors) -> bool:
+    """False for CPU tensors (the plain version runs); True for CUDA
+    tensors that the kernel takes (float32, contiguous, one device);
+    raises on anything else."""
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: all operands must be on {dev}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"{name}: the kernel takes float32 storage, got "
+                         f"{[str(t.dtype) for t in tensors]}")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: all operands must be contiguous")
+    return True
+
+
+def bind(name: str, fn: str, n_ptrs: int, n_ints: int):
+    """``csrc/<name>.cu``'s C function ``fn`` taking ``n_ptrs`` pointers,
+    ``n_ints`` ints and the stream, returning a cudaError_t as int. Every
+    pointer and the stream are passed as ``c_void_p``: left to ctypes'
+    default they would be cut to 32 bits."""
+    f = getattr(load_library(name), fn)
+    if f.argtypes is None:
+        f.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                      + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+    return f
+
+
+def launch(name: str, fn: str, ptrs, ints, device, count_as: str) -> None:
+    """Launch ``fn`` of ``csrc/<name>.cu`` on ``device``'s current stream,
+    raise on a CUDA error, and count one launch of ``count_as``."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = bind(name, fn, len(ptrs), len(ints))(*ptrs, *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")
+    count_launch(count_as)

@@ -20,8 +20,6 @@ from run to run.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
@@ -85,47 +83,16 @@ def _check(x, w1, w2, dy=None):
     return t, d, ffn
 
 
-def _on_card(name, *tensors) -> bool:
-    """False for CPU tensors (the plain version runs); True for CUDA
-    tensors that the kernel takes; raises on anything else."""
-    dev = tensors[0].device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: all operands must be on {dev}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError(f"{name}: the kernel takes float32 storage, got "
-                         f"{[str(t.dtype) for t in tensors]}")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: all operands must be contiguous")
-    return True
-
-
-def _bind(name: str, n_ptrs: int):
-    fn = getattr(_build.load_library(name), f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(name, ptrs, t, d, ffn, mxu_bf16, device):
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = _bind(name, len(ptrs))(*ptrs, t, d, ffn, int(bool(mxu_bf16)),
-                                stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    _build.count_launch(name)
+    _build.launch(name, f"{name}_launch", ptrs,
+                  (t, d, ffn, int(bool(mxu_bf16))), device, name)
 
 
 def ffn_fwd_fused(w1, w2, x, *, mxu_bf16: bool = False):
     """Fused linear -> ReLU -> linear forward, ``[T, d]``; the hidden
     tiles never leave the chip. CPU tensors run ``ffn_fwd_ref``."""
     t, d, ffn = _check(x, w1, w2)
-    if not _on_card(FWD, x, w1, w2):
+    if not _build.on_card(FWD, x, w1, w2):
         return ffn_fwd_ref(w1, w2, x, mxu_bf16=mxu_bf16)
     y = torch.empty_like(x)
     _launch(FWD, [x.data_ptr(), w1.data_ptr(), w2.data_ptr(), y.data_ptr()],
@@ -137,7 +104,7 @@ def ffn_bwd_dx_fused(dy, w1, w2, x, *, mxu_bf16: bool = False):
     """Input gradient ``dx [T, d]`` with the pre-activation recomputed.
     CPU tensors run ``ffn_bwd_dx_ref``."""
     t, d, ffn = _check(x, w1, w2, dy)
-    if not _on_card(BWD_DX, x, dy, w1, w2):
+    if not _build.on_card(BWD_DX, x, dy, w1, w2):
         return ffn_bwd_dx_ref(dy, w1, w2, x, mxu_bf16=mxu_bf16)
     dx = torch.empty_like(x)
     _launch(BWD_DX, [x.data_ptr(), dy.data_ptr(), w1.data_ptr(),
@@ -152,7 +119,7 @@ def ffn_bwd_dw_fused(dy, w1, w2, x, *, mxu_bf16: bool = False):
     (``csrc/ffn_bwd_dw.cu`` says why). CPU tensors run
     ``ffn_bwd_dw_ref``."""
     t, d, ffn = _check(x, w1, w2, dy)
-    if not _on_card(BWD_DW, x, dy, w1, w2):
+    if not _build.on_card(BWD_DW, x, dy, w1, w2):
         return ffn_bwd_dw_ref(dy, w1, w2, x, mxu_bf16=mxu_bf16)
     dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
     scratch = torch.empty(2, t, ffn, dtype=torch.float32, device=x.device)

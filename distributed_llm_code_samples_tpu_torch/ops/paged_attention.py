@@ -17,8 +17,6 @@ another order, so the two are not bit-identical.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
@@ -90,16 +88,6 @@ def paged_decode_attn_ref(q, pool_k, pool_v, k_scale, v_scale, tables,
     return torch.einsum("bkgt,bktd->bkgd", p, v).reshape(b, hq, dh)
 
 
-def _bind():
-    lib = _build.load_library(NAME)
-    fn = lib.paged_decode_attn_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _ptr(x):
     return None if x is None else x.data_ptr()
 
@@ -143,12 +131,8 @@ def paged_decode_attn(q, pool_k, pool_v, k_scale, v_scale, tables, lengths):
             f"score row of {mb * blk} positions x {hq // hkv} query rows; "
             f"a block has {_MAX_SMEM}")
     y = torch.empty_like(q)
-    rc = _bind()(_ptr(q), _ptr(pool_k), _ptr(pool_v), _ptr(k_scale),
-                 _ptr(v_scale), _ptr(tables), _ptr(lengths), _ptr(y),
-                 b, hq, hkv, blk, dh, mb, _DTYPE_CODES[pool_k.dtype],
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_decode_attn kernel launch failed: CUDA "
-                           f"error {rc}")
-    _build.count_launch(NAME)
+    _build.launch(NAME, "paged_decode_attn_launch",
+                  [_ptr(t) for t in tensors] + [_ptr(y)],
+                  (b, hq, hkv, blk, dh, mb, _DTYPE_CODES[pool_k.dtype]),
+                  q.device, NAME)
     return y

@@ -38,7 +38,9 @@ def _sources():
 def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("decode.engine", "cli", "ops.fused_ffn", "parallel.single",
-              "data", "optim", "models.ffn_stack"):
+              "data", "optim", "models.ffn_stack", "ops.flash_attention",
+              "ops.fused_xent", "ops.xent", "parallel.lm",
+              "parallel.transformer"):
         assert f"distributed_llm_code_samples_tpu_torch.{m}" in mods
     code = ("import sys; sys.modules['jax'] = None; "
             "import importlib; "
