@@ -5,6 +5,10 @@
     python3 chip_smoke.py --phase kernel   # build + hold the kernels only
     python3 chip_smoke.py --phase train    # the FFN kernels + training
     python3 chip_smoke.py --phase lm       # the LM kernels + LM training
+    python3 chip_smoke.py --phase ring     # the ring kernels + DDP/FSDP,
+                                           # 4 virtual ranks on one card
+    python3 chip_smoke.py --phase dist     # the same on 4 cards (not in
+                                           # the default run)
 
 Builds every kernel of the port from ``csrc/``, holds each against its
 plain PyTorch version on the card, times both, then drives the port's
@@ -24,7 +28,16 @@ three paths:
   LM-family shape (the GPT-2-small width above, 12 layers, 16 sequences
   of 512 tokens a step, random weights from a seed) under every
   attention x head policy: flash attention and the fused head through
-  their four kernels, and the oracle ops.
+  their four kernels, and the oracle ops;
+- data parallelism: ``train_ddp`` and ``train_fsdp`` of that FFN stack
+  on 4 ranks, 8 steps a rank, every collective one of the four ring
+  kernels (the one hop, all-reduce, reduce-scatter and all-gather of
+  ``csrc/ring_collectives.cu``). The default run holds the 4 ranks on
+  one card in loopback (n workspaces, one cooperative launch a call);
+  ``--phase dist``, not part of the default run, spawns one rank a card
+  on 4 cards over NCCL and peer-mapped memory, holds each kernel against
+  its plain ring and NCCL, trains both strategies under both transports
+  and profiles rank 0.
 
 It fails (exit code 1) if there is no CUDA device, if a kernel does not
 build, launch or agree, if a kernel path did not go through its
@@ -1135,9 +1148,607 @@ def lm_kernel_rows(cases, launches):
     return rows
 
 
+# -- ring collectives ----------------------------------------------------------
+
+RING_N = 4                        # ranks of the data-parallel slice
+NVLINK_BYTES_PER_S = 450e9        # H100 SXM NVLink, each way
+# (name, the TPU kernel it replaces); all four in csrc/ring_collectives.cu
+RING_KERNELS = (("ppermute_dma", "ops/pallas_ring.py:151"),
+                ("ring_all_reduce", "ops/pallas_ring.py:190"),
+                ("ring_reduce_scatter", "ops/pallas_ring.py:328"),
+                ("ring_all_gather", "ops/pallas_ring.py:406"))
+RING_NAMES = tuple(k[0] for k in RING_KERNELS)
+D_MODEL = TRAIN["d_model"]
+# (kernel, shape tag, per-rank input shape): the slice's (DDP's all-reduce
+# of each layer's dw1 and dw2; FSDP's gathers of the w1 and w2 shards and
+# its scatters of the full gradients; the hop of one [768, 3072] block)
+# and a ragged one each (chunks of 105 floats: the scalar path)
+RING_CASES = (("ring_all_reduce", "dw1", (FFN_DIM, D_MODEL)),
+              ("ring_all_reduce", "dw2", (D_MODEL, FFN_DIM)),
+              ("ring_reduce_scatter", "dw1", (FFN_DIM, D_MODEL)),
+              ("ring_reduce_scatter", "dw2", (D_MODEL, FFN_DIM)),
+              ("ring_all_gather", "w1_shard", (FFN_DIM // RING_N, D_MODEL)),
+              ("ring_all_gather", "w2_shard", (D_MODEL // RING_N, FFN_DIM)),
+              ("ppermute_dma", "block", (D_MODEL, FFN_DIM)),
+              ("ring_all_reduce", "ragged", (RING_N * 7, 5, 3)),
+              ("ring_reduce_scatter", "ragged", (RING_N * 7, 5, 3)),
+              ("ring_all_gather", "ragged", (7, 5, 3)),
+              ("ppermute_dma", "ragged", (7, 5, 3)))
+# the case whose times stand in the kernels line
+RING_MAIN = {"ppermute_dma": "block", "ring_all_reduce": "dw1",
+             "ring_reduce_scatter": "dw1", "ring_all_gather": "w1_shard"}
+# a ring call against float64 on its n inputs: max |out - want| / max
+# |want|. Four f32 terms summed in any order land within a few ulps of the
+# sum's largest partial; the control leaves one rank's contribution out
+# (sums), or takes a rank's own block for its neighbour's (copies).
+RING_TOL = 1e-5
+
+
+def ring_want(torch, op, xs, control=False):
+    """What each of the n ranks must hold after ``op`` on ``xs`` (one
+    input a rank), in float64; ``control`` gives a wrong answer that the
+    check must reject."""
+    n = len(xs)
+    x64 = [x.double() for x in xs]
+    if op == "ppermute_dma":
+        return [x64[(r if control else r - 1) % n] for r in range(n)]
+    if op == "ring_all_gather":
+        order = [1, 0] + list(range(2, n)) if control else range(n)
+        full = torch.cat([x64[i] for i in order])
+        return [full] * n
+    outs = []
+    for r in range(n):
+        total = sum(x64[i] for i in range(n)
+                    if not (control and i == (r + 1) % n))
+        outs.append(total if op == "ring_all_reduce" else
+                    total.chunk(n)[r])
+    return outs
+
+
+def ring_err(torch, outs, want):
+    """max |out - want| over the ranks, over max |want|."""
+    scale = max(float(w.abs().max()) for w in want) or 1.0
+    return max(float((o.double() - w).abs().max())
+               for o, w in zip(outs, want)) / scale
+
+
+def ring_bytes(op, in_bytes, n):
+    """Bytes one rank sends over its link (and receives) in ``op`` on an
+    ``in_bytes`` input: 2(n-1)/n of the tensor for the all-reduce, (n-1)/n
+    of the full tensor for the reduce-scatter and the all-gather, the
+    block for the hop."""
+    return {"ring_all_reduce": 2 * (n - 1) * in_bytes / n,
+            "ring_reduce_scatter": (n - 1) * in_bytes / n,
+            "ring_all_gather": (n - 1) * in_bytes,
+            "ppermute_dma": in_bytes}[op]
+
+
+def ring_loopback_bound(op, in_bytes, n):
+    """Least time of one loopback call on one card: the n inputs read and
+    the n outputs written once, over the HBM rate (no link is crossed)."""
+    out_bytes = {"ring_reduce_scatter": in_bytes / n,
+                 "ring_all_gather": in_bytes * n}.get(op, in_bytes)
+    return n * (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def ring_kernel_phase(torch, np, timer):
+    """The four ring kernels in loopback (``RING_N`` virtual ranks on one
+    card, one cooperative launch) against their plain versions (the same
+    ring order in plain torch over the n tensors): bit-identical, with a
+    bit-identical repeat, at the slice's shapes and ragged ones."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    ws = ring.PeerWorkspace(4 * FFN_DIM * D_MODEL, "cuda", n=RING_N)
+    rows = []
+    try:
+        for k, (op, tag, shape) in enumerate(RING_CASES):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(400 + k)
+            xs = [torch.randn(shape, generator=gen, device="cuda")
+                  for _ in range(RING_N)]
+            got = ring.loopback(op, xs, ws)
+            again = ring.loopback(op, xs, ws)
+            torch.cuda.synchronize()
+            ws.check()
+            want = ring.loopback_ref(op, xs)
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            exact = all(torch.equal(g, w) for g, w in zip(got, want))
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            f64 = ring_err(torch, got, ring_want(torch, op, xs))
+            f64_control = ring_err(torch, got,
+                                   ring_want(torch, op, xs, control=True))
+            b_ms, b_by = ring_loopback_bound(op, 4 * xs[0].numel(), RING_N)
+            row = dict(kernel=op, shape=tag, dims=list(shape),
+                       ranks=RING_N, mode="loopback", max_abs_err=err,
+                       bit_identical=exact, deterministic=same,
+                       err_vs_f64=f64, control_err_vs_f64=f64_control,
+                       ok=finite and same and exact and f64 <= RING_TOL
+                       and f64_control > RING_TOL,
+                       ms=timer.ms(lambda: ring.loopback(op, xs, ws)),
+                       plain_ms=timer.ms(lambda: ring.loopback_ref(op, xs)),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            rows.append(row)
+            print("ring-kernel-case " + json.dumps(row), flush=True)
+            del xs, got, again, want
+    finally:
+        ws.close()
+    return rows
+
+
+@contextlib.contextmanager
+def checked_ring_calls(torch, ring):
+    """Within the block every loopback ring call is held against float64
+    on its n inputs (and its control), as it happens: yields the list of
+    ``(kernel, err, control_err)``."""
+    seen, inner = [], ring.loopback
+
+    def launch(op, xs, ws):
+        outs = inner(op, xs, ws)
+        seen.append((op, ring_err(torch, outs, ring_want(torch, op, xs)),
+                     ring_err(torch, outs, ring_want(torch, op, xs,
+                                                     control=True))))
+        return outs
+
+    ring.loopback = launch
+    try:
+        yield seen
+    finally:
+        ring.loopback = inner
+
+
+def ring_train_phase(torch, np, card):
+    """DDP and FSDP of the FFN stack at ``TRAIN``'s width on ``RING_N``
+    virtual ranks of one card, every collective a ring kernel (loopback):
+    8 steps a rank, 8192 tokens a rank a step. Returns the launches of the
+    two runs."""
+    from distributed_llm_code_samples_tpu_torch import LR
+    from distributed_llm_code_samples_tpu_torch.data import (
+        make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts, ring)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        DATA_AXIS, launch, make_mesh, train_ddp, train_fsdp, unshard_params)
+    d, n_layers, tokens = TRAIN["d_model"], TRAIN["n_layers"], TRAIN["tokens"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TRAIN["random_seed"])
+    params = init_ffn_stack(gen, d, n_layers)
+    seeds = make_seed_schedule(RING_N * TRAIN["steps"], TRAIN["random_seed"])
+    mesh = make_mesh({DATA_AXIS: RING_N}, loopback=True)
+    flops = 12 * tokens * d * FFN_DIM * n_layers * RING_N
+    trainers = {"ddp": train_ddp, "fsdp": train_fsdp}
+
+    def run(name, seeds, lr):
+        def body(me, _):
+            stamps = []
+
+            def on_step(_):
+                if me.rank == 0:
+                    torch.cuda.synchronize()
+                    stamps.append(time.perf_counter())
+            out = trainers[name](params, seeds, tokens, d, me, lr=lr,
+                                 comm="pallas_ring", on_step=on_step)
+            return out, stamps
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = launch(body, mesh)
+        return outs, t0, launch_counts()
+
+    steps_n = TRAIN["steps"]
+    want = {"ddp": {"ring_all_reduce": 2 * n_layers * steps_n,
+                    "ppermute_dma": 1},
+            "fsdp": {"ring_all_gather": 4 * n_layers * steps_n,
+                     "ring_reduce_scatter": 2 * n_layers * steps_n,
+                     "ppermute_dma": 1}}
+    launches = {}
+    for name in ("ddp", "fsdp"):
+        outs, t0, got = run(name, seeds, LR)
+        stamps = outs[0][1]
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        med = statistics.median(steps[1:])
+        print("ring-train-run " + json.dumps(dict(
+            run=f"{name}-loopback", ranks=RING_N, mode="loopback",
+            steps_per_rank=len(steps), tokens_per_rank_step=tokens,
+            median_step_ms=1e3 * med, first_step_ms=1e3 * steps[0],
+            tokens_per_s=RING_N * tokens / med,
+            model_tflops_per_s=flops / med / 1e12,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            kernel_launches=got, card=card)), flush=True)
+        check(got == want[name], f"{name} loopback: launches {got}, "
+              f"expected {want[name]}")
+        launches[name] = got
+        del outs
+
+    # one step a rank at CHECK_LR, every ring call held against float64 as
+    # it happens; then DDP's update against FSDP's (the same per-rank
+    # gradients, summed in two ring orders)
+    with checked_ring_calls(torch, ring) as calls:
+        ddp = run("ddp", seeds[:RING_N], CHECK_LR)[0][0][0]
+        fsdp = unshard_params([o[0] for o in
+                               run("fsdp", seeds[:RING_N], CHECK_LR)[0]])
+    calls_by = {n: sum(c[0] == n for c in calls) for n in RING_NAMES}
+    du = sum(float((a.double() - p.double()).norm() ** 2)
+             for a, p in zip(ddp, params)) ** 0.5
+    diff = sum(float((a.double() - b.double()).norm() ** 2)
+               for a, b in zip(ddp, fsdp)) ** 0.5
+    err_max = {n: max([c[1] for c in calls if c[0] == n], default=None)
+               for n in RING_NAMES}
+    control_min = {n: min([c[2] for c in calls if c[0] == n], default=None)
+                   for n in RING_NAMES}
+    print("ring-train-check " + json.dumps(dict(
+        calls=calls_by, call_err_vs_f64_max=err_max,
+        call_control_err_min=control_min, ring_tol=RING_TOL,
+        check_lr=CHECK_LR, ddp_vs_fsdp_update_err=diff / du,
+        unchanged_update_err=1.0, card=card)), flush=True)
+    check(calls_by == {"ppermute_dma": 2, "ring_all_reduce": 2 * n_layers,
+                       "ring_all_gather": 4 * n_layers,
+                       "ring_reduce_scatter": 2 * n_layers},
+          f"one step a rank made ring calls {calls_by}")
+    check(max(c[1] for c in calls) <= RING_TOL,
+          "a ring call of the trainers disagrees with float64")
+    check(min(c[2] for c in calls) > RING_TOL,
+          "a ring call's control passes the float64 check")
+    check(diff / du <= RING_TOL, f"DDP and FSDP updates differ by "
+          f"{diff / du:.2e} of the update")
+    return launches
+
+
+def ring_kernel_rows(cases, launches, mode="loopback"):
+    """The ring kernels' entries of the kernels line: launches from the
+    main path's runs, the rest from the main case of each."""
+    rows = []
+    for name, replaces in RING_KERNELS:
+        mine = [c for c in cases if c["kernel"] == name]
+        main = next(c for c in mine if c["shape"] == RING_MAIN[name])
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "distributed_llm_code_samples_tpu_torch/csrc/"
+                      "ring_collectives.cu",
+            "replaces": f"distributed_llm_code_samples_tpu/{replaces}",
+            "launches": None if launches is None
+            else sum(run.get(name, 0) for run in launches.values()),
+            "mode": mode, "ranks": RING_N,
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "ok": all(c["ok"] for c in mine)})
+    return rows
+
+
+# -- ring collectives across four cards -----------------------------------------
+
+def ring_dist_bound(op, in_bytes, n):
+    """Least time of one call on one rank of n cards: the bytes it sends
+    over its NVLink (``ring_bytes``) at the link's rate each way, against
+    its own input read and output written once at the HBM rate."""
+    out_bytes = {"ring_reduce_scatter": in_bytes / n,
+                 "ring_all_gather": in_bytes * n}.get(op, in_bytes)
+    t_link = ring_bytes(op, in_bytes, n) / NVLINK_BYTES_PER_S * 1e3
+    t_hbm = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    return max(t_link, t_hbm), "bytes"
+
+
+def _nccl_call(torch, dist, op, x):
+    """The NCCL collective that computes ``op`` on ``x`` (the kernels'
+    library yardstick), or None for the hop, which has none."""
+    n = dist.get_world_size()
+    if op == "ring_all_reduce":
+        y = x.clone()
+        dist.all_reduce(y)
+        return y
+    if op == "ring_reduce_scatter":
+        y = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                        device=x.device)
+        dist.reduce_scatter_tensor(y, x)
+        return y
+    if op == "ring_all_gather":
+        y = torch.empty((x.shape[0] * n,) + tuple(x.shape[1:]),
+                        device=x.device)
+        dist.all_gather_into_tensor(y, x)
+        return y
+    return None
+
+
+def _all_inputs(torch, dist, x):
+    xs = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(xs, x)
+    return xs
+
+
+def dist_rank(mesh, payload):
+    """One rank of ``--phase dist`` (its card is ``cuda:<rank>``): the
+    ring kernels across the cards against their plain rings (NCCL point to
+    point) and NCCL's collectives, then DDP and FSDP at ``TRAIN``'s width
+    under both transports, the per-call and per-step checks and a profile
+    on rank 0. Rank 0 prints; it returns the kernel cases and launches."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_llm_code_samples_tpu_torch import LR
+    from distributed_llm_code_samples_tpu_torch.data import (
+        make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts, ring)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        train_ddp, train_fsdp)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r, n, dev = mesh.rank, mesh.size, mesh.torch_device
+    card = payload["card"]
+    lead = r == 0
+
+    def say(tag, row):
+        if lead:
+            print(f"{tag} " + json.dumps(row), flush=True)
+
+    def gathered(value):
+        out = [None] * n
+        dist.all_gather_object(out, value)
+        return out
+
+    # -- each kernel across the cards ---------------------------------------
+    timer = Timer(torch)
+    rg = mesh.ring(4 * FFN_DIM * D_MODEL)
+    cases = []
+    for k, (op, tag, shape) in enumerate(RING_CASES):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(500 + 10 * k + r)
+        x = torch.randn(shape, generator=gen, device=dev)
+        kern = partial(getattr(ring, op), x, rg)
+        plain = partial(getattr(ring, op + "_ref"), x, rg)
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        mesh.check()
+        want = plain()
+        xs = _all_inputs(torch, dist, x)
+        f64 = [w[r] for w in (ring_want(torch, op, xs),
+                              ring_want(torch, op, xs, control=True))]
+        nccl = _nccl_call(torch, dist, op, x)
+        err = ring_err(torch, [got], [f64[0]])
+        row = dict(kernel=op, shape=tag, dims=list(shape), ranks=n,
+                   mode="4 cards", bit_identical_to_plain=torch.equal(got, want),
+                   deterministic=torch.equal(got, again),
+                   max_abs_err=float((got - want).abs().max()),
+                   err_vs_f64=err,
+                   control_err_vs_f64=ring_err(torch, [got], [f64[1]]),
+                   nccl_err_vs_f64=(None if nccl is None else
+                                    ring_err(torch, [nccl], [f64[0]])),
+                   ms=timer.ms(kern), plain_ms=timer.ms(plain),
+                   library_ms=(None if nccl is None else timer.ms(
+                       partial(_nccl_call, torch, dist, op, x))))
+        row["bound_ms"], row["bound_by"] = ring_dist_bound(
+            op, 4 * x.numel(), n)
+        every = gathered({key: row[key] for key in
+                          ("ms", "plain_ms", "library_ms", "err_vs_f64",
+                           "control_err_vs_f64", "bit_identical_to_plain",
+                           "deterministic")})
+        row["ms_max_over_ranks"] = max(e["ms"] for e in every)
+        row["ok"] = all(e["bit_identical_to_plain"] and e["deterministic"]
+                        and e["err_vs_f64"] <= RING_TOL
+                        and e["control_err_vs_f64"] > RING_TOL
+                        for e in every) and (
+            row["nccl_err_vs_f64"] is None
+            or row["nccl_err_vs_f64"] <= RING_TOL)
+        say("dist-kernel-case", row)
+        cases.append(row)
+        del x, xs, got, again, want, nccl, f64
+    del timer
+    mesh.close()
+    check(all(c["ok"] for c in cases), "a ring kernel across the cards "
+          "disagrees with its plain ring, NCCL or float64")
+
+    # -- DDP and FSDP at the FFN headline width -----------------------------
+    d, n_layers, tokens = TRAIN["d_model"], TRAIN["n_layers"], TRAIN["tokens"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRAIN["random_seed"])
+    params = init_ffn_stack(gen, d, n_layers)
+    seeds = make_seed_schedule(n * TRAIN["steps"], TRAIN["random_seed"])
+    trainers = {"ddp": train_ddp, "fsdp": train_fsdp}
+    flops = 12 * tokens * d * FFN_DIM * n_layers * n
+
+    def run(name, comm, seeds=seeds, lr=LR):
+        view = mesh.for_rank(r, group=mesh.group)
+        stamps = []
+
+        def on_step(_):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = trainers[name](params, seeds, tokens, d, view, lr=lr,
+                             comm=comm, on_step=on_step)
+        launches = launch_counts()
+        view.close()
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        return out, steps, launches
+
+    steps_n = TRAIN["steps"]
+    want = {("ddp", "pallas_ring"): {"ring_all_reduce": 2 * n_layers * steps_n,
+                                     "ppermute_dma": 1},
+            ("fsdp", "pallas_ring"): {
+                "ring_all_gather": 4 * n_layers * steps_n,
+                "ring_reduce_scatter": 2 * n_layers * steps_n,
+                "ppermute_dma": 1},
+            ("ddp", "psum"): {}, ("fsdp", "psum"): {}}
+    launches, param_bytes = {}, {}
+    for name, comm in (("ddp", "psum"), ("ddp", "pallas_ring"),
+                       ("fsdp", "psum"), ("fsdp", "pallas_ring")):
+        out, steps, got = run(name, comm)
+        med = statistics.median(steps[1:])
+        pbytes = sum(4 * t.numel() for t in out)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        every = gathered(dict(med=med, launches=got, peak=peak))
+        say("dist-train-run", dict(
+            run=f"{name}-{comm}", ranks=n, mode="4 cards",
+            steps_per_rank=len(steps), tokens_per_rank_step=tokens,
+            median_step_ms=1e3 * med,
+            median_step_ms_max_over_ranks=1e3 * max(e["med"] for e in every),
+            first_step_ms=1e3 * steps[0],
+            tokens_per_s=n * tokens / med,
+            model_tflops_per_s=flops / med / 1e12,
+            param_gb_per_rank=pbytes / 2 ** 30,
+            max_memory_allocated_gb_per_rank=[e["peak"] for e in every],
+            kernel_launches_per_rank=[e["launches"] for e in every],
+            card=card))
+        check(all(e["launches"] == want[name, comm] for e in every),
+              f"{name}-{comm}: launches {[e['launches'] for e in every]}, "
+              f"expected {want[name, comm]} on every rank")
+        launches[name, comm] = got
+        param_bytes[name] = pbytes
+        del out
+    check(param_bytes["fsdp"] * n == param_bytes["ddp"],
+          f"FSDP keeps {param_bytes['fsdp']} bytes of params a rank, DDP "
+          f"{param_bytes['ddp']}: not a 1/{n} share")
+
+    # -- one step a rank at CHECK_LR: every ring call against float64 (and
+    # NCCL), the ring's update against psum's, DDP's against FSDP's --------
+    calls, inner = [], ring._collective
+
+    def record(op, x, rg):
+        out = inner(op, x, rg)
+        calls.append((op, x.clone(), out))
+        return out
+
+    ring._collective = record
+    try:
+        one = {(name, "pallas_ring"): run(name, "pallas_ring", seeds[:n],
+                                          CHECK_LR)[0]
+               for name in ("ddp", "fsdp")}
+    finally:
+        ring._collective = inner
+    errs, controls, nccl_errs = {}, {}, []
+    for op, x, out in calls:
+        xs = _all_inputs(torch, dist, x)
+        want64 = ring_want(torch, op, xs)[r]
+        errs.setdefault(op, []).append(ring_err(torch, [out], [want64]))
+        controls.setdefault(op, []).append(ring_err(
+            torch, [out], [ring_want(torch, op, xs, control=True)[r]]))
+        if op == "ring_all_reduce":
+            nccl_errs.append(ring_err(
+                torch, [_nccl_call(torch, dist, op, x)], [want64]))
+        del xs, want64
+    del calls
+    one["ddp", "psum"] = run("ddp", "psum", seeds[:n], CHECK_LR)[0]
+    full_fsdp = [torch.cat(_all_inputs(torch, dist, t.contiguous()), 1)
+                 for t in one["fsdp", "pallas_ring"]]
+
+    def update_err(a, b):
+        du = sum(float((x.double() - p.double()).norm() ** 2)
+                 for x, p in zip(a, params)) ** 0.5
+        return sum(float((x.double() - y.double()).norm() ** 2)
+                   for x, y in zip(a, b)) ** 0.5 / du
+
+    ring_vs_psum = update_err(one["ddp", "psum"], one["ddp", "pallas_ring"])
+    ddp_vs_fsdp = update_err(one["ddp", "pallas_ring"], full_fsdp)
+    unchanged = update_err(one["ddp", "psum"], params)
+    every = gathered(dict(errs={k: max(v) for k, v in errs.items()},
+                          controls={k: min(v) for k, v in controls.items()},
+                          nccl=max(nccl_errs), ring_vs_psum=ring_vs_psum,
+                          ddp_vs_fsdp=ddp_vs_fsdp, unchanged=unchanged,
+                          calls={k: len(v) for k, v in errs.items()}))
+    say("dist-train-check", dict(
+        calls_per_rank=every[0]["calls"],
+        call_err_vs_f64_max={k: max(e["errs"][k] for e in every)
+                             for k in every[0]["errs"]},
+        call_control_err_min={k: min(e["controls"][k] for e in every)
+                              for k in every[0]["controls"]},
+        nccl_all_reduce_err_vs_f64_max=max(e["nccl"] for e in every),
+        ring_tol=RING_TOL, check_lr=CHECK_LR,
+        ring_vs_psum_update_err=max(e["ring_vs_psum"] for e in every),
+        ddp_vs_fsdp_update_err=max(e["ddp_vs_fsdp"] for e in every),
+        unchanged_update_err=min(e["unchanged"] for e in every), card=card))
+    check(every[0]["calls"] == {"ppermute_dma": 2,
+                                "ring_all_reduce": 2 * n_layers,
+                                "ring_all_gather": 4 * n_layers,
+                                "ring_reduce_scatter": 2 * n_layers},
+          f"one step a rank made ring calls {every[0]['calls']}")
+    for e in every:
+        check(max(e["errs"].values()) <= RING_TOL,
+              "a ring call of the trainers disagrees with float64")
+        check(min(e["controls"].values()) > RING_TOL,
+              "a ring call's control passes the float64 check")
+        check(e["nccl"] <= RING_TOL, "NCCL's all-reduce disagrees with "
+              "float64")
+        check(e["ring_vs_psum"] <= RING_TOL and e["ddp_vs_fsdp"] <= RING_TOL,
+              f"one step's updates differ: ring vs psum "
+              f"{e['ring_vs_psum']:.2e}, DDP vs FSDP {e['ddp_vs_fsdp']:.2e}")
+        check(e["unchanged"] > RING_TOL,
+              "the update check cannot tell unchanged weights from trained")
+    del one, full_fsdp
+
+    # -- where the time goes: DDP over the ring, traced on rank 0 -----------
+    from torch.profiler import ProfilerActivity, profile
+    if lead:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run("ddp", "pallas_ring")
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        summary = profile_summary(prof, wall_ms)
+        ring_ms = sum(e.device_time_total / 1e3 for e in prof.key_averages()
+                      if getattr(e.device_type, "name", "") != "CPU"
+                      and "ring_" in e.key)
+        busy = summary["device_busy_ms"]
+        summary.update(ring_kernel_ms=ring_ms,
+                       ring_kernel_share=ring_ms / busy if busy else None,
+                       card=card)
+        say("dist-profile", summary)
+    else:
+        run("ddp", "pallas_ring")
+    if not lead:
+        return None
+    return dict(cases=cases, launches={
+        name: launches[name, "pallas_ring"] for name in ("ddp", "fsdp")})
+
+
+def card_lines() -> list:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()
+
+
+def dist_phase(torch):
+    """``--phase dist``: ``RING_N`` ranks, one a card, over NCCL and the
+    peer-mapped workspaces (``dist_rank``). Returns the ring kernels'
+    entries of the kernels line."""
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        DATA_AXIS, launch, make_mesh)
+    n = torch.cuda.device_count()
+    check(n >= RING_N, f"--phase dist needs {RING_N} cards, {n} visible")
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    print("dist-topo\n" + topo.stdout.rstrip(), flush=True)
+    cards = card_lines()[:RING_N]
+    print("dist-cards " + json.dumps(cards), flush=True)
+    for i in range(RING_N):
+        for j in range(RING_N):
+            check(i == j or torch.cuda.can_device_access_peer(i, j),
+                  f"cuda:{i} has no peer access to cuda:{j}: the ring "
+                  "kernels store over peer mappings, never through the host")
+    out = launch(dist_rank, make_mesh({DATA_AXIS: RING_N}, device="cuda"),
+                 {"card": cards}, timeout=900)[0]
+    rows = ring_kernel_rows(out["cases"], out["launches"], mode="4 cards")
+    for row in rows:
+        row["cards"] = cards
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phase", choices=["all", "kernel", "train", "lm"],
+    ap.add_argument("--phase",
+                    choices=["all", "kernel", "train", "lm", "ring", "dist"],
                     default="all")
     args = ap.parse_args(argv)
     try:
@@ -1170,9 +1781,15 @@ def main(argv=None) -> int:
     for name, log in _build.build_logs.items():
         print(f"build-log {name}:\n{log}", flush=True)
 
+    if args.phase == "dist":
+        kernels = dist_phase(torch)
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return 0 if all(k["ok"] for k in kernels) else 1
+
     timer = Timer(torch)
     kernels, bad = [], []
     ffn_phases, lm_phases = ("all", "kernel", "train"), ("all", "lm")
+    ring_phases = ("all", "ring")
     if args.phase in ("all", "kernel"):
         cases = kernel_phase(torch, np, timer)
         bad += [c for c in cases if not c["ok"]]
@@ -1182,13 +1799,18 @@ def main(argv=None) -> int:
     if args.phase in lm_phases:
         lm_cases = lm_kernel_phase(torch, np, timer)
         bad += [c for c in lm_cases if not c["ok"]]
-    launches = ffn_launches = lm_launches = None
+    if args.phase in ring_phases:
+        ring_cases = ring_kernel_phase(torch, np, timer)
+        bad += [c for c in ring_cases if not c["ok"]]
+    launches = ffn_launches = lm_launches = ring_launches = None
     if not bad and args.phase == "all":
         launches = serving_phase(torch, np, card)
     if not bad and args.phase in ("all", "train"):
         ffn_launches = train_phase(torch, np, card)
     if not bad and args.phase in lm_phases:
         lm_launches = lm_train_phase(torch, np, card)
+    if not bad and args.phase in ring_phases:
+        ring_launches = ring_train_phase(torch, np, card)
     if args.phase in ("all", "kernel"):
         main_case = next(c for c in cases if c["shape"] == "serving"
                          and c["kv_dtype"] == "f32")
@@ -1210,6 +1832,8 @@ def main(argv=None) -> int:
         kernels += ffn_kernel_rows(ffn_cases, ffn_launches)
     if args.phase in lm_phases:
         kernels += lm_kernel_rows(lm_cases, lm_launches)
+    if args.phase in ring_phases:
+        kernels += ring_kernel_rows(ring_cases, ring_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     if bad:
         print(f"error: kernel disagrees with its plain version: {bad}",

@@ -27,10 +27,20 @@ hand-written CUDA kernels (``csrc/flash_attn_*.cu``, bound by
 ``ops/flash_attention.py``), ``head_impl="fused"`` the tied head and its
 loss (``csrc/head_xent_*.cu``, bound by ``ops/fused_xent.py``).
 
+Slice 4 is data parallelism of the FFN stack over n ranks, one a card
+(NCCL) or gloo processes on the CPU: ``parallel/ddp.py::train_ddp`` and
+``parallel/fsdp.py::train_fsdp``, run by ``cli.py -m 2`` and ``-m 3``, on
+the mesh, collectives and launcher of ``parallel/``. Under
+``comm="pallas_ring"`` every collective is a hand-written CUDA ring
+kernel that stores into the neighbours' peer-mapped workspaces
+(``csrc/ring_collectives.cu``, bound by ``ops/ring.py``); under
+``comm="psum"`` it is ``torch.distributed``'s.
+
 Subpackages: ``ops`` (LayerNorm, linear, ReLU, cross-entropy, the FFN
 block and stack, the kernels and their build), ``models`` (parameters,
 attention, the transformer, the LM, the FFN stack), ``data`` (seed
-schedule and batches), ``parallel`` (the trainers), ``decode`` (paged
+schedule and batches), ``parallel`` (the trainers, the mesh, the
+collectives and the rank launcher), ``decode`` (paged
 pool, sampling, engine, CLI), ``runtime`` (guardrails).
 """
 
@@ -38,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 # Training hyperparameters of the reference workload (train_ffns.py:29-30),
 # the same values as the JAX package's.

@@ -1,0 +1,241 @@
+// Shared pieces of the ring collectives (ring_collectives.cu): the peer
+// workspace layout, the kernel parameters, flag words with system-scope
+// release/acquire, a deadline-bounded block-wide wait, and the block's
+// element loop.
+//
+// A rank's workspace is one cudaMalloc on its card, mapped into its ring
+// neighbours' processes through CUDA IPC (or, in loopback, n workspaces on
+// one card in one process). Every kernel writes only into workspaces:
+// never into a peer's PyTorch tensors, which are not IPC-mapped.
+//
+//   [0, 8)             error word: 0, or the code of the first wait that
+//                      passed its deadline (see error_code)
+//   [256, 256 + 8*64)  arrive[b]: written by the left neighbour's block b,
+//                      epoch * 64 + step + 1 once its step's data is here
+//   [1024, 1024+8*64)  ready[b]: written by the right neighbour's block b,
+//                      the epoch of the call it has entered
+//   [4096, ...)        data region: capacity bytes (hop, all-gather, and
+//                      the all-reduce's second phase land here)
+//   [stage_off, ...)   staging slots: n-1 chunks (the reduce phases)
+//
+// Flags only grow. Each call carries an epoch that every rank counts the
+// same way (one a call, the same call sequence on every rank), so a flag
+// left by an earlier call can never satisfy a wait of this one, and no
+// flag is ever reset (the Pallas kernels instead drain their semaphores
+// back to zero, pallas_ring.py:124-135).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ring {
+
+constexpr int kMaxRanks = 8;
+constexpr int kMaxBlocks = 64;      // blocks a rank; flag words a link
+constexpr int kThreads = 512;
+constexpr uint64_t kStepsPerEpoch = 64;   // >= 2(n-1) + 1 for n <= 8
+constexpr long long kErrOff = 0;
+constexpr long long kArriveOff = 256;
+constexpr long long kReadyOff = 1024;
+constexpr long long kDataOff = 4096;
+
+enum Op { kHop = 0, kAllReduce = 1, kReduceScatter = 2, kAllGather = 3 };
+
+struct Params {
+  char* ws[kMaxRanks];          // every rank's workspace as mapped here
+                                // (dist: this rank's and its neighbours')
+  const float* in[kMaxRanks];   // dist: in[0]; loopback: one a rank
+  float* out[kMaxRanks];
+  long long chunk;              // floats a ring chunk
+  long long stage_off;          // bytes from a workspace to its slots
+  long long epoch;              // >= 1, one more every call
+  long long timeout_ns;
+  int n;
+  int rank;                     // < 0: loopback, rank = blockIdx / nblk
+  int nblk;                     // blocks a rank
+  int vec;                      // 1: 16-byte aligned, chunk % 4 == 0
+};
+
+__device__ __forceinline__ uint64_t ld_acquire(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(uint64_t* p, uint64_t v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// What one block of one rank works on.
+struct Ctx {
+  int n, r, b, left, right;
+  long long lo, hi;     // the block's element range within a chunk
+  long long chunk;
+  char* me;             // this rank's workspace
+  char* lw;             // the left neighbour's
+  char* rw;             // the right neighbour's
+  const float* x;
+  float* y;
+  uint64_t base;        // epoch * kStepsPerEpoch
+  uint64_t epoch;
+  uint64_t timeout_ns;
+  long long stage_off;
+  bool vec;
+  int op;
+};
+
+__device__ __forceinline__ Ctx make_ctx(const Params& p, int op) {
+  Ctx c;
+  const bool loop = p.rank < 0;
+  c.op = op;
+  c.n = p.n;
+  c.r = loop ? static_cast<int>(blockIdx.x) / p.nblk : p.rank;
+  c.b = loop ? static_cast<int>(blockIdx.x) % p.nblk
+             : static_cast<int>(blockIdx.x);
+  c.left = (c.r + c.n - 1) % c.n;
+  c.right = (c.r + 1) % c.n;
+  c.chunk = p.chunk;
+  // a multiple of 4 floats a block, so each range stays float4-aligned
+  const long long per = ((p.chunk + p.nblk - 1) / p.nblk + 3) / 4 * 4;
+  c.lo = min(p.chunk, static_cast<long long>(c.b) * per);
+  c.hi = min(p.chunk, c.lo + per);
+  c.me = p.ws[c.r];
+  c.lw = p.ws[c.left];
+  c.rw = p.ws[c.right];
+  c.x = p.in[loop ? c.r : 0];
+  c.y = p.out[loop ? c.r : 0];
+  c.epoch = static_cast<uint64_t>(p.epoch);
+  c.base = c.epoch * kStepsPerEpoch;
+  c.timeout_ns = static_cast<uint64_t>(p.timeout_ns);
+  c.stage_off = p.stage_off;
+  c.vec = p.vec != 0;
+  return c;
+}
+
+__device__ __forceinline__ uint64_t* err_word(char* ws) {
+  return reinterpret_cast<uint64_t*>(ws + kErrOff);
+}
+__device__ __forceinline__ uint64_t* arrive(char* ws, int b) {
+  return reinterpret_cast<uint64_t*>(ws + kArriveOff) + b;
+}
+__device__ __forceinline__ uint64_t* ready(char* ws, int b) {
+  return reinterpret_cast<uint64_t*>(ws + kReadyOff) + b;
+}
+__device__ __forceinline__ float* data(char* ws) {
+  return reinterpret_cast<float*>(ws + kDataOff);
+}
+__device__ __forceinline__ float* stage(const Ctx& c, char* ws, int slot) {
+  return reinterpret_cast<float*>(ws + c.stage_off) + slot * c.chunk;
+}
+
+// Read by the host when a wait passes its deadline: the op, the step it
+// waited for, the block and the rank (each + 1, so that 0 means no error).
+__device__ __forceinline__ uint64_t error_code(const Ctx& c, int step) {
+  return (static_cast<uint64_t>(c.op + 1) << 48) |
+         (static_cast<uint64_t>(step + 1) << 32) |
+         (static_cast<uint64_t>(c.b + 1) << 16) |
+         static_cast<uint64_t>(c.r + 1);
+}
+
+// Block-wide wait until *flag >= target. Thread 0 polls with acquire
+// loads (system scope: the writer is another card) until a deadline on
+// %globaltimer; the barrier then orders every thread's later loads after
+// its acquire. On a timeout it leaves its code in this rank's error word;
+// it also gives up once another block of the rank has failed. Returns
+// false on every thread when it gave up: the caller returns, the kernel
+// ends, and the host reads the error word after its synchronise.
+__device__ __forceinline__ bool wait_for(const Ctx& c, const uint64_t* flag,
+                                         uint64_t target, int step) {
+  int ok = 1;
+  if (threadIdx.x == 0) {
+    uint64_t* err = err_word(c.me);
+    const uint64_t t0 = now_ns();
+    while (ld_acquire(flag) < target) {
+      if (ld_acquire(err) != 0) {
+        ok = 0;
+        break;
+      }
+      if (now_ns() - t0 > c.timeout_ns) {
+        atomicCAS(reinterpret_cast<unsigned long long*>(err), 0ull,
+                  static_cast<unsigned long long>(error_code(c, step)));
+        ok = 0;
+        break;
+      }
+    }
+  }
+  return __syncthreads_and(ok) != 0;
+}
+
+// Publish: every thread's stores to the peer are issued before the
+// barrier; one thread then fences at system scope and stores the flag
+// with release semantics. The data is visible before the flag is.
+__device__ __forceinline__ void publish(uint64_t* flag, uint64_t v) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    st_release(flag, v);
+  }
+}
+
+// Kernel entry: a rank poisoned by an earlier timeout does nothing. Else
+// tell the left neighbour that this rank has entered the call (so it has
+// finished the previous one: kernels on one stream run in order), and
+// wait until the right neighbour says the same. Only then may this rank
+// write into the right neighbour's workspace: no write lands in a
+// workspace whose owner is still reading the previous call's data (the
+// neighbour barrier of pallas_ring.py:138-148).
+__device__ __forceinline__ bool enter(const Ctx& c) {
+  int ok = 1;
+  if (threadIdx.x == 0) ok = ld_acquire(err_word(c.me)) == 0;
+  if (!__syncthreads_and(ok)) return false;
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    st_release(ready(c.lw, c.b), c.epoch);
+  }
+  return wait_for(c, ready(c.me, c.b), c.epoch, -1);
+}
+
+// d1[i] = a[i] (+ b[i]), and d2[i] the same when d2 is given, for i in
+// the block's range [lo, hi) of a chunk. Each pointer is a chunk's start.
+// Loads bypass L1 (__ldcg): peers wrote some of these addresses. The sum
+// is one f32 add, a + b: the same bits as the plain version's b + a.
+__device__ __forceinline__ void move(const Ctx& c, float* d1, float* d2,
+                                     const float* a, const float* b) {
+  if (c.vec) {
+    const float4* a4 = reinterpret_cast<const float4*>(a);
+    const float4* b4 = reinterpret_cast<const float4*>(b);
+    float4* o1 = reinterpret_cast<float4*>(d1);
+    float4* o2 = reinterpret_cast<float4*>(d2);
+    for (long long i = c.lo / 4 + threadIdx.x; i < c.hi / 4;
+         i += blockDim.x) {
+      float4 v = __ldcg(a4 + i);
+      if (b != nullptr) {
+        const float4 w = __ldcg(b4 + i);
+        v.x = v.x + w.x;
+        v.y = v.y + w.y;
+        v.z = v.z + w.z;
+        v.w = v.w + w.w;
+      }
+      o1[i] = v;
+      if (d2 != nullptr) o2[i] = v;
+    }
+  } else {
+    for (long long i = c.lo + threadIdx.x; i < c.hi; i += blockDim.x) {
+      float v = __ldcg(a + i);
+      if (b != nullptr) v = v + __ldcg(b + i);
+      d1[i] = v;
+      if (d2 != nullptr) d2[i] = v;
+    }
+  }
+}
+
+}  // namespace ring

@@ -89,3 +89,37 @@ def make_seed_schedule(num_steps: int, random_seed: int = 0) -> np.ndarray:
     rng = (np.random.default_rng(random_seed) if random_seed != 0
            else np.random.default_rng())
     return rng.integers(0, 100_000, size=(num_steps,)).astype(np.int32)
+
+
+def shard_seeds_strided(seeds, n_ranks: int) -> np.ndarray:
+    """Strided seed split, ``[steps_per_rank, n_ranks]``: column ``r`` is
+    rank ``r``'s schedule, and rank ``r``'s step ``t`` takes global seed
+    ``seeds[t * n_ranks + r]`` (``train_ffns.py:182``), as the JAX
+    package's ``shard_seeds_strided``. A schedule that does not split
+    evenly raises (``train_ffns.py:175``)."""
+    seeds = np.asarray(seeds)
+    if seeds.shape[0] % n_ranks != 0:
+        raise ValueError(
+            f"num_steps={seeds.shape[0]} not divisible by n_ranks={n_ranks} "
+            "(reference asserts the same, train_ffns.py:175)")
+    return seeds.reshape(-1, n_ranks)
+
+
+class BatchTable:
+    """A ``batch_fn`` over batches made elsewhere: ``{seed: (x, dloss_dx)}``
+    of numpy arrays, handed out as tensors of the asked type on the asked
+    device. It pickles, so spawned ranks can take it (the tests hand the
+    JAX package's batches to the port's multi-rank trainers with it)."""
+
+    def __init__(self, batches):
+        self.batches = {int(k): (np.asarray(x), np.asarray(d))
+                        for k, (x, d) in dict(batches).items()}
+
+    def __call__(self, seed, batch_size: int, model_size: int, *,
+                 dtype=torch.float32, device="cpu"):
+        x, d = self.batches[int(seed)]
+        if x.shape != (batch_size, model_size):
+            raise ValueError(f"seed {int(seed)}'s batch is {x.shape}, not "
+                             f"{(batch_size, model_size)}")
+        return (torch.from_numpy(x).to(device, dtype),
+                torch.from_numpy(d).to(device, dtype))

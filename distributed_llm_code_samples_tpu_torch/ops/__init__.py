@@ -3,7 +3,8 @@ ReLU and the cross-entropy with their hand VJPs, the FFN block family
 and the stack walker, and the hand-written kernels (paged decode
 attention; the FFN forward, input gradient and weight gradients; flash
 attention forward and backward; the fused LM head's statistics and
-gradients) with their plain versions, build and launch counts."""
+gradients; the ring collectives: one hop, all-reduce, reduce-scatter and
+all-gather) with their plain versions, build and launch counts."""
 
 from ._build import build_all, launch_counts, reset_launch_counts
 from .activations import relu_bwd, relu_fwd
@@ -23,6 +24,9 @@ from .fused_xent import (head_xent, head_xent_bwd, head_xent_bwd_ref,
 from .linear import init_linear, linear_bwd, linear_fwd
 from .norm import EPS, layernorm, ln_bwd, ln_fwd
 from .paged_attention import paged_decode_attn, paged_decode_attn_ref
+from .ring import (ppermute_dma, ppermute_dma_ref, ring_all_gather,
+                   ring_all_gather_ref, ring_all_reduce, ring_all_reduce_ref,
+                   ring_reduce_scatter, ring_reduce_scatter_ref)
 from .stack import accumulated_grads, stack_bwd, stack_fwd, stack_grads
 from .xent import xent_bwd, xent_fwd, xent_loss
 
@@ -37,6 +41,9 @@ __all__ = ["EPS", "accumulated_grads", "build_all", "ffn_block",
            "head_xent_bwd_ref", "head_xent_fwd", "head_xent_stats",
            "head_xent_stats_ref", "init_linear", "launch_counts",
            "layernorm", "linear_bwd", "linear_fwd", "ln_bwd", "ln_fwd",
-           "paged_decode_attn", "paged_decode_attn_ref", "relu_bwd",
-           "relu_fwd", "reset_launch_counts", "stack_bwd", "stack_fwd",
+           "paged_decode_attn", "paged_decode_attn_ref", "ppermute_dma",
+           "ppermute_dma_ref", "relu_bwd", "relu_fwd", "reset_launch_counts",
+           "ring_all_gather", "ring_all_gather_ref", "ring_all_reduce",
+           "ring_all_reduce_ref", "ring_reduce_scatter",
+           "ring_reduce_scatter_ref", "stack_bwd", "stack_fwd",
            "stack_grads", "xent_bwd", "xent_fwd", "xent_loss"]

@@ -1,0 +1,513 @@
+"""Ring collectives over peer-mapped memory: one hop, all-reduce,
+reduce-scatter and all-gather, the ``comm="pallas_ring"`` transport of
+DDP and FSDP.
+
+Port of ``distributed_llm_code_samples_tpu/ops/pallas_ring.py``
+(``ppermute_dma``, ``ring_all_reduce``, ``ring_reduce_scatter``,
+``ring_all_gather``), with its conventions: ring chunks are the
+leading-dim n-split, the reduce-scatter leaves summed chunk r on rank r,
+the all-gather puts rank i's block at chunk i, the hop moves rank r's
+block to rank r+1, and a leading dim that does not split into n chunks
+raises. Each chunk is summed in the Pallas kernels' ring order.
+
+Each wrapper takes the tensor and the ring: a ``Ring`` (the ranks: ``n``,
+this ``rank``, the ``torch.distributed`` group and, on the card, a
+``PeerWorkspace`` or a ``Loopback``) or a rank's mesh view
+(``parallel/mesh.py``), whose ``Ring`` it opens at first use, as the JAX
+kernels take the axis name. On a CUDA tensor it launches its
+kernel (``csrc/ring_collectives.cu``, built at first use by
+``ops/_build.py``, bound with ctypes) or raises; on a CPU tensor it runs
+its plain version, the same ring on ``torch.distributed``
+point-to-point (``*_ref``). There is no fallback from a kernel to the
+plain version or to NCCL. ``loopback_ref`` computes the same sums over
+the n per-rank tensors of one process, the plain version of a loopback
+call. The kernels and the plain versions add the same f32 pairs in the
+same order, so they agree bit for bit.
+
+The kernels store into peers' workspaces, never into peers' tensors
+(PyTorch's allocator does not map them to other processes): a
+``PeerWorkspace`` is one ``cudaMalloc`` a rank, its CUDA IPC handle
+crossing the process group, mapped by the ring neighbours. In loopback
+one process holds the n workspaces of n virtual ranks on one card, and a
+call is one cooperative launch for all of them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+from . import _build
+
+LIB = "ring_collectives"
+HOP, ALL_REDUCE, REDUCE_SCATTER, ALL_GATHER = (
+    "ppermute_dma", "ring_all_reduce", "ring_reduce_scatter",
+    "ring_all_gather")
+_OPS = {HOP: 0, ALL_REDUCE: 1, REDUCE_SCATTER: 2, ALL_GATHER: 3}
+# csrc/ring_common.cuh: kMaxRanks, kDataOff
+_MAX_RANKS = 8
+_DATA_OFF = 4096
+# a chunk range per block of at least this many floats; at most 32 blocks
+# a rank, so n = 4 loopback ranks fit on 132 SMs one block each
+_FLOATS_PER_BLOCK = 8192
+_BLOCKS = 32
+# how long a kernel waits for a neighbour before it gives up and leaves
+# an error code (a late neighbour is seconds behind, a lost one forever)
+WAIT_TIMEOUT_S = 30.0
+
+
+# -- the workspace -----------------------------------------------------------
+
+def _lib():
+    lib = _build.load_library(LIB)
+    if lib.ring_launch.argtypes is None:
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ring_launch.argtypes = [i, i, vp, vp, vp, i, i, ll, ll, ll, ll,
+                                    i, i, vp]
+        for fn, args in (("ring_ws_alloc", [i, ll, vp]),
+                         ("ring_ws_free", [i, vp]),
+                         ("ring_ws_handle", [i, vp, vp]),
+                         ("ring_ws_open", [i, vp, vp]),
+                         ("ring_ws_close", [i, vp]),
+                         ("ring_ws_error", [i, vp, vp])):
+            getattr(lib, fn).argtypes = args
+        for fn in ("ring_launch", "ring_ws_alloc", "ring_ws_free",
+                   "ring_ws_handle", "ring_ws_open", "ring_ws_close",
+                   "ring_ws_error"):
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _ok(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc}")
+
+
+def describe_error(code: int) -> str:
+    """The kernel's error word (``error_code`` in ring_common.cuh) in
+    words."""
+    op = (code >> 48) - 1
+    step = ((code >> 32) & 0xFFFF) - 1
+    names = {v: k for k, v in _OPS.items()}
+    where = "the entry barrier" if step < 0 else f"step {step}"
+    return (f"{names.get(op, op)} rank {(code & 0xFFFF) - 1} block "
+            f"{((code >> 16) & 0xFFFF) - 1} gave up waiting at {where}")
+
+
+class PeerWorkspace:
+    """The ring's peer memory on the card.
+
+    ``PeerWorkspace(capacity, device, group=g)``: each rank of ``g``
+    ``cudaMalloc``s one workspace (``csrc/ring_common.cuh`` has its
+    layout: flag words, a data region of ``capacity`` bytes and as much
+    again of staging slots), publishes its ``cudaIpcGetMemHandle`` over
+    ``g`` and opens its two ring neighbours' handles, peer access enabled
+    lazily. It raises if a neighbour's card has no peer access to this
+    one: nothing goes through the host.
+
+    ``PeerWorkspace(capacity, device, n=n)`` (loopback): n workspaces on
+    one card in this process, for n virtual ranks.
+
+    ``close()`` unmaps the neighbours' workspaces and frees this rank's
+    (collective: every rank calls it). ``epoch`` counts the calls; every
+    rank makes the same calls in the same order, so the epochs agree.
+    """
+
+    def __init__(self, capacity: int, device, group=None,
+                 n: Optional[int] = None):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"a PeerWorkspace lives on a card, not "
+                             f"{device}")
+        self.index = (device.index if device.index is not None
+                      else torch.cuda.current_device())
+        self.device = torch.device("cuda", self.index)
+        self.capacity = -(-int(capacity) // 256) * 256
+        self.stage_off = _DATA_OFF + self.capacity
+        self.bytes = self.stage_off + self.capacity
+        self.group = group
+        self.loopback = group is None
+        self.n = n if self.loopback else dist.get_world_size(group)
+        if not 2 <= self.n <= _MAX_RANKS:
+            raise ValueError(f"ring of {self.n} ranks: the kernels take 2 "
+                             f"to {_MAX_RANKS}")
+        self.rank = None if self.loopback else dist.get_rank(group)
+        self.epoch = 0
+        self._own: list[int] = []      # cudaMalloc'd here
+        self._opened: list[int] = []   # mapped from a peer's handle
+        lib = _lib()
+        try:
+            for _ in range(self.n if self.loopback else 1):
+                p = ctypes.c_void_p()
+                _ok(lib.ring_ws_alloc(self.index, self.bytes,
+                                      ctypes.byref(p)), "cudaMalloc")
+                self._own.append(p.value)
+            if self.loopback:
+                self.peers = list(self._own)
+            else:
+                self.peers = self._exchange(lib)
+        except BaseException:
+            self._release(lib)
+            raise
+        self._table = (ctypes.c_ulonglong * self.n)(
+            *[p or 0 for p in self.peers])
+
+    def _exchange(self, lib) -> list:
+        r, n = self.rank, self.n
+        handle = ctypes.create_string_buffer(64)
+        _ok(lib.ring_ws_handle(self.index, self._own[0], handle),
+            "cudaIpcGetMemHandle")
+        mine = (self.index, bytes(handle.raw))
+        every = [None] * n
+        dist.all_gather_object(every, mine, group=self.group)
+        peers = [None] * n
+        peers[r] = self._own[0]
+        for j in sorted({(r - 1) % n, (r + 1) % n}):
+            dev, h = every[j]
+            if dev != self.index and not torch.cuda.can_device_access_peer(
+                    self.index, dev):
+                raise RuntimeError(
+                    f"rank {r} (cuda:{self.index}) has no peer access to "
+                    f"rank {j} (cuda:{dev}); the ring kernels store over "
+                    "NVLink/PCIe peer mappings and never through the host")
+            p = ctypes.c_void_p()
+            _ok(lib.ring_ws_open(self.index, ctypes.create_string_buffer(
+                h, 64), ctypes.byref(p)),
+                f"cudaIpcOpenMemHandle of rank {j}'s workspace")
+            self._opened.append(p.value)
+            peers[j] = p.value
+        return peers
+
+    def _release(self, lib) -> None:
+        for p in self._opened:
+            lib.ring_ws_close(self.index, p)
+        for p in self._own:
+            lib.ring_ws_free(self.index, p)
+        self._opened, self._own = [], []
+
+    def next_epoch(self) -> int:
+        self.epoch += 1
+        return self.epoch
+
+    def errors(self) -> list[int]:
+        """The error word of each workspace this process owns (after the
+        card has finished its work); 0 where no wait gave up."""
+        lib, out = _lib(), []
+        for p in self._own:
+            w = ctypes.c_ulonglong()
+            _ok(lib.ring_ws_error(self.index, p, ctypes.byref(w)),
+                "reading the ring's error word")
+            out.append(w.value)
+        return out
+
+    def check(self) -> None:
+        """Raise if a kernel's wait passed its deadline: a neighbour never
+        came. Reads the error words, so it synchronises the card."""
+        bad = [c for c in self.errors() if c]
+        if bad:
+            raise RuntimeError("ring collective timed out: "
+                               + "; ".join(map(describe_error, bad)))
+
+    def close(self) -> None:
+        if not self._own:
+            return
+        lib = _lib()
+        torch.cuda.synchronize(self.device)
+        if not self.loopback:
+            # no neighbour still stores into this rank's memory ...
+            dist.barrier(group=self.group)
+            for p in self._opened:
+                lib.ring_ws_close(self.index, p)
+            self._opened = []
+            # ... and every neighbour has unmapped it before it is freed
+            dist.barrier(group=self.group)
+        self._release(lib)
+
+
+class Loopback:
+    """n virtual ranks as n threads of one process on one card. Each
+    collective call waits until all n threads have handed in their
+    operands; one of them then makes the one cooperative launch that
+    serves all n, and each thread takes its own output. All threads use
+    the device's default stream, so their work is ordered around the
+    launch. ``abort()`` releases the threads waiting in a call (a rank
+    that failed elsewhere)."""
+
+    def __init__(self, workspace: PeerWorkspace,
+                 timeout: float = 10 * WAIT_TIMEOUT_S):
+        self.workspace = workspace
+        self.n = workspace.n
+        self._ops: list = [None] * self.n
+        self._ins: list = [None] * self.n
+        self._outs: list = []
+        self._error: Optional[BaseException] = None
+        self._barrier = threading.Barrier(self.n, action=self._launch,
+                                          timeout=timeout)
+
+    def _launch(self) -> None:
+        try:
+            if len(set(self._ops)) != 1:
+                raise RuntimeError(f"loopback ranks called different "
+                                   f"collectives: {self._ops}")
+            self._outs = loopback(self._ops[0], self._ins,
+                                  self.workspace)
+        except BaseException as e:
+            self._error = e
+            raise
+
+    def call(self, op: str, x: torch.Tensor, rank: int) -> torch.Tensor:
+        self._ops[rank], self._ins[rank] = op, x
+        try:
+            self._barrier.wait()
+        except threading.BrokenBarrierError:
+            raise RuntimeError(f"loopback {op} did not complete on rank "
+                               f"{rank}") from self._error
+        return self._outs[rank]
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+
+@dataclass
+class Ring:
+    """The ranks of a ring collective: ``n``, this ``rank``, the
+    ``torch.distributed`` group the plain version runs on, and on the card
+    either the rank's ``PeerWorkspace`` or the process's ``Loopback``."""
+    n: int
+    rank: int
+    group: Any = None
+    workspace: Optional[PeerWorkspace] = None
+    loopback: Optional[Loopback] = None
+
+
+# -- the kernels -------------------------------------------------------------
+
+def _blocks(chunk: int) -> int:
+    return max(1, min(_BLOCKS, -(-chunk // _FLOATS_PER_BLOCK)))
+
+
+def _out_shape(op: str, shape, n: int):
+    if op == REDUCE_SCATTER:
+        return (shape[0] // n,) + tuple(shape[1:])
+    if op == ALL_GATHER:
+        return (n * shape[0],) + tuple(shape[1:])
+    return tuple(shape)
+
+
+def _chunk(op: str, numel: int, n: int) -> int:
+    return numel if op in (HOP, ALL_GATHER) else numel // n
+
+
+def _launch(op: str, ins, outs, ws: PeerWorkspace, rank: int) -> None:
+    """One launch over ``ws`` (``rank < 0``: loopback, one input and
+    output a rank); counts one launch of ``op``."""
+    n = ws.n
+    chunk = _chunk(op, ins[0].numel(), n)
+    need = workspace_bytes(op, ins[0], n)
+    if need > ws.capacity:
+        raise ValueError(f"{op} of {tuple(ins[0].shape)} needs {need} "
+                         f"bytes of workspace, it has {ws.capacity}")
+    ptrs = [t.data_ptr() for t in list(ins) + list(outs)]
+    vec = int(chunk % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+    as_table = lambda ts: (ctypes.c_ulonglong * len(ts))(  # noqa: E731
+        *[t.data_ptr() for t in ts])
+    stream = torch.cuda.current_stream(ws.device).cuda_stream
+    rc = _lib().ring_launch(
+        ws.index, _OPS[op], ws._table, as_table(ins), as_table(outs), n,
+        rank, chunk, ws.stage_off, ws.next_epoch(),
+        int(WAIT_TIMEOUT_S * 1e9), _blocks(chunk), vec, stream)
+    if rc != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
+    _build.count_launch(op)
+
+
+def _check_split(op: str, x: torch.Tensor, n: int) -> None:
+    if op in (ALL_REDUCE, REDUCE_SCATTER) and x.shape[0] % n:
+        raise ValueError(f"leading dim {x.shape[0]} not divisible by ring "
+                         f"size {n} (chunk unit of the ring)")
+
+
+def loopback(op: str, xs, ws: PeerWorkspace) -> list:
+    """One collective over the n virtual ranks of a loopback workspace:
+    ``xs`` holds one tensor a rank; returns one output a rank."""
+    xs = list(xs)
+    n = ws.n
+    if len(xs) != n:
+        raise ValueError(f"loopback {op} takes {n} tensors, got {len(xs)}")
+    if len({(tuple(x.shape), x.dtype) for x in xs}) != 1:
+        raise ValueError(f"loopback {op}: the ranks' tensors differ in "
+                         "shape or type")
+    for x in xs:
+        _build.on_card(op, x)
+        if x.device != ws.device:
+            raise ValueError(f"{op}: tensor on {x.device}, workspace on "
+                             f"{ws.device}")
+    _check_split(op, xs[0], n)
+    outs = [torch.empty(_out_shape(op, x.shape, n), dtype=x.dtype,
+                        device=x.device) for x in xs]
+    _launch(op, xs, outs, ws, -1)
+    return outs
+
+
+def workspace_bytes(op: str, x: torch.Tensor, n: int) -> int:
+    """The workspace a call of ``op`` on ``x`` over n ranks needs: the
+    data region holds the gathered tensor (all-gather, all-reduce), the
+    hop's block, or the reduce-scatter's n-1 staging chunks."""
+    nbytes = x.numel() * x.element_size()
+    return {HOP: nbytes, ALL_REDUCE: nbytes, ALL_GATHER: n * nbytes,
+            REDUCE_SCATTER: (n - 1) * nbytes // n}[op]
+
+
+def _as_ring(op: str, x: torch.Tensor, ring) -> Ring:
+    """``ring`` itself, or the ``Ring`` of a rank's mesh view (opened
+    with room for this call at its first use)."""
+    if isinstance(ring, Ring):
+        return ring
+    return ring.ring(workspace_bytes(op, x, ring.size))
+
+
+def _collective(op: str, x: torch.Tensor, ring) -> torch.Tensor:
+    n = ring.n if isinstance(ring, Ring) else ring.size
+    _check_split(op, x, n)
+    if n == 1:
+        return x
+    ring = _as_ring(op, x, ring)
+    if not _build.on_card(op, x):
+        return _REFS[op](x, ring)
+    if ring.loopback is not None:
+        return ring.loopback.call(op, x, ring.rank)
+    ws = ring.workspace
+    if ws is None:
+        raise RuntimeError(f"{op} on the card needs the ring's "
+                           "PeerWorkspace (Ring.workspace)")
+    if x.device != ws.device:
+        raise ValueError(f"{op}: tensor on {x.device}, workspace on "
+                         f"{ws.device}")
+    out = torch.empty(_out_shape(op, x.shape, n), dtype=x.dtype,
+                      device=x.device)
+    _launch(op, [x], [out], ws, ring.rank)
+    return out
+
+
+def ppermute_dma(x: torch.Tensor, ring) -> torch.Tensor:
+    """One ring hop: rank r's block lands on rank ``(r+1) % n``, after
+    the neighbour barrier (``lax.ppermute(perm=[(i, (i+1) % n)])``)."""
+    return _collective(HOP, x, ring)
+
+
+def ring_all_reduce(x: torch.Tensor, ring) -> torch.Tensor:
+    """The sum over the ranks (``lax.psum``) as a 2(n-1)-step ring:
+    reduce-scatter, then all-gather. ``x.shape[0]`` must divide by n."""
+    return _collective(ALL_REDUCE, x, ring)
+
+
+def ring_reduce_scatter(x: torch.Tensor, ring) -> torch.Tensor:
+    """``reduce_scatter(x, dim=0)``: rank r returns the summed chunk r,
+    ``[rows / n, ...]``. ``x.shape[0]`` must divide by n."""
+    return _collective(REDUCE_SCATTER, x, ring)
+
+
+def ring_all_gather(x: torch.Tensor, ring) -> torch.Tensor:
+    """``all_gather(x, dim=0)``: ``[n * rows, ...]`` with chunk i rank
+    i's block."""
+    return _collective(ALL_GATHER, x, ring)
+
+
+# -- plain versions ----------------------------------------------------------
+
+def _hop(send: torch.Tensor, recv: torch.Tensor, ring: Ring) -> None:
+    """Send ``send`` to the right neighbour while ``recv`` fills from the
+    left one (one batch, so NCCL cannot deadlock on a 2-ring)."""
+    r, n = ring.rank, ring.n
+    ops = [dist.P2POp(dist.isend, send, (r + 1) % n, group=ring.group),
+           dist.P2POp(dist.irecv, recv, (r - 1) % n, group=ring.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+
+
+def ppermute_dma_ref(x: torch.Tensor, ring) -> torch.Tensor:
+    ring = _as_ring(HOP, x, ring)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    _hop(x.contiguous(), out, ring)
+    return out
+
+
+def _reduce_phase(acc: torch.Tensor, v: int, ring: Ring) -> None:
+    """The reduce phase on ``acc [n, chunk]`` with virtual rank ``v``: at
+    step s send chunk (v - s) mod n, add what arrives to chunk
+    (v - s - 1) mod n (own + received, the kernel's f32 add)."""
+    n = ring.n
+    buf = torch.empty_like(acc[0])
+    for s in range(n - 1):
+        _hop(acc[(v - s) % n], buf, ring)
+        acc[(v - s - 1) % n] += buf
+
+
+def ring_all_reduce_ref(x: torch.Tensor, ring) -> torch.Tensor:
+    ring = _as_ring(ALL_REDUCE, x, ring)
+    n, r = ring.n, ring.rank
+    _check_split(ALL_REDUCE, x, n)
+    acc = x.contiguous().clone().reshape(n, -1)
+    _reduce_phase(acc, r, ring)
+    buf = torch.empty_like(acc[0])
+    for s in range(n - 1):
+        _hop(acc[(r + 1 - s) % n], buf, ring)
+        acc[(r - s) % n] = buf
+    return acc.reshape(x.shape)
+
+
+def ring_reduce_scatter_ref(x: torch.Tensor, ring) -> torch.Tensor:
+    ring = _as_ring(REDUCE_SCATTER, x, ring)
+    n, r = ring.n, ring.rank
+    _check_split(REDUCE_SCATTER, x, n)
+    acc = x.contiguous().clone().reshape(n, -1)
+    _reduce_phase(acc, (r - 1) % n, ring)
+    return acc[r].reshape(_out_shape(REDUCE_SCATTER, x.shape, n))
+
+
+def ring_all_gather_ref(x: torch.Tensor, ring) -> torch.Tensor:
+    ring = _as_ring(ALL_GATHER, x, ring)
+    n, r = ring.n, ring.rank
+    out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    out[r] = x
+    for s in range(n - 1):
+        _hop(out[(r - s) % n], out[(r - s - 1) % n], ring)
+    return out.reshape(_out_shape(ALL_GATHER, x.shape, n))
+
+
+_REFS = {HOP: ppermute_dma_ref, ALL_REDUCE: ring_all_reduce_ref,
+         REDUCE_SCATTER: ring_reduce_scatter_ref,
+         ALL_GATHER: ring_all_gather_ref}
+
+
+def loopback_ref(op: str, xs) -> list:
+    """The plain version of ``loopback``: the same sums in the same ring
+    order over the n per-rank tensors of one process."""
+    xs = list(xs)
+    n = len(xs)
+    _check_split(op, xs[0], n)
+    if op == HOP:
+        return [xs[(r - 1) % n].clone() for r in range(n)]
+    if op == ALL_GATHER:
+        full = torch.cat([x.contiguous() for x in xs])
+        return [full.clone() for _ in range(n)]
+    parts = [x.contiguous().reshape(n, -1) for x in xs]
+
+    def summed(c: int, start: int):
+        # chunk c starts at rank `start`; each next rank adds its own copy
+        acc = parts[start][c].clone()
+        for k in range(1, n):
+            acc = parts[(start + k) % n][c] + acc
+        return acc
+
+    if op == ALL_REDUCE:
+        full = torch.stack([summed(c, c) for c in range(n)]).reshape(
+            xs[0].shape)
+        return [full.clone() for _ in range(n)]
+    shape = _out_shape(op, xs[0].shape, n)
+    return [summed(r, (r + 1) % n).reshape(shape) for r in range(n)]

@@ -130,3 +130,113 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     h, w, t = head_case((16, 8, 40))
     with pytest.raises(ValueError, match="on"):
         p_fx.head_xent_stats(h, w.cpu(), t)
+
+
+# -- the ring collectives, in loopback --------------------------------------
+#
+# n virtual ranks on one card: n workspaces, one cooperative launch. The
+# hop and the gather are copies and the sums run in the plain version's
+# ring order, so kernel and plain agree bit for bit. Shapes: a slice one
+# (f32 rows of 768 floats, the 16-byte path) and a ragged one (chunks of
+# 105 floats, the scalar path).
+
+RING_OPS = ("ppermute_dma", "ring_all_reduce", "ring_reduce_scatter",
+            "ring_all_gather")
+RING_SHAPES = {"slice": (256, 768), "ragged": (7, 5, 3)}
+
+
+def ring_inputs(op, n, shape):
+    rng = np.random.default_rng(n)
+    rows = shape[0] if op in ("ppermute_dma", "ring_all_gather") \
+        else n * shape[0]
+    return [normal(rng, rows, *shape[1:]) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(RING_SHAPES))
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("op", RING_OPS)
+def test_ring_kernel_matches_plain_in_loopback(card, op, n, shape):
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    xs = ring_inputs(op, n, RING_SHAPES[shape])
+    ws = ring.PeerWorkspace(max(ring.workspace_bytes(op, xs[0], n), 1),
+                            "cuda", n=n)
+    try:
+        before = _build.launch_counts().get(op, 0)
+        got = ring.loopback(op, xs, ws)
+        again = ring.loopback(op, xs, ws)
+        assert _build.launch_counts()[op] == before + 2
+        ws.check()
+        for g, a, w in zip(got, again, ring.loopback_ref(op, xs)):
+            assert g.shape == w.shape
+            assert torch.equal(g, w) and torch.equal(a, w)
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+def test_ring_wait_gives_up_and_raises(card, monkeypatch):
+    """A rank whose neighbour never enters the call waits to its deadline,
+    leaves its error word, and the check raises instead of the card
+    hanging."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    monkeypatch.setattr(ring, "WAIT_TIMEOUT_S", 0.2)
+    ws = ring.PeerWorkspace(1024, "cuda", n=2)
+    try:
+        x = torch.ones(4, device="cuda")
+        ring._launch(ring.HOP, [x], [torch.empty_like(x)], ws, 0)
+        with pytest.raises(RuntimeError, match="rank 0 block 0 gave up "
+                                               "waiting at the entry"):
+            ws.check()
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+def test_ring_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    ws = ring.PeerWorkspace(4096, "cuda", n=2)
+    try:
+        x = [torch.ones(6, 4, device="cuda") for _ in range(2)]
+        with pytest.raises(ValueError, match="not divisible by ring"):
+            ring.loopback(ring.ALL_REDUCE, [t[:5] for t in x], ws)
+        with pytest.raises(ValueError, match="float32"):
+            ring.loopback(ring.ALL_REDUCE, [t.double() for t in x], ws)
+        with pytest.raises(ValueError, match="needs"):
+            ring.loopback(ring.ALL_GATHER, [torch.ones(1024, device="cuda")
+                                            for _ in range(2)], ws)
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+def test_loopback_ddp_and_fsdp_agree_through_the_ring_kernels(card):
+    """DDP and FSDP on four virtual ranks of one card, every collective a
+    ring kernel: the reference's differential (same final params), with
+    the launch counts of the schedule."""
+    from distributed_llm_code_samples_tpu_torch.data import (
+        make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        DATA_AXIS, make_mesh, train_ddp, train_fsdp)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    params = init_ffn_stack(gen, 64, 2)
+    seeds = make_seed_schedule(8, 7)
+    mesh = make_mesh({DATA_AXIS: 4}, loopback=True)
+    _build.reset_launch_counts()
+    ddp = train_ddp(params, seeds, 32, 64, mesh, lr=0.1, comm="pallas_ring")
+    counts = _build.launch_counts()
+    # 4 ranks x 2 steps x 2 layers x 2 weights, one launch for all ranks;
+    # plus the ring's one-hop check when it opens
+    assert counts == {"ring_all_reduce": 2 * 2 * 2, "ppermute_dma": 1}
+    _build.reset_launch_counts()
+    fsdp = train_fsdp(params, seeds, 32, 64, mesh, lr=0.1,
+                      comm="pallas_ring")
+    assert _build.launch_counts() == {"ring_all_gather": 2 * 2 * 2 * 2,
+                                      "ring_reduce_scatter": 2 * 2 * 2,
+                                      "ppermute_dma": 1}
+    for a, b in zip(ddp, fsdp):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert float((ddp.w1 - params.w1).abs().max()) > 1e-4

@@ -40,7 +40,9 @@ def test_every_module_imports_without_jax():
     for m in ("decode.engine", "cli", "ops.fused_ffn", "parallel.single",
               "data", "optim", "models.ffn_stack", "ops.flash_attention",
               "ops.fused_xent", "ops.xent", "parallel.lm",
-              "parallel.transformer"):
+              "parallel.transformer", "ops.ring", "parallel.mesh",
+              "parallel.collectives", "parallel.launcher", "parallel.ddp",
+              "parallel.fsdp"):
         assert f"distributed_llm_code_samples_tpu_torch.{m}" in mods
     code = ("import sys; sys.modules['jax'] = None; "
             "import importlib; "
@@ -131,7 +133,7 @@ def test_train_cli_on_cpu_prints_the_payload():
         assert payload[key] > 0
 
 
-@pytest.mark.parametrize("method", ["0", "2"])
+@pytest.mark.parametrize("method", ["0", "4"])
 def test_train_cli_refuses_unported_methods(method):
     out = subprocess.run(TRAIN_CLI + ["--device", "cpu", "-m", method]
                          + TINY, cwd=ROOT, capture_output=True, text=True,
@@ -151,3 +153,28 @@ def test_chip_smoke_alone_fails(tmp_path):
                          env=env)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_a_spawned_rank_imports_no_jax():
+    """A rank of the launcher starts in a fresh interpreter (start method
+    ``spawn``): what it imports to run a trainer is the port alone, though
+    the process that launched it (this one) has JAX loaded."""
+    from distributed_llm_code_samples_tpu_torch.data import (
+        make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        DATA_AXIS, launch, make_mesh, train_fsdp)
+    from distributed_llm_code_samples_tpu_torch.parallel.launcher import (
+        MESH, call_each)
+    assert "jax" in sys.modules
+    params = init_ffn_stack(torch.Generator().manual_seed(0), 16, 1)
+    seeds = make_seed_schedule(2, 7)
+    probe = ("sorted(k for k in __import__('sys').modules if k == 'jax' or "
+             "k == 'distributed_llm_code_samples_tpu' or k.startswith(("
+             "'jax.', 'distributed_llm_code_samples_tpu.')))")
+    outs = launch(call_each, make_mesh({DATA_AXIS: 2}, device="cpu"),
+                  [(train_fsdp, (params, seeds, 8, 16, MESH),
+                    {"comm": "pallas_ring"}), (eval, (probe,), {})],
+                  timeout=120)
+    assert [o[1] for o in outs] == [[], []]
