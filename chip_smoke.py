@@ -7,12 +7,15 @@
     python3 chip_smoke.py --phase lm       # the LM kernels + LM training
     python3 chip_smoke.py --phase ring     # the ring kernels + DDP/FSDP,
                                            # 4 virtual ranks on one card
-    python3 chip_smoke.py --phase dist     # the same on 4 cards (not in
+    python3 chip_smoke.py --phase ep       # the all-to-all + expert
+                                           # parallelism, 4 virtual ranks
+    python3 chip_smoke.py --phase dist     # ring, DDP/FSDP, all-to-all
+                                           # and EP on 4 cards (not in
                                            # the default run)
 
 Builds every kernel of the port from ``csrc/``, holds each against its
 plain PyTorch version on the card, times both, then drives the port's
-three paths:
+paths:
 
 - serving: requests through the ``DecodeEngine`` at the full width of
   the GPT-2-small LM of ``bench_decode.py`` (d=768, 12 layers, 12 heads,
@@ -37,7 +40,15 @@ three paths:
   ``--phase dist``, not part of the default run, spawns one rank a card
   on 4 cards over NCCL and peer-mapped memory, holds each kernel against
   its plain ring and NCCL, trains both strategies under both transports
-  and profiles rank 0.
+  and profiles rank 0;
+- expert parallelism: ``train_moe_ep`` of the MoE stack of
+  ``bench_moe.py``'s headline (d 768, 6 layers, 8 experts of ffn 3072,
+  top-2, 8192 tokens a step over 4 ranks) for 8 steps a rank under each
+  dispatch (dense, scatter, gather), every exchange the all-to-all
+  kernel (``csrc/ring_collectives.cu``): on 4 virtual ranks of one card
+  in the default run; ``--phase dist`` also runs it on 4 cards under
+  both transports (NCCL's ``all_to_all_single`` and the kernel), which
+  must end bit-identical.
 
 It fails (exit code 1) if there is no CUDA device, if a kernel does not
 build, launch or agree, if a kernel path did not go through its
@@ -57,6 +68,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from functools import partial
 
@@ -1420,6 +1432,361 @@ def ring_kernel_rows(cases, launches, mode="loopback"):
     return rows
 
 
+# -- expert parallelism ----------------------------------------------------------
+
+# the MoE stack of bench_moe.py's headline (bench_moe.py:46-52, run at
+# :100-103): d 768, 6 layers, 8 experts of ffn 3072, top-2, capacity
+# factor 2, aux coefficient 0.01; 8192 tokens a step over the EP group of
+# EP_N ranks (2048 routed by each), 8 steps a rank. The LR is the
+# package's (train_ffns.py:29), the -m 7 CLI's default: at bench_moe.py's
+# 0.1 the gradients, summed over 8192 tokens, overflow the weights to inf
+# and NaN within the first three steps at this width.
+EP = dict(d_model=768, n_layers=6, n_experts=8, k=2, capacity_factor=2.0,
+          aux_coef=0.01, lr=1e-5, tokens=8192, steps=8, random_seed=7)
+EP_N = RING_N
+EP_FFN = 4 * EP["d_model"]
+EP_T = EP["tokens"] // EP_N
+# a rank's capacity, ceil(C_global / n): C_global = 8192 / 8 * 2 = 2048
+EP_CAP = 512
+EP_DISPATCHES = ("dense", "scatter", "gather")
+# exchanges a layer and a step: the dispatch and the return, then the
+# backward's transposes of both
+EP_A2A_PER_LAYER = 4
+A2A_REPLACES = "ops/pallas_ring.py:490"
+# (tag, per-rank input shape): the dispatch operand [E, C, d], the
+# return's after its split dim moved to the front [n*C, E/n, d], a ragged
+# one (chunks of 105 floats: the scalar path), and one whose chunk j of
+# rank r holds 10 r + j everywhere
+A2A_CASES = (("dispatch", (EP["n_experts"], EP_CAP, EP["d_model"])),
+             ("return", (EP_N * EP_CAP, EP["n_experts"] // EP_N,
+                         EP["d_model"])),
+             ("ragged", (EP_N * 3, 5, 7)),
+             ("identifying", (EP_N, 1000)))
+A2A_MAIN = "dispatch"
+# one step's gradients, leaf by leaf: EP's relative error against a
+# float64 dense run at most EP_GRAD_RATIO times the f32 dense oracle's
+# (the GRAD_RATIO pattern)
+EP_GRAD_RATIO = 2.0
+# a token whose expert choice differs between EP and the dense oracle
+# passes only at a logit gap below this (the two f32 paths may sum in
+# other orders); the group's later layers then follow from it
+ROUTE_GAP_TOL = 1e-4
+
+
+def a2a_input(torch, tag, shape, r, n, seed):
+    """Rank r's input of an all-to-all case."""
+    if tag == "identifying":
+        return (10.0 * r + torch.arange(n, device="cuda"))[:, None].repeat(
+            1, shape[1]).contiguous()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+def a2a_identified(torch, got, r, n):
+    """Whether rank r's output of the identifying case holds 10 j + r at
+    chunk j."""
+    return bool((got[:, 0] == 10.0 * torch.arange(n, device=got.device)
+                 + r).all())
+
+
+def a2a_kernel_phase(torch, np, timer):
+    """The all-to-all kernel in loopback (``EP_N`` virtual ranks on one
+    card, one cooperative launch) against its plain version (the chunks
+    moved in plain torch): bit-identical, with a bit-identical repeat; a
+    control, the un-exchanged input, must differ."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    op = ring.ALL_TO_ALL
+    ws = ring.PeerWorkspace(4 * EP["n_experts"] * EP_CAP * EP["d_model"],
+                            "cuda", n=EP_N)
+    rows = []
+    try:
+        for k, (tag, shape) in enumerate(A2A_CASES):
+            xs = [a2a_input(torch, tag, shape, r, EP_N, 600 + 10 * k + r)
+                  for r in range(EP_N)]
+            got = ring.loopback(op, xs, ws)
+            again = ring.loopback(op, xs, ws)
+            torch.cuda.synchronize()
+            ws.check()
+            want = ring.loopback_ref(op, xs)
+            exact = all(torch.equal(g, w) for g, w in zip(got, want))
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            control = all(torch.equal(g, x) for g, x in zip(got, xs))
+            ident = tag != "identifying" or all(
+                a2a_identified(torch, g, r, EP_N) for r, g in enumerate(got))
+            b_ms, b_by = ring_loopback_bound(op, 4 * xs[0].numel(), EP_N)
+            row = dict(kernel=op, shape=tag, dims=list(shape), ranks=EP_N,
+                       mode="loopback",
+                       max_abs_err=max(float((g - w).abs().max())
+                                       for g, w in zip(got, want)),
+                       bit_identical=exact, deterministic=same,
+                       control_equal_to_input=control, identified=ident,
+                       ok=exact and same and not control and ident,
+                       ms=timer.ms(lambda: ring.loopback(op, xs, ws)),
+                       plain_ms=timer.ms(lambda: ring.loopback_ref(op, xs)),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            rows.append(row)
+            print("a2a-kernel-case " + json.dumps(row), flush=True)
+            del xs, got, again, want
+    finally:
+        ws.close()
+    return rows
+
+
+@contextlib.contextmanager
+def recorded_routes(torch, moe, gaps=False):
+    """Within the block every ``ops.moe.route_topk`` call records its
+    expert indices (and, with ``gaps``, each token's smallest gap between
+    neighbouring logits of its top k+1) under the calling thread: yields
+    ``{thread ident: [idx or (idx, gap), ...]}``."""
+    seen, inner = {}, moe.route_topk
+
+    def route(wg, x, k=2, renormalize=True):
+        idx, gates = inner(wg, x, k, renormalize)
+        rec = idx
+        if gaps:
+            top = torch.sort(x.detach() @ wg.detach().T, dim=-1,
+                             descending=True).values[:, :k + 1]
+            rec = (idx, (top[:, :-1] - top[:, 1:]).min(1).values)
+        seen.setdefault(threading.get_ident(), []).append(rec)
+        return idx, gates
+
+    moe.route_topk = route
+    try:
+        yield seen
+    finally:
+        moe.route_topk = inner
+
+
+def kept_pairs(moe, routes):
+    """The (token, choice) pairs that found a slot in each step, over
+    recorded routes (each thread's a layer at a time, step by step; each
+    ``[T, k]`` of one rank's layer at the capacity ``EP_CAP``)."""
+    per_step = [0] * EP["steps"]
+    for recs in routes.values():
+        for i, idx in enumerate(recs):
+            per_step[i // EP["n_layers"]] += int(moe._slot_positions(
+                idx.T.reshape(-1), EP["n_experts"], EP_CAP)[1].sum())
+    return per_step
+
+
+@contextlib.contextmanager
+def checked_a2a_calls(torch, ring):
+    """Within the block every loopback all-to-all is held against its plain
+    version on its own inputs as it happens: yields ``[(bit identical,
+    equal to the un-exchanged input), ...]``."""
+    seen, inner = [], ring.loopback
+
+    def launch(op, xs, ws):
+        outs = inner(op, xs, ws)
+        want = ring.loopback_ref(op, xs)
+        seen.append((all(torch.equal(o, w) for o, w in zip(outs, want)),
+                     all(torch.equal(o, x) for o, x in zip(outs, xs))))
+        return outs
+
+    ring.loopback = launch
+    try:
+        yield seen
+    finally:
+        ring.loopback = inner
+
+
+def route_agreement(torch, ep_routes, dense_routes):
+    """EP's routing (``{rank: [(idx, gap) a layer]}``) against the grouped
+    dense oracle's (group-major ``[(idx, gap)]``): per rank, the first
+    layer where some token's experts differ, how many differ and their
+    largest logit gap in EP's run. Later layers of that rank follow from
+    it and are not compared."""
+    layers, out = EP["n_layers"], []
+    for r in range(EP_N):
+        for l in range(layers):
+            (a, gap), (b, _) = ep_routes[r][l], dense_routes[r * layers + l]
+            diff = (a != b).any(1)
+            if bool(diff.any()):
+                out.append(dict(rank=r, layer=l, tokens=int(diff.sum()),
+                                max_gap=float(gap[diff].max())))
+                break
+    return out
+
+
+def ep_train_phase(torch, np, card):
+    """``train_moe_ep(comm="pallas_a2a")`` at ``EP``'s full configuration
+    on ``EP_N`` virtual ranks of one card (loopback), 8 steps a rank, for
+    each dispatch; one step's exchanges, routing and gradients checked;
+    a profile. Returns the launches of the three runs."""
+    from distributed_llm_code_samples_tpu_torch.data import (
+        batch_from_seed, make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.moe import (
+        MoEStackParams, init_moe_stack)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, moe, reset_launch_counts, ring)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        EXPERT_AXIS, expert, launch, make_mesh, train_moe_ep)
+    d, n_layers, n_exp, k = (EP["d_model"], EP["n_layers"], EP["n_experts"],
+                             EP["k"])
+    cf, aux = EP["capacity_factor"], EP["aux_coef"]
+    check(expert._local_capacity(EP_T, EP_N, n_exp, cf) == EP_CAP,
+          "EP_CAP is not the trainer's capacity")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(EP["random_seed"])
+    params = init_moe_stack(gen, d, n_layers, n_exp)
+    seeds = make_seed_schedule(EP_N * EP["steps"], EP["random_seed"])
+    mesh = make_mesh({EXPERT_AXIS: EP_N}, loopback=True)
+    kw = dict(lr=EP["lr"], capacity_factor=cf, k=k, aux_coef=aux)
+    want = {"all_to_all_dma": EP_A2A_PER_LAYER * n_layers * EP["steps"]}
+
+    def run(dispatch):
+        def body(me, _):
+            stamps = []
+
+            def on_step(_):
+                if me.rank == 0:
+                    torch.cuda.synchronize()
+                    stamps.append(time.perf_counter())
+            out = train_moe_ep(params, seeds, EP["tokens"], d, me,
+                               dispatch=dispatch, comm="pallas_a2a",
+                               on_step=on_step, **kw)
+            return stamps, all(bool(torch.isfinite(t).all()) for t in out)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = launch(body, mesh)
+        launches = launch_counts()
+        check(all(o[1] for o in outs), "EP's trained params are not finite")
+        return t0, outs[0][0], launches
+
+    launches = {}
+    for dispatch in EP_DISPATCHES:
+        with recorded_routes(torch, moe) as routes:
+            t0, stamps, got = run(dispatch)
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        med = statistics.median(steps[1:])
+        kept = kept_pairs(moe, routes)
+        # model flops: 12 d ffn a kept (token, choice) pair and layer, over
+        # steps 2-8 (the steps the median covers)
+        flops = 12 * d * EP_FFN * statistics.mean(kept[1:])
+        print("ep-train-run " + json.dumps(dict(
+            run=f"{dispatch}-pallas_a2a-loopback", ranks=EP_N,
+            mode="loopback", steps_per_rank=len(steps),
+            tokens_per_step=EP["tokens"], median_step_ms=1e3 * med,
+            first_step_ms=1e3 * steps[0], tokens_per_s=EP["tokens"] / med,
+            routed_pairs_per_step=EP["tokens"] * k * n_layers,
+            kept_pairs_per_step=kept,
+            model_tflops_per_s=flops / med / 1e12,
+            f32_peak_share=flops / med / F32_FLOPS_PER_S,
+            param_gb=4 * params.num_params() / 2 ** 30,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            kernel_launches=got, card=card)), flush=True)
+        check(got == want, f"EP {dispatch} loopback: launches {got}, "
+              f"expected {want}")
+        launches[dispatch] = got
+        del routes
+
+    # one step a rank: every exchange against its plain version bit for
+    # bit; the routing against the grouped dense oracle's on the same
+    # card; the gradients, leaf by leaf, against a float64 dense run
+    batches = [batch_from_seed(int(s), EP_T, d, device="cuda")
+               for s in seeds[:EP_N]]
+    p64 = MoEStackParams(*(t.double() for t in params))
+    b64 = [(x.double(), dl.double()) for x, dl in batches]
+    for dispatch in EP_DISPATCHES:
+        ranks = {}
+
+        def body(me, _):
+            ranks[threading.get_ident()] = me.rank
+            me.ring(expert.a2a_bytes(params, EP_T, EP_N, cf), probe=False)
+            grads = expert.make_grads(EP_T, d, cf, k=k, aux_coef=aux,
+                                      dispatch=dispatch, comm="pallas_a2a",
+                                      mesh=me)
+            return grads(expert.shard_params(params, me), int(seeds[me.rank]))
+
+        with recorded_routes(torch, moe, gaps=True) as routes, \
+                checked_a2a_calls(torch, ring) as calls:
+            g_ep = expert.unshard_params(launch(body, mesh))
+        ep_routes = {ranks[t]: recs for t, recs in routes.items()}
+        with recorded_routes(torch, moe, gaps=True) as routes:
+            g32 = expert.dense_grads(params, batches, cf, k, aux, EP_CAP,
+                                     dispatch)
+        flips = route_agreement(torch, ep_routes,
+                                next(iter(routes.values())))
+        g64 = expert.dense_grads(p64, b64, cf, k, aux, EP_CAP, dispatch)
+        err_ep, err_32 = grad_errs(torch, g_ep, g64), grad_errs(torch, g32,
+                                                                g64)
+        # the control: each rank's expert gradients given to the next
+        # rank's experts
+        err_ctl = grad_errs(torch, MoEStackParams(
+            g_ep.wg, g_ep.w1.roll(n_exp // EP_N, 1), g_ep.w2), g64)
+        ratio = max(e / max(o, 1e-30) for e, o in zip(err_ep, err_32))
+        ctl_ratio = max(e / max(o, 1e-30) for e, o in zip(err_ctl, err_32))
+        print("ep-train-check " + json.dumps(dict(
+            dispatch=dispatch, exchanges=len(calls),
+            exchanges_bit_identical=sum(c[0] for c in calls),
+            exchanges_equal_to_input=sum(c[1] for c in calls),
+            route_differences=flips, route_gap_tol=ROUTE_GAP_TOL,
+            grad_err_vs_f64_ep=dict(zip(("wg", "w1", "w2"), err_ep)),
+            grad_err_vs_f64_dense=dict(zip(("wg", "w1", "w2"), err_32)),
+            grad_err_vs_f64_control=dict(zip(("wg", "w1", "w2"), err_ctl)),
+            grad_err_ratio_max=ratio, control_ratio_max=ctl_ratio,
+            grad_ratio_limit=EP_GRAD_RATIO, card=card)), flush=True)
+        check(len(calls) == EP_A2A_PER_LAYER * n_layers,
+              f"one EP step made {len(calls)} exchanges")
+        check(all(c[0] for c in calls), "an exchange of the EP step "
+              "differs from its plain version")
+        check(not any(c[1] for c in calls), "an exchange's control (its "
+              "un-exchanged input) passes")
+        check(all(f["layer"] > 0 and f["max_gap"] < ROUTE_GAP_TOL
+                  for f in flips),
+              f"EP routes tokens apart from the dense oracle: {flips}")
+        check(all(np.isfinite(err_ep)), "EP gradients are not finite")
+        check(ratio <= EP_GRAD_RATIO, f"EP gradients {ratio:.2f}x as far "
+              "from float64 as the dense f32 oracle's")
+        check(ctl_ratio > EP_GRAD_RATIO,
+              "the gradient check cannot tell misplaced expert gradients")
+        del g_ep, g32, g64, routes, ep_routes, calls
+    del p64, b64, batches
+
+    # where the device time goes in one EP run (dense; a traced run: the
+    # profiler's own cost is in its wall time)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run("dense")
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    summary = profile_summary(prof, wall_ms)
+    a2a_ms = sum(e.device_time_total / 1e3 for e in prof.key_averages()
+                 if getattr(e.device_type, "name", "") != "CPU"
+                 and "all_to_all" in e.key)
+    busy = summary["device_busy_ms"]
+    print("ep-train-profile " + json.dumps(dict(
+        summary, a2a_kernel_ms=a2a_ms,
+        a2a_kernel_share=a2a_ms / busy if busy else None, card=card)),
+        flush=True)
+    return launches
+
+
+def a2a_kernel_row(cases, launches, mode="loopback"):
+    """The all-to-all's entry of the kernels line: launches from the main
+    path's runs (the three dispatches), the rest from the main case."""
+    main = next(c for c in cases if c["shape"] == A2A_MAIN)
+    return {
+        "name": "all_to_all_dma", "route": "cuda",
+        "source": "distributed_llm_code_samples_tpu_torch/csrc/"
+                  "ring_collectives.cu",
+        "replaces": f"distributed_llm_code_samples_tpu/{A2A_REPLACES}",
+        "launches": None if launches is None
+        else sum(run.get("all_to_all_dma", 0) for run in launches.values()),
+        "mode": mode, "ranks": EP_N,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "ok": all(c["ok"] for c in cases)}
+
+
 # -- ring collectives across four cards -----------------------------------------
 
 def ring_dist_bound(op, in_bytes, n):
@@ -1454,6 +1821,22 @@ def _nccl_call(torch, dist, op, x):
     return None
 
 
+def a2a_dist_bound(in_bytes, n):
+    """Least time of one all-to-all on one rank of n cards: the (n-1)/n of
+    its tensor that leaves over its NVLink at the link's rate each way,
+    against its input read and output written once at the HBM rate."""
+    return max((n - 1) * in_bytes / n / NVLINK_BYTES_PER_S,
+               2 * in_bytes / HBM_BYTES_PER_S) * 1e3, "bytes"
+
+
+def _nccl_a2a(torch, dist, x):
+    """NCCL's ``all_to_all_single`` of ``x`` (the kernel's library
+    yardstick)."""
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x)
+    return out
+
+
 def _all_inputs(torch, dist, x):
     xs = [torch.empty_like(x) for _ in range(dist.get_world_size())]
     dist.all_gather(xs, x)
@@ -1462,10 +1845,12 @@ def _all_inputs(torch, dist, x):
 
 def dist_rank(mesh, payload):
     """One rank of ``--phase dist`` (its card is ``cuda:<rank>``): the
-    ring kernels across the cards against their plain rings (NCCL point to
-    point) and NCCL's collectives, then DDP and FSDP at ``TRAIN``'s width
-    under both transports, the per-call and per-step checks and a profile
-    on rank 0. Rank 0 prints; it returns the kernel cases and launches."""
+    ring kernels and the all-to-all across the cards against their plain
+    versions (NCCL point to point) and NCCL's collectives, then DDP and
+    FSDP at ``TRAIN``'s width under both transports, the per-call and
+    per-step checks and a profile on rank 0, then EP at ``EP``'s under
+    both transports and a profile on rank 0. Rank 0 prints; it returns the
+    kernel cases and launches."""
     import torch
     import torch.distributed as dist
 
@@ -1474,10 +1859,12 @@ def dist_rank(mesh, payload):
         make_seed_schedule)
     from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
         init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.models.moe import (
+        init_moe_stack)
     from distributed_llm_code_samples_tpu_torch.ops import (
-        launch_counts, reset_launch_counts, ring)
+        launch_counts, moe, reset_launch_counts, ring)
     from distributed_llm_code_samples_tpu_torch.parallel import (
-        train_ddp, train_fsdp)
+        EXPERT_AXIS, expert, make_mesh, train_ddp, train_fsdp, train_moe_ep)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     r, n, dev = mesh.rank, mesh.size, mesh.torch_device
@@ -1495,7 +1882,8 @@ def dist_rank(mesh, payload):
 
     # -- each kernel across the cards ---------------------------------------
     timer = Timer(torch)
-    rg = mesh.ring(4 * FFN_DIM * D_MODEL)
+    rg = mesh.ring(4 * max(FFN_DIM * D_MODEL,
+                           EP["n_experts"] * EP_CAP * EP["d_model"]))
     cases = []
     for k, (op, tag, shape) in enumerate(RING_CASES):
         gen = torch.Generator(device=dev)
@@ -1539,10 +1927,50 @@ def dist_rank(mesh, payload):
         say("dist-kernel-case", row)
         cases.append(row)
         del x, xs, got, again, want, nccl, f64
+    # the all-to-all: against its plain version (NCCL send / receive) and
+    # NCCL's all_to_all_single, bit for bit
+    a2a_cases = []
+    for k, (tag, shape) in enumerate(A2A_CASES):
+        with torch.cuda.device(dev):
+            x = a2a_input(torch, tag, shape, r, n, 700 + 10 * k + r)
+        kern = partial(ring.all_to_all_dma, x, rg)
+        plain = partial(ring.all_to_all_dma_ref, x, rg)
+        lib = partial(_nccl_a2a, torch, dist, x)
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        mesh.check()
+        want, nccl = plain(), lib()
+        row = dict(kernel="all_to_all_dma", shape=tag, dims=list(shape),
+                   ranks=n, mode="4 cards",
+                   bit_identical_to_plain=torch.equal(got, want),
+                   bit_identical_to_nccl=torch.equal(got, nccl),
+                   deterministic=torch.equal(got, again),
+                   control_equal_to_input=torch.equal(got, x),
+                   identified=(tag != "identifying"
+                               or a2a_identified(torch, got, r, n)),
+                   max_abs_err=float((got - want).abs().max()),
+                   ms=timer.ms(kern), plain_ms=timer.ms(plain),
+                   library_ms=timer.ms(lib))
+        row["bound_ms"], row["bound_by"] = a2a_dist_bound(4 * x.numel(), n)
+        every = gathered({key: row[key] for key in
+                          ("ms", "plain_ms", "library_ms",
+                           "bit_identical_to_plain", "bit_identical_to_nccl",
+                           "deterministic", "control_equal_to_input",
+                           "identified")})
+        row["ms_max_over_ranks"] = max(e["ms"] for e in every)
+        row["ok"] = all(e["bit_identical_to_plain"]
+                        and e["bit_identical_to_nccl"] and e["deterministic"]
+                        and not e["control_equal_to_input"] and e["identified"]
+                        for e in every)
+        say("dist-a2a-kernel-case", row)
+        a2a_cases.append(row)
+        del x, got, again, want, nccl
     del timer
     mesh.close()
     check(all(c["ok"] for c in cases), "a ring kernel across the cards "
           "disagrees with its plain ring, NCCL or float64")
+    check(all(c["ok"] for c in a2a_cases), "the all-to-all across the cards "
+          "disagrees with its plain version or NCCL")
 
     # -- DDP and FSDP at the FFN headline width -----------------------------
     d, n_layers, tokens = TRAIN["d_model"], TRAIN["n_layers"], TRAIN["tokens"]
@@ -1706,10 +2134,118 @@ def dist_rank(mesh, payload):
         say("dist-profile", summary)
     else:
         run("ddp", "pallas_ring")
+
+    # -- expert parallelism at the MoE headline width ------------------------
+    d, n_layers = EP["d_model"], EP["n_layers"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(EP["random_seed"])
+    ep_params = init_moe_stack(gen, d, n_layers, EP["n_experts"])
+    ep_seeds = make_seed_schedule(n * EP["steps"], EP["random_seed"])
+    kw = dict(lr=EP["lr"], capacity_factor=EP["capacity_factor"], k=EP["k"],
+              aux_coef=EP["aux_coef"])
+
+    ep_mesh = make_mesh({EXPERT_AXIS: n}, device="cuda")
+
+    def ep_run(dispatch, comm):
+        view = ep_mesh.for_rank(r, group=mesh.group)
+        stamps = []
+
+        def on_step(_):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train_moe_ep(ep_params, ep_seeds, EP["tokens"], d, view,
+                           dispatch=dispatch, comm=comm, on_step=on_step,
+                           **kw)
+        launches = launch_counts()
+        view.close()
+        return out, [b - a for a, b in zip([t0] + stamps, stamps)], launches
+
+    ep_want = {"psum": {}, "pallas_a2a": {
+        "all_to_all_dma": EP_A2A_PER_LAYER * n_layers * EP["steps"]}}
+    ep_launches, same, moved = {}, {}, {}
+    start = expert.shard_params(ep_params, ep_mesh.for_rank(r))
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    for dispatch in EP_DISPATCHES:
+        finals = {}
+        for comm in ("psum", "pallas_a2a"):
+            with recorded_routes(torch, moe) as routes:
+                out, steps, got = ep_run(dispatch, comm)
+            med = statistics.median(steps[1:])
+            every = gathered(dict(
+                med=med, launches=got, kept=kept_pairs(moe, routes),
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30))
+            kept = [sum(c) for c in zip(*(e["kept"] for e in every))]
+            say("dist-ep-run", dict(
+                run=f"{dispatch}-{comm}", ranks=n, mode="4 cards",
+                steps_per_rank=len(steps), tokens_per_step=EP["tokens"],
+                median_step_ms=1e3 * med,
+                median_step_ms_max_over_ranks=1e3 * max(e["med"]
+                                                        for e in every),
+                first_step_ms=1e3 * steps[0],
+                tokens_per_s=EP["tokens"] / med,
+                routed_pairs_per_step=EP["tokens"] * EP["k"] * n_layers,
+                kept_pairs_per_step=kept,
+                model_tflops_per_s=(12 * d * EP_FFN * statistics.mean(
+                    kept[1:]) / med / 1e12),
+                param_gb_per_rank=sum(4 * t.numel() for t in out) / 2 ** 30,
+                max_memory_allocated_gb_per_rank=[e["peak"] for e in every],
+                kernel_launches_per_rank=[e["launches"] for e in every],
+                card=card))
+            check(all(e["launches"] == ep_want[comm] for e in every),
+                  f"EP {dispatch}-{comm}: launches "
+                  f"{[e['launches'] for e in every]}, expected "
+                  f"{ep_want[comm]} on every rank")
+            check(all(gathered(all(bool(torch.isfinite(t).all())
+                                   for t in out))),
+                  f"EP {dispatch}-{comm}: trained params are not finite")
+            finals[comm] = out
+            if comm == "pallas_a2a":
+                ep_launches[dispatch] = got
+            del routes
+        same[dispatch] = all(gathered(all(
+            torch.equal(bits(a), bits(b))
+            for a, b in zip(finals["psum"], finals["pallas_a2a"]))))
+        # the control: the trained params against the initial ones
+        moved[dispatch] = all(gathered(not any(
+            torch.equal(bits(a), bits(b))
+            for a, b in zip(finals["psum"], start))))
+        del finals
+    say("dist-ep-check", dict(final_params_bit_identical=same,
+                              control_params_moved=moved, card=card))
+    check(all(same.values()), f"EP's two transports end apart: {same}")
+    check(all(moved.values()), "the bitwise check cannot tell trained "
+          "params from the initial ones")
+    if lead:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ep_run("dense", "pallas_a2a")
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        summary = profile_summary(prof, wall_ms)
+        a2a_ms = sum(e.device_time_total / 1e3 for e in prof.key_averages()
+                     if getattr(e.device_type, "name", "") != "CPU"
+                     and "all_to_all" in e.key)
+        busy = summary["device_busy_ms"]
+        summary.update(a2a_kernel_ms=a2a_ms,
+                       a2a_kernel_share=a2a_ms / busy if busy else None,
+                       card=card)
+        say("dist-ep-profile", summary)
+    else:
+        ep_run("dense", "pallas_a2a")
     if not lead:
         return None
     return dict(cases=cases, launches={
-        name: launches[name, "pallas_ring"] for name in ("ddp", "fsdp")})
+        name: launches[name, "pallas_ring"] for name in ("ddp", "fsdp")},
+        a2a_cases=a2a_cases, ep_launches=ep_launches)
 
 
 def card_lines() -> list:
@@ -1721,8 +2257,8 @@ def card_lines() -> list:
 
 def dist_phase(torch):
     """``--phase dist``: ``RING_N`` ranks, one a card, over NCCL and the
-    peer-mapped workspaces (``dist_rank``). Returns the ring kernels'
-    entries of the kernels line."""
+    peer-mapped workspaces (``dist_rank``). Returns the ring kernels' and
+    the all-to-all's entries of the kernels line."""
     from distributed_llm_code_samples_tpu_torch.parallel import (
         DATA_AXIS, launch, make_mesh)
     n = torch.cuda.device_count()
@@ -1740,6 +2276,8 @@ def dist_phase(torch):
     out = launch(dist_rank, make_mesh({DATA_AXIS: RING_N}, device="cuda"),
                  {"card": cards}, timeout=900)[0]
     rows = ring_kernel_rows(out["cases"], out["launches"], mode="4 cards")
+    rows.append(a2a_kernel_row(out["a2a_cases"], out["ep_launches"],
+                               mode="4 cards"))
     for row in rows:
         row["cards"] = cards
     return rows
@@ -1748,7 +2286,8 @@ def dist_phase(torch):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
-                    choices=["all", "kernel", "train", "lm", "ring", "dist"],
+                    choices=["all", "kernel", "train", "lm", "ring", "ep",
+                             "dist"],
                     default="all")
     args = ap.parse_args(argv)
     try:
@@ -1789,7 +2328,7 @@ def main(argv=None) -> int:
     timer = Timer(torch)
     kernels, bad = [], []
     ffn_phases, lm_phases = ("all", "kernel", "train"), ("all", "lm")
-    ring_phases = ("all", "ring")
+    ring_phases, ep_phases = ("all", "ring"), ("all", "ep")
     if args.phase in ("all", "kernel"):
         cases = kernel_phase(torch, np, timer)
         bad += [c for c in cases if not c["ok"]]
@@ -1802,7 +2341,11 @@ def main(argv=None) -> int:
     if args.phase in ring_phases:
         ring_cases = ring_kernel_phase(torch, np, timer)
         bad += [c for c in ring_cases if not c["ok"]]
+    if args.phase in ep_phases:
+        a2a_cases = a2a_kernel_phase(torch, np, timer)
+        bad += [c for c in a2a_cases if not c["ok"]]
     launches = ffn_launches = lm_launches = ring_launches = None
+    ep_launches = None
     if not bad and args.phase == "all":
         launches = serving_phase(torch, np, card)
     if not bad and args.phase in ("all", "train"):
@@ -1811,6 +2354,8 @@ def main(argv=None) -> int:
         lm_launches = lm_train_phase(torch, np, card)
     if not bad and args.phase in ring_phases:
         ring_launches = ring_train_phase(torch, np, card)
+    if not bad and args.phase in ep_phases:
+        ep_launches = ep_train_phase(torch, np, card)
     if args.phase in ("all", "kernel"):
         main_case = next(c for c in cases if c["shape"] == "serving"
                          and c["kv_dtype"] == "f32")
@@ -1834,6 +2379,8 @@ def main(argv=None) -> int:
         kernels += lm_kernel_rows(lm_cases, lm_launches)
     if args.phase in ring_phases:
         kernels += ring_kernel_rows(ring_cases, ring_launches)
+    if args.phase in ep_phases:
+        kernels.append(a2a_kernel_row(a2a_cases, ep_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     if bad:
         print(f"error: kernel disagrees with its plain version: {bad}",

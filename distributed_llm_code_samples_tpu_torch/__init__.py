@@ -36,9 +36,18 @@ kernel that stores into the neighbours' peer-mapped workspaces
 (``csrc/ring_collectives.cu``, bound by ``ops/ring.py``); under
 ``comm="psum"`` it is ``torch.distributed``'s.
 
+Slice 5 is expert parallelism of the MoE FFN stack,
+``parallel/expert.py::train_moe_ep``, run by ``cli.py -m 7``: routing,
+dispatch and combine in ``ops/moe.py``, the model in ``models/moe.py``,
+two all-to-alls a layer over the ``"expert"`` mesh. Under
+``comm="pallas_a2a"`` they are a hand-written CUDA all-to-all that
+stores into every peer's workspace (``csrc/ring_collectives.cu``, bound
+by ``ops/ring.py``); under ``comm="psum"`` ``all_to_all_single``.
+
 Subpackages: ``ops`` (LayerNorm, linear, ReLU, cross-entropy, the FFN
-block and stack, the kernels and their build), ``models`` (parameters,
-attention, the transformer, the LM, the FFN stack), ``data`` (seed
+block and stack, MoE routing and dispatch, the kernels and their
+build), ``models`` (parameters, attention, the transformer, the LM, the
+FFN stack, the MoE stack), ``data`` (seed
 schedule and batches), ``parallel`` (the trainers, the mesh, the
 collectives and the rank launcher), ``decode`` (paged
 pool, sampling, engine, CLI), ``runtime`` (guardrails).
@@ -48,7 +57,7 @@ from __future__ import annotations
 
 import torch
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 # Training hyperparameters of the reference workload (train_ffns.py:29-30),
 # the same values as the JAX package's.

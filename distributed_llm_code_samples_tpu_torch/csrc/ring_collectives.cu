@@ -1,9 +1,11 @@
-// Ring collectives for Hopper (sm_90a) over peer-mapped memory: one ring
-// hop, the ring all-reduce, reduce-scatter and all-gather.
+// Peer collectives for Hopper (sm_90a) over peer-mapped memory: one ring
+// hop, the ring all-reduce, reduce-scatter and all-gather, and the dense
+// all-to-all.
 //
 // Replaces the TPU kernels of distributed_llm_code_samples_tpu/ops/
 // pallas_ring.py: `ppermute_dma` (:151), `ring_all_reduce` (:190),
-// `ring_reduce_scatter` (:328) and `ring_all_gather` (:406). They compute
+// `ring_reduce_scatter` (:328), `ring_all_gather` (:406) and
+// `all_to_all_dma` (:490; all_to_all_kernel below). The ring kernels compute
 // the same functions with the same chunks (the leading-dim n-split) and
 // the same ring schedule, so each chunk is summed in the Pallas kernels'
 // order: at reduce step s rank r adds its own copy of chunk
@@ -38,6 +40,19 @@
 // the receiver's output. Every wait ends at a deadline (wait_for): a
 // missing peer leaves an error code in the workspace instead of hanging
 // the card.
+//
+// The all-to-all (all_to_all_kernel) moves chunk j of rank r's input (the
+// leading-dim n-split) to chunk r of rank j's output, a copy and no sum.
+// Each rank sends (n-1)/n of its tensor, a different part to every peer,
+// so at n 4 and the EP dispatch's 12.58 MB a rank it is 9.44 MB, 21 us
+// of one NVLink direction. Block b of rank r stores its range of chunk j
+// straight into rank j's data region at chunk r, for every peer j, then
+// raises one flag in each peer (a2a_arrive[r][b]); it copies its own
+// chunk r from input to output, and then each chunk that arrived from
+// the peers out of its own workspace. Entry waits for every peer
+// (a2a_ready), the full barrier of pallas_ring.py:472-487: no rank stores
+// into a workspace whose owner may still be copying out the previous
+// call's chunks.
 //
 // Loopback: the n workspaces of one card, one cooperative launch of n x
 // nblk blocks (all resident at once, as the waits between blocks need).
@@ -133,11 +148,56 @@ __global__ void __launch_bounds__(kThreads) ring_all_gather_kernel(Params p) {
   move(c, c.y + last * e, nullptr, data(c.me) + last * e, nullptr);
 }
 
-const void* const kKernels[4] = {
+// Entry of the all-to-all: tell every peer that this rank's block b has
+// entered the call, then wait until every peer's block b says the same.
+__device__ __forceinline__ bool enter_all(const Ctx& c, const Params& p) {
+  int ok = 1;
+  if (threadIdx.x == 0) ok = ld_acquire(err_word(c.me)) == 0;
+  if (!__syncthreads_and(ok)) return false;
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    for (int k = 1; k < c.n; ++k)
+      st_release(a2a_ready(p.ws[(c.r + k) % c.n], c.r, c.b), c.epoch);
+  }
+  for (int k = 1; k < c.n; ++k) {
+    if (!wait_for(c, a2a_ready(c.me, (c.r + k) % c.n, c.b), c.epoch, -1))
+      return false;
+  }
+  return true;
+}
+
+__global__ void __launch_bounds__(kThreads) all_to_all_kernel(Params p) {
+  const Ctx c = make_ctx(p, kAllToAll);
+  const int n = c.n;
+  const long long e = c.chunk;
+  if (!enter_all(c, p)) return;
+  // rank r + k is the first peer rank r stores to: the n ranks start on n
+  // different targets
+  for (int k = 1; k < n; ++k) {
+    const int j = (c.r + k) % n;
+    move(c, data(p.ws[j]) + c.r * e, nullptr, c.x + j * e, nullptr);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    for (int k = 1; k < n; ++k)
+      st_release(a2a_arrive(p.ws[(c.r + k) % n], c.r, c.b), c.base + 1);
+  }
+  move(c, c.y + c.r * e, nullptr, c.x + c.r * e, nullptr);
+  // rank r - k stored to this rank k-th
+  for (int k = 1; k < n; ++k) {
+    const int j = (c.r + n - k) % n;
+    if (!wait_for(c, a2a_arrive(c.me, j, c.b), c.base + 1, j)) return;
+    move(c, c.y + j * e, nullptr, data(c.me) + j * e, nullptr);
+  }
+}
+
+const void* const kKernels[5] = {
     (const void*)(ring_hop_kernel),
     (const void*)(ring_all_reduce_kernel),
     (const void*)(ring_reduce_scatter_kernel),
-    (const void*)(ring_all_gather_kernel)};
+    (const void*)(ring_all_gather_kernel),
+    (const void*)(all_to_all_kernel)};
 
 }  // namespace
 }  // namespace ring
@@ -145,8 +205,9 @@ const void* const kKernels[4] = {
 extern "C" {
 
 // One call of collective `op` (0 hop, 1 all-reduce, 2 reduce-scatter,
-// 3 all-gather). ws: n workspace addresses as mapped in this process
-// (dist: only this rank's and its two neighbours' are read). in / out:
+// 3 all-gather, 4 all-to-all). ws: n workspace addresses as mapped in
+// this process (the ring kernels read this rank's and its two
+// neighbours', the all-to-all every one). in / out:
 // one address (dist, rank >= 0) or n (loopback, rank < 0). chunk: floats
 // a chunk. The launch goes on `stream`; returns a cudaError_t as int.
 int ring_launch(int device, int op, const unsigned long long* ws,
@@ -155,7 +216,7 @@ int ring_launch(int device, int op, const unsigned long long* ws,
                 long long epoch, long long timeout_ns, int nblk, int vec,
                 void* stream) {
   using namespace ring;
-  if (op < 0 || op > 3 || n < 2 || n > kMaxRanks || rank >= n ||
+  if (op < 0 || op > 4 || n < 2 || n > kMaxRanks || rank >= n ||
       nblk < 1 || nblk > kMaxBlocks || chunk < 1 || epoch < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);

@@ -1,10 +1,10 @@
-// Shared pieces of the ring collectives (ring_collectives.cu): the peer
+// Shared pieces of the peer collectives (ring_collectives.cu): the peer
 // workspace layout, the kernel parameters, flag words with system-scope
 // release/acquire, a deadline-bounded block-wide wait, and the block's
 // element loop.
 //
-// A rank's workspace is one cudaMalloc on its card, mapped into its ring
-// neighbours' processes through CUDA IPC (or, in loopback, n workspaces on
+// A rank's workspace is one cudaMalloc on its card, mapped into every
+// other rank's process through CUDA IPC (or, in loopback, n workspaces on
 // one card in one process). Every kernel writes only into workspaces:
 // never into a peer's PyTorch tensors, which are not IPC-mapped.
 //
@@ -14,8 +14,13 @@
 //                      epoch * 64 + step + 1 once its step's data is here
 //   [1024, 1024+8*64)  ready[b]: written by the right neighbour's block b,
 //                      the epoch of the call it has entered
-//   [4096, ...)        data region: capacity bytes (hop, all-gather, and
-//                      the all-reduce's second phase land here)
+//   [4096, 8192)       a2a_arrive[j][b] (all-to-all): written by rank j's
+//                      block b, epoch * 64 + 1 once its chunk is here
+//   [8192, 12288)      a2a_ready[j][b] (all-to-all): written by rank j's
+//                      block b, the epoch of the call it has entered
+//   [16384, ...)       data region: capacity bytes (hop, all-gather, the
+//                      all-reduce's second phase and the all-to-all's
+//                      chunks land here)
 //   [stage_off, ...)   staging slots: n-1 chunks (the reduce phases)
 //
 // Flags only grow. Each call carries an epoch that every rank counts the
@@ -38,13 +43,20 @@ constexpr uint64_t kStepsPerEpoch = 64;   // >= 2(n-1) + 1 for n <= 8
 constexpr long long kErrOff = 0;
 constexpr long long kArriveOff = 256;
 constexpr long long kReadyOff = 1024;
-constexpr long long kDataOff = 4096;
+constexpr long long kA2aArriveOff = 4096;
+constexpr long long kA2aReadyOff = 8192;
+constexpr long long kDataOff = 16384;
 
-enum Op { kHop = 0, kAllReduce = 1, kReduceScatter = 2, kAllGather = 3 };
+enum Op {
+  kHop = 0,
+  kAllReduce = 1,
+  kReduceScatter = 2,
+  kAllGather = 3,
+  kAllToAll = 4
+};
 
 struct Params {
   char* ws[kMaxRanks];          // every rank's workspace as mapped here
-                                // (dist: this rank's and its neighbours')
   const float* in[kMaxRanks];   // dist: in[0]; loopback: one a rank
   float* out[kMaxRanks];
   long long chunk;              // floats a ring chunk
@@ -130,6 +142,14 @@ __device__ __forceinline__ uint64_t* arrive(char* ws, int b) {
 __device__ __forceinline__ uint64_t* ready(char* ws, int b) {
   return reinterpret_cast<uint64_t*>(ws + kReadyOff) + b;
 }
+__device__ __forceinline__ uint64_t* a2a_arrive(char* ws, int src, int b) {
+  return reinterpret_cast<uint64_t*>(ws + kA2aArriveOff) +
+         src * kMaxBlocks + b;
+}
+__device__ __forceinline__ uint64_t* a2a_ready(char* ws, int src, int b) {
+  return reinterpret_cast<uint64_t*>(ws + kA2aReadyOff) +
+         src * kMaxBlocks + b;
+}
 __device__ __forceinline__ float* data(char* ws) {
   return reinterpret_cast<float*>(ws + kDataOff);
 }
@@ -138,7 +158,8 @@ __device__ __forceinline__ float* stage(const Ctx& c, char* ws, int slot) {
 }
 
 // Read by the host when a wait passes its deadline: the op, the step it
-// waited for, the block and the rank (each + 1, so that 0 means no error).
+// waited for (the all-to-all: the source rank), the block and the rank
+// (each + 1, so that 0 means no error).
 __device__ __forceinline__ uint64_t error_code(const Ctx& c, int step) {
   return (static_cast<uint64_t>(c.op + 1) << 48) |
          (static_cast<uint64_t>(step + 1) << 32) |

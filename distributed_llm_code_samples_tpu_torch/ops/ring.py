@@ -1,14 +1,17 @@
-"""Ring collectives over peer-mapped memory: one hop, all-reduce,
+"""Collectives over peer-mapped memory: the ring's one hop, all-reduce,
 reduce-scatter and all-gather, the ``comm="pallas_ring"`` transport of
-DDP and FSDP.
+DDP and FSDP, and the dense all-to-all, the ``comm="pallas_a2a"``
+transport of expert parallelism.
 
 Port of ``distributed_llm_code_samples_tpu/ops/pallas_ring.py``
 (``ppermute_dma``, ``ring_all_reduce``, ``ring_reduce_scatter``,
-``ring_all_gather``), with its conventions: ring chunks are the
-leading-dim n-split, the reduce-scatter leaves summed chunk r on rank r,
-the all-gather puts rank i's block at chunk i, the hop moves rank r's
-block to rank r+1, and a leading dim that does not split into n chunks
-raises. Each chunk is summed in the Pallas kernels' ring order.
+``ring_all_gather``, ``all_to_all_dma``, ``all_to_all_dma_dims``), with
+its conventions: chunks are the leading-dim n-split, the reduce-scatter
+leaves summed chunk r on rank r, the all-gather puts rank i's block at
+chunk i, the hop moves rank r's block to rank r+1, the all-to-all moves
+chunk j of rank r to chunk r of rank j, and a leading dim that does not
+split into n chunks raises. Each chunk is summed in the Pallas kernels'
+ring order.
 
 Each wrapper takes the tensor and the ring: a ``Ring`` (the ranks: ``n``,
 this ``rank``, the ``torch.distributed`` group and, on the card, a
@@ -17,9 +20,9 @@ this ``rank``, the ``torch.distributed`` group and, on the card, a
 kernels take the axis name. On a CUDA tensor it launches its
 kernel (``csrc/ring_collectives.cu``, built at first use by
 ``ops/_build.py``, bound with ctypes) or raises; on a CPU tensor it runs
-its plain version, the same ring on ``torch.distributed``
+its plain version, the same exchange on ``torch.distributed``
 point-to-point (``*_ref``). There is no fallback from a kernel to the
-plain version or to NCCL. ``loopback_ref`` computes the same sums over
+plain version or to NCCL. ``loopback_ref`` computes the same results over
 the n per-rank tensors of one process, the plain version of a loopback
 call. The kernels and the plain versions add the same f32 pairs in the
 same order, so they agree bit for bit.
@@ -27,7 +30,7 @@ same order, so they agree bit for bit.
 The kernels store into peers' workspaces, never into peers' tensors
 (PyTorch's allocator does not map them to other processes): a
 ``PeerWorkspace`` is one ``cudaMalloc`` a rank, its CUDA IPC handle
-crossing the process group, mapped by the ring neighbours. In loopback
+crossing the process group, mapped by every other rank. In loopback
 one process holds the n workspaces of n virtual ranks on one card, and a
 call is one cooperative launch for all of them.
 """
@@ -45,13 +48,17 @@ import torch.distributed as dist
 from . import _build
 
 LIB = "ring_collectives"
-HOP, ALL_REDUCE, REDUCE_SCATTER, ALL_GATHER = (
+HOP, ALL_REDUCE, REDUCE_SCATTER, ALL_GATHER, ALL_TO_ALL = (
     "ppermute_dma", "ring_all_reduce", "ring_reduce_scatter",
-    "ring_all_gather")
-_OPS = {HOP: 0, ALL_REDUCE: 1, REDUCE_SCATTER: 2, ALL_GATHER: 3}
+    "ring_all_gather", "all_to_all_dma")
+_OPS = {HOP: 0, ALL_REDUCE: 1, REDUCE_SCATTER: 2, ALL_GATHER: 3,
+        ALL_TO_ALL: 4}
+# not a kernel: a loopback mesh's psum, the ranks' tensors summed in rank
+# order in plain torch (parallel/collectives.py)
+SUM = "sum"
 # csrc/ring_common.cuh: kMaxRanks, kDataOff
 _MAX_RANKS = 8
-_DATA_OFF = 4096
+_DATA_OFF = 16384
 # a chunk range per block of at least this many floats; at most 32 blocks
 # a rank, so n = 4 loopback ranks fit on 132 SMs one block each
 _FLOATS_PER_BLOCK = 8192
@@ -94,21 +101,23 @@ def describe_error(code: int) -> str:
     op = (code >> 48) - 1
     step = ((code >> 32) & 0xFFFF) - 1
     names = {v: k for k, v in _OPS.items()}
-    where = "the entry barrier" if step < 0 else f"step {step}"
+    where = ("the entry barrier" if step < 0 else f"rank {step}'s chunk"
+             if op == _OPS[ALL_TO_ALL] else f"step {step}")
     return (f"{names.get(op, op)} rank {(code & 0xFFFF) - 1} block "
             f"{((code >> 16) & 0xFFFF) - 1} gave up waiting at {where}")
 
 
 class PeerWorkspace:
-    """The ring's peer memory on the card.
+    """The collectives' peer memory on the card.
 
     ``PeerWorkspace(capacity, device, group=g)``: each rank of ``g``
     ``cudaMalloc``s one workspace (``csrc/ring_common.cuh`` has its
     layout: flag words, a data region of ``capacity`` bytes and as much
     again of staging slots), publishes its ``cudaIpcGetMemHandle`` over
-    ``g`` and opens its two ring neighbours' handles, peer access enabled
-    lazily. It raises if a neighbour's card has no peer access to this
-    one: nothing goes through the host.
+    ``g`` and opens every other rank's handle (the ring kernels store
+    into a neighbour's, the all-to-all into every peer's), peer access
+    enabled lazily. It raises if a peer's card has no peer access to
+    this one: nothing goes through the host.
 
     ``PeerWorkspace(capacity, device, n=n)`` (loopback): n workspaces on
     one card in this process, for n virtual ranks.
@@ -167,7 +176,7 @@ class PeerWorkspace:
         dist.all_gather_object(every, mine, group=self.group)
         peers = [None] * n
         peers[r] = self._own[0]
-        for j in sorted({(r - 1) % n, (r + 1) % n}):
+        for j in (j for j in range(n) if j != r):
             dev, h = every[j]
             if dev != self.index and not torch.cuda.can_device_access_peer(
                     self.index, dev):
@@ -254,8 +263,15 @@ class Loopback:
             if len(set(self._ops)) != 1:
                 raise RuntimeError(f"loopback ranks called different "
                                    f"collectives: {self._ops}")
-            self._outs = loopback(self._ops[0], self._ins,
-                                  self.workspace)
+            if self._ops[0] == SUM:
+                total = self._ins[0].clone()
+                for x in self._ins[1:]:
+                    total += x
+                self._outs = [total] + [total.clone()
+                                        for _ in self._ins[1:]]
+            else:
+                self._outs = loopback(self._ops[0], self._ins,
+                                      self.workspace)
         except BaseException as e:
             self._error = e
             raise
@@ -330,6 +346,10 @@ def _check_split(op: str, x: torch.Tensor, n: int) -> None:
     if op in (ALL_REDUCE, REDUCE_SCATTER) and x.shape[0] % n:
         raise ValueError(f"leading dim {x.shape[0]} not divisible by ring "
                          f"size {n} (chunk unit of the ring)")
+    if op == ALL_TO_ALL and (x.ndim == 0 or x.shape[0] % n):
+        raise ValueError(f"leading dim {x.shape[0] if x.ndim else None} not "
+                         f"divisible by {n} peers (the split unit of "
+                         "all_to_all)")
 
 
 def loopback(op: str, xs, ws: PeerWorkspace) -> list:
@@ -357,18 +377,21 @@ def loopback(op: str, xs, ws: PeerWorkspace) -> list:
 def workspace_bytes(op: str, x: torch.Tensor, n: int) -> int:
     """The workspace a call of ``op`` on ``x`` over n ranks needs: the
     data region holds the gathered tensor (all-gather, all-reduce), the
-    hop's block, or the reduce-scatter's n-1 staging chunks."""
+    hop's block, the all-to-all's incoming chunks (a chunk slot for each
+    rank), or the reduce-scatter's n-1 staging chunks."""
     nbytes = x.numel() * x.element_size()
     return {HOP: nbytes, ALL_REDUCE: nbytes, ALL_GATHER: n * nbytes,
-            REDUCE_SCATTER: (n - 1) * nbytes // n}[op]
+            ALL_TO_ALL: nbytes, REDUCE_SCATTER: (n - 1) * nbytes // n}[op]
 
 
 def _as_ring(op: str, x: torch.Tensor, ring) -> Ring:
     """``ring`` itself, or the ``Ring`` of a rank's mesh view (opened
-    with room for this call at its first use)."""
+    with room for this call at its first use; the all-to-all's users
+    launch no ring kernel, so it opens without the one-hop probe)."""
     if isinstance(ring, Ring):
         return ring
-    return ring.ring(workspace_bytes(op, x, ring.size))
+    return ring.ring(workspace_bytes(op, x, ring.size),
+                     probe=op != ALL_TO_ALL)
 
 
 def _collective(op: str, x: torch.Tensor, ring) -> torch.Tensor:
@@ -416,6 +439,54 @@ def ring_all_gather(x: torch.Tensor, ring) -> torch.Tensor:
     """``all_gather(x, dim=0)``: ``[n * rows, ...]`` with chunk i rank
     i's block."""
     return _collective(ALL_GATHER, x, ring)
+
+
+def all_to_all_dma(x: torch.Tensor, ring) -> torch.Tensor:
+    """The dense all-to-all over the leading dim (``all_to_all(x,
+    split_dim=0, concat_dim=0)``): chunk j of rank r lands at chunk r of
+    rank j, each (source, destination) pair a direct store. ``x.shape[0]``
+    must divide by n."""
+    return _collective(ALL_TO_ALL, x, ring)
+
+
+def tiled_all_to_all(x: torch.Tensor, ring, split_dim: int, concat_dim: int,
+                     exchange=all_to_all_dma) -> torch.Tensor:
+    """``exchange`` (a dim-0 all-to-all) in the tiled form: ``split_dim``
+    splits into n blocks, block j goes to rank j, and the n received
+    blocks concatenate along ``concat_dim`` in rank order."""
+    n = ring.n if isinstance(ring, Ring) else ring.size
+    if n == 1:
+        return x
+    xm = x.movedim(split_dim, 0).contiguous()
+    k = exchange(xm, ring)
+    kb = k.reshape((n, xm.shape[0] // n) + tuple(xm.shape[1:]))
+    return torch.cat([kb[j].movedim(0, split_dim) for j in range(n)],
+                     dim=concat_dim)
+
+
+class _AllToAllDims(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ring, split_dim, concat_dim):
+        ctx.ring, ctx.dims = ring, (split_dim, concat_dim)
+        return tiled_all_to_all(x, ring, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        split_dim, concat_dim = ctx.dims
+        return (all_to_all_dma_dims(dy, ctx.ring, concat_dim, split_dim),
+                None, None, None)
+
+
+def all_to_all_dma_dims(x: torch.Tensor, ring, split_dim: int,
+                        concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all of ``split_dim`` into ``concat_dim`` over the
+    ``all_to_all_dma`` kernel (``pallas_ring.py:571``): the split dim
+    moves to the front for the dim-0 exchange and the received blocks
+    concatenate along ``concat_dim``. Differentiable: its backward is the
+    same exchange with the dims swapped. (The expert-parallel step calls
+    the exchanges from the rank's own thread instead: a loopback rank
+    must not block PyTorch's one autograd thread of the card.)"""
+    return _AllToAllDims.apply(x, ring, split_dim, concat_dim)
 
 
 # -- plain versions ----------------------------------------------------------
@@ -480,19 +551,42 @@ def ring_all_gather_ref(x: torch.Tensor, ring) -> torch.Tensor:
     return out.reshape(_out_shape(ALL_GATHER, x.shape, n))
 
 
+def all_to_all_dma_ref(x: torch.Tensor, ring) -> torch.Tensor:
+    """The all-to-all as n-1 ``isend``/``irecv`` pairs in one batch: chunk
+    j to rank j, rank j's chunk r into chunk j."""
+    ring = _as_ring(ALL_TO_ALL, x, ring)
+    n, r = ring.n, ring.rank
+    _check_split(ALL_TO_ALL, x, n)
+    src = x.contiguous().reshape(n, -1)
+    out = torch.empty_like(src)
+    out[r] = src[r]
+    ops = []
+    for j in (j for j in range(n) if j != r):
+        ops += [dist.P2POp(dist.isend, src[j], j, group=ring.group),
+                dist.P2POp(dist.irecv, out[j], j, group=ring.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out.reshape(x.shape)
+
+
 _REFS = {HOP: ppermute_dma_ref, ALL_REDUCE: ring_all_reduce_ref,
          REDUCE_SCATTER: ring_reduce_scatter_ref,
-         ALL_GATHER: ring_all_gather_ref}
+         ALL_GATHER: ring_all_gather_ref, ALL_TO_ALL: all_to_all_dma_ref}
 
 
 def loopback_ref(op: str, xs) -> list:
     """The plain version of ``loopback``: the same sums in the same ring
-    order over the n per-rank tensors of one process."""
+    order, or the same chunks moved, over the n per-rank tensors of one
+    process."""
     xs = list(xs)
     n = len(xs)
     _check_split(op, xs[0], n)
     if op == HOP:
         return [xs[(r - 1) % n].clone() for r in range(n)]
+    if op == ALL_TO_ALL:
+        parts = [x.contiguous().reshape(n, -1) for x in xs]
+        return [torch.stack([parts[j][r] for j in range(n)]).reshape(
+            xs[0].shape) for r in range(n)]
     if op == ALL_GATHER:
         full = torch.cat([x.contiguous() for x in xs])
         return [full.clone() for _ in range(n)]

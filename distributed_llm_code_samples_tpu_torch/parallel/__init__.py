@@ -1,19 +1,21 @@
 """Trainers of the port: the single-device FFN trainer (slice 2), the
-single-device LM trainer (slice 3), and DDP and FSDP of the FFN stack
-over n ranks (slice 4) with the mesh, the collectives and the launcher
-they run on."""
+single-device LM trainer (slice 3), DDP and FSDP of the FFN stack over n
+ranks (slice 4), and expert parallelism of the MoE FFN stack (slice 5),
+with the mesh, the collectives and the launcher they run on."""
 
-from .collectives import all_gather, all_reduce, reduce_scatter
+from .collectives import all_gather, all_reduce, all_to_all, reduce_scatter
 from .ddp import train_ddp
+from .expert import moe_layer_ep, train_moe_dense, train_moe_ep
 from .fsdp import shard_params, train_fsdp, unshard_params
 from .launcher import launch, launch_strided, run_strided
 from .lm import lm_grads, resolve_head, train_lm_single
-from .mesh import DATA_AXIS, Mesh, make_mesh, require_axes
+from .mesh import DATA_AXIS, EXPERT_AXIS, Mesh, make_mesh, require_axes
 from .single import make_step, train_single
 from .transformer import resolve_attn
 
-__all__ = ["DATA_AXIS", "Mesh", "all_gather", "all_reduce", "launch",
-           "launch_strided", "lm_grads", "make_mesh", "make_step",
-           "reduce_scatter", "require_axes", "resolve_attn", "resolve_head",
-           "run_strided", "shard_params", "train_ddp", "train_fsdp",
-           "train_lm_single", "train_single", "unshard_params"]
+__all__ = ["DATA_AXIS", "EXPERT_AXIS", "Mesh", "all_gather", "all_reduce",
+           "all_to_all", "launch", "launch_strided", "lm_grads", "make_mesh",
+           "make_step", "moe_layer_ep", "reduce_scatter", "require_axes",
+           "resolve_attn", "resolve_head", "run_strided", "shard_params",
+           "train_ddp", "train_fsdp", "train_lm_single", "train_moe_dense",
+           "train_moe_ep", "train_single", "unshard_params"]

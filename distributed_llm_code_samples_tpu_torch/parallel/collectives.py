@@ -8,9 +8,16 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..ops.ring import SUM, tiled_all_to_all
+
 
 def all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Sum across the ranks (``dist.all_reduce(SUM)``)."""
+    """Sum across the ranks (``dist.all_reduce(SUM)``). A loopback mesh
+    has no process group: there its n threads sum their tensors in rank
+    order in plain torch (no kernel), the one collective its trainers
+    take from this module (expert parallelism's router gradients)."""
+    if getattr(mesh, "loopback", False):
+        return mesh.ring().loopback.call(SUM, x.contiguous(), mesh.rank)
     y = x.contiguous().clone()
     dist.all_reduce(y, group=mesh.group)
     return y
@@ -51,16 +58,36 @@ def reduce_scatter(x: torch.Tensor, mesh, *, dim: int = 0) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+def _all_to_all_single(xm: torch.Tensor, mesh) -> torch.Tensor:
+    if xm.shape[0] % mesh.size:
+        raise ValueError(f"leading dim {xm.shape[0]} not divisible by "
+                         f"{mesh.size} peers (the split unit of all_to_all)")
+    out = torch.empty_like(xm)
+    dist.all_to_all_single(out, xm, group=mesh.group)
+    return out
+
+
+def all_to_all(x: torch.Tensor, mesh, *, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all (``lax.all_to_all(tiled=True)``): ``split_dim``
+    splits into n blocks, block j goes to rank j, and the received blocks
+    concatenate along ``concat_dim`` in rank order
+    (``dist.all_to_all_single`` on the split dim moved to the front)."""
+    return tiled_all_to_all(x, mesh, split_dim, concat_dim,
+                            exchange=_all_to_all_single)
+
+
 COMMS = ("psum", "pallas_ring")
 
 
-def check_comm(comm: str, mesh) -> None:
-    """``comm`` is a transport the strategies know, and one the mesh can
-    run: a loopback mesh has no process group, so only the ring."""
-    if comm not in COMMS:
-        raise ValueError(f"unknown comm {comm!r} "
-                         "(expected 'psum' or 'pallas_ring')")
+def check_comm(comm: str, mesh, comms=COMMS) -> None:
+    """``comm`` is one of the strategy's transports ``comms`` (``"psum"``
+    and its kernel transport), and one the mesh can run: a loopback mesh
+    has no process group, so only the kernels."""
+    if comm not in comms:
+        raise ValueError(f"unknown comm {comm!r} (expected "
+                         + " or ".join(map(repr, comms)) + ")")
     if comm == "psum" and getattr(mesh, "loopback", False):
-        raise ValueError("a loopback mesh (n ranks on one card) runs the "
-                         "pallas_ring transport only: psum needs a process "
+        raise ValueError(f"a loopback mesh (n ranks on one card) runs the "
+                         f"{comms[1]} transport only: psum needs a process "
                          "group")

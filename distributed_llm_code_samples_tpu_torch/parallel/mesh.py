@@ -1,16 +1,19 @@
-"""The data mesh of the port, after the JAX package's ``parallel/mesh.py``.
+"""The 1-D meshes of the port, after the JAX package's
+``parallel/mesh.py``.
 
 A JAX mesh names devices along axes and collectives address an axis by
-name. Here a mesh names a world size along the one ported axis,
-``DATA_AXIS``, and a device kind: on CUDA one process a card over NCCL,
-on the CPU n gloo processes (``parallel/launcher.py`` spawns both), or,
-with ``loopback=True``, n threads of one process on one card whose ring
+name. Here a mesh names a world size along one of the ported axes,
+``DATA_AXIS`` (DDP, FSDP) or ``EXPERT_AXIS`` (expert parallelism), and a
+device kind: on CUDA one process a card over NCCL, on the CPU n gloo
+processes (``parallel/launcher.py`` spawns both), or, with
+``loopback=True``, n threads of one process on one card whose peer
 collectives are single cooperative launches over n workspaces.
 
 ``make_mesh`` builds the mesh a caller hands to a trainer. Inside a
 rank the launcher gives the trainer that mesh's rank view: the same
 mesh with its ``rank``, the ``torch.distributed`` group and the rank's
-``Ring`` for the ``comm="pallas_ring"`` transport.
+``Ring`` for the ``comm="pallas_ring"`` and ``"pallas_a2a"``
+transports.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from .. import resolve_device
 from ..ops.ring import Loopback, PeerWorkspace, Ring, ppermute_dma
 
 DATA_AXIS = "data"
+EXPERT_AXIS = "expert"
+AXES = (DATA_AXIS, EXPERT_AXIS)
 
 
 class LoopbackState:
@@ -62,9 +67,9 @@ class LoopbackState:
 
 @dataclass
 class Mesh:
-    """``shape`` ``{DATA_AXIS: n}`` on ``device`` (``"cuda"`` or
-    ``"cpu"``). ``rank``, ``group`` and the ring are set in a rank's
-    view only."""
+    """``shape`` ``{DATA_AXIS: n}`` or ``{EXPERT_AXIS: n}`` on ``device``
+    (``"cuda"`` or ``"cpu"``). ``rank``, ``group`` and the ring are set in
+    a rank's view only."""
     shape: dict
     device: str = "cuda"
     loopback: bool = False
@@ -96,14 +101,16 @@ class Mesh:
         return dataclasses.replace(self, rank=rank, group=group,
                                    _loop_state=loop_state, _ring=None)
 
-    def ring(self, nbytes: int = 0) -> Ring:
+    def ring(self, nbytes: int = 0, probe: bool = True) -> Ring:
         """This rank's ``Ring`` with room for a tensor of ``nbytes``. The
         first call opens it (on the card a ``PeerWorkspace``, collective
-        over the ranks) and sends each rank's index one hop
-        (``ppermute_dma``), which must bring the left neighbour's: a ring
-        whose peers are mapped wrong stops here, not in the gradients. A
-        later call that needs more room reopens it larger; every rank makes
-        the same calls, so they stay collective."""
+        over the ranks) and, with ``probe``, sends each rank's index one
+        hop (``ppermute_dma``), which must bring the left neighbour's: a
+        ring whose peers are mapped wrong stops here, not in the
+        gradients. (Expert parallelism opens it without the probe: it
+        launches no ring kernel.) A later call that needs more room
+        reopens it larger; every rank makes the same calls, so they stay
+        collective."""
         if not self.in_rank:
             raise ValueError("a mesh's ring exists inside its ranks only")
         ring = self._ring
@@ -121,7 +128,7 @@ class Mesh:
             ring = Ring(n, r, group=self.group, workspace=PeerWorkspace(
                 nbytes, self.torch_device, group=self.group))
         self._ring = ring
-        if n > 1:
+        if n > 1 and probe:
             got = ppermute_dma(torch.full((1,), float(r),
                                           device=self.torch_device), ring)
             if int(got.item()) != (r - 1) % n:
@@ -148,10 +155,12 @@ class Mesh:
 
 def make_mesh(axes: Mapping[str, int] | None = None, device=None,
               loopback: bool = False) -> Mesh:
-    """A mesh of ``axes`` (``{DATA_AXIS: n}``) on ``device``: CUDA unless
-    the CPU is asked for (``resolve_device``). ``axes=None`` on CUDA takes
-    every visible card, as the JAX ``make_mesh`` takes every device. On
-    CUDA each rank needs a card of its own unless ``loopback``."""
+    """A mesh of ``axes`` (``{DATA_AXIS: n}`` or ``{EXPERT_AXIS: n}``) on
+    ``device``: CUDA unless the CPU is asked for (``resolve_device``).
+    ``axes=None`` on CUDA takes every visible card on the data axis, as
+    the JAX ``make_mesh`` takes every device. On CUDA each rank needs a
+    card of its own unless ``loopback``. Meshes of two axes (the data x
+    expert mesh, TP, the hybrid) are not ported and raise."""
     dev = resolve_device(device).type
     if axes is None:
         if dev != "cuda":
@@ -159,10 +168,12 @@ def make_mesh(axes: Mapping[str, int] | None = None, device=None,
                              "{DATA_AXIS: n}, device='cpu')")
         axes = {DATA_AXIS: torch.cuda.device_count()}
     axes = dict(axes)
-    if set(axes) != {DATA_AXIS}:
-        raise NotImplementedError(f"mesh axes {sorted(axes)}: only "
-                                  f"{DATA_AXIS!r} is ported (TP, hybrid and "
-                                  "the other axes are not yet)")
+    if len(axes) != 1 or not set(axes) <= set(AXES):
+        raise NotImplementedError(
+            f"mesh axes {sorted(axes)}: only {DATA_AXIS!r} is ported for "
+            f"DDP and FSDP, and {EXPERT_AXIS!r} for expert parallelism, each "
+            "as a 1-D mesh (TP, the hybrid, the data x expert mesh and the "
+            "other axes are not yet)")
     n = math.prod(axes.values())
     if n < 1:
         raise ValueError(f"mesh {axes} has no ranks")

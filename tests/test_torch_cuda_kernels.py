@@ -1,7 +1,8 @@
 """The CUDA kernels of the LM trainer's path (flash attention forward and
-backward; the fused head's statistics and backward) against their plain
-versions, on the card. Every test here needs a CUDA device with nvcc and
-skips without one. The file imports no JAX, so it runs where the card is:
+backward; the fused head's statistics and backward), the ring kernels
+and the all-to-all against their plain versions, on the card. Every
+test here needs a CUDA device with nvcc and skips without one. The file
+imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
@@ -207,6 +208,116 @@ def test_ring_wrappers_refuse_what_the_kernels_do_not_take(card):
                                             for _ in range(2)], ws)
     finally:
         ws.close()
+
+
+# the all-to-all at the EP slice's shapes (the dispatch operand [E, C, d]
+# and the return's [n*C, E/n, d]), a small one and a ragged one (chunks
+# of 35 floats: the scalar path)
+A2A_SHAPES = {"dispatch": (8, 512, 768), "return": (2048, 2, 768),
+              "small": (8, 6, 16), "ragged": (12, 5, 7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(A2A_SHAPES))
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_a2a_kernel_matches_plain_in_loopback(card, n, shape):
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    dims = A2A_SHAPES[shape]
+    rows = dims[0] - dims[0] % n
+    rng = np.random.default_rng(n)
+    xs = [normal(rng, rows, *dims[1:]) for _ in range(n)]
+    ws = ring.PeerWorkspace(ring.workspace_bytes(ring.ALL_TO_ALL, xs[0], n),
+                            "cuda", n=n)
+    try:
+        before = _build.launch_counts().get(ring.ALL_TO_ALL, 0)
+        got = ring.loopback(ring.ALL_TO_ALL, xs, ws)
+        again = ring.loopback(ring.ALL_TO_ALL, xs, ws)
+        assert _build.launch_counts()[ring.ALL_TO_ALL] == before + 2
+        ws.check()
+        for g, a, w, x in zip(got, again, ring.loopback_ref(ring.ALL_TO_ALL,
+                                                            xs), xs):
+            assert g.shape == w.shape
+            assert torch.equal(g, w) and torch.equal(a, w)
+            assert not torch.equal(g, x)      # the control: not the input
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+def test_a2a_kernel_identifying_blocks_after_ring_calls(card):
+    """Block j of rank r carries 10 r + j and must land at block r of rank
+    j; the same workspace served ring calls before, whose flags cannot
+    satisfy the all-to-all's waits."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    n = 4
+    ws = ring.PeerWorkspace(4 * 4096, "cuda", n=n)
+    try:
+        xs = [torch.ones(n, 64, device="cuda") for _ in range(n)]
+        ring.loopback(ring.ALL_REDUCE, xs, ws)
+        ring.loopback(ring.HOP, xs, ws)
+        xs = [(10.0 * r + torch.arange(n, device="cuda"))[:, None]
+              .repeat(1, 1000) for r in range(n)]
+        for _ in range(3):
+            got = ring.loopback(ring.ALL_TO_ALL, xs, ws)
+        ws.check()
+        for r in range(n):
+            want = (10.0 * torch.arange(n, device="cuda") + r)[:, None]
+            assert torch.equal(got[r], want.repeat(1, 1000))
+        got = ring.loopback(ring.ALL_REDUCE, xs, ws)
+        ws.check()
+        assert torch.equal(got[0], ring.loopback_ref(ring.ALL_REDUCE,
+                                                     xs)[0])
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+def test_a2a_wait_gives_up_and_raises(card, monkeypatch):
+    """A rank whose peer never enters the all-to-all waits to its
+    deadline, leaves its error word, and the check raises."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    monkeypatch.setattr(ring, "WAIT_TIMEOUT_S", 0.2)
+    ws = ring.PeerWorkspace(1024, "cuda", n=2)
+    try:
+        x = torch.ones(4, device="cuda")
+        ring._launch(ring.ALL_TO_ALL, [x], [torch.empty_like(x)], ws, 0)
+        with pytest.raises(RuntimeError, match="all_to_all_dma rank 0 block "
+                                               "0 gave up waiting at the "
+                                               "entry"):
+            ws.check()
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+def test_loopback_ep_through_the_a2a_kernel(card):
+    """Expert parallelism on four virtual ranks of one card, every
+    exchange the all-to-all kernel: equal to the grouped dense oracle on
+    the same card, with the launch counts of the schedule and no ring
+    kernel."""
+    from distributed_llm_code_samples_tpu_torch.data import (
+        make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models import init_moe_stack
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        EXPERT_AXIS, make_mesh, train_moe_dense, train_moe_ep)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    params = init_moe_stack(gen, 64, 2, 8)
+    seeds = make_seed_schedule(8, 7)
+    mesh = make_mesh({EXPERT_AXIS: 4}, loopback=True)
+    for dispatch in ("dense", "scatter", "gather"):
+        _build.reset_launch_counts()
+        ep = train_moe_ep(params, seeds, 128, 64, mesh, lr=0.1, k=2,
+                          aux_coef=0.01, dispatch=dispatch,
+                          comm="pallas_a2a")
+        # 2 steps x 2 layers x 4 exchanges, one launch for all ranks
+        assert _build.launch_counts() == {"all_to_all_dma": 16}
+        dense = train_moe_dense(params, seeds, 128, 64, lr=0.1, k=2,
+                                aux_coef=0.01, n_groups=4,
+                                dispatch=dispatch)
+        for a, b in zip(ep, dense):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        assert float((ep.w1 - params.w1).abs().max()) > 1e-4
 
 
 @pytest.mark.cuda

@@ -42,7 +42,7 @@ def test_every_module_imports_without_jax():
               "ops.fused_xent", "ops.xent", "parallel.lm",
               "parallel.transformer", "ops.ring", "parallel.mesh",
               "parallel.collectives", "parallel.launcher", "parallel.ddp",
-              "parallel.fsdp"):
+              "parallel.fsdp", "ops.moe", "models.moe", "parallel.expert"):
         assert f"distributed_llm_code_samples_tpu_torch.{m}" in mods
     code = ("import sys; sys.modules['jax'] = None; "
             "import importlib; "
