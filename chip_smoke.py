@@ -155,7 +155,7 @@ LM_KERNELS = (
     ("head_xent_stats", "fused_xent", "head_xent_stats", "head_xent_fwd.cu",
      "ops/pallas_xent.py:186", ("head_xent_stats",)),
     ("head_xent_bwd", "fused_xent", "head_xent_bwd", "head_xent_bwd.cu",
-     "ops/pallas_xent.py:245", ("head_xent_dh", "head_xent_dw")))
+     "ops/pallas_xent.py:245", ("head_xent_bwd",)))
 LM_NAMES = tuple(k[0] for k in LM_KERNELS)
 # kernel cases: flash (shape, heads, T, dh, causal) and head (shape, N, d,
 # V): the main path's and ragged ones that no tile divides
@@ -179,22 +179,42 @@ def card_line() -> str:
         f"nvidia-smi failed: {out.stderr.strip()}"
 
 
+# cycles of the device-side wait that holds a timed call's start event
+# back until the host has launched the call (about 1 ms)
+HOST_COVER_CYCLES = 2_000_000
+
+
 class Timer:
     """Median device time of ``fn`` over ``reps`` launches, each after an
-    L2 flush, timed with CUDA events."""
+    L2 flush, timed with CUDA events. The start event waits on the card
+    behind a spin of ``HOST_COVER_CYCLES`` (``torch.cuda._sleep``), so the
+    host's cost of launching ``fn`` falls before it and a call that the
+    host launches slower than the card runs it reads its device time.
+    ``with_host=True`` leaves the spin out (the flush-only measure this
+    script took before): the flush alone then covers the host, and a
+    slower host shows. ``align`` (across cards) enqueues a call that ends
+    on every rank's card at about the same moment, such as a one-float
+    NCCL all-reduce, after the spin: a collective then starts together on
+    all the cards, and its time is not the skew between the ranks'
+    hosts."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                  device="cuda")
 
-    def ms(self, fn, reps: int = 20) -> float:
+    def ms(self, fn, reps: int = 20, with_host: bool = False,
+           align=None) -> float:
         torch = self.torch
         for _ in range(3):
             fn()
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            if not with_host:
+                torch.cuda._sleep(HOST_COVER_CYCLES)
+            if align is not None:
+                align()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -828,8 +848,9 @@ def lm_bound(name, shape, mxu_bf16):
     not the kernels': flash counts the pairs the causal mask leaves, two
     products forward and five backward (s, dp, dq, dk, dv); the head one
     product for its statistics and three backward (z, dh, dw). The
-    backward kernels execute more (7 and 4 products): each of their two
-    launches recomputes the score and dp tiles, or the logit tiles."""
+    flash backward executes more (7 products): each of its two launches
+    recomputes the score and dp tiles; the head's backward executes its
+    three."""
     if name.startswith("flash"):
         bh, t, dh, causal = shape
         pairs = bh * causal_pairs(t, t, causal)
@@ -1040,8 +1061,7 @@ def lm_train_phase(torch, np, card):
                 "flash_attn_dq": layers * steps_n if attn_impl else 0,
                 "flash_attn_dkv": layers * steps_n if attn_impl else 0,
                 "head_xent_stats": steps_n if head_impl else 0,
-                "head_xent_dh": steps_n if head_impl else 0,
-                "head_xent_dw": steps_n if head_impl else 0}
+                "head_xent_bwd": steps_n if head_impl else 0}
         for kname, n in want.items():
             check(launches.get(kname, 0) == n,
                   f"{label}: {launches.get(kname, 0)} launches of {kname}, "
@@ -1130,8 +1150,15 @@ def lm_train_phase(torch, np, card):
         train(attn_impl="flash", head_impl="fused")
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    print("lm-train-profile " + json.dumps(dict(
-        profile_summary(prof, wall_ms), card=card)), flush=True)
+    summary = profile_summary(prof, wall_ms)
+    head_ms = sum(e.device_time_total / 1e3 for e in prof.key_averages()
+                  if getattr(e.device_type, "name", "") != "CPU"
+                  and "head_xent" in e.key)
+    busy = summary["device_busy_ms"]
+    summary.update(head_kernel_ms=head_ms,
+                   head_kernel_share=head_ms / busy if busy else None,
+                   card=card)
+    print("lm-train-profile " + json.dumps(summary), flush=True)
     return launches
 
 
@@ -1277,6 +1304,8 @@ def ring_kernel_phase(torch, np, timer):
                        ok=finite and same and exact and f64 <= RING_TOL
                        and f64_control > RING_TOL,
                        ms=timer.ms(lambda: ring.loopback(op, xs, ws)),
+                       ms_with_host=timer.ms(lambda: ring.loopback(op, xs, ws),
+                                             with_host=True),
                        plain_ms=timer.ms(lambda: ring.loopback_ref(op, xs)),
                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
             rows.append(row)
@@ -1463,6 +1492,9 @@ A2A_CASES = (("dispatch", (EP["n_experts"], EP_CAP, EP["d_model"])),
              ("ragged", (EP_N * 3, 5, 7)),
              ("identifying", (EP_N, 1000)))
 A2A_MAIN = "dispatch"
+# ranges a chunk of the all-to-all (ops/ring.py A2A_RANGES, 32; capped at
+# 4 in a loopback of 4 ranks), timed at the main case
+A2A_RANGE_SWEEP = (4, 16, 32, 64)
 # one step's gradients, leaf by leaf: EP's relative error against a
 # float64 dense run at most EP_GRAD_RATIO times the f32 dense oracle's
 # (the GRAD_RATIO pattern)
@@ -1523,14 +1555,81 @@ def a2a_kernel_phase(torch, np, timer):
                        control_equal_to_input=control, identified=ident,
                        ok=exact and same and not control and ident,
                        ms=timer.ms(lambda: ring.loopback(op, xs, ws)),
+                       ms_with_host=timer.ms(lambda: ring.loopback(op, xs, ws),
+                                             with_host=True),
                        plain_ms=timer.ms(lambda: ring.loopback_ref(op, xs)),
                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
             rows.append(row)
             print("a2a-kernel-case " + json.dumps(row), flush=True)
             del xs, got, again, want
+        shape = dict(A2A_CASES)[A2A_MAIN]
+        xs = [a2a_input(torch, A2A_MAIN, shape, r, EP_N, 650 + r)
+              for r in range(EP_N)]
+        print("a2a-ranges " + json.dumps(dict(
+            shape=A2A_MAIN, mode="loopback",
+            ms=a2a_range_sweep(torch, timer.ms, ring, ws.check, lambda: [
+                torch.equal(g, w) for g, w in zip(
+                    ring.loopback(op, xs, ws), ring.loopback_ref(op, xs))],
+                lambda: ring.loopback(op, xs, ws)))), flush=True)
+        stamps = ring.traced(lambda: ring.loopback(op, xs, ws), "cuda")
+        ws.check()
+        print("a2a-trace " + json.dumps(dict(
+            shape=A2A_MAIN, mode="loopback", phases=ring.A2A_PHASES,
+            ranks=a2a_trace_summary(stamps, EP_N, EP_N))), flush=True)
     finally:
         ws.close()
     return rows
+
+
+def a2a_trace_summary(stamps, n, ranks):
+    """The all-to-all kernel's own trace of one call (``ring.traced``:
+    ``[blocks, phases]`` ns; ``ranks`` virtual ranks' blocks in turn, each
+    rank's 2n - 1 roles of P blocks: own chunk, pushes, copy-outs) as
+    microseconds from the rank's first block entry: for each role, the
+    median and the last of each of its phases, and the call's end."""
+    from distributed_llm_code_samples_tpu_torch.ops.ring import A2A_PHASES
+    rows = stamps.tolist()
+    per_rank = len(rows) // ranks
+    p = per_rank // (2 * n - 1)
+    out = []
+    for r in range(ranks):
+        mine = rows[r * per_rank:(r + 1) * per_rank]
+        t0 = min(b[0] for b in mine)
+
+        def phases(blocks, cols):
+            res = {}
+            for i in cols:
+                us = sorted((b[i] - t0) / 1e3 for b in blocks)
+                res[A2A_PHASES[i]] = {"median": us[len(us) // 2],
+                                      "last": us[-1]}
+            return res
+
+        own, push, copy = (mine[:p], mine[p:n * p], mine[n * p:])
+        out.append(dict(own=phases(own, (0, 1, 2)),
+                        push=phases(push, (0, 1, 2)),
+                        copy_out=phases(copy, (0, 3, 4)),
+                        end_us=(max(max(b[2] for b in own + push),
+                                    max(b[4] for b in copy)) - t0) / 1e3))
+    return out
+
+
+def a2a_range_sweep(torch, time_ms, ring, check_ws, agree, kern):
+    """``{ranges: ms}`` of the all-to-all at each of ``A2A_RANGE_SWEEP``
+    (the kernel takes at most its cap), timed by ``time_ms``, each run
+    first checked with ``agree`` (a list of bools) and the workspace's
+    error word; the default is restored."""
+    default, out = ring.A2A_RANGES, {}
+    try:
+        for p in A2A_RANGE_SWEEP:
+            ring.A2A_RANGES = p
+            ok = all(agree())
+            torch.cuda.synchronize()
+            check_ws()
+            check(ok, f"the all-to-all at {p} ranges disagrees")
+            out[p] = time_ms(kern)
+    finally:
+        ring.A2A_RANGES = default
+    return out
 
 
 @contextlib.contextmanager
@@ -1882,6 +1981,8 @@ def dist_rank(mesh, payload):
 
     # -- each kernel across the cards ---------------------------------------
     timer = Timer(torch)
+    token = torch.zeros(1, device=dev)
+    aligned = partial(timer.ms, align=partial(dist.all_reduce, token))
     rg = mesh.ring(4 * max(FFN_DIM * D_MODEL,
                            EP["n_experts"] * EP_CAP * EP["d_model"]))
     cases = []
@@ -1908,8 +2009,10 @@ def dist_rank(mesh, payload):
                    control_err_vs_f64=ring_err(torch, [got], [f64[1]]),
                    nccl_err_vs_f64=(None if nccl is None else
                                     ring_err(torch, [nccl], [f64[0]])),
-                   ms=timer.ms(kern), plain_ms=timer.ms(plain),
-                   library_ms=(None if nccl is None else timer.ms(
+                   ms=aligned(kern),
+                   ms_with_host=timer.ms(kern, with_host=True),
+                   plain_ms=aligned(plain),
+                   library_ms=(None if nccl is None else aligned(
                        partial(_nccl_call, torch, dist, op, x))))
         row["bound_ms"], row["bound_by"] = ring_dist_bound(
             op, 4 * x.numel(), n)
@@ -1949,15 +2052,21 @@ def dist_rank(mesh, payload):
                    identified=(tag != "identifying"
                                or a2a_identified(torch, got, r, n)),
                    max_abs_err=float((got - want).abs().max()),
-                   ms=timer.ms(kern), plain_ms=timer.ms(plain),
-                   library_ms=timer.ms(lib))
+                   ms=aligned(kern),
+                   ms_with_host=timer.ms(kern, with_host=True),
+                   plain_ms=aligned(plain), library_ms=aligned(lib),
+                   library_ms_with_host=timer.ms(lib, with_host=True))
         row["bound_ms"], row["bound_by"] = a2a_dist_bound(4 * x.numel(), n)
         every = gathered({key: row[key] for key in
-                          ("ms", "plain_ms", "library_ms",
+                          ("ms", "ms_with_host", "plain_ms", "library_ms",
                            "bit_identical_to_plain", "bit_identical_to_nccl",
                            "deterministic", "control_equal_to_input",
                            "identified")})
         row["ms_max_over_ranks"] = max(e["ms"] for e in every)
+        row["ms_with_host_max_over_ranks"] = max(e["ms_with_host"]
+                                                 for e in every)
+        row["library_ms_max_over_ranks"] = max(e["library_ms"]
+                                               for e in every)
         row["ok"] = all(e["bit_identical_to_plain"]
                         and e["bit_identical_to_nccl"] and e["deterministic"]
                         and not e["control_equal_to_input"] and e["identified"]
@@ -1965,7 +2074,32 @@ def dist_rank(mesh, payload):
         say("dist-a2a-kernel-case", row)
         a2a_cases.append(row)
         del x, got, again, want, nccl
-    del timer
+    with torch.cuda.device(dev):
+        x = a2a_input(torch, A2A_MAIN, dict(A2A_CASES)[A2A_MAIN], r, n,
+                      750 + r)
+    nccl = _nccl_a2a(torch, dist, x)
+    sweep = a2a_range_sweep(
+        torch, aligned, ring, mesh.check,
+        lambda: [torch.equal(ring.all_to_all_dma(x, rg), nccl)],
+        partial(ring.all_to_all_dma, x, rg))
+    every = gathered(sweep)
+    say("dist-a2a-ranges", dict(shape=A2A_MAIN, mode="4 cards", ms=sweep,
+                                ms_max_over_ranks={
+                                    p: max(e[p] for e in every)
+                                    for p in sweep}))
+
+    def started_together():
+        torch.cuda._sleep(HOST_COVER_CYCLES)
+        dist.all_reduce(token)
+        ring.all_to_all_dma(x, rg)
+
+    stamps = ring.traced(started_together, dev)
+    mesh.check()
+    say("dist-a2a-trace", dict(
+        shape=A2A_MAIN, mode="4 cards", phases=ring.A2A_PHASES,
+        ranks=[t[0] for t in gathered(a2a_trace_summary(stamps.cpu(), n,
+                                                        1))]))
+    del x, nccl, timer, token, stamps
     mesh.close()
     check(all(c["ok"] for c in cases), "a ring kernel across the cards "
           "disagrees with its plain ring, NCCL or float64")
@@ -2224,23 +2358,29 @@ def dist_rank(mesh, payload):
     check(all(same.values()), f"EP's two transports end apart: {same}")
     check(all(moved.values()), "the bitwise check cannot tell trained "
           "params from the initial ones")
-    if lead:
+    # the exchange's device time in a traced dense run under each
+    # transport: the kernel's, or NCCL's (all_to_all_single runs as
+    # NCCL's send/receive kernel; the router's all-reduce is apart)
+    for comm, mark in (("pallas_a2a", "all_to_all"), ("psum", "sendrecv")):
+        if not lead:
+            ep_run("dense", comm)
+            continue
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            ep_run("dense", "pallas_a2a")
+            ep_run("dense", comm)
             wall_ms = 1e3 * (time.perf_counter() - t0)
         summary = profile_summary(prof, wall_ms)
-        a2a_ms = sum(e.device_time_total / 1e3 for e in prof.key_averages()
-                     if getattr(e.device_type, "name", "") != "CPU"
-                     and "all_to_all" in e.key)
+        events = [e for e in prof.key_averages()
+                  if getattr(e.device_type, "name", "") != "CPU"
+                  and mark in e.key.lower()]
+        ex_ms = sum(e.device_time_total / 1e3 for e in events)
         busy = summary["device_busy_ms"]
-        summary.update(a2a_kernel_ms=a2a_ms,
-                       a2a_kernel_share=a2a_ms / busy if busy else None,
+        summary.update(comm=comm, exchange_kernel_ms=ex_ms,
+                       exchange_calls=sum(e.count for e in events),
+                       exchange_share=ex_ms / busy if busy else None,
                        card=card)
         say("dist-ep-profile", summary)
-    else:
-        ep_run("dense", "pallas_a2a")
     if not lead:
         return None
     return dict(cases=cases, launches={

@@ -1,248 +1,460 @@
 // The fused LM head's backward for Hopper (sm_90a): dh = dz w and dw =
-// dz^T h with dz = (exp(h w^T - lse) - onehot(targets)) / N, the logit
-// tiles recomputed and never stored.
+// dz^T h with dz = (exp(h w^T - lse) - onehot(targets)) / N, each logit
+// tile computed once.
 //
 // Replaces the TPU kernel `head_xent_bwd` (bodies `_bwd_dh_kernel` and
 // `_bwd_dw_kernel`) in distributed_llm_code_samples_tpu/ops/pallas_xent.py.
 // It computes the same function: dz carries the 1/N of the mean and is
-// zero on columns past V (the Pallas kernels' padding; here nothing is
-// padded), and the scalar upstream gradient scales both outputs outside
-// the kernels. With mxu_bf16, h, w and dz are rounded to bf16 before the
-// products.
+// zero on columns past V (the Pallas kernels' padding; here nothing of
+// the caller's is padded), and the scalar upstream gradient scales both
+// outputs outside the kernels. With mxu_bf16, h, w and dz are rounded to
+// bf16 before the products.
 //
-// What bounds it: operations. The function needs three products (z, dh,
-// dw), 6*N*d*V flops, against 2*N*d + 2*V*d floats moved; at N 8192,
-// d 768, V 50304 that is 1.9 TFLOP over 0.36 GB. The two launches
-// execute 8*N*d*V (2.5 TFLOP): each recomputes the logits (2*N*d*V) and
-// takes one product with dz.
+// What bounds it on this card: operations. The function needs three
+// products (z, dh, dw), 6*N*d*V flops, against 2*N*d + 2*V*d floats that
+// must move; at N 8192, d 768, V 50304 that is 1.90 TFLOP, 28.3 ms at the
+// f32 FMA rate of 67 TFLOP/s. Two passes that each recompute the logits
+// (the Pallas kernels' dh and dw) execute 8*N*d*V, a third more, so the
+// logits are computed once here; and the products reach the FMA rate
+// only with GEMM tiling, deep enough to hide the loads.
 //
-// Design. Two launches, each the shape of the FFN kernels' fused input
-// gradient (ffn_bwd_dx.cu), with no atomics, so a launch is bit-for-bit
-// deterministic:
-//  - dh: a block owns 32 token rows x a 768-column band of dh, the
-//    [32 x 768] f32 accumulator in 256 threads' registers, and walks one
-//    of `splits` equal chunks of the vocabulary in tiles of 128: the
-//    [32 x 128] logit tile over d (ffn_common.cuh's hidden tile, h for x
-//    and w for w1), dz into shared memory, then acc += dz w with the
-//    tile's 128 rows of w staged 16 at a time. Each chunk's sum goes to
-//    its slice of a [splits, N, d] scratch, and a second kernel adds the
-//    slices in order. One chain of 50304 sums per element would carry
-//    several times the rounding error of the cuBLAS product; `splits`
-//    chains of a few thousand do not, and they give the card `splits`
-//    times as many blocks (256 at N 8192 are two uneven waves).
-//  - dw: the same with the roles of tokens and vocabulary swapped. A
-//    block owns 32 vocab rows x a 768-column band of dw and walks all the
-//    tokens in tiles of 128: the transposed logit tile w h^T, dz^T into
-//    shared memory, acc += dz^T h. Each [32 x 768] sum runs over every
-//    token in order, so no partial sums leave the block.
-// Past d = 768 each column band recomputes the logit tiles.
+// Design. The vocabulary is walked in chunks of at most kMaxChunk columns
+// (all but the last of equal size, a multiple of the tile). For each
+// chunk c of Vc columns, two launches:
+//  1. z_c = h w_c^T, [N, Vc] over d; its epilogue forms dz_c and stores
+//     it twice into a bounded scratch, as dz [N][Vc] and as dz^T [Vc][N];
+//  2. one launch of two products over their own tiles: dh += dz_c w_c
+//     (over the chunk's Vc columns; chunk 0 stores, later chunks add to
+//     what dh holds, in chunk order) and dw_c = dz_c^T h (over N).
+// So the kernels execute the function's 6*N*d*V flops; dz is written
+// twice and read twice, 4*N*V*4 bytes over the vocabulary (6.6 GB at the
+// main shape, about 2 ms at 3.35 TB/s). A first launch copies h and w, padded
+// (and rounded, with mxu_bf16), into both orientations (h^T, w^T, h, w),
+// so that every operand of every product is a row-major [K][M] or [K][N]
+// array whose rows are read as 16-byte vectors: no tile is transposed on
+// its way into shared memory.
+//
+// One GEMM core serves the three products: a 128 x 128 output tile a
+// block of 256 threads, an 8 x 8 register tile a thread (four 4 x 4
+// quadrants 64 rows and columns apart, so a warp's shared loads are
+// broadcasts or one contiguous line), and a kStages-deep ring of
+// [kBK][128] operand tiles in shared memory fed by 16-byte cp.async, so
+// the loads of later k-steps are in flight while a step's FMAs run. Two
+// blocks an SM (16 warps). Arithmetic stays f32 FMA on the CUDA cores.
+// The second launch of a chunk puts the deeper of its two products (dh:
+// Vc deep; dw: N deep) first in block order.
+// Every output element is summed by one thread in k order and dh's chunks
+// are added in chunk order, with no atomics, so two launches on the same
+// inputs give the same bits.
 //
 // Plain C interface, bound with ctypes: the caller allocates dh, dw and
-// the dh scratch, passes the stream, and gets cudaGetLastError() back.
+// the scratch (head_xent_bwd_scratch_floats floats), passes the stream,
+// and gets the first CUDA error back.
 
-#include "ffn_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
 
 namespace {
 
-using namespace ffn;
+constexpr int kThreads = 256;
+constexpr int kTile = 128;        // output rows and columns a block owns
+constexpr int kMaxChunk = 8192;   // vocabulary columns a chunk, at most
+// the pipeline: k-steps of a stage and stages in flight (of (8, 4),
+// (16, 3), (16, 4) and (32, 2), (16, 3) was fastest at the main shape)
+constexpr int kBK = 16, kStages = 3;
 
-// bs[f][c] <- p[f0 + f, d0 + c] for f < kFC, c < kDT: rows of a [rows, d]
-// matrix (w for dh, h for dw), read along d.
-struct Rows {
-  const float* p;
-  int f0, d0, rows, d;
-  __device__ void operator()(int i, int& off, const float*& src,
-                             bool& ok) const {
-    const int c = i % kDT, f = i / kDT, ff = f0 + f, cc = d0 + c;
-    off = f * kBS + c;
-    ok = ff < rows && cc < d;
-    src = ok ? p + static_cast<size_t>(ff) * d + cc : p;
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// -- the operand copies -------------------------------------------------------
+
+// src [R][C] (row-major, C contiguous) -> dst [R][ldc] (zero in columns
+// [C, ldc)) and dst_t [C][ldt] (the transpose, zero in columns [R, ldt)),
+// each value rounded to bf16 when `round`. 32 x 32 tiles through shared
+// memory; 32 x 8 threads.
+__global__ void head_xent_prep_kernel(const float* __restrict__ src, int R,
+                                      int C, float* __restrict__ dst,
+                                      int ldc, float* __restrict__ dst_t,
+                                      int ldt, int round) {
+  __shared__ float tile[32][33];
+  const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int i = ty; i < 32; i += 8) {
+    const int r = r0 + i, c = c0 + tx;
+    float v = r < R && c < C ? src[static_cast<size_t>(r) * C + c] : 0.f;
+    if (round) v = bf16_round(v);
+    tile[i][tx] = v;
+    if (r < R && c < ldc) dst[static_cast<size_t>(r) * ldc + c] = v;
   }
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8) {
+    const int c = c0 + i, r = r0 + tx;
+    if (c < C && r < ldt)
+      dst_t[static_cast<size_t>(c) * ldt + r] = tile[tx][i];
+  }
+}
+
+// -- the GEMM core ------------------------------------------------------------
+
+enum Epilogue { kDz = 0, kDh = 1, kDw = 2 };
+
+// out[m][n] = sum over k < K, in order, of a[k][m] * b[k][n], for
+// m < M, n < N. A row of a (of b) may be read up to a_ext (b_ext) floats,
+// a multiple of 4; past it, and past K, operands read as zero.
+struct Gemm {
+  const float* a;
+  const float* b;
+  long long lda, ldb;
+  int a_ext, b_ext;
+  int M, N, K;
+  int tiles_n, tiles;
+  int epi;
+  // kDh, kDw: out [M][ldo]; kDh adds to it when `accumulate`
+  float* out;
+  long long ldo;
+  int accumulate;
+  // kDz: z -> dz, stored as out [M][ldo] for columns < out_n and as
+  // out_t [N][ldo_t] for columns < out_m (the padded extents the next
+  // products read)
+  float* out_t;
+  long long ldo_t;
+  int out_m, out_n;
+  const float* lse;
+  const int* targets;
+  int v0;
+  float inv_n;
+  int round;
 };
 
-// dz of one logit: (exp(z - lse) - [col == target]) / N, 0 off the
-// vocabulary or off the tokens.
-__device__ __forceinline__ float dz_of(float z, float lse, int col,
-                                       int target, bool valid, float inv_n) {
-  const float onehot = col == target ? 1.f : 0.f;
-  return valid ? (expf(z - lse) - onehot) * inv_n : 0.f;
+// A thread's rows (columns) of the tile: q < 4 at 4*ty + q, else at
+// 64 + 4*ty + q - 4.
+__device__ __forceinline__ int quad(int base, int q) {
+  return (q < 4 ? 0 : 64 - 4) + base * 4 + q;
 }
 
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads, 1)
-    head_xent_dh_kernel(const float* __restrict__ h,
-                        const float* __restrict__ w,
-                        const int* __restrict__ targets,
-                        const float* __restrict__ lse,
-                        float* __restrict__ part, int N, int d, int V,
-                        float inv_n) {
-  extern __shared__ float4 smem4[];
-  float* buf = reinterpret_cast<float*>(smem4);
-  float* hs = buf + kHiddenFloats;     // [kBF][kXS]: dz, as [vocab][token]
-  float* bs = hs + kBF * kXS;          // 2 x [kFC][kBS]: w rows
-  const int t0 = blockIdx.x * kBT, d0 = blockIdx.y * kDT;
-  // this block's chunk of the vocabulary, in whole tiles
-  const int per = ((V + kBF - 1) / kBF + gridDim.z - 1) / gridDim.z;
-  const int f_begin = blockIdx.z * per * kBF;
-  const int f_end = min(V, f_begin + per * kBF);
-  const int r0 = hidden_row(), c0 = hidden_col();
+__device__ __forceinline__ void gemm_tile(const Gemm& g, int t,
+                                          float* smem) {
+  constexpr int kStage = 2 * kBK * kTile;
+  constexpr int kLoads = kBK * (kTile / 4) / kThreads;
+  static_assert(kLoads >= 1 && kBK * (kTile / 4) % kThreads == 0,
+                "whole rounds of 16-byte copies");
+  const int m0 = (t / g.tiles_n) * kTile, n0 = (t % g.tiles_n) * kTile;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int ktiles = (g.K + kBK - 1) / kBK;
 
-  float lrow[4];
-  int tgt[4];
+  auto load = [&](int kt, int s) {
+    float* as = smem + s * kStage;
+    float* bs = as + kBK * kTile;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + r0 + i;
-    lrow[i] = t < N ? lse[t] : 0.f;
-    tgt[i] = t < N ? targets[t] : -1;
+    for (int q = 0; q < kLoads; ++q) {
+      const int i = tid + q * kThreads, r = i / (kTile / 4);
+      const int c = (i % (kTile / 4)) * 4, k = kt * kBK + r;
+      const bool oka = k < g.K && m0 + c < g.a_ext;
+      const bool okb = k < g.K && n0 + c < g.b_ext;
+      cp_async16(as + r * kTile + c,
+                 oka ? g.a + static_cast<size_t>(k) * g.lda + m0 + c : g.a,
+                 oka);
+      cp_async16(bs + r * kTile + c,
+                 okb ? g.b + static_cast<size_t>(k) * g.ldb + n0 + c : g.b,
+                 okb);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ktiles) load(s, s);
+    cp_async_commit();
   }
-  float acc[4][24];
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // step kt landed; step kt-1's stage is free
+    const int nk = kt + kStages - 1;
+    if (nk < ktiles) load(nk, nk % kStages);
+    cp_async_commit();
+    const float* as = smem + (kt % kStages) * kStage;
+    const float* bs = as + kBK * kTile;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int k = 0; k < kBK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + k * kTile +
+                                                         4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + k * kTile +
+                                                         64 + 4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + k * kTile +
+                                                         4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + k * kTile +
+                                                         64 + 4 * tx);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int j = 0; j < 24; ++j) acc[i][j] = 0.f;
-
-  for (int f0 = f_begin; f0 < f_end; f0 += kBF) {
-    float z[4][4], unused[4][4];
-    hidden_tile<kBf16, false>(z, unused, h, nullptr, w, nullptr, t0, f0, N,
-                              d, V, buf);
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = f0 + c0 + j;
-        z[i][j] = op<kBf16>(dz_of(z[i][j], lrow[i], col, tgt[i],
-                                  col < V && t0 + r0 + i < N, inv_n));
-      }
-    store_hidden_T(hs, z);
-    second_product<kBf16>(acc, hs, bs, f0, V, [&](int fc) {
-      return Rows{w, f0 + fc, d0, V, d};
-    });
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
   }
-  store_output(part + static_cast<size_t>(blockIdx.z) * N * d, acc, t0, d0,
-               N, d);
-}
+  cp_async_wait<0>();
 
-// out[i] = sum over s, in order, of part[s][i], for i < n.
-__global__ void sum_slices(const float* __restrict__ part,
-                           float* __restrict__ out, size_t n, int splits) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float acc = part[i];
-    for (int s = 1; s < splits; ++s) acc += part[s * n + i];
-    out[i] = acc;
-  }
-}
-
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads, 1)
-    head_xent_dw_kernel(const float* __restrict__ h,
-                        const float* __restrict__ w,
-                        const int* __restrict__ targets,
-                        const float* __restrict__ lse, float* __restrict__ dw,
-                        int N, int d, int V, float inv_n) {
-  extern __shared__ float4 smem4[];
-  float* buf = reinterpret_cast<float*>(smem4);
-  float* hs = buf + kHiddenFloats;     // [kBF][kXS]: dz^T, as [token][vocab]
-  float* bs = hs + kBF * kXS;          // 2 x [kFC][kBS]: h rows
-  const int v0 = blockIdx.x * kBT, d0 = blockIdx.y * kDT;
-  const int r0 = hidden_row(), c0 = hidden_col();
-
-  float acc[4][24];
+  if (g.epi == kDz) {
+    // dz of each logit: (exp(z - lse) - [v0 + v == target]) / N, zero off
+    // the tokens and off the chunk's columns. z - lse <= 0, where __expf
+    // errs by a few ulps (far inside the 1e-4 the calls are held to) and
+    // costs a fraction of expf's instruction sequence, which showed in
+    // the call's time.
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + quad(ty, i);
+      const bool row = m < g.M;
+      const float l = row ? g.lse[m] : 0.f;
+      const int tg = row ? g.targets[m] : -1;
 #pragma unroll
-    for (int j = 0; j < 24; ++j) acc[i][j] = 0.f;
-
-  for (int n0 = 0; n0 < N; n0 += kBF) {
-    // zt[i][j]: vocab row v0 + r0 + i, token n0 + c0 + j
-    float zt[4][4], unused[4][4];
-    hidden_tile<kBf16, false>(zt, unused, w, nullptr, h, nullptr, v0, n0, V,
-                              d, N, buf);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + c0 + j;
-      const float ln = n < N ? lse[n] : 0.f;
-      const int tn = n < N ? targets[n] : -1;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int vr = v0 + r0 + i;
-        zt[i][j] = op<kBf16>(dz_of(zt[i][j], ln, vr, tn, vr < V && n < N,
-                                   inv_n));
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + quad(tx, j);
+        float v = 0.f;
+        if (row && n < g.N)
+          v = (__expf(acc[i][j] - l) - (g.v0 + n == tg ? 1.f : 0.f)) *
+              g.inv_n;
+        acc[i][j] = g.round ? bf16_round(v) : v;
       }
     }
-    store_hidden_T(hs, zt);
-    second_product<kBf16>(acc, hs, bs, n0, N, [&](int fc) {
-      return Rows{h, n0 + fc, d0, N, d};
-    });
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + quad(ty, i);
+      if (m >= g.M) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + quad(tx, 4 * h);
+        if (n < g.out_n)
+          *reinterpret_cast<float4*>(g.out + m * g.ldo + n) = make_float4(
+              acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+              acc[i][4 * h + 3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + quad(tx, j);
+      if (n >= g.N) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + quad(ty, 4 * h);
+        if (m < g.out_m)
+          *reinterpret_cast<float4*>(g.out_t + n * g.ldo_t + m) = make_float4(
+              acc[4 * h][j], acc[4 * h + 1][j], acc[4 * h + 2][j],
+              acc[4 * h + 3][j]);
+      }
+    }
+    return;
   }
-  store_output(dw, acc, v0, d0, V, d);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + quad(ty, i);
+    if (m >= g.M) continue;
+    float* row = g.out + m * g.ldo;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + quad(tx, j);
+      if (n >= g.N) continue;
+      row[n] = g.accumulate ? row[n] + acc[i][j] : acc[i][j];
+    }
+  }
 }
 
-template <bool kBf16>
-cudaError_t launch_dh(const float* h, const float* w, const int* targets,
-                      const float* lse, float* dh, float* part, int N, int d,
-                      int V, int splits, cudaStream_t stream) {
-  const size_t smem = kFusedFloats * sizeof(float);
-  auto kern = head_xent_dh_kernel<kBf16>;
-  const cudaError_t e = set_smem(reinterpret_cast<const void*>(kern), smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((N + kBT - 1) / kBT, (d + kDT - 1) / kDT, splits);
-  kern<<<grid, kThreads, smem, stream>>>(h, w, targets, lse, part, N, d, V,
-                                         static_cast<float>(1.0 / N));
-  const cudaError_t e2 = cudaGetLastError();
-  if (e2 != cudaSuccess) return e2;
-  const size_t n = static_cast<size_t>(N) * d;
-  const size_t blocks = (n + 255) / 256;
-  sum_slices<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
-               stream>>>(part, dh, n, splits);
+// Blocks [0, g0.tiles) compute g0's tiles, the rest g1's. The card
+// starts blocks in index order as SMs free up, so g0's go first.
+__global__ void __launch_bounds__(kThreads, 2)
+    head_xent_gemm_kernel(const Gemm g0, const Gemm g1) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int t = static_cast<int>(blockIdx.x);
+  if (t < g0.tiles)
+    gemm_tile(g0, t, smem);
+  else
+    gemm_tile(g1, t - g0.tiles, smem);
+}
+
+// the operand ring fits the 48 KB a block gets without opting in
+constexpr size_t kSmem = static_cast<size_t>(kStages) * 2 * kBK * kTile *
+                         sizeof(float);
+static_assert(kSmem <= 48 * 1024, "operand ring over 48 KB");
+
+cudaError_t launch_gemm(const Gemm& g0, const Gemm& g1, int count,
+                        cudaStream_t st) {
+  const int blocks = g0.tiles + (count > 1 ? g1.tiles : 0);
+  head_xent_gemm_kernel<<<blocks, kThreads, kSmem, st>>>(g0, g1);
   return cudaGetLastError();
 }
 
-template <bool kBf16>
-cudaError_t launch_dw(const float* h, const float* w, const int* targets,
-                      const float* lse, float* dw, int N, int d, int V,
-                      cudaStream_t stream) {
-  const size_t smem = kFusedFloats * sizeof(float);
-  auto kern = head_xent_dw_kernel<kBf16>;
-  const cudaError_t e = set_smem(reinterpret_cast<const void*>(kern), smem);
+long long up4(long long x) { return (x + 3) / 4 * 4; }
+
+// The chunking of the vocabulary: n equal chunks of `width` columns (a
+// multiple of the tile), the last one shorter.
+void chunks(int V, int* n, int* width) {
+  *n = (V + kMaxChunk - 1) / kMaxChunk;
+  const int per = (V + *n - 1) / *n;
+  *width = (per + kTile - 1) / kTile * kTile;
+}
+
+struct Layout {
+  long long Np, dp, Vp;     // padded row lengths
+  int n_chunks, width;
+  long long hT, hc, wT, wc, dz, dzT, total;   // offsets in floats
+};
+
+Layout layout(int N, int d, int V) {
+  Layout L;
+  L.Np = up4(N);
+  L.dp = up4(d);
+  L.Vp = up4(V);
+  chunks(V, &L.n_chunks, &L.width);
+  L.hT = 0;
+  L.hc = L.hT + d * L.Np;
+  L.wT = L.hc + N * L.dp;
+  L.wc = L.wT + d * L.Vp;
+  L.dz = L.wc + V * L.dp;
+  L.dzT = L.dz + N * static_cast<long long>(L.width);
+  L.total = L.dzT + static_cast<long long>(L.width) * L.Np;
+  return L;
+}
+
+Gemm blank() {
+  Gemm g = {};
+  return g;
+}
+
+void set_tiles(Gemm* g, long long rows, long long cols) {
+  g->tiles_n = static_cast<int>((cols + kTile - 1) / kTile);
+  g->tiles = static_cast<int>((rows + kTile - 1) / kTile) * g->tiles_n;
+}
+
+cudaError_t run(const float* h, const float* w, const int* targets,
+                const float* lse, float* dh, float* dw, float* scratch,
+                int N, int d, int V, int bf16, cudaStream_t st) {
+  const Layout L = layout(N, d, V);
+  float *hT = scratch + L.hT, *hc = scratch + L.hc, *wT = scratch + L.wT,
+        *wc = scratch + L.wc, *dz = scratch + L.dz, *dzT = scratch + L.dzT;
+  const dim3 pb(32, 8);
+  const int dp = static_cast<int>(L.dp), Np = static_cast<int>(L.Np),
+            Vp = static_cast<int>(L.Vp);
+  head_xent_prep_kernel<<<dim3((dp + 31) / 32, (Np + 31) / 32), pb, 0,
+                          st>>>(h, N, d, hc, dp, hT, Np, bf16);
+  head_xent_prep_kernel<<<dim3((dp + 31) / 32, (Vp + 31) / 32), pb, 0,
+                          st>>>(w, V, d, wc, dp, wT, Vp, bf16);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const dim3 grid((V + kBT - 1) / kBT, (d + kDT - 1) / kDT);
-  kern<<<grid, kThreads, smem, stream>>>(h, w, targets, lse, dw, N, d, V,
-                                         static_cast<float>(1.0 / N));
-  return cudaGetLastError();
+  for (int c = 0; c < L.n_chunks; ++c) {
+    const int v0 = c * L.width;
+    const int vc = V - v0 < L.width ? V - v0 : L.width;
+    const long long vcp = up4(vc);
+    Gemm z = blank();            // z = h w_c^T, its epilogue dz
+    z.a = hT;
+    z.lda = L.Np;
+    z.a_ext = static_cast<int>(L.Np);
+    z.b = wT + v0;
+    z.ldb = L.Vp;
+    z.b_ext = static_cast<int>(L.Vp - v0);
+    z.M = N;
+    z.N = vc;
+    z.K = d;
+    set_tiles(&z, L.Np, vcp);
+    z.epi = kDz;
+    z.out = dz;
+    z.ldo = vcp;
+    z.out_t = dzT;
+    z.ldo_t = L.Np;
+    z.out_m = static_cast<int>(L.Np);
+    z.out_n = static_cast<int>(vcp);
+    z.lse = lse;
+    z.targets = targets;
+    z.v0 = v0;
+    z.inv_n = static_cast<float>(1.0 / N);
+    z.round = bf16;
+    e = launch_gemm(z, z, 1, st);
+    if (e != cudaSuccess) return e;
+    Gemm gh = blank();           // dh (+)= dz_c w_c
+    gh.a = dzT;
+    gh.lda = L.Np;
+    gh.a_ext = static_cast<int>(L.Np);
+    gh.b = wc + static_cast<size_t>(v0) * L.dp;
+    gh.ldb = L.dp;
+    gh.b_ext = static_cast<int>(L.dp);
+    gh.M = N;
+    gh.N = d;
+    gh.K = vc;
+    set_tiles(&gh, N, d);
+    gh.epi = kDh;
+    gh.out = dh;
+    gh.ldo = d;
+    gh.accumulate = c > 0;
+    Gemm gw = blank();           // dw_c = dz_c^T h
+    gw.a = dz;
+    gw.lda = vcp;
+    gw.a_ext = static_cast<int>(vcp);
+    gw.b = hc;
+    gw.ldb = L.dp;
+    gw.b_ext = static_cast<int>(L.dp);
+    gw.M = vc;
+    gw.N = d;
+    gw.K = N;
+    set_tiles(&gw, vc, d);
+    gw.epi = kDw;
+    gw.out = dw + static_cast<size_t>(v0) * d;
+    gw.ldo = d;
+    // the deeper tiles first
+    e = gw.K >= gh.K ? launch_gemm(gw, gh, 2, st)
+                     : launch_gemm(gh, gw, 2, st);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// h [N, d], w [V, d], lse [N] f32, targets [N] int32 -> dh [N, d] f32,
-// without the upstream scalar; part is a [splits, N, d] f32 scratch,
-// splits in [1, 64]. mxu_bf16: 0 or 1. Returns a cudaError_t as int; 0 on
-// success.
-int head_xent_dh_launch(const float* h, const float* w, const int* targets,
-                        const float* lse, float* dh, float* part, int N,
-                        int d, int V, int splits, int mxu_bf16,
-                        void* stream) {
-  if (N < 1 || d < 1 || V < 1 || splits < 1 || splits > 64)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      mxu_bf16
-          ? launch_dh<true>(h, w, targets, lse, dh, part, N, d, V, splits, st)
-          : launch_dh<false>(h, w, targets, lse, dh, part, N, d, V, splits,
-                             st));
+// Floats of scratch a call at (N, d, V) needs.
+long long head_xent_bwd_scratch_floats(int N, int d, int V) {
+  if (N < 1 || d < 1 || V < 1) return -1;
+  return layout(N, d, V).total;
 }
 
-// The same inputs -> dw [V, d].
-int head_xent_dw_launch(const float* h, const float* w, const int* targets,
-                        const float* lse, float* dw, int N, int d, int V,
-                        int mxu_bf16, void* stream) {
-  if (N < 1 || d < 1 || V < 1) return static_cast<int>(cudaErrorInvalidValue);
+// h [N, d], w [V, d], lse [N] f32, targets [N] int32 -> dh [N, d] and
+// dw [V, d] f32, without the upstream scalar; scratch holds
+// head_xent_bwd_scratch_floats(N, d, V) floats, 16-byte aligned.
+// mxu_bf16: 0 or 1. Returns a cudaError_t as int; 0 on success.
+int head_xent_bwd_launch(const float* h, const float* w, const int* targets,
+                         const float* lse, float* dh, float* dw,
+                         float* scratch, int N, int d, int V, int mxu_bf16,
+                         void* stream) {
+  if (N < 1 || d < 1 || V < 1 ||
+      (reinterpret_cast<size_t>(scratch) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int b = mxu_bf16 ? 1 : 0;
   return static_cast<int>(
-      mxu_bf16 ? launch_dw<true>(h, w, targets, lse, dw, N, d, V, st)
-               : launch_dw<false>(h, w, targets, lse, dw, N, d, V, st));
+      run(h, w, targets, lse, dh, dw, scratch, N, d, V, b, st));
 }
 
 }  // extern "C"

@@ -45,15 +45,31 @@
 // leading-dim n-split) to chunk r of rank j's output, a copy and no sum.
 // Each rank sends (n-1)/n of its tensor, a different part to every peer,
 // so at n 4 and the EP dispatch's 12.58 MB a rank it is 9.44 MB, 21 us
-// of one NVLink direction. Block b of rank r stores its range of chunk j
-// straight into rank j's data region at chunk r, for every peer j, then
-// raises one flag in each peer (a2a_arrive[r][b]); it copies its own
-// chunk r from input to output, and then each chunk that arrived from
-// the peers out of its own workspace. Entry waits for every peer
-// (a2a_ready), the full barrier of pallas_ring.py:472-487: no rank stores
-// into a workspace whose owner may still be copying out the previous
-// call's chunks.
-//
+// of one NVLink direction. Its time goes to the pushes over the links
+// (most of a call at that size on NVIDIA H100 80GB HBM3 at 700 W, by the
+// kernel's own trace), then to the landed chunks' copy-out, a second
+// pass over the card's memory, and to the flags. So the links
+// must all be loaded from the start, with many loads in flight, no
+// round trip before the first store, and the copy-out overlapped.
+// This design:
+//  - A chunk splits into P ranges. A rank runs (2n - 1) x P blocks: P
+//    copy its own chunk; for each peer j (the k-th after it) P push their
+//    range of chunk j into j's workspace, so all peers' links carry data
+//    at once; and for each peer s (the k-th before it) P copy out their
+//    range of the chunk s pushed here as soon as its flag (a2a_arrive)
+//    lands, while other ranges are still on the links. Each thread keeps
+//    kUnroll 16-byte loads in flight before its stores. (A flag for each
+//    quarter of a range let no quarter arrive early: the links carry
+//    every block's stores at once, and the fences cost more than the
+//    overlap gained.)
+//  - No entry barrier: the chunks land in one of two regions, used in
+//    turn from call to call (the data region, then the staging slots).
+//    After its copy-out a block releases its range of the slot to the
+//    sender (a2a_freed); the sender of the call after next waits for
+//    that release before it stores into the same region, which by then
+//    has almost always long happened. Only an all-to-all that follows
+//    another collective on the workspace opens with the all-peer barrier
+//    (a2a_ready): the ring kernels use both regions too.
 // Loopback: the n workspaces of one card, one cooperative launch of n x
 // nblk blocks (all resident at once, as the waits between blocks need).
 //
@@ -148,47 +164,141 @@ __global__ void __launch_bounds__(kThreads) ring_all_gather_kernel(Params p) {
   move(c, c.y + last * e, nullptr, data(c.me) + last * e, nullptr);
 }
 
-// Entry of the all-to-all: tell every peer that this rank's block b has
-// entered the call, then wait until every peer's block b says the same.
+// Entry barrier of an all-to-all that follows another collective: block
+// 0 of the rank tells every peer that the rank has entered the call (so
+// it has finished the previous one: kernels on one stream run in order);
+// every block waits until every peer says the same.
 __device__ __forceinline__ bool enter_all(const Ctx& c, const Params& p) {
-  int ok = 1;
-  if (threadIdx.x == 0) ok = ld_acquire(err_word(c.me)) == 0;
-  if (!__syncthreads_and(ok)) return false;
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && c.b == 0) {
     __threadfence_system();
     for (int k = 1; k < c.n; ++k)
-      st_release(a2a_ready(p.ws[(c.r + k) % c.n], c.r, c.b), c.epoch);
+      st_release(a2a_ready(p.ws[(c.r + k) % c.n], c.r), c.epoch);
   }
   for (int k = 1; k < c.n; ++k) {
-    if (!wait_for(c, a2a_ready(c.me, (c.r + k) % c.n, c.b), c.epoch, -1))
+    if (!wait_for(c, a2a_ready(c.me, (c.r + k) % c.n), c.epoch, -1))
       return false;
   }
   return true;
 }
 
+// Block-wide wait until flags[q] >= target for every q < count (count
+// at most blockDim.x): thread q polls flag q, to the deadline, as
+// wait_for does.
+__device__ __forceinline__ bool wait_each(const Ctx& c, const uint64_t* flags,
+                                          int count, uint64_t target,
+                                          int step) {
+  int ok = 1;
+  if (static_cast<int>(threadIdx.x) < count) {
+    uint64_t* err = err_word(c.me);
+    const uint64_t t0 = now_ns();
+    while (ld_acquire(flags + threadIdx.x) < target) {
+      if (ld_acquire(err) != 0) {
+        ok = 0;
+        break;
+      }
+      if (now_ns() - t0 > c.timeout_ns) {
+        atomicCAS(reinterpret_cast<unsigned long long*>(err), 0ull,
+                  static_cast<unsigned long long>(error_code(c, step)));
+        ok = 0;
+        break;
+      }
+    }
+  }
+  return __syncthreads_and(ok) != 0;
+}
+
+constexpr int kUnroll = 4;   // 16-byte loads in flight a thread
+
+// y[i] = x[i] for i in the block's range [c.lo, c.hi) of a chunk; x may
+// have been written by a peer (loads bypass L1).
+__device__ __forceinline__ void copy_range(const Ctx& c, float* y,
+                                           const float* x) {
+  const long long step = blockDim.x;
+  if (c.vec) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* y4 = reinterpret_cast<float4*>(y);
+    const long long hi = c.hi / 4;
+    long long i = c.lo / 4 + threadIdx.x;
+    for (; i + (kUnroll - 1) * step < hi; i += kUnroll * step) {
+      float4 v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) v[u] = __ldcg(x4 + i + u * step);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) y4[i + u * step] = v[u];
+    }
+    for (; i < hi; i += step) y4[i] = __ldcg(x4 + i);
+  } else {
+    for (long long i = c.lo + threadIdx.x; i < c.hi; i += step)
+      y[i] = __ldcg(x + i);
+  }
+}
+
+// The all-to-all's trace: when set (ring_a2a_trace), thread 0 of each
+// block stores %globaltimer at the block's phases into
+// a2a_stamps[blockIdx * kStamps + phase]: 0 entry; 1 its stores may start
+// (after the barrier and the release wait) and 2 its range stored and
+// flagged (own-chunk and pushing blocks); 3 its range arrived and 4
+// copied out and released (copy-out blocks).
+constexpr int kStamps = 5;
+__device__ unsigned long long* a2a_stamps = nullptr;
+
+__device__ __forceinline__ void stamp(int phase) {
+  if (a2a_stamps != nullptr && threadIdx.x == 0)
+    a2a_stamps[blockIdx.x * kStamps + phase] = now_ns();
+}
+
+// Rank r's block `local` of (2n - 1) * P: role = local / P (0: its own
+// chunk; k in [1, n): pushes to the k-th peer after it; n - 1 + k: copies
+// out what the k-th peer before it pushed), range b = local % P.
 __global__ void __launch_bounds__(kThreads) all_to_all_kernel(Params p) {
-  const Ctx c = make_ctx(p, kAllToAll);
-  const int n = c.n;
-  const long long e = c.chunk;
-  if (!enter_all(c, p)) return;
-  // rank r + k is the first peer rank r stores to: the n ranks start on n
-  // different targets
-  for (int k = 1; k < n; ++k) {
-    const int j = (c.r + k) % n;
-    move(c, data(p.ws[j]) + c.r * e, nullptr, c.x + j * e, nullptr);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    for (int k = 1; k < n; ++k)
-      st_release(a2a_arrive(p.ws[(c.r + k) % n], c.r, c.b), c.base + 1);
-  }
-  move(c, c.y + c.r * e, nullptr, c.x + c.r * e, nullptr);
-  // rank r - k stored to this rank k-th
-  for (int k = 1; k < n; ++k) {
-    const int j = (c.r + n - k) % n;
-    if (!wait_for(c, a2a_arrive(c.me, j, c.b), c.base + 1, j)) return;
-    move(c, c.y + j * e, nullptr, data(c.me) + j * e, nullptr);
+  const int n = p.n, per_rank = (2 * n - 1) * p.nblk;
+  const bool loop = p.rank < 0;
+  const int local = static_cast<int>(blockIdx.x) % per_rank;
+  const int role = local / p.nblk, b = local % p.nblk;
+  Ctx c = make_ctx(p, kAllToAll);
+  c.r = loop ? static_cast<int>(blockIdx.x) / per_rank : p.rank;
+  c.b = local;
+  const long long per = ((p.chunk + p.nblk - 1) / p.nblk + 3) / 4 * 4;
+  c.lo = min(p.chunk, static_cast<long long>(b) * per);
+  c.hi = min(p.chunk, c.lo + per);
+  c.me = p.ws[c.r];
+  c.x = p.in[loop ? c.r : 0];
+  c.y = p.out[loop ? c.r : 0];
+  const long long e = p.chunk;
+  stamp(0);
+  int ok = 1;
+  if (threadIdx.x == 0) ok = ld_acquire(err_word(c.me)) == 0;
+  if (!__syncthreads_and(ok)) return;
+  if (p.barrier && !enter_all(c, p)) return;
+  auto region = [&](char* ws) {
+    return p.region ? stage(c, ws, 0) : data(ws);
+  };
+  if (role == 0) {
+    stamp(1);
+    copy_range(c, c.y + c.r * e, c.x + c.r * e);
+    __syncthreads();
+    stamp(2);
+  } else if (role < n) {
+    // push range b of chunk j into rank j's slot r, once j has copied
+    // out what this rank left there in the last call that used the
+    // region (its every range: that call may have split the chunk
+    // otherwise)
+    const int j = (c.r + role) % n;
+    if (!wait_each(c, a2a_freed(c.me, j, 0), p.prev_nblk,
+                   static_cast<uint64_t>(p.prev_epoch), kMaxRanks + j))
+      return;
+    stamp(1);
+    copy_range(c, region(p.ws[j]) + c.r * e, c.x + j * e);
+    publish(a2a_arrive(p.ws[j], c.r, b), c.epoch);
+    stamp(2);
+  } else {
+    // rank s, the k-th before this one, pushes here as to its k-th peer
+    const int s = (c.r + 2 * n - 1 - role) % n;
+    if (!wait_for(c, a2a_arrive(c.me, s, b), c.epoch, s)) return;
+    stamp(3);
+    copy_range(c, c.y + s * e, region(c.me) + s * e);
+    publish(a2a_freed(p.ws[s], c.r, b), c.epoch);
+    stamp(4);
   }
 }
 
@@ -209,15 +319,25 @@ extern "C" {
 // this process (the ring kernels read this rank's and its two
 // neighbours', the all-to-all every one). in / out:
 // one address (dist, rank >= 0) or n (loopback, rank < 0). chunk: floats
-// a chunk. The launch goes on `stream`; returns a cudaError_t as int.
+// a chunk. nblk: blocks a rank (the all-to-all: ranges a chunk, and
+// (2n - 1) * nblk blocks a rank).
+// prev_epoch, prev_nblk, region, barrier: the all-to-all's (Params), 0
+// for the others. The launch goes on `stream`; returns a
+// cudaError_t as int.
 int ring_launch(int device, int op, const unsigned long long* ws,
                 const unsigned long long* in, const unsigned long long* out,
                 int n, int rank, long long chunk, long long stage_off,
                 long long epoch, long long timeout_ns, int nblk, int vec,
-                void* stream) {
+                long long prev_epoch, int prev_nblk, int region,
+                int barrier, void* stream) {
   using namespace ring;
+  const bool a2a = op == kAllToAll;
+  const int blocks_a_rank = a2a ? (2 * n - 1) * nblk : nblk;
   if (op < 0 || op > 4 || n < 2 || n > kMaxRanks || rank >= n ||
-      nblk < 1 || nblk > kMaxBlocks || chunk < 1 || epoch < 1)
+      nblk < 1 || nblk > kMaxBlocks || chunk < 1 || epoch < 1 ||
+      prev_epoch < 0 || prev_epoch >= epoch || prev_nblk < 0 ||
+      prev_nblk > kMaxBlocks || (prev_nblk > 0) != (prev_epoch > 0) ||
+      region < 0 || region > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -236,14 +356,29 @@ int ring_launch(int device, int op, const unsigned long long* ws,
   p.rank = rank;
   p.nblk = nblk;
   p.vec = vec;
+  p.prev_epoch = prev_epoch;
+  p.prev_nblk = prev_nblk;
+  p.region = region;
+  p.barrier = barrier;
   void* args[] = {&p};
-  const dim3 grid(static_cast<unsigned>(nblk * here)), block(kThreads);
+  const dim3 grid(static_cast<unsigned>(blocks_a_rank * here)),
+      block(kThreads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   e = rank < 0 ? cudaLaunchCooperativeKernel(kKernels[op], grid, block, args,
                                              0, st)
                : cudaLaunchKernel(kKernels[op], grid, block, args, 0, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Trace the all-to-all calls that follow into `stamps` (kStamps words a
+// block of the launch, zeroed by the caller), or stop with nullptr.
+int ring_a2a_trace(int device, void* stamps) {
+  using namespace ring;
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(a2a_stamps, &stamps, sizeof(stamps));
+  return static_cast<int>(e);
 }
 
 // A zeroed workspace of `bytes` on `device`.

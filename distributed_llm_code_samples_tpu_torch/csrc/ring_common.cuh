@@ -14,14 +14,21 @@
 //                      epoch * 64 + step + 1 once its step's data is here
 //   [1024, 1024+8*64)  ready[b]: written by the right neighbour's block b,
 //                      the epoch of the call it has entered
-//   [4096, 8192)       a2a_arrive[j][b] (all-to-all): written by rank j's
-//                      block b, epoch * 64 + 1 once its chunk is here
-//   [8192, 12288)      a2a_ready[j][b] (all-to-all): written by rank j's
-//                      block b, the epoch of the call it has entered
+//   [4096, 8192)       a2a_arrive[j][b] (all-to-all): written by rank j,
+//                      the epoch of the call once range b of its chunk
+//                      has landed here
+//   [8192, 12288)      a2a_ready[j] (all-to-all): written by rank j,
+//                      the epoch of the call it has entered (the entry
+//                      barrier of an all-to-all that follows another
+//                      collective)
+//   [12288, 16384)     a2a_freed[j][b] (all-to-all): written by rank j,
+//                      the epoch of the call whose range b it has copied
+//                      out of the slot this rank fills in j's workspace
 //   [16384, ...)       data region: capacity bytes (hop, all-gather, the
-//                      all-reduce's second phase and the all-to-all's
-//                      chunks land here)
-//   [stage_off, ...)   staging slots: n-1 chunks (the reduce phases)
+//                      all-reduce's second phase land here; the
+//                      all-to-all's chunks in calls of even count)
+//   [stage_off, ...)   staging slots: n-1 chunks (the reduce phases); the
+//                      all-to-all's chunks in calls of odd count
 //
 // Flags only grow. Each call carries an epoch that every rank counts the
 // same way (one a call, the same call sequence on every rank), so a flag
@@ -45,6 +52,7 @@ constexpr long long kArriveOff = 256;
 constexpr long long kReadyOff = 1024;
 constexpr long long kA2aArriveOff = 4096;
 constexpr long long kA2aReadyOff = 8192;
+constexpr long long kA2aFreedOff = 12288;
 constexpr long long kDataOff = 16384;
 
 enum Op {
@@ -64,9 +72,18 @@ struct Params {
   long long epoch;              // >= 1, one more every call
   long long timeout_ns;
   int n;
-  int rank;                     // < 0: loopback, rank = blockIdx / nblk
-  int nblk;                     // blocks a rank
+  int rank;                     // < 0: loopback, rank = blockIdx over
+                                // the blocks a rank
+  int nblk;                     // blocks a rank (all-to-all: ranges a
+                                // chunk, (2n - 1) * nblk blocks a rank)
   int vec;                      // 1: 16-byte aligned, chunk % 4 == 0
+  // all-to-all only: the landing region of this call (0 data, 1 staging),
+  // the epoch of the last call that used it (0: none) and that call's
+  // ranges a chunk, and whether the call opens with the entry barrier
+  long long prev_epoch;
+  int prev_nblk;
+  int region;
+  int barrier;
 };
 
 __device__ __forceinline__ uint64_t ld_acquire(const uint64_t* p) {
@@ -146,9 +163,12 @@ __device__ __forceinline__ uint64_t* a2a_arrive(char* ws, int src, int b) {
   return reinterpret_cast<uint64_t*>(ws + kA2aArriveOff) +
          src * kMaxBlocks + b;
 }
-__device__ __forceinline__ uint64_t* a2a_ready(char* ws, int src, int b) {
-  return reinterpret_cast<uint64_t*>(ws + kA2aReadyOff) +
-         src * kMaxBlocks + b;
+__device__ __forceinline__ uint64_t* a2a_ready(char* ws, int src) {
+  return reinterpret_cast<uint64_t*>(ws + kA2aReadyOff) + src;
+}
+__device__ __forceinline__ uint64_t* a2a_freed(char* ws, int dst, int b) {
+  return reinterpret_cast<uint64_t*>(ws + kA2aFreedOff) +
+         dst * kMaxBlocks + b;
 }
 __device__ __forceinline__ float* data(char* ws) {
   return reinterpret_cast<float*>(ws + kDataOff);
@@ -158,8 +178,9 @@ __device__ __forceinline__ float* stage(const Ctx& c, char* ws, int slot) {
 }
 
 // Read by the host when a wait passes its deadline: the op, the step it
-// waited for (the all-to-all: the source rank), the block and the rank
-// (each + 1, so that 0 means no error).
+// waited for (the all-to-all: the source rank, or kMaxRanks + the peer
+// whose release of its landing slot it waited for), the block and the
+// rank (each + 1, so that 0 means no error).
 __device__ __forceinline__ uint64_t error_code(const Ctx& c, int step) {
   return (static_cast<uint64_t>(c.op + 1) << 48) |
          (static_cast<uint64_t>(step + 1) << 32) |

@@ -1,35 +1,35 @@
 """The tied LM head and its cross-entropy in hand-written kernels: the
 forward's per-row statistics and the backward's two gradients, with the
-``[N, V]`` logits recomputed tile by tile and never stored. The training
+``[N, V]`` logits never stored whole (the forward keeps none, the
+backward one bounded chunk of their gradient at a time). The training
 path's ``head_impl="fused"``.
 
 Port of ``distributed_llm_code_samples_tpu/ops/pallas_xent.py``
 (``head_xent_stats``, ``head_xent_fwd``, ``head_xent_bwd``,
 ``head_xent``). On a CUDA tensor each wrapper launches its CUDA kernels
-(``csrc/head_xent_fwd.cu``; ``csrc/head_xent_bwd.cu``'s dh and dw
-kernels; built at first use by ``ops/_build.py``, bound with ctypes) or
+(``csrc/head_xent_fwd.cu``; ``csrc/head_xent_bwd.cu``'s chunked
+products; built at first use by ``ops/_build.py``, bound with ctypes) or
 raises; on a CPU tensor it runs its plain PyTorch version ``*_ref``.
 There is no fallback from a kernel to its plain version.
 
 ``h [N, d]``, ``w [V, d]`` (the tied embedding), ``targets [N]`` int. A
 target outside ``[0, V)`` matches no column. The kernels mask the vocab
-edge themselves, so ``w`` is never padded (the JAX package pads it to
-its vocab tile). ``mxu_bf16`` rounds h and w, and the logit gradient
-before its products, to bf16; sums and statistics stay f32. Default off.
+edge themselves, so the caller's ``w`` is never padded (the JAX package
+pads it to its vocab tile). ``mxu_bf16`` rounds h and w, and the logit
+gradient before its products, to bf16; sums and statistics stay f32.
+Default off.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 
 FWD, BWD = "head_xent_fwd", "head_xent_bwd"
-STATS_COUNT, DH_COUNT, DW_COUNT = "head_xent_stats", "head_xent_dh", \
-    "head_xent_dw"
-# the dh kernel sums the vocabulary in this many chunks, added in order
-# afterwards (csrc/head_xent_bwd.cu says why)
-DH_SPLITS = 8
+STATS_COUNT, BWD_COUNT = "head_xent_stats", "head_xent_bwd"
 
 
 def _op(t: torch.Tensor, mxu_bf16: bool) -> torch.Tensor:
@@ -112,12 +112,20 @@ def head_xent_fwd(h, w, targets, *, mxu_bf16: bool = False):
     return (lse - tz).mean(), lse
 
 
+def _bwd_scratch_floats(n: int, d: int, v: int) -> int:
+    fn = _build.load_library(BWD).head_xent_bwd_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return int(fn(n, d, v))
+
+
 def head_xent_bwd(dy, h, w, targets, lse, *, mxu_bf16: bool = False):
-    """``(dh, dw)`` with the logit tiles recomputed: the dh launch (a
-    block per token tile and vocab chunk, the chunks' sums then added in
-    order) and the dw launch (a block per vocab tile, walking the
-    tokens). ``dz`` carries ``1/N``; the scalar ``dy`` scales both
-    outside the kernels. CPU tensors run ``head_xent_bwd_ref``."""
+    """``(dh, dw)`` with each logit tile computed once: for each chunk of
+    the vocabulary one launch forms the chunk's ``dz`` in a bounded
+    scratch and one takes ``dh += dz w_c`` and ``dw_c = dz^T h`` from it
+    (``csrc/head_xent_bwd.cu``). ``dz`` carries ``1/N``; the scalar ``dy``
+    scales both outside the kernels. CPU tensors run
+    ``head_xent_bwd_ref``."""
     n, d, v = _check(h, w, targets)
     if lse.shape != (n,):
         raise ValueError(f"lse {tuple(lse.shape)} must be [{n}]")
@@ -125,14 +133,13 @@ def head_xent_bwd(dy, h, w, targets, lse, *, mxu_bf16: bool = False):
         return head_xent_bwd_ref(dy, h, w, targets, lse, mxu_bf16=mxu_bf16)
     t32 = _targets32(targets)
     dh, dw = torch.empty_like(h), torch.empty_like(w)
-    part = torch.empty(DH_SPLITS, n, d, dtype=torch.float32, device=h.device)
-    ins = [h.data_ptr(), w.data_ptr(), t32.data_ptr(), lse.data_ptr()]
-    mx = int(bool(mxu_bf16))
-    _build.launch(BWD, "head_xent_dh_launch",
-                  ins + [dh.data_ptr(), part.data_ptr()],
-                  (n, d, v, DH_SPLITS, mx), h.device, DH_COUNT)
-    _build.launch(BWD, "head_xent_dw_launch", ins + [dw.data_ptr()],
-                  (n, d, v, mx), h.device, DW_COUNT)
+    scratch = torch.empty(_bwd_scratch_floats(n, d, v), dtype=torch.float32,
+                          device=h.device)
+    _build.launch(BWD, "head_xent_bwd_launch",
+                  [h.data_ptr(), w.data_ptr(), t32.data_ptr(),
+                   lse.data_ptr(), dh.data_ptr(), dw.data_ptr(),
+                   scratch.data_ptr()],
+                  (n, d, v, int(bool(mxu_bf16))), h.device, BWD_COUNT)
     return dy * dh, dy * dw
 
 

@@ -63,6 +63,17 @@ _DATA_OFF = 16384
 # a rank, so n = 4 loopback ranks fit on 132 SMs one block each
 _FLOATS_PER_BLOCK = 8192
 _BLOCKS = 32
+# csrc/ring_common.cuh: kMaxBlocks, flag words a source rank
+_MAX_BLOCKS = 64
+# the all-to-all splits a chunk into this many ranges (at most); a range
+# is copied, pushed to each peer and copied out of the landing region by
+# a block of its own: (2n - 1) * A2A_RANGES blocks a rank
+A2A_RANGES = 32
+_A2A_FLOATS_PER_RANGE = 4096
+# a loopback all-to-all is one cooperative launch of n * (2n - 1) *
+# ranges blocks, all resident at once: at most one a streaming
+# multiprocessor
+_LOOPBACK_BLOCKS = 128
 # how long a kernel waits for a neighbour before it gives up and leaves
 # an error code (a late neighbour is seconds behind, a lost one forever)
 WAIT_TIMEOUT_S = 30.0
@@ -75,17 +86,18 @@ def _lib():
     if lib.ring_launch.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ring_launch.argtypes = [i, i, vp, vp, vp, i, i, ll, ll, ll, ll,
-                                    i, i, vp]
+                                    i, i, ll, i, i, i, vp]
         for fn, args in (("ring_ws_alloc", [i, ll, vp]),
                          ("ring_ws_free", [i, vp]),
                          ("ring_ws_handle", [i, vp, vp]),
                          ("ring_ws_open", [i, vp, vp]),
                          ("ring_ws_close", [i, vp]),
-                         ("ring_ws_error", [i, vp, vp])):
+                         ("ring_ws_error", [i, vp, vp]),
+                         ("ring_a2a_trace", [i, vp])):
             getattr(lib, fn).argtypes = args
         for fn in ("ring_launch", "ring_ws_alloc", "ring_ws_free",
                    "ring_ws_handle", "ring_ws_open", "ring_ws_close",
-                   "ring_ws_error"):
+                   "ring_ws_error", "ring_a2a_trace"):
             getattr(lib, fn).restype = ctypes.c_int
     return lib
 
@@ -101,8 +113,14 @@ def describe_error(code: int) -> str:
     op = (code >> 48) - 1
     step = ((code >> 32) & 0xFFFF) - 1
     names = {v: k for k, v in _OPS.items()}
-    where = ("the entry barrier" if step < 0 else f"rank {step}'s chunk"
-             if op == _OPS[ALL_TO_ALL] else f"step {step}")
+    if step < 0:
+        where = "the entry barrier"
+    elif op != _OPS[ALL_TO_ALL]:
+        where = f"step {step}"
+    elif step < _MAX_RANKS:
+        where = f"rank {step}'s chunk"
+    else:
+        where = f"rank {step - _MAX_RANKS}'s release of its landing slot"
     return (f"{names.get(op, op)} rank {(code & 0xFFFF) - 1} block "
             f"{((code >> 16) & 0xFFFF) - 1} gave up waiting at {where}")
 
@@ -147,6 +165,12 @@ class PeerWorkspace:
                              f"to {_MAX_RANKS}")
         self.rank = None if self.loopback else dist.get_rank(group)
         self.epoch = 0
+        # the all-to-all's landing regions: calls so far, the epoch and the
+        # ranges a chunk of the last call that used each region, and the
+        # op of the last call
+        self.a2a_calls = 0
+        self.a2a_last = [(0, 0), (0, 0)]
+        self.last_op: Optional[str] = None
         self._own: list[int] = []      # cudaMalloc'd here
         self._opened: list[int] = []   # mapped from a peer's handle
         lib = _lib()
@@ -307,6 +331,15 @@ def _blocks(chunk: int) -> int:
     return max(1, min(_BLOCKS, -(-chunk // _FLOATS_PER_BLOCK)))
 
 
+def _a2a_ranges(chunk: int, n: int, loopback: bool) -> int:
+    """Ranges a chunk of the all-to-all splits into ((2n - 1) * ranges
+    blocks a rank)."""
+    cap = _MAX_BLOCKS
+    if loopback:
+        cap = min(cap, _LOOPBACK_BLOCKS // (n * (2 * n - 1)))
+    return max(1, min(A2A_RANGES, cap, -(-chunk // _A2A_FLOATS_PER_RANGE)))
+
+
 def _out_shape(op: str, shape, n: int):
     if op == REDUCE_SCATTER:
         return (shape[0] // n,) + tuple(shape[1:])
@@ -333,12 +366,27 @@ def _launch(op: str, ins, outs, ws: PeerWorkspace, rank: int) -> None:
     as_table = lambda ts: (ctypes.c_ulonglong * len(ts))(  # noqa: E731
         *[t.data_ptr() for t in ts])
     stream = torch.cuda.current_stream(ws.device).cuda_stream
+    epoch = ws.next_epoch()
+    prev, region, barrier = (0, 0), 0, 0
+    if op == ALL_TO_ALL:
+        # the landing region alternates from call to call; the call that
+        # follows another collective opens with the all-peer barrier
+        nblk = _a2a_ranges(chunk, n, rank < 0)
+        region = ws.a2a_calls % 2
+        prev = ws.a2a_last[region]
+        barrier = int(ws.last_op not in (None, ALL_TO_ALL))
+    else:
+        nblk = _blocks(chunk)
     rc = _lib().ring_launch(
         ws.index, _OPS[op], ws._table, as_table(ins), as_table(outs), n,
-        rank, chunk, ws.stage_off, ws.next_epoch(),
-        int(WAIT_TIMEOUT_S * 1e9), _blocks(chunk), vec, stream)
+        rank, chunk, ws.stage_off, epoch, int(WAIT_TIMEOUT_S * 1e9), nblk,
+        vec, *prev, region, barrier, stream)
     if rc != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
+    if op == ALL_TO_ALL:
+        ws.a2a_last[region] = (epoch, nblk)
+        ws.a2a_calls += 1
+    ws.last_op = op
     _build.count_launch(op)
 
 
@@ -378,7 +426,8 @@ def workspace_bytes(op: str, x: torch.Tensor, n: int) -> int:
     """The workspace a call of ``op`` on ``x`` over n ranks needs: the
     data region holds the gathered tensor (all-gather, all-reduce), the
     hop's block, the all-to-all's incoming chunks (a chunk slot for each
-    rank), or the reduce-scatter's n-1 staging chunks."""
+    rank; the staging slots, as large, hold them in every other call),
+    or the reduce-scatter's n-1 staging chunks."""
     nbytes = x.numel() * x.element_size()
     return {HOP: nbytes, ALL_REDUCE: nbytes, ALL_GATHER: n * nbytes,
             ALL_TO_ALL: nbytes, REDUCE_SCATTER: (n - 1) * nbytes // n}[op]
@@ -447,6 +496,32 @@ def all_to_all_dma(x: torch.Tensor, ring) -> torch.Tensor:
     rank j, each (source, destination) pair a direct store. ``x.shape[0]``
     must divide by n."""
     return _collective(ALL_TO_ALL, x, ring)
+
+
+# phases a block of the all-to-all stamps when traced (csrc/
+# ring_collectives.cu, kStamps): own-chunk and pushing blocks the first
+# three, copy-out blocks the first and the last two
+A2A_PHASES = ("entry", "start", "pushed", "arrived", "released")
+
+
+def traced(call, device) -> torch.Tensor:
+    """Run ``call()`` (one all-to-all launch on ``device``) with the
+    kernel's trace on: returns ``[blocks, len(A2A_PHASES)]`` int64
+    %globaltimer stamps in ns (0 where a block has no such phase)."""
+    device = torch.device(device)
+    lib = _lib()
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    # a row for each block of the largest launch
+    stamps = torch.zeros((2 * _MAX_RANKS - 1) * _MAX_BLOCKS, len(A2A_PHASES),
+                         dtype=torch.int64, device=device)
+    _ok(lib.ring_a2a_trace(index, stamps.data_ptr()), "tracing")
+    try:
+        call()
+        torch.cuda.synchronize(device)
+    finally:
+        _ok(lib.ring_a2a_trace(index, None), "tracing")
+    return stamps[stamps[:, 0] > 0]
 
 
 def tiled_all_to_all(x: torch.Tensor, ring, split_dim: int, concat_dim: int,

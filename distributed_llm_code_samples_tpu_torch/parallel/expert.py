@@ -350,7 +350,9 @@ def train_moe_dense(params: MoEStackParams, seeds, batch_size: int,
         raise ValueError(f"batch_size={batch_size} not divisible by "
                          f"n_groups={n_groups}")
     t_local = batch_size // n_groups
-    cap = _local_capacity(t_local, capacity_groups or n_groups,
+    cap = _local_capacity(t_local,
+                          capacity_groups if capacity_groups is not None
+                          else n_groups,
                           params.n_experts, capacity_factor)
     p = clone_moe(params)
     for t, row in enumerate(shard_seeds_strided(seeds, n_groups)):

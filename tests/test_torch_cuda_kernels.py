@@ -118,6 +118,36 @@ def test_head_bwd_kernels_match_plain(card, shape, mxu_bf16):
           mxu_bf16)
 
 
+# the backward's ragged cases: N and V that no 128-wide tile divides, a
+# prime V of one chunk and a prime V of three (past the 8192-column
+# chunk), d not a multiple of 4 (the padded operand copies)
+HEAD_BWD_RAGGED = ((131, 48, 8209), (300, 45, 16411), (1009, 200, 1013))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [False, True])
+@pytest.mark.parametrize("shape", HEAD_BWD_RAGGED)
+def test_head_bwd_kernel_ragged_and_bit_equal(card, shape, mxu_bf16):
+    h, w, t = head_case(shape)
+    t[0] = 0                                     # the first column too
+    lse, _ = p_fx.head_xent_stats_ref(h, w, t)
+    dy = torch.tensor(1.0, device="cuda")
+    kw = dict(mxu_bf16=mxu_bf16)
+    before = _build.launch_counts().get(p_fx.BWD_COUNT, 0)
+    got = p_fx.head_xent_bwd(dy, h, w, t, lse, **kw)
+    again = p_fx.head_xent_bwd(dy, h, w, t, lse, **kw)
+    assert _build.launch_counts()[p_fx.BWD_COUNT] == before + 2
+    agree(got, again, p_fx.head_xent_bwd_ref(dy, h, w, t, lse, **kw),
+          mxu_bf16)
+    # within 1e-4 of float64 on the same inputs (f32 operands)
+    if not mxu_bf16:
+        want = p_fx.head_xent_bwd_ref(dy.double(), h.double(), w.double(),
+                                      t, lse.double())
+        for g, w64 in zip(got, want):
+            err = float((g.double() - w64).abs().max())
+            assert err <= 1e-4 * float(w64.abs().max()), err
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     q, k, v, _ = flash_case((2, 16, 16, 80))
@@ -274,17 +304,105 @@ def test_a2a_kernel_identifying_blocks_after_ring_calls(card):
 @pytest.mark.cuda
 def test_a2a_wait_gives_up_and_raises(card, monkeypatch):
     """A rank whose peer never enters the all-to-all waits to its
-    deadline, leaves its error word, and the check raises."""
+    deadline, leaves its error word, and the check raises: for the
+    peer's chunk (no entry barrier after another all-to-all or on a fresh
+    workspace), at the entry barrier (after another collective), and for
+    the peer's release of the landing slot of the call before last."""
     from distributed_llm_code_samples_tpu_torch.ops import ring
     monkeypatch.setattr(ring, "WAIT_TIMEOUT_S", 0.2)
+    x = torch.ones(4, device="cuda")
+    for where, setup in (("rank 1's chunk", {}),
+                         ("the entry barrier", {"last_op": ring.ALL_REDUCE})):
+        ws = ring.PeerWorkspace(1024, "cuda", n=2)
+        try:
+            for key, value in setup.items():
+                setattr(ws, key, value)
+            ring._launch(ring.ALL_TO_ALL, [x], [torch.empty_like(x)], ws, 0)
+            # the barrier holds every block of the rank; any may leave
+            # its code first
+            with pytest.raises(RuntimeError, match="all_to_all_dma rank 0 "
+                                                   r"block \d gave up "
+                                                   f"waiting at {where}"):
+                ws.check()
+        finally:
+            ws.close()
+    # rank 1 enters call 5 with nothing to wait for and pushes its chunk
+    # (it then waits in vain for rank 0's); rank 0 enters the same call
+    # with its landing region last used in call 3, which rank 1 never
+    # released: rank 0's pushing block (block 1) waits to its deadline
     ws = ring.PeerWorkspace(1024, "cuda", n=2)
     try:
-        x = torch.ones(4, device="cuda")
+        ws.epoch = 4
+        ring._launch(ring.ALL_TO_ALL, [x], [torch.empty_like(x)], ws, 1)
+        ws.epoch, ws.a2a_calls, ws.a2a_last = 4, 2, [(3, 1), (4, 1)]
         ring._launch(ring.ALL_TO_ALL, [x], [torch.empty_like(x)], ws, 0)
         with pytest.raises(RuntimeError, match="all_to_all_dma rank 0 block "
-                                               "0 gave up waiting at the "
-                                               "entry"):
+                                               "1 gave up waiting at rank "
+                                               "1's release of its landing "
+                                               "slot"):
             ws.check()
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+def test_a2a_trace_stamps_every_block_in_phase_order(card):
+    """The kernel's trace of one loopback call: a row per block, the
+    own-chunk and pushing blocks' first three phases and the copy-out
+    blocks' entry, arrival and release, each in time order; calls after
+    it are not traced."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    n = 4
+    xs = [torch.randn(n * 64, 1000, device="cuda") for _ in range(n)]
+    ws = ring.PeerWorkspace(4 * xs[0].numel(), "cuda", n=n)
+    try:
+        stamps = ring.traced(lambda: ring.loopback(ring.ALL_TO_ALL, xs, ws),
+                             "cuda").cpu()
+        p = ring._a2a_ranges(64 * 1000, n, True)
+        per_rank = (2 * n - 1) * p
+        assert stamps.shape == (n * per_rank, len(ring.A2A_PHASES))
+        for r in range(n):
+            mine = stamps[r * per_rank:(r + 1) * per_rank]
+            stores, copies = mine[:n * p], mine[n * p:]
+            assert bool((stores[:, 1:3] >= stores[:, :2]).all())
+            assert bool((stores[:, 3:] == 0).all())
+            assert bool((copies[:, 1:3] == 0).all())
+            assert bool((copies[:, 3] >= copies[:, 0]).all())
+            assert bool((copies[:, 4] >= copies[:, 3]).all())
+        got = ring.loopback(ring.ALL_TO_ALL, xs, ws)
+        ws.check()
+        for g, w in zip(got, ring.loopback_ref(ring.ALL_TO_ALL, xs)):
+            assert torch.equal(g, w)
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_a2a_kernel_alternates_regions_between_collectives(card, n):
+    """A run of all-to-alls of changing shapes (a chunk that is not a
+    multiple of 4 split into several ranges: the scalar path; chunks
+    under 8192 floats; the 16-byte path), with ring calls between them on
+    the same workspace: every call bit-identical to its plain version,
+    and the ring kernels too."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    rng = np.random.default_rng(10 + n)
+    shapes = ((n * 3, 1001, 7), (n, 2000), (n * 2, 3, 5), (n * 3, 1001, 7),
+              (n, 2000))
+    ws = ring.PeerWorkspace(4 * n * 3 * 1001 * 7, "cuda", n=n)
+    try:
+        for i, shape in enumerate(shapes + shapes):
+            xs = [normal(rng, *shape) for _ in range(n)]
+            got = ring.loopback(ring.ALL_TO_ALL, xs, ws)
+            for g, w in zip(got, ring.loopback_ref(ring.ALL_TO_ALL, xs)):
+                assert torch.equal(g, w), (i, shape)
+            if i in (2, 6):
+                ys = [normal(rng, n * 4, 33) for _ in range(n)]
+                for op in (ring.ALL_REDUCE, ring.ALL_GATHER):
+                    got = ring.loopback(op, ys, ws)
+                    for g, w in zip(got, ring.loopback_ref(op, ys)):
+                        assert torch.equal(g, w), (i, op)
+        ws.check()
     finally:
         ws.close()
 

@@ -133,3 +133,37 @@ def test_on_step_sees_every_step(setup):
     seen = []
     train_port(params, seeds, on_step=seen.append)
     assert seen == [0, 1, 2]
+
+
+# grouped-query attention (4 heads on 2 KV heads) at 48-token sequences:
+# neither the head count nor the length is the module's default
+GQA_H, GQA_KV, GQA_SEQ = 4, 2, 48
+
+
+def gqa_batch(seed):
+    toks, tgts = j_lm_batch(jnp.int32(seed), 2, GQA_SEQ, V)
+    return (torch.from_numpy(np.array(toks)).long(),
+            torch.from_numpy(np.array(tgts)).long())
+
+
+@pytest.mark.parametrize("attn_impl,head_impl", POLICIES,
+                         ids=[f"{a or 'oracle'}-{h or 'oracle'}"
+                              for a, h in POLICIES])
+def test_train_lm_single_gqa_matches_jax(attn_impl, head_impl):
+    params = j_init_lm(jax.random.PRNGKey(1), V, D, L, GQA_SEQ,
+                       n_heads=GQA_H, n_kv_heads=GQA_KV)
+    seeds = np.asarray(make_seed_schedule(3, random_seed=7))
+    tokens = 2 * GQA_SEQ
+    want = j_train_lm(params, jnp.asarray(seeds), tokens, D, lr=LR,
+                      seq_len=GQA_SEQ, n_heads=GQA_H, attn_impl=attn_impl,
+                      head_impl=head_impl)
+    start = lm_params_from_numpy(params)
+    assert start.blocks.wk.shape[1] == D // GQA_H * GQA_KV
+    got = train_lm_single(start, seeds, tokens, D, lr=LR, seq_len=GQA_SEQ,
+                          n_heads=GQA_H, attn_impl=attn_impl,
+                          head_impl=head_impl, batch_fn=gqa_batch)
+    for g, w in zip(lm_leaves(got), jax.tree_util.tree_leaves(want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4,
+                                   atol=1e-6)
+    for g, b in zip(lm_leaves(got), lm_leaves(start)):
+        assert float((g - b).abs().max()) > 1e-5

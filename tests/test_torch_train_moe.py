@@ -32,6 +32,9 @@ from distributed_llm_code_samples_tpu.data import batch_from_seed as j_batch
 from distributed_llm_code_samples_tpu.data import make_seed_schedule
 from distributed_llm_code_samples_tpu.models import init_moe_stack
 from distributed_llm_code_samples_tpu.parallel import (
+    EXPERT_AXIS as J_EXPERT_AXIS)
+from distributed_llm_code_samples_tpu.parallel import make_mesh as j_mesh
+from distributed_llm_code_samples_tpu.parallel import (
     train_moe_dense as j_dense)
 from distributed_llm_code_samples_tpu.parallel import train_moe_ep as j_ep
 from distributed_llm_code_samples_tpu_torch.data import BatchTable
@@ -143,6 +146,57 @@ def test_ep_equals_its_dense_oracle(setup, port_runs):
         for a, b in zip(runs[(disp, k, aux, cf), "pallas_a2a"], dense):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
                                        atol=1e-6, err_msg=disp)
+
+
+# two ranks: gather dispatch, top-1, capacity factor 0.5 (slots overflow)
+N2, CASE2 = 2, ("gather", 1, 0.0, 0.5)
+
+
+@pytest.fixture(scope="module")
+def port_runs_2(setup):
+    """``CASE2`` on two gloo ranks under both transports, in one launch:
+    ``{comm: params}``."""
+    params, seeds, _ = setup
+    start = moe_params_from_numpy(params)
+    tokens = {int(s): tuple(np.asarray(a) for a in
+                            j_batch(jnp.int32(s), TOKENS // N2, D))
+              for s in seeds}
+    disp, k, aux, cf = CASE2
+    calls = [(train_moe_ep, (start, seeds, TOKENS, D, MESH),
+              dict(lr=LR, k=k, aux_coef=aux, capacity_factor=cf,
+                   dispatch=disp, comm=comm, batch_fn=BatchTable(tokens)))
+             for comm in COMMS]
+    outs = launch(call_each, make_mesh({EXPERT_AXIS: N2}, device="cpu"),
+                  calls, timeout=240)
+    return {comm: expert.unshard_params([outs[r][i] for r in range(N2)])
+            for i, comm in enumerate(COMMS)}
+
+
+@pytest.mark.parametrize("comm", COMMS)
+def test_port_ep_on_two_ranks_matches_jax_ep(setup, port_runs_2, comm):
+    params, seeds, _ = setup
+    disp, k, aux, cf = CASE2
+    want = j_ep(params, jnp.asarray(seeds), TOKENS, D,
+                j_mesh({J_EXPERT_AXIS: N2}), lr=LR, capacity_factor=cf, k=k,
+                aux_coef=aux, dispatch=disp)
+    _close(port_runs_2[comm], want, comm)
+    for a, b in zip(port_runs_2["psum"], port_runs_2["pallas_a2a"]):
+        assert torch.equal(a, b)
+    start = moe_params_from_numpy(params)
+    assert float((port_runs_2[comm].w1 - start.w1).abs().max()) > 1e-4
+
+
+def test_dense_capacity_groups_zero_fails_as_in_jax(setup):
+    """``capacity_groups=0`` is taken as given, not as "unset": both
+    packages split the capacity over zero groups and raise."""
+    params, seeds, tables = setup
+    kw = dict(lr=LR, k=1, capacity_factor=2.0, n_groups=N,
+              capacity_groups=0)
+    with pytest.raises(ZeroDivisionError):
+        j_dense(params, jnp.asarray(seeds), TOKENS, D, **kw)
+    with pytest.raises(ZeroDivisionError):
+        train_moe_dense(moe_params_from_numpy(params), seeds, TOKENS, D,
+                        batch_fn=tables[TOKENS // N], **kw)
 
 
 def test_shards_and_capacity(setup):
