@@ -52,7 +52,9 @@ paths:
 
 It fails (exit code 1) if there is no CUDA device, if a kernel does not
 build, launch or agree, if a kernel path did not go through its
-kernels, or if the served tokens or the trained weights are wrong.
+kernels, if the head backward's bits differ from those its build gave
+before its GEMM core moved into ``csrc/gemm_core.cuh`` (a stored
+digest), or if the served tokens or the trained weights are wrong.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
@@ -98,6 +100,9 @@ FFN_SHAPES = (("main", TRAIN["tokens"], TRAIN["d_model"], FFN_DIM),
 # terms in another order than cuBLAS. bf16 operands: an f32-level
 # difference in h can flip one bf16 rounding of a or dh.
 FFN_TOL = {False: 1e-4, True: 2e-3}
+# token slices of the weight-gradient kernel's pass 2 (ops/fused_ffn.py
+# dw_plan), timed at the main shape in f32
+DW_SLICE_SWEEP = (1, 2, 4, 8, 9, 11, 12, 16)
 FFN_KERNELS = (("ffn_fwd", 4, "ops/pallas_ffn.py:129"),
                ("ffn_bwd_dx", 6, "ops/pallas_ffn.py:190"),
                ("ffn_bwd_dw", 8, "ops/pallas_ffn.py:250"))
@@ -169,6 +174,12 @@ HEAD_SHAPES = (("main", LM_TOKENS, LM["d_model"], LM["vocab"]),
 # path's (two f32 paths are not held to a fixed tolerance, PERF.md §6).
 LM_GRAD_RATIO = 2.0
 LM_LOSS_TOL = 1e-5
+# The head backward's bits from before its GEMM core moved into
+# csrc/gemm_core.cuh (head_bits_digest on the previous build of
+# head_xent_bwd.cu, on an NVIDIA H100 80GB HBM3): the move must not
+# change one bit (tests/test_torch_cuda_kernels.py checks it too).
+HEAD_BITS_SHA256 = (
+    "974dab8abf840cd5e8d2d97d47b3923a3a9e28519c68237878b4f85754883daa")
 
 
 def card_line() -> str:
@@ -582,8 +593,38 @@ def ffn_kernel_phase(torch, np, timer):
                            library_ms=None)
                 results.append(row)
                 print("ffn-kernel-case " + json.dumps(row), flush=True)
+        if shape == "main":
+            print("ffn-dw-slices " + json.dumps(dict(
+                shape=shape, plan=list(ff.dw_plan(t, d, f)),
+                ms=dw_slice_sweep(torch, timer, ff, dy, w1, w2, x))),
+                flush=True)
         del w1, w2, x, dy
     return results
+
+
+def dw_slice_sweep(torch, timer, ff, dy, w1, w2, x):
+    """``{slices: {ms, rel_err}}`` of the f32 weight-gradient kernel with
+    its token axis cut into each count of ``DW_SLICE_SWEEP`` (``dw_plan``
+    replaced for the run; restored after), each run first held to
+    ``FFN_TOL`` against the plain version."""
+    t = x.shape[0]
+    want = ff.ffn_bwd_dw_ref(dy, w1, w2, x)
+    scale = max(float(w.abs().max()) for w in want)
+    default, out = ff.dw_plan, {}
+    try:
+        for s in DW_SLICE_SWEEP:
+            length = -(-(-(-t // s)) // ff.DW_BK) * ff.DW_BK
+            plan = (-(-t // length), length)
+            ff.dw_plan = lambda *_, plan=plan: plan
+            got = ff.ffn_bwd_dw_fused(dy, w1, w2, x)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            check(err <= FFN_TOL[False] * scale,
+                  f"ffn_bwd_dw at {plan[0]} slices disagrees: {err}")
+            out[plan[0]] = dict(ms=timer.ms(partial(
+                ff.ffn_bwd_dw_fused, dy, w1, w2, x)), rel_err=err / scale)
+    finally:
+        ff.dw_plan = default
+    return out
 
 
 # -- training phase ----------------------------------------------------------
@@ -961,7 +1002,36 @@ def lm_kernel_phase(torch, np, timer):
                 partial(fx.head_xent_bwd_ref, dy, h, w, tgt, lse, **kw),
                 None))
         del h, w, tgt, lse
+    digest = head_bits_digest(torch, np, fx)
+    row = dict(kernel="head_xent_bwd", shape="bits", mxu_bf16=None,
+               sha256=digest, want=HEAD_BITS_SHA256, max_abs_err=0.0,
+               rel_err=0.0, ok=digest == HEAD_BITS_SHA256)
+    print("lm-head-bits " + json.dumps(row), flush=True)
+    rows.append(row)
     return rows
+
+
+def head_bits_digest(torch, np, fx):
+    """sha256 over dh and dw of one small ``head_xent_bwd`` call in each
+    operand mode, on inputs made with numpy (lse in float64 on the host),
+    so that only the kernel runs on the card."""
+    import hashlib
+    rng = np.random.default_rng(2024)
+    n, d, v = 96, 40, 777
+    h = rng.normal(size=(n, d)).astype(np.float32)
+    w = (0.02 * rng.normal(size=(v, d))).astype(np.float32)
+    t = rng.integers(0, v, size=n)
+    z = h.astype(np.float64) @ w.astype(np.float64).T
+    m = z.max(axis=1)
+    lse = (m + np.log(np.exp(z - m[:, None]).sum(axis=1))).astype(np.float32)
+    args = [torch.from_numpy(a).cuda() for a in (h, w, t, lse)]
+    out = hashlib.sha256()
+    for mxu_bf16 in (False, True):
+        dh, dw = fx.head_xent_bwd(torch.tensor(1.0, device="cuda"), *args,
+                                  mxu_bf16=mxu_bf16)
+        for g in (dh, dw):
+            out.update(g.cpu().numpy().tobytes())
+    return out.hexdigest()
 
 
 # -- LM training phase ---------------------------------------------------------
@@ -1495,6 +1565,9 @@ A2A_MAIN = "dispatch"
 # ranges a chunk of the all-to-all (ops/ring.py A2A_RANGES, 32; capped at
 # 4 in a loopback of 4 ranks), timed at the main case
 A2A_RANGE_SWEEP = (4, 16, 32, 64)
+# ranges a chunk of the reduce-scatter (ops/ring.py RS_RANGES, 32), timed
+# across the cards at the main case (dw1)
+RS_RANGE_SWEEP = (8, 16, 32, 64)
 # one step's gradients, leaf by leaf: EP's relative error against a
 # float64 dense run at most EP_GRAD_RATIO times the f32 dense oracle's
 # (the GRAD_RATIO pattern)
@@ -1567,7 +1640,7 @@ def a2a_kernel_phase(torch, np, timer):
               for r in range(EP_N)]
         print("a2a-ranges " + json.dumps(dict(
             shape=A2A_MAIN, mode="loopback",
-            ms=a2a_range_sweep(torch, timer.ms, ring, ws.check, lambda: [
+            ms=range_sweep(torch, timer.ms, ring, ws.check, lambda: [
                 torch.equal(g, w) for g, w in zip(
                     ring.loopback(op, xs, ws), ring.loopback_ref(op, xs))],
                 lambda: ring.loopback(op, xs, ws)))), flush=True)
@@ -1613,23 +1686,51 @@ def a2a_trace_summary(stamps, n, ranks):
     return out
 
 
-def a2a_range_sweep(torch, time_ms, ring, check_ws, agree, kern):
-    """``{ranges: ms}`` of the all-to-all at each of ``A2A_RANGE_SWEEP``
-    (the kernel takes at most its cap), timed by ``time_ms``, each run
-    first checked with ``agree`` (a list of bools) and the workspace's
-    error word; the default is restored."""
-    default, out = ring.A2A_RANGES, {}
+def range_sweep(torch, time_ms, ring, check_ws, agree, kern, sweep=None):
+    """``{label: ms}`` of a kernel under each setting of ``sweep``
+    (``{label: {ops.ring attribute: value}}``; by default the all-to-all
+    at each ranges a chunk of ``A2A_RANGE_SWEEP``; the kernel takes at
+    most its cap), timed by ``time_ms``, each run first checked with
+    ``agree`` (a list of bools) and the workspace's error word; the
+    defaults are restored."""
+    if sweep is None:
+        sweep = {p: {"A2A_RANGES": p} for p in A2A_RANGE_SWEEP}
+    saved, out = {}, {}
     try:
-        for p in A2A_RANGE_SWEEP:
-            ring.A2A_RANGES = p
+        for label, setting in sweep.items():
+            for attr, value in setting.items():
+                saved.setdefault(attr, getattr(ring, attr))
+                setattr(ring, attr, value)
             ok = all(agree())
             torch.cuda.synchronize()
             check_ws()
-            check(ok, f"the all-to-all at {p} ranges disagrees")
-            out[p] = time_ms(kern)
+            check(ok, f"{setting}: the kernel disagrees")
+            out[label] = time_ms(kern)
     finally:
-        ring.A2A_RANGES = default
+        for attr, value in saved.items():
+            setattr(ring, attr, value)
     return out
+
+
+def rs_trace_summary(stamps):
+    """One rank's reduce-scatter trace (``ops.ring.traced``) in
+    microseconds from its first block's entry: when its pushing blocks
+    started and finished, and when its blocks (every block sums) saw
+    their range land from every source and had summed their part (min,
+    median, max)."""
+    s = stamps.double()
+    t0 = s[:, 0].min()
+    push, summed = s[s[:, 1] > 0], s
+
+    def spread(v):
+        v = (v - t0) / 1e3
+        return [float(v.min()), float(v.median()), float(v.max())]
+
+    return dict(pushing_blocks=len(push), summing_blocks=len(summed),
+                push_start_us=spread(push[:, 1]),
+                pushed_us=spread(push[:, 2]),
+                arrived_us=spread(summed[:, 3]),
+                released_us=spread(summed[:, 4]))
 
 
 @contextlib.contextmanager
@@ -2030,6 +2131,34 @@ def dist_rank(mesh, payload):
         say("dist-kernel-case", row)
         cases.append(row)
         del x, xs, got, again, want, nccl, f64
+    # the reduce-scatter at other ranges a chunk, each run bit-identical
+    # to the plain ring
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(560 + r)
+    x = torch.randn((FFN_DIM, D_MODEL), generator=gen, device=dev)
+    want = ring.ring_reduce_scatter_ref(x, rg)
+    sweep = range_sweep(
+        torch, aligned, ring, mesh.check,
+        lambda: [torch.equal(ring.ring_reduce_scatter(x, rg), want)],
+        partial(ring.ring_reduce_scatter, x, rg),
+        {p: dict(RS_RANGES=p) for p in RS_RANGE_SWEEP})
+    every = gathered(sweep)
+    say("dist-rs-ranges", dict(shape="dw1", mode="4 cards", ms=sweep,
+                               ms_max_over_ranks={
+                                   p: max(e[p] for e in every)
+                                   for p in sweep}))
+
+    def rs_together():
+        torch.cuda._sleep(HOST_COVER_CYCLES)
+        dist.all_reduce(token)
+        ring.ring_reduce_scatter(x, rg)
+
+    stamps = ring.traced(rs_together, dev)
+    mesh.check()
+    say("dist-rs-trace", dict(shape="dw1", mode="4 cards",
+                              ranks=gathered(rs_trace_summary(
+                                  stamps.cpu()))))
+    del x, want, stamps
     # the all-to-all: against its plain version (NCCL send / receive) and
     # NCCL's all_to_all_single, bit for bit
     a2a_cases = []
@@ -2078,7 +2207,7 @@ def dist_rank(mesh, payload):
         x = a2a_input(torch, A2A_MAIN, dict(A2A_CASES)[A2A_MAIN], r, n,
                       750 + r)
     nccl = _nccl_a2a(torch, dist, x)
-    sweep = a2a_range_sweep(
+    sweep = range_sweep(
         torch, aligned, ring, mesh.check,
         lambda: [torch.equal(ring.all_to_all_dma(x, rg), nccl)],
         partial(ring.all_to_all_dma, x, rg))

@@ -1,5 +1,6 @@
-// Shared pieces of the FFN kernels for Hopper (sm_90a): ffn_fwd.cu,
-// ffn_bwd_dx.cu and ffn_bwd_dw.cu. Layouts are the JAX package's:
+// Shared pieces of the FFN kernels for Hopper (sm_90a): ffn_fwd.cu and
+// ffn_bwd_dx.cu (ffn_bwd_dw.cu runs on gemm_core.cuh). Layouts are the
+// JAX package's:
 // x, dy [T, d]; w1 [ffn, d]; w2 [d, ffn]; all f32, row-major, contiguous.
 //
 // Arithmetic is f32 FMA on the CUDA cores (no tensor cores yet). With
@@ -17,10 +18,10 @@
 // held), two buffers deep: the copy of step s + 1 is in flight while
 // step s computes.
 //
-// The hidden tile. Both fused kernels and the weight-gradient kernel's
-// first pass compute a [kBT tokens x kBF ffn] tile of
+// The hidden tile. Both fused kernels compute a [kBT tokens x kBF ffn]
+// tile of
 //   h  = x  w1^T   (sum over d)
-//   da = dy w2     (sum over d, backward kernels only)
+//   da = dy w2     (sum over d, the input gradient's kernel only)
 // 256 threads; warp w owns ffn columns w*16..+15, lane l the 4 rows
 // (l/4)*4..+3 and the 4 columns (l%4)*4..+3 of them: 4 x 4 sums a thread,
 // fed by one 16-byte shared load of each operand per step of d.

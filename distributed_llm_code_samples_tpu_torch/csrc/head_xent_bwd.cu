@@ -34,13 +34,11 @@
 // array whose rows are read as 16-byte vectors: no tile is transposed on
 // its way into shared memory.
 //
-// One GEMM core serves the three products: a 128 x 128 output tile a
-// block of 256 threads, an 8 x 8 register tile a thread (four 4 x 4
-// quadrants 64 rows and columns apart, so a warp's shared loads are
-// broadcasts or one contiguous line), and a kStages-deep ring of
-// [kBK][128] operand tiles in shared memory fed by 16-byte cp.async, so
-// the loads of later k-steps are in flight while a step's FMAs run. Two
-// blocks an SM (16 warps). Arithmetic stays f32 FMA on the CUDA cores.
+// One GEMM core serves the three products (gemm_core.cuh, shared with
+// ffn_bwd_dw.cu): a 128 x 128 output tile a block of 256 threads, an
+// 8 x 8 register tile a thread, and a 3-deep ring of 16-byte cp.async
+// operand tiles in shared memory; two blocks an SM. Arithmetic stays f32
+// FMA on the CUDA cores.
 // The second launch of a chunk puts the deeper of its two products (dh:
 // Vc deep; dw: N deep) first in block order.
 // Every output element is summed by one thread in k order and dh's chunks
@@ -51,80 +49,27 @@
 // the scratch (head_xent_bwd_scratch_floats floats), passes the stream,
 // and gets the first CUDA error back.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "gemm_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 128;        // output rows and columns a block owns
+using gemm::bf16_round;
+using gemm::kThreads;
+using gemm::kTile;
+using gemm::quad;
+using gemm::up4;
+
 constexpr int kMaxChunk = 8192;   // vocabulary columns a chunk, at most
-// the pipeline: k-steps of a stage and stages in flight (of (8, 4),
-// (16, 3), (16, 4) and (32, 2), (16, 3) was fastest at the main shape)
-constexpr int kBK = 16, kStages = 3;
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// -- the operand copies -------------------------------------------------------
-
-// src [R][C] (row-major, C contiguous) -> dst [R][ldc] (zero in columns
-// [C, ldc)) and dst_t [C][ldt] (the transpose, zero in columns [R, ldt)),
-// each value rounded to bf16 when `round`. 32 x 32 tiles through shared
-// memory; 32 x 8 threads.
-__global__ void head_xent_prep_kernel(const float* __restrict__ src, int R,
-                                      int C, float* __restrict__ dst,
-                                      int ldc, float* __restrict__ dst_t,
-                                      int ldt, int round) {
-  __shared__ float tile[32][33];
-  const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  for (int i = ty; i < 32; i += 8) {
-    const int r = r0 + i, c = c0 + tx;
-    float v = r < R && c < C ? src[static_cast<size_t>(r) * C + c] : 0.f;
-    if (round) v = bf16_round(v);
-    tile[i][tx] = v;
-    if (r < R && c < ldc) dst[static_cast<size_t>(r) * ldc + c] = v;
-  }
-  __syncthreads();
-  for (int i = ty; i < 32; i += 8) {
-    const int c = c0 + i, r = r0 + tx;
-    if (c < C && r < ldt)
-      dst_t[static_cast<size_t>(c) * ldt + r] = tile[tx][i];
-  }
-}
-
-// -- the GEMM core ------------------------------------------------------------
+// -- the three products on the GEMM core ------------------------------------
 
 enum Epilogue { kDz = 0, kDh = 1, kDw = 2 };
 
 // out[m][n] = sum over k < K, in order, of a[k][m] * b[k][n], for
-// m < M, n < N. A row of a (of b) may be read up to a_ext (b_ext) floats,
-// a multiple of 4; past it, and past K, operands read as zero.
+// m < M, n < N (gemm_core.cuh's Operands: rows of a and b read up to
+// a_ext and b_ext floats).
 struct Gemm {
-  const float* a;
-  const float* b;
-  long long lda, ldb;
-  int a_ext, b_ext;
+  gemm::Operands op;
   int M, N, K;
   int tiles_n, tiles;
   int epi;
@@ -145,78 +90,12 @@ struct Gemm {
   int round;
 };
 
-// A thread's rows (columns) of the tile: q < 4 at 4*ty + q, else at
-// 64 + 4*ty + q - 4.
-__device__ __forceinline__ int quad(int base, int q) {
-  return (q < 4 ? 0 : 64 - 4) + base * 4 + q;
-}
-
 __device__ __forceinline__ void gemm_tile(const Gemm& g, int t,
                                           float* smem) {
-  constexpr int kStage = 2 * kBK * kTile;
-  constexpr int kLoads = kBK * (kTile / 4) / kThreads;
-  static_assert(kLoads >= 1 && kBK * (kTile / 4) % kThreads == 0,
-                "whole rounds of 16-byte copies");
   const int m0 = (t / g.tiles_n) * kTile, n0 = (t % g.tiles_n) * kTile;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int ktiles = (g.K + kBK - 1) / kBK;
-
-  auto load = [&](int kt, int s) {
-    float* as = smem + s * kStage;
-    float* bs = as + kBK * kTile;
-#pragma unroll
-    for (int q = 0; q < kLoads; ++q) {
-      const int i = tid + q * kThreads, r = i / (kTile / 4);
-      const int c = (i % (kTile / 4)) * 4, k = kt * kBK + r;
-      const bool oka = k < g.K && m0 + c < g.a_ext;
-      const bool okb = k < g.K && n0 + c < g.b_ext;
-      cp_async16(as + r * kTile + c,
-                 oka ? g.a + static_cast<size_t>(k) * g.lda + m0 + c : g.a,
-                 oka);
-      cp_async16(bs + r * kTile + c,
-                 okb ? g.b + static_cast<size_t>(k) * g.ldb + n0 + c : g.b,
-                 okb);
-    }
-  };
-
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();   // step kt landed; step kt-1's stage is free
-    const int nk = kt + kStages - 1;
-    if (nk < ktiles) load(nk, nk % kStages);
-    cp_async_commit();
-    const float* as = smem + (kt % kStages) * kStage;
-    const float* bs = as + kBK * kTile;
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(as + k * kTile +
-                                                         4 * ty);
-      const float4 a1 = *reinterpret_cast<const float4*>(as + k * kTile +
-                                                         64 + 4 * ty);
-      const float4 b0 = *reinterpret_cast<const float4*>(bs + k * kTile +
-                                                         4 * tx);
-      const float4 b1 = *reinterpret_cast<const float4*>(bs + k * kTile +
-                                                         64 + 4 * tx);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
+  gemm::mainloop(g.op, m0, n0, 0, g.K, smem, acc);
 
   if (g.epi == kDz) {
     // dz of each logit: (exp(z - lse) - [v0 + v == target]) / N, zero off
@@ -295,19 +174,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     gemm_tile(g1, t - g0.tiles, smem);
 }
 
-// the operand ring fits the 48 KB a block gets without opting in
-constexpr size_t kSmem = static_cast<size_t>(kStages) * 2 * kBK * kTile *
-                         sizeof(float);
-static_assert(kSmem <= 48 * 1024, "operand ring over 48 KB");
-
 cudaError_t launch_gemm(const Gemm& g0, const Gemm& g1, int count,
                         cudaStream_t st) {
   const int blocks = g0.tiles + (count > 1 ? g1.tiles : 0);
-  head_xent_gemm_kernel<<<blocks, kThreads, kSmem, st>>>(g0, g1);
+  head_xent_gemm_kernel<<<blocks, kThreads, gemm::kSmem, st>>>(g0, g1);
   return cudaGetLastError();
 }
-
-long long up4(long long x) { return (x + 3) / 4 * 4; }
 
 // The chunking of the vocabulary: n equal chunks of `width` columns (a
 // multiple of the tile), the last one shorter.
@@ -355,13 +227,10 @@ cudaError_t run(const float* h, const float* w, const int* targets,
   const Layout L = layout(N, d, V);
   float *hT = scratch + L.hT, *hc = scratch + L.hc, *wT = scratch + L.wT,
         *wc = scratch + L.wc, *dz = scratch + L.dz, *dzT = scratch + L.dzT;
-  const dim3 pb(32, 8);
   const int dp = static_cast<int>(L.dp), Np = static_cast<int>(L.Np),
             Vp = static_cast<int>(L.Vp);
-  head_xent_prep_kernel<<<dim3((dp + 31) / 32, (Np + 31) / 32), pb, 0,
-                          st>>>(h, N, d, hc, dp, hT, Np, bf16);
-  head_xent_prep_kernel<<<dim3((dp + 31) / 32, (Vp + 31) / 32), pb, 0,
-                          st>>>(w, V, d, wc, dp, wT, Vp, bf16);
+  gemm::prep(h, N, d, hc, dp, hT, Np, bf16, st);
+  gemm::prep(w, V, d, wc, dp, wT, Vp, bf16, st);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   for (int c = 0; c < L.n_chunks; ++c) {
@@ -369,12 +238,12 @@ cudaError_t run(const float* h, const float* w, const int* targets,
     const int vc = V - v0 < L.width ? V - v0 : L.width;
     const long long vcp = up4(vc);
     Gemm z = blank();            // z = h w_c^T, its epilogue dz
-    z.a = hT;
-    z.lda = L.Np;
-    z.a_ext = static_cast<int>(L.Np);
-    z.b = wT + v0;
-    z.ldb = L.Vp;
-    z.b_ext = static_cast<int>(L.Vp - v0);
+    z.op.a = hT;
+    z.op.lda = L.Np;
+    z.op.a_ext = static_cast<int>(L.Np);
+    z.op.b = wT + v0;
+    z.op.ldb = L.Vp;
+    z.op.b_ext = static_cast<int>(L.Vp - v0);
     z.M = N;
     z.N = vc;
     z.K = d;
@@ -394,12 +263,12 @@ cudaError_t run(const float* h, const float* w, const int* targets,
     e = launch_gemm(z, z, 1, st);
     if (e != cudaSuccess) return e;
     Gemm gh = blank();           // dh (+)= dz_c w_c
-    gh.a = dzT;
-    gh.lda = L.Np;
-    gh.a_ext = static_cast<int>(L.Np);
-    gh.b = wc + static_cast<size_t>(v0) * L.dp;
-    gh.ldb = L.dp;
-    gh.b_ext = static_cast<int>(L.dp);
+    gh.op.a = dzT;
+    gh.op.lda = L.Np;
+    gh.op.a_ext = static_cast<int>(L.Np);
+    gh.op.b = wc + static_cast<size_t>(v0) * L.dp;
+    gh.op.ldb = L.dp;
+    gh.op.b_ext = static_cast<int>(L.dp);
     gh.M = N;
     gh.N = d;
     gh.K = vc;
@@ -409,12 +278,12 @@ cudaError_t run(const float* h, const float* w, const int* targets,
     gh.ldo = d;
     gh.accumulate = c > 0;
     Gemm gw = blank();           // dw_c = dz_c^T h
-    gw.a = dz;
-    gw.lda = vcp;
-    gw.a_ext = static_cast<int>(vcp);
-    gw.b = hc;
-    gw.ldb = L.dp;
-    gw.b_ext = static_cast<int>(L.dp);
+    gw.op.a = dz;
+    gw.op.lda = vcp;
+    gw.op.a_ext = static_cast<int>(vcp);
+    gw.op.b = hc;
+    gw.op.ldb = L.dp;
+    gw.op.b_ext = static_cast<int>(L.dp);
     gw.M = vc;
     gw.N = d;
     gw.K = N;

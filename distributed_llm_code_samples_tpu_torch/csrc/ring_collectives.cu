@@ -4,13 +4,16 @@
 //
 // Replaces the TPU kernels of distributed_llm_code_samples_tpu/ops/
 // pallas_ring.py: `ppermute_dma` (:151), `ring_all_reduce` (:190),
-// `ring_reduce_scatter` (:328), `ring_all_gather` (:406) and
-// `all_to_all_dma` (:490; all_to_all_kernel below). The ring kernels compute
-// the same functions with the same chunks (the leading-dim n-split) and
-// the same ring schedule, so each chunk is summed in the Pallas kernels'
-// order: at reduce step s rank r adds its own copy of chunk
-// (v - s - 1) mod n to the partial its left neighbour sent (v = r for the
-// all-reduce, r - 1 for the reduce-scatter, so that rank r owns chunk r).
+// `ring_reduce_scatter` (:328; ring_reduce_scatter_kernel below, no
+// longer a ring), `ring_all_gather` (:406) and `all_to_all_dma` (:490;
+// all_to_all_kernel below). Every kernel computes the same function with
+// the same chunks (the leading-dim n-split), and each chunk is summed in
+// the Pallas kernels' order: at reduce step s rank r adds its own copy of
+// chunk (v - s - 1) mod n to the partial its left neighbour sent (v = r
+// for the all-reduce, r - 1 for the reduce-scatter, so that rank r owns
+// chunk r). So rank r's chunk of the reduce-scatter is
+//   x_{r+1}[r] + x_{r+2}[r] + ... + x_{r-1}[r], then + x_r[r],
+// added left to right, the order its receiver sums in.
 //
 // What bounds them: bytes over NVLink. Of a tensor of S bytes each rank
 // sends (and receives) 2(n-1)/n S for the all-reduce and (n-1)/n S for
@@ -31,15 +34,15 @@
 // chunk c at its own offset for a gather phase), so no slot is reused and
 // no capacity handshake is needed; across calls the entry barrier (enter)
 // keeps a rank from writing into a neighbour that is still in the
-// previous call. The reduce phases fuse the add with the send: at step s
-// a block reads its own chunk and the partial its left neighbour left in
-// slot s-1, and stores the sum into its right neighbour's slot s. The
-// all-reduce's second phase lands in the data region, apart from the
-// staging slots, so it needs no phase handoff. The all-gather and the hop
-// land chunks in the receiver's data region and copy them from there into
-// the receiver's output. Every wait ends at a deadline (wait_for): a
-// missing peer leaves an error code in the workspace instead of hanging
-// the card.
+// previous call. The all-reduce's reduce phase fuses the add with the
+// send: at step s a block reads its own chunk and the partial its left
+// neighbour left in slot s-1, and stores the sum into its right
+// neighbour's slot s. Its second phase lands in the data region, apart
+// from the staging slots, so it needs no phase handoff. The all-gather
+// and the hop land chunks in the receiver's data region and copy them
+// from there into the receiver's output. Every wait ends at a deadline
+// (wait_for): a missing peer leaves an error code in the workspace
+// instead of hanging the card.
 //
 // The all-to-all (all_to_all_kernel) moves chunk j of rank r's input (the
 // leading-dim n-split) to chunk r of rank j's output, a copy and no sum.
@@ -56,7 +59,7 @@
 //    copy its own chunk; for each peer j (the k-th after it) P push their
 //    range of chunk j into j's workspace, so all peers' links carry data
 //    at once; and for each peer s (the k-th before it) P copy out their
-//    range of the chunk s pushed here as soon as its flag (a2a_arrive)
+//    range of the chunk s pushed here as soon as its flag (landed)
 //    lands, while other ranges are still on the links. Each thread keeps
 //    kUnroll 16-byte loads in flight before its stores. (A flag for each
 //    quarter of a range let no quarter arrive early: the links carry
@@ -65,11 +68,43 @@
 //  - No entry barrier: the chunks land in one of two regions, used in
 //    turn from call to call (the data region, then the staging slots).
 //    After its copy-out a block releases its range of the slot to the
-//    sender (a2a_freed); the sender of the call after next waits for
+//    sender (freed); the sender of the call after next waits for
 //    that release before it stores into the same region, which by then
 //    has almost always long happened. Only an all-to-all that follows
-//    another collective on the workspace opens with the all-peer barrier
-//    (a2a_ready): the ring kernels use both regions too.
+//    a ring call (the hop, the all-reduce, the all-gather) on the
+//    workspace opens with the all-peer barrier (entered): the ring
+//    kernels use both regions too.
+//
+// The reduce-scatter (ring_reduce_scatter_kernel) moves the same bytes
+// as the ring, (n-1)/n of the tensor a rank, but not through n-1
+// dependent steps, each with its link latency and system fence in series
+// and one link busy. It is the all-to-all's design with the sum at the
+// receiver:
+//  - A chunk splits into P ranges. A rank runs n x P blocks: for each
+//    peer j (the k-th after it) P push their range of chunk j into j's
+//    landing slot for this rank and flag it (landed), all links loaded
+//    at once, kUnroll 16-byte loads in flight a thread. Then all n x P
+//    blocks sum, n to a range: each waits for its range from the n-1
+//    sources and sums its n-th of it in the ring's order (the source
+//    after it first, its own chunk last) straight into the output; the
+//    last of the n releases the range to every sender (freed). The
+//    ranges land together at the end of the pushes (the links carry
+//    every block's stores at once), so the sum is a tail after them, a
+//    pass over 4 chunks read and one written; spread over every block of
+//    the rank it has every SM's loads in flight, where P blocks alone
+//    had a quarter of them (by the kernel's own trace). No byte is
+//    copied out on its own. Its flags are stored relaxed after one
+//    system fence (signal, and the release's loop), not as release
+//    stores, each of which costs a fence of its own on the link.
+//    At n 4 and 9.44 MB on four H100s its trace shows the pushes ending
+//    about 25 us after entry (some 290 GB/s a direction, against 450)
+//    and the sums about 6 us later.
+//  - It shares the all-to-all's two landing regions, used in turn across
+//    both ops' calls, and their bookkeeping: no entry barrier after an
+//    all-to-all or a reduce-scatter, the all-peer barrier after a ring
+//    call. A region holds the n-1 slots of chunks, slot k - 1 for the
+//    k-th rank after the receiver, so that the receiver reads its slots
+//    in order.
 // Loopback: the n workspaces of one card, one cooperative launch of n x
 // nblk blocks (all resident at once, as the waits between blocks need).
 //
@@ -93,11 +128,11 @@ __global__ void __launch_bounds__(kThreads) ring_hop_kernel(Params p) {
   move(c, c.y, nullptr, data(c.me), nullptr);
 }
 
-// The reduce phase of the ring with virtual rank v: at step s the block
-// sends its partial of chunk (v - s) mod n to the right neighbour's slot
-// s (at s = 0 its own copy, later its own copy plus the partial that
-// arrived in slot s-1). Returns false if a wait gave up; else the partial
-// of chunk (v + 1) mod n has arrived in slot n-2.
+// The all-reduce's reduce phase, the ring with virtual rank v: at step s
+// the block sends its partial of chunk (v - s) mod n to the right
+// neighbour's slot s (at s = 0 its own copy, later its own copy plus the
+// partial that arrived in slot s-1). Returns false if a wait gave up;
+// else the partial of chunk (v + 1) mod n has arrived in slot n-2.
 __device__ __forceinline__ bool reduce_phase(const Ctx& c, int v) {
   const int n = c.n;
   const long long e = c.chunk;
@@ -110,14 +145,6 @@ __device__ __forceinline__ bool reduce_phase(const Ctx& c, int v) {
     publish(arrive(c.rw, c.b), c.base + s + 1);
   }
   return wait_for(c, arrive(c.me, c.b), c.base + n - 1, n - 2);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    ring_reduce_scatter_kernel(Params p) {
-  const Ctx c = make_ctx(p, kReduceScatter);
-  if (!enter(c)) return;
-  if (!reduce_phase(c, (c.r + c.n - 1) % c.n)) return;
-  move(c, c.y, nullptr, c.x + c.r * c.chunk, stage(c, c.me, c.n - 2));
 }
 
 __global__ void __launch_bounds__(kThreads) ring_all_reduce_kernel(Params p) {
@@ -164,41 +191,44 @@ __global__ void __launch_bounds__(kThreads) ring_all_gather_kernel(Params p) {
   move(c, c.y + last * e, nullptr, data(c.me) + last * e, nullptr);
 }
 
-// Entry barrier of an all-to-all that follows another collective: block
-// 0 of the rank tells every peer that the rank has entered the call (so
-// it has finished the previous one: kernels on one stream run in order);
-// every block waits until every peer says the same.
+// Entry barrier of an all-to-all or reduce-scatter that follows a ring
+// call: block 0 of the rank tells every peer that the rank has entered
+// the call (so it has finished the previous one: kernels on one stream
+// run in order); every block waits until every peer says the same.
 __device__ __forceinline__ bool enter_all(const Ctx& c, const Params& p) {
   if (threadIdx.x == 0 && c.b == 0) {
     __threadfence_system();
     for (int k = 1; k < c.n; ++k)
-      st_release(a2a_ready(p.ws[(c.r + k) % c.n], c.r), c.epoch);
+      st_release(entered(p.ws[(c.r + k) % c.n], c.r), c.epoch);
   }
   for (int k = 1; k < c.n; ++k) {
-    if (!wait_for(c, a2a_ready(c.me, (c.r + k) % c.n), c.epoch, -1))
+    if (!wait_for(c, entered(c.me, (c.r + k) % c.n), c.epoch, -1))
       return false;
   }
   return true;
 }
 
-// Block-wide wait until flags[q] >= target for every q < count (count
-// at most blockDim.x): thread q polls flag q, to the deadline, as
-// wait_for does.
-__device__ __forceinline__ bool wait_each(const Ctx& c, const uint64_t* flags,
-                                          int count, uint64_t target,
-                                          int step) {
+// Block-wide wait until *flag(q) >= target for every q < count (count
+// at most blockDim.x): thread q polls flag(q), to the deadline, as
+// wait_for does, and leaves step(q) in the error code.
+template <typename Flag, typename Step>
+__device__ __forceinline__ bool wait_each(const Ctx& c, int count,
+                                          uint64_t target, Flag flag,
+                                          Step step) {
   int ok = 1;
-  if (static_cast<int>(threadIdx.x) < count) {
+  const int q = static_cast<int>(threadIdx.x);
+  if (q < count) {
     uint64_t* err = err_word(c.me);
+    const uint64_t* f = flag(q);
     const uint64_t t0 = now_ns();
-    while (ld_acquire(flags + threadIdx.x) < target) {
+    while (ld_acquire(f) < target) {
       if (ld_acquire(err) != 0) {
         ok = 0;
         break;
       }
       if (now_ns() - t0 > c.timeout_ns) {
         atomicCAS(reinterpret_cast<unsigned long long*>(err), 0ull,
-                  static_cast<unsigned long long>(error_code(c, step)));
+                  static_cast<unsigned long long>(error_code(c, step(q))));
         ok = 0;
         break;
       }
@@ -233,12 +263,13 @@ __device__ __forceinline__ void copy_range(const Ctx& c, float* y,
   }
 }
 
-// The all-to-all's trace: when set (ring_a2a_trace), thread 0 of each
-// block stores %globaltimer at the block's phases into
-// a2a_stamps[blockIdx * kStamps + phase]: 0 entry; 1 its stores may start
-// (after the barrier and the release wait) and 2 its range stored and
-// flagged (own-chunk and pushing blocks); 3 its range arrived and 4
-// copied out and released (copy-out blocks).
+// The all-to-all's and the reduce-scatter's trace: when set
+// (ring_a2a_trace), thread 0 of each block stores %globaltimer at the
+// block's phases into a2a_stamps[blockIdx * kStamps + phase]: 0 entry; 1
+// its stores may start (after the barrier and the release wait) and 2
+// its ranges stored and flagged (own-chunk and pushing blocks); 3 its
+// range arrived and 4 copied out (or summed) and released (copy-out and
+// summing blocks).
 constexpr int kStamps = 5;
 __device__ unsigned long long* a2a_stamps = nullptr;
 
@@ -247,32 +278,69 @@ __device__ __forceinline__ void stamp(int phase) {
     a2a_stamps[blockIdx.x * kStamps + phase] = now_ns();
 }
 
+// Range b of the P = p.nblk ranges a chunk: [c.lo, c.hi), a multiple of
+// 4 floats long, so each range stays float4-aligned.
+__device__ __forceinline__ void set_range(Ctx& c, const Params& p, int b) {
+  const long long per = ((p.chunk + p.nblk - 1) / p.nblk + 3) / 4 * 4;
+  c.lo = min(p.chunk, static_cast<long long>(b) * per);
+  c.hi = min(p.chunk, c.lo + per);
+}
+
+// The context of rank r's block `local` of the per_rank blocks a rank of
+// the all-to-all and the reduce-scatter, with local itself as its block
+// in error codes.
+__device__ __forceinline__ Ctx peer_ctx(const Params& p, int op,
+                                        int per_rank, int* local) {
+  const bool loop = p.rank < 0;
+  *local = static_cast<int>(blockIdx.x) % per_rank;
+  Ctx c = make_ctx(p, op);
+  c.r = loop ? static_cast<int>(blockIdx.x) / per_rank : p.rank;
+  c.b = *local;
+  c.me = p.ws[c.r];
+  c.x = p.in[loop ? c.r : 0];
+  c.y = p.out[loop ? c.r : 0];
+  return c;
+}
+
+// A call's entry in the all-to-all and the reduce-scatter: a rank
+// poisoned by an earlier timeout does nothing; after a ring call, the
+// all-peer barrier.
+__device__ __forceinline__ bool open_call(const Ctx& c, const Params& p) {
+  int ok = 1;
+  if (threadIdx.x == 0) ok = ld_acquire(err_word(c.me)) == 0;
+  if (!__syncthreads_and(ok)) return false;
+  return !p.barrier || enter_all(c, p);
+}
+
+// This call's landing region in a workspace (0: data, 1: staging).
+__device__ __forceinline__ float* region(const Ctx& c, const Params& p,
+                                         char* ws) {
+  return p.region ? stage(c, ws, 0) : data(ws);
+}
+
+// Wait until peer j has read what this rank left in its region in the
+// last call that used the region: every range of that call, which may
+// have split the chunk otherwise.
+__device__ __forceinline__ bool wait_freed(const Ctx& c, const Params& p,
+                                           int j) {
+  return wait_each(
+      c, p.prev_nblk, static_cast<uint64_t>(p.prev_epoch),
+      [&](int q) { return freed(c.me, j, q); },
+      [&](int) { return kMaxRanks + j; });
+}
+
 // Rank r's block `local` of (2n - 1) * P: role = local / P (0: its own
 // chunk; k in [1, n): pushes to the k-th peer after it; n - 1 + k: copies
 // out what the k-th peer before it pushed), range b = local % P.
 __global__ void __launch_bounds__(kThreads) all_to_all_kernel(Params p) {
-  const int n = p.n, per_rank = (2 * n - 1) * p.nblk;
-  const bool loop = p.rank < 0;
-  const int local = static_cast<int>(blockIdx.x) % per_rank;
+  const int n = p.n;
+  int local;
+  Ctx c = peer_ctx(p, kAllToAll, (2 * n - 1) * p.nblk, &local);
   const int role = local / p.nblk, b = local % p.nblk;
-  Ctx c = make_ctx(p, kAllToAll);
-  c.r = loop ? static_cast<int>(blockIdx.x) / per_rank : p.rank;
-  c.b = local;
-  const long long per = ((p.chunk + p.nblk - 1) / p.nblk + 3) / 4 * 4;
-  c.lo = min(p.chunk, static_cast<long long>(b) * per);
-  c.hi = min(p.chunk, c.lo + per);
-  c.me = p.ws[c.r];
-  c.x = p.in[loop ? c.r : 0];
-  c.y = p.out[loop ? c.r : 0];
+  set_range(c, p, b);
   const long long e = p.chunk;
   stamp(0);
-  int ok = 1;
-  if (threadIdx.x == 0) ok = ld_acquire(err_word(c.me)) == 0;
-  if (!__syncthreads_and(ok)) return;
-  if (p.barrier && !enter_all(c, p)) return;
-  auto region = [&](char* ws) {
-    return p.region ? stage(c, ws, 0) : data(ws);
-  };
+  if (!open_call(c, p)) return;
   if (role == 0) {
     stamp(1);
     copy_range(c, c.y + c.r * e, c.x + c.r * e);
@@ -284,22 +352,139 @@ __global__ void __launch_bounds__(kThreads) all_to_all_kernel(Params p) {
     // region (its every range: that call may have split the chunk
     // otherwise)
     const int j = (c.r + role) % n;
-    if (!wait_each(c, a2a_freed(c.me, j, 0), p.prev_nblk,
-                   static_cast<uint64_t>(p.prev_epoch), kMaxRanks + j))
-      return;
+    if (!wait_freed(c, p, j)) return;
     stamp(1);
-    copy_range(c, region(p.ws[j]) + c.r * e, c.x + j * e);
-    publish(a2a_arrive(p.ws[j], c.r, b), c.epoch);
+    copy_range(c, region(c, p, p.ws[j]) + c.r * e, c.x + j * e);
+    publish(landed(p.ws[j], c.r, b), c.epoch);
     stamp(2);
   } else {
     // rank s, the k-th before this one, pushes here as to its k-th peer
     const int s = (c.r + 2 * n - 1 - role) % n;
-    if (!wait_for(c, a2a_arrive(c.me, s, b), c.epoch, s)) return;
+    if (!wait_for(c, landed(c.me, s, b), c.epoch, s)) return;
     stamp(3);
-    copy_range(c, c.y + s * e, region(c.me) + s * e);
-    publish(a2a_freed(p.ws[s], c.r, b), c.epoch);
+    copy_range(c, c.y + s * e, region(c, p, c.me) + s * e);
+    publish(freed(p.ws[s], c.r, b), c.epoch);
     stamp(4);
   }
+}
+
+constexpr int kSumUnroll = 2;   // 16-byte indices in flight a thread
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// y[i] for i in the block's range [c.lo, c.hi) of a chunk: the N - 1
+// slots of `slots` (chunk floats apart, written by peers: loads bypass
+// L1), then own, added left to right: acc = slot 0; acc = slot k + acc;
+// y = own + acc. Every load of an index is issued before its adds.
+template <int N>
+__device__ __forceinline__ void sum_range(const Ctx& c, float* y,
+                                          const float* slots,
+                                          const float* own) {
+  const long long step = blockDim.x, e = c.chunk;
+  if (c.vec) {
+    float4* y4 = reinterpret_cast<float4*>(y);
+    const float4* o4 = reinterpret_cast<const float4*>(own);
+    const float4* s4 = reinterpret_cast<const float4*>(slots);
+    const long long e4 = e / 4, hi = c.hi / 4;
+    long long i = c.lo / 4 + threadIdx.x;
+    for (; i + (kSumUnroll - 1) * step < hi; i += kSumUnroll * step) {
+      float4 v[N][kSumUnroll];
+#pragma unroll
+      for (int k = 0; k < N - 1; ++k)
+#pragma unroll
+        for (int u = 0; u < kSumUnroll; ++u)
+          v[k][u] = __ldcg(s4 + k * e4 + i + u * step);
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u)
+        v[N - 1][u] = __ldcg(o4 + i + u * step);
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u) {
+        float4 acc = v[0][u];
+#pragma unroll
+        for (int k = 1; k < N; ++k) acc = add4(v[k][u], acc);
+        y4[i + u * step] = acc;
+      }
+    }
+    for (; i < hi; i += step) {
+      float4 acc = __ldcg(s4 + i);
+#pragma unroll
+      for (int k = 1; k < N - 1; ++k) acc = add4(__ldcg(s4 + k * e4 + i), acc);
+      y4[i] = add4(__ldcg(o4 + i), acc);
+    }
+  } else {
+    for (long long i = c.lo + threadIdx.x; i < c.hi; i += step) {
+      float acc = __ldcg(slots + i);
+#pragma unroll
+      for (int k = 1; k < N - 1; ++k) acc = __ldcg(slots + k * e + i) + acc;
+      y[i] = __ldcg(own + i) + acc;
+    }
+  }
+}
+
+// Rank r's block `local` of n * P: role = local / P, range b = local % P.
+// A block of role k - 1 (k in [1, n)) first pushes range b of chunk
+// j = r + k into j's landing slot for this rank and flags it; rank j's
+// region holds the chunk of the k-th rank after it in slot k - 1. Then
+// every block (role n - 1 has nothing to push) waits for range b from
+// the n - 1 sources and sums its part `role` of the range, one of n, in
+// the ring's order; the last of the n to finish releases the range to
+// every sender.
+__global__ void __launch_bounds__(kThreads)
+    ring_reduce_scatter_kernel(Params p) {
+  const int n = p.n;
+  int local;
+  Ctx c = peer_ctx(p, kReduceScatter, n * p.nblk, &local);
+  const int role = local / p.nblk, b = local % p.nblk;
+  const long long e = p.chunk;
+  set_range(c, p, b);
+  stamp(0);
+  if (!open_call(c, p)) return;
+  if (role < n - 1) {
+    const int j = (c.r + role + 1) % n;
+    if (!wait_freed(c, p, j)) return;
+    stamp(1);
+    copy_range(c, region(c, p, p.ws[j]) + (n - role - 2) * e, c.x + j * e);
+    signal(landed(p.ws[j], c.r, b), c.epoch);
+    stamp(2);
+  }
+  // the n - 1 sources' range b, then this block's part of its sum
+  if (!wait_each(
+          c, n - 1, c.epoch,
+          [&](int q) { return landed(c.me, (c.r + q + 1) % n, b); },
+          [&](int q) { return (c.r + q + 1) % n; }))
+    return;
+  stamp(3);
+  const long long part = ((c.hi - c.lo + n - 1) / n + 3) / 4 * 4;
+  c.lo = min(c.hi, c.lo + role * part);
+  c.hi = min(c.hi, c.lo + part);
+  const float* slots = region(c, p, c.me);
+  const float* own = c.x + c.r * e;
+  switch (n) {
+    case 2: sum_range<2>(c, c.y, slots, own); break;
+    case 3: sum_range<3>(c, c.y, slots, own); break;
+    case 4: sum_range<4>(c, c.y, slots, own); break;
+    case 5: sum_range<5>(c, c.y, slots, own); break;
+    case 6: sum_range<6>(c, c.y, slots, own); break;
+    case 7: sum_range<7>(c, c.y, slots, own); break;
+    default: sum_range<8>(c, c.y, slots, own); break;
+  }
+  // count this part done (n a call); the last releases range b of every
+  // source's slot: one fence, then relaxed flag stores (release stores
+  // here, a fence each, held the kernel's end back by about 6 us at the
+  // main shape on four H100s, by its trace)
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const uint64_t done = atomicAdd(summed(c.me, b), 1ull);
+    if (done % n == static_cast<uint64_t>(n - 1)) {
+      __threadfence_system();
+      for (int k = 1; k < n; ++k)
+        st_relaxed(freed(p.ws[(c.r + k) % n], c.r, b), c.epoch);
+    }
+  }
+  stamp(4);
 }
 
 const void* const kKernels[5] = {
@@ -317,13 +502,13 @@ extern "C" {
 // One call of collective `op` (0 hop, 1 all-reduce, 2 reduce-scatter,
 // 3 all-gather, 4 all-to-all). ws: n workspace addresses as mapped in
 // this process (the ring kernels read this rank's and its two
-// neighbours', the all-to-all every one). in / out:
-// one address (dist, rank >= 0) or n (loopback, rank < 0). chunk: floats
-// a chunk. nblk: blocks a rank (the all-to-all: ranges a chunk, and
-// (2n - 1) * nblk blocks a rank).
-// prev_epoch, prev_nblk, region, barrier: the all-to-all's (Params), 0
-// for the others. The launch goes on `stream`; returns a
-// cudaError_t as int.
+// neighbours', the all-to-all and the reduce-scatter every one). in /
+// out: one address (dist, rank >= 0) or n (loopback, rank < 0). chunk:
+// floats a chunk. nblk: blocks a rank (the all-to-all and the
+// reduce-scatter: ranges a chunk, and (2n - 1) * nblk or n * nblk blocks
+// a rank). prev_epoch, prev_nblk, region, barrier: the all-to-all's and
+// the reduce-scatter's (Params), 0 for the others. The launch goes on
+// `stream`; returns a cudaError_t as int.
 int ring_launch(int device, int op, const unsigned long long* ws,
                 const unsigned long long* in, const unsigned long long* out,
                 int n, int rank, long long chunk, long long stage_off,
@@ -331,8 +516,9 @@ int ring_launch(int device, int op, const unsigned long long* ws,
                 long long prev_epoch, int prev_nblk, int region,
                 int barrier, void* stream) {
   using namespace ring;
-  const bool a2a = op == kAllToAll;
-  const int blocks_a_rank = a2a ? (2 * n - 1) * nblk : nblk;
+  const int blocks_a_rank = op == kAllToAll       ? (2 * n - 1) * nblk
+                            : op == kReduceScatter ? n * nblk
+                                                   : nblk;
   if (op < 0 || op > 4 || n < 2 || n > kMaxRanks || rank >= n ||
       nblk < 1 || nblk > kMaxBlocks || chunk < 1 || epoch < 1 ||
       prev_epoch < 0 || prev_epoch >= epoch || prev_nblk < 0 ||

@@ -14,21 +14,26 @@
 //                      epoch * 64 + step + 1 once its step's data is here
 //   [1024, 1024+8*64)  ready[b]: written by the right neighbour's block b,
 //                      the epoch of the call it has entered
-//   [4096, 8192)       a2a_arrive[j][b] (all-to-all): written by rank j,
-//                      the epoch of the call once range b of its chunk
-//                      has landed here
-//   [8192, 12288)      a2a_ready[j] (all-to-all): written by rank j,
-//                      the epoch of the call it has entered (the entry
-//                      barrier of an all-to-all that follows another
-//                      collective)
-//   [12288, 16384)     a2a_freed[j][b] (all-to-all): written by rank j,
-//                      the epoch of the call whose range b it has copied
-//                      out of the slot this rank fills in j's workspace
+//   [2048, 2048+8*64)  summed[b] (reduce-scatter): this rank's own count
+//                      of the parts of range b summed, n a call
+//   [4096, 8192)       landed[j][b] (all-to-all, reduce-scatter):
+//                      written by rank j, the epoch of the call once
+//                      range b of its chunk has landed here
+//   [8192, 12288)      entered[j] (all-to-all, reduce-scatter): written
+//                      by rank j, the epoch of the call it has entered
+//                      (the entry barrier of a call that follows a ring
+//                      call)
+//   [12288, 16384)     freed[j][b] (all-to-all, reduce-scatter): written
+//                      by rank j, the epoch of the call whose range b it
+//                      has read out of the slot this rank fills in j's
+//                      workspace
 //   [16384, ...)       data region: capacity bytes (hop, all-gather, the
 //                      all-reduce's second phase land here; the
-//                      all-to-all's chunks in calls of even count)
-//   [stage_off, ...)   staging slots: n-1 chunks (the reduce phases); the
-//                      all-to-all's chunks in calls of odd count
+//                      all-to-all's and the reduce-scatter's chunks in
+//                      calls of even count)
+//   [stage_off, ...)   staging slots: n-1 chunks (the all-reduce's reduce
+//                      phase); the all-to-all's and the reduce-scatter's
+//                      chunks in calls of odd count
 //
 // Flags only grow. Each call carries an epoch that every rank counts the
 // same way (one a call, the same call sequence on every rank), so a flag
@@ -50,9 +55,10 @@ constexpr uint64_t kStepsPerEpoch = 64;   // >= 2(n-1) + 1 for n <= 8
 constexpr long long kErrOff = 0;
 constexpr long long kArriveOff = 256;
 constexpr long long kReadyOff = 1024;
-constexpr long long kA2aArriveOff = 4096;
-constexpr long long kA2aReadyOff = 8192;
-constexpr long long kA2aFreedOff = 12288;
+constexpr long long kSummedOff = 2048;
+constexpr long long kLandedOff = 4096;
+constexpr long long kEnteredOff = 8192;
+constexpr long long kFreedOff = 12288;
 constexpr long long kDataOff = 16384;
 
 enum Op {
@@ -75,11 +81,14 @@ struct Params {
   int rank;                     // < 0: loopback, rank = blockIdx over
                                 // the blocks a rank
   int nblk;                     // blocks a rank (all-to-all: ranges a
-                                // chunk, (2n - 1) * nblk blocks a rank)
+                                // chunk, (2n - 1) * nblk blocks a rank;
+                                // reduce-scatter: ranges a chunk,
+                                // n * nblk blocks a rank)
   int vec;                      // 1: 16-byte aligned, chunk % 4 == 0
-  // all-to-all only: the landing region of this call (0 data, 1 staging),
-  // the epoch of the last call that used it (0: none) and that call's
-  // ranges a chunk, and whether the call opens with the entry barrier
+  // all-to-all and reduce-scatter: the landing region of this call (0
+  // data, 1 staging), the epoch of the last call that used it (0: none)
+  // and that call's ranges a chunk, and whether the call opens with the
+  // entry barrier
   long long prev_epoch;
   int prev_nblk;
   int region;
@@ -159,16 +168,18 @@ __device__ __forceinline__ uint64_t* arrive(char* ws, int b) {
 __device__ __forceinline__ uint64_t* ready(char* ws, int b) {
   return reinterpret_cast<uint64_t*>(ws + kReadyOff) + b;
 }
-__device__ __forceinline__ uint64_t* a2a_arrive(char* ws, int src, int b) {
-  return reinterpret_cast<uint64_t*>(ws + kA2aArriveOff) +
-         src * kMaxBlocks + b;
+__device__ __forceinline__ unsigned long long* summed(char* ws, int b) {
+  return reinterpret_cast<unsigned long long*>(ws + kSummedOff) + b;
 }
-__device__ __forceinline__ uint64_t* a2a_ready(char* ws, int src) {
-  return reinterpret_cast<uint64_t*>(ws + kA2aReadyOff) + src;
+__device__ __forceinline__ uint64_t* landed(char* ws, int src, int b) {
+  return reinterpret_cast<uint64_t*>(ws + kLandedOff) + src * kMaxBlocks +
+         b;
 }
-__device__ __forceinline__ uint64_t* a2a_freed(char* ws, int dst, int b) {
-  return reinterpret_cast<uint64_t*>(ws + kA2aFreedOff) +
-         dst * kMaxBlocks + b;
+__device__ __forceinline__ uint64_t* entered(char* ws, int src) {
+  return reinterpret_cast<uint64_t*>(ws + kEnteredOff) + src;
+}
+__device__ __forceinline__ uint64_t* freed(char* ws, int dst, int b) {
+  return reinterpret_cast<uint64_t*>(ws + kFreedOff) + dst * kMaxBlocks + b;
 }
 __device__ __forceinline__ float* data(char* ws) {
   return reinterpret_cast<float*>(ws + kDataOff);
@@ -178,9 +189,9 @@ __device__ __forceinline__ float* stage(const Ctx& c, char* ws, int slot) {
 }
 
 // Read by the host when a wait passes its deadline: the op, the step it
-// waited for (the all-to-all: the source rank, or kMaxRanks + the peer
-// whose release of its landing slot it waited for), the block and the
-// rank (each + 1, so that 0 means no error).
+// waited for (the all-to-all and the reduce-scatter: the source rank, or
+// kMaxRanks + the peer whose release of its landing slot it waited for),
+// the block and the rank (each + 1, so that 0 means no error).
 __device__ __forceinline__ uint64_t error_code(const Ctx& c, int step) {
   return (static_cast<uint64_t>(c.op + 1) << 48) |
          (static_cast<uint64_t>(step + 1) << 32) |
@@ -217,6 +228,15 @@ __device__ __forceinline__ bool wait_for(const Ctx& c, const uint64_t* flag,
   return __syncthreads_and(ok) != 0;
 }
 
+// A relaxed store at system scope. After a __threadfence_system() it
+// publishes as st_release does (a fence then a strong store is a release
+// pattern), without the second fence a release store makes: several
+// flags stored after one fence cost one fence.
+__device__ __forceinline__ void st_relaxed(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.sys.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
 // Publish: every thread's stores to the peer are issued before the
 // barrier; one thread then fences at system scope and stores the flag
 // with release semantics. The data is visible before the flag is.
@@ -225,6 +245,19 @@ __device__ __forceinline__ void publish(uint64_t* flag, uint64_t v) {
   if (threadIdx.x == 0) {
     __threadfence_system();
     st_release(flag, v);
+  }
+}
+
+// publish() with a relaxed flag store after the fence: the same release
+// pattern, one fence instead of two. The reduce-scatter's flags
+// (landed, freed) use it; a release store's own fence, on top of the
+// explicit one, held its flags back by some 2 us each at the main shape
+// on four H100s.
+__device__ __forceinline__ void signal(uint64_t* flag, uint64_t v) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    st_relaxed(flag, v);
   }
 }
 

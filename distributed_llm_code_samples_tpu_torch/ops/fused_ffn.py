@@ -113,20 +113,93 @@ def ffn_bwd_dx_fused(dy, w1, w2, x, *, mxu_bf16: bool = False):
     return dx
 
 
+# -- the weight-gradient kernel's plan (csrc/ffn_bwd_dw.cu) ----------------
+
+# its GEMM core (csrc/gemm_core.cuh): output tile, k-step, blocks an SM
+DW_TILE, DW_BK, DW_BLOCKS_PER_SM = 128, 16, 2
+# pass 2 splits the tokens into slices until its blocks fill at least
+# DW_WAVES waves of the card's block slots, each slice at least
+# DW_MIN_SLICE tokens long. On an H100 at the main shape (288 tiles, 264
+# slots) 4 to 16 slices ran within 2% of each other and one slice 13%
+# slower, by chip_smoke.py's ffn-dw-slices line (PERF.md).
+DW_WAVES, DW_MIN_SLICE = 4, 256
+H100_SMS = 132
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def dw_plan(t: int, d: int, ffn: int, sms: int = H100_SMS):
+    """``(S, L)``: pass 2 of the weight-gradient kernel splits the token
+    axis into S slices of L tokens (L a multiple of the k-step, the last
+    slice shorter; S = ceil(T / L)), as few as make its ``S * tiles``
+    blocks fill ``DW_WAVES`` waves of ``sms * 2`` slots, as long as each
+    slice keeps ``DW_MIN_SLICE`` tokens."""
+    tiles = 2 * (-(-ffn // DW_TILE)) * (-(-d // DW_TILE))
+    slots = sms * DW_BLOCKS_PER_SM
+    want = max(1, min(-(-DW_WAVES * slots // tiles), t // DW_MIN_SLICE))
+    length = _up(-(-t // want), DW_BK)
+    return -(-t // length), length
+
+
+def dw_slices(t: int, plan) -> list[tuple[int, int]]:
+    """The token range ``[lo, hi)`` of each slice of ``plan``, in order."""
+    s, length = plan
+    return [(i * length, min(t, (i + 1) * length)) for i in range(s)]
+
+
+def dw_scratch(t: int, d: int, ffn: int, plan) -> dict:
+    """The kernel's scratch pieces, ``{name: (shape, offset)}`` in floats
+    from the start of one buffer (each offset 16-byte aligned), and the
+    buffer's floats under ``"total"``: x and dy padded as ``[T, d4]`` and
+    transposed as ``[d, T4]``, ``w1^T`` and ``w2`` as ``[d, ffn4]``,
+    ``a`` and ``dh`` as ``[T, ffn4]`` (4-rounded rows), and, when the plan
+    has more than one slice, the partials ``[S, ffn, d]`` and
+    ``[S, d, ffn]``."""
+    t4, d4, f4 = _up(t, 4), _up(d, 4), _up(ffn, 4)
+    shapes = {"xT": (d, t4), "dyT": (d, t4), "xc": (t, d4), "dyc": (t, d4),
+              "w1T": (d, f4), "w2c": (d, f4), "a": (t, f4), "dh": (t, f4)}
+    if plan[0] > 1:
+        shapes.update(part1=(plan[0], ffn, d), part2=(plan[0], d, ffn))
+    out, off = {}, 0
+    for name, shape in shapes.items():
+        out[name] = (shape, off)
+        off += _up(_numel(shape), 4)
+    out["total"] = off
+    return out
+
+
+def _numel(shape) -> int:
+    n = 1
+    for v in shape:
+        n *= v
+    return n
+
+
 def ffn_bwd_dw_fused(dy, w1, w2, x, *, mxu_bf16: bool = False):
     """Both weight gradients ``(dw1 [ffn, d], dw2 [d, ffn])``, reduced
-    over tokens. The kernel takes two ``[T, ffn]`` f32 scratch arrays
-    (``csrc/ffn_bwd_dw.cu`` says why). CPU tensors run
-    ``ffn_bwd_dw_ref``."""
+    over tokens. The kernel's scratch (``dw_scratch``: the padded operand
+    copies, ``a`` and ``dh`` as ``[T, ffn]`` and the slices' partials) is
+    one ``torch.empty`` buffer; ``csrc/ffn_bwd_dw.cu`` says why each is
+    there. CPU tensors run ``ffn_bwd_dw_ref``."""
     t, d, ffn = _check(x, w1, w2, dy)
     if not _build.on_card(BWD_DW, x, dy, w1, w2):
         return ffn_bwd_dw_ref(dy, w1, w2, x, mxu_bf16=mxu_bf16)
     dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
-    scratch = torch.empty(2, t, ffn, dtype=torch.float32, device=x.device)
-    _launch(BWD_DW, [x.data_ptr(), dy.data_ptr(), w1.data_ptr(),
-                     w2.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-                     scratch[0].data_ptr(), scratch[1].data_ptr()],
-            t, d, ffn, mxu_bf16, x.device)
+    plan = dw_plan(t, d, ffn, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    pieces = dw_scratch(t, d, ffn, plan)
+    scratch = torch.empty(pieces.pop("total"), dtype=torch.float32,
+                          device=x.device)
+    base = scratch.data_ptr()
+    parts = [base + 4 * off for _, off in pieces.values()]
+    if plan[0] == 1:
+        parts += [0, 0]
+    _build.launch(BWD_DW, f"{BWD_DW}_launch",
+                  [x.data_ptr(), dy.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                   dw1.data_ptr(), dw2.data_ptr(), *parts],
+                  (t, d, ffn, *plan, int(bool(mxu_bf16))), x.device, BWD_DW)
     return dw1, dw2
 
 

@@ -70,10 +70,18 @@ _MAX_BLOCKS = 64
 # a block of its own: (2n - 1) * A2A_RANGES blocks a rank
 A2A_RANGES = 32
 _A2A_FLOATS_PER_RANGE = 4096
-# a loopback all-to-all is one cooperative launch of n * (2n - 1) *
-# ranges blocks, all resident at once: at most one a streaming
-# multiprocessor
+# the reduce-scatter's ranges a chunk (at most): a range is pushed to each
+# peer by a block of its own, and every block then sums an n-th of its
+# range: n * RS_RANGES blocks a rank
+RS_RANGES = 32
+_RS_FLOATS_PER_RANGE = 4096
+# a loopback all-to-all or reduce-scatter is one cooperative launch of
+# n * (2n - 1) * ranges or n * n * ranges blocks, all resident at once:
+# at most one a streaming multiprocessor
 _LOOPBACK_BLOCKS = 128
+# the ops whose chunks land in the two regions in turn (csrc/
+# ring_collectives.cu); the ring kernels store into both regions
+REGION_OPS = (ALL_TO_ALL, REDUCE_SCATTER)
 # how long a kernel waits for a neighbour before it gives up and leaves
 # an error code (a late neighbour is seconds behind, a lost one forever)
 WAIT_TIMEOUT_S = 30.0
@@ -115,7 +123,7 @@ def describe_error(code: int) -> str:
     names = {v: k for k, v in _OPS.items()}
     if step < 0:
         where = "the entry barrier"
-    elif op != _OPS[ALL_TO_ALL]:
+    elif op not in (_OPS[ALL_TO_ALL], _OPS[REDUCE_SCATTER]):
         where = f"step {step}"
     elif step < _MAX_RANKS:
         where = f"rank {step}'s chunk"
@@ -165,11 +173,12 @@ class PeerWorkspace:
                              f"to {_MAX_RANKS}")
         self.rank = None if self.loopback else dist.get_rank(group)
         self.epoch = 0
-        # the all-to-all's landing regions: calls so far, the epoch and the
-        # ranges a chunk of the last call that used each region, and the
-        # op of the last call
-        self.a2a_calls = 0
-        self.a2a_last = [(0, 0), (0, 0)]
+        # the landing regions of the all-to-all and the reduce-scatter
+        # (REGION_OPS): their calls so far, the epoch and the ranges a
+        # chunk of the last call that used each region, and the op of the
+        # last call
+        self.region_calls = 0
+        self.region_last = [(0, 0), (0, 0)]
         self.last_op: Optional[str] = None
         self._own: list[int] = []      # cudaMalloc'd here
         self._opened: list[int] = []   # mapped from a peer's handle
@@ -340,6 +349,30 @@ def _a2a_ranges(chunk: int, n: int, loopback: bool) -> int:
     return max(1, min(A2A_RANGES, cap, -(-chunk // _A2A_FLOATS_PER_RANGE)))
 
 
+def _rs_ranges(chunk: int, n: int, loopback: bool) -> int:
+    """Ranges a chunk of the reduce-scatter splits into (n * ranges blocks
+    a rank)."""
+    cap = _MAX_BLOCKS
+    if loopback:
+        cap = min(cap, _LOOPBACK_BLOCKS // (n * n))
+    return max(1, min(RS_RANGES, cap, -(-chunk // _RS_FLOATS_PER_RANGE)))
+
+
+def region_plan(op: str, last_op: Optional[str], calls: int, last):
+    """Where a call of ``op`` lands, from the calls before it on its
+    workspace: ``(region, prev, barrier)``. An op of ``REGION_OPS`` takes
+    region ``calls % 2`` (``calls``: the ``REGION_OPS`` calls so far),
+    whose last user's ``(epoch, ranges)`` is ``prev = last[region]``
+    (``(0, 0)``: none), and opens with the all-peer barrier after a ring
+    call (``last_op`` in neither ``REGION_OPS`` nor None). A ring call
+    gets ``(0, (0, 0), 0)``: it has its own neighbour barrier."""
+    if op not in REGION_OPS:
+        return 0, (0, 0), 0
+    region = calls % 2
+    return region, tuple(last[region]), int(last_op not in
+                                            (None,) + REGION_OPS)
+
+
 def _out_shape(op: str, shape, n: int):
     if op == REDUCE_SCATTER:
         return (shape[0] // n,) + tuple(shape[1:])
@@ -367,25 +400,23 @@ def _launch(op: str, ins, outs, ws: PeerWorkspace, rank: int) -> None:
         *[t.data_ptr() for t in ts])
     stream = torch.cuda.current_stream(ws.device).cuda_stream
     epoch = ws.next_epoch()
-    prev, region, barrier = (0, 0), 0, 0
     if op == ALL_TO_ALL:
-        # the landing region alternates from call to call; the call that
-        # follows another collective opens with the all-peer barrier
         nblk = _a2a_ranges(chunk, n, rank < 0)
-        region = ws.a2a_calls % 2
-        prev = ws.a2a_last[region]
-        barrier = int(ws.last_op not in (None, ALL_TO_ALL))
+    elif op == REDUCE_SCATTER:
+        nblk = _rs_ranges(chunk, n, rank < 0)
     else:
         nblk = _blocks(chunk)
+    region, prev, barrier = region_plan(op, ws.last_op, ws.region_calls,
+                                        ws.region_last)
     rc = _lib().ring_launch(
         ws.index, _OPS[op], ws._table, as_table(ins), as_table(outs), n,
         rank, chunk, ws.stage_off, epoch, int(WAIT_TIMEOUT_S * 1e9), nblk,
         vec, *prev, region, barrier, stream)
     if rc != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
-    if op == ALL_TO_ALL:
-        ws.a2a_last[region] = (epoch, nblk)
-        ws.a2a_calls += 1
+    if op in REGION_OPS:
+        ws.region_last[region] = (epoch, nblk)
+        ws.region_calls += 1
     ws.last_op = op
     _build.count_launch(op)
 
@@ -423,11 +454,13 @@ def loopback(op: str, xs, ws: PeerWorkspace) -> list:
 
 
 def workspace_bytes(op: str, x: torch.Tensor, n: int) -> int:
-    """The workspace a call of ``op`` on ``x`` over n ranks needs: the
-    data region holds the gathered tensor (all-gather, all-reduce), the
-    hop's block, the all-to-all's incoming chunks (a chunk slot for each
-    rank; the staging slots, as large, hold them in every other call),
-    or the reduce-scatter's n-1 staging chunks."""
+    """The workspace a call of ``op`` on ``x`` over n ranks needs (its
+    ``capacity``: the data region and the staging slots have as much
+    each): the data region holds the gathered tensor (all-gather,
+    all-reduce), the hop's block, or the incoming chunks of the all-to-all
+    (a chunk slot for each rank) and of the reduce-scatter (n-1 chunk
+    slots), which land in the data region and the staging slots in
+    turn."""
     nbytes = x.numel() * x.element_size()
     return {HOP: nbytes, ALL_REDUCE: nbytes, ALL_GATHER: n * nbytes,
             ALL_TO_ALL: nbytes, REDUCE_SCATTER: (n - 1) * nbytes // n}[op]
@@ -505,9 +538,12 @@ A2A_PHASES = ("entry", "start", "pushed", "arrived", "released")
 
 
 def traced(call, device) -> torch.Tensor:
-    """Run ``call()`` (one all-to-all launch on ``device``) with the
-    kernel's trace on: returns ``[blocks, len(A2A_PHASES)]`` int64
-    %globaltimer stamps in ns (0 where a block has no such phase)."""
+    """Run ``call()`` (one all-to-all or reduce-scatter launch on
+    ``device``) with the kernel's trace on: returns ``[blocks,
+    len(A2A_PHASES)]`` int64 %globaltimer stamps in ns (0 where a block
+    has no such phase; every block of the reduce-scatter sums, so each
+    stamps "arrived" and "released", and its pushing blocks also "start"
+    and "pushed")."""
     device = torch.device(device)
     lib = _lib()
     index = (device.index if device.index is not None

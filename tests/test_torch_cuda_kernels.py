@@ -1,6 +1,7 @@
 """The CUDA kernels of the LM trainer's path (flash attention forward and
-backward; the fused head's statistics and backward), the ring kernels
-and the all-to-all against their plain versions, on the card. Every
+backward; the fused head's statistics and backward), the FFN
+weight-gradient kernel, the ring kernels and the all-to-all against
+their plain versions, on the card. Every
 test here needs a CUDA device with nvcc and skips without one. The file
 imports no JAX, so it runs where the card is:
 
@@ -14,11 +15,15 @@ bf16 operands (an f32-level difference can flip one bf16 rounding); a
 repeat on the same inputs is bit-identical.
 """
 
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from distributed_llm_code_samples_tpu_torch.ops import _build
+from distributed_llm_code_samples_tpu_torch.ops import fused_ffn as p_ff
 from distributed_llm_code_samples_tpu_torch.ops import fused_xent as p_fx
 from distributed_llm_code_samples_tpu_torch.ops.flash_attention import (
     flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
@@ -118,6 +123,17 @@ def test_head_bwd_kernels_match_plain(card, shape, mxu_bf16):
           mxu_bf16)
 
 
+@pytest.mark.cuda
+def test_head_bwd_bits_unchanged_by_the_shared_core(card):
+    """The head backward's bits equal those its build gave before its
+    GEMM core moved into csrc/gemm_core.cuh: chip_smoke.py's stored
+    digest of one small call in each operand mode."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    assert chip_smoke.head_bits_digest(torch, np, p_fx) == \
+        chip_smoke.HEAD_BITS_SHA256
+
+
 # the backward's ragged cases: N and V that no 128-wide tile divides, a
 # prime V of one chunk and a prime V of three (past the 8192-column
 # chunk), d not a multiple of 4 (the padded operand copies)
@@ -148,6 +164,29 @@ def test_head_bwd_kernel_ragged_and_bit_equal(card, shape, mxu_bf16):
             assert err <= 1e-4 * float(w64.abs().max()), err
 
 
+# the weight-gradient kernel (T, d, ffn): chip_smoke.py's FFN_SHAPES
+# (the main path's shape, then two ragged ones) and one with no dim a
+# multiple of 4 (the padded operand copies)
+DW_SHAPES = ((8192, 768, 3072), (1000, 200, 520), (24, 40, 72),
+             (1001, 13, 9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [False, True])
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_ffn_bwd_dw_kernel_matches_plain(card, shape, mxu_bf16):
+    t, d, f = shape
+    rng = np.random.default_rng(t + d)
+    w1, w2 = normal(rng, f, d, scale=0.02), normal(rng, d, f, scale=0.02)
+    x, dy = normal(rng, t, d), normal(rng, t, d, scale=0.1)
+    kw = dict(mxu_bf16=mxu_bf16)
+    before = _build.launch_counts().get(p_ff.BWD_DW, 0)
+    got = p_ff.ffn_bwd_dw_fused(dy, w1, w2, x, **kw)
+    again = p_ff.ffn_bwd_dw_fused(dy, w1, w2, x, **kw)
+    assert _build.launch_counts()[p_ff.BWD_DW] == before + 2
+    agree(got, again, p_ff.ffn_bwd_dw_ref(dy, w1, w2, x, **kw), mxu_bf16)
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     q, k, v, _ = flash_case((2, 16, 16, 80))
@@ -168,12 +207,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
 # n virtual ranks on one card: n workspaces, one cooperative launch. The
 # hop and the gather are copies and the sums run in the plain version's
 # ring order, so kernel and plain agree bit for bit. Shapes: a slice one
-# (f32 rows of 768 floats, the 16-byte path) and a ragged one (chunks of
-# 105 floats, the scalar path).
+# (f32 rows of 768 floats, the 16-byte path), a ragged one (chunks of
+# 105 floats, the scalar path) and one whose odd chunk of 25025 floats
+# the reduce-scatter splits into several ranges (the scalar path).
 
 RING_OPS = ("ppermute_dma", "ring_all_reduce", "ring_reduce_scatter",
             "ring_all_gather")
-RING_SHAPES = {"slice": (256, 768), "ragged": (7, 5, 3)}
+RING_SHAPES = {"slice": (256, 768), "ragged": (7, 5, 3),
+               "ranged": (25, 1001)}
 
 
 def ring_inputs(op, n, shape):
@@ -218,6 +259,79 @@ def test_ring_wait_gives_up_and_raises(card, monkeypatch):
         ring._launch(ring.HOP, [x], [torch.empty_like(x)], ws, 0)
         with pytest.raises(RuntimeError, match="rank 0 block 0 gave up "
                                                "waiting at the entry"):
+            ws.check()
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_ops_in_sequence_on_one_workspace(card, n):
+    """One workspace through all-gather, reduce-scatter, reduce-scatter,
+    all-reduce, all-to-all, reduce-scatter, all-gather (the landing
+    regions in turn, the entry barrier after each ring call, chunks of
+    changing size), twice: every output bit-identical to its plain
+    version."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    rng = np.random.default_rng(40 + n)
+    seq = ((ring.ALL_GATHER, (6, 33)), (ring.REDUCE_SCATTER, (n * 64, 48)),
+           (ring.REDUCE_SCATTER, (n * 5, 7)), (ring.ALL_REDUCE, (n * 4, 33)),
+           (ring.ALL_TO_ALL, (n * 3, 101)),
+           (ring.REDUCE_SCATTER, (n * 256, 768)),
+           (ring.ALL_GATHER, (256, 768)))
+    ws = ring.PeerWorkspace(4 * n * 256 * 768, "cuda", n=n)
+    try:
+        for i, (op, shape) in enumerate(seq + seq):
+            xs = [normal(rng, *shape) for _ in range(n)]
+            got = ring.loopback(op, xs, ws)
+            for g, w in zip(got, ring.loopback_ref(op, xs)):
+                assert torch.equal(g, w), (i, op)
+        assert ws.region_calls == 8
+        ws.check()
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+def test_rs_wait_gives_up_and_raises(card, monkeypatch):
+    """A rank whose peer never enters the reduce-scatter waits to its
+    deadline, leaves its error word, and the check raises: for the
+    peer's chunk (on a fresh workspace), at the entry barrier (after a
+    ring call), and for the peer's release of the region of the call
+    before last."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    monkeypatch.setattr(ring, "WAIT_TIMEOUT_S", 0.2)
+    x = torch.ones(8, device="cuda")
+    y = torch.empty(4, device="cuda")
+    # every block of the rank waits for rank 1's chunk (each sums a part of
+    # it), and every block waits at the barrier: any may leave its code
+    for where, setup in (("rank 1's chunk", {}),
+                         ("the entry barrier", {"last_op": ring.ALL_REDUCE})):
+        ws = ring.PeerWorkspace(1024, "cuda", n=2)
+        try:
+            for key, value in setup.items():
+                setattr(ws, key, value)
+            ring._launch(ring.REDUCE_SCATTER, [x], [y], ws, 0)
+            with pytest.raises(RuntimeError, match="ring_reduce_scatter rank "
+                                                   r"0 block \d gave up "
+                                                   f"waiting at {where}"):
+                ws.check()
+        finally:
+            ws.close()
+    # rank 1 enters call 5 with nothing to wait for and pushes its chunk
+    # (it then waits in vain for rank 0's); rank 0 enters the same call
+    # with its region last used in call 3, which rank 1 never released:
+    # rank 0's pushing block (block 0) waits to its deadline
+    ws = ring.PeerWorkspace(1024, "cuda", n=2)
+    try:
+        ws.epoch = 4
+        ring._launch(ring.REDUCE_SCATTER, [x], [y], ws, 1)
+        ws.epoch, ws.region_calls, ws.region_last = 4, 2, [(3, 1), (4, 1)]
+        ring._launch(ring.REDUCE_SCATTER, [x], [y.clone()], ws, 0)
+        with pytest.raises(RuntimeError, match="ring_reduce_scatter rank 0 "
+                                               "block 0 gave up waiting at "
+                                               "rank 1's release of its "
+                                               "landing slot"):
             ws.check()
     finally:
         ws.close()
@@ -334,7 +448,7 @@ def test_a2a_wait_gives_up_and_raises(card, monkeypatch):
     try:
         ws.epoch = 4
         ring._launch(ring.ALL_TO_ALL, [x], [torch.empty_like(x)], ws, 1)
-        ws.epoch, ws.a2a_calls, ws.a2a_last = 4, 2, [(3, 1), (4, 1)]
+        ws.epoch, ws.region_calls, ws.region_last = 4, 2, [(3, 1), (4, 1)]
         ring._launch(ring.ALL_TO_ALL, [x], [torch.empty_like(x)], ws, 0)
         with pytest.raises(RuntimeError, match="all_to_all_dma rank 0 block "
                                                "1 gave up waiting at rank "

@@ -1,0 +1,236 @@
+"""The reduce-scatter kernel's plan on the CPU (``ops/ring.py``): the
+order its receivers sum in, the landing regions it shares with the
+all-to-all, and the workspace it needs.
+
+The kernel (``csrc/ring_collectives.cu``, ``ring_reduce_scatter_kernel``)
+cannot run here, so ``_receiver_model`` writes out what it does: every
+peer j pushes range b of its chunk r into rank r's landing slot
+``(j - r) % n - 1``, and each of rank r's n summing blocks of range b
+adds, over its n-th of the range, slot 0, slot 1, ... left to right and
+its own chunk last. It must give the plain
+ring's bits (``loopback_ref``) and, at n = 4, those of the JAX package's
+Pallas ``ring_reduce_scatter`` in interpret mode on the conftest
+``mesh4``. No tolerance: the same f32 pairs are added in the same order.
+"""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from distributed_llm_code_samples_tpu.ops import pallas_ring as jr
+from distributed_llm_code_samples_tpu.parallel import DATA_AXIS
+from distributed_llm_code_samples_tpu_torch.ops import ring
+
+OPS = (ring.HOP, ring.ALL_REDUCE, ring.REDUCE_SCATTER, ring.ALL_GATHER,
+       ring.ALL_TO_ALL)
+# per-rank input shapes: rows of 768 floats (the kernel's 16-byte path,
+# several ranges a chunk) and chunks of 105 floats (the scalar path)
+SHAPES = {"vectorised": (8, 768), "ragged": (7, 5, 3)}
+
+
+def _ranges(length: int, parts: int, start: int = 0):
+    """The kernel's split of ``[start, start + length)`` into ``parts``
+    (a chunk into ranges, ``set_range``; a range into the n parts its
+    blocks sum): a multiple of 4 floats a part, the last ones shorter or
+    empty."""
+    per = -(-(-(-length // parts)) // 4) * 4
+    end = start + length
+    return [(min(end, start + b * per), min(end, start + b * per + per))
+            for b in range(parts)]
+
+
+def _receiver_model(xs, loopback: bool):
+    """Each rank's output as the kernel forms it, range by range, from
+    the slots its peers pushed."""
+    n = len(xs)
+    parts = [x.contiguous().reshape(n, -1) for x in xs]
+    chunk = parts[0].shape[1]
+    outs = []
+    for r in range(n):
+        # slot k - 1 of rank r's region: the chunk of the k-th rank after r
+        slots = [None] * (n - 1)
+        for j in range(n):
+            if j != r:
+                slots[(j - r) % n - 1] = parts[j][r]
+        y = torch.empty(chunk)
+        for lo, hi in _ranges(chunk, ring._rs_ranges(chunk, n, loopback)):
+            # n blocks sum a range, each its n-th, each element in order
+            for a, z in _ranges(hi - lo, n, lo):
+                acc = slots[0][a:z].clone()
+                for k in range(1, n - 1):
+                    acc = slots[k][a:z] + acc
+                y[a:z] = parts[r][r][a:z] + acc
+        outs.append(y.reshape((xs[0].shape[0] // n,) + xs[0].shape[1:]))
+    return outs
+
+
+def _inputs(n, shape, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(n * shape[0],) + shape[1:])
+                             .astype(np.float32)) for _ in range(n)]
+
+
+@pytest.mark.parametrize("loopback", [False, True])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_receiver_order_equals_the_plain_ring(n, shape, loopback):
+    xs = _inputs(n, SHAPES[shape], 10 * n)
+    if shape == "vectorised":
+        chunk = xs[0].numel() // n
+        assert ring._rs_ranges(chunk, n, loopback) > 1
+    for got, want in zip(_receiver_model(xs, loopback),
+                         ring.loopback_ref(ring.REDUCE_SCATTER, xs)):
+        assert got.shape == want.shape
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_receiver_order_equals_the_pallas_ring(mesh4, shape):
+    n = 4
+    xs = _inputs(n, SHAPES[shape], 7)
+    fn = functools.partial(jr.ring_reduce_scatter, axis_name=DATA_AXIS,
+                           interpret=True)
+    f = jax.shard_map(fn, mesh=mesh4, in_specs=P(DATA_AXIS),
+                      out_specs=P(DATA_AXIS), check_vma=False)
+    want = np.asarray(f(np.concatenate([x.numpy() for x in xs])))
+    want = want.reshape((n, -1) + want.shape[1:])
+    for r, got in enumerate(_receiver_model(xs, loopback=False)):
+        np.testing.assert_array_equal(got.numpy(), want[r])
+
+
+def _fold(ops):
+    """``region_plan`` over a call sequence, as ``ops/ring.py``'s launch
+    keeps the bookkeeping: each call's ``(region, prev, barrier)``."""
+    last_op, calls, last, plans = None, 0, [(0, 0), (0, 0)], []
+    for epoch, op in enumerate(ops, start=1):
+        plan = ring.region_plan(op, last_op, calls, last)
+        plans.append(plan)
+        if op in ring.REGION_OPS:
+            last[plan[0]] = (epoch, 10 + epoch)   # (epoch, ranges)
+            calls += 1
+        last_op = op
+    return plans
+
+
+def _expected(ops):
+    """The rule written out: a ring call plans nothing; an all-to-all or
+    reduce-scatter lands in the other region than the one before it of
+    those two ops, waits for the releases of the last call that used its
+    region, and opens with the barrier right after a ring call."""
+    out, used = [], []
+    for i, op in enumerate(ops):
+        if op not in (ring.ALL_TO_ALL, ring.REDUCE_SCATTER):
+            out.append((0, (0, 0), 0))
+            continue
+        region = 0 if not used else 1 - used[-1][1]
+        prev = next(((e, 10 + e) for e, reg in reversed(used)
+                     if reg == region), (0, 0))
+        ring_before = i > 0 and ops[i - 1] not in (ring.ALL_TO_ALL,
+                                                   ring.REDUCE_SCATTER)
+        out.append((region, prev, int(ring_before)))
+        used.append((i + 1, region))
+    return out
+
+
+# FSDP's step (two gathers, two scatters a layer), the card test's
+# mixed sequence, and runs of one op
+SEQUENCES = {
+    "fsdp": [ring.HOP] + [ring.ALL_GATHER] * 4 + [
+        ring.ALL_GATHER, ring.ALL_GATHER, ring.REDUCE_SCATTER,
+        ring.REDUCE_SCATTER] * 3,
+    "mixed": [ring.ALL_GATHER, ring.REDUCE_SCATTER, ring.REDUCE_SCATTER,
+              ring.ALL_REDUCE, ring.ALL_TO_ALL, ring.REDUCE_SCATTER,
+              ring.ALL_GATHER],
+    "scatters": [ring.REDUCE_SCATTER] * 5,
+    "exchanges": [ring.ALL_TO_ALL, ring.REDUCE_SCATTER] * 3,
+}
+
+
+@pytest.mark.parametrize("name", sorted(SEQUENCES))
+def test_region_plan_of_named_sequences(name):
+    ops = SEQUENCES[name]
+    assert _fold(ops) == _expected(ops)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_region_plan_of_random_sequences(seed):
+    rng = np.random.default_rng(seed)
+    ops = [OPS[i] for i in rng.integers(0, len(OPS), size=40)]
+    plans = _fold(ops)
+    assert plans == _expected(ops)
+    # no region op stores into a region whose last user it has not
+    # waited for: prev is exactly the last call in that region
+    for i, (op, (region, prev, _)) in enumerate(zip(ops, plans)):
+        if op in ring.REGION_OPS and prev != (0, 0):
+            e = prev[0]
+            assert plans[e - 1][0] == region and ops[e - 1] in ring.REGION_OPS
+            assert not any(ops[k] in ring.REGION_OPS
+                           and plans[k][0] == region for k in range(e, i))
+
+
+def test_region_plan_of_a_fresh_workspace():
+    for op in ring.REGION_OPS:
+        assert ring.region_plan(op, None, 0, [(0, 0), (0, 0)]) == \
+            (0, (0, 0), 0)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_workspace_bytes(n):
+    x = torch.empty(n * 6, 5)
+    nbytes = 4 * x.numel()
+    assert ring.workspace_bytes(ring.HOP, x, n) == nbytes
+    assert ring.workspace_bytes(ring.ALL_REDUCE, x, n) == nbytes
+    assert ring.workspace_bytes(ring.ALL_GATHER, x, n) == n * nbytes
+    assert ring.workspace_bytes(ring.ALL_TO_ALL, x, n) == nbytes
+    # the reduce-scatter's n - 1 chunk slots, in either region
+    chunk = x.numel() // n
+    assert ring.workspace_bytes(ring.REDUCE_SCATTER, x, n) == \
+        4 * (n - 1) * chunk
+
+
+def test_fsdp_workspace_is_sized_once():
+    """FSDP opens its ring with room for one gathered layer weight
+    (``train_fsdp``: ``mesh.ring(4 * w1[0].numel())``); every call of its
+    step fits that, so no step reopens it."""
+    n, d, ffn = 4, 768, 3072
+    room = 4 * ffn * d
+    for op, shape in ((ring.ALL_GATHER, (ffn // n, d)),
+                      (ring.ALL_GATHER, (d // n, ffn)),
+                      (ring.REDUCE_SCATTER, (ffn, d)),
+                      (ring.REDUCE_SCATTER, (d, ffn)),
+                      (ring.HOP, (1,))):
+        assert ring.workspace_bytes(op, torch.empty(shape), n) <= room
+
+
+@pytest.mark.parametrize("n,loopback,want", [(4, False, 32), (4, True, 8),
+                                             (2, True, 32), (3, True, 14),
+                                             (8, False, 32)])
+def test_reduce_scatter_ranges(n, loopback, want):
+    # the main path's chunk (dw1 [3072, 768] over 4 ranks) and the cap
+    # that keeps a loopback launch resident
+    chunk = 3072 * 768 // 4
+    got = ring._rs_ranges(chunk, n, loopback)
+    assert got == want and got <= ring._MAX_BLOCKS
+    if loopback:
+        assert n * n * got <= ring._LOOPBACK_BLOCKS
+    assert ring._rs_ranges(105, n, loopback) == 1
+
+
+def test_error_word_decodes_the_reduce_scatter_waits():
+    op = 1 + ring._OPS[ring.REDUCE_SCATTER]
+
+    def code(step, block, rank):
+        return (op << 48) | ((step + 1) << 32) | ((block + 1) << 16) | (
+            rank + 1)
+
+    assert ring.describe_error(code(3, 5, 2)) == (
+        "ring_reduce_scatter rank 2 block 5 gave up waiting at rank 3's "
+        "chunk")
+    assert ring.describe_error(code(ring._MAX_RANKS + 1, 0, 0)) == (
+        "ring_reduce_scatter rank 0 block 0 gave up waiting at rank 1's "
+        "release of its landing slot")
+    assert ring.describe_error(code(-1, 7, 1)).endswith("the entry barrier")
