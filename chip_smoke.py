@@ -53,8 +53,10 @@ paths:
 It fails (exit code 1) if there is no CUDA device, if a kernel does not
 build, launch or agree, if a kernel path did not go through its
 kernels, if the head backward's bits differ from those its build gave
-before its GEMM core moved into ``csrc/gemm_core.cuh`` (a stored
-digest), or if the served tokens or the trained weights are wrong.
+before its GEMM core moved into ``csrc/gemm_core.cuh`` or the FFN
+weight gradients' from those before their passes moved into
+``csrc/ffn_gemm.cuh`` (stored digests), or if the served tokens or the
+trained weights are wrong.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
@@ -67,6 +69,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -100,9 +103,11 @@ FFN_SHAPES = (("main", TRAIN["tokens"], TRAIN["d_model"], FFN_DIM),
 # terms in another order than cuBLAS. bf16 operands: an f32-level
 # difference in h can flip one bf16 rounding of a or dh.
 FFN_TOL = {False: 1e-4, True: 2e-3}
-# token slices of the weight-gradient kernel's pass 2 (ops/fused_ffn.py
-# dw_plan), timed at the main shape in f32
+# slices of the FFN kernels' pass 2, timed at the main shape in f32: the
+# weight gradients' token axis (ops/fused_ffn.py dw_plan), the forward's
+# and the input gradient's ffn axis (out_plan)
 DW_SLICE_SWEEP = (1, 2, 4, 8, 9, 11, 12, 16)
+OUT_SLICE_SWEEP = (1, 2, 3, 4, 6, 8, 12)
 FFN_KERNELS = (("ffn_fwd", 4, "ops/pallas_ffn.py:129"),
                ("ffn_bwd_dx", 6, "ops/pallas_ffn.py:190"),
                ("ffn_bwd_dw", 8, "ops/pallas_ffn.py:250"))
@@ -180,6 +185,19 @@ LM_LOSS_TOL = 1e-5
 # change one bit (tests/test_torch_cuda_kernels.py checks it too).
 HEAD_BITS_SHA256 = (
     "974dab8abf840cd5e8d2d97d47b3923a3a9e28519c68237878b4f85754883daa")
+# The weight-gradient kernel's bits from before it moved onto the passes
+# it shares with the forward and the input gradient (csrc/ffn_gemm.cuh):
+# ffn_dw_bits_digest on the previous build of ffn_bwd_dw.cu, on an NVIDIA
+# H100 80GB HBM3. The move must not change one bit.
+FFN_DW_BITS_SHA256 = (
+    "ffdac082593112373c6865e0dc12449ebe1d9ccca14d6c44bfe14e5b7007f4c7")
+# the passes of the three FFN kernels (csrc/ffn_gemm.cuh) by the names of
+# their kernels in a profile: the template's tag names the FFN kernel
+FFN_PASS = re.compile(
+    r"(gemm_prep|hidden|slice|reduce)_kernel<ffn_gemm::(fwd|dx|dw)\b")
+FFN_PASS_NAMES = {"gemm_prep": "copies", "hidden": "pass1",
+                  "slice": "pass2", "reduce": "reduce"}
+FFN_TAGS = {"fwd": "ffn_fwd", "dx": "ffn_bwd_dx", "dw": "ffn_bwd_dw"}
 
 
 def card_line() -> str:
@@ -405,6 +423,25 @@ def profile_summary(prof, wall_ms):
                     for t, k, c in per[:10]]}
 
 
+def ffn_passes(prof):
+    """Device ms and launches of each FFN kernel's passes in a traced run
+    (``FFN_PASS``), and each kernel's share of the three's device time."""
+    out = {}
+    for e in prof.key_averages():
+        m = FFN_PASS.search(e.key)
+        if m is None or getattr(e.device_type, "name",
+                                str(e.device_type)) == "CPU":
+            continue
+        row = out.setdefault(FFN_TAGS[m[2]], {}).setdefault(
+            FFN_PASS_NAMES[m[1]], {"ms": 0.0, "calls": 0})
+        row["ms"] += e.device_time_total / 1e3
+        row["calls"] += e.count
+    ms = {k: sum(p["ms"] for p in v.values()) for k, v in out.items()}
+    for k, v in out.items():
+        v["ms"], v["share"] = ms[k], ms[k] / sum(ms.values())
+    return out
+
+
 def serving_phase(torch, np, card):
     from distributed_llm_code_samples_tpu_torch.decode import (DecodeEngine,
                                                                EngineConfig)
@@ -594,37 +631,70 @@ def ffn_kernel_phase(torch, np, timer):
                 results.append(row)
                 print("ffn-kernel-case " + json.dumps(row), flush=True)
         if shape == "main":
-            print("ffn-dw-slices " + json.dumps(dict(
-                shape=shape, plan=list(ff.dw_plan(t, d, f)),
-                ms=dw_slice_sweep(torch, timer, ff, dy, w1, w2, x))),
-                flush=True)
+            for name, tag, attr, depth, counts in (
+                    ("ffn_fwd", "fwd", "out_plan", f, OUT_SLICE_SWEEP),
+                    ("ffn_bwd_dx", "dx", "out_plan", f, OUT_SLICE_SWEEP),
+                    ("ffn_bwd_dw", "dw", "dw_plan", t, DW_SLICE_SWEEP)):
+                print(f"ffn-{tag}-slices " + json.dumps(dict(
+                    shape=shape, plan=list(getattr(ff, attr)(t, d, f)),
+                    ms=slice_sweep(torch, timer, ff, attr, depth, counts,
+                                   partial(fns[name][0], dy, w1, w2, x),
+                                   partial(fns[name][1], dy, w1, w2, x)))),
+                    flush=True)
         del w1, w2, x, dy
+    digest = ffn_dw_bits_digest(torch, np, ff)
+    row = dict(kernel="ffn_bwd_dw", shape="bits", mxu_bf16=None,
+               sha256=digest, want=FFN_DW_BITS_SHA256, max_abs_err=0.0,
+               rel_err=0.0, ok=digest == FFN_DW_BITS_SHA256)
+    print("ffn-dw-bits " + json.dumps(row), flush=True)
+    results.append(row)
     return results
 
 
-def dw_slice_sweep(torch, timer, ff, dy, w1, w2, x):
-    """``{slices: {ms, rel_err}}`` of the f32 weight-gradient kernel with
-    its token axis cut into each count of ``DW_SLICE_SWEEP`` (``dw_plan``
-    replaced for the run; restored after), each run first held to
-    ``FFN_TOL`` against the plain version."""
-    t = x.shape[0]
-    want = ff.ffn_bwd_dw_ref(dy, w1, w2, x)
+def slice_sweep(torch, timer, ff, attr, depth, counts, kern, plain):
+    """``{slices: {ms, rel_err}}`` of an f32 FFN kernel ``kern`` with its
+    pass 2's depth cut into each of ``counts`` slices (its plan function
+    ``ff.<attr>`` replaced for the run; restored after), each run first
+    held to ``FFN_TOL`` against the plain version."""
+    def tup(v):
+        return v if isinstance(v, tuple) else (v,)
+
+    want = tup(plain())
     scale = max(float(w.abs().max()) for w in want)
-    default, out = ff.dw_plan, {}
+    default, out = getattr(ff, attr), {}
     try:
-        for s in DW_SLICE_SWEEP:
-            length = -(-(-(-t // s)) // ff.DW_BK) * ff.DW_BK
-            plan = (-(-t // length), length)
-            ff.dw_plan = lambda *_, plan=plan: plan
-            got = ff.ffn_bwd_dw_fused(dy, w1, w2, x)
-            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        for s in counts:
+            length = -(-(-(-depth // s)) // ff.BK) * ff.BK
+            plan = (-(-depth // length), length)
+            setattr(ff, attr, lambda *_, plan=plan: plan)
+            err = max(float((g - w).abs().max())
+                      for g, w in zip(tup(kern()), want))
             check(err <= FFN_TOL[False] * scale,
-                  f"ffn_bwd_dw at {plan[0]} slices disagrees: {err}")
-            out[plan[0]] = dict(ms=timer.ms(partial(
-                ff.ffn_bwd_dw_fused, dy, w1, w2, x)), rel_err=err / scale)
+                  f"{attr} at {plan[0]} slices disagrees: {err}")
+            out[plan[0]] = dict(ms=timer.ms(kern), rel_err=err / scale)
     finally:
-        ff.dw_plan = default
+        setattr(ff, attr, default)
     return out
+
+
+def ffn_dw_bits_digest(torch, np, ff):
+    """sha256 over dw1 and dw2 of ``ffn_bwd_dw`` calls in each operand
+    mode, on inputs made with numpy: a ragged shape whose tokens split
+    into three slices (the partials and their ordered sum) and one with
+    no dim a multiple of 4 (the padded copies), also in three slices."""
+    import hashlib
+    rng = np.random.default_rng(2025)
+    out = hashlib.sha256()
+    for t, d, f in ((1000, 200, 520), (1001, 13, 9)):
+        w1 = (0.02 * rng.normal(size=(f, d))).astype(np.float32)
+        w2 = (0.02 * rng.normal(size=(d, f))).astype(np.float32)
+        x = rng.normal(size=(t, d)).astype(np.float32)
+        dy = (0.1 * rng.normal(size=(t, d))).astype(np.float32)
+        args = [torch.from_numpy(a).cuda() for a in (dy, w1, w2, x)]
+        for mxu_bf16 in (False, True):
+            for g in ff.ffn_bwd_dw_fused(*args, mxu_bf16=mxu_bf16):
+                out.update(g.cpu().numpy().tobytes())
+    return out.hexdigest()
 
 
 # -- training phase ----------------------------------------------------------
@@ -849,6 +919,7 @@ def train_phase(torch, np, card):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     print("train-profile " + json.dumps(dict(profile_summary(prof, wall_ms),
+                                             ffn_passes=ffn_passes(prof),
                                              card=card)), flush=True)
     return launches
 

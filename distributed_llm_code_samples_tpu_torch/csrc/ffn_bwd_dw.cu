@@ -14,26 +14,26 @@
 //
 // Design: four products on the GEMM core of gemm_core.cuh (a 128 x 128
 // tile a block of 256 threads, 8 x 8 sums a thread, a 3-deep ring of
-// 16-byte cp.async; two blocks an SM), in four launches:
+// 16-byte cp.async; two blocks an SM), in the passes of ffn_gemm.cuh:
 //   prep: x and dy copied as [T][d4] and [d][T4], w1 as [d][ffn4] and w2
 //     as [d][ffn4] (d4, T4, ffn4: rounded up to 4; zero padded; rounded
 //     to bf16 with mxu_bf16), so that every operand of every product is
 //     a row-major [K][M] or [K][N] array read as 16-byte vectors;
-//   pass 1 (ffn_dw_hidden_kernel): a block owns a [128 tokens x 128 ffn]
-//     tile; it sums h over d, writes a = relu(h) to a [T][ffn4] scratch
-//     and keeps only h's 64 mask bits a thread, then sums da = dy w2 over
-//     d in the same registers and writes dh = mask ? da : 0 to a second
-//     [T][ffn4] scratch (2 x 4 x T x ffn bytes written and read once,
-//     0.4 GB or about 0.12 ms at 3.35 TB/s at the main shape);
-//   pass 2 (ffn_dw_gemm_kernel): dw1 = dh^T x and dw2 = dy^T a, with the
-//     token axis as the depth. Their 2 x 144 tiles at the main shape
-//     would fill 264 block slots (132 SMs x 2) 1.09 times, a second wave
-//     of 24 blocks with the card idle around it; so the token axis splits
-//     into S slices (ops/fused_ffn.py's dw_plan: the fewest that fill
-//     four waves), each block sums one tile over one slice in order, and
-//     the partials go to [S][ffn][d] and [S][d][ffn] scratch;
-//   reduce (ffn_dw_reduce_kernel, only when S > 1): each output element is
-//     the sum of its S partials in slice order.
+//   pass 1: a block owns a [128 tokens x 128 ffn] tile; it sums h over d,
+//     writes a = relu(h) to a [T][ffn4] scratch and keeps only h's 64
+//     mask bits a thread, then sums da = dy w2 over d in the same
+//     registers and writes dh = mask ? da : 0 to a second [T][ffn4]
+//     scratch (2 x 4 x T x ffn bytes written and read once, 0.4 GB or
+//     about 0.12 ms at 3.35 TB/s at the main shape);
+//   pass 2: dw1 = dh^T x and dw2 = dy^T a, with the token axis as the
+//     depth. Their 2 x 144 tiles at the main shape would fill 264 block
+//     slots (132 SMs x 2) 1.09 times, a second wave of 24 blocks with the
+//     card idle around it; so the token axis splits into S slices
+//     (ops/fused_ffn.py's dw_plan: the fewest that fill four waves), each
+//     block sums one tile over one slice in order, and the partials go to
+//     [S][ffn][d] and [S][d][ffn] scratch;
+//   reduce (only when S > 1): each output element is the sum of its S
+//     partials in slice order.
 // No atomics: every output element has one fixed order of summation (k
 // in order within a slice, then slices in order), so two calls give the
 // same bits. Ragged T, d and ffn are masked in the loads and stores.
@@ -42,165 +42,12 @@
 // every scratch piece (ops/fused_ffn.py's dw_scratch has their sizes),
 // passes the stream, and gets the first CUDA error back.
 
-#include <stdint.h>
-
-#include "gemm_core.cuh"
+#include "ffn_gemm.cuh"
 
 namespace {
 
-using gemm::bf16_round;
-using gemm::kThreads;
-using gemm::kTile;
-using gemm::quad;
 using gemm::up4;
-
-template <bool kBf16>
-__device__ __forceinline__ float op(float v) {
-  return kBf16 ? bf16_round(v) : v;
-}
-
-// acc out to rows m < T of out [T][f4] (columns < f4, 16-byte stores).
-__device__ __forceinline__ void store_hidden(float* __restrict__ out,
-                                             const float (&acc)[8][8],
-                                             int m0, int n0, int T,
-                                             long long f4) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + quad(ty, i);
-    if (m >= T) continue;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int n = n0 + quad(tx, 4 * q);
-      if (n < f4)
-        *reinterpret_cast<float4*>(out + m * f4 + n) = make_float4(
-            acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2],
-            acc[i][4 * q + 3]);
-    }
-  }
-}
-
-// Pass 1. Block b owns tokens [128 (b / tiles_f), +128) and ffn columns
-// [128 (b % tiles_f), +128). xT, dyT [d][T4]; w1T, w2c [d][ffn4]; a, dh
-// [T][ffn4].
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads, 2)
-    ffn_dw_hidden_kernel(const float* __restrict__ xT,
-                         const float* __restrict__ dyT,
-                         const float* __restrict__ w1T,
-                         const float* __restrict__ w2c, float* __restrict__ a,
-                         float* __restrict__ dh, int T, int d, int ffn) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const long long T4 = up4(T), f4 = up4(ffn);
-  const int tiles_f = static_cast<int>((f4 + kTile - 1) / kTile);
-  const int m0 = (static_cast<int>(blockIdx.x) / tiles_f) * kTile;
-  const int n0 = (static_cast<int>(blockIdx.x) % tiles_f) * kTile;
-  const int ext_t = static_cast<int>(T4), ext_f = static_cast<int>(f4);
-  float acc[8][8];
-
-  // h = x w1^T; a = relu(h) out, the mask kept as bits
-  gemm::mainloop(gemm::Operands{xT, w1T, T4, f4, ext_t, ext_f}, m0, n0, 0, d,
-                 smem, acc);
-  uint64_t mask = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float h = acc[i][j];
-      if (!(h <= 0.f)) mask |= 1ull << (8 * i + j);
-      acc[i][j] = op<kBf16>(h <= 0.f ? 0.f : h);
-    }
-  store_hidden(a, acc, m0, n0, T, f4);
-  __syncthreads();   // the operand ring is refilled below
-
-  // da = dy w2; dh = where(h <= 0, 0, da) out
-  gemm::mainloop(gemm::Operands{dyT, w2c, T4, f4, ext_t, ext_f}, m0, n0, 0,
-                 d, smem, acc);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      acc[i][j] = op<kBf16>((mask >> (8 * i + j)) & 1 ? acc[i][j] : 0.f);
-  store_hidden(dh, acc, m0, n0, T, f4);
-}
-
-// One of pass 2's products: out [M][N] (+ slice * M * N) = the sum over
-// the slice's tokens of a[t][m] * b[t][n].
-struct Product {
-  gemm::Operands op;
-  float* out;
-  int M, N, tiles_n, tiles;
-};
-
-// Block blk of product p: tile blk % tiles over slice blk / tiles, whose
-// tokens are [s L, min(T, (s + 1) L)).
-__device__ __forceinline__ void dw_tile(const Product& p, int blk, int T,
-                                        int L, float* smem) {
-  const int s = blk / p.tiles, t = blk % p.tiles;
-  const int m0 = (t / p.tiles_n) * kTile, n0 = (t % p.tiles_n) * kTile;
-  const int k0 = s * L, k1 = min(T, k0 + L);
-  float acc[8][8];
-  gemm::mainloop(p.op, m0, n0, k0, k1, smem, acc);
-  float* out = p.out + static_cast<size_t>(s) * p.M * p.N;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + quad(ty, i);
-    if (m >= p.M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + quad(tx, j);
-      if (n < p.N) out[static_cast<size_t>(m) * p.N + n] = acc[i][j];
-    }
-  }
-}
-
-// Pass 2. Blocks [0, S * p0.tiles) compute p0's tiles, slice by slice,
-// the rest p1's.
-__global__ void __launch_bounds__(kThreads, 2)
-    ffn_dw_gemm_kernel(const Product p0, const Product p1, int T, int S,
-                       int L) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int blk = static_cast<int>(blockIdx.x);
-  if (blk < S * p0.tiles)
-    dw_tile(p0, blk, T, L, smem);
-  else
-    dw_tile(p1, blk - S * p0.tiles, T, L, smem);
-}
-
-// out[i] = part[0][i] + part[1][i] + ... in slice order, for the two
-// outputs of `count` floats each (partials [S][count]).
-__global__ void ffn_dw_reduce_kernel(const float* __restrict__ part1,
-                                     const float* __restrict__ part2,
-                                     float* __restrict__ dw1,
-                                     float* __restrict__ dw2,
-                                     long long count, int S) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < 2 * count; i += stride) {
-    const bool second = i >= count;
-    const float* p = second ? part2 : part1;
-    const long long e = second ? i - count : i;
-    float acc = __ldg(p + e);
-    for (int s = 1; s < S; ++s) acc = acc + __ldg(p + s * count + e);
-    (second ? dw2 : dw1)[e] = acc;
-  }
-}
-
-Product product(const float* a, long long lda, int a_ext, const float* b,
-                long long ldb, int b_ext, float* out, int M, int N) {
-  Product p;
-  p.op = gemm::Operands{a, b, lda, ldb, a_ext, b_ext};
-  p.out = out;
-  p.M = M;
-  p.N = N;
-  p.tiles_n = (N + kTile - 1) / kTile;
-  p.tiles = ((M + kTile - 1) / kTile) * p.tiles_n;
-  return p;
-}
+using ffn_gemm::dw;
 
 template <bool kBf16>
 cudaError_t launch(const float* x, const float* dy, const float* w1,
@@ -210,29 +57,23 @@ cudaError_t launch(const float* x, const float* dy, const float* w1,
                    int d, int ffn, int S, int L, cudaStream_t st) {
   const int T4 = static_cast<int>(up4(T)), d4 = static_cast<int>(up4(d)),
             f4 = static_cast<int>(up4(ffn));
-  gemm::prep(x, T, d, xc, d4, xT, T4, kBf16, st);
-  gemm::prep(dy, T, d, dyc, d4, dyT, T4, kBf16, st);
-  gemm::prep(w1, ffn, d, nullptr, 0, w1T, f4, kBf16, st);
-  gemm::prep(w2, d, ffn, w2c, f4, nullptr, 0, kBf16, st);
+  gemm::prep<dw>(x, T, d, xc, d4, xT, T4, kBf16, st);
+  gemm::prep<dw>(dy, T, d, dyc, d4, dyT, T4, kBf16, st);
+  gemm::prep<dw>(w1, ffn, d, nullptr, 0, w1T, f4, kBf16, st);
+  gemm::prep<dw>(w2, d, ffn, w2c, f4, nullptr, 0, kBf16, st);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const int hidden = ((T4 + kTile - 1) / kTile) * ((f4 + kTile - 1) / kTile);
-  ffn_dw_hidden_kernel<kBf16><<<hidden, kThreads, gemm::kSmem, st>>>(
-      xT, dyT, w1T, w2c, a, dh, T, d, ffn);
-  e = cudaGetLastError();
+  // h = x w1^T and da = dy w2, [T][ffn4]
+  e = ffn_gemm::hidden<dw, ffn_gemm::kStoreA | ffn_gemm::kStoreDh, kBf16>(
+      ffn_gemm::Hidden{gemm::Operands{xT, w1T, T4, f4, T4, f4},
+                       gemm::Operands{dyT, w2c, T4, f4, T4, f4}, a, dh, T,
+                       f4, 0, d},
+      st);
   if (e != cudaSuccess) return e;
-  const bool split = S > 1;
-  const Product p0 = product(dh, f4, f4, xc, d4, d4, split ? part1 : dw1,
-                             ffn, d);      // dw1 [ffn, d] = dh^T x
-  const Product p1 = product(dyc, d4, d4, a, f4, f4, split ? part2 : dw2, d,
-                             ffn);         // dw2 [d, ffn] = dy^T a
-  ffn_dw_gemm_kernel<<<S * (p0.tiles + p1.tiles), kThreads, gemm::kSmem,
-                       st>>>(p0, p1, T, S, L);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || !split) return e;
-  ffn_dw_reduce_kernel<<<1024, 256, 0, st>>>(
-      part1, part2, dw1, dw2, static_cast<long long>(ffn) * d, S);
-  return cudaGetLastError();
+  return ffn_gemm::sliced<dw>(
+      ffn_gemm::product(dh, f4, f4, xc, d4, d4, ffn, d),    // dw1 = dh^T x
+      ffn_gemm::product(dyc, d4, d4, a, f4, f4, d, ffn),    // dw2 = dy^T a
+      dw1, dw2, part1, part2, T, S, L, st);
 }
 
 }  // namespace
@@ -251,9 +92,7 @@ int ffn_bwd_dw_launch(const float* x, const float* dy, const float* w1,
                       float* w2c, float* a, float* dh, float* part1,
                       float* part2, int T, int d, int ffn, int S, int L,
                       int mxu_bf16, void* stream) {
-  if (T < 1 || d < 1 || ffn < 1 || S < 1 || L < 1 ||
-      static_cast<long long>(S - 1) * L >= T ||
-      static_cast<long long>(S) * L < T)
+  if (T < 1 || d < 1 || ffn < 1 || !ffn_gemm::covers(T, S, L))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(

@@ -1,5 +1,6 @@
 // The f32 GEMM core for Hopper (sm_90a) shared by head_xent_bwd.cu and
-// ffn_bwd_dw.cu: a block's 128 x 128 output tile of
+// the three FFN kernels (through ffn_gemm.cuh): a block's 128 x 128
+// output tile of
 //   acc[m][n] = sum over k in [k0, k1), in order, of a[k][m] * b[k][n],
 // with both operands row-major [K][M] and [K][N] arrays whose rows are
 // read as 16-byte vectors, and the padded copies that put operands into
@@ -147,7 +148,9 @@ namespace {
 // src [R][C] (row-major, C contiguous) -> dst [R][ldc] (zero in columns
 // [C, ldc)) and dst_t [C][ldt] (the transpose, zero in columns [R, ldt)),
 // each value rounded to bf16 when `round`. ldc 0 (ldt 0) writes no dst
-// (dst_t). 32 x 32 tiles through shared memory; 32 x 8 threads.
+// (dst_t). 32 x 32 tiles through shared memory; 32 x 8 threads. Tag only
+// names the caller, so that a profile tells its copies apart.
+template <typename Tag>
 __global__ void gemm_prep_kernel(const float* __restrict__ src, int R,
                                  int C, float* __restrict__ dst, int ldc,
                                  float* __restrict__ dst_t, int ldt,
@@ -174,11 +177,13 @@ __global__ void gemm_prep_kernel(const float* __restrict__ src, int R,
 
 // One gemm_prep_kernel launch over src [R][C]; its grid covers the
 // padded extents of both copies (ldc columns, ldt rows).
+template <typename Tag = void>
 inline void prep(const float* src, int R, int C, float* dst, int ldc,
                  float* dst_t, int ldt, int round, cudaStream_t st) {
   const int cols = C > ldc ? C : ldc, rows = R > ldt ? R : ldt;
-  gemm_prep_kernel<<<dim3((cols + 31) / 32, (rows + 31) / 32), dim3(32, 8),
-                     0, st>>>(src, R, C, dst, ldc, dst_t, ldt, round);
+  gemm_prep_kernel<Tag><<<dim3((cols + 31) / 32, (rows + 31) / 32),
+                          dim3(32, 8), 0, st>>>(src, R, C, dst, ldc, dst_t,
+                                                ldt, round);
 }
 
 __host__ __device__ inline long long up4(long long x) {

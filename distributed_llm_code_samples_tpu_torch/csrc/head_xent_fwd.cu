@@ -17,8 +17,7 @@
 // the kernel. A block owns 32 token rows and walks the vocabulary in
 // tiles of 128 (the loop that replaces the Pallas grid's sequential
 // vocab axis), each [32 x 128] logit tile computed over d by
-// ffn_common.cuh's hidden tile (the FFN kernels' first product, with h
-// for x and w for w1). Each thread keeps its own running (max, sum of
+// ffn_common.cuh's hidden tile (with h for x). Each thread keeps its own running (max, sum of
 // exp) for its 4 rows over the columns it computes, and the 32 threads
 // of a row merge theirs once at the end, by shuffles within a warp and
 // through shared memory across warps, in a fixed order: no atomics, and
@@ -66,9 +65,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   for (int f0 = 0; f0 < V; f0 += kBF) {
-    float z[4][4], unused[4][4];
-    hidden_tile<kBf16, false>(z, unused, h, nullptr, w, nullptr, t0, f0, N,
-                              d, V, buf);
+    float z[4][4];
+    hidden_tile<kBf16>(z, h, w, t0, f0, N, d, V, buf);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = kNeg;

@@ -1,6 +1,6 @@
 """The CUDA kernels of the LM trainer's path (flash attention forward and
-backward; the fused head's statistics and backward), the FFN
-weight-gradient kernel, the ring kernels and the all-to-all against
+backward; the fused head's statistics and backward), the three FFN
+kernels, the ring kernels and the all-to-all against
 their plain versions, on the card. Every
 test here needs a CUDA device with nvcc and skips without one. The file
 imports no JAX, so it runs where the card is:
@@ -164,27 +164,82 @@ def test_head_bwd_kernel_ragged_and_bit_equal(card, shape, mxu_bf16):
             assert err <= 1e-4 * float(w64.abs().max()), err
 
 
-# the weight-gradient kernel (T, d, ffn): chip_smoke.py's FFN_SHAPES
-# (the main path's shape, then two ragged ones) and one with no dim a
-# multiple of 4 (the padded operand copies)
+# the FFN kernels (T, d, ffn): chip_smoke.py's FFN_SHAPES (the main
+# path's shape, then two ragged ones) and one with no dim a multiple of 4
+# (the padded operand copies)
 DW_SHAPES = ((8192, 768, 3072), (1000, 200, 520), (24, 40, 72),
              (1001, 13, 9))
+
+
+def ffn_case(shape):
+    t, d, f = shape
+    rng = np.random.default_rng(t + d)
+    return (normal(rng, f, d, scale=0.02), normal(rng, d, f, scale=0.02),
+            normal(rng, t, d), normal(rng, t, d, scale=0.1))
+
+
+# (count name, kernel, plain) in the backward wrappers' argument order
+FFN_FNS = {
+    "fwd": (p_ff.FWD, lambda dy, *w, **k: p_ff.ffn_fwd_fused(*w, **k),
+            lambda dy, *w, **k: p_ff.ffn_fwd_ref(*w, **k)),
+    "dx": (p_ff.BWD_DX, p_ff.ffn_bwd_dx_fused, p_ff.ffn_bwd_dx_ref)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [False, True])
+@pytest.mark.parametrize("shape", DW_SHAPES)
+@pytest.mark.parametrize("kernel", sorted(FFN_FNS))
+def test_ffn_fwd_and_dx_kernels_match_plain(card, kernel, shape, mxu_bf16):
+    name, kern, plain = FFN_FNS[kernel]
+    w1, w2, x, dy = ffn_case(shape)
+    kw = dict(mxu_bf16=mxu_bf16)
+    before = _build.launch_counts().get(name, 0)
+    got = kern(dy, w1, w2, x, **kw)
+    again = kern(dy, w1, w2, x, **kw)
+    assert _build.launch_counts()[name] == before + 2
+    agree((got,), (again,), (plain(dy, w1, w2, x, **kw),), mxu_bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(FFN_FNS))
+def test_ffn_kernels_take_weights_that_are_not_16_byte_aligned(card,
+                                                                 kernel):
+    """A contiguous view one float into its storage: the kernels read
+    their operands only through the padded copies, so any 4-byte aligned
+    weights give the same bits."""
+    _, kern, plain = FFN_FNS[kernel]
+    w1, w2, x, dy = ffn_case((300, 64, 256))
+    w1s = torch.empty(w1.numel() + 1, device="cuda")[1:].view_as(w1)
+    w2s = torch.empty(w2.numel() + 1, device="cuda")[1:].view_as(w2)
+    w1s.copy_(w1)
+    w2s.copy_(w2)
+    assert w1s.data_ptr() % 16 and w2s.data_ptr() % 16
+    got = kern(dy, w1s, w2s, x)
+    agree((got,), (kern(dy, w1, w2, x),), (plain(dy, w1, w2, x),), False)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mxu_bf16", [False, True])
 @pytest.mark.parametrize("shape", DW_SHAPES)
 def test_ffn_bwd_dw_kernel_matches_plain(card, shape, mxu_bf16):
-    t, d, f = shape
-    rng = np.random.default_rng(t + d)
-    w1, w2 = normal(rng, f, d, scale=0.02), normal(rng, d, f, scale=0.02)
-    x, dy = normal(rng, t, d), normal(rng, t, d, scale=0.1)
+    w1, w2, x, dy = ffn_case(shape)
     kw = dict(mxu_bf16=mxu_bf16)
     before = _build.launch_counts().get(p_ff.BWD_DW, 0)
     got = p_ff.ffn_bwd_dw_fused(dy, w1, w2, x, **kw)
     again = p_ff.ffn_bwd_dw_fused(dy, w1, w2, x, **kw)
     assert _build.launch_counts()[p_ff.BWD_DW] == before + 2
     agree(got, again, p_ff.ffn_bwd_dw_ref(dy, w1, w2, x, **kw), mxu_bf16)
+
+
+@pytest.mark.cuda
+def test_ffn_bwd_dw_bits_unchanged_by_the_shared_passes(card):
+    """The weight-gradient kernel's bits equal those its build gave
+    before its passes moved into csrc/ffn_gemm.cuh: chip_smoke.py's
+    stored digest of calls in each operand mode, through the partials."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    assert chip_smoke.ffn_dw_bits_digest(torch, np, p_ff) == \
+        chip_smoke.FFN_DW_BITS_SHA256
 
 
 @pytest.mark.cuda

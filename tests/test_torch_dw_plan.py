@@ -26,9 +26,9 @@ def test_slices_cover_the_tokens_in_order(name):
     t, d, ffn = SHAPES[name]
     plan = ff.dw_plan(t, d, ffn)
     s, length = plan
-    assert s >= 1 and length % ff.DW_BK == 0
-    assert s == 1 or length >= ff.DW_MIN_SLICE
-    bounds = ff.dw_slices(t, plan)
+    assert s >= 1 and length % ff.BK == 0
+    assert s == 1 or length >= ff.MIN_SLICE
+    bounds = ff.plan_slices(t, plan)
     assert len(bounds) == s
     assert bounds[0][0] == 0 and bounds[-1][1] == t
     for (lo, hi), (lo2, _) in zip(bounds, bounds[1:]):
@@ -45,8 +45,8 @@ def test_main_shape_fills_several_waves():
     share of the pass."""
     t, d, ffn = SHAPES["main"]
     s, length = ff.dw_plan(t, d, ffn)
-    tiles = 2 * (ffn // ff.DW_TILE) * (d // ff.DW_TILE)
-    slots = ff.H100_SMS * ff.DW_BLOCKS_PER_SM
+    tiles = 2 * (ffn // ff.TILE) * (d // ff.TILE)
+    slots = ff.H100_SMS * ff.BLOCKS_PER_SM
     assert tiles == 288 and (s, length) == (4, 2048)
     assert s * tiles >= ff.DW_WAVES * slots > (s - 1) * tiles
     # a card with fewer SMs needs fewer slices for as many waves
@@ -54,7 +54,7 @@ def test_main_shape_fills_several_waves():
 
 
 def test_few_tokens_keep_one_slice():
-    """Slices never drop under DW_MIN_SLICE tokens: short inputs run
+    """Slices never drop under MIN_SLICE tokens: short inputs run
     unsplit, with no partials."""
     for name in ("small", "odd"):
         assert ff.dw_plan(*SHAPES[name]) == (1, _up16(SHAPES[name][0]))
