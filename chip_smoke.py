@@ -198,6 +198,23 @@ FFN_PASS = re.compile(
 FFN_PASS_NAMES = {"gemm_prep": "copies", "hidden": "pass1",
                   "slice": "pass2", "reduce": "reduce"}
 FFN_TAGS = {"fwd": "ffn_fwd", "dx": "ffn_bwd_dx", "dw": "ffn_bwd_dw"}
+# the LM kernels' launches by the names of their CUDA kernels in a
+# profile: (LM kernel, part, pattern)
+LM_PARTS = (
+    ("flash_attn_fwd", "fwd", r"flash_fwd_kernel<"),
+    ("flash_attn_bwd", "rowsum", r"flash_rowsum_kernel"),
+    ("flash_attn_bwd", "dkv", r"flash_dkv_kernel<"),
+    ("flash_attn_bwd", "dq", r"flash_dq_kernel<"),
+    ("head_xent_stats", "copies", r"gemm_prep_kernel<xent::stats>"),
+    ("head_xent_stats", "main", r"head_xent_stats_kernel"),
+    ("head_xent_stats", "merge", r"head_xent_merge_kernel"),
+    ("head_xent_bwd", "copies", r"gemm_prep_kernel<void>"),
+    ("head_xent_bwd", "products", r"head_xent_gemm_kernel"))
+# the statistics kernel's vocab slices (head-stats-slices) and the flash
+# backward's (key tile, query-ring stages) plans (flash-bwd-tiles) timed
+# at the main shape
+STATS_SLICE_SWEEP = (1, 2, 4, 8)
+FLASH_BWD_PLANS = ((128, 2), (128, 1), (64, 2), (64, 1))
 
 
 def card_line() -> str:
@@ -436,6 +453,26 @@ def ffn_passes(prof):
             FFN_PASS_NAMES[m[1]], {"ms": 0.0, "calls": 0})
         row["ms"] += e.device_time_total / 1e3
         row["calls"] += e.count
+    ms = {k: sum(p["ms"] for p in v.values()) for k, v in out.items()}
+    for k, v in out.items():
+        v["ms"], v["share"] = ms[k], ms[k] / sum(ms.values())
+    return out
+
+
+def lm_parts(prof):
+    """Device ms and launches of each LM kernel's CUDA kernels in a traced
+    run (``LM_PARTS``), each kernel's total and its share of the four's
+    device time."""
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e.device_type, "name", str(e.device_type)) == "CPU":
+            continue
+        for kernel, part, pattern in LM_PARTS:
+            if re.search(pattern, e.key):
+                row = out.setdefault(kernel, {}).setdefault(
+                    part, {"ms": 0.0, "calls": 0})
+                row["ms"] += e.device_time_total / 1e3
+                row["calls"] += e.count
     ms = {k: sum(p["ms"] for p in v.values()) for k, v in out.items()}
     for k, v in out.items():
         v["ms"], v["share"] = ms[k], ms[k] / sum(ms.values())
@@ -960,9 +997,9 @@ def lm_bound(name, shape, mxu_bf16):
     not the kernels': flash counts the pairs the causal mask leaves, two
     products forward and five backward (s, dp, dq, dk, dv); the head one
     product for its statistics and three backward (z, dh, dw). The
-    flash backward executes more (7 products): each of its two launches
-    recomputes the score and dp tiles; the head's backward executes its
-    three."""
+    kernels execute these products once each, over whole tiles at the
+    causal diagonal (the flash backward's dq from the ds scratch its dkv
+    launch writes)."""
     if name.startswith("flash"):
         bh, t, dh, causal = shape
         pairs = bh * causal_pairs(t, t, causal)
@@ -1050,6 +1087,11 @@ def lm_kernel_phase(torch, np, timer):
                 partial(fa.flash_attention_bwd, dy, q, k, v, y, lse, **kw),
                 partial(fa.flash_attention_bwd_ref, dy, q, k, v, y, lse,
                         **kw), lib_b))
+        if tag == "main":
+            print("flash-bwd-tiles " + json.dumps(dict(
+                shape=tag, plan=list(fa.BWD_PLAN),
+                ms=flash_bwd_sweep(torch, timer, fa, dy, q, k, v, y, lse,
+                                   causal))), flush=True)
         del q, k, v, dy, y, lse
     for n, (tag, tokens, d, vocab) in enumerate(HEAD_SHAPES):
         gen = torch.Generator(device="cuda")
@@ -1072,6 +1114,11 @@ def lm_kernel_phase(torch, np, timer):
                 mxu_bf16, partial(fx.head_xent_bwd, dy, h, w, tgt, lse, **kw),
                 partial(fx.head_xent_bwd_ref, dy, h, w, tgt, lse, **kw),
                 None))
+        if tag == "main":
+            print("head-stats-slices " + json.dumps(dict(
+                shape=tag, plan=list(fx.stats_plan(tokens, vocab)),
+                ms=stats_slice_sweep(torch, timer, fx, h, w, tgt))),
+                flush=True)
         del h, w, tgt, lse
     digest = head_bits_digest(torch, np, fx)
     row = dict(kernel="head_xent_bwd", shape="bits", mxu_bf16=None,
@@ -1080,6 +1127,52 @@ def lm_kernel_phase(torch, np, timer):
     print("lm-head-bits " + json.dumps(row), flush=True)
     rows.append(row)
     return rows
+
+
+def stats_slice_sweep(torch, timer, fx, h, w, tgt):
+    """``{slices: {ms, rel_err}}`` of the f32 statistics kernel with the
+    vocabulary cut into each of ``STATS_SLICE_SWEEP`` slices (its plan
+    function ``fx.stats_plan`` replaced for the run; restored after),
+    each run first held to ``FFN_TOL`` against the plain version."""
+    want = fx.head_xent_stats_ref(h, w, tgt)
+    tiles = -(-w.shape[0] // fx.TILE)
+    default, out = fx.stats_plan, {}
+    try:
+        for s in STATS_SLICE_SWEEP:
+            length = -(-tiles // s) * fx.TILE
+            plan = (-(-w.shape[0] // length), length)
+            fx.stats_plan = lambda *_, plan=plan: plan
+            run = partial(fx.head_xent_stats, h, w, tgt)
+            rel = max(float((g - r).abs().max()) / float(r.abs().max())
+                      for g, r in zip(run(), want))
+            check(rel <= FFN_TOL[False],
+                  f"head_xent_stats at {plan[0]} slices disagrees: {rel}")
+            out[plan[0]] = dict(ms=timer.ms(run), rel_err=rel)
+    finally:
+        fx.stats_plan = default
+    return out
+
+
+def flash_bwd_sweep(torch, timer, fa, dy, q, k, v, y, lse, causal):
+    """``{"key_tile x stages": {ms, rel_err}}`` of the f32 flash backward
+    under each plan of ``FLASH_BWD_PLANS`` (``fa.BWD_PLAN`` replaced for
+    the run; restored after), each run first held to ``FFN_TOL`` against
+    the plain version."""
+    want = fa.flash_attention_bwd_ref(dy, q, k, v, y, lse, causal=causal)
+    default, out = fa.BWD_PLAN, {}
+    try:
+        for plan in FLASH_BWD_PLANS:
+            fa.BWD_PLAN = plan
+            run = partial(fa.flash_attention_bwd, dy, q, k, v, y, lse,
+                          causal=causal)
+            rel = max(float((g - r).abs().max()) / float(r.abs().max())
+                      for g, r in zip(run(), want))
+            check(rel <= FFN_TOL[False],
+                  f"flash_attention_bwd at plan {plan} disagrees: {rel}")
+            out[f"{plan[0]}x{plan[1]}"] = dict(ms=timer.ms(run), rel_err=rel)
+    finally:
+        fa.BWD_PLAN = default
+    return out
 
 
 def head_bits_digest(torch, np, fx):
@@ -1292,13 +1385,14 @@ def lm_train_phase(torch, np, card):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     summary = profile_summary(prof, wall_ms)
-    head_ms = sum(e.device_time_total / 1e3 for e in prof.key_averages()
-                  if getattr(e.device_type, "name", "") != "CPU"
-                  and "head_xent" in e.key)
+    parts = lm_parts(prof)
+    # the fused head's launches, its operand copies included
+    head_ms = sum(parts.get(k, {}).get("ms", 0.0)
+                  for k in ("head_xent_stats", "head_xent_bwd"))
     busy = summary["device_busy_ms"]
     summary.update(head_kernel_ms=head_ms,
                    head_kernel_share=head_ms / busy if busy else None,
-                   card=card)
+                   lm_kernels=parts, card=card)
     print("lm-train-profile " + json.dumps(summary), flush=True)
     return launches
 

@@ -1,7 +1,9 @@
-// Shared pieces of the flash-attention kernels for Hopper (sm_90a):
-// flash_attn_fwd.cu and flash_attn_bwd.cu. Layouts: q, dy, y [BH, Tq, dh];
-// k, v [BH, Tk, dh]; lse, D [BH, Tq]; all f32, row-major, contiguous. BH
-// is every (batch, head) pair: one launch covers them all.
+// Pieces of the flash-attention kernels for Hopper (sm_90a): the tiles
+// of flash_attn_fwd.cu, and the mask (keep) and the largest head dim
+// (kDH), which flash_attn_bwd.cu shares (its tiles are its own).
+// Layouts: q, dy, y [BH, Tq, dh]; k, v [BH, Tk, dh]; lse, D [BH, Tq]; all
+// f32, row-major, contiguous. BH is every (batch, head) pair: one launch
+// covers them all.
 //
 // Arithmetic is f32 FMA on the CUDA cores (no tensor cores yet). With
 // kBf16 (the Pallas kernels' `mxu_bf16`) every operand tile is rounded to

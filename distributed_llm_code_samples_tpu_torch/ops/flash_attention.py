@@ -5,7 +5,7 @@ from ``(q, k, v, y, lse)``. The training path's ``attn_impl="flash"``.
 Port of ``distributed_llm_code_samples_tpu/ops/pallas_attention.py``
 (``flash_attention_fwd``, ``flash_attention_bwd``, ``flash_attention``,
 ``flash_mha``). On a CUDA tensor each wrapper launches its CUDA kernels
-(``csrc/flash_attn_fwd.cu``; ``csrc/flash_attn_bwd.cu``'s dq and dkv
+(``csrc/flash_attn_fwd.cu``; ``csrc/flash_attn_bwd.cu``'s dkv and dq
 kernels; built at first use by ``ops/_build.py``, bound with ctypes) or
 raises; on a CPU tensor it runs its plain PyTorch version ``*_ref``.
 There is no fallback from a kernel to its plain version.
@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .fused_ffn import _layout, _up
 
 FWD, BWD = "flash_attn_fwd", "flash_attn_bwd"
 DQ, DKV = "flash_attn_dq", "flash_attn_dkv"     # the backward's launches
@@ -131,13 +132,35 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     return y, lse
 
 
+# -- the backward's plan and scratch (csrc/flash_attn_bwd.cu) -------------
+
+# The dkv launch's key tile (64 or 128 keys a block of 16 warps) and the
+# stages of its query-tile ring (1: each tile copied after the last one's
+# products; 2: the next tile's copy in flight while this one computes).
+# chip_smoke.py's flash-bwd-tiles line times all four (PERF.md).
+BWD_PLAN = (128, 2)
+# the ds^T scratch's padding: keys to the largest key tile, queries to
+# the query tile of both launches
+SCRATCH_KEYS, QUERY_TILE = 128, 64
+
+
+def bwd_scratch(bh: int, tq: int, tk: int) -> dict:
+    """The backward's scratch pieces (``fused_ffn._layout``): ``D =
+    rowsum(dy * y)`` as ``[BH, Tq]`` and ``ds^T`` as ``[BH, Tk128,
+    Tq64]`` (Tk rounded up to ``SCRATCH_KEYS``, Tq to ``QUERY_TILE``).
+    The dkv launch writes D and the ``ds^T`` tiles the causal mask
+    leaves; the dq launch reads only those."""
+    return _layout({"D": (bh, tq),
+                    "dsT": (bh, _up(tk, SCRATCH_KEYS), _up(tq, QUERY_TILE))})
+
+
 def flash_attention_bwd(dy, q, k, v, y, lse, *, causal: bool = True,
                         mxu_bf16: bool = False):
-    """``(dq, dk, dv)`` with the score tiles recomputed: ``D = rowsum(dy
-    * y)`` once (elementwise, as the JAX package computes it outside its
-    kernels), then the dq launch (a block per query tile) and the dkv
-    launch (a block per key tile). CPU tensors run
-    ``flash_attention_bwd_ref``."""
+    """``(dq, dk, dv)`` with the score tiles recomputed once: the dkv
+    launch (``D = rowsum(dy * y)``, then a block per key tile: s, p, dp
+    and ds, dk and dv, and ``ds^T`` into the scratch ``bwd_scratch``) and
+    the dq launch (a block per query tile: ``dq = ds k`` from the
+    scratch). CPU tensors run ``flash_attention_bwd_ref``."""
     bh, tq, tk, dh = _check(q, k, v)
     if dy.shape != q.shape or y.shape != q.shape \
             or lse.shape != q.shape[:-1]:
@@ -148,16 +171,22 @@ def flash_attention_bwd(dy, q, k, v, y, lse, *, causal: bool = True,
         return flash_attention_bwd_ref(dy, q, k, v, y, lse, causal=causal,
                                        mxu_bf16=mxu_bf16)
     _kernel_dims(BWD, dh)
-    d = (dy * y).sum(dim=-1)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    ins = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dy.data_ptr(),
-           lse.data_ptr(), d.data_ptr()]
-    ints = (bh, tq, tk, dh, int(bool(causal)), int(bool(mxu_bf16)))
-    _build.launch(BWD, "flash_attn_dq_launch", ins + [dq.data_ptr()], ints,
-                  q.device, DQ)
+    pieces = bwd_scratch(bh, tq, tk)
+    scratch = torch.empty(pieces["total"], dtype=torch.float32,
+                          device=q.device)
+    d_ptr, ds_ptr = (scratch.data_ptr() + 4 * pieces[n][1]
+                     for n in ("D", "dsT"))
+    dims = (bh, tq, tk, dh, int(bool(causal)))
     _build.launch(BWD, "flash_attn_dkv_launch",
-                  ins + [dk.data_ptr(), dv.data_ptr()], ints, q.device, DKV)
+                  [q.data_ptr(), k.data_ptr(), v.data_ptr(), dy.data_ptr(),
+                   lse.data_ptr(), y.data_ptr(), dk.data_ptr(),
+                   dv.data_ptr(), d_ptr, ds_ptr],
+                  (*dims, *BWD_PLAN, int(bool(mxu_bf16))), q.device, DKV)
+    _build.launch(BWD, "flash_attn_dq_launch",
+                  [k.data_ptr(), ds_ptr, dq.data_ptr()],
+                  (*dims, int(bool(mxu_bf16))), q.device, DQ)
     return dq, dk, dv
 
 

@@ -7,10 +7,12 @@ path's ``head_impl="fused"``.
 Port of ``distributed_llm_code_samples_tpu/ops/pallas_xent.py``
 (``head_xent_stats``, ``head_xent_fwd``, ``head_xent_bwd``,
 ``head_xent``). On a CUDA tensor each wrapper launches its CUDA kernels
-(``csrc/head_xent_fwd.cu``; ``csrc/head_xent_bwd.cu``'s chunked
-products; built at first use by ``ops/_build.py``, bound with ctypes) or
-raises; on a CPU tensor it runs its plain PyTorch version ``*_ref``.
-There is no fallback from a kernel to its plain version.
+(``csrc/head_xent_fwd.cu``'s copies, sliced statistics and merge;
+``csrc/head_xent_bwd.cu``'s chunked products; both on the GEMM core of
+``csrc/gemm_core.cuh``; built at first use by ``ops/_build.py``, bound
+with ctypes) or raises; on a CPU tensor it runs its plain PyTorch
+version ``*_ref``. There is no fallback from a kernel to its plain
+version.
 
 ``h [N, d]``, ``w [V, d]`` (the tied embedding), ``targets [N]`` int. A
 target outside ``[0, V)`` matches no column. The kernels mask the vocab
@@ -27,6 +29,9 @@ import ctypes
 import torch
 
 from . import _build
+# the GEMM core's (csrc/gemm_core.cuh) tile and blocks an SM, shared
+# with the FFN kernels
+from .fused_ffn import BLOCKS_PER_SM, H100_SMS, TILE, _layout, _sms, _up
 
 FWD, BWD = "head_xent_fwd", "head_xent_bwd"
 STATS_COUNT, BWD_COUNT = "head_xent_stats", "head_xent_bwd"
@@ -88,9 +93,40 @@ def _targets32(targets):
     return targets.to(torch.int32).contiguous()
 
 
+# -- the statistics' plan and scratch (csrc/head_xent_fwd.cu) ---------------
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def stats_plan(n: int, v: int, sms: int = H100_SMS):
+    """``(S, L)``: the statistics kernel's vocabulary cut into S slices of
+    L columns (L a multiple of ``TILE``, the last slice shorter; S =
+    ceil(V / L)): as many slices as let its ``ceil(N / TILE) * S``
+    blocks fit one wave of the card's ``sms * BLOCKS_PER_SM`` block
+    slots, at least one and at most one a vocab tile. 64 row tiles x 4
+    slices at the main shape."""
+    vt = _cdiv(v, TILE)
+    want = max(1, min(sms * BLOCKS_PER_SM // _cdiv(n, TILE), vt))
+    per = _cdiv(vt, want)
+    return _cdiv(vt, per), per * TILE
+
+
+def stats_scratch(n: int, d: int, v: int, plan) -> dict:
+    """The statistics kernel's scratch pieces (``fused_ffn._layout``):
+    ``h^T`` as ``[d, N4]``, ``w^T`` as ``[d, V4]`` (4-rounded rows) and
+    the slices' partials ``[3, S, N]`` (max, sum of exp, target
+    logit)."""
+    return _layout({"hT": (d, _up(n, 4)), "wT": (d, _up(v, 4)),
+                    "part": (3, plan[0], n)})
+
+
 def head_xent_stats(h, w, targets, *, mxu_bf16: bool = False):
-    """``(lse [N], tz [N])`` from one launch: a block per token tile walks
-    every vocab tile with an online logsumexp. CPU tensors run
+    """``(lse [N], tz [N])``: h and w copied into the GEMM core's operand
+    layout, one block per (row tile, vocab slice) folds each logit tile
+    into running statistics (``stats_plan``), and a merge over the
+    slices (``csrc/head_xent_fwd.cu``). The scratch (``stats_scratch``)
+    is one ``torch.empty`` buffer. CPU tensors run
     ``head_xent_stats_ref``."""
     n, d, v = _check(h, w, targets)
     if not _build.on_card(FWD, h, w):
@@ -98,10 +134,17 @@ def head_xent_stats(h, w, targets, *, mxu_bf16: bool = False):
     t32 = _targets32(targets)
     lse = torch.empty(n, dtype=torch.float32, device=h.device)
     tz = torch.empty_like(lse)
+    plan = stats_plan(n, v, _sms(h))
+    pieces = stats_scratch(n, d, v, plan)
+    scratch = torch.empty(pieces.pop("total"), dtype=torch.float32,
+                          device=h.device)
+    base = scratch.data_ptr()
     _build.launch(FWD, "head_xent_stats_launch",
                   [h.data_ptr(), w.data_ptr(), t32.data_ptr(),
-                   lse.data_ptr(), tz.data_ptr()],
-                  (n, d, v, int(bool(mxu_bf16))), h.device, STATS_COUNT)
+                   lse.data_ptr(), tz.data_ptr()]
+                  + [base + 4 * off for _, off in pieces.values()],
+                  (n, d, v, *plan, int(bool(mxu_bf16))), h.device,
+                  STATS_COUNT)
     return lse, tz
 
 

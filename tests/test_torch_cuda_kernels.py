@@ -24,10 +24,11 @@ import torch
 
 from distributed_llm_code_samples_tpu_torch.ops import _build
 from distributed_llm_code_samples_tpu_torch.ops import fused_ffn as p_ff
+from distributed_llm_code_samples_tpu_torch.ops import flash_attention as p_fa
 from distributed_llm_code_samples_tpu_torch.ops import fused_xent as p_fx
 from distributed_llm_code_samples_tpu_torch.ops.flash_attention import (
     flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
-    flash_attention_fwd_ref)
+    flash_attention_fwd_ref, flash_mha)
 
 TOL = {False: 1e-4, True: 2e-3}
 FLASH_SHAPES = ((3, 64, 64, 16), (2, 37, 37, 40), (2, 80, 130, 64))
@@ -90,6 +91,81 @@ def test_flash_bwd_kernels_match_plain(card, shape, causal, mxu_bf16):
           mxu_bf16)
 
 
+# the backward at chip_smoke.py's FLASH_SHAPES (heads, Tq, Tk, dh): the
+# main path's (192 heads of 512, dh 64) and the ragged one (T 200, dh 40)
+FLASH_BWD_SHAPES = ((192, 512, 512, 64), (24, 200, 200, 40))
+
+
+def flash_launches():
+    counts = _build.launch_counts()
+    return counts.get(p_fa.DQ, 0), counts.get(p_fa.DKV, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_BWD_SHAPES)
+def test_flash_bwd_kernels_at_the_main_path_shapes(card, shape, causal,
+                                                   mxu_bf16):
+    q, k, v, dy = flash_case(shape)
+    kw = dict(causal=causal, mxu_bf16=mxu_bf16)
+    y, lse = flash_attention_fwd_ref(q, k, v, causal=causal)
+    dq0, dkv0 = flash_launches()
+    got = flash_attention_bwd(dy, q, k, v, y, lse, **kw)
+    again = flash_attention_bwd(dy, q, k, v, y, lse, **kw)
+    assert flash_launches() == (dq0 + 2, dkv0 + 2)
+    agree(got, again, flash_attention_bwd_ref(dy, q, k, v, y, lse, **kw),
+          mxu_bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("plan", [(128, 2), (128, 1), (64, 2), (64, 1)])
+def test_flash_bwd_plans_agree_with_plain(card, plan, causal, mxu_bf16,
+                                          monkeypatch):
+    """Every (key tile, ring stages) plan that chip_smoke.py's
+    flash-bwd-tiles sweep times, at a rectangular ragged shape."""
+    monkeypatch.setattr(p_fa, "BWD_PLAN", plan)
+    for shape in ((2, 80, 130, 64), (2, 37, 37, 40)):
+        q, k, v, dy = flash_case(shape)
+        kw = dict(causal=causal, mxu_bf16=mxu_bf16)
+        y, lse = flash_attention_fwd_ref(q, k, v, causal=causal)
+        got = flash_attention_bwd(dy, q, k, v, y, lse, **kw)
+        again = flash_attention_bwd(dy, q, k, v, y, lse, **kw)
+        agree(got, again,
+              flash_attention_bwd_ref(dy, q, k, v, y, lse, **kw), mxu_bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [False, True])
+def test_flash_mha_backward_with_four_heads_on_two_kv_heads(card,
+                                                            mxu_bf16):
+    """flash_mha's gradients through the kernels: each KV head's the sum
+    of its query group's, against the plain backward on the fanned-out
+    heads."""
+    rng = np.random.default_rng(7)
+    b, hq, hkv, t, dh = 2, 4, 2, 96, 32
+    q = normal(rng, b, hq, t, dh).requires_grad_()
+    k = normal(rng, b, hkv, t, dh).requires_grad_()
+    v = normal(rng, b, hkv, t, dh).requires_grad_()
+    dy = normal(rng, b, hq, t, dh, scale=0.1)
+    dq0, dkv0 = flash_launches()
+    flash_mha(q, k, v, causal=True, mxu_bf16=mxu_bf16).backward(dy)
+    assert flash_launches() == (dq0 + 1, dkv0 + 1)
+    kr, vr = (x.detach().repeat_interleave(hq // hkv, dim=-3)
+              for x in (k, v))
+    y, lse = flash_attention_fwd_ref(q.detach(), kr, vr, causal=True,
+                                     mxu_bf16=mxu_bf16)
+    dq, dk, dv = flash_attention_bwd_ref(dy, q.detach(), kr, vr, y, lse,
+                                         causal=True, mxu_bf16=mxu_bf16)
+    want = (dq, dk.view(b, hkv, hq // hkv, t, dh).sum(2),
+            dv.view(b, hkv, hq // hkv, t, dh).sum(2))
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        err = float((g - w).abs().max())
+        assert err <= TOL[mxu_bf16] * float(w.abs().max()), err
+
+
 def head_case(shape):
     n, d, v = shape
     rng = np.random.default_rng(n)
@@ -107,6 +183,35 @@ def test_head_stats_kernel_matches_plain(card, shape, mxu_bf16):
     again = p_fx.head_xent_stats(h, w, t, mxu_bf16=mxu_bf16)
     agree(got, again, p_fx.head_xent_stats_ref(h, w, t, mxu_bf16=mxu_bf16),
           mxu_bf16)
+
+
+# the statistics at their edges: chip_smoke.py's ragged shape (33 vocab
+# slices), a vocabulary below one tile (one slice), a prime V past one
+# slice with d not a multiple of 4
+HEAD_STATS_EDGES = ((1000, 200, 50257), (300, 45, 100), (131, 48, 8209))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [False, True])
+@pytest.mark.parametrize("shape", HEAD_STATS_EDGES)
+def test_head_stats_kernel_edges_and_bit_equal(card, shape, mxu_bf16):
+    """Targets -1 and V match no column (tz exactly 0); the last real
+    column (head_case) and the first are found; two calls bit-equal."""
+    h, w, t = head_case(shape)
+    t[0], t[1], t[2] = -1, shape[2], 0
+    before = _build.launch_counts().get(p_fx.STATS_COUNT, 0)
+    got = p_fx.head_xent_stats(h, w, t, mxu_bf16=mxu_bf16)
+    again = p_fx.head_xent_stats(h, w, t, mxu_bf16=mxu_bf16)
+    assert _build.launch_counts()[p_fx.STATS_COUNT] == before + 2
+    assert float(got[1][0]) == 0.0 and float(got[1][1]) == 0.0
+    agree(got, again, p_fx.head_xent_stats_ref(h, w, t, mxu_bf16=mxu_bf16),
+          mxu_bf16)
+    # within 1e-4 of float64 on the same inputs (f32 operands)
+    if not mxu_bf16:
+        want = p_fx.head_xent_stats_ref(h.double(), w.double(), t)
+        for g, w64 in zip(got, want):
+            err = float((g.double() - w64).abs().max())
+            assert err <= 1e-4 * float(w64.abs().max()), err
 
 
 @pytest.mark.cuda
