@@ -13,9 +13,10 @@
                                            # and EP on 4 cards (not in
                                            # the default run)
 
-Builds every kernel of the port from ``csrc/``, holds each against its
-plain PyTorch version on the card, times both, then drives the port's
-paths:
+Builds every kernel of the port from ``csrc/`` (printing ptxas's spill
+counts as ``ptxas-spills``), holds each against its plain PyTorch
+version on the card, times both (the paged decode attention also at
+each split size, ``paged-splits``), then drives the port's paths:
 
 - serving: requests through the ``DecodeEngine`` at the full width of
   the GPT-2-small LM of ``bench_decode.py`` (d=768, 12 layers, 12 heads,
@@ -39,8 +40,10 @@ paths:
   one card in loopback (n workspaces, one cooperative launch a call);
   ``--phase dist``, not part of the default run, spawns one rank a card
   on 4 cards over NCCL and peer-mapped memory, holds each kernel against
-  its plain ring and NCCL, trains both strategies under both transports
-  and profiles rank 0;
+  its plain ring and NCCL, traces one reduce-scatter, one all-gather and
+  one all-to-all (``dist-rs-trace``, ``dist-ag-trace``,
+  ``dist-a2a-trace``), trains both strategies under both transports and
+  profiles rank 0;
 - expert parallelism: ``train_moe_ep`` of the MoE stack of
   ``bench_moe.py``'s headline (d 768, 6 layers, 8 experts of ffn 3072,
   top-2, 8192 tokens a step over 4 ranks) for 8 steps a rank under each
@@ -91,6 +94,12 @@ ENGINE = dict(max_slots=8, block_size=16, prefill_chunk=64,
               max_blocks_per_seq=64, n_blocks=1 + 8 * 64)
 SEED = 0
 TOL = 2e-5                       # max |kernel - plain| / max |plain|
+# the paged kernel at a table past the old kernel's shared-memory cap
+# (a [G, tcap] score row): (H, H_kv, dh, blocks a table, lengths, tag),
+# 8192 positions of block 16, G 8, dh 128
+LONG_TABLE = (64, 8, 128, 512, (8192, 1, 4000, 65), "long")
+# positions a split timed at the serving case (paged-splits)
+PAGED_SPLIT_SWEEP = (32, 64, 128, 256)
 
 # the trained model: bench.py's FFN-stack headline shape (bench.py:122-124)
 TRAIN = dict(d_model=768, n_layers=24, tokens=8192, steps=8, random_seed=7)
@@ -355,7 +364,7 @@ def library_ms(torch, timer, case, blk):
 
 def kernel_phase(torch, np, timer):
     from distributed_llm_code_samples_tpu_torch.ops.paged_attention import (
-        paged_decode_attn, paged_decode_attn_ref)
+        paged_decode_attn, paged_decode_attn_ref, split_plan)
     blk, mb, dh = ENGINE["block_size"], ENGINE["max_blocks_per_seq"], 64
     tcap = blk * mb
     # ragged: 1 (a pad row), a block boundary and one past it, tcap
@@ -367,28 +376,105 @@ def kernel_phase(torch, np, timer):
         for hq, hkv, lens, tag in ((12, 12, serving, "serving"),
                                    (12, 12, ragged, "ragged"),
                                    (12, 4, ragged, "gqa")):
-            cases.append((kv_dtype, hq, hkv, lens, tag))
+            cases.append((kv_dtype, hq, hkv, dh, mb, lens, tag))
+        cases.append((kv_dtype,) + LONG_TABLE)
     results = []
-    for n, (kv_dtype, hq, hkv, lens, tag) in enumerate(cases):
-        case = make_case(torch, np, kv_dtype, len(lens), hq, hkv, dh, blk,
-                         mb, lens, seed=n)
+    for n, (kv_dtype, hq, hkv, hd, nblk, lens, tag) in enumerate(cases):
+        case = make_case(torch, np, kv_dtype, len(lens), hq, hkv, hd, blk,
+                         nblk, lens, seed=n)
         y = paged_decode_attn(**case)
+        again = paged_decode_attn(**case)
         torch.cuda.synchronize()
         want = paged_decode_attn_ref(**case)
         err = float((y - want).abs().max())
         scale = float(want.abs().max())
-        ok = bool(torch.isfinite(y).all()) and err <= TOL * scale
+        same = torch.equal(y, again)
+        ok = bool(torch.isfinite(y).all()) and err <= TOL * scale and same
         b_ms, b_by = bound(case, blk)
+        plan = split_plan(len(lens), hq, hkv, hd, blk, nblk,
+                          case["pool_k"].element_size())
         row = dict(kv_dtype=kv_dtype, shape=tag, heads=hq, kv_heads=hkv,
-                   lengths=list(lens), max_abs_err=err,
-                   rel_err=err / scale, ok=ok,
+                   head_dim=hd, tcap=blk * nblk, lengths=list(lens),
+                   split_positions=plan[0], splits=plan[1],
+                   smem_bytes=plan[3], max_abs_err=err,
+                   rel_err=err / scale, deterministic=same, ok=ok,
                    ms=timer.ms(lambda: paged_decode_attn(**case)),
                    plain_ms=timer.ms(lambda: paged_decode_attn_ref(**case)),
                    bound_ms=b_ms, bound_by=b_by,
                    library_ms=library_ms(torch, timer, case, blk))
         results.append(row)
         print("kernel-case " + json.dumps(row), flush=True)
+        del case, y, again, want
     return results
+
+
+def paged_split_sweep(torch, np, timer):
+    """The paged kernel at the serving case (f32) under each split size of
+    ``PAGED_SPLIT_SWEEP``, each checked against the plain version first:
+    ``{"<positions>": ms}``."""
+    from distributed_llm_code_samples_tpu_torch.ops import paged_attention
+    blk, mb = ENGINE["block_size"], ENGINE["max_blocks_per_seq"]
+    lens = tuple(n + 20 for n in PROMPT_LENS)
+    case = make_case(torch, np, "f32", len(lens), 12, 12, 64, blk, mb, lens,
+                     seed=0)
+    want = paged_attention.paged_decode_attn_ref(**case)
+    saved = paged_attention.SPLIT_POSITIONS
+    out, device = {}, {}
+    try:
+        for pos in PAGED_SPLIT_SWEEP:
+            paged_attention.SPLIT_POSITIONS = pos
+            y = paged_attention.paged_decode_attn(**case)
+            torch.cuda.synchronize()
+            err = float((y - want).abs().max())
+            check(err <= TOL * float(want.abs().max()),
+                  f"paged split {pos}: error {err}")
+            out[str(pos)] = timer.ms(
+                lambda: paged_attention.paged_decode_attn(**case))
+            device[str(pos)] = profiled_ms(
+                torch, timer, lambda: paged_attention.paged_decode_attn(
+                    **case), r"paged_split_kernel")
+    finally:
+        paged_attention.SPLIT_POSITIONS = saved
+    # what the timer reads for one elementwise kernel on q: its floor
+    floor = timer.ms(lambda: case["q"].neg())
+    print("paged-splits " + json.dumps(dict(
+        shape="serving", kv_dtype="f32", ms=out, device_ms=device,
+        one_kernel_floor_ms=floor)), flush=True)
+    return out
+
+
+def profiled_ms(torch, timer, fn, pattern, reps=20):
+    """The device time of ``fn``'s kernels whose names match ``pattern``,
+    a call, by the profiler's own trace (launch latency not counted),
+    each of ``reps`` calls after an L2 flush."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if re.search(pattern, e.key)) / 1e3 / reps
+
+
+def ptxas_spills(logs):
+    """``{source: {kernel: spill bytes (stores + loads)}}`` from the ptxas
+    reports of the build (``_build.build_logs``)."""
+    out = {}
+    for name, log in logs.items():
+        kernel, rows = None, {}
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                kernel = m[1]
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and kernel is not None:
+                rows[kernel] = int(m[1]) + int(m[2])
+        out[name] = rows
+    return out
 
 
 # -- serving phase -----------------------------------------------------------
@@ -598,8 +684,15 @@ def serving_phase(torch, np, card):
         t0 = time.perf_counter()
         serve("f32", "fused", "traced")
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    paged = {"ms": 0.0, "calls": 0}
+    for e in prof.key_averages():
+        if re.search(r"paged_split_kernel", e.key) and getattr(
+                e.device_type, "name", str(e.device_type)) != "CPU":
+            paged["ms"] += e.device_time_total / 1e3
+            paged["calls"] += e.count
     print("profile " + json.dumps(dict(profile_summary(prof, wall_ms),
-                                       card=card)), flush=True)
+                                       paged_kernel=paged, card=card)),
+          flush=True)
     return fused_launches
 
 
@@ -2324,6 +2417,26 @@ def dist_rank(mesh, payload):
                               ranks=gathered(rs_trace_summary(
                                   stamps.cpu()))))
     del x, want, stamps
+    # one all-gather of the w1 shard on the all-to-all's push design, its
+    # blocks' own stamps (own chunk, pushes, copy-outs)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(570 + r)
+    x = torch.randn((FFN_DIM // n, D_MODEL), generator=gen, device=dev)
+
+    def ag_together():
+        torch.cuda._sleep(HOST_COVER_CYCLES)
+        dist.all_reduce(token)
+        ring.ring_all_gather(x, rg)
+
+    for _ in range(3):          # warm, as the timer's calls are
+        ag_together()
+    stamps = ring.traced(ag_together, dev)
+    mesh.check()
+    say("dist-ag-trace", dict(
+        shape="w1_shard", mode="4 cards", phases=ring.A2A_PHASES,
+        ranks=[t[0] for t in gathered(a2a_trace_summary(stamps.cpu(), n,
+                                                        1))]))
+    del x, stamps
     # the all-to-all: against its plain version (NCCL send / receive) and
     # NCCL's all_to_all_single, bit for bit
     a2a_cases = []
@@ -2753,6 +2866,8 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in _build.build_logs.items():
         print(f"build-log {name}:\n{log}", flush=True)
+    print("ptxas-spills " + json.dumps(ptxas_spills(_build.build_logs)),
+          flush=True)
 
     if args.phase == "dist":
         kernels = dist_phase(torch)
@@ -2766,6 +2881,8 @@ def main(argv=None) -> int:
     if args.phase in ("all", "kernel"):
         cases = kernel_phase(torch, np, timer)
         bad += [c for c in cases if not c["ok"]]
+        if not bad:
+            paged_split_sweep(torch, np, timer)
     if args.phase in ffn_phases:
         ffn_cases = ffn_kernel_phase(torch, np, timer)
         bad += [c for c in ffn_cases if not c["ok"]]

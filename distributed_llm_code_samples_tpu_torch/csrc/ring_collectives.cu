@@ -5,8 +5,9 @@
 // Replaces the TPU kernels of distributed_llm_code_samples_tpu/ops/
 // pallas_ring.py: `ppermute_dma` (:151), `ring_all_reduce` (:190),
 // `ring_reduce_scatter` (:328; ring_reduce_scatter_kernel below, no
-// longer a ring), `ring_all_gather` (:406) and `all_to_all_dma` (:490;
-// all_to_all_kernel below). Every kernel computes the same function with
+// longer a ring), `ring_all_gather` (:406; all_to_all_kernel<true>
+// below, no longer a ring) and `all_to_all_dma` (:490;
+// all_to_all_kernel<false>). Every kernel computes the same function with
 // the same chunks (the leading-dim n-split), and each chunk is summed in
 // the Pallas kernels' order: at reduce step s rank r adds its own copy of
 // chunk (v - s - 1) mod n to the partial its left neighbour sent (v = r
@@ -22,11 +23,12 @@
 // S 9.44 MB (one FFN layer's f32 weight at d 768) that is 14.2 MB, or
 // 31 us, for the all-reduce and 7.1 MB, 16 us, for the others.
 //
-// Design. A Pallas kernel issues remote DMAs and waits on semaphores; on
-// Hopper a rank's threads store straight into its right neighbour's
-// workspace over NVLink (ring_common.cuh has the layout), and a flag word
-// in the receiver's workspace, stored with release semantics after a
-// system fence, says that a step's data has landed. Each kernel splits a
+// Design of the hop and the all-reduce, still rings. A Pallas kernel
+// issues remote DMAs and waits on semaphores; on Hopper a rank's threads
+// store straight into its right neighbour's workspace over NVLink
+// (ring_common.cuh has the layout), and a flag word in the receiver's
+// workspace, stored with release semantics after a system fence, says
+// that a step's data has landed. Each kernel splits a
 // chunk into nblk contiguous ranges, one a block, and block b of a rank
 // talks only to block b of its neighbours: nblk independent rings, no
 // synchronisation between the blocks of one rank. Within a call every
@@ -38,9 +40,9 @@
 // send: at step s a block reads its own chunk and the partial its left
 // neighbour left in slot s-1, and stores the sum into its right
 // neighbour's slot s. Its second phase lands in the data region, apart
-// from the staging slots, so it needs no phase handoff. The all-gather
-// and the hop land chunks in the receiver's data region and copy them
-// from there into the receiver's output. Every wait ends at a deadline
+// from the staging slots, so it needs no phase handoff. The hop lands
+// its block in the receiver's data region and copies it from there into
+// the receiver's output. Every wait ends at a deadline
 // (wait_for): a missing peer leaves an error code in the workspace
 // instead of hanging the card.
 //
@@ -64,16 +66,27 @@
 //    kUnroll 16-byte loads in flight before its stores. (A flag for each
 //    quarter of a range let no quarter arrive early: the links carry
 //    every block's stores at once, and the fences cost more than the
-//    overlap gained.)
+//    overlap gained.) Flags are stored relaxed after one system fence
+//    (signal), as the reduce-scatter's.
 //  - No entry barrier: the chunks land in one of two regions, used in
 //    turn from call to call (the data region, then the staging slots).
 //    After its copy-out a block releases its range of the slot to the
 //    sender (freed); the sender of the call after next waits for
 //    that release before it stores into the same region, which by then
-//    has almost always long happened. Only an all-to-all that follows
-//    a ring call (the hop, the all-reduce, the all-gather) on the
-//    workspace opens with the all-peer barrier (entered): the ring
-//    kernels use both regions too.
+//    has almost always long happened. Only a call that follows a ring
+//    call (the hop, the all-reduce) on the workspace opens with the
+//    all-peer barrier (entered): the ring kernels use both regions too.
+//
+// The all-gather is the same kernel (all_to_all_kernel<true>) with one
+// source for every peer: rank r's input, one chunk, lands at chunk r of
+// every output, its own too. A ring of n-1 dependent steps keeps one
+// link busy at a time, each step behind its left neighbour's flag, a
+// system fence and a release store; pushing to every peer at once loads
+// every link (on four H100s at 700 W: 0.038 ms for the 9.44 MB gathered
+// at n 4, the ring 0.049). It shares the landing regions and their
+// bookkeeping, so FSDP's stream of gathers and reduce-scatters runs with
+// no entry barrier. A region holds n chunk slots (slot s for rank s),
+// the n x shard bytes that workspace_bytes gives it (ops/ring.py).
 //
 // The reduce-scatter (ring_reduce_scatter_kernel) moves the same bytes
 // as the ring, (n-1)/n of the tensor a rank, but not through n-1
@@ -100,11 +113,11 @@
 //    about 25 us after entry (some 290 GB/s a direction, against 450)
 //    and the sums about 6 us later.
 //  - It shares the all-to-all's two landing regions, used in turn across
-//    both ops' calls, and their bookkeeping: no entry barrier after an
-//    all-to-all or a reduce-scatter, the all-peer barrier after a ring
-//    call. A region holds the n-1 slots of chunks, slot k - 1 for the
-//    k-th rank after the receiver, so that the receiver reads its slots
-//    in order.
+//    the three ops' calls, and their bookkeeping: no entry barrier after
+//    an all-to-all, an all-gather or a reduce-scatter, the all-peer
+//    barrier after a ring call. A region holds the n-1 slots of chunks,
+//    slot k - 1 for the k-th rank after the receiver, so that the
+//    receiver reads its slots in order.
 // Loopback: the n workspaces of one card, one cooperative launch of n x
 // nblk blocks (all resident at once, as the waits between blocks need).
 //
@@ -172,29 +185,11 @@ __global__ void __launch_bounds__(kThreads) ring_all_reduce_kernel(Params p) {
   move(c, c.y + last * e, nullptr, data(c.me) + last * e, nullptr);
 }
 
-__global__ void __launch_bounds__(kThreads) ring_all_gather_kernel(Params p) {
-  const Ctx c = make_ctx(p, kAllGather);
-  const int n = c.n;
-  const long long e = c.chunk;
-  if (!enter(c)) return;
-  // step s sends chunk (r - s) mod n: this rank's own block at s = 0, then
-  // the chunk that arrived at step s-1
-  for (int s = 0; s < n - 1; ++s) {
-    const int k = ((c.r - s) % n + n) % n;
-    if (s > 0 && !wait_for(c, arrive(c.me, c.b), c.base + s, s - 1)) return;
-    move(c, data(c.rw) + k * e, c.y + k * e,
-         s > 0 ? data(c.me) + k * e : c.x, nullptr);
-    publish(arrive(c.rw, c.b), c.base + s + 1);
-  }
-  if (!wait_for(c, arrive(c.me, c.b), c.base + n - 1, n - 2)) return;
-  const int last = (c.r + 1) % n;
-  move(c, c.y + last * e, nullptr, data(c.me) + last * e, nullptr);
-}
-
-// Entry barrier of an all-to-all or reduce-scatter that follows a ring
-// call: block 0 of the rank tells every peer that the rank has entered
-// the call (so it has finished the previous one: kernels on one stream
-// run in order); every block waits until every peer says the same.
+// Entry barrier of a push-design call (all-to-all, all-gather,
+// reduce-scatter) that follows a ring call: block 0 of the rank tells
+// every peer that the rank has entered the call (so it has finished the
+// previous one: kernels on one stream run in order); every block waits
+// until every peer says the same.
 __device__ __forceinline__ bool enter_all(const Ctx& c, const Params& p) {
   if (threadIdx.x == 0 && c.b == 0) {
     __threadfence_system();
@@ -263,19 +258,18 @@ __device__ __forceinline__ void copy_range(const Ctx& c, float* y,
   }
 }
 
-// The all-to-all's and the reduce-scatter's trace: when set
-// (ring_a2a_trace), thread 0 of each block stores %globaltimer at the
-// block's phases into a2a_stamps[blockIdx * kStamps + phase]: 0 entry; 1
-// its stores may start (after the barrier and the release wait) and 2
-// its ranges stored and flagged (own-chunk and pushing blocks); 3 its
-// range arrived and 4 copied out (or summed) and released (copy-out and
-// summing blocks).
+// The push designs' trace (all-to-all, all-gather, reduce-scatter): when
+// set (ring_a2a_trace, passed in Params::stamps), thread 0 of each block
+// stores %globaltimer at the block's phases into stamps[blockIdx *
+// kStamps + phase]: 0 entry; 1 its stores may start (after the barrier
+// and the release wait) and 2 its ranges stored and flagged (own-chunk
+// and pushing blocks); 3 its range arrived and 4 copied out (or summed)
+// and released (copy-out and summing blocks).
 constexpr int kStamps = 5;
-__device__ unsigned long long* a2a_stamps = nullptr;
 
-__device__ __forceinline__ void stamp(int phase) {
-  if (a2a_stamps != nullptr && threadIdx.x == 0)
-    a2a_stamps[blockIdx.x * kStamps + phase] = now_ns();
+__device__ __forceinline__ void stamp(const Params& p, int phase) {
+  if (p.stamps != nullptr && threadIdx.x == 0)
+    p.stamps[blockIdx.x * kStamps + phase] = now_ns();
 }
 
 // Range b of the P = p.nblk ranges a chunk: [c.lo, c.hi), a multiple of
@@ -287,8 +281,7 @@ __device__ __forceinline__ void set_range(Ctx& c, const Params& p, int b) {
 }
 
 // The context of rank r's block `local` of the per_rank blocks a rank of
-// the all-to-all and the reduce-scatter, with local itself as its block
-// in error codes.
+// a push design, with local itself as its block in error codes.
 __device__ __forceinline__ Ctx peer_ctx(const Params& p, int op,
                                         int per_rank, int* local) {
   const bool loop = p.rank < 0;
@@ -302,8 +295,8 @@ __device__ __forceinline__ Ctx peer_ctx(const Params& p, int op,
   return c;
 }
 
-// A call's entry in the all-to-all and the reduce-scatter: a rank
-// poisoned by an earlier timeout does nothing; after a ring call, the
+// A call's entry in a push design: a rank poisoned by an earlier timeout
+// does nothing; after a ring call, the
 // all-peer barrier.
 __device__ __forceinline__ bool open_call(const Ctx& c, const Params& p) {
   int ok = 1;
@@ -331,40 +324,46 @@ __device__ __forceinline__ bool wait_freed(const Ctx& c, const Params& p,
 
 // Rank r's block `local` of (2n - 1) * P: role = local / P (0: its own
 // chunk; k in [1, n): pushes to the k-th peer after it; n - 1 + k: copies
-// out what the k-th peer before it pushed), range b = local % P.
+// out what the k-th peer before it pushed), range b = local % P. The
+// all-to-all (kGather false) sends chunk j of its input to peer j; the
+// all-gather (kGather true) sends its whole input, one chunk, to every
+// peer and keeps it as chunk r of its own output.
+template <bool kGather>
 __global__ void __launch_bounds__(kThreads) all_to_all_kernel(Params p) {
   const int n = p.n;
   int local;
-  Ctx c = peer_ctx(p, kAllToAll, (2 * n - 1) * p.nblk, &local);
+  Ctx c = peer_ctx(p, kGather ? kAllGather : kAllToAll, (2 * n - 1) * p.nblk,
+                   &local);
   const int role = local / p.nblk, b = local % p.nblk;
   set_range(c, p, b);
   const long long e = p.chunk;
-  stamp(0);
+  stamp(p, 0);
   if (!open_call(c, p)) return;
   if (role == 0) {
-    stamp(1);
-    copy_range(c, c.y + c.r * e, c.x + c.r * e);
+    stamp(p, 1);
+    copy_range(c, c.y + c.r * e, kGather ? c.x : c.x + c.r * e);
     __syncthreads();
-    stamp(2);
+    stamp(p, 2);
   } else if (role < n) {
-    // push range b of chunk j into rank j's slot r, once j has copied
-    // out what this rank left there in the last call that used the
-    // region (its every range: that call may have split the chunk
+    // push range b of the chunk for j into rank j's slot r, once j has
+    // copied out what this rank left there in the last call that used
+    // the region (its every range: that call may have split the chunk
     // otherwise)
     const int j = (c.r + role) % n;
     if (!wait_freed(c, p, j)) return;
-    stamp(1);
-    copy_range(c, region(c, p, p.ws[j]) + c.r * e, c.x + j * e);
-    publish(landed(p.ws[j], c.r, b), c.epoch);
-    stamp(2);
+    stamp(p, 1);
+    copy_range(c, region(c, p, p.ws[j]) + c.r * e,
+               kGather ? c.x : c.x + j * e);
+    signal(landed(p.ws[j], c.r, b), c.epoch);
+    stamp(p, 2);
   } else {
     // rank s, the k-th before this one, pushes here as to its k-th peer
     const int s = (c.r + 2 * n - 1 - role) % n;
     if (!wait_for(c, landed(c.me, s, b), c.epoch, s)) return;
-    stamp(3);
+    stamp(p, 3);
     copy_range(c, c.y + s * e, region(c, p, c.me) + s * e);
-    publish(freed(p.ws[s], c.r, b), c.epoch);
-    stamp(4);
+    signal(freed(p.ws[s], c.r, b), c.epoch);
+    stamp(p, 4);
   }
 }
 
@@ -439,15 +438,15 @@ __global__ void __launch_bounds__(kThreads)
   const int role = local / p.nblk, b = local % p.nblk;
   const long long e = p.chunk;
   set_range(c, p, b);
-  stamp(0);
+  stamp(p, 0);
   if (!open_call(c, p)) return;
   if (role < n - 1) {
     const int j = (c.r + role + 1) % n;
     if (!wait_freed(c, p, j)) return;
-    stamp(1);
+    stamp(p, 1);
     copy_range(c, region(c, p, p.ws[j]) + (n - role - 2) * e, c.x + j * e);
     signal(landed(p.ws[j], c.r, b), c.epoch);
-    stamp(2);
+    stamp(p, 2);
   }
   // the n - 1 sources' range b, then this block's part of its sum
   if (!wait_each(
@@ -455,7 +454,7 @@ __global__ void __launch_bounds__(kThreads)
           [&](int q) { return landed(c.me, (c.r + q + 1) % n, b); },
           [&](int q) { return (c.r + q + 1) % n; }))
     return;
-  stamp(3);
+  stamp(p, 3);
   const long long part = ((c.hi - c.lo + n - 1) / n + 3) / 4 * 4;
   c.lo = min(c.hi, c.lo + role * part);
   c.hi = min(c.hi, c.lo + part);
@@ -484,15 +483,19 @@ __global__ void __launch_bounds__(kThreads)
         st_relaxed(freed(p.ws[(c.r + k) % n], c.r, b), c.epoch);
     }
   }
-  stamp(4);
+  stamp(p, 4);
 }
+
+// the trace buffer of each device's calls (ring_a2a_trace), host side
+constexpr int kMaxDevices = 64;
+unsigned long long* trace_stamps[kMaxDevices] = {};
 
 const void* const kKernels[5] = {
     (const void*)(ring_hop_kernel),
     (const void*)(ring_all_reduce_kernel),
     (const void*)(ring_reduce_scatter_kernel),
-    (const void*)(ring_all_gather_kernel),
-    (const void*)(all_to_all_kernel)};
+    (const void*)(all_to_all_kernel<true>),
+    (const void*)(all_to_all_kernel<false>)};
 
 }  // namespace
 }  // namespace ring
@@ -502,12 +505,12 @@ extern "C" {
 // One call of collective `op` (0 hop, 1 all-reduce, 2 reduce-scatter,
 // 3 all-gather, 4 all-to-all). ws: n workspace addresses as mapped in
 // this process (the ring kernels read this rank's and its two
-// neighbours', the all-to-all and the reduce-scatter every one). in /
-// out: one address (dist, rank >= 0) or n (loopback, rank < 0). chunk:
-// floats a chunk. nblk: blocks a rank (the all-to-all and the
-// reduce-scatter: ranges a chunk, and (2n - 1) * nblk or n * nblk blocks
-// a rank). prev_epoch, prev_nblk, region, barrier: the all-to-all's and
-// the reduce-scatter's (Params), 0 for the others. The launch goes on
+// neighbours', the push designs every one). in / out: one address (dist,
+// rank >= 0) or n (loopback, rank < 0). chunk: floats a chunk. nblk:
+// blocks a rank (the push designs: ranges a chunk, and (2n - 1) * nblk
+// blocks a rank for the all-to-all and the all-gather, n * nblk for the
+// reduce-scatter). prev_epoch, prev_nblk, region, barrier: the push
+// designs' (Params), 0 for the ring kernels. The launch goes on
 // `stream`; returns a cudaError_t as int.
 int ring_launch(int device, int op, const unsigned long long* ws,
                 const unsigned long long* in, const unsigned long long* out,
@@ -516,9 +519,10 @@ int ring_launch(int device, int op, const unsigned long long* ws,
                 long long prev_epoch, int prev_nblk, int region,
                 int barrier, void* stream) {
   using namespace ring;
-  const int blocks_a_rank = op == kAllToAll       ? (2 * n - 1) * nblk
-                            : op == kReduceScatter ? n * nblk
-                                                   : nblk;
+  const int blocks_a_rank =
+      op == kAllToAll || op == kAllGather ? (2 * n - 1) * nblk
+      : op == kReduceScatter              ? n * nblk
+                                          : nblk;
   if (op < 0 || op > 4 || n < 2 || n > kMaxRanks || rank >= n ||
       nblk < 1 || nblk > kMaxBlocks || chunk < 1 || epoch < 1 ||
       prev_epoch < 0 || prev_epoch >= epoch || prev_nblk < 0 ||
@@ -546,6 +550,8 @@ int ring_launch(int device, int op, const unsigned long long* ws,
   p.prev_nblk = prev_nblk;
   p.region = region;
   p.barrier = barrier;
+  p.stamps = device >= 0 && device < kMaxDevices ? trace_stamps[device]
+                                                 : nullptr;
   void* args[] = {&p};
   const dim3 grid(static_cast<unsigned>(blocks_a_rank * here)),
       block(kThreads);
@@ -557,14 +563,15 @@ int ring_launch(int device, int op, const unsigned long long* ws,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Trace the all-to-all calls that follow into `stamps` (kStamps words a
-// block of the launch, zeroed by the caller), or stop with nullptr.
+// Trace the push designs' calls that follow on `device` into `stamps`
+// (kStamps words a block of the launch, zeroed by the caller), or stop
+// with nullptr.
 int ring_a2a_trace(int device, void* stamps) {
   using namespace ring;
-  cudaError_t e = cudaSetDevice(device);
-  if (e == cudaSuccess)
-    e = cudaMemcpyToSymbol(a2a_stamps, &stamps, sizeof(stamps));
-  return static_cast<int>(e);
+  if (device < 0 || device >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidValue);
+  trace_stamps[device] = static_cast<unsigned long long*>(stamps);
+  return 0;
 }
 
 // A zeroed workspace of `bytes` on `device`.

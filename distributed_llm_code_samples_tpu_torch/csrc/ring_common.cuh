@@ -16,24 +16,24 @@
 //                      the epoch of the call it has entered
 //   [2048, 2048+8*64)  summed[b] (reduce-scatter): this rank's own count
 //                      of the parts of range b summed, n a call
-//   [4096, 8192)       landed[j][b] (all-to-all, reduce-scatter):
+//   [4096, 8192)       landed[j][b] (the push designs: all-to-all,
+//                      all-gather, reduce-scatter):
 //                      written by rank j, the epoch of the call once
 //                      range b of its chunk has landed here
-//   [8192, 12288)      entered[j] (all-to-all, reduce-scatter): written
+//   [8192, 12288)      entered[j] (the push designs): written
 //                      by rank j, the epoch of the call it has entered
 //                      (the entry barrier of a call that follows a ring
 //                      call)
-//   [12288, 16384)     freed[j][b] (all-to-all, reduce-scatter): written
+//   [12288, 16384)     freed[j][b] (the push designs): written
 //                      by rank j, the epoch of the call whose range b it
 //                      has read out of the slot this rank fills in j's
 //                      workspace
-//   [16384, ...)       data region: capacity bytes (hop, all-gather, the
-//                      all-reduce's second phase land here; the
-//                      all-to-all's and the reduce-scatter's chunks in
-//                      calls of even count)
+//   [16384, ...)       data region: capacity bytes (the hop and the
+//                      all-reduce's second phase land here; the push
+//                      designs' chunks in calls of even count)
 //   [stage_off, ...)   staging slots: n-1 chunks (the all-reduce's reduce
-//                      phase); the all-to-all's and the reduce-scatter's
-//                      chunks in calls of odd count
+//                      phase); the push designs' chunks in calls of odd
+//                      count
 //
 // Flags only grow. Each call carries an epoch that every rank counts the
 // same way (one a call, the same call sequence on every rank), so a flag
@@ -80,19 +80,23 @@ struct Params {
   int n;
   int rank;                     // < 0: loopback, rank = blockIdx over
                                 // the blocks a rank
-  int nblk;                     // blocks a rank (all-to-all: ranges a
-                                // chunk, (2n - 1) * nblk blocks a rank;
+  int nblk;                     // blocks a rank (all-to-all, all-gather:
+                                // ranges a chunk, (2n - 1) * nblk blocks
+                                // a rank;
                                 // reduce-scatter: ranges a chunk,
                                 // n * nblk blocks a rank)
   int vec;                      // 1: 16-byte aligned, chunk % 4 == 0
-  // all-to-all and reduce-scatter: the landing region of this call (0
-  // data, 1 staging), the epoch of the last call that used it (0: none)
-  // and that call's ranges a chunk, and whether the call opens with the
-  // entry barrier
+  // the push designs: the landing region of this call (0 data, 1
+  // staging), the epoch of the last call that used it (0: none) and that
+  // call's ranges a chunk, and whether the call opens with the entry
+  // barrier
   long long prev_epoch;
   int prev_nblk;
   int region;
   int barrier;
+  // the push designs' trace (ring_a2a_trace), or nullptr: a kernel
+  // parameter, so an untraced block reads no global word to know
+  unsigned long long* stamps;
 };
 
 __device__ __forceinline__ uint64_t ld_acquire(const uint64_t* p) {
@@ -189,7 +193,7 @@ __device__ __forceinline__ float* stage(const Ctx& c, char* ws, int slot) {
 }
 
 // Read by the host when a wait passes its deadline: the op, the step it
-// waited for (the all-to-all and the reduce-scatter: the source rank, or
+// waited for (the push designs: the source rank, or
 // kMaxRanks + the peer whose release of its landing slot it waited for),
 // the block and the rank (each + 1, so that 0 means no error).
 __device__ __forceinline__ uint64_t error_code(const Ctx& c, int step) {

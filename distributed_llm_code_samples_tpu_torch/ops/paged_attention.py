@@ -11,8 +11,11 @@ function. There is no fallback from the kernel to the plain version.
 The plain version is the gather two-pass the engine's ``kernel="gather"``
 path runs (gather each slot's blocks into a contiguous view, dequantize,
 then ``decode_attn``'s op order: dot, divide by sqrt(dh), mask to -1e30,
-softmax, PV). The kernel agrees with it to f32 rounding: it sums in
-another order, so the two are not bit-identical.
+softmax, PV). The kernel splits each slot's KV walk into splits of
+``split_plan``'s positions, one block a (slot, KV head, split), and
+merges the splits' softmax statistics in split order: it agrees with the
+plain version to f32 rounding, not bit for bit, and a repeat gives the
+same bits.
 """
 
 from __future__ import annotations
@@ -23,17 +26,59 @@ from . import _build
 
 NAME = "paged_decode_attn"
 _NEG = -1e30
-# the kernel's block width and shared-memory ceiling (csrc/paged_decode_attn.cu)
-_WARPS = 8
+# positions a split aims at (a whole number of paged blocks; split_plan);
+# chip_smoke.py's paged-splits sweep sets it
+SPLIT_POSITIONS = 64
+# a block's shared-memory ceiling on sm_90 (csrc/paged_decode_attn.cu)
 _MAX_SMEM = 232448
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# per (device, stream): the merge's counters (zero between calls: the
+# merging block resets its own) and the splits' partials, grown when a
+# call needs more. Calls on one stream run in order and may share them;
+# calls on two streams of a card may overlap, so each stream has its own.
+_WORKSPACE: dict = {}
 
 
-def smem_bytes(g: int, dh: int, tcap: int) -> int:
-    """Shared memory one kernel block needs: q ``[G, dh]``, the score row
-    ``[G, tcap]``, per-warp ``p.V`` partials ``[8, G, dh]`` and a
-    reduction scratch, all f32 (the kernel's ``smem_floats``)."""
-    return 4 * (g * dh + g * tcap + _WARPS * g * dh + _WARPS)
+def smem_bytes(g: int, dh: int, pos: int, blk: int, splits: int,
+               itemsize: int = 4) -> int:
+    """Shared memory one block of the kernel needs (its ``Smem``): the
+    split's K and V tiles ``[pos, dh]`` at the storage type (each rounded
+    up to 16 bytes), then f32 q ``[G, dh]``, scores ``[G, pos]``, the
+    split's (m, l) ``[2, G]``, the merge's ``[2, splits, G]`` and merged
+    l ``[G]``, the scales ``[2, pos / blk]``, int32 table entries
+    ``[pos / blk]`` and a flag."""
+    bps = pos // blk
+    tile = -(-pos * dh * itemsize // 16) * 16
+    floats = g * dh + g * pos + 2 * g + 2 * splits * g + g + 2 * bps
+    return 2 * tile + 4 * (floats + bps + 1)
+
+
+def split_plan(b: int, hq: int, hkv: int, dh: int, blk: int, mb: int,
+               itemsize: int = 4):
+    """``(pos, splits, grid, smem, workspace)``: the kernel's split of a
+    table of ``mb`` blocks of ``blk`` positions into ``splits`` splits of
+    ``pos`` positions (a whole number of blocks, about
+    ``SPLIT_POSITIONS``, halved until a block's shared memory fits), its
+    grid ``(b, hkv, splits)``, one block's shared bytes
+    (``smem_bytes``) and the workspace bytes: ``b * hkv`` counters and
+    the partials ``[b * hkv, splits, G * dh + 2G]`` f32. From shapes
+    alone: the lengths never come back to the host. ``itemsize``: the
+    pool's bytes an element."""
+    g = hq // hkv
+    bps = max(1, min(mb, SPLIT_POSITIONS // blk))
+    while True:
+        pos, splits = bps * blk, -(-mb // bps)
+        smem = smem_bytes(g, dh, pos, blk, splits, itemsize)
+        if smem <= _MAX_SMEM or bps == 1:
+            break
+        bps = (bps + 1) // 2
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"paged_decode_attn needs {smem} bytes of shared memory for a "
+            f"split of one block of {blk} positions x {dh} x {g} query "
+            f"rows over {splits} splits; a block has {_MAX_SMEM}")
+    work = 4 * b * hkv + 4 * b * hkv * splits * (g * dh + 2 * g)
+    return pos, splits, (b, hkv, splits), smem, work
 
 
 def _check(q, pool_k, pool_v, k_scale, v_scale, tables, lengths):
@@ -124,15 +169,35 @@ def paged_decode_attn(q, pool_k, pool_v, k_scale, v_scale, tables, lengths):
     if k_scale is not None and (k_scale.dtype != torch.float32
                                 or v_scale.dtype != torch.float32):
         raise ValueError("scales must be float32")
-    need = smem_bytes(hq // hkv, dh, mb * blk)
-    if need > _MAX_SMEM:
-        raise ValueError(
-            f"paged_decode_attn needs {need} bytes of shared memory for a "
-            f"score row of {mb * blk} positions x {hq // hkv} query rows; "
-            f"a block has {_MAX_SMEM}")
+    pos, splits, _, _, _ = split_plan(b, hq, hkv, dh, blk, mb,
+                                      pool_k.element_size())
+    g = hq // hkv
+    counters, part = _workspace(q.device, b * hkv,
+                                b * hkv * splits * (g * dh + 2 * g))
+    vec = int((blk * dh * pool_k.element_size()) % 16 == 0
+              and pool_k.data_ptr() % 16 == 0
+              and pool_v.data_ptr() % 16 == 0)
     y = torch.empty_like(q)
     _build.launch(NAME, "paged_decode_attn_launch",
-                  [_ptr(t) for t in tensors] + [_ptr(y)],
-                  (b, hq, hkv, blk, dh, mb, _DTYPE_CODES[pool_k.dtype]),
+                  [_ptr(t) for t in tensors] + [_ptr(y), _ptr(part),
+                                                 _ptr(counters)],
+                  (b, hq, hkv, blk, dh, mb, pos, splits,
+                   _DTYPE_CODES[pool_k.dtype], vec),
                   q.device, NAME)
     return y
+
+
+def _workspace(device, n_counters: int, n_floats: int):
+    """The ``(counters, partials)`` of ``device``'s current stream, grown
+    to at least these sizes. A grown counter buffer starts at zero; every
+    call leaves its counters at zero."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    counters, part = _WORKSPACE.get(key, (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    if part is None or part.numel() < n_floats:
+        part = torch.empty(max(n_floats, 1), dtype=torch.float32,
+                           device=device)
+    _WORKSPACE[key] = (counters, part)
+    return counters, part
+

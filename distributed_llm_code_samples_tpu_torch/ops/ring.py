@@ -75,13 +75,14 @@ _A2A_FLOATS_PER_RANGE = 4096
 # range: n * RS_RANGES blocks a rank
 RS_RANGES = 32
 _RS_FLOATS_PER_RANGE = 4096
-# a loopback all-to-all or reduce-scatter is one cooperative launch of
-# n * (2n - 1) * ranges or n * n * ranges blocks, all resident at once:
-# at most one a streaming multiprocessor
+# a loopback all-to-all, all-gather or reduce-scatter is one cooperative
+# launch of n * (2n - 1) * ranges or n * n * ranges blocks, all resident
+# at once: at most one a streaming multiprocessor
 _LOOPBACK_BLOCKS = 128
-# the ops whose chunks land in the two regions in turn (csrc/
-# ring_collectives.cu); the ring kernels store into both regions
-REGION_OPS = (ALL_TO_ALL, REDUCE_SCATTER)
+# the push designs, whose chunks land in the two regions in turn (csrc/
+# ring_collectives.cu); the ring kernels (the hop, the all-reduce) store
+# into both regions
+REGION_OPS = (ALL_TO_ALL, REDUCE_SCATTER, ALL_GATHER)
 # how long a kernel waits for a neighbour before it gives up and leaves
 # an error code (a late neighbour is seconds behind, a lost one forever)
 WAIT_TIMEOUT_S = 30.0
@@ -123,7 +124,7 @@ def describe_error(code: int) -> str:
     names = {v: k for k, v in _OPS.items()}
     if step < 0:
         where = "the entry barrier"
-    elif op not in (_OPS[ALL_TO_ALL], _OPS[REDUCE_SCATTER]):
+    elif op not in {_OPS[o] for o in REGION_OPS}:
         where = f"step {step}"
     elif step < _MAX_RANKS:
         where = f"rank {step}'s chunk"
@@ -173,10 +174,9 @@ class PeerWorkspace:
                              f"to {_MAX_RANKS}")
         self.rank = None if self.loopback else dist.get_rank(group)
         self.epoch = 0
-        # the landing regions of the all-to-all and the reduce-scatter
-        # (REGION_OPS): their calls so far, the epoch and the ranges a
-        # chunk of the last call that used each region, and the op of the
-        # last call
+        # the landing regions of the push designs (REGION_OPS): their
+        # calls so far, the epoch and the ranges a chunk of the last call
+        # that used each region, and the op of the last call
         self.region_calls = 0
         self.region_last = [(0, 0), (0, 0)]
         self.last_op: Optional[str] = None
@@ -341,8 +341,8 @@ def _blocks(chunk: int) -> int:
 
 
 def _a2a_ranges(chunk: int, n: int, loopback: bool) -> int:
-    """Ranges a chunk of the all-to-all splits into ((2n - 1) * ranges
-    blocks a rank)."""
+    """Ranges a chunk of the all-to-all or the all-gather splits into
+    ((2n - 1) * ranges blocks a rank)."""
     cap = _MAX_BLOCKS
     if loopback:
         cap = min(cap, _LOOPBACK_BLOCKS // (n * (2 * n - 1)))
@@ -400,7 +400,7 @@ def _launch(op: str, ins, outs, ws: PeerWorkspace, rank: int) -> None:
         *[t.data_ptr() for t in ts])
     stream = torch.cuda.current_stream(ws.device).cuda_stream
     epoch = ws.next_epoch()
-    if op == ALL_TO_ALL:
+    if op in (ALL_TO_ALL, ALL_GATHER):
         nblk = _a2a_ranges(chunk, n, rank < 0)
     elif op == REDUCE_SCATTER:
         nblk = _rs_ranges(chunk, n, rank < 0)
@@ -456,11 +456,11 @@ def loopback(op: str, xs, ws: PeerWorkspace) -> list:
 def workspace_bytes(op: str, x: torch.Tensor, n: int) -> int:
     """The workspace a call of ``op`` on ``x`` over n ranks needs (its
     ``capacity``: the data region and the staging slots have as much
-    each): the data region holds the gathered tensor (all-gather,
-    all-reduce), the hop's block, or the incoming chunks of the all-to-all
-    (a chunk slot for each rank) and of the reduce-scatter (n-1 chunk
-    slots), which land in the data region and the staging slots in
-    turn."""
+    each): the data region holds the all-reduce's tensor, the hop's
+    block, or the incoming chunks of the all-to-all and of the all-gather
+    (a chunk slot for each rank, at the rank's offset: n shards for the
+    all-gather) and of the reduce-scatter (n-1 chunk slots), which land
+    in the data region and the staging slots in turn."""
     nbytes = x.numel() * x.element_size()
     return {HOP: nbytes, ALL_REDUCE: nbytes, ALL_GATHER: n * nbytes,
             ALL_TO_ALL: nbytes, REDUCE_SCATTER: (n - 1) * nbytes // n}[op]
@@ -519,7 +519,9 @@ def ring_reduce_scatter(x: torch.Tensor, ring) -> torch.Tensor:
 
 def ring_all_gather(x: torch.Tensor, ring) -> torch.Tensor:
     """``all_gather(x, dim=0)``: ``[n * rows, ...]`` with chunk i rank
-    i's block."""
+    i's block. The kernel is the all-to-all's push with one source for
+    every peer (``all_to_all_kernel<true>``); the plain version is the
+    ring of hops."""
     return _collective(ALL_GATHER, x, ring)
 
 
@@ -538,12 +540,12 @@ A2A_PHASES = ("entry", "start", "pushed", "arrived", "released")
 
 
 def traced(call, device) -> torch.Tensor:
-    """Run ``call()`` (one all-to-all or reduce-scatter launch on
-    ``device``) with the kernel's trace on: returns ``[blocks,
+    """Run ``call()`` (one all-to-all, all-gather or reduce-scatter launch
+    on ``device``) with the kernel's trace on: returns ``[blocks,
     len(A2A_PHASES)]`` int64 %globaltimer stamps in ns (0 where a block
-    has no such phase; every block of the reduce-scatter sums, so each
-    stamps "arrived" and "released", and its pushing blocks also "start"
-    and "pushed")."""
+    has no such phase; the all-gather's blocks stamp as the all-to-all's;
+    every block of the reduce-scatter sums, so each stamps "arrived" and
+    "released", and its pushing blocks also "start" and "pushed")."""
     device = torch.device(device)
     lib = _lib()
     index = (device.index if device.index is not None

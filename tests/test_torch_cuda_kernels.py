@@ -1,7 +1,7 @@
 """The CUDA kernels of the LM trainer's path (flash attention forward and
 backward; the fused head's statistics and backward), the three FFN
-kernels, the ring kernels and the all-to-all against
-their plain versions, on the card. Every
+kernels, the paged decode attention, the ring kernels and the
+all-to-all against their plain versions, on the card. Every
 test here needs a CUDA device with nvcc and skips without one. The file
 imports no JAX, so it runs where the card is:
 
@@ -428,15 +428,16 @@ def test_ring_wait_gives_up_and_raises(card, monkeypatch):
 @pytest.mark.parametrize("n", [2, 4])
 def test_ring_ops_in_sequence_on_one_workspace(card, n):
     """One workspace through all-gather, reduce-scatter, reduce-scatter,
-    all-reduce, all-to-all, reduce-scatter, all-gather (the landing
-    regions in turn, the entry barrier after each ring call, chunks of
-    changing size), twice: every output bit-identical to its plain
-    version."""
+    all-reduce, all-to-all, all-gather, reduce-scatter, all-gather (the
+    landing regions in turn across the three push designs, an all-gather
+    right after an all-to-all and after a reduce-scatter, the entry
+    barrier after the ring call, chunks of changing size), twice: every
+    output bit-identical to its plain version."""
     from distributed_llm_code_samples_tpu_torch.ops import ring
     rng = np.random.default_rng(40 + n)
     seq = ((ring.ALL_GATHER, (6, 33)), (ring.REDUCE_SCATTER, (n * 64, 48)),
            (ring.REDUCE_SCATTER, (n * 5, 7)), (ring.ALL_REDUCE, (n * 4, 33)),
-           (ring.ALL_TO_ALL, (n * 3, 101)),
+           (ring.ALL_TO_ALL, (n * 3, 101)), (ring.ALL_GATHER, (5, 7)),
            (ring.REDUCE_SCATTER, (n * 256, 768)),
            (ring.ALL_GATHER, (256, 768)))
     ws = ring.PeerWorkspace(4 * n * 256 * 768, "cuda", n=n)
@@ -446,7 +447,7 @@ def test_ring_ops_in_sequence_on_one_workspace(card, n):
             got = ring.loopback(op, xs, ws)
             for g, w in zip(got, ring.loopback_ref(op, xs)):
                 assert torch.equal(g, w), (i, op)
-        assert ws.region_calls == 8
+        assert ws.region_calls == 14
         ws.check()
     finally:
         ws.close()
@@ -743,3 +744,125 @@ def test_loopback_ddp_and_fsdp_agree_through_the_ring_kernels(card):
     for a, b in zip(ddp, fsdp):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
     assert float((ddp.w1 - params.w1).abs().max()) > 1e-4
+
+
+# the paged decode attention (split KV walk, csrc/paged_decode_attn.cu):
+# (tag, H, H_kv, dh, block, MB, lengths). The serving shape (more than one
+# split for most slots), GQA with ragged lengths (1, a block boundary and
+# one past it, the whole table), a table of 8192 positions with G 8 and
+# dh 128 (past the old kernel's shared-memory cap), and a tile of 3 x 5
+# that is not 16-byte aligned at any storage type (the plain-load path).
+PAGED_CASES = (
+    ("serving", 12, 12, 64, 16, 64, (57, 320, 65, 148, 84, 211, 120, 276)),
+    ("gqa_ragged", 12, 4, 64, 16, 64, (1, 16, 17, 300, 77, 1024, 5, 513)),
+    ("long", 64, 8, 128, 16, 512, (8192, 1, 4000, 65)),
+    ("unaligned", 6, 3, 5, 3, 30, (1, 3, 4, 90, 64)))
+PAGED_TOL = 2e-5
+
+
+def paged_case(kv_dtype, hq, hkv, dh, blk, mb, lengths, seed):
+    from distributed_llm_code_samples_tpu_torch.decode.paged import (
+        _quantize)
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    nb = 1 + b * mb
+    k = normal(rng, nb, hkv, blk, dh)
+    v = normal(rng, nb, hkv, blk, dh)
+    k[0] = v[0] = 0.0
+    ks = vs = None
+    if kv_dtype == "int8":
+        valid = torch.ones(nb, hkv, blk, dtype=torch.bool, device="cuda")
+        k, ks = _quantize(k, valid)
+        v, vs = _quantize(v, valid)
+    elif kv_dtype == "bf16":
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    perm = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((b, mb), np.int32)
+    for i, n in enumerate(lengths):
+        used = -(-int(n) // blk)
+        tables[i, :used] = perm[i * mb:i * mb + used]
+    return (normal(rng, b, hq, dh), k.contiguous(), v.contiguous(), ks, vs,
+            torch.from_numpy(tables).cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=[c[0] for c in PAGED_CASES])
+def test_paged_kernel_splits_match_plain(card, case, kv_dtype):
+    """More than one split a slot, merged by the last split to finish:
+    within 2e-5 of the plain version relative to its largest value, one
+    launch counted, a repeat bit-identical."""
+    from distributed_llm_code_samples_tpu_torch.ops import paged_attention
+    tag, hq, hkv, dh, blk, mb, lengths = case
+    args = paged_case(kv_dtype, hq, hkv, dh, blk, mb, lengths, len(tag))
+    pos, splits = paged_attention.split_plan(len(lengths), hq, hkv, dh, blk,
+                                             mb, args[1].element_size())[:2]
+    assert splits > 1 and max(lengths) > pos
+    before = _build.launch_counts().get("paged_decode_attn", 0)
+    got = paged_attention.paged_decode_attn(*args)
+    again = paged_attention.paged_decode_attn(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["paged_decode_attn"] == before + 2
+    want = paged_attention.paged_decode_attn_ref(*args)
+    assert torch.equal(got, again)
+    err = float((got - want).abs().max())
+    assert err <= PAGED_TOL * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_positions", [16, 32, 128, 256])
+def test_paged_kernel_at_each_split_size(card, monkeypatch, split_positions):
+    """The sweep's split sizes at the serving shape: each agrees with the
+    plain version, and the counters are left at zero for the next call."""
+    from distributed_llm_code_samples_tpu_torch.ops import paged_attention
+    monkeypatch.setattr(paged_attention, "SPLIT_POSITIONS", split_positions)
+    tag, hq, hkv, dh, blk, mb, lengths = PAGED_CASES[0]
+    args = paged_case("f32", hq, hkv, dh, blk, mb, lengths, split_positions)
+    got = paged_attention.paged_decode_attn(*args)
+    torch.cuda.synchronize()
+    want = paged_attention.paged_decode_attn_ref(*args)
+    assert float((got - want).abs().max()) <= PAGED_TOL * float(
+        want.abs().max())
+    counters, _ = paged_attention._workspace(args[0].device, 0, 0)
+    assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_paged_kernel_streams_have_their_own_workspace(card):
+    """Two streams of a card may run calls at once: each gets its own
+    counters and partials, and both agree with the plain version."""
+    from distributed_llm_code_samples_tpu_torch.ops import paged_attention
+    tag, hq, hkv, dh, blk, mb, lengths = PAGED_CASES[0]
+    args = paged_case("f32", hq, hkv, dh, blk, mb, lengths, 3)
+    want = paged_attention.paged_decode_attn_ref(*args)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    got, spaces = [], []
+    torch.cuda.synchronize()
+    for st in streams:
+        with torch.cuda.stream(st):
+            got.append(paged_attention.paged_decode_attn(*args))
+            spaces.append(paged_attention._workspace(args[0].device, 0, 0))
+    torch.cuda.synchronize()
+    assert spaces[0][0].data_ptr() != spaces[1][0].data_ptr()
+    assert spaces[0][1].data_ptr() != spaces[1][1].data_ptr()
+    for y in got:
+        assert float((y - want).abs().max()) <= PAGED_TOL * float(
+            want.abs().max())
+
+
+@pytest.mark.cuda
+def test_paged_shared_memory_plan_equals_the_kernels(card):
+    """``smem_bytes`` (the plan) equals the kernel's own ``Smem``."""
+    import ctypes
+    from distributed_llm_code_samples_tpu_torch.ops import paged_attention
+    f = _build.load_library("paged_decode_attn").paged_decode_attn_smem_bytes
+    f.argtypes = [ctypes.c_int] * 6
+    f.restype = ctypes.c_size_t
+    for _, hq, hkv, dh, blk, mb, _ in PAGED_CASES:
+        for code, itemsize in ((0, 4), (1, 2), (2, 1)):
+            pos, splits = paged_attention.split_plan(1, hq, hkv, dh, blk, mb,
+                                                     itemsize)[:2]
+            assert f(hq // hkv, dh, pos, blk, splits, code) == \
+                paged_attention.smem_bytes(hq // hkv, dh, pos, blk, splits,
+                                           itemsize)

@@ -26,7 +26,7 @@ from distributed_llm_code_samples_tpu.ops.pallas_paged_attention import (
     interpret_supported, paged_decode_attn as j_paged)
 from distributed_llm_code_samples_tpu_torch.ops import _build
 from distributed_llm_code_samples_tpu_torch.ops.paged_attention import (
-    paged_decode_attn, paged_decode_attn_ref, smem_bytes)
+    paged_decode_attn, paged_decode_attn_ref, smem_bytes, split_plan)
 
 ATOL = 1e-6
 BLK, DH, MB = 8, 8, 4
@@ -123,11 +123,18 @@ def test_wrapper_rejects_bad_operands():
 
 
 def test_shared_memory_budget():
-    """The serving shape fits a block's shared memory; a score row past
-    the budget is refused by the wrapper rather than truncated."""
-    assert smem_bytes(1, 64, 1024) == 4 * (64 + 1024 + 8 * 64 + 8)
-    assert smem_bytes(3, 64, 1024) < 232448
-    assert smem_bytes(8, 128, 8192) > 232448
+    """A block's shared memory is its split's (``split_plan``), not the
+    table's: the serving shape and a table of 8192 positions with 8 query
+    rows of 128 (past the old [G, tcap] score row's budget) both fit, and
+    a paged block too large for any split is refused by the wrapper
+    rather than truncated."""
+    pos, splits, _, smem, _ = split_plan(8, 12, 12, 64, 16, 64)
+    assert smem == smem_bytes(1, 64, pos, 16, splits) == 4 * (
+        2 * 64 * 64 + 64 + 64 + 2 + 2 * 16 + 1 + 3 * 4 + 1)
+    assert split_plan(4, 64, 8, 128, 16, 512)[3] < 232448
+    assert smem_bytes(1, 2048, 16, 16, 1) > 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        split_plan(1, 1, 1, 2048, 16, 4)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """The reduce-scatter kernel's plan on the CPU (``ops/ring.py``): the
 order its receivers sum in, the landing regions it shares with the
-all-to-all, and the workspace it needs.
+all-to-all and the all-gather, and the workspace it needs.
 
 The kernel (``csrc/ring_collectives.cu``, ``ring_reduce_scatter_kernel``)
 cannot run here, so ``_receiver_model`` writes out what it does: every
@@ -116,21 +116,26 @@ def _fold(ops):
     return plans
 
 
+# the push designs: every op but the hop and the all-reduce, the two
+# rings
+PUSH_OPS = (ring.ALL_TO_ALL, ring.REDUCE_SCATTER, ring.ALL_GATHER)
+
+
 def _expected(ops):
-    """The rule written out: a ring call plans nothing; an all-to-all or
-    reduce-scatter lands in the other region than the one before it of
-    those two ops, waits for the releases of the last call that used its
-    region, and opens with the barrier right after a ring call."""
+    """The rule written out: a ring call (the hop, the all-reduce) plans
+    nothing; an all-to-all, all-gather or reduce-scatter lands in the
+    other region than the one before it of those three ops, waits for
+    the releases of the last call that used its region, and opens with
+    the barrier right after a ring call."""
     out, used = [], []
     for i, op in enumerate(ops):
-        if op not in (ring.ALL_TO_ALL, ring.REDUCE_SCATTER):
+        if op not in PUSH_OPS:
             out.append((0, (0, 0), 0))
             continue
         region = 0 if not used else 1 - used[-1][1]
         prev = next(((e, 10 + e) for e, reg in reversed(used)
                      if reg == region), (0, 0))
-        ring_before = i > 0 and ops[i - 1] not in (ring.ALL_TO_ALL,
-                                                   ring.REDUCE_SCATTER)
+        ring_before = i > 0 and ops[i - 1] not in PUSH_OPS
         out.append((region, prev, int(ring_before)))
         used.append((i + 1, region))
     return out
@@ -154,6 +159,25 @@ SEQUENCES = {
 def test_region_plan_of_named_sequences(name):
     ops = SEQUENCES[name]
     assert _fold(ops) == _expected(ops)
+
+
+def test_fsdp_stream_opens_with_the_only_barrier():
+    """FSDP's calls on its workspace: the opening hop (a ring call), then
+    per layer two gathers and, in the backward, two reduce-scatters. The
+    first gather after the hop opens with the all-peer barrier; no later
+    call has one, and each lands in the other region than the call
+    before it, waiting for the releases of the call before that."""
+    ops = [ring.HOP] + ([ring.ALL_GATHER] * 2 * 3
+                        + [ring.ALL_GATHER, ring.ALL_GATHER,
+                           ring.REDUCE_SCATTER, ring.REDUCE_SCATTER] * 3)
+    plans = _fold(ops)
+    assert [barrier for _, _, barrier in plans] == [0, 1] + [0] * (
+        len(ops) - 2)
+    assert [region for region, _, _ in plans[1:]] == [
+        k % 2 for k in range(len(ops) - 1)]
+    assert [prev for _, prev, _ in plans[1:3]] == [(0, 0), (0, 0)]
+    assert [prev[0] for _, prev, _ in plans[3:]] == list(
+        range(2, len(ops) - 1))
 
 
 @pytest.mark.parametrize("seed", range(6))
