@@ -40,10 +40,10 @@ each split size, ``paged-splits``), then drives the port's paths:
   one card in loopback (n workspaces, one cooperative launch a call);
   ``--phase dist``, not part of the default run, spawns one rank a card
   on 4 cards over NCCL and peer-mapped memory, holds each kernel against
-  its plain ring and NCCL, traces one reduce-scatter, one all-gather and
-  one all-to-all (``dist-rs-trace``, ``dist-ag-trace``,
-  ``dist-a2a-trace``), trains both strategies under both transports and
-  profiles rank 0;
+  its plain ring and NCCL, traces one reduce-scatter, one all-reduce,
+  one all-gather and one all-to-all (``dist-rs-trace``,
+  ``dist-ar-trace``, ``dist-ag-trace``, ``dist-a2a-trace``), trains both
+  strategies under both transports and profiles rank 0;
 - expert parallelism: ``train_moe_ep`` of the MoE stack of
   ``bench_moe.py``'s headline (d 768, 6 layers, 8 experts of ffn 3072,
   top-2, 8192 tokens a step over 4 ranks) for 8 steps a rank under each
@@ -1181,6 +1181,14 @@ def lm_kernel_phase(torch, np, timer):
                 partial(fa.flash_attention_bwd_ref, dy, q, k, v, y, lse,
                         **kw), lib_b))
         if tag == "main":
+            print("flash-fwd-tiles " + json.dumps(dict(
+                shape=tag, plan=list(fa.FWD_PLAN),
+                smem_bytes={plan_key(p): fa.fwd_smem_bytes(p)
+                            for p in fa.FWD_PLANS},
+                blocks_per_sm={plan_key(p): fa.fwd_blocks_per_sm(p)
+                               for p in fa.FWD_PLANS},
+                ms=flash_fwd_sweep(torch, timer, fa, q, k, v, causal))),
+                flush=True)
             print("flash-bwd-tiles " + json.dumps(dict(
                 shape=tag, plan=list(fa.BWD_PLAN),
                 ms=flash_bwd_sweep(torch, timer, fa, dy, q, k, v, y, lse,
@@ -1246,6 +1254,35 @@ def stats_slice_sweep(torch, timer, fx, h, w, tgt):
     return out
 
 
+def plan_key(plan):
+    return "x".join(map(str, plan))
+
+
+def flash_fwd_sweep(torch, timer, fa, q, k, v, causal):
+    """``{"query_tile x key_tile x stages": {ms, rel_err}}`` of the f32
+    flash forward under each plan of ``fa.FWD_PLANS`` (``fa.FWD_PLAN``
+    replaced for the run; restored after), each run first held to
+    ``FFN_TOL`` against the plain version, with a bit-identical
+    repeat."""
+    want = fa.flash_attention_fwd_ref(q, k, v, causal=causal)
+    default, out = fa.FWD_PLAN, {}
+    try:
+        for plan in fa.FWD_PLANS:
+            fa.FWD_PLAN = plan
+            run = partial(fa.flash_attention_fwd, q, k, v, causal=causal)
+            got, again = run(), run()
+            rel = max(float((g - r).abs().max()) / float(r.abs().max())
+                      for g, r in zip(got, want))
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            check(rel <= FFN_TOL[False] and same,
+                  f"flash_attention_fwd at plan {plan} disagrees: {rel}, "
+                  f"repeat bit-identical {same}")
+            out[plan_key(plan)] = dict(ms=timer.ms(run), rel_err=rel)
+    finally:
+        fa.FWD_PLAN = default
+    return out
+
+
 def flash_bwd_sweep(torch, timer, fa, dy, q, k, v, y, lse, causal):
     """``{"key_tile x stages": {ms, rel_err}}`` of the f32 flash backward
     under each plan of ``FLASH_BWD_PLANS`` (``fa.BWD_PLAN`` replaced for
@@ -1262,7 +1299,7 @@ def flash_bwd_sweep(torch, timer, fa, dy, q, k, v, y, lse, causal):
                       for g, r in zip(run(), want))
             check(rel <= FFN_TOL[False],
                   f"flash_attention_bwd at plan {plan} disagrees: {rel}")
-            out[f"{plan[0]}x{plan[1]}"] = dict(ms=timer.ms(run), rel_err=rel)
+            out[plan_key(plan)] = dict(ms=timer.ms(run), rel_err=rel)
     finally:
         fa.BWD_PLAN = default
     return out
@@ -1823,9 +1860,11 @@ A2A_MAIN = "dispatch"
 # ranges a chunk of the all-to-all (ops/ring.py A2A_RANGES, 32; capped at
 # 4 in a loopback of 4 ranks), timed at the main case
 A2A_RANGE_SWEEP = (4, 16, 32, 64)
-# ranges a chunk of the reduce-scatter (ops/ring.py RS_RANGES, 32), timed
-# across the cards at the main case (dw1)
+# ranges a chunk of the reduce-scatter and of the all-reduce (ops/ring.py
+# RS_RANGES, AR_RANGES, 32; the all-reduce takes at most 32 at n 4),
+# timed across the cards at the main case (dw1)
 RS_RANGE_SWEEP = (8, 16, 32, 64)
+AR_RANGE_SWEEP = (8, 16, 32)
 # one step's gradients, leaf by leaf: EP's relative error against a
 # float64 dense run at most EP_GRAD_RATIO times the f32 dense oracle's
 # (the GRAD_RATIO pattern)
@@ -1971,11 +2010,13 @@ def range_sweep(torch, time_ms, ring, check_ws, agree, kern, sweep=None):
 
 
 def rs_trace_summary(stamps):
-    """One rank's reduce-scatter trace (``ops.ring.traced``) in
-    microseconds from its first block's entry: when its pushing blocks
+    """One rank's reduce-scatter or all-reduce trace (``ops.ring.traced``)
+    in microseconds from its first block's entry: when its pushing blocks
     started and finished, and when its blocks (every block sums) saw
-    their range land from every source and had summed their part (min,
-    median, max)."""
+    their range land from every source and had summed their part (the
+    all-reduce's: stored on to every peer and flagged) and, for the
+    all-reduce, copied out their part of every peer's sum (min, median,
+    max)."""
     s = stamps.double()
     t0 = s[:, 0].min()
     push, summed = s[s[:, 1] > 0], s
@@ -1984,11 +2025,14 @@ def rs_trace_summary(stamps):
         v = (v - t0) / 1e3
         return [float(v.min()), float(v.median()), float(v.max())]
 
-    return dict(pushing_blocks=len(push), summing_blocks=len(summed),
-                push_start_us=spread(push[:, 1]),
-                pushed_us=spread(push[:, 2]),
-                arrived_us=spread(summed[:, 3]),
-                released_us=spread(summed[:, 4]))
+    out = dict(pushing_blocks=len(push), summing_blocks=len(summed),
+               push_start_us=spread(push[:, 1]),
+               pushed_us=spread(push[:, 2]),
+               arrived_us=spread(summed[:, 3]),
+               released_us=spread(summed[:, 4]))
+    if bool((s[:, 5] > 0).all()):
+        out["copied_us"] = spread(s[:, 5])
+    return out
 
 
 @contextlib.contextmanager
@@ -2414,6 +2458,35 @@ def dist_rank(mesh, payload):
     stamps = ring.traced(rs_together, dev)
     mesh.check()
     say("dist-rs-trace", dict(shape="dw1", mode="4 cards",
+                              ranks=gathered(rs_trace_summary(
+                                  stamps.cpu()))))
+    del want, stamps
+    # the all-reduce of dw1 at other ranges a chunk, each run bit-identical
+    # to the plain ring, and one call's own stamps: entry, pushes stored,
+    # sums stored on and flagged, gathers copied out
+    want = ring.ring_all_reduce_ref(x, rg)
+    sweep = range_sweep(
+        torch, aligned, ring, mesh.check,
+        lambda: [torch.equal(ring.ring_all_reduce(x, rg), want)],
+        partial(ring.ring_all_reduce, x, rg),
+        {p: dict(AR_RANGES=p) for p in AR_RANGE_SWEEP})
+    every = gathered(sweep)
+    say("dist-ar-ranges", dict(shape="dw1", mode="4 cards", ms=sweep,
+                               ms_max_over_ranks={
+                                   p: max(e[p] for e in every)
+                                   for p in sweep}))
+
+    def ar_together():
+        torch.cuda._sleep(HOST_COVER_CYCLES)
+        dist.all_reduce(token)
+        ring.ring_all_reduce(x, rg)
+
+    for _ in range(3):          # warm, as the timer's calls are
+        ar_together()
+    stamps = ring.traced(ar_together, dev)
+    mesh.check()
+    say("dist-ar-trace", dict(shape="dw1", mode="4 cards",
+                              phases=ring.A2A_PHASES,
                               ranks=gathered(rs_trace_summary(
                                   stamps.cpu()))))
     del x, want, stamps

@@ -57,15 +57,17 @@
 // comes first.
 
 #include "flash_common.cuh"
-#include "gemm_core.cuh"
 
 namespace {
 
+using flash::chunk;
 using flash::kDH;
 using flash::keep;
+using flash::kLd;
+using flash::load_rows;
+using flash::round_rows;
 
 constexpr int kQB = 64;           // query rows of a dkv tile and a dq block
-constexpr int kLd = kDH + 4;      // row stride of a [rows][dh] tile
 constexpr int kGroup = 256;       // threads of a dkv warp group
 constexpr int kDkvThreads = 2 * kGroup;
 constexpr int kScratchKeys = 128; // the scratch's key rows: Tk rounded up
@@ -78,59 +80,6 @@ struct Bwd {
   int causal, vec;
   float scale;
 };
-
-// Chunk q of this thread's copies of a kRows x 64 tile (16 chunks of 4
-// floats a row): row r, column c.
-template <int kThreadsN>
-__device__ __forceinline__ void chunk(int q, int& r, int& c) {
-  const int e = static_cast<int>(threadIdx.x) + q * kThreadsN;
-  r = e / 16;
-  c = (e % 16) * 4;
-}
-
-// Rows [r0, r0 + kRows) of a [rows][dh] matrix into dst [kRows][ld], zero
-// past `rows` and dh.
-template <int kRows, int kThreadsN>
-__device__ __forceinline__ void load_rows(float* dst, int ld,
-                                          const float* src, int r0,
-                                          int rows, int dh, bool vec) {
-  static_assert(kRows * 16 % kThreadsN == 0, "whole rounds of copies");
-#pragma unroll
-  for (int q = 0; q < kRows * 16 / kThreadsN; ++q) {
-    int r, c;
-    chunk<kThreadsN>(q, r, c);
-    const bool row = r0 + r < rows;
-    const size_t at = static_cast<size_t>(r0 + r) * dh + c;
-    float* d = dst + r * ld + c;
-    if (vec) {
-      const bool ok = row && c < dh;
-      gemm::cp_async16(d, ok ? src + at : src, ok);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool ok = row && c + i < dh;
-        ffn::cp_async4(d + i, ok ? src + at + i : src, ok);
-      }
-    }
-  }
-}
-
-// This thread's chunks of the same tile rounded to bf16, after its wait.
-template <int kRows, int kThreadsN>
-__device__ __forceinline__ void round_rows(float* dst, int ld) {
-#pragma unroll
-  for (int q = 0; q < kRows * 16 / kThreadsN; ++q) {
-    int r, c;
-    chunk<kThreadsN>(q, r, c);
-    float4* p = reinterpret_cast<float4*>(dst + r * ld + c);
-    float4 x = *p;
-    x.x = gemm::bf16_round(x.x);
-    x.y = gemm::bf16_round(x.y);
-    x.z = gemm::bf16_round(x.z);
-    x.w = gemm::bf16_round(x.w);
-    *p = x;
-  }
-}
 
 __host__ __device__ constexpr int dkv_floats(int key_tile, int stages) {
   return 2 * key_tile * kLd + stages * 2 * kQB * kLd +

@@ -1,20 +1,23 @@
 // Peer collectives for Hopper (sm_90a) over peer-mapped memory: one ring
-// hop, the ring all-reduce, reduce-scatter and all-gather, and the dense
+// hop, the all-reduce, reduce-scatter and all-gather, and the dense
 // all-to-all.
 //
 // Replaces the TPU kernels of distributed_llm_code_samples_tpu/ops/
-// pallas_ring.py: `ppermute_dma` (:151), `ring_all_reduce` (:190),
-// `ring_reduce_scatter` (:328; ring_reduce_scatter_kernel below, no
-// longer a ring), `ring_all_gather` (:406; all_to_all_kernel<true>
-// below, no longer a ring) and `all_to_all_dma` (:490;
-// all_to_all_kernel<false>). Every kernel computes the same function with
-// the same chunks (the leading-dim n-split), and each chunk is summed in
-// the Pallas kernels' order: at reduce step s rank r adds its own copy of
-// chunk (v - s - 1) mod n to the partial its left neighbour sent (v = r
-// for the all-reduce, r - 1 for the reduce-scatter, so that rank r owns
-// chunk r). So rank r's chunk of the reduce-scatter is
+// pallas_ring.py: `ppermute_dma` (:151), `ring_all_reduce` (:190;
+// ring_all_reduce_kernel below, no longer a ring), `ring_reduce_scatter`
+// (:328; ring_reduce_scatter_kernel below, no longer a ring),
+// `ring_all_gather` (:406; all_to_all_kernel<true> below, no longer a
+// ring) and `all_to_all_dma` (:490; all_to_all_kernel<false>). Every
+// kernel computes the same function with the same chunks (the leading-dim
+// n-split), and each chunk is summed in the Pallas kernels' order: at
+// reduce step s rank r adds its own copy of chunk (v - s - 1) mod n to
+// the partial its left neighbour sent (v = r for the all-reduce, r - 1
+// for the reduce-scatter, so that rank r owns chunk r). So rank r's chunk
+// of the reduce-scatter is
 //   x_{r+1}[r] + x_{r+2}[r] + ... + x_{r-1}[r], then + x_r[r],
-// added left to right, the order its receiver sums in.
+// and chunk c of the all-reduce is
+//   x_c[c] + x_{c+1}[c] + ... + x_{c-1}[c],
+// added left to right, the order their receivers sum in.
 //
 // What bounds them: bytes over NVLink. Of a tensor of S bytes each rank
 // sends (and receives) 2(n-1)/n S for the all-reduce and (n-1)/n S for
@@ -23,28 +26,18 @@
 // S 9.44 MB (one FFN layer's f32 weight at d 768) that is 14.2 MB, or
 // 31 us, for the all-reduce and 7.1 MB, 16 us, for the others.
 //
-// Design of the hop and the all-reduce, still rings. A Pallas kernel
-// issues remote DMAs and waits on semaphores; on Hopper a rank's threads
-// store straight into its right neighbour's workspace over NVLink
-// (ring_common.cuh has the layout), and a flag word in the receiver's
-// workspace, stored with release semantics after a system fence, says
-// that a step's data has landed. Each kernel splits a
-// chunk into nblk contiguous ranges, one a block, and block b of a rank
-// talks only to block b of its neighbours: nblk independent rings, no
-// synchronisation between the blocks of one rank. Within a call every
-// step writes a different place (n-1 staging slots for a reduce phase,
-// chunk c at its own offset for a gather phase), so no slot is reused and
-// no capacity handshake is needed; across calls the entry barrier (enter)
-// keeps a rank from writing into a neighbour that is still in the
-// previous call. The all-reduce's reduce phase fuses the add with the
-// send: at step s a block reads its own chunk and the partial its left
-// neighbour left in slot s-1, and stores the sum into its right
-// neighbour's slot s. Its second phase lands in the data region, apart
-// from the staging slots, so it needs no phase handoff. The hop lands
-// its block in the receiver's data region and copies it from there into
-// the receiver's output. Every wait ends at a deadline
-// (wait_for): a missing peer leaves an error code in the workspace
-// instead of hanging the card.
+// The hop, still a ring step. A Pallas kernel starts remote DMAs and
+// waits on semaphores; on Hopper a rank's threads store straight into
+// its right neighbour's workspace over NVLink (ring_common.cuh has the
+// layout), and a flag word in the receiver's workspace, stored with
+// release semantics after a system fence, says that the data has
+// landed. The hop splits its block into nblk contiguous ranges, one a
+// block, and block b of a rank talks only to block b of its neighbours.
+// An entry barrier (enter) keeps a rank from writing into a neighbour
+// that is still in the previous call. It lands its block in the
+// receiver's data region, and the receiver copies it into its output.
+// Every wait of every kernel ends at a deadline (wait_for): a missing
+// peer leaves an error code in the workspace instead of hanging the card.
 //
 // The all-to-all (all_to_all_kernel) moves chunk j of rank r's input (the
 // leading-dim n-split) to chunk r of rank j's output, a copy and no sum.
@@ -73,9 +66,9 @@
 //    After its copy-out a block releases its range of the slot to the
 //    sender (freed); the sender of the call after next waits for
 //    that release before it stores into the same region, which by then
-//    has almost always long happened. Only a call that follows a ring
-//    call (the hop, the all-reduce) on the workspace opens with the
-//    all-peer barrier (entered): the ring kernels use both regions too.
+//    has almost always long happened. Only a call that follows the hop
+//    on the workspace opens with the all-peer barrier (entered): the hop
+//    lands in the data region too.
 //
 // The all-gather is the same kernel (all_to_all_kernel<true>) with one
 // source for every peer: rank r's input, one chunk, lands at chunk r of
@@ -114,12 +107,44 @@
 //    and the sums about 6 us later.
 //  - It shares the all-to-all's two landing regions, used in turn across
 //    the three ops' calls, and their bookkeeping: no entry barrier after
-//    an all-to-all, an all-gather or a reduce-scatter, the all-peer
-//    barrier after a ring call. A region holds the n-1 slots of chunks,
+//    another push design, the all-peer barrier after the hop. A region
+//    holds the n-1 slots of chunks,
 //    slot k - 1 for the k-th rank after the receiver, so that the
 //    receiver reads its slots in order.
-// Loopback: the n workspaces of one card, one cooperative launch of n x
-// nblk blocks (all resident at once, as the waits between blocks need).
+// The all-reduce (ring_all_reduce_kernel) is the reduce-scatter's push
+// and sum, then the all-gather's push, in one launch. A ring takes 2(n-1)
+// dependent steps, each behind its left neighbour's flag and two fences,
+// with one link busy at a time (on four H100s at 700 W: 0.083 ms for
+// 9.44 MB at n 4). Here:
+//  - Push: as the reduce-scatter, n x P blocks a rank; blocks of role
+//    k - 1 push range b of chunk j = r + k into j's landing slot and flag
+//    it (landed), all links loaded at once.
+//  - Sum: every block waits for its range from the n-1 sources and sums
+//    its n-th of it in the all-reduce's order (its own copy first, then
+//    slot 0, 1, ...: the k-th rank after it), into its output's chunk r
+//    and straight on to slot r of every peer's other region, with no
+//    whole-chunk handoff. The last of the n blocks of a range flags it to
+//    every peer (gathered) after a fence; each block fences its own
+//    stores before it counts itself done.
+//  - Gather: the same block then copies its n-th of range b of each
+//    peer's summed chunk out of its own other region as the peer's flag
+//    lands; the last of the n releases range b to every peer (freed).
+//  - Regions: the pushes land in this call's region, the sums in the
+//    other, so a call counts as two region uses (ops/ring.py,
+//    region_plan and region_record). The pushes wait for the releases of
+//    the last call whose slots there peers release; the sums need no
+//    release: a block stores into peer j's other region only after j's
+//    push of this call has landed here, so j has ended every earlier
+//    call. After the call its push region is free once it has ended on
+//    the sender (a rank ends only after every peer's gathered flags,
+//    which follow those peers' sums, the reads of that region), and its
+//    gather region is released by the copy-outs (freed), so the next
+//    call lands in the push region with nothing to wait for. A region
+//    holds n chunk slots for the sums, n-1 for the pushes: workspace_bytes
+//    gives it the tensor's bytes.
+//
+// Loopback: the n workspaces of one card, one cooperative launch of every
+// rank's blocks (all resident at once, as the waits between blocks need).
 //
 // Plain C interface, bound with ctypes; every entry takes the device
 // index and makes it current first (this library's runtime keeps its own
@@ -132,64 +157,10 @@
 namespace ring {
 namespace {
 
-__global__ void __launch_bounds__(kThreads) ring_hop_kernel(Params p) {
-  const Ctx c = make_ctx(p, kHop);
-  if (!enter(c)) return;
-  move(c, data(c.rw), nullptr, c.x, nullptr);
-  publish(arrive(c.rw, c.b), c.base + 1);
-  if (!wait_for(c, arrive(c.me, c.b), c.base + 1, 0)) return;
-  move(c, c.y, nullptr, data(c.me), nullptr);
-}
-
-// The all-reduce's reduce phase, the ring with virtual rank v: at step s
-// the block sends its partial of chunk (v - s) mod n to the right
-// neighbour's slot s (at s = 0 its own copy, later its own copy plus the
-// partial that arrived in slot s-1). Returns false if a wait gave up;
-// else the partial of chunk (v + 1) mod n has arrived in slot n-2.
-__device__ __forceinline__ bool reduce_phase(const Ctx& c, int v) {
-  const int n = c.n;
-  const long long e = c.chunk;
-  for (int s = 0; s < n - 1; ++s) {
-    const int send = ((v - s) % n + n) % n;
-    if (s > 0 && !wait_for(c, arrive(c.me, c.b), c.base + s, s - 1))
-      return false;
-    move(c, stage(c, c.rw, s), nullptr, c.x + send * e,
-         s > 0 ? stage(c, c.me, s - 1) : nullptr);
-    publish(arrive(c.rw, c.b), c.base + s + 1);
-  }
-  return wait_for(c, arrive(c.me, c.b), c.base + n - 1, n - 2);
-}
-
-__global__ void __launch_bounds__(kThreads) ring_all_reduce_kernel(Params p) {
-  const Ctx c = make_ctx(p, kAllReduce);
-  const int n = c.n;
-  const long long e = c.chunk;
-  if (!enter(c)) return;
-  if (!reduce_phase(c, c.r)) return;
-  // the owned chunk, fully reduced: into the output and on to the right
-  // neighbour's data region (gather step 0, flag step n-1)
-  const int own = (c.r + 1) % n;
-  move(c, data(c.rw) + own * e, c.y + own * e, c.x + own * e,
-       stage(c, c.me, n - 2));
-  publish(arrive(c.rw, c.b), c.base + n);
-  // gather steps 1 .. n-2: forward what the left neighbour sent
-  for (int s = 1; s < n - 1; ++s) {
-    if (!wait_for(c, arrive(c.me, c.b), c.base + n - 1 + s, n - 2 + s))
-      return;
-    const int k = ((c.r + 1 - s) % n + n) % n;
-    move(c, data(c.rw) + k * e, c.y + k * e, data(c.me) + k * e, nullptr);
-    publish(arrive(c.rw, c.b), c.base + n + s);
-  }
-  if (!wait_for(c, arrive(c.me, c.b), c.base + 2 * n - 2, 2 * n - 3)) return;
-  const int last = (c.r + 2) % n;
-  move(c, c.y + last * e, nullptr, data(c.me) + last * e, nullptr);
-}
-
-// Entry barrier of a push-design call (all-to-all, all-gather,
-// reduce-scatter) that follows a ring call: block 0 of the rank tells
-// every peer that the rank has entered the call (so it has finished the
-// previous one: kernels on one stream run in order); every block waits
-// until every peer says the same.
+// Entry barrier of a push-design call that follows the hop: block 0 of
+// the rank tells every peer that the rank has entered the call (so it
+// has finished the previous one: kernels on one stream run in order);
+// every block waits until every peer says the same.
 __device__ __forceinline__ bool enter_all(const Ctx& c, const Params& p) {
   if (threadIdx.x == 0 && c.b == 0) {
     __threadfence_system();
@@ -258,14 +229,27 @@ __device__ __forceinline__ void copy_range(const Ctx& c, float* y,
   }
 }
 
-// The push designs' trace (all-to-all, all-gather, reduce-scatter): when
-// set (ring_a2a_trace, passed in Params::stamps), thread 0 of each block
-// stores %globaltimer at the block's phases into stamps[blockIdx *
-// kStamps + phase]: 0 entry; 1 its stores may start (after the barrier
-// and the release wait) and 2 its ranges stored and flagged (own-chunk
-// and pushing blocks); 3 its range arrived and 4 copied out (or summed)
-// and released (copy-out and summing blocks).
-constexpr int kStamps = 5;
+// The hop: block b of rank r copies its range of the block into the
+// right neighbour's data region after the neighbour barrier (enter),
+// flags it, and copies what its left neighbour left here into the output.
+__global__ void __launch_bounds__(kThreads) ring_hop_kernel(Params p) {
+  const Ctx c = make_ctx(p, kHop);
+  if (!enter(c)) return;
+  copy_range(c, data(c.rw), c.x);
+  publish(arrive(c.rw, c.b), c.base + 1);
+  if (!wait_for(c, arrive(c.me, c.b), c.base + 1, 0)) return;
+  copy_range(c, c.y, data(c.me));
+}
+
+// The push designs' trace: when set (ring_a2a_trace, passed in
+// Params::stamps), thread 0 of each block stores %globaltimer at the
+// block's phases into stamps[blockIdx * kStamps + phase]: 0 entry; 1 its
+// stores may start (after the barrier and the release wait) and 2 its
+// ranges stored and flagged (own-chunk and pushing blocks); 3 its range
+// arrived and 4 copied out (or summed: the all-reduce's sums also stored
+// on to every peer and flagged) and released (copy-out and summing
+// blocks); 5 the all-reduce's gathered parts copied out and released.
+constexpr int kStamps = 6;
 
 __device__ __forceinline__ void stamp(const Params& p, int phase) {
   if (p.stamps != nullptr && threadIdx.x == 0)
@@ -296,8 +280,7 @@ __device__ __forceinline__ Ctx peer_ctx(const Params& p, int op,
 }
 
 // A call's entry in a push design: a rank poisoned by an earlier timeout
-// does nothing; after a ring call, the
-// all-peer barrier.
+// does nothing; after the hop, the all-peer barrier.
 __device__ __forceinline__ bool open_call(const Ctx& c, const Params& p) {
   int ok = 1;
   if (threadIdx.x == 0) ok = ld_acquire(err_word(c.me)) == 0;
@@ -305,10 +288,15 @@ __device__ __forceinline__ bool open_call(const Ctx& c, const Params& p) {
   return !p.barrier || enter_all(c, p);
 }
 
-// This call's landing region in a workspace (0: data, 1: staging).
+// This call's landing region in a workspace (0: data, 1: staging), and
+// the other one, where the all-reduce gathers.
 __device__ __forceinline__ float* region(const Ctx& c, const Params& p,
                                          char* ws) {
-  return p.region ? stage(c, ws, 0) : data(ws);
+  return p.region ? stage(c, ws) : data(ws);
+}
+__device__ __forceinline__ float* other_region(const Ctx& c, const Params& p,
+                                               char* ws) {
+  return p.region ? data(ws) : stage(c, ws);
 }
 
 // Wait until peer j has read what this rank left in its region in the
@@ -486,6 +474,156 @@ __global__ void __launch_bounds__(kThreads)
   stamp(p, 4);
 }
 
+// The all-reduce's sum of the block's range [c.lo, c.hi) of this rank's
+// chunk: own first, then the N - 1 slots of `slots` (chunk floats apart,
+// written by peers: loads bypass L1), added left to right: acc = own;
+// acc = slot k + acc. Each sum goes to y and on to the N - 1 peers' dst.
+// Every load of an index is in flight before its adds.
+template <int N>
+__device__ __forceinline__ void reduce_range(const Ctx& c, float* y,
+                                             float* const* dst,
+                                             const float* slots,
+                                             const float* own) {
+  const long long step = blockDim.x, e = c.chunk;
+  if (c.vec) {
+    float4* y4 = reinterpret_cast<float4*>(y);
+    const float4* o4 = reinterpret_cast<const float4*>(own);
+    const float4* s4 = reinterpret_cast<const float4*>(slots);
+    const long long e4 = e / 4, hi = c.hi / 4;
+    long long i = c.lo / 4 + threadIdx.x;
+    for (; i + (kSumUnroll - 1) * step < hi; i += kSumUnroll * step) {
+      float4 v[N][kSumUnroll];
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u) v[0][u] = __ldcg(o4 + i + u * step);
+#pragma unroll
+      for (int k = 1; k < N; ++k)
+#pragma unroll
+        for (int u = 0; u < kSumUnroll; ++u)
+          v[k][u] = __ldcg(s4 + (k - 1) * e4 + i + u * step);
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u) {
+        float4 acc = v[0][u];
+#pragma unroll
+        for (int k = 1; k < N; ++k) acc = add4(v[k][u], acc);
+        y4[i + u * step] = acc;
+#pragma unroll
+        for (int k = 0; k < N - 1; ++k)
+          reinterpret_cast<float4*>(dst[k])[i + u * step] = acc;
+      }
+    }
+    for (; i < hi; i += step) {
+      float4 acc = __ldcg(o4 + i);
+#pragma unroll
+      for (int k = 1; k < N; ++k)
+        acc = add4(__ldcg(s4 + (k - 1) * e4 + i), acc);
+      y4[i] = acc;
+#pragma unroll
+      for (int k = 0; k < N - 1; ++k)
+        reinterpret_cast<float4*>(dst[k])[i] = acc;
+    }
+  } else {
+    for (long long i = c.lo + threadIdx.x; i < c.hi; i += step) {
+      float acc = __ldcg(own + i);
+#pragma unroll
+      for (int k = 1; k < N; ++k) acc = __ldcg(slots + (k - 1) * e + i) + acc;
+      y[i] = acc;
+#pragma unroll
+      for (int k = 0; k < N - 1; ++k) dst[k][i] = acc;
+    }
+  }
+}
+
+// Rank r's block `local` of n * P: role = local / P, range b = local % P.
+// Push, as the reduce-scatter's: a block of role k - 1 (k in [1, n))
+// pushes range b of chunk j = r + k into j's landing slot for this rank
+// (slot k' - 1 of j's region, for the k'-th rank after j) and flags it.
+// Sum: every block waits for range b from the n - 1 sources and sums its
+// part `role` of the range, one of n, in the all-reduce's order (its own
+// copy first, then the ranks after it), into its output's chunk r and
+// straight on to slot r of every peer's other region; the last of the n
+// to finish flags range b to every peer (gathered). Gather: the block
+// then copies its part of range b of every peer's summed chunk out of
+// its own other region as each lands; the last of the n releases range b
+// to every peer (freed).
+__global__ void __launch_bounds__(kThreads) ring_all_reduce_kernel(Params p) {
+  const int n = p.n;
+  int local;
+  Ctx c = peer_ctx(p, kAllReduce, n * p.nblk, &local);
+  const int role = local / p.nblk, b = local % p.nblk;
+  const long long e = p.chunk;
+  set_range(c, p, b);
+  stamp(p, 0);
+  if (!open_call(c, p)) return;
+  if (role < n - 1) {
+    const int j = (c.r + role + 1) % n;
+    if (!wait_freed(c, p, j)) return;
+    stamp(p, 1);
+    copy_range(c, region(c, p, p.ws[j]) + (n - role - 2) * e, c.x + j * e);
+    signal(landed(p.ws[j], c.r, b), c.epoch);
+    stamp(p, 2);
+  }
+  if (!wait_each(
+          c, n - 1, c.epoch,
+          [&](int q) { return landed(c.me, (c.r + q + 1) % n, b); },
+          [&](int q) { return (c.r + q + 1) % n; }))
+    return;
+  stamp(p, 3);
+  const long long part = ((c.hi - c.lo + n - 1) / n + 3) / 4 * 4;
+  c.lo = min(c.hi, c.lo + role * part);
+  c.hi = min(c.hi, c.lo + part);
+  // every peer's gather slot for this rank's chunk; no release to wait
+  // for: a peer's push of this call has landed here, so it has ended
+  // every call before and read what those left in its regions
+  float* dst[kMaxRanks - 1];
+#pragma unroll
+  for (int k = 1; k < kMaxRanks; ++k)
+    dst[k - 1] = k < n ? other_region(c, p, p.ws[(c.r + k) % n]) + c.r * e
+                       : nullptr;
+  const float* slots = region(c, p, c.me);
+  const float* own = c.x + c.r * e;
+  float* y = c.y + c.r * e;
+  switch (n) {
+    case 2: reduce_range<2>(c, y, dst, slots, own); break;
+    case 3: reduce_range<3>(c, y, dst, slots, own); break;
+    case 4: reduce_range<4>(c, y, dst, slots, own); break;
+    case 5: reduce_range<5>(c, y, dst, slots, own); break;
+    case 6: reduce_range<6>(c, y, dst, slots, own); break;
+    case 7: reduce_range<7>(c, y, dst, slots, own); break;
+    default: reduce_range<8>(c, y, dst, slots, own); break;
+  }
+  // count this part done (n a call): its stores to the peers fenced
+  // first; the last flags range b to every peer after one more fence
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    const uint64_t done = atomicAdd(summed(c.me, b), 1ull);
+    if (done % n == static_cast<uint64_t>(n - 1)) {
+      __threadfence_system();
+      for (int k = 1; k < n; ++k)
+        st_relaxed(gathered(p.ws[(c.r + k) % n], c.r, b), c.epoch);
+    }
+  }
+  stamp(p, 4);
+  // the gather: this block's part of range b of each peer's sum
+  for (int k = 1; k < n; ++k) {
+    const int s = (c.r + k) % n;
+    if (!wait_for(c, gathered(c.me, s, b), c.epoch, 2 * kMaxRanks + s))
+      return;
+    copy_range(c, c.y + s * e, other_region(c, p, c.me) + s * e);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const uint64_t done = atomicAdd(copied(c.me, b), 1ull);
+    if (done % n == static_cast<uint64_t>(n - 1)) {
+      __threadfence_system();
+      for (int k = 1; k < n; ++k)
+        st_relaxed(freed(p.ws[(c.r + k) % n], c.r, b), c.epoch);
+    }
+  }
+  stamp(p, 5);
+}
+
 // the trace buffer of each device's calls (ring_a2a_trace), host side
 constexpr int kMaxDevices = 64;
 unsigned long long* trace_stamps[kMaxDevices] = {};
@@ -504,14 +642,14 @@ extern "C" {
 
 // One call of collective `op` (0 hop, 1 all-reduce, 2 reduce-scatter,
 // 3 all-gather, 4 all-to-all). ws: n workspace addresses as mapped in
-// this process (the ring kernels read this rank's and its two
-// neighbours', the push designs every one). in / out: one address (dist,
-// rank >= 0) or n (loopback, rank < 0). chunk: floats a chunk. nblk:
-// blocks a rank (the push designs: ranges a chunk, and (2n - 1) * nblk
-// blocks a rank for the all-to-all and the all-gather, n * nblk for the
-// reduce-scatter). prev_epoch, prev_nblk, region, barrier: the push
-// designs' (Params), 0 for the ring kernels. The launch goes on
-// `stream`; returns a cudaError_t as int.
+// this process (the hop reads this rank's and its two neighbours', the
+// push designs every one). in / out: one address (dist, rank >= 0) or n
+// (loopback, rank < 0). chunk: floats a chunk. nblk: blocks a rank (the
+// push designs: ranges a chunk, and (2n - 1) * nblk blocks a rank for
+// the all-to-all and the all-gather, n * nblk for the reduce-scatter and
+// the all-reduce). prev_epoch, prev_nblk, region, barrier: the push
+// designs' (Params), 0 for the hop. The launch goes on `stream`; returns
+// a cudaError_t as int.
 int ring_launch(int device, int op, const unsigned long long* ws,
                 const unsigned long long* in, const unsigned long long* out,
                 int n, int rank, long long chunk, long long stage_off,
@@ -520,9 +658,9 @@ int ring_launch(int device, int op, const unsigned long long* ws,
                 int barrier, void* stream) {
   using namespace ring;
   const int blocks_a_rank =
-      op == kAllToAll || op == kAllGather ? (2 * n - 1) * nblk
-      : op == kReduceScatter              ? n * nblk
-                                          : nblk;
+      op == kAllToAll || op == kAllGather        ? (2 * n - 1) * nblk
+      : op == kReduceScatter || op == kAllReduce ? n * nblk
+                                                 : nblk;
   if (op < 0 || op > 4 || n < 2 || n > kMaxRanks || rank >= n ||
       nblk < 1 || nblk > kMaxBlocks || chunk < 1 || epoch < 1 ||
       prev_epoch < 0 || prev_epoch >= epoch || prev_nblk < 0 ||

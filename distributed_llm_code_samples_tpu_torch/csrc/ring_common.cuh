@@ -1,7 +1,6 @@
 // Shared pieces of the peer collectives (ring_collectives.cu): the peer
 // workspace layout, the kernel parameters, flag words with system-scope
-// release/acquire, a deadline-bounded block-wide wait, and the block's
-// element loop.
+// release/acquire, and a deadline-bounded block-wide wait.
 //
 // A rank's workspace is one cudaMalloc on its card, mapped into every
 // other rank's process through CUDA IPC (or, in loopback, n workspaces on
@@ -10,30 +9,35 @@
 //
 //   [0, 8)             error word: 0, or the code of the first wait that
 //                      passed its deadline (see error_code)
-//   [256, 256 + 8*64)  arrive[b]: written by the left neighbour's block b,
-//                      epoch * 64 + step + 1 once its step's data is here
-//   [1024, 1024+8*64)  ready[b]: written by the right neighbour's block b,
-//                      the epoch of the call it has entered
-//   [2048, 2048+8*64)  summed[b] (reduce-scatter): this rank's own count
-//                      of the parts of range b summed, n a call
-//   [4096, 8192)       landed[j][b] (the push designs: all-to-all,
-//                      all-gather, reduce-scatter):
-//                      written by rank j, the epoch of the call once
-//                      range b of its chunk has landed here
+//   [256, 256 + 8*64)  arrive[b] (the hop): written by the left
+//                      neighbour's block b, epoch * 64 + 1 once its data
+//                      is here
+//   [1024, 1024+8*64)  ready[b] (the hop): written by the right
+//                      neighbour's block b, the epoch of the call it has
+//                      entered
+//   [2048, 2048+8*64)  summed[b] (reduce-scatter, all-reduce): this
+//                      rank's own count of the parts of range b summed,
+//                      n a call
+//   [3072, 3072+8*64)  copied[b] (all-reduce): this rank's own count of
+//                      the parts of range b copied out of its gather
+//                      slots, n a call
+//   [4096, 8192)       landed[j][b] (the push designs): written by rank
+//                      j, the epoch of the call once range b of its chunk
+//                      has landed here
 //   [8192, 12288)      entered[j] (the push designs): written
 //                      by rank j, the epoch of the call it has entered
-//                      (the entry barrier of a call that follows a ring
-//                      call)
+//                      (the entry barrier of a call that follows the hop)
 //   [12288, 16384)     freed[j][b] (the push designs): written
 //                      by rank j, the epoch of the call whose range b it
 //                      has read out of the slot this rank fills in j's
 //                      workspace
-//   [16384, ...)       data region: capacity bytes (the hop and the
-//                      all-reduce's second phase land here; the push
-//                      designs' chunks in calls of even count)
-//   [stage_off, ...)   staging slots: n-1 chunks (the all-reduce's reduce
-//                      phase); the push designs' chunks in calls of odd
-//                      count
+//   [16384, 20480)     gathered[j][b] (all-reduce): written by rank j,
+//                      the epoch of the call once range b of its summed
+//                      chunk has landed here
+//   [20480, ...)       data region: capacity bytes (the hop lands here;
+//                      the push designs' chunks in calls of even count)
+//   [stage_off, ...)   staging slots: capacity bytes (the push designs'
+//                      chunks in calls of odd count)
 //
 // Flags only grow. Each call carries an epoch that every rank counts the
 // same way (one a call, the same call sequence on every rank), so a flag
@@ -51,15 +55,17 @@ namespace ring {
 constexpr int kMaxRanks = 8;
 constexpr int kMaxBlocks = 64;      // blocks a rank; flag words a link
 constexpr int kThreads = 512;
-constexpr uint64_t kStepsPerEpoch = 64;   // >= 2(n-1) + 1 for n <= 8
+constexpr uint64_t kStepsPerEpoch = 64;   // the hop's arrive flags
 constexpr long long kErrOff = 0;
 constexpr long long kArriveOff = 256;
 constexpr long long kReadyOff = 1024;
 constexpr long long kSummedOff = 2048;
+constexpr long long kCopiedOff = 3072;
 constexpr long long kLandedOff = 4096;
 constexpr long long kEnteredOff = 8192;
 constexpr long long kFreedOff = 12288;
-constexpr long long kDataOff = 16384;
+constexpr long long kGatheredOff = 16384;
+constexpr long long kDataOff = 20480;
 
 enum Op {
   kHop = 0,
@@ -80,16 +86,15 @@ struct Params {
   int n;
   int rank;                     // < 0: loopback, rank = blockIdx over
                                 // the blocks a rank
-  int nblk;                     // blocks a rank (all-to-all, all-gather:
-                                // ranges a chunk, (2n - 1) * nblk blocks
-                                // a rank;
-                                // reduce-scatter: ranges a chunk,
-                                // n * nblk blocks a rank)
+  int nblk;                     // blocks a rank (the hop); ranges a
+                                // chunk (all-to-all, all-gather: (2n - 1)
+                                // * nblk blocks a rank; reduce-scatter,
+                                // all-reduce: n * nblk)
   int vec;                      // 1: 16-byte aligned, chunk % 4 == 0
   // the push designs: the landing region of this call (0 data, 1
-  // staging), the epoch of the last call that used it (0: none) and that
-  // call's ranges a chunk, and whether the call opens with the entry
-  // barrier
+  // staging; the all-reduce gathers in the other one), the epoch of the
+  // last call whose slots there peers release (0: none) and that call's
+  // ranges a chunk, and whether the call opens with the entry barrier
   long long prev_epoch;
   int prev_nblk;
   int region;
@@ -175,6 +180,9 @@ __device__ __forceinline__ uint64_t* ready(char* ws, int b) {
 __device__ __forceinline__ unsigned long long* summed(char* ws, int b) {
   return reinterpret_cast<unsigned long long*>(ws + kSummedOff) + b;
 }
+__device__ __forceinline__ unsigned long long* copied(char* ws, int b) {
+  return reinterpret_cast<unsigned long long*>(ws + kCopiedOff) + b;
+}
 __device__ __forceinline__ uint64_t* landed(char* ws, int src, int b) {
   return reinterpret_cast<uint64_t*>(ws + kLandedOff) + src * kMaxBlocks +
          b;
@@ -185,17 +193,23 @@ __device__ __forceinline__ uint64_t* entered(char* ws, int src) {
 __device__ __forceinline__ uint64_t* freed(char* ws, int dst, int b) {
   return reinterpret_cast<uint64_t*>(ws + kFreedOff) + dst * kMaxBlocks + b;
 }
+__device__ __forceinline__ uint64_t* gathered(char* ws, int src, int b) {
+  return reinterpret_cast<uint64_t*>(ws + kGatheredOff) + src * kMaxBlocks +
+         b;
+}
 __device__ __forceinline__ float* data(char* ws) {
   return reinterpret_cast<float*>(ws + kDataOff);
 }
-__device__ __forceinline__ float* stage(const Ctx& c, char* ws, int slot) {
-  return reinterpret_cast<float*>(ws + c.stage_off) + slot * c.chunk;
+__device__ __forceinline__ float* stage(const Ctx& c, char* ws) {
+  return reinterpret_cast<float*>(ws + c.stage_off);
 }
 
 // Read by the host when a wait passes its deadline: the op, the step it
-// waited for (the push designs: the source rank, or
-// kMaxRanks + the peer whose release of its landing slot it waited for),
-// the block and the rank (each + 1, so that 0 means no error).
+// waited for (the hop: 0, or -1 at the entry barrier; the push designs:
+// -1 at the entry barrier, the source rank of a pushed chunk, kMaxRanks +
+// the peer whose release of its landing slot it waited for, or 2 *
+// kMaxRanks + the peer whose summed chunk it waited for), the block and
+// the rank (each + 1, so that 0 means no error).
 __device__ __forceinline__ uint64_t error_code(const Ctx& c, int step) {
   return (static_cast<uint64_t>(c.op + 1) << 48) |
          (static_cast<uint64_t>(step + 1) << 32) |
@@ -253,8 +267,8 @@ __device__ __forceinline__ void publish(uint64_t* flag, uint64_t v) {
 }
 
 // publish() with a relaxed flag store after the fence: the same release
-// pattern, one fence instead of two. The reduce-scatter's flags
-// (landed, freed) use it; a release store's own fence, on top of the
+// pattern, one fence instead of two. The push designs' flags (landed,
+// freed) use it; a release store's own fence, on top of the
 // explicit one, held its flags back by some 2 us each at the main shape
 // on four H100s.
 __device__ __forceinline__ void signal(uint64_t* flag, uint64_t v) {
@@ -281,40 +295,6 @@ __device__ __forceinline__ bool enter(const Ctx& c) {
     st_release(ready(c.lw, c.b), c.epoch);
   }
   return wait_for(c, ready(c.me, c.b), c.epoch, -1);
-}
-
-// d1[i] = a[i] (+ b[i]), and d2[i] the same when d2 is given, for i in
-// the block's range [lo, hi) of a chunk. Each pointer is a chunk's start.
-// Loads bypass L1 (__ldcg): peers wrote some of these addresses. The sum
-// is one f32 add, a + b: the same bits as the plain version's b + a.
-__device__ __forceinline__ void move(const Ctx& c, float* d1, float* d2,
-                                     const float* a, const float* b) {
-  if (c.vec) {
-    const float4* a4 = reinterpret_cast<const float4*>(a);
-    const float4* b4 = reinterpret_cast<const float4*>(b);
-    float4* o1 = reinterpret_cast<float4*>(d1);
-    float4* o2 = reinterpret_cast<float4*>(d2);
-    for (long long i = c.lo / 4 + threadIdx.x; i < c.hi / 4;
-         i += blockDim.x) {
-      float4 v = __ldcg(a4 + i);
-      if (b != nullptr) {
-        const float4 w = __ldcg(b4 + i);
-        v.x = v.x + w.x;
-        v.y = v.y + w.y;
-        v.z = v.z + w.z;
-        v.w = v.w + w.w;
-      }
-      o1[i] = v;
-      if (d2 != nullptr) o2[i] = v;
-    }
-  } else {
-    for (long long i = c.lo + threadIdx.x; i < c.hi; i += blockDim.x) {
-      float v = __ldcg(a + i);
-      if (b != nullptr) v = v + __ldcg(b + i);
-      d1[i] = v;
-      if (d2 != nullptr) d2[i] = v;
-    }
-  }
 }
 
 }  // namespace ring

@@ -5,10 +5,11 @@ from ``(q, k, v, y, lse)``. The training path's ``attn_impl="flash"``.
 Port of ``distributed_llm_code_samples_tpu/ops/pallas_attention.py``
 (``flash_attention_fwd``, ``flash_attention_bwd``, ``flash_attention``,
 ``flash_mha``). On a CUDA tensor each wrapper launches its CUDA kernels
-(``csrc/flash_attn_fwd.cu``; ``csrc/flash_attn_bwd.cu``'s dkv and dq
-kernels; built at first use by ``ops/_build.py``, bound with ctypes) or
-raises; on a CPU tensor it runs its plain PyTorch version ``*_ref``.
-There is no fallback from a kernel to its plain version.
+(``csrc/flash_attn_fwd.cu`` under ``FWD_PLAN``;
+``csrc/flash_attn_bwd.cu``'s dkv and dq kernels under ``BWD_PLAN``;
+built at first use by ``ops/_build.py``, bound with ctypes) or raises;
+on a CPU tensor it runs its plain PyTorch version ``*_ref``. There is
+no fallback from a kernel to its plain version.
 
 Shapes: ``q [..., Tq, dh]``, ``k, v [..., Tk, dh]``, any leading dims
 (batch and heads), which one launch covers: the JAX package ``vmap``s a
@@ -127,9 +128,40 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     _build.launch(FWD, "flash_attn_fwd_launch",
                   [q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
                    lse.data_ptr()],
-                  (bh, tq, tk, dh, int(bool(causal)), int(bool(mxu_bf16))),
-                  q.device, FWD)
+                  (bh, tq, tk, dh, int(bool(causal)), *FWD_PLAN,
+                   int(bool(mxu_bf16))), q.device, FWD)
     return y, lse
+
+
+# -- the forward's plans (csrc/flash_attn_fwd.cu) ----------------------------
+
+# (query tile, key tile, stages of the K/V ring) the kernel takes: a block
+# of 2 x query tile threads, 16 a row group of 8 query rows, each holding
+# 8 rows x key tile / 16 keys of the score tile. chip_smoke.py's
+# flash-fwd-tiles line times each at the main shape (PERF.md).
+FWD_PLANS = ((64, 64, 2), (128, 64, 2), (64, 128, 2), (64, 64, 3))
+FWD_PLAN = (64, 64, 2)
+# shared memory of an SM on sm_90, the most a block may take, and what
+# the runtime keeps for itself a block
+SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
+
+
+def fwd_smem_bytes(plan) -> int:
+    """Shared memory of a forward block (``fwd_floats`` in the kernel): q
+    ``[query tile][dh + 4]``, the ring's stages of k and v ``[key
+    tile][dh + 4]`` and p ``[query tile][key tile + 4]``, f32."""
+    query_tile, key_tile, stages = plan
+    ld = MAX_DH + 4
+    return 4 * (query_tile * ld + stages * 2 * key_tile * ld
+                + query_tile * (key_tile + 4))
+
+
+def fwd_blocks_per_sm(plan) -> int:
+    """Forward blocks an SM holds at once, by shared memory and by
+    threads (2048 an SM); the registers (at most 255 a thread) allow
+    at least as many."""
+    by_smem = SMEM_PER_SM // (fwd_smem_bytes(plan) + SMEM_RESERVED)
+    return min(by_smem, 2048 // (2 * plan[0]))
 
 
 # -- the backward's plan and scratch (csrc/flash_attn_bwd.cu) -------------

@@ -58,9 +58,9 @@ _OPS = {HOP: 0, ALL_REDUCE: 1, REDUCE_SCATTER: 2, ALL_GATHER: 3,
 SUM = "sum"
 # csrc/ring_common.cuh: kMaxRanks, kDataOff
 _MAX_RANKS = 8
-_DATA_OFF = 16384
-# a chunk range per block of at least this many floats; at most 32 blocks
-# a rank, so n = 4 loopback ranks fit on 132 SMs one block each
+_DATA_OFF = 20480
+# the hop: a block range per block of at least this many floats; at most
+# 32 blocks a rank, so n = 4 loopback ranks fit on 132 SMs one block each
 _FLOATS_PER_BLOCK = 8192
 _BLOCKS = 32
 # csrc/ring_common.cuh: kMaxBlocks, flag words a source rank
@@ -75,14 +75,19 @@ _A2A_FLOATS_PER_RANGE = 4096
 # range: n * RS_RANGES blocks a rank
 RS_RANGES = 32
 _RS_FLOATS_PER_RANGE = 4096
-# a loopback all-to-all, all-gather or reduce-scatter is one cooperative
-# launch of n * (2n - 1) * ranges or n * n * ranges blocks, all resident
-# at once: at most one a streaming multiprocessor
+# the all-reduce's ranges a chunk (at most): pushed and summed as the
+# reduce-scatter's, and each block then copies out an n-th of its range
+# of every peer's sum: n * AR_RANGES blocks a rank
+AR_RANGES = 32
+_AR_FLOATS_PER_RANGE = 4096
+# a loopback push design is one cooperative launch of n * (2n - 1) *
+# ranges or n * n * ranges blocks, all resident at once: at most one a
+# streaming multiprocessor
 _LOOPBACK_BLOCKS = 128
 # the push designs, whose chunks land in the two regions in turn (csrc/
-# ring_collectives.cu); the ring kernels (the hop, the all-reduce) store
-# into both regions
-REGION_OPS = (ALL_TO_ALL, REDUCE_SCATTER, ALL_GATHER)
+# ring_collectives.cu); the hop, the one ring kernel, stores into the data
+# region
+REGION_OPS = (ALL_TO_ALL, REDUCE_SCATTER, ALL_GATHER, ALL_REDUCE)
 # how long a kernel waits for a neighbour before it gives up and leaves
 # an error code (a late neighbour is seconds behind, a lost one forever)
 WAIT_TIMEOUT_S = 30.0
@@ -128,8 +133,10 @@ def describe_error(code: int) -> str:
         where = f"step {step}"
     elif step < _MAX_RANKS:
         where = f"rank {step}'s chunk"
-    else:
+    elif step < 2 * _MAX_RANKS:
         where = f"rank {step - _MAX_RANKS}'s release of its landing slot"
+    else:
+        where = f"rank {step - 2 * _MAX_RANKS}'s summed chunk"
     return (f"{names.get(op, op)} rank {(code & 0xFFFF) - 1} block "
             f"{((code >> 16) & 0xFFFF) - 1} gave up waiting at {where}")
 
@@ -141,8 +148,8 @@ class PeerWorkspace:
     ``cudaMalloc``s one workspace (``csrc/ring_common.cuh`` has its
     layout: flag words, a data region of ``capacity`` bytes and as much
     again of staging slots), publishes its ``cudaIpcGetMemHandle`` over
-    ``g`` and opens every other rank's handle (the ring kernels store
-    into a neighbour's, the all-to-all into every peer's), peer access
+    ``g`` and opens every other rank's handle (the hop stores into a
+    neighbour's, the push designs into every peer's), peer access
     enabled lazily. It raises if a peer's card has no peer access to
     this one: nothing goes through the host.
 
@@ -340,37 +347,77 @@ def _blocks(chunk: int) -> int:
     return max(1, min(_BLOCKS, -(-chunk // _FLOATS_PER_BLOCK)))
 
 
+def _ranges(chunk: int, most: int, floats: int, blocks_a_range: int,
+            loopback: bool) -> int:
+    """Ranges a chunk of a push design splits into: at most ``most``, of
+    at least ``floats`` floats, and in loopback few enough that the n
+    ranks' ``blocks_a_range`` blocks for each stay resident."""
+    cap = _MAX_BLOCKS
+    if loopback:
+        cap = min(cap, _LOOPBACK_BLOCKS // blocks_a_range)
+    return max(1, min(most, cap, -(-chunk // floats)))
+
+
 def _a2a_ranges(chunk: int, n: int, loopback: bool) -> int:
     """Ranges a chunk of the all-to-all or the all-gather splits into
     ((2n - 1) * ranges blocks a rank)."""
-    cap = _MAX_BLOCKS
-    if loopback:
-        cap = min(cap, _LOOPBACK_BLOCKS // (n * (2 * n - 1)))
-    return max(1, min(A2A_RANGES, cap, -(-chunk // _A2A_FLOATS_PER_RANGE)))
+    return _ranges(chunk, A2A_RANGES, _A2A_FLOATS_PER_RANGE,
+                   n * (2 * n - 1), loopback)
 
 
 def _rs_ranges(chunk: int, n: int, loopback: bool) -> int:
     """Ranges a chunk of the reduce-scatter splits into (n * ranges blocks
     a rank)."""
-    cap = _MAX_BLOCKS
-    if loopback:
-        cap = min(cap, _LOOPBACK_BLOCKS // (n * n))
-    return max(1, min(RS_RANGES, cap, -(-chunk // _RS_FLOATS_PER_RANGE)))
+    return _ranges(chunk, RS_RANGES, _RS_FLOATS_PER_RANGE, n * n, loopback)
+
+
+def _ar_ranges(chunk: int, n: int, loopback: bool) -> int:
+    """Ranges a chunk of the all-reduce splits into (n * ranges blocks a
+    rank); the pushes, the sums and the gather share them. Its blocks
+    wait for each other's sums after their own, so a rank's launch must
+    be resident at once across the cards too: at most
+    ``_LOOPBACK_BLOCKS`` blocks, one a streaming multiprocessor."""
+    ranges = _ranges(chunk, AR_RANGES, _AR_FLOATS_PER_RANGE, n * n,
+                     loopback)
+    return min(ranges, max(1, _LOOPBACK_BLOCKS // n))
 
 
 def region_plan(op: str, last_op: Optional[str], calls: int, last):
     """Where a call of ``op`` lands, from the calls before it on its
     workspace: ``(region, prev, barrier)``. An op of ``REGION_OPS`` takes
-    region ``calls % 2`` (``calls``: the ``REGION_OPS`` calls so far),
-    whose last user's ``(epoch, ranges)`` is ``prev = last[region]``
-    (``(0, 0)``: none), and opens with the all-peer barrier after a ring
-    call (``last_op`` in neither ``REGION_OPS`` nor None). A ring call
-    gets ``(0, (0, 0), 0)``: it has its own neighbour barrier."""
+    region ``calls % 2`` (``calls``: the region uses so far, as
+    ``region_record`` counts them; the all-reduce gathers in the other
+    region), whose last user that peers release is ``prev = last[region]``
+    as ``(epoch, ranges)`` (``(0, 0)``: none), and opens with the
+    all-peer barrier right after the hop (``last_op`` in neither
+    ``REGION_OPS`` nor None). The hop gets ``(0, (0, 0), 0)``: it has its
+    own neighbour barrier."""
     if op not in REGION_OPS:
         return 0, (0, 0), 0
     region = calls % 2
     return region, tuple(last[region]), int(last_op not in
                                             (None,) + REGION_OPS)
+
+
+def region_record(op: str, calls: int, last, epoch: int, ranges: int):
+    """The bookkeeping after a call of ``op`` at ``epoch`` that split its
+    chunks into ``ranges``: the new ``(calls, last)``. A push design
+    records ``(epoch, ranges)`` for its region, whose slots its receivers
+    release, and counts one use. The all-reduce counts two: its pushes'
+    region is free once the call has ended on the sender (every peer's
+    sums, which read it, come before the gathered flags the sender
+    waits for), so it records ``(0, 0)`` there, and ``(epoch, ranges)``
+    for its gather's region, which the copy-outs release. The hop
+    changes nothing."""
+    last = [tuple(x) for x in last]
+    if op not in REGION_OPS:
+        return calls, last
+    region = calls % 2
+    if op == ALL_REDUCE:
+        last[region], last[1 - region] = (0, 0), (epoch, ranges)
+        return calls + 2, last
+    last[region] = (epoch, ranges)
+    return calls + 1, last
 
 
 def _out_shape(op: str, shape, n: int):
@@ -404,6 +451,8 @@ def _launch(op: str, ins, outs, ws: PeerWorkspace, rank: int) -> None:
         nblk = _a2a_ranges(chunk, n, rank < 0)
     elif op == REDUCE_SCATTER:
         nblk = _rs_ranges(chunk, n, rank < 0)
+    elif op == ALL_REDUCE:
+        nblk = _ar_ranges(chunk, n, rank < 0)
     else:
         nblk = _blocks(chunk)
     region, prev, barrier = region_plan(op, ws.last_op, ws.region_calls,
@@ -414,9 +463,8 @@ def _launch(op: str, ins, outs, ws: PeerWorkspace, rank: int) -> None:
         vec, *prev, region, barrier, stream)
     if rc != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
-    if op in REGION_OPS:
-        ws.region_last[region] = (epoch, nblk)
-        ws.region_calls += 1
+    ws.region_calls, ws.region_last = region_record(
+        op, ws.region_calls, ws.region_last, epoch, nblk)
     ws.last_op = op
     _build.count_launch(op)
 
@@ -456,11 +504,12 @@ def loopback(op: str, xs, ws: PeerWorkspace) -> list:
 def workspace_bytes(op: str, x: torch.Tensor, n: int) -> int:
     """The workspace a call of ``op`` on ``x`` over n ranks needs (its
     ``capacity``: the data region and the staging slots have as much
-    each): the data region holds the all-reduce's tensor, the hop's
-    block, or the incoming chunks of the all-to-all and of the all-gather
-    (a chunk slot for each rank, at the rank's offset: n shards for the
-    all-gather) and of the reduce-scatter (n-1 chunk slots), which land
-    in the data region and the staging slots in turn."""
+    each): the data region holds the hop's block; either region holds
+    the incoming chunks of the all-to-all and of the all-gather (a chunk
+    slot for each rank, at the rank's offset: n shards for the
+    all-gather), of the reduce-scatter (n-1 chunk slots), and of the
+    all-reduce (n-1 pushed chunk slots in one region, n summed ones in
+    the other: the tensor)."""
     nbytes = x.numel() * x.element_size()
     return {HOP: nbytes, ALL_REDUCE: nbytes, ALL_GATHER: n * nbytes,
             ALL_TO_ALL: nbytes, REDUCE_SCATTER: (n - 1) * nbytes // n}[op]
@@ -506,8 +555,11 @@ def ppermute_dma(x: torch.Tensor, ring) -> torch.Tensor:
 
 
 def ring_all_reduce(x: torch.Tensor, ring) -> torch.Tensor:
-    """The sum over the ranks (``lax.psum``) as a 2(n-1)-step ring:
-    reduce-scatter, then all-gather. ``x.shape[0]`` must divide by n."""
+    """The sum over the ranks (``lax.psum``), each chunk summed in the
+    ring's order. The kernel is one launch: every chunk pushed to its
+    owner, summed there, and pushed on to every peer; the plain version
+    is the 2(n-1)-step ring (reduce-scatter, then all-gather).
+    ``x.shape[0]`` must divide by n."""
     return _collective(ALL_REDUCE, x, ring)
 
 
@@ -533,19 +585,23 @@ def all_to_all_dma(x: torch.Tensor, ring) -> torch.Tensor:
     return _collective(ALL_TO_ALL, x, ring)
 
 
-# phases a block of the all-to-all stamps when traced (csrc/
-# ring_collectives.cu, kStamps): own-chunk and pushing blocks the first
-# three, copy-out blocks the first and the last two
-A2A_PHASES = ("entry", "start", "pushed", "arrived", "released")
+# phases a block of a push design stamps when traced (csrc/
+# ring_collectives.cu, kStamps): the all-to-all's own-chunk and pushing
+# blocks the first three, its copy-out blocks "entry", "arrived" and
+# "released"; the all-reduce's blocks also "copied"
+A2A_PHASES = ("entry", "start", "pushed", "arrived", "released", "copied")
 
 
 def traced(call, device) -> torch.Tensor:
-    """Run ``call()`` (one all-to-all, all-gather or reduce-scatter launch
-    on ``device``) with the kernel's trace on: returns ``[blocks,
-    len(A2A_PHASES)]`` int64 %globaltimer stamps in ns (0 where a block
-    has no such phase; the all-gather's blocks stamp as the all-to-all's;
-    every block of the reduce-scatter sums, so each stamps "arrived" and
-    "released", and its pushing blocks also "start" and "pushed")."""
+    """Run ``call()`` (one launch of a push design on ``device``) with the
+    kernel's trace on: returns ``[blocks, len(A2A_PHASES)]`` int64
+    %globaltimer stamps in ns (0 where a block has no such phase; the
+    all-gather's blocks stamp as the all-to-all's; every block of the
+    reduce-scatter and of the all-reduce sums, so each stamps "arrived"
+    and "released" (the all-reduce's: its sums stored on to every peer
+    and flagged), and their pushing blocks also "start" and "pushed";
+    the all-reduce's blocks stamp "copied" once their part of every
+    peer's sum is copied out)."""
     device = torch.device(device)
     lib = _lib()
     index = (device.index if device.index is not None

@@ -80,6 +80,26 @@ def test_flash_fwd_kernel_matches_plain(card, shape, causal, mxu_bf16):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mxu_bf16", [False, True])
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("plan", p_fa.FWD_PLANS)
+def test_flash_fwd_plans_agree_with_plain(card, plan, causal, mxu_bf16,
+                                          monkeypatch):
+    """Every (query tile, key tile, ring stages) plan that chip_smoke.py's
+    flash-fwd-tiles sweep times, at the main path's shape, a ragged one
+    (T and dh no tile divides) and a rectangular one, with a repeat
+    bit-identical."""
+    monkeypatch.setattr(p_fa, "FWD_PLAN", plan)
+    for shape in ((192, 512, 512, 64), (24, 200, 200, 40), (2, 80, 130, 64),
+                  (2, 37, 37, 40)):
+        q, k, v, _ = flash_case(shape)
+        kw = dict(causal=causal, mxu_bf16=mxu_bf16)
+        got = flash_attention_fwd(q, k, v, **kw)
+        again = flash_attention_fwd(q, k, v, **kw)
+        agree(got, again, flash_attention_fwd_ref(q, k, v, **kw), mxu_bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
 def test_flash_bwd_kernels_match_plain(card, shape, causal, mxu_bf16):
     q, k, v, dy = flash_case(shape)
@@ -427,17 +447,20 @@ def test_ring_wait_gives_up_and_raises(card, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4])
 def test_ring_ops_in_sequence_on_one_workspace(card, n):
-    """One workspace through all-gather, reduce-scatter, reduce-scatter,
-    all-reduce, all-to-all, all-gather, reduce-scatter, all-gather (the
-    landing regions in turn across the three push designs, an all-gather
-    right after an all-to-all and after a reduce-scatter, the entry
-    barrier after the ring call, chunks of changing size), twice: every
-    output bit-identical to its plain version."""
+    """One workspace through the hop, all-gather, reduce-scatter,
+    reduce-scatter, all-reduce, all-to-all, all-reduce, all-gather,
+    reduce-scatter, all-gather (the landing regions in turn across the
+    four push designs, the all-reduce in both, an all-gather right after
+    an all-to-all and after a reduce-scatter, the entry barrier after the
+    hop, chunks of changing size), twice: every output bit-identical to
+    its plain version."""
     from distributed_llm_code_samples_tpu_torch.ops import ring
     rng = np.random.default_rng(40 + n)
-    seq = ((ring.ALL_GATHER, (6, 33)), (ring.REDUCE_SCATTER, (n * 64, 48)),
+    seq = ((ring.HOP, (3, 17)), (ring.ALL_GATHER, (6, 33)),
+           (ring.REDUCE_SCATTER, (n * 64, 48)),
            (ring.REDUCE_SCATTER, (n * 5, 7)), (ring.ALL_REDUCE, (n * 4, 33)),
-           (ring.ALL_TO_ALL, (n * 3, 101)), (ring.ALL_GATHER, (5, 7)),
+           (ring.ALL_TO_ALL, (n * 3, 101)),
+           (ring.ALL_REDUCE, (n * 256, 768)), (ring.ALL_GATHER, (5, 7)),
            (ring.REDUCE_SCATTER, (n * 256, 768)),
            (ring.ALL_GATHER, (256, 768)))
     ws = ring.PeerWorkspace(4 * n * 256 * 768, "cuda", n=n)
@@ -447,8 +470,92 @@ def test_ring_ops_in_sequence_on_one_workspace(card, n):
             got = ring.loopback(op, xs, ws)
             for g, w in zip(got, ring.loopback_ref(op, xs)):
                 assert torch.equal(g, w), (i, op)
-        assert ws.region_calls == 14
+        # seven push calls and two all-reduces (two region uses each)
+        assert ws.region_calls == 2 * (7 + 2 * 2)
         ws.check()
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_all_reduce_at_the_main_path_shapes(card, n):
+    """DDP's dw1 [3072, 768] and dw2 [768, 3072] a rank, several ranges a
+    chunk, two calls in a row on one workspace (the second pushes into
+    the region the first pushed into, with no wait): bit-identical to
+    the plain ring, and within 1e-5 of float64 with a control that must
+    fail (one rank's input left out)."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    rng = np.random.default_rng(50 + n)
+    ws = ring.PeerWorkspace(4 * 3072 * 768, "cuda", n=n)
+    try:
+        for shape in ((3072, 768), (768, 3072)):
+            xs = [normal(rng, *shape) for _ in range(n)]
+            got = ring.loopback(ring.ALL_REDUCE, xs, ws)
+            again = ring.loopback(ring.ALL_REDUCE, xs, ws)
+            ws.check()
+            want = ring.loopback_ref(ring.ALL_REDUCE, xs)
+            f64 = sum(x.double() for x in xs)
+            control = f64 - xs[1].double()
+            scale = float(f64.abs().max())
+            for g, a, w in zip(got, again, want):
+                assert torch.equal(g, w) and torch.equal(a, w)
+                assert float((g.double() - f64).abs().max()) <= 1e-5 * scale
+                assert float((g.double() - control).abs().max()) > \
+                    1e-5 * scale
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+def test_all_reduce_wait_gives_up_and_raises(card, monkeypatch):
+    """A rank whose peer never enters the all-reduce waits to its
+    deadline for the peer's chunk and the check raises; after the hop it
+    waits at the entry barrier."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    monkeypatch.setattr(ring, "WAIT_TIMEOUT_S", 0.2)
+    x = torch.ones(8, device="cuda")
+    for where, setup in (("rank 1's chunk", {}),
+                         ("the entry barrier", {"last_op": ring.HOP})):
+        ws = ring.PeerWorkspace(1024, "cuda", n=2)
+        try:
+            for key, value in setup.items():
+                setattr(ws, key, value)
+            ring._launch(ring.ALL_REDUCE, [x], [torch.empty_like(x)], ws, 0)
+            with pytest.raises(RuntimeError, match="ring_all_reduce rank 0 "
+                                                   r"block \d gave up "
+                                                   f"waiting at {where}"):
+                ws.check()
+        finally:
+            ws.close()
+
+
+@pytest.mark.cuda
+def test_all_reduce_trace_stamps_every_block_in_phase_order(card):
+    """The all-reduce's trace of one loopback call: a row per block, each
+    block's entry, arrival, sums stored and flagged, and copy-out in time
+    order; the pushing blocks' start and end between entry and their
+    arrival's wait; the block that does not push has no push stamps."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    n = 4
+    xs = [torch.randn(n * 64, 1000, device="cuda") for _ in range(n)]
+    ws = ring.PeerWorkspace(4 * xs[0].numel(), "cuda", n=n)
+    try:
+        stamps = ring.traced(lambda: ring.loopback(ring.ALL_REDUCE, xs, ws),
+                             "cuda").cpu()
+        p = ring._ar_ranges(64 * 1000, n, True)
+        assert stamps.shape == (n * n * p, len(ring.A2A_PHASES))
+        for r in range(n):
+            mine = stamps[r * n * p:(r + 1) * n * p]
+            push, rest = mine[:(n - 1) * p], mine[(n - 1) * p:]
+            assert bool((push[:, 1:3] >= push[:, :2]).all())
+            assert bool((rest[:, 1:3] == 0).all())
+            assert bool((mine[:, 3] >= mine[:, 0]).all())
+            assert bool((mine[:, 4:] >= mine[:, 3:5]).all())
+        got = ring.loopback(ring.ALL_REDUCE, xs, ws)
+        ws.check()
+        for g, w in zip(got, ring.loopback_ref(ring.ALL_REDUCE, xs)):
+            assert torch.equal(g, w)
     finally:
         ws.close()
 
@@ -457,9 +564,9 @@ def test_ring_ops_in_sequence_on_one_workspace(card, n):
 def test_rs_wait_gives_up_and_raises(card, monkeypatch):
     """A rank whose peer never enters the reduce-scatter waits to its
     deadline, leaves its error word, and the check raises: for the
-    peer's chunk (on a fresh workspace), at the entry barrier (after a
-    ring call), and for the peer's release of the region of the call
-    before last."""
+    peer's chunk (on a fresh workspace), at the entry barrier (after the
+    hop), and for the peer's release of the region of the call before
+    last."""
     from distributed_llm_code_samples_tpu_torch.ops import ring
     monkeypatch.setattr(ring, "WAIT_TIMEOUT_S", 0.2)
     x = torch.ones(8, device="cuda")
@@ -467,7 +574,7 @@ def test_rs_wait_gives_up_and_raises(card, monkeypatch):
     # every block of the rank waits for rank 1's chunk (each sums a part of
     # it), and every block waits at the barrier: any may leave its code
     for where, setup in (("rank 1's chunk", {}),
-                         ("the entry barrier", {"last_op": ring.ALL_REDUCE})):
+                         ("the entry barrier", {"last_op": ring.HOP})):
         ws = ring.PeerWorkspace(1024, "cuda", n=2)
         try:
             for key, value in setup.items():
@@ -581,13 +688,13 @@ def test_a2a_wait_gives_up_and_raises(card, monkeypatch):
     """A rank whose peer never enters the all-to-all waits to its
     deadline, leaves its error word, and the check raises: for the
     peer's chunk (no entry barrier after another all-to-all or on a fresh
-    workspace), at the entry barrier (after another collective), and for
+    workspace), at the entry barrier (after the hop), and for
     the peer's release of the landing slot of the call before last."""
     from distributed_llm_code_samples_tpu_torch.ops import ring
     monkeypatch.setattr(ring, "WAIT_TIMEOUT_S", 0.2)
     x = torch.ones(4, device="cuda")
     for where, setup in (("rank 1's chunk", {}),
-                         ("the entry barrier", {"last_op": ring.ALL_REDUCE})):
+                         ("the entry barrier", {"last_op": ring.HOP})):
         ws = ring.PeerWorkspace(1024, "cuda", n=2)
         try:
             for key, value in setup.items():

@@ -16,6 +16,15 @@ the card's ``lm-kernel-case`` lines, max |port - jax| <= 2e-3 max |jax|.
 lse and the backward (whose p comes from the final lse on both sides)
 round at the same points and keep the f32 tolerances.
 
+The forward kernel's tiling is held here too: ``tiled_fwd`` writes out,
+in plain torch, what ``csrc/flash_attn_fwd.cu`` computes under each of
+``FWD_PLANS`` (query tiles walking the key tiles they need, the online
+softmax a key tile at a time, the mask only on tiles that cross the
+causal diagonal or the ragged edge). It must equal the plain version
+within rtol/atol 1e-5, and the Pallas kernel in interpret mode at T 200,
+dh 40 and at T 128, dh 64; a control that skips the mask on every tile
+must fail.
+
 The CUDA kernels themselves are held against these plain versions in
 ``test_torch_cuda_kernels.py``, on the card.
 """
@@ -88,6 +97,112 @@ def test_bwd_matches_jax_pallas_interpret(causal, mxu_bf16):
                                         causal=causal, mxu_bf16=mxu_bf16),
                               want):
             close(g, w, 1e-4, 1e-5)
+
+
+def _kernel_full(q0, k0, qt, kt, tq, tk, causal):
+    """The kernel's rule: every pair of the tile is seen (no diagonal,
+    no ragged edge), so its mask is skipped."""
+    return (not causal or q0 >= k0 + kt - 1) and q0 + qt <= tq \
+        and k0 + kt <= tk
+
+
+def tiled_fwd(q, k, v, causal, plan, mxu_bf16=False, full=_kernel_full):
+    """``(y, lse)`` as the forward kernel forms them under ``plan``, in
+    plain torch: each query tile walks the key tiles up to its last
+    row's (all when not causal), zero-padded past T; per key tile the
+    scores, the row max, ``alpha`` and ``p`` (masked to -1e30 and zeroed
+    only where ``full`` says the tile is not whole), ``l`` and ``acc``."""
+    qt, kt, _ = plan
+    bh, tq, dh = q.shape
+    tk = k.shape[1]
+    scale = 1.0 / dh ** 0.5
+
+    def pad(t, mult):
+        rows = t.shape[1]
+        return torch.nn.functional.pad(
+            p_fa._op(t, mxu_bf16), (0, 0, 0, -(-rows // mult) * mult - rows))
+
+    qp, kp, vp = pad(q, qt), pad(k, kt), pad(v, kt)
+    y, lse = torch.empty_like(q), torch.empty(bh, tq)
+    every = -(-tk // kt)
+    for q0 in range(0, tq, qt):
+        rows = torch.arange(q0, q0 + qt)[:, None]
+        nk = min(every, (min(q0 + qt, tq) - 1) // kt + 1) if causal \
+            else every
+        m = torch.full((bh, qt), p_fa._NEG)
+        l, acc = torch.zeros(bh, qt), torch.zeros(bh, qt, dh)
+        for j in range(nk):
+            k0 = j * kt
+            keys = torch.arange(k0, k0 + kt)[None, :]
+            s = (qp[:, q0:q0 + qt] @ kp[:, k0:k0 + kt].transpose(1, 2)) \
+                * scale
+            whole = full(q0, k0, qt, kt, tq, tk, causal)
+            if not whole:
+                keep = (rows < tq) & (keys < tk) & (
+                    (rows >= keys) if causal else True)
+                s = torch.where(keep, s, p_fa._NEG)
+            mn = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - mn)
+            p = torch.exp(s - mn[..., None])
+            if not whole:
+                p = torch.where(keep, p, 0.0)
+            l = alpha * l + p.sum(-1)
+            acc = acc * alpha[..., None] + p_fa._op(p, mxu_bf16) \
+                @ vp[:, k0:k0 + kt]
+            m = mn
+        n = min(qt, tq - q0)
+        y[:, q0:q0 + n] = (acc / l[..., None])[:, :n]
+        lse[:, q0:q0 + n] = (m + torch.log(l))[:, :n]
+    return y, lse
+
+
+# (BH, Tq, Tk, dh): ragged (T and dh that no tile divides), whole tiles,
+# and a rectangular one
+TILED = {"ragged": (3, 200, 200, 40), "whole": (2, 256, 256, 64),
+         "rect": (2, 80, 130, 16)}
+
+
+@pytest.mark.parametrize("mxu_bf16", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", sorted(TILED))
+@pytest.mark.parametrize("plan", p_fa.FWD_PLANS)
+def test_tiled_fwd_equals_the_plain_version(plan, shape, causal, mxu_bf16):
+    bh, tq, tk, dh = TILED[shape]
+    rng = np.random.default_rng(tq + dh)
+    q, k, v = tt(*(rng.normal(size=(bh, t, dh)).astype(np.float32)
+                   for t in (tq, tk, tk)))
+    y, lse = tiled_fwd(q, k, v, causal, plan, mxu_bf16)
+    y_r, lse_r = p_fa.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                              mxu_bf16=mxu_bf16)
+    y_tol = (0.0, 2e-3 * float(y_r.abs().max())) if mxu_bf16 \
+        else (1e-5, 1e-5)
+    close(y, y_r, *y_tol)
+    close(lse, lse_r, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("shape", ["ragged", "whole"])
+def test_tiled_fwd_control_skipping_every_mask_fails(shape):
+    """A rule that calls every tile whole lets causally hidden keys in:
+    the model then leaves the plain version, so a wrong skip rule fails
+    here and not first on the card."""
+    bh, tq, tk, dh = TILED[shape]
+    q, k, v = tt(*inputs(bh, tq, dh, seed=6)[:3])
+    y, _ = tiled_fwd(q, k, v, True, p_fa.FWD_PLAN,
+                     full=lambda *_: True)
+    y_r, _ = p_fa.flash_attention_fwd_ref(q, k, v, causal=True)
+    assert float((y - y_r).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,dh,block", [(200, 40, 40), (128, 64, 64)])
+def test_tiled_fwd_equals_jax_pallas_interpret(t, dh, block, causal):
+    q, k, v, _ = inputs(2, t, dh, seed=t)
+    y_j, lse_j = jax.vmap(lambda a, b, c: j_fa.flash_attention_fwd(
+        a, b, c, causal=causal, block_q=block, block_k=block,
+        interpret=True, mxu_bf16=False))(q, k, v)
+    y, lse = tiled_fwd(*tt(q, k, v), causal, p_fa.FWD_PLAN)
+    close(y, y_j, 1e-5, 1e-5)
+    close(lse, lse_j, 1e-5, 1e-5)
 
 
 def test_batched_leading_dims_match_per_head():

@@ -1,16 +1,20 @@
-"""The reduce-scatter kernel's plan on the CPU (``ops/ring.py``): the
-order its receivers sum in, the landing regions it shares with the
-all-to-all and the all-gather, and the workspace it needs.
+"""The plans of the reduce-scatter and all-reduce kernels on the CPU
+(``ops/ring.py``): the order their receivers sum in, the landing regions
+they share with the all-to-all and the all-gather, and the workspace and
+ranges they need.
 
-The kernel (``csrc/ring_collectives.cu``, ``ring_reduce_scatter_kernel``)
-cannot run here, so ``_receiver_model`` writes out what it does: every
-peer j pushes range b of its chunk r into rank r's landing slot
-``(j - r) % n - 1``, and each of rank r's n summing blocks of range b
-adds, over its n-th of the range, slot 0, slot 1, ... left to right and
-its own chunk last. It must give the plain
+The kernels (``csrc/ring_collectives.cu``, ``ring_reduce_scatter_kernel``
+and ``ring_all_reduce_kernel``) cannot run here, so ``_receiver_model``
+and ``_all_reduce_model`` write out what they do: every peer j pushes
+range b of its chunk r into rank r's landing slot ``(j - r) % n - 1``,
+and each of rank r's n summing blocks of range b adds, over its n-th of
+the range, slot 0, slot 1, ... left to right, with its own chunk last
+(the reduce-scatter) or first (the all-reduce, which then stores each
+sum into its own output and into slot r of every peer's gather region,
+whose n blocks of range b copy their n-th out). Each must give the plain
 ring's bits (``loopback_ref``) and, at n = 4, those of the JAX package's
-Pallas ``ring_reduce_scatter`` in interpret mode on the conftest
-``mesh4``. No tolerance: the same f32 pairs are added in the same order.
+Pallas ring in interpret mode on the conftest ``mesh4``. No tolerance:
+the same f32 pairs are added in the same order.
 """
 
 import functools
@@ -68,6 +72,38 @@ def _receiver_model(xs, loopback: bool):
     return outs
 
 
+def _all_reduce_model(xs, loopback: bool):
+    """Each rank's output as the all-reduce kernel forms it: the pushes,
+    the sums of each range's n parts, and the gather's copy-out."""
+    n = len(xs)
+    parts = [x.contiguous().reshape(n, -1) for x in xs]
+    chunk = parts[0].shape[1]
+    ranges = _ranges(chunk, ring._ar_ranges(chunk, n, loopback))
+    # rank r's push region: slot k - 1 holds chunk r of the k-th rank after
+    # r; its gather region: slot s holds rank s's summed chunk s
+    slots = [[parts[(r + k) % n][r] for k in range(1, n)] for r in range(n)]
+    gather = [[None] * n for _ in range(n)]
+    outs = [torch.empty(n, chunk) for _ in range(n)]
+    for r in range(n):
+        summed = torch.full((chunk,), float("nan"))
+        for lo, hi in ranges:
+            # n blocks sum a range, each its n-th, own copy first
+            for a, z in _ranges(hi - lo, n, lo):
+                acc = parts[r][r][a:z].clone()
+                for k in range(n - 1):
+                    acc = slots[r][k][a:z] + acc
+                summed[a:z] = acc
+        outs[r][r] = summed
+        for k in range(1, n):
+            gather[(r + k) % n][r] = summed
+    for j in range(n):
+        for s in (s for s in range(n) if s != j):
+            for lo, hi in ranges:
+                for a, z in _ranges(hi - lo, n, lo):
+                    outs[j][s][a:z] = gather[j][s][a:z]
+    return [o.reshape(xs[0].shape) for o in outs]
+
+
 def _inputs(n, shape, seed):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.normal(size=(n * shape[0],) + shape[1:])
@@ -102,53 +138,88 @@ def test_receiver_order_equals_the_pallas_ring(mesh4, shape):
         np.testing.assert_array_equal(got.numpy(), want[r])
 
 
+@pytest.mark.parametrize("loopback", [False, True])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_all_reduce_order_equals_the_plain_ring(n, shape, loopback):
+    xs = _inputs(n, SHAPES[shape], 20 * n)
+    if shape == "vectorised":
+        chunk = xs[0].numel() // n
+        assert ring._ar_ranges(chunk, n, loopback) > 1
+    for got, want in zip(_all_reduce_model(xs, loopback),
+                         ring.loopback_ref(ring.ALL_REDUCE, xs)):
+        assert got.shape == want.shape
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_all_reduce_order_equals_the_pallas_ring(mesh4, shape):
+    n = 4
+    xs = _inputs(n, SHAPES[shape], 9)
+    fn = functools.partial(jr.ring_all_reduce, axis_name=DATA_AXIS,
+                           interpret=True)
+    f = jax.shard_map(fn, mesh=mesh4, in_specs=P(DATA_AXIS),
+                      out_specs=P(DATA_AXIS), check_vma=False)
+    want = np.asarray(f(np.concatenate([x.numpy() for x in xs])))
+    want = want.reshape((n, -1) + want.shape[1:])
+    for r, got in enumerate(_all_reduce_model(xs, loopback=False)):
+        np.testing.assert_array_equal(got.numpy(), want[r])
+
+
 def _fold(ops):
-    """``region_plan`` over a call sequence, as ``ops/ring.py``'s launch
-    keeps the bookkeeping: each call's ``(region, prev, barrier)``."""
+    """``region_plan`` over a call sequence, with ``region_record``'s
+    bookkeeping as ``ops/ring.py``'s launch keeps it: each call's
+    ``(region, prev, barrier)``."""
     last_op, calls, last, plans = None, 0, [(0, 0), (0, 0)], []
     for epoch, op in enumerate(ops, start=1):
-        plan = ring.region_plan(op, last_op, calls, last)
-        plans.append(plan)
-        if op in ring.REGION_OPS:
-            last[plan[0]] = (epoch, 10 + epoch)   # (epoch, ranges)
-            calls += 1
+        plans.append(ring.region_plan(op, last_op, calls, last))
+        calls, last = ring.region_record(op, calls, last, epoch, 10 + epoch)
         last_op = op
     return plans
 
 
-# the push designs: every op but the hop and the all-reduce, the two
-# rings
-PUSH_OPS = (ring.ALL_TO_ALL, ring.REDUCE_SCATTER, ring.ALL_GATHER)
+# the push designs: every op but the hop, the one ring
+PUSH_OPS = (ring.ALL_TO_ALL, ring.REDUCE_SCATTER, ring.ALL_GATHER,
+            ring.ALL_REDUCE)
 
 
 def _expected(ops):
-    """The rule written out: a ring call (the hop, the all-reduce) plans
-    nothing; an all-to-all, all-gather or reduce-scatter lands in the
-    other region than the one before it of those three ops, waits for
-    the releases of the last call that used its region, and opens with
-    the barrier right after a ring call."""
-    out, used = [], []
+    """The rule written out: the hop plans nothing; every other op lands
+    in the other region than the last one used (an all-reduce lands its
+    pushes there and its sums in the other one, which is then the last
+    one used), waits for the releases of the last call whose slots there
+    peers release (an all-reduce's pushes are never such: they are read
+    before the call ends on every rank), and opens with the barrier right
+    after the hop."""
+    out, used = [], []      # (epoch, region, released) in order of use
     for i, op in enumerate(ops):
         if op not in PUSH_OPS:
             out.append((0, (0, 0), 0))
             continue
         region = 0 if not used else 1 - used[-1][1]
-        prev = next(((e, 10 + e) for e, reg in reversed(used)
-                     if reg == region), (0, 0))
-        ring_before = i > 0 and ops[i - 1] not in PUSH_OPS
-        out.append((region, prev, int(ring_before)))
-        used.append((i + 1, region))
+        last = next(((e, rel) for e, reg, rel in reversed(used)
+                     if reg == region), (0, False))
+        prev = (last[0], 10 + last[0]) if last[1] else (0, 0)
+        hop_before = i > 0 and ops[i - 1] not in PUSH_OPS
+        out.append((region, prev, int(hop_before)))
+        if op == ring.ALL_REDUCE:
+            used += [(i + 1, region, False), (i + 1, 1 - region, True)]
+        else:
+            used.append((i + 1, region, True))
     return out
 
 
-# FSDP's step (two gathers, two scatters a layer), the card test's
-# mixed sequence, and runs of one op
+# FSDP's step (two gathers, two scatters a layer), DDP's (the hop, then
+# two all-reduces a layer of its 24), the card test's mixed sequence, and
+# runs of one op
 SEQUENCES = {
     "fsdp": [ring.HOP] + [ring.ALL_GATHER] * 4 + [
         ring.ALL_GATHER, ring.ALL_GATHER, ring.REDUCE_SCATTER,
         ring.REDUCE_SCATTER] * 3,
-    "mixed": [ring.ALL_GATHER, ring.REDUCE_SCATTER, ring.REDUCE_SCATTER,
-              ring.ALL_REDUCE, ring.ALL_TO_ALL, ring.REDUCE_SCATTER,
+    "ddp": [ring.HOP] + [ring.ALL_REDUCE] * 48,
+    "mixed": [ring.HOP, ring.ALL_GATHER, ring.REDUCE_SCATTER,
+              ring.REDUCE_SCATTER, ring.ALL_REDUCE, ring.ALL_TO_ALL,
+              ring.ALL_REDUCE, ring.ALL_GATHER, ring.REDUCE_SCATTER,
               ring.ALL_GATHER],
     "scatters": [ring.REDUCE_SCATTER] * 5,
     "exchanges": [ring.ALL_TO_ALL, ring.REDUCE_SCATTER] * 3,
@@ -180,6 +251,30 @@ def test_fsdp_stream_opens_with_the_only_barrier():
         range(2, len(ops) - 1))
 
 
+def test_ddp_stream_opens_with_the_only_barrier():
+    """DDP's calls on its workspace: the opening hop, then two
+    all-reduces a layer. The first all-reduce opens with the all-peer
+    barrier and no later one has it; every one pushes into region 0 and
+    sums into region 1, and none waits for a release: the one before it
+    has ended on the sender, so every peer has read its pushes, and its
+    gather region the next one does not push into."""
+    ops = SEQUENCES["ddp"]
+    plans = _fold(ops)
+    assert plans == [(0, (0, 0), 0), (0, (0, 0), 1)] + [(0, (0, 0), 0)] * 47
+    calls, last = 0, [(0, 0), (0, 0)]
+    for epoch, op in enumerate(ops, start=1):
+        calls, last = ring.region_record(op, calls, last, epoch, 32)
+    assert calls == 2 * 48 and last == [(0, 0), (49, 32)]
+
+
+def _uses(op, plan):
+    """The regions a call stores into: its own, and the all-reduce's
+    gather region too."""
+    if op not in ring.REGION_OPS:
+        return set()
+    return {plan[0], 1 - plan[0]} if op == ring.ALL_REDUCE else {plan[0]}
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_region_plan_of_random_sequences(seed):
     rng = np.random.default_rng(seed)
@@ -187,13 +282,16 @@ def test_region_plan_of_random_sequences(seed):
     plans = _fold(ops)
     assert plans == _expected(ops)
     # no region op stores into a region whose last user it has not
-    # waited for: prev is exactly the last call in that region
+    # waited for: prev is the last call that stored there, one whose
+    # slots there the peers release (not an all-reduce's pushes)
     for i, (op, (region, prev, _)) in enumerate(zip(ops, plans)):
         if op in ring.REGION_OPS and prev != (0, 0):
             e = prev[0]
-            assert plans[e - 1][0] == region and ops[e - 1] in ring.REGION_OPS
-            assert not any(ops[k] in ring.REGION_OPS
-                           and plans[k][0] == region for k in range(e, i))
+            assert region in _uses(ops[e - 1], plans[e - 1])
+            assert not (ops[e - 1] == ring.ALL_REDUCE
+                        and plans[e - 1][0] == region)
+            assert not any(region in _uses(ops[k], plans[k])
+                           for k in range(e, i))
 
 
 def test_region_plan_of_a_fresh_workspace():
@@ -244,6 +342,38 @@ def test_reduce_scatter_ranges(n, loopback, want):
     assert ring._rs_ranges(105, n, loopback) == 1
 
 
+@pytest.mark.parametrize("n,loopback,want", [(4, False, 32), (4, True, 8),
+                                             (2, True, 32), (3, True, 14),
+                                             (8, False, 16)])
+def test_all_reduce_ranges(n, loopback, want):
+    """The reduce-scatter's ranges at the main path's chunk, but a rank's
+    n * ranges blocks, which wait for each other's sums, stay resident
+    across the cards too (at most 128)."""
+    chunk = 3072 * 768 // 4
+    got = ring._ar_ranges(chunk, n, loopback)
+    assert got == want and n * got <= ring._LOOPBACK_BLOCKS
+    if loopback:
+        assert n * n * got <= ring._LOOPBACK_BLOCKS
+    assert ring._ar_ranges(105, n, loopback) == 1
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_all_reduce_parts_cover_each_range(n):
+    """The all-reduce's ranges and the n parts its blocks sum and copy
+    out of each (the same parts in both phases) cover the chunk once, in
+    order, at the main path's chunk, a ragged one and one under a
+    range."""
+    for chunk in (3072 * 768 // 4, 25025, 105, 3):
+        for loopback in (False, True):
+            cover = []
+            for lo, hi in _ranges(chunk, ring._ar_ranges(chunk, n,
+                                                         loopback)):
+                for a, z in _ranges(hi - lo, n, lo):
+                    assert a <= z and (a == z or a % 4 == 0)
+                    cover += range(a, z)
+            assert cover == list(range(chunk))
+
+
 def test_error_word_decodes_the_reduce_scatter_waits():
     op = 1 + ring._OPS[ring.REDUCE_SCATTER]
 
@@ -258,3 +388,24 @@ def test_error_word_decodes_the_reduce_scatter_waits():
         "ring_reduce_scatter rank 0 block 0 gave up waiting at rank 1's "
         "release of its landing slot")
     assert ring.describe_error(code(-1, 7, 1)).endswith("the entry barrier")
+
+
+def test_error_word_decodes_the_all_reduce_waits():
+    op = 1 + ring._OPS[ring.ALL_REDUCE]
+
+    def code(step, block, rank):
+        return (op << 48) | ((step + 1) << 32) | ((block + 1) << 16) | (
+            rank + 1)
+
+    assert ring.describe_error(code(2, 3, 1)) == (
+        "ring_all_reduce rank 1 block 3 gave up waiting at rank 2's chunk")
+    assert ring.describe_error(code(ring._MAX_RANKS + 3, 0, 2)) == (
+        "ring_all_reduce rank 2 block 0 gave up waiting at rank 3's "
+        "release of its landing slot")
+    assert ring.describe_error(code(2 * ring._MAX_RANKS + 1, 9, 0)) == (
+        "ring_all_reduce rank 0 block 9 gave up waiting at rank 1's "
+        "summed chunk")
+    assert ring.describe_error(code(-1, 2, 3)).endswith("the entry barrier")
+    hop = 1 + ring._OPS[ring.HOP]
+    assert ring.describe_error((hop << 48) | (1 << 32) | (1 << 16) | 1) == (
+        "ppermute_dma rank 0 block 0 gave up waiting at step 0")

@@ -1,7 +1,8 @@
 """The plans of the LM head's statistics kernel and of the flash
-attention backward on the CPU (``ops/fused_xent.py``,
+attention kernels on the CPU (``ops/fused_xent.py``,
 ``ops/flash_attention.py``): how ``csrc/head_xent_fwd.cu`` cuts the
-vocabulary into slices, and the scratch each wrapper allocates.
+vocabulary into slices, the scratch each wrapper allocates, and the
+forward's tiles and their shared memory.
 
 The kernels cannot run here; these hold the plain Python functions the
 wrappers hand them: the vocab slices cover ``[0, V)`` in order with no
@@ -143,6 +144,31 @@ def test_flash_bwd_plan():
     assert key_tile in (64, 128) and stages in (1, 2)
     assert fa.SCRATCH_KEYS % key_tile == 0
     assert key_tile % fa.QUERY_TILE == 0
+
+
+@pytest.mark.parametrize("plan", fa.FWD_PLANS)
+def test_flash_fwd_plans_fit_the_card(plan):
+    """Each forward plan the kernel takes: a block of 2 x query tile
+    threads (16 a row group of 8 rows) with 8 rows x key tile / 16 >= 4
+    scores a thread, a ring of at least two stages, and shared memory
+    within the 227 KB a block may use: q, the ring's k and v, and p."""
+    query_tile, key_tile, stages = plan
+    assert query_tile % 8 == 0 and key_tile % 64 == 0 and stages >= 2
+    assert 8 * key_tile // 16 >= 32
+    assert fa.fwd_smem_bytes(plan) == 4 * (
+        query_tile * 68 + stages * 2 * key_tile * 68
+        + query_tile * (key_tile + 4))
+    assert fa.fwd_smem_bytes(plan) <= fa.SMEM_PER_BLOCK
+    assert fa.fwd_blocks_per_sm(plan) >= 1
+
+
+def test_flash_fwd_plan():
+    """The wrapper's plan is one the kernel takes: 102 KB a block, two
+    blocks an SM (264 block slots on 132 SMs); the others hold one."""
+    assert fa.FWD_PLAN in fa.FWD_PLANS
+    assert fa.fwd_smem_bytes((64, 64, 2)) == 104448
+    assert {p: fa.fwd_blocks_per_sm(p) for p in fa.FWD_PLANS} == {
+        (64, 64, 2): 2, (128, 64, 2): 1, (64, 128, 2): 1, (64, 64, 3): 1}
 
 
 def test_flash_bwd_scratch_at_the_main_shape():
