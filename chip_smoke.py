@@ -41,9 +41,11 @@ each split size, ``paged-splits``), then drives the port's paths:
   ``--phase dist``, not part of the default run, spawns one rank a card
   on 4 cards over NCCL and peer-mapped memory, holds each kernel against
   its plain ring and NCCL, traces one reduce-scatter, one all-reduce,
-  one all-gather and one all-to-all (``dist-rs-trace``,
-  ``dist-ar-trace``, ``dist-ag-trace``, ``dist-a2a-trace``), trains both
-  strategies under both transports and profiles rank 0;
+  one all-gather, one hop and one all-to-all (``dist-rs-trace``,
+  ``dist-ar-trace``, ``dist-ag-trace``, ``dist-hop-trace``,
+  ``dist-a2a-trace``), runs one workspace through a sequence of the
+  kernels with one rank's card held back (``dist-ring-sequence``), trains
+  both strategies under both transports and profiles rank 0;
 - expert parallelism: ``train_moe_ep`` of the MoE stack of
   ``bench_moe.py``'s headline (d 768, 6 layers, 8 experts of ffn 3072,
   top-2, 8192 tokens a step over 4 ranks) for 8 steps a rank under each
@@ -71,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import re
 import statistics
@@ -1865,6 +1868,16 @@ A2A_RANGE_SWEEP = (4, 16, 32, 64)
 # timed across the cards at the main case (dw1)
 RS_RANGE_SWEEP = (8, 16, 32, 64)
 AR_RANGE_SWEEP = (8, 16, 32)
+# ranges of the hop's block (ops/ring.py HOP_RANGES, 64), timed across
+# the cards at the main case
+HOP_RANGE_SWEEP = (8, 16, 32, 64)
+# ``--phase dist``'s sequence on one workspace (``dist-ring-sequence``):
+# the hop after a gather and before each other kind of call, and the
+# ranks held back in turn before each call
+SEQ_OPS = ("ring_all_gather", "ppermute_dma", "ring_reduce_scatter",
+           "ppermute_dma", "ring_all_reduce", "ppermute_dma",
+           "all_to_all_dma", "ring_all_gather")
+SEQ_LATE_RANKS = (2, 1)
 # one step's gradients, leaf by leaf: EP's relative error against a
 # float64 dense run at most EP_GRAD_RATIO times the f32 dense oracle's
 # (the GRAD_RATIO pattern)
@@ -2010,16 +2023,17 @@ def range_sweep(torch, time_ms, ring, check_ws, agree, kern, sweep=None):
 
 
 def rs_trace_summary(stamps):
-    """One rank's reduce-scatter or all-reduce trace (``ops.ring.traced``)
-    in microseconds from its first block's entry: when its pushing blocks
-    started and finished, and when its blocks (every block sums) saw
-    their range land from every source and had summed their part (the
-    all-reduce's: stored on to every peer and flagged) and, for the
-    all-reduce, copied out their part of every peer's sum (min, median,
-    max)."""
+    """One rank's reduce-scatter, all-reduce or hop trace
+    (``ops.ring.traced``) in microseconds from its first block's entry:
+    when its pushing blocks started and finished, and when its receiving
+    blocks (every block of the reduce-scatter and the all-reduce sums;
+    the hop's copy-out blocks) saw their range land from every source and
+    had summed or copied out their part (the all-reduce's sums: stored on
+    to every peer and flagged) and, for the all-reduce, copied out their
+    part of every peer's sum (min, median, max)."""
     s = stamps.double()
     t0 = s[:, 0].min()
-    push, summed = s[s[:, 1] > 0], s
+    push, summed = s[s[:, 1] > 0], s[s[:, 3] > 0]
 
     def spread(v):
         v = (v - t0) / 1e3
@@ -2304,8 +2318,17 @@ def ring_dist_bound(op, in_bytes, n):
 
 def _nccl_call(torch, dist, op, x):
     """The NCCL collective that computes ``op`` on ``x`` (the kernels'
-    library yardstick), or None for the hop, which has none."""
+    library yardstick); the hop's is an ``all_to_all_single`` whose one
+    split that is not empty is the block, to the rank after and from the
+    rank before."""
     n = dist.get_world_size()
+    if op == "ppermute_dma":
+        r, rows = dist.get_rank(), x.shape[0]
+        send, recv = [0] * n, [0] * n
+        send[(r + 1) % n], recv[(r - 1) % n] = rows, rows
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x, recv, send)
+        return y
     if op == "ring_all_reduce":
         y = x.clone()
         dist.all_reduce(y)
@@ -2320,7 +2343,7 @@ def _nccl_call(torch, dist, op, x):
                         device=x.device)
         dist.all_gather_into_tensor(y, x)
         return y
-    return None
+    raise ValueError(op)
 
 
 def a2a_dist_bound(in_bytes, n):
@@ -2410,13 +2433,12 @@ def dist_rank(mesh, payload):
                    max_abs_err=float((got - want).abs().max()),
                    err_vs_f64=err,
                    control_err_vs_f64=ring_err(torch, [got], [f64[1]]),
-                   nccl_err_vs_f64=(None if nccl is None else
-                                    ring_err(torch, [nccl], [f64[0]])),
+                   nccl_err_vs_f64=ring_err(torch, [nccl], [f64[0]]),
                    ms=aligned(kern),
                    ms_with_host=timer.ms(kern, with_host=True),
                    plain_ms=aligned(plain),
-                   library_ms=(None if nccl is None else aligned(
-                       partial(_nccl_call, torch, dist, op, x))))
+                   library_ms=aligned(partial(_nccl_call, torch, dist, op,
+                                              x)))
         row["bound_ms"], row["bound_by"] = ring_dist_bound(
             op, 4 * x.numel(), n)
         every = gathered({key: row[key] for key in
@@ -2428,8 +2450,7 @@ def dist_rank(mesh, payload):
                         and e["err_vs_f64"] <= RING_TOL
                         and e["control_err_vs_f64"] > RING_TOL
                         for e in every) and (
-            row["nccl_err_vs_f64"] is None
-            or row["nccl_err_vs_f64"] <= RING_TOL)
+            row["nccl_err_vs_f64"] <= RING_TOL)
         say("dist-kernel-case", row)
         cases.append(row)
         del x, xs, got, again, want, nccl, f64
@@ -2510,6 +2531,78 @@ def dist_rank(mesh, payload):
         ranks=[t[0] for t in gathered(a2a_trace_summary(stamps.cpu(), n,
                                                         1))]))
     del x, stamps
+    # the hop of the [768, 3072] block at other ranges, each run (ten
+    # calls) bit-identical to the plain hop, and one call's own stamps:
+    # pushes stored and flagged, ranges arrived, copied out and released
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(580 + r)
+    x = torch.randn((D_MODEL, FFN_DIM), generator=gen, device=dev)
+    want = ring.ppermute_dma_ref(x, rg)
+
+    def hop_agree():
+        return [torch.equal(ring.ppermute_dma(x, rg), want)
+                for _ in range(10)]
+
+    sweep = range_sweep(
+        torch, aligned, ring, mesh.check, hop_agree,
+        partial(ring.ppermute_dma, x, rg),
+        {p: dict(HOP_RANGES=p) for p in HOP_RANGE_SWEEP})
+    every = gathered(sweep)
+    say("dist-hop-ranges", dict(shape="block", mode="4 cards", ms=sweep,
+                                ms_max_over_ranks={
+                                    p: max(e[p] for e in every)
+                                    for p in sweep}))
+
+    def hop_together():
+        torch.cuda._sleep(HOST_COVER_CYCLES)
+        dist.all_reduce(token)
+        ring.ppermute_dma(x, rg)
+
+    for _ in range(3):          # warm, as the timer's calls are
+        hop_together()
+    stamps = ring.traced(hop_together, dev)
+    mesh.check()
+    say("dist-hop-trace", dict(shape="block", mode="4 cards",
+                               phases=ring.A2A_PHASES,
+                               ranks=gathered(rs_trace_summary(
+                                   stamps.cpu()))))
+    del x, want, stamps
+    # one workspace through the main path's calls in an order that puts
+    # a hop after a gather and before a reduce-scatter, an all-reduce and
+    # an all-to-all, enqueued with no host sync between them, the card
+    # of one rank held back by a spin before one call after another: the
+    # other ranks run ahead, and none may store over a slot that the late
+    # rank has yet to read. Every output bit-identical to its plain
+    # version.
+    seq = tuple(zip(SEQ_OPS, ((FFN_DIM // n, D_MODEL), (D_MODEL, FFN_DIM),
+                              (FFN_DIM, D_MODEL), (D_MODEL, FFN_DIM),
+                              (FFN_DIM, D_MODEL), (D_MODEL, FFN_DIM),
+                              (FFN_DIM, D_MODEL), (D_MODEL // n, FFN_DIM))))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(590 + r)
+    xs = [torch.randn(shape, generator=gen, device=dev) for _, shape in seq]
+    wants = [getattr(ring, op + "_ref")(x, rg) for (op, _), x in zip(seq, xs)]
+    bad = []
+    for late, held in itertools.product(SEQ_LATE_RANKS, range(len(seq))):
+        dist.all_reduce(token)
+        outs = []
+        for i, ((op, _), x) in enumerate(zip(seq, xs)):
+            if r == late and i == held:
+                torch.cuda._sleep(HOST_COVER_CYCLES)
+            outs.append(getattr(ring, op)(x, rg))
+        torch.cuda.synchronize()
+        mesh.check()
+        bad += [[late, held, i] for i, (got, want) in
+                enumerate(zip(outs, wants)) if not torch.equal(got, want)]
+    every = gathered(bad)
+    say("dist-ring-sequence", dict(
+        ops=list(SEQ_OPS), mode="4 cards", late_ranks=list(SEQ_LATE_RANKS),
+        spin_cycles=HOST_COVER_CYCLES,
+        rounds=len(SEQ_LATE_RANKS) * len(seq),
+        mismatches=every, ok=not any(every)))
+    check(not any(every), "a ring kernel behind a late rank disagrees with "
+          f"its plain version: [late rank, held call, call] {every}")
+    del xs, wants, outs
     # the all-to-all: against its plain version (NCCL send / receive) and
     # NCCL's all_to_all_single, bit for bit
     a2a_cases = []

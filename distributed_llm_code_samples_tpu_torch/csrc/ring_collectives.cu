@@ -26,18 +26,34 @@
 // S 9.44 MB (one FFN layer's f32 weight at d 768) that is 14.2 MB, or
 // 31 us, for the all-reduce and 7.1 MB, 16 us, for the others.
 //
-// The hop, still a ring step. A Pallas kernel starts remote DMAs and
-// waits on semaphores; on Hopper a rank's threads store straight into
-// its right neighbour's workspace over NVLink (ring_common.cuh has the
-// layout), and a flag word in the receiver's workspace, stored with
-// release semantics after a system fence, says that the data has
-// landed. The hop splits its block into nblk contiguous ranges, one a
-// block, and block b of a rank talks only to block b of its neighbours.
-// An entry barrier (enter) keeps a rank from writing into a neighbour
-// that is still in the previous call. It lands its block in the
-// receiver's data region, and the receiver copies it into its output.
-// Every wait of every kernel ends at a deadline (wait_for): a missing
-// peer leaves an error code in the workspace instead of hanging the card.
+// Every kernel stores straight into peers' workspaces over NVLink
+// (ring_common.cuh has the layout), where a Pallas kernel starts remote
+// DMAs and waits on semaphores; a flag word in the receiver's workspace,
+// stored after a system fence, says that a range has landed. Every wait
+// of every kernel ends at a deadline (wait_for): a missing peer leaves
+// an error code in the workspace instead of hanging the card.
+//
+// The hop (ring_hop_kernel) moves rank r's whole tensor to rank r + 1:
+// S bytes over one NVLink direction, 21 us at 9.44 MB and 450 GB/s, plus
+// the 5.4 us floor every launch pays behind an L2 flush. A ring step
+// pays besides a round trip before its first store (a neighbour barrier)
+// and holds each block's copy-out behind its own push. This design:
+//  - No barrier: the tensor lands in one of the two regions the other
+//    kernels use in turn, one slot a region, and the sender waits only
+//    for the right neighbour's release of that region's last use (freed,
+//    which has almost always long happened).
+//  - The tensor splits into P ranges (64 on four cards). A rank runs 2P
+//    blocks: P push their range into the right neighbour's region,
+//    kUnroll 16-byte loads in flight a thread, and flag it (landed); P
+//    copy their range out of this rank's region as soon as the left
+//    neighbour's flag for it lands, and release it to every peer.
+// On four H100s at 700 W its trace shows the pushes ending 28-30 us after
+// entry (about 320 GB/s a direction: the ranges land together, the links
+// carrying every block's stores at once) and the copy-outs 6-8 us later.
+// Bulk copies in place of the push's 16-byte stores (cp.async.bulk from
+// the tensor into shared memory and on into the peer's region, one
+// thread of a push block issuing them through four 16 KB stages;
+// patches/ring_hop_bulk_push.patch) ran 2-3% slower at 32 and 64 ranges.
 //
 // The all-to-all (all_to_all_kernel) moves chunk j of rank r's input (the
 // leading-dim n-split) to chunk r of rank j's output, a copy and no sum.
@@ -63,12 +79,11 @@
 //    (signal), as the reduce-scatter's.
 //  - No entry barrier: the chunks land in one of two regions, used in
 //    turn from call to call (the data region, then the staging slots).
-//    After its copy-out a block releases its range of the slot to the
-//    sender (freed); the sender of the call after next waits for
-//    that release before it stores into the same region, which by then
-//    has almost always long happened. Only a call that follows the hop
-//    on the workspace opens with the all-peer barrier (entered): the hop
-//    lands in the data region too.
+//    The last of a rank's n copies of range b (its own chunk's and the
+//    n - 1 copy-outs, counted in copied) releases the range to every
+//    peer (freed); the sender of the call after next waits for that
+//    release before it stores into the same region, which by then has
+//    almost always long happened.
 //
 // The all-gather is the same kernel (all_to_all_kernel<true>) with one
 // source for every peer: rank r's input, one chunk, lands at chunk r of
@@ -78,7 +93,7 @@
 // every link (on four H100s at 700 W: 0.038 ms for the 9.44 MB gathered
 // at n 4, the ring 0.049). It shares the landing regions and their
 // bookkeeping, so FSDP's stream of gathers and reduce-scatters runs with
-// no entry barrier. A region holds n chunk slots (slot s for rank s),
+// no barrier. A region holds n chunk slots (slot s for rank s),
 // the n x shard bytes that workspace_bytes gives it (ops/ring.py).
 //
 // The reduce-scatter (ring_reduce_scatter_kernel) moves the same bytes
@@ -106,11 +121,9 @@
 //    about 25 us after entry (some 290 GB/s a direction, against 450)
 //    and the sums about 6 us later.
 //  - It shares the all-to-all's two landing regions, used in turn across
-//    the three ops' calls, and their bookkeeping: no entry barrier after
-//    another push design, the all-peer barrier after the hop. A region
-//    holds the n-1 slots of chunks,
-//    slot k - 1 for the k-th rank after the receiver, so that the
-//    receiver reads its slots in order.
+//    every op's calls, and their bookkeeping. A region holds the n-1
+//    slots of chunks, slot k - 1 for the k-th rank after the receiver,
+//    so that the receiver reads its slots in order.
 // The all-reduce (ring_all_reduce_kernel) is the reduce-scatter's push
 // and sum, then the all-gather's push, in one launch. A ring takes 2(n-1)
 // dependent steps, each behind its left neighbour's flag and two fences,
@@ -143,6 +156,19 @@
 //    holds n chunk slots for the sums, n-1 for the pushes: workspace_bytes
 //    gives it the tensor's bytes.
 //
+// The releases. A call stores into a peer's region only once the peer
+// has released (freed) every range of the region's last user, and a
+// release of call e by rank j says that j has read range b of every slot
+// it holds from call e and, its calls running in stream order, all it
+// held from earlier ones. So every kernel releases range b to every
+// peer, after the last of its readers of that range: the hop's one
+// copy-out block, the n copies of the all-to-all and the all-gather
+// (copied), the n sums of the reduce-scatter (summed), the n gathers of
+// the all-reduce (copied). A release to the source alone would not do:
+// a call that reads from one peer (the hop) lets a rank run ahead of a
+// peer still reading, from a slow third rank, the slots of the call
+// before, which the next call may store over.
+//
 // Loopback: the n workspaces of one card, one cooperative launch of every
 // rank's blocks (all resident at once, as the waits between blocks need).
 //
@@ -156,23 +182,6 @@
 
 namespace ring {
 namespace {
-
-// Entry barrier of a push-design call that follows the hop: block 0 of
-// the rank tells every peer that the rank has entered the call (so it
-// has finished the previous one: kernels on one stream run in order);
-// every block waits until every peer says the same.
-__device__ __forceinline__ bool enter_all(const Ctx& c, const Params& p) {
-  if (threadIdx.x == 0 && c.b == 0) {
-    __threadfence_system();
-    for (int k = 1; k < c.n; ++k)
-      st_release(entered(p.ws[(c.r + k) % c.n], c.r), c.epoch);
-  }
-  for (int k = 1; k < c.n; ++k) {
-    if (!wait_for(c, entered(c.me, (c.r + k) % c.n), c.epoch, -1))
-      return false;
-  }
-  return true;
-}
 
 // Block-wide wait until *flag(q) >= target for every q < count (count
 // at most blockDim.x): thread q polls flag(q), to the deadline, as
@@ -229,26 +238,14 @@ __device__ __forceinline__ void copy_range(const Ctx& c, float* y,
   }
 }
 
-// The hop: block b of rank r copies its range of the block into the
-// right neighbour's data region after the neighbour barrier (enter),
-// flags it, and copies what its left neighbour left here into the output.
-__global__ void __launch_bounds__(kThreads) ring_hop_kernel(Params p) {
-  const Ctx c = make_ctx(p, kHop);
-  if (!enter(c)) return;
-  copy_range(c, data(c.rw), c.x);
-  publish(arrive(c.rw, c.b), c.base + 1);
-  if (!wait_for(c, arrive(c.me, c.b), c.base + 1, 0)) return;
-  copy_range(c, c.y, data(c.me));
-}
-
-// The push designs' trace: when set (ring_a2a_trace, passed in
-// Params::stamps), thread 0 of each block stores %globaltimer at the
-// block's phases into stamps[blockIdx * kStamps + phase]: 0 entry; 1 its
-// stores may start (after the barrier and the release wait) and 2 its
-// ranges stored and flagged (own-chunk and pushing blocks); 3 its range
-// arrived and 4 copied out (or summed: the all-reduce's sums also stored
-// on to every peer and flagged) and released (copy-out and summing
-// blocks); 5 the all-reduce's gathered parts copied out and released.
+// The trace: when set (ring_a2a_trace, passed in Params::stamps), thread
+// 0 of each block stores %globaltimer at the block's phases into
+// stamps[blockIdx * kStamps + phase]: 0 entry; 1 its stores may start
+// (after the release wait) and 2 its ranges stored and flagged
+// (own-chunk and pushing blocks); 3 its range arrived and 4 copied out
+// (or summed: the all-reduce's sums also stored on to every peer and
+// flagged) and released (copy-out and summing blocks); 5 the
+// all-reduce's gathered parts copied out and released.
 constexpr int kStamps = 6;
 
 __device__ __forceinline__ void stamp(const Params& p, int phase) {
@@ -264,28 +261,11 @@ __device__ __forceinline__ void set_range(Ctx& c, const Params& p, int b) {
   c.hi = min(p.chunk, c.lo + per);
 }
 
-// The context of rank r's block `local` of the per_rank blocks a rank of
-// a push design, with local itself as its block in error codes.
-__device__ __forceinline__ Ctx peer_ctx(const Params& p, int op,
-                                        int per_rank, int* local) {
-  const bool loop = p.rank < 0;
-  *local = static_cast<int>(blockIdx.x) % per_rank;
-  Ctx c = make_ctx(p, op);
-  c.r = loop ? static_cast<int>(blockIdx.x) / per_rank : p.rank;
-  c.b = *local;
-  c.me = p.ws[c.r];
-  c.x = p.in[loop ? c.r : 0];
-  c.y = p.out[loop ? c.r : 0];
-  return c;
-}
-
-// A call's entry in a push design: a rank poisoned by an earlier timeout
-// does nothing; after the hop, the all-peer barrier.
-__device__ __forceinline__ bool open_call(const Ctx& c, const Params& p) {
+// A call's entry: a rank poisoned by an earlier timeout does nothing.
+__device__ __forceinline__ bool open_call(const Ctx& c) {
   int ok = 1;
   if (threadIdx.x == 0) ok = ld_acquire(err_word(c.me)) == 0;
-  if (!__syncthreads_and(ok)) return false;
-  return !p.barrier || enter_all(c, p);
+  return __syncthreads_and(ok) != 0;
 }
 
 // This call's landing region in a workspace (0: data, 1: staging), and
@@ -299,15 +279,58 @@ __device__ __forceinline__ float* other_region(const Ctx& c, const Params& p,
   return p.region ? data(ws) : stage(c, ws);
 }
 
-// Wait until peer j has read what this rank left in its region in the
-// last call that used the region: every range of that call, which may
-// have split the chunk otherwise.
+// Wait until peer j has released every range of the last call that used
+// this call's region (that call may have split its chunks otherwise):
+// j has read all it held there.
 __device__ __forceinline__ bool wait_freed(const Ctx& c, const Params& p,
                                            int j) {
   return wait_each(
       c, p.prev_nblk, static_cast<uint64_t>(p.prev_epoch),
       [&](int q) { return freed(c.me, j, q); },
       [&](int) { return kMaxRanks + j; });
+}
+
+// Thread 0 of the last block to read range b of this rank's slots (the
+// hop's one copy-out block of range b): range b of the slots this rank
+// fills in every peer's workspace released, one system fence, then
+// relaxed flag stores (release stores here, a fence
+// each, held the reduce-scatter's end back by about 6 us at the main
+// shape on four H100s, by its trace).
+__device__ __forceinline__ void release_all(const Ctx& c, const Params& p,
+                                            int b) {
+  __threadfence_system();
+  for (int k = 1; k < c.n; ++k)
+    st_relaxed(freed(p.ws[(c.r + k) % c.n], c.r, b), c.epoch);
+}
+
+// Rank r's block `local` of 2P: range b = local % P. Blocks local < P
+// push range b of the tensor into the right neighbour's slot of this
+// call's region, once it has released the region's last use, and flag
+// it; the other P copy range b of what the left neighbour pushed here
+// out into the output as soon as it lands, while other ranges are still
+// on the link, and release it to every peer.
+__global__ void __launch_bounds__(kThreads) ring_hop_kernel(Params p) {
+  Ctx c = make_ctx(p, kHop, 2 * p.nblk);
+  const int n = p.n, b = c.b % p.nblk;
+  set_range(c, p, b);
+  stamp(p, 0);
+  if (!open_call(c)) return;
+  if (c.b < p.nblk) {
+    const int right = (c.r + 1) % n;
+    if (!wait_freed(c, p, right)) return;
+    stamp(p, 1);
+    copy_range(c, region(c, p, p.ws[right]), c.x);
+    signal(landed(p.ws[right], c.r, b), c.epoch);
+    stamp(p, 2);
+  } else {
+    const int left = (c.r + n - 1) % n;
+    if (!wait_for(c, landed(c.me, left, b), c.epoch, left)) return;
+    stamp(p, 3);
+    copy_range(c, c.y, region(c, p, c.me));
+    __syncthreads();
+    if (threadIdx.x == 0) release_all(c, p, b);
+    stamp(p, 4);
+  }
 }
 
 // Rank r's block `local` of (2n - 1) * P: role = local / P (0: its own
@@ -319,24 +342,17 @@ __device__ __forceinline__ bool wait_freed(const Ctx& c, const Params& p,
 template <bool kGather>
 __global__ void __launch_bounds__(kThreads) all_to_all_kernel(Params p) {
   const int n = p.n;
-  int local;
-  Ctx c = peer_ctx(p, kGather ? kAllGather : kAllToAll, (2 * n - 1) * p.nblk,
-                   &local);
+  Ctx c = make_ctx(p, kGather ? kAllGather : kAllToAll, (2 * n - 1) * p.nblk);
+  const int local = c.b;
   const int role = local / p.nblk, b = local % p.nblk;
   set_range(c, p, b);
   const long long e = p.chunk;
   stamp(p, 0);
-  if (!open_call(c, p)) return;
-  if (role == 0) {
-    stamp(p, 1);
-    copy_range(c, c.y + c.r * e, kGather ? c.x : c.x + c.r * e);
-    __syncthreads();
-    stamp(p, 2);
-  } else if (role < n) {
+  if (!open_call(c)) return;
+  if (role > 0 && role < n) {
     // push range b of the chunk for j into rank j's slot r, once j has
-    // copied out what this rank left there in the last call that used
-    // the region (its every range: that call may have split the chunk
-    // otherwise)
+    // read what it held in the last call that used the region (its every
+    // range: that call may have split the chunk otherwise)
     const int j = (c.r + role) % n;
     if (!wait_freed(c, p, j)) return;
     stamp(p, 1);
@@ -344,15 +360,28 @@ __global__ void __launch_bounds__(kThreads) all_to_all_kernel(Params p) {
                kGather ? c.x : c.x + j * e);
     signal(landed(p.ws[j], c.r, b), c.epoch);
     stamp(p, 2);
+    return;
+  }
+  if (role == 0) {
+    stamp(p, 1);
+    copy_range(c, c.y + c.r * e, kGather ? c.x : c.x + c.r * e);
   } else {
     // rank s, the k-th before this one, pushes here as to its k-th peer
     const int s = (c.r + 2 * n - 1 - role) % n;
     if (!wait_for(c, landed(c.me, s, b), c.epoch, s)) return;
     stamp(p, 3);
     copy_range(c, c.y + s * e, region(c, p, c.me) + s * e);
-    signal(freed(p.ws[s], c.r, b), c.epoch);
-    stamp(p, 4);
   }
+  // count this copy of range b done (n a call: the own chunk's and the
+  // n - 1 copy-outs); the last releases range b to every peer, so that a
+  // release says every slot's range b has been read
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const uint64_t done = atomicAdd(copied(c.me, b), 1ull);
+    if (done % n == static_cast<uint64_t>(n - 1)) release_all(c, p, b);
+  }
+  stamp(p, role == 0 ? 2 : 4);
 }
 
 constexpr int kSumUnroll = 2;   // 16-byte indices in flight a thread
@@ -421,13 +450,13 @@ __device__ __forceinline__ void sum_range(const Ctx& c, float* y,
 __global__ void __launch_bounds__(kThreads)
     ring_reduce_scatter_kernel(Params p) {
   const int n = p.n;
-  int local;
-  Ctx c = peer_ctx(p, kReduceScatter, n * p.nblk, &local);
+  Ctx c = make_ctx(p, kReduceScatter, n * p.nblk);
+  const int local = c.b;
   const int role = local / p.nblk, b = local % p.nblk;
   const long long e = p.chunk;
   set_range(c, p, b);
   stamp(p, 0);
-  if (!open_call(c, p)) return;
+  if (!open_call(c)) return;
   if (role < n - 1) {
     const int j = (c.r + role + 1) % n;
     if (!wait_freed(c, p, j)) return;
@@ -458,18 +487,12 @@ __global__ void __launch_bounds__(kThreads)
     default: sum_range<8>(c, c.y, slots, own); break;
   }
   // count this part done (n a call); the last releases range b of every
-  // source's slot: one fence, then relaxed flag stores (release stores
-  // here, a fence each, held the kernel's end back by about 6 us at the
-  // main shape on four H100s, by its trace)
+  // source's slot
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
     const uint64_t done = atomicAdd(summed(c.me, b), 1ull);
-    if (done % n == static_cast<uint64_t>(n - 1)) {
-      __threadfence_system();
-      for (int k = 1; k < n; ++k)
-        st_relaxed(freed(p.ws[(c.r + k) % n], c.r, b), c.epoch);
-    }
+    if (done % n == static_cast<uint64_t>(n - 1)) release_all(c, p, b);
   }
   stamp(p, 4);
 }
@@ -547,13 +570,13 @@ __device__ __forceinline__ void reduce_range(const Ctx& c, float* y,
 // to every peer (freed).
 __global__ void __launch_bounds__(kThreads) ring_all_reduce_kernel(Params p) {
   const int n = p.n;
-  int local;
-  Ctx c = peer_ctx(p, kAllReduce, n * p.nblk, &local);
+  Ctx c = make_ctx(p, kAllReduce, n * p.nblk);
+  const int local = c.b;
   const int role = local / p.nblk, b = local % p.nblk;
   const long long e = p.chunk;
   set_range(c, p, b);
   stamp(p, 0);
-  if (!open_call(c, p)) return;
+  if (!open_call(c)) return;
   if (role < n - 1) {
     const int j = (c.r + role + 1) % n;
     if (!wait_freed(c, p, j)) return;
@@ -615,11 +638,7 @@ __global__ void __launch_bounds__(kThreads) ring_all_reduce_kernel(Params p) {
   if (threadIdx.x == 0) {
     __threadfence();
     const uint64_t done = atomicAdd(copied(c.me, b), 1ull);
-    if (done % n == static_cast<uint64_t>(n - 1)) {
-      __threadfence_system();
-      for (int k = 1; k < n; ++k)
-        st_relaxed(freed(p.ws[(c.r + k) % n], c.r, b), c.epoch);
-    }
+    if (done % n == static_cast<uint64_t>(n - 1)) release_all(c, p, b);
   }
   stamp(p, 5);
 }
@@ -642,25 +661,24 @@ extern "C" {
 
 // One call of collective `op` (0 hop, 1 all-reduce, 2 reduce-scatter,
 // 3 all-gather, 4 all-to-all). ws: n workspace addresses as mapped in
-// this process (the hop reads this rank's and its two neighbours', the
-// push designs every one). in / out: one address (dist, rank >= 0) or n
-// (loopback, rank < 0). chunk: floats a chunk. nblk: blocks a rank (the
-// push designs: ranges a chunk, and (2n - 1) * nblk blocks a rank for
-// the all-to-all and the all-gather, n * nblk for the reduce-scatter and
-// the all-reduce). prev_epoch, prev_nblk, region, barrier: the push
-// designs' (Params), 0 for the hop. The launch goes on `stream`; returns
-// a cudaError_t as int.
+// this process (the hop stores into its right neighbour's, the other
+// ops into every peer's). in / out: one address (dist, rank >= 0) or n
+// (loopback, rank < 0). chunk: floats a chunk. nblk: ranges a chunk (2 *
+// nblk blocks a rank for the hop, (2n - 1) * nblk for the all-to-all and
+// the all-gather, n * nblk for the reduce-scatter and the all-reduce).
+// prev_epoch, prev_nblk, region: as Params. The launch goes on `stream`;
+// returns a cudaError_t as int.
 int ring_launch(int device, int op, const unsigned long long* ws,
                 const unsigned long long* in, const unsigned long long* out,
                 int n, int rank, long long chunk, long long stage_off,
                 long long epoch, long long timeout_ns, int nblk, int vec,
                 long long prev_epoch, int prev_nblk, int region,
-                int barrier, void* stream) {
+                void* stream) {
   using namespace ring;
   const int blocks_a_rank =
       op == kAllToAll || op == kAllGather        ? (2 * n - 1) * nblk
       : op == kReduceScatter || op == kAllReduce ? n * nblk
-                                                 : nblk;
+                                                 : 2 * nblk;
   if (op < 0 || op > 4 || n < 2 || n > kMaxRanks || rank >= n ||
       nblk < 1 || nblk > kMaxBlocks || chunk < 1 || epoch < 1 ||
       prev_epoch < 0 || prev_epoch >= epoch || prev_nblk < 0 ||
@@ -687,7 +705,6 @@ int ring_launch(int device, int op, const unsigned long long* ws,
   p.prev_epoch = prev_epoch;
   p.prev_nblk = prev_nblk;
   p.region = region;
-  p.barrier = barrier;
   p.stamps = device >= 0 && device < kMaxDevices ? trace_stamps[device]
                                                  : nullptr;
   void* args[] = {&p};
@@ -701,7 +718,7 @@ int ring_launch(int device, int op, const unsigned long long* ws,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Trace the push designs' calls that follow on `device` into `stamps`
+// Trace the calls that follow on `device` into `stamps`
 // (kStamps words a block of the launch, zeroed by the caller), or stop
 // with nullptr.
 int ring_a2a_trace(int device, void* stamps) {

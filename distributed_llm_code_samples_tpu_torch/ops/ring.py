@@ -59,12 +59,13 @@ SUM = "sum"
 # csrc/ring_common.cuh: kMaxRanks, kDataOff
 _MAX_RANKS = 8
 _DATA_OFF = 20480
-# the hop: a block range per block of at least this many floats; at most
-# 32 blocks a rank, so n = 4 loopback ranks fit on 132 SMs one block each
-_FLOATS_PER_BLOCK = 8192
-_BLOCKS = 32
 # csrc/ring_common.cuh: kMaxBlocks, flag words a source rank
 _MAX_BLOCKS = 64
+# the hop splits its tensor into this many ranges (at most); a range is
+# pushed to the right neighbour and copied out of the landing region by a
+# block of its own: 2 * HOP_RANGES blocks a rank
+HOP_RANGES = 64
+_HOP_FLOATS_PER_RANGE = 4096
 # the all-to-all splits a chunk into this many ranges (at most); a range
 # is copied, pushed to each peer and copied out of the landing region by
 # a block of its own: (2n - 1) * A2A_RANGES blocks a rank
@@ -80,14 +81,10 @@ _RS_FLOATS_PER_RANGE = 4096
 # of every peer's sum: n * AR_RANGES blocks a rank
 AR_RANGES = 32
 _AR_FLOATS_PER_RANGE = 4096
-# a loopback push design is one cooperative launch of n * (2n - 1) *
-# ranges or n * n * ranges blocks, all resident at once: at most one a
-# streaming multiprocessor
+# a loopback call is one cooperative launch of n * (2n - 1) * ranges or
+# n * n * ranges blocks, all resident at once: at most one a streaming
+# multiprocessor (the hop's n * 2 * ranges: two, _hop_ranges)
 _LOOPBACK_BLOCKS = 128
-# the push designs, whose chunks land in the two regions in turn (csrc/
-# ring_collectives.cu); the hop, the one ring kernel, stores into the data
-# region
-REGION_OPS = (ALL_TO_ALL, REDUCE_SCATTER, ALL_GATHER, ALL_REDUCE)
 # how long a kernel waits for a neighbour before it gives up and leaves
 # an error code (a late neighbour is seconds behind, a lost one forever)
 WAIT_TIMEOUT_S = 30.0
@@ -100,7 +97,7 @@ def _lib():
     if lib.ring_launch.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ring_launch.argtypes = [i, i, vp, vp, vp, i, i, ll, ll, ll, ll,
-                                    i, i, ll, i, i, i, vp]
+                                    i, i, ll, i, i, vp]
         for fn, args in (("ring_ws_alloc", [i, ll, vp]),
                          ("ring_ws_free", [i, vp]),
                          ("ring_ws_handle", [i, vp, vp]),
@@ -127,11 +124,7 @@ def describe_error(code: int) -> str:
     op = (code >> 48) - 1
     step = ((code >> 32) & 0xFFFF) - 1
     names = {v: k for k, v in _OPS.items()}
-    if step < 0:
-        where = "the entry barrier"
-    elif op not in {_OPS[o] for o in REGION_OPS}:
-        where = f"step {step}"
-    elif step < _MAX_RANKS:
+    if step < _MAX_RANKS:
         where = f"rank {step}'s chunk"
     elif step < 2 * _MAX_RANKS:
         where = f"rank {step - _MAX_RANKS}'s release of its landing slot"
@@ -148,8 +141,8 @@ class PeerWorkspace:
     ``cudaMalloc``s one workspace (``csrc/ring_common.cuh`` has its
     layout: flag words, a data region of ``capacity`` bytes and as much
     again of staging slots), publishes its ``cudaIpcGetMemHandle`` over
-    ``g`` and opens every other rank's handle (the hop stores into a
-    neighbour's, the push designs into every peer's), peer access
+    ``g`` and opens every other rank's handle (the hop stores into its
+    right neighbour's, the other ops into every peer's), peer access
     enabled lazily. It raises if a peer's card has no peer access to
     this one: nothing goes through the host.
 
@@ -181,12 +174,10 @@ class PeerWorkspace:
                              f"to {_MAX_RANKS}")
         self.rank = None if self.loopback else dist.get_rank(group)
         self.epoch = 0
-        # the landing regions of the push designs (REGION_OPS): their
-        # calls so far, the epoch and the ranges a chunk of the last call
-        # that used each region, and the op of the last call
+        # the landing regions: their uses so far, and the epoch and the
+        # ranges a chunk of the last call that used each region
         self.region_calls = 0
         self.region_last = [(0, 0), (0, 0)]
-        self.last_op: Optional[str] = None
         self._own: list[int] = []      # cudaMalloc'd here
         self._opened: list[int] = []   # mapped from a peer's handle
         lib = _lib()
@@ -343,19 +334,23 @@ class Ring:
 
 # -- the kernels -------------------------------------------------------------
 
-def _blocks(chunk: int) -> int:
-    return max(1, min(_BLOCKS, -(-chunk // _FLOATS_PER_BLOCK)))
-
-
 def _ranges(chunk: int, most: int, floats: int, blocks_a_range: int,
             loopback: bool) -> int:
-    """Ranges a chunk of a push design splits into: at most ``most``, of
+    """Ranges a chunk of a ring kernel splits into: at most ``most``, of
     at least ``floats`` floats, and in loopback few enough that the n
     ranks' ``blocks_a_range`` blocks for each stay resident."""
     cap = _MAX_BLOCKS
     if loopback:
         cap = min(cap, _LOOPBACK_BLOCKS // blocks_a_range)
     return max(1, min(most, cap, -(-chunk // floats)))
+
+
+def _hop_ranges(chunk: int, n: int, loopback: bool) -> int:
+    """Ranges the hop's tensor splits into (2 * ranges blocks a rank). Its
+    blocks hold no shared memory and 40 registers a thread (ptxas), so
+    two a streaming multiprocessor stay resident: a loopback launch of n
+    * 2 * ranges blocks takes up to 2 * ``_LOOPBACK_BLOCKS``."""
+    return _ranges(chunk, HOP_RANGES, _HOP_FLOATS_PER_RANGE, n, loopback)
 
 
 def _a2a_ranges(chunk: int, n: int, loopback: bool) -> int:
@@ -382,36 +377,30 @@ def _ar_ranges(chunk: int, n: int, loopback: bool) -> int:
     return min(ranges, max(1, _LOOPBACK_BLOCKS // n))
 
 
-def region_plan(op: str, last_op: Optional[str], calls: int, last):
-    """Where a call of ``op`` lands, from the calls before it on its
-    workspace: ``(region, prev, barrier)``. An op of ``REGION_OPS`` takes
-    region ``calls % 2`` (``calls``: the region uses so far, as
-    ``region_record`` counts them; the all-reduce gathers in the other
-    region), whose last user that peers release is ``prev = last[region]``
-    as ``(epoch, ranges)`` (``(0, 0)``: none), and opens with the
-    all-peer barrier right after the hop (``last_op`` in neither
-    ``REGION_OPS`` nor None). The hop gets ``(0, (0, 0), 0)``: it has its
-    own neighbour barrier."""
-    if op not in REGION_OPS:
-        return 0, (0, 0), 0
+def region_plan(calls: int, last):
+    """Where a call lands, from the calls before it on its workspace:
+    ``(region, prev)``. It takes region ``calls % 2`` (``calls``: the
+    region uses so far, as ``region_record`` counts them; the all-reduce
+    gathers in the other region), whose last user that peers release is
+    ``prev = last[region]`` as ``(epoch, ranges)`` (``(0, 0)``: none)."""
     region = calls % 2
-    return region, tuple(last[region]), int(last_op not in
-                                            (None,) + REGION_OPS)
+    return region, tuple(last[region])
 
 
 def region_record(op: str, calls: int, last, epoch: int, ranges: int):
     """The bookkeeping after a call of ``op`` at ``epoch`` that split its
-    chunks into ``ranges``: the new ``(calls, last)``. A push design
-    records ``(epoch, ranges)`` for its region, whose slots its receivers
-    release, and counts one use. The all-reduce counts two: its pushes'
-    region is free once the call has ended on the sender (every peer's
-    sums, which read it, come before the gathered flags the sender
+    chunks into ``ranges``: the new ``(calls, last)``. A call records
+    ``(epoch, ranges)`` for its region, whose slots its receivers
+    release, and counts one use. Each receiver releases a range to every
+    peer once it has read that range of every slot it holds (the hop's
+    one slot too; csrc/ring_collectives.cu, "The releases"), so a later
+    call's wait for one peer's release covers all that peer holds there
+    from this call and the ones before. The all-reduce counts two: its
+    pushes' region is free once the call has ended on the sender (every
+    peer's sums, which read it, come before the gathered flags the sender
     waits for), so it records ``(0, 0)`` there, and ``(epoch, ranges)``
-    for its gather's region, which the copy-outs release. The hop
-    changes nothing."""
+    for its gather's region, which the copy-outs release."""
     last = [tuple(x) for x in last]
-    if op not in REGION_OPS:
-        return calls, last
     region = calls % 2
     if op == ALL_REDUCE:
         last[region], last[1 - region] = (0, 0), (epoch, ranges)
@@ -454,18 +443,16 @@ def _launch(op: str, ins, outs, ws: PeerWorkspace, rank: int) -> None:
     elif op == ALL_REDUCE:
         nblk = _ar_ranges(chunk, n, rank < 0)
     else:
-        nblk = _blocks(chunk)
-    region, prev, barrier = region_plan(op, ws.last_op, ws.region_calls,
-                                        ws.region_last)
+        nblk = _hop_ranges(chunk, n, rank < 0)
+    region, prev = region_plan(ws.region_calls, ws.region_last)
     rc = _lib().ring_launch(
         ws.index, _OPS[op], ws._table, as_table(ins), as_table(outs), n,
         rank, chunk, ws.stage_off, epoch, int(WAIT_TIMEOUT_S * 1e9), nblk,
-        vec, *prev, region, barrier, stream)
+        vec, *prev, region, stream)
     if rc != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
     ws.region_calls, ws.region_last = region_record(
         op, ws.region_calls, ws.region_last, epoch, nblk)
-    ws.last_op = op
     _build.count_launch(op)
 
 
@@ -504,8 +491,8 @@ def loopback(op: str, xs, ws: PeerWorkspace) -> list:
 def workspace_bytes(op: str, x: torch.Tensor, n: int) -> int:
     """The workspace a call of ``op`` on ``x`` over n ranks needs (its
     ``capacity``: the data region and the staging slots have as much
-    each): the data region holds the hop's block; either region holds
-    the incoming chunks of the all-to-all and of the all-gather (a chunk
+    each): either region holds the hop's block (one slot), the incoming
+    chunks of the all-to-all and of the all-gather (a chunk
     slot for each rank, at the rank's offset: n shards for the
     all-gather), of the reduce-scatter (n-1 chunk slots), and of the
     all-reduce (n-1 pushed chunk slots in one region, n summed ones in
@@ -549,8 +536,11 @@ def _collective(op: str, x: torch.Tensor, ring) -> torch.Tensor:
 
 
 def ppermute_dma(x: torch.Tensor, ring) -> torch.Tensor:
-    """One ring hop: rank r's block lands on rank ``(r+1) % n``, after
-    the neighbour barrier (``lax.ppermute(perm=[(i, (i+1) % n)])``)."""
+    """One ring hop: rank r's block lands on rank ``(r+1) % n``
+    (``lax.ppermute(perm=[(i, (i+1) % n)])``). The kernel pushes it into
+    the neighbour's landing region, range by range, and the neighbour
+    copies each range out as it lands; the plain version is one
+    ``isend``/``irecv`` pair."""
     return _collective(HOP, x, ring)
 
 
@@ -585,19 +575,20 @@ def all_to_all_dma(x: torch.Tensor, ring) -> torch.Tensor:
     return _collective(ALL_TO_ALL, x, ring)
 
 
-# phases a block of a push design stamps when traced (csrc/
-# ring_collectives.cu, kStamps): the all-to-all's own-chunk and pushing
-# blocks the first three, its copy-out blocks "entry", "arrived" and
-# "released"; the all-reduce's blocks also "copied"
+# phases a block stamps when traced (csrc/ring_collectives.cu, kStamps):
+# the all-to-all's and the hop's own-chunk and pushing blocks the first
+# three, their copy-out blocks "entry", "arrived" and "released"; the
+# all-reduce's blocks also "copied"
 A2A_PHASES = ("entry", "start", "pushed", "arrived", "released", "copied")
 
 
 def traced(call, device) -> torch.Tensor:
-    """Run ``call()`` (one launch of a push design on ``device``) with the
+    """Run ``call()`` (one launch of a ring kernel on ``device``) with the
     kernel's trace on: returns ``[blocks, len(A2A_PHASES)]`` int64
     %globaltimer stamps in ns (0 where a block has no such phase; the
-    all-gather's blocks stamp as the all-to-all's; every block of the
-    reduce-scatter and of the all-reduce sums, so each stamps "arrived"
+    all-gather's and the hop's blocks stamp as the all-to-all's; every
+    block of the reduce-scatter and of the all-reduce sums, so each
+    stamps "arrived"
     and "released" (the all-reduce's: its sums stored on to every peer
     and flagged), and their pushing blocks also "start" and "pushed";
     the all-reduce's blocks stamp "copied" once their part of every

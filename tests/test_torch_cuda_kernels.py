@@ -388,13 +388,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
 # hop and the gather are copies and the sums run in the plain version's
 # ring order, so kernel and plain agree bit for bit. Shapes: a slice one
 # (f32 rows of 768 floats, the 16-byte path), a ragged one (chunks of
-# 105 floats, the scalar path) and one whose odd chunk of 25025 floats
-# the reduce-scatter splits into several ranges (the scalar path).
+# 105 floats, the scalar path), one whose odd chunk of 25025 floats
+# the reduce-scatter splits into several ranges (the scalar path), and
+# one of 30000 floats whose 16-byte aligned ranges are not whole 16 KB
+# pieces.
 
 RING_OPS = ("ppermute_dma", "ring_all_reduce", "ring_reduce_scatter",
             "ring_all_gather")
 RING_SHAPES = {"slice": (256, 768), "ragged": (7, 5, 3),
-               "ranged": (25, 1001)}
+               "ranged": (25, 1001), "aligned": (30, 1000)}
 
 
 def ring_inputs(op, n, shape):
@@ -428,18 +430,63 @@ def test_ring_kernel_matches_plain_in_loopback(card, op, n, shape):
 
 @pytest.mark.cuda
 def test_ring_wait_gives_up_and_raises(card, monkeypatch):
-    """A rank whose neighbour never enters the call waits to its deadline,
+    """A rank whose neighbour never enters the hop waits to its deadline,
     leaves its error word, and the check raises instead of the card
-    hanging."""
+    hanging: its copy-out block (block 1 of its push block and copy-out
+    block) for the left neighbour's chunk on a fresh workspace, and its
+    push block for the right neighbour's release of the landing slot of
+    the call before last."""
     from distributed_llm_code_samples_tpu_torch.ops import ring
     monkeypatch.setattr(ring, "WAIT_TIMEOUT_S", 0.2)
+    x = torch.ones(4, device="cuda")
     ws = ring.PeerWorkspace(1024, "cuda", n=2)
     try:
-        x = torch.ones(4, device="cuda")
         ring._launch(ring.HOP, [x], [torch.empty_like(x)], ws, 0)
-        with pytest.raises(RuntimeError, match="rank 0 block 0 gave up "
-                                               "waiting at the entry"):
+        with pytest.raises(RuntimeError, match="ppermute_dma rank 0 block 1 "
+                                               "gave up waiting at rank 1's "
+                                               "chunk"):
             ws.check()
+    finally:
+        ws.close()
+    # rank 1 enters call 5 with nothing to wait for and pushes its block
+    # (it then waits in vain for rank 0's); rank 0 enters the same call
+    # with its region last used in call 3, which rank 1 never released:
+    # rank 0's push block (block 0) waits to its deadline
+    ws = ring.PeerWorkspace(1024, "cuda", n=2)
+    try:
+        ws.epoch = 4
+        ring._launch(ring.HOP, [x], [torch.empty_like(x)], ws, 1)
+        ws.epoch, ws.region_calls, ws.region_last = 4, 2, [(3, 1), (4, 1)]
+        ring._launch(ring.HOP, [x], [torch.empty_like(x)], ws, 0)
+        with pytest.raises(RuntimeError, match="ppermute_dma rank 0 block 0 "
+                                               "gave up waiting at rank 1's "
+                                               "release of its landing "
+                                               "slot"):
+            ws.check()
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_hop_at_the_main_path_shape_repeats_bit_identical(card, n):
+    """The hop of the main path's [768, 3072] block, 16 calls in a row on
+    one workspace (the two landing regions in turn, each call's flags
+    after its ranges): every output equals the left neighbour's block,
+    bit for bit; the control, a rank's own block, differs."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    rng = np.random.default_rng(60 + n)
+    xs = [normal(rng, 768, 3072) for _ in range(n)]
+    ws = ring.PeerWorkspace(ring.workspace_bytes(ring.HOP, xs[0], n),
+                            "cuda", n=n)
+    try:
+        outs = [ring.loopback(ring.HOP, xs, ws) for _ in range(16)]
+        ws.check()
+        for got in outs:
+            for r in range(n):
+                assert torch.equal(got[r], xs[(r - 1) % n])
+                assert not torch.equal(got[r], xs[r])
+        assert ws.region_calls == 16
     finally:
         ws.close()
 
@@ -448,20 +495,21 @@ def test_ring_wait_gives_up_and_raises(card, monkeypatch):
 @pytest.mark.parametrize("n", [2, 4])
 def test_ring_ops_in_sequence_on_one_workspace(card, n):
     """One workspace through the hop, all-gather, reduce-scatter,
-    reduce-scatter, all-reduce, all-to-all, all-reduce, all-gather,
-    reduce-scatter, all-gather (the landing regions in turn across the
-    four push designs, the all-reduce in both, an all-gather right after
-    an all-to-all and after a reduce-scatter, the entry barrier after the
-    hop, chunks of changing size), twice: every output bit-identical to
-    its plain version."""
+    reduce-scatter, all-reduce, hop, all-to-all, all-reduce, all-gather,
+    hop, reduce-scatter, all-gather (the landing regions in turn across
+    the five kernels, the all-reduce in both, a hop first, between two
+    all-reduces and between a gather and a reduce-scatter, an all-gather
+    right after an all-to-all and after a reduce-scatter, chunks of
+    changing size), twice: every output bit-identical to its plain
+    version."""
     from distributed_llm_code_samples_tpu_torch.ops import ring
     rng = np.random.default_rng(40 + n)
     seq = ((ring.HOP, (3, 17)), (ring.ALL_GATHER, (6, 33)),
            (ring.REDUCE_SCATTER, (n * 64, 48)),
            (ring.REDUCE_SCATTER, (n * 5, 7)), (ring.ALL_REDUCE, (n * 4, 33)),
-           (ring.ALL_TO_ALL, (n * 3, 101)),
+           (ring.HOP, (5, 7)), (ring.ALL_TO_ALL, (n * 3, 101)),
            (ring.ALL_REDUCE, (n * 256, 768)), (ring.ALL_GATHER, (5, 7)),
-           (ring.REDUCE_SCATTER, (n * 256, 768)),
+           (ring.HOP, (256, 768)), (ring.REDUCE_SCATTER, (n * 256, 768)),
            (ring.ALL_GATHER, (256, 768)))
     ws = ring.PeerWorkspace(4 * n * 256 * 768, "cuda", n=n)
     try:
@@ -470,8 +518,8 @@ def test_ring_ops_in_sequence_on_one_workspace(card, n):
             got = ring.loopback(op, xs, ws)
             for g, w in zip(got, ring.loopback_ref(op, xs)):
                 assert torch.equal(g, w), (i, op)
-        # seven push calls and two all-reduces (two region uses each)
-        assert ws.region_calls == 2 * (7 + 2 * 2)
+        # ten calls of one region use and two all-reduces (two each)
+        assert ws.region_calls == 2 * (10 + 2 * 2)
         ws.check()
     finally:
         ws.close()
@@ -510,21 +558,21 @@ def test_all_reduce_at_the_main_path_shapes(card, n):
 @pytest.mark.cuda
 def test_all_reduce_wait_gives_up_and_raises(card, monkeypatch):
     """A rank whose peer never enters the all-reduce waits to its
-    deadline for the peer's chunk and the check raises; after the hop it
-    waits at the entry barrier."""
+    deadline for the peer's chunk and the check raises, on a fresh
+    workspace and after a hop (no barrier: it pushes, then waits)."""
     from distributed_llm_code_samples_tpu_torch.ops import ring
     monkeypatch.setattr(ring, "WAIT_TIMEOUT_S", 0.2)
     x = torch.ones(8, device="cuda")
-    for where, setup in (("rank 1's chunk", {}),
-                         ("the entry barrier", {"last_op": ring.HOP})):
+    for hop_first in (False, True):
         ws = ring.PeerWorkspace(1024, "cuda", n=2)
         try:
-            for key, value in setup.items():
-                setattr(ws, key, value)
+            if hop_first:
+                ring.loopback(ring.HOP, [x, x], ws)
             ring._launch(ring.ALL_REDUCE, [x], [torch.empty_like(x)], ws, 0)
             with pytest.raises(RuntimeError, match="ring_all_reduce rank 0 "
                                                    r"block \d gave up "
-                                                   f"waiting at {where}"):
+                                                   "waiting at rank 1's "
+                                                   "chunk"):
                 ws.check()
         finally:
             ws.close()
@@ -564,25 +612,24 @@ def test_all_reduce_trace_stamps_every_block_in_phase_order(card):
 def test_rs_wait_gives_up_and_raises(card, monkeypatch):
     """A rank whose peer never enters the reduce-scatter waits to its
     deadline, leaves its error word, and the check raises: for the
-    peer's chunk (on a fresh workspace), at the entry barrier (after the
-    hop), and for the peer's release of the region of the call before
-    last."""
+    peer's chunk (on a fresh workspace, and after a hop: no barrier), and
+    for the peer's release of the region of the call before last."""
     from distributed_llm_code_samples_tpu_torch.ops import ring
     monkeypatch.setattr(ring, "WAIT_TIMEOUT_S", 0.2)
     x = torch.ones(8, device="cuda")
     y = torch.empty(4, device="cuda")
     # every block of the rank waits for rank 1's chunk (each sums a part of
-    # it), and every block waits at the barrier: any may leave its code
-    for where, setup in (("rank 1's chunk", {}),
-                         ("the entry barrier", {"last_op": ring.HOP})):
+    # it): any may leave its code
+    for hop_first in (False, True):
         ws = ring.PeerWorkspace(1024, "cuda", n=2)
         try:
-            for key, value in setup.items():
-                setattr(ws, key, value)
+            if hop_first:
+                ring.loopback(ring.HOP, [x, x], ws)
             ring._launch(ring.REDUCE_SCATTER, [x], [y], ws, 0)
             with pytest.raises(RuntimeError, match="ring_reduce_scatter rank "
                                                    r"0 block \d gave up "
-                                                   f"waiting at {where}"):
+                                                   "waiting at rank 1's "
+                                                   "chunk"):
                 ws.check()
         finally:
             ws.close()
@@ -687,24 +734,23 @@ def test_a2a_kernel_identifying_blocks_after_ring_calls(card):
 def test_a2a_wait_gives_up_and_raises(card, monkeypatch):
     """A rank whose peer never enters the all-to-all waits to its
     deadline, leaves its error word, and the check raises: for the
-    peer's chunk (no entry barrier after another all-to-all or on a fresh
-    workspace), at the entry barrier (after the hop), and for
-    the peer's release of the landing slot of the call before last."""
+    peer's chunk (on a fresh workspace, and after a hop: no barrier),
+    and for the peer's release of the landing slot of the call before
+    last."""
     from distributed_llm_code_samples_tpu_torch.ops import ring
     monkeypatch.setattr(ring, "WAIT_TIMEOUT_S", 0.2)
     x = torch.ones(4, device="cuda")
-    for where, setup in (("rank 1's chunk", {}),
-                         ("the entry barrier", {"last_op": ring.HOP})):
+    for hop_first in (False, True):
         ws = ring.PeerWorkspace(1024, "cuda", n=2)
         try:
-            for key, value in setup.items():
-                setattr(ws, key, value)
+            if hop_first:
+                ring.loopback(ring.HOP, [x, x], ws)
             ring._launch(ring.ALL_TO_ALL, [x], [torch.empty_like(x)], ws, 0)
-            # the barrier holds every block of the rank; any may leave
-            # its code first
+            # the copy-out block of rank 1's chunk waits; the others end
             with pytest.raises(RuntimeError, match="all_to_all_dma rank 0 "
                                                    r"block \d gave up "
-                                                   f"waiting at {where}"):
+                                                   "waiting at rank 1's "
+                                                   "chunk"):
                 ws.check()
         finally:
             ws.close()

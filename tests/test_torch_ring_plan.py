@@ -1,7 +1,7 @@
-"""The plans of the reduce-scatter and all-reduce kernels on the CPU
-(``ops/ring.py``): the order their receivers sum in, the landing regions
-they share with the all-to-all and the all-gather, and the workspace and
-ranges they need.
+"""The plans of the ring kernels on the CPU (``ops/ring.py``): the order
+the reduce-scatter's and the all-reduce's receivers sum in, the landing
+regions every kernel (the hop, the all-to-all, the all-gather too) uses
+in turn, and the workspace, ranges and error words.
 
 The kernels (``csrc/ring_collectives.cu``, ``ring_reduce_scatter_kernel``
 and ``ring_all_reduce_kernel``) cannot run here, so ``_receiver_model``
@@ -15,6 +15,10 @@ whose n blocks of range b copy their n-th out). Each must give the plain
 ring's bits (``loopback_ref``) and, at n = 4, those of the JAX package's
 Pallas ring in interpret mode on the conftest ``mesh4``. No tolerance:
 the same f32 pairs are added in the same order.
+
+``_run`` runs n ranks through a sequence of calls on their workspaces
+as the kernels' flags let their blocks go, in random orders with one
+rank late, and reports any store over a slot its receiver has not read.
 """
 
 import functools
@@ -169,39 +173,28 @@ def test_all_reduce_order_equals_the_pallas_ring(mesh4, shape):
 def _fold(ops):
     """``region_plan`` over a call sequence, with ``region_record``'s
     bookkeeping as ``ops/ring.py``'s launch keeps it: each call's
-    ``(region, prev, barrier)``."""
-    last_op, calls, last, plans = None, 0, [(0, 0), (0, 0)], []
+    ``(region, prev)``."""
+    calls, last, plans = 0, [(0, 0), (0, 0)], []
     for epoch, op in enumerate(ops, start=1):
-        plans.append(ring.region_plan(op, last_op, calls, last))
+        plans.append(ring.region_plan(calls, last))
         calls, last = ring.region_record(op, calls, last, epoch, 10 + epoch)
-        last_op = op
     return plans
 
 
-# the push designs: every op but the hop, the one ring
-PUSH_OPS = (ring.ALL_TO_ALL, ring.REDUCE_SCATTER, ring.ALL_GATHER,
-            ring.ALL_REDUCE)
-
-
 def _expected(ops):
-    """The rule written out: the hop plans nothing; every other op lands
-    in the other region than the last one used (an all-reduce lands its
-    pushes there and its sums in the other one, which is then the last
-    one used), waits for the releases of the last call whose slots there
-    peers release (an all-reduce's pushes are never such: they are read
-    before the call ends on every rank), and opens with the barrier right
-    after the hop."""
+    """The rule written out: every op, the hop too, lands in the other
+    region than the last one used (an all-reduce lands its pushes there
+    and its sums in the other one, which is then the last one used) and
+    waits for the releases of the last call whose slots there peers
+    release (an all-reduce's pushes are never such: they are read before
+    the call ends on every rank). No call waits at a barrier."""
     out, used = [], []      # (epoch, region, released) in order of use
     for i, op in enumerate(ops):
-        if op not in PUSH_OPS:
-            out.append((0, (0, 0), 0))
-            continue
         region = 0 if not used else 1 - used[-1][1]
         last = next(((e, rel) for e, reg, rel in reversed(used)
                      if reg == region), (0, False))
         prev = (last[0], 10 + last[0]) if last[1] else (0, 0)
-        hop_before = i > 0 and ops[i - 1] not in PUSH_OPS
-        out.append((region, prev, int(hop_before)))
+        out.append((region, prev))
         if op == ring.ALL_REDUCE:
             used += [(i + 1, region, False), (i + 1, 1 - region, True)]
         else:
@@ -210,19 +203,22 @@ def _expected(ops):
 
 
 # FSDP's step (two gathers, two scatters a layer), DDP's (the hop, then
-# two all-reduces a layer of its 24), the card test's mixed sequence, and
-# runs of one op
+# two all-reduces a layer of its 24), the card test's mixed sequence,
+# hops between other calls, and runs of one op
 SEQUENCES = {
     "fsdp": [ring.HOP] + [ring.ALL_GATHER] * 4 + [
         ring.ALL_GATHER, ring.ALL_GATHER, ring.REDUCE_SCATTER,
         ring.REDUCE_SCATTER] * 3,
     "ddp": [ring.HOP] + [ring.ALL_REDUCE] * 48,
     "mixed": [ring.HOP, ring.ALL_GATHER, ring.REDUCE_SCATTER,
-              ring.REDUCE_SCATTER, ring.ALL_REDUCE, ring.ALL_TO_ALL,
-              ring.ALL_REDUCE, ring.ALL_GATHER, ring.REDUCE_SCATTER,
-              ring.ALL_GATHER],
+              ring.REDUCE_SCATTER, ring.ALL_REDUCE, ring.HOP,
+              ring.ALL_TO_ALL, ring.ALL_REDUCE, ring.ALL_GATHER, ring.HOP,
+              ring.REDUCE_SCATTER, ring.ALL_GATHER],
+    "hops": [ring.ALL_REDUCE, ring.HOP, ring.ALL_REDUCE, ring.ALL_GATHER,
+             ring.HOP, ring.REDUCE_SCATTER, ring.ALL_GATHER],
     "scatters": [ring.REDUCE_SCATTER] * 5,
     "exchanges": [ring.ALL_TO_ALL, ring.REDUCE_SCATTER] * 3,
+    "hop_runs": [ring.HOP] * 5,
 }
 
 
@@ -232,60 +228,188 @@ def test_region_plan_of_named_sequences(name):
     assert _fold(ops) == _expected(ops)
 
 
-def test_fsdp_stream_opens_with_the_only_barrier():
-    """FSDP's calls on its workspace: the opening hop (a ring call), then
-    per layer two gathers and, in the backward, two reduce-scatters. The
-    first gather after the hop opens with the all-peer barrier; no later
-    call has one, and each lands in the other region than the call
-    before it, waiting for the releases of the call before that."""
+def test_hop_between_other_calls():
+    """A hop between two all-reduces and between a gather and a
+    reduce-scatter, written out: the hop lands in the region after the
+    last one used and waits for its last released user (the first
+    all-reduce's pushes need no release, its gather's region does); the
+    call after the hop in the hop's region waits for the hop's release
+    (the hop's epoch and ranges)."""
+    assert _fold(SEQUENCES["hops"]) == [
+        (0, (0, 0)),      # 1 all-reduce: pushes in 0, sums in 1
+        (0, (0, 0)),      # 2 hop: region 0, the pushes' region
+        (1, (1, 11)),     # 3 all-reduce: pushes in 1 after 1's gather
+        (1, (0, 0)),      # 4 all-gather: 3's pushes' region
+        (0, (3, 13)),     # 5 hop: after 3's gather (its sums)
+        (1, (4, 14)),     # 6 reduce-scatter: after the gather
+        (0, (5, 15)),     # 7 all-gather: after the hop
+    ]
+
+
+def test_fsdp_stream_lands_in_turn_with_no_barrier():
+    """FSDP's calls on its workspace: the opening hop (the ring's check),
+    then per layer two gathers and, in the backward, two
+    reduce-scatters. Every call, the hop first, lands in the other
+    region than the call before it and waits for the releases of the
+    call before that: the first gather for nothing, the second for the
+    hop's."""
     ops = [ring.HOP] + ([ring.ALL_GATHER] * 2 * 3
                         + [ring.ALL_GATHER, ring.ALL_GATHER,
                            ring.REDUCE_SCATTER, ring.REDUCE_SCATTER] * 3)
     plans = _fold(ops)
-    assert [barrier for _, _, barrier in plans] == [0, 1] + [0] * (
-        len(ops) - 2)
-    assert [region for region, _, _ in plans[1:]] == [
-        k % 2 for k in range(len(ops) - 1)]
-    assert [prev for _, prev, _ in plans[1:3]] == [(0, 0), (0, 0)]
-    assert [prev[0] for _, prev, _ in plans[3:]] == list(
-        range(2, len(ops) - 1))
+    assert [region for region, _ in plans] == [
+        k % 2 for k in range(len(ops))]
+    assert [prev for _, prev in plans[:3]] == [(0, 0), (0, 0), (1, 11)]
+    assert [prev[0] for _, prev in plans[2:]] == list(
+        range(1, len(ops) - 1))
 
 
-def test_ddp_stream_opens_with_the_only_barrier():
+def test_ddp_stream_lands_with_no_barrier():
     """DDP's calls on its workspace: the opening hop, then two
-    all-reduces a layer. The first all-reduce opens with the all-peer
-    barrier and no later one has it; every one pushes into region 0 and
-    sums into region 1, and none waits for a release: the one before it
-    has ended on the sender, so every peer has read its pushes, and its
-    gather region the next one does not push into."""
+    all-reduces a layer. The hop lands in region 0; every all-reduce
+    pushes into region 1 and sums into region 0, and none waits for a
+    release: the one before it has ended on the sender, so every peer
+    has read its pushes, and a peer's push of this call lands only after
+    the peer has ended the hop and read its region 0."""
     ops = SEQUENCES["ddp"]
     plans = _fold(ops)
-    assert plans == [(0, (0, 0), 0), (0, (0, 0), 1)] + [(0, (0, 0), 0)] * 47
+    assert plans == [(0, (0, 0))] + [(1, (0, 0))] * 48
     calls, last = 0, [(0, 0), (0, 0)]
     for epoch, op in enumerate(ops, start=1):
         calls, last = ring.region_record(op, calls, last, epoch, 32)
-    assert calls == 2 * 48 and last == [(0, 0), (49, 32)]
+    assert calls == 1 + 2 * 48 and last == [(49, 32), (0, 0)]
 
 
 def _uses(op, plan):
     """The regions a call stores into: its own, and the all-reduce's
     gather region too."""
-    if op not in ring.REGION_OPS:
-        return set()
     return {plan[0], 1 - plan[0]} if op == ring.ALL_REDUCE else {plan[0]}
+
+
+def _tasks(op, r, n):
+    """Rank r's blocks in a call of ``op``, with a chunk's ranges taken as
+    one: ("push", j) stores into rank j's region of the call and flags it;
+    ("copy", s) reads the slot rank s pushed here once its flag lands;
+    ("sum", None) reads every slot once all have landed (the
+    all-reduce's then stores on into every peer's other region and flags
+    it there, where ("gather", s) reads rank s's)."""
+    peers = [(r + k) % n for k in range(1, n)]
+    if op == ring.HOP:
+        return [("push", (r + 1) % n), ("copy", (r - 1) % n)]
+    pushes = [("push", j) for j in peers]
+    if op in (ring.ALL_GATHER, ring.ALL_TO_ALL):
+        return pushes + [("copy", s) for s in peers]
+    if op == ring.REDUCE_SCATTER:
+        return pushes + [("sum", None)]
+    return pushes + [("sum", None)] + [("gather", s) for s in peers]
+
+
+def _run(ops, n, rng, late, per_source=()):
+    """n ranks through ``ops``, each on its workspace, as the kernels'
+    flags let their blocks go: a block waits for what its kernel waits
+    for (a push for the receiver's release of the region's last user,
+    ``region_plan``'s prev; a read for its flag), and a rank's next call
+    starts once its blocks of this one are done (stream order). Blocks
+    go one at a time, drawn by ``rng``; rank ``late``'s only when no
+    other rank's can. A receiver releases the call to every peer once it
+    has read every slot it holds (the kernels), but under an op of
+    ``per_source`` each slot to its source alone as it reads it. Returns
+    the first store over a slot that its receiver has not read yet, or a
+    read of a slot that is not there, in words; None if there is none.
+    Raises if the ranks deadlock."""
+    plans = _fold(ops)
+    landed = [[0] * n for _ in range(n)]     # [j][s]: in rank j's workspace
+    freed = [[0] * n for _ in range(n)]      # [r][j]: j's release, in r's
+    gathered = [[0] * n for _ in range(n)]
+    unread = [[set(), set()] for _ in range(n)]   # (epoch, source) a region
+    pos, todo, summed = [0] * n, [[] for _ in range(n)], [False] * n
+    for r in range(n):
+        todo[r] = _tasks(ops[0], r, n)
+
+    def ready(r, task):
+        e, prev = pos[r] + 1, plans[pos[r]][1][0]
+        kind, k = task
+        if kind == "push":
+            return freed[r][k] >= prev
+        if kind == "copy":
+            return landed[r][k] >= e
+        if kind == "sum":
+            return all(landed[r][s] >= e for s in range(n) if s != r)
+        return summed[r] and gathered[r][k] >= e
+
+    def store(j, region, e, src):
+        stale = sorted(u for u in unread[j][region] if u[0] < e)
+        unread[j][region].add((e, src))
+        if stale:
+            return (f"call {e}: rank {src} stores into rank {j}'s region "
+                    f"{region} before rank {j} has read {stale}")
+        return None
+
+    def read(r, region, e, src):
+        if (e, src) not in unread[r][region]:
+            return (f"call {e}: rank {r} reads rank {src}'s slot of region "
+                    f"{region}, which is not there")
+        unread[r][region].discard((e, src))
+        return None
+
+    while any(todo):
+        go = [(r, t) for r in range(n) for t in todo[r] if ready(r, t)]
+        assert go, f"the ranks deadlock at calls {[p + 1 for p in pos]}"
+        go = [g for g in go if g[0] != late] or go
+        r, task = go[rng.integers(len(go))]
+        todo[r].remove(task)
+        op, e, region = ops[pos[r]], pos[r] + 1, plans[pos[r]][0]
+        kind, k = task
+        fault = None
+        if kind == "push":
+            fault = store(k, region, e, r)
+            landed[k][r] = e
+        elif kind == "copy":
+            fault = read(r, region, e, k)
+            if op in per_source:
+                freed[k][r] = e
+        elif kind == "sum":
+            for s in (s for s in range(n) if s != r):
+                fault = fault or read(r, region, e, s)
+            summed[r] = True
+            if op == ring.ALL_REDUCE:
+                for j in (j for j in range(n) if j != r):
+                    fault = fault or store(j, 1 - region, e, r)
+                    gathered[j][r] = e
+        else:
+            fault = read(r, 1 - region, e, k)
+        if fault:
+            return fault
+        if not any(t[0] != "push" for t in todo[r]) and (
+                op not in per_source):
+            # every slot read: the release, once, to every peer
+            for j in (j for j in range(n) if j != r):
+                freed[j][r] = e
+        if not todo[r]:
+            pos[r] += 1
+            summed[r] = False
+            if pos[r] < len(ops):
+                todo[r] = _tasks(ops[pos[r]], r, n)
+    return None
 
 
 @pytest.mark.parametrize("seed", range(6))
 def test_region_plan_of_random_sequences(seed):
+    """The plan of 40 random calls, as written out; no call stores into a
+    region whose last user it has not waited for; and four ranks run
+    through the calls in random orders, one of them late, never store
+    over a slot that its receiver has not read."""
     rng = np.random.default_rng(seed)
     ops = [OPS[i] for i in rng.integers(0, len(OPS), size=40)]
     plans = _fold(ops)
     assert plans == _expected(ops)
-    # no region op stores into a region whose last user it has not
-    # waited for: prev is the last call that stored there, one whose
-    # slots there the peers release (not an all-reduce's pushes)
-    for i, (op, (region, prev, _)) in enumerate(zip(ops, plans)):
-        if op in ring.REGION_OPS and prev != (0, 0):
+    for k in range(8):
+        assert _run(ops, 4, rng, late=k % 4) is None
+    # no call stores into a region whose last user it has not waited
+    # for: prev is the last call that stored there, one whose slots
+    # there the peers release (not an all-reduce's pushes)
+    for i, (op, (region, prev)) in enumerate(zip(ops, plans)):
+        if prev != (0, 0):
             e = prev[0]
             assert region in _uses(ops[e - 1], plans[e - 1])
             assert not (ops[e - 1] == ring.ALL_REDUCE
@@ -294,10 +418,46 @@ def test_region_plan_of_random_sequences(seed):
                            for k in range(e, i))
 
 
-def test_region_plan_of_a_fresh_workspace():
-    for op in ring.REGION_OPS:
-        assert ring.region_plan(op, None, 0, [(0, 0), (0, 0)]) == \
-            (0, (0, 0), 0)
+@pytest.mark.parametrize("late", range(4))
+@pytest.mark.parametrize("name", sorted(SEQUENCES))
+def test_ranks_ahead_of_a_late_peer_store_over_nothing_unread(name, late):
+    """Four ranks through each named sequence (three for a second run),
+    in 20 random orders with one rank late: no store lands on a slot its
+    receiver has yet to read, and every read finds its slot."""
+    rng = np.random.default_rng(7 + late)
+    for k in range(20):
+        assert _run(SEQUENCES[name], 4, rng, late) is None
+        assert _run(SEQUENCES[name], 3, rng, late % 3) is None
+
+
+def test_a_release_to_the_source_alone_lets_a_rank_run_ahead():
+    """A gather, a hop, a reduce-scatter: if the gather's receivers
+    released each slot to its source alone, a rank past the hop (which
+    reads only from its left neighbour) could push its reduce-scatter
+    over a slot of the gather that a late peer has not read yet; with
+    every range released to every peer after its last read, no order
+    lets it."""
+    ops = [ring.ALL_GATHER, ring.HOP, ring.REDUCE_SCATTER]
+    faults = [_run(ops, 4, np.random.default_rng(seed), late=2,
+                   per_source=(ring.ALL_GATHER, ring.ALL_TO_ALL))
+              for seed in range(40)]
+    assert any(f and "stores into rank 2's region 0 before rank 2 has read"
+               in f for f in faults)
+    assert all(_run(ops, 4, np.random.default_rng(seed), late=2) is None
+               for seed in range(40))
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_region_plan_of_a_fresh_workspace(op):
+    """The first call of any op lands in region 0 with nothing to wait
+    for, and counts one region use (the all-reduce two)."""
+    fresh = [(0, 0), (0, 0)]
+    assert ring.region_plan(0, fresh) == (0, (0, 0))
+    calls, last = ring.region_record(op, 0, fresh, 1, 7)
+    if op == ring.ALL_REDUCE:
+        assert (calls, last) == (2, [(0, 0), (1, 7)])
+    else:
+        assert (calls, last) == (1, [(1, 7), (0, 0)])
 
 
 @pytest.mark.parametrize("n", [2, 3, 4, 8])
@@ -326,6 +486,22 @@ def test_fsdp_workspace_is_sized_once():
                       (ring.REDUCE_SCATTER, (d, ffn)),
                       (ring.HOP, (1,))):
         assert ring.workspace_bytes(op, torch.empty(shape), n) <= room
+
+
+@pytest.mark.parametrize("n,loopback,want", [(4, False, 64), (4, True, 32),
+                                             (2, True, 64), (3, True, 42),
+                                             (8, False, 64)])
+def test_hop_ranges(n, loopback, want):
+    """The hop's ranges at the main path's block ([768, 3072]): a push
+    and a copy-out block each, 2 * ranges blocks a rank, all resident in
+    one loopback launch at two blocks a streaming multiprocessor; the
+    ring's one-float check and the ragged case are one range."""
+    got = ring._hop_ranges(768 * 3072, n, loopback)
+    assert got == want and got <= ring._MAX_BLOCKS
+    if loopback:
+        assert n * 2 * got <= 2 * ring._LOOPBACK_BLOCKS
+    assert ring._hop_ranges(1, n, loopback) == 1
+    assert ring._hop_ranges(105, n, loopback) == 1
 
 
 @pytest.mark.parametrize("n,loopback,want", [(4, False, 32), (4, True, 8),
@@ -374,29 +550,24 @@ def test_all_reduce_parts_cover_each_range(n):
             assert cover == list(range(chunk))
 
 
+def _code(op, step, block, rank):
+    """An error word as ``error_code`` (ring_common.cuh) writes it."""
+    return ((1 + ring._OPS[op]) << 48) | ((step + 1) << 32) | (
+        (block + 1) << 16) | (rank + 1)
+
+
 def test_error_word_decodes_the_reduce_scatter_waits():
-    op = 1 + ring._OPS[ring.REDUCE_SCATTER]
-
-    def code(step, block, rank):
-        return (op << 48) | ((step + 1) << 32) | ((block + 1) << 16) | (
-            rank + 1)
-
+    code = functools.partial(_code, ring.REDUCE_SCATTER)
     assert ring.describe_error(code(3, 5, 2)) == (
         "ring_reduce_scatter rank 2 block 5 gave up waiting at rank 3's "
         "chunk")
     assert ring.describe_error(code(ring._MAX_RANKS + 1, 0, 0)) == (
         "ring_reduce_scatter rank 0 block 0 gave up waiting at rank 1's "
         "release of its landing slot")
-    assert ring.describe_error(code(-1, 7, 1)).endswith("the entry barrier")
 
 
 def test_error_word_decodes_the_all_reduce_waits():
-    op = 1 + ring._OPS[ring.ALL_REDUCE]
-
-    def code(step, block, rank):
-        return (op << 48) | ((step + 1) << 32) | ((block + 1) << 16) | (
-            rank + 1)
-
+    code = functools.partial(_code, ring.ALL_REDUCE)
     assert ring.describe_error(code(2, 3, 1)) == (
         "ring_all_reduce rank 1 block 3 gave up waiting at rank 2's chunk")
     assert ring.describe_error(code(ring._MAX_RANKS + 3, 0, 2)) == (
@@ -405,7 +576,14 @@ def test_error_word_decodes_the_all_reduce_waits():
     assert ring.describe_error(code(2 * ring._MAX_RANKS + 1, 9, 0)) == (
         "ring_all_reduce rank 0 block 9 gave up waiting at rank 1's "
         "summed chunk")
-    assert ring.describe_error(code(-1, 2, 3)).endswith("the entry barrier")
-    hop = 1 + ring._OPS[ring.HOP]
-    assert ring.describe_error((hop << 48) | (1 << 32) | (1 << 16) | 1) == (
-        "ppermute_dma rank 0 block 0 gave up waiting at step 0")
+
+
+def test_error_word_decodes_the_hop_waits():
+    """The hop's copy-out block waits for its left neighbour's chunk, its
+    push block for the right neighbour's release of its landing slot."""
+    code = functools.partial(_code, ring.HOP)
+    assert ring.describe_error(code(3, 33, 0)) == (
+        "ppermute_dma rank 0 block 33 gave up waiting at rank 3's chunk")
+    assert ring.describe_error(code(ring._MAX_RANKS + 2, 4, 1)) == (
+        "ppermute_dma rank 1 block 4 gave up waiting at rank 2's release "
+        "of its landing slot")
