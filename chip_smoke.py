@@ -9,9 +9,14 @@
                                            # 4 virtual ranks on one card
     python3 chip_smoke.py --phase ep       # the all-to-all + expert
                                            # parallelism, 4 virtual ranks
-    python3 chip_smoke.py --phase dist     # ring, DDP/FSDP, all-to-all
-                                           # and EP on 4 cards (not in
-                                           # the default run)
+    python3 chip_smoke.py --phase tp       # TP, TP-SP and the hybrid,
+                                           # 4 virtual ranks
+    python3 chip_smoke.py --phase dist     # ring, DDP/FSDP, all-to-all,
+                                           # EP, TP, the hybrid and
+                                           # cli.py -m 0 on 4 cards (not
+                                           # in the default run)
+    python3 chip_smoke.py --phase dist-tp  # --phase dist's TP, hybrid
+                                           # and -m 0 alone
 
 Builds every kernel of the port from ``csrc/`` (printing ptxas's spill
 counts as ``ptxas-spills``), holds each against its plain PyTorch
@@ -53,7 +58,18 @@ each split size, ``paged-splits``), then drives the port's paths:
   kernel (``csrc/ring_collectives.cu``): on 4 virtual ranks of one card
   in the default run; ``--phase dist`` also runs it on 4 cards under
   both transports (NCCL's ``all_to_all_single`` and the kernel), which
-  must end bit-identical.
+  must end bit-identical;
+- tensor parallelism: ``train_tp`` and ``train_tp_sp`` of that FFN stack
+  on 4 ranks and ``train_hybrid`` on a 2 x 2 data x model mesh, 8 steps
+  a rank (``tp-train-run``), then one step of each at ``CHECK_LR`` held
+  against float64 (``tp-train-check``: TP's and TP-SP's update against
+  ``train_single``'s error, the hybrid's against DDP's on 2 ranks, and
+  unchanged weights as a control that must fail). Their collectives
+  launch no kernel (TP has no kernel transport, as in JAX): on one card
+  in loopback they are plain torch within each axis group; ``--phase
+  dist`` runs them one rank a card over NCCL row and column groups, and
+  then the reference's own ``-m 0`` through ``cli.py`` at this shape
+  with ``--strict`` (``dist-cli-m0``).
 
 It fails (exit code 1) if there is no CUDA device, if a kernel does not
 build, launch or agree, if a kernel path did not go through its
@@ -2961,6 +2977,218 @@ def dist_rank(mesh, payload):
         a2a_cases=a2a_cases, ep_launches=ep_launches)
 
 
+# -- tensor parallelism of the FFN stack ---------------------------------------
+
+# TP and TP-SP on TP_N ranks and the hybrid on a HYBRID mesh, at TRAIN's
+# width; the default run holds the ranks on one card in loopback, whose
+# collectives are plain torch within each axis group (TP has no kernel
+# transport, as in JAX), ``--phase dist`` one rank a card over NCCL
+TP_N = RING_N
+HYBRID = {"data": 2, "model": 2}
+TP_RUNS = (("tp", "train_tp"), ("tp-sp", "train_tp_sp"),
+           ("hybrid", "train_hybrid"))
+
+
+def tp_rank(mesh, payload):
+    """One rank of a ``tp`` run (module level: ``--phase dist`` spawns
+    it): ``trainer`` over ``seeds`` with rank 0's steps stamped; returns
+    the rank's final shards on the CPU, the stamps and, in a process of
+    its own, the rank's launch counts and peak memory."""
+    import torch
+
+    from distributed_llm_code_samples_tpu_torch import parallel
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    trainer, params, seeds, lr = payload
+    stamps = []
+
+    def on_step(_):
+        if mesh.rank == 0:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    if not mesh.loopback:
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = getattr(parallel, trainer)(params, seeds, TRAIN["tokens"],
+                                     TRAIN["d_model"], mesh, lr=lr,
+                                     on_step=on_step)
+    torch.cuda.synchronize()
+    return dict(shards=tuple(t.cpu() for t in out), t0=t0, stamps=stamps,
+                launches=None if mesh.loopback else launch_counts(),
+                max_memory_allocated_gb=None if mesh.loopback else
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def tp_phase(torch, card, cards: int = 0):
+    """TP, TP-SP and the hybrid at ``TRAIN``'s width: 8 timed steps a rank
+    at the package LR (``tp-train-run``), then one step at ``CHECK_LR``
+    held against float64 (``tp-train-check``). ``cards`` 0: the ranks in
+    loopback on one card; else one rank a card over NCCL. The f32 peak
+    share is over every card the run holds; the memory is the card's in
+    loopback, rank 0's card's over NCCL."""
+    from distributed_llm_code_samples_tpu_torch import LR
+    from distributed_llm_code_samples_tpu_torch.data import (
+        batch_from_seed, make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        FFNStackParams, init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        ffn_block, launch_counts, reset_launch_counts, stack_grads)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        DATA_AXIS, MODEL_AXIS, launch, make_mesh, train_ddp, train_single)
+    from distributed_llm_code_samples_tpu_torch.parallel import hybrid, tp
+    t_phase = time.perf_counter()
+    d, n_layers, tokens = TRAIN["d_model"], TRAIN["n_layers"], TRAIN["tokens"]
+    mode = f"{cards} cards" if cards else "loopback"
+    where = dict(device="cuda") if cards else dict(loopback=True)
+    meshes = {"tp": make_mesh({MODEL_AXIS: TP_N}, **where),
+              "hybrid": make_mesh(HYBRID, **where)}
+    meshes["tp-sp"] = meshes["tp"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TRAIN["random_seed"])
+    params = init_ffn_stack(gen, d, n_layers)
+    host = FFNStackParams(*(t.cpu() for t in params)) if cards else params
+    dp = HYBRID["data"]
+    seeds = make_seed_schedule(dp * TRAIN["steps"], TRAIN["random_seed"])
+
+    def run(label, trainer, seeds, lr):
+        mesh = meshes[label]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        outs = launch(tp_rank, mesh, (trainer, host, seeds, lr),
+                      timeout=300)
+        full = (hybrid.unshard_params([FFNStackParams(*o["shards"])
+                                       for o in outs], mesh)
+                if label == "hybrid" else
+                tp.unshard_params([FFNStackParams(*o["shards"])
+                                   for o in outs]))
+        full = FFNStackParams(*(t.to(params.w1.device) for t in full))
+        launches = outs[0]["launches"] if cards else launch_counts()
+        mem = (outs[0]["max_memory_allocated_gb"] if cards else
+               torch.cuda.max_memory_allocated() / 2 ** 30)
+        return full, outs[0], launches, mem
+
+    finite = True
+    for label, trainer in TP_RUNS:
+        batches = dp if label == "hybrid" else 1
+        run_seeds = seeds if label == "hybrid" else seeds[:TRAIN["steps"]]
+        full, r0, got, mem = run(label, trainer, run_seeds, LR)
+        finite &= all(bool(torch.isfinite(t).all()) for t in full)
+        steps = [b - a for a, b in zip([r0["t0"]] + r0["stamps"],
+                                       r0["stamps"])]
+        med = statistics.median(steps[1:])
+        flops = 12 * tokens * d * FFN_DIM * n_layers * batches
+        ring_kernels = sorted(k for k in got if k in RING_NAMES)
+        print("tp-train-run " + json.dumps(dict(
+            run=f"{label}-{'nccl' if cards else 'loopback'}", mode=mode,
+            mesh=dict(meshes[label].shape), steps_per_rank=len(steps),
+            tokens_per_step=tokens * batches, median_step_ms=1e3 * med,
+            first_step_ms=1e3 * steps[0],
+            tokens_per_s=tokens * batches / med,
+            model_tflops_per_s=flops / med / 1e12,
+            f32_peak_share=flops / med / (F32_FLOPS_PER_S * (cards or 1)),
+            max_memory_allocated_gb=mem, kernel_launches=got,
+            ring_kernels=ring_kernels, card=card)), flush=True)
+        check(not ring_kernels, f"{label} launched the ring kernels "
+              f"{ring_kernels}: TP has no kernel transport")
+        del full
+    check(finite, "TP-trained params are not finite")
+
+    # one step at CHECK_LR from the same params, each update against a
+    # float64 step (UPDATE_RATIO): TP and TP-SP against train_single's,
+    # the hybrid against DDP's on HYBRID["data"] ranks
+    def batch64(seed, batch, dim, dtype, device):
+        return tuple(v.double() for v in
+                     batch_from_seed(seed, batch, dim, device=device))
+
+    p64 = FFNStackParams(*(t.double() for t in params))
+    w64 = train_single(p64, seeds[:1], tokens, d, lr=CHECK_LR,
+                       batch_fn=batch64)
+    single = train_single(params, seeds[:1], tokens, d, lr=CHECK_LR)
+    g64 = None
+    for seed in seeds[:dp]:
+        x, dl = batch_from_seed(seed, tokens, d, device=params.w1.device)
+        g = stack_grads(p64.w1, p64.w2, x.double(), dl.double(),
+                        block=ffn_block)[1]
+        g64 = g if g64 is None else tuple(a + b for a, b in zip(g64, g))
+    ddp64 = FFNStackParams(*(p - CHECK_LR * g for p, g in zip(p64, g64)))
+    del g64
+    ddp_mesh = (make_mesh({DATA_AXIS: dp}, device="cuda") if cards else
+                make_mesh({DATA_AXIS: dp}, loopback=True))
+    ddp = train_ddp(params, seeds[:dp], tokens, d, ddp_mesh, lr=CHECK_LR,
+                    comm="psum" if cards else "pallas_ring")
+
+    def errs(got, want):
+        return [update_err(torch, g, w, p0)
+                for g, w, p0 in zip(got, want, params)]
+
+    row = dict(mode=mode, check_lr=CHECK_LR, update_ratio_limit=UPDATE_RATIO)
+    base = {"tp": errs(single, w64), "hybrid": errs(ddp, ddp64)}
+    base["tp-sp"] = base["tp"]
+    row["single_update_err_vs_f64"] = base["tp"]
+    row["ddp_update_err_vs_f64"] = base["hybrid"]
+    ratios = {}
+    for label, trainer in TP_RUNS:
+        n_seeds = dp if label == "hybrid" else 1
+        got = run(label, trainer, seeds[:n_seeds], CHECK_LR)[0]
+        want = ddp64 if label == "hybrid" else w64
+        e = errs(got, want)
+        ratios[label] = max(a / b for a, b in zip(e, base[label]))
+        row[f"{label}_update_err_vs_f64"] = e
+        row[f"{label}_update_err_ratio_max"] = ratios[label]
+        if label == "hybrid":
+            row["hybrid_vs_ddp_update_err"] = errs(got, ddp)
+        del got
+    # the control: weights left unchanged have error exactly 1
+    unchanged = min(1.0 / b for b in base["tp"] + base["hybrid"])
+    row.update(unchanged_ratio_min=unchanged,
+               phase_s=time.perf_counter() - t_phase, card=card)
+    print("tp-train-check " + json.dumps(row), flush=True)
+    for label, ratio in ratios.items():
+        check(ratio <= UPDATE_RATIO, f"{label}'s update {ratio:.2f}x as far "
+              f"from float64 as the f32 reference's")
+    check(unchanged > UPDATE_RATIO,
+          "the update check cannot tell unchanged weights from trained")
+
+
+# the reference's own default invocation, -m 0, at TRAIN's shape on every
+# card (--phase dist)
+CLI_M0 = ("-m", "0", "-s", "8", "-bs", "8", "-n", "1024", "-l", "24", "-d",
+          "768", "-r", "7", "--strict", "--comm", "pallas_ring")
+
+
+def cli_m0_phase(cards) -> None:
+    """``cli.py -m 0 ... --strict`` as a subprocess: methods 1-4 in turn,
+    then DDP against FSDP and single-device against TP. Prints its exit
+    code, its ``takes`` and ``verify`` lines, every ``SoftAssertionError``
+    line and each method's step time (``dist-cli-m0``)."""
+    cmd = [sys.executable, "-m", "distributed_llm_code_samples_tpu_torch.cli",
+           *CLI_M0]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    lines = out.stdout.splitlines()
+    runs = [json.loads(l) for l in lines if l.startswith("{")]
+    print("dist-cli-m0 " + json.dumps(dict(
+        argv=list(CLI_M0), rc=out.returncode,
+        seconds=time.perf_counter() - t0,
+        takes=[l for l in lines if " takes " in l],
+        verify=[json.loads(l.split(" ", 1)[1]) for l in lines
+                if l.startswith("verify ")],
+        soft_assertions=[l for l in lines
+                         if l.startswith("SoftAssertionError")],
+        runs=[{k: r.get(k) for k in ("method", "ranks", "mesh", "comm",
+                                     "median_step_ms", "tokens_per_s",
+                                     "model_tflops_per_s",
+                                     "kernel_launches")} for r in runs],
+        cards=cards)), flush=True)
+    if out.returncode != 0:
+        print("dist-cli-m0-stderr\n" + out.stderr[-4000:], flush=True)
+    check(out.returncode == 0, f"cli -m 0 --strict exited {out.returncode}")
+
+
 def card_lines() -> list:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2968,10 +3196,12 @@ def card_lines() -> list:
     return out.stdout.strip().splitlines()
 
 
-def dist_phase(torch):
+def dist_phase(torch, tp_only: bool = False):
     """``--phase dist``: ``RING_N`` ranks, one a card, over NCCL and the
-    peer-mapped workspaces (``dist_rank``). Returns the ring kernels' and
-    the all-to-all's entries of the kernels line."""
+    peer-mapped workspaces (``dist_rank``), then TP, TP-SP and the hybrid
+    on the cards (``tp_phase``) and ``cli.py -m 0`` (``cli_m0_phase``).
+    Returns the ring kernels' and the all-to-all's entries of the kernels
+    line. ``tp_only`` (``--phase dist-tp``) runs the last two alone."""
     from distributed_llm_code_samples_tpu_torch.parallel import (
         DATA_AXIS, launch, make_mesh)
     n = torch.cuda.device_count()
@@ -2986,13 +3216,19 @@ def dist_phase(torch):
             check(i == j or torch.cuda.can_device_access_peer(i, j),
                   f"cuda:{i} has no peer access to cuda:{j}: the ring "
                   "kernels store over peer mappings, never through the host")
-    out = launch(dist_rank, make_mesh({DATA_AXIS: RING_N}, device="cuda"),
-                 {"card": cards}, timeout=900)[0]
-    rows = ring_kernel_rows(out["cases"], out["launches"], mode="4 cards")
-    rows.append(a2a_kernel_row(out["a2a_cases"], out["ep_launches"],
-                               mode="4 cards"))
-    for row in rows:
-        row["cards"] = cards
+    rows = []
+    if not tp_only:
+        out = launch(dist_rank, make_mesh({DATA_AXIS: RING_N},
+                                          device="cuda"),
+                     {"card": cards}, timeout=900)[0]
+        rows = ring_kernel_rows(out["cases"], out["launches"],
+                                mode="4 cards")
+        rows.append(a2a_kernel_row(out["a2a_cases"], out["ep_launches"],
+                                   mode="4 cards"))
+        for row in rows:
+            row["cards"] = cards
+    tp_phase(torch, cards, cards=RING_N)
+    cli_m0_phase(cards)
     return rows
 
 
@@ -3000,7 +3236,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
                     choices=["all", "kernel", "train", "lm", "ring", "ep",
-                             "dist"],
+                             "tp", "dist", "dist-tp"],
                     default="all")
     args = ap.parse_args(argv)
     try:
@@ -3035,8 +3271,8 @@ def main(argv=None) -> int:
     print("ptxas-spills " + json.dumps(ptxas_spills(_build.build_logs)),
           flush=True)
 
-    if args.phase == "dist":
-        kernels = dist_phase(torch)
+    if args.phase in ("dist", "dist-tp"):
+        kernels = dist_phase(torch, tp_only=args.phase == "dist-tp")
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0 if all(k["ok"] for k in kernels) else 1
 
@@ -3073,6 +3309,8 @@ def main(argv=None) -> int:
         ring_launches = ring_train_phase(torch, np, card)
     if not bad and args.phase in ep_phases:
         ep_launches = ep_train_phase(torch, np, card)
+    if not bad and args.phase in ("all", "tp"):
+        tp_phase(torch, card)
     if args.phase in ("all", "kernel"):
         main_case = next(c for c in cases if c["shape"] == "serving"
                          and c["kv_dtype"] == "f32")

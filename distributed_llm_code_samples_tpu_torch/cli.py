@@ -1,36 +1,55 @@
 """Training CLI of the port, the JAX package's ``cli.py`` for the methods
-that are ported: ``-m 1`` (single device), ``-m 2`` (DDP), ``-m 3``
-(FSDP) and ``-m 7`` (expert parallelism of the MoE stack).
+that are ported: ``-m 0`` (methods 1-4, then the cross-strategy check),
+``-m 1`` (single device), ``-m 2`` (DDP), ``-m 3`` (FSDP), ``-m 4``
+(Megatron TP; ``--tp_sp`` its sequence-parallel form), ``-m 5`` (the
+hybrid DDP x TP on a ``--dp`` x ``--tp`` mesh) and ``-m 7`` (expert
+parallelism of the MoE stack).
 
     python -m distributed_llm_code_samples_tpu_torch.cli -m 1 -s 8 \\
         -bs 8 -n 1024 -l 24 -d 768 -r 7 --pallas
-    python -m distributed_llm_code_samples_tpu_torch.cli -m 2 -s 32 \\
-        -bs 8 -n 1024 -l 24 -d 768 -r 7 --comm pallas_ring
+    python -m distributed_llm_code_samples_tpu_torch.cli -m 0 -s 8 \\
+        -bs 8 -n 1024 -l 24 -d 768 -r 7 --strict --comm pallas_ring
     python -m distributed_llm_code_samples_tpu_torch.cli --device cpu \\
-        --fake_devices 4 -m 3 -s 8 -bs 2 -n 16 -l 2 -d 32 -r 7
+        --fake_devices 4 -s 8 -bs 2 -n 16 -l 2 -d 32 -r 7 --strict
+    python -m distributed_llm_code_samples_tpu_torch.cli --device cpu \\
+        --fake_devices 4 -m 5 --tp 2 -s 8 -bs 2 -n 16 -l 2 -d 32 -r 7
     python -m distributed_llm_code_samples_tpu_torch.cli --device cpu \\
         --fake_devices 4 -m 7 -s 8 -bs 4 -n 16 -l 2 -d 32 -r 7 --experts 8
 
-The reference's seven flags keep their short names and defaults; any
-other method, the default 0 included, exits 2. It runs on the card
-unless ``--device cpu`` is given. Methods 2, 3 and 7 spawn one rank per
-visible card, or ``--fake_devices`` gloo ranks on the CPU; ``-s`` is the
-global step count, split stride-wise over the ranks. ``--comm`` picks
-the transport of methods 2 and 3 (``psum``: ``torch.distributed``;
-``pallas_ring``: the ring kernels). Method 7 takes, as the JAX CLI's,
-``--experts`` and the LR and leaves the rest at ``train_moe_ep``'s
-defaults (top-1, capacity factor 2, no aux loss, the dense dispatch,
-``comm="psum"``); its tokens a step (``-bs`` x ``-n``) are the whole EP
-group's. It prints the reference's banner and ``PARAMS:`` line, then one
-JSON line: steps, tokens per step (a rank; the group's for method 7),
-wall time, the median step time (host clock, each step ending in a
-synchronize, the first step left out unless it is the only one; rank
-0's for the multi-rank methods), and from it tokens/s and the model
-TFLOP/s (``12 * T * d * ffn * L`` a step, over all ranks; for method 7
-T counts every routed token, dropped ones too); the device, the kernel
-launch counts (rank 0's, and every rank's) and a per-layer checksum of
-the final parameters. The kernels a run uses on the card are built
-before the clock starts (``build_s``).
+The reference's seven flags keep their short names and defaults; the
+default method is 0, as the reference's; any method not listed exits 2.
+It runs on the card unless ``--device cpu`` is given. Methods 2, 3, 4, 5
+and 7 spawn one rank per visible card (fewer than 2 cards exit 2), or
+``--fake_devices`` gloo ranks on the CPU; ``-s`` is the global step
+count, split stride-wise over the data ranks (TP's ranks each take every
+step). ``--comm`` picks the transport of methods 2 and 3 (``psum``:
+``torch.distributed``; ``pallas_ring``: the ring kernels); TP and the
+hybrid reduce through ``torch.distributed`` (as in JAX, they have no
+kernel transport). Method 5's mesh is ``--dp`` x ``--tp`` ranks,
+``--dp`` defaulting to the ranks over ``--tp``. Method 7 takes, as the
+JAX CLI's, ``--experts`` and the LR and leaves the rest at
+``train_moe_ep``'s defaults (top-1, capacity factor 2, no aux loss, the
+dense dispatch, ``comm="psum"``); its tokens a step (``-bs`` x ``-n``)
+are the whole EP group's.
+
+It prints the reference's banner, ``PARAMS:`` line and the first layer's
+5x5 corners, then for each method its ``<trainer> takes N seconds`` line,
+its final corners and one JSON line: steps, tokens per step (a rank;
+the group's for method 7), wall time, the median step time (host clock,
+each step ending in a synchronize, the first step left out unless it is
+the only one; rank 0's for the multi-rank methods), and from it tokens/s
+and the model TFLOP/s (``12 * T * d * ffn * L`` a step for each batch
+the mesh takes: once for TP, whose ranks share one batch, once a data
+rank for DDP, FSDP and the hybrid; for method 7 T counts every routed
+token, dropped ones too); the device, the kernel launch counts (rank
+0's, and every rank's) and a per-layer checksum of the final
+parameters. Method 0 then holds DDP against FSDP and single-device
+against TP, leaf by leaf, within rtol 1e-5 and atol 1e-7 (1e-4 and 1e-5
+under ``--pallas``): one ``verify`` line a pair, a ``SoftAssertionError:``
+line for each leaf that disagrees, and with ``--strict`` exit code 1 if
+one does. ``--pallas`` applies to method 1 and ``--comm`` to methods 2
+and 3, also inside method 0. The kernels a run uses on the card are
+built before the clock starts (``build_s``).
 """
 
 from __future__ import annotations
@@ -41,13 +60,17 @@ import statistics
 import sys
 import time
 
-PORTED_METHODS = (1, 2, 3, 7)
-RANK_METHODS = (2, 3, 7)
+PORTED_METHODS = (0, 1, 2, 3, 4, 5, 7)
+RANK_METHODS = (2, 3, 4, 5, 7)
+TRAINERS = {1: "train_single", 2: "train_ddp", 3: "train_fsdp",
+            4: "train_tp", 5: "train_hybrid", 7: "train_moe_ep"}
+# method 0's checks (JAX cli.py:944-955): (rtol, atol), and under --pallas
+CHECK_TOL, PALLAS_CHECK_TOL = (1e-5, 1e-7), (1e-4, 1e-5)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="FFN-stack training on one NVIDIA GPU (PyTorch port; "
+        description="FFN-stack training on NVIDIA GPUs (PyTorch port; "
                     "reference-parity flags, train_ffns.py:342-351)")
     p.add_argument("-s", "--num_steps", type=int, default=1)
     p.add_argument("-bs", "--batch_size", type=int, default=8)
@@ -55,18 +78,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-l", "--layers", type=int, default=1)
     p.add_argument("-d", "--model_size", type=int, default=4)
     p.add_argument("-m", "--method", type=int, default=0,
-                   help="1=single device, 2=DDP, 3=FSDP, 7=MoE expert "
-                        "parallelism (the methods ported so far)")
+                   help="0=all(1-4) and the cross-strategy check, "
+                        "1=single device, 2=DDP, 3=FSDP, 4=TP, 5=hybrid "
+                        "DDP x TP, 7=MoE expert parallelism (the methods "
+                        "ported so far)")
     p.add_argument("-r", "--random_seed", type=int, default=0,
                    help="!=0 makes runs reproducible (train_ffns.py:350)")
     p.add_argument("--pallas", action="store_true",
-                   help="run each FFN block through the three CUDA kernels "
-                        "(their plain versions on the CPU)")
+                   help="with --method 1 (also inside 0): run each FFN "
+                        "block through the three CUDA kernels (their plain "
+                        "versions on the CPU)")
     p.add_argument("--mixed", action="store_true",
-                   help="bf16 matmul operands, f32 params/grads/sums")
+                   help="with --method 1: bf16 matmul operands, f32 "
+                        "params/grads/sums")
     p.add_argument("--accum", type=int, default=1,
-                   help="gradient-accumulation chunks per step (SUM "
-                        "semantics)")
+                   help="with --method 1: gradient-accumulation chunks per "
+                        "step (SUM semantics)")
     p.add_argument("--lr", type=float, default=None,
                    help="learning rate (default: the reference's 1e-5)")
     p.add_argument("--scan", action="store_true",
@@ -74,49 +101,127 @@ def build_parser() -> argparse.ArgumentParser:
                         "with the JAX CLI; both of its loop forms are one "
                         "Python loop here)")
     p.add_argument("--comm", choices=["psum", "pallas_ring"], default=None,
-                   help="with --method 2 (DDP) or 3 (FSDP): the transport, "
-                        "psum (torch.distributed: NCCL, gloo on the CPU; "
-                        "the default) or pallas_ring (the ring kernels: "
-                        "DDP grad all-reduce; FSDP param all-gathers and "
-                        "grad reduce-scatters)")
+                   help="with --method 2 (DDP) or 3 (FSDP), also inside 0: "
+                        "the transport, psum (torch.distributed: NCCL, "
+                        "gloo on the CPU; the default) or pallas_ring (the "
+                        "ring kernels: DDP grad all-reduce; FSDP param "
+                        "all-gathers and grad reduce-scatters)")
+    p.add_argument("--tp_sp", action="store_true",
+                   help="with --method 4: sequence-parallel TP (the stream "
+                        "between blocks token-sharded; all-gather in, "
+                        "reduce-scatter out)")
+    p.add_argument("--dp", type=int, default=None,
+                   help="with --method 5: data-axis size (default: the "
+                        "ranks // --tp)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="with --method 5: model-axis size (default 2)")
+    p.add_argument("--strict", action="store_true",
+                   help="with --method 0: a failed cross-strategy check "
+                        "exits 1 (the reference only soft-asserts, "
+                        ":386-391)")
     p.add_argument("--experts", type=int, default=8,
                    help="expert count for --method 7 (MoE)")
     p.add_argument("--fake_devices", type=int, default=0,
-                   help="with --device cpu and --method 2/3/7: run on N "
-                        "gloo ranks (default 1)")
+                   help="with --device cpu and --method 0, 2, 3, 4, 5 or "
+                        "7: run on N gloo ranks (default 1)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
 
 def _flag_error(args) -> str | None:
     """What is wrong with the flags, or None."""
-    if args.method not in PORTED_METHODS:
-        return (f"method {args.method} is not ported yet (ported: "
+    m = args.method
+    if m not in PORTED_METHODS:
+        return (f"method {m} is not ported yet (ported: "
                 f"{', '.join(map(str, PORTED_METHODS))})")
-    if args.comm is not None and args.method not in (2, 3):
-        return "--comm applies to --method 2 (DDP) or 3 (FSDP)"
-    if args.fake_devices and args.method not in RANK_METHODS:
-        return "--fake_devices applies to --method 2, 3 or 7"
+    if args.comm is not None and m not in (0, 2, 3):
+        return "--comm applies to --method 2 (DDP) or 3 (FSDP), or 0"
+    if args.fake_devices and m not in (0,) + RANK_METHODS:
+        return "--fake_devices applies to --method 0, 2, 3, 4, 5 or 7"
     if args.fake_devices and args.device != "cpu":
         return ("--fake_devices runs gloo ranks on the CPU: pass --device "
                 "cpu (on the card there is one rank a card)")
-    if args.method in RANK_METHODS and (args.pallas or args.mixed
-                                        or args.accum != 1):
+    if m in (0,) + RANK_METHODS and (args.mixed or args.accum != 1
+                                     or (args.pallas and m != 0)):
         return ("--pallas, --mixed and --accum apply to --method 1 (the "
                 "multi-rank trainers run the matmul blocks; mixed and "
-                "accumulation are not ported there yet)")
+                "accumulation are not ported there yet); --pallas also "
+                "to method 1 inside 0")
+    if args.tp_sp and m != 4:
+        return "--tp_sp applies to --method 4 only"
+    if (args.dp is not None or args.tp is not None) and m != 5:
+        return "--dp and --tp apply to --method 5 only"
+    if args.strict and m != 0:
+        return "--strict applies to --method 0 only (its checks)"
     return None
 
 
+def _meshes(args, tokens: int, seeds, device) -> dict:
+    """The mesh of each multi-rank method this run takes, checked as the
+    trainers would check it, so a bad combination exits 2 before
+    anything is spawned."""
+    import torch
+
+    from .data import shard_seeds_strided
+    from .parallel import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, make_mesh
+    methods = [1, 2, 3, 4] if args.method == 0 else [args.method]
+    methods = [m for m in methods if m in RANK_METHODS]
+    if not methods:
+        return {}
+    n = ((args.fake_devices or 1) if device.type == "cpu"
+         else torch.cuda.device_count())
+    if device.type == "cuda" and n < 2:
+        raise RuntimeError(f"only {n} card visible; the multi-rank methods "
+                           "need >= 2 (one rank a card), or --device cpu "
+                           "--fake_devices N")
+    ffn = 4 * args.model_size
+    meshes = {}
+    for m in methods:
+        if m in (2, 3):
+            shard_seeds_strided(seeds, n)
+            if m == 3 and ffn % n:
+                raise ValueError(f"FSDP shards d and ffn over {n} ranks: "
+                                 f"-d {args.model_size} does not split")
+            meshes[m] = make_mesh({DATA_AXIS: n}, device=device.type)
+        elif m == 4:
+            if ffn % n or (args.tp_sp and tokens % n):
+                raise ValueError(f"TP splits the ffn dim {ffn}"
+                                 + (f" and the {tokens} tokens" if args.tp_sp
+                                    else "") + f" over {n} ranks: "
+                                 "they must divide")
+            meshes[m] = make_mesh({MODEL_AXIS: n}, device=device.type)
+        elif m == 5:
+            tp = 2 if args.tp is None else args.tp
+            dp = args.dp or max(1, n // tp)
+            if dp < 1 or tp < 1 or dp * tp > n:
+                raise ValueError(f"the hybrid mesh {dp} x {tp} needs "
+                                 f"{dp * tp} ranks, {n} available")
+            if ffn % tp:
+                raise ValueError(f"ffn_dim {ffn} not divisible by {tp} "
+                                 "model shards")
+            shard_seeds_strided(seeds, dp)
+            meshes[m] = make_mesh({DATA_AXIS: dp, MODEL_AXIS: tp},
+                                  device=device.type)
+        else:
+            shard_seeds_strided(seeds, n)
+            if args.experts % n or tokens % n:
+                raise ValueError(f"EP splits the {args.experts} experts and "
+                                 f"the {tokens} tokens of a step over {n} "
+                                 "ranks: they must divide")
+            meshes[m] = make_mesh({EXPERT_AXIS: n}, device=device.type)
+    return meshes
+
+
 def _rank_run(mesh, payload):
-    """The body of one rank of ``-m 2|3|7``: train, time the steps, count
-    the launches; returns them with rank 0's replica (DDP) or the rank's
-    shards (FSDP, EP) on the CPU."""
+    """The body of one rank of a multi-rank method: train, time the steps,
+    count the launches; returns them with rank 0's replica (DDP) or the
+    rank's shards (the others) on the CPU."""
     import torch
 
     from .ops import launch_counts, reset_launch_counts
-    from .parallel import train_ddp, train_fsdp, train_moe_ep
-    params, seeds, tokens, d, lr, method, comm = payload
+    from .parallel import (train_ddp, train_fsdp, train_hybrid,
+                           train_moe_ep, train_tp, train_tp_sp)
+    params, seeds, tokens, d, lr, method, comm, tp_sp = payload
     cuda = mesh.torch_device.type == "cuda"
 
     def sync():
@@ -129,12 +234,15 @@ def _rank_run(mesh, payload):
         sync()
         stamps.append(time.perf_counter())
 
-    train = {2: train_ddp, 3: train_fsdp, 7: train_moe_ep}[method]
+    kwargs = dict(on_step=on_step)
+    if method in (2, 3, 7):
+        kwargs["comm"] = comm
+    train = {2: train_ddp, 3: train_fsdp, 4: train_tp_sp if tp_sp
+             else train_tp, 5: train_hybrid, 7: train_moe_ep}[method]
     sync()
     reset_launch_counts()
     t0 = time.perf_counter()
-    out = train(params, seeds, tokens, d, mesh, lr, comm=comm,
-                on_step=on_step)
+    out = train(params, seeds, tokens, d, mesh, lr, **kwargs)
     wall = time.perf_counter() - t0
     keep = method != 2 or mesh.rank == 0
     return dict(steps=[b - a for a, b in zip([t0] + stamps, stamps)],
@@ -142,6 +250,24 @@ def _rank_run(mesh, payload):
                 params=tuple(t.cpu() for t in out) if keep else None,
                 device=(torch.cuda.get_device_name(mesh.torch_device)
                         if cuda else "cpu"))
+
+
+def _corners(params, moe: bool) -> str:
+    """The first layer's shapes and 5x5 corners (JAX ``cli.py``)."""
+    def corner(w):
+        return (w[0, 0] if moe else w[0])[:5, :5]
+    return (f"layers_params[0] {tuple(params.w1[0].shape)} "
+            f"{tuple(params.w2[0].shape)}\n{corner(params.w1)}\n"
+            f"{corner(params.w2)}")
+
+
+def _median_step(steps) -> float:
+    return statistics.median(steps[1:] if len(steps) > 1 else steps)
+
+
+def _checksums(out) -> list:
+    return [[float(out.w1[l].double().sum()), float(out.w2[l].double().sum())]
+            for l in range(out.n_layers)]
 
 
 def main(argv=None) -> int:
@@ -161,18 +287,22 @@ def main(argv=None) -> int:
     from . import LR, resolve_device
     from .data import make_seed_schedule
     from .models.ffn_stack import init_ffn_stack, params_size_gb
-    from .ops import build_all, launch_counts, reset_launch_counts
+    from .models.moe import init_moe_stack
+    from .ops import build_all
     from .ops.fused_ffn import BWD_DW, BWD_DX, FWD
-    from .parallel.single import make_step, train_single
+    from .parallel.single import make_step
 
-    if args.method in RANK_METHODS:
-        return _main_ranks(args, tokens)
+    methods = [1, 2, 3, 4] if args.method == 0 else [args.method]
+    lr = LR if args.lr is None else args.lr
+    comm = args.comm or "psum"
+    seeds = make_seed_schedule(args.num_steps, args.random_seed)
+    single_kwargs = dict(lr=lr, unroll=not args.scan, use_pallas=args.pallas,
+                         mixed=args.mixed, accum=args.accum)
     try:
         device = resolve_device(args.device)
-        lr = LR if args.lr is None else args.lr
-        kwargs = dict(lr=lr, unroll=not args.scan, use_pallas=args.pallas,
-                      mixed=args.mixed, accum=args.accum)
-        make_step(tokens, args.model_size, **kwargs)   # raises on bad combos
+        meshes = _meshes(args, tokens, seeds, device)
+        if 1 in methods:
+            make_step(tokens, args.model_size, **single_kwargs)  # bad combos
     except (ValueError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -180,21 +310,52 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        if args.pallas:
+        libs = ([FWD, BWD_DX, BWD_DW] if args.pallas else []) + (
+            ["ring_collectives"] if comm == "pallas_ring" else [])
+        if libs:
             t0 = time.perf_counter()
-            build_all([FWD, BWD_DX, BWD_DW])
+            build_all(libs)
             build_s = time.perf_counter() - t0
 
     # banner (train_ffns.py:353)
     print(f"ARGS:\n num_steps: {args.num_steps}\n BS: {args.batch_size}\n"
           f" N: {args.seq_len}\n D: {args.model_size}\n"
           f" FFN: {4 * args.model_size}\n")
-    seeds = make_seed_schedule(args.num_steps, args.random_seed)
-    gen = torch.Generator(device=device)
+    moe = args.method == 7
+    gen = torch.Generator()
     gen.manual_seed(args.random_seed)
-    params = init_ffn_stack(gen, args.model_size, args.layers)
+    params = (init_moe_stack(gen, args.model_size, args.layers, args.experts)
+              if moe else init_ffn_stack(gen, args.model_size, args.layers))
     print(f"PARAMS: {params.num_params():_} "
           f"(size {params_size_gb(params)} GB)\n\n", flush=True)
+    print(f"initial {_corners(params, moe)}", flush=True)
+    results = {}
+    for m in methods:
+        common = dict(method=m, steps=args.num_steps, tokens_per_step=tokens,
+                      lr=lr, build_s=build_s)
+        if m == 1:
+            out, payload = _run_single(args, params, seeds, tokens, device,
+                                       single_kwargs)
+        else:
+            out, payload = _run_ranks(args, m, meshes[m], params, seeds,
+                                      tokens, lr, comm)
+        results[m] = out
+        print(f"final {TRAINERS[m]} {_corners(out, moe)}")
+        print(json.dumps(dict(common, **payload,
+                              layer_checksums=_checksums(out))), flush=True)
+    if args.method == 0:
+        failed = _check(results, *(PALLAS_CHECK_TOL if args.pallas
+                                    else CHECK_TOL))
+        return 1 if failed and args.strict else 0
+    return 0
+
+
+def _run_single(args, params, seeds, tokens: int, device, kwargs):
+    """Method 1 on ``device``: ``train_single`` with its steps timed."""
+    import torch
+
+    from .ops import launch_counts, reset_launch_counts
+    from .parallel.single import train_single
 
     def sync():
         if device.type == "cuda":
@@ -206,22 +367,19 @@ def main(argv=None) -> int:
         sync()
         stamps.append(time.perf_counter())
 
+    params = type(params)(*(t.to(device) for t in params))
     sync()
     reset_launch_counts()
     t0 = time.perf_counter()
     out = train_single(params, seeds, tokens, args.model_size,
                        on_step=on_step, **kwargs)
     wall = time.perf_counter() - t0
-    steps = [b - a for a, b in zip([t0] + stamps, stamps)]
-    step_s = statistics.median(steps[1:] if len(steps) > 1 else steps)
-    flops = 12 * tokens * args.model_size * params.ffn_dim * args.layers
     print(f"\ntrain_single takes {wall} seconds")
-    payload = {
-        "method": args.method,
-        "steps": args.num_steps,
-        "tokens_per_step": tokens,
+    steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+    step_s = _median_step(steps)
+    flops = 12 * tokens * args.model_size * params.ffn_dim * args.layers
+    return type(out)(*(t.cpu() for t in out)), {
         "wall_s": wall,
-        "build_s": build_s,
         "first_step_ms": 1e3 * steps[0],
         "median_step_ms": 1e3 * step_s,
         "tokens_per_s": tokens / step_s,
@@ -229,112 +387,88 @@ def main(argv=None) -> int:
         "pallas": args.pallas,
         "mixed": args.mixed,
         "accum": args.accum,
-        "lr": lr,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "kernel_launches": launch_counts(),
-        "layer_checksums": [[float(out.w1[l].double().sum()),
-                             float(out.w2[l].double().sum())]
-                            for l in range(out.n_layers)],
     }
-    print(json.dumps(payload))
-    return 0
 
 
-def _main_ranks(args, tokens: int) -> int:
-    """``-m 2`` (DDP), ``-m 3`` (FSDP) and ``-m 7`` (EP) over the ranks of
-    the mesh."""
-    import torch
-
-    from . import LR, resolve_device
-    from .data import make_seed_schedule, shard_seeds_strided
-    from .models.ffn_stack import (FFNStackParams, init_ffn_stack,
-                                   params_size_gb)
-    from .models.moe import MoEStackParams, init_moe_stack
-    from .ops import build_all
-    from .parallel import DATA_AXIS, EXPERT_AXIS, launch_strided, make_mesh
-    from .parallel import expert, fsdp
-    comm = args.comm or "psum"
-    lr = LR if args.lr is None else args.lr
-    moe = args.method == 7
-    axis = EXPERT_AXIS if moe else DATA_AXIS
-    try:
-        device = resolve_device(args.device)
-        n = ((args.fake_devices or 1) if device.type == "cpu"
-             else torch.cuda.device_count())
-        mesh = make_mesh({axis: n}, device=device.type)
-        seeds = make_seed_schedule(args.num_steps, args.random_seed)
-        shard_seeds_strided(seeds, n)
-        if args.method == 3 and (4 * args.model_size) % n:
-            raise ValueError(f"FSDP shards d and ffn over {n} ranks: -d "
-                             f"{args.model_size} does not split")
-        if moe and (args.experts % n or tokens % n):
-            raise ValueError(f"EP splits the {args.experts} experts and the "
-                             f"{tokens} tokens of a step over {n} ranks: "
-                             "they must divide")
-    except (ValueError, RuntimeError) as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
-    build_s = None
-    if device.type == "cuda" and comm == "pallas_ring":
-        t0 = time.perf_counter()
-        build_all(["ring_collectives"])
-        build_s = time.perf_counter() - t0
-
-    print(f"ARGS:\n num_steps: {args.num_steps}\n BS: {args.batch_size}\n"
-          f" N: {args.seq_len}\n D: {args.model_size}\n"
-          f" FFN: {4 * args.model_size}\n")
-    gen = torch.Generator()
-    gen.manual_seed(args.random_seed)
-    params = (init_moe_stack(gen, args.model_size, args.layers, args.experts)
-              if moe else init_ffn_stack(gen, args.model_size, args.layers))
-    print(f"PARAMS: {params.num_params():_} "
-          f"(size {params_size_gb(params)} GB)\n\n", flush=True)
+def _run_ranks(args, m: int, mesh, params, seeds, tokens: int, lr: float,
+               comm: str):
+    """Method ``m`` over the ranks of ``mesh``; returns the full final
+    params and the method's payload."""
+    from .models.ffn_stack import FFNStackParams
+    from .models.moe import MoEStackParams
+    from .parallel import DATA_AXIS, expert, fsdp, hybrid, launch_replicated
+    from .parallel import tp as tp_mod
+    n = mesh.size
+    # the batches the mesh takes a step: one a data rank (DDP, FSDP, the
+    # hybrid); TP's ranks share one, and EP's tokens are the group's
+    batches = {2: n, 3: n, 4: 1, 5: mesh.shape.get(DATA_AXIS, 1), 7: 1}[m]
+    comm = comm if m in (2, 3, 7) else "psum"
     t0 = time.perf_counter()
-    outs = launch_strided(_rank_run, params, seeds, mesh, tokens,
-                          args.model_size, lr, args.method, comm)
+    outs = launch_replicated(_rank_run, params, seeds, mesh, tokens,
+                             args.model_size, lr, m, comm, args.tp_sp)
     wall = time.perf_counter() - t0
-    name = {2: "train_ddp", 3: "train_fsdp", 7: "train_moe_ep"}[args.method]
-    print(f"\n{name} takes {wall} seconds")
-    if args.method == 2:
-        out = FFNStackParams(*outs[0]["params"])
+    print(f"\n{TRAINERS[m]} takes {wall} seconds")
+    shards = [(MoEStackParams if m == 7 else FFNStackParams)(*o["params"])
+              for o in outs if o["params"] is not None]
+    if m == 2:
+        out = shards[0]
+    elif m == 5:
+        out = hybrid.unshard_params(shards, mesh)
     else:
-        unshard = expert.unshard_params if moe else fsdp.unshard_params
-        out = unshard([(MoEStackParams if moe else FFNStackParams)(
-            *o["params"]) for o in outs])
+        out = {3: fsdp, 4: tp_mod, 7: expert}[m].unshard_params(shards)
     steps = outs[0]["steps"]
-    step_s = statistics.median(steps[1:] if len(steps) > 1 else steps)
-    # a rank's tokens: EP's -bs x -n are the group's
+    step_s = _median_step(steps)
     flops = (12 * tokens * args.model_size * params.ffn_dim * args.layers
-             * (1 if moe else n))
+             * batches)
     payload = {
-        "method": args.method,
-        "steps": args.num_steps,
         "steps_per_rank": len(steps),
         "ranks": n,
+        "mesh": dict(mesh.shape),
         "comm": comm,
-        "tokens_per_step": tokens,
         "wall_s": wall,
         "rank0_train_s": outs[0]["wall"],
-        "build_s": build_s,
         "first_step_ms": 1e3 * steps[0],
         "median_step_ms": 1e3 * step_s,
-        "tokens_per_s": (1 if moe else n) * tokens / step_s,
+        "tokens_per_s": batches * tokens / step_s,
         "model_tflops_per_s": flops / step_s / 1e12,
-        "lr": lr,
         "device": outs[0]["device"],
         "kernel_launches": outs[0]["launches"],
         "kernel_launches_per_rank": [o["launches"] for o in outs],
-        "layer_checksums": [[float(out.w1[l].double().sum()),
-                             float(out.w2[l].double().sum())]
-                            for l in range(out.n_layers)],
     }
-    if moe:
+    if m == 4:
+        payload["sequence_parallel"] = args.tp_sp
+    if m == 7:
         payload["experts"] = args.experts
         payload["router_checksums"] = [float(out.wg[l].double().sum())
                                        for l in range(out.n_layers)]
-    print(json.dumps(payload))
-    return 0
+    return out, payload
+
+
+def _check(results: dict, rtol: float, atol: float) -> bool:
+    """Method 0's checks (JAX ``cli.py:944-955``): DDP against FSDP (the
+    reference's own, ``train_ffns.py:386-391``) and single-device against
+    TP (the same steps). Prints a ``verify`` line a pair and a
+    ``SoftAssertionError:`` line for each leaf that disagrees; returns
+    whether one did."""
+    import numpy as np
+    failed = False
+    for la, lb, a, b in (("ddp", "fsdp", results[2], results[3]),
+                         ("1dev", "tp", results[1], results[4])):
+        diffs = {}
+        for field, pa, pb in zip(a._fields, a, b):
+            pa, pb = pa.numpy(), pb.numpy()
+            diffs[field] = float(np.abs(pa - pb).max())
+            if not np.allclose(pa, pb, rtol=rtol, atol=atol):
+                print(f"SoftAssertionError: {la}.{field} vs {lb}.{field} "
+                      f"max|diff|={diffs[field]}")
+                failed = True
+        print("verify " + json.dumps(dict(a=la, b=lb, max_abs_diff=diffs,
+                                          rtol=rtol, atol=atol)),
+              flush=True)
+    return failed
 
 
 if __name__ == "__main__":

@@ -53,9 +53,11 @@ HOP, ALL_REDUCE, REDUCE_SCATTER, ALL_GATHER, ALL_TO_ALL = (
     "ring_all_gather", "all_to_all_dma")
 _OPS = {HOP: 0, ALL_REDUCE: 1, REDUCE_SCATTER: 2, ALL_GATHER: 3,
         ALL_TO_ALL: 4}
-# not a kernel: a loopback mesh's psum, the ranks' tensors summed in rank
-# order in plain torch (parallel/collectives.py)
-SUM = "sum"
+# not kernels: a loopback mesh's ``torch.distributed`` collectives in
+# plain torch (parallel/collectives.py), each over the ranks' dim-0
+# tensors: the sum in rank order, the concatenation in rank order, and
+# the sum's block of each rank
+SUM, CAT, SUM_SCATTER = "sum", "cat", "sum_scatter"
 # csrc/ring_common.cuh: kMaxRanks, kDataOff
 _MAX_RANKS = 8
 _DATA_OFF = 20480
@@ -269,19 +271,35 @@ class PeerWorkspace:
         self._release(lib)
 
 
+def _plain(op: str, xs: list) -> list:
+    """The plain collective ``op`` (``SUM``, ``CAT``, ``SUM_SCATTER``)
+    over one dim-0 tensor a rank: one output a rank, in rank order."""
+    if op == CAT:
+        out = torch.cat(xs)
+        return [out] + [out.clone() for _ in xs[1:]]
+    total = xs[0].clone()
+    for x in xs[1:]:
+        total += x
+    if op == SUM_SCATTER:
+        return [c.clone() for c in total.chunk(len(xs))]
+    return [total] + [total.clone() for _ in xs[1:]]
+
+
 class Loopback:
     """n virtual ranks as n threads of one process on one card. Each
     collective call waits until all n threads have handed in their
     operands; one of them then makes the one cooperative launch that
-    serves all n, and each thread takes its own output. All threads use
-    the device's default stream, so their work is ordered around the
-    launch. ``abort()`` releases the threads waiting in a call (a rank
-    that failed elsewhere)."""
+    serves all n (or, for ``SUM``, ``CAT`` and ``SUM_SCATTER``, computes
+    every output in plain torch), and each thread takes its own output.
+    All threads use the device's default stream, so their work is ordered
+    around the launch. The kernels need ``workspace``, a
+    ``PeerWorkspace`` of n regions that its owner attaches; the plain
+    collectives need none. ``abort()`` releases the threads waiting in a
+    call (a rank that failed elsewhere)."""
 
-    def __init__(self, workspace: PeerWorkspace,
-                 timeout: float = 10 * WAIT_TIMEOUT_S):
-        self.workspace = workspace
-        self.n = workspace.n
+    def __init__(self, n: int, timeout: float = 10 * WAIT_TIMEOUT_S):
+        self.workspace: Optional[PeerWorkspace] = None
+        self.n = n
         self._ops: list = [None] * self.n
         self._ins: list = [None] * self.n
         self._outs: list = []
@@ -294,12 +312,11 @@ class Loopback:
             if len(set(self._ops)) != 1:
                 raise RuntimeError(f"loopback ranks called different "
                                    f"collectives: {self._ops}")
-            if self._ops[0] == SUM:
-                total = self._ins[0].clone()
-                for x in self._ins[1:]:
-                    total += x
-                self._outs = [total] + [total.clone()
-                                        for _ in self._ins[1:]]
+            if self._ops[0] in (SUM, CAT, SUM_SCATTER):
+                self._outs = _plain(self._ops[0], self._ins)
+            elif self.workspace is None:
+                raise RuntimeError(f"loopback {self._ops[0]} is a kernel: "
+                                   "it needs the ranks' workspace")
             else:
                 self._outs = loopback(self._ops[0], self._ins,
                                       self.workspace)

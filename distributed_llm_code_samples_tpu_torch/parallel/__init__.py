@@ -1,21 +1,32 @@
 """Trainers of the port: the single-device FFN trainer (slice 2), the
 single-device LM trainer (slice 3), DDP and FSDP of the FFN stack over n
-ranks (slice 4), and expert parallelism of the MoE FFN stack (slice 5),
-with the mesh, the collectives and the launcher they run on."""
+ranks (slice 4), expert parallelism of the MoE FFN stack (slice 5), and
+tensor parallelism (plain and sequence-parallel) and the DDP x TP hybrid
+of the FFN stack (slice 13), with the mesh, the collectives and the
+launcher they run on."""
 
-from .collectives import all_gather, all_reduce, all_to_all, reduce_scatter
+from .collectives import (all_gather, all_reduce, all_to_all, axis_index,
+                          reduce_scatter)
 from .ddp import train_ddp
 from .expert import moe_layer_ep, train_moe_dense, train_moe_ep
 from .fsdp import shard_params, train_fsdp, unshard_params
-from .launcher import launch, launch_strided, run_strided
+from .hybrid import train_hybrid
+from .launcher import (launch, launch_replicated, launch_strided,
+                       run_replicated, run_strided)
 from .lm import lm_grads, resolve_head, train_lm_single
-from .mesh import DATA_AXIS, EXPERT_AXIS, Mesh, make_mesh, require_axes
+from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, Mesh, make_mesh,
+                   require_axes)
 from .single import make_step, train_single
+from .tp import train_tp, train_tp_sp
+from .tp import unshard_params as unshard_tp_params
 from .transformer import resolve_attn
 
-__all__ = ["DATA_AXIS", "EXPERT_AXIS", "Mesh", "all_gather", "all_reduce",
-           "all_to_all", "launch", "launch_strided", "lm_grads", "make_mesh",
+__all__ = ["DATA_AXIS", "EXPERT_AXIS", "MODEL_AXIS", "Mesh", "all_gather",
+           "all_reduce", "all_to_all", "axis_index", "launch",
+           "launch_replicated", "launch_strided", "lm_grads", "make_mesh",
            "make_step", "moe_layer_ep", "reduce_scatter", "require_axes",
-           "resolve_attn", "resolve_head", "run_strided", "shard_params",
-           "train_ddp", "train_fsdp", "train_lm_single", "train_moe_dense",
-           "train_moe_ep", "train_single", "unshard_params"]
+           "resolve_attn", "resolve_head", "run_replicated", "run_strided",
+           "shard_params", "train_ddp", "train_fsdp", "train_hybrid",
+           "train_lm_single", "train_moe_dense", "train_moe_ep",
+           "train_single", "train_tp", "train_tp_sp", "unshard_params",
+           "unshard_tp_params"]

@@ -1,79 +1,104 @@
 """The ``comm="psum"`` transport on ``torch.distributed``, after the JAX
 package's ``parallel/collectives.py`` (XLA's collectives there): NCCL on
-the card, gloo on the CPU. Each takes a rank's mesh view and returns a
-new tensor; the caller's is not changed."""
+the card, gloo on the CPU. Each takes a rank's mesh view and the mesh
+``axis`` it runs along (``None``, the default: the whole mesh), and
+returns a new tensor; the caller's is not changed.
+
+A loopback mesh has no process group: there the threads of the rank's
+axis group meet in their ``LoopbackState`` and one of them computes
+every rank's result in plain torch (no kernel; a sum adds in rank order
+within the group)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-from ..ops.ring import SUM, tiled_all_to_all
+from ..ops.ring import CAT, SUM, SUM_SCATTER, Ring, tiled_all_to_all
 
 
-def all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Sum across the ranks (``dist.all_reduce(SUM)``). A loopback mesh
-    has no process group: there its n threads sum their tensors in rank
-    order in plain torch (no kernel), the one collective its trainers
-    take from this module (expert parallelism's router gradients)."""
-    if getattr(mesh, "loopback", False):
-        return mesh.ring().loopback.call(SUM, x.contiguous(), mesh.rank)
+def axis_index(mesh, axis: Optional[str] = None) -> int:
+    """The rank's index along ``axis`` (``lax.axis_index``)."""
+    return mesh.axis_index(axis)
+
+
+def _loopback(op: str, xm: torch.Tensor, mesh, axis) -> torch.Tensor:
+    return mesh.axis_group(axis).loop.call(op, xm, mesh.axis_index(axis))
+
+
+def all_reduce(x: torch.Tensor, mesh, *,
+               axis: Optional[str] = None) -> torch.Tensor:
+    """Sum across the ranks of ``axis`` (``dist.all_reduce(SUM)``)."""
+    if mesh.loopback:
+        return _loopback(SUM, x.contiguous(), mesh, axis)
     y = x.contiguous().clone()
-    dist.all_reduce(y, group=mesh.group)
+    dist.all_reduce(y, group=mesh.axis_group(axis))
     return y
 
 
-def all_gather(x: torch.Tensor, mesh, *, dim: int = 0) -> torch.Tensor:
-    """Concatenate the ranks' blocks along ``dim`` in rank order
-    (``all_gather_into_tensor``; the reference's ``torch.cat`` of the
-    gathered shards, ``train_ffns.py:209``)."""
+def all_gather(x: torch.Tensor, mesh, *, dim: int = 0,
+               axis: Optional[str] = None) -> torch.Tensor:
+    """Concatenate the blocks of the ranks of ``axis`` along ``dim`` in
+    their order (``all_gather_into_tensor``; the reference's ``torch.cat``
+    of the gathered shards, ``train_ffns.py:209``)."""
     xm = x.movedim(dim, 0).contiguous()
-    out = torch.empty((mesh.size * xm.shape[0],) + tuple(xm.shape[1:]),
-                      dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, xm, group=mesh.group)
+    if mesh.loopback:
+        return _loopback(CAT, xm, mesh, axis).movedim(0, dim)
+    out = torch.empty((mesh.axis_size(axis) * xm.shape[0],)
+                      + tuple(xm.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, xm, group=mesh.axis_group(axis))
     return out.movedim(0, dim)
 
 
-def reduce_scatter(x: torch.Tensor, mesh, *, dim: int = 0) -> torch.Tensor:
-    """Sum across the ranks, then rank r keeps block r of ``dim``
-    (``reduce_scatter_tensor``, ``train_ffns.py:255-256``).
+def reduce_scatter(x: torch.Tensor, mesh, *, dim: int = 0,
+                   axis: Optional[str] = None) -> torch.Tensor:
+    """Sum across the ranks of ``axis``, then the rank of index i keeps
+    block i of ``dim`` (``reduce_scatter_tensor``,
+    ``train_ffns.py:255-256``).
 
     On gloo this is ``all_reduce`` followed by the rank's own block:
     gloo's ``reduce_scatter_tensor`` ends the whole process with a failed
     check instead of raising. That route serves the CPU ranks only; on the
     card it is NCCL's ``reduce_scatter_tensor``."""
-    n = mesh.size
+    n, group = mesh.axis_size(axis), mesh.axis_group(axis)
     xm = x.movedim(dim, 0).contiguous()
     if xm.shape[0] % n:
         raise ValueError(f"dim {dim} of size {xm.shape[0]} does not split "
                          f"into {n} ranks")
-    if dist.get_backend(mesh.group) == "gloo":
+    if mesh.loopback:
+        out = _loopback(SUM_SCATTER, xm, mesh, axis)
+    elif dist.get_backend(group) == "gloo":
         y = xm.clone()
-        dist.all_reduce(y, group=mesh.group)
-        out = y.chunk(n)[mesh.rank].clone()
+        dist.all_reduce(y, group=group)
+        out = y.chunk(n)[mesh.axis_index(axis)].clone()
     else:
         out = torch.empty((xm.shape[0] // n,) + tuple(xm.shape[1:]),
                           dtype=x.dtype, device=x.device)
-        dist.reduce_scatter_tensor(out, xm, group=mesh.group)
+        dist.reduce_scatter_tensor(out, xm, group=group)
     return out.movedim(0, dim)
 
 
-def _all_to_all_single(xm: torch.Tensor, mesh) -> torch.Tensor:
-    if xm.shape[0] % mesh.size:
+def _all_to_all_single(xm: torch.Tensor, ring: Ring) -> torch.Tensor:
+    if xm.shape[0] % ring.n:
         raise ValueError(f"leading dim {xm.shape[0]} not divisible by "
-                         f"{mesh.size} peers (the split unit of all_to_all)")
+                         f"{ring.n} peers (the split unit of all_to_all)")
     out = torch.empty_like(xm)
-    dist.all_to_all_single(out, xm, group=mesh.group)
+    dist.all_to_all_single(out, xm, group=ring.group)
     return out
 
 
-def all_to_all(x: torch.Tensor, mesh, *, split_dim: int,
-               concat_dim: int) -> torch.Tensor:
-    """The tiled all-to-all (``lax.all_to_all(tiled=True)``): ``split_dim``
-    splits into n blocks, block j goes to rank j, and the received blocks
-    concatenate along ``concat_dim`` in rank order
-    (``dist.all_to_all_single`` on the split dim moved to the front)."""
-    return tiled_all_to_all(x, mesh, split_dim, concat_dim,
+def all_to_all(x: torch.Tensor, mesh, *, split_dim: int, concat_dim: int,
+               axis: Optional[str] = None) -> torch.Tensor:
+    """The tiled all-to-all (``lax.all_to_all(tiled=True)``) over the ranks
+    of ``axis``: ``split_dim`` splits into n blocks, block j goes to the
+    rank of index j, and the received blocks concatenate along
+    ``concat_dim`` in their order (``dist.all_to_all_single`` on the split
+    dim moved to the front)."""
+    peers = Ring(mesh.axis_size(axis), mesh.axis_index(axis),
+                 group=mesh.axis_group(axis))
+    return tiled_all_to_all(x, peers, split_dim, concat_dim,
                             exchange=_all_to_all_single)
 
 

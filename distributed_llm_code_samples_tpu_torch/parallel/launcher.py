@@ -19,10 +19,19 @@ raises or outlives ``timeout`` fails the launch: every rank still
 running is killed, the directory removed, and the error raised here. A
 rank whose parent dies exits on its own.
 
+On a mesh of two axes every rank makes the process group of every row
+and column of the mesh (``dist.new_group``), all in the same order and
+at once, before the rank body starts: NCCL makes a group's communicator
+as the group is made, and a group that only some ranks made would hang
+the others. A loopback mesh gives each axis group its own
+``LoopbackState``, so a group's threads meet only each other.
+
 ``run_strided`` is the per-rank body of the data-parallel trainers: the
-rank's column of the strided seed split (``train_ffns.py:182``) through
-its step. It runs inside any process group that exists, the one
-``launch`` makes or a caller's own.
+rank's column of the strided seed split (``train_ffns.py:182``) over the
+whole mesh or one axis of it, through its step. ``run_replicated`` is
+that of tensor parallelism: every rank takes every seed. Both run inside
+any process group that exists, the one ``launch`` makes or a caller's
+own.
 """
 
 from __future__ import annotations
@@ -75,19 +84,29 @@ def call_each(mesh: Mesh, calls) -> list:
     return [fn(*map(arg, args), **kwargs) for fn, args, kwargs in calls]
 
 
-def run_strided(step: Callable, params, seeds, mesh: Mesh,
-                on_step: Optional[Callable[[int], None]] = None):
-    """Rank ``mesh.rank``'s share of the schedule: its step ``t`` takes
-    global seed ``seeds[t * n + rank]``. After each step the ring's error
+def run_replicated(step: Callable, params, seeds, mesh: Mesh,
+                   on_step: Optional[Callable[[int], None]] = None):
+    """Every seed of the schedule through the rank's ``step`` (JAX's
+    ``launch(..., seed_spec=P())``). After each step the ring's error
     words are read (``Mesh.check``), so a ring wait that gave up fails
     the step it happened in."""
-    for t, seed in enumerate(shard_seeds_strided(seeds, mesh.size)
-                             [:, mesh.rank]):
+    for t, seed in enumerate(seeds):
         params = step(params, int(seed))
         mesh.check()
         if on_step is not None:
             on_step(t)
     return params
+
+
+def run_strided(step: Callable, params, seeds, mesh: Mesh,
+                on_step: Optional[Callable[[int], None]] = None,
+                axis: Optional[str] = None):
+    """The rank's share of the schedule strided over ``axis`` (``None``:
+    the whole mesh): with n ranks along it, the rank of index i takes
+    global seed ``seeds[t * n + i]`` at its step ``t``."""
+    cols = shard_seeds_strided(seeds, mesh.axis_size(axis))
+    return run_replicated(step, params, cols[:, mesh.axis_index(axis)],
+                          mesh, on_step)
 
 
 def _watch_parent(parent_pid: int) -> None:
@@ -115,7 +134,8 @@ def _rank_main(rank: int, mesh: Mesh, store: str, rank_fn: Callable,
         # every rank has joined the group before any may leave it: a rank
         # that exits while a slower one still connects breaks the latter
         dist.barrier()
-        me = mesh.for_rank(rank, group=dist.group.WORLD)
+        me = mesh.for_rank(rank, group=dist.group.WORLD,
+                           groups=_axis_groups(mesh, rank))
         payload = torch.load(os.path.join(store, "payload.pt"),
                              weights_only=False)
         out = rank_fn(me, payload)
@@ -129,6 +149,23 @@ def _rank_main(rank: int, mesh: Mesh, store: str, rank_fn: Callable,
             f.write(traceback.format_exc())
         # no collective clean-up: the other ranks may be gone already
         os._exit(1)
+
+
+def _axis_groups(mesh: Mesh, rank: int) -> dict:
+    """On a mesh of two axes, make the process group of every group of
+    every axis, on every rank in the same order (``dist.new_group`` is
+    collective over the world, and under NCCL with a bound device each
+    makes its communicator at once), and return the rank's own of each
+    axis. A 1-D mesh has the world group alone."""
+    if len(mesh.shape) == 1:
+        return {}
+    mine = {}
+    for axis in mesh.shape:
+        for ranks in mesh.axis_groups(axis):
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine[axis] = group
+    return mine
 
 
 def _stop(procs) -> None:
@@ -186,15 +223,25 @@ def _launch_processes(rank_fn, mesh: Mesh, payload, timeout: float) -> list:
 def _launch_threads(rank_fn, mesh: Mesh, payload, timeout: float) -> list:
     n = mesh.size
     state = LoopbackState(n, mesh.torch_device)
+    states = [state]
+    groups: list = [{} for _ in range(n)]
+    if len(mesh.shape) > 1:
+        for axis in mesh.shape:
+            for ranks in mesh.axis_groups(axis):
+                states.append(LoopbackState(len(ranks), mesh.torch_device))
+                for r in ranks:
+                    groups[r][axis] = states[-1]
     outs: list = [None] * n
     errs: dict = {}
 
     def body(r):
         try:
-            outs[r] = rank_fn(mesh.for_rank(r, loop_state=state), payload)
+            outs[r] = rank_fn(mesh.for_rank(r, loop_state=state,
+                                            groups=groups[r]), payload)
         except BaseException as e:    # noqa: BLE001 - re-raised below
             errs[r] = e
-            state.abort()
+            for s in states:
+                s.abort()
 
     threads = [threading.Thread(target=body, args=(r,), daemon=True)
                for r in range(n)]
@@ -205,7 +252,8 @@ def _launch_threads(rank_fn, mesh: Mesh, payload, timeout: float) -> list:
         t.join(max(0.0, deadline - time.monotonic()))
     try:
         if any(t.is_alive() for t in threads):
-            state.abort()
+            for s in states:
+                s.abort()
             raise RuntimeError(f"loopback launch of {n} ranks did not "
                                f"finish within {timeout} s")
         if errs:
@@ -214,7 +262,8 @@ def _launch_threads(rank_fn, mesh: Mesh, payload, timeout: float) -> list:
                 from errs[r]
         return outs
     finally:
-        state.close()
+        for s in states:
+            s.close()
 
 
 def launch(rank_fn: Callable[[Mesh, Any], Any], mesh: Mesh, payload=None,
@@ -234,16 +283,27 @@ def launch(rank_fn: Callable[[Mesh, Any], Any], mesh: Mesh, payload=None,
     return _launch_processes(rank_fn, mesh, payload, timeout)
 
 
-def launch_strided(rank_fn: Callable, params, seeds, mesh: Mesh, *args,
-                   timeout: float = DEFAULT_TIMEOUT_S) -> list:
-    """``launch`` of a strided data-parallel trainer:
+def launch_replicated(rank_fn: Callable, params, seeds, mesh: Mesh, *args,
+                      timeout: float = DEFAULT_TIMEOUT_S) -> list:
+    """``launch`` of a trainer that hands every rank the whole schedule:
     ``rank_fn(rank_mesh, (params, seeds, *args))`` on every rank, the
-    parameters on the CPU for the trip. The split is checked here first,
-    so an indivisible schedule raises before anything is spawned."""
-    shard_seeds_strided(seeds, mesh.size)
+    parameters on the CPU for the trip (in loopback they stay on the
+    card)."""
     if not mesh.loopback:
         params = type(params)(*(t.detach().cpu() for t in params))
     return launch(rank_fn, mesh, (params, seeds) + args, timeout=timeout)
+
+
+def launch_strided(rank_fn: Callable, params, seeds, mesh: Mesh, *args,
+                   axis: Optional[str] = None,
+                   timeout: float = DEFAULT_TIMEOUT_S) -> list:
+    """``launch_replicated`` of a strided data-parallel trainer, the seeds
+    strided over ``axis`` (``None``: the whole mesh) by the rank body. The
+    split is checked here first, so an indivisible schedule raises before
+    anything is spawned."""
+    shard_seeds_strided(seeds, mesh.axis_size(axis))
+    return launch_replicated(rank_fn, params, seeds, mesh, *args,
+                             timeout=timeout)
 
 
 def refuse_unported(**options) -> None:

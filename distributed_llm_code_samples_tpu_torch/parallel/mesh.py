@@ -1,19 +1,26 @@
-"""The 1-D meshes of the port, after the JAX package's
-``parallel/mesh.py``.
+"""The meshes of the port, after the JAX package's ``parallel/mesh.py``.
 
 A JAX mesh names devices along axes and collectives address an axis by
-name. Here a mesh names a world size along one of the ported axes,
-``DATA_AXIS`` (DDP, FSDP) or ``EXPERT_AXIS`` (expert parallelism), and a
-device kind: on CUDA one process a card over NCCL, on the CPU n gloo
-processes (``parallel/launcher.py`` spawns both), or, with
-``loopback=True``, n threads of one process on one card whose peer
-collectives are single cooperative launches over n workspaces.
+name. Here a mesh names a world size along the ported axes,
+``DATA_AXIS`` (DDP, FSDP), ``EXPERT_AXIS`` (expert parallelism) or
+``MODEL_AXIS`` (tensor parallelism), alone or as the 2-D data x model
+mesh of the hybrid, and a device kind: on CUDA one process a card over
+NCCL, on the CPU n gloo processes (``parallel/launcher.py`` spawns
+both), or, with ``loopback=True``, n threads of one process on one card
+whose peer collectives are single cooperative launches over n
+workspaces.
+
+Ranks sit on the mesh as JAX's devices do: JAX reshapes its device list
+to the axes' sizes in their order, so rank r's coordinates are r
+unravelled over ``shape`` (on ``{DATA_AXIS: dp, MODEL_AXIS: tp}`` rank r
+is at ``(r // tp, r % tp)``, and a model group is a run of consecutive
+ranks).
 
 ``make_mesh`` builds the mesh a caller hands to a trainer. Inside a
 rank the launcher gives the trainer that mesh's rank view: the same
-mesh with its ``rank``, the ``torch.distributed`` group and the rank's
-``Ring`` for the ``comm="pallas_ring"`` and ``"pallas_a2a"``
-transports.
+mesh with its ``rank``, the ``torch.distributed`` group, the group of
+each axis (``axis_group``), and the rank's ``Ring`` for the
+``comm="pallas_ring"`` and ``"pallas_a2a"`` transports.
 """
 
 from __future__ import annotations
@@ -31,51 +38,56 @@ from ..ops.ring import Loopback, PeerWorkspace, Ring, ppermute_dma
 
 DATA_AXIS = "data"
 EXPERT_AXIS = "expert"
-AXES = (DATA_AXIS, EXPERT_AXIS)
+MODEL_AXIS = "model"
+AXES = (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS)
+# the meshes of two axes that are ported, in either order
+MESHES_2D = ({DATA_AXIS, MODEL_AXIS},)
 
 
 class LoopbackState:
-    """What the n threads of a loopback mesh share: one workspace of n
-    regions and its ``Loopback``, made by the first thread that asks."""
+    """What the n threads of one loopback group share: its ``Loopback``,
+    which runs the plain collectives from the start, and for the ring
+    kernels a workspace of n regions, made by the first thread that
+    asks."""
 
     def __init__(self, n: int, device: torch.device):
         self.n, self.device = n, device
-        self.loop: Optional[Loopback] = None
+        self.loop = Loopback(n)
         self._lock = threading.Lock()
 
     def get(self, nbytes: int) -> Loopback:
         with self._lock:
-            if self.loop is None:
-                self.loop = Loopback(PeerWorkspace(nbytes, self.device,
-                                                   n=self.n))
-            elif self.loop.workspace.capacity < nbytes:
+            ws = self.loop.workspace
+            if ws is None:
+                self.loop.workspace = PeerWorkspace(nbytes, self.device,
+                                                    n=self.n)
+            elif ws.capacity < nbytes:
                 raise ValueError(f"the loopback workspace holds "
-                                 f"{self.loop.workspace.capacity} bytes, "
-                                 f"{nbytes} were asked for")
+                                 f"{ws.capacity} bytes, {nbytes} were "
+                                 "asked for")
             return self.loop
 
     def abort(self) -> None:
-        with self._lock:
-            if self.loop is not None:
-                self.loop.abort()
+        self.loop.abort()
 
     def close(self) -> None:
-        if self.loop is not None:
+        if self.loop.workspace is not None:
             self.loop.workspace.close()
-            self.loop = None
+            self.loop.workspace = None
 
 
 @dataclass
 class Mesh:
-    """``shape`` ``{DATA_AXIS: n}`` or ``{EXPERT_AXIS: n}`` on ``device``
-    (``"cuda"`` or ``"cpu"``). ``rank``, ``group`` and the ring are set in
-    a rank's view only."""
+    """``shape`` (``{axis: n}``, or ``{DATA_AXIS: dp, MODEL_AXIS: tp}``)
+    on ``device`` (``"cuda"`` or ``"cpu"``). ``rank``, ``group``, the
+    axis groups and the ring are set in a rank's view only."""
     shape: dict
     device: str = "cuda"
     loopback: bool = False
     rank: Optional[int] = None
     group: Any = field(default=None, repr=False)
     _loop_state: Optional[LoopbackState] = field(default=None, repr=False)
+    _groups: dict = field(default_factory=dict, repr=False)
     _ring: Optional[Ring] = field(default=None, repr=False)
 
     @property
@@ -85,6 +97,51 @@ class Mesh:
     @property
     def in_rank(self) -> bool:
         return self.rank is not None
+
+    def axis_size(self, axis: Optional[str] = None) -> int:
+        """The ranks along ``axis`` (``None``: the whole mesh)."""
+        if axis is None:
+            return self.size
+        require_axes(self, axis)
+        return self.shape[axis]
+
+    def coords(self, rank: int) -> dict:
+        """Rank ``rank``'s coordinate on each axis (see the module
+        docstring)."""
+        out, rest = {}, rank
+        for axis, n in reversed(list(self.shape.items())):
+            out[axis], rest = rest % n, rest // n
+        return {axis: out[axis] for axis in self.shape}
+
+    def axis_index(self, axis: Optional[str] = None) -> int:
+        """This rank's index along ``axis`` (``None``: its rank)."""
+        if not self.in_rank:
+            raise ValueError("a rank's index exists inside its ranks only")
+        return self.rank if axis is None else self.coords(self.rank)[axis]
+
+    def axis_groups(self, axis: str) -> list:
+        """Every group along ``axis``: the ranks that differ only in their
+        ``axis`` coordinate, each group in that coordinate's order, the
+        groups in the order of their first rank."""
+        require_axes(self, axis)
+        groups: dict = {}
+        for r in range(self.size):
+            c = self.coords(r)
+            key = tuple(v for a, v in c.items() if a != axis)
+            groups.setdefault(key, []).append(r)
+        return list(groups.values())
+
+    def axis_group(self, axis: Optional[str] = None):
+        """This rank's group along ``axis`` (``None``: the whole mesh):
+        its ``torch.distributed`` group, or in loopback the
+        ``LoopbackState`` its group's threads share."""
+        if not self.in_rank:
+            raise ValueError("a mesh's groups exist inside its ranks only")
+        if axis is not None:
+            require_axes(self, axis)
+            if len(self.shape) > 1:
+                return self._groups[axis]
+        return self._loop_state if self.loopback else self.group
 
     @property
     def torch_device(self) -> torch.device:
@@ -97,9 +154,14 @@ class Mesh:
         return torch.device("cuda", self.rank)
 
     def for_rank(self, rank: int, group=None,
-                 loop_state: Optional[LoopbackState] = None) -> "Mesh":
+                 loop_state: Optional[LoopbackState] = None,
+                 groups: Optional[dict] = None) -> "Mesh":
+        """Rank ``rank``'s view: ``group`` the whole mesh's process group
+        (``loop_state`` its loopback state) and, on a mesh of two axes,
+        ``groups`` the rank's group of each axis."""
         return dataclasses.replace(self, rank=rank, group=group,
-                                   _loop_state=loop_state, _ring=None)
+                                   _loop_state=loop_state,
+                                   _groups=dict(groups or {}), _ring=None)
 
     def ring(self, nbytes: int = 0, probe: bool = True) -> Ring:
         """This rank's ``Ring`` with room for a tensor of ``nbytes``. The
@@ -155,12 +217,13 @@ class Mesh:
 
 def make_mesh(axes: Mapping[str, int] | None = None, device=None,
               loopback: bool = False) -> Mesh:
-    """A mesh of ``axes`` (``{DATA_AXIS: n}`` or ``{EXPERT_AXIS: n}``) on
-    ``device``: CUDA unless the CPU is asked for (``resolve_device``).
-    ``axes=None`` on CUDA takes every visible card on the data axis, as
-    the JAX ``make_mesh`` takes every device. On CUDA each rank needs a
-    card of its own unless ``loopback``. Meshes of two axes (the data x
-    expert mesh, TP, the hybrid) are not ported and raise."""
+    """A mesh of ``axes`` (one of ``DATA_AXIS``, ``EXPERT_AXIS`` and
+    ``MODEL_AXIS``, or ``{DATA_AXIS: dp, MODEL_AXIS: tp}``) on ``device``:
+    CUDA unless the CPU is asked for (``resolve_device``). ``axes=None``
+    on CUDA takes every visible card on the data axis, as the JAX
+    ``make_mesh`` takes every device. On CUDA each rank needs a card of
+    its own unless ``loopback``. The other axes and the data x expert
+    mesh are not ported and raise."""
     dev = resolve_device(device).type
     if axes is None:
         if dev != "cuda":
@@ -168,12 +231,12 @@ def make_mesh(axes: Mapping[str, int] | None = None, device=None,
                              "{DATA_AXIS: n}, device='cpu')")
         axes = {DATA_AXIS: torch.cuda.device_count()}
     axes = dict(axes)
-    if len(axes) != 1 or not set(axes) <= set(AXES):
+    if not set(axes) <= set(AXES) or (len(axes) > 1
+                                      and set(axes) not in MESHES_2D):
         raise NotImplementedError(
-            f"mesh axes {sorted(axes)}: only {DATA_AXIS!r} is ported for "
-            f"DDP and FSDP, and {EXPERT_AXIS!r} for expert parallelism, each "
-            "as a 1-D mesh (TP, the hybrid, the data x expert mesh and the "
-            "other axes are not yet)")
+            f"mesh axes {list(axes)}: the ported meshes are the 1-D mesh "
+            f"of one of {list(AXES)} and the {DATA_AXIS!r} x {MODEL_AXIS!r} "
+            "mesh (the data x expert mesh and the other axes are not yet)")
     n = math.prod(axes.values())
     if n < 1:
         raise ValueError(f"mesh {axes} has no ranks")

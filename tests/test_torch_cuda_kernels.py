@@ -1,7 +1,8 @@
 """The CUDA kernels of the LM trainer's path (flash attention forward and
 backward; the fused head's statistics and backward), the three FFN
 kernels, the paged decode attention, the ring kernels and the
-all-to-all against their plain versions, on the card. Every
+all-to-all against their plain versions, on the card, and the
+loopback trainers that run them (and TP's, which runs none). Every
 test here needs a CUDA device with nvcc and skips without one. The file
 imports no JAX, so it runs where the card is:
 
@@ -897,6 +898,44 @@ def test_loopback_ddp_and_fsdp_agree_through_the_ring_kernels(card):
     for a, b in zip(ddp, fsdp):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
     assert float((ddp.w1 - params.w1).abs().max()) > 1e-4
+
+
+@pytest.mark.cuda
+def test_loopback_tp_and_hybrid_equal_single(card):
+    """TP and TP-SP on four virtual ranks of one card and the hybrid on a
+    2 x 2 loopback mesh: their collectives are plain torch within each
+    axis group (no kernel launches), and they end where ``train_single``
+    (the hybrid with data 1 too) and DDP on two ranks end on the same
+    card."""
+    from distributed_llm_code_samples_tpu_torch.data import (
+        make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        DATA_AXIS, MODEL_AXIS, make_mesh, train_ddp, train_hybrid,
+        train_single, train_tp, train_tp_sp)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    params = init_ffn_stack(gen, 64, 2)
+    seeds = make_seed_schedule(8, 7)
+    single = train_single(params, seeds, 32, 64, lr=0.1)
+    _build.reset_launch_counts()
+    model4 = make_mesh({MODEL_AXIS: 4}, loopback=True)
+    tp = train_tp(params, seeds, 32, 64, model4, lr=0.1)
+    sp = train_tp_sp(params, seeds, 32, 64, model4, lr=0.1)
+    hybrid = train_hybrid(params, seeds, 32, 64, make_mesh(
+        {DATA_AXIS: 2, MODEL_AXIS: 2}, loopback=True), lr=0.1)
+    hybrid_tp = train_hybrid(params, seeds, 32, 64, make_mesh(
+        {DATA_AXIS: 1, MODEL_AXIS: 4}, loopback=True), lr=0.1)
+    assert _build.launch_counts() == {}
+    ddp = train_ddp(params, seeds, 32, 64, make_mesh({DATA_AXIS: 2},
+                                                     loopback=True),
+                    lr=0.1, comm="pallas_ring")
+    for got, want in ((tp, single), (sp, single), (hybrid_tp, single),
+                      (hybrid, ddp)):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert float((tp.w1 - params.w1).abs().max()) > 1e-4
 
 
 # the paged decode attention (split KV walk, csrc/paged_decode_attn.cu):

@@ -147,8 +147,11 @@ def test_strided_seeds_and_refusals(setup):
             train_fsdp(start, seeds, TOKENS, D, mesh, **kw)
     with pytest.raises(NotImplementedError, match="accum"):
         train_ddp(start, seeds, TOKENS, D, mesh, accum=2)
-    with pytest.raises(NotImplementedError, match="only 'data' is ported"):
-        make_mesh({"model": 2}, device="cpu")
+    # the meshes still refused: data x expert, and an axis not ported
+    with pytest.raises(NotImplementedError, match="data x expert"):
+        make_mesh({DATA_AXIS: 2, "expert": 2}, device="cpu")
+    with pytest.raises(NotImplementedError, match="the ported meshes"):
+        make_mesh({"pipe": 2}, device="cpu")
 
 
 def test_a_failing_or_hanging_rank_fails_the_launch(setup):
