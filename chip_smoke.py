@@ -11,6 +11,8 @@
                                            # parallelism, 4 virtual ranks
     python3 chip_smoke.py --phase tp       # TP, TP-SP and the hybrid,
                                            # 4 virtual ranks
+    python3 chip_smoke.py --phase opt      # the bf16-storage kernels, the
+                                           # optimizers, ZeRO-1, mixed
     python3 chip_smoke.py --phase dist     # ring, DDP/FSDP, all-to-all,
                                            # EP, TP, the hybrid and
                                            # cli.py -m 0 on 4 cards (not
@@ -69,7 +71,24 @@ each split size, ``paged-splits``), then drives the port's paths:
   in loopback they are plain torch within each axis group; ``--phase
   dist`` runs them one rank a card over NCCL row and column groups, and
   then the reference's own ``-m 0`` through ``cli.py`` at this shape
-  with ``--strict`` (``dist-cli-m0``).
+  with ``--strict`` (``dist-cli-m0``);
+- the stateful optimizers and the bf16 ``mixed`` policy (``--phase
+  opt``): the kernels that take bf16 storage (the all-gather of FSDP's
+  bf16 shards bit for bit, the flash forward and backward at the LM
+  shape against float64, ``bf16-kernel-case``), DDP, ZeRO-1 and FSDP of
+  that FFN stack under Adam and DDP and FSDP under clipped mixed AdamW
+  on 4 virtual ranks, 8 steps a rank (``opt-train-run``: launches, the
+  state ZeRO-1's ranks hold), their agreement and one Adam step of each
+  at ``CHECK_LR`` against float64 (``opt-train-check``), and the LM
+  under mixed AdamW through the bf16 flash kernels against the same run
+  in f32 (``opt-lm-run``, ``opt-lm-check``). ``--phase dist`` also holds
+  the bf16 gather across the 4 cards against NCCL's
+  (``dist-bf16-kernel-case``), runs those FFN strategies one rank a card
+  under both transports (``dist-opt-train-run``,
+  ``dist-opt-train-check``) and ``cli.py -m 2 --zero1 --optimizer adam
+  --mixed``, ``-m 3 --optimizer adamw --clip_norm 1.0 --mixed --comm
+  pallas_ring`` and ``-m 0 --mixed --strict`` (``dist-cli-zero1``,
+  ``dist-cli-fsdp-adamw``, ``dist-cli-m0-mixed``).
 
 It fails (exit code 1) if there is no CUDA device, if a kernel does not
 build, launch or agree, if a kernel path did not go through its
@@ -2351,12 +2370,12 @@ def _nccl_call(torch, dist, op, x):
         return y
     if op == "ring_reduce_scatter":
         y = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
-                        device=x.device)
+                        dtype=x.dtype, device=x.device)
         dist.reduce_scatter_tensor(y, x)
         return y
     if op == "ring_all_gather":
         y = torch.empty((x.shape[0] * n,) + tuple(x.shape[1:]),
-                        device=x.device)
+                        dtype=x.dtype, device=x.device)
         dist.all_gather_into_tensor(y, x)
         return y
     raise ValueError(op)
@@ -3154,25 +3173,841 @@ def tp_phase(torch, card, cards: int = 0):
           "the update check cannot tell unchanged weights from trained")
 
 
+# -- the stateful optimizers, ZeRO-1 and the bf16 mixed policy -------------
+#
+# The kernels on bf16 storage: (kernels-line row, source, the TPU kernel
+# it replaces, the launch counts it makes). FSDP's mixed gathers move bf16
+# shards through the all-gather; the LM's mixed trunk hands the flash
+# kernels bf16 q, k, v.
+BF16_KERNELS = (
+    ("ring_all_gather[bf16]", "ring_collectives.cu", "ops/pallas_ring.py:406",
+     ("ring_all_gather[bf16]",)),
+    ("flash_attn_fwd[bf16]", "flash_attn_fwd.cu",
+     "ops/pallas_attention.py:149", ("flash_attn_fwd[bf16]",)),
+    ("flash_attn_bwd[bf16]", "flash_attn_bwd.cu",
+     "ops/pallas_attention.py:254",
+     ("flash_attn_dq[bf16]", "flash_attn_dkv[bf16]")))
+# FSDP's bf16 shards under mixed: a rank's [768, 768] of each layer's w1
+# and [192, 3072] of its w2
+BF16_GATHER_CASES = (("w1_shard", (FFN_DIM // RING_N, D_MODEL)),
+                     ("w2_shard", (D_MODEL // RING_N, FFN_DIM)))
+# A bf16-storage flash call against float64 on its own bf16 inputs, with
+# the arithmetic the kernel runs (p and ds rounded to bf16, as mxu_bf16),
+# by BLOCK_TOL's measure (row_err): each output is rounded to bf16 once,
+# which moves it by up to half a bf16 step, 2^-9 of it, so a row errs by
+# about one step (on an NVIDIA H100 80GB HBM3 at 700 W: 3.0e-3 forward,
+# 2.1e-3 backward, 2^-8 = 3.9e-3); the limit is two steps. The control
+# (causal flipped) errs by O(1). Against its plain version a bf16 output
+# may differ by one bf16 step (2^-8 of the largest output) where an
+# f32-level difference flips a rounding, beside the bf16-operand limit
+# FFN_TOL[True].
+BF16_BLOCK_TOL = 2 ** -7
+BF16_STEP = 2 ** -8
+# DDP, ZeRO-1 and FSDP under Adam (and DDP and FSDP under mixed AdamW),
+# step by step: from DDP's params and Adam state after each of its 8
+# steps, one step of each strategy, |a - b| / |a - p| (Frobenius, pooled
+# over the layers) against DDP's update. Their per-rank gradients are the
+# same, summed in other orders: the first step's updates differ by some
+# 2.5e-6 (on an NVIDIA H100 80GB HBM3). Free runs are not compared: at
+# this depth a difference of 2.5e-6 in one step's update grows to 2e-3 in
+# the next and to 0.19 after 8 (momentum likewise), as ReLU masks within
+# rounding of 0 flip (the drift is printed, free_run_drift).
+OPT_AGREE = 1e-4
+# the runs held step by step: (the chain's strategy, the others)
+OPT_CHAINS = (("ddp-adam", ("zero1-adam", "fsdp-adam")),
+              ("ddp-mixed-adamw", ("fsdp-mixed-adamw",)))
+# One Adam step at CHECK_LR against a float64 Adam step from the same
+# params on the same four seeds, as tp-train-check holds TP's: each
+# strategy's update error (update_err, pooled over the layers) at most
+# UPDATE_RATIO times the f32 matmul path's (stack_grads over the four
+# seeds, summed, and the same Adam step); weights left unchanged have
+# error exactly 1 and must fail.
+# the LM under mixed AdamW: its loss within the mixed tolerance of the
+# f32 run's (rtol 2e-2, as cli.py -m 0 --mixed checks its strategies)
+MIXED_LOSS_TOL = 2e-2
+
+
+def flash_bf16_bound(name, shape):
+    """``lm_bound`` for bf16 storage: the same products at the bf16 rate,
+    q, k, v, y (dy, dq, dk, dv) at 2 bytes an element, lse (and D) at 4."""
+    bh, t, dh, causal = shape
+    pairs = bh * causal_pairs(t, t, causal)
+    fwd = name.startswith("flash_attn_fwd")
+    flops = (4 if fwd else 10) * dh * pairs
+    nbytes = (2 * (4 if fwd else 8) * bh * t * dh
+              + 4 * bh * t * (1 if fwd else 2))
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return flops, ((t_ops, "operations") if t_ops >= t_bytes
+                   else (t_bytes, "bytes"))
+
+
+def bf16_kernel_phase(torch, np, timer):
+    """The kernels that take bf16 storage, at the main path's shapes: the
+    all-gather of FSDP's two bf16 shards in loopback (``RING_N`` virtual
+    ranks), bit for bit against its plain ring and the concatenation in
+    float64; the flash forward and backward at the LM shape against their
+    plain versions and against float64 on their own inputs
+    (``BF16_BLOCK_TOL``, with the causal-flipped control). Each is timed
+    beside the f32 call on the same values."""
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        flash_attention as fa)
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    rows = []
+    op = "ring_all_gather"
+    ws = ring.PeerWorkspace(4 * FFN_DIM * D_MODEL, "cuda", n=RING_N)
+    try:
+        for k, (tag, shape) in enumerate(BF16_GATHER_CASES):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(600 + k)
+            xs = [torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                  for _ in range(RING_N)]
+            got = ring.loopback(op, xs, ws)
+            again = ring.loopback(op, xs, ws)
+            torch.cuda.synchronize()
+            ws.check()
+            want = ring.loopback_ref(op, xs)
+            bits = all(g.dtype == torch.bfloat16 and torch.equal(
+                g.view(torch.int16), w.view(torch.int16))
+                for g, w in zip(got, want))
+            same = all(torch.equal(g.view(torch.int16), a.view(torch.int16))
+                       for g, a in zip(got, again))
+            f64 = ring_err(torch, got, ring_want(torch, op, xs))
+            control = ring_err(torch, got, ring_want(torch, op, xs,
+                                                     control=True))
+            xs32 = [x.float() for x in xs]
+            b_ms, b_by = ring_loopback_bound(op, 2 * xs[0].numel(), RING_N)
+            row = dict(kernel="ring_all_gather[bf16]", shape=tag,
+                       dims=list(shape), ranks=RING_N, mode="loopback",
+                       max_abs_err=max(float((g.float() - w.float()).abs()
+                                             .max())
+                                       for g, w in zip(got, want)),
+                       bit_identical=bits, deterministic=same,
+                       err_vs_f64=f64, control_err_vs_f64=control,
+                       ok=bits and same and f64 <= RING_TOL
+                       and control > RING_TOL,
+                       ms=timer.ms(lambda: ring.loopback(op, xs, ws)),
+                       ms_with_host=timer.ms(lambda: ring.loopback(op, xs,
+                                                                   ws),
+                                             with_host=True),
+                       plain_ms=timer.ms(lambda: ring.loopback_ref(op, xs)),
+                       f32_ms=timer.ms(lambda: ring.loopback(op, xs32, ws)),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            rows.append(row)
+            print("bf16-kernel-case " + json.dumps(row), flush=True)
+            del xs, xs32, got, again, want
+    finally:
+        ws.close()
+
+    tag, bh, t, dh, causal = FLASH_SHAPES[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(610)
+    q, k, v = (torch.randn(bh, t, dh, generator=gen,
+                           device="cuda").bfloat16() for _ in range(3))
+    dy = (0.1 * torch.randn(bh, t, dh, generator=gen,
+                            device="cuda")).bfloat16()
+    y, lse = fa.flash_attention_fwd_ref(q, k, v, causal=causal)
+    f32 = [a.float() for a in (q, k, v, dy, y)]
+    cases = (
+        ("flash_attn_fwd[bf16]", fa.flash_attention_fwd, (q, k, v),
+         (f32[0], f32[1], f32[2]), False),
+        ("flash_attn_bwd[bf16]", fa.flash_attention_bwd,
+         (dy, q, k, v, y, lse), (f32[3], f32[0], f32[1], f32[2], f32[4],
+                                 lse), True))
+    for name, kern_fn, args, args32, backward in cases:
+        ref_fn = getattr(fa, kern_fn.__name__ + "_ref")
+        kern = partial(kern_fn, *args, causal=causal)
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        want = ref_fn(*args, causal=causal)
+        errs = [float((g.float() - w.float()).abs().max())
+                for g, w in zip(got, want)]
+        scales = [float(w.float().abs().max()) for w in want]
+        rel = max(e / s for e, s in zip(errs, scales))
+        args64 = [a.double() for a in args]
+        want64 = ref_fn(*args64, causal=causal, mxu_bf16=True)
+        flipped = kern_fn(*args, causal=not causal)
+
+        def err64(outs):
+            return max(row_err(torch, o.reshape(-1, o.shape[-1]) if o.dim()
+                               > 1 else o.reshape(1, -1),
+                               w.reshape(-1, w.shape[-1]) if w.dim() > 1
+                               else w.reshape(1, -1))
+                       for o, w in zip(outs, want64))
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        dtypes = [str(g.dtype) for g in got]
+        want_dtypes = [str(w.dtype) for w in want]
+        f64, control = err64(got), err64(flipped)
+        flops, (b_ms, b_by) = flash_bf16_bound(name, (bh, t, dh, causal))
+        ms = timer.ms(kern)
+        row = dict(kernel=name, shape=tag, dims=[bh, t, dh, causal],
+                   out_dtypes=dtypes, max_abs_err=max(errs), rel_err=rel,
+                   tol=FFN_TOL[True] + BF16_STEP, err_vs_f64=f64,
+                   control_err_vs_f64=control, bf16_block_tol=BF16_BLOCK_TOL,
+                   deterministic=same,
+                   ok=finite and same and dtypes == want_dtypes
+                   and rel <= FFN_TOL[True] + BF16_STEP
+                   and f64 <= BF16_BLOCK_TOL and control > BF16_BLOCK_TOL,
+                   ms=ms, plain_ms=timer.ms(partial(ref_fn, *args,
+                                                    causal=causal)),
+                   f32_ms=timer.ms(partial(kern_fn, *args32,
+                                           causal=causal)),
+                   bound_ms=b_ms, bound_by=b_by,
+                   tflops_per_s=flops / ms / 1e9,
+                   library_ms=sdpa_ms(torch, timer, q, k, v, dy, causal,
+                                      backward))
+        rows.append(row)
+        print("bf16-kernel-case " + json.dumps(row), flush=True)
+        del got, again, want, want64, flipped, args64
+    return rows
+
+
+def opt_train_phase(torch, np, card):
+    """The stateful optimizers and ZeRO-1 at ``TRAIN``'s width on
+    ``RING_N`` virtual ranks of one card: DDP (ring all-reduce), ZeRO-1
+    (its reduce-scatter and all-gather: plain torch in loopback, as
+    ``collectives.py`` runs them there) and FSDP (ring gathers and
+    reduce-scatters) under Adam, and DDP and FSDP under mixed AdamW
+    clipped at 1.0 (FSDP's gathers bf16), 8 steps a rank at the package
+    LR (``opt-train-run``), pairwise agreement (``OPT_AGREE``), the state
+    ZeRO-1's ranks hold, then one Adam step of each at ``CHECK_LR``
+    against float64 (``opt-train-check``). Returns the launches of the
+    mixed FSDP run."""
+    from distributed_llm_code_samples_tpu_torch import LR, optim
+    from distributed_llm_code_samples_tpu_torch.data import (
+        batch_from_seed, make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        FFNStackParams, init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        ffn_block, launch_counts, reset_launch_counts, stack_grads)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        DATA_AXIS, fsdp, launch, make_mesh, train_ddp, train_ddp_zero1,
+        train_fsdp, unshard_params, zero1)
+    t_phase = time.perf_counter()
+    d, n_layers, tokens = TRAIN["d_model"], TRAIN["n_layers"], TRAIN["tokens"]
+    steps_n = TRAIN["steps"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TRAIN["random_seed"])
+    params = init_ffn_stack(gen, d, n_layers)
+    seeds = make_seed_schedule(RING_N * steps_n, TRAIN["random_seed"])
+    mesh = make_mesh({DATA_AXIS: RING_N}, loopback=True)
+    flops = 12 * tokens * d * FFN_DIM * n_layers * RING_N
+    ring = dict(comm="pallas_ring")
+    runs = {
+        "ddp-adam": (train_ddp, dict(optimizer=optim.adam(), **ring)),
+        "zero1-adam": (train_ddp_zero1, dict(optimizer=optim.adam(),
+                                             return_state=True)),
+        "fsdp-adam": (train_fsdp, dict(optimizer=optim.adam(), **ring)),
+        "ddp-mixed-adamw": (train_ddp, dict(
+            optimizer=optim.clipped(optim.adamw(), 1.0), mixed=True, **ring)),
+        "fsdp-mixed-adamw": (train_fsdp, dict(
+            optimizer=optim.clipped(optim.adamw(), 1.0, axis=DATA_AXIS),
+            mixed=True, **ring))}
+    layer_calls = n_layers * steps_n
+    want = {"ddp-adam": {"ring_all_reduce": 2 * layer_calls,
+                         "ppermute_dma": 1},
+            "zero1-adam": {},
+            "fsdp-adam": {"ring_all_gather": 4 * layer_calls,
+                          "ring_reduce_scatter": 2 * layer_calls,
+                          "ppermute_dma": 1}}
+    want["ddp-mixed-adamw"] = want["ddp-adam"]
+    want["fsdp-mixed-adamw"] = {"ring_all_gather[bf16]": 4 * layer_calls,
+                                "ring_reduce_scatter": 2 * layer_calls,
+                                "ppermute_dma": 1}
+
+    def run(name, seeds, lr):
+        trainer, kw = runs[name]
+
+        def body(me, _):
+            stamps = []
+
+            def on_step(_):
+                if me.rank == 0:
+                    torch.cuda.synchronize()
+                    stamps.append(time.perf_counter())
+            out = trainer(params, seeds, tokens, d, me, lr=lr,
+                          on_step=on_step, **kw)
+            return out, stamps
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = launch(body, mesh, timeout=600)
+        got = launch_counts()
+        per_rank = [o[0] for o in outs]
+        state = None
+        if name.startswith("zero1"):
+            state = [o[1] for o in per_rank]
+            per_rank = [o[0] for o in per_rank]
+        full = (unshard_params(per_rank) if name.startswith("fsdp")
+                else per_rank[0])
+        return full, state, outs[0][1], t0, got
+
+    finals, launches = {}, {}
+    for name in runs:
+        full, state, stamps, t0, got = run(name, seeds, LR)
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        med = statistics.median(steps[1:])
+        row = dict(run=f"{name}-loopback", ranks=RING_N, mode="loopback",
+                   optimizer=runs[name][1]["optimizer"].name,
+                   mixed=runs[name][1].get("mixed", False),
+                   steps_per_rank=len(steps), tokens_per_rank_step=tokens,
+                   median_step_ms=1e3 * med, first_step_ms=1e3 * steps[0],
+                   tokens_per_s=RING_N * tokens / med,
+                   model_tflops_per_s=flops / med / 1e12,
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                   / 2 ** 30, kernel_launches=got, card=card)
+        if state is not None:
+            row["state_layers_per_rank"] = [int(s.mu.w1.shape[0])
+                                            for s in state]
+            row["state_gb_per_rank"] = [
+                sum(4 * x.numel() for x in optim.tree_tensors(s)) / 2 ** 30
+                for s in state]
+            check(all(s.mu.w1.shape[0] == n_layers // RING_N
+                      and s.nu.w2.shape[0] == n_layers // RING_N
+                      for s in state),
+                  f"ZeRO-1's ranks hold {row['state_layers_per_rank']} "
+                  f"layers of Adam state, not {n_layers // RING_N} each")
+        print("opt-train-run " + json.dumps(row), flush=True)
+        check(got == want[name], f"{name} loopback: launches {got}, "
+              f"expected {want[name]}")
+        check(all(bool(torch.isfinite(t).all()) for t in full),
+              f"{name}: the trained params are not finite")
+        finals[name], launches[name] = full, got
+        del state
+
+    drift = {f"{a}/{b}": opt_agree(finals[a], finals[b], params)[0]
+             for a, others in OPT_CHAINS for b in others}
+    del finals
+
+    def one_step(name, p, state, s):
+        trainer, kw = runs[name]
+        kind = name.split("-")[0]
+        shard = {"zero1": zero1.shard_state,
+                 "fsdp": fsdp.shard_state}.get(kind)
+
+        def body(me, _):
+            k = dict(kw, return_state=True)
+            if state is not None:
+                k["opt_state"] = shard(state, me) if shard else state
+            return trainer(p, s, tokens, d, me, lr=LR, **k)
+
+        outs = launch(body, mesh, timeout=600)
+        if kind == "fsdp":
+            return (unshard_params([o[0] for o in outs]),
+                    fsdp.unshard_state([o[1] for o in outs]))
+        if kind == "zero1":
+            return outs[0][0], zero1.unshard_state([o[1] for o in outs])
+        return outs[0]
+
+    pairs = opt_step_chains(one_step, params, seeds, RING_N, steps_n)
+
+    # one Adam step a rank at CHECK_LR from the same params: each
+    # strategy's update against float64's (and the f32 matmul path's)
+    g64 = g32 = None
+    p64 = FFNStackParams(*(t.double() for t in params))
+    for seed in seeds[:RING_N]:
+        x, dl = batch_from_seed(seed, tokens, d, device=params.w1.device)
+        g = stack_grads(p64.w1, p64.w2, x.double(), dl.double(),
+                        block=ffn_block)[1]
+        g64 = g if g64 is None else tuple(a + b for a, b in zip(g64, g))
+        g = stack_grads(params.w1, params.w2, x, dl, block=ffn_block)[1]
+        g32 = g if g32 is None else tuple(a + b for a, b in zip(g32, g))
+    adam = optim.adam()
+    want64 = adam.update(FFNStackParams(*g64), adam.init(p64), p64,
+                         CHECK_LR)[0]
+    del g64, p64
+    base = adam.update(FFNStackParams(*g32), adam.init(params), params,
+                       CHECK_LR)[0]
+    del g32
+
+    def errs(got):
+        return [update_err(torch, g, w, p0)
+                for g, w, p0 in zip(got, want64, params)]
+
+    base_errs = errs(base)
+    del base
+    row = dict(mode="loopback", check_lr=CHECK_LR,
+               update_ratio_limit=UPDATE_RATIO, agree=pairs,
+               agree_limit=OPT_AGREE, chain_steps=steps_n,
+               free_run_drift=drift,
+               f32_matmul_update_err_vs_f64=base_errs)
+    ratios = {}
+    for name in ("ddp-adam", "zero1-adam", "fsdp-adam"):
+        e = errs(run(name, seeds[:RING_N], CHECK_LR)[0])
+        row[f"{name}_update_err_vs_f64"] = e
+        ratios[name] = max(a / b for a, b in zip(e, base_errs))
+    unchanged = min(1.0 / b for b in base_errs)
+    row.update(update_err_ratio_max=ratios, unchanged_ratio_min=unchanged,
+               phase_s=time.perf_counter() - t_phase, card=card)
+    print("opt-train-check " + json.dumps(row), flush=True)
+    for pair, a in pairs.items():
+        check(a <= OPT_AGREE, f"{pair}: their updates differ by {a:.2e}")
+    for name, ratio in ratios.items():
+        check(ratio <= UPDATE_RATIO, f"{name}'s Adam update {ratio:.2f}x as "
+              "far from float64 as the f32 matmul path's")
+    check(unchanged > UPDATE_RATIO,
+          "the update check cannot tell unchanged weights from trained")
+    return launches["fsdp-mixed-adamw"]
+
+
+def opt_step_chains(one_step, params, seeds, n, steps):
+    """Each chain of ``OPT_CHAINS``: its strategy's ``steps`` steps from
+    ``params``, and at each step every other strategy's one step from the
+    same params and optimizer state (``one_step(name, p, state, seeds) ->
+    (full params, full state)``, ``n`` seeds a step); returns the largest
+    ``opt_agree`` share of each pair over the steps."""
+    agree = {}
+    for ref, others in OPT_CHAINS:
+        p, state = params, None
+        for t in range(steps):
+            s = seeds[t * n:(t + 1) * n]
+            outs = {name: one_step(name, p, state, s)
+                    for name in (ref,) + others}
+            for name in others:
+                key = f"{ref}/{name}"
+                agree[key] = max(agree.get(key, 0.0), opt_agree(
+                    outs[ref][0], outs[name][0], p)[0])
+            p, state = outs[ref]
+            del outs
+    return agree
+
+
+def opt_agree(a, b, p0):
+    """``(|a - b| / |a - p0|, max |a - b| / max |a - p0|)`` over every
+    leaf of two runs' params from the start ``p0`` (``OPT_AGREE``)."""
+    num = sum(float((x.double() - y.double()).norm() ** 2)
+              for x, y in zip(a, b)) ** 0.5
+    den = sum(float((x.double() - p.double()).norm() ** 2)
+              for x, p in zip(a, p0)) ** 0.5
+    peak = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    moved = max(float((x - p).abs().max()) for x, p in zip(a, p0))
+    return num / den, peak / moved
+
+
+def opt_lm_phase(torch, np, card):
+    """``train_lm_single`` at ``LM`` with AdamW, under ``mixed`` (the bf16
+    trunk: the flash kernels on bf16 storage) and in f32, flash attention
+    and the fused head, 8 steps each (``opt-lm-run``); the mixed run's
+    launches (12 bf16 forwards, dkv and dq a step), and its loss against
+    the f32 run's at the start and after the steps (``opt-lm-check``).
+    Returns the mixed run's launches."""
+    from distributed_llm_code_samples_tpu_torch import LR, optim
+    from distributed_llm_code_samples_tpu_torch.data import (
+        lm_batch_from_seed, make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.lm import (
+        init_lm, lm_leaves, lm_loss)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        resolve_attn, resolve_head, train_lm_single)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM["random_seed"])
+    params = init_lm(gen, LM["vocab"], LM["d_model"], LM["n_layers"],
+                     LM["seq_len"], n_heads=LM["n_heads"])
+    seeds = make_seed_schedule(LM["steps"], LM["random_seed"])
+    flops = LM_BLOCK_FLOPS + LM_HEAD_FLOPS
+    steps_n, layers = LM["steps"], LM["n_layers"]
+
+    def run(mixed):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        stamps = []
+
+        def on_step(_):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        t0 = time.perf_counter()
+        out = train_lm_single(params, seeds, LM_TOKENS, LM["d_model"],
+                              lr=LR, seq_len=LM["seq_len"],
+                              n_heads=LM["n_heads"], attn_impl="flash",
+                              head_impl="fused", optimizer=optim.adamw(),
+                              mixed=mixed, on_step=on_step)
+        launches = launch_counts()
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        med = statistics.median(steps[1:])
+        print("opt-lm-run " + json.dumps(dict(
+            run="mixed-adamw" if mixed else "f32-adamw", mixed=mixed,
+            optimizer="adamw", attn_impl="flash", head_impl="fused",
+            steps=len(steps), tokens_per_step=LM_TOKENS,
+            median_step_ms=1e3 * med, first_step_ms=1e3 * steps[0],
+            tokens_per_s=LM_TOKENS / med,
+            model_tflops_per_s=flops / med / 1e12,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            kernel_launches=launches, card=card)), flush=True)
+        return out, launches
+
+    mixed_out, launches = run(True)
+    f32_out, f32_launches = run(False)
+    want = {"flash_attn_fwd[bf16]": layers * steps_n,
+            "flash_attn_dkv[bf16]": layers * steps_n,
+            "flash_attn_dq[bf16]": layers * steps_n,
+            "head_xent_stats": steps_n, "head_xent_bwd": steps_n}
+    b = LM_TOKENS // LM["seq_len"]
+    toks, tgts = lm_batch_from_seed(int(seeds[0]), b, LM["seq_len"],
+                                    LM["vocab"], device="cuda")
+    attn, head = resolve_attn("flash"), resolve_head("fused")
+    with torch.no_grad():
+        loss = {(when, mixed): float(lm_loss(p, toks, tgts, LM["n_heads"],
+                                             attn, head, mixed=mixed))
+                for when, p in (("start", params), ("end-mixed", mixed_out),
+                                ("end-f32", f32_out))
+                for mixed in (True, False)}
+    start_rel = abs(loss["start", True] - loss["start", False]) / \
+        abs(loss["start", False])
+    end_rel = abs(loss["end-mixed", True] - loss["end-f32", False]) / \
+        abs(loss["end-f32", False])
+    f32_leaves = all(t.dtype == torch.float32 for t in lm_leaves(mixed_out))
+    print("opt-lm-check " + json.dumps(dict(
+        launches=launches, want_launches=want,
+        f32_run_launches=f32_launches,
+        loss_start_mixed=loss["start", True],
+        loss_start_f32=loss["start", False],
+        loss_end_mixed=loss["end-mixed", True],
+        loss_end_f32=loss["end-f32", False], loss_start_rel=start_rel,
+        loss_end_rel=end_rel, tol=MIXED_LOSS_TOL, params_f32=f32_leaves,
+        card=card)), flush=True)
+    check(launches == want, f"mixed LM run: launches {launches}, expected "
+          f"{want}")
+    check(all(np.isfinite(v) for v in loss.values()),
+          f"an LM loss is not finite: {loss}")
+    check(start_rel <= MIXED_LOSS_TOL and end_rel <= MIXED_LOSS_TOL,
+          f"the mixed LM's loss differs from f32's by {start_rel:.2e} at "
+          f"the start, {end_rel:.2e} after the steps")
+    check(f32_leaves, "the mixed LM's params are not f32")
+    return launches
+
+
+def bf16_kernel_rows(cases, launches, mode="loopback"):
+    """The bf16-storage kernels' entries of the kernels line: launches
+    from the main path's runs (FSDP's mixed gathers, the LM's mixed
+    trunk), the rest from the main case of each (the w1 shard's gather)."""
+    rows = []
+    for name, src, replaces, counted in BF16_KERNELS:
+        mine = [c for c in cases if c["kernel"] == name]
+        if not mine:            # --phase dist holds the gather alone
+            continue
+        main = next(c for c in mine if c["shape"] in ("w1_shard", "main"))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"distributed_llm_code_samples_tpu_torch/csrc/{src}",
+            "replaces": f"distributed_llm_code_samples_tpu/{replaces}",
+            "launches": None if launches is None
+            else sum(launches.get(c, 0) for c in counted),
+            "launches_by_kernel": None if launches is None
+            else {c: launches.get(c, 0) for c in counted},
+            "mode": mode, "storage": "bf16",
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": main["ms"], "f32_ms": main["f32_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "ok": all(c["ok"] for c in mine)})
+    return rows
+
+
+def dist_opt_rank(mesh, payload):
+    """One rank of ``--phase dist``'s optimizer part (its card is
+    ``cuda:<rank>``): the all-gather of FSDP's two bf16 shards across the
+    cards against its plain ring (NCCL point to point) and NCCL's
+    ``all_gather_into_tensor`` on bf16, bit for bit; then the opt phase's
+    FFN runs one rank a card under both transports (ZeRO-1 under psum
+    alone, as in the CLI), their launches, ZeRO-1's state shards and the
+    pairwise agreement (``OPT_AGREE``), and one Adam step of each at
+    ``CHECK_LR`` against float64 (``UPDATE_RATIO``). Rank 0 prints; it
+    returns the gather cases and the mixed FSDP ring run's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_llm_code_samples_tpu_torch import LR, optim
+    from distributed_llm_code_samples_tpu_torch.data import (
+        batch_from_seed, make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        FFNStackParams, init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        ffn_block, launch_counts, reset_launch_counts, ring, stack_grads)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        DATA_AXIS, fsdp, train_ddp, train_ddp_zero1, train_fsdp, zero1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r, n, dev = mesh.rank, mesh.size, mesh.torch_device
+    card = payload["card"]
+    lead = r == 0
+
+    def say(tag, row):
+        if lead:
+            print(f"{tag} " + json.dumps(row), flush=True)
+
+    def gathered(value):
+        out = [None] * n
+        dist.all_gather_object(out, value)
+        return out
+
+    def bits(a, b):
+        return a.dtype == b.dtype and torch.equal(a.view(torch.int16),
+                                                  b.view(torch.int16))
+
+    # -- the bf16 gather across the cards -----------------------------------
+    timer = Timer(torch)
+    token = torch.zeros(1, device=dev)
+    aligned = partial(timer.ms, align=partial(dist.all_reduce, token))
+    rg = mesh.ring(4 * FFN_DIM * D_MODEL)
+    op = "ring_all_gather"
+    cases = []
+    for k, (tag, shape) in enumerate(BF16_GATHER_CASES):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(620 + 10 * k + r)
+        x = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        kern = partial(ring.ring_all_gather, x, rg)
+        plain = partial(ring.ring_all_gather_ref, x, rg)
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        mesh.check()
+        want = plain()
+        xs = _all_inputs(torch, dist, x)
+        f64 = [w[r] for w in (ring_want(torch, op, xs),
+                              ring_want(torch, op, xs, control=True))]
+        nccl = _nccl_call(torch, dist, op, x)
+        row = dict(kernel="ring_all_gather[bf16]", shape=tag,
+                   dims=list(shape), ranks=n, mode="4 cards",
+                   bit_identical_to_plain=bits(got, want),
+                   bit_identical_to_nccl=bits(got, nccl),
+                   deterministic=bits(got, again),
+                   max_abs_err=float((got.float() - want.float()).abs()
+                                     .max()),
+                   err_vs_f64=ring_err(torch, [got], [f64[0]]),
+                   control_err_vs_f64=ring_err(torch, [got], [f64[1]]),
+                   ms=aligned(kern),
+                   ms_with_host=timer.ms(kern, with_host=True),
+                   plain_ms=aligned(plain),
+                   f32_ms=aligned(partial(ring.ring_all_gather, x.float(),
+                                          rg)),
+                   library_ms=aligned(partial(_nccl_call, torch, dist, op,
+                                              x)))
+        row["bound_ms"], row["bound_by"] = ring_dist_bound(
+            op, 2 * x.numel(), n)
+        every = gathered({key: row[key] for key in
+                          ("ms", "err_vs_f64", "control_err_vs_f64",
+                           "bit_identical_to_plain", "bit_identical_to_nccl",
+                           "deterministic")})
+        row["ms_max_over_ranks"] = max(e["ms"] for e in every)
+        row["ok"] = all(e["bit_identical_to_plain"]
+                        and e["bit_identical_to_nccl"] and e["deterministic"]
+                        and e["err_vs_f64"] <= RING_TOL
+                        and e["control_err_vs_f64"] > RING_TOL
+                        for e in every)
+        say("dist-bf16-kernel-case", row)
+        cases.append(row)
+        del x, xs, got, again, want, nccl, f64
+
+    # -- the FFN strategies under Adam and mixed AdamW -----------------------
+    d, n_layers, tokens = TRAIN["d_model"], TRAIN["n_layers"], TRAIN["tokens"]
+    steps_n = TRAIN["steps"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRAIN["random_seed"])
+    params = init_ffn_stack(gen, d, n_layers)
+    seeds = make_seed_schedule(n * steps_n, TRAIN["random_seed"])
+    flops = 12 * tokens * d * FFN_DIM * n_layers * n
+    layer_calls = n_layers * steps_n
+    trainers = {
+        "ddp-adam": (train_ddp, lambda: dict(optimizer=optim.adam())),
+        "zero1-adam": (train_ddp_zero1, lambda: dict(
+            optimizer=optim.adam())),
+        "fsdp-adam": (train_fsdp, lambda: dict(optimizer=optim.adam())),
+        "ddp-mixed-adamw": (train_ddp, lambda: dict(
+            optimizer=optim.clipped(optim.adamw(), 1.0), mixed=True)),
+        "fsdp-mixed-adamw": (train_fsdp, lambda: dict(
+            optimizer=optim.clipped(optim.adamw(), 1.0, axis=DATA_AXIS),
+            mixed=True))}
+    ring_want_launches = {
+        "ddp-adam": {"ring_all_reduce": 2 * layer_calls, "ppermute_dma": 1},
+        "fsdp-adam": {"ring_all_gather": 4 * layer_calls,
+                      "ring_reduce_scatter": 2 * layer_calls,
+                      "ppermute_dma": 1},
+        "fsdp-mixed-adamw": {"ring_all_gather[bf16]": 4 * layer_calls,
+                             "ring_reduce_scatter": 2 * layer_calls,
+                             "ppermute_dma": 1}}
+    ring_want_launches["ddp-mixed-adamw"] = ring_want_launches["ddp-adam"]
+    runs = [(name, "psum") for name in trainers] + [
+        (name, "pallas_ring") for name in trainers if name != "zero1-adam"]
+
+    def full(t, dim):
+        return torch.cat(_all_inputs(torch, dist, t.contiguous()), dim)
+
+    def run(name, comm, seeds=seeds, lr=LR, start=params, opt_state=None):
+        """``name`` over ``seeds`` from ``start`` (and, given, the full
+        ``opt_state``): the full params, the full state (FSDP's and
+        ZeRO-1's gathered from the ranks' shards), the step times, the
+        launches and the layers of the rank's own state."""
+        trainer, kw = trainers[name]
+        kind = name.split("-")[0]
+        kw = dict(kw(), return_state=True)
+        if kind != "zero1":
+            kw["comm"] = comm
+        view = mesh.for_rank(r, group=mesh.group)
+        if opt_state is not None:
+            shard = {"zero1": zero1.shard_state,
+                     "fsdp": fsdp.shard_state}.get(kind)
+            kw["opt_state"] = shard(opt_state, view) if shard else opt_state
+        stamps = []
+
+        def on_step(_):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out, state = trainer(start, seeds, tokens, d, view, lr=lr,
+                             on_step=on_step, **kw)
+        launches = launch_counts()
+        view.close()
+        layers = int(state.mu.w1.shape[0])
+        if kind in ("zero1", "fsdp"):
+            dim = 0 if kind == "zero1" else 1
+            state = optim.tree_map(lambda t: full(t, dim) if t.dim() == 3
+                                   else t, state)
+        if kind == "fsdp":
+            out = FFNStackParams(*(full(t, 1) for t in out))
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        return out, state, steps, launches, layers
+
+    finals, mixed_ring_launches = {}, None
+    for name, comm in runs:
+        out, state, steps, got, layers = run(name, comm)
+        med = statistics.median(steps[1:])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        every = gathered(dict(med=med, launches=got, peak=peak,
+                              layers=layers))
+        row = dict(run=f"{name}-{comm}", ranks=n, mode="4 cards",
+                   steps_per_rank=len(steps), tokens_per_rank_step=tokens,
+                   median_step_ms=1e3 * med,
+                   median_step_ms_max_over_ranks=1e3 * max(e["med"]
+                                                           for e in every),
+                   first_step_ms=1e3 * steps[0],
+                   tokens_per_s=n * tokens / med,
+                   model_tflops_per_s=flops / med / 1e12,
+                   max_memory_allocated_gb_per_rank=[e["peak"]
+                                                     for e in every],
+                   kernel_launches_per_rank=[e["launches"] for e in every],
+                   card=card)
+        if name.startswith("zero1"):
+            row["state_layers_per_rank"] = [e["layers"] for e in every]
+            check(all(e["layers"] == n_layers // n for e in every),
+                  f"ZeRO-1's ranks hold {row['state_layers_per_rank']} "
+                  f"layers of Adam state, not {n_layers // n} each")
+        say("dist-opt-train-run", row)
+        want = (ring_want_launches[name] if comm == "pallas_ring" else {})
+        check(all(e["launches"] == want for e in every),
+              f"{name}-{comm}: launches {[e['launches'] for e in every]}, "
+              f"expected {want} on every rank")
+        check(all(bool(torch.isfinite(t).all()) for t in out),
+              f"{name}-{comm}: the trained params are not finite")
+        if (name, comm) == ("fsdp-mixed-adamw", "pallas_ring"):
+            mixed_ring_launches = got
+        finals[name, comm] = out
+        del out, state
+
+    drift = {f"{a}/{b}/{comm}": opt_agree(finals[a, comm], finals[b, comm],
+                                          params)[0]
+             for comm in ("psum", "pallas_ring")
+             for a, others in OPT_CHAINS for b in others
+             if (b, comm) in finals}
+    del finals
+
+    def one_step(name, p, state, s):
+        out, state = run(name, "pallas_ring", s, start=p,
+                         opt_state=state)[:2]
+        return out, state
+
+    every = gathered(opt_step_chains(one_step, params, seeds, n, steps_n))
+    pairs = {k: max(e[k] for e in every) for k in every[0]}
+
+    # -- one Adam step a rank at CHECK_LR against float64 --------------------
+    x, dl = batch_from_seed(int(seeds[r]), tokens, d, device=dev)
+    p64 = FFNStackParams(*(t.double() for t in params))
+    g64 = [g.contiguous() for g in stack_grads(
+        p64.w1, p64.w2, x.double(), dl.double(), block=ffn_block)[1]]
+    g32 = [g.contiguous() for g in stack_grads(params.w1, params.w2, x, dl,
+                                               block=ffn_block)[1]]
+    for g in g64 + g32:
+        dist.all_reduce(g)
+    adam = optim.adam()
+    want64 = adam.update(FFNStackParams(*g64), adam.init(p64), p64,
+                         CHECK_LR)[0]
+    base = adam.update(FFNStackParams(*g32), adam.init(params), params,
+                       CHECK_LR)[0]
+    del g64, g32, p64
+
+    def errs(got):
+        return [update_err(torch, g, w, p0)
+                for g, w, p0 in zip(got, want64, params)]
+
+    base_errs = errs(base)
+    del base
+    mine = {"unchanged": min(1.0 / b for b in base_errs)}
+    for name, comm in runs:
+        if "mixed" in name:
+            continue
+        e = errs(run(name, comm, seeds[:n], CHECK_LR)[0])
+        mine[f"{name}-{comm}"] = max(a / b for a, b in zip(e, base_errs))
+    mine["f32_matmul"] = max(base_errs)
+    every = gathered(mine)
+    ratios = {k: max(e[k] for e in every) for k in mine
+              if k not in ("unchanged", "f32_matmul")}
+    say("dist-opt-train-check", dict(
+        mode="4 cards", check_lr=CHECK_LR, update_ratio_limit=UPDATE_RATIO,
+        update_err_ratio_max=ratios,
+        f32_matmul_update_err_vs_f64_max=max(e["f32_matmul"] for e in every),
+        unchanged_ratio_min=min(e["unchanged"] for e in every),
+        agree=pairs, agree_limit=OPT_AGREE, chain_steps=steps_n,
+        chain_comm="pallas_ring (ZeRO-1: psum)", free_run_drift=drift,
+        card=card))
+    for pair, a in pairs.items():
+        check(a <= OPT_AGREE, f"{pair}: their updates differ by {a:.2e}")
+    for k, ratio in ratios.items():
+        check(ratio <= UPDATE_RATIO, f"{k}'s Adam update {ratio:.2f}x as far "
+              "from float64 as the f32 matmul path's")
+    check(min(e["unchanged"] for e in every) > UPDATE_RATIO,
+          "the update check cannot tell unchanged weights from trained")
+    return dict(cases=cases, launches=mixed_ring_launches)
+
+
 # the reference's own default invocation, -m 0, at TRAIN's shape on every
 # card (--phase dist)
 CLI_M0 = ("-m", "0", "-s", "8", "-bs", "8", "-n", "1024", "-l", "24", "-d",
           "768", "-r", "7", "--strict", "--comm", "pallas_ring")
+# the optimizer slice's runs of the CLI at the same shape on every card
+# (--phase dist): ZeRO-1 under Adam and mixed, FSDP under clipped mixed
+# AdamW over the ring kernels (its gathers bf16), and -m 0 under mixed
+CLI_OPT = (
+    ("dist-cli-zero1", ("-m", "2", "--zero1", "--optimizer", "adam",
+                        "--mixed") + CLI_M0[2:14]),
+    ("dist-cli-fsdp-adamw", ("-m", "3", "--optimizer", "adamw",
+                             "--clip_norm", "1.0", "--mixed", "--comm",
+                             "pallas_ring") + CLI_M0[2:14]),
+    ("dist-cli-m0-mixed", CLI_M0 + ("--mixed",)))
 
 
-def cli_m0_phase(cards) -> None:
-    """``cli.py -m 0 ... --strict`` as a subprocess: methods 1-4 in turn,
-    then DDP against FSDP and single-device against TP. Prints its exit
-    code, its ``takes`` and ``verify`` lines, every ``SoftAssertionError``
-    line and each method's step time (``dist-cli-m0``)."""
+def cli_m0_phase(cards, argv=CLI_M0, tag="dist-cli-m0") -> None:
+    """``cli.py`` with ``argv`` (default ``-m 0 ... --strict``: methods 1-4
+    in turn, then DDP against FSDP and single-device against TP) as a
+    subprocess. Prints its exit code, its ``takes`` and ``verify`` lines,
+    every ``SoftAssertionError`` line and each method's step time and
+    launches (``tag``)."""
     cmd = [sys.executable, "-m", "distributed_llm_code_samples_tpu_torch.cli",
-           *CLI_M0]
+           *argv]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     lines = out.stdout.splitlines()
     runs = [json.loads(l) for l in lines if l.startswith("{")]
-    print("dist-cli-m0 " + json.dumps(dict(
-        argv=list(CLI_M0), rc=out.returncode,
+    print(f"{tag} " + json.dumps(dict(
+        argv=list(argv), rc=out.returncode,
         seconds=time.perf_counter() - t0,
         takes=[l for l in lines if " takes " in l],
         verify=[json.loads(l.split(" ", 1)[1]) for l in lines
@@ -3180,13 +4015,15 @@ def cli_m0_phase(cards) -> None:
         soft_assertions=[l for l in lines
                          if l.startswith("SoftAssertionError")],
         runs=[{k: r.get(k) for k in ("method", "ranks", "mesh", "comm",
+                                     "optimizer", "zero1", "mixed",
                                      "median_step_ms", "tokens_per_s",
                                      "model_tflops_per_s",
                                      "kernel_launches")} for r in runs],
         cards=cards)), flush=True)
     if out.returncode != 0:
-        print("dist-cli-m0-stderr\n" + out.stderr[-4000:], flush=True)
-    check(out.returncode == 0, f"cli -m 0 --strict exited {out.returncode}")
+        print(f"{tag}-stderr\n" + out.stderr[-4000:], flush=True)
+    check(out.returncode == 0, f"cli {' '.join(argv)} exited "
+          f"{out.returncode}")
 
 
 def card_lines() -> list:
@@ -3225,10 +4062,18 @@ def dist_phase(torch, tp_only: bool = False):
                                 mode="4 cards")
         rows.append(a2a_kernel_row(out["a2a_cases"], out["ep_launches"],
                                    mode="4 cards"))
+        opt = launch(dist_opt_rank, make_mesh({DATA_AXIS: RING_N},
+                                              device="cuda"),
+                     {"card": cards}, timeout=900)[0]
+        rows += bf16_kernel_rows(opt["cases"], opt["launches"],
+                                 mode="4 cards")
         for row in rows:
             row["cards"] = cards
     tp_phase(torch, cards, cards=RING_N)
     cli_m0_phase(cards)
+    if not tp_only:
+        for tag, argv in CLI_OPT:
+            cli_m0_phase(cards, argv, tag)
     return rows
 
 
@@ -3236,7 +4081,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
                     choices=["all", "kernel", "train", "lm", "ring", "ep",
-                             "tp", "dist", "dist-tp"],
+                             "tp", "opt", "dist", "dist-tp"],
                     default="all")
     args = ap.parse_args(argv)
     try:
@@ -3280,6 +4125,7 @@ def main(argv=None) -> int:
     kernels, bad = [], []
     ffn_phases, lm_phases = ("all", "kernel", "train"), ("all", "lm")
     ring_phases, ep_phases = ("all", "ring"), ("all", "ep")
+    opt_phases = ("all", "opt")
     if args.phase in ("all", "kernel"):
         cases = kernel_phase(torch, np, timer)
         bad += [c for c in cases if not c["ok"]]
@@ -3297,8 +4143,11 @@ def main(argv=None) -> int:
     if args.phase in ep_phases:
         a2a_cases = a2a_kernel_phase(torch, np, timer)
         bad += [c for c in a2a_cases if not c["ok"]]
+    if args.phase in opt_phases:
+        bf16_cases = bf16_kernel_phase(torch, np, timer)
+        bad += [c for c in bf16_cases if not c["ok"]]
     launches = ffn_launches = lm_launches = ring_launches = None
-    ep_launches = None
+    ep_launches = bf16_launches = None
     if not bad and args.phase == "all":
         launches = serving_phase(torch, np, card)
     if not bad and args.phase in ("all", "train"):
@@ -3311,6 +4160,9 @@ def main(argv=None) -> int:
         ep_launches = ep_train_phase(torch, np, card)
     if not bad and args.phase in ("all", "tp"):
         tp_phase(torch, card)
+    if not bad and args.phase in opt_phases:
+        bf16_launches = dict(opt_train_phase(torch, np, card),
+                             **opt_lm_phase(torch, np, card))
     if args.phase in ("all", "kernel"):
         main_case = next(c for c in cases if c["shape"] == "serving"
                          and c["kv_dtype"] == "f32")
@@ -3336,6 +4188,8 @@ def main(argv=None) -> int:
         kernels += ring_kernel_rows(ring_cases, ring_launches)
     if args.phase in ep_phases:
         kernels.append(a2a_kernel_row(a2a_cases, ep_launches))
+    if args.phase in opt_phases:
+        kernels += bf16_kernel_rows(bf16_cases, bf16_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     if bad:
         print(f"error: kernel disagrees with its plain version: {bad}",

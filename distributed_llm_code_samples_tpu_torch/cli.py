@@ -15,6 +15,9 @@ parallelism of the MoE stack).
         --fake_devices 4 -m 5 --tp 2 -s 8 -bs 2 -n 16 -l 2 -d 32 -r 7
     python -m distributed_llm_code_samples_tpu_torch.cli --device cpu \\
         --fake_devices 4 -m 7 -s 8 -bs 4 -n 16 -l 2 -d 32 -r 7 --experts 8
+    python -m distributed_llm_code_samples_tpu_torch.cli --device cpu \\
+        --fake_devices 4 -m 2 --zero1 --optimizer adam --mixed -s 8 -bs 2 \\
+        -n 16 -l 4 -d 32 -r 7
 
 The reference's seven flags keep their short names and defaults; the
 default method is 0, as the reference's; any method not listed exits 2.
@@ -32,12 +35,22 @@ JAX CLI's, ``--experts`` and the LR and leaves the rest at
 dense dispatch, ``comm="psum"``); its tokens a step (``-bs`` x ``-n``)
 are the whole EP group's.
 
+The training options follow the JAX CLI's rules: ``--optimizer``
+(``optim.OPTIMIZERS``) and ``--clip_norm`` apply to methods 2 and 3
+(clipping sums its norm over the data axis where the update runs on
+shards: FSDP and ZeRO-1); ``--zero1`` runs method 2 as
+``train_ddp_zero1`` (the optimizer state sharded over the ranks, not
+with ``--comm pallas_ring``); ``--mixed`` (bf16 matmul operands) applies
+to methods 1-5, also inside 0, and not with ``--pallas``; ``--accum``
+to methods 1 and 2.
+
 It prints the reference's banner, ``PARAMS:`` line and the first layer's
 5x5 corners, then for each method its ``<trainer> takes N seconds`` line,
 its final corners and one JSON line: steps, tokens per step (a rank;
 the group's for method 7), wall time, the median step time (host clock,
 each step ending in a synchronize, the first step left out unless it is
-the only one; rank 0's for the multi-rank methods), and from it tokens/s
+the only one; rank 0's for the multi-rank methods), the training
+options, and from it tokens/s
 and the model TFLOP/s (``12 * T * d * ffn * L`` a step for each batch
 the mesh takes: once for TP, whose ranks share one batch, once a data
 rank for DDP, FSDP and the hybrid; for method 7 T counts every routed
@@ -47,9 +60,10 @@ parameters. Method 0 then holds DDP against FSDP and single-device
 against TP, leaf by leaf, within rtol 1e-5 and atol 1e-7 (1e-4 and 1e-5
 under ``--pallas``): one ``verify`` line a pair, a ``SoftAssertionError:``
 line for each leaf that disagrees, and with ``--strict`` exit code 1 if
-one does. ``--pallas`` applies to method 1 and ``--comm`` to methods 2
-and 3, also inside method 0. The kernels a run uses on the card are
-built before the clock starts (``build_s``).
+one does; under ``--mixed`` within rtol 2e-2, atol 1e-4 (TP's bf16
+contraction is split over the shards). ``--pallas`` applies to method 1
+and ``--comm`` to methods 2 and 3, also inside method 0. The kernels a
+run uses on the card are built before the clock starts (``build_s``).
 """
 
 from __future__ import annotations
@@ -64,8 +78,11 @@ PORTED_METHODS = (0, 1, 2, 3, 4, 5, 7)
 RANK_METHODS = (2, 3, 4, 5, 7)
 TRAINERS = {1: "train_single", 2: "train_ddp", 3: "train_fsdp",
             4: "train_tp", 5: "train_hybrid", 7: "train_moe_ep"}
-# method 0's checks (JAX cli.py:944-955): (rtol, atol), and under --pallas
+# method 0's checks (JAX cli.py:944-955): (rtol, atol), under --pallas and
+# under --mixed
 CHECK_TOL, PALLAS_CHECK_TOL = (1e-5, 1e-7), (1e-4, 1e-5)
+MIXED_CHECK_TOL = (2e-2, 1e-4)
+OPTIMIZER_NAMES = ("sgd", "momentum", "adam", "adamw")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -89,11 +106,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "block through the three CUDA kernels (their plain "
                         "versions on the CPU)")
     p.add_argument("--mixed", action="store_true",
-                   help="with --method 1: bf16 matmul operands, f32 "
-                        "params/grads/sums")
+                   help="with --method 1-5 (also inside 0, with --zero1 and "
+                        "--tp_sp): bf16 matmul operands, f32 params/grads/"
+                        "sums; FSDP gathers its shards in bf16")
     p.add_argument("--accum", type=int, default=1,
-                   help="with --method 1: gradient-accumulation chunks per "
-                        "step (SUM semantics)")
+                   help="with --method 1 or 2 (also --zero1): gradient-"
+                        "accumulation chunks per step (SUM semantics)")
+    p.add_argument("--optimizer", choices=OPTIMIZER_NAMES, default="sgd",
+                   help="with --method 2 or 3: the update rule (optim.py; "
+                        "sgd is the reference's inline SGD)")
+    p.add_argument("--clip_norm", type=float, default=0.0,
+                   help="with --method 2 or 3: clip the gradients to this "
+                        "global norm (0: off)")
+    p.add_argument("--zero1", action="store_true",
+                   help="with --method 2: ZeRO-1, the optimizer state "
+                        "sharded over the ranks (train_ddp_zero1)")
     p.add_argument("--lr", type=float, default=None,
                    help="learning rate (default: the reference's 1e-5)")
     p.add_argument("--scan", action="store_true",
@@ -136,17 +163,33 @@ def _flag_error(args) -> str | None:
                 f"{', '.join(map(str, PORTED_METHODS))})")
     if args.comm is not None and m not in (0, 2, 3):
         return "--comm applies to --method 2 (DDP) or 3 (FSDP), or 0"
+    if args.zero1 and m != 2:
+        return "--zero1 applies to --method 2 only"
+    if args.zero1 and args.comm not in (None, "psum"):
+        return ("--comm pallas_ring does not apply to --zero1 (ZeRO-1's "
+                "reduce-scatter and all-gather keep the psum transport); "
+                "drop one of the flags")
+    if args.mixed and args.pallas:
+        return ("--mixed cannot combine with --pallas: the fused kernel "
+                "block has its own residual and precision policy")
+    if args.mixed and m not in (0, 1, 2, 3, 4, 5):
+        return "--mixed applies to --method 1-5 (also inside 0)"
+    if args.accum != 1 and m not in (1, 2):
+        return "--accum applies to --method 1 or 2 only"
+    if args.optimizer != "sgd" and m not in (2, 3):
+        return "--optimizer applies to --method 2 or 3 only"
+    if args.clip_norm and m not in (2, 3):
+        return "--clip_norm applies to --method 2 or 3 only"
+    if args.clip_norm < 0:
+        return f"--clip_norm must be >= 0 (got {args.clip_norm})"
     if args.fake_devices and m not in (0,) + RANK_METHODS:
         return "--fake_devices applies to --method 0, 2, 3, 4, 5 or 7"
     if args.fake_devices and args.device != "cpu":
         return ("--fake_devices runs gloo ranks on the CPU: pass --device "
                 "cpu (on the card there is one rank a card)")
-    if m in (0,) + RANK_METHODS and (args.mixed or args.accum != 1
-                                     or (args.pallas and m != 0)):
-        return ("--pallas, --mixed and --accum apply to --method 1 (the "
-                "multi-rank trainers run the matmul blocks; mixed and "
-                "accumulation are not ported there yet); --pallas also "
-                "to method 1 inside 0")
+    if args.pallas and m not in (0, 1):
+        return ("--pallas applies to --method 1, also inside 0 (the "
+                "multi-rank trainers run the matmul blocks)")
     if args.tp_sp and m != 4:
         return "--tp_sp applies to --method 4 only"
     if (args.dp is not None or args.tp is not None) and m != 5:
@@ -182,6 +225,10 @@ def _meshes(args, tokens: int, seeds, device) -> dict:
             if m == 3 and ffn % n:
                 raise ValueError(f"FSDP shards d and ffn over {n} ranks: "
                                  f"-d {args.model_size} does not split")
+            if args.zero1 and args.layers % n:
+                raise ValueError(f"{args.layers} layers not divisible "
+                                 f"across {n} ranks: ZeRO-1 partitions "
+                                 "optimizer state in whole-layer units")
             meshes[m] = make_mesh({DATA_AXIS: n}, device=device.type)
         elif m == 4:
             if ffn % n or (args.tp_sp and tokens % n):
@@ -219,9 +266,9 @@ def _rank_run(mesh, payload):
     import torch
 
     from .ops import launch_counts, reset_launch_counts
-    from .parallel import (train_ddp, train_fsdp, train_hybrid,
-                           train_moe_ep, train_tp, train_tp_sp)
-    params, seeds, tokens, d, lr, method, comm, tp_sp = payload
+    from .parallel import (train_ddp, train_ddp_zero1, train_fsdp,
+                           train_hybrid, train_moe_ep, train_tp, train_tp_sp)
+    params, seeds, tokens, d, lr, method, comm, tp_sp, options = payload
     cuda = mesh.torch_device.type == "cuda"
 
     def sync():
@@ -234,11 +281,13 @@ def _rank_run(mesh, payload):
         sync()
         stamps.append(time.perf_counter())
 
-    kwargs = dict(on_step=on_step)
-    if method in (2, 3, 7):
+    kwargs = dict(on_step=on_step, **options)
+    if method in (2, 3, 7) and not options.get("zero1"):
         kwargs["comm"] = comm
     train = {2: train_ddp, 3: train_fsdp, 4: train_tp_sp if tp_sp
              else train_tp, 5: train_hybrid, 7: train_moe_ep}[method]
+    if kwargs.pop("zero1", False):
+        train = train_ddp_zero1
     sync()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -340,11 +389,14 @@ def main(argv=None) -> int:
             out, payload = _run_ranks(args, m, meshes[m], params, seeds,
                                       tokens, lr, comm)
         results[m] = out
-        print(f"final {TRAINERS[m]} {_corners(out, moe)}")
+        name = ("train_ddp_zero1" if m == 2 and args.zero1
+                else TRAINERS[m])
+        print(f"final {name} {_corners(out, moe)}")
         print(json.dumps(dict(common, **payload,
                               layer_checksums=_checksums(out))), flush=True)
     if args.method == 0:
-        failed = _check(results, *(PALLAS_CHECK_TOL if args.pallas
+        failed = _check(results, *(PALLAS_CHECK_TOL if args.pallas else
+                                    MIXED_CHECK_TOL if args.mixed
                                     else CHECK_TOL))
         return 1 if failed and args.strict else 0
     return 0
@@ -405,12 +457,15 @@ def _run_ranks(args, m: int, mesh, params, seeds, tokens: int, lr: float,
     # the batches the mesh takes a step: one a data rank (DDP, FSDP, the
     # hybrid); TP's ranks share one, and EP's tokens are the group's
     batches = {2: n, 3: n, 4: 1, 5: mesh.shape.get(DATA_AXIS, 1), 7: 1}[m]
-    comm = comm if m in (2, 3, 7) else "psum"
+    comm = comm if m in (2, 3, 7) and not args.zero1 else "psum"
+    options = _rank_options(args, m)
     t0 = time.perf_counter()
     outs = launch_replicated(_rank_run, params, seeds, mesh, tokens,
-                             args.model_size, lr, m, comm, args.tp_sp)
+                             args.model_size, lr, m, comm, args.tp_sp,
+                             options)
     wall = time.perf_counter() - t0
-    print(f"\n{TRAINERS[m]} takes {wall} seconds")
+    name = "train_ddp_zero1" if args.zero1 else TRAINERS[m]
+    print(f"\n{name} takes {wall} seconds")
     shards = [(MoEStackParams if m == 7 else FFNStackParams)(*o["params"])
               for o in outs if o["params"] is not None]
     if m == 2:
@@ -437,6 +492,9 @@ def _run_ranks(args, m: int, mesh, params, seeds, tokens: int, lr: float,
         "device": outs[0]["device"],
         "kernel_launches": outs[0]["launches"],
         "kernel_launches_per_rank": [o["launches"] for o in outs],
+        "mixed": args.mixed, "accum": args.accum,
+        "optimizer": (getattr(options.get("optimizer"), "name", None)),
+        "zero1": args.zero1,
     }
     if m == 4:
         payload["sequence_parallel"] = args.tp_sp
@@ -445,6 +503,32 @@ def _run_ranks(args, m: int, mesh, params, seeds, tokens: int, lr: float,
         payload["router_checksums"] = [float(out.wg[l].double().sum())
                                        for l in range(out.n_layers)]
     return out, payload
+
+
+def _rank_options(args, m: int) -> dict:
+    """The trainer keywords of method ``m`` from the training flags (JAX
+    ``cli.py``'s): ``mixed`` for 2-5, ``accum`` for 2, and for 2 and 3
+    the optimizer, clipped (over the data axis where the update runs on
+    shards) when ``--clip_norm`` is set; ``zero1`` picks
+    ``train_ddp_zero1``."""
+    from .optim import OPTIMIZERS, clipped
+    from .parallel import DATA_AXIS
+    out = {}
+    if args.mixed and m in (2, 3, 4, 5):
+        out["mixed"] = True
+    if args.accum != 1 and m == 2:
+        out["accum"] = args.accum
+    if m in (2, 3) and (args.optimizer != "sgd" or args.zero1
+                        or args.clip_norm):
+        opt = OPTIMIZERS[args.optimizer]()
+        if args.clip_norm:
+            sharded = m == 3 or args.zero1
+            opt = clipped(opt, args.clip_norm,
+                          axis=DATA_AXIS if sharded else None)
+        out["optimizer"] = opt
+    if args.zero1:
+        out["zero1"] = True
+    return out
 
 
 def _check(results: dict, rtol: float, atol: float) -> bool:

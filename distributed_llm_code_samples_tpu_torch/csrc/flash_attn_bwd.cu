@@ -9,7 +9,11 @@
 // rowsum(dy * y) (which the JAX package computes outside its kernels),
 // dq = ds k * scale, dk = ds^T q * scale, dv = p^T dy. With mxu_bf16, q,
 // k, v, dy and the p and ds tiles are rounded to bf16 before the
-// products they feed.
+// products they feed. With bf16 storage (the JAX kernels given bf16 q,
+// k, v, dy and y: their dq, dk, dv are bf16) the tiles and D's operands
+// are read as bf16, the math is the mxu_bf16 math, lse, D and the ds^T
+// scratch stay f32, and dq, dk and dv are rounded to bf16 when stored
+// (flash_common.cuh).
 //
 // What bounds it: operations. The function needs five products (s, dp,
 // dq, dk, dv), 10*dh flops per visible (query, key) pair, against about
@@ -56,6 +60,8 @@
 // passes the stream, and gets the first CUDA error back. The dkv launch
 // comes first.
 
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 namespace {
@@ -74,8 +80,10 @@ constexpr int kScratchKeys = 128; // the scratch's key rows: Tk rounded up
 constexpr int kDqThreads = 64, kDqBK = 16, kDqStages = 3;
 
 struct Bwd {
-  const float *q, *k, *v, *dy, *lse, *D;
-  float *dq, *dk, *dv, *dsT;
+  const void *q, *k, *v, *dy;   // T: float or __nv_bfloat16
+  const float *lse, *D;
+  void *dq, *dk, *dv;           // T
+  float* dsT;
   int BH, Tq, Tk, dh, Tqp, Tkp;   // Tqp, Tkp: the scratch's padded extents
   int causal, vec;
   float scale;
@@ -86,9 +94,11 @@ __host__ __device__ constexpr int dkv_floats(int key_tile, int stages) {
          2 * kQB * (key_tile + 4);
 }
 
-template <int kKB, int kStages, bool kBf16>
+template <int kKB, int kStages, bool kBf16, typename T>
 __global__ void __launch_bounds__(kDkvThreads, 1)
     flash_dkv_kernel(const Bwd a) {
+  // bf16 storage holds bf16 values already: only f32 tiles are rounded
+  constexpr bool kRound = kBf16 && std::is_same<T, float>::value;
   constexpr int KI = kKB / 16;     // keys a thread: 8 or 4
   constexpr int kPs = kKB + 4;     // row stride of p and ds, [query][key]
   extern __shared__ float4 smem4[];
@@ -101,8 +111,10 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const int bh = b % a.BH, k0 = (b / a.BH) * kKB;
   const size_t qo = static_cast<size_t>(bh) * a.Tq;
   const size_t ko = static_cast<size_t>(bh) * a.Tk;
-  const float* q = a.q + qo * a.dh;
-  const float* dy = a.dy + qo * a.dh;
+  const T* q = static_cast<const T*>(a.q) + qo * a.dh;
+  const T* dy = static_cast<const T*>(a.dy) + qo * a.dh;
+  const T* kg = static_cast<const T*>(a.k) + ko * a.dh;
+  const T* vg = static_cast<const T*>(a.v) + ko * a.dh;
   const float* lse = a.lse + qo;
   const float* D = a.D + qo;
   float* dsT = a.dsT + static_cast<size_t>(bh) * a.Tkp * a.Tqp;
@@ -115,8 +127,8 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const int first = a.causal ? k0 / kQB : 0;
   const int dh4 = (a.dh + 3) & ~3;
 
-  load_rows<kKB, kDkvThreads>(ks, kLd, a.k + ko * a.dh, k0, a.Tk, a.dh, vec);
-  load_rows<kKB, kDkvThreads>(vs, kLd, a.v + ko * a.dh, k0, a.Tk, a.dh, vec);
+  load_rows<kKB, kDkvThreads>(ks, kLd, kg, k0, a.Tk, a.dh, vec);
+  load_rows<kKB, kDkvThreads>(vs, kLd, vg, k0, a.Tk, a.dh, vec);
   if (first < nq) {
     load_rows<kQB, kDkvThreads>(ring, kLd, q, first * kQB, a.Tq, a.dh, vec);
     load_rows<kQB, kDkvThreads>(ring + kQB * kLd, kLd, dy, first * kQB,
@@ -143,7 +155,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
       gemm::cp_async_commit();
     }
     gemm::cp_async_wait<0>();
-    if (kBf16) {
+    if (kRound) {
       if (it == first) {
         round_rows<kKB, kDkvThreads>(ks, kLd);
         round_rows<kKB, kDkvThreads>(vs, kLd);
@@ -267,7 +279,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     }
   }
 
-  float* out = (grp == 0 ? a.dv : a.dk) + ko * a.dh;
+  T* out = static_cast<T*>(grp == 0 ? a.dv : a.dk) + ko * a.dh;
   const float scale = grp == 0 ? 1.f : a.scale;
 #pragma unroll
   for (int i = 0; i < KI; ++i) {
@@ -276,14 +288,16 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
       if (4 * tx + jj < a.dh)
-        out[static_cast<size_t>(kr) * a.dh + 4 * tx + jj] = acc[i][jj] * scale;
+        out[static_cast<size_t>(kr) * a.dh + 4 * tx + jj] =
+            flash::narrow<T>(acc[i][jj] * scale);
   }
 }
 
 // D[r] = sum over c < dh of dy[r][c] * y[r][c], 16 threads a row (each
-// in column order, then a fixed shuffle tree).
-__global__ void flash_rowsum_kernel(const float* __restrict__ dy,
-                                    const float* __restrict__ y,
+// in column order, then a fixed shuffle tree), in f32.
+template <typename T>
+__global__ void flash_rowsum_kernel(const T* __restrict__ dy,
+                                    const T* __restrict__ y,
                                     float* __restrict__ D, long long rows,
                                     int dh) {
   const long long r =
@@ -292,7 +306,7 @@ __global__ void flash_rowsum_kernel(const float* __restrict__ dy,
   float s = 0.f;
   if (r < rows)
     for (int c = lane; c < dh; c += 16)
-      s = fmaf(dy[r * dh + c], y[r * dh + c], s);
+      s = fmaf(flash::widen(dy[r * dh + c]), flash::widen(y[r * dh + c]), s);
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   if (lane == 0 && r < rows) D[r] = s;
@@ -305,15 +319,16 @@ __device__ __forceinline__ int quad8(int base, int q) {
   return (q < 4 ? 0 : 32 - 4) + base * 4 + q;
 }
 
-template <bool kBf16>
+template <bool kBf16, typename T>
 __global__ void __launch_bounds__(kDqThreads)
     flash_dq_kernel(const Bwd a) {
+  constexpr bool kRound = kBf16 && std::is_same<T, float>::value;
   constexpr int kStage = kDqBK * (kQB + kDH);
   __shared__ __align__(16) float ring[kDqStages * kStage];
   const int nq = (a.Tq + kQB - 1) / kQB;
   const int b = static_cast<int>(blockIdx.x);
   const int bh = b % a.BH, q0 = (nq - 1 - b / a.BH) * kQB;
-  const float* k = a.k + static_cast<size_t>(bh) * a.Tk * a.dh;
+  const T* k = static_cast<const T*>(a.k) + static_cast<size_t>(bh) * a.Tk * a.dh;
   const float* ds = a.dsT + static_cast<size_t>(bh) * a.Tkp * a.Tqp + q0;
   const int kend = a.causal ? min(a.Tk, q0 + kQB) : a.Tk;
   const int steps = (kend + kDqBK - 1) / kDqBK;
@@ -352,7 +367,7 @@ __global__ void __launch_bounds__(kDqThreads)
     gemm::cp_async_wait<kDqStages - 2>();
     const float* as = ring + (s % kDqStages) * kStage;
     float* bs = ring + (s % kDqStages) * kStage + kDqBK * kQB;
-    if (kBf16) round_rows<kDqBK, kDqThreads>(bs, kDH);
+    if (kRound) round_rows<kDqBK, kDqThreads>(bs, kDH);
     __syncthreads();   // step s landed; step s-1's stage is free
     const int ns = s + kDqStages - 1;
     if (ns < steps) load(ns, ns % kDqStages);
@@ -377,7 +392,7 @@ __global__ void __launch_bounds__(kDqThreads)
   }
   gemm::cp_async_wait<0>();
 
-  float* dq = a.dq + static_cast<size_t>(bh) * a.Tq * a.dh;
+  T* dq = static_cast<T*>(a.dq) + static_cast<size_t>(bh) * a.Tq * a.dh;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int qr = q0 + quad8(ty, i);
@@ -386,14 +401,15 @@ __global__ void __launch_bounds__(kDqThreads)
     for (int j = 0; j < 8; ++j) {
       const int c = quad8(tx, j);
       if (c < a.dh)
-        dq[static_cast<size_t>(qr) * a.dh + c] = acc[i][j] * a.scale;
+        dq[static_cast<size_t>(qr) * a.dh + c] =
+            flash::narrow<T>(acc[i][j] * a.scale);
     }
   }
 }
 
-template <int kKB, int kStages, bool kBf16>
+template <int kKB, int kStages, bool kBf16, typename T>
 cudaError_t launch_dkv(const Bwd& a, cudaStream_t st) {
-  auto kern = flash_dkv_kernel<kKB, kStages, kBf16>;
+  auto kern = flash_dkv_kernel<kKB, kStages, kBf16, T>;
   const size_t smem = dkv_floats(kKB, kStages) * sizeof(float);
   const cudaError_t e =
       ffn::set_smem(reinterpret_cast<const void*>(kern), smem);
@@ -402,17 +418,18 @@ cudaError_t launch_dkv(const Bwd& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <bool kBf16>
+template <bool kBf16, typename T>
 cudaError_t dkv(const Bwd& a, int key_tile, int stages, cudaStream_t st) {
   if (key_tile == 128)
-    return stages == 2 ? launch_dkv<128, 2, kBf16>(a, st)
-                       : launch_dkv<128, 1, kBf16>(a, st);
-  return stages == 2 ? launch_dkv<64, 2, kBf16>(a, st)
-                     : launch_dkv<64, 1, kBf16>(a, st);
+    return stages == 2 ? launch_dkv<128, 2, kBf16, T>(a, st)
+                       : launch_dkv<128, 1, kBf16, T>(a, st);
+  return stages == 2 ? launch_dkv<64, 2, kBf16, T>(a, st)
+                     : launch_dkv<64, 1, kBf16, T>(a, st);
 }
 
-bool aligned(const void* p) {
-  return (reinterpret_cast<size_t>(p) & 15) == 0;
+// 16-byte aligned (a float4 of f32), or with bf16 storage 8-byte (4 bf16)
+bool aligned(const void* p, int bf16 = 0) {
+  return (reinterpret_cast<size_t>(p) & (bf16 ? 7 : 15)) == 0;
 }
 
 bool bad(int BH, int Tq, int Tk, int dh, const float* dsT) {
@@ -420,9 +437,9 @@ bool bad(int BH, int Tq, int Tk, int dh, const float* dsT) {
          static_cast<long long>((Tk + kQB - 1) / kQB) * BH > 0x7fffffff;
 }
 
-Bwd args(const float* q, const float* k, const float* v, const float* dy,
+Bwd args(const void* q, const void* k, const void* v, const void* dy,
          const float* lse, const float* D, float* dsT, int BH, int Tq, int Tk,
-         int dh, int causal) {
+         int dh, int causal, int bf16) {
   Bwd a = {};
   a.q = q;
   a.k = k;
@@ -438,8 +455,10 @@ Bwd args(const float* q, const float* k, const float* v, const float* dy,
   a.Tqp = (Tq + kQB - 1) / kQB * kQB;
   a.Tkp = (Tk + kScratchKeys - 1) / kScratchKeys * kScratchKeys;
   a.causal = causal != 0;
-  a.vec = dh % 4 == 0 && aligned(k) && (q == nullptr || aligned(q)) &&
-          (v == nullptr || aligned(v)) && (dy == nullptr || aligned(dy));
+  a.vec = dh % 4 == 0 && aligned(k, bf16) &&
+          (q == nullptr || aligned(q, bf16)) &&
+          (v == nullptr || aligned(v, bf16)) &&
+          (dy == nullptr || aligned(dy, bf16));
   a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
   return a;
 }
@@ -451,44 +470,58 @@ extern "C" {
 // q, dy, y [BH, Tq, dh], k, v [BH, Tk, dh], lse [BH, Tq] -> dk, dv [BH,
 // Tk, dh], D = rowsum(dy * y) [BH, Tq] and the scratch dsT [BH][Tk rounded
 // up to 128][Tq rounded up to 64] (16-byte aligned; only the tiles the
-// mask leaves are written), all f32; dh <= 64. key_tile 64 or 128, stages
-// 1 or 2; causal, mxu_bf16: 0 or 1. Returns a cudaError_t as int; 0 on
-// success.
-int flash_attn_dkv_launch(const float* q, const float* k, const float* v,
-                          const float* dy, const float* lse, const float* y,
-                          float* dk, float* dv, float* D, float* dsT, int BH,
+// mask leaves are written); q, k, v, dy, y, dk and dv f32, or bf16 when
+// bf16 is 1 (mxu_bf16 then changes nothing), lse, D and dsT f32; dh <= 64.
+// key_tile 64 or 128, stages 1 or 2; causal, mxu_bf16: 0 or 1. Returns a
+// cudaError_t as int; 0 on success.
+int flash_attn_dkv_launch(const void* q, const void* k, const void* v,
+                          const void* dy, const float* lse, const void* y,
+                          void* dk, void* dv, float* D, float* dsT, int BH,
                           int Tq, int Tk, int dh, int causal, int key_tile,
-                          int stages, int mxu_bf16, void* stream) {
+                          int stages, int mxu_bf16, int bf16, void* stream) {
   if (bad(BH, Tq, Tk, dh, dsT) || (key_tile != 64 && key_tile != 128) ||
       (stages != 1 && stages != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  Bwd a = args(q, k, v, dy, lse, D, dsT, BH, Tq, Tk, dh, causal);
+  Bwd a = args(q, k, v, dy, lse, D, dsT, BH, Tq, Tk, dh, causal, bf16);
   a.dk = dk;
   a.dv = dv;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long rows = static_cast<long long>(BH) * Tq;
-  flash_rowsum_kernel<<<static_cast<unsigned>((rows + 15) / 16), 256, 0,
-                        st>>>(dy, y, D, rows, dh);
+  const unsigned grid = static_cast<unsigned>((rows + 15) / 16);
+  if (bf16)
+    flash_rowsum_kernel<<<grid, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(dy),
+        static_cast<const __nv_bfloat16*>(y), D, rows, dh);
+  else
+    flash_rowsum_kernel<<<grid, 256, 0, st>>>(
+        static_cast<const float*>(dy), static_cast<const float*>(y), D, rows,
+        dh);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(mxu_bf16 ? dkv<true>(a, key_tile, stages, st)
-                                   : dkv<false>(a, key_tile, stages, st));
+  if (bf16)
+    return static_cast<int>(dkv<true, __nv_bfloat16>(a, key_tile, stages, st));
+  return static_cast<int>(mxu_bf16
+                              ? dkv<true, float>(a, key_tile, stages, st)
+                              : dkv<false, float>(a, key_tile, stages, st));
 }
 
-// k [BH, Tk, dh] and the dkv launch's dsT -> dq [BH, Tq, dh].
-int flash_attn_dq_launch(const float* k, const float* dsT, float* dq, int BH,
+// k [BH, Tk, dh] and the dkv launch's dsT -> dq [BH, Tq, dh] (k and dq f32,
+// or bf16 when bf16 is 1).
+int flash_attn_dq_launch(const void* k, const float* dsT, void* dq, int BH,
                          int Tq, int Tk, int dh, int causal, int mxu_bf16,
-                         void* stream) {
+                         int bf16, void* stream) {
   if (bad(BH, Tq, Tk, dh, dsT)) return static_cast<int>(cudaErrorInvalidValue);
   Bwd a = args(nullptr, k, nullptr, nullptr, nullptr, nullptr,
-               const_cast<float*>(dsT), BH, Tq, Tk, dh, causal);
+               const_cast<float*>(dsT), BH, Tq, Tk, dh, causal, bf16);
   a.dq = dq;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (Tq + kQB - 1) / kQB * BH;
-  if (mxu_bf16)
-    flash_dq_kernel<true><<<blocks, kDqThreads, 0, st>>>(a);
+  if (bf16)
+    flash_dq_kernel<true, __nv_bfloat16><<<blocks, kDqThreads, 0, st>>>(a);
+  else if (mxu_bf16)
+    flash_dq_kernel<true, float><<<blocks, kDqThreads, 0, st>>>(a);
   else
-    flash_dq_kernel<false><<<blocks, kDqThreads, 0, st>>>(a);
+    flash_dq_kernel<false, float><<<blocks, kDqThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,10 @@
 // zeroed after the exp where masked (a fully masked row would otherwise
 // give exp(-1e30 - -1e30) = 1). No [Tq, Tk] tile reaches device memory.
 // With mxu_bf16, q, k, v and p are rounded to bf16 before the products
-// (l sums p before its rounding, as the plain version does).
+// (l sums p before its rounding, as the plain version does). With bf16
+// storage (the JAX kernel given bf16 q, k, v: its y is bf16, its lse
+// f32) the tiles are read as bf16, the math is the mxu_bf16 math, and y
+// is rounded to bf16 when stored (flash_common.cuh).
 //
 // What bounds it: operations. 4*dh flops per (query, visible key) pair
 // against 4 reads or writes of [T, dh] per head; at 192 heads of T 512,
@@ -55,6 +58,8 @@
 // Plain C interface, bound with ctypes: the caller allocates y and lse,
 // passes the stream, and gets cudaGetLastError() back.
 
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 namespace {
@@ -85,15 +90,18 @@ __device__ __forceinline__ float row_max(float v) {
 }
 
 struct Fwd {
-  const float *q, *k, *v;
-  float *y, *lse;
+  const void *q, *k, *v;   // T: float or __nv_bfloat16
+  void* y;                 // T
+  float* lse;
   int BH, Tq, Tk, dh, causal, vec;
   float scale;
 };
 
-template <int kQB, int kKB, int kStages, bool kBf16>
+template <int kQB, int kKB, int kStages, bool kBf16, typename T>
 __global__ void __launch_bounds__(2 * kQB, 1) flash_fwd_kernel(const Fwd a) {
   constexpr int kThreads = 2 * kQB;
+  // bf16 storage holds bf16 values already: only f32 tiles are rounded
+  constexpr bool kRound = kBf16 && std::is_same<T, float>::value;
   constexpr int kRG = kQB / 8;     // row groups; row g + kRG i, i < 8
   constexpr int KJ = kKB / 16;     // keys a thread: tx + 16 j
   constexpr int kPs = kKB + 4;     // row stride of p, [query][key]
@@ -106,8 +114,8 @@ __global__ void __launch_bounds__(2 * kQB, 1) flash_fwd_kernel(const Fwd a) {
   const int bh = b % a.BH, q0 = (nq - 1 - b / a.BH) * kQB;
   const size_t qo = static_cast<size_t>(bh) * a.Tq;
   const size_t ko = static_cast<size_t>(bh) * a.Tk;
-  const float* k = a.k + ko * a.dh;
-  const float* v = a.v + ko * a.dh;
+  const T* k = static_cast<const T*>(a.k) + ko * a.dh;
+  const T* v = static_cast<const T*>(a.v) + ko * a.dh;
   const int tid = threadIdx.x, g = tid / 16, tx = tid % 16;
   const bool vec = a.vec != 0, causal = a.causal != 0;
   // key tiles this query tile needs: those up to its last row's key when
@@ -122,8 +130,9 @@ __global__ void __launch_bounds__(2 * kQB, 1) flash_fwd_kernel(const Fwd a) {
     flash::load_rows<kKB, kThreads>(ks + kKB * kLd, kLd, v, j * kKB, a.Tk,
                                     a.dh, vec);
   };
-  flash::load_rows<kQB, kThreads>(qs, kLd, a.q + qo * a.dh, q0, a.Tq, a.dh,
-                                  vec);
+  flash::load_rows<kQB, kThreads>(qs, kLd,
+                                  static_cast<const T*>(a.q) + qo * a.dh, q0,
+                                  a.Tq, a.dh, vec);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk) load_kv(s);
@@ -143,7 +152,7 @@ __global__ void __launch_bounds__(2 * kQB, 1) flash_fwd_kernel(const Fwd a) {
     gemm::cp_async_wait<kStages - 2>();
     float* ks = ring + (j % kStages) * 2 * kKB * kLd;
     float* vs = ks + kKB * kLd;
-    if (kBf16) {
+    if (kRound) {
       if (j == 0) flash::round_rows<kQB, kThreads>(qs, kLd);
       flash::round_rows<kKB, kThreads>(ks, kLd);
       flash::round_rows<kKB, kThreads>(vs, kLd);
@@ -238,30 +247,29 @@ __global__ void __launch_bounds__(2 * kQB, 1) flash_fwd_kernel(const Fwd a) {
   }
   gemm::cp_async_wait<0>();
 
-  float* y = a.y + qo * a.dh;
+  T* y = static_cast<T*>(a.y) + qo * a.dh;
   const int c0 = 4 * tx;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const float lt = row_sum(l[i]);   // the 16 parts, in a fixed tree
     const int qr = q0 + g + kRG * i;
     if (qr >= a.Tq) continue;
-    float* out = y + static_cast<size_t>(qr) * a.dh;
+    T* out = y + static_cast<size_t>(qr) * a.dh;
     if (vec && c0 < a.dh) {
-      *reinterpret_cast<float4*>(out + c0) =
-          make_float4(acc[i][0] / lt, acc[i][1] / lt, acc[i][2] / lt,
-                      acc[i][3] / lt);
+      flash::store4(out + c0, acc[i][0] / lt, acc[i][1] / lt,
+                    acc[i][2] / lt, acc[i][3] / lt);
     } else {
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        if (c0 + c < a.dh) out[c0 + c] = acc[i][c] / lt;
+        if (c0 + c < a.dh) out[c0 + c] = flash::narrow<T>(acc[i][c] / lt);
     }
     if (tx == 0) a.lse[qo + qr] = m[i] + logf(lt);
   }
 }
 
-template <int kQB, int kKB, int kStages, bool kBf16>
+template <int kQB, int kKB, int kStages, bool kBf16, typename T>
 cudaError_t launch(const Fwd& a, cudaStream_t st) {
-  auto kern = flash_fwd_kernel<kQB, kKB, kStages, kBf16>;
+  auto kern = flash_fwd_kernel<kQB, kKB, kStages, kBf16, T>;
   const size_t smem = fwd_floats(kQB, kKB, kStages) * sizeof(float);
   const cudaError_t e =
       ffn::set_smem(reinterpret_cast<const void*>(kern), smem);
@@ -270,36 +278,38 @@ cudaError_t launch(const Fwd& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <bool kBf16>
+template <bool kBf16, typename T>
 cudaError_t plan(const Fwd& a, int query_tile, int key_tile, int stages,
                  cudaStream_t st) {
   if (query_tile == 64 && key_tile == 64 && stages == 2)
-    return launch<64, 64, 2, kBf16>(a, st);
+    return launch<64, 64, 2, kBf16, T>(a, st);
   if (query_tile == 128 && key_tile == 64 && stages == 2)
-    return launch<128, 64, 2, kBf16>(a, st);
+    return launch<128, 64, 2, kBf16, T>(a, st);
   if (query_tile == 64 && key_tile == 128 && stages == 2)
-    return launch<64, 128, 2, kBf16>(a, st);
+    return launch<64, 128, 2, kBf16, T>(a, st);
   if (query_tile == 64 && key_tile == 64 && stages == 3)
-    return launch<64, 64, 3, kBf16>(a, st);
+    return launch<64, 64, 3, kBf16, T>(a, st);
   return cudaErrorInvalidValue;
 }
 
-bool aligned(const void* p) {
-  return (reinterpret_cast<size_t>(p) & 15) == 0;
+// 16-byte aligned (a float4 of f32), or with bf16 storage 8-byte (4 bf16)
+bool aligned(const void* p, int bf16) {
+  return (reinterpret_cast<size_t>(p) & (bf16 ? 7 : 15)) == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q [BH, Tq, dh], k, v [BH, Tk, dh] -> y [BH, Tq, dh], lse [BH, Tq], all
-// f32; dh <= 64. (query_tile, key_tile, stages): (64, 64, 2), (128, 64,
-// 2), (64, 128, 2) or (64, 64, 3). causal, mxu_bf16: 0 or 1. Returns a
-// cudaError_t as int; 0 on success.
-int flash_attn_fwd_launch(const float* q, const float* k, const float* v,
-                          float* y, float* lse, int BH, int Tq, int Tk,
+// q [BH, Tq, dh], k, v [BH, Tk, dh] -> y [BH, Tq, dh], lse [BH, Tq]; q,
+// k, v and y f32, or bf16 when bf16 is 1 (mxu_bf16 then changes
+// nothing), lse f32; dh <= 64. (query_tile, key_tile, stages): (64, 64,
+// 2), (128, 64, 2), (64, 128, 2) or (64, 64, 3). causal, mxu_bf16: 0 or
+// 1. Returns a cudaError_t as int; 0 on success.
+int flash_attn_fwd_launch(const void* q, const void* k, const void* v,
+                          void* y, float* lse, int BH, int Tq, int Tk,
                           int dh, int causal, int query_tile, int key_tile,
-                          int stages, int mxu_bf16, void* stream) {
+                          int stages, int mxu_bf16, int bf16, void* stream) {
   if (BH < 1 || Tq < 1 || Tk < 1 || dh < 1 || dh > kDH ||
       static_cast<long long>((Tq + 63) / 64) * BH > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -314,13 +324,16 @@ int flash_attn_fwd_launch(const float* q, const float* k, const float* v,
   a.Tk = Tk;
   a.dh = dh;
   a.causal = causal != 0;
-  a.vec = dh % 4 == 0 && aligned(q) && aligned(k) && aligned(v) &&
-          aligned(y);
+  a.vec = dh % 4 == 0 && aligned(q, bf16) && aligned(k, bf16) &&
+          aligned(v, bf16) && aligned(y, bf16);
   a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return static_cast<int>(
+        plan<true, __nv_bfloat16>(a, query_tile, key_tile, stages, st));
   return static_cast<int>(
-      mxu_bf16 ? plan<true>(a, query_tile, key_tile, stages, st)
-               : plan<false>(a, query_tile, key_tile, stages, st));
+      mxu_bf16 ? plan<true, float>(a, query_tile, key_tile, stages, st)
+               : plan<false, float>(a, query_tile, key_tile, stages, st));
 }
 
 }  // extern "C"

@@ -30,7 +30,10 @@ def attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     device=q.device), s,
                         torch.tensor(-torch.inf, dtype=s.dtype,
                                      device=s.device))
-    p = torch.softmax(s, dim=-1)
+    # jax.nn.softmax's steps, each rounded to the operands' dtype (in the
+    # bf16 trunk of the LM's mixed policy, exp is rounded before the sum)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
     return p @ v, (p,)
 
 

@@ -60,6 +60,15 @@ class LMParams(nn.Module):
     def device(self) -> torch.device:
         return self.wte.device
 
+    def named_leaves(self) -> list[tuple[str, torch.Tensor]]:
+        """``(field name, tensor)`` in ``lm_leaves`` order (the optimizers'
+        tree walk, ``optim.py``)."""
+        return list(zip(LEAF_NAMES, lm_leaves(self)))
+
+    def with_leaves(self, leaves) -> "LMParams":
+        """``LMParams`` over ``leaves`` in ``lm_leaves`` order."""
+        return lm_from_leaves(leaves)
+
 
 def init_lm(generator: torch.Generator, vocab: int, d_model: int,
             n_layers: int, max_seq_len: int, ffn_dim: int | None = None,
@@ -114,6 +123,10 @@ def lm_params_from_numpy(tree, device="cpu") -> LMParams:
                     t(_field(tree, "ln_f")))
 
 
+# the field name of each leaf of ``lm_leaves``
+LEAF_NAMES = ("wte", "wpe") + FIELDS + ("ln_f",)
+
+
 def lm_leaves(params: LMParams) -> list[torch.Tensor]:
     """The parameters in ``jax.tree_util.tree_leaves`` order of the JAX
     ``LMParams``: ``wte, wpe, blocks.{ln1, wq, wk, wv, wo, ln2, w1, w2},
@@ -150,14 +163,29 @@ def lm_logits(params: LMParams, tokens: torch.Tensor, n_heads: int,
 
 
 def lm_loss(params: LMParams, tokens: torch.Tensor, targets: torch.Tensor,
-            n_heads: int, attn=None, head=None) -> torch.Tensor:
+            n_heads: int, attn=None, head=None,
+            mixed: bool = False) -> torch.Tensor:
     """Mean next-token cross-entropy; ``tokens, targets [B, T]`` int.
     ``head`` swaps the tied head and loss: None builds the ``[N, V]``
     logits and runs the hand-VJP ``xent_loss`` (the oracle); a callable
     ``(h [N, d], wte [V, d], targets [N]) -> loss`` takes the trunk output
     directly (the fused kernels, ``parallel.lm.resolve_head``). ``wte``
     gets gradient from the embedding gather and from the head; autograd
-    sums the two."""
+    sums the two.
+
+    ``mixed`` is the LM's bf16 policy (JAX ``models/lm.py:140-160``): the
+    trunk (embedding gather, blocks, final LN) runs on a bf16 cast of the
+    params with a bf16 residual stream, ``h`` returns to f32, and the head
+    and the cross-entropy run in f32 on the f32 master ``wte``. The
+    embedding's share of ``wte``'s gradient comes back through the
+    cast's backward (a cast to f32) and sums with the head's."""
+    if mixed:
+        trunk = lm_from_leaves(t.to(torch.bfloat16) for t in lm_leaves(params))
+        h = lm_hidden(trunk, tokens, n_heads, attn)
+        h = h.reshape(-1, h.shape[-1]).to(torch.float32)
+        if head is not None:
+            return head(h, params.wte, targets.reshape(-1))
+        return xent_loss(h @ params.wte.T, targets.reshape(-1))
     if head is not None:
         h = lm_hidden(params, tokens, n_heads, attn)
         return head(h.reshape(-1, h.shape[-1]), params.wte,

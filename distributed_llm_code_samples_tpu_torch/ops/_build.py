@@ -135,10 +135,24 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
+# The storage types each kernel takes: float32, and bf16 where listed
+# (the ring all-gather moves bytes; the flash kernels read bf16 tiles for
+# the LM's mixed trunk). bf16 sums in the other ring kernels and bf16
+# storage in the FFN kernels come with the --dtype bfloat16 slice.
+DTYPES = {"ring_all_gather": (torch.float32, torch.bfloat16),
+          "flash_attn_fwd": (torch.float32, torch.bfloat16),
+          "flash_attn_bwd": (torch.float32, torch.bfloat16)}
+_NEXT = "bf16 storage for it comes with the --dtype bfloat16 slice " \
+        "(ROADMAP.md Queue 1)"
+
+
 def on_card(name: str, *tensors) -> bool:
     """False for CPU tensors (the plain version runs); True for CUDA
-    tensors that the kernel takes (float32, contiguous, one device);
-    raises on anything else."""
+    tensors that the kernel takes (a storage type of ``DTYPES[name]``,
+    float32 if it has no entry; contiguous; one device); raises on
+    anything else. A wrapper whose kernel mixes types (the flash
+    backward's f32 ``lse`` beside bf16 operands) checks their
+    combination itself."""
     dev = tensors[0].device
     if dev.type == "cpu":
         return False
@@ -146,9 +160,12 @@ def on_card(name: str, *tensors) -> bool:
         raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: all operands must be on {dev}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError(f"{name}: the kernel takes float32 storage, got "
-                         f"{[str(t.dtype) for t in tensors]}")
+    allowed = DTYPES.get(name, (torch.float32,))
+    if any(t.dtype not in allowed for t in tensors):
+        raise ValueError(
+            f"{name}: the kernel takes {[str(d) for d in allowed]} storage, "
+            f"got {[str(t.dtype) for t in tensors]}"
+            + ("" if torch.bfloat16 in allowed else f"; {_NEXT}"))
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: all operands must be contiguous")
     return True

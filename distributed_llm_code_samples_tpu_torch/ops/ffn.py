@@ -166,3 +166,9 @@ def ffn_block_mixed_remat(w1, w2, x):
     """Mixed FFN block recomputing the pre-activation from a bf16 stash
     of its input."""
     return _BlockMixedRemat.apply(w1, w2, x)
+
+
+def ffn_blocks(mixed: bool = False):
+    """``(block_fwd, block_bwd)`` of the strategies' stack walks: the f32
+    matmul blocks, or with ``mixed`` the bf16-operand ones."""
+    return (ffn_fwd_mixed, ffn_bwd_mixed) if mixed else (ffn_fwd, ffn_bwd)

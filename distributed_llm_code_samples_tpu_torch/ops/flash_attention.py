@@ -20,6 +20,14 @@ rounded to bf16, and so are the probability and score-gradient tiles
 before the products they feed; products, sums and the softmax
 statistics stay f32. Default off (all f32). The scale ``1/sqrt(dh)``
 multiplies each score product after it, as in the Pallas kernels.
+
+Storage is f32 or bf16 (the LM's ``mixed`` trunk). With bf16 q, k, v
+(and dy, y) the outputs y, dq, dk and dv are bf16 and ``lse`` f32, as
+the JAX kernels' ``out_shape``s give them; the arithmetic is the
+``mxu_bf16`` arithmetic on the bf16 values (the JAX kernels round p and
+ds to the operands' dtype before their products), each output rounded
+to bf16 once. The kernels read bf16 tiles (half the bytes) and count
+their launches as ``<name>[bf16]``.
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ FWD, BWD = "flash_attn_fwd", "flash_attn_bwd"
 DQ, DKV = "flash_attn_dq", "flash_attn_dkv"     # the backward's launches
 MAX_DH = 64
 _NEG = -1e30
+
+
+BF16 = "[bf16]"     # the suffix of a bf16-storage launch's count
 
 
 def _op(t: torch.Tensor, mxu_bf16: bool) -> torch.Tensor:
@@ -49,10 +60,20 @@ def _keep(tq: int, tk: int, causal: bool, device):
 
 # -- plain versions --------------------------------------------------------
 
+def _widened(*ts):
+    return (t.float() for t in ts)
+
+
 def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
                             mxu_bf16: bool = False):
     """``(y, lse)``: softmax attention with the scores ``(q k^T) *
-    dh^-0.5`` masked to -1e30 (causal), ``lse = logsumexp`` of each row."""
+    dh^-0.5`` masked to -1e30 (causal), ``lse = logsumexp`` of each row.
+    bf16 operands run the ``mxu_bf16`` arithmetic on their f32 values; y
+    comes back bf16."""
+    if q.dtype == torch.bfloat16:
+        y, lse = flash_attention_fwd_ref(*_widened(q, k, v), causal=causal,
+                                         mxu_bf16=True)
+        return y.to(torch.bfloat16), lse
     scale = 1.0 / (q.shape[-1] ** 0.5)
     s = (_op(q, mxu_bf16) @ _op(k, mxu_bf16).transpose(-1, -2)) * scale
     keep = _keep(q.shape[-2], k.shape[-2], causal, q.device)
@@ -74,7 +95,12 @@ def flash_attention_bwd_ref(dy, q, k, v, y, lse, *, causal: bool = True,
     """``(dq, dk, dv)`` from the flash residuals: ``p = exp(s - lse)``
     (zero where masked), ``D = rowsum(dy * y)``, ``ds = p * (dy v^T -
     D)``, ``dq = ds k * scale``, ``dk = ds^T q * scale``, ``dv = p^T
-    dy``."""
+    dy``. bf16 operands (q, k, v, dy, y) run the ``mxu_bf16`` arithmetic
+    on their f32 values; the gradients come back bf16."""
+    if q.dtype == torch.bfloat16:
+        grads = flash_attention_bwd_ref(*_widened(dy, q, k, v, y), lse,
+                                        causal=causal, mxu_bf16=True)
+        return tuple(g.to(torch.bfloat16) for g in grads)
     scale = 1.0 / (q.shape[-1] ** 0.5)
     d = (dy * y).sum(dim=-1, keepdim=True)
     qm, km, vm, dym = (_op(t, mxu_bf16) for t in (q, k, v, dy))
@@ -94,6 +120,10 @@ def flash_attention_bwd_ref(dy, q, k, v, y, lse, *, causal: bool = True,
 # -- the kernels -----------------------------------------------------------
 
 def _check(q, k, v):
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share one storage type, float32 or "
+                         f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() < 2 or k.shape != v.shape or k.dim() != q.dim():
         raise ValueError(f"q [..., Tq, dh] and k, v [..., Tk, dh] expected, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -123,13 +153,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         return flash_attention_fwd_ref(q, k, v, causal=causal,
                                        mxu_bf16=mxu_bf16)
     _kernel_dims(FWD, dh)
+    bf16 = q.dtype == torch.bfloat16
     y = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     _build.launch(FWD, "flash_attn_fwd_launch",
                   [q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
                    lse.data_ptr()],
                   (bh, tq, tk, dh, int(bool(causal)), *FWD_PLAN,
-                   int(bool(mxu_bf16))), q.device, FWD)
+                   int(bool(mxu_bf16)), int(bf16)), q.device,
+                  FWD + BF16 * bf16)
     return y, lse
 
 
@@ -199,6 +231,11 @@ def flash_attention_bwd(dy, q, k, v, y, lse, *, causal: bool = True,
         raise ValueError(f"dy {tuple(dy.shape)}, y {tuple(y.shape)} must "
                          f"match q {tuple(q.shape)} and lse "
                          f"{tuple(lse.shape)} its leading dims")
+    if dy.dtype != q.dtype or y.dtype != q.dtype \
+            or lse.dtype != torch.float32:
+        raise ValueError(f"dy and y take q's storage type ({q.dtype}) and "
+                         f"lse is float32; got {dy.dtype}, {y.dtype}, "
+                         f"{lse.dtype}")
     if not _build.on_card(BWD, q, k, v, dy, y, lse):
         return flash_attention_bwd_ref(dy, q, k, v, y, lse, causal=causal,
                                        mxu_bf16=mxu_bf16)
@@ -211,14 +248,17 @@ def flash_attention_bwd(dy, q, k, v, y, lse, *, causal: bool = True,
     d_ptr, ds_ptr = (scratch.data_ptr() + 4 * pieces[n][1]
                      for n in ("D", "dsT"))
     dims = (bh, tq, tk, dh, int(bool(causal)))
+    bf16 = q.dtype == torch.bfloat16
     _build.launch(BWD, "flash_attn_dkv_launch",
                   [q.data_ptr(), k.data_ptr(), v.data_ptr(), dy.data_ptr(),
                    lse.data_ptr(), y.data_ptr(), dk.data_ptr(),
                    dv.data_ptr(), d_ptr, ds_ptr],
-                  (*dims, *BWD_PLAN, int(bool(mxu_bf16))), q.device, DKV)
+                  (*dims, *BWD_PLAN, int(bool(mxu_bf16)), int(bf16)),
+                  q.device, DKV + BF16 * bf16)
     _build.launch(BWD, "flash_attn_dq_launch",
                   [k.data_ptr(), ds_ptr, dq.data_ptr()],
-                  (*dims, int(bool(mxu_bf16))), q.device, DQ)
+                  (*dims, int(bool(mxu_bf16)), int(bf16)), q.device,
+                  DQ + BF16 * bf16)
     return dq, dk, dv
 
 

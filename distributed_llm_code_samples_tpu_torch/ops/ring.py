@@ -438,9 +438,25 @@ def _chunk(op: str, numel: int, n: int) -> int:
     return numel if op in (HOP, ALL_GATHER) else numel // n
 
 
+def _words(ts) -> list:
+    """bf16 tensors as the float32 words of the same bytes (an even number
+    of elements each): the all-gather moves bytes, so its kernel takes
+    them as it takes float32 and the output has the input's bits."""
+    for t in ts:
+        if t.numel() % 2:
+            raise ValueError(f"a bf16 all-gather moves 4-byte words: "
+                             f"{tuple(t.shape)} has an odd number of "
+                             "elements")
+    return [t.reshape(-1).view(torch.float32) for t in ts]
+
+
 def _launch(op: str, ins, outs, ws: PeerWorkspace, rank: int) -> None:
     """One launch over ``ws`` (``rank < 0``: loopback, one input and
-    output a rank); counts one launch of ``op``."""
+    output a rank); counts one launch of ``op`` (``op[bf16]`` for a bf16
+    all-gather, the one ring op that takes bf16)."""
+    count_as = op
+    if ins[0].dtype == torch.bfloat16:
+        ins, outs, count_as = _words(ins), _words(outs), op + "[bf16]"
     n = ws.n
     chunk = _chunk(op, ins[0].numel(), n)
     need = workspace_bytes(op, ins[0], n)
@@ -470,7 +486,7 @@ def _launch(op: str, ins, outs, ws: PeerWorkspace, rank: int) -> None:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
     ws.region_calls, ws.region_last = region_record(
         op, ws.region_calls, ws.region_last, epoch, nblk)
-    _build.count_launch(op)
+    _build.count_launch(count_as)
 
 
 def _check_split(op: str, x: torch.Tensor, n: int) -> None:
@@ -580,7 +596,10 @@ def ring_all_gather(x: torch.Tensor, ring) -> torch.Tensor:
     """``all_gather(x, dim=0)``: ``[n * rows, ...]`` with chunk i rank
     i's block. The kernel is the all-to-all's push with one source for
     every peer (``all_to_all_kernel<true>``); the plain version is the
-    ring of hops."""
+    ring of hops. It takes float32 or bf16 (FSDP's ``mixed`` gathers);
+    a bf16 tensor (an even number of elements) reaches the same kernel
+    as the float32 words of its bytes, and its launches count as
+    ``ring_all_gather[bf16]``."""
     return _collective(ALL_GATHER, x, ring)
 
 

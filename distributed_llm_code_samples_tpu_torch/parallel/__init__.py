@@ -2,8 +2,8 @@
 single-device LM trainer (slice 3), DDP and FSDP of the FFN stack over n
 ranks (slice 4), expert parallelism of the MoE FFN stack (slice 5), and
 tensor parallelism (plain and sequence-parallel) and the DDP x TP hybrid
-of the FFN stack (slice 13), with the mesh, the collectives and the
-launcher they run on."""
+of the FFN stack (slice 13), and ZeRO-1 (slice 14), with the mesh, the
+collectives and the launcher they run on."""
 
 from .collectives import (all_gather, all_reduce, all_to_all, axis_index,
                           reduce_scatter)
@@ -20,13 +20,14 @@ from .single import make_step, train_single
 from .tp import train_tp, train_tp_sp
 from .tp import unshard_params as unshard_tp_params
 from .transformer import resolve_attn
+from .zero1 import train_ddp_zero1
 
 __all__ = ["DATA_AXIS", "EXPERT_AXIS", "MODEL_AXIS", "Mesh", "all_gather",
            "all_reduce", "all_to_all", "axis_index", "launch",
            "launch_replicated", "launch_strided", "lm_grads", "make_mesh",
            "make_step", "moe_layer_ep", "reduce_scatter", "require_axes",
            "resolve_attn", "resolve_head", "run_replicated", "run_strided",
-           "shard_params", "train_ddp", "train_fsdp", "train_hybrid",
-           "train_lm_single", "train_moe_dense", "train_moe_ep",
-           "train_single", "train_tp", "train_tp_sp", "unshard_params",
-           "unshard_tp_params"]
+           "shard_params", "train_ddp", "train_ddp_zero1", "train_fsdp",
+           "train_hybrid", "train_lm_single", "train_moe_dense",
+           "train_moe_ep", "train_single", "train_tp", "train_tp_sp",
+           "unshard_params", "unshard_tp_params"]

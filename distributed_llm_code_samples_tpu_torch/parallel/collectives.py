@@ -38,6 +38,13 @@ def all_reduce(x: torch.Tensor, mesh, *,
     return y
 
 
+def psum_scalar(x: torch.Tensor, mesh, *,
+                axis: Optional[str] = None) -> torch.Tensor:
+    """The sum of a 0-d tensor over the ranks of ``axis`` (``lax.psum`` of
+    a scalar: ``optim.clipped(axis=...)``'s squared norm), 0-d."""
+    return all_reduce(x.reshape(1), mesh, axis=axis).reshape(())
+
+
 def all_gather(x: torch.Tensor, mesh, *, dim: int = 0,
                axis: Optional[str] = None) -> torch.Tensor:
     """Concatenate the blocks of the ranks of ``axis`` along ``dim`` in

@@ -11,8 +11,8 @@ strategies; the ``train_ffns.py`` docstring at the repo root names it).
   ``(dw1, dw2)`` shard over the data axis (the DDP hook): two
   independent reductions on orthogonal axes.
 
-With model 1 it is DDP, with data 1 TP. Not ported yet, and refused:
-``mixed``. ``unroll`` changes nothing.
+With model 1 it is DDP, with data 1 TP. ``mixed`` swaps in the
+bf16-operand blocks, as in TP. ``unroll`` changes nothing.
 """
 
 from __future__ import annotations
@@ -23,12 +23,11 @@ from .. import LR
 from ..data import batch_from_seed
 from ..models.ffn_stack import FFNStackParams
 from ..optim import sgd
-from ..ops.ffn import ffn_bwd, ffn_fwd
+from ..ops.ffn import ffn_blocks
 from ..ops.stack import stack_bwd, stack_fwd
 from . import tp
 from .collectives import all_reduce
-from .launcher import (DEFAULT_TIMEOUT_S, launch_strided, refuse_unported,
-                       run_strided)
+from .launcher import DEFAULT_TIMEOUT_S, launch_strided, run_strided
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, require_axes
 
 shard_params = tp.shard_params
@@ -46,15 +45,14 @@ def make_step(batch_size: int, model_size: int, lr: float = LR,
               batch_fn: Callable = batch_from_seed):
     """One hybrid step ``(shards, seed) -> shards`` for the rank of
     ``mesh`` (a rank's view)."""
-    refuse_unported(mixed=(mixed, False))
     require_axes(mesh, DATA_AXIS, MODEL_AXIS)
+    fwd, bwd = ffn_blocks(mixed)
 
     def block_fwd(w1_shard, w2_shard, x):
-        return all_reduce(ffn_fwd(w1_shard, w2_shard, x), mesh,
-                          axis=MODEL_AXIS)
+        return all_reduce(fwd(w1_shard, w2_shard, x), mesh, axis=MODEL_AXIS)
 
     def block_bwd(dy, w1_shard, w2_shard, x):
-        dx, grads = ffn_bwd(dy, w1_shard, w2_shard, x)
+        dx, grads = bwd(dy, w1_shard, w2_shard, x)
         return all_reduce(dx, mesh, axis=MODEL_AXIS), grads
 
     def grad_hook(dw1, dw2):
@@ -87,21 +85,20 @@ def train_hybrid(params: FFNStackParams, seeds, batch_size: int,
     rank and returns its final TP shards. Arguments as ``train_tp``'s."""
     require_axes(mesh, DATA_AXIS, MODEL_AXIS)
     tp.check_divisible(params, mesh.axis_size(MODEL_AXIS))
-    refuse_unported(mixed=(mixed, False))
     if not mesh.in_rank:
         outs = launch_strided(_hybrid_rank, params, seeds, mesh, batch_size,
-                              model_size, lr, batch_fn, axis=DATA_AXIS,
-                              timeout=timeout)
+                              model_size, lr, mixed, batch_fn,
+                              axis=DATA_AXIS, timeout=timeout)
         out = unshard_params(outs, mesh)
         return FFNStackParams(*(t.to(params.w1.device) for t in out))
-    step = make_step(batch_size, model_size, lr, mesh=mesh,
+    step = make_step(batch_size, model_size, lr, mixed=mixed, mesh=mesh,
                      batch_fn=batch_fn)
     return run_strided(step, shard_params(params, mesh), seeds, mesh,
                        on_step, axis=DATA_AXIS)
 
 
 def _hybrid_rank(mesh: Mesh, payload):
-    params, seeds, batch_size, model_size, lr, batch_fn = payload
+    params, seeds, batch_size, model_size, lr, mixed, batch_fn = payload
     out = train_hybrid(params, seeds, batch_size, model_size, mesh, lr,
-                       batch_fn=batch_fn)
+                       mixed=mixed, batch_fn=batch_fn)
     return FFNStackParams(*(t.cpu() for t in out))

@@ -31,7 +31,8 @@ rank's column of the strided seed split (``train_ffns.py:182``) over the
 whole mesh or one axis of it, through its step. ``run_replicated`` is
 that of tensor parallelism: every rank takes every seed. Both run inside
 any process group that exists, the one ``launch`` makes or a caller's
-own.
+own. ``to_device`` carries a trainer's parameters and optimizer state
+(``optim.py``'s containers, or a tuple of both) to and from the ranks.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from ..data import shard_seeds_strided
+from ..optim import tree_map
 from .mesh import LoopbackState, Mesh
 
 DEFAULT_TIMEOUT_S = 900.0
@@ -73,15 +75,16 @@ MESH = _MeshMarker()    # in ``call_each`` arguments: the rank's mesh
 
 def call_each(mesh: Mesh, calls) -> list:
     """A rank body that makes several calls in one launch: ``calls`` is a
-    list of ``(fn, args, kwargs)``; in ``args`` the ``MESH`` marker stands
-    for the rank's mesh and a ``PerRank`` for the rank's own value.
-    Returns the results in order."""
+    list of ``(fn, args, kwargs)``; in ``args`` and ``kwargs`` the ``MESH``
+    marker stands for the rank's mesh and a ``PerRank`` for the rank's
+    own value. Returns the results in order."""
     def arg(a):
         if a is MESH:
             return mesh
         return a.values[mesh.rank] if isinstance(a, PerRank) else a
 
-    return [fn(*map(arg, args), **kwargs) for fn, args, kwargs in calls]
+    return [fn(*map(arg, args), **{k: arg(v) for k, v in kwargs.items()})
+            for fn, args, kwargs in calls]
 
 
 def run_replicated(step: Callable, params, seeds, mesh: Mesh,
@@ -283,14 +286,22 @@ def launch(rank_fn: Callable[[Mesh, Any], Any], mesh: Mesh, payload=None,
     return _launch_processes(rank_fn, mesh, payload, timeout)
 
 
+def to_device(tree, device):
+    """Every tensor of ``tree`` (parameters, an optimizer state, a tuple of
+    both, or None) on ``device``, detached; a tensor already there is
+    kept, not copied."""
+    return tree_map(lambda t: t.detach().to(device), tree)
+
+
 def launch_replicated(rank_fn: Callable, params, seeds, mesh: Mesh, *args,
                       timeout: float = DEFAULT_TIMEOUT_S) -> list:
     """``launch`` of a trainer that hands every rank the whole schedule:
     ``rank_fn(rank_mesh, (params, seeds, *args))`` on every rank, the
     parameters on the CPU for the trip (in loopback they stay on the
-    card)."""
+    card). An optimizer state in ``args`` travels as the trainer puts it
+    there (``to_device``)."""
     if not mesh.loopback:
-        params = type(params)(*(t.detach().cpu() for t in params))
+        params = to_device(params, "cpu")
     return launch(rank_fn, mesh, (params, seeds) + args, timeout=timeout)
 
 

@@ -2,10 +2,14 @@
 ``parallel/lm.py`` (``train_lm_single``): per step, a batch of next-token
 sequences, the mean cross-entropy of the tied head, its gradients
 (autograd composing the hand VJPs of LayerNorm, attention, the FFN
-blocks and the loss) and inline SGD. ``attn_impl`` and ``head_impl``
-select the oracle ops or the hand-written kernels (flash attention, the
-fused head). The JAX trainer runs the schedule as one ``lax.scan``; here
-the steps run eagerly. DDP, FSDP and TP are not ported yet.
+blocks and the loss) and inline SGD, or a stateful ``optimizer``
+(``optim.py``) whose state ``opt_state``/``return_state`` carry in and
+out. ``attn_impl`` and ``head_impl`` select the oracle ops or the
+hand-written kernels (flash attention, the fused head); ``mixed`` runs
+the trunk in bf16 (``models.lm.lm_loss``), which hands the flash kernels
+bf16 q, k and v. The JAX trainer runs the schedule as one ``lax.scan``;
+here the steps run eagerly. DDP, FSDP and TP of the LM are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 from .. import LR
 from ..data import lm_batch_from_seed
 from ..models.lm import LMParams, clone_lm, lm_from_leaves, lm_leaves, lm_loss
-from ..optim import sgd
+from ..optim import check_state_args, sgd
 from .transformer import _validate_shapes, resolve_attn
 
 
@@ -44,7 +48,7 @@ def resolve_head(head_impl: str | None):
 
 
 def lm_grads(params: LMParams, tokens, targets, n_heads: int, attn=None,
-             head=None):
+             head=None, mixed: bool = False):
     """``(loss, grads)`` of ``lm_loss`` with ``grads`` in ``lm_leaves``
     order. Each leaf is taken with ``detach().requires_grad_()`` (the
     parameters are buffers) and ``torch.autograd.grad`` differentiates
@@ -52,29 +56,38 @@ def lm_grads(params: LMParams, tokens, targets, n_heads: int, attn=None,
     leaves = [t.detach().requires_grad_() for t in lm_leaves(params)]
     with torch.enable_grad():
         loss = lm_loss(lm_from_leaves(leaves), tokens, targets, n_heads,
-                       attn, head)
+                       attn, head, mixed)
         grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), list(grads)
 
 
 def _make_step(batch_size: int, model_size: int, seq_len: int,
                n_heads: int, lr: float, attn=None, batch_fn=None,
-               head=None):
-    """One update ``(params, seed) -> params``; ``batch_size`` is tokens
-    a step. The batch is ``batch_fn(seed) -> (tokens, targets)``, or the
-    seeds-as-dataset ``lm_batch_from_seed`` on the params' device. SGD
-    updates ``params`` in place."""
+               head=None, mixed: bool = False, optimizer=None):
+    """One update; ``batch_size`` is tokens a step. The batch is
+    ``batch_fn(seed) -> (tokens, targets)``, or the seeds-as-dataset
+    ``lm_batch_from_seed`` on the params' device. Without ``optimizer``
+    it is ``(params, seed) -> params`` with SGD in place; with one,
+    ``((params, state), seed) -> (params, state)``."""
     b = batch_size // seq_len
 
-    def step(params: LMParams, seed) -> LMParams:
+    def grads_of(params: LMParams, seed) -> list:
         tokens, targets = (batch_fn(seed) if batch_fn is not None else
                            lm_batch_from_seed(seed, b, seq_len, params.vocab,
                                               device=params.device))
-        _, grads = lm_grads(params, tokens, targets, n_heads, attn, head)
-        sgd(lm_leaves(params), grads, lr)
+        return lm_grads(params, tokens, targets, n_heads, attn, head,
+                        mixed)[1]
+
+    def step(params: LMParams, seed) -> LMParams:
+        sgd(lm_leaves(params), grads_of(params, seed), lr)
         return params
 
-    return step
+    def step_opt(carry, seed):
+        params, state = carry
+        return optimizer.update(lm_from_leaves(grads_of(params, seed)),
+                                state, params, lr)
+
+    return step if optimizer is None else step_opt
 
 
 def train_lm_single(params: LMParams, seeds, batch_size: int,
@@ -89,23 +102,24 @@ def train_lm_single(params: LMParams, seeds, batch_size: int,
     """Train a copy of ``params`` over the seed schedule and return it;
     the caller's params are not touched. ``batch_size`` is tokens a step
     (``seq_len`` folded in); ``mesh`` is ignored (the launcher signature
-    of every strategy). ``on_step(i)`` is called after step ``i``. The
-    stateful optimizers (``optimizer``, ``opt_state``, ``return_state``)
-    and ``mixed`` are not ported yet and raise ``NotImplementedError``."""
+    of every strategy). ``on_step(i)`` is called after step ``i``.
+    ``optimizer``/``opt_state``/``return_state`` follow ``train_ddp``'s
+    contract: with ``return_state`` it returns ``(params, opt_state)``,
+    which a later call resumes from. ``mixed`` runs the bf16 trunk
+    (``models.lm.lm_loss(mixed=True)``); params, grads and the update
+    stay f32."""
     _validate_lm(batch_size, seq_len, model_size, n_heads, params)
-    if optimizer is not None or opt_state is not None or return_state:
-        raise NotImplementedError("stateful optimizers (optimizer, "
-                                  "opt_state, return_state) are not ported "
-                                  "yet; the trainer runs inline SGD")
-    if mixed:
-        raise NotImplementedError("mixed=True (the bf16 trunk) is not "
-                                  "ported yet")
+    check_state_args(optimizer, opt_state, return_state)
     step = _make_step(batch_size, model_size, seq_len, n_heads, lr,
                       resolve_attn(attn_impl), batch_fn,
-                      resolve_head(head_impl))
+                      resolve_head(head_impl), mixed, optimizer)
     params = clone_lm(params)
+    carry = params if optimizer is None else (
+        params, optimizer.init(params) if opt_state is None else opt_state)
     for i, seed in enumerate(seeds):
-        params = step(params, int(seed))
+        carry = step(carry, int(seed))
         if on_step is not None:
             on_step(i)
-    return params
+    if optimizer is None or return_state:
+        return carry
+    return carry[0]

@@ -17,8 +17,9 @@ each all-reduce becomes an all-gather in and a reduce-scatter out.
 
 The reductions are ``parallel/collectives.py``'s on the model axis
 (NCCL on the card, gloo on the CPU, plain torch in loopback); as in JAX,
-TP has no kernel transport. Not ported yet, and refused: ``mixed``.
-``unroll`` changes nothing (one Python loop).
+TP has no kernel transport. ``mixed`` swaps in the bf16-operand blocks
+(``ops.ffn.ffn_fwd_mixed`` / ``ffn_bwd_mixed``); the reductions and the
+shards stay f32. ``unroll`` changes nothing (one Python loop).
 """
 
 from __future__ import annotations
@@ -31,11 +32,10 @@ from .. import LR
 from ..data import batch_from_seed
 from ..models.ffn_stack import FFNStackParams
 from ..optim import sgd
-from ..ops.ffn import ffn_bwd, ffn_fwd
+from ..ops.ffn import ffn_blocks
 from ..ops.stack import stack_bwd, stack_fwd
 from .collectives import all_gather, all_reduce, axis_index, reduce_scatter
-from .launcher import (DEFAULT_TIMEOUT_S, launch_replicated,
-                       refuse_unported, run_replicated)
+from .launcher import DEFAULT_TIMEOUT_S, launch_replicated, run_replicated
 from .mesh import MODEL_AXIS, Mesh, require_axes
 
 # the ffn dim of the stacked layout: w1 [L, ffn, d] column-parallel, w2
@@ -81,16 +81,16 @@ def make_step(batch_size: int, model_size: int, lr: float = LR,
     (a rank's view): the whole batch, the stack forward whose blocks end
     in the all-reduce of ``y`` over ``axis``, the backward whose blocks
     end in that of ``dx``, SGD on the shards in place."""
-    refuse_unported(mixed=(mixed, False))
     require_axes(mesh, axis)
+    fwd, bwd = ffn_blocks(mixed)
 
     def block_fwd(w1_shard, w2_shard, x):
         # a partial y on each rank, summed (train_ffns.py:302-303)
-        return all_reduce(ffn_fwd(w1_shard, w2_shard, x), mesh, axis=axis)
+        return all_reduce(fwd(w1_shard, w2_shard, x), mesh, axis=axis)
 
     def block_bwd(dy, w1_shard, w2_shard, x):
         # the shard's VJP, then the input gradient summed (:308-309)
-        dx, grads = ffn_bwd(dy, w1_shard, w2_shard, x)
+        dx, grads = bwd(dy, w1_shard, w2_shard, x)
         return all_reduce(dx, mesh, axis=axis), grads
 
     def step(params: FFNStackParams, seed) -> FFNStackParams:
@@ -119,20 +119,20 @@ def make_sp_step(batch_size: int, model_size: int, n_shards: int,
     reduce-scatters ``dx``. The weight gradients see every token, so
     they are whole on each shard, as in plain TP. ``saved``, if given,
     receives each step's saved activations (``[L, T/n, d]``)."""
-    refuse_unported(mixed=(mixed, False))
     require_axes(mesh, axis)
+    fwd, bwd = ffn_blocks(mixed)
     _check_tokens(batch_size, n_shards)
     t_local = batch_size // n_shards
 
     def block_fwd(w1_shard, w2_shard, x_s):
         full = all_gather(x_s, mesh, dim=0, axis=axis)           # [T, d]
-        part = ffn_fwd(w1_shard, w2_shard, full)       # partial over ffn
+        part = fwd(w1_shard, w2_shard, full)           # partial over ffn
         return reduce_scatter(part, mesh, dim=0, axis=axis)      # [T/n, d]
 
     def block_bwd(dy_s, w1_shard, w2_shard, x_s):
         full = all_gather(x_s, mesh, dim=0, axis=axis)   # recomputed
         dy_full = all_gather(dy_s, mesh, dim=0, axis=axis)
-        dx_full, grads = ffn_bwd(dy_full, w1_shard, w2_shard, full)
+        dx_full, grads = bwd(dy_full, w1_shard, w2_shard, full)
         return reduce_scatter(dx_full, mesh, dim=0, axis=axis), grads
 
     def step(params: FFNStackParams, seed) -> FFNStackParams:
@@ -157,21 +157,20 @@ def _train(sequence_parallel: bool, params: FFNStackParams, seeds,
     require_axes(mesh, MODEL_AXIS)
     n = mesh.axis_size(MODEL_AXIS)
     check_divisible(params, n)
-    refuse_unported(mixed=(mixed, False))
     if sequence_parallel:
         _check_tokens(batch_size, n)
     if not mesh.in_rank:
         shards = launch_replicated(_tp_rank, params, seeds, mesh,
                                    sequence_parallel, batch_size,
-                                   model_size, lr, batch_fn,
+                                   model_size, lr, mixed, batch_fn,
                                    timeout=timeout)
         out = unshard_params(shards)
         return FFNStackParams(*(t.to(params.w1.device) for t in out))
     if sequence_parallel:
-        step = make_sp_step(batch_size, model_size, n, lr, mesh=mesh,
-                            batch_fn=batch_fn)
+        step = make_sp_step(batch_size, model_size, n, lr, mixed=mixed,
+                            mesh=mesh, batch_fn=batch_fn)
     else:
-        step = make_step(batch_size, model_size, lr, mesh=mesh,
+        step = make_step(batch_size, model_size, lr, mixed=mixed, mesh=mesh,
                          batch_fn=batch_fn)
     return run_replicated(step, shard_params(params, mesh), seeds, mesh,
                           on_step)
@@ -210,9 +209,9 @@ def train_tp_sp(params: FFNStackParams, seeds, batch_size: int,
 
 
 def _tp_rank(mesh: Mesh, payload):
-    params, seeds, sequence_parallel, batch_size, model_size, lr, \
+    params, seeds, sequence_parallel, batch_size, model_size, lr, mixed, \
         batch_fn = payload
     train = train_tp_sp if sequence_parallel else train_tp
     out = train(params, seeds, batch_size, model_size, mesh, lr,
-                batch_fn=batch_fn)
+                mixed=mixed, batch_fn=batch_fn)
     return FFNStackParams(*(t.cpu() for t in out))

@@ -1,8 +1,9 @@
 """The CUDA kernels of the LM trainer's path (flash attention forward and
 backward; the fused head's statistics and backward), the three FFN
 kernels, the paged decode attention, the ring kernels and the
-all-to-all against their plain versions, on the card, and the
-loopback trainers that run them (and TP's, which runs none). Every
+all-to-all against their plain versions, on the card (the flash kernels
+and the all-gather also on bf16 storage), and the loopback trainers
+that run them (and TP's, which runs none). Every
 test here needs a CUDA device with nvcc and skips without one. The file
 imports no JAX, so it runs where the card is:
 
@@ -1058,3 +1059,141 @@ def test_paged_shared_memory_plan_equals_the_kernels(card):
             assert f(hq // hkv, dh, pos, blk, splits, code) == \
                 paged_attention.smem_bytes(hq // hkv, dh, pos, blk, splits,
                                            itemsize)
+
+
+# -- bf16 storage: the flash kernels and the ring all-gather ------------------
+#
+# The LM's mixed trunk hands the flash kernels bf16 q, k, v (and dy, y);
+# FSDP's mixed gathers hand the all-gather bf16 shards. The flash kernels
+# compute the mxu_bf16 arithmetic on the bf16 values and round each output
+# to bf16 once, so kernel and plain agree within TOL[True] of the plain
+# output's max plus one bf16 step of it (an f32-level difference can flip
+# one rounding); the gather moves the bits.
+
+FLASH_BF16_SHAPES = FLASH_SHAPES + ((192, 512, 512, 64),)
+
+
+def bf16_flash_case(shape):
+    return tuple(t.bfloat16() for t in flash_case(shape))
+
+
+def agree_bf16(got, again, want):
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and torch.equal(g, a)
+        scale = float(w.float().abs().max())
+        bf16_step = 2 ** -8 if w.dtype == torch.bfloat16 else 0.0
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= (TOL[True] + bf16_step) * scale, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_BF16_SHAPES)
+def test_flash_fwd_bf16_storage_matches_plain(card, shape, causal):
+    q, k, v, _ = bf16_flash_case(shape)
+    counts = _build.launch_counts()
+    got = flash_attention_fwd(q, k, v, causal=causal)
+    again = flash_attention_fwd(q, k, v, causal=causal)
+    after = _build.launch_counts()
+    assert after["flash_attn_fwd[bf16]"] == \
+        counts.get("flash_attn_fwd[bf16]", 0) + 2
+    assert after.get("flash_attn_fwd", 0) == counts.get("flash_attn_fwd", 0)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    agree_bf16(got, again, flash_attention_fwd_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_BF16_SHAPES)
+def test_flash_bwd_bf16_storage_matches_plain(card, shape, causal):
+    q, k, v, dy = bf16_flash_case(shape)
+    y, lse = flash_attention_fwd_ref(q, k, v, causal=causal)
+    counts = _build.launch_counts()
+    got = flash_attention_bwd(dy, q, k, v, y, lse, causal=causal)
+    again = flash_attention_bwd(dy, q, k, v, y, lse, causal=causal)
+    after = _build.launch_counts()
+    for name in ("flash_attn_dkv[bf16]", "flash_attn_dq[bf16]"):
+        assert after[name] == counts.get(name, 0) + 2
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    agree_bf16(got, again,
+               flash_attention_bwd_ref(dy, q, k, v, y, lse, causal=causal))
+
+
+@pytest.mark.cuda
+def test_flash_f32_bits_unchanged_beside_bf16(card):
+    """An f32 call gives the same bits before and after bf16 calls of the
+    same kernels (the storage type is a template parameter of its own)."""
+    q, k, v, dy = flash_case((3, 64, 64, 16))
+    y0, lse0 = flash_attention_fwd(q, k, v)
+    g0 = flash_attention_bwd(dy, q, k, v, y0, lse0)
+    qb, kb, vb, dyb = (t.bfloat16() for t in (q, k, v, dy))
+    yb, lseb = flash_attention_fwd(qb, kb, vb)
+    flash_attention_bwd(dyb, qb, kb, vb, yb, lseb)
+    y1, lse1 = flash_attention_fwd(q, k, v)
+    g1 = flash_attention_bwd(dy, q, k, v, y1, lse1)
+    torch.cuda.synchronize()
+    for a, b in zip((y0, lse0) + g0, (y1, lse1) + g1):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(768, 768), (192, 3072), (6, 10),
+                                   (3, 1002)])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_ring_all_gather_bf16_bits_in_loopback(card, n, shape):
+    """The gather of bf16 shards (FSDP's [768, 768] and [192, 3072] under
+    mixed, a small one and a ragged one of an odd number of 4-byte words)
+    is the float32 gather of the same bytes: bit for bit the plain
+    concatenation, bf16 out, counted as ``ring_all_gather[bf16]``."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    rng = np.random.default_rng(n)
+    xs = [normal(rng, *shape).bfloat16() for _ in range(n)]
+    ws = ring.PeerWorkspace(ring.workspace_bytes(ring.ALL_GATHER, xs[0], n),
+                            "cuda", n=n)
+    try:
+        counts = _build.launch_counts()
+        got = ring.loopback(ring.ALL_GATHER, xs, ws)
+        again = ring.loopback(ring.ALL_GATHER, xs, ws)
+        after = _build.launch_counts()
+        assert after["ring_all_gather[bf16]"] == \
+            counts.get("ring_all_gather[bf16]", 0) + 2
+        assert after.get("ring_all_gather", 0) == \
+            counts.get("ring_all_gather", 0)
+        ws.check()
+        for g, a, w in zip(got, again, ring.loopback_ref(ring.ALL_GATHER,
+                                                          xs)):
+            assert g.dtype == torch.bfloat16 and g.shape == w.shape
+            assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+            assert torch.equal(a.view(torch.int16), w.view(torch.int16))
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_bf16_they_do_not_take(card):
+    """No bf16 tensor reaches a kernel that does not take bf16: the other
+    ring ops, the FFN kernels and the fused head raise, naming the slice
+    that brings bf16 to them; a bf16 gather of an odd element count
+    raises too."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    ws = ring.PeerWorkspace(1 << 16, "cuda", n=2)
+    try:
+        xs = [torch.ones(8, 4, device="cuda", dtype=torch.bfloat16)
+              for _ in range(2)]
+        for op in (ring.ALL_REDUCE, ring.REDUCE_SCATTER, ring.HOP,
+                   ring.ALL_TO_ALL):
+            with pytest.raises(ValueError, match="--dtype bfloat16"):
+                ring.loopback(op, xs, ws)
+        with pytest.raises(ValueError, match="odd"):
+            ring.loopback(ring.ALL_GATHER, [torch.ones(3, device="cuda",
+                                                       dtype=torch.bfloat16)
+                                            for _ in range(2)], ws)
+    finally:
+        ws.close()
+    w1, w2, x, _ = (t.bfloat16() for t in ffn_case((64, 32, 128)))
+    with pytest.raises(ValueError, match="--dtype bfloat16"):
+        p_ff.ffn_fwd_fused(w1, w2, x)
+    h, w, t = head_case((16, 8, 40))
+    with pytest.raises(ValueError, match="--dtype bfloat16"):
+        p_fx.head_xent_stats(h.bfloat16(), w.bfloat16(), t)

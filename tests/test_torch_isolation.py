@@ -43,7 +43,7 @@ def test_every_module_imports_without_jax():
               "parallel.transformer", "ops.ring", "parallel.mesh",
               "parallel.collectives", "parallel.launcher", "parallel.ddp",
               "parallel.fsdp", "ops.moe", "models.moe", "parallel.expert",
-              "parallel.tp", "parallel.hybrid"):
+              "parallel.tp", "parallel.hybrid", "parallel.zero1"):
         assert f"distributed_llm_code_samples_tpu_torch.{m}" in mods
     code = ("import sys; sys.modules['jax'] = None; "
             "import importlib; "

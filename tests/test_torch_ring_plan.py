@@ -219,6 +219,12 @@ SEQUENCES = {
     "scatters": [ring.REDUCE_SCATTER] * 5,
     "exchanges": [ring.ALL_TO_ALL, ring.REDUCE_SCATTER] * 3,
     "hop_runs": [ring.HOP] * 5,
+    # FSDP under mixed: each layer's two bf16 gathers are the float32
+    # gathers of their words (``ring._words``), the same launches, between
+    # the f32 reduce-scatters of the gradients
+    "fsdp_bf16": [ring.HOP] + [ring.ALL_GATHER] * 6 + [
+        ring.ALL_GATHER, ring.ALL_GATHER, ring.REDUCE_SCATTER,
+        ring.REDUCE_SCATTER] * 3,
 }
 
 
@@ -587,3 +593,24 @@ def test_error_word_decodes_the_hop_waits():
     assert ring.describe_error(code(ring._MAX_RANKS + 2, 4, 1)) == (
         "ppermute_dma rank 1 block 4 gave up waiting at rank 2's release "
         "of its landing slot")
+
+
+def test_bf16_gather_is_the_float32_gather_of_its_words():
+    """A bf16 all-gather hands the kernel the float32 words of its bytes
+    (an even element count): the same storage, the same workspace bytes,
+    and the plain gather keeps the bits; an odd count is refused."""
+    import torch
+    x = torch.randn(192, 3072).bfloat16()
+    w = ring._words([x])[0]
+    assert w.dtype == torch.float32 and w.numel() == x.numel() // 2
+    assert w.data_ptr() == x.data_ptr()
+    assert torch.equal(w.view(torch.bfloat16).reshape(x.shape), x)
+    assert ring.workspace_bytes(ring.ALL_GATHER, x, 4) == \
+        ring.workspace_bytes(ring.ALL_GATHER, w, 4)
+    with pytest.raises(ValueError, match="odd"):
+        ring._words([torch.zeros(3, dtype=torch.bfloat16)])
+    xs = [torch.randn(6, 4).bfloat16() for _ in range(4)]
+    for out in ring.loopback_ref(ring.ALL_GATHER, xs):
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out.view(torch.int16),
+                           torch.cat(xs).view(torch.int16))

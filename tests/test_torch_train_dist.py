@@ -141,12 +141,29 @@ def test_strided_seeds_and_refusals(setup):
     with pytest.raises(ValueError, match="not divisible by 3 shards"):
         train_fsdp(start, seeds[:6], TOKENS, D,
                    make_mesh({DATA_AXIS: 3}, device="cpu"))
-    for kw in ({"optimizer": object()}, {"mixed": True}, {"guard": object()},
-               {"seed_accum": 2}):
+    # guard and the elastic seed_accum are still refused
+    for kw in ({"guard": object()}, {"seed_accum": 2}):
         with pytest.raises(NotImplementedError, match="not ported"):
             train_fsdp(start, seeds, TOKENS, D, mesh, **kw)
-    with pytest.raises(NotImplementedError, match="accum"):
-        train_ddp(start, seeds, TOKENS, D, mesh, accum=2)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            train_ddp(start, seeds, TOKENS, D, mesh, **kw)
+    # the optimizers, mixed and accumulation run (one launch of all three;
+    # test_torch_optim.py and test_torch_mixed.py hold them against JAX)
+    from distributed_llm_code_samples_tpu_torch.optim import adam
+    outs = launch(call_each, mesh, [
+        (train_fsdp, (start, seeds[:N], TOKENS, D, MESH),
+         dict(lr=LR, optimizer=adam(), return_state=True)),
+        (train_fsdp, (start, seeds[:N], TOKENS, D, MESH),
+         dict(lr=LR, mixed=True)),
+        (train_ddp, (start, seeds[:N], TOKENS, D, MESH),
+         dict(lr=LR, accum=2))], timeout=120)
+    shards, state = outs[0][0]
+    assert state.mu.w1.shape == shards.w1.shape == (L, 4 * D // N, D)
+    assert int(state.count) == 1
+    for got in (unshard_params([o[1] for o in outs]), outs[0][2]):
+        assert got.w1.shape == start.w1.shape
+        assert bool(torch.isfinite(got.w1).all())
+        assert not torch.equal(got.w1, start.w1)
     # the meshes still refused: data x expert, and an axis not ported
     with pytest.raises(NotImplementedError, match="data x expert"):
         make_mesh({DATA_AXIS: 2, "expert": 2}, device="cpu")
@@ -200,7 +217,10 @@ def test_cli_multi_rank_on_cpu_prints_the_payload(method):
 
 @pytest.mark.parametrize("flags", [["-m", "1", "--comm", "psum"],
                                    ["-m", "2", "-s", "6"],
-                                   ["-m", "3", "--mixed"],
+                                   ["-m", "3", "--zero1"],
+                                   ["-m", "2", "--zero1", "--comm",
+                                    "pallas_ring"],
+                                   ["-m", "4", "--optimizer", "adam"],
                                    ["-m", "1", "--fake_devices", "4"]])
 def test_cli_refuses_what_does_not_apply(flags):
     base = [a for a in CLI if a not in ("-s", "8")]

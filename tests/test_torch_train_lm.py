@@ -123,9 +123,31 @@ def test_shape_errors_match_jax(setup):
                          ids=["optimizer", "opt_state", "return_state",
                               "mixed", "rope"])
 def test_unported_options_raise(setup, kw):
+    """Of these options only ``attn_impl="rope"`` is still not ported and
+    raises ``NotImplementedError``. The stateful optimizers and ``mixed``
+    are ported (``test_torch_optim.py`` and ``test_torch_mixed.py`` hold
+    them against JAX): ``opt_state`` or ``return_state`` without an
+    optimizer raise ``ValueError``, as JAX's ``check_state_args`` does;
+    AdamW and ``mixed`` run, keep f32 params and move them otherwise
+    than SGD in f32 does."""
+    from distributed_llm_code_samples_tpu_torch.optim import adamw
     params, seeds = setup
-    with pytest.raises(NotImplementedError):
-        train_port(params, seeds, **kw)
+    name = next(iter(kw))
+    if name == "attn_impl":
+        with pytest.raises(NotImplementedError):
+            train_port(params, seeds, **kw)
+        return
+    if name in ("opt_state", "return_state"):
+        with pytest.raises(ValueError, match="need an optimizer"):
+            train_port(params, seeds, **kw)
+        return
+    run = train_port(params, seeds, **({"optimizer": adamw()}
+                                       if name == "optimizer" else kw))
+    sgd = train_port(params, seeds)
+    for a, b in zip(lm_leaves(run), lm_leaves(sgd)):
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+    assert not torch.allclose(run.blocks.w1, sgd.blocks.w1, rtol=1e-6,
+                              atol=1e-8)
 
 
 def test_on_step_sees_every_step(setup):

@@ -201,11 +201,25 @@ def test_refusals_before_anything_is_spawned(setup):
     with pytest.raises(ValueError, match="not divisible"):
         train_hybrid(start, seeds[:6], TOKENS, D,
                      make_mesh({DATA_AXIS: 4, MODEL_AXIS: 2}, device="cpu"))
-    for fn, mesh in ((train_tp, model4), (train_tp_sp, model4),
-                     (train_hybrid, make_mesh({DATA_AXIS: 2, MODEL_AXIS: 2},
-                                              device="cpu"))):
-        with pytest.raises(NotImplementedError, match="mixed"):
-            fn(start, seeds, TOKENS, D, mesh, mixed=True)
+    # mixed is ported: each trainer runs it (on loopback CPU threads) and
+    # ends where single-device mixed training ends (TP) or moved (the
+    # hybrid); test_torch_mixed.py holds each against JAX's
+    single = train_single(start, seeds, TOKENS, D, lr=LR, mixed=True,
+                          batch_fn=setup[2])
+    for fn, axes in ((train_tp, {MODEL_AXIS: N}), (train_tp_sp,
+                                                   {MODEL_AXIS: N}),
+                     (train_hybrid, {DATA_AXIS: 2, MODEL_AXIS: 2})):
+        got = fn(start, seeds, TOKENS, D, _loopback(axes), lr=LR,
+                 mixed=True, batch_fn=setup[2])
+        assert got.w1.dtype == torch.float32
+        if fn is train_hybrid:
+            _moved(got, start)
+        else:
+            # the mixed tolerance (test_torch_mixed.py): TP's bf16 operands
+            # are single's, its f32 sums split over the shards
+            for g, w in zip(got, single):
+                np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=2e-2,
+                                           atol=1e-4)
     with pytest.raises(NotImplementedError, match="data x expert"):
         make_mesh({DATA_AXIS: 2, EXPERT_AXIS: 2}, device="cpu")
 
@@ -263,7 +277,7 @@ def test_cli_tp_and_hybrid_print_the_payload(flags, mesh, steps_per_rank):
                                    ["-m", "4", "--dp", "2"],
                                    ["-m", "3", "--strict"],
                                    ["-m", "4", "--pallas"],
-                                   ["-m", "0", "--mixed"],
+                                   ["-m", "0", "--optimizer", "adam"],
                                    ["-m", "5", "--comm", "psum"]])
 def test_cli_refuses_flags_that_do_not_apply(capsys, flags):
     assert cli.main(CLI[3:] + flags) == 2
