@@ -13,12 +13,15 @@
                                            # 4 virtual ranks
     python3 chip_smoke.py --phase opt      # the bf16-storage kernels, the
                                            # optimizers, ZeRO-1, mixed
+    python3 chip_smoke.py --phase lmtp     # the LM kernels, Megatron TP
+                                           # of the LM and the transformer,
+                                           # 4 virtual ranks
     python3 chip_smoke.py --phase dist     # ring, DDP/FSDP, all-to-all,
-                                           # EP, TP, the hybrid and
-                                           # cli.py -m 0 on 4 cards (not
-                                           # in the default run)
-    python3 chip_smoke.py --phase dist-tp  # --phase dist's TP, hybrid
-                                           # and -m 0 alone
+                                           # EP, TP, the hybrid, LM TP and
+                                           # cli.py -m 0, 8, 11 on 4 cards
+                                           # (not in the default run)
+    python3 chip_smoke.py --phase dist-tp  # --phase dist's TP, hybrid,
+                                           # LM TP and -m 0, 8, 11 alone
 
 Builds every kernel of the port from ``csrc/`` (printing ptxas's spill
 counts as ``ptxas-spills``), holds each against its plain PyTorch
@@ -88,7 +91,25 @@ each split size, ``paged-splits``), then drives the port's paths:
   ``dist-opt-train-check``) and ``cli.py -m 2 --zero1 --optimizer adam
   --mixed``, ``-m 3 --optimizer adamw --clip_norm 1.0 --mixed --comm
   pallas_ring`` and ``-m 0 --mixed --strict`` (``dist-cli-zero1``,
-  ``dist-cli-fsdp-adamw``, ``dist-cli-m0-mixed``).
+  ``dist-cli-fsdp-adamw``, ``dist-cli-m0-mixed``);
+- Megatron TP of the LM and of the transformer (``--phase lmtp``): at
+  the LM-training shape above on 4 ranks, each with 3 of the 12 heads
+  and 12576 of the 50304 vocab rows, ``train_lm_tp`` under flash
+  attention with the fused head, flash with the oracle head and rope
+  with the oracle head, and ``train_transformer_tp`` of the 12-layer
+  trunk plain and sequence-parallel under flash, 8 steps each
+  (``lmtp-train-run``: the step, tokens/s and each LM kernel's launches a
+  rank, which must be exact); one step of each at ``CHECK_LR`` held
+  against float64 over the single-device trainer's error
+  (``lmtp-train-check``, unchanged weights as the control); and the
+  head kernels on each rank's vocab shard against float64
+  (``lmtp-head-case``: shifted targets outside the shard and in the pad
+  columns of an unaligned shard, the backward given the merged lse, with
+  controls that must fail). The default run holds the ranks on one card
+  in loopback; ``--phase dist`` and ``dist-tp`` run them one rank a card
+  over NCCL and then ``cli.py -m 11 --head fused --attn flash`` and
+  ``-m 8 --tp_sp --attn flash`` at that shape (``dist-cli-m11``,
+  ``dist-cli-m8-sp``).
 
 It fails (exit code 1) if there is no CUDA device, if a kernel does not
 build, launch or agree, if a kernel path did not go through its
@@ -1565,7 +1586,10 @@ def lm_train_phase(torch, np, card):
     return launches
 
 
-def lm_kernel_rows(cases, launches):
+def lm_kernel_rows(cases, launches, tp_launches=None):
+    """The LM kernels' rows of the kernels line: ``launches`` from the
+    single-device LM run, ``tp_launches`` (a rank's) from the first LM TP
+    run (``lmtp_phase``), where it ran."""
     rows = []
     for name, _, _, src, replaces, counted in LM_KERNELS:
         mine = [c for c in cases if c["kernel"] == name]
@@ -1581,6 +1605,8 @@ def lm_kernel_rows(cases, launches):
             else sum(launches.get(c, 0) for c in counted),
             "launches_by_kernel": None if launches is None
             else {c: launches.get(c, 0) for c in counted},
+            "lmtp_launches_per_rank": None if tp_launches is None
+            else sum(tp_launches.get(c, 0) for c in counted),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "max_rel_err": max(c["rel_err"] for c in mine),
             "ms": main["ms"], "ms_bf16": main_bf16["ms"],
@@ -3173,6 +3199,345 @@ def tp_phase(torch, card, cards: int = 0):
           "the update check cannot tell unchanged weights from trained")
 
 
+# -- Megatron TP of the LM and of the transformer (lmtp) ---------------------
+#
+# At LM's shape on LMTP_N ranks: the LM under three attention x head
+# policies and the transformer trunk plain and sequence-parallel, all
+# with flash attention on the rank's 3 of 12 heads; the fused head on the
+# rank's 12576 of 50304 vocab rows. (label, family, attn_impl, head_impl,
+# sequence_parallel)
+LMTP_N = RING_N
+LMTP_RUNS = (("lm-flash-fused", "lm", "flash", "fused", False),
+             ("lm-flash-oracle", "lm", "flash", None, False),
+             ("lm-rope-oracle", "lm", "rope", None, False),
+             ("tf-flash", "tf", "flash", None, False),
+             ("tf-sp-flash", "tf", "flash", None, True))
+# the LM kernels' launch counters on the TP path
+LMTP_COUNTERS = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
+                 "head_xent_stats", "head_xent_bwd")
+# the head kernels on one rank's vocab shard (lmtp-head-case): V/n
+# 12576 at the LM's vocab, and 12573 (V 50292), whose 4-rounded w^T has
+# three pad columns a shifted target can name
+LMTP_HEAD_SHARDS = (("lm", LM["vocab"]), ("pad", 4 * 12573))
+
+
+def lmtp_rank(mesh, payload):
+    """One rank of an ``lmtp`` run (module level: ``--phase dist`` spawns
+    it): ``train_lm_tp`` or ``train_transformer_tp`` at ``LM``'s shape
+    with rank 0's steps stamped; returns the rank's final shards on the
+    CPU, the stamps and, in a process of its own, its launch counts and
+    peak memory."""
+    import torch
+
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    from distributed_llm_code_samples_tpu_torch.optim import leaves
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        train_lm_tp, train_transformer_tp)
+    family, params, seeds, lr, kw = payload
+    stamps = []
+
+    def on_step(_):
+        if mesh.rank == 0:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    if not mesh.loopback:
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+    train = train_lm_tp if family == "lm" else train_transformer_tp
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train(params, seeds, LM_TOKENS, LM["d_model"], mesh, lr=lr,
+                seq_len=LM["seq_len"], n_heads=LM["n_heads"],
+                on_step=on_step, **kw)
+    torch.cuda.synchronize()
+    return dict(shards=[t.cpu() for t in leaves(out)], t0=t0, stamps=stamps,
+                launches=None if mesh.loopback else launch_counts(),
+                max_memory_allocated_gb=None if mesh.loopback else
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def lmtp_head_cases(torch, np, card):
+    """The head kernels on each rank's vocab shard at the TP path's shape
+    (N 8192, d 768, 4 ranks), against float64 (``BLOCK_TOL`` by
+    ``row_err``): the statistics with the targets shifted by ``r V/n``
+    (most below 0 or at and past V/n), at V/n 12576 and at 12573 with a
+    third of the rows' shifted targets in the pad columns ``[V/n, V/n +
+    3)``; the backward given the merged global lse; and the merged lse,
+    the summed tz and dh and the joined dw against the whole vocabulary's.
+    Controls that must fail: the statistics against targets wrapped into
+    the shard (``t mod V/n``), the pad case's against its pad targets
+    clamped to the last real column, the backward given the rank's own
+    lse."""
+    from distributed_llm_code_samples_tpu_torch.ops import fused_xent as fx
+    n, d = LM_TOKENS, LM["d_model"]
+
+    def err(got, want):
+        return max(row_err(torch, g.reshape(-1, g.shape[-1]) if g.dim() > 1
+                           else g.reshape(1, -1),
+                           w.reshape(-1, w.shape[-1]) if w.dim() > 1
+                           else w.reshape(1, -1))
+                   for g, w in zip(got, want))
+
+    rows = []
+    for tag, v in LMTP_HEAD_SHARDS:
+        vl = v // LMTP_N
+        rng = np.random.default_rng(v)
+        h = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).cuda()
+        w = torch.from_numpy((0.02 * rng.normal(size=(v, d))).astype(
+            np.float32)).cuda()
+        t = rng.integers(0, v, size=n)
+        if tag == "pad":
+            # a third of the rows target (k + 1) V/n + j, j < 3: rank k
+            # sees the pad column V/n + j
+            j = np.arange(n // 3)
+            t[:n // 3] = ((j // 3) % (LMTP_N - 1) + 1) * vl + j % 3
+        t = torch.from_numpy(t).cuda()
+        h64, w64 = h.double(), w.double()
+        dy = torch.tensor(1.0, device="cuda")
+        stats, want_stats = [], []
+        for r in range(LMTP_N):
+            wr, tr = w[r * vl:(r + 1) * vl], t - r * vl
+            stats.append(fx.head_xent_stats(h, wr, tr))
+            want_stats.append(fx.head_xent_stats_ref(h64, wr.double(), tr))
+        lse_l = torch.stack([s_[0] for s_ in stats])
+        m = lse_l.amax(0)
+        lse_g = m + torch.log(torch.exp(lse_l - m).sum(0))
+        lse64, tz64 = fx.head_xent_stats_ref(h64, w64, t)
+        merged = err((lse_g, sum(s_[1] for s_ in stats)), (lse64, tz64))
+        dh_sum, dws, bwd_err, own_err, stats_err, ctl_err = 0, [], 0, [], 0, []
+        for r in range(LMTP_N):
+            wr, tr = w[r * vl:(r + 1) * vl], t - r * vl
+            stats_err = max(stats_err, err(stats[r], want_stats[r]))
+            wrong = (tr.clamp(max=vl - 1) if tag == "pad"
+                     else torch.remainder(tr, vl))
+            if not torch.equal(wrong, tr):
+                ctl_err.append(err(stats[r], fx.head_xent_stats_ref(
+                    h64, wr.double(), wrong)))
+            dh, dw = fx.head_xent_bwd(dy, h, wr, tr, lse_g)
+            want = fx.head_xent_bwd_ref(dy.double(), h64, wr.double(), tr,
+                                        lse64)
+            bwd_err = max(bwd_err, err((dh, dw), want))
+            own_err.append(err(fx.head_xent_bwd(dy, h, wr, tr,
+                                                stats[r][0]), want))
+            dh_sum = dh_sum + dh
+            dws.append(dw)
+            del want
+        full = fx.head_xent_bwd_ref(dy.double(), h64, w64, t, lse64)
+        whole = err((dh_sum, torch.cat(dws)), full)
+        shifted = t[:, None] - torch.arange(LMTP_N, device="cuda") * vl
+        row = dict(case=tag, n=n, d=d, vocab=v, v_local=vl,
+                   targets_out_of_shard=float(((shifted < 0) | (shifted >= vl))
+                                              .float().mean()),
+                   targets_in_pad=int(((shifted >= vl) & (shifted < vl + 3))
+                                      .sum()) if tag == "pad" else 0,
+                   stats_err=stats_err, merged_err=merged, bwd_err=bwd_err,
+                   whole_vocab_err=whole, control_target_err_min=min(ctl_err),
+                   control_own_lse_err_min=min(own_err), tol=BLOCK_TOL,
+                   card=card)
+        print("lmtp-head-case " + json.dumps(row), flush=True)
+        rows.append(row)
+        del full, dws, dh_sum, h64, w64
+    for row in rows:
+        check(max(row["stats_err"], row["merged_err"], row["bwd_err"],
+                  row["whole_vocab_err"]) <= BLOCK_TOL,
+              f"the head kernels on a vocab shard ({row['case']}) disagree "
+              "with float64")
+        check(min(row["control_target_err_min"],
+                  row["control_own_lse_err_min"]) > BLOCK_TOL,
+              f"a control of the vocab-shard check ({row['case']}) passes")
+    check(rows[1]["targets_in_pad"] > 0, "no target fell in a pad column")
+
+
+def lmtp_phase(torch, np, card, cards: int = 0):
+    """Megatron TP of the LM and of the transformer at ``LM``'s shape on
+    ``LMTP_N`` ranks (``LMTP_RUNS``, 8 steps at the package LR each,
+    ``lmtp-train-run``), one step at ``CHECK_LR`` of each against
+    float64 over the single-device trainer's error (``lmtp-train-check``)
+    and, on one card, a traced run (``lmtp-train-profile``) and the head
+    kernels on a vocab shard (``lmtp-head-case``). ``cards`` 0: the ranks in loopback on one card;
+    else one rank a card over NCCL. Returns the TP path's launches of the
+    LM kernels a rank, from the first run."""
+    from distributed_llm_code_samples_tpu_torch import LR
+    from distributed_llm_code_samples_tpu_torch.data import (
+        batch_from_seed, make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models import (
+        TransformerParams, init_lm, lm_from_leaves)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    from distributed_llm_code_samples_tpu_torch.optim import leaves
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        MODEL_AXIS, launch, make_mesh, train_lm_single,
+        train_transformer_single)
+    from distributed_llm_code_samples_tpu_torch.parallel import lm as lm_mod
+    from distributed_llm_code_samples_tpu_torch.parallel import transformer
+    t_phase = time.perf_counter()
+    mode = f"{cards} cards" if cards else "loopback"
+    mesh = make_mesh({MODEL_AXIS: LMTP_N},
+                     **(dict(device="cuda") if cards else
+                        dict(loopback=True)))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM["random_seed"])
+    params = init_lm(gen, LM["vocab"], LM["d_model"], LM["n_layers"],
+                     LM["seq_len"], n_heads=LM["n_heads"])
+    start = {"lm": params, "tf": params.blocks}
+    host = ({k: v.with_leaves([t.cpu() for t in leaves(v)])
+             for k, v in start.items()} if cards else start)
+    seeds = make_seed_schedule(LM["steps"], LM["random_seed"])
+    layers, steps_n = LM["n_layers"], LM["steps"]
+
+    def run(label, family, attn, head, sp, seeds, lr):
+        kw = dict(attn_impl=attn)
+        if family == "lm":
+            kw["head_impl"] = head
+        else:
+            kw["sequence_parallel"] = sp
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        outs = launch(lmtp_rank, mesh, (family, host[family], seeds, lr, kw),
+                      timeout=600)
+        if cards:
+            per_rank = outs[0]["launches"]
+            mem = outs[0]["max_memory_allocated_gb"]
+        else:
+            per_rank = {k: c / LMTP_N for k, c in launch_counts().items()}
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        if family == "lm":
+            full = lm_mod.lm_tp_unshard([lm_from_leaves(o["shards"])
+                                         for o in outs])
+        else:
+            full = transformer.tp_unshard([TransformerParams(*o["shards"])
+                                           for o in outs])
+        full = full.with_leaves([t.cuda() for t in leaves(full)])
+        return full, outs[0], per_rank, mem
+
+    first = None
+    for label, family, attn, head, sp in LMTP_RUNS:
+        full, r0, per_rank, mem = run(label, family, attn, head, sp, seeds,
+                                      LR)
+        check(all(bool(torch.isfinite(t).all()) for t in leaves(full)),
+              f"lmtp {label}: trained params are not finite")
+        del full
+        steps = [b - a for a, b in zip([r0["t0"]] + r0["stamps"],
+                                       r0["stamps"])]
+        med = statistics.median(steps[1:])
+        flops = LM_BLOCK_FLOPS + (LM_HEAD_FLOPS if family == "lm" else 0)
+        flash = layers * steps_n if attn == "flash" else 0
+        want = {"flash_attn_fwd": flash, "flash_attn_dq": flash,
+                "flash_attn_dkv": flash,
+                "head_xent_stats": steps_n if head else 0,
+                "head_xent_bwd": steps_n if head else 0}
+        print("lmtp-train-run " + json.dumps(dict(
+            run=f"{label}-{'nccl' if cards else 'loopback'}", mode=mode,
+            family=family, attn_impl=attn, head_impl=head or "oracle",
+            sequence_parallel=sp, mesh={MODEL_AXIS: LMTP_N},
+            heads_per_rank=LM["n_heads"] // LMTP_N,
+            vocab_rows_per_rank=LM["vocab"] // LMTP_N,
+            steps_per_rank=len(steps), tokens_per_step=LM_TOKENS,
+            median_step_ms=1e3 * med, first_step_ms=1e3 * steps[0],
+            tokens_per_s=LM_TOKENS / med,
+            model_tflops_per_s=flops / med / 1e12,
+            f32_peak_share=flops / med / (F32_FLOPS_PER_S * (cards or 1)),
+            max_memory_allocated_gb=mem, launches_per_rank=per_rank,
+            card=card)), flush=True)
+        for name, n in want.items():
+            check(per_rank.get(name, 0) == n, f"lmtp {label}: "
+                  f"{per_rank.get(name, 0)} launches of {name} a rank, "
+                  f"expected {n}")
+        check(set(per_rank) <= set(want),
+              f"lmtp {label}: launches {per_rank}")
+        if first is None:
+            first = {k: per_rank.get(k, 0) for k in LMTP_COUNTERS}
+    if not cards:
+        # where the device time goes in 3 steps of the first run (a traced
+        # launch: its wall time holds the ranks' start, the sharding and
+        # the shards' trip back as well as the steps)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(*LMTP_RUNS[0], seeds[:3], LR)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        summary = profile_summary(prof, wall_ms)
+        summary.update(run=LMTP_RUNS[0][0], steps=3,
+                       lm_kernels=lm_parts(prof), card=card)
+        print("lmtp-train-profile " + json.dumps(summary), flush=True)
+        del prof
+
+    # one step at CHECK_LR from the same params, each update against a
+    # float64 step (the oracle ops) over the error of the single-device
+    # f32 trainer under the same policy (UPDATE_RATIO), leaf by leaf
+    def batch64(seed, batch, dim, dtype, device):
+        return tuple(v.double() for v in
+                     batch_from_seed(seed, batch, dim, device=device))
+
+    one = seeds[:1]
+    lm_kw = dict(lr=CHECK_LR, seq_len=LM["seq_len"], n_heads=LM["n_heads"])
+    want64 = {}
+
+    def reference(family, attn):
+        """The float64 step of ``family``: the oracle ops, rotary
+        positions under ``rope`` (flash and the fused head compute the
+        oracle's function; their kernels take no float64)."""
+        attn = "rope" if attn == "rope" else None
+        if (family, attn) not in want64:
+            want64.clear()
+            p64 = start[family].with_leaves([t.double() for t in
+                                             leaves(start[family])])
+            if family == "lm":
+                want64[family, attn] = train_lm_single(
+                    p64, one, LM_TOKENS, LM["d_model"], attn_impl=attn,
+                    **lm_kw)
+            else:
+                want64[family, attn] = train_transformer_single(
+                    p64, one, LM_TOKENS, LM["d_model"], attn_impl=attn,
+                    batch_fn=batch64, **lm_kw)
+        return want64[family, attn]
+
+    def errs(got, family, attn):
+        return [update_err(torch, g, w, p0) for g, w, p0 in zip(
+            leaves(got), leaves(reference(family, attn)),
+            leaves(start[family]))]
+
+    row = dict(mode=mode, check_lr=CHECK_LR, update_ratio_limit=UPDATE_RATIO)
+    ratios, unchanged = {}, []
+    for label, family, attn, head, sp in LMTP_RUNS:
+        if family == "lm":
+            single = train_lm_single(params, one, LM_TOKENS, LM["d_model"],
+                                     attn_impl=attn, head_impl=head, **lm_kw)
+        else:
+            single = train_transformer_single(params.blocks, one, LM_TOKENS,
+                                              LM["d_model"], attn_impl=attn,
+                                              **lm_kw)
+        base = errs(single, family, attn)
+        del single
+        got = run(label, family, attn, head, sp, one, CHECK_LR)[0]
+        e = errs(got, family, attn)
+        del got
+        ratios[label] = max(a / b for a, b in zip(e, base))
+        unchanged.append(min(1.0 / b for b in base))
+        row[f"{label}_single_update_err_vs_f64"] = base
+        row[f"{label}_update_err_vs_f64"] = e
+        row[f"{label}_update_err_ratio_max"] = ratios[label]
+    row.update(unchanged_ratio_min=min(unchanged), card=card)
+    del want64
+    print("lmtp-train-check " + json.dumps(row), flush=True)
+    for label, ratio in ratios.items():
+        check(ratio <= UPDATE_RATIO, f"lmtp {label}'s update {ratio:.2f}x "
+              "as far from float64 as the single-device f32 trainer's")
+    check(min(unchanged) > UPDATE_RATIO,
+          "the update check cannot tell unchanged weights from trained")
+    if not cards:
+        lmtp_head_cases(torch, np, card)
+    print("lmtp-phase " + json.dumps(dict(
+        mode=mode, phase_s=time.perf_counter() - t_phase, card=card)),
+        flush=True)
+    return first
+
+
 # -- the stateful optimizers, ZeRO-1 and the bf16 mixed policy -------------
 #
 # The kernels on bf16 storage: (kernels-line row, source, the TPU kernel
@@ -3994,6 +4359,20 @@ CLI_OPT = (
     ("dist-cli-m0-mixed", CLI_M0 + ("--mixed",)))
 
 
+# the LM's and the transformer's TP through the CLI at LM's shape on every
+# card (--phase dist, dist-tp): the fused head and flash attention, and
+# sequence-parallel TP of the blocks
+LMTP_CLI_SHAPE = ("-s", "8", "-bs", str(LM["batch"]), "-n",
+                  str(LM["seq_len"]), "-l", str(LM["n_layers"]), "-d",
+                  str(LM["d_model"]), "-r", "7", "--heads",
+                  str(LM["n_heads"]), "--tp", str(LMTP_N))
+CLI_LMTP = (
+    ("dist-cli-m11", ("-m", "11", "--head", "fused", "--attn", "flash",
+                      "--vocab", str(LM["vocab"])) + LMTP_CLI_SHAPE),
+    ("dist-cli-m8-sp", ("-m", "8", "--tp_sp", "--attn", "flash")
+     + LMTP_CLI_SHAPE))
+
+
 def cli_m0_phase(cards, argv=CLI_M0, tag="dist-cli-m0") -> None:
     """``cli.py`` with ``argv`` (default ``-m 0 ... --strict``: methods 1-4
     in turn, then DDP against FSDP and single-device against TP) as a
@@ -4016,6 +4395,7 @@ def cli_m0_phase(cards, argv=CLI_M0, tag="dist-cli-m0") -> None:
                          if l.startswith("SoftAssertionError")],
         runs=[{k: r.get(k) for k in ("method", "ranks", "mesh", "comm",
                                      "optimizer", "zero1", "mixed",
+                                     "sequence_parallel", "attn", "head",
                                      "median_step_ms", "tokens_per_s",
                                      "model_tflops_per_s",
                                      "kernel_launches")} for r in runs],
@@ -4071,6 +4451,10 @@ def dist_phase(torch, tp_only: bool = False):
             row["cards"] = cards
     tp_phase(torch, cards, cards=RING_N)
     cli_m0_phase(cards)
+    import numpy as np
+    lmtp_phase(torch, np, cards, cards=RING_N)
+    for tag, argv in CLI_LMTP:
+        cli_m0_phase(cards, argv, tag)
     if not tp_only:
         for tag, argv in CLI_OPT:
             cli_m0_phase(cards, argv, tag)
@@ -4081,7 +4465,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
                     choices=["all", "kernel", "train", "lm", "ring", "ep",
-                             "tp", "opt", "dist", "dist-tp"],
+                             "tp", "opt", "lmtp", "dist", "dist-tp"],
                     default="all")
     args = ap.parse_args(argv)
     try:
@@ -4124,6 +4508,7 @@ def main(argv=None) -> int:
     timer = Timer(torch)
     kernels, bad = [], []
     ffn_phases, lm_phases = ("all", "kernel", "train"), ("all", "lm")
+    lm_kernel_phases = ("all", "lm", "lmtp")
     ring_phases, ep_phases = ("all", "ring"), ("all", "ep")
     opt_phases = ("all", "opt")
     if args.phase in ("all", "kernel"):
@@ -4134,7 +4519,7 @@ def main(argv=None) -> int:
     if args.phase in ffn_phases:
         ffn_cases = ffn_kernel_phase(torch, np, timer)
         bad += [c for c in ffn_cases if not c["ok"]]
-    if args.phase in lm_phases:
+    if args.phase in lm_kernel_phases:
         lm_cases = lm_kernel_phase(torch, np, timer)
         bad += [c for c in lm_cases if not c["ok"]]
     if args.phase in ring_phases:
@@ -4147,7 +4532,7 @@ def main(argv=None) -> int:
         bf16_cases = bf16_kernel_phase(torch, np, timer)
         bad += [c for c in bf16_cases if not c["ok"]]
     launches = ffn_launches = lm_launches = ring_launches = None
-    ep_launches = bf16_launches = None
+    ep_launches = bf16_launches = lmtp_launches = None
     if not bad and args.phase == "all":
         launches = serving_phase(torch, np, card)
     if not bad and args.phase in ("all", "train"):
@@ -4163,6 +4548,8 @@ def main(argv=None) -> int:
     if not bad and args.phase in opt_phases:
         bf16_launches = dict(opt_train_phase(torch, np, card),
                              **opt_lm_phase(torch, np, card))
+    if not bad and args.phase in ("all", "lmtp"):
+        lmtp_launches = lmtp_phase(torch, np, card)
     if args.phase in ("all", "kernel"):
         main_case = next(c for c in cases if c["shape"] == "serving"
                          and c["kv_dtype"] == "f32")
@@ -4182,8 +4569,8 @@ def main(argv=None) -> int:
             "ok": all(c["ok"] for c in cases)})
     if args.phase in ffn_phases:
         kernels += ffn_kernel_rows(ffn_cases, ffn_launches)
-    if args.phase in lm_phases:
-        kernels += lm_kernel_rows(lm_cases, lm_launches)
+    if args.phase in lm_kernel_phases:
+        kernels += lm_kernel_rows(lm_cases, lm_launches, lmtp_launches)
     if args.phase in ring_phases:
         kernels += ring_kernel_rows(ring_cases, ring_launches)
     if args.phase in ep_phases:

@@ -44,6 +44,15 @@ two all-to-alls a layer over the ``"expert"`` mesh. Under
 stores into every peer's workspace (``csrc/ring_collectives.cu``, bound
 by ``ops/ring.py``); under ``comm="psum"`` ``all_to_all_single``.
 
+Then Megatron tensor parallelism of the transformer and of the LM: ``parallel/transformer.py::train_transformer_tp`` (plain and
+sequence-parallel) beside ``train_transformer_single``, and
+``parallel/lm.py::train_lm_tp`` with the vocab-parallel embedding,
+cross-entropy and fused head (``vp_embed``, ``vp_xent``,
+``vp_head_xent``, the last on the fused head's kernels over the rank's
+vocab rows), run by ``cli.py -m 8`` and ``-m 11``; rotary attention
+(``models/attention.py::rope_mha``) for every LM and transformer
+trainer.
+
 Subpackages: ``ops`` (LayerNorm, linear, ReLU, cross-entropy, the FFN
 block and stack, MoE routing and dispatch, the kernels and their
 build), ``models`` (parameters, attention, the transformer, the LM, the

@@ -2,8 +2,10 @@
 that are ported: ``-m 0`` (methods 1-4, then the cross-strategy check),
 ``-m 1`` (single device), ``-m 2`` (DDP), ``-m 3`` (FSDP), ``-m 4``
 (Megatron TP; ``--tp_sp`` its sequence-parallel form), ``-m 5`` (the
-hybrid DDP x TP on a ``--dp`` x ``--tp`` mesh) and ``-m 7`` (expert
-parallelism of the MoE stack).
+hybrid DDP x TP on a ``--dp`` x ``--tp`` mesh), ``-m 7`` (expert
+parallelism of the MoE stack), ``-m 8`` (Megatron TP of the transformer
+blocks) and ``-m 11`` (Megatron TP of the language model on the real
+cross-entropy, vocab-parallel).
 
     python -m distributed_llm_code_samples_tpu_torch.cli -m 1 -s 8 \\
         -bs 8 -n 1024 -l 24 -d 768 -r 7 --pallas
@@ -18,11 +20,14 @@ parallelism of the MoE stack).
     python -m distributed_llm_code_samples_tpu_torch.cli --device cpu \\
         --fake_devices 4 -m 2 --zero1 --optimizer adam --mixed -s 8 -bs 2 \\
         -n 16 -l 4 -d 32 -r 7
+    python -m distributed_llm_code_samples_tpu_torch.cli --device cpu \\
+        --fake_devices 4 --tp 4 -m 11 --head fused --attn flash -s 4 \\
+        -bs 2 -n 16 -l 2 -d 32 -r 7 --vocab 256 --heads 4
 
 The reference's seven flags keep their short names and defaults; the
 default method is 0, as the reference's; any method not listed exits 2.
-It runs on the card unless ``--device cpu`` is given. Methods 2, 3, 4, 5
-and 7 spawn one rank per visible card (fewer than 2 cards exit 2), or
+It runs on the card unless ``--device cpu`` is given. Methods 2, 3, 4, 5,
+7, 8 and 11 spawn one rank per visible card (fewer than 2 cards exit 2), or
 ``--fake_devices`` gloo ranks on the CPU; ``-s`` is the global step
 count, split stride-wise over the data ranks (TP's ranks each take every
 step). ``--comm`` picks the transport of methods 2 and 3 (``psum``:
@@ -33,7 +38,12 @@ kernel transport). Method 5's mesh is ``--dp`` x ``--tp`` ranks,
 JAX CLI's, ``--experts`` and the LR and leaves the rest at
 ``train_moe_ep``'s defaults (top-1, capacity factor 2, no aux loss, the
 dense dispatch, ``comm="psum"``); its tokens a step (``-bs`` x ``-n``)
-are the whole EP group's.
+are the whole EP group's. Methods 8 and 11 run on a model axis of
+``min(--tp, ranks)`` ranks (``--tp`` defaulting to 2), as the JAX CLI's:
+``--heads`` heads, ``--attn`` (oracle, rope or flash), 8 also ``--tp_sp``,
+11 ``--vocab``, ``--kv_heads`` (grouped-query attention; it must divide
+``--heads`` and be divisible by the model axis) and ``--head`` (oracle
+or the fused kernels); ``-n`` is the sequence length.
 
 The training options follow the JAX CLI's rules: ``--optimizer``
 (``optim.OPTIMIZERS``) and ``--clip_norm`` apply to methods 2 and 3
@@ -54,7 +64,8 @@ options, and from it tokens/s
 and the model TFLOP/s (``12 * T * d * ffn * L`` a step for each batch
 the mesh takes: once for TP, whose ranks share one batch, once a data
 rank for DDP, FSDP and the hybrid; for method 7 T counts every routed
-token, dropped ones too); the device, the kernel launch counts (rank
+token, dropped ones too; for 8 and 11 ``bench.py``'s count of the blocks,
+and 11 adds the head's ``6 * T * d * V``); the device, the kernel launch counts (rank
 0's, and every rank's) and a per-layer checksum of the final
 parameters. Method 0 then holds DDP against FSDP and single-device
 against TP, leaf by leaf, within rtol 1e-5 and atol 1e-7 (1e-4 and 1e-5
@@ -74,10 +85,11 @@ import statistics
 import sys
 import time
 
-PORTED_METHODS = (0, 1, 2, 3, 4, 5, 7)
-RANK_METHODS = (2, 3, 4, 5, 7)
+PORTED_METHODS = (0, 1, 2, 3, 4, 5, 7, 8, 11)
+RANK_METHODS = (2, 3, 4, 5, 7, 8, 11)
 TRAINERS = {1: "train_single", 2: "train_ddp", 3: "train_fsdp",
-            4: "train_tp", 5: "train_hybrid", 7: "train_moe_ep"}
+            4: "train_tp", 5: "train_hybrid", 7: "train_moe_ep",
+            8: "train_transformer_tp", 11: "train_lm_tp"}
 # method 0's checks (JAX cli.py:944-955): (rtol, atol), under --pallas and
 # under --mixed
 CHECK_TOL, PALLAS_CHECK_TOL = (1e-5, 1e-7), (1e-4, 1e-5)
@@ -97,8 +109,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--method", type=int, default=0,
                    help="0=all(1-4) and the cross-strategy check, "
                         "1=single device, 2=DDP, 3=FSDP, 4=TP, 5=hybrid "
-                        "DDP x TP, 7=MoE expert parallelism (the methods "
-                        "ported so far)")
+                        "DDP x TP, 7=MoE expert parallelism, 8=transformer "
+                        "blocks (Megatron TP; --heads), 11=language model on "
+                        "the real cross-entropy (vocab-parallel Megatron "
+                        "TP; --vocab --heads) (the methods ported so far)")
     p.add_argument("-r", "--random_seed", type=int, default=0,
                    help="!=0 makes runs reproducible (train_ffns.py:350)")
     p.add_argument("--pallas", action="store_true",
@@ -134,14 +148,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "ring kernels: DDP grad all-reduce; FSDP param "
                         "all-gathers and grad reduce-scatters)")
     p.add_argument("--tp_sp", action="store_true",
-                   help="with --method 4: sequence-parallel TP (the stream "
-                        "between blocks token-sharded; all-gather in, "
-                        "reduce-scatter out)")
+                   help="with --method 4 or 8: sequence-parallel TP (the "
+                        "stream between blocks token-sharded; all-gather "
+                        "in, reduce-scatter out)")
     p.add_argument("--dp", type=int, default=None,
                    help="with --method 5: data-axis size (default: the "
                         "ranks // --tp)")
     p.add_argument("--tp", type=int, default=None,
-                   help="with --method 5: model-axis size (default 2)")
+                   help="with --method 5, 8 or 11: model-axis size "
+                        "(default 2; 8 and 11 take min(--tp, ranks))")
+    p.add_argument("--heads", type=int, default=4,
+                   help="attention heads for --method 8 and 11")
+    p.add_argument("--vocab", type=int, default=256,
+                   help="vocabulary size for --method 11 (divisible by the "
+                        "model-axis size)")
+    p.add_argument("--kv_heads", type=int, default=0,
+                   help="with --method 11: grouped-query attention with this "
+                        "many KV heads (0 = full MHA; must divide --heads "
+                        "and the model-axis size must divide it)")
+    p.add_argument("--attn", choices=["oracle", "rope", "flash"],
+                   default="oracle",
+                   help="attention for --method 8 and 11: the hand-VJP "
+                        "oracle, rotary positions, or the flash kernels "
+                        "(their plain versions on the CPU)")
+    p.add_argument("--head", choices=["oracle", "fused"], default="oracle",
+                   help="LM head and loss for --method 11: the logits and "
+                        "the hand-VJP cross-entropy, or the fused head's "
+                        "kernels (vocab-parallel merge)")
     p.add_argument("--strict", action="store_true",
                    help="with --method 0: a failed cross-strategy check "
                         "exits 1 (the reference only soft-asserts, "
@@ -149,8 +182,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--experts", type=int, default=8,
                    help="expert count for --method 7 (MoE)")
     p.add_argument("--fake_devices", type=int, default=0,
-                   help="with --device cpu and --method 0, 2, 3, 4, 5 or "
-                        "7: run on N gloo ranks (default 1)")
+                   help="with --device cpu and --method 0, 2, 3, 4, 5, 7, 8 "
+                        "or 11: run on N gloo ranks (default 1)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
@@ -183,17 +216,36 @@ def _flag_error(args) -> str | None:
     if args.clip_norm < 0:
         return f"--clip_norm must be >= 0 (got {args.clip_norm})"
     if args.fake_devices and m not in (0,) + RANK_METHODS:
-        return "--fake_devices applies to --method 0, 2, 3, 4, 5 or 7"
+        return ("--fake_devices applies to --method 0, 2, 3, 4, 5, 7, 8 or "
+                "11")
     if args.fake_devices and args.device != "cpu":
         return ("--fake_devices runs gloo ranks on the CPU: pass --device "
                 "cpu (on the card there is one rank a card)")
     if args.pallas and m not in (0, 1):
         return ("--pallas applies to --method 1, also inside 0 (the "
                 "multi-rank trainers run the matmul blocks)")
-    if args.tp_sp and m != 4:
-        return "--tp_sp applies to --method 4 only"
-    if (args.dp is not None or args.tp is not None) and m != 5:
-        return "--dp and --tp apply to --method 5 only"
+    if args.tp_sp and m not in (4, 8):
+        return "--tp_sp applies to --method 4 or 8 only"
+    if args.dp is not None and m != 5:
+        return "--dp applies to --method 5 only"
+    if args.tp is not None and m not in (5, 8, 11):
+        return "--tp applies to --method 5, 8 or 11 only"
+    # the transformer and LM flags, with the JAX CLI's messages
+    if args.attn != "oracle" and m not in (8, 11):
+        return ("--attn applies to --method 8, 11, 13, or 6 with "
+                "--pp_family transformer/lm")
+    if args.kv_heads < 0:
+        return f"--kv_heads must be >= 0 (got {args.kv_heads})"
+    if args.kv_heads and m != 11:
+        return ("--kv_heads applies to the LM family only (--method 11, 9, "
+                "or 6 with --pp_family lm)")
+    if args.kv_heads and args.heads % args.kv_heads:
+        return (f"--heads {args.heads} not divisible by --kv_heads "
+                f"{args.kv_heads}")
+    if args.head != "oracle" and m != 11:
+        return ("--head fused applies to --method 11 (LM TP), 12 (MoE LM "
+                "EP), 13 (sequence-parallel LM), or the --method 9 sweep "
+                "(which verifies them)")
     if args.strict and m != 0:
         return "--strict applies to --method 0 only (its checks)"
     return None
@@ -220,6 +272,10 @@ def _meshes(args, tokens: int, seeds, device) -> dict:
     ffn = 4 * args.model_size
     meshes = {}
     for m in methods:
+        if m in (8, 11):
+            meshes[m] = _tp_family_mesh(args, m, min(args.tp or 2, n),
+                                        device)
+            continue
         if m in (2, 3):
             shard_seeds_strided(seeds, n)
             if m == 3 and ffn % n:
@@ -259,6 +315,30 @@ def _meshes(args, tokens: int, seeds, device) -> dict:
     return meshes
 
 
+def _tp_family_mesh(args, m: int, tp: int, device):
+    """The model-axis mesh of method 8 or 11 (JAX ``cli.py``'s
+    ``min(--tp, devices)``), its splits checked as the trainers check
+    them."""
+    from .parallel import MODEL_AXIS, make_mesh
+    if args.kv_heads and tp > 1 and args.kv_heads % tp:
+        raise ValueError(f"--kv_heads {args.kv_heads} not divisible by the "
+                         f"model-axis size {tp} (min(--tp, devices)) "
+                         f"required by --method {m}")
+    d = args.model_size
+    if d % args.heads or args.heads % tp or (4 * d) % tp:
+        raise ValueError(f"TP splits the {args.heads} heads of d {d} and "
+                         f"the ffn dim {4 * d} over {tp} ranks: they must "
+                         "divide")
+    if m == 11 and args.vocab % tp:
+        raise ValueError(f"vocab={args.vocab} not divisible by model-axis "
+                         f"size {tp}")
+    if m == 8 and args.tp_sp and args.seq_len % tp:
+        raise ValueError(f"seq_len={args.seq_len} not divisible by "
+                         f"model-axis size {tp} (sequence-parallel TP "
+                         "shards tokens)")
+    return make_mesh({MODEL_AXIS: tp}, device=device.type)
+
+
 def _rank_run(mesh, payload):
     """The body of one rank of a multi-rank method: train, time the steps,
     count the launches; returns them with rank 0's replica (DDP) or the
@@ -266,8 +346,10 @@ def _rank_run(mesh, payload):
     import torch
 
     from .ops import launch_counts, reset_launch_counts
+    from .optim import leaves
     from .parallel import (train_ddp, train_ddp_zero1, train_fsdp,
-                           train_hybrid, train_moe_ep, train_tp, train_tp_sp)
+                           train_hybrid, train_lm_tp, train_moe_ep, train_tp,
+                           train_tp_sp, train_transformer_tp)
     params, seeds, tokens, d, lr, method, comm, tp_sp, options = payload
     cuda = mesh.torch_device.type == "cuda"
 
@@ -285,7 +367,8 @@ def _rank_run(mesh, payload):
     if method in (2, 3, 7) and not options.get("zero1"):
         kwargs["comm"] = comm
     train = {2: train_ddp, 3: train_fsdp, 4: train_tp_sp if tp_sp
-             else train_tp, 5: train_hybrid, 7: train_moe_ep}[method]
+             else train_tp, 5: train_hybrid, 7: train_moe_ep,
+             8: train_transformer_tp, 11: train_lm_tp}[method]
     if kwargs.pop("zero1", False):
         train = train_ddp_zero1
     sync()
@@ -296,13 +379,21 @@ def _rank_run(mesh, payload):
     keep = method != 2 or mesh.rank == 0
     return dict(steps=[b - a for a, b in zip([t0] + stamps, stamps)],
                 wall=wall, launches=launch_counts(),
-                params=tuple(t.cpu() for t in out) if keep else None,
+                params=[t.cpu() for t in leaves(out)] if keep else None,
                 device=(torch.cuda.get_device_name(mesh.torch_device)
                         if cuda else "cpu"))
 
 
+def _stack(params):
+    """The container of the per-layer ``w1``/``w2`` the reports read: the
+    LM's blocks, else the params."""
+    return getattr(params, "blocks", params)
+
+
 def _corners(params, moe: bool) -> str:
     """The first layer's shapes and 5x5 corners (JAX ``cli.py``)."""
+    params = _stack(params)
+
     def corner(w):
         return (w[0, 0] if moe else w[0])[:5, :5]
     return (f"layers_params[0] {tuple(params.w1[0].shape)} "
@@ -315,8 +406,39 @@ def _median_step(steps) -> float:
 
 
 def _checksums(out) -> list:
+    out = _stack(out)
     return [[float(out.w1[l].double().sum()), float(out.w2[l].double().sum())]
             for l in range(out.n_layers)]
+
+
+def _init(args, gen):
+    """The initial params of ``args.method``'s family (JAX ``cli.py``'s
+    ``params_for``)."""
+    from .models import init_lm, init_transformer
+    from .models.ffn_stack import init_ffn_stack
+    from .models.moe import init_moe_stack
+    d, layers = args.model_size, args.layers
+    if args.method == 7:
+        return init_moe_stack(gen, d, layers, args.experts)
+    if args.method == 8:
+        return init_transformer(gen, d, layers)
+    if args.method == 11:
+        return init_lm(gen, args.vocab, d, layers, max_seq_len=args.seq_len,
+                       n_heads=args.heads, n_kv_heads=args.kv_heads or None)
+    return init_ffn_stack(gen, d, layers)
+
+
+def _model_flops(args, tokens: int, m: int) -> float:
+    """Model flops of one batch: ``12 T d ffn L`` for the FFN stack and the
+    MoE (method 7 counts every routed token), ``bench.py``'s count for the
+    transformer blocks (``3 B L (8 S d^2 + 2 S^2 d + 16 d^2 S)``, B the
+    sequences, S their length), plus the head's ``6 T d V`` for the LM."""
+    d, layers, seq = args.model_size, args.layers, args.seq_len
+    if m not in (8, 11):
+        return 12 * tokens * d * 4 * d * layers
+    flops = 3 * (tokens // seq) * layers * (
+        8 * seq * d ** 2 + 2 * seq ** 2 * d + 16 * d ** 2 * seq)
+    return flops + (6 * tokens * d * args.vocab if m == 11 else 0)
 
 
 def main(argv=None) -> int:
@@ -335,8 +457,7 @@ def main(argv=None) -> int:
 
     from . import LR, resolve_device
     from .data import make_seed_schedule
-    from .models.ffn_stack import init_ffn_stack, params_size_gb
-    from .models.moe import init_moe_stack
+    from .models.ffn_stack import params_size_gb
     from .ops import build_all
     from .ops.fused_ffn import BWD_DW, BWD_DX, FWD
     from .parallel.single import make_step
@@ -360,7 +481,10 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         libs = ([FWD, BWD_DX, BWD_DW] if args.pallas else []) + (
-            ["ring_collectives"] if comm == "pallas_ring" else [])
+            ["ring_collectives"] if comm == "pallas_ring" else []) + (
+            ["flash_attn_fwd", "flash_attn_bwd"] if args.attn == "flash"
+            else []) + (["head_xent_fwd", "head_xent_bwd"]
+                        if args.head == "fused" else [])
         if libs:
             t0 = time.perf_counter()
             build_all(libs)
@@ -373,8 +497,7 @@ def main(argv=None) -> int:
     moe = args.method == 7
     gen = torch.Generator()
     gen.manual_seed(args.random_seed)
-    params = (init_moe_stack(gen, args.model_size, args.layers, args.experts)
-              if moe else init_ffn_stack(gen, args.model_size, args.layers))
+    params = _init(args, gen)
     print(f"PARAMS: {params.num_params():_} "
           f"(size {params_size_gb(params)} GB)\n\n", flush=True)
     print(f"initial {_corners(params, moe)}", flush=True)
@@ -429,7 +552,7 @@ def _run_single(args, params, seeds, tokens: int, device, kwargs):
     print(f"\ntrain_single takes {wall} seconds")
     steps = [b - a for a, b in zip([t0] + stamps, stamps)]
     step_s = _median_step(steps)
-    flops = 12 * tokens * args.model_size * params.ffn_dim * args.layers
+    flops = _model_flops(args, tokens, 1)
     return type(out)(*(t.cpu() for t in out)), {
         "wall_s": wall,
         "first_step_ms": 1e3 * steps[0],
@@ -449,14 +572,18 @@ def _run_ranks(args, m: int, mesh, params, seeds, tokens: int, lr: float,
                comm: str):
     """Method ``m`` over the ranks of ``mesh``; returns the full final
     params and the method's payload."""
+    from .models import TransformerParams, lm_from_leaves
     from .models.ffn_stack import FFNStackParams
     from .models.moe import MoEStackParams
     from .parallel import DATA_AXIS, expert, fsdp, hybrid, launch_replicated
+    from .parallel import lm as lm_mod
     from .parallel import tp as tp_mod
+    from .parallel import transformer as tf_mod
     n = mesh.size
     # the batches the mesh takes a step: one a data rank (DDP, FSDP, the
     # hybrid); TP's ranks share one, and EP's tokens are the group's
-    batches = {2: n, 3: n, 4: 1, 5: mesh.shape.get(DATA_AXIS, 1), 7: 1}[m]
+    batches = {2: n, 3: n, 4: 1, 5: mesh.shape.get(DATA_AXIS, 1), 7: 1,
+               8: 1, 11: 1}[m]
     comm = comm if m in (2, 3, 7) and not args.zero1 else "psum"
     options = _rank_options(args, m)
     t0 = time.perf_counter()
@@ -466,18 +593,22 @@ def _run_ranks(args, m: int, mesh, params, seeds, tokens: int, lr: float,
     wall = time.perf_counter() - t0
     name = "train_ddp_zero1" if args.zero1 else TRAINERS[m]
     print(f"\n{name} takes {wall} seconds")
-    shards = [(MoEStackParams if m == 7 else FFNStackParams)(*o["params"])
-              for o in outs if o["params"] is not None]
+    make = {7: MoEStackParams, 8: TransformerParams,
+            11: lambda *ls: lm_from_leaves(ls)}.get(m, FFNStackParams)
+    shards = [make(*o["params"]) for o in outs if o["params"] is not None]
     if m == 2:
         out = shards[0]
     elif m == 5:
         out = hybrid.unshard_params(shards, mesh)
+    elif m == 8:
+        out = tf_mod.tp_unshard(shards)
+    elif m == 11:
+        out = lm_mod.lm_tp_unshard(shards)
     else:
         out = {3: fsdp, 4: tp_mod, 7: expert}[m].unshard_params(shards)
     steps = outs[0]["steps"]
     step_s = _median_step(steps)
-    flops = (12 * tokens * args.model_size * params.ffn_dim * args.layers
-             * batches)
+    flops = _model_flops(args, tokens, m) * batches
     payload = {
         "steps_per_rank": len(steps),
         "ranks": n,
@@ -496,8 +627,13 @@ def _run_ranks(args, m: int, mesh, params, seeds, tokens: int, lr: float,
         "optimizer": (getattr(options.get("optimizer"), "name", None)),
         "zero1": args.zero1,
     }
-    if m == 4:
+    if m in (4, 8):
         payload["sequence_parallel"] = args.tp_sp
+    if m in (8, 11):
+        payload.update(heads=args.heads, attn=args.attn)
+    if m == 11:
+        payload.update(vocab=args.vocab, kv_heads=args.kv_heads,
+                       head=args.head)
     if m == 7:
         payload["experts"] = args.experts
         payload["router_checksums"] = [float(out.wg[l].double().sum())
@@ -510,7 +646,8 @@ def _rank_options(args, m: int) -> dict:
     ``cli.py``'s): ``mixed`` for 2-5, ``accum`` for 2, and for 2 and 3
     the optimizer, clipped (over the data axis where the update runs on
     shards) when ``--clip_norm`` is set; ``zero1`` picks
-    ``train_ddp_zero1``."""
+    ``train_ddp_zero1``; for 8 and 11 the sequence length, the heads and
+    the attention (and head) policy."""
     from .optim import OPTIMIZERS, clipped
     from .parallel import DATA_AXIS
     out = {}
@@ -528,6 +665,15 @@ def _rank_options(args, m: int) -> dict:
         out["optimizer"] = opt
     if args.zero1:
         out["zero1"] = True
+    if m in (8, 11):
+        # the trainer keywords of JAX cli.py:715-721
+        out.update(seq_len=args.seq_len, n_heads=args.heads)
+        if args.attn != "oracle":
+            out["attn_impl"] = args.attn
+        if m == 8 and args.tp_sp:
+            out["sequence_parallel"] = True
+        if m == 11 and args.head != "oracle":
+            out["head_impl"] = args.head
     return out
 
 

@@ -123,3 +123,18 @@ class BatchTable:
                              f"{(batch_size, model_size)}")
         return (torch.from_numpy(x).to(device, dtype),
                 torch.from_numpy(d).to(device, dtype))
+
+
+class TokenTable:
+    """An LM ``batch_fn`` over batches made elsewhere: ``{seed: (tokens,
+    targets)}`` of integer numpy arrays, handed out as int64 tensors on
+    the CPU (the trainer moves them). It pickles, so spawned ranks can
+    take it, as ``BatchTable`` does for the FFN trainers."""
+
+    def __init__(self, batches):
+        self.batches = {int(k): (np.array(t), np.array(g))
+                        for k, (t, g) in dict(batches).items()}
+
+    def __call__(self, seed):
+        t, g = self.batches[int(seed)]
+        return (torch.from_numpy(t).long(), torch.from_numpy(g).long())

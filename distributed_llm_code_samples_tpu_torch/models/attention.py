@@ -1,8 +1,9 @@
 """Attention, as in the JAX package's ``models/attention.py``: the causal
 mask, the hand-VJP softmax attention (``attention``, an
 ``autograd.Function``) with its multi-head and grouped-query forms, the
-training path's oracle; and the serving pieces, rotary positions, the
-paged-KV gather and prefill-chunk attention. Layouts are the JAX ones
+training path's oracle; rotary positions and the attention that rotates
+q and k with them (``rope_mha``); and the serving pieces, the paged-KV
+gather and prefill-chunk attention. Layouts are the JAX ones
 (``[H, T, dh]``); where JAX ``vmap``s over heads and batch, the port
 takes any leading dims and lets the matrix products batch over them."""
 
@@ -109,6 +110,22 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     sin = torch.sin(ang).to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def rope_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool = True) -> torch.Tensor:
+    """Multi-head attention with rotary positions: q and k rotated by
+    their in-window indices (``0..T-1``) before the hand-VJP ``mha``, or
+    ``gqa`` where k has fewer heads (``[..., H, T, dh]``). The trainers'
+    ``attn_impl="rope"``. The rotation is linear, so autograd's transpose
+    of it (the inverse rotation) differentiates it, as ``jax.vjp`` does
+    in the JAX op."""
+    pos = torch.arange(q.shape[-2], device=q.device)
+    op = mha if q.shape[-3] == k.shape[-3] else gqa
+    return op(rope(q, pos), rope(k, pos), v, causal)
+
+
+rope_mha.supports_gqa = True   # fewer k heads compose (attn_sublayer)
 
 
 def gather_paged_kv(pool_k: torch.Tensor, pool_v: torch.Tensor,

@@ -26,7 +26,7 @@ from ..ops.norm import layernorm
 from ..ops.xent import xent_loss
 from .attention import rope
 from .transformer import (FIELDS, TransformerParams, init_transformer,
-                          transformer_fwd)
+                          transformer_fwd, transformer_params_from_numpy)
 
 
 class LMParams(nn.Module):
@@ -59,6 +59,9 @@ class LMParams(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.wte.device
+
+    def num_params(self) -> int:
+        return sum(t.numel() for t in lm_leaves(self))
 
     def named_leaves(self) -> list[tuple[str, torch.Tensor]]:
         """``(field name, tensor)`` in ``lm_leaves`` order (the optimizers'
@@ -118,8 +121,7 @@ def lm_params_from_numpy(tree, device="cpu") -> LMParams:
 
     blocks = _field(tree, "blocks")
     return LMParams(t(_field(tree, "wte")), t(_field(tree, "wpe")),
-                    TransformerParams(*(t(_field(blocks, f))
-                                        for f in FIELDS)),
+                    transformer_params_from_numpy(blocks, device),
                     t(_field(tree, "ln_f")))
 
 

@@ -13,6 +13,9 @@ LN1(x)``, then ``x += FFN(LN2(x))``; activations ``[B, T, d]``.
 
 from __future__ import annotations
 
+from collections.abc import Mapping
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -36,6 +39,19 @@ class TransformerParams(nn.Module):
     @property
     def n_layers(self) -> int:
         return self.w1.shape[0]
+
+    def num_params(self) -> int:
+        return sum(t.numel() for _, t in self.named_leaves())
+
+    def named_leaves(self) -> list[tuple[str, torch.Tensor]]:
+        """``(field name, tensor)`` in ``FIELDS`` order, the JAX
+        ``TransformerParams``' leaf order (the optimizers' tree walk,
+        ``optim.py``)."""
+        return [(f, getattr(self, f)) for f in FIELDS]
+
+    def with_leaves(self, leaves) -> "TransformerParams":
+        """``TransformerParams`` over ``leaves`` in ``FIELDS`` order."""
+        return TransformerParams(*leaves)
 
 
 def init_transformer(generator: torch.Generator, d_model: int,
@@ -63,6 +79,16 @@ def init_transformer(generator: torch.Generator, d_model: int,
         wo=normal(n_layers, d_model, d_model), ln2=ones.clone(),
         w1=normal(n_layers, ffn_dim, d_model),
         w2=normal(n_layers, d_model, ffn_dim))
+
+
+def transformer_params_from_numpy(tree, device="cpu") -> TransformerParams:
+    """The port's parameters from the JAX ``TransformerParams`` as numpy
+    arrays: ``tree`` is an object or mapping with the ``FIELDS``."""
+    def t(name):
+        a = tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    return TransformerParams(*(t(f) for f in FIELDS))
 
 
 def split_heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:

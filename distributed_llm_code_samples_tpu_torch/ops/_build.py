@@ -40,12 +40,15 @@ build_logs: dict[str, str] = {}
 build_seconds: dict[str, float] = {}
 
 # launches per kernel name; each wrapper adds one right after its kernel
-# was launched, and nowhere else
+# was launched, and nowhere else (under a lock: the threads of a loopback
+# mesh launch kernels at once)
 _launches: dict[str, int] = {}
+_count_lock = threading.Lock()
 
 
 def count_launch(name: str) -> None:
-    _launches[name] = _launches.get(name, 0) + 1
+    with _count_lock:
+        _launches[name] = _launches.get(name, 0) + 1
 
 
 def launch_counts() -> dict[str, int]:

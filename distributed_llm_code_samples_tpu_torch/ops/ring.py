@@ -55,9 +55,10 @@ _OPS = {HOP: 0, ALL_REDUCE: 1, REDUCE_SCATTER: 2, ALL_GATHER: 3,
         ALL_TO_ALL: 4}
 # not kernels: a loopback mesh's ``torch.distributed`` collectives in
 # plain torch (parallel/collectives.py), each over the ranks' dim-0
-# tensors: the sum in rank order, the concatenation in rank order, and
-# the sum's block of each rank
-SUM, CAT, SUM_SCATTER = "sum", "cat", "sum_scatter"
+# tensors: the sum in rank order, the concatenation in rank order, the
+# sum's block of each rank, and the elementwise max
+SUM, CAT, SUM_SCATTER, MAX = "sum", "cat", "sum_scatter", "max"
+_PLAIN = (SUM, CAT, SUM_SCATTER, MAX)
 # csrc/ring_common.cuh: kMaxRanks, kDataOff
 _MAX_RANKS = 8
 _DATA_OFF = 20480
@@ -272,14 +273,18 @@ class PeerWorkspace:
 
 
 def _plain(op: str, xs: list) -> list:
-    """The plain collective ``op`` (``SUM``, ``CAT``, ``SUM_SCATTER``)
-    over one dim-0 tensor a rank: one output a rank, in rank order."""
+    """The plain collective ``op`` (``SUM``, ``CAT``, ``SUM_SCATTER``,
+    ``MAX``) over one dim-0 tensor a rank: one output a rank, in rank
+    order."""
     if op == CAT:
         out = torch.cat(xs)
         return [out] + [out.clone() for _ in xs[1:]]
     total = xs[0].clone()
     for x in xs[1:]:
-        total += x
+        if op == MAX:
+            torch.maximum(total, x, out=total)
+        else:
+            total += x
     if op == SUM_SCATTER:
         return [c.clone() for c in total.chunk(len(xs))]
     return [total] + [total.clone() for _ in xs[1:]]
@@ -289,8 +294,9 @@ class Loopback:
     """n virtual ranks as n threads of one process on one card. Each
     collective call waits until all n threads have handed in their
     operands; one of them then makes the one cooperative launch that
-    serves all n (or, for ``SUM``, ``CAT`` and ``SUM_SCATTER``, computes
-    every output in plain torch), and each thread takes its own output.
+    serves all n (or, for ``SUM``, ``CAT``, ``SUM_SCATTER`` and ``MAX``,
+    computes every output in plain torch), and each thread takes its own
+    output.
     All threads use the device's default stream, so their work is ordered
     around the launch. The kernels need ``workspace``, a
     ``PeerWorkspace`` of n regions that its owner attaches; the plain
@@ -312,7 +318,7 @@ class Loopback:
             if len(set(self._ops)) != 1:
                 raise RuntimeError(f"loopback ranks called different "
                                    f"collectives: {self._ops}")
-            if self._ops[0] in (SUM, CAT, SUM_SCATTER):
+            if self._ops[0] in _PLAIN:
                 self._outs = _plain(self._ops[0], self._ins)
             elif self.workspace is None:
                 raise RuntimeError(f"loopback {self._ops[0]} is a kernel: "

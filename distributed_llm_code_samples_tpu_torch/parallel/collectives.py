@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..ops.ring import CAT, SUM, SUM_SCATTER, Ring, tiled_all_to_all
+from ..ops.ring import CAT, MAX, SUM, SUM_SCATTER, Ring, tiled_all_to_all
 
 
 def axis_index(mesh, axis: Optional[str] = None) -> int:
@@ -35,6 +35,19 @@ def all_reduce(x: torch.Tensor, mesh, *,
         return _loopback(SUM, x.contiguous(), mesh, axis)
     y = x.contiguous().clone()
     dist.all_reduce(y, group=mesh.axis_group(axis))
+    return y
+
+
+def pmax(x: torch.Tensor, mesh, *,
+         axis: Optional[str] = None) -> torch.Tensor:
+    """The elementwise max across the ranks of ``axis`` (``lax.pmax``;
+    ``dist.all_reduce(MAX)``): the row max of the vocab-parallel
+    cross-entropy and of the fused head's logsumexp merge
+    (``parallel/lm.py``)."""
+    if mesh.loopback:
+        return _loopback(MAX, x.contiguous(), mesh, axis)
+    y = x.contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=mesh.axis_group(axis))
     return y
 
 

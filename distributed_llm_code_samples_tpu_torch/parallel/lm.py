@@ -1,15 +1,28 @@
-"""The single-device LM trainer, as in the JAX package's
-``parallel/lm.py`` (``train_lm_single``): per step, a batch of next-token
-sequences, the mean cross-entropy of the tied head, its gradients
-(autograd composing the hand VJPs of LayerNorm, attention, the FFN
-blocks and the loss) and inline SGD, or a stateful ``optimizer``
-(``optim.py``) whose state ``opt_state``/``return_state`` carry in and
-out. ``attn_impl`` and ``head_impl`` select the oracle ops or the
-hand-written kernels (flash attention, the fused head); ``mixed`` runs
-the trunk in bf16 (``models.lm.lm_loss``), which hands the flash kernels
-bf16 q, k and v. The JAX trainer runs the schedule as one ``lax.scan``;
-here the steps run eagerly. DDP, FSDP and TP of the LM are not ported
-yet.
+"""LM trainers, as in the JAX package's ``parallel/lm.py``: the
+single-device trainer and Megatron TP with the vocab-parallel
+embedding, cross-entropy and fused head.
+
+``train_lm_single``: per step, a batch of next-token sequences, the
+mean cross-entropy of the tied head, its gradients (autograd composing
+the hand VJPs of LayerNorm, attention, the FFN blocks and the loss) and
+inline SGD, or a stateful ``optimizer`` (``optim.py``) whose state
+``opt_state``/``return_state`` carry in and out. ``attn_impl`` and
+``head_impl`` select the oracle ops or the hand-written kernels (flash
+attention, the fused head); ``mixed`` runs the trunk in bf16
+(``models.lm.lm_loss``), which hands the flash kernels bf16 q, k and v.
+The JAX trainer runs the schedule as one ``lax.scan``; here the steps
+run eagerly.
+
+``train_lm_tp`` (Megatron-LM): the blocks shard heads and features as
+``parallel/transformer.py``'s TP does, and ``wte`` shards its vocab rows,
+serving both the vocab-parallel embedding (``vp_embed``) and the tied
+vocab-parallel head: the cross-entropy over the rank's logit columns
+(``vp_xent``) or the fused head's kernels on the rank's rows
+(``vp_head_xent``), so that no rank holds a whole ``[N, V]`` row. Each
+completes with one max and two sums over the model axis, in its forward;
+their backwards need no collective. The step's backward is split at the
+``f`` all-reduces as the TP blocks' is (``parallel/transformer.py``).
+DDP, FSDP and the DDP x TP hybrid of the LM are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,8 +34,15 @@ import torch
 from .. import LR
 from ..data import lm_batch_from_seed
 from ..models.lm import LMParams, clone_lm, lm_from_leaves, lm_leaves, lm_loss
+from ..ops.norm import layernorm
 from ..optim import check_state_args, sgd
-from .transformer import _validate_shapes, resolve_attn
+from .collectives import all_reduce, axis_index, pmax
+from .launcher import (DEFAULT_TIMEOUT_S, launch_replicated,
+                       refuse_unported, run_replicated, to_device)
+from .mesh import MODEL_AXIS, Mesh, require_axes
+from .transformer import (FIELDS, TP_SPECS, TPComm, _leaf, _validate_shapes,
+                          _validate_tp, blocks_backward, blocks_forward,
+                          resolve_attn, shard_leaves, unshard_leaves)
 
 
 def _validate_lm(batch_size: int, seq_len: int, model_size: int,
@@ -123,3 +143,308 @@ def train_lm_single(params: LMParams, seeds, batch_size: int,
     if optimizer is None or return_state:
         return carry
     return carry[0]
+
+
+# -- vocab-parallel pieces (Megatron-LM) ---------------------------------------
+#
+# Each takes the rank's view of the mesh and the model ``axis``; the
+# collectives run in the forward, from the calling thread, and the
+# backwards hold none.
+
+class _VPEmbed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, wte_local, tokens, mesh, axis):
+        v_local = wte_local.shape[0]
+        local = tokens.long() - axis_index(mesh, axis) * v_local
+        in_range = (local >= 0) & (local < v_local)
+        idx = local.clamp(0, v_local - 1)
+        rows = wte_local[idx] * in_range[..., None].to(wte_local.dtype)
+        ctx.save_for_backward(idx, in_range)
+        ctx.v_local = v_local
+        return all_reduce(rows, mesh, axis=axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        idx, in_range = ctx.saved_tensors
+        d = dy.shape[-1]
+        dw = torch.zeros(ctx.v_local, d, dtype=dy.dtype, device=dy.device)
+        dw.index_add_(0, idx.reshape(-1),
+                      (dy * in_range[..., None].to(dy.dtype)).reshape(-1, d))
+        return dw, None, None, None
+
+
+def vp_embed(wte_local: torch.Tensor, tokens: torch.Tensor, mesh: Mesh,
+             axis: str = MODEL_AXIS) -> torch.Tensor:
+    """Vocab-parallel embedding lookup on the rank of ``mesh``: the rank
+    resolves only the tokens of its ``[r V/n, (r+1) V/n)`` rows (zeros
+    elsewhere) and one all-reduce completes them, a Megatron ``g``. Its
+    backward is the identity through that sum, then the scatter-add of
+    each token's gradient into the rank's own rows (complete: every rank
+    holds the whole ``dy``)."""
+    return _VPEmbed.apply(wte_local, tokens, mesh, axis)
+
+
+class _VPXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits_local, targets, mesh, axis):
+        v_local = logits_local.shape[-1]
+        m = pmax(logits_local.amax(dim=-1, keepdim=True), mesh, axis=axis)
+        e = torch.exp(logits_local - m)
+        sumexp = all_reduce(e.sum(dim=-1, keepdim=True), mesh, axis=axis)
+        lse = torch.log(sumexp) + m                                # [N, 1]
+        local_t = targets.long() - axis_index(mesh, axis) * v_local
+        in_range = (local_t >= 0) & (local_t < v_local)
+        idx = local_t.clamp(0, v_local - 1)
+        picked = torch.gather(logits_local, -1, idx[:, None])[:, 0]
+        z_t = all_reduce(torch.where(in_range, picked,
+                                     torch.zeros_like(picked)),
+                         mesh, axis=axis)
+        ctx.save_for_backward(e / sumexp, idx, in_range)
+        return (lse[:, 0] - z_t).mean()
+
+    @staticmethod
+    def backward(ctx, dy):
+        probs, idx, in_range = ctx.saved_tensors
+        n = probs.shape[0]
+        dz = probs * (dy / n)
+        hit = torch.where(in_range, -dy / n, torch.zeros_like(dy))
+        dz.index_put_((torch.arange(n, device=dz.device), idx),
+                      hit.to(dz.dtype), accumulate=True)
+        return dz, None, None, None
+
+
+def vp_xent(logits_local: torch.Tensor, targets: torch.Tensor, mesh: Mesh,
+            axis: str = MODEL_AXIS) -> torch.Tensor:
+    """Vocab-parallel mean cross-entropy: ``logits_local [N, V/n]`` is the
+    rank's slice of each row; the row max (``pmax``), the normalizer and
+    the target logit (two all-reduces) each complete with one collective.
+    The backward is the hand ``(softmax - onehot) dy / N`` on the local
+    slice, with no collective (the residuals are local)."""
+    return _VPXent.apply(logits_local, targets, mesh, axis)
+
+
+class _VPHeadXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, wte_local, targets, mesh, axis):
+        from ..ops.fused_xent import head_xent_stats
+        t_local = targets.long() - axis_index(mesh, axis) * wte_local.shape[0]
+        lse_l, tz_l = head_xent_stats(h, wte_local, t_local)
+        # the logsumexp merge over the slices: M + log(sum exp(lse - M))
+        m = pmax(lse_l, mesh, axis=axis)
+        lse_g = m + torch.log(all_reduce(torch.exp(lse_l - m), mesh,
+                                         axis=axis))
+        z_t = all_reduce(tz_l, mesh, axis=axis)  # one slice holds it
+        ctx.save_for_backward(h, wte_local, t_local, lse_g)
+        return (lse_g - z_t).mean()
+
+    @staticmethod
+    def backward(ctx, dy):
+        from ..ops.fused_xent import head_xent_bwd
+        dh, dw = head_xent_bwd(dy, *ctx.saved_tensors)
+        return dh, dw, None, None, None
+
+
+def vp_head_xent(h: torch.Tensor, wte_local: torch.Tensor,
+                 targets: torch.Tensor, mesh: Mesh,
+                 axis: str = MODEL_AXIS) -> torch.Tensor:
+    """Vocab-parallel fused head and cross-entropy: ``vp_xent``'s
+    collectives over the fused head's kernels (``ops/fused_xent.py``), so
+    that no rank stores even its local ``[N, V/n]`` logits. The targets
+    shift by the rank's first row ``r V/n`` (on every rank but the
+    owner's they fall outside ``[0, V/n)`` and match no column); the
+    statistics kernel gives the rank's ``(lse, tz)``, merged by one
+    ``pmax`` and two all-reduces; the backward kernel takes the merged
+    global ``lse``: ``dw`` is complete for the rank's rows, ``dh`` partial
+    (the caller's ``f`` completes it)."""
+    return _VPHeadXent.apply(h, wte_local, targets, mesh, axis)
+
+
+# -- Megatron-LM TP -------------------------------------------------------------
+
+def _lm_tp_specs() -> list:
+    """The model-axis dim of each leaf in ``lm_leaves`` order: ``wte``'s
+    vocab rows, the blocks' ``TP_SPECS``; ``wpe`` and ``ln_f``
+    replicated."""
+    return [0, None] + [TP_SPECS[f] for f in FIELDS] + [None]
+
+
+def lm_tp_shard(params: LMParams, mesh: Mesh) -> LMParams:
+    """The rank of ``mesh``'s TP shards of the LM."""
+    return lm_from_leaves(shard_leaves(lm_leaves(params), _lm_tp_specs(),
+                                       mesh))
+
+
+def lm_tp_unshard(shards) -> LMParams:
+    """The whole LM from the TP shards of the model axis, in its order."""
+    return lm_from_leaves(unshard_leaves([lm_leaves(s) for s in shards],
+                                         _lm_tp_specs()))
+
+
+def _map_state(fn, *states):
+    """The structure of optimizer ``states`` with each param-shaped part
+    (an ``LMParams``; JAX ``_lm_state_specs``) replaced by
+    ``lm_from_leaves(fn(leaves of each state, _lm_tp_specs()))`` and each
+    other tensor (a step count) by ``fn([[t] of each state], [None])[0]``:
+    ``fn`` maps the states' leaves and their model-axis dims to one list
+    of leaves (a shard, or the joined whole)."""
+    s = states[0]
+    if isinstance(s, LMParams):
+        return lm_from_leaves(fn([lm_leaves(x) for x in states],
+                                 _lm_tp_specs()))
+    if isinstance(s, torch.Tensor):
+        return fn([[x] for x in states], [None])[0]
+    if hasattr(s, "_fields"):
+        return type(s)(*(_map_state(fn, *xs) for xs in zip(*states)))
+    if isinstance(s, (tuple, list)):
+        return type(s)(_map_state(fn, *xs) for xs in zip(*states))
+    return s
+
+
+def lm_tp_shard_state(state, mesh: Mesh):
+    """The rank's shards of a whole optimizer state, sharded as the
+    params (Megatron's optimizer layout)."""
+    return _map_state(lambda ls, dims: shard_leaves(ls[0], dims, mesh),
+                      state)
+
+
+def lm_tp_unshard_state(states):
+    """The whole optimizer state from every rank's shards."""
+    return _map_state(unshard_leaves, *states)
+
+
+def lm_tp_grads(params: LMParams, tokens, targets, h_local: int, *,
+                mesh: Mesh, attn=None, head_impl: str | None = None):
+    """``(loss, grads)`` of the rank's TP shards ``params`` on the batch
+    ``tokens, targets [B, T]``, ``grads`` in ``lm_leaves`` order. The
+    backward runs in pieces between the collectives: the head, ``f``'s
+    all-reduce of its input gradient, the final LayerNorm, the blocks
+    (``blocks_backward``), the embedding. In plain TP every rank sees the
+    whole ``dx``, so ``wpe`` and the LN gains get whole gradients with no
+    reduction, and ``wte`` and the block weights whole ones for the
+    rank's own rows and heads."""
+    comm = TPComm(mesh)
+    fused = resolve_head(head_impl) is not None
+    dev, d = params.device, params.d_model
+    tokens, targets = tokens.to(dev), targets.reshape(-1).to(dev)
+    wte_e, wpe = _leaf(params.wte), _leaf(params.wpe)
+    with torch.enable_grad():
+        x0 = vp_embed(wte_e, tokens, mesh) + wpe[:tokens.shape[1]]
+    x, blocks = blocks_forward(params.blocks, x0.detach(), h_local, comm,
+                               True, attn)
+    x, ln_f, wte_h = _leaf(x), _leaf(params.ln_f), _leaf(params.wte)
+    with torch.enable_grad():
+        hf = layernorm(ln_f, x)
+    h = _leaf(comm.f(hf.detach()))
+    with torch.enable_grad():
+        h2 = h.reshape(-1, d)
+        loss = (vp_head_xent(h2, wte_h, targets, mesh) if fused else
+                vp_xent(h2 @ wte_h.T, targets, mesh))
+    dh, dwte_h = torch.autograd.grad(loss, [h, wte_h])
+    dx, dln_f = torch.autograd.grad(hf, [x, ln_f], comm.f_t(dh))
+    dx, dblocks = blocks_backward(blocks, dx)
+    dwte_e, dwpe = torch.autograd.grad(x0, [wte_e, wpe], dx)
+    return loss.detach(), [dwte_e + dwte_h, dwpe, *dblocks, dln_f]
+
+
+def _make_tp_step(batch_size: int, model_size: int, seq_len: int,
+                  h_local: int, vocab: int, lr: float, attn=None,
+                  data_axes=(), optimizer=None,
+                  head_impl: str | None = None, *, mesh: Mesh,
+                  batch_fn: Optional[Callable] = None):
+    """One vocab-parallel TP step for the rank of ``mesh``: ``(shards,
+    seed) -> shards`` with SGD in place, or with ``optimizer``
+    ``((shards, state), seed) -> (shards, state)``, the state sharded as
+    the shards (the elementwise update needs no collective); the
+    gradients are ``lm_tp_grads``'."""
+    refuse_unported(data_axes=(tuple(data_axes), ()))
+    b = batch_size // seq_len
+
+    def grads_of(params: LMParams, seed) -> list:
+        tokens, targets = (batch_fn(seed) if batch_fn is not None else
+                           lm_batch_from_seed(seed, b, seq_len, vocab,
+                                              device=params.device))
+        return lm_tp_grads(params, tokens, targets, h_local, mesh=mesh,
+                           attn=attn, head_impl=head_impl)[1]
+
+    def step(params: LMParams, seed) -> LMParams:
+        sgd(lm_leaves(params), grads_of(params, seed), lr)
+        return params
+
+    def step_opt(carry, seed):
+        params, state = carry
+        return optimizer.update(lm_from_leaves(grads_of(params, seed)),
+                                state, params, lr, mesh=mesh)
+
+    return step if optimizer is None else step_opt
+
+
+def train_lm_tp(params: LMParams, seeds, batch_size: int, model_size: int,
+                mesh: Mesh, lr: float = LR, *, seq_len: int, n_heads: int,
+                attn_impl: str | None = None, optimizer=None,
+                opt_state=None, return_state: bool = False,
+                head_impl: str | None = None, guard=None, guard_state=None,
+                return_guard: bool = False,
+                batch_fn: Optional[Callable] = None,
+                on_step: Optional[Callable[[int], None]] = None,
+                timeout: float = DEFAULT_TIMEOUT_S):
+    """Megatron-LM TP over the model axis (``_make_tp_step``): data
+    replicated, so it takes the steps ``train_lm_single`` takes and must
+    agree with it. ``attn_impl``, ``head_impl`` and GQA (the KV heads
+    split over the ranks too) as there. ``optimizer`` threads a state
+    sharded like the params; with ``return_state`` the result is
+    ``(params, opt_state)``, which a later call resumes from. Given the
+    whole mesh it launches the ranks and returns the whole params (and
+    state) on the device of ``params``; given a rank's view it runs that
+    rank and returns its shards, and ``opt_state`` is the rank's shard.
+    ``batch_fn(seed) -> (tokens, targets)`` overrides the batches (it
+    must pickle to reach spawned ranks). ``guard`` is not ported yet."""
+    refuse_unported(guard=(guard, None), guard_state=(guard_state, None),
+                    return_guard=(return_guard, False))
+    require_axes(mesh, MODEL_AXIS)
+    n = mesh.axis_size(MODEL_AXIS)
+    h_local = _validate_tp(params.blocks, n_heads, n)
+    _validate_lm(batch_size, seq_len, model_size, n_heads, params)
+    check_state_args(optimizer, opt_state, return_state)
+    if params.vocab % n:
+        raise ValueError(f"vocab={params.vocab} not divisible by "
+                         f"model-axis size {n}")
+    resolve_head(head_impl)
+    attn = resolve_attn(attn_impl)
+    if not mesh.in_rank:
+        if opt_state is not None and not mesh.loopback:
+            opt_state = to_device(opt_state, "cpu")
+        outs = launch_replicated(
+            _lm_tp_rank, params, seeds, mesh, batch_size, model_size, lr,
+            opt_state, dict(seq_len=seq_len, n_heads=n_heads,
+                            attn_impl=attn_impl, optimizer=optimizer,
+                            head_impl=head_impl, batch_fn=batch_fn),
+            timeout=timeout)
+        dev = params.device
+        out = to_device(lm_tp_unshard([o[0] for o in outs]), dev)
+        if optimizer is None or not return_state:
+            return out
+        return out, to_device(lm_tp_unshard_state([o[1] for o in outs]), dev)
+    step = _make_tp_step(batch_size, model_size, seq_len, h_local,
+                         params.vocab, lr, attn, optimizer=optimizer,
+                         head_impl=head_impl, mesh=mesh, batch_fn=batch_fn)
+    shards = lm_tp_shard(params, mesh)
+    if optimizer is None:
+        return run_replicated(step, shards, seeds, mesh, on_step)
+    state = (optimizer.init(shards) if opt_state is None
+             else to_device(opt_state, mesh.torch_device))
+    carry = run_replicated(step, (shards, state), seeds, mesh, on_step)
+    return carry if return_state else carry[0]
+
+
+def _lm_tp_rank(mesh: Mesh, payload):
+    """One rank of a whole-mesh ``train_lm_tp``: its shards (and its
+    optimizer state's) on the CPU."""
+    params, seeds, batch_size, model_size, lr, opt_state, kw = payload
+    if opt_state is not None:
+        opt_state = lm_tp_shard_state(opt_state, mesh)
+    out = train_lm_tp(params, seeds, batch_size, model_size, mesh, lr,
+                      opt_state=opt_state,
+                      return_state=kw["optimizer"] is not None, **kw)
+    if kw["optimizer"] is None:
+        return to_device(out, "cpu"), None
+    return to_device(out[0], "cpu"), to_device(out[1], "cpu")

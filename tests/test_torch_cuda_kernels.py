@@ -291,6 +291,95 @@ def test_head_bwd_kernel_ragged_and_bit_equal(card, shape, mxu_bf16):
             assert err <= 1e-4 * float(w64.abs().max()), err
 
 
+# the fused head on a vocab shard (the TP head, vp_head_xent): each rank's
+# rows of w and the targets shifted by its first row r V/n. (N, d, V,
+# ranks): V/n a multiple of 4, then V/n = 50 (JAX's pad-range test) and
+# 12573 at the LM's d, not multiples of 4, so the kernels' 4-rounded w^T
+# has columns past V/n that a shifted target can name
+VOCAB_SHARDS = ((256, 64, 1024, 4), (200, 32, 200, 4),
+                (131, 768, 4 * 12573, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", VOCAB_SHARDS)
+def test_head_kernels_on_a_vocab_shard(card, shape):
+    """Shifted targets below 0, at or past V/n, and in the pad range
+    ``[V/n, 4-rounded V/n)`` match no column: every rank's lse and tz,
+    and its dh and dw given the merged global lse (an external lse),
+    within 1e-4 of float64 on the same inputs; the merged lse, the summed
+    tz and dh and the joined dw are the whole vocabulary's. The rank's
+    own lse in place of the global one fails the same check."""
+    n, d, v, ranks = shape
+    vl = v // ranks
+    rng = np.random.default_rng(v)
+    h, w = normal(rng, n, d), normal(rng, v, d, scale=0.02)
+    t = rng.integers(0, v, size=n)
+    # half the rows target (k + 1) V/n + j, j < 3: rank k sees V/n + j
+    j = np.arange(n // 2)
+    t[:n // 2] = ((j // 3) % (ranks - 1) + 1) * vl + j % 3
+    t = torch.from_numpy(t).cuda()
+    dy = torch.tensor(1.0, device="cuda")
+    h64, w64 = h.double(), w.double()
+
+    def close(got, want):
+        err = float((got.double() - want).abs().max())
+        return err <= 1e-4 * float(want.abs().max())
+
+    stats = [p_fx.head_xent_stats(h, w[r * vl:(r + 1) * vl], t - r * vl)
+             for r in range(ranks)]
+    lse_l = torch.stack([s[0] for s in stats])
+    m = lse_l.amax(0)
+    lse_g = m + torch.log(torch.exp(lse_l - m).sum(0))
+    lse64, tz64 = p_fx.head_xent_stats_ref(h64, w64, t)
+    assert close(lse_g, lse64)
+    assert close(sum(s[1] for s in stats), tz64)
+    dh_sum, dws = 0, []
+    for r, (lse_r, tz_r) in enumerate(stats):
+        wr, tr = w[r * vl:(r + 1) * vl], t - r * vl
+        assert bool(((tr < 0) | (tr >= vl)).any())
+        want = p_fx.head_xent_stats_ref(h64, wr.double(), tr)
+        assert close(lse_r, want[0]) and close(tz_r, want[1])
+        dh, dw = p_fx.head_xent_bwd(dy, h, wr, tr, lse_g)
+        want = p_fx.head_xent_bwd_ref(dy.double(), h64, wr.double(), tr,
+                                      lse64)
+        assert close(dh, want[0]) and close(dw, want[1])
+        dh_sum = dh_sum + dh
+        dws.append(dw)
+        own = p_fx.head_xent_bwd(dy, h, wr, tr, lse_r)
+        assert not close(own[1], want[1])           # the control
+    full = p_fx.head_xent_bwd_ref(dy.double(), h64, w64, t, lse64)
+    assert close(dh_sum, full[0]) and close(torch.cat(dws), full[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,t,dh", [(16, 3, 1, 512, 64),
+                                           (2, 6, 2, 96, 32)],
+                         ids=["lm-rank-of-4", "two-ranks"])
+def test_flash_mha_on_a_ranks_heads_with_gqa_fan_out(card, b, hq, hkv, t,
+                                                     dh):
+    """flash_mha on one TP rank's heads: 3 query heads on 1 KV head (12
+    on 4 over 4 ranks, the LM's 16 x 512 at dh 64) and 6 on 2; forward
+    and gradients against the plain versions on the fanned-out heads
+    (1e-4 of the largest)."""
+    rng = np.random.default_rng(hq)
+    q = normal(rng, b, hq, t, dh).requires_grad_()
+    k = normal(rng, b, hkv, t, dh).requires_grad_()
+    v = normal(rng, b, hkv, t, dh).requires_grad_()
+    dy = normal(rng, b, hq, t, dh, scale=0.1)
+    y = flash_mha(q, k, v, causal=True)
+    y.backward(dy)
+    kr, vr = (x.detach().repeat_interleave(hq // hkv, dim=-3)
+              for x in (k, v))
+    y0, lse = flash_attention_fwd_ref(q.detach(), kr, vr, causal=True)
+    dq, dk, dv = flash_attention_bwd_ref(dy, q.detach(), kr, vr, y0, lse,
+                                         causal=True)
+    want = (y0, dq, dk.view(b, hkv, hq // hkv, t, dh).sum(2),
+            dv.view(b, hkv, hq // hkv, t, dh).sum(2))
+    for g, w in zip((y.detach(), q.grad, k.grad, v.grad), want):
+        err = float((g - w).abs().max())
+        assert err <= TOL[False] * float(w.abs().max()), err
+
+
 # the FFN kernels (T, d, ffn): chip_smoke.py's FFN_SHAPES (the main
 # path's shape, then two ragged ones) and one with no dim a multiple of 4
 # (the padded operand copies)

@@ -134,7 +134,7 @@ def test_train_cli_on_cpu_prints_the_payload():
         assert payload[key] > 0
 
 
-@pytest.mark.parametrize("method", ["6", "8"])
+@pytest.mark.parametrize("method", ["6", "9"])
 def test_train_cli_refuses_unported_methods(method):
     out = subprocess.run(TRAIN_CLI + ["--device", "cpu", "-m", method]
                          + TINY, cwd=ROOT, capture_output=True, text=True,

@@ -123,19 +123,24 @@ def test_shape_errors_match_jax(setup):
                          ids=["optimizer", "opt_state", "return_state",
                               "mixed", "rope"])
 def test_unported_options_raise(setup, kw):
-    """Of these options only ``attn_impl="rope"`` is still not ported and
-    raises ``NotImplementedError``. The stateful optimizers and ``mixed``
-    are ported (``test_torch_optim.py`` and ``test_torch_mixed.py`` hold
-    them against JAX): ``opt_state`` or ``return_state`` without an
-    optimizer raise ``ValueError``, as JAX's ``check_state_args`` does;
-    AdamW and ``mixed`` run, keep f32 params and move them otherwise
-    than SGD in f32 does."""
+    """Every one of these options is ported now. ``attn_impl="rope"``
+    trains as JAX's does (rtol 2e-4, atol 1e-6;
+    ``test_torch_train_lm_tp.py`` holds it under both heads). The stateful
+    optimizers and ``mixed`` are held against JAX by
+    ``test_torch_optim.py`` and ``test_torch_mixed.py``: ``opt_state`` or
+    ``return_state`` without an optimizer raise ``ValueError``, as JAX's
+    ``check_state_args`` does; AdamW and ``mixed`` run, keep f32 params
+    and move them otherwise than SGD in f32 does."""
     from distributed_llm_code_samples_tpu_torch.optim import adamw
     params, seeds = setup
     name = next(iter(kw))
     if name == "attn_impl":
-        with pytest.raises(NotImplementedError):
-            train_port(params, seeds, **kw)
+        want = j_train_lm(params, jnp.asarray(seeds), TOKENS, D, lr=LR,
+                          seq_len=SEQ, n_heads=H, attn_impl="rope")
+        got = train_port(params, seeds, **kw)
+        for g, w in zip(lm_leaves(got), jax.tree_util.tree_leaves(want)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4,
+                                       atol=1e-6)
         return
     if name in ("opt_state", "return_state"):
         with pytest.raises(ValueError, match="need an optimizer"):
