@@ -16,12 +16,19 @@
     python3 chip_smoke.py --phase lmtp     # the LM kernels, Megatron TP
                                            # of the LM and the transformer,
                                            # 4 virtual ranks
+    python3 chip_smoke.py --phase lmdp     # the LM kernels, DDP, FSDP and
+                                           # the hybrid of the LM and the
+                                           # transformer, 4 virtual ranks
     python3 chip_smoke.py --phase dist     # ring, DDP/FSDP, all-to-all,
-                                           # EP, TP, the hybrid, LM TP and
-                                           # cli.py -m 0, 8, 11 on 4 cards
-                                           # (not in the default run)
+                                           # EP, TP, the hybrid, LM TP,
+                                           # cli.py -m 0, 8, 11 and LM DP
+                                           # on 4 cards (not in the
+                                           # default run)
     python3 chip_smoke.py --phase dist-tp  # --phase dist's TP, hybrid,
                                            # LM TP and -m 0, 8, 11 alone
+    python3 chip_smoke.py --phase dist-lmdp  # --phase dist's LM and
+                                             # transformer DDP, FSDP and
+                                             # hybrid alone
 
 Builds every kernel of the port from ``csrc/`` (printing ptxas's spill
 counts as ``ptxas-spills``), holds each against its plain PyTorch
@@ -109,7 +116,24 @@ each split size, ``paged-splits``), then drives the port's paths:
   in loopback; ``--phase dist`` and ``dist-tp`` run them one rank a card
   over NCCL and then ``cli.py -m 11 --head fused --attn flash`` and
   ``-m 8 --tp_sp --attn flash`` at that shape (``dist-cli-m11``,
-  ``dist-cli-m8-sp``).
+  ``dist-cli-m8-sp``);
+- data parallelism of the LM and of the transformer (``--phase lmdp``):
+  at the LM-training shape, 16 sequences of 512 tokens a rank a step,
+  ``train_lm_ddp`` and ``train_lm_fsdp`` under flash attention and the
+  fused head, ``train_lm_hybrid`` under flash on a 2 x 2 data x model
+  mesh, ``train_transformer_ddp``, ``_fsdp`` and ``_hybrid`` of the
+  12-layer trunk under flash, and the LM's DDP and FSDP under clipped
+  mixed AdamW (the bf16 flash kernels), 4 steps each on 4 ranks
+  (``lmdp-train-run``: the step, tokens/s, peak memory and each LM
+  kernel's launches a rank, exact: 12 of each flash kernel a step, FSDP
+  24 forwards since its backward recomputes each block, and 1 of each
+  head kernel where the fused head runs); one step of each at
+  ``CHECK_LR`` against a float64 update on the summed gradients of the
+  ranks' batches over the error of the same sum of the single-device f32
+  gradients (``lmdp-train-check``, unchanged weights as the control).
+  The default run holds the ranks on one card in loopback; ``--phase
+  dist`` and ``dist-lmdp`` run them one rank a card over NCCL, where
+  FSDP's peak memory a rank must be below DDP's (``lmdp-memory``).
 
 It fails (exit code 1) if there is no CUDA device, if a kernel does not
 build, launch or agree, if a kernel path did not go through its
@@ -1586,10 +1610,11 @@ def lm_train_phase(torch, np, card):
     return launches
 
 
-def lm_kernel_rows(cases, launches, tp_launches=None):
+def lm_kernel_rows(cases, launches, tp_launches=None, dp_launches=None):
     """The LM kernels' rows of the kernels line: ``launches`` from the
     single-device LM run, ``tp_launches`` (a rank's) from the first LM TP
-    run (``lmtp_phase``), where it ran."""
+    run (``lmtp_phase``) and ``dp_launches`` (a rank's, by run) from the
+    f32 data-parallel runs (``lmdp_phase``), where they ran."""
     rows = []
     for name, _, _, src, replaces, counted in LM_KERNELS:
         mine = [c for c in cases if c["kernel"] == name]
@@ -1607,6 +1632,7 @@ def lm_kernel_rows(cases, launches, tp_launches=None):
             else {c: launches.get(c, 0) for c in counted},
             "lmtp_launches_per_rank": None if tp_launches is None
             else sum(tp_launches.get(c, 0) for c in counted),
+            "lmdp_launches_per_rank": dp_rows(dp_launches, counted),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "max_rel_err": max(c["rel_err"] for c in mine),
             "ms": main["ms"], "ms_bf16": main_bf16["ms"],
@@ -3538,6 +3564,292 @@ def lmtp_phase(torch, np, card, cards: int = 0):
     return first
 
 
+# -- data parallelism of the LM and of the transformer (lmdp) ---------------
+#
+# At LM's shape, LM_TOKENS a rank a step: DDP and FSDP on LMDP_N ranks,
+# the DDP x TP hybrid on 2 x 2. (label, family, strategy, attn_impl,
+# head_impl, mixed clipped AdamW)
+LMDP_N = RING_N
+LMDP_HYBRID = {"data": 2, "model": 2}
+LMDP_STEPS = 4
+LMDP_RUNS = (("lm-ddp", "lm", "ddp", "flash", "fused", False),
+             ("lm-fsdp", "lm", "fsdp", "flash", "fused", False),
+             ("lm-hybrid", "lm", "hybrid", "flash", None, False),
+             ("tf-ddp", "tf", "ddp", "flash", None, False),
+             ("tf-fsdp", "tf", "fsdp", "flash", None, False),
+             ("tf-hybrid", "tf", "hybrid", "flash", None, False),
+             ("lm-ddp-mixed-adamw", "lm", "ddp", "flash", "fused", True),
+             ("lm-fsdp-mixed-adamw", "lm", "fsdp", "flash", "fused", True))
+LMDP_LABELS = tuple(r[0] for r in LMDP_RUNS)
+
+
+def lmdp_mesh(kind, cards):
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        DATA_AXIS, make_mesh)
+    axes = LMDP_HYBRID if kind == "hybrid" else {DATA_AXIS: LMDP_N}
+    return make_mesh(axes, **(dict(device="cuda") if cards else
+                              dict(loopback=True)))
+
+
+def lmdp_optimizer(kind, mixed):
+    """The mixed runs' clipped AdamW; FSDP's clip sums its norm over the
+    data axis (its gradients are shards)."""
+    from distributed_llm_code_samples_tpu_torch import optim
+    if not mixed:
+        return None
+    return optim.clipped(optim.adamw(), 1.0,
+                         axis="data" if kind == "fsdp" else None)
+
+
+def lmdp_want(family, kind, attn, head, mixed, steps):
+    """The launches a rank makes in ``steps`` steps: each layer's flash
+    forward, dq and dkv (FSDP's backward recomputes each block, so its
+    forward runs twice a layer), the head's two kernels once a step where
+    the fused head runs; ``[bf16]`` under the mixed trunk."""
+    layers = LM["n_layers"] * steps if attn == "flash" else 0
+    tag = "[bf16]" if mixed else ""
+    want = {f"flash_attn_fwd{tag}": layers * (2 if kind == "fsdp" else 1),
+            f"flash_attn_dq{tag}": layers, f"flash_attn_dkv{tag}": layers}
+    if head == "fused":
+        want.update(head_xent_stats=steps, head_xent_bwd=steps)
+    return want
+
+
+def lmdp_rank(mesh, payload):
+    """One rank of an ``lmdp`` run (module level: ``--phase dist`` spawns
+    it): a DDP, FSDP or hybrid trainer of the LM or the transformer at
+    ``LM``'s shape with rank 0's steps stamped. Returns the rank's final
+    params or shards on the CPU (DDP: rank 0's alone), the stamps and,
+    in a process of its own, its launch counts and peak memory."""
+    import torch
+
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    from distributed_llm_code_samples_tpu_torch.optim import leaves
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        train_lm_ddp, train_lm_fsdp, train_lm_hybrid, train_transformer_ddp,
+        train_transformer_fsdp, train_transformer_hybrid)
+    trainers = {("lm", "ddp"): train_lm_ddp, ("lm", "fsdp"): train_lm_fsdp,
+                ("lm", "hybrid"): train_lm_hybrid,
+                ("tf", "ddp"): train_transformer_ddp,
+                ("tf", "fsdp"): train_transformer_fsdp,
+                ("tf", "hybrid"): train_transformer_hybrid}
+    family, kind, params, seeds, lr, kw = payload
+    stamps = []
+
+    def on_step(_):
+        if mesh.rank == 0:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    if not mesh.loopback:
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = trainers[family, kind](params, seeds, LM_TOKENS, LM["d_model"],
+                                 mesh, lr=lr, seq_len=LM["seq_len"],
+                                 n_heads=LM["n_heads"], on_step=on_step, **kw)
+    torch.cuda.synchronize()
+    keep = kind != "ddp" or mesh.rank == 0
+    return dict(shards=[t.cpu() for t in leaves(out)] if keep else None,
+                t0=t0, stamps=stamps,
+                launches=None if mesh.loopback else launch_counts(),
+                max_memory_allocated_gb=None if mesh.loopback else
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def lmdp_phase(torch, np, card, cards: int = 0):
+    """DDP, FSDP and the DDP x TP hybrid of the LM and of the transformer
+    at ``LM``'s shape (``LMDP_RUNS``, ``LMDP_STEPS`` steps at the package
+    LR each, ``lmdp-train-run``: the step, tokens/s, peak memory and each
+    LM kernel's launches a rank, held exactly against ``lmdp_want``), then
+    one step of each at ``CHECK_LR`` against a float64 update on the
+    summed gradients of the ranks' batches, over the error of the same
+    sum through the single-device f32 gradients (``lmdp-train-check``;
+    unchanged weights as the control). ``cards`` 0: the ranks in
+    loopback on one card; else one rank a card over NCCL, where FSDP's
+    peak memory a rank must be below DDP's. Returns each run's launches
+    a rank."""
+    from distributed_llm_code_samples_tpu_torch import LR
+    from distributed_llm_code_samples_tpu_torch.data import (
+        batch_from_seed, lm_batch_from_seed, make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models import (
+        TransformerParams, init_lm, lm_from_leaves)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    from distributed_llm_code_samples_tpu_torch.optim import leaves, sgd
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        DATA_AXIS, launch, lm_grads, resolve_attn, resolve_head)
+    from distributed_llm_code_samples_tpu_torch.parallel import lm as lm_mod
+    from distributed_llm_code_samples_tpu_torch.parallel import transformer
+    t_phase = time.perf_counter()
+    mode = f"{cards} cards" if cards else "loopback"
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM["random_seed"])
+    params = init_lm(gen, LM["vocab"], LM["d_model"], LM["n_layers"],
+                     LM["seq_len"], n_heads=LM["n_heads"])
+    start = {"lm": params, "tf": params.blocks}
+    host = ({k: v.with_leaves([t.cpu() for t in leaves(v)])
+             for k, v in start.items()} if cards else start)
+    seeds = make_seed_schedule(LMDP_N * LMDP_STEPS, LM["random_seed"])
+    b = LM_TOKENS // LM["seq_len"]
+
+    def data_ranks(kind):
+        return LMDP_HYBRID["data"] if kind == "hybrid" else LMDP_N
+
+    def run(label, seeds, lr):
+        _, family, kind, attn, head, mixed = LMDP_RUNS[
+            LMDP_LABELS.index(label)]
+        kw = dict(attn_impl=attn)
+        if family == "lm" and kind != "hybrid":
+            kw.update(head_impl=head, mixed=mixed,
+                      optimizer=lmdp_optimizer(kind, mixed))
+        mesh = lmdp_mesh(kind, cards)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        outs = launch(lmdp_rank, mesh, (family, kind, host[family], seeds,
+                                        lr, kw), timeout=600)
+        if cards:
+            per_rank = outs[0]["launches"]
+            mem = [o["max_memory_allocated_gb"] for o in outs]
+        else:
+            per_rank = {k: c / mesh.size for k, c in launch_counts().items()}
+            mem = [torch.cuda.max_memory_allocated() / 2 ** 30]
+        shards = [o["shards"] for o in outs]
+        if kind == "ddp":
+            full = shards[0]
+        elif kind == "fsdp":
+            full = leaves(lm_mod.lm_fsdp_unshard(
+                [lm_from_leaves(s) for s in shards]) if family == "lm"
+                else transformer.fsdp_unshard(
+                    [TransformerParams(*s) for s in shards]))
+        else:
+            rows = [s for r, s in enumerate(shards)
+                    if mesh.coords(r)[DATA_AXIS] == 0]
+            full = leaves(lm_mod.lm_tp_unshard(
+                [lm_from_leaves(s) for s in rows]) if family == "lm"
+                else transformer.tp_unshard(
+                    [TransformerParams(*s) for s in rows]))
+        return [t.cuda() for t in full], outs[0], per_rank, mem
+
+    launches, peaks = {}, {}
+    for label, family, kind, attn, head, mixed in LMDP_RUNS:
+        n_data = data_ranks(kind)
+        full, r0, per_rank, mem = run(label, seeds[:n_data * LMDP_STEPS],
+                                      LR)
+        check(all(bool(torch.isfinite(t).all()) for t in full),
+              f"lmdp {label}: trained params are not finite")
+        del full
+        steps = [b_ - a for a, b_ in zip([r0["t0"]] + r0["stamps"],
+                                         r0["stamps"])]
+        med = statistics.median(steps[1:])
+        flops = n_data * (LM_BLOCK_FLOPS
+                          + (LM_HEAD_FLOPS if family == "lm" else 0))
+        want = lmdp_want(family, kind, attn, head, mixed, len(steps))
+        print("lmdp-train-run " + json.dumps(dict(
+            run=f"{label}-{'nccl' if cards else 'loopback'}", mode=mode,
+            family=family, strategy=kind, attn_impl=attn,
+            head_impl=head or "oracle", mixed=mixed,
+            optimizer="clipped-adamw" if mixed else "sgd",
+            mesh=LMDP_HYBRID if kind == "hybrid" else {"data": LMDP_N},
+            steps_per_rank=len(steps), tokens_per_rank_step=LM_TOKENS,
+            tokens_per_step=n_data * LM_TOKENS, median_step_ms=1e3 * med,
+            first_step_ms=1e3 * steps[0],
+            tokens_per_s=n_data * LM_TOKENS / med,
+            model_tflops_per_s=flops / med / 1e12,
+            f32_peak_share=flops / med / (F32_FLOPS_PER_S * (cards or 1)),
+            max_memory_allocated_gb=mem if cards else mem[0],
+            launches_per_rank=per_rank, want_launches_per_rank=want,
+            card=card)), flush=True)
+        for name, n in want.items():
+            check(per_rank.get(name, 0) == n, f"lmdp {label}: "
+                  f"{per_rank.get(name, 0)} launches of {name} a rank, "
+                  f"expected {n}")
+        check(set(per_rank) <= set(want), f"lmdp {label}: launches "
+              f"{per_rank}")
+        launches[label], peaks[label] = per_rank, max(mem)
+    if cards:
+        for family in ("lm", "tf"):
+            ddp, fsdp = peaks[f"{family}-ddp"], peaks[f"{family}-fsdp"]
+            print("lmdp-memory " + json.dumps(dict(
+                family=family, ddp_peak_gb_per_rank=ddp,
+                fsdp_peak_gb_per_rank=fsdp, fsdp_over_ddp=fsdp / ddp,
+                card=card)), flush=True)
+            check(fsdp < ddp, f"lmdp {family}: FSDP's peak {fsdp:.2f} GB a "
+                  f"rank is not below DDP's {ddp:.2f} GB")
+
+    # one step at CHECK_LR from the same params: each run's update against
+    # a float64 update on the sum of the ranks' float64 gradients (the
+    # oracle ops), over the error of the same sum of the single-device f32
+    # gradients under the run's policy (UPDATE_RATIO), leaf by leaf
+    def grads(family, p, seed, attn=None, head=None, mixed=False):
+        if family == "lm":
+            toks, tgts = lm_batch_from_seed(seed, b, LM["seq_len"],
+                                            LM["vocab"], device="cuda")
+            return lm_grads(p, toks, tgts, LM["n_heads"], resolve_attn(attn),
+                            resolve_head(head), mixed)[1]
+        x, dy = (t.to(leaves(p)[0].dtype).reshape(b, LM["seq_len"], -1)
+                 for t in batch_from_seed(seed, LM_TOKENS, LM["d_model"],
+                                          device="cuda"))
+        return transformer.transformer_grads(p, x, dy, LM["n_heads"],
+                                             attn=resolve_attn(attn))
+
+    def summed(family, p, n, **kw):
+        total = None
+        for seed in seeds[:n]:
+            g = grads(family, p, int(seed), **kw)
+            total = g if total is None else [a + c for a, c in zip(total, g)]
+        return total
+
+    def update(p, g, mixed):
+        """One step of the run's rule from ``p``: SGD, or the mixed
+        runs' clipped AdamW (DDP's: the sum is whole)."""
+        p = p.with_leaves([t.clone() for t in leaves(p)])
+        if not mixed:
+            return leaves(sgd(p, g, CHECK_LR))
+        opt = lmdp_optimizer("ddp", True)
+        return leaves(opt.update(p.with_leaves(g), opt.init(p), p,
+                                 CHECK_LR)[0])
+
+    row = dict(mode=mode, check_lr=CHECK_LR, update_ratio_limit=UPDATE_RATIO)
+    ratios, unchanged, want64 = {}, [], {}
+    for label, family, kind, attn, head, mixed in LMDP_RUNS:
+        n_data = data_ranks(kind)
+        p0 = start[family]
+        key = (family, n_data, mixed)
+        if key not in want64:
+            want64.clear()
+            p64 = p0.with_leaves([t.double() for t in leaves(p0)])
+            want64[key] = update(p64, summed(family, p64, n_data), mixed)
+            del p64
+        base = update(p0, summed(family, p0, n_data, attn=attn, head=head,
+                                 mixed=mixed), mixed)
+        base_errs = [update_err(torch, g, w, q) for g, w, q in
+                     zip(base, want64[key], leaves(p0))]
+        del base
+        got = run(label, seeds[:n_data], CHECK_LR)[0]
+        e = [update_err(torch, g, w, q) for g, w, q in
+             zip(got, want64[key], leaves(p0))]
+        del got
+        ratios[label] = max(a / c for a, c in zip(e, base_errs))
+        unchanged.append(min(1.0 / c for c in base_errs))
+        row[f"{label}_single_update_err_vs_f64"] = base_errs
+        row[f"{label}_update_err_vs_f64"] = e
+        row[f"{label}_update_err_ratio_max"] = ratios[label]
+    del want64
+    row.update(unchanged_ratio_min=min(unchanged),
+               phase_s=time.perf_counter() - t_phase, card=card)
+    print("lmdp-train-check " + json.dumps(row), flush=True)
+    for label, ratio in ratios.items():
+        check(ratio <= UPDATE_RATIO, f"lmdp {label}'s update {ratio:.2f}x as "
+              "far from float64 as the single-device f32 gradients' sum")
+    check(min(unchanged) > UPDATE_RATIO,
+          "the update check cannot tell unchanged weights from trained")
+    return launches
+
+
 # -- the stateful optimizers, ZeRO-1 and the bf16 mixed policy -------------
 #
 # The kernels on bf16 storage: (kernels-line row, source, the TPU kernel
@@ -4047,10 +4359,21 @@ def opt_lm_phase(torch, np, card):
     return launches
 
 
-def bf16_kernel_rows(cases, launches, mode="loopback"):
+def dp_rows(dp_launches, counted):
+    """A kernel's launches a rank in each ``lmdp`` run that made any."""
+    if dp_launches is None:
+        return None
+    return {label: sum(got.get(c, 0) for c in counted)
+            for label, got in dp_launches.items()
+            if any(got.get(c, 0) for c in counted)}
+
+
+def bf16_kernel_rows(cases, launches, mode="loopback", dp_launches=None):
     """The bf16-storage kernels' entries of the kernels line: launches
     from the main path's runs (FSDP's mixed gathers, the LM's mixed
-    trunk), the rest from the main case of each (the w1 shard's gather)."""
+    trunk; ``dp_launches``, a rank's by run, from the mixed LM DDP and
+    FSDP runs), the rest from the main case of each (the w1 shard's
+    gather)."""
     rows = []
     for name, src, replaces, counted in BF16_KERNELS:
         mine = [c for c in cases if c["kernel"] == name]
@@ -4065,6 +4388,7 @@ def bf16_kernel_rows(cases, launches, mode="loopback"):
             else sum(launches.get(c, 0) for c in counted),
             "launches_by_kernel": None if launches is None
             else {c: launches.get(c, 0) for c in counted},
+            "lmdp_launches_per_rank": dp_rows(dp_launches, counted),
             "mode": mode, "storage": "bf16",
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": main["ms"], "f32_ms": main["f32_ms"],
@@ -4413,14 +4737,20 @@ def card_lines() -> list:
     return out.stdout.strip().splitlines()
 
 
-def dist_phase(torch, tp_only: bool = False):
+def dist_phase(torch, part: str = "all"):
     """``--phase dist``: ``RING_N`` ranks, one a card, over NCCL and the
     peer-mapped workspaces (``dist_rank``), then TP, TP-SP and the hybrid
-    on the cards (``tp_phase``) and ``cli.py -m 0`` (``cli_m0_phase``).
-    Returns the ring kernels' and the all-to-all's entries of the kernels
-    line. ``tp_only`` (``--phase dist-tp``) runs the last two alone."""
+    on the cards (``tp_phase``), ``cli.py -m 0`` (``cli_m0_phase``), LM
+    and transformer TP (``lmtp_phase``) and their CLI runs, the
+    optimizer slice's CLI runs, and DDP, FSDP and the hybrid of the LM and
+    the transformer (``lmdp_phase``). Returns the ring kernels' and the
+    all-to-all's entries of the kernels line. ``part`` ``"tp"`` (``--phase
+    dist-tp``) runs TP, ``-m 0`` and LM TP with their CLI runs alone;
+    ``"lmdp"`` (``--phase dist-lmdp``) the data-parallel LM and
+    transformer alone."""
     from distributed_llm_code_samples_tpu_torch.parallel import (
         DATA_AXIS, launch, make_mesh)
+    import numpy as np
     n = torch.cuda.device_count()
     check(n >= RING_N, f"--phase dist needs {RING_N} cards, {n} visible")
     topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
@@ -4434,7 +4764,7 @@ def dist_phase(torch, tp_only: bool = False):
                   f"cuda:{i} has no peer access to cuda:{j}: the ring "
                   "kernels store over peer mappings, never through the host")
     rows = []
-    if not tp_only:
+    if part == "all":
         out = launch(dist_rank, make_mesh({DATA_AXIS: RING_N},
                                           device="cuda"),
                      {"card": cards}, timeout=900)[0]
@@ -4449,15 +4779,17 @@ def dist_phase(torch, tp_only: bool = False):
                                  mode="4 cards")
         for row in rows:
             row["cards"] = cards
-    tp_phase(torch, cards, cards=RING_N)
-    cli_m0_phase(cards)
-    import numpy as np
-    lmtp_phase(torch, np, cards, cards=RING_N)
-    for tag, argv in CLI_LMTP:
-        cli_m0_phase(cards, argv, tag)
-    if not tp_only:
+    if part in ("all", "tp"):
+        tp_phase(torch, cards, cards=RING_N)
+        cli_m0_phase(cards)
+        lmtp_phase(torch, np, cards, cards=RING_N)
+        for tag, argv in CLI_LMTP:
+            cli_m0_phase(cards, argv, tag)
+    if part == "all":
         for tag, argv in CLI_OPT:
             cli_m0_phase(cards, argv, tag)
+    if part in ("all", "lmdp"):
+        lmdp_phase(torch, np, cards, cards=RING_N)
     return rows
 
 
@@ -4465,7 +4797,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
                     choices=["all", "kernel", "train", "lm", "ring", "ep",
-                             "tp", "opt", "lmtp", "dist", "dist-tp"],
+                             "tp", "opt", "lmtp", "lmdp", "dist", "dist-tp",
+                             "dist-lmdp"],
                     default="all")
     args = ap.parse_args(argv)
     try:
@@ -4500,15 +4833,15 @@ def main(argv=None) -> int:
     print("ptxas-spills " + json.dumps(ptxas_spills(_build.build_logs)),
           flush=True)
 
-    if args.phase in ("dist", "dist-tp"):
-        kernels = dist_phase(torch, tp_only=args.phase == "dist-tp")
+    if args.phase in ("dist", "dist-tp", "dist-lmdp"):
+        kernels = dist_phase(torch, part=args.phase[5:] or "all")
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0 if all(k["ok"] for k in kernels) else 1
 
     timer = Timer(torch)
     kernels, bad = [], []
     ffn_phases, lm_phases = ("all", "kernel", "train"), ("all", "lm")
-    lm_kernel_phases = ("all", "lm", "lmtp")
+    lm_kernel_phases = ("all", "lm", "lmtp", "lmdp")
     ring_phases, ep_phases = ("all", "ring"), ("all", "ep")
     opt_phases = ("all", "opt")
     if args.phase in ("all", "kernel"):
@@ -4532,7 +4865,7 @@ def main(argv=None) -> int:
         bf16_cases = bf16_kernel_phase(torch, np, timer)
         bad += [c for c in bf16_cases if not c["ok"]]
     launches = ffn_launches = lm_launches = ring_launches = None
-    ep_launches = bf16_launches = lmtp_launches = None
+    ep_launches = bf16_launches = lmtp_launches = lmdp_launches = None
     if not bad and args.phase == "all":
         launches = serving_phase(torch, np, card)
     if not bad and args.phase in ("all", "train"):
@@ -4550,6 +4883,8 @@ def main(argv=None) -> int:
                              **opt_lm_phase(torch, np, card))
     if not bad and args.phase in ("all", "lmtp"):
         lmtp_launches = lmtp_phase(torch, np, card)
+    if not bad and args.phase in ("all", "lmdp"):
+        lmdp_launches = lmdp_phase(torch, np, card)
     if args.phase in ("all", "kernel"):
         main_case = next(c for c in cases if c["shape"] == "serving"
                          and c["kv_dtype"] == "f32")
@@ -4570,13 +4905,15 @@ def main(argv=None) -> int:
     if args.phase in ffn_phases:
         kernels += ffn_kernel_rows(ffn_cases, ffn_launches)
     if args.phase in lm_kernel_phases:
-        kernels += lm_kernel_rows(lm_cases, lm_launches, lmtp_launches)
+        kernels += lm_kernel_rows(lm_cases, lm_launches, lmtp_launches,
+                                  lmdp_launches)
     if args.phase in ring_phases:
         kernels += ring_kernel_rows(ring_cases, ring_launches)
     if args.phase in ep_phases:
         kernels.append(a2a_kernel_row(a2a_cases, ep_launches))
     if args.phase in opt_phases:
-        kernels += bf16_kernel_rows(bf16_cases, bf16_launches)
+        kernels += bf16_kernel_rows(bf16_cases, bf16_launches,
+                                    dp_launches=lmdp_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     if bad:
         print(f"error: kernel disagrees with its plain version: {bad}",

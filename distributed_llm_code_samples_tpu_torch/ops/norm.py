@@ -18,7 +18,10 @@ def ln_fwd(g: torch.Tensor, x: torch.Tensor, eps: float = EPS):
     mu = x.mean(dim=-1, keepdim=True)
     xc = x - mu
     var = (xc * xc).mean(dim=-1, keepdim=True)
-    rstd = torch.rsqrt(var + eps)
+    # rsqrt in f32, rounded once to the input's dtype: on the CPU torch's
+    # bf16 rsqrt rounds twice on the elements past its last full vector
+    # (XLA's, and the card's, round once)
+    rstd = torch.rsqrt((var + eps).float()).to(var.dtype)
     xhat = xc * rstd
     return g * xhat, (xhat, rstd)
 

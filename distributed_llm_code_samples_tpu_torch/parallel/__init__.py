@@ -2,10 +2,10 @@
 single-device LM trainer (slice 3), DDP and FSDP of the FFN stack over n
 ranks (slice 4), expert parallelism of the MoE FFN stack (slice 5), and
 tensor parallelism (plain and sequence-parallel) and the DDP x TP hybrid
-of the FFN stack, ZeRO-1, and the single-device transformer trainer and
-Megatron TP of the transformer and of the LM, with the vocab-parallel
-embedding, cross-entropy and fused head, with the mesh, the collectives
-and the launcher they run on."""
+of the FFN stack, ZeRO-1, and the single-device trainer, DDP, FSDP,
+Megatron TP and the DDP x TP hybrid of the transformer and of the LM,
+with the vocab-parallel embedding, cross-entropy and fused head, with
+the mesh, the collectives and the launcher they run on."""
 
 from .collectives import (all_gather, all_reduce, all_to_all, axis_index,
                           pmax, reduce_scatter)
@@ -15,15 +15,17 @@ from .fsdp import shard_params, train_fsdp, unshard_params
 from .hybrid import train_hybrid
 from .launcher import (launch, launch_replicated, launch_strided,
                        run_replicated, run_strided)
-from .lm import (lm_grads, resolve_head, train_lm_single, train_lm_tp,
-                 vp_embed, vp_head_xent, vp_xent)
+from .lm import (lm_grads, resolve_head, train_lm_ddp, train_lm_fsdp,
+                 train_lm_hybrid, train_lm_single, train_lm_tp, vp_embed,
+                 vp_head_xent, vp_xent)
 from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, Mesh, make_mesh,
                    require_axes)
 from .single import make_step, train_single
 from .tp import train_tp, train_tp_sp
 from .tp import unshard_params as unshard_tp_params
-from .transformer import (resolve_attn, train_transformer_single,
-                          train_transformer_tp)
+from .transformer import (resolve_attn, train_transformer_ddp,
+                          train_transformer_fsdp, train_transformer_hybrid,
+                          train_transformer_single, train_transformer_tp)
 from .zero1 import train_ddp_zero1
 
 __all__ = ["DATA_AXIS", "EXPERT_AXIS", "MODEL_AXIS", "Mesh", "all_gather",
@@ -32,8 +34,11 @@ __all__ = ["DATA_AXIS", "EXPERT_AXIS", "MODEL_AXIS", "Mesh", "all_gather",
            "make_step", "moe_layer_ep", "pmax", "reduce_scatter",
            "require_axes", "resolve_attn", "resolve_head", "run_replicated",
            "run_strided", "shard_params", "train_ddp", "train_ddp_zero1",
-           "train_fsdp", "train_hybrid", "train_lm_single", "train_lm_tp",
+           "train_fsdp", "train_hybrid", "train_lm_ddp", "train_lm_fsdp",
+           "train_lm_hybrid", "train_lm_single", "train_lm_tp",
            "train_moe_dense", "train_moe_ep", "train_single", "train_tp",
-           "train_tp_sp", "train_transformer_single", "train_transformer_tp",
+           "train_tp_sp", "train_transformer_ddp", "train_transformer_fsdp",
+           "train_transformer_hybrid", "train_transformer_single",
+           "train_transformer_tp",
            "unshard_params", "unshard_tp_params", "vp_embed", "vp_head_xent",
            "vp_xent"]

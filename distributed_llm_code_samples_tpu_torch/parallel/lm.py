@@ -1,6 +1,7 @@
 """LM trainers, as in the JAX package's ``parallel/lm.py``: the
-single-device trainer and Megatron TP with the vocab-parallel
-embedding, cross-entropy and fused head.
+single-device trainer, DDP, FSDP/ZeRO-3, Megatron TP with the
+vocab-parallel embedding, cross-entropy and fused head, and the DDP x TP
+hybrid.
 
 ``train_lm_single``: per step, a batch of next-token sequences, the
 mean cross-entropy of the tied head, its gradients (autograd composing
@@ -22,7 +23,27 @@ vocab-parallel head: the cross-entropy over the rank's logit columns
 completes with one max and two sums over the model axis, in its forward;
 their backwards need no collective. The step's backward is split at the
 ``f`` all-reduces as the TP blocks' is (``parallel/transformer.py``).
-DDP, FSDP and the DDP x TP hybrid of the LM are not ported yet.
+
+``train_lm_ddp``: replicated params (and optimizer state), strided
+seeds, ``lm_grads`` on each rank's batch, then each gradient summed once
+over the data axis after autograd has returned. ``wte``'s embedding and
+head sides are summed inside ``lm_grads``, before that one reduction
+(JAX's ``_vma_check`` docstring tells of the double count that a second
+reduction of the embedding side gives).
+
+``train_lm_fsdp``: ``wte`` and ``wpe`` shard their rows and ``ln_f`` its
+features over the data axis, the blocks dim 1 of every stacked leaf
+(``_lm_fsdp_specs``). ``wte``, ``wpe`` and ``ln_f`` are gathered once a
+step (``wte`` serves the embedding and the head), the blocks a layer at
+a time, in the forward and again in the backward, through
+``parallel/transformer.py``'s FSDP block stack; every gradient is
+reduce-scattered onto the rank's shards, ``wte``'s two sides summed
+first. The optimizer state is made from the shards and lives there
+(ZeRO-3).
+
+``train_lm_hybrid``: ``_make_tp_step`` on the model axis of a data x
+model mesh, then each gradient summed over the data axis; the seeds
+strided over the data axis only.
 """
 
 from __future__ import annotations
@@ -35,13 +56,18 @@ from .. import LR
 from ..data import lm_batch_from_seed
 from ..models.lm import LMParams, clone_lm, lm_from_leaves, lm_leaves, lm_loss
 from ..ops.norm import layernorm
+from ..ops.xent import xent_loss
 from ..optim import check_state_args, sgd
-from .collectives import all_reduce, axis_index, pmax
-from .launcher import (DEFAULT_TIMEOUT_S, launch_replicated,
-                       refuse_unported, run_replicated, to_device)
-from .mesh import MODEL_AXIS, Mesh, require_axes
-from .transformer import (FIELDS, TP_SPECS, TPComm, _leaf, _validate_shapes,
-                          _validate_tp, blocks_backward, blocks_forward,
+from .collectives import (all_gather, all_reduce, axis_index, pmax,
+                          reduce_scatter)
+from .launcher import (DEFAULT_TIMEOUT_S, launch_replicated, launch_strided,
+                       refuse_unported, run_replicated, run_strided,
+                       to_device)
+from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, require_axes
+from .transformer import (FIELDS, FSDP_SPECS, TP_SPECS, TPComm, _check_fsdp,
+                          _leaf, _validate_shapes, _validate_tp,
+                          blocks_backward, blocks_forward,
+                          fsdp_blocks_backward, fsdp_blocks_forward,
                           resolve_attn, shard_leaves, unshard_leaves)
 
 
@@ -83,20 +109,32 @@ def lm_grads(params: LMParams, tokens, targets, n_heads: int, attn=None,
 
 def _make_step(batch_size: int, model_size: int, seq_len: int,
                n_heads: int, lr: float, attn=None, batch_fn=None,
-               head=None, mixed: bool = False, optimizer=None):
+               head=None, mixed: bool = False, optimizer=None, *,
+               mesh: Optional[Mesh] = None, grads_fn=None,
+               vocab: Optional[int] = None):
     """One update; ``batch_size`` is tokens a step. The batch is
     ``batch_fn(seed) -> (tokens, targets)``, or the seeds-as-dataset
-    ``lm_batch_from_seed`` on the params' device. Without ``optimizer``
-    it is ``(params, seed) -> params`` with SGD in place; with one,
-    ``((params, state), seed) -> (params, state)``."""
+    ``lm_batch_from_seed`` over ``vocab`` tokens (default the params')
+    on the params' device. The gradients are ``lm_grads``', each summed
+    over the data axis of a rank's ``mesh`` (DDP) once autograd has
+    returned, or ``grads_fn(params, tokens, targets)``'s (FSDP). Without
+    ``optimizer`` it is ``(params, seed) -> params`` with SGD in place;
+    with one, ``((params, state), seed) -> (params, state)``."""
     b = batch_size // seq_len
 
     def grads_of(params: LMParams, seed) -> list:
         tokens, targets = (batch_fn(seed) if batch_fn is not None else
-                           lm_batch_from_seed(seed, b, seq_len, params.vocab,
+                           lm_batch_from_seed(seed, b, seq_len,
+                                              vocab or params.vocab,
                                               device=params.device))
-        return lm_grads(params, tokens, targets, n_heads, attn, head,
-                        mixed)[1]
+        if grads_fn is not None:
+            return grads_fn(params, tokens, targets)
+        grads = lm_grads(params, tokens.to(params.device),
+                         targets.to(params.device), n_heads, attn, head,
+                         mixed)[1]
+        if mesh is None:
+            return grads
+        return [all_reduce(g, mesh, axis=DATA_AXIS) for g in grads]
 
     def step(params: LMParams, seed) -> LMParams:
         sgd(lm_leaves(params), grads_of(params, seed), lr)
@@ -105,7 +143,7 @@ def _make_step(batch_size: int, model_size: int, seq_len: int,
     def step_opt(carry, seed):
         params, state = carry
         return optimizer.update(lm_from_leaves(grads_of(params, seed)),
-                                state, params, lr)
+                                state, params, lr, mesh=mesh)
 
     return step if optimizer is None else step_opt
 
@@ -280,23 +318,26 @@ def lm_tp_unshard(shards) -> LMParams:
                                          _lm_tp_specs()))
 
 
-def _map_state(fn, *states):
+def _map_state(fn, *states, specs=None):
     """The structure of optimizer ``states`` with each param-shaped part
     (an ``LMParams``; JAX ``_lm_state_specs``) replaced by
-    ``lm_from_leaves(fn(leaves of each state, _lm_tp_specs()))`` and each
-    other tensor (a step count) by ``fn([[t] of each state], [None])[0]``:
-    ``fn`` maps the states' leaves and their model-axis dims to one list
-    of leaves (a shard, or the joined whole)."""
+    ``lm_from_leaves(fn(leaves of each state, specs))`` and each other
+    tensor (a step count) by ``fn([[t] of each state], [None])[0]``:
+    ``fn`` maps the states' leaves and their sharded dims (``specs``,
+    default ``_lm_tp_specs()``) to one list of leaves (a shard, or the
+    joined whole)."""
+    specs = _lm_tp_specs() if specs is None else specs
     s = states[0]
     if isinstance(s, LMParams):
-        return lm_from_leaves(fn([lm_leaves(x) for x in states],
-                                 _lm_tp_specs()))
+        return lm_from_leaves(fn([lm_leaves(x) for x in states], specs))
     if isinstance(s, torch.Tensor):
         return fn([[x] for x in states], [None])[0]
     if hasattr(s, "_fields"):
-        return type(s)(*(_map_state(fn, *xs) for xs in zip(*states)))
+        return type(s)(*(_map_state(fn, *xs, specs=specs)
+                         for xs in zip(*states)))
     if isinstance(s, (tuple, list)):
-        return type(s)(_map_state(fn, *xs) for xs in zip(*states))
+        return type(s)(_map_state(fn, *xs, specs=specs)
+                       for xs in zip(*states))
     return s
 
 
@@ -355,16 +396,19 @@ def _make_tp_step(batch_size: int, model_size: int, seq_len: int,
     seed) -> shards`` with SGD in place, or with ``optimizer``
     ``((shards, state), seed) -> (shards, state)``, the state sharded as
     the shards (the elementwise update needs no collective); the
-    gradients are ``lm_tp_grads``'."""
-    refuse_unported(data_axes=(tuple(data_axes), ()))
+    gradients are ``lm_tp_grads``', each then summed over every axis of
+    ``data_axes`` (the hybrid's data axis)."""
     b = batch_size // seq_len
 
     def grads_of(params: LMParams, seed) -> list:
         tokens, targets = (batch_fn(seed) if batch_fn is not None else
                            lm_batch_from_seed(seed, b, seq_len, vocab,
                                               device=params.device))
-        return lm_tp_grads(params, tokens, targets, h_local, mesh=mesh,
-                           attn=attn, head_impl=head_impl)[1]
+        grads = lm_tp_grads(params, tokens, targets, h_local, mesh=mesh,
+                            attn=attn, head_impl=head_impl)[1]
+        for axis in data_axes:
+            grads = [all_reduce(g, mesh, axis=axis) for g in grads]
+        return grads
 
     def step(params: LMParams, seed) -> LMParams:
         sgd(lm_leaves(params), grads_of(params, seed), lr)
@@ -411,11 +455,9 @@ def train_lm_tp(params: LMParams, seeds, batch_size: int, model_size: int,
     resolve_head(head_impl)
     attn = resolve_attn(attn_impl)
     if not mesh.in_rank:
-        if opt_state is not None and not mesh.loopback:
-            opt_state = to_device(opt_state, "cpu")
         outs = launch_replicated(
             _lm_tp_rank, params, seeds, mesh, batch_size, model_size, lr,
-            opt_state, dict(seq_len=seq_len, n_heads=n_heads,
+            _trip(opt_state, mesh), dict(seq_len=seq_len, n_heads=n_heads,
                             attn_impl=attn_impl, optimizer=optimizer,
                             head_impl=head_impl, batch_fn=batch_fn),
             timeout=timeout)
@@ -448,3 +490,252 @@ def _lm_tp_rank(mesh: Mesh, payload):
     if kw["optimizer"] is None:
         return to_device(out, "cpu"), None
     return to_device(out[0], "cpu"), to_device(out[1], "cpu")
+
+
+# -- data parallelism: DDP, FSDP/ZeRO-3 and the DDP x TP hybrid ------------------
+
+def train_lm_ddp(params: LMParams, seeds, batch_size: int, model_size: int,
+                 mesh: Mesh, lr: float = LR, *, seq_len: int, n_heads: int,
+                 attn_impl: str | None = None, optimizer=None,
+                 opt_state=None, return_state: bool = False,
+                 head_impl: str | None = None, mixed: bool = False,
+                 guard=None, guard_state=None, return_guard: bool = False,
+                 batch_fn: Optional[Callable] = None,
+                 on_step: Optional[Callable[[int], None]] = None,
+                 timeout: float = DEFAULT_TIMEOUT_S):
+    """DDP over the data axis: every rank holds the whole LM, takes its
+    column of the strided seeds (``seeds[t * n + r]`` at step ``t``), runs
+    ``lm_grads`` (``attn_impl``, ``head_impl``: the fused head's kernels
+    on every rank, ``mixed``: the bf16 trunk) and sums each gradient over
+    the axis once (SUM, the unscaled LR) before the update. ``optimizer``
+    threads a replicated state; with ``return_state`` the result is
+    ``(params, opt_state)``, which a later call resumes from. Given the
+    whole mesh it launches the ranks and returns rank 0's params (and
+    state) on the device of ``params``; given a rank's view it runs that
+    rank and returns its replica. ``batch_fn`` as ``train_lm_tp``'s.
+    ``guard`` is not ported yet."""
+    refuse_unported(guard=(guard, None), guard_state=(guard_state, None),
+                    return_guard=(return_guard, False))
+    require_axes(mesh, DATA_AXIS)
+    _validate_lm(batch_size, seq_len, model_size, n_heads, params)
+    check_state_args(optimizer, opt_state, return_state)
+    head = resolve_head(head_impl)
+    attn = resolve_attn(attn_impl)
+    kw = dict(seq_len=seq_len, n_heads=n_heads, attn_impl=attn_impl,
+              optimizer=optimizer, head_impl=head_impl, mixed=mixed,
+              batch_fn=batch_fn)
+    if not mesh.in_rank:
+        outs = launch_strided(_lm_dp_rank, params, seeds, mesh, batch_size,
+                              model_size, lr, _trip(opt_state, mesh),
+                              ("ddp", kw), timeout=timeout)
+        out = to_device(outs[0], params.device)
+        return out if optimizer is None or return_state else out[0]
+    step = _make_step(batch_size, model_size, seq_len, n_heads, lr, attn,
+                      batch_fn, head, mixed, optimizer, mesh=mesh)
+    local = to_device(clone_lm(params), mesh.torch_device)
+    if optimizer is None:
+        return run_strided(step, local, seeds, mesh, on_step)
+    state = (optimizer.init(local) if opt_state is None
+             else to_device(opt_state, mesh.torch_device))
+    carry = run_strided(step, (local, state), seeds, mesh, on_step)
+    return carry if return_state else carry[0]
+
+
+def _lm_fsdp_specs() -> list:
+    """The data-axis dim of each leaf in ``lm_leaves`` order (JAX
+    ``_lm_fsdp_specs``): ``wte`` and ``wpe`` their rows, the blocks
+    ``FSDP_SPECS``, ``ln_f`` its features."""
+    return [0, 0] + [FSDP_SPECS[f] for f in FIELDS] + [0]
+
+
+def lm_fsdp_shard(params: LMParams, mesh: Mesh) -> LMParams:
+    """The rank of ``mesh``'s FSDP shards of the LM."""
+    return lm_from_leaves(shard_leaves(lm_leaves(params), _lm_fsdp_specs(),
+                                       mesh, axis=DATA_AXIS))
+
+
+def lm_fsdp_unshard(shards) -> LMParams:
+    """The whole LM from the FSDP shards of the data axis, in its order."""
+    return lm_from_leaves(unshard_leaves([lm_leaves(s) for s in shards],
+                                         _lm_fsdp_specs()))
+
+
+def lm_fsdp_shard_state(state, mesh: Mesh):
+    """The rank's shards of a whole optimizer state, sharded as the
+    params (the FFN FSDP's ``shard_state``)."""
+    return _map_state(lambda ls, dims: shard_leaves(ls[0], dims, mesh,
+                                                    axis=DATA_AXIS),
+                      state, specs=_lm_fsdp_specs())
+
+
+def lm_fsdp_unshard_state(states):
+    """The whole optimizer state from every rank's FSDP shards."""
+    return _map_state(unshard_leaves, *states, specs=_lm_fsdp_specs())
+
+
+def lm_fsdp_grads(shards: LMParams, tokens, targets, n_heads: int, *,
+                  mesh: Mesh, attn=None, head=None, mixed: bool = False):
+    """``(loss, grads)`` of ``lm_loss`` on the rank's FSDP ``shards``, the
+    gradients of the shards in ``lm_leaves`` order. ``wte``, ``wpe`` and
+    ``ln_f`` are gathered once (``wte`` in f32 also under ``mixed``: it
+    serves the f32 head, and the lookup is cast after, as in
+    ``lm_loss(mixed=True)``); the blocks run through the FSDP block stack
+    (under ``mixed`` each block shard cast to bf16 before its gather). The
+    backward runs in pieces from the rank's thread: the final LayerNorm
+    and the head, the blocks from the top, the embedding. ``wte``'s head
+    and embedding sides are summed, then every gradient is
+    reduce-scattered once onto the rank's shard."""
+    dev, bf16 = shards.device, torch.bfloat16
+    tokens, targets = tokens.to(dev).long(), targets.reshape(-1).to(dev)
+    wte, wpe, ln_f = (all_gather(t, mesh, dim=0, axis=DATA_AXIS)
+                      for t in (shards.wte, shards.wpe, shards.ln_f))
+    wte_e, wpe = _leaf(wte), _leaf(wpe)
+    with torch.enable_grad():
+        x0 = (wte_e.to(bf16)[tokens] + wpe[:tokens.shape[1]].to(bf16)
+              if mixed else wte_e[tokens] + wpe[:tokens.shape[1]])
+    x, inputs = fsdp_blocks_forward(shards.blocks, x0.detach(), n_heads,
+                                    mesh, True, attn, mixed)
+    x, ln_f, wte_h = _leaf(x), _leaf(ln_f), _leaf(wte)
+    with torch.enable_grad():
+        h = layernorm(ln_f.to(bf16) if mixed else ln_f, x)
+        h = h.reshape(-1, h.shape[-1]).to(wte_h.dtype)
+        loss = (head(h, wte_h, targets) if head is not None
+                else xent_loss(h @ wte_h.T, targets))
+    dx, dln_f, dwte_h = torch.autograd.grad(loss, [x, ln_f, wte_h])
+    dx, dblocks = fsdp_blocks_backward(shards.blocks, inputs, dx, n_heads,
+                                       mesh, True, attn, mixed)
+    dwte_e, dwpe = torch.autograd.grad(x0, [wte_e, wpe], dx)
+    return loss.detach(), [
+        reduce_scatter(g, mesh, dim=0, axis=DATA_AXIS)
+        for g in (dwte_e + dwte_h, dwpe)] + dblocks + [
+        reduce_scatter(dln_f, mesh, dim=0, axis=DATA_AXIS)]
+
+
+def train_lm_fsdp(params: LMParams, seeds, batch_size: int, model_size: int,
+                  mesh: Mesh, lr: float = LR, *, seq_len: int, n_heads: int,
+                  attn_impl: str | None = None, optimizer=None,
+                  opt_state=None, return_state: bool = False,
+                  head_impl: str | None = None, mixed: bool = False,
+                  batch_fn: Optional[Callable] = None,
+                  on_step: Optional[Callable[[int], None]] = None,
+                  timeout: float = DEFAULT_TIMEOUT_S):
+    """FSDP/ZeRO-3 over the data axis (``lm_fsdp_grads``): the seeds
+    strided as DDP's, the LM sharded by ``_lm_fsdp_specs``, the update on
+    the shards. The block stack's backward recomputes each block, so
+    under flash a step launches ``flash_attn_fwd`` twice a layer (once a
+    layer under DDP); the head's kernels run once a step on the gathered
+    ``wte``. ``optimizer``'s state is made from the rank's shards and
+    stays there; a norm clip sums over the shards with
+    ``clipped(axis="data")``. Given the whole mesh it returns the whole
+    params (with ``return_state`` also the whole state, re-assembled as
+    the params are, which ``opt_state`` takes back and shards again) on
+    the device of ``params``; given a rank's view, that rank's shards
+    (and its shard of the state, in and out)."""
+    require_axes(mesh, DATA_AXIS)
+    n = mesh.axis_size(DATA_AXIS)
+    _validate_lm(batch_size, seq_len, model_size, n_heads, params)
+    check_state_args(optimizer, opt_state, return_state)
+    for name in ("wte", "wpe", "ln_f"):
+        dim = getattr(params, name).shape[0]
+        if dim % n:
+            raise ValueError(f"{name} dim {dim} not divisible by {n} shards")
+    _check_fsdp(params.blocks, n, prefix="blocks.")
+    head = resolve_head(head_impl)
+    attn = resolve_attn(attn_impl)
+    kw = dict(seq_len=seq_len, n_heads=n_heads, attn_impl=attn_impl,
+              optimizer=optimizer, head_impl=head_impl, mixed=mixed,
+              batch_fn=batch_fn)
+    if not mesh.in_rank:
+        outs = launch_strided(_lm_dp_rank, params, seeds, mesh, batch_size,
+                              model_size, lr, _trip(opt_state, mesh),
+                              ("fsdp", kw), timeout=timeout)
+        dev = params.device
+        if optimizer is None:
+            return to_device(lm_fsdp_unshard(outs), dev)
+        out = to_device(lm_fsdp_unshard([o[0] for o in outs]), dev)
+        if not return_state:
+            return out
+        return out, to_device(lm_fsdp_unshard_state([o[1] for o in outs]),
+                              dev)
+
+    def grads_fn(shards, tokens, targets):
+        return lm_fsdp_grads(shards, tokens, targets, n_heads, mesh=mesh,
+                             attn=attn, head=head, mixed=mixed)[1]
+
+    step = _make_step(batch_size, model_size, seq_len, n_heads, lr,
+                      batch_fn=batch_fn, optimizer=optimizer, mesh=mesh,
+                      grads_fn=grads_fn, vocab=params.vocab)
+    shards = lm_fsdp_shard(params, mesh)
+    if optimizer is None:
+        return run_strided(step, shards, seeds, mesh, on_step)
+    state = (optimizer.init(shards) if opt_state is None
+             else to_device(opt_state, mesh.torch_device))
+    carry = run_strided(step, (shards, state), seeds, mesh, on_step)
+    return carry if return_state else carry[0]
+
+
+def train_lm_hybrid(params: LMParams, seeds, batch_size: int,
+                    model_size: int, mesh: Mesh, lr: float = LR, *,
+                    seq_len: int, n_heads: int, attn_impl: str | None = None,
+                    batch_fn: Optional[Callable] = None,
+                    on_step: Optional[Callable[[int], None]] = None,
+                    timeout: float = DEFAULT_TIMEOUT_S) -> LMParams:
+    """The DDP x vocab-parallel TP hybrid on a data x model mesh:
+    ``_make_tp_step``'s ranks on the model axis (the blocks' and the
+    vocab-parallel embedding's and cross-entropy's collectives), then each
+    gradient summed over the data axis once a step; the params sharded
+    over the model axis and replicated over the data axis; the seeds
+    strided over the data axis only (``train_ffns.py:182``). As JAX's, it
+    takes no ``head_impl``, optimizer or ``mixed``. Given the whole mesh
+    it returns the whole params from the ranks of data index 0; given a
+    rank's view, that rank's TP shards."""
+    require_axes(mesh, DATA_AXIS, MODEL_AXIS)
+    n = mesh.axis_size(MODEL_AXIS)
+    h_local = _validate_tp(params.blocks, n_heads, n)
+    _validate_lm(batch_size, seq_len, model_size, n_heads, params)
+    if params.vocab % n:
+        raise ValueError(f"vocab={params.vocab} not divisible by "
+                         f"model-axis size {n}")
+    attn = resolve_attn(attn_impl)
+    kw = dict(seq_len=seq_len, n_heads=n_heads, attn_impl=attn_impl,
+              batch_fn=batch_fn)
+    if not mesh.in_rank:
+        outs = launch_strided(_lm_dp_rank, params, seeds, mesh, batch_size,
+                              model_size, lr, None, ("hybrid", kw),
+                              axis=DATA_AXIS, timeout=timeout)
+        return to_device(lm_tp_unshard([o for r, o in enumerate(outs)
+                                        if mesh.coords(r)[DATA_AXIS] == 0]),
+                         params.device)
+    step = _make_tp_step(batch_size, model_size, seq_len, h_local,
+                         params.vocab, lr, attn, data_axes=(DATA_AXIS,),
+                         mesh=mesh, batch_fn=batch_fn)
+    return run_strided(step, lm_tp_shard(params, mesh), seeds, mesh, on_step,
+                       axis=DATA_AXIS)
+
+
+def _trip(opt_state, mesh: Mesh):
+    """An optimizer state for the trip to the ranks (on the CPU unless
+    the ranks are threads)."""
+    if opt_state is None or mesh.loopback:
+        return opt_state
+    return to_device(opt_state, "cpu")
+
+
+_DP_TRAINERS = {"ddp": train_lm_ddp, "fsdp": train_lm_fsdp,
+                "hybrid": train_lm_hybrid}
+
+
+def _lm_dp_rank(mesh: Mesh, payload):
+    """One rank of a whole-mesh DDP, FSDP or hybrid run: its shards (with
+    an optimizer, and its state's) on the CPU; DDP: rank 0's replica
+    alone."""
+    params, seeds, batch_size, model_size, lr, opt_state, (kind, kw) = \
+        payload
+    if opt_state is not None:
+        kw = dict(kw, opt_state=(lm_fsdp_shard_state(opt_state, mesh)
+                                 if kind == "fsdp" else opt_state))
+    if kw.get("optimizer") is not None:
+        kw = dict(kw, return_state=True)
+    out = _DP_TRAINERS[kind](params, seeds, batch_size, model_size, mesh, lr,
+                             **kw)
+    return None if kind == "ddp" and mesh.rank else to_device(out, "cpu")

@@ -1,8 +1,28 @@
 """Transformer trainers, as in the JAX package's ``parallel/transformer.py``:
-the single-device trainer and Megatron tensor parallelism of the pre-LN
-block stack (``models/transformer.py``), plain and sequence-parallel, and
-what the LM trainers share with them (the shape checks, the ``attn_impl``
-switch, the TP layout and the split TP block).
+the single-device trainer (``mixed``: the blocks in bf16 over f32
+master params), DDP, FSDP/ZeRO-3, Megatron tensor parallelism of the
+pre-LN block stack (``models/transformer.py``), plain and
+sequence-parallel, and the DDP x TP hybrid, and what the LM trainers
+share with them (the shape checks, the ``attn_impl`` switch, the TP and
+FSDP layouts, the split TP block and the FSDP block stack).
+
+**DDP**: replicated params, strided seeds, the single-device VJP on each
+rank's batch, then one all-reduce (SUM) of each gradient over the data
+axis after autograd has returned, and SGD at the unscaled LR
+(``train_ffns.py:165``).
+
+**FSDP/ZeRO-3** keeps dim 1 of every stacked leaf (each layer's first
+dim) split over the data axis (``FSDP_SPECS``). JAX gathers each layer
+in its forward and lets XLA transpose the gather into the
+reduce-scatter. Here the gathers run from the rank's own thread
+(``fsdp_blocks_forward``): per layer the shards are gathered, the block
+runs without autograd and only its input is kept. The backward
+(``fsdp_blocks_backward``), from the top layer down, gathers the layer
+again, recomputes the block under autograd, takes ``dx`` and the whole
+weight gradients, and reduce-scatters them onto the rank's shards, as
+the reference's FFN FSDP does (``train_ffns.py:245-256``). No gathered
+layer lives from the forward to the backward; the recompute runs each
+block's forward twice (JAX's transpose runs it once).
 
 **TP** shards the ``"model"`` axis as Megatron does: heads are
 column-parallel (``wq``/``wk``/``wv`` split on their output dim, so each
@@ -33,6 +53,11 @@ same code serves NCCL on n cards and gloo on the CPU. JAX's
 ``_f_gate``/``grad_reduce`` machinery compensates for its
 varying-manual-axes typing, which PyTorch has not; the port keeps the
 plain rule above.
+
+**The hybrid** runs TP's ranks (``tp_grads``) on the model axis of a
+data x model mesh and then all-reduces every gradient over the data
+axis; the seeds are strided over the data axis only, so every model rank
+of a data row takes the same seed.
 """
 
 from __future__ import annotations
@@ -44,19 +69,24 @@ import torch
 from .. import LR
 from ..data import batch_from_seed
 from ..models.transformer import (FIELDS, TransformerParams, attn_sublayer,
-                                  transformer_fwd)
+                                  transformer_block, transformer_fwd)
 from ..ops.ffn import ffn_block
 from ..ops.norm import layernorm
 from ..optim import sgd
 from .collectives import all_gather, all_reduce, axis_index, reduce_scatter
-from .launcher import (DEFAULT_TIMEOUT_S, launch_replicated,
-                       refuse_unported, run_replicated)
-from .mesh import MODEL_AXIS, Mesh, require_axes
+from .launcher import (DEFAULT_TIMEOUT_S, launch_replicated, launch_strided,
+                       run_replicated, run_strided, to_device)
+from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, require_axes
 
 # TP layout: the model-axis dim of each stacked leaf in FIELDS order
 # (column-parallel projections shard their output dim, row-parallel their
 # input dim), None where the leaf is replicated (JAX's TP_SPECS)
 TP_SPECS = dict(ln1=None, wq=1, wk=1, wv=1, wo=2, ln2=None, w1=1, w2=2)
+
+# FSDP layout: the data-axis dim of each stacked leaf, dim 1 (each
+# layer's first dim) of every one (JAX's FSDP_SPECS, the reference's
+# chunk along dim 0, train_ffns.py:265-266)
+FSDP_SPECS = dict.fromkeys(FIELDS, 1)
 
 
 def _validate_shapes(batch_size: int, seq_len: int, model_size: int,
@@ -136,6 +166,32 @@ def tp_unshard(shards) -> TransformerParams:
     return TransformerParams(*unshard_leaves(
         [[getattr(s, f) for f in FIELDS] for s in shards],
         [TP_SPECS[f] for f in FIELDS]))
+
+
+def fsdp_shard(params: TransformerParams, mesh: Mesh) -> TransformerParams:
+    """The FSDP shards of the rank of ``mesh`` (``FSDP_SPECS`` over the
+    data axis)."""
+    return TransformerParams(*shard_leaves(
+        [getattr(params, f) for f in FIELDS],
+        [FSDP_SPECS[f] for f in FIELDS], mesh, axis=DATA_AXIS))
+
+
+def fsdp_unshard(shards) -> TransformerParams:
+    """The whole params from the FSDP shards of the data axis, in its
+    order."""
+    return TransformerParams(*unshard_leaves(
+        [[getattr(s, f) for f in FIELDS] for s in shards],
+        [FSDP_SPECS[f] for f in FIELDS]))
+
+
+def _check_fsdp(params: TransformerParams, n: int,
+                prefix: str = "") -> None:
+    """JAX's divisibility check of ``FSDP_SPECS`` over ``n`` shards."""
+    for f in FIELDS:
+        dim = getattr(params, f).shape[FSDP_SPECS[f]]
+        if dim % n:
+            raise ValueError(f"{prefix}{f} dim {dim} not divisible by {n} "
+                             "shards")
 
 
 # -- the split TP block ---------------------------------------------------------
@@ -264,6 +320,57 @@ def blocks_backward(blocks, dy: torch.Tensor):
     return dy, [torch.stack(gs[::-1]) for gs in zip(*grads)]
 
 
+# -- the FSDP block stack ---------------------------------------------------------
+
+def _gather_layer(shards: TransformerParams, l: int, mesh: Mesh,
+                  mixed: bool) -> list:
+    """Layer ``l``'s whole weights in FIELDS order, each gathered from the
+    data axis's shards (under ``mixed`` each shard cast to bf16 first:
+    half the bytes, the same values as gathering and then casting)."""
+    return [all_gather(getattr(shards, f)[l].to(torch.bfloat16) if mixed
+                       else getattr(shards, f)[l], mesh, dim=0,
+                       axis=DATA_AXIS) for f in FIELDS]
+
+
+def fsdp_blocks_forward(shards: TransformerParams, x: torch.Tensor,
+                        n_heads: int, mesh: Mesh, causal: bool = True,
+                        attn=None, mixed: bool = False):
+    """The stack forward on the rank's FSDP shards: ``(y, inputs)``. Each
+    layer is gathered, run without autograd and dropped; ``inputs`` holds
+    each block's input, all ``fsdp_blocks_backward`` needs."""
+    inputs = []
+    for l in range(shards.n_layers):
+        full = _gather_layer(shards, l, mesh, mixed)
+        inputs.append(x)
+        with torch.no_grad():
+            x = transformer_block(*full, x, n_heads, causal, attn)
+        del full
+    return x, inputs
+
+
+def fsdp_blocks_backward(shards: TransformerParams, inputs, dy, n_heads: int,
+                         mesh: Mesh, causal: bool = True, attn=None,
+                         mixed: bool = False):
+    """``(dx, grads)`` of the stack from the cotangent ``dy`` of its
+    output, top layer first: gather the layer again, recompute its block
+    under autograd from the kept input, take ``dx`` and the whole weight
+    gradients, and reduce-scatter each (in the shards' dtype, f32 under
+    ``mixed``) onto the rank's shard. ``grads`` are the shards' gradients
+    stacked ``[L, ...]`` in FIELDS order."""
+    grads = []
+    for l in reversed(range(shards.n_layers)):
+        full = [_leaf(w) for w in _gather_layer(shards, l, mesh, mixed)]
+        x = _leaf(inputs[l])
+        with torch.enable_grad():
+            y = transformer_block(*full, x, n_heads, causal, attn)
+        dy, *dw = torch.autograd.grad(y, [x, *full], dy)
+        del y, full
+        grads.append([reduce_scatter(g.to(getattr(shards, f).dtype), mesh,
+                                     dim=0, axis=DATA_AXIS)
+                      for f, g in zip(FIELDS, dw)])
+    return dy, [torch.stack(gs[::-1]) for gs in zip(*grads)]
+
+
 # -- trainers -------------------------------------------------------------------
 
 def _reshape_batch(seed, tokens: int, seq_len: int, model_size: int, dtype,
@@ -276,21 +383,40 @@ def _reshape_batch(seed, tokens: int, seq_len: int, model_size: int, dtype,
             dloss_dx.reshape(b, seq_len, model_size))
 
 
+def transformer_grads(params: TransformerParams, x, dloss_dx, n_heads: int,
+                      causal: bool = True, attn=None,
+                      mixed: bool = False) -> list:
+    """The gradients (FIELDS order) of the stack's VJP at ``dloss_dx`` for
+    the batch ``x``, both ``[b, T, d]``: autograd over the hand VJPs.
+    ``mixed`` (JAX ``_make_single_step``'s): the blocks run on a bf16 cast
+    of the params and of ``x``, the cotangent enters in bf16, and the
+    gradients come back f32 through the casts' backward."""
+    leaves = [_leaf(t) for _, t in params.named_leaves()]
+    with torch.enable_grad():
+        p = TransformerParams(*(t.to(torch.bfloat16) if mixed else t
+                                for t in leaves))
+        y = transformer_fwd(p, x.to(torch.bfloat16) if mixed else x,
+                            n_heads, causal, attn)
+    return list(torch.autograd.grad(y, leaves, dloss_dx.to(y.dtype)))
+
+
 def _make_single_step(tokens: int, model_size: int, seq_len: int,
                       n_heads: int, lr: float, causal: bool = True,
-                      attn=None, batch_fn: Callable = batch_from_seed):
-    """One single-device step ``(params, seed) -> params``: the stack
-    forward, its VJP at the batch's ``dloss_dx`` (autograd over the hand
-    VJPs), SGD in place."""
+                      attn=None, batch_fn: Callable = batch_from_seed,
+                      mixed: bool = False, *, mesh: Optional[Mesh] = None):
+    """One step ``(params, seed) -> params``: the stack forward, its VJP
+    at the batch's ``dloss_dx`` (``transformer_grads``), SGD in place.
+    Given a rank's ``mesh`` (DDP), each gradient is summed over its data
+    axis first, after autograd has returned."""
     def step(params: TransformerParams, seed) -> TransformerParams:
         x, dloss_dx = _reshape_batch(seed, tokens, seq_len, model_size,
                                      params.w1.dtype, params.w1.device,
                                      batch_fn)
-        leaves = [_leaf(t) for _, t in params.named_leaves()]
-        with torch.enable_grad():
-            y = transformer_fwd(TransformerParams(*leaves), x, n_heads,
-                                causal, attn)
-        return sgd(params, torch.autograd.grad(y, leaves, dloss_dx), lr)
+        grads = transformer_grads(params, x, dloss_dx, n_heads, causal, attn,
+                                  mixed)
+        if mesh is not None:
+            grads = [all_reduce(g, mesh, axis=DATA_AXIS) for g in grads]
+        return sgd(params, grads, lr)
 
     return step
 
@@ -307,11 +433,12 @@ def train_transformer_single(params: TransformerParams, seeds,
     """Train a copy of ``params`` over the seed schedule; ``batch_size`` is
     tokens a step, unfolded to ``[batch_size / seq_len, seq_len, d]`` for
     attention; ``mesh`` is ignored. ``batch_fn`` and ``on_step`` as
-    ``train_single``'s. ``mixed`` is not ported yet."""
-    refuse_unported(mixed=(mixed, False))
+    ``train_single``'s. ``mixed`` runs the blocks in bf16 with f32 master
+    params, gradients and update (``transformer_grads``)."""
     _validate_shapes(batch_size, seq_len, model_size, n_heads)
     step = _make_single_step(batch_size, model_size, seq_len, n_heads, lr,
-                             causal, resolve_attn(attn_impl), batch_fn)
+                             causal, resolve_attn(attn_impl), batch_fn,
+                             mixed)
     params = params.with_leaves([t.clone() for _, t in params.named_leaves()])
     for i, seed in enumerate(seeds):
         params = step(params, int(seed))
@@ -347,10 +474,13 @@ def make_tp_step(batch_size: int, model_size: int, seq_len: int,
                  h_local: int, n_shards: int, lr: float = LR,
                  causal: bool = True, attn=None,
                  sequence_parallel: bool = False, *, mesh: Mesh,
-                 batch_fn: Callable = batch_from_seed):
+                 batch_fn: Callable = batch_from_seed,
+                 data_axis: Optional[str] = None):
     """One TP step ``(shards, seed) -> shards`` for the rank of ``mesh``:
     the whole batch (its token block under ``sequence_parallel``), the
-    split stack forward and backward, SGD on the shards in place."""
+    split stack forward and backward, SGD on the shards in place. With
+    ``data_axis`` (the hybrid) each gradient is then summed over that
+    axis, DDP's reduction on the axis orthogonal to TP's."""
     if sequence_parallel and seq_len % n_shards:
         raise ValueError(f"seq_len={seq_len} not divisible by model-axis "
                          f"size {n_shards} (sequence-parallel TP shards "
@@ -360,9 +490,12 @@ def make_tp_step(batch_size: int, model_size: int, seq_len: int,
         x, dloss_dx = _reshape_batch(seed, batch_size, seq_len, model_size,
                                      params.w1.dtype, params.w1.device,
                                      batch_fn)
-        return sgd(params, tp_grads(params, x, dloss_dx, h_local, mesh=mesh,
-                                    causal=causal, attn=attn,
-                                    sequence_parallel=sequence_parallel), lr)
+        grads = tp_grads(params, x, dloss_dx, h_local, mesh=mesh,
+                         causal=causal, attn=attn,
+                         sequence_parallel=sequence_parallel)
+        if data_axis is not None:
+            grads = [all_reduce(g, mesh, axis=data_axis) for g in grads]
+        return sgd(params, grads, lr)
 
     return step
 
@@ -412,3 +545,129 @@ def _transformer_tp_rank(mesh: Mesh, payload):
     out = train_transformer_tp(params, seeds, batch_size, model_size, mesh,
                                lr, **kw)
     return out.with_leaves([t.cpu() for _, t in out.named_leaves()])
+
+
+def train_transformer_ddp(params: TransformerParams, seeds, batch_size: int,
+                          model_size: int, mesh: Mesh, lr: float = LR, *,
+                          seq_len: int, n_heads: int, causal: bool = True,
+                          attn_impl: str | None = None,
+                          batch_fn: Callable = batch_from_seed,
+                          on_step: Optional[Callable[[int], None]] = None,
+                          timeout: float = DEFAULT_TIMEOUT_S
+                          ) -> TransformerParams:
+    """DDP over the data axis: every rank holds the whole stack, takes its
+    column of the strided seeds (``seeds[t * n + r]`` at step ``t``), runs
+    the single-device VJP and sums each gradient over the axis (SUM, the
+    unscaled LR) before SGD. Given the whole mesh it launches the ranks
+    and returns rank 0's params on the device of ``params``; given a
+    rank's view it runs that rank and returns its replica.
+    ``batch_fn`` and ``on_step`` as ``train_transformer_single``'s."""
+    require_axes(mesh, DATA_AXIS)
+    _validate_shapes(batch_size, seq_len, model_size, n_heads)
+    attn = resolve_attn(attn_impl)
+    kw = dict(seq_len=seq_len, n_heads=n_heads, causal=causal,
+              attn_impl=attn_impl, batch_fn=batch_fn)
+    if not mesh.in_rank:
+        outs = launch_strided(_transformer_dp_rank, params, seeds, mesh,
+                              batch_size, model_size, lr,
+                              ("ddp", kw), timeout=timeout)
+        return to_device(outs[0], params.w1.device)
+    step = _make_single_step(batch_size, model_size, seq_len, n_heads, lr,
+                             causal, attn, batch_fn, mesh=mesh)
+    local = params.with_leaves([t.to(mesh.torch_device, copy=True)
+                                for _, t in params.named_leaves()])
+    return run_strided(step, local, seeds, mesh, on_step)
+
+
+def train_transformer_fsdp(params: TransformerParams, seeds,
+                           batch_size: int, model_size: int, mesh: Mesh,
+                           lr: float = LR, *, seq_len: int, n_heads: int,
+                           causal: bool = True,
+                           attn_impl: str | None = None,
+                           batch_fn: Callable = batch_from_seed,
+                           on_step: Optional[Callable[[int], None]] = None,
+                           timeout: float = DEFAULT_TIMEOUT_S
+                           ) -> TransformerParams:
+    """FSDP/ZeRO-3 over the data axis: the seeds strided as DDP's, every
+    stacked leaf sharded on dim 1 (``FSDP_SPECS``), each layer gathered in
+    the forward and again in the backward, its gradients reduce-scattered
+    onto the shards (``fsdp_blocks_forward``/``_backward``), SGD on the
+    shards. The backward recomputes each block, so under flash a step
+    launches ``flash_attn_fwd`` twice a layer (once a layer under DDP) and
+    the backward's kernels once. Given the whole mesh it returns the whole
+    params re-assembled from the shards on the device of ``params``;
+    given a rank's view, that rank's shards (``fsdp_unshard`` joins
+    them)."""
+    require_axes(mesh, DATA_AXIS)
+    _validate_shapes(batch_size, seq_len, model_size, n_heads)
+    _check_fsdp(params, mesh.axis_size(DATA_AXIS))
+    attn = resolve_attn(attn_impl)
+    kw = dict(seq_len=seq_len, n_heads=n_heads, causal=causal,
+              attn_impl=attn_impl, batch_fn=batch_fn)
+    if not mesh.in_rank:
+        outs = launch_strided(_transformer_dp_rank, params, seeds, mesh,
+                              batch_size, model_size, lr,
+                              ("fsdp", kw), timeout=timeout)
+        return to_device(fsdp_unshard(outs), params.w1.device)
+
+    def step(shards: TransformerParams, seed) -> TransformerParams:
+        x, dloss_dx = _reshape_batch(seed, batch_size, seq_len, model_size,
+                                     shards.w1.dtype, shards.w1.device,
+                                     batch_fn)
+        _, inputs = fsdp_blocks_forward(shards, x, n_heads, mesh, causal,
+                                        attn)
+        grads = fsdp_blocks_backward(shards, inputs, dloss_dx, n_heads, mesh,
+                                     causal, attn)[1]
+        return sgd(shards, grads, lr)
+
+    return run_strided(step, fsdp_shard(params, mesh), seeds, mesh, on_step)
+
+
+def train_transformer_hybrid(params: TransformerParams, seeds,
+                             batch_size: int, model_size: int, mesh: Mesh,
+                             lr: float = LR, *, seq_len: int, n_heads: int,
+                             causal: bool = True,
+                             attn_impl: str | None = None,
+                             batch_fn: Callable = batch_from_seed,
+                             on_step: Optional[Callable[[int], None]] = None,
+                             timeout: float = DEFAULT_TIMEOUT_S
+                             ) -> TransformerParams:
+    """The DDP x TP hybrid on a data x model mesh: TP's split blocks and
+    their all-reduces on the model axis (``tp_grads``), then each
+    gradient summed over the data axis; the params TP-sharded over the
+    model axis and replicated over the data axis; the seeds strided over
+    the data axis only (``train_ffns.py:182``). Given the whole mesh it
+    returns the whole params from the ranks of data index 0; given a
+    rank's view, that rank's TP shards."""
+    require_axes(mesh, DATA_AXIS, MODEL_AXIS)
+    n = mesh.axis_size(MODEL_AXIS)
+    h_local = _validate_tp(params, n_heads, n)
+    _validate_shapes(batch_size, seq_len, model_size, n_heads)
+    attn = resolve_attn(attn_impl)
+    kw = dict(seq_len=seq_len, n_heads=n_heads, causal=causal,
+              attn_impl=attn_impl, batch_fn=batch_fn)
+    if not mesh.in_rank:
+        outs = launch_strided(_transformer_dp_rank, params, seeds, mesh,
+                              batch_size, model_size, lr, ("hybrid", kw),
+                              axis=DATA_AXIS, timeout=timeout)
+        return to_device(tp_unshard([o for r, o in enumerate(outs)
+                                     if mesh.coords(r)[DATA_AXIS] == 0]),
+                         params.w1.device)
+    step = make_tp_step(batch_size, model_size, seq_len, h_local, n, lr,
+                        causal, attn, mesh=mesh, batch_fn=batch_fn,
+                        data_axis=DATA_AXIS)
+    return run_strided(step, tp_shard(params, mesh), seeds, mesh, on_step,
+                       axis=DATA_AXIS)
+
+
+_DP_TRAINERS = {"ddp": train_transformer_ddp, "fsdp": train_transformer_fsdp,
+                "hybrid": train_transformer_hybrid}
+
+
+def _transformer_dp_rank(mesh: Mesh, payload):
+    """One rank of a whole-mesh DDP, FSDP or hybrid run: its shards on the
+    CPU (DDP: rank 0's replica alone)."""
+    params, seeds, batch_size, model_size, lr, (kind, kw) = payload
+    out = _DP_TRAINERS[kind](params, seeds, batch_size, model_size, mesh, lr,
+                             **kw)
+    return None if kind == "ddp" and mesh.rank else to_device(out, "cpu")

@@ -179,3 +179,25 @@ def test_a_spawned_rank_imports_no_jax():
                     {"comm": "pallas_ring"}), (eval, (probe,), {})],
                   timeout=120)
     assert [o[1] for o in outs] == [[], []]
+
+
+@pytest.mark.parametrize("module", ["torch_tp_ranks", "torch_dp_ranks"])
+def test_rank_body_modules_import_no_jax(module):
+    """The tests' rank bodies, which spawned ranks import by name, load
+    the port alone: imported where JAX cannot be, they bring in neither
+    JAX nor the JAX package, and the data-parallel trainers they drive
+    are there."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r}); "
+            f"import {module}; "
+            "from distributed_llm_code_samples_tpu_torch.parallel import ("
+            "train_lm_ddp, train_lm_fsdp, train_lm_hybrid, "
+            "train_transformer_ddp, train_transformer_fsdp, "
+            "train_transformer_hybrid); "
+            "assert not any(k == 'distributed_llm_code_samples_tpu' or "
+            "k.startswith(('distributed_llm_code_samples_tpu.', 'jax.')) "
+            "for k in sys.modules); print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -174,8 +174,8 @@ def test_refusals_before_anything_is_spawned(setup):
                              attn_impl="nope", **kw)
     with pytest.raises(ValueError, match="tokens 100 not divisible"):
         train_transformer_single(start, seeds, 100, D, **kw)
-    with pytest.raises(NotImplementedError, match="mixed"):
-        train_transformer_single(start, seeds, TOKENS, D, mixed=True, **kw)
+    with pytest.raises(ValueError, match="tokens 100 not divisible"):
+        train_transformer_single(start, seeds, 100, D, mixed=True, **kw)
 
 
 CLI = [sys.executable, "-m", "distributed_llm_code_samples_tpu_torch.cli",
