@@ -19,6 +19,9 @@
     python3 chip_smoke.py --phase lmdp     # the LM kernels, DDP, FSDP and
                                            # the hybrid of the LM and the
                                            # transformer, 4 virtual ranks
+    python3 chip_smoke.py --phase bf16     # --dtype bfloat16: the FFN
+                                           # kernels and ring sums on bf16,
+                                           # the FFN stack's training
     python3 chip_smoke.py --phase dist     # ring, DDP/FSDP, all-to-all,
                                            # EP, TP, the hybrid, LM TP,
                                            # cli.py -m 0, 8, 11 and LM DP
@@ -29,6 +32,8 @@
     python3 chip_smoke.py --phase dist-lmdp  # --phase dist's LM and
                                              # transformer DDP, FSDP and
                                              # hybrid alone
+    python3 chip_smoke.py --phase dist-bf16  # --phase dist's bf16 ring
+                                             # sums and -m 0 in bf16 alone
 
 Builds every kernel of the port from ``csrc/`` (printing ptxas's spill
 counts as ``ptxas-spills``), holds each against its plain PyTorch
@@ -133,7 +138,26 @@ each split size, ``paged-splits``), then drives the port's paths:
   gradients (``lmdp-train-check``, unchanged weights as the control).
   The default run holds the ranks on one card in loopback; ``--phase
   dist`` and ``dist-lmdp`` run them one rank a card over NCCL, where
-  FSDP's peak memory a rank must be below DDP's (``lmdp-memory``).
+  FSDP's peak memory a rank must be below DDP's (``lmdp-memory``);
+- ``--dtype bfloat16`` of the FFN stack (``--phase bf16``): the three
+  FFN kernels on bf16 storage at the training and a ragged shape against
+  their plain versions and against float64 with the kernels' roundings
+  (``BF16_SHARE``, with a control that must fail), timed beside their f32
+  calls and the cuBLAS bf16 composition, and the all-reduce and the
+  reduce-scatter of bf16 in loopback bit for bit against the plain ring
+  (``bf16-ffn-kernel-case``, ``bf16-ring-kernel-case``); ``train_single``
+  on bf16 params at the training shape through the kernels and through
+  cuBLAS bf16 blocks (``bf16-train-run``: 24 launches of each FFN
+  kernel's ``[bf16]`` form a step, exact), ``cli.py -m 1 --pallas
+  --dtype bfloat16`` there (``bf16-cli-m1``), DDP and FSDP over the ring
+  kernels on 4 virtual ranks (``bf16-ring-train-run``: 48
+  ``ring_all_reduce[bf16]`` a step, exact), and ``bf16-train-check``
+  (one step's gradients against float64 over the cuBLAS bf16 path's
+  error, every ring call of one step bit for bit, DDP against FSDP
+  within two steps). ``--phase dist`` and ``dist-bf16`` hold the bf16
+  sums across the 4 cards against the plain ring and NCCL's bf16 calls
+  (``dist-bf16-kernel-case``) and run ``cli.py -m 0 --dtype bfloat16
+  --strict --comm pallas_ring`` (``dist-cli-m0-bf16``).
 
 It fails (exit code 1) if there is no CUDA device, if a kernel does not
 build, launch or agree, if a kernel path did not go through its
@@ -297,10 +321,10 @@ LM_PARTS = (
     ("flash_attn_bwd", "rowsum", r"flash_rowsum_kernel"),
     ("flash_attn_bwd", "dkv", r"flash_dkv_kernel<"),
     ("flash_attn_bwd", "dq", r"flash_dq_kernel<"),
-    ("head_xent_stats", "copies", r"gemm_prep_kernel<xent::stats>"),
+    ("head_xent_stats", "copies", r"gemm_prep_kernel<xent::stats\b"),
     ("head_xent_stats", "main", r"head_xent_stats_kernel"),
     ("head_xent_stats", "merge", r"head_xent_merge_kernel"),
-    ("head_xent_bwd", "copies", r"gemm_prep_kernel<void>"),
+    ("head_xent_bwd", "copies", r"gemm_prep_kernel<void\b"),
     ("head_xent_bwd", "products", r"head_xent_gemm_kernel"))
 # the statistics kernel's vocab slices (head-stats-slices) and the flash
 # backward's (key tile, query-ring stages) plans (flash-bwd-tiles) timed
@@ -4359,6 +4383,516 @@ def opt_lm_phase(torch, np, card):
     return launches
 
 
+# -- --dtype bfloat16: bf16 storage in the FFN kernels and the ring sums ----
+
+# the bf16 forms of the FFN kernels: (name, source, the TPU kernel, flops
+# per T d ffn)
+DTYPE_FFN_KERNELS = (
+    ("ffn_fwd[bf16]", "ffn_fwd.cu", "ops/pallas_ffn.py:129", 4),
+    ("ffn_bwd_dx[bf16]", "ffn_bwd_dx.cu", "ops/pallas_ffn.py:190", 6),
+    ("ffn_bwd_dw[bf16]", "ffn_bwd_dw.cu", "ops/pallas_ffn.py:250", 8))
+# the bf16 forms of the ring sums: (name, the TPU kernel)
+DTYPE_RING_KERNELS = (
+    ("ring_all_reduce[bf16]", "ops/pallas_ring.py:190"),
+    ("ring_reduce_scatter[bf16]", "ops/pallas_ring.py:328"))
+# ring cases on bf16: DDP's dw1 and dw2 a rank (the all-reduce), FSDP's
+# full gradients before their scatter, and a ragged one each (chunks of
+# 140 elements, 70 words: the scalar path)
+DTYPE_RING_CASES = (("ring_all_reduce", "dw1", (FFN_DIM, D_MODEL)),
+                    ("ring_all_reduce", "dw2", (D_MODEL, FFN_DIM)),
+                    ("ring_reduce_scatter", "dw1", (FFN_DIM, D_MODEL)),
+                    ("ring_reduce_scatter", "dw2", (D_MODEL, FFN_DIM)),
+                    ("ring_all_reduce", "ragged", (RING_N * 7, 5, 4)),
+                    ("ring_reduce_scatter", "ragged", (RING_N * 7, 5, 4)))
+# A bf16 FFN call against float64 on its own bf16 inputs, with the
+# kernel's arithmetic (the hidden activation, a or dh, rounded to bf16),
+# the result rounded to bf16: each element within one bf16 step (at the
+# larger of its magnitude and the output's RMS, so that an element near
+# zero does not count a tiny step), and at most BF16_SHARE of them one
+# step away (an f32 sum rounds to the other neighbour only where float64
+# lies near a rounding tie; 0.03-0.54% on an NVIDIA H100). The control
+# keeps the hidden activation in float64: its rounding moves some 42% of
+# the outputs to the other neighbour, so it must differ in more than
+# BF16_SHARE of them.
+BF16_SHARE = 0.05
+# bf16 training runs: loopback DDP and FSDP steps a rank (each launches
+# exact counts; 4 keeps the phase near a minute), and the LR of the one
+# step held against float64: at CHECK_LR a step's largest update is some
+# 3e-5, a quarter of the bf16 step of a weight of 0.02, so no bf16 weight
+# would move; at 1e4 the largest moves about 25 steps
+BF16_DP_STEPS = 4
+BF16_CHECK_LR = 1e4
+# the CLI's single-device run at TRAIN's shape on bf16 params
+CLI_M1_BF16 = ("-m", "1", "--pallas", "--dtype", "bfloat16", "-s",
+               str(TRAIN["steps"]), "-bs", "8", "-n",
+               str(TRAIN["tokens"] // 8), "-l", str(TRAIN["n_layers"]),
+               "-d", str(TRAIN["d_model"]), "-r", str(TRAIN["random_seed"]))
+
+
+def ffn_bf16_want(torch, name, dy, w1, w2, x, round_hidden=True):
+    """``name``'s outputs in float64 on the bf16 inputs, the hidden
+    activation rounded to bf16 as the kernel rounds it (not with
+    ``round_hidden=False``, the control)."""
+    x, dy, w1, w2 = (t.double() for t in (x, dy, w1, w2))
+
+    def rnd(t):
+        return t.to(torch.bfloat16).double() if round_hidden else t
+
+    h = x @ w1.T
+    zero = torch.zeros((), dtype=h.dtype, device=h.device)
+    if name == "ffn_fwd":
+        return (rnd(torch.where(h <= 0, zero, h)) @ w2.T,)
+    dh = rnd(torch.where(h <= 0, zero, dy @ w2))
+    if name == "ffn_bwd_dx":
+        return (dh @ w1,)
+    return dh.T @ x, dy.T @ rnd(torch.where(h <= 0, zero, h))
+
+
+def bf16_steps(torch, got, want):
+    """``(max steps, share that differ)`` of ``got`` (bf16) against
+    ``want`` rounded to bf16, a step at the larger of an element's
+    magnitude and ``want``'s RMS."""
+    w = want.to(torch.bfloat16).double()
+    g = got.double()
+    rms = w.pow(2).mean().sqrt()
+    _, e = torch.frexp(torch.maximum(torch.maximum(g.abs(), w.abs()), rms))
+    steps = (g - w).abs() / torch.ldexp(torch.ones_like(w), e - 8)
+    return float(steps.max()), float((g != w).double().mean())
+
+
+def ffn_bf16_bound(flops, t, d, f, name):
+    """Least time of one bf16 launch: the bytes it must move (inputs read
+    and outputs written once, 2 bytes an element) over the HBM rate,
+    against its flops at the bf16 tensor-core rate (``bound_ms``) and at
+    the f32 rate of the CUDA cores the kernel's simple products run on
+    (``bound_f32_ms``)."""
+    elems = {"ffn_fwd": 2 * t * d + 2 * d * f,
+             "ffn_bwd_dx": 3 * t * d + 2 * d * f,
+             "ffn_bwd_dw": 2 * t * d + 4 * d * f}[name]
+    t_bytes = 2 * elems / HBM_BYTES_PER_S * 1e3
+    t_bf16 = flops / BF16_FLOPS_PER_S * 1e3
+    t_f32 = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bf16, t_bytes), "operations" if t_bf16 >= t_bytes
+            else "bytes", max(t_f32, t_bytes))
+
+
+def ffn_bf16_staging(ff, name, t, d, f):
+    """Bytes of a kernel's f32 scratch at one slice: its padded f32
+    copies of the operands (``copy_bytes``, what bf16 storage stages in
+    f32) and the f32 hidden activation (``hidden_bytes``)."""
+    pieces = {"ffn_fwd": ff.fwd_scratch, "ffn_bwd_dx": ff.dx_scratch,
+              "ffn_bwd_dw": ff.dw_scratch}[name](t, d, f, (1, 0))
+    hidden = sum(4 * (pieces[k][0][0] * pieces[k][0][1])
+                 for k in ("aT", "dhT", "a", "dh") if k in pieces)
+    return dict(copy_bytes=4 * pieces["total"] - hidden,
+                hidden_bytes=hidden)
+
+
+def ffn_cublas_bf16(torch, name, dy, w1, w2, x):
+    """The same function from cuBLAS bf16 products (tensor cores, f32
+    sums, every product rounded to bf16): the library yardstick."""
+    h = x @ w1.T
+    if name == "ffn_fwd":
+        return torch.relu(h) @ w2.T
+    dh = (dy @ w2) * (h > 0)
+    if name == "ffn_bwd_dx":
+        return dh @ w1
+    return dh.T @ x, dy.T @ torch.relu(h)
+
+
+def dtype_bf16_kernel_phase(torch, np, timer):
+    """The bf16 forms of this slice's kernels, each against its plain
+    version on the card: the three FFN kernels at the main and ragged
+    shapes on bf16 operands (against the plain version and against
+    float64 with the kernel's roundings, ``BF16_SHARE``, with the
+    unrounded-hidden control; timed beside the f32 kernel on the same
+    values and the cuBLAS bf16 composition), then the all-reduce and the
+    reduce-scatter of bf16 in loopback, bit for bit against the plain
+    ring, timed beside the f32 call on the same values."""
+    from distributed_llm_code_samples_tpu_torch.ops import fused_ffn as ff
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    fns = {"ffn_fwd": (lambda dy, *w: ff.ffn_fwd_fused(*w),
+                       lambda dy, *w: ff.ffn_fwd_ref(*w)),
+           "ffn_bwd_dx": (ff.ffn_bwd_dx_fused, ff.ffn_bwd_dx_ref),
+           "ffn_bwd_dw": (ff.ffn_bwd_dw_fused, ff.ffn_bwd_dw_ref)}
+
+    def tup(v):
+        return v if isinstance(v, tuple) else (v,)
+
+    rows = []
+    for n, (shape, t, d, f) in enumerate(FFN_SHAPES[:2]):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(700 + n)
+        w1 = (2e-2 * torch.randn(f, d, generator=gen, device="cuda"))
+        w2 = (2e-2 * torch.randn(d, f, generator=gen, device="cuda"))
+        x = torch.randn(t, d, generator=gen, device="cuda")
+        dy = 0.1 * torch.randn(t, d, generator=gen, device="cuda")
+        args = tuple(a.bfloat16() for a in (dy, w1, w2, x))
+        args32 = tuple(a.float() for a in args)
+        for kname, _, _, mult in DTYPE_FFN_KERNELS:
+            name = kname.split("[")[0]
+            kern = partial(fns[name][0], *args)
+            plain = partial(fns[name][1], *args)
+            got, again = tup(kern()), tup(kern())
+            torch.cuda.synchronize()
+            want = tup(plain())
+            want64 = ffn_bf16_want(torch, name, *args)
+            control64 = ffn_bf16_want(torch, name, *args,
+                                      round_hidden=False)
+            vs_plain = [bf16_steps(torch, g, w) for g, w in zip(got, want)]
+            vs64 = [bf16_steps(torch, g, w) for g, w in zip(got, want64)]
+            control = [bf16_steps(torch, g, w)
+                       for g, w in zip(got, control64)]
+            same = all(torch.equal(g.view(torch.int16), a.view(torch.int16))
+                       for g, a in zip(got, again))
+            dtypes = all(g.dtype == torch.bfloat16 for g in got)
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+            flops = mult * t * d * f
+            b_ms, b_by, b32_ms = ffn_bf16_bound(flops, t, d, f, name)
+            ms = timer.ms(kern)
+            row = dict(
+                kernel=kname, shape=shape, T=t, d=d, ffn=f,
+                max_abs_err=max(float((g.float() - w.float()).abs().max())
+                                for g, w in zip(got, want)),
+                steps_vs_plain_max=max(s[0] for s in vs_plain),
+                share_vs_plain=max(s[1] for s in vs_plain),
+                steps_vs_f64_max=max(s[0] for s in vs64),
+                share_vs_f64=max(s[1] for s in vs64),
+                control_share_vs_f64=min(s[1] for s in control),
+                share_limit=BF16_SHARE, deterministic=same,
+                ok=finite and same and dtypes
+                and max(s[0] for s in vs_plain + vs64) <= 1
+                and max(s[1] for s in vs_plain + vs64) <= BF16_SHARE
+                and min(s[1] for s in control) > BF16_SHARE,
+                ms=ms, plain_ms=timer.ms(plain),
+                f32_ms=timer.ms(partial(fns[name][0], *args32)),
+                library_ms=timer.ms(partial(ffn_cublas_bf16, torch, name,
+                                            *args)),
+                bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b32_ms,
+                tflops_per_s=flops / ms / 1e9,
+                **ffn_bf16_staging(ff, name, t, d, f))
+            rows.append(row)
+            print("bf16-ffn-kernel-case " + json.dumps(row), flush=True)
+            del got, again, want, want64, control64
+        del w1, w2, x, dy, args, args32
+
+    ws = ring.PeerWorkspace(4 * FFN_DIM * D_MODEL, "cuda", n=RING_N)
+    try:
+        for k, (op, tag, shape) in enumerate(DTYPE_RING_CASES):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(720 + k)
+            xs = [torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                  for _ in range(RING_N)]
+            got = ring.loopback(op, xs, ws)
+            again = ring.loopback(op, xs, ws)
+            torch.cuda.synchronize()
+            ws.check()
+            want = ring.loopback_ref(op, xs)
+            bits = all(g.dtype == torch.bfloat16 and torch.equal(
+                g.view(torch.int16), w.view(torch.int16))
+                for g, w in zip(got, want))
+            same = all(torch.equal(g.view(torch.int16), a.view(torch.int16))
+                       for g, a in zip(got, again))
+            xs32 = [x.float() for x in xs]
+            b_ms, b_by = ring_loopback_bound(op, 2 * xs[0].numel(), RING_N)
+            row = dict(kernel=op + "[bf16]", shape=tag, dims=list(shape),
+                       ranks=RING_N, mode="loopback",
+                       max_abs_err=max(float((g.float() - w.float()).abs()
+                                             .max())
+                                       for g, w in zip(got, want)),
+                       bit_identical=bits, deterministic=same,
+                       ok=bits and same,
+                       ms=timer.ms(lambda: ring.loopback(op, xs, ws)),
+                       ms_with_host=timer.ms(lambda: ring.loopback(op, xs,
+                                                                   ws),
+                                             with_host=True),
+                       plain_ms=timer.ms(lambda: ring.loopback_ref(op, xs)),
+                       f32_ms=timer.ms(lambda: ring.loopback(op, xs32, ws)),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            rows.append(row)
+            print("bf16-ring-kernel-case " + json.dumps(row), flush=True)
+            del xs, xs32, got, again, want
+    finally:
+        ws.close()
+    return rows
+
+
+@contextlib.contextmanager
+def bit_checked_ring_calls(torch, ring):
+    """Within the block every loopback ring call is held bit for bit
+    against its plain version on the same inputs, as it happens: yields
+    the list of ``(kernel, dtype, bit_identical)``."""
+    seen, inner = [], ring.loopback
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    def launch(op, xs, ws):
+        outs = inner(op, xs, ws)
+        want = ring.loopback_ref(op, xs)
+        seen.append((op, str(xs[0].dtype), all(
+            o.dtype == w.dtype and torch.equal(bits(o), bits(w))
+            for o, w in zip(outs, want))))
+        return outs
+
+    ring.loopback = launch
+    try:
+        yield seen
+    finally:
+        ring.loopback = inner
+
+
+def dtype_bf16_train_phase(torch, np, card):
+    """``--dtype bfloat16`` at ``TRAIN``'s width: ``train_single`` through
+    the kernels and through the cuBLAS bf16 blocks (8 steps), the CLI's
+    ``-m 1 --pallas --dtype bfloat16`` (``CLI_M1_BF16``), one step's
+    gradients against float64, then DDP and FSDP over the ring kernels on
+    ``RING_N`` loopback ranks (``BF16_DP_STEPS`` steps a rank), every
+    ring call of one step bit for bit against its plain version, and
+    DDP's one step at ``BF16_CHECK_LR`` against FSDP's. Returns the
+    launches of the kernel runs."""
+    from distributed_llm_code_samples_tpu_torch import LR
+    from distributed_llm_code_samples_tpu_torch.data import (
+        batch_from_seed, make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        ffn_block, fused_ffn_block, launch_counts, reset_launch_counts, ring,
+        stack_grads)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        DATA_AXIS, launch, make_mesh, train_ddp, train_fsdp, train_single,
+        unshard_params)
+    d, n_layers, tokens = TRAIN["d_model"], TRAIN["n_layers"], TRAIN["tokens"]
+    steps_n = TRAIN["steps"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TRAIN["random_seed"])
+    params = init_ffn_stack(gen, d, n_layers, dtype=torch.bfloat16)
+    seeds = make_seed_schedule(steps_n, TRAIN["random_seed"])
+    flops = 12 * tokens * d * FFN_DIM * n_layers
+
+    def run(label, **kw):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        stamps = []
+
+        def on_step(_):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        t0 = time.perf_counter()
+        out = train_single(params, seeds, tokens, d, lr=LR, on_step=on_step,
+                           **kw)
+        got = launch_counts()
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        med = statistics.median(steps[1:])
+        print("bf16-train-run " + json.dumps(dict(
+            run=label, steps=len(steps), tokens_per_step=tokens,
+            median_step_ms=1e3 * med, first_step_ms=1e3 * steps[0],
+            tokens_per_s=tokens / med, model_tflops_per_s=flops / med / 1e12,
+            out_dtype=str(out.w1.dtype),
+            finite=all(bool(torch.isfinite(t.float()).all()) for t in out),
+            kernel_launches=got, card=card)), flush=True)
+        check(out.w1.dtype == torch.bfloat16, f"{label}: params left bf16")
+        return got
+
+    launches = run("pallas-bf16", use_pallas=True)
+    matmul = run("matmul-bf16")
+    for name, _, _, _ in DTYPE_FFN_KERNELS:
+        check(launches.get(name, 0) == n_layers * steps_n,
+              f"bf16 kernel run: {launches.get(name, 0)} launches of "
+              f"{name}, expected {n_layers * steps_n}")
+    check(not any(launches.get(k[0].split("[")[0]) for k in
+                  DTYPE_FFN_KERNELS) and not matmul,
+          f"bf16 runs launched f32 kernels: {launches} {matmul}")
+    cli = cli_m0_phase(card, CLI_M1_BF16, "bf16-cli-m1")[0]
+    check(cli["dtype"] == "bfloat16" and cli["kernel_launches"] == {
+        k[0]: n_layers * steps_n for k in DTYPE_FFN_KERNELS},
+        f"cli -m 1 --dtype bfloat16 launched {cli['kernel_launches']}")
+
+    # one step's gradients, per layer, against float64 on the same bf16
+    # params and batch (GRAD_RATIO over the cuBLAS bf16 path's error)
+    x, dl = batch_from_seed(seeds[0], tokens, d, dtype=torch.bfloat16,
+                            device="cuda")
+    gk = stack_grads(params.w1, params.w2, x, dl, block=fused_ffn_block)[1]
+    gm = stack_grads(params.w1, params.w2, x, dl, block=ffn_block)[1]
+    g64 = stack_grads(params.w1.double(), params.w2.double(), x.double(),
+                      dl.double(), block=ffn_block)[1]
+    kernel_err, matmul_err = [], []
+    for a, b, c in zip(gk, gm, g64):
+        for l in range(n_layers):
+            ref = c[l].norm()
+            kernel_err.append(float((a[l].double() - c[l]).norm() / ref))
+            matmul_err.append(float((b[l].double() - c[l]).norm() / ref))
+    del gk, gm, g64
+    ratio = max(k / max(m, 1e-30) for k, m in zip(kernel_err, matmul_err))
+
+    # DDP and FSDP over the ring kernels in loopback
+    mesh = make_mesh({DATA_AXIS: RING_N}, loopback=True)
+    dp_seeds = make_seed_schedule(RING_N * BF16_DP_STEPS,
+                                  TRAIN["random_seed"])
+    trainers = {"ddp": train_ddp, "fsdp": train_fsdp}
+
+    def dp_run(name, seeds, lr):
+        def body(me, _):
+            stamps = []
+
+            def on_step(_):
+                if me.rank == 0:
+                    torch.cuda.synchronize()
+                    stamps.append(time.perf_counter())
+            out = trainers[name](params, seeds, tokens, d, me, lr=lr,
+                                 comm="pallas_ring", on_step=on_step)
+            return out, stamps
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = launch(body, mesh, timeout=600)
+        full = (unshard_params([o[0] for o in outs]) if name == "fsdp"
+                else outs[0][0])
+        return full, outs[0][1], t0, launch_counts()
+
+    layer_calls = n_layers * BF16_DP_STEPS
+    want = {"ddp": {"ring_all_reduce[bf16]": 2 * layer_calls,
+                    "ppermute_dma": 1},
+            "fsdp": {"ring_all_gather[bf16]": 4 * layer_calls,
+                     "ring_reduce_scatter[bf16]": 2 * layer_calls,
+                     "ppermute_dma": 1}}
+    for name in ("ddp", "fsdp"):
+        full, stamps, t0, got = dp_run(name, dp_seeds, LR)
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        med = statistics.median(steps[1:])
+        print("bf16-ring-train-run " + json.dumps(dict(
+            run=f"{name}-bf16-loopback", ranks=RING_N, mode="loopback",
+            steps_per_rank=len(steps), tokens_per_rank_step=tokens,
+            median_step_ms=1e3 * med, first_step_ms=1e3 * steps[0],
+            tokens_per_s=RING_N * tokens / med,
+            model_tflops_per_s=RING_N * flops / med / 1e12,
+            out_dtype=str(full.w1.dtype), kernel_launches=got, card=card)),
+            flush=True)
+        check(got == want[name], f"{name} bf16 loopback: launches {got}, "
+              f"expected {want[name]}")
+        check(full.w1.dtype == torch.bfloat16, f"{name}: params left bf16")
+        launches.update({k: v for k, v in got.items() if "[bf16]" in k})
+        del full
+
+    # one step a rank at BF16_CHECK_LR, every ring call bit for bit
+    with bit_checked_ring_calls(torch, ring) as calls:
+        ddp = dp_run("ddp", dp_seeds[:RING_N], BF16_CHECK_LR)[0]
+        fsdp = dp_run("fsdp", dp_seeds[:RING_N], BF16_CHECK_LR)[0]
+    moved = float((ddp.w1 != params.w1).double().mean())
+    apart = max(bf16_steps(torch, a, b.double())[0]
+                for a, b in zip(ddp, fsdp))
+    print("bf16-train-check " + json.dumps(dict(
+        grad_err_vs_f64_kernel_max=max(kernel_err),
+        grad_err_vs_f64_matmul_max=max(matmul_err),
+        grad_err_ratio_max=ratio, grad_ratio_limit=GRAD_RATIO,
+        ring_calls={f"{op}/{dt}": sum(c[0] == op and c[1] == dt
+                                      for c in calls)
+                    for op, dt in sorted({c[:2] for c in calls})},
+        ring_calls_bit_identical=all(c[2] for c in calls),
+        check_lr=BF16_CHECK_LR, ddp_moved_share=moved,
+        ddp_vs_fsdp_steps_max=apart, card=card)), flush=True)
+    check(ratio <= GRAD_RATIO, f"bf16 kernel grads {ratio:.2f}x as far from "
+          "float64 as the cuBLAS bf16 path's")
+    check(all(c[2] for c in calls) and len(calls) == 2 + 8 * n_layers,
+          f"a ring call of the bf16 trainers differs from its plain "
+          f"version, or {len(calls)} calls")
+    check(moved > 0.1, f"only {moved:.3f} of DDP's bf16 weights moved at "
+          f"lr {BF16_CHECK_LR}")
+    check(apart <= 2, f"DDP and FSDP in bf16 {apart} steps apart")
+    return launches
+
+
+def dtype_bf16_rows(cases, launches, mode="loopback"):
+    """The bf16 forms of the FFN kernels and of the ring sums in the
+    kernels line: launches from the main path's runs (``launches``), the
+    rest from the main case of each."""
+    rows = []
+    forms = [(k[0], k[1], k[2]) for k in DTYPE_FFN_KERNELS] + [
+        (k[0], "ring_collectives.cu", k[1]) for k in DTYPE_RING_KERNELS]
+    for name, src, replaces in forms:
+        mine = [c for c in cases if c["kernel"] == name]
+        if not mine:
+            continue
+        main = next(c for c in mine if c["shape"] in ("main", "dw1"))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"distributed_llm_code_samples_tpu_torch/csrc/{src}",
+            "replaces": f"distributed_llm_code_samples_tpu/{replaces}",
+            "launches": None if launches is None else launches.get(name, 0),
+            "mode": mode, "storage": "bf16",
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": main["ms"], "f32_ms": main["f32_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "bound_f32_ms": main.get("bound_f32_ms"),
+            "library_ms": main["library_ms"],
+            "ok": all(c["ok"] for c in mine)})
+    return rows
+
+
+def dist_bf16_rank(mesh, payload):
+    """One rank of ``--phase dist``'s bf16 part (its card is
+    ``cuda:<rank>``): the all-reduce and the reduce-scatter of bf16 at
+    DDP's and FSDP's gradient shapes across the cards, bit for bit
+    against the plain ring (NCCL point to point), beside NCCL's bf16
+    ``all_reduce`` and ``reduce_scatter_tensor`` (which add in their own
+    order: their distance in bf16 steps is reported). Rank 0 prints;
+    returns the cases."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    r, n, dev = mesh.rank, mesh.size, mesh.torch_device
+    timer = Timer(torch)
+    token = torch.zeros(1, device=dev)
+    aligned = partial(timer.ms, align=partial(dist.all_reduce, token))
+    rg = mesh.ring(4 * FFN_DIM * D_MODEL)
+    cases = []
+    for k, (op, tag, shape) in enumerate(DTYPE_RING_CASES[:4]):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(740 + 10 * k + r)
+        x = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        kern = partial(getattr(ring, op), x, rg)
+        plain = partial(getattr(ring, op + "_ref"), x, rg)
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        mesh.check()
+        want = plain()
+        nccl = _nccl_call(torch, dist, op, x)
+        row = dict(kernel=op + "[bf16]", shape=tag, dims=list(shape),
+                   ranks=n, mode="4 cards",
+                   bit_identical_to_plain=torch.equal(
+                       got.view(torch.int16), want.view(torch.int16)),
+                   deterministic=torch.equal(got.view(torch.int16),
+                                             again.view(torch.int16)),
+                   max_abs_err=float((got.float() - want.float()).abs()
+                                     .max()),
+                   nccl_steps_max=bf16_steps(torch, nccl, got.double())[0],
+                   ms=aligned(kern),
+                   ms_with_host=timer.ms(kern, with_host=True),
+                   plain_ms=aligned(plain),
+                   f32_ms=aligned(partial(getattr(ring, op), x.float(), rg)),
+                   library_ms=aligned(partial(_nccl_call, torch, dist, op,
+                                              x)),
+                   library_f32_ms=aligned(partial(_nccl_call, torch, dist,
+                                                  op, x.float())))
+        row["bound_ms"], row["bound_by"] = ring_dist_bound(
+            op, 2 * x.numel(), n)
+        every = [None] * n
+        dist.all_gather_object(every, {key: row[key] for key in (
+            "ms", "bit_identical_to_plain", "deterministic")})
+        row["ms_max_over_ranks"] = max(e["ms"] for e in every)
+        row["ok"] = all(e["bit_identical_to_plain"] and e["deterministic"]
+                        for e in every)
+        if r == 0:
+            print("dist-bf16-kernel-case " + json.dumps(row), flush=True)
+        cases.append(row)
+        del x, got, again, want, nccl
+    return cases
+
+
 def dp_rows(dp_launches, counted):
     """A kernel's launches a rank in each ``lmdp`` run that made any."""
     if dp_launches is None:
@@ -4681,6 +5215,9 @@ CLI_OPT = (
                              "--clip_norm", "1.0", "--mixed", "--comm",
                              "pallas_ring") + CLI_M0[2:14]),
     ("dist-cli-m0-mixed", CLI_M0 + ("--mixed",)))
+# -m 0 on bf16 params over the ring kernels at the same shape on every
+# card (--phase dist, dist-bf16)
+CLI_M0_BF16 = CLI_M0 + ("--dtype", "bfloat16")
 
 
 # the LM's and the transformer's TP through the CLI at LM's shape on every
@@ -4697,12 +5234,12 @@ CLI_LMTP = (
      + LMTP_CLI_SHAPE))
 
 
-def cli_m0_phase(cards, argv=CLI_M0, tag="dist-cli-m0") -> None:
+def cli_m0_phase(cards, argv=CLI_M0, tag="dist-cli-m0") -> list:
     """``cli.py`` with ``argv`` (default ``-m 0 ... --strict``: methods 1-4
     in turn, then DDP against FSDP and single-device against TP) as a
     subprocess. Prints its exit code, its ``takes`` and ``verify`` lines,
     every ``SoftAssertionError`` line and each method's step time and
-    launches (``tag``)."""
+    launches (``tag``); returns each method's payload."""
     cmd = [sys.executable, "-m", "distributed_llm_code_samples_tpu_torch.cli",
            *argv]
     t0 = time.perf_counter()
@@ -4718,7 +5255,7 @@ def cli_m0_phase(cards, argv=CLI_M0, tag="dist-cli-m0") -> None:
         soft_assertions=[l for l in lines
                          if l.startswith("SoftAssertionError")],
         runs=[{k: r.get(k) for k in ("method", "ranks", "mesh", "comm",
-                                     "optimizer", "zero1", "mixed",
+                                     "dtype", "optimizer", "zero1", "mixed",
                                      "sequence_parallel", "attn", "head",
                                      "median_step_ms", "tokens_per_s",
                                      "model_tflops_per_s",
@@ -4728,6 +5265,7 @@ def cli_m0_phase(cards, argv=CLI_M0, tag="dist-cli-m0") -> None:
         print(f"{tag}-stderr\n" + out.stderr[-4000:], flush=True)
     check(out.returncode == 0, f"cli {' '.join(argv)} exited "
           f"{out.returncode}")
+    return runs
 
 
 def card_lines() -> list:
@@ -4747,7 +5285,9 @@ def dist_phase(torch, part: str = "all"):
     all-to-all's entries of the kernels line. ``part`` ``"tp"`` (``--phase
     dist-tp``) runs TP, ``-m 0`` and LM TP with their CLI runs alone;
     ``"lmdp"`` (``--phase dist-lmdp``) the data-parallel LM and
-    transformer alone."""
+    transformer alone; ``"bf16"`` (``--phase dist-bf16``) the bf16 ring
+    sums across the cards (``dist_bf16_rank``) and ``cli.py -m 0
+    --dtype bfloat16`` alone, which ``"all"`` runs too."""
     from distributed_llm_code_samples_tpu_torch.parallel import (
         DATA_AXIS, launch, make_mesh)
     import numpy as np
@@ -4790,6 +5330,15 @@ def dist_phase(torch, part: str = "all"):
             cli_m0_phase(cards, argv, tag)
     if part in ("all", "lmdp"):
         lmdp_phase(torch, np, cards, cards=RING_N)
+    if part in ("all", "bf16"):
+        cases = launch(dist_bf16_rank, make_mesh({DATA_AXIS: RING_N},
+                                                 device="cuda"),
+                       {"card": cards}, timeout=600)[0]
+        cli_m0_phase(cards, CLI_M0_BF16, "dist-cli-m0-bf16")
+        bf16_rows = dtype_bf16_rows(cases, None, mode="4 cards")
+        for row in bf16_rows:
+            row["cards"] = cards
+        rows += bf16_rows
     return rows
 
 
@@ -4797,8 +5346,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
                     choices=["all", "kernel", "train", "lm", "ring", "ep",
-                             "tp", "opt", "lmtp", "lmdp", "dist", "dist-tp",
-                             "dist-lmdp"],
+                             "tp", "opt", "lmtp", "lmdp", "bf16", "dist",
+                             "dist-tp", "dist-lmdp", "dist-bf16"],
                     default="all")
     args = ap.parse_args(argv)
     try:
@@ -4833,7 +5382,7 @@ def main(argv=None) -> int:
     print("ptxas-spills " + json.dumps(ptxas_spills(_build.build_logs)),
           flush=True)
 
-    if args.phase in ("dist", "dist-tp", "dist-lmdp"):
+    if args.phase in ("dist", "dist-tp", "dist-lmdp", "dist-bf16"):
         kernels = dist_phase(torch, part=args.phase[5:] or "all")
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0 if all(k["ok"] for k in kernels) else 1
@@ -4843,7 +5392,7 @@ def main(argv=None) -> int:
     ffn_phases, lm_phases = ("all", "kernel", "train"), ("all", "lm")
     lm_kernel_phases = ("all", "lm", "lmtp", "lmdp")
     ring_phases, ep_phases = ("all", "ring"), ("all", "ep")
-    opt_phases = ("all", "opt")
+    opt_phases, bf16_phases = ("all", "opt"), ("all", "bf16")
     if args.phase in ("all", "kernel"):
         cases = kernel_phase(torch, np, timer)
         bad += [c for c in cases if not c["ok"]]
@@ -4864,8 +5413,12 @@ def main(argv=None) -> int:
     if args.phase in opt_phases:
         bf16_cases = bf16_kernel_phase(torch, np, timer)
         bad += [c for c in bf16_cases if not c["ok"]]
+    if args.phase in bf16_phases:
+        dtype_cases = dtype_bf16_kernel_phase(torch, np, timer)
+        bad += [c for c in dtype_cases if not c["ok"]]
     launches = ffn_launches = lm_launches = ring_launches = None
     ep_launches = bf16_launches = lmtp_launches = lmdp_launches = None
+    dtype_launches = None
     if not bad and args.phase == "all":
         launches = serving_phase(torch, np, card)
     if not bad and args.phase in ("all", "train"):
@@ -4881,6 +5434,8 @@ def main(argv=None) -> int:
     if not bad and args.phase in opt_phases:
         bf16_launches = dict(opt_train_phase(torch, np, card),
                              **opt_lm_phase(torch, np, card))
+    if not bad and args.phase in bf16_phases:
+        dtype_launches = dtype_bf16_train_phase(torch, np, card)
     if not bad and args.phase in ("all", "lmtp"):
         lmtp_launches = lmtp_phase(torch, np, card)
     if not bad and args.phase in ("all", "lmdp"):
@@ -4914,6 +5469,8 @@ def main(argv=None) -> int:
     if args.phase in opt_phases:
         kernels += bf16_kernel_rows(bf16_cases, bf16_launches,
                                     dp_launches=lmdp_launches)
+    if args.phase in bf16_phases:
+        kernels += dtype_bf16_rows(dtype_cases, dtype_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     if bad:
         print(f"error: kernel disagrees with its plain version: {bad}",

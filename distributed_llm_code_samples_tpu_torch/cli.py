@@ -45,6 +45,14 @@ are the whole EP group's. Methods 8 and 11 run on a model axis of
 ``--heads`` and be divisible by the model axis) and ``--head`` (oracle
 or the fused kernels); ``-n`` is the sequence length.
 
+``--dtype bfloat16`` stores the FFN stack's params in bf16, as the JAX
+CLI's does, for methods 1-5 and 0 with SGD: every block, gradient, sum
+and update is then bf16 (the kernels' f32 sums rounded once where the
+Pallas kernels round them, the ring kernels' sums rounded every add).
+Methods 7, 8 and 11 and the optimizer flags (``--optimizer`` other than
+sgd, ``--zero1``, ``--clip_norm``, ``--mixed``) refuse it for now (exit
+2, ROADMAP.md Queue 1).
+
 The training options follow the JAX CLI's rules: ``--optimizer``
 (``optim.OPTIMIZERS``) and ``--clip_norm`` apply to methods 2 and 3
 (clipping sums its norm over the data axis where the update runs on
@@ -119,6 +127,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --method 1 (also inside 0): run each FFN "
                         "block through the three CUDA kernels (their plain "
                         "versions on the CPU)")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"],
+                   default="float32",
+                   help="the FFN stack's param storage (methods 1-5, also "
+                        "inside 0): bf16 params, blocks, gradients and sums "
+                        "with --dtype bfloat16 (distinct from --mixed)")
     p.add_argument("--mixed", action="store_true",
                    help="with --method 1-5 (also inside 0, with --zero1 and "
                         "--tp_sp): bf16 matmul operands, f32 params/grads/"
@@ -248,6 +261,25 @@ def _flag_error(args) -> str | None:
                 "(which verifies them)")
     if args.strict and m != 0:
         return "--strict applies to --method 0 only (its checks)"
+    if args.dtype == "bfloat16":
+        return _bf16_error(args)
+    return None
+
+
+def _bf16_error(args) -> str | None:
+    """What ``--dtype bfloat16`` does not take yet: the methods and
+    options whose bf16 forms are the next slice's work."""
+    queued = ("is ported for the FFN stack's methods 1-5 (and 0) under "
+              "SGD only so far; the rest is queued in ROADMAP.md Queue 1")
+    if args.method in (7, 8, 11):
+        return f"--dtype bfloat16 with --method {args.method}: bf16 storage " \
+               + queued
+    for flag, on in (("--optimizer " + args.optimizer,
+                      args.optimizer != "sgd"), ("--zero1", args.zero1),
+                     ("--clip_norm", bool(args.clip_norm)),
+                     ("--mixed", args.mixed)):
+        if on:
+            return f"--dtype bfloat16 with {flag}: bf16 storage " + queued
     return None
 
 
@@ -413,7 +445,9 @@ def _checksums(out) -> list:
 
 def _init(args, gen):
     """The initial params of ``args.method``'s family (JAX ``cli.py``'s
-    ``params_for``)."""
+    ``params_for``); the FFN stack's at ``--dtype``."""
+    import torch
+
     from .models import init_lm, init_transformer
     from .models.ffn_stack import init_ffn_stack
     from .models.moe import init_moe_stack
@@ -425,7 +459,8 @@ def _init(args, gen):
     if args.method == 11:
         return init_lm(gen, args.vocab, d, layers, max_seq_len=args.seq_len,
                        n_heads=args.heads, n_kv_heads=args.kv_heads or None)
-    return init_ffn_stack(gen, d, layers)
+    return init_ffn_stack(gen, d, layers,
+                          dtype=getattr(torch, args.dtype))
 
 
 def _model_flops(args, tokens: int, m: int) -> float:
@@ -504,7 +539,7 @@ def main(argv=None) -> int:
     results = {}
     for m in methods:
         common = dict(method=m, steps=args.num_steps, tokens_per_step=tokens,
-                      lr=lr, build_s=build_s)
+                      lr=lr, dtype=args.dtype, build_s=build_s)
         if m == 1:
             out, payload = _run_single(args, params, seeds, tokens, device,
                                        single_kwargs)
@@ -689,7 +724,8 @@ def _check(results: dict, rtol: float, atol: float) -> bool:
                          ("1dev", "tp", results[1], results[4])):
         diffs = {}
         for field, pa, pb in zip(a._fields, a, b):
-            pa, pb = pa.numpy(), pb.numpy()
+            # bf16 widened exactly: their differences are exact in f32
+            pa, pb = pa.float().numpy(), pb.float().numpy()
             diffs[field] = float(np.abs(pa - pb).max())
             if not np.allclose(pa, pb, rtol=rtol, atol=atol):
                 print(f"SoftAssertionError: {la}.{field} vs {lb}.{field} "

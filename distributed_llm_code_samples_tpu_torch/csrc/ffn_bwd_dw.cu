@@ -6,7 +6,10 @@
 // same function, with h recomputed from the block input and the mask
 // where(h <= 0, 0, da) (NaN passes). With mxu_bf16, x, dy, w1 and w2 are
 // rounded to bf16 and so are a = relu(h) and dh (pallas_ffn.py:231-242);
-// sums are f32 either way.
+// sums are f32 either way. On bf16 storage the operands are bf16 already,
+// a and dh are rounded to bf16 and dw1, dw2 are stored in bf16, each
+// element rounded once from its f32 sum over every token
+// (pallas_ffn.py:235-247).
 //
 // What bounds it: operations. 8*T*d*ffn flops (h, da, dw1, dw2) against
 // 2*T*d + 4*d*ffn floats moved; at the main shape (T 8192, d 768,
@@ -49,9 +52,9 @@ namespace {
 using gemm::up4;
 using ffn_gemm::dw;
 
-template <bool kBf16>
-cudaError_t launch(const float* x, const float* dy, const float* w1,
-                   const float* w2, float* dw1, float* dw2, float* xT,
+template <typename Elem, bool kBf16>
+cudaError_t launch(const Elem* x, const Elem* dy, const Elem* w1,
+                   const Elem* w2, Elem* dw1, Elem* dw2, float* xT,
                    float* dyT, float* xc, float* dyc, float* w1T, float* w2c,
                    float* a, float* dh, float* part1, float* part2, int T,
                    int d, int ffn, int S, int L, cudaStream_t st) {
@@ -70,7 +73,7 @@ cudaError_t launch(const float* x, const float* dy, const float* w1,
                        f4, 0, d},
       st);
   if (e != cudaSuccess) return e;
-  return ffn_gemm::sliced<dw>(
+  return ffn_gemm::sliced<dw, Elem>(
       ffn_gemm::product(dh, f4, f4, xc, d4, d4, ffn, d),    // dw1 = dh^T x
       ffn_gemm::product(dyc, d4, d4, a, f4, f4, d, ffn),    // dw2 = dy^T a
       dw1, dw2, part1, part2, T, S, L, st);
@@ -81,26 +84,41 @@ cudaError_t launch(const float* x, const float* dy, const float* w1,
 extern "C" {
 
 // x, dy [T, d], w1 [ffn, d], w2 [d, ffn] -> dw1 [ffn, d], dw2 [d, ffn];
-// all f32. The scratch pieces, each 16-byte aligned (T4, d4, ffn4: T, d
-// and ffn rounded up to 4): xT, dyT [d][T4]; xc, dyc [T][d4]; w1T, w2c
-// [d][ffn4]; a, dh [T][ffn4]; part1 [S][ffn][d] and part2 [S][d][ffn]
-// (unused when S is 1). S slices of L tokens (S = ceil(T / L)).
-// mxu_bf16: 0 or 1. Returns a cudaError_t as int; 0 on success.
-int ffn_bwd_dw_launch(const float* x, const float* dy, const float* w1,
-                      const float* w2, float* dw1, float* dw2, float* xT,
+// all of one storage type. The f32 scratch pieces, each 16-byte aligned
+// (T4, d4, ffn4: T, d and ffn rounded up to 4): xT, dyT [d][T4]; xc, dyc
+// [T][d4]; w1T, w2c [d][ffn4]; a, dh [T][ffn4]; part1 [S][ffn][d] and
+// part2 [S][d][ffn] (unused when S is 1). S slices of L tokens (S =
+// ceil(T / L)). mode: 0 f32, 1 f32 with bf16 operands (mxu_bf16), 2 bf16
+// storage. Returns a cudaError_t as int; 0 on success.
+int ffn_bwd_dw_launch(const void* x, const void* dy, const void* w1,
+                      const void* w2, void* dw1, void* dw2, float* xT,
                       float* dyT, float* xc, float* dyc, float* w1T,
                       float* w2c, float* a, float* dh, float* part1,
                       float* part2, int T, int d, int ffn, int S, int L,
-                      int mxu_bf16, void* stream) {
-  if (T < 1 || d < 1 || ffn < 1 || !ffn_gemm::covers(T, S, L))
+                      int mode, void* stream) {
+  if (T < 1 || d < 1 || ffn < 1 || !ffn_gemm::covers(T, S, L) ||
+      mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  if (mode == 2)
+    return static_cast<int>(launch<bf, true>(
+        static_cast<const bf*>(x), static_cast<const bf*>(dy),
+        static_cast<const bf*>(w1), static_cast<const bf*>(w2),
+        static_cast<bf*>(dw1), static_cast<bf*>(dw2), xT, dyT, xc, dyc, w1T,
+        w2c, a, dh, part1, part2, T, d, ffn, S, L, st));
+  const float *xf = static_cast<const float*>(x),
+              *dyf = static_cast<const float*>(dy),
+              *w1f = static_cast<const float*>(w1),
+              *w2f = static_cast<const float*>(w2);
+  float *dw1f = static_cast<float*>(dw1), *dw2f = static_cast<float*>(dw2);
   return static_cast<int>(
-      mxu_bf16 ? launch<true>(x, dy, w1, w2, dw1, dw2, xT, dyT, xc, dyc, w1T,
-                              w2c, a, dh, part1, part2, T, d, ffn, S, L, st)
-               : launch<false>(x, dy, w1, w2, dw1, dw2, xT, dyT, xc, dyc,
-                               w1T, w2c, a, dh, part1, part2, T, d, ffn, S,
-                               L, st));
+      mode ? launch<float, true>(xf, dyf, w1f, w2f, dw1f, dw2f, xT, dyT, xc,
+                                 dyc, w1T, w2c, a, dh, part1, part2, T, d,
+                                 ffn, S, L, st)
+           : launch<float, false>(xf, dyf, w1f, w2f, dw1f, dw2f, xT, dyT, xc,
+                                  dyc, w1T, w2c, a, dh, part1, part2, T, d,
+                                  ffn, S, L, st));
 }
 
 }  // extern "C"

@@ -6,7 +6,9 @@
 // same function: the block input is the only residual, h is recomputed,
 // and the mask is where(h <= 0, 0, da) (NaN passes). With mxu_bf16, x,
 // dy, w1 and w2 are rounded to bf16 and so is dh (pallas_ffn.py:176-182);
-// sums are f32 either way.
+// sums are f32 either way. On bf16 storage the operands are bf16 already,
+// dh is rounded to bf16 and dx is stored in bf16, rounded once from its
+// f32 sum (pallas_ffn.py:180-187).
 //
 // What bounds it: operations. 6*T*d*ffn flops (h, da and dx, each
 // 2*T*d*ffn) against 3*T*d + 2*d*ffn floats moved; at the main shape
@@ -54,9 +56,9 @@ namespace {
 using gemm::up4;
 using Tag = ffn_gemm::dx;
 
-template <bool kBf16>
-cudaError_t launch(const float* x, const float* dy, const float* w1,
-                   const float* w2, float* dx, float* xT, float* dyT,
+template <typename Elem, bool kBf16>
+cudaError_t launch(const Elem* x, const Elem* dy, const Elem* w1,
+                   const Elem* w2, Elem* dx, float* xT, float* dyT,
                    float* w1T, float* w2c, float* w1c, float* dhT,
                    float* part, int T, int d, int ffn, int S, int L,
                    cudaStream_t st) {
@@ -75,7 +77,7 @@ cudaError_t launch(const float* x, const float* dy, const float* w1,
                        ffn, T4, 0, d},
       st);
   if (e != cudaSuccess) return e;
-  return ffn_gemm::sliced<Tag>(
+  return ffn_gemm::sliced<Tag, Elem>(
       ffn_gemm::product(dhT, T4, T4, w1c, d4, d4, T, d),   // dx = dh w1
       ffn_gemm::Product{}, dx, nullptr, part, nullptr, ffn, S, L, st);
 }
@@ -84,25 +86,39 @@ cudaError_t launch(const float* x, const float* dy, const float* w1,
 
 extern "C" {
 
-// x, dy [T, d], w1 [ffn, d], w2 [d, ffn] -> dx [T, d], all f32. The
-// scratch pieces, each 16-byte aligned (T4, d4, ffn4: T, d and ffn
-// rounded up to 4): xT, dyT [d][T4]; w1T, w2c [d][ffn4]; w1c [ffn][d4];
-// dhT [ffn][T4]; part [S][T][d] (unused when S is 1). S slices of L ffn
-// rows (S = ceil(ffn / L)). mxu_bf16: 0 or 1. Returns a cudaError_t as
+// x, dy [T, d], w1 [ffn, d], w2 [d, ffn] -> dx [T, d], all of one
+// storage type. The f32 scratch pieces, each 16-byte aligned (T4, d4,
+// ffn4: T, d and ffn rounded up to 4): xT, dyT [d][T4]; w1T, w2c
+// [d][ffn4]; w1c [ffn][d4]; dhT [ffn][T4]; part [S][T][d] (unused when S
+// is 1). S slices of L ffn rows (S = ceil(ffn / L)). mode: 0 f32, 1 f32
+// with bf16 operands (mxu_bf16), 2 bf16 storage. Returns a cudaError_t as
 // int; 0 on success.
-int ffn_bwd_dx_launch(const float* x, const float* dy, const float* w1,
-                      const float* w2, float* dx, float* xT, float* dyT,
+int ffn_bwd_dx_launch(const void* x, const void* dy, const void* w1,
+                      const void* w2, void* dx, float* xT, float* dyT,
                       float* w1T, float* w2c, float* w1c, float* dhT,
                       float* part, int T, int d, int ffn, int S, int L,
-                      int mxu_bf16, void* stream) {
-  if (T < 1 || d < 1 || ffn < 1 || !ffn_gemm::covers(ffn, S, L))
+                      int mode, void* stream) {
+  if (T < 1 || d < 1 || ffn < 1 || !ffn_gemm::covers(ffn, S, L) ||
+      mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  if (mode == 2)
+    return static_cast<int>(launch<bf, true>(
+        static_cast<const bf*>(x), static_cast<const bf*>(dy),
+        static_cast<const bf*>(w1), static_cast<const bf*>(w2),
+        static_cast<bf*>(dx), xT, dyT, w1T, w2c, w1c, dhT, part, T, d, ffn,
+        S, L, st));
+  const float *xf = static_cast<const float*>(x),
+              *dyf = static_cast<const float*>(dy),
+              *w1f = static_cast<const float*>(w1),
+              *w2f = static_cast<const float*>(w2);
+  float* dxf = static_cast<float*>(dx);
   return static_cast<int>(
-      mxu_bf16 ? launch<true>(x, dy, w1, w2, dx, xT, dyT, w1T, w2c, w1c, dhT,
-                              part, T, d, ffn, S, L, st)
-               : launch<false>(x, dy, w1, w2, dx, xT, dyT, w1T, w2c, w1c,
-                               dhT, part, T, d, ffn, S, L, st));
+      mode ? launch<float, true>(xf, dyf, w1f, w2f, dxf, xT, dyT, w1T, w2c,
+                                 w1c, dhT, part, T, d, ffn, S, L, st)
+           : launch<float, false>(xf, dyf, w1f, w2f, dxf, xT, dyT, w1T, w2c,
+                                  w1c, dhT, part, T, d, ffn, S, L, st));
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@
 // distributed_llm_code_samples_tpu/ops/pallas_ffn.py. It computes the
 // same function, relu as where(h <= 0, 0, h) (NaN passes). With
 // mxu_bf16, x, w1 and w2 are rounded to bf16 and so is a = relu(h)
-// (pallas_ffn.py:117-122); sums are f32 either way.
+// (pallas_ffn.py:117-122); sums are f32 either way. On bf16 storage the
+// operands are bf16 already, a is rounded to bf16 and y is stored in bf16,
+// rounded once from its f32 sum (pallas_ffn.py:119-126).
 //
 // What bounds it: operations. 4*T*d*ffn flops against T*d + 2*d*ffn + T*d
 // floats moved; at the main shape (T 8192, d 768, ffn 3072) 77 GFLOP over
@@ -50,8 +52,8 @@ namespace {
 using ffn_gemm::fwd;
 using gemm::up4;
 
-template <bool kBf16>
-cudaError_t launch(const float* x, const float* w1, const float* w2, float* y,
+template <typename Elem, bool kBf16>
+cudaError_t launch(const Elem* x, const Elem* w1, const Elem* w2, Elem* y,
                    float* xT, float* w1T, float* w2T, float* aT, float* part,
                    int T, int d, int ffn, int S, int L, cudaStream_t st) {
   const int T4 = static_cast<int>(up4(T)), d4 = static_cast<int>(up4(d)),
@@ -67,7 +69,7 @@ cudaError_t launch(const float* x, const float* w1, const float* w2, float* y,
                        nullptr, ffn, T4, 0, d},
       st);
   if (e != cudaSuccess) return e;
-  return ffn_gemm::sliced<fwd>(
+  return ffn_gemm::sliced<fwd, Elem>(
       ffn_gemm::product(aT, T4, T4, w2T, d4, d4, T, d),   // y = a w2^T
       ffn_gemm::Product{}, y, nullptr, part, nullptr, ffn, S, L, st);
 }
@@ -76,24 +78,35 @@ cudaError_t launch(const float* x, const float* w1, const float* w2, float* y,
 
 extern "C" {
 
-// x [T, d], w1 [ffn, d], w2 [d, ffn] -> y [T, d], all f32. The scratch
-// pieces, each 16-byte aligned (T4, d4, ffn4: T, d and ffn rounded up to
-// 4): xT [d][T4]; w1T [d][ffn4]; w2T [ffn][d4]; aT [ffn][T4]; part
-// [S][T][d] (unused when S is 1). S slices of L ffn columns (S =
-// ceil(ffn / L)). mxu_bf16: 0 or 1. Returns a cudaError_t as int; 0 on
-// success.
-int ffn_fwd_launch(const float* x, const float* w1, const float* w2, float* y,
+// x [T, d], w1 [ffn, d], w2 [d, ffn] -> y [T, d], all of one storage
+// type. The f32 scratch pieces, each 16-byte aligned (T4, d4, ffn4: T, d
+// and ffn rounded up to 4): xT [d][T4]; w1T [d][ffn4]; w2T [ffn][d4]; aT
+// [ffn][T4]; part [S][T][d] (unused when S is 1). S slices of L ffn
+// columns (S = ceil(ffn / L)). mode: 0 f32, 1 f32 with bf16 operands
+// (mxu_bf16), 2 bf16 storage. Returns a cudaError_t as int; 0 on success.
+int ffn_fwd_launch(const void* x, const void* w1, const void* w2, void* y,
                    float* xT, float* w1T, float* w2T, float* aT, float* part,
-                   int T, int d, int ffn, int S, int L, int mxu_bf16,
+                   int T, int d, int ffn, int S, int L, int mode,
                    void* stream) {
-  if (T < 1 || d < 1 || ffn < 1 || !ffn_gemm::covers(ffn, S, L))
+  if (T < 1 || d < 1 || ffn < 1 || !ffn_gemm::covers(ffn, S, L) ||
+      mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  if (mode == 2)
+    return static_cast<int>(launch<bf, true>(
+        static_cast<const bf*>(x), static_cast<const bf*>(w1),
+        static_cast<const bf*>(w2), static_cast<bf*>(y), xT, w1T, w2T, aT,
+        part, T, d, ffn, S, L, st));
+  const float *xf = static_cast<const float*>(x),
+              *w1f = static_cast<const float*>(w1),
+              *w2f = static_cast<const float*>(w2);
+  float* yf = static_cast<float*>(y);
   return static_cast<int>(
-      mxu_bf16 ? launch<true>(x, w1, w2, y, xT, w1T, w2T, aT, part, T, d,
-                              ffn, S, L, st)
-               : launch<false>(x, w1, w2, y, xT, w1T, w2T, aT, part, T, d,
-                               ffn, S, L, st));
+      mode ? launch<float, true>(xf, w1f, w2f, yf, xT, w1T, w2T, aT, part, T,
+                                 d, ffn, S, L, st)
+           : launch<float, false>(xf, w1f, w2f, yf, xT, w1T, w2T, aT, part,
+                                  T, d, ffn, S, L, st));
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 // The passes the three FFN kernels for Hopper (sm_90a) share, on the
 // GEMM core of gemm_core.cuh: ffn_fwd.cu, ffn_bwd_dx.cu and ffn_bwd_dw.cu.
 // Layouts are the JAX package's: x, dy [T, d]; w1 [ffn, d]; w2 [d, ffn];
-// all f32, row-major, contiguous. Each kernel copies its operands padded
-// (gemm::prep) so that every operand of every product is a row-major
-// [K][M] or [K][N] array read as 16-byte vectors, then runs:
+// row-major, contiguous, all f32 or all bf16 (storage). Each kernel copies
+// its operands padded into f32 scratch (gemm::prep) so that every operand
+// of every product is a row-major [K][M] or [K][N] f32 array read as
+// 16-byte vectors, then runs:
 //   pass 1 (hidden_kernel): one 128 x 128 tile of the hidden activation a
 //     block. It sums h over d and stores a = relu(h), or keeps h's mask as
 //     64 bits a thread in shared memory, sums a second product da over d
@@ -23,7 +24,10 @@
 //
 // With kBf16 (the Pallas kernels' `mxu_bf16`) the copies round the
 // operands to bf16 and pass 1 rounds what it stores; products and sums
-// stay f32 FMA on the CUDA cores.
+// stay f32 FMA on the CUDA cores. bf16 storage (the Pallas kernels on bf16
+// arrays) is that mode on bf16 operands, which the copies widen exactly,
+// and outputs of type Out = __nv_bfloat16: each output element is rounded
+// to bf16 once, from its f32 sum (pass 2's, or with S > 1 the reduce's).
 
 #pragma once
 
@@ -134,15 +138,22 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // One of pass 2's products: out [M][N] (+ slice * M * N) = the sum over
-// the slice's depth of a[k][m] * b[k][n]. tiles 0: no product.
+// the slice's depth of a[k][m] * b[k][n]; out is an f32 or a bf16 array
+// (the slice kernel's Out). tiles 0: no product.
 struct Product {
   gemm::Operands op;
-  float* out;
+  void* out;
   int M, N, tiles_n, tiles;
 };
 
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // Block blk of product p: tile blk % tiles over slice blk / tiles, whose
 // depth is [s L, min(K, (s + 1) L)).
+template <typename Out>
 __device__ __forceinline__ void slice_tile(const Product& p, int blk, int K,
                                            int L, float* smem) {
   const int s = blk / p.tiles, t = blk % p.tiles;
@@ -150,7 +161,7 @@ __device__ __forceinline__ void slice_tile(const Product& p, int blk, int K,
   const int k0 = s * L, k1 = min(K, k0 + L);
   float acc[8][8];
   gemm::mainloop(p.op, m0, n0, k0, k1, smem, acc);
-  float* out = p.out + static_cast<size_t>(s) * p.M * p.N;
+  Out* out = static_cast<Out*>(p.out) + static_cast<size_t>(s) * p.M * p.N;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -159,33 +170,32 @@ __device__ __forceinline__ void slice_tile(const Product& p, int blk, int K,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + quad(tx, j);
-      if (n < p.N) out[static_cast<size_t>(m) * p.N + n] = acc[i][j];
+      if (n < p.N) put(out + static_cast<size_t>(m) * p.N + n, acc[i][j]);
     }
   }
 }
 
 // Pass 2. Blocks [0, S * p0.tiles) compute p0's tiles, slice by slice,
-// the rest p1's.
-template <typename Tag>
+// the rest p1's, into Out arrays (f32 partials when S > 1).
+template <typename Tag, typename Out>
 __global__ void __launch_bounds__(kThreads, 2)
     slice_kernel(const Product p0, const Product p1, int K, int S, int L) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int blk = static_cast<int>(blockIdx.x);
   if (blk < S * p0.tiles)
-    slice_tile(p0, blk, K, L, smem);
+    slice_tile<Out>(p0, blk, K, L, smem);
   else
-    slice_tile(p1, blk - S * p0.tiles, K, L, smem);
+    slice_tile<Out>(p1, blk - S * p0.tiles, K, L, smem);
 }
 
 // out[i] = part[0][i] + part[1][i] + ... in slice order, for `outputs`
-// (1 or 2) outputs of `count` floats each (partials [S][count]).
-template <typename Tag>
+// (1 or 2) outputs of `count` elements each (f32 partials [S][count]).
+template <typename Tag, typename Out>
 __global__ void reduce_kernel(const float* __restrict__ part1,
                               const float* __restrict__ part2,
-                              float* __restrict__ out1,
-                              float* __restrict__ out2, long long count,
-                              int outputs, int S) {
+                              Out* __restrict__ out1, Out* __restrict__ out2,
+                              long long count, int outputs, int S) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
@@ -195,7 +205,7 @@ __global__ void reduce_kernel(const float* __restrict__ part1,
     const long long e = second ? i - count : i;
     float acc = __ldg(p + e);
     for (int s = 1; s < S; ++s) acc = acc + __ldg(p + s * count + e);
-    (second ? out2 : out1)[e] = acc;
+    put((second ? out2 : out1) + e, acc);
   }
 }
 
@@ -232,19 +242,27 @@ cudaError_t hidden(Hidden p, cudaStream_t st) {
 
 // Pass 2 over depth K in S slices of L and, when S > 1, the reduce:
 // out1 = p0 and out2 = p1 (p1.tiles 0: none; both of p0.M * p0.N
-// floats), through the partials part1 and part2 ([S][M][N]).
-template <typename Tag>
-cudaError_t sliced(Product p0, Product p1, float* out1, float* out2,
+// elements), through the f32 partials part1 and part2 ([S][M][N]).
+template <typename Tag, typename Out>
+cudaError_t sliced(Product p0, Product p1, Out* out1, Out* out2,
                    float* part1, float* part2, int K, int S, int L,
                    cudaStream_t st) {
   const bool split = S > 1;
-  p0.out = split ? part1 : out1;
-  p1.out = split ? part2 : out2;
-  slice_kernel<Tag><<<S * (p0.tiles + p1.tiles), kThreads, gemm::kSmem,
-                      st>>>(p0, p1, K, S, L);
+  const int blocks = S * (p0.tiles + p1.tiles);
+  if (split) {
+    p0.out = part1;
+    p1.out = part2;
+    slice_kernel<Tag, float><<<blocks, kThreads, gemm::kSmem, st>>>(
+        p0, p1, K, S, L);
+  } else {
+    p0.out = out1;
+    p1.out = out2;
+    slice_kernel<Tag, Out><<<blocks, kThreads, gemm::kSmem, st>>>(p0, p1,
+                                                                  K, S, L);
+  }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !split) return e;
-  reduce_kernel<Tag><<<1024, 256, 0, st>>>(
+  reduce_kernel<Tag, Out><<<1024, 256, 0, st>>>(
       part1, part2, out1, out2, static_cast<long long>(p0.M) * p0.N,
       p1.tiles > 0 ? 2 : 1, S);
   return cudaGetLastError();

@@ -145,14 +145,20 @@ __device__ __forceinline__ void mainloop(const Operands& g, int m0, int n0,
 
 namespace {
 
-// src [R][C] (row-major, C contiguous) -> dst [R][ldc] (zero in columns
-// [C, ldc)) and dst_t [C][ldt] (the transpose, zero in columns [R, ldt)),
-// each value rounded to bf16 when `round`. ldc 0 (ldt 0) writes no dst
-// (dst_t). 32 x 32 tiles through shared memory; 32 x 8 threads. Tag only
-// names the caller, so that a profile tells its copies apart.
-template <typename Tag>
-__global__ void gemm_prep_kernel(const float* __restrict__ src, int R,
-                                 int C, float* __restrict__ dst, int ldc,
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// src [R][C] (row-major, C contiguous; f32, or bf16 storage widened
+// exactly) -> f32 dst [R][ldc] (zero in columns [C, ldc)) and dst_t [C][ldt]
+// (the transpose, zero in columns [R, ldt)), each value rounded to bf16
+// when `round`. ldc 0 (ldt 0) writes no dst (dst_t). 32 x 32 tiles through
+// shared memory; 32 x 8 threads. Tag only names the caller, so that a
+// profile tells its copies apart.
+template <typename Tag, typename Src>
+__global__ void gemm_prep_kernel(const Src* __restrict__ src, int R, int C,
+                                 float* __restrict__ dst, int ldc,
                                  float* __restrict__ dst_t, int ldt,
                                  int round) {
   __shared__ float tile[32][33];
@@ -160,7 +166,8 @@ __global__ void gemm_prep_kernel(const float* __restrict__ src, int R,
   const int tx = threadIdx.x, ty = threadIdx.y;
   for (int i = ty; i < 32; i += 8) {
     const int r = r0 + i, c = c0 + tx;
-    float v = r < R && c < C ? src[static_cast<size_t>(r) * C + c] : 0.f;
+    float v =
+        r < R && c < C ? to_f32(src[static_cast<size_t>(r) * C + c]) : 0.f;
     if (round) v = bf16_round(v);
     tile[i][tx] = v;
     if (r < R && c < ldc) dst[static_cast<size_t>(r) * ldc + c] = v;
@@ -177,13 +184,13 @@ __global__ void gemm_prep_kernel(const float* __restrict__ src, int R,
 
 // One gemm_prep_kernel launch over src [R][C]; its grid covers the
 // padded extents of both copies (ldc columns, ldt rows).
-template <typename Tag = void>
-inline void prep(const float* src, int R, int C, float* dst, int ldc,
+template <typename Tag = void, typename Src>
+inline void prep(const Src* src, int R, int C, float* dst, int ldc,
                  float* dst_t, int ldt, int round, cudaStream_t st) {
   const int cols = C > ldc ? C : ldc, rows = R > ldt ? R : ldt;
-  gemm_prep_kernel<Tag><<<dim3((cols + 31) / 32, (rows + 31) / 32),
-                          dim3(32, 8), 0, st>>>(src, R, C, dst, ldc, dst_t,
-                                                ldt, round);
+  gemm_prep_kernel<Tag, Src><<<dim3((cols + 31) / 32, (rows + 31) / 32),
+                               dim3(32, 8), 0, st>>>(src, R, C, dst, ldc,
+                                                     dst_t, ldt, round);
 }
 
 __host__ __device__ inline long long up4(long long x) {

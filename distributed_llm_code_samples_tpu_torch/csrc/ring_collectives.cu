@@ -19,6 +19,15 @@
 //   x_c[c] + x_{c+1}[c] + ... + x_{c-1}[c],
 // added left to right, the order their receivers sum in.
 //
+// Every kernel moves 4-byte words: a bf16 tensor (an even number of
+// elements a chunk) is passed as the words of its bytes. The all-gather,
+// the hop and the all-to-all move them as they are. The all-reduce and
+// the reduce-scatter of bf16 (Params::bf16) add the two elements of each
+// word in f32 and round each partial sum to bf16 after every add, in the
+// same order, as the Pallas kernels' adds on bf16 refs do
+// (pallas_ring.py:236, :374); their landing regions hold words as
+// before, and the all-reduce pushes on the rounded sums.
+//
 // What bounds them: bytes over NVLink. Of a tensor of S bytes each rank
 // sends (and receives) 2(n-1)/n S for the all-reduce and (n-1)/n S for
 // the reduce-scatter and the all-gather (S the gathered size), S for the
@@ -175,6 +184,8 @@
 // Plain C interface, bound with ctypes; every entry takes the device
 // index and makes it current first (this library's runtime keeps its own
 // current device, apart from PyTorch's).
+
+#include <cuda_bf16.h>
 
 #include <cstring>
 
@@ -386,15 +397,37 @@ __global__ void __launch_bounds__(kThreads) all_to_all_kernel(Params p) {
 
 constexpr int kSumUnroll = 2;   // 16-byte indices in flight a thread
 
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+// b + a of two 4-byte words: f32, or (kBf16) the two bf16 elements each
+// word holds (element 0 in the low half), each pair added in f32 and
+// rounded to bf16 once, to nearest even, as PyTorch adds bf16 tensors
+// and as the Pallas kernels' adds on bf16 refs do (pallas_ring.py:236,
+// :374). So a sum in a given order has the same bits on every route.
+template <bool kBf16>
+__device__ __forceinline__ float add1(float b, float a) {
+  if (!kBf16) return b + a;
+  const unsigned ub = __float_as_uint(b), ua = __float_as_uint(a);
+  const float lo = __uint_as_float(ub << 16) + __uint_as_float(ua << 16);
+  const float hi =
+      __uint_as_float(ub & 0xffff0000u) + __uint_as_float(ua & 0xffff0000u);
+  return __uint_as_float(
+      static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+      static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+          << 16);
 }
 
-// y[i] for i in the block's range [c.lo, c.hi) of a chunk: the N - 1
-// slots of `slots` (chunk floats apart, written by peers: loads bypass
-// L1), then own, added left to right: acc = slot 0; acc = slot k + acc;
-// y = own + acc. Every load of an index is issued before its adds.
-template <int N>
+// add1 on each word of a 16-byte vector: 4 floats or 8 bf16 elements.
+template <bool kBf16>
+__device__ __forceinline__ float4 add4(float4 b, float4 a) {
+  return make_float4(add1<kBf16>(b.x, a.x), add1<kBf16>(b.y, a.y),
+                     add1<kBf16>(b.z, a.z), add1<kBf16>(b.w, a.w));
+}
+
+// y[i] for i in the block's range [c.lo, c.hi) of a chunk (in words): the
+// N - 1 slots of `slots` (chunk words apart, written by peers: loads
+// bypass L1), then own, added left to right: acc = slot 0; acc = slot k
+// + acc; y = own + acc, each add rounded to bf16 with kBf16. Every load
+// of an index is issued before its adds.
+template <int N, bool kBf16>
 __device__ __forceinline__ void sum_range(const Ctx& c, float* y,
                                           const float* slots,
                                           const float* own) {
@@ -419,23 +452,41 @@ __device__ __forceinline__ void sum_range(const Ctx& c, float* y,
       for (int u = 0; u < kSumUnroll; ++u) {
         float4 acc = v[0][u];
 #pragma unroll
-        for (int k = 1; k < N; ++k) acc = add4(v[k][u], acc);
+        for (int k = 1; k < N; ++k) acc = add4<kBf16>(v[k][u], acc);
         y4[i + u * step] = acc;
       }
     }
     for (; i < hi; i += step) {
       float4 acc = __ldcg(s4 + i);
 #pragma unroll
-      for (int k = 1; k < N - 1; ++k) acc = add4(__ldcg(s4 + k * e4 + i), acc);
-      y4[i] = add4(__ldcg(o4 + i), acc);
+      for (int k = 1; k < N - 1; ++k)
+        acc = add4<kBf16>(__ldcg(s4 + k * e4 + i), acc);
+      y4[i] = add4<kBf16>(__ldcg(o4 + i), acc);
     }
   } else {
     for (long long i = c.lo + threadIdx.x; i < c.hi; i += step) {
       float acc = __ldcg(slots + i);
 #pragma unroll
-      for (int k = 1; k < N - 1; ++k) acc = __ldcg(slots + k * e + i) + acc;
-      y[i] = __ldcg(own + i) + acc;
+      for (int k = 1; k < N - 1; ++k)
+        acc = add1<kBf16>(__ldcg(slots + k * e + i), acc);
+      y[i] = add1<kBf16>(__ldcg(own + i), acc);
     }
+  }
+}
+
+// sum_range for the ring's n ranks, in f32 or bf16 pairs.
+template <bool kBf16>
+__device__ __forceinline__ void sum_any(const Ctx& c, float* y,
+                                        const float* slots,
+                                        const float* own) {
+  switch (c.n) {
+    case 2: sum_range<2, kBf16>(c, y, slots, own); break;
+    case 3: sum_range<3, kBf16>(c, y, slots, own); break;
+    case 4: sum_range<4, kBf16>(c, y, slots, own); break;
+    case 5: sum_range<5, kBf16>(c, y, slots, own); break;
+    case 6: sum_range<6, kBf16>(c, y, slots, own); break;
+    case 7: sum_range<7, kBf16>(c, y, slots, own); break;
+    default: sum_range<8, kBf16>(c, y, slots, own); break;
   }
 }
 
@@ -477,15 +528,10 @@ __global__ void __launch_bounds__(kThreads)
   c.hi = min(c.hi, c.lo + part);
   const float* slots = region(c, p, c.me);
   const float* own = c.x + c.r * e;
-  switch (n) {
-    case 2: sum_range<2>(c, c.y, slots, own); break;
-    case 3: sum_range<3>(c, c.y, slots, own); break;
-    case 4: sum_range<4>(c, c.y, slots, own); break;
-    case 5: sum_range<5>(c, c.y, slots, own); break;
-    case 6: sum_range<6>(c, c.y, slots, own); break;
-    case 7: sum_range<7>(c, c.y, slots, own); break;
-    default: sum_range<8>(c, c.y, slots, own); break;
-  }
+  if (p.bf16)
+    sum_any<true>(c, c.y, slots, own);
+  else
+    sum_any<false>(c, c.y, slots, own);
   // count this part done (n a call); the last releases range b of every
   // source's slot
   __syncthreads();
@@ -498,11 +544,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The all-reduce's sum of the block's range [c.lo, c.hi) of this rank's
-// chunk: own first, then the N - 1 slots of `slots` (chunk floats apart,
-// written by peers: loads bypass L1), added left to right: acc = own;
-// acc = slot k + acc. Each sum goes to y and on to the N - 1 peers' dst.
-// Every load of an index is in flight before its adds.
-template <int N>
+// chunk (in words): own first, then the N - 1 slots of `slots` (chunk
+// words apart, written by peers: loads bypass L1), added left to right:
+// acc = own; acc = slot k + acc, each add rounded to bf16 with kBf16.
+// Each sum, as rounded, goes to y and on to the N - 1 peers' dst. Every
+// load of an index is in flight before its adds.
+template <int N, bool kBf16>
 __device__ __forceinline__ void reduce_range(const Ctx& c, float* y,
                                              float* const* dst,
                                              const float* slots,
@@ -527,7 +574,7 @@ __device__ __forceinline__ void reduce_range(const Ctx& c, float* y,
       for (int u = 0; u < kSumUnroll; ++u) {
         float4 acc = v[0][u];
 #pragma unroll
-        for (int k = 1; k < N; ++k) acc = add4(v[k][u], acc);
+        for (int k = 1; k < N; ++k) acc = add4<kBf16>(v[k][u], acc);
         y4[i + u * step] = acc;
 #pragma unroll
         for (int k = 0; k < N - 1; ++k)
@@ -538,7 +585,7 @@ __device__ __forceinline__ void reduce_range(const Ctx& c, float* y,
       float4 acc = __ldcg(o4 + i);
 #pragma unroll
       for (int k = 1; k < N; ++k)
-        acc = add4(__ldcg(s4 + (k - 1) * e4 + i), acc);
+        acc = add4<kBf16>(__ldcg(s4 + (k - 1) * e4 + i), acc);
       y4[i] = acc;
 #pragma unroll
       for (int k = 0; k < N - 1; ++k)
@@ -548,11 +595,29 @@ __device__ __forceinline__ void reduce_range(const Ctx& c, float* y,
     for (long long i = c.lo + threadIdx.x; i < c.hi; i += step) {
       float acc = __ldcg(own + i);
 #pragma unroll
-      for (int k = 1; k < N; ++k) acc = __ldcg(slots + (k - 1) * e + i) + acc;
+      for (int k = 1; k < N; ++k)
+        acc = add1<kBf16>(__ldcg(slots + (k - 1) * e + i), acc);
       y[i] = acc;
 #pragma unroll
       for (int k = 0; k < N - 1; ++k) dst[k][i] = acc;
     }
+  }
+}
+
+// reduce_range for the ring's n ranks, in f32 or bf16 pairs.
+template <bool kBf16>
+__device__ __forceinline__ void reduce_any(const Ctx& c, float* y,
+                                           float* const* dst,
+                                           const float* slots,
+                                           const float* own) {
+  switch (c.n) {
+    case 2: reduce_range<2, kBf16>(c, y, dst, slots, own); break;
+    case 3: reduce_range<3, kBf16>(c, y, dst, slots, own); break;
+    case 4: reduce_range<4, kBf16>(c, y, dst, slots, own); break;
+    case 5: reduce_range<5, kBf16>(c, y, dst, slots, own); break;
+    case 6: reduce_range<6, kBf16>(c, y, dst, slots, own); break;
+    case 7: reduce_range<7, kBf16>(c, y, dst, slots, own); break;
+    default: reduce_range<8, kBf16>(c, y, dst, slots, own); break;
   }
 }
 
@@ -605,15 +670,10 @@ __global__ void __launch_bounds__(kThreads) ring_all_reduce_kernel(Params p) {
   const float* slots = region(c, p, c.me);
   const float* own = c.x + c.r * e;
   float* y = c.y + c.r * e;
-  switch (n) {
-    case 2: reduce_range<2>(c, y, dst, slots, own); break;
-    case 3: reduce_range<3>(c, y, dst, slots, own); break;
-    case 4: reduce_range<4>(c, y, dst, slots, own); break;
-    case 5: reduce_range<5>(c, y, dst, slots, own); break;
-    case 6: reduce_range<6>(c, y, dst, slots, own); break;
-    case 7: reduce_range<7>(c, y, dst, slots, own); break;
-    default: reduce_range<8>(c, y, dst, slots, own); break;
-  }
+  if (p.bf16)
+    reduce_any<true>(c, y, dst, slots, own);
+  else
+    reduce_any<false>(c, y, dst, slots, own);
   // count this part done (n a call): its stores to the peers fenced
   // first; the last flags range b to every peer after one more fence
   __syncthreads();
@@ -663,16 +723,18 @@ extern "C" {
 // 3 all-gather, 4 all-to-all). ws: n workspace addresses as mapped in
 // this process (the hop stores into its right neighbour's, the other
 // ops into every peer's). in / out: one address (dist, rank >= 0) or n
-// (loopback, rank < 0). chunk: floats a chunk. nblk: ranges a chunk (2 *
-// nblk blocks a rank for the hop, (2n - 1) * nblk for the all-to-all and
-// the all-gather, n * nblk for the reduce-scatter and the all-reduce).
+// (loopback, rank < 0). chunk: 4-byte words a chunk. nblk: ranges a chunk
+// (2 * nblk blocks a rank for the hop, (2n - 1) * nblk for the all-to-all
+// and the all-gather, n * nblk for the reduce-scatter and the
+// all-reduce). bf16: 1 when the words of an all-reduce or a
+// reduce-scatter hold bf16 pairs (the other ops move bytes: 0).
 // prev_epoch, prev_nblk, region: as Params. The launch goes on `stream`;
 // returns a cudaError_t as int.
 int ring_launch(int device, int op, const unsigned long long* ws,
                 const unsigned long long* in, const unsigned long long* out,
                 int n, int rank, long long chunk, long long stage_off,
                 long long epoch, long long timeout_ns, int nblk, int vec,
-                long long prev_epoch, int prev_nblk, int region,
+                int bf16, long long prev_epoch, int prev_nblk, int region,
                 void* stream) {
   using namespace ring;
   const int blocks_a_rank =
@@ -683,7 +745,8 @@ int ring_launch(int device, int op, const unsigned long long* ws,
       nblk < 1 || nblk > kMaxBlocks || chunk < 1 || epoch < 1 ||
       prev_epoch < 0 || prev_epoch >= epoch || prev_nblk < 0 ||
       prev_nblk > kMaxBlocks || (prev_nblk > 0) != (prev_epoch > 0) ||
-      region < 0 || region > 1)
+      region < 0 || region > 1 || bf16 < 0 || bf16 > 1 ||
+      (bf16 && op != kAllReduce && op != kReduceScatter))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -702,6 +765,7 @@ int ring_launch(int device, int op, const unsigned long long* ws,
   p.rank = rank;
   p.nblk = nblk;
   p.vec = vec;
+  p.bf16 = bf16;
   p.prev_epoch = prev_epoch;
   p.prev_nblk = prev_nblk;
   p.region = region;

@@ -80,6 +80,9 @@ struct Params {
                                 // (2n - 1) * nblk; reduce-scatter,
                                 // all-reduce: n * nblk)
   int vec;                      // 1: 16-byte aligned, chunk % 4 == 0
+  int bf16;                     // 1: the all-reduce's and the
+                                // reduce-scatter's words hold bf16 pairs
+                                // (their sums round to bf16 each add)
   // the landing region of this call (0 data, 1 staging; the all-reduce
   // gathers in the other one), and the epoch of the last call whose
   // slots there peers release (0: none) and that call's ranges a chunk

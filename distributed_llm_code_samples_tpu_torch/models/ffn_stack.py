@@ -62,11 +62,24 @@ def params_size_gb(params) -> float:
     return 4 * params.num_params() / (1024 ** 3)
 
 
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """A fresh tensor of the array ``a``'s values in its own type. numpy
+    has no bf16: a bf16 array (``ml_dtypes.bfloat16``, what ``np.asarray``
+    of a JAX bf16 array gives) arrives as its uint16 bits, viewed as bf16,
+    so every bit is kept."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
 def ffn_params_from_numpy(tree, device="cpu") -> FFNStackParams:
     """The port's parameters from the JAX ``FFNStackParams`` as numpy
-    arrays: ``tree`` is an object or mapping with ``w1`` and ``w2``."""
+    arrays, each in its own type (f32, or bf16 bit for bit): ``tree`` is
+    an object or mapping with ``w1`` and ``w2``."""
     def t(name):
         a = tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+        return tensor_from_numpy(a, device)
 
     return FFNStackParams(t("w1"), t("w2"))

@@ -140,13 +140,17 @@ def load_library(name: str) -> ctypes.CDLL:
 
 # The storage types each kernel takes: float32, and bf16 where listed
 # (the ring all-gather moves bytes; the flash kernels read bf16 tiles for
-# the LM's mixed trunk). bf16 sums in the other ring kernels and bf16
-# storage in the FFN kernels come with the --dtype bfloat16 slice.
-DTYPES = {"ring_all_gather": (torch.float32, torch.bfloat16),
-          "flash_attn_fwd": (torch.float32, torch.bfloat16),
-          "flash_attn_bwd": (torch.float32, torch.bfloat16)}
-_NEXT = "bf16 storage for it comes with the --dtype bfloat16 slice " \
-        "(ROADMAP.md Queue 1)"
+# the LM's mixed trunk; the FFN kernels and the ring all-reduce and
+# reduce-scatter take the FFN stack's --dtype bfloat16). bf16 storage in
+# the fused head, the hop and the all-to-all comes with the slice that
+# gives the LM, transformer and MoE methods --dtype bfloat16.
+_BOTH = (torch.float32, torch.bfloat16)
+DTYPES = {name: _BOTH for name in (
+    "ring_all_gather", "ring_all_reduce", "ring_reduce_scatter",
+    "flash_attn_fwd", "flash_attn_bwd", "ffn_fwd", "ffn_bwd_dx",
+    "ffn_bwd_dw")}
+_NEXT = "bf16 storage for it comes with the --dtype bfloat16 slice of " \
+        "the LM, transformer and MoE methods (ROADMAP.md Queue 1)"
 
 
 def on_card(name: str, *tensors) -> bool:

@@ -16,6 +16,13 @@ the differential mode); the JAX compiled path defaults it on. The
 kernels sum in another order than the plain versions, so the two agree
 to rounding, not bit for bit; each kernel is bit-for-bit deterministic
 from run to run.
+
+On bf16 tensors (``--dtype bfloat16``, all operands bf16) each function
+computes what the Pallas kernels compute on bf16 arrays: that operand
+mode, whatever ``mxu_bf16`` says, and bf16 outputs, each element rounded
+once from its f32 sum (``pallas_ffn.py:126, 187, 246-247``). The kernels
+copy the bf16 operands into f32 scratch, exactly, and count their
+launches as ``<name>[bf16]``.
 """
 
 from __future__ import annotations
@@ -32,6 +39,11 @@ def _op(t: torch.Tensor, mxu_bf16: bool) -> torch.Tensor:
     return t.to(torch.bfloat16).float() if mxu_bf16 else t
 
 
+def _bf16(x: torch.Tensor, mxu_bf16: bool) -> bool:
+    """The operand mode of a call on ``x``: bf16 storage implies it."""
+    return mxu_bf16 or x.dtype == torch.bfloat16
+
+
 def _mask(h, da):
     return torch.where(h <= 0, torch.zeros((), dtype=da.dtype,
                                            device=da.device), da)
@@ -42,26 +54,29 @@ def _mask(h, da):
 def ffn_fwd_ref(w1, w2, x, *, mxu_bf16: bool = False):
     """``relu(x w1^T) w2^T``; ``w1 [ffn, d]``, ``w2 [d, ffn]``,
     ``x [T, d]`` -> ``[T, d]``."""
-    h = _op(x, mxu_bf16) @ _op(w1, mxu_bf16).T
-    return _op(relu_fwd(h), mxu_bf16) @ _op(w2, mxu_bf16).T
+    mx = _bf16(x, mxu_bf16)
+    h = _op(x, mx) @ _op(w1, mx).T
+    return (_op(relu_fwd(h), mx) @ _op(w2, mx).T).to(x.dtype)
 
 
 def ffn_bwd_dx_ref(dy, w1, w2, x, *, mxu_bf16: bool = False):
     """``dx = where(h <= 0, 0, dy w2) w1`` with ``h = x w1^T``."""
-    w1m = _op(w1, mxu_bf16)
-    h = _op(x, mxu_bf16) @ w1m.T
-    da = _op(dy, mxu_bf16) @ _op(w2, mxu_bf16)
-    return _op(_mask(h, da), mxu_bf16) @ w1m
+    mx = _bf16(x, mxu_bf16)
+    w1m = _op(w1, mx)
+    h = _op(x, mx) @ w1m.T
+    da = _op(dy, mx) @ _op(w2, mx)
+    return (_op(_mask(h, da), mx) @ w1m).to(x.dtype)
 
 
 def ffn_bwd_dw_ref(dy, w1, w2, x, *, mxu_bf16: bool = False):
     """``(dw1, dw2) = (dh^T x, dy^T relu(h))`` with ``h = x w1^T`` and
     ``dh = where(h <= 0, 0, dy w2)``."""
-    xm, dym = _op(x, mxu_bf16), _op(dy, mxu_bf16)
-    h = xm @ _op(w1, mxu_bf16).T
-    a = _op(relu_fwd(h), mxu_bf16)
-    dh = _op(_mask(h, dym @ _op(w2, mxu_bf16)), mxu_bf16)
-    return dh.T @ xm, dym.T @ a
+    mx = _bf16(x, mxu_bf16)
+    xm, dym = _op(x, mx), _op(dy, mx)
+    h = xm @ _op(w1, mx).T
+    a = _op(relu_fwd(h), mx)
+    dh = _op(_mask(h, dym @ _op(w2, mx)), mx)
+    return (dh.T @ xm).to(x.dtype), (dym.T @ a).to(x.dtype)
 
 
 # -- the kernels -----------------------------------------------------------
@@ -78,6 +93,10 @@ def _check(x, w1, w2, dy=None):
     if dy is not None and dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} must match x "
                          f"{tuple(x.shape)}")
+    types = {t.dtype for t in (x, w1, w2, dy) if t is not None}
+    if len(types) > 1:
+        raise ValueError(f"the operands must share one storage type, got "
+                         f"{sorted(map(str, types))}")
     if min(t, d, ffn) < 1:
         raise ValueError("T, d and ffn must be at least 1")
     return t, d, ffn
@@ -211,8 +230,12 @@ _PARTIALS = {FWD: ("part",), BWD_DX: ("part",), BWD_DW: ("part1", "part2")}
 
 def _launch(name, tensors, pieces, ints, mxu_bf16):
     """Launch ``csrc/<name>.cu`` on ``tensors`` (inputs, then outputs)
-    and the scratch ``pieces``, carved from one ``torch.empty`` buffer; a
-    one-slice plan has no partials, and null pointers take their place."""
+    and the f32 scratch ``pieces``, carved from one ``torch.empty``
+    buffer; a one-slice plan has no partials, and null pointers take
+    their place. The kernel's mode: 0 f32, 1 f32 with bf16 operands
+    (``mxu_bf16``), 2 bf16 storage (counted as ``<name>[bf16]``)."""
+    bf16 = tensors[0].dtype == torch.bfloat16
+    mode = 2 if bf16 else int(bool(mxu_bf16))
     pieces = dict(pieces)
     scratch = torch.empty(pieces.pop("total"), dtype=torch.float32,
                           device=tensors[0].device)
@@ -220,8 +243,8 @@ def _launch(name, tensors, pieces, ints, mxu_bf16):
     ptrs = [t.data_ptr() for t in tensors]
     ptrs += [base + 4 * off for _, off in pieces.values()]
     ptrs += [0 for part in _PARTIALS[name] if part not in pieces]
-    _build.launch(name, f"{name}_launch", ptrs,
-                  (*ints, int(bool(mxu_bf16))), tensors[0].device, name)
+    _build.launch(name, f"{name}_launch", ptrs, (*ints, mode),
+                  tensors[0].device, name + "[bf16]" if bf16 else name)
 
 
 def ffn_fwd_fused(w1, w2, x, *, mxu_bf16: bool = False):

@@ -25,7 +25,10 @@ point-to-point (``*_ref``). There is no fallback from a kernel to the
 plain version or to NCCL. ``loopback_ref`` computes the same results over
 the n per-rank tensors of one process, the plain version of a loopback
 call. The kernels and the plain versions add the same f32 pairs in the
-same order, so they agree bit for bit.
+same order, so they agree bit for bit; on bf16 tensors (``--dtype
+bfloat16``) the all-reduce and the reduce-scatter round each add to
+bf16, in that order on both sides, as the Pallas kernels' adds on bf16
+refs do.
 
 The kernels store into peers' workspaces, never into peers' tensors
 (PyTorch's allocator does not map them to other processes): a
@@ -100,7 +103,7 @@ def _lib():
     if lib.ring_launch.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ring_launch.argtypes = [i, i, vp, vp, vp, i, i, ll, ll, ll, ll,
-                                    i, i, ll, i, i, vp]
+                                    i, i, i, ll, i, i, vp]
         for fn, args in (("ring_ws_alloc", [i, ll, vp]),
                          ("ring_ws_free", [i, vp]),
                          ("ring_ws_handle", [i, vp, vp]),
@@ -444,25 +447,33 @@ def _chunk(op: str, numel: int, n: int) -> int:
     return numel if op in (HOP, ALL_GATHER) else numel // n
 
 
-def _words(ts) -> list:
-    """bf16 tensors as the float32 words of the same bytes (an even number
-    of elements each): the all-gather moves bytes, so its kernel takes
-    them as it takes float32 and the output has the input's bits."""
+def _words(ts, op: str = ALL_GATHER, n: int = 1) -> list:
+    """bf16 tensors as the float32 words of the same bytes: the kernels
+    move 4-byte words, and the sums add the two bf16 elements of each
+    (csrc/ring_collectives.cu), so the output has the bits of the plain
+    version's. Each chunk must hold an even number of elements (a word
+    must not straddle two chunks)."""
     for t in ts:
-        if t.numel() % 2:
-            raise ValueError(f"a bf16 all-gather moves 4-byte words: "
-                             f"{tuple(t.shape)} has an odd number of "
-                             "elements")
+        per = t.numel() // n if op in (ALL_REDUCE, REDUCE_SCATTER) \
+            else t.numel()
+        if per % 2:
+            raise ValueError(f"a bf16 {op} moves 4-byte words: a chunk of "
+                             f"{tuple(t.shape)} over {n} ranks has an odd "
+                             f"number of elements ({per})")
     return [t.reshape(-1).view(torch.float32) for t in ts]
 
 
 def _launch(op: str, ins, outs, ws: PeerWorkspace, rank: int) -> None:
     """One launch over ``ws`` (``rank < 0``: loopback, one input and
-    output a rank); counts one launch of ``op`` (``op[bf16]`` for a bf16
-    all-gather, the one ring op that takes bf16)."""
+    output a rank); counts one launch of ``op``, or of ``op[bf16]`` on bf16
+    tensors (the all-gather's moved as bytes, the all-reduce's and the
+    reduce-scatter's summed in bf16; the hop and the all-to-all take
+    float32 only)."""
     count_as = op
-    if ins[0].dtype == torch.bfloat16:
-        ins, outs, count_as = _words(ins), _words(outs), op + "[bf16]"
+    bf16 = ins[0].dtype == torch.bfloat16
+    if bf16:
+        ins, outs = _words(ins, op, ws.n), _words(outs, op)
+        count_as = op + "[bf16]"
     n = ws.n
     chunk = _chunk(op, ins[0].numel(), n)
     need = workspace_bytes(op, ins[0], n)
@@ -487,7 +498,8 @@ def _launch(op: str, ins, outs, ws: PeerWorkspace, rank: int) -> None:
     rc = _lib().ring_launch(
         ws.index, _OPS[op], ws._table, as_table(ins), as_table(outs), n,
         rank, chunk, ws.stage_off, epoch, int(WAIT_TIMEOUT_S * 1e9), nblk,
-        vec, *prev, region, stream)
+        vec, int(bf16 and op in (ALL_REDUCE, REDUCE_SCATTER)), *prev,
+        region, stream)
     if rc != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
     ws.region_calls, ws.region_last = region_record(

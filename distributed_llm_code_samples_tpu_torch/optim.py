@@ -80,13 +80,15 @@ def tree_tensors(tree) -> list[torch.Tensor]:
 def sgd(params, grads, lr: float = LR):
     """``p - lr * g`` for every tensor of ``params`` (a tuple type such as
     ``FFNStackParams``, or a list of tensors), the JAX ``sgd``'s
-    arithmetic (``lr * g`` rounded to the param dtype, then subtracted).
+    arithmetic: ``lr`` is a weak-typed scalar there, so it takes the
+    param dtype first (0.1 is 0.10009765625 in bf16), then ``lr * g`` is
+    rounded to the param dtype and subtracted.
 
     It updates ``params`` in place and returns it, which saves one copy
     of the parameters; callers that need the old values clone first, as
     ``train_single`` does."""
     for p, g in zip(leaves(params), leaves(grads)):
-        p.sub_(g.to(p.dtype) * lr)
+        p.sub_(g.to(p.dtype) * float(torch.tensor(lr, dtype=p.dtype)))
     return params
 
 

@@ -1,8 +1,9 @@
 """The CUDA kernels of the LM trainer's path (flash attention forward and
 backward; the fused head's statistics and backward), the three FFN
 kernels, the paged decode attention, the ring kernels and the
-all-to-all against their plain versions, on the card (the flash kernels
-and the all-gather also on bf16 storage), and the loopback trainers
+all-to-all against their plain versions, on the card (the flash kernels,
+the FFN kernels, the all-gather, the all-reduce and the reduce-scatter
+also on bf16 storage), and the loopback trainers
 that run them (and TP's, which runs none). Every
 test here needs a CUDA device with nvcc and skips without one. The file
 imports no JAX, so it runs where the card is:
@@ -1261,28 +1262,182 @@ def test_ring_all_gather_bf16_bits_in_loopback(card, n, shape):
 
 @pytest.mark.cuda
 def test_kernels_refuse_bf16_they_do_not_take(card):
-    """No bf16 tensor reaches a kernel that does not take bf16: the other
-    ring ops, the FFN kernels and the fused head raise, naming the slice
-    that brings bf16 to them; a bf16 gather of an odd element count
-    raises too."""
+    """No bf16 tensor reaches a kernel that does not take bf16: the hop,
+    the all-to-all and the fused head's two kernels raise, naming the
+    slice that brings bf16 to them; a bf16 gather of an odd element
+    count, a bf16 all-reduce or reduce-scatter whose chunk has an odd
+    element count, and FFN operands of two storage types raise too."""
     from distributed_llm_code_samples_tpu_torch.ops import ring
     ws = ring.PeerWorkspace(1 << 16, "cuda", n=2)
     try:
         xs = [torch.ones(8, 4, device="cuda", dtype=torch.bfloat16)
               for _ in range(2)]
-        for op in (ring.ALL_REDUCE, ring.REDUCE_SCATTER, ring.HOP,
-                   ring.ALL_TO_ALL):
+        for op in (ring.HOP, ring.ALL_TO_ALL):
             with pytest.raises(ValueError, match="--dtype bfloat16"):
                 ring.loopback(op, xs, ws)
         with pytest.raises(ValueError, match="odd"):
             ring.loopback(ring.ALL_GATHER, [torch.ones(3, device="cuda",
                                                        dtype=torch.bfloat16)
                                             for _ in range(2)], ws)
+        for op in (ring.ALL_REDUCE, ring.REDUCE_SCATTER):
+            with pytest.raises(ValueError, match="odd"):
+                ring.loopback(op, [torch.ones(2, 3, device="cuda",
+                                              dtype=torch.bfloat16)
+                                   for _ in range(2)], ws)
     finally:
         ws.close()
-    w1, w2, x, _ = (t.bfloat16() for t in ffn_case((64, 32, 128)))
-    with pytest.raises(ValueError, match="--dtype bfloat16"):
-        p_ff.ffn_fwd_fused(w1, w2, x)
+    w1, w2, x, _ = ffn_case((64, 32, 128))
+    with pytest.raises(ValueError, match="one storage type"):
+        p_ff.ffn_fwd_fused(w1.bfloat16(), w2.bfloat16(), x)
     h, w, t = head_case((16, 8, 40))
     with pytest.raises(ValueError, match="--dtype bfloat16"):
         p_fx.head_xent_stats(h.bfloat16(), w.bfloat16(), t)
+    lse, _ = p_fx.head_xent_stats_ref(h, w, t)
+    with pytest.raises(ValueError, match="--dtype bfloat16"):
+        p_fx.head_xent_bwd(torch.tensor(1.0, device="cuda"), h.bfloat16(),
+                           w.bfloat16(), t, lse)
+
+
+# -- bf16 storage in the FFN kernels and the ring sums (--dtype bfloat16) ---
+#
+# The FFN kernels on bf16 operands run their bf16-operand mode on copies
+# widened to f32 and round each output element once; the plain version
+# does the same in another order of f32 sums, so the two agree within a
+# bf16 step of the output's largest element over TOL[True]. The ring
+# sums round to bf16 after every add in the plain version's order: bit
+# for bit. Shapes for the rings keep each chunk an even number of
+# elements: the slice one, a ragged one (chunks of 140 elements, 70
+# words: the scalar path), one of several ranges (25050 elements, 12525
+# words) and an aligned one (30000 elements).
+
+BF16_STEP = 2 ** -8
+BF16_RING_SHAPES = {"slice": (256, 768), "ragged": (7, 5, 4),
+                    "ranged": (25, 1002), "aligned": (30, 1000)}
+FFN_BF16 = dict(FFN_FNS, dw=(p_ff.BWD_DW, p_ff.ffn_bwd_dw_fused,
+                             p_ff.ffn_bwd_dw_ref))
+
+
+def bf16_bits(a, b):
+    return a.dtype == b.dtype == torch.bfloat16 and torch.equal(
+        a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DW_SHAPES)
+@pytest.mark.parametrize("kernel", sorted(FFN_BF16))
+def test_ffn_kernels_bf16_storage_match_plain(card, kernel, shape):
+    """Each FFN kernel on bf16 x, dy, w1 and w2 (the main, ragged and
+    small shapes, and one with no dim a multiple of 4): bf16 outputs,
+    two calls bit-equal, within (TOL[True] + one bf16 step) of the largest
+    plain output, counted as ``<name>[bf16]`` and never as ``<name>``."""
+    name, kern, plain = FFN_BF16[kernel]
+    w1, w2, x, dy = (t.bfloat16() for t in ffn_case(shape))
+    counts = _build.launch_counts()
+    got = kern(dy, w1, w2, x)
+    again = kern(dy, w1, w2, x)
+    after = _build.launch_counts()
+    assert after[name + "[bf16]"] == counts.get(name + "[bf16]", 0) + 2
+    assert after.get(name, 0) == counts.get(name, 0)
+    tup = (lambda v: v if isinstance(v, tuple) else (v,))
+    agree_bf16(tup(got), tup(again), tup(plain(dy, w1, w2, x)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(FFN_BF16))
+def test_ffn_bf16_kernels_take_weights_that_are_not_16_byte_aligned(
+        card, kernel):
+    """bf16 weights one element (2 bytes) into their storage give the
+    same bits as aligned ones: the kernels read them only through the
+    f32 copies."""
+    _, kern, _ = FFN_BF16[kernel]
+    w1, w2, x, dy = (t.bfloat16() for t in ffn_case((300, 64, 256)))
+    w1s = torch.empty(w1.numel() + 1, device="cuda",
+                      dtype=torch.bfloat16)[1:].view_as(w1)
+    w2s = torch.empty(w2.numel() + 1, device="cuda",
+                      dtype=torch.bfloat16)[1:].view_as(w2)
+    w1s.copy_(w1)
+    w2s.copy_(w2)
+    assert w1s.data_ptr() % 16 and w2s.data_ptr() % 16
+    tup = (lambda v: v if isinstance(v, tuple) else (v,))
+    for g, w in zip(tup(kern(dy, w1s, w2s, x)), tup(kern(dy, w1, w2, x))):
+        assert bf16_bits(g, w)
+
+
+@pytest.mark.cuda
+def test_ffn_f32_bits_unchanged_beside_bf16(card):
+    """An f32 call of each FFN kernel (both operand modes, through the
+    partials: three token slices for the weight gradients) gives the
+    same bits before and after bf16 calls of the same kernels."""
+    w1, w2, x, dy = ffn_case((1000, 200, 520))
+    tup = (lambda v: v if isinstance(v, tuple) else (v,))
+
+    def run(args):
+        return [o.clone() for mx in (False, True)
+                for _, kern, _ in FFN_BF16.values()
+                for o in tup(kern(*args, mxu_bf16=mx))]
+
+    before = run((dy, w1, w2, x))
+    run(tuple(t.bfloat16() for t in (dy, w1, w2, x)))
+    for a, b in zip(before, run((dy, w1, w2, x))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(BF16_RING_SHAPES))
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("op", ["ring_all_reduce", "ring_reduce_scatter"])
+def test_ring_bf16_sums_bits_in_loopback(card, op, n, shape):
+    """The all-reduce and the reduce-scatter of bf16 tensors: every
+    partial sum rounded to bf16 in the ring's order, bit for bit the
+    plain version's, two calls bit-equal, bf16 out, counted as
+    ``<op>[bf16]``."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    xs = [x.bfloat16() for x in ring_inputs(op, n, BF16_RING_SHAPES[shape])]
+    ws = ring.PeerWorkspace(max(ring.workspace_bytes(op, xs[0], n), 1),
+                            "cuda", n=n)
+    try:
+        counts = _build.launch_counts()
+        got = ring.loopback(op, xs, ws)
+        again = ring.loopback(op, xs, ws)
+        after = _build.launch_counts()
+        assert after[op + "[bf16]"] == counts.get(op + "[bf16]", 0) + 2
+        assert after.get(op, 0) == counts.get(op, 0)
+        ws.check()
+        for g, a, w in zip(got, again, ring.loopback_ref(op, xs)):
+            assert g.shape == w.shape
+            assert bf16_bits(g, w) and bf16_bits(a, w)
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_bf16_sums_in_sequence_with_f32_calls(card, n):
+    """bf16 all-reduces and reduce-scatters mixed into a sequence of f32
+    and bf16 calls of every ring op on one workspace (the landing regions
+    in turn, DDP's dw1 and dw2 of the main path among them): every
+    output bit-identical to its plain version."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    rng = np.random.default_rng(70 + n)
+    bf, f32 = torch.bfloat16, torch.float32
+    seq = ((ring.ALL_REDUCE, (n * 768, 768), bf),
+           (ring.ALL_GATHER, (6, 34), bf),
+           (ring.REDUCE_SCATTER, (n * 64, 48), bf),
+           (ring.HOP, (5, 7), f32), (ring.ALL_REDUCE, (n * 4, 34), f32),
+           (ring.ALL_REDUCE, (n * 4, 34), bf),
+           (ring.REDUCE_SCATTER, (n * 5, 8), f32),
+           (ring.ALL_TO_ALL, (n * 3, 101), f32),
+           (ring.REDUCE_SCATTER, (n * 192, 3072), bf),
+           (ring.ALL_REDUCE, (3072, 768), bf),
+           (ring.ALL_REDUCE, (768, 3072), bf))
+    ws = ring.PeerWorkspace(4 * 3072 * 768, "cuda", n=n)
+    try:
+        for i, (op, shape, dtype) in enumerate(seq + seq):
+            xs = [normal(rng, *shape).to(dtype) for _ in range(n)]
+            got = ring.loopback(op, xs, ws)
+            for g, w in zip(got, ring.loopback_ref(op, xs)):
+                assert g.dtype == dtype and torch.equal(
+                    g.view(torch.int16), w.view(torch.int16)), (i, op)
+        ws.check()
+    finally:
+        ws.close()

@@ -181,7 +181,8 @@ def test_a_spawned_rank_imports_no_jax():
     assert [o[1] for o in outs] == [[], []]
 
 
-@pytest.mark.parametrize("module", ["torch_tp_ranks", "torch_dp_ranks"])
+@pytest.mark.parametrize("module", ["torch_tp_ranks", "torch_dp_ranks",
+                                    "torch_bf16_ranks"])
 def test_rank_body_modules_import_no_jax(module):
     """The tests' rank bodies, which spawned ranks import by name, load
     the port alone: imported where JAX cannot be, they bring in neither

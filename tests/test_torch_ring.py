@@ -11,13 +11,16 @@ gets the same numpy block as the JAX device of its index.
 Tolerance: none. The hop and the gather are copies, and each sum adds
 the same f32 pairs in the same ring order on both sides (rank r adds its
 own chunk ``(r - s - 1) % n`` to the partial that arrived at step s), so
-the results are equal bit for bit.
+the results are equal bit for bit. The bf16 cases (``--dtype bfloat16``)
+add bf16 pairs in that order, each partial sum rounded to bf16 on both
+sides (the Pallas kernels add on bf16 refs): bit for bit as well.
 """
 
 import functools
 import zlib
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -41,11 +44,37 @@ CASES = [
     ("all_gather", "ring_all_gather", (4, 32)),
     ("all_gather_3d", "ring_all_gather", (2, 3, 5)),
 ]
+# the same ops on bf16 blocks: the sums round every add (an even element
+# count a chunk), the gather moves the bits
+BF16_CASES = [
+    ("all_reduce_bf16", "ring_all_reduce", (16, 32)),
+    ("all_reduce_3d_bf16", "ring_all_reduce", (8, 4, 8)),
+    ("reduce_scatter_bf16", "ring_reduce_scatter", (16, 32)),
+    ("reduce_scatter_3d_bf16", "ring_reduce_scatter", (8, 4, 6)),
+    ("all_gather_bf16", "ring_all_gather", (4, 32)),
+]
 
 
 def _blocks(case, shape):
     rng = np.random.default_rng(zlib.crc32(case.encode()))
-    return rng.normal(size=(N,) + shape).astype(np.float32)
+    out = rng.normal(size=(N,) + shape).astype(np.float32)
+    if case.endswith("_bf16"):    # bf16 values, widened exactly
+        out = np.asarray(jnp.asarray(out, jnp.bfloat16)).astype(np.float32)
+    return out
+
+
+def _as_port(case, block):
+    t = torch.from_numpy(block)
+    return t.bfloat16() if case.endswith("_bf16") else t
+
+
+def _bits(case, a):
+    """An output's bits: the f32 values, or the bf16 words as int16."""
+    if not case.endswith("_bf16"):
+        return np.asarray(a)
+    if isinstance(a, torch.Tensor):
+        return a.view(torch.int16).numpy()
+    return np.asarray(a).view(np.int16)
 
 
 def _identifying():
@@ -60,7 +89,7 @@ def _jax(mesh4, op, blocks):
                            interpret=True)
     f = jax.shard_map(fn, mesh=mesh4, in_specs=P(DATA_AXIS),
                       out_specs=P(DATA_AXIS), check_vma=False)
-    out = np.asarray(f(blocks.reshape((-1,) + blocks.shape[2:])))
+    out = np.asarray(f(jnp.asarray(blocks.reshape((-1,) + blocks.shape[2:]))))
     return out.reshape((N, -1) + out.shape[1:])
 
 
@@ -70,22 +99,28 @@ def port_results():
     spawn: ``{case: [rank 0's output, ...]}``."""
     inputs = {case: _blocks(case, shape) for case, _, shape in CASES}
     inputs["identifying"] = _identifying()
-    ops = {case: op for case, op, _ in CASES}
+    inputs.update((case, _blocks(case, shape))
+                  for case, _, shape in BF16_CASES)
+    ops = {case: op for case, op, _ in CASES + BF16_CASES}
     ops["identifying"] = "ring_all_reduce"
     calls = [(getattr(ring, ops[c]),
-              (PerRank([torch.from_numpy(b) for b in inputs[c]]), MESH), {})
+              (PerRank([_as_port(c, b) for b in inputs[c]]), MESH), {})
              for c in inputs]
     outs = launch(call_each, make_mesh({"data": N}, device="cpu"), calls,
                   timeout=180)
-    return inputs, ops, {c: [outs[r][i].numpy() for r in range(N)]
+    return inputs, ops, {c: [_bits(c, outs[r][i]) for r in range(N)]
                          for i, c in enumerate(inputs)}
 
 
-@pytest.mark.parametrize("case", [c for c, _, _ in CASES] + ["identifying"])
+@pytest.mark.parametrize("case", [c for c, _, _ in CASES] + ["identifying"]
+                         + [c for c, _, _ in BF16_CASES])
 def test_plain_ring_equals_pallas_ring(mesh4, port_results, case):
     inputs, ops, results = port_results
     got = results[case]
-    want = _jax(mesh4, ops[case], inputs[case])
+    blocks = inputs[case]
+    if case.endswith("_bf16"):
+        blocks = jnp.asarray(blocks, jnp.bfloat16)
+    want = _bits(case, _jax(mesh4, ops[case], blocks))
     for r in range(N):
         assert got[r].shape == want[r].shape
         np.testing.assert_array_equal(got[r], want[r])
@@ -109,7 +144,23 @@ def test_loopback_ref_is_the_ring_order(port_results):
     inputs, ops, results = port_results
     for case, blocks in inputs.items():
         want = ring.loopback_ref(ops[case],
-                                 [torch.from_numpy(b) for b in blocks])
+                                 [_as_port(case, b) for b in blocks])
         for r in range(N):
             np.testing.assert_array_equal(results[case][r],
-                                          want[r].numpy())
+                                          _bits(case, want[r]))
+
+
+@pytest.mark.parametrize("case", ["all_reduce_bf16",
+                                  "reduce_scatter_bf16"])
+def test_bf16_ring_rounds_every_add(port_results, case):
+    """The control: the bf16 sums in f32, rounded once, differ from the
+    ring's in some elements, so the bit-for-bit checks above tell a ring
+    that rounds every add from one that does not."""
+    inputs, ops, results = port_results
+    once = torch.from_numpy(inputs[case].sum(0)).bfloat16()
+    if ops[case] == "ring_reduce_scatter":
+        once = once.chunk(N)
+    else:
+        once = [once] * N
+    assert any((results[case][r] != once[r].view(torch.int16).numpy()).any()
+               for r in range(N))

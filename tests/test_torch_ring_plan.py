@@ -64,7 +64,7 @@ def _receiver_model(xs, loopback: bool):
         for j in range(n):
             if j != r:
                 slots[(j - r) % n - 1] = parts[j][r]
-        y = torch.empty(chunk)
+        y = torch.empty(chunk, dtype=parts[0].dtype)
         for lo, hi in _ranges(chunk, ring._rs_ranges(chunk, n, loopback)):
             # n blocks sum a range, each its n-th, each element in order
             for a, z in _ranges(hi - lo, n, lo):
@@ -87,9 +87,9 @@ def _all_reduce_model(xs, loopback: bool):
     # r; its gather region: slot s holds rank s's summed chunk s
     slots = [[parts[(r + k) % n][r] for k in range(1, n)] for r in range(n)]
     gather = [[None] * n for _ in range(n)]
-    outs = [torch.empty(n, chunk) for _ in range(n)]
+    outs = [torch.empty(n, chunk, dtype=parts[0].dtype) for _ in range(n)]
     for r in range(n):
-        summed = torch.full((chunk,), float("nan"))
+        summed = torch.full((chunk,), float("nan"), dtype=parts[0].dtype)
         for lo, hi in ranges:
             # n blocks sum a range, each its n-th, own copy first
             for a, z in _ranges(hi - lo, n, lo):
@@ -225,6 +225,14 @@ SEQUENCES = {
     "fsdp_bf16": [ring.HOP] + [ring.ALL_GATHER] * 6 + [
         ring.ALL_GATHER, ring.ALL_GATHER, ring.REDUCE_SCATTER,
         ring.REDUCE_SCATTER] * 3,
+    # --dtype bfloat16: bf16 all-reduces and reduce-scatters are the
+    # launches of their words too, mixed here with f32 calls of every op
+    # as the card test's sequence mixes them
+    # (test_ring_bf16_sums_in_sequence_with_f32_calls)
+    "dtype_bf16": [ring.ALL_REDUCE, ring.ALL_GATHER, ring.REDUCE_SCATTER,
+                   ring.HOP, ring.ALL_REDUCE, ring.ALL_REDUCE,
+                   ring.REDUCE_SCATTER, ring.ALL_TO_ALL,
+                   ring.REDUCE_SCATTER, ring.ALL_REDUCE, ring.ALL_REDUCE] * 2,
 }
 
 
@@ -614,3 +622,42 @@ def test_bf16_gather_is_the_float32_gather_of_its_words():
         assert out.dtype == torch.bfloat16
         assert torch.equal(out.view(torch.int16),
                            torch.cat(xs).view(torch.int16))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_bf16_sums_are_the_launches_of_their_words(mesh4, n):
+    """A bf16 all-reduce or reduce-scatter hands the kernel the float32
+    words of its bytes (each chunk an even element count, or it is
+    refused), as the gather does: the same workspace bytes and region
+    bookkeeping. The receivers' order written out on bf16 (every add
+    rounded) gives the plain ring's bits and, at n = 4, those of the
+    Pallas rings in interpret mode on bf16."""
+    import jax.numpy as jnp
+    x = torch.randn(n * 768, 768).bfloat16()
+    for op in (ring.ALL_REDUCE, ring.REDUCE_SCATTER):
+        w = ring._words([x], op, n)[0]
+        assert w.dtype == torch.float32 and w.data_ptr() == x.data_ptr()
+        assert w.numel() % n == 0
+        assert ring.workspace_bytes(op, x, n) == \
+            ring.workspace_bytes(op, w, n)
+        with pytest.raises(ValueError, match="odd"):
+            ring._words([torch.zeros(n, 3, dtype=torch.bfloat16)], op, n)
+    xs = [t.bfloat16() for t in _inputs(n, SHAPES["vectorised"], 13)]
+    models = {ring.REDUCE_SCATTER: _receiver_model,
+              ring.ALL_REDUCE: _all_reduce_model}
+    for op, model in models.items():
+        got = model(xs, loopback=False)
+        for g, w in zip(got, ring.loopback_ref(op, xs)):
+            assert g.dtype == torch.bfloat16
+            assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+        if n == 4:
+            fn = functools.partial(getattr(jr, op), axis_name=DATA_AXIS,
+                                   interpret=True)
+            f = jax.shard_map(fn, mesh=mesh4, in_specs=P(DATA_AXIS),
+                              out_specs=P(DATA_AXIS), check_vma=False)
+            want = np.asarray(f(jnp.asarray(
+                torch.cat(xs).float().numpy(), jnp.bfloat16)))
+            want = want.view(np.int16).reshape((n, -1) + want.shape[1:])
+            for r, g in enumerate(got):
+                np.testing.assert_array_equal(g.view(torch.int16).numpy(),
+                                              want[r])
