@@ -20,8 +20,11 @@
                                            # the hybrid of the LM and the
                                            # transformer, 4 virtual ranks
     python3 chip_smoke.py --phase bf16     # --dtype bfloat16: the FFN
-                                           # kernels and ring sums on bf16,
-                                           # the FFN stack's training
+                                           # kernels, the head, the ring
+                                           # sums, hop and all-to-all on
+                                           # bf16; the FFN stack's, the
+                                           # LM's, the transformer's and
+                                           # the MoE stack's training
     python3 chip_smoke.py --phase dist     # ring, DDP/FSDP, all-to-all,
                                            # EP, TP, the hybrid, LM TP,
                                            # cli.py -m 0, 8, 11 and LM DP
@@ -33,7 +36,9 @@
                                              # transformer DDP, FSDP and
                                              # hybrid alone
     python3 chip_smoke.py --phase dist-bf16  # --phase dist's bf16 ring
-                                             # sums and -m 0 in bf16 alone
+                                             # sums, hop, all-to-all, EP,
+                                             # LM TP and -m 0, 7, 8, 11 in
+                                             # bf16 alone
 
 Builds every kernel of the port from ``csrc/`` (printing ptxas's spill
 counts as ``ptxas-spills``), holds each against its plain PyTorch
@@ -157,7 +162,30 @@ each split size, ``paged-splits``), then drives the port's paths:
   within two steps). ``--phase dist`` and ``dist-bf16`` hold the bf16
   sums across the 4 cards against the plain ring and NCCL's bf16 calls
   (``dist-bf16-kernel-case``) and run ``cli.py -m 0 --dtype bfloat16
-  --strict --comm pallas_ring`` (``dist-cli-m0-bf16``).
+  --strict --comm pallas_ring`` (``dist-cli-m0-bf16``);
+- ``--dtype bfloat16`` of the LM, transformer and MoE methods (``--phase
+  bf16`` too): the fused head's two kernels on bf16 storage at the LM
+  shape and on one TP rank's vocab shard against float64 (the
+  statistics within ``FFN_TOL``, the gradients within one bf16 step in
+  at most ``BF16_SHARE`` of them, each with a control that must fail)
+  and their plain versions, timed beside the f32 kernel on the same
+  values (``lm-bf16-head-case``); the hop and the all-to-all of bf16 in
+  loopback bit for bit at the hop's block, EP's dispatch operand and an
+  odd element count (``lm-bf16-move-case``); ``train_lm_single`` on bf16
+  params at the LM shape under flash and the fused head, ``train_lm_tp``
+  (flash, fused head) and ``train_transformer_tp`` (flash) on 4 virtual
+  ranks, and ``train_moe_ep`` at the EP headline under ``pallas_a2a``
+  and ``psum``, 8 steps each with exact launches (``lm-bf16-train-run``);
+  ``lm-bf16-train-check`` (one fused-head step at ``CHECK_LR`` against
+  float64 over the bf16 oracle path's error; EP's two transports' routes
+  and weights bit for bit). ``--phase dist`` and ``dist-bf16`` hold the
+  bf16 hop and all-to-all across the 4 cards against the plain versions
+  and NCCL's ``all_to_all_single`` (``dist-lm-bf16-move-case``), run EP
+  (``dist-lm-bf16-ep-run``, ``-check``) and LM TP
+  (``dist-lm-bf16-tp-run``) on bf16 one rank a card, and ``cli.py -m 11
+  --head fused --attn flash``, ``-m 8 --attn flash`` and ``-m 7`` with
+  ``--dtype bfloat16`` at their full widths (``dist-cli-m11-bf16``,
+  ``dist-cli-m8-bf16``, ``dist-cli-m7-bf16``).
 
 It fails (exit code 1) if there is no CUDA device, if a kernel does not
 build, launch or agree, if a kernel path did not go through its
@@ -4893,6 +4921,676 @@ def dist_bf16_rank(mesh, payload):
     return cases
 
 
+# -- --dtype bfloat16 of the LM, transformer and MoE methods -----------------
+
+# the bf16 forms of this slice: (name, source, the TPU kernel)
+LM_BF16_KERNELS = (
+    ("head_xent_stats[bf16]", "head_xent_fwd.cu", "ops/pallas_xent.py:186"),
+    ("head_xent_bwd[bf16]", "head_xent_bwd.cu", "ops/pallas_xent.py:245"),
+    ("ppermute_dma[bf16]", "ring_collectives.cu", "ops/pallas_ring.py:151"),
+    ("all_to_all_dma[bf16]", "ring_collectives.cu", A2A_REPLACES))
+# the head on bf16 storage: (tag, N, d, V, target shift) at the LM's shape
+# and on one TP rank's vocab shard (rank 1's 12576 rows: the targets
+# shifted by its first row, three in four of them outside the shard)
+LM_BF16_HEAD_SHAPES = (
+    ("main", LM_TOKENS, LM["d_model"], LM["vocab"], 0),
+    ("shard", LM_TOKENS, LM["d_model"], LM["vocab"] // LMTP_N,
+     LM["vocab"] // LMTP_N))
+# the hop and the all-to-all on bf16 in loopback, bit for bit: (op, tag,
+# per-rank shape) at the hop's main block and EP's dispatch operand, and
+# one whose chunk holds an odd element count (105 and 15; they move
+# through copies padded by one element a chunk)
+LM_BF16_MOVE_CASES = (
+    ("ppermute_dma", "block", (D_MODEL, FFN_DIM)),
+    ("ppermute_dma", "odd", (3, 5, 7)),
+    ("all_to_all_dma", "dispatch", (EP["n_experts"], EP_CAP, EP["d_model"])),
+    ("all_to_all_dma", "odd", (EP_N, 3, 5)))
+LM_BF16_MOVE_MAIN = {"ppermute_dma": "block", "all_to_all_dma": "dispatch"}
+# a workspace with room for the largest of these cases in f32 (the f32
+# call beside each bf16 one)
+LM_BF16_MOVE_BYTES = max(4 * EP["n_experts"] * EP_CAP * EP["d_model"],
+                         4 * D_MODEL * FFN_DIM)
+# the bf16 EP runs' LR: at the package's 1e-5 no bf16 weight of 0.02
+# moves (its step is 2^-13), so two runs would agree trivially; 1e-4
+# moves them and stays finite (1e-3 overflows within 8 steps on an
+# NVIDIA H100)
+LM_BF16_EP_LR = 1e-4
+def head_bf16_bound(name, n, d, v):
+    """Least time of one head call on bf16 storage: its flops (one product
+    for the statistics, three for the backward) at the bf16 tensor-core
+    rate (``bound_ms``) and at the f32 rate of the CUDA cores its
+    products run on (``bound_f32_ms``), against the bytes it must move:
+    h and w (and dh, dw) 2 bytes an element, targets, lse and tz 4."""
+    stats = name.startswith("head_xent_stats")
+    flops = (2 if stats else 6) * n * d * v
+    nbytes = (2 * (n * d + v * d) + 12 * n if stats
+              else 4 * (n * d + v * d) + 8 * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bf16 = flops / BF16_FLOPS_PER_S * 1e3
+    return (max(t_bf16, t_bytes), "operations" if t_bf16 >= t_bytes
+            else "bytes", max(flops / F32_FLOPS_PER_S * 1e3, t_bytes))
+
+
+def head_bf16_want(torch, stats, h, w, tgt, lse=None, control=False):
+    """The head's outputs in float64 on the bf16 ``h``, ``w``: the
+    statistics (``stats``) of the exact logits, or the backward as the
+    kernels compute it, ``dz`` rounded to bf16 before the products. The
+    controls that must fail: the statistics of the logits rounded to bf16
+    (what the plain version computed on bf16 before this slice), the
+    backward with ``dz`` not rounded."""
+    h64, w64 = h.double(), w.double()
+    z = h64 @ w64.T
+    n, v = z.shape
+    t = tgt.long()
+    valid = (t >= 0) & (t < v)
+    if stats:
+        if control:
+            z = z.to(torch.bfloat16).double()
+        m = z.amax(dim=-1, keepdim=True)
+        lse64 = (m + (z - m).exp().sum(dim=-1, keepdim=True).log())[:, 0]
+        tz = z.gather(-1, torch.where(valid, t, 0)[:, None])[:, 0]
+        return lse64, torch.where(valid, tz, torch.zeros_like(tz))
+    p = z.sub_(lse.double()[:, None]).exp_()
+    rows = valid.nonzero()[:, 0]
+    p[rows, t[rows]] -= 1.0
+    dz = p.div_(n)
+    if not control:
+        dz = dz.to(torch.bfloat16).double()
+    return dz @ w64, dz.T @ h64
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, the largest of the outputs."""
+    return max(float((g.double() - w.double()).abs().max())
+               / max(float(w.double().abs().max()), 1e-300)
+               for g, w in zip(got, want))
+
+
+def lm_bf16_kernel_phase(torch, np, timer):
+    """The bf16 forms of this slice's kernels on the card: the head's
+    statistics and backward at ``LM_BF16_HEAD_SHAPES`` against float64
+    (``FFN_TOL`` for the f32 statistics; the bf16 gradients within one
+    bf16 step in at most ``BF16_SHARE`` of them; each with a control that
+    must fail) and against the plain version on the card, timed beside
+    the f32 kernel on the same values (``lm-bf16-head-case``); the hop
+    and the all-to-all of bf16 in loopback at ``LM_BF16_MOVE_CASES``, bit
+    for bit against their plain versions, timed beside the f32 call
+    (``lm-bf16-move-case``)."""
+    from distributed_llm_code_samples_tpu_torch.ops import fused_xent as fx
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    tol = FFN_TOL[False]
+    rows = []
+    for k, (tag, n, d, v, shift) in enumerate(LM_BF16_HEAD_SHAPES):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(760 + k)
+        h = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+        w = (0.02 * torch.randn(v, d, generator=gen,
+                                device="cuda")).bfloat16()
+        tgt = torch.randint(0, LM["vocab"], (n,), generator=gen,
+                            device="cuda") - shift
+        tgt[-1] = v - 1                          # the last column
+        dy = torch.tensor(1.0, device="cuda")
+        lse = fx.head_xent_stats_ref(h, w, tgt)[0]
+        forms = (
+            ("head_xent_stats[bf16]",
+             partial(fx.head_xent_stats, h, w, tgt),
+             partial(fx.head_xent_stats_ref, h, w, tgt),
+             partial(fx.head_xent_stats, h.float(), w.float(), tgt)),
+            ("head_xent_bwd[bf16]",
+             partial(fx.head_xent_bwd, dy, h, w, tgt, lse),
+             partial(fx.head_xent_bwd_ref, dy, h, w, tgt, lse),
+             partial(fx.head_xent_bwd, dy, h.float(), w.float(), tgt, lse)))
+        for name, kern, plain, f32 in forms:
+            stats = name.startswith("head_xent_stats")
+            got, again = kern(), kern()
+            torch.cuda.synchronize()
+            want = plain()
+            want64 = head_bf16_want(torch, stats, h, w, tgt, lse)
+            control64 = head_bf16_want(torch, stats, h, w, tgt, lse,
+                                       control=True)
+            same = all(torch.equal(g.view(torch.int16), a.view(torch.int16))
+                       for g, a in zip(got, again))
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+            out_dtype = torch.float32 if stats else torch.bfloat16
+            dtypes = all(g.dtype == out_dtype for g in got)
+            b_ms, b_by, b32_ms = head_bf16_bound(name, n, d, v)
+            row = dict(kernel=name, shape=tag, dims=[n, d, v],
+                       target_shift=shift,
+                       targets_in_range=float(((tgt >= 0) & (tgt < v))
+                                              .double().mean()),
+                       max_abs_err=max(float((g.double() - x.double()).abs()
+                                             .max())
+                                       for g, x in zip(got, want)),
+                       deterministic=same, out_dtype=str(got[0].dtype))
+            if stats:
+                row.update(rel_err_vs_plain=rel_err(got, want),
+                           rel_err_vs_f64=rel_err(got, want64),
+                           control_rel_err_vs_f64=rel_err(got, control64),
+                           tol=tol)
+                ok = (row["rel_err_vs_plain"] <= tol
+                      and row["rel_err_vs_f64"] <= tol
+                      and row["control_rel_err_vs_f64"] > tol)
+            else:
+                vs_plain = [bf16_steps(torch, g, x.double())
+                            for g, x in zip(got, want)]
+                vs64 = [bf16_steps(torch, g, x) for g, x in zip(got, want64)]
+                ctl = [bf16_steps(torch, g, x)
+                       for g, x in zip(got, control64)]
+                row.update(steps_vs_plain_max=max(s[0] for s in vs_plain),
+                           share_vs_plain=max(s[1] for s in vs_plain),
+                           steps_vs_f64_max=max(s[0] for s in vs64),
+                           share_vs_f64=[s[1] for s in vs64],
+                           control_share_vs_f64=[s[1] for s in ctl],
+                           share_limit=BF16_SHARE)
+                ok = (max(s[0] for s in vs_plain + vs64) <= 1
+                      and max(s[1] for s in vs_plain + vs64) <= BF16_SHARE
+                      and max(s[1] for s in ctl) > BF16_SHARE)
+            ms = timer.ms(kern)
+            row.update(ok=ok and finite and same and dtypes, ms=ms,
+                       f32_ms=timer.ms(f32), plain_ms=timer.ms(plain),
+                       bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b32_ms,
+                       library_ms=None,
+                       tflops_per_s=(2 if stats else 6) * n * d * v / ms
+                       / 1e9)
+            rows.append(row)
+            print("lm-bf16-head-case " + json.dumps(row), flush=True)
+            del got, again, want, want64, control64
+        del h, w, tgt, lse
+
+    ws = ring.PeerWorkspace(LM_BF16_MOVE_BYTES, "cuda", n=RING_N)
+    try:
+        for k, (op, tag, shape) in enumerate(LM_BF16_MOVE_CASES):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(780 + k)
+            xs = [torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                  for _ in range(RING_N)]
+            got = ring.loopback(op, xs, ws)
+            again = ring.loopback(op, xs, ws)
+            torch.cuda.synchronize()
+            ws.check()
+            want = ring.loopback_ref(op, xs)
+            bits = all(g.dtype == torch.bfloat16 and g.shape == w.shape
+                       and torch.equal(g.view(torch.int16),
+                                       w.view(torch.int16))
+                       for g, w in zip(got, want))
+            same = all(torch.equal(g.view(torch.int16), a.view(torch.int16))
+                       for g, a in zip(got, again))
+            moved = not all(torch.equal(g, x) for g, x in zip(got, xs))
+            xs32 = [x.float() for x in xs]
+            b_ms, b_by = ring_loopback_bound(op, 2 * xs[0].numel(), RING_N)
+            row = dict(kernel=op + "[bf16]", shape=tag, dims=list(shape),
+                       ranks=RING_N, mode="loopback",
+                       odd_chunk=ring._odd(op, xs[0], RING_N),
+                       max_abs_err=max(float((g.float() - w.float()).abs()
+                                             .max())
+                                       for g, w in zip(got, want)),
+                       bit_identical=bits, deterministic=same,
+                       control_equal_to_input=not moved,
+                       ok=bits and same and moved,
+                       ms=timer.ms(lambda: ring.loopback(op, xs, ws)),
+                       ms_with_host=timer.ms(lambda: ring.loopback(op, xs,
+                                                                   ws),
+                                             with_host=True),
+                       plain_ms=timer.ms(lambda: ring.loopback_ref(op, xs)),
+                       f32_ms=timer.ms(lambda: ring.loopback(op, xs32, ws)),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            rows.append(row)
+            print("lm-bf16-move-case " + json.dumps(row), flush=True)
+            del xs, xs32, got, again, want
+    finally:
+        ws.close()
+    return rows
+
+
+def lm_bf16_train_phase(torch, np, card):
+    """``--dtype bfloat16`` of the LM, transformer and MoE methods at full
+    width, 8 steps each with exact launches (``lm-bf16-train-run``):
+    ``train_lm_single`` on bf16 params at ``LM`` under flash attention and
+    the fused head; ``train_lm_tp`` (flash, fused head) and
+    ``train_transformer_tp`` (flash) on ``LMTP_N`` loopback ranks;
+    ``train_moe_ep(comm="pallas_a2a")`` at ``EP`` on ``EP_N`` loopback
+    ranks through the kernel and through its plain version
+    (``plain_loopback_calls``), whose routes and final weights must agree
+    bit for bit. Then ``lm-bf16-train-check``: one step of the
+    fused-head LM at ``CHECK_LR`` against a float64 step of the oracle
+    ops, over the bf16 oracle-head path's error (``UPDATE_RATIO``, with
+    unchanged weights as the control). Returns the launches (a rank's for
+    the TP runs)."""
+    from distributed_llm_code_samples_tpu_torch import LR
+    from distributed_llm_code_samples_tpu_torch.data import (
+        make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models import (
+        init_lm, lm_from_leaves, lm_leaves)
+    from distributed_llm_code_samples_tpu_torch.models.moe import (
+        init_moe_stack)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, moe, reset_launch_counts, ring)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        EXPERT_AXIS, MODEL_AXIS, expert, launch, make_mesh, train_lm_single,
+        train_moe_ep)
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    d, layers, steps_n = LM["d_model"], LM["n_layers"], LM["steps"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM["random_seed"])
+    params = init_lm(gen, LM["vocab"], d, layers, LM["seq_len"],
+                     n_heads=LM["n_heads"], dtype=bf)
+    seeds = make_seed_schedule(steps_n, LM["random_seed"])
+    flash = {f"flash_attn_{k}[bf16]": layers * steps_n
+             for k in ("fwd", "dq", "dkv")}
+    head = {"head_xent_stats[bf16]": steps_n, "head_xent_bwd[bf16]": steps_n}
+
+    def report(label, mode, steps, launches, want, flops, extra):
+        med = statistics.median(steps[1:])
+        print("lm-bf16-train-run " + json.dumps(dict(
+            run=label, mode=mode, steps=len(steps), median_step_ms=1e3 * med,
+            first_step_ms=1e3 * steps[0], model_tflops_per_s=flops / med
+            / 1e12, kernel_launches=launches, card=card, **extra(med))),
+            flush=True)
+        check(launches == want, f"{label}: launches {launches}, expected "
+              f"{want}")
+
+    # the LM on one device
+    stamps = []
+
+    def on_step(_):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_lm_single(params, seeds, LM_TOKENS, d, lr=LR,
+                          seq_len=LM["seq_len"], n_heads=LM["n_heads"],
+                          attn_impl="flash", head_impl="fused",
+                          on_step=on_step)
+    single = launch_counts()
+    flops = LM_BLOCK_FLOPS + LM_HEAD_FLOPS
+    report("lm-flash-fused-bf16", "1 card",
+           [b - a for a, b in zip([t0] + stamps, stamps)], single,
+           dict(flash, **head), flops, lambda med: dict(
+               tokens_per_step=LM_TOKENS, tokens_per_s=LM_TOKENS / med,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 2 ** 30,
+               out_dtypes=sorted({str(t.dtype) for t in lm_leaves(out)}),
+               finite=all(bool(torch.isfinite(t.float()).all())
+                          for t in lm_leaves(out))))
+    check(all(t.dtype == bf and bool(torch.isfinite(t.float()).all())
+              for t in lm_leaves(out)), "the bf16 LM's params left bf16 or "
+          "are not finite")
+    del out
+    launches = dict(single)
+
+    # TP of the LM and of the trunk on loopback ranks, a rank's launches
+    mesh = make_mesh({MODEL_AXIS: LMTP_N}, loopback=True)
+    tp = {}
+    for label, family, p, kw, want in (
+            ("lm-tp-flash-fused-bf16", "lm", params,
+             dict(attn_impl="flash", head_impl="fused"), dict(flash, **head)),
+            ("tf-tp-flash-bf16", "tf", params.blocks,
+             dict(attn_impl="flash", sequence_parallel=False), flash)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        outs = launch(lmtp_rank, mesh, (family, p, seeds, LR, kw),
+                      timeout=600)
+        per_rank = {k: c / LMTP_N for k, c in launch_counts().items()}
+        r0 = outs[0]
+        shards = [t for o in outs for t in o["shards"]]
+        check(all(t.dtype == bf and bool(torch.isfinite(t.float()).all())
+                  for t in shards), f"{label}: shards left bf16 or are "
+              "not finite")
+        flops = LM_BLOCK_FLOPS + (LM_HEAD_FLOPS if family == "lm" else 0)
+        report(label, "loopback", [b - a for a, b in zip(
+            [r0["t0"]] + r0["stamps"], r0["stamps"])], per_rank, want, flops,
+            lambda med: dict(mesh={MODEL_AXIS: LMTP_N},
+                             tokens_per_step=LM_TOKENS,
+                             tokens_per_s=LM_TOKENS / med))
+        tp[label] = per_rank
+        del outs, shards
+
+    # EP through the all-to-all kernel on loopback ranks, and through its
+    # plain version (the same exchanges in plain torch: what psum's
+    # exchange moves; a loopback mesh has no process group for psum
+    # itself, which --phase dist-bf16 runs on the cards): the same routes
+    # and weights bit for bit
+    gen.manual_seed(EP["random_seed"])
+    ep_params = init_moe_stack(gen, EP["d_model"], EP["n_layers"],
+                               EP["n_experts"], dtype=bf)
+    ep_seeds = make_seed_schedule(EP_N * EP["steps"], EP["random_seed"])
+    ep_mesh = make_mesh({EXPERT_AXIS: EP_N}, loopback=True)
+    ep_kw = dict(lr=LM_BF16_EP_LR, capacity_factor=EP["capacity_factor"],
+                 k=EP["k"], aux_coef=EP["aux_coef"], dispatch="dense",
+                 comm="pallas_a2a")
+    ep = {}
+    for exchange in ("kernel", "plain"):
+        ranks = {}
+
+        def body(me, _):
+            ranks[threading.get_ident()] = me.rank
+            stamps = []
+
+            def on_step(_):
+                if me.rank == 0:
+                    torch.cuda.synchronize()
+                    stamps.append(time.perf_counter())
+            out = train_moe_ep(ep_params, ep_seeds, EP["tokens"],
+                               EP["d_model"], me, on_step=on_step, **ep_kw)
+            return out, stamps
+
+        with recorded_routes(torch, moe) as routes, \
+                plain_loopback_calls(ring, exchange == "plain"):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            outs = launch(body, ep_mesh, timeout=600)
+            got = launch_counts()
+        full = expert.unshard_params([o[0] for o in outs])
+        ep[exchange] = (full, {ranks[t]: recs for t, recs in routes.items()})
+        want = ({"all_to_all_dma[bf16]": EP_A2A_PER_LAYER * EP["n_layers"]
+                 * EP["steps"]} if exchange == "kernel" else {})
+        report(f"ep-dense-{exchange}-exchange-bf16", "loopback",
+               [b - a for a, b in zip([t0] + outs[0][1], outs[0][1])], got,
+               want, 12 * EP["d_model"] * EP_FFN * EP["tokens"] * EP["k"]
+               * EP["n_layers"], lambda med: dict(
+                   ranks=EP_N, lr=LM_BF16_EP_LR,
+                   tokens_per_step=EP["tokens"],
+                   tokens_per_s=EP["tokens"] / med,
+                   moved_share=float((full.w1 != ep_params.w1).double()
+                                     .mean()),
+                   finite=all(bool(torch.isfinite(t.float()).all())
+                              for t in full)))
+        if exchange == "kernel":
+            launches.update(got)
+        del outs, routes
+    (a2a_w, a2a_r), (psum_w, psum_r) = ep["kernel"], ep["plain"]
+    same_w = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                 for a, b in zip(a2a_w, psum_w))
+    same_r = sorted(a2a_r) == sorted(psum_r) and all(
+        len(a2a_r[r]) == len(psum_r[r]) and all(
+            torch.equal(x, y) for x, y in zip(a2a_r[r], psum_r[r]))
+        for r in a2a_r)
+    moved = float((a2a_w.w1 != ep_params.w1).double().mean())
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in a2a_w)
+    del ep, a2a_w, psum_w, ep_params
+
+    # one step at CHECK_LR against float64, over the bf16 oracle path's
+    one = seeds[:1]
+    kw = dict(lr=CHECK_LR, seq_len=LM["seq_len"], n_heads=LM["n_heads"])
+    p64 = lm_from_leaves([t.double() for t in lm_leaves(params)])
+    want64 = lm_leaves(train_lm_single(p64, one, LM_TOKENS, d, **kw))
+    del p64
+    start = lm_leaves(params)
+
+    def errs(run):
+        return [update_err(torch, g, w, p0) for g, w, p0 in zip(
+            lm_leaves(run), want64, start)]
+
+    err_f = errs(train_lm_single(params, one, LM_TOKENS, d,
+                                 attn_impl="flash", head_impl="fused", **kw))
+    err_o = errs(train_lm_single(params, one, LM_TOKENS, d, **kw))
+    del want64
+    ratio = max(f / max(o, 1e-30) for f, o in zip(err_f, err_o))
+    unchanged = min(1.0 / max(o, 1e-30) for o in err_o)
+    names = ("wte", "wpe", "ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w2",
+             "ln_f")
+    print("lm-bf16-train-check " + json.dumps(dict(
+        check_lr=CHECK_LR, update_err_vs_f64_fused=dict(zip(names, err_f)),
+        update_err_vs_f64_oracle=dict(zip(names, err_o)),
+        update_err_ratio_max=ratio, update_ratio_limit=UPDATE_RATIO,
+        unchanged_ratio_min=unchanged, ep_lr=LM_BF16_EP_LR,
+        ep_kernel_vs_plain_weights_bit_identical=same_w,
+        ep_kernel_vs_plain_routes_identical=same_r,
+        ep_moved_share=moved, ep_finite=finite,
+        phase_s=time.perf_counter() - t_phase, card=card)), flush=True)
+    check(ratio <= UPDATE_RATIO, f"the bf16 fused-head LM's update {ratio:.2f}"
+          "x as far from float64 as the bf16 oracle path's")
+    check(unchanged > UPDATE_RATIO,
+          "the update check cannot tell unchanged weights from trained")
+    check(same_w and same_r, "bf16 EP through the kernel and the plain "
+          f"exchange: weights identical {same_w}, routes identical {same_r}")
+    check(finite and moved > 0.1, f"bf16 EP: finite {finite}, moved share "
+          f"{moved:.3f}")
+    return dict(launches=launches, tp=tp)
+
+
+@contextlib.contextmanager
+def plain_loopback_calls(ring, on=True):
+    """Within the block (with ``on``) every loopback ring call returns its
+    plain version's outputs (``ring.loopback_ref``) and launches no
+    kernel."""
+    inner = ring.loopback
+    if on:
+        ring.loopback = lambda op, xs, ws: ring.loopback_ref(op, xs)
+    try:
+        yield
+    finally:
+        ring.loopback = inner
+
+
+def lm_bf16_rows(cases, launches, mode="loopback"):
+    """This slice's bf16 forms in the kernels line: ``launches`` from the
+    main path's runs (``lm_bf16_train_phase``: the LM's for the head, EP's
+    for the all-to-all; the hop is on no strategy's path, as in f32, and
+    is held alone), each TP run's a rank, the rest from the main case of
+    each."""
+    rows = []
+    for name, src, replaces in LM_BF16_KERNELS:
+        mine = [c for c in cases if c["kernel"] == name]
+        if not mine:
+            continue
+        op = name.split("[")[0]
+        main = next(c for c in mine if c["shape"] in (
+            "main", LM_BF16_MOVE_MAIN.get(op)))
+        got = None if launches is None else launches["launches"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"distributed_llm_code_samples_tpu_torch/csrc/{src}",
+            "replaces": f"distributed_llm_code_samples_tpu/{replaces}",
+            "launches": None if got is None else got.get(name, 0),
+            "lmtp_launches_per_rank": None if launches is None else {
+                label: n.get(name, 0) for label, n in launches["tp"].items()
+                if n.get(name, 0)},
+            "on_main_path": op != "ppermute_dma",
+            "mode": mode, "storage": "bf16",
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": main["ms"], "f32_ms": main["f32_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "bound_f32_ms": main.get("bound_f32_ms"),
+            "library_ms": main["library_ms"],
+            "ok": all(c["ok"] for c in mine)})
+    return rows
+
+
+def dist_lm_bf16_rank(mesh, payload):
+    """One rank of ``--phase dist``'s part for this slice (its card is
+    ``cuda:<rank>``): the hop and the all-to-all of bf16 at
+    ``LM_BF16_MOVE_CASES`` across the cards, bit for bit against their
+    plain versions (NCCL point to point) and NCCL's bf16
+    ``all_to_all_single``, timed beside the f32 call on the same values;
+    then ``train_moe_ep`` on bf16 params at ``EP`` under both transports,
+    one rank a card, whose weights must end bit for bit the same. Rank 0
+    prints; returns the cases and the EP run's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_llm_code_samples_tpu_torch.data import (
+        make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.moe import (
+        init_moe_stack)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts, ring)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        expert, train_moe_ep)
+    r, n, dev = mesh.rank, mesh.size, mesh.torch_device
+    timer = Timer(torch)
+    token = torch.zeros(1, device=dev)
+    aligned = partial(timer.ms, align=partial(dist.all_reduce, token))
+    rg = mesh.ring(LM_BF16_MOVE_BYTES)
+
+    def gathered(obj):
+        every = [None] * n
+        dist.all_gather_object(every, obj)
+        return every
+
+    cases = []
+    for k, (op, tag, shape) in enumerate(LM_BF16_MOVE_CASES):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(790 + 10 * k + r)
+        x = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        kern = partial(getattr(ring, op), x, rg)
+        plain = partial(getattr(ring, op + "_ref"), x, rg)
+        lib = (partial(_nccl_a2a, torch, dist, x) if op == "all_to_all_dma"
+               else partial(_nccl_call, torch, dist, op, x))
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        mesh.check()
+        want, nccl = plain(), lib()
+        bits = [torch.equal(got.view(torch.int16), y.view(torch.int16))
+                for y in (want, nccl, again)]
+        row = dict(kernel=op + "[bf16]", shape=tag, dims=list(shape),
+                   ranks=n, mode="4 cards",
+                   odd_chunk=ring._odd(op, x, n),
+                   bit_identical_to_plain=bits[0],
+                   bit_identical_to_nccl=bits[1], deterministic=bits[2],
+                   max_abs_err=float((got.float() - want.float()).abs()
+                                     .max()),
+                   ms=aligned(kern),
+                   ms_with_host=timer.ms(kern, with_host=True),
+                   plain_ms=aligned(plain),
+                   f32_ms=aligned(partial(getattr(ring, op), x.float(), rg)),
+                   library_ms=aligned(lib))
+        row["bound_ms"], row["bound_by"] = (
+            a2a_dist_bound(2 * x.numel(), n) if op == "all_to_all_dma"
+            else ring_dist_bound(op, 2 * x.numel(), n))
+        every = gathered({key: row[key] for key in (
+            "ms", "bit_identical_to_plain", "bit_identical_to_nccl",
+            "deterministic")})
+        row["ms_max_over_ranks"] = max(e["ms"] for e in every)
+        row["ok"] = all(e["bit_identical_to_plain"]
+                        and e["bit_identical_to_nccl"] and e["deterministic"]
+                        for e in every)
+        if r == 0:
+            print("dist-lm-bf16-move-case " + json.dumps(row), flush=True)
+        cases.append(row)
+        del x, got, again, want, nccl
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(EP["random_seed"])
+    params = init_moe_stack(gen, EP["d_model"], EP["n_layers"],
+                            EP["n_experts"], dtype=torch.bfloat16)
+    seeds = make_seed_schedule(EP_N * EP["steps"], EP["random_seed"])
+    kw = dict(lr=LM_BF16_EP_LR, capacity_factor=EP["capacity_factor"],
+              k=EP["k"], aux_coef=EP["aux_coef"], dispatch="dense")
+    outs, launches = {}, {}
+    for comm in ("pallas_a2a", "psum"):
+        stamps = []
+
+        def on_step(_):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[comm] = train_moe_ep(params, seeds, EP["tokens"],
+                                  EP["d_model"], mesh, comm=comm,
+                                  on_step=on_step, **kw)
+        launches[comm] = launch_counts()
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        med = statistics.median(steps[1:])
+        every = gathered(med)
+        if r == 0:
+            print("dist-lm-bf16-ep-run " + json.dumps(dict(
+                run=f"ep-dense-{comm}-bf16", mode="4 cards", ranks=n,
+                lr=LM_BF16_EP_LR, steps_per_rank=len(steps),
+                tokens_per_step=EP["tokens"], median_step_ms=1e3 * med,
+                median_step_ms_max_over_ranks=1e3 * max(every),
+                tokens_per_s=EP["tokens"] / max(every),
+                kernel_launches=launches[comm],
+                card=payload["card"])), flush=True)
+    same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(outs["pallas_a2a"], outs["psum"]))
+    moved = float((outs["pallas_a2a"].w1 != expert.shard_params(
+        params, mesh).w1).double().mean())
+    every = gathered(dict(same=same, moved=moved))
+    return dict(cases=cases, ep_launches=launches,
+                ep_same=all(e["same"] for e in every),
+                ep_moved=min(e["moved"] for e in every))
+
+
+def dist_lm_bf16_phase(torch, np, cards):
+    """``--phase dist``'s part for this slice: ``dist_lm_bf16_rank`` on
+    ``RING_N`` cards, then ``train_lm_tp`` on bf16 params (flash, fused
+    head) one rank a card at ``LM``'s shape (``dist-lm-bf16-tp-run``,
+    exact launches a rank), and ``cli.py -m 11 --head fused --attn
+    flash``, ``-m 8 --attn flash`` and ``-m 7`` on bf16 params at their
+    full widths (``CLI_LM_BF16``). Returns this slice's rows of the
+    kernels line."""
+    from distributed_llm_code_samples_tpu_torch import LR
+    from distributed_llm_code_samples_tpu_torch.data import (
+        make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models import init_lm
+    from distributed_llm_code_samples_tpu_torch.optim import leaves
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        EXPERT_AXIS, MODEL_AXIS, launch, make_mesh)
+    out = launch(dist_lm_bf16_rank, make_mesh({EXPERT_AXIS: RING_N},
+                                              device="cuda"),
+                 {"card": cards}, timeout=900)[0]
+    want = {"all_to_all_dma[bf16]": EP_A2A_PER_LAYER * EP["n_layers"]
+            * EP["steps"]}
+    print("dist-lm-bf16-ep-check " + json.dumps(dict(
+        weights_bit_identical=out["ep_same"], moved_share=out["ep_moved"],
+        launches=out["ep_launches"], cards=cards)), flush=True)
+    check(out["ep_launches"]["pallas_a2a"] == want
+          and out["ep_launches"]["psum"] == {},
+          f"bf16 EP on the cards launched {out['ep_launches']}")
+    check(out["ep_same"] and out["ep_moved"] > 0.1, "bf16 EP on the cards: "
+          "the transports' weights differ, or too few moved")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM["random_seed"])
+    params = init_lm(gen, LM["vocab"], LM["d_model"], LM["n_layers"],
+                     LM["seq_len"], n_heads=LM["n_heads"],
+                     dtype=torch.bfloat16)
+    host = params.with_leaves([t.cpu() for t in leaves(params)])
+    seeds = make_seed_schedule(LM["steps"], LM["random_seed"])
+    outs = launch(lmtp_rank, make_mesh({MODEL_AXIS: LMTP_N}, device="cuda"),
+                  ("lm", host, seeds, LR, dict(attn_impl="flash",
+                                               head_impl="fused")),
+                  timeout=900)
+    r0 = outs[0]
+    steps = [b - a for a, b in zip([r0["t0"]] + r0["stamps"], r0["stamps"])]
+    med = statistics.median(steps[1:])
+    flash = LM["n_layers"] * LM["steps"]
+    want = {f"flash_attn_{k}[bf16]": flash for k in ("fwd", "dq", "dkv")}
+    want.update({"head_xent_stats[bf16]": LM["steps"],
+                 "head_xent_bwd[bf16]": LM["steps"]})
+    print("dist-lm-bf16-tp-run " + json.dumps(dict(
+        run="lm-tp-flash-fused-bf16-nccl", mode=f"{LMTP_N} cards",
+        steps_per_rank=len(steps), tokens_per_step=LM_TOKENS,
+        median_step_ms=1e3 * med, tokens_per_s=LM_TOKENS / med,
+        max_memory_allocated_gb=r0["max_memory_allocated_gb"],
+        launches_per_rank=[o["launches"] for o in outs], cards=cards)),
+        flush=True)
+    check(all(o["launches"] == want for o in outs),
+          f"bf16 LM TP on the cards: launches {[o['launches'] for o in outs]}"
+          f", expected {want} a rank")
+    check(all(t.dtype == torch.bfloat16
+              and bool(torch.isfinite(t.float()).all())
+              for o in outs for t in o["shards"]),
+          "bf16 LM TP on the cards: shards left bf16 or are not finite")
+    for tag, argv in CLI_LM_BF16:
+        runs = cli_m0_phase(cards, argv, tag)
+        check(all(r.get("dtype") == "bfloat16" for r in runs),
+              f"{tag}: a run is not bf16")
+    rows = lm_bf16_rows(out["cases"], None, mode="4 cards")
+    for row in rows:
+        row["cards"] = cards
+    return rows
+
+
 def dp_rows(dp_launches, counted):
     """A kernel's launches a rank in each ``lmdp`` run that made any."""
     if dp_launches is None:
@@ -5234,6 +5932,20 @@ CLI_LMTP = (
      + LMTP_CLI_SHAPE))
 
 
+# the LM, the transformer and the MoE stack through the CLI on bf16 params
+# at their full widths on every card (--phase dist, dist-bf16)
+CLI_LM_BF16 = (
+    ("dist-cli-m11-bf16", CLI_LMTP[0][1] + ("--dtype", "bfloat16")),
+    ("dist-cli-m8-bf16", ("-m", "8", "--attn", "flash") + LMTP_CLI_SHAPE
+     + ("--dtype", "bfloat16")),
+    ("dist-cli-m7-bf16", ("-m", "7", "-s", "8", "-bs", "16", "-n", "512",
+                          "-l", str(EP["n_layers"]), "-d",
+                          str(EP["d_model"]), "-r", "7", "--experts",
+                          str(EP["n_experts"]), "--lr", str(LM_BF16_EP_LR),
+                          "--dtype", "bfloat16")))
+
+
+
 def cli_m0_phase(cards, argv=CLI_M0, tag="dist-cli-m0") -> list:
     """``cli.py`` with ``argv`` (default ``-m 0 ... --strict``: methods 1-4
     in turn, then DDP against FSDP and single-device against TP) as a
@@ -5286,8 +5998,10 @@ def dist_phase(torch, part: str = "all"):
     dist-tp``) runs TP, ``-m 0`` and LM TP with their CLI runs alone;
     ``"lmdp"`` (``--phase dist-lmdp``) the data-parallel LM and
     transformer alone; ``"bf16"`` (``--phase dist-bf16``) the bf16 ring
-    sums across the cards (``dist_bf16_rank``) and ``cli.py -m 0
-    --dtype bfloat16`` alone, which ``"all"`` runs too."""
+    sums across the cards (``dist_bf16_rank``), ``cli.py -m 0 --dtype
+    bfloat16``, and the bf16 hop, all-to-all, EP, LM TP and ``cli.py -m
+    11``, ``-m 8``, ``-m 7`` on bf16 (``dist_lm_bf16_phase``) alone, which
+    ``"all"`` runs too."""
     from distributed_llm_code_samples_tpu_torch.parallel import (
         DATA_AXIS, launch, make_mesh)
     import numpy as np
@@ -5338,7 +6052,7 @@ def dist_phase(torch, part: str = "all"):
         bf16_rows = dtype_bf16_rows(cases, None, mode="4 cards")
         for row in bf16_rows:
             row["cards"] = cards
-        rows += bf16_rows
+        rows += bf16_rows + dist_lm_bf16_phase(torch, np, cards)
     return rows
 
 
@@ -5416,9 +6130,11 @@ def main(argv=None) -> int:
     if args.phase in bf16_phases:
         dtype_cases = dtype_bf16_kernel_phase(torch, np, timer)
         bad += [c for c in dtype_cases if not c["ok"]]
+        lm_bf16_cases = lm_bf16_kernel_phase(torch, np, timer)
+        bad += [c for c in lm_bf16_cases if not c["ok"]]
     launches = ffn_launches = lm_launches = ring_launches = None
     ep_launches = bf16_launches = lmtp_launches = lmdp_launches = None
-    dtype_launches = None
+    dtype_launches = lm_bf16_launches = None
     if not bad and args.phase == "all":
         launches = serving_phase(torch, np, card)
     if not bad and args.phase in ("all", "train"):
@@ -5436,6 +6152,7 @@ def main(argv=None) -> int:
                              **opt_lm_phase(torch, np, card))
     if not bad and args.phase in bf16_phases:
         dtype_launches = dtype_bf16_train_phase(torch, np, card)
+        lm_bf16_launches = lm_bf16_train_phase(torch, np, card)
     if not bad and args.phase in ("all", "lmtp"):
         lmtp_launches = lmtp_phase(torch, np, card)
     if not bad and args.phase in ("all", "lmdp"):
@@ -5471,6 +6188,7 @@ def main(argv=None) -> int:
                                     dp_launches=lmdp_launches)
     if args.phase in bf16_phases:
         kernels += dtype_bf16_rows(dtype_cases, dtype_launches)
+        kernels += lm_bf16_rows(lm_bf16_cases, lm_bf16_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     if bad:
         print(f"error: kernel disagrees with its plain version: {bad}",

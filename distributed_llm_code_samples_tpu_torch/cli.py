@@ -45,13 +45,16 @@ are the whole EP group's. Methods 8 and 11 run on a model axis of
 ``--heads`` and be divisible by the model axis) and ``--head`` (oracle
 or the fused kernels); ``-n`` is the sequence length.
 
-``--dtype bfloat16`` stores the FFN stack's params in bf16, as the JAX
-CLI's does, for methods 1-5 and 0 with SGD: every block, gradient, sum
-and update is then bf16 (the kernels' f32 sums rounded once where the
-Pallas kernels round them, the ring kernels' sums rounded every add).
-Methods 7, 8 and 11 and the optimizer flags (``--optimizer`` other than
-sgd, ``--zero1``, ``--clip_norm``, ``--mixed``) refuse it for now (exit
-2, ROADMAP.md Queue 1).
+``--dtype bfloat16`` stores the params in bf16, as the JAX CLI's does,
+for every ported method under SGD: the FFN stack's (methods 1-5 and 0),
+the MoE stack's (7), the transformer's (8) and the LM's (11). Every
+block, gradient, sum and update is then bf16 (the kernels' f32 sums
+rounded once where the Pallas kernels round them, the ring kernels'
+sums rounded every add); the fused head (``-m 11 --head fused``) keeps
+its statistics in f32 and returns bf16 gradients, so it trains where
+the JAX CLI's asserts (its wrapper promotes them to f32). The optimizer
+flags (``--optimizer`` other than sgd, ``--zero1``, ``--clip_norm``,
+``--mixed``) refuse it for now (exit 2, ROADMAP.md Queue 1).
 
 The training options follow the JAX CLI's rules: ``--optimizer``
 (``optim.OPTIMIZERS``) and ``--clip_norm`` apply to methods 2 and 3
@@ -129,9 +132,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "versions on the CPU)")
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32",
-                   help="the FFN stack's param storage (methods 1-5, also "
-                        "inside 0): bf16 params, blocks, gradients and sums "
-                        "with --dtype bfloat16 (distinct from --mixed)")
+                   help="the param storage of every method (SGD only): "
+                        "bf16 params, blocks, gradients and sums with "
+                        "--dtype bfloat16 (distinct from --mixed)")
     p.add_argument("--mixed", action="store_true",
                    help="with --method 1-5 (also inside 0, with --zero1 and "
                         "--tp_sp): bf16 matmul operands, f32 params/grads/"
@@ -267,13 +270,11 @@ def _flag_error(args) -> str | None:
 
 
 def _bf16_error(args) -> str | None:
-    """What ``--dtype bfloat16`` does not take yet: the methods and
-    options whose bf16 forms are the next slice's work."""
-    queued = ("is ported for the FFN stack's methods 1-5 (and 0) under "
-              "SGD only so far; the rest is queued in ROADMAP.md Queue 1")
-    if args.method in (7, 8, 11):
-        return f"--dtype bfloat16 with --method {args.method}: bf16 storage " \
-               + queued
+    """What ``--dtype bfloat16`` does not take yet: the optimizer options,
+    whose bf16 forms are the next slice's work."""
+    queued = ("is ported under SGD only so far (every method); the "
+              "optimizers, ZeRO-1, clipping and --mixed on bf16 params are "
+              "queued in ROADMAP.md Queue 1")
     for flag, on in (("--optimizer " + args.optimizer,
                       args.optimizer != "sgd"), ("--zero1", args.zero1),
                      ("--clip_norm", bool(args.clip_norm)),
@@ -445,22 +446,23 @@ def _checksums(out) -> list:
 
 def _init(args, gen):
     """The initial params of ``args.method``'s family (JAX ``cli.py``'s
-    ``params_for``); the FFN stack's at ``--dtype``."""
+    ``params_for``), at ``--dtype``."""
     import torch
 
     from .models import init_lm, init_transformer
     from .models.ffn_stack import init_ffn_stack
     from .models.moe import init_moe_stack
     d, layers = args.model_size, args.layers
+    dtype = getattr(torch, args.dtype)
     if args.method == 7:
-        return init_moe_stack(gen, d, layers, args.experts)
+        return init_moe_stack(gen, d, layers, args.experts, dtype=dtype)
     if args.method == 8:
-        return init_transformer(gen, d, layers)
+        return init_transformer(gen, d, layers, dtype=dtype)
     if args.method == 11:
         return init_lm(gen, args.vocab, d, layers, max_seq_len=args.seq_len,
-                       n_heads=args.heads, n_kv_heads=args.kv_heads or None)
-    return init_ffn_stack(gen, d, layers,
-                          dtype=getattr(torch, args.dtype))
+                       n_heads=args.heads, n_kv_heads=args.kv_heads or None,
+                       dtype=dtype)
+    return init_ffn_stack(gen, d, layers, dtype=dtype)
 
 
 def _model_flops(args, tokens: int, m: int) -> float:

@@ -8,7 +8,13 @@
 // zero on columns past V (the Pallas kernels' padding; here nothing of
 // the caller's is padded), and the scalar upstream gradient scales both
 // outputs outside the kernels. With mxu_bf16, h, w and dz are rounded to
-// bf16 before the products.
+// bf16 before the products. On bf16 storage (h, w, dh and dw bf16, the
+// LM's --dtype bfloat16) it computes what the Pallas kernels compute on
+// bf16 refs: h and w widened exactly, z and dz in f32, dz rounded to bf16
+// before both products (the kernels' dz.astype(w.dtype)), the products
+// summed in f32 and each output rounded to bf16 once. dh, which chunks
+// add to, is summed in an f32 copy in the scratch and rounded after the
+// last chunk; dw rounds at its one store.
 //
 // What bounds it on this card: operations. The function needs three
 // products (z, dh, dw), 6*N*d*V flops, against 2*N*d + 2*V*d floats that
@@ -49,7 +55,13 @@
 // the scratch (head_xent_bwd_scratch_floats floats), passes the stream,
 // and gets the first CUDA error back.
 
+#include <type_traits>
+
 #include "gemm_core.cuh"
+
+namespace xent {
+struct bwd_bf16;   // names the bf16 copies in a profile
+}
 
 namespace {
 
@@ -73,10 +85,12 @@ struct Gemm {
   int M, N, K;
   int tiles_n, tiles;
   int epi;
-  // kDh, kDw: out [M][ldo]; kDh adds to it when `accumulate`
+  // kDh, kDw: out [M][ldo], f32 (bf16 when `out_bf16`: each element
+  // rounded once at its store); kDh adds to it when `accumulate`
   float* out;
   long long ldo;
   int accumulate;
+  int out_bf16;
   // kDz: z -> dz, stored as out [M][ldo] for columns < out_n and as
   // out_t [N][ldo_t] for columns < out_m (the padded extents the next
   // products read)
@@ -147,6 +161,20 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int t,
     }
     return;
   }
+  if (g.out_bf16) {
+    __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(g.out);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + quad(ty, i);
+      if (m >= g.M) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + quad(tx, j);
+        if (n < g.N) out[m * g.ldo + n] = __float2bfloat16_rn(acc[i][j]);
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + quad(ty, i);
@@ -189,13 +217,24 @@ void chunks(int V, int* n, int* width) {
   *width = (per + kTile - 1) / kTile * kTile;
 }
 
+// dh's f32 sum on bf16 storage, rounded into dh once
+__global__ void head_xent_round_kernel(const float* __restrict__ src,
+                                       __nv_bfloat16* __restrict__ dst,
+                                       long long n) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) dst[i] = __float2bfloat16_rn(src[i]);
+}
+
 struct Layout {
   long long Np, dp, Vp;     // padded row lengths
   int n_chunks, width;
-  long long hT, hc, wT, wc, dz, dzT, total;   // offsets in floats
+  // offsets in floats; dh32: dh's f32 sum on bf16 storage (N * d floats,
+  // none on f32 storage)
+  long long hT, hc, wT, wc, dz, dzT, dh32, total;
 };
 
-Layout layout(int N, int d, int V) {
+Layout layout(int N, int d, int V, bool bf16_storage) {
   Layout L;
   L.Np = up4(N);
   L.dp = up4(d);
@@ -207,7 +246,8 @@ Layout layout(int N, int d, int V) {
   L.wc = L.wT + d * L.Vp;
   L.dz = L.wc + V * L.dp;
   L.dzT = L.dz + N * static_cast<long long>(L.width);
-  L.total = L.dzT + static_cast<long long>(L.width) * L.Np;
+  L.dh32 = L.dzT + static_cast<long long>(L.width) * L.Np;
+  L.total = L.dh32 + (bf16_storage ? up4(static_cast<long long>(N) * d) : 0);
   return L;
 }
 
@@ -221,16 +261,23 @@ void set_tiles(Gemm* g, long long rows, long long cols) {
   g->tiles = static_cast<int>((rows + kTile - 1) / kTile) * g->tiles_n;
 }
 
-cudaError_t run(const float* h, const float* w, const int* targets,
-                const float* lse, float* dh, float* dw, float* scratch,
+// Src: the storage type of h and w (and of dh and dw); bf16: round dz
+// (and the copies, on f32 storage) to bf16.
+template <typename Src>
+cudaError_t run(const Src* h, const Src* w, const int* targets,
+                const float* lse, Src* dh, Src* dw, float* scratch,
                 int N, int d, int V, int bf16, cudaStream_t st) {
-  const Layout L = layout(N, d, V);
+  constexpr bool kBf16 = sizeof(Src) == 2;
+  using Tag = typename std::conditional<kBf16, xent::bwd_bf16, void>::type;
+  const Layout L = layout(N, d, V, kBf16);
   float *hT = scratch + L.hT, *hc = scratch + L.hc, *wT = scratch + L.wT,
         *wc = scratch + L.wc, *dz = scratch + L.dz, *dzT = scratch + L.dzT;
+  // dh's sum: dh itself on f32 storage, the f32 copy on bf16
+  float* dh_sum = kBf16 ? scratch + L.dh32 : reinterpret_cast<float*>(dh);
   const int dp = static_cast<int>(L.dp), Np = static_cast<int>(L.Np),
             Vp = static_cast<int>(L.Vp);
-  gemm::prep(h, N, d, hc, dp, hT, Np, bf16, st);
-  gemm::prep(w, V, d, wc, dp, wT, Vp, bf16, st);
+  gemm::prep<Tag>(h, N, d, hc, dp, hT, Np, kBf16 ? 0 : bf16, st);
+  gemm::prep<Tag>(w, V, d, wc, dp, wT, Vp, kBf16 ? 0 : bf16, st);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   for (int c = 0; c < L.n_chunks; ++c) {
@@ -274,7 +321,7 @@ cudaError_t run(const float* h, const float* w, const int* targets,
     gh.K = vc;
     set_tiles(&gh, N, d);
     gh.epi = kDh;
-    gh.out = dh;
+    gh.out = dh_sum;
     gh.ldo = d;
     gh.accumulate = c > 0;
     Gemm gw = blank();           // dw_c = dz_c^T h
@@ -289,12 +336,20 @@ cudaError_t run(const float* h, const float* w, const int* targets,
     gw.K = N;
     set_tiles(&gw, vc, d);
     gw.epi = kDw;
-    gw.out = dw + static_cast<size_t>(v0) * d;
+    gw.out = reinterpret_cast<float*>(dw + static_cast<size_t>(v0) * d);
     gw.ldo = d;
+    gw.out_bf16 = kBf16;
     // the deeper tiles first
     e = gw.K >= gh.K ? launch_gemm(gw, gh, 2, st)
                      : launch_gemm(gh, gw, 2, st);
     if (e != cudaSuccess) return e;
+  }
+  if (kBf16) {
+    const long long n = static_cast<long long>(N) * d;
+    head_xent_round_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                             st>>>(dh_sum,
+                                   reinterpret_cast<__nv_bfloat16*>(dh), n);
+    return cudaGetLastError();
   }
   return cudaSuccess;
 }
@@ -303,27 +358,35 @@ cudaError_t run(const float* h, const float* w, const int* targets,
 
 extern "C" {
 
-// Floats of scratch a call at (N, d, V) needs.
-long long head_xent_bwd_scratch_floats(int N, int d, int V) {
-  if (N < 1 || d < 1 || V < 1) return -1;
-  return layout(N, d, V).total;
+// Floats of scratch a call at (N, d, V) in `mode` needs.
+long long head_xent_bwd_scratch_floats(int N, int d, int V, int mode) {
+  if (N < 1 || d < 1 || V < 1 || mode < 0 || mode > 2) return -1;
+  return layout(N, d, V, mode == 2).total;
 }
 
-// h [N, d], w [V, d], lse [N] f32, targets [N] int32 -> dh [N, d] and
-// dw [V, d] f32, without the upstream scalar; scratch holds
-// head_xent_bwd_scratch_floats(N, d, V) floats, 16-byte aligned.
-// mxu_bf16: 0 or 1. Returns a cudaError_t as int; 0 on success.
-int head_xent_bwd_launch(const float* h, const float* w, const int* targets,
-                         const float* lse, float* dh, float* dw,
-                         float* scratch, int N, int d, int V, int mxu_bf16,
+// h [N, d], w [V, d] of one storage type, lse [N] f32, targets [N]
+// int32 -> dh [N, d] and dw [V, d] in that type, without the upstream
+// scalar; scratch holds head_xent_bwd_scratch_floats(N, d, V, mode)
+// floats, 16-byte aligned. mode: 0 f32, 1 f32 with bf16 operands
+// (mxu_bf16), 2 bf16 storage. Returns a cudaError_t as int; 0 on success.
+int head_xent_bwd_launch(const void* h, const void* w, const int* targets,
+                         const float* lse, void* dh, void* dw,
+                         float* scratch, int N, int d, int V, int mode,
                          void* stream) {
-  if (N < 1 || d < 1 || V < 1 ||
+  if (N < 1 || d < 1 || V < 1 || mode < 0 || mode > 2 ||
       (reinterpret_cast<size_t>(scratch) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int b = mxu_bf16 ? 1 : 0;
-  return static_cast<int>(
-      run(h, w, targets, lse, dh, dw, scratch, N, d, V, b, st));
+  using bf = __nv_bfloat16;
+  if (mode == 2)
+    return static_cast<int>(run(static_cast<const bf*>(h),
+                                static_cast<const bf*>(w), targets, lse,
+                                static_cast<bf*>(dh), static_cast<bf*>(dw),
+                                scratch, N, d, V, 1, st));
+  return static_cast<int>(run(static_cast<const float*>(h),
+                              static_cast<const float*>(w), targets, lse,
+                              static_cast<float*>(dh), static_cast<float*>(dw),
+                              scratch, N, d, V, mode, st));
 }
 
 }  // extern "C"

@@ -7,7 +7,10 @@
 // same function: an online logsumexp over vocab tiles and the target
 // column picked by a match that only real vocab columns can make (a
 // target outside [0, V) gives tz = 0). The loss, mean(lse - tz), is
-// taken outside. With mxu_bf16, h and w are rounded to bf16.
+// taken outside. With mxu_bf16, h and w are rounded to bf16. On bf16
+// storage (h and w bf16, the LM's --dtype bfloat16) the copies widen
+// them exactly into the f32 scratch, so the f32 products are the Pallas
+// kernel's dot(bf16, bf16) -> f32; the statistics, lse and tz stay f32.
 //
 // What bounds it: operations. 2*N*d*V flops against N*d + V*d floats
 // read; at N 8192, d 768, V 50304 that is 0.63 TFLOP over 180 MB, 9.4 ms
@@ -171,7 +174,8 @@ __global__ void head_xent_merge_kernel(const float* __restrict__ part,
   tz[r] = z;
 }
 
-cudaError_t run(const float* h, const float* w, const int* targets,
+template <typename Src>
+cudaError_t run(const Src* h, const Src* w, const int* targets,
                 float* lse, float* tz, float* hT, float* wT, float* part,
                 int N, int d, int V, int S, int L, int bf16,
                 cudaStream_t st) {
@@ -206,23 +210,29 @@ cudaError_t run(const float* h, const float* w, const int* targets,
 
 extern "C" {
 
-// h [N, d], w [V, d] f32, targets [N] int32 -> lse [N], tz [N] f32. The
-// scratch pieces, each 16-byte aligned: hT [d][N4]; wT [d][V4]; part
-// [3][S][N]. S slices of L vocab columns (L a multiple of 128, S =
-// ceil(V / L)). mxu_bf16: 0 or 1. Returns a cudaError_t as int; 0 on
-// success.
-int head_xent_stats_launch(const float* h, const float* w, const int* targets,
+// h [N, d], w [V, d] of one storage type, targets [N] int32 -> lse [N],
+// tz [N] f32. The f32 scratch pieces, each 16-byte aligned: hT [d][N4];
+// wT [d][V4]; part [3][S][N]. S slices of L vocab columns (L a multiple
+// of 128, S = ceil(V / L)). mode: 0 f32, 1 f32 with bf16 operands
+// (mxu_bf16), 2 bf16 storage. Returns a cudaError_t as int; 0 on success.
+int head_xent_stats_launch(const void* h, const void* w, const int* targets,
                            float* lse, float* tz, float* hT, float* wT,
                            float* part, int N, int d, int V, int S, int L,
-                           int mxu_bf16, void* stream) {
+                           int mode, void* stream) {
   if (N < 1 || d < 1 || V < 1 || S < 1 || L < 1 || L % kTile != 0 ||
       static_cast<long long>(S - 1) * L >= V ||
-      static_cast<long long>(S) * L < V ||
+      static_cast<long long>(S) * L < V || mode < 0 || mode > 2 ||
       ((reinterpret_cast<size_t>(hT) | reinterpret_cast<size_t>(wT)) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(run(h, w, targets, lse, tz, hT, wT, part, N, d, V,
-                              S, L, mxu_bf16 ? 1 : 0,
-                              static_cast<cudaStream_t>(stream)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  if (mode == 2)
+    return static_cast<int>(run(static_cast<const bf*>(h),
+                                static_cast<const bf*>(w), targets, lse, tz,
+                                hT, wT, part, N, d, V, S, L, 0, st));
+  return static_cast<int>(run(static_cast<const float*>(h),
+                              static_cast<const float*>(w), targets, lse, tz,
+                              hT, wT, part, N, d, V, S, L, mode, st));
 }
 
 }  // extern "C"

@@ -18,13 +18,13 @@ from __future__ import annotations
 
 from collections.abc import Mapping
 
-import numpy as np
 import torch
 from torch import nn
 
 from ..ops.norm import layernorm
 from ..ops.xent import xent_loss
 from .attention import rope
+from .ffn_stack import tensor_from_numpy
 from .transformer import (FIELDS, TransformerParams, init_transformer,
                           transformer_fwd, transformer_params_from_numpy)
 
@@ -113,11 +113,12 @@ def _field(tree, name):
 
 
 def lm_params_from_numpy(tree, device="cpu") -> LMParams:
-    """The port's parameters from the JAX ``LMParams`` as numpy arrays:
-    ``tree`` is an object or mapping with ``wte, wpe, ln_f`` and
-    ``blocks.{ln1, wq, wk, wv, wo, ln2, w1, w2}``."""
+    """The port's parameters from the JAX ``LMParams`` as numpy arrays,
+    each in its own type (f32, or bf16 bit for bit): ``tree`` is an
+    object or mapping with ``wte, wpe, ln_f`` and ``blocks.{ln1, wq, wk,
+    wv, wo, ln2, w1, w2}``."""
     def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+        return tensor_from_numpy(a, device)
 
     blocks = _field(tree, "blocks")
     return LMParams(t(_field(tree, "wte")), t(_field(tree, "wpe")),

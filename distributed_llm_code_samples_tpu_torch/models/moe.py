@@ -8,10 +8,10 @@ from __future__ import annotations
 from collections.abc import Mapping
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..ops.linear import init_linear
+from .ffn_stack import tensor_from_numpy
 
 
 class MoEStackParams(NamedTuple):
@@ -73,9 +73,10 @@ def clone_moe(params: MoEStackParams) -> MoEStackParams:
 
 def moe_params_from_numpy(tree, device="cpu") -> MoEStackParams:
     """The port's parameters from the JAX ``MoEStackParams`` as numpy
-    arrays: ``tree`` is an object or mapping with ``wg``, ``w1``, ``w2``."""
+    arrays, each in its own type (f32, or bf16 bit for bit): ``tree`` is
+    an object or mapping with ``wg``, ``w1``, ``w2``."""
     def t(name):
         a = tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+        return tensor_from_numpy(a, device)
 
     return MoEStackParams(t("wg"), t("w1"), t("w2"))

@@ -15,13 +15,13 @@ from __future__ import annotations
 
 from collections.abc import Mapping
 
-import numpy as np
 import torch
 from torch import nn
 
 from ..ops.ffn import ffn_block
 from ..ops.norm import layernorm
 from .attention import gqa, mha
+from .ffn_stack import tensor_from_numpy
 
 FIELDS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w2")
 
@@ -83,10 +83,11 @@ def init_transformer(generator: torch.Generator, d_model: int,
 
 def transformer_params_from_numpy(tree, device="cpu") -> TransformerParams:
     """The port's parameters from the JAX ``TransformerParams`` as numpy
-    arrays: ``tree`` is an object or mapping with the ``FIELDS``."""
+    arrays, each in its own type (f32, or bf16 bit for bit): ``tree`` is
+    an object or mapping with the ``FIELDS``."""
     def t(name):
         a = tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+        return tensor_from_numpy(a, device)
 
     return TransformerParams(*(t(f) for f in FIELDS))
 

@@ -138,19 +138,19 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-# The storage types each kernel takes: float32, and bf16 where listed
-# (the ring all-gather moves bytes; the flash kernels read bf16 tiles for
-# the LM's mixed trunk; the FFN kernels and the ring all-reduce and
-# reduce-scatter take the FFN stack's --dtype bfloat16). bf16 storage in
-# the fused head, the hop and the all-to-all comes with the slice that
-# gives the LM, transformer and MoE methods --dtype bfloat16.
+# The storage types each kernel takes: float32 and bf16, all thirteen
+# (the paged decode kernel's pool also int8; its wrapper checks its own
+# operands). The ring all-gather, the hop and the all-to-all move bf16 as
+# bytes; the ring all-reduce and reduce-scatter sum it; the flash kernels
+# read bf16 tiles (the LM's mixed trunk and --dtype bfloat16); the FFN
+# kernels and the fused head widen it into f32 scratch.
 _BOTH = (torch.float32, torch.bfloat16)
 DTYPES = {name: _BOTH for name in (
-    "ring_all_gather", "ring_all_reduce", "ring_reduce_scatter",
-    "flash_attn_fwd", "flash_attn_bwd", "ffn_fwd", "ffn_bwd_dx",
-    "ffn_bwd_dw")}
-_NEXT = "bf16 storage for it comes with the --dtype bfloat16 slice of " \
-        "the LM, transformer and MoE methods (ROADMAP.md Queue 1)"
+    "ppermute_dma", "ring_all_gather", "ring_all_reduce",
+    "ring_reduce_scatter", "all_to_all_dma", "flash_attn_fwd",
+    "flash_attn_bwd", "ffn_fwd", "ffn_bwd_dx", "ffn_bwd_dw",
+    "head_xent_fwd", "head_xent_bwd")}
+DTYPES["paged_decode_attn"] = _BOTH + (torch.int8,)
 
 
 def on_card(name: str, *tensors) -> bool:
@@ -171,8 +171,7 @@ def on_card(name: str, *tensors) -> bool:
     if any(t.dtype not in allowed for t in tensors):
         raise ValueError(
             f"{name}: the kernel takes {[str(d) for d in allowed]} storage, "
-            f"got {[str(t.dtype) for t in tensors]}"
-            + ("" if torch.bfloat16 in allowed else f"; {_NEXT}"))
+            f"got {[str(t.dtype) for t in tensors]}")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: all operands must be contiguous")
     return True

@@ -20,6 +20,17 @@ edge themselves, so the caller's ``w`` is never padded (the JAX package
 pads it to its vocab tile). ``mxu_bf16`` rounds h and w, and the logit
 gradient before its products, to bf16; sums and statistics stay f32.
 Default off.
+
+On bf16 storage (``h`` and ``w`` bf16, the LM's ``--dtype bfloat16``)
+each function computes what the Pallas kernels compute on bf16 arrays:
+the logits in f32 from the exact bf16 values (``preferred_element_type
+=jnp.float32``), ``lse`` and ``tz`` f32, the logit gradient rounded to
+bf16 before both products (``dz.astype(w.dtype)``, whatever
+``mxu_bf16`` says), the products summed in f32 and ``dh``, ``dw``
+rounded to bf16 once. The kernels count their launches as
+``head_xent_stats[bf16]`` and ``head_xent_bwd[bf16]``. ``dy * dh`` with
+the f32 scalar ``dy`` keeps bf16 (where JAX's wrapper promotes both
+gradients to f32).
 """
 
 from __future__ import annotations
@@ -41,6 +52,11 @@ def _op(t: torch.Tensor, mxu_bf16: bool) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype) if mxu_bf16 else t
 
 
+def _widen(t: torch.Tensor) -> torch.Tensor:
+    """bf16 storage as f32, exactly; f32 as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def _target_logit(z, targets):
     """``z[i, t_i]`` where ``0 <= t_i < V``, else 0."""
     t = targets.long()
@@ -54,8 +70,9 @@ def _target_logit(z, targets):
 
 def head_xent_stats_ref(h, w, targets, *, mxu_bf16: bool = False):
     """``(lse [N], tz [N])``: ``logsumexp(h w^T)`` per row and the target
-    logit (0 for a target outside ``[0, V)``)."""
-    z = _op(h, mxu_bf16) @ _op(w, mxu_bf16).T
+    logit (0 for a target outside ``[0, V)``); f32 also on bf16
+    storage."""
+    z = _op(_widen(h), mxu_bf16) @ _op(_widen(w), mxu_bf16).T
     m = z.amax(dim=-1, keepdim=True)
     lse = (m + torch.log(torch.exp(z - m).sum(dim=-1, keepdim=True)))[:, 0]
     return lse, _target_logit(z, targets)
@@ -63,14 +80,17 @@ def head_xent_stats_ref(h, w, targets, *, mxu_bf16: bool = False):
 
 def head_xent_bwd_ref(dy, h, w, targets, lse, *, mxu_bf16: bool = False):
     """``(dh, dw) = dy * (dz w, dz^T h)`` with ``dz = (exp(h w^T - lse) -
-    onehot(targets)) / N``."""
-    hm, wm = _op(h, mxu_bf16), _op(w, mxu_bf16)
+    onehot(targets)) / N``; on bf16 storage ``dz`` is rounded to bf16
+    before the f32 products and each product once after them."""
+    store = h.dtype
+    hm, wm = _op(_widen(h), mxu_bf16), _op(_widen(w), mxu_bf16)
     z = hm @ wm.T
     n, v = z.shape
     cols = torch.arange(v, device=z.device)
     onehot = (cols[None, :] == targets.long()[:, None]).to(z.dtype)
-    dz = _op((torch.exp(z - lse[:, None]) - onehot) * (1.0 / n), mxu_bf16)
-    return dy * (dz @ wm), dy * (dz.T @ hm)
+    dz = (torch.exp(z - lse[:, None]) - onehot) * (1.0 / n)
+    dz = _widen(dz.to(store)) if store == torch.bfloat16 else _op(dz, mxu_bf16)
+    return dy * (dz @ wm).to(store), dy * (dz.T @ hm).to(store)
 
 
 # -- the kernels -----------------------------------------------------------
@@ -79,6 +99,9 @@ def _check(h, w, targets):
     if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
         raise ValueError(f"h [N, d] and w [V, d] expected, got "
                          f"{tuple(h.shape)} and {tuple(w.shape)}")
+    if h.dtype != w.dtype:
+        raise ValueError(f"h and w must share one storage type, got "
+                         f"{h.dtype} and {w.dtype}")
     if targets.shape != (h.shape[0],):
         raise ValueError(f"targets {tuple(targets.shape)} must be "
                          f"[{h.shape[0]}]")
@@ -91,6 +114,14 @@ def _check(h, w, targets):
 
 def _targets32(targets):
     return targets.to(torch.int32).contiguous()
+
+
+def _mode(h, mxu_bf16: bool) -> tuple[int, str]:
+    """The kernels' mode (0 f32, 1 f32 with bf16 operands, 2 bf16
+    storage) and the suffix its launches count under."""
+    if h.dtype == torch.bfloat16:
+        return 2, "[bf16]"
+    return int(bool(mxu_bf16)), ""
 
 
 # -- the statistics' plan and scratch (csrc/head_xent_fwd.cu) ---------------
@@ -139,12 +170,12 @@ def head_xent_stats(h, w, targets, *, mxu_bf16: bool = False):
     scratch = torch.empty(pieces.pop("total"), dtype=torch.float32,
                           device=h.device)
     base = scratch.data_ptr()
+    mode, suffix = _mode(h, mxu_bf16)
     _build.launch(FWD, "head_xent_stats_launch",
                   [h.data_ptr(), w.data_ptr(), t32.data_ptr(),
                    lse.data_ptr(), tz.data_ptr()]
                   + [base + 4 * off for _, off in pieces.values()],
-                  (n, d, v, *plan, int(bool(mxu_bf16))), h.device,
-                  STATS_COUNT)
+                  (n, d, v, *plan, mode), h.device, STATS_COUNT + suffix)
     return lse, tz
 
 
@@ -155,11 +186,11 @@ def head_xent_fwd(h, w, targets, *, mxu_bf16: bool = False):
     return (lse - tz).mean(), lse
 
 
-def _bwd_scratch_floats(n: int, d: int, v: int) -> int:
+def _bwd_scratch_floats(n: int, d: int, v: int, mode: int) -> int:
     fn = _build.load_library(BWD).head_xent_bwd_scratch_floats
-    fn.argtypes = [ctypes.c_int] * 3
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
-    return int(fn(n, d, v))
+    return int(fn(n, d, v, mode))
 
 
 def head_xent_bwd(dy, h, w, targets, lse, *, mxu_bf16: bool = False):
@@ -167,22 +198,26 @@ def head_xent_bwd(dy, h, w, targets, lse, *, mxu_bf16: bool = False):
     the vocabulary one launch forms the chunk's ``dz`` in a bounded
     scratch and one takes ``dh += dz w_c`` and ``dw_c = dz^T h`` from it
     (``csrc/head_xent_bwd.cu``). ``dz`` carries ``1/N``; the scalar ``dy``
-    scales both outside the kernels. CPU tensors run
+    scales both outside the kernels. ``dh`` and ``dw`` take the storage
+    type of ``h`` and ``w``; ``lse`` is f32. CPU tensors run
     ``head_xent_bwd_ref``."""
     n, d, v = _check(h, w, targets)
     if lse.shape != (n,):
         raise ValueError(f"lse {tuple(lse.shape)} must be [{n}]")
+    if lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32, got {lse.dtype}")
     if not _build.on_card(BWD, h, w, lse):
         return head_xent_bwd_ref(dy, h, w, targets, lse, mxu_bf16=mxu_bf16)
     t32 = _targets32(targets)
     dh, dw = torch.empty_like(h), torch.empty_like(w)
-    scratch = torch.empty(_bwd_scratch_floats(n, d, v), dtype=torch.float32,
-                          device=h.device)
+    mode, suffix = _mode(h, mxu_bf16)
+    scratch = torch.empty(_bwd_scratch_floats(n, d, v, mode),
+                          dtype=torch.float32, device=h.device)
     _build.launch(BWD, "head_xent_bwd_launch",
                   [h.data_ptr(), w.data_ptr(), t32.data_ptr(),
                    lse.data_ptr(), dh.data_ptr(), dw.data_ptr(),
                    scratch.data_ptr()],
-                  (n, d, v, int(bool(mxu_bf16))), h.device, BWD_COUNT)
+                  (n, d, v, mode), h.device, BWD_COUNT + suffix)
     return dy * dh, dy * dw
 
 

@@ -27,8 +27,12 @@ card (no boolean-mask indexing: dropped entries go to spare places that
 are cut off). Ties in the top-k go to
 the lower expert index, as ``lax.top_k`` breaks them (``torch.topk``
 makes no promise), and ``argmax`` takes the first maximum in both
-frameworks. The expert FFNs run the hand-VJP ``ops.ffn.ffn_block`` once
-per expert (JAX vmaps it).
+frameworks. The router's softmax and the top-k gates' renormalisation
+take JAX's steps and the transposes of JAX's differentiation rules
+(``softmax``, ``_Renormalize``): on bf16 each op rounds where JAX's does,
+where ``torch.softmax`` and autograd's division would round elsewhere.
+The expert FFNs run the hand-VJP ``ops.ffn.ffn_block`` once per expert
+(JAX vmaps it).
 """
 
 from __future__ import annotations
@@ -47,12 +51,62 @@ def expert_capacity(tokens: int, n_experts: int,
     return max(1, int(math.ceil(tokens / n_experts * capacity_factor)))
 
 
+def _sum_in_order(z: torch.Tensor) -> torch.Tensor:
+    """``z``'s sum over its last dim, one add at a time in index order,
+    each rounded to ``z``'s dtype: XLA's reduction of a bf16 cotangent on
+    the CPU (the transposes of JAX's rules below), where ``torch.sum``
+    would add in f32 and round once."""
+    acc = z[..., :1]
+    for k in range(1, z.shape[-1]):
+        acc = acc + z[..., k:k + 1]
+    return acc
+
+
+class _Softmax(torch.autograd.Function):
+    """``jax.nn.softmax`` over the last dim: ``e = exp(x - max)`` over its
+    sum ``w``, each op in the operand's dtype; the backward is JAX's
+    transpose of that division and exp, ``(g / w - sum(g w^-2 e)) e``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+        w = e.sum(dim=-1, keepdim=True)
+        ctx.save_for_backward(e, w)
+        return e / w
+
+    @staticmethod
+    def backward(ctx, g):
+        e, w = ctx.saved_tensors
+        return (g / w - _sum_in_order(g * (1 / (w * w)) * e)) * e
+
+
+def softmax(logits: torch.Tensor) -> torch.Tensor:
+    """The router's softmax over experts (``_Softmax``)."""
+    return _Softmax.apply(logits)
+
+
+class _Renormalize(torch.autograd.Function):
+    """The top-k gates over their sum, JAX's ``g / jnp.sum(g)`` and its
+    transpose, ``c / s - sum(c s^-2 g)``."""
+
+    @staticmethod
+    def forward(ctx, gates):
+        total = gates.sum(dim=-1, keepdim=True)
+        ctx.save_for_backward(gates, total)
+        return gates / total
+
+    @staticmethod
+    def backward(ctx, c):
+        gates, total = ctx.saved_tensors
+        return c / total - _sum_in_order(c * (1 / (total * total)) * gates)
+
+
 def route_top1(wg: torch.Tensor, x: torch.Tensor):
     """Top-1 router. ``wg [E, d]``, ``x [T, d]`` -> ``(idx [T], gate [T])``,
     ``gate`` the chosen expert's softmax probability (the differentiable
     path to the router)."""
     logits = x @ wg.T
-    probs = torch.softmax(logits, dim=-1)
+    probs = softmax(logits)
     idx = torch.argmax(logits, dim=-1)
     return idx, probs.gather(-1, idx[:, None])[:, 0]
 
@@ -63,12 +117,12 @@ def route_topk(wg: torch.Tensor, x: torch.Tensor, k: int = 2,
     of largest logit, a tie to the lower index (a stable descending sort,
     ``lax.top_k``'s order); with ``renormalize`` the k gates sum to 1."""
     logits = x @ wg.T
-    probs = torch.softmax(logits, dim=-1)
+    probs = softmax(logits)
     idx = torch.sort(logits.detach(), dim=-1, descending=True,
                      stable=True).indices[:, :k]
     gates = probs.gather(-1, idx)
     if renormalize:
-        gates = gates / gates.sum(dim=-1, keepdim=True)
+        gates = _Renormalize.apply(gates)
     return idx, gates
 
 
@@ -282,7 +336,7 @@ def router_aux_loss(wg: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     gradient through ``P_e``. It is 1 at uniform routing."""
     logits = x @ wg.T
     n_experts = wg.shape[0]
-    probs = torch.softmax(logits, dim=-1)
+    probs = softmax(logits)
     top1 = F.one_hot(torch.argmax(logits.detach(), dim=-1),
                      n_experts).to(probs.dtype)
     return n_experts * torch.sum(top1.mean(0) * probs.mean(0))

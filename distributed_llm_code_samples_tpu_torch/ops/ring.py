@@ -28,7 +28,9 @@ call. The kernels and the plain versions add the same f32 pairs in the
 same order, so they agree bit for bit; on bf16 tensors (``--dtype
 bfloat16``) the all-reduce and the reduce-scatter round each add to
 bf16, in that order on both sides, as the Pallas kernels' adds on bf16
-refs do.
+refs do, and the hop, the all-gather and the all-to-all move the bf16
+bytes as 4-byte words (a hop or all-to-all chunk of an odd element
+count through copies padded by one element a chunk).
 
 The kernels store into peers' workspaces, never into peers' tensors
 (PyTorch's allocator does not map them to other processes): a
@@ -463,14 +465,40 @@ def _words(ts, op: str = ALL_GATHER, n: int = 1) -> list:
     return [t.reshape(-1).view(torch.float32) for t in ts]
 
 
+def _parts(op: str, n: int) -> int:
+    """The chunks a hop's or an all-to-all's tensor splits into."""
+    return n if op == ALL_TO_ALL else 1
+
+
+def _odd(op: str, x: torch.Tensor, n: int) -> bool:
+    """Whether a bf16 hop or all-to-all of ``x`` has chunks of an odd
+    element count, which move through copies padded by one element a
+    chunk (``_launch``)."""
+    return (x.dtype == torch.bfloat16 and op in (HOP, ALL_TO_ALL)
+            and x.numel() // _parts(op, n) % 2 == 1)
+
+
+def _padded(t: torch.Tensor, parts: int) -> torch.Tensor:
+    """``t`` as ``[parts, chunk + 1]``: each chunk and one zero after it."""
+    return torch.nn.functional.pad(t.reshape(parts, -1), (0, 1))
+
+
 def _launch(op: str, ins, outs, ws: PeerWorkspace, rank: int) -> None:
     """One launch over ``ws`` (``rank < 0``: loopback, one input and
     output a rank); counts one launch of ``op``, or of ``op[bf16]`` on bf16
-    tensors (the all-gather's moved as bytes, the all-reduce's and the
-    reduce-scatter's summed in bf16; the hop and the all-to-all take
-    float32 only)."""
+    tensors (the hop's, the all-gather's and the all-to-all's moved as
+    bytes, the all-reduce's and the reduce-scatter's summed in bf16). A
+    bf16 hop or all-to-all whose chunks hold an odd element count moves
+    copies of its chunks padded by one element each, and its outputs are
+    copied out of the padded ones after the launch."""
     count_as = op
     bf16 = ins[0].dtype == torch.bfloat16
+    staged = None
+    if _odd(op, ins[0], ws.n):
+        parts = _parts(op, ws.n)
+        staged = outs
+        ins = [_padded(t, parts) for t in ins]
+        outs = [torch.empty_like(t) for t in ins]
     if bf16:
         ins, outs = _words(ins, op, ws.n), _words(outs, op)
         count_as = op + "[bf16]"
@@ -505,6 +533,10 @@ def _launch(op: str, ins, outs, ws: PeerWorkspace, rank: int) -> None:
     ws.region_calls, ws.region_last = region_record(
         op, ws.region_calls, ws.region_last, epoch, nblk)
     _build.count_launch(count_as)
+    if staged is not None:
+        for o, p in zip(staged, outs):
+            padded = p.view(torch.bfloat16).reshape(parts, -1)
+            o.copy_(padded[:, :-1].reshape(o.shape))
 
 
 def _check_split(op: str, x: torch.Tensor, n: int) -> None:
@@ -547,8 +579,10 @@ def workspace_bytes(op: str, x: torch.Tensor, n: int) -> int:
     slot for each rank, at the rank's offset: n shards for the
     all-gather), of the reduce-scatter (n-1 chunk slots), and of the
     all-reduce (n-1 pushed chunk slots in one region, n summed ones in
-    the other: the tensor)."""
-    nbytes = x.numel() * x.element_size()
+    the other: the tensor). A bf16 hop or all-to-all of odd chunks needs
+    room for their padded copies (``_launch``)."""
+    nbytes = (x.numel() + (_parts(op, n) if _odd(op, x, n) else 0)) \
+        * x.element_size()
     return {HOP: nbytes, ALL_REDUCE: nbytes, ALL_GATHER: n * nbytes,
             ALL_TO_ALL: nbytes, REDUCE_SCATTER: (n - 1) * nbytes // n}[op]
 
@@ -591,7 +625,9 @@ def ppermute_dma(x: torch.Tensor, ring) -> torch.Tensor:
     (``lax.ppermute(perm=[(i, (i+1) % n)])``). The kernel pushes it into
     the neighbour's landing region, range by range, and the neighbour
     copies each range out as it lands; the plain version is one
-    ``isend``/``irecv`` pair."""
+    ``isend``/``irecv`` pair. It takes float32 or bf16 (any element
+    count: bf16 as the float32 words of its bytes, counted as
+    ``ppermute_dma[bf16]``)."""
     return _collective(HOP, x, ring)
 
 
@@ -625,7 +661,9 @@ def all_to_all_dma(x: torch.Tensor, ring) -> torch.Tensor:
     """The dense all-to-all over the leading dim (``all_to_all(x,
     split_dim=0, concat_dim=0)``): chunk j of rank r lands at chunk r of
     rank j, each (source, destination) pair a direct store. ``x.shape[0]``
-    must divide by n."""
+    must divide by n. It takes float32 or bf16 (bf16 as the float32 words
+    of its bytes, counted as ``all_to_all_dma[bf16]``; chunks of any
+    element count)."""
     return _collective(ALL_TO_ALL, x, ring)
 
 

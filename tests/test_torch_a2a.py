@@ -10,13 +10,17 @@ on the conftest ``mesh4``, as ``tests/test_pallas_ring.py`` does. Every
 rank gets the same numpy block as the JAX device of its index.
 
 Tolerance: none. The exchange moves chunks and adds nothing, so every
-result, forward and backward, is equal bit for bit.
+result, forward and backward, is equal bit for bit. The bf16 cases
+(``--dtype bfloat16``'s EP) move the bits of bf16 blocks, EP's dispatch
+operand and one whose chunk holds an odd element count (the kernel
+moves it through a copy padded by one element a chunk).
 """
 
 import functools
 import zlib
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -33,7 +37,8 @@ from distributed_llm_code_samples_tpu_torch.parallel.launcher import (
 N = 4
 # (case, per-rank block shape): the dim-0 exchange of a 2-D block, a 3-D
 # one, and EP's dispatch operand [E, C, d] at test size
-CASES = [("2d", (8, 32)), ("3d", (8, 3, 5)), ("ep", (8, 6, 16))]
+CASES = [("2d", (8, 32)), ("3d", (8, 3, 5)), ("ep", (8, 6, 16)),
+         ("ep_bf16", (8, 6, 16)), ("odd_bf16", (4, 3, 5))]
 # (split_dim, concat_dim, per-rank input shape): EP's dispatch and its
 # return ([E/n, n*C, d] back to [E, C, d])
 DIMS = [(0, 1, (8, 6, 16)), (1, 0, (2, 24, 16))]
@@ -41,7 +46,26 @@ DIMS = [(0, 1, (8, 6, 16)), (1, 0, (2, 24, 16))]
 
 def _blocks(case, shape):
     rng = np.random.default_rng(zlib.crc32(case.encode()))
-    return rng.normal(size=(N,) + shape).astype(np.float32)
+    out = rng.normal(size=(N,) + shape).astype(np.float32)
+    if case.endswith("_bf16"):    # bf16 values, widened exactly
+        out = np.asarray(jnp.asarray(out, jnp.bfloat16)).astype(np.float32)
+    return out
+
+
+def _as_port(case, block):
+    t = torch.from_numpy(block)
+    return t.bfloat16() if case.endswith("_bf16") else t
+
+
+def _as_jax(case, blocks):
+    return jnp.asarray(blocks, jnp.bfloat16) if case.endswith("_bf16") \
+        else blocks
+
+
+def _np(t):
+    """A port output as f32 numpy (bf16 widened exactly)."""
+    assert t.dtype in (torch.float32, torch.bfloat16)
+    return t.float().numpy()
 
 
 def _identifying():
@@ -100,9 +124,9 @@ def port_results():
     inputs = {case: _blocks(case, shape) for case, shape in CASES}
     inputs["identifying"] = _identifying()
     calls = [(ring.all_to_all_dma,
-              (PerRank([torch.from_numpy(b) for b in inputs[c]]), MESH), {})
+              (PerRank([_as_port(c, b) for b in inputs[c]]), MESH), {})
              for c in inputs]
-    calls += [(all_to_all, (PerRank([torch.from_numpy(b)
+    calls += [(all_to_all, (PerRank([_as_port(c, b)
                                      for b in inputs[c]]), MESH),
                dict(split_dim=0, concat_dim=0)) for c in inputs]
     dims = {}
@@ -132,13 +156,16 @@ def port_results():
 @pytest.mark.parametrize("case", [c for c, _ in CASES] + ["identifying"])
 def test_plain_a2a_equals_pallas_a2a(mesh4, port_results, case):
     blocks = port_results["inputs"][case]
-    want = _jax_a2a(mesh4, blocks)
+    want = _jax_a2a(mesh4, _as_jax(case, blocks)).astype(np.float32)
     for r in range(N):
-        got = port_results["kernel"][case][r].numpy()
+        out = port_results["kernel"][case][r]
+        assert out.dtype == (torch.bfloat16 if case.endswith("_bf16")
+                             else torch.float32)
+        got = _np(out)
         assert got.shape == want[r].shape
         np.testing.assert_array_equal(got, want[r])
         # torch.distributed's all_to_all_single gives the same
-        np.testing.assert_array_equal(port_results["psum"][case][r].numpy(),
+        np.testing.assert_array_equal(_np(port_results["psum"][case][r]),
                                       want[r])
     if case == "identifying":
         for r in range(N):
@@ -175,6 +202,6 @@ def test_loopback_ref_is_the_exchange(port_results):
     gives the gloo ranks' results bit for bit."""
     for case, blocks in port_results["inputs"].items():
         want = ring.loopback_ref(ring.ALL_TO_ALL,
-                                 [torch.from_numpy(b) for b in blocks])
+                                 [_as_port(case, b) for b in blocks])
         for r in range(N):
             assert torch.equal(port_results["kernel"][case][r], want[r])

@@ -264,13 +264,20 @@ def test_cli_method_0_in_bf16_reports_its_checks():
 
 
 @pytest.mark.parametrize("extra", [
-    ("-m", "7"), ("-m", "8"), ("-m", "11"),
+    ("-m", "3", "--optimizer", "adamw"), ("-m", "2", "--optimizer",
+                                           "momentum"),
+    ("-m", "3", "--clip_norm", "0.5"),
     ("-m", "2", "--optimizer", "adam"), ("-m", "2", "--zero1"),
     ("-m", "3", "--clip_norm", "1.0"), ("-m", "1", "--mixed")])
-def test_cli_refuses_bf16_where_it_is_not_ported(extra):
+def test_cli_refuses_bf16_where_it_is_not_ported(extra, capsys):
+    """The optimizer options on bf16 params exit 2, naming the queue
+    they wait in (methods 7, 8 and 11 train on bf16:
+    ``test_torch_lm_bf16.py``, ``test_torch_train_lm_tp_bf16.py``,
+    ``test_torch_train_moe_bf16.py``)."""
     from distributed_llm_code_samples_tpu_torch import cli
     assert cli.main(["--device", "cpu", "--dtype", "bfloat16",
                      *extra]) == 2
+    assert "ROADMAP.md Queue 1" in capsys.readouterr().err
 
 
 def test_cli_float32_dtype_changes_nothing(capsys):

@@ -1,9 +1,8 @@
 """The CUDA kernels of the LM trainer's path (flash attention forward and
 backward; the fused head's statistics and backward), the three FFN
 kernels, the paged decode attention, the ring kernels and the
-all-to-all against their plain versions, on the card (the flash kernels,
-the FFN kernels, the all-gather, the all-reduce and the reduce-scatter
-also on bf16 storage), and the loopback trainers
+all-to-all against their plain versions, on the card (every one of
+them also on bf16 storage), and the loopback trainers
 that run them (and TP's, which runs none). Every
 test here needs a CUDA device with nvcc and skips without one. The file
 imports no JAX, so it runs where the card is:
@@ -1262,18 +1261,20 @@ def test_ring_all_gather_bf16_bits_in_loopback(card, n, shape):
 
 @pytest.mark.cuda
 def test_kernels_refuse_bf16_they_do_not_take(card):
-    """No bf16 tensor reaches a kernel that does not take bf16: the hop,
-    the all-to-all and the fused head's two kernels raise, naming the
-    slice that brings bf16 to them; a bf16 gather of an odd element
-    count, a bf16 all-reduce or reduce-scatter whose chunk has an odd
-    element count, and FFN operands of two storage types raise too."""
+    """No tensor reaches a kernel in a storage type it does not take:
+    float16 at the hop, the all-to-all and the fused head's two kernels
+    raises, naming the types they take (float32 and bf16 since the
+    --dtype bfloat16 slice of the LM, transformer and MoE methods); a
+    bf16 gather of an odd element count, a bf16 all-reduce or
+    reduce-scatter whose chunk has an odd element count, FFN operands
+    and head operands of two storage types raise too."""
     from distributed_llm_code_samples_tpu_torch.ops import ring
     ws = ring.PeerWorkspace(1 << 16, "cuda", n=2)
     try:
-        xs = [torch.ones(8, 4, device="cuda", dtype=torch.bfloat16)
+        xs = [torch.ones(8, 4, device="cuda", dtype=torch.float16)
               for _ in range(2)]
         for op in (ring.HOP, ring.ALL_TO_ALL):
-            with pytest.raises(ValueError, match="--dtype bfloat16"):
+            with pytest.raises(ValueError, match="bfloat16"):
                 ring.loopback(op, xs, ws)
         with pytest.raises(ValueError, match="odd"):
             ring.loopback(ring.ALL_GATHER, [torch.ones(3, device="cuda",
@@ -1290,13 +1291,14 @@ def test_kernels_refuse_bf16_they_do_not_take(card):
     with pytest.raises(ValueError, match="one storage type"):
         p_ff.ffn_fwd_fused(w1.bfloat16(), w2.bfloat16(), x)
     h, w, t = head_case((16, 8, 40))
-    with pytest.raises(ValueError, match="--dtype bfloat16"):
-        p_fx.head_xent_stats(h.bfloat16(), w.bfloat16(), t)
+    with pytest.raises(ValueError, match="bfloat16"):
+        p_fx.head_xent_stats(h.half(), w.half(), t)
     lse, _ = p_fx.head_xent_stats_ref(h, w, t)
-    with pytest.raises(ValueError, match="--dtype bfloat16"):
-        p_fx.head_xent_bwd(torch.tensor(1.0, device="cuda"), h.bfloat16(),
-                           w.bfloat16(), t, lse)
-
+    with pytest.raises(ValueError, match="bfloat16"):
+        p_fx.head_xent_bwd(torch.tensor(1.0, device="cuda"), h.half(),
+                           w.half(), t, lse)
+    with pytest.raises(ValueError, match="one storage type"):
+        p_fx.head_xent_stats(h.bfloat16(), w, t)
 
 # -- bf16 storage in the FFN kernels and the ring sums (--dtype bfloat16) ---
 #
@@ -1430,6 +1432,208 @@ def test_ring_bf16_sums_in_sequence_with_f32_calls(card, n):
            (ring.REDUCE_SCATTER, (n * 192, 3072), bf),
            (ring.ALL_REDUCE, (3072, 768), bf),
            (ring.ALL_REDUCE, (768, 3072), bf))
+    ws = ring.PeerWorkspace(4 * 3072 * 768, "cuda", n=n)
+    try:
+        for i, (op, shape, dtype) in enumerate(seq + seq):
+            xs = [normal(rng, *shape).to(dtype) for _ in range(n)]
+            got = ring.loopback(op, xs, ws)
+            for g, w in zip(got, ring.loopback_ref(op, xs)):
+                assert g.dtype == dtype and torch.equal(
+                    g.view(torch.int16), w.view(torch.int16)), (i, op)
+        ws.check()
+    finally:
+        ws.close()
+
+
+# -- the fused head, the hop and the all-to-all on bf16 storage ------------
+
+def bf16_near(got, want, share=0.05):
+    """``got`` (bf16) within one bf16 step of ``want`` rounded to bf16, a
+    step at the larger of an element's magnitude and ``want``'s RMS, in
+    at most ``share`` of the elements (an f32 sum rounds to the other
+    neighbour only near a rounding tie)."""
+    assert got.dtype == torch.bfloat16
+    w = want.to(torch.bfloat16).double()
+    g = got.double()
+    rms = w.pow(2).mean().sqrt()
+    _, e = torch.frexp(torch.maximum(torch.maximum(g.abs(), w.abs()), rms))
+    steps = (g - w).abs() / torch.ldexp(torch.ones_like(w), e - 8)
+    return float(steps.max()) <= 1 and float((g != w).double().mean()) <= \
+        share
+
+
+def head_want_bf16(h, w, t, lse):
+    """The head backward in float64 on bf16 ``h``, ``w`` as the kernels
+    compute it: ``dz`` rounded to bf16 before both products."""
+    z = h.double() @ w.double().T
+    n, v = z.shape
+    tl = t.long()
+    valid = (tl >= 0) & (tl < v)
+    p = (z - lse.double()[:, None]).exp()
+    rows = valid.nonzero()[:, 0]
+    p[rows, tl[rows]] -= 1.0
+    dz = (p / n).to(torch.bfloat16).double()
+    return dz @ w.double(), dz.T @ h.double()
+
+
+HEAD_BF16_SHAPES = HEAD_SHAPES + HEAD_BWD_RAGGED
+
+
+def head_case_bf16(shape):
+    h, w, t = head_case(shape)
+    return h.bfloat16(), w.bfloat16(), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HEAD_BF16_SHAPES)
+def test_head_stats_bf16_storage_matches_plain(card, shape):
+    """The statistics of bf16 h and w: f32 lse and tz within 1e-4 of the
+    plain version and of float64 on the same values (the logits are f32
+    products of the exact values); targets -1 and V give tz 0; two calls
+    bit-equal, counted as ``head_xent_stats[bf16]``."""
+    h, w, t = head_case_bf16(shape)
+    t[0], t[1] = -1, shape[2]
+    counts = _build.launch_counts()
+    got = p_fx.head_xent_stats(h, w, t)
+    again = p_fx.head_xent_stats(h, w, t)
+    after = _build.launch_counts()
+    name = p_fx.STATS_COUNT
+    assert after[name + "[bf16]"] == counts.get(name + "[bf16]", 0) + 2
+    assert after.get(name, 0) == counts.get(name, 0)
+    assert all(g.dtype == torch.float32 for g in got)
+    assert float(got[1][0]) == 0.0 and float(got[1][1]) == 0.0
+    agree(got, again, p_fx.head_xent_stats_ref(h, w, t), False)
+    for g, w64 in zip(got, p_fx.head_xent_stats_ref(h.double(), w.double(),
+                                                    t)):
+        err = float((g.double() - w64).abs().max())
+        assert err <= 1e-4 * float(w64.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HEAD_BF16_SHAPES)
+def test_head_bwd_bf16_storage_matches_plain(card, shape):
+    """The backward on bf16 storage (one vocab chunk, and three past the
+    8192-column chunk, whose dh sums across the chunks in f32 and rounds
+    once): bf16 dh and dw within one bf16 step of the plain version and
+    of float64 with dz rounded to bf16, in at most 5% of them; two calls
+    bit-equal, counted as ``head_xent_bwd[bf16]``."""
+    h, w, t = head_case_bf16(shape)
+    lse, _ = p_fx.head_xent_stats_ref(h, w, t)
+    dy = torch.tensor(1.0, device="cuda")
+    counts = _build.launch_counts()
+    got = p_fx.head_xent_bwd(dy, h, w, t, lse)
+    again = p_fx.head_xent_bwd(dy, h, w, t, lse)
+    after = _build.launch_counts()
+    name = p_fx.BWD_COUNT
+    assert after[name + "[bf16]"] == counts.get(name + "[bf16]", 0) + 2
+    assert after.get(name, 0) == counts.get(name, 0)
+    for g, a, p, w64 in zip(got, again, p_fx.head_xent_bwd_ref(
+            dy, h, w, t, lse), head_want_bf16(h, w, t, lse)):
+        assert bf16_bits(g, a)
+        assert bf16_near(g, p.double()) and bf16_near(g, w64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", VOCAB_SHARDS[1:])
+def test_head_bf16_on_a_vocab_shard(card, shape):
+    """Each rank's bf16 rows of w with the targets shifted by its first
+    row (some in the pad range of an unaligned shard): its f32 lse and tz
+    within 1e-4 of the plain version's, and its bf16 dh and dw given the
+    merged lse within one bf16 step of the plain version's."""
+    n, d, v, ranks = shape
+    vl = v // ranks
+    rng = np.random.default_rng(v)
+    h = normal(rng, n, d).bfloat16()
+    w = normal(rng, v, d, scale=0.02).bfloat16()
+    t = rng.integers(0, v, size=n)
+    j = np.arange(n // 2)
+    t[:n // 2] = ((j // 3) % (ranks - 1) + 1) * vl + j % 3
+    t = torch.from_numpy(t).cuda()
+    dy = torch.tensor(1.0, device="cuda")
+    lse_g = p_fx.head_xent_stats_ref(h, w, t)[0]
+    for r in range(ranks):
+        wr, tr = w[r * vl:(r + 1) * vl], t - r * vl
+        got = p_fx.head_xent_stats(h, wr, tr)
+        agree(got, got, p_fx.head_xent_stats_ref(h, wr, tr), False)
+        for g, p in zip(p_fx.head_xent_bwd(dy, h, wr, tr, lse_g),
+                        p_fx.head_xent_bwd_ref(dy, h, wr, tr, lse_g)):
+            assert bf16_near(g, p.double())
+
+
+@pytest.mark.cuda
+def test_head_f32_bits_unchanged_beside_bf16(card):
+    """The f32 head backward's digest (``chip_smoke.py``'s stored one)
+    holds after bf16 calls of both head kernels."""
+    h, w, t = head_case_bf16((300, 45, 16411))
+    lse, _ = p_fx.head_xent_stats(h, w, t)
+    p_fx.head_xent_bwd(torch.tensor(1.0, device="cuda"), h, w, t, lse)
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    assert chip_smoke.head_bits_digest(torch, np, p_fx) == \
+        chip_smoke.HEAD_BITS_SHA256
+
+
+# the hop's and the all-to-all's bf16 blocks at n ranks: an even element
+# count a chunk (the kernel on the words), an odd one (105 for the hop, 5
+# a chunk for the all-to-all: through the padded copies), and the main
+# path's (the hop's block; EP's dispatch operand at n = 4)
+BF16_MOVE_SHAPES = {"hop": {"even": lambda n: (3, 16),
+                            "odd": lambda n: (3, 5, 7),
+                            "main": lambda n: (768, 3072)},
+                    "a2a": {"even": lambda n: (2 * n, 6, 16),
+                            "odd": lambda n: (n, 5),
+                            "main": lambda n: (2 * n, 512, 768)}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["even", "odd", "main"])
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("op", ["hop", "a2a"])
+def test_hop_and_a2a_bf16_bits_in_loopback(card, op, n, shape):
+    """The hop and the all-to-all of bf16 blocks move the bits: bit for
+    bit the plain version's (also an odd element count a chunk), two
+    calls bit-equal, bf16 out, counted as ``<op>[bf16]``."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    name = {"hop": ring.HOP, "a2a": ring.ALL_TO_ALL}[op]
+    rng = np.random.default_rng(n)
+    xs = [normal(rng, *BF16_MOVE_SHAPES[op][shape](n)).bfloat16()
+          for _ in range(n)]
+    assert ring._odd(name, xs[0], n) == (shape == "odd")
+    ws = ring.PeerWorkspace(ring.workspace_bytes(name, xs[0], n), "cuda",
+                            n=n)
+    try:
+        counts = _build.launch_counts()
+        got = ring.loopback(name, xs, ws)
+        again = ring.loopback(name, xs, ws)
+        after = _build.launch_counts()
+        assert after[name + "[bf16]"] == counts.get(name + "[bf16]", 0) + 2
+        assert after.get(name, 0) == counts.get(name, 0)
+        ws.check()
+        for g, a, w in zip(got, again, ring.loopback_ref(name, xs)):
+            assert g.shape == w.shape
+            assert bf16_bits(g, w) and bf16_bits(a, w)
+    finally:
+        ws.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_bf16_moves_in_sequence_with_other_calls(card, n):
+    """bf16 hops and all-to-alls (even and odd element counts) mixed into
+    a sequence of f32 and bf16 calls of every ring op on one workspace
+    (the landing regions in turn): every output bit-identical to its
+    plain version."""
+    from distributed_llm_code_samples_tpu_torch.ops import ring
+    rng = np.random.default_rng(80 + n)
+    bf, f32 = torch.bfloat16, torch.float32
+    seq = ((ring.HOP, (5, 7), bf), (ring.ALL_TO_ALL, (n * 8, 64), bf),
+           (ring.ALL_GATHER, (6, 34), bf), (ring.HOP, (768, 3072), bf),
+           (ring.ALL_REDUCE, (n * 4, 34), bf),
+           (ring.ALL_TO_ALL, (n * 3, 5), bf),
+           (ring.REDUCE_SCATTER, (n * 5, 8), f32),
+           (ring.ALL_TO_ALL, (n * 3, 101), f32), (ring.HOP, (3, 5), bf),
+           (ring.ALL_TO_ALL, (2 * n, 512, 768), bf),
+           (ring.ALL_REDUCE, (3072, 768), bf))
     ws = ring.PeerWorkspace(4 * 3072 * 768, "cuda", n=n)
     try:
         for i, (op, shape, dtype) in enumerate(seq + seq):

@@ -13,7 +13,8 @@ the same f32 pairs in the same ring order on both sides (rank r adds its
 own chunk ``(r - s - 1) % n`` to the partial that arrived at step s), so
 the results are equal bit for bit. The bf16 cases (``--dtype bfloat16``)
 add bf16 pairs in that order, each partial sum rounded to bf16 on both
-sides (the Pallas kernels add on bf16 refs): bit for bit as well.
+sides (the Pallas kernels add on bf16 refs): bit for bit as well; the
+bf16 hop moves the bits, also of an odd element count.
 """
 
 import functools
@@ -45,13 +46,16 @@ CASES = [
     ("all_gather_3d", "ring_all_gather", (2, 3, 5)),
 ]
 # the same ops on bf16 blocks: the sums round every add (an even element
-# count a chunk), the gather moves the bits
+# count a chunk), the gather and the hop move the bits (the hop also an
+# odd element count, which the kernel moves through a padded copy)
 BF16_CASES = [
     ("all_reduce_bf16", "ring_all_reduce", (16, 32)),
     ("all_reduce_3d_bf16", "ring_all_reduce", (8, 4, 8)),
     ("reduce_scatter_bf16", "ring_reduce_scatter", (16, 32)),
     ("reduce_scatter_3d_bf16", "ring_reduce_scatter", (8, 4, 6)),
     ("all_gather_bf16", "ring_all_gather", (4, 32)),
+    ("hop_bf16", "ppermute_dma", (3, 16)),
+    ("hop_odd_bf16", "ppermute_dma", (3, 5)),
 ]
 
 

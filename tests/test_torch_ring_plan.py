@@ -233,6 +233,16 @@ SEQUENCES = {
                    ring.HOP, ring.ALL_REDUCE, ring.ALL_REDUCE,
                    ring.REDUCE_SCATTER, ring.ALL_TO_ALL,
                    ring.REDUCE_SCATTER, ring.ALL_REDUCE, ring.ALL_REDUCE] * 2,
+    # --dtype bfloat16 of the MoE and LM methods: bf16 hops and
+    # all-to-alls are the launches of their words as well (an odd chunk
+    # the launch of its padded copy's words,
+    # test_bf16_hops_and_all_to_alls_are_the_launches_of_their_words):
+    # EP's two exchanges a layer each way after the opening hop, then
+    # hops and exchanges between bf16 sums and gathers
+    "ep_bf16": [ring.HOP] + [ring.ALL_TO_ALL] * 8 + [
+        ring.HOP, ring.ALL_GATHER, ring.ALL_TO_ALL, ring.HOP,
+        ring.ALL_REDUCE, ring.ALL_TO_ALL, ring.REDUCE_SCATTER, ring.HOP,
+        ring.ALL_TO_ALL, ring.ALL_REDUCE],
 }
 
 
@@ -622,6 +632,39 @@ def test_bf16_gather_is_the_float32_gather_of_its_words():
         assert out.dtype == torch.bfloat16
         assert torch.equal(out.view(torch.int16),
                            torch.cat(xs).view(torch.int16))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_bf16_hops_and_all_to_alls_are_the_launches_of_their_words(n):
+    """A bf16 hop or all-to-all hands the kernel the float32 words of its
+    bytes; one whose chunks hold an odd element count hands it the words
+    of a copy padded by one zero a chunk (``ring._launch``), and the
+    workspace has room for that copy. Moving the padded copies and
+    dropping the pads gives the plain exchange's bits."""
+    import torch
+    for op, parts in ((ring.HOP, 1), (ring.ALL_TO_ALL, n)):
+        even = torch.randn(n * 6, 4).bfloat16()
+        assert not ring._odd(op, even, n)
+        assert ring.workspace_bytes(op, even, n) == even.numel() * 2
+        w = ring._words([even], op, n)[0]
+        assert w.data_ptr() == even.data_ptr() and w.numel() * 2 == \
+            even.numel()
+        odd = torch.randn(parts, 3, 5).bfloat16()       # chunks of 15
+        assert ring._odd(op, odd, n)
+        assert not ring._odd(op, odd.float(), n)        # f32 moves as is
+        padded = ring._padded(odd, parts)
+        assert padded.shape == (parts, odd.numel() // parts + 1)
+        assert torch.equal(padded[:, :-1].reshape(odd.shape), odd)
+        assert (padded[:, -1] == 0).all()
+        assert ring.workspace_bytes(op, odd, n) == \
+            ring.workspace_bytes(op, ring._words([padded], op)[0], n)
+        xs = [torch.randn(parts, 3, 5).bfloat16() for _ in range(n)]
+        staged = ring.loopback_ref(op, [ring._words([ring._padded(x, parts)],
+                                                    op)[0] for x in xs])
+        for got, want in zip(staged, ring.loopback_ref(op, xs)):
+            got = got.view(torch.bfloat16).reshape(parts, -1)[:, :-1]
+            assert torch.equal(got.reshape(want.shape).view(torch.int16),
+                               want.view(torch.int16))
 
 
 @pytest.mark.parametrize("n", [2, 4])
