@@ -25,6 +25,9 @@
                                            # bf16; the FFN stack's, the
                                            # LM's, the transformer's and
                                            # the MoE stack's training
+    python3 chip_smoke.py --phase seq      # the LM kernels, ring attention
+                                           # and Ulysses, the LM at 4096
+                                           # positions on 4 virtual ranks
     python3 chip_smoke.py --phase dist     # ring, DDP/FSDP, all-to-all,
                                            # EP, TP, the hybrid, LM TP,
                                            # cli.py -m 0, 8, 11 and LM DP
@@ -39,6 +42,10 @@
                                              # sums, hop, all-to-all, EP,
                                              # LM TP and -m 0, 7, 8, 11 in
                                              # bf16 alone
+    python3 chip_smoke.py --phase dist-seq   # --phase seq's training on 4
+                                             # cards over NCCL and cli.py
+                                             # -m 13 ring and Ulysses (not
+                                             # in --phase dist)
 
 Builds every kernel of the port from ``csrc/`` (printing ptxas's spill
 counts as ``ptxas-spills``), holds each against its plain PyTorch
@@ -186,6 +193,24 @@ each split size, ``paged-splits``), then drives the port's paths:
   --head fused --attn flash``, ``-m 8 --attn flash`` and ``-m 7`` with
   ``--dtype bfloat16`` at their full widths (``dist-cli-m11-bf16``,
   ``dist-cli-m8-bf16``, ``dist-cli-m7-bf16``).
+
+- sequence parallelism (``--phase seq`` too): the flash kernels as the
+  causal ring of 4 loopback ranks calls them at the GPT-2-small LM's
+  attention over 4096 positions (``[2, 12, 4096, 64]``, 1024 a rank): every
+  hop's call, forward and backward, against float64 on its own inputs
+  with the causal-flipped control, and the ring's ``y``, ``lse`` and
+  gradients against float64 attention over the whole sequence, with the
+  control that must fail: the backward handed each hop's own ``lse``
+  (``seq-kernel``); the kernels at one hop's shape against their plain
+  versions (``lm-kernel-case``, shape ``seq-hop``); Ulysses on the
+  all-to-all kernel, bit for bit the plain exchange and the ``psum``
+  transport's (``seq-a2a``); ``train_lm_seq`` at that LM with flash
+  attention and the fused head, ring and Ulysses, 4 steps each with
+  exact launches (``seq-train-run``); one step of each at ``CHECK_LR``
+  against float64 over ``train_lm_single``'s error at 4096 positions
+  (``seq-train-check``). ``--phase dist-seq`` runs the training on 4 cards
+  over NCCL and ``cli.py -m 13 --attn flash --head fused`` at that shape,
+  ring and Ulysses (``dist-cli-m13-ring``, ``-ulysses``).
 
 It fails (exit code 1) if there is no CUDA device, if a kernel does not
 build, launch or agree, if a kernel path did not go through its
@@ -1662,11 +1687,14 @@ def lm_train_phase(torch, np, card):
     return launches
 
 
-def lm_kernel_rows(cases, launches, tp_launches=None, dp_launches=None):
+def lm_kernel_rows(cases, launches, tp_launches=None, dp_launches=None,
+                   seq_launches=None):
     """The LM kernels' rows of the kernels line: ``launches`` from the
     single-device LM run, ``tp_launches`` (a rank's) from the first LM TP
-    run (``lmtp_phase``) and ``dp_launches`` (a rank's, by run) from the
-    f32 data-parallel runs (``lmdp_phase``), where they ran."""
+    run (``lmtp_phase``), ``dp_launches`` (a rank's, by run) from the
+    f32 data-parallel runs (``lmdp_phase``) and ``seq_launches`` (all
+    ranks', by run) from the sequence-parallel runs (``seq_phase``),
+    where they ran; ``seq_hop_ms`` the flash kernels at one ring hop."""
     rows = []
     for name, _, _, src, replaces, counted in LM_KERNELS:
         mine = [c for c in cases if c["kernel"] == name]
@@ -1685,9 +1713,12 @@ def lm_kernel_rows(cases, launches, tp_launches=None, dp_launches=None):
             "lmtp_launches_per_rank": None if tp_launches is None
             else sum(tp_launches.get(c, 0) for c in counted),
             "lmdp_launches_per_rank": dp_rows(dp_launches, counted),
+            "seq_launches": dp_rows(seq_launches, counted),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "max_rel_err": max(c["rel_err"] for c in mine),
             "ms": main["ms"], "ms_bf16": main_bf16["ms"],
+            "seq_hop_ms": next((c["ms"] for c in mine
+                                if c["shape"] == "seq-hop"), None),
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "ok": all(c["ok"] for c in mine)})
@@ -2423,9 +2454,10 @@ def ep_train_phase(torch, np, card):
     return launches
 
 
-def a2a_kernel_row(cases, launches, mode="loopback"):
+def a2a_kernel_row(cases, launches, mode="loopback", seq_launches=None):
     """The all-to-all's entry of the kernels line: launches from the main
-    path's runs (the three dispatches), the rest from the main case."""
+    path's runs (the three dispatches; ``seq_launches`` from Ulysses on
+    the kernel, ``seq_a2a_phase``), the rest from the main case."""
     main = next(c for c in cases if c["shape"] == A2A_MAIN)
     return {
         "name": "all_to_all_dma", "route": "cuda",
@@ -2434,6 +2466,7 @@ def a2a_kernel_row(cases, launches, mode="loopback"):
         "replaces": f"distributed_llm_code_samples_tpu/{A2A_REPLACES}",
         "launches": None if launches is None
         else sum(run.get("all_to_all_dma", 0) for run in launches.values()),
+        "seq_launches": seq_launches,
         "mode": mode, "ranks": EP_N,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -3898,6 +3931,524 @@ def lmdp_phase(torch, np, card, cards: int = 0):
         check(ratio <= UPDATE_RATIO, f"lmdp {label}'s update {ratio:.2f}x as "
               "far from float64 as the single-device f32 gradients' sum")
     check(min(unchanged) > UPDATE_RATIO,
+          "the update check cannot tell unchanged weights from trained")
+    return launches
+
+
+# -- sequence parallelism: ring attention and Ulysses ------------------------
+#
+# The long-context LM: the GPT-2-small width of LM at 4096 positions over
+# SEQ_N seq ranks (1024 tokens a rank), 2 sequences a step: 8192 tokens, as
+# LM's 16 x 512, so the two step times compare.
+SEQ_N = RING_N
+SEQ_LM = dict(seq_len=4096, batch=2, steps=4)
+SEQ_TOKENS = SEQ_LM["batch"] * SEQ_LM["seq_len"]
+SEQ_IMPLS = ("ring", "ulysses")
+SEQ_DH = LM["d_model"] // LM["n_heads"]
+SEQ_BLOCK_FLOPS = 3 * SEQ_LM["batch"] * LM["n_layers"] * (
+    8 * SEQ_LM["seq_len"] * LM["d_model"] ** 2
+    + 2 * SEQ_LM["seq_len"] ** 2 * LM["d_model"]
+    + 16 * LM["d_model"] ** 2 * SEQ_LM["seq_len"])
+SEQ_FLOPS = SEQ_BLOCK_FLOPS + 6 * SEQ_TOKENS * LM["d_model"] * LM["vocab"]
+# cli.py -m 13 at the same shape on every card (--phase dist-seq)
+SEQ_CLI_SHAPE = ("-m", "13", "--attn", "flash", "--head", "fused", "-s", "4",
+                 "-bs", str(SEQ_LM["batch"]), "-n", str(SEQ_LM["seq_len"]),
+                 "-l", str(LM["n_layers"]), "-d", str(LM["d_model"]), "-r",
+                 "7", "--heads", str(LM["n_heads"]), "--vocab",
+                 str(LM["vocab"]))
+CLI_SEQ = tuple((f"dist-cli-m13-{impl}", SEQ_CLI_SHAPE + ("--seq_impl", impl))
+                for impl in SEQ_IMPLS)
+# the ring's flash calls by the rank whose thread made them (loopback)
+_SEQ_THREAD_RANK: dict = {}
+
+
+def seq_want(seq_impl, steps, rank=None):
+    """The LM kernels' launches in ``steps`` steps of a seq rank (``rank``
+    None: of all SEQ_N ranks). The causal ring runs the flash forward and
+    backward on the blocks at or before the rank's own: rank r on r + 1
+    of the n a layer; Ulysses runs them once a layer on the whole
+    sequence of its heads; the fused head's two kernels once a step."""
+    ranks = range(SEQ_N) if rank is None else [rank]
+    layers = LM["n_layers"] * steps
+    flash = sum(layers * (r + 1 if seq_impl == "ring" else 1) for r in ranks)
+    return {"flash_attn_fwd": flash, "flash_attn_dq": flash,
+            "flash_attn_dkv": flash, "head_xent_stats": steps * len(ranks),
+            "head_xent_bwd": steps * len(ranks)}
+
+
+def seq_device_time(prof, wall_ms):
+    """The device busy time and idle share of a traced run, and the flash
+    kernels' and the fused head's device ms in it."""
+    parts = lm_parts(prof)
+    summary = profile_summary(prof, wall_ms)
+    return dict(traced_wall_ms=wall_ms,
+                device_busy_ms=summary["device_busy_ms"],
+                device_idle_share=summary["device_idle_share"],
+                flash_ms=sum(parts.get(k, {}).get("ms", 0.0)
+                             for k in ("flash_attn_fwd", "flash_attn_bwd")),
+                head_ms=sum(parts.get(k, {}).get("ms", 0.0)
+                            for k in ("head_xent_stats", "head_xent_bwd")),
+                top=summary["top"][:5])
+
+
+def seq_rank(mesh, payload):
+    """One rank of a ``seq`` run (module level: ``--phase dist-seq``
+    spawns it): ``train_lm_seq`` at ``SEQ_LM`` with rank 0's steps
+    stamped. Returns rank 0's final params (on the CPU from a process of
+    its own), the stamps and, in a process of its own, the launch counts,
+    the peak memory and, with ``traced``, the device time of the steps
+    after the first (``seq_device_time``): the rank's own on its card, or
+    in loopback all the ranks' on the one card (rank 0 traces)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    from distributed_llm_code_samples_tpu_torch.optim import leaves
+    from distributed_llm_code_samples_tpu_torch.parallel import train_lm_seq
+    params, seeds, lr, keep, traced, kw = payload
+    _SEQ_THREAD_RANK[threading.get_ident()] = mesh.rank
+    stamps = []
+    prof = None
+    if traced and (mesh.rank == 0 or not mesh.loopback):
+        # the profiler's first start sets up device tracing (seconds):
+        # once here, outside the traced steps
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def on_step(i):
+        if mesh.rank == 0 or prof is not None:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        if i == 0 and prof is not None:
+            prof.start()
+
+    if not mesh.loopback:
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_lm_seq(params, seeds, SEQ_TOKENS, LM["d_model"], mesh, lr=lr,
+                       seq_len=SEQ_LM["seq_len"], n_heads=LM["n_heads"],
+                       on_step=on_step, **kw)
+    torch.cuda.synchronize()
+    device = None
+    if prof is not None:
+        prof.stop()
+        device = seq_device_time(prof, 1e3 * (stamps[-1] - stamps[0]))
+    got = None
+    if keep and mesh.rank == 0:
+        got = [t if mesh.loopback else t.cpu() for t in leaves(out)]
+    finite = all(bool(torch.isfinite(t).all()) for t in leaves(out))
+    return dict(params=got, finite=finite, t0=t0, stamps=stamps,
+                launches=None if mesh.loopback else launch_counts(),
+                max_memory_allocated_gb=None if mesh.loopback else
+                torch.cuda.max_memory_allocated() / 2 ** 30,
+                device=device)
+
+
+def float64_attention(torch):
+    """Attention in float64 through the flash kernels' plain versions (no
+    ``[T, T]`` tile saved for the backward), one sequence at a time: the
+    attention op of a 4096-position step's float64 reference."""
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        flash_attention as fa)
+
+    class Attn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal):
+            outs = [fa.flash_attention_fwd_ref(q[i], k[i], v[i],
+                                               causal=causal)
+                    for i in range(q.shape[0])]
+            y = torch.stack([o[0] for o in outs])
+            lse = torch.stack([o[1] for o in outs])
+            ctx.save_for_backward(q, k, v, y, lse)
+            ctx.causal = causal
+            return y
+
+        @staticmethod
+        def backward(ctx, dy):
+            q, k, v, y, lse = ctx.saved_tensors
+            grads = [fa.flash_attention_bwd_ref(
+                dy[i], q[i], k[i], v[i], y[i], lse[i], causal=ctx.causal)
+                for i in range(q.shape[0])]
+            return (*(torch.stack(g) for g in zip(*grads)), None)
+
+    return lambda q, k, v, causal: Attn.apply(q, k, v, causal)
+
+
+def seq_kernel_phase(torch, np, timer, card):
+    """The flash kernels as the causal ring calls them at ``SEQ_LM``'s
+    shape (one layer, ``[2, 12, 4096, 64]`` over SEQ_N loopback ranks):
+    every recorded hop call, forward and backward, against float64 on
+    its own inputs with the causal-flipped control (``BLOCK_TOL``,
+    ``seq-kernel``); the ring's ``y``, ``lse``, ``dq``, ``dk``, ``dv``
+    against float64 attention over the whole 4096 positions, and the
+    control that must fail: the backward handed each hop's own ``lse``
+    in place of the global one. Then each kernel at the hop's shape (an
+    earlier block: non-causal) against its plain version and timed
+    (``lm-kernel-case`` lines, shape ``seq-hop``). Returns the cases."""
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        flash_attention as fa)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        SEQ_AXIS, launch, make_mesh)
+    from distributed_llm_code_samples_tpu_torch.parallel import sequence as sq
+    b, h, t = SEQ_LM["batch"], LM["n_heads"], SEQ_LM["seq_len"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(500)
+    q, k, v = (torch.randn(b, h, t, SEQ_DH, generator=gen, device="cuda")
+               for _ in range(3))
+    dy = 0.1 * torch.randn(b, h, t, SEQ_DH, generator=gen, device="cuda")
+
+    def blocks(r):
+        return [x.chunk(SEQ_N, -2)[r].contiguous() for x in (q, k, v, dy)]
+
+    def ring(mesh, fwd_only):
+        qb, kb, vb, dyb = blocks(mesh.axis_index(SEQ_AXIS))
+        y, lse = sq.ring_attention_fwd(qb, kb, vb, mesh, attn_impl="flash")
+        if fwd_only:
+            return y, lse
+        return (y, lse, *sq.ring_attention_bwd(qb, kb, vb, y, lse, dyb,
+                                               mesh, attn_impl="flash"))
+
+    def joined(outs):
+        return [torch.cat([o[i] for o in outs], -1 if i == 1 else -2)
+                for i in range(len(outs[0]))]
+
+    wrappers = {n: w for n, w in lm_wrappers().items()
+                if n.startswith("flash")}
+    with recorded_calls(wrappers) as calls:
+        got = joined(launch(ring, make_mesh({SEQ_AXIS: SEQ_N},
+                                            loopback=True), False,
+                            timeout=300))
+    torch.cuda.synchronize()
+    per_call = lm_call_errors(torch, wrappers, calls)
+    n_calls = {n: sum(c[0] == n for c in calls) for n in wrappers}
+    del calls
+    # the control: each hop's backward handed the lse of its own forward
+    bwd = fa.flash_attention_bwd
+
+    def own_lse(dy_, q_, k_, v_, y_, lse_, *, causal=True, mxu_bf16=False):
+        lse_j = fa.flash_attention_fwd(q_, k_, v_, causal=causal)[1]
+        return bwd(dy_, q_, k_, v_, y_, lse_j, causal=causal,
+                   mxu_bf16=mxu_bf16)
+
+    fa.flash_attention_bwd = own_lse
+    try:
+        control = joined(launch(ring, make_mesh({SEQ_AXIS: SEQ_N},
+                                                loopback=True), False,
+                                timeout=300))[2:]
+    finally:
+        fa.flash_attention_bwd = bwd
+    names = ("y", "lse", "dq", "dk", "dv")
+    errs = {n: 0.0 for n in names}
+    control_errs = {n: 0.0 for n in names[2:]}
+    for i in range(b):
+        y64, lse64 = fa.flash_attention_fwd_ref(
+            *(x[i].double() for x in (q, k, v)), causal=True)
+        want = [y64, lse64, *fa.flash_attention_bwd_ref(
+            dy[i].double(), *(x[i].double() for x in (q, k, v)), y64, lse64,
+            causal=True)]
+        for n, g, w in zip(names, got, want):
+            width = 1 if n == "lse" else SEQ_DH
+            errs[n] = max(errs[n], row_err(torch, g[i].reshape(-1, width),
+                                           w.reshape(-1, width)))
+        for n, g, w in zip(names[2:], control, want[2:]):
+            control_errs[n] = max(control_errs[n], row_err(
+                torch, g[i].reshape(-1, SEQ_DH), w.reshape(-1, SEQ_DH)))
+        del y64, lse64, want
+    want_calls = {"flash_attn_fwd": SEQ_N * (SEQ_N + 1) // 2,
+                  "flash_attn_bwd": SEQ_N * (SEQ_N + 1) // 2}
+    row = dict(
+        shape=[b, h, t, SEQ_DH], ranks=SEQ_N, calls=n_calls,
+        want_calls=want_calls,
+        call_err_max={n: max(c["err"] for c in per_call if c["kernel"] == n)
+                      for n in wrappers},
+        call_control_err_min={n: min(c["control_err"] for c in per_call
+                                     if c["kernel"] == n) for n in wrappers},
+        ring_err_vs_f64=errs, own_lse_control_err_vs_f64=control_errs,
+        block_tol=BLOCK_TOL, card=card)
+    row["ok"] = (n_calls == want_calls
+                 and max(row["call_err_max"].values()) <= BLOCK_TOL
+                 and min(row["call_control_err_min"].values()) > BLOCK_TOL
+                 and max(errs.values()) <= BLOCK_TOL
+                 and min(control_errs.values()) > BLOCK_TOL)
+    print("seq-kernel " + json.dumps(row), flush=True)
+    cases = [dict(row, kernel="seq-ring", max_abs_err=0.0, rel_err=0.0)]
+    del q, k, v, dy, got, control
+    # the kernels at one hop of the ring: an earlier block, non-causal
+    gen.manual_seed(501)
+    shape = (b * h, t // SEQ_N, SEQ_DH)
+    qh, kh, vh = (torch.randn(*shape, generator=gen, device="cuda")
+                  for _ in range(3))
+    dyh = 0.1 * torch.randn(*shape, generator=gen, device="cuda")
+    yh, lseh = fa.flash_attention_fwd_ref(qh, kh, vh, causal=False)
+    kw = dict(causal=False, mxu_bf16=False)
+    cases.append(lm_case_row(
+        torch, timer, "flash_attn_fwd", "seq-hop", (*shape, False), False,
+        partial(fa.flash_attention_fwd, qh, kh, vh, **kw),
+        partial(fa.flash_attention_fwd_ref, qh, kh, vh, **kw),
+        sdpa_ms(torch, timer, qh, kh, vh, dyh, False, False)))
+    cases.append(lm_case_row(
+        torch, timer, "flash_attn_bwd", "seq-hop", (*shape, False), False,
+        partial(fa.flash_attention_bwd, dyh, qh, kh, vh, yh, lseh, **kw),
+        partial(fa.flash_attention_bwd_ref, dyh, qh, kh, vh, yh, lseh, **kw),
+        sdpa_ms(torch, timer, qh, kh, vh, dyh, False, True)))
+    return cases
+
+
+def seq_a2a_phase(torch, card):
+    """Ulysses on the all-to-all kernel (``comm="pallas_a2a"``) at ``[2,
+    12, 1024, 64]`` a rank on SEQ_N loopback ranks: each re-shard of q, k
+    and v bit for bit against the plain exchange, then the forward and
+    the backward (flash on the local heads) against the ``psum``
+    transport's, bit for bit: an all-to-all only moves blocks
+    (``seq-a2a``). Returns the kernel's launches in the pallas_a2a
+    forward and backward, counted from 0 just before them."""
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    from distributed_llm_code_samples_tpu_torch.ops.flash_attention import (
+        flash_mha)
+    from distributed_llm_code_samples_tpu_torch.ops.ring import (
+        all_to_all_dma_dims)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        SEQ_AXIS, all_to_all, launch, make_mesh)
+    from distributed_llm_code_samples_tpu_torch.parallel import sequence as sq
+    b, h, t = SEQ_LM["batch"], LM["n_heads"], SEQ_LM["seq_len"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(502)
+    full = [torch.randn(b, h, t, SEQ_DH, generator=gen, device="cuda")
+            for _ in range(4)]
+
+    def reshards(mesh, _):
+        blocks = [x.chunk(SEQ_N, -2)[mesh.axis_index(SEQ_AXIS)].contiguous()
+                  for x in full[:3]]
+        return [torch.equal(all_to_all_dma_dims(x, mesh, -3, -2),
+                            all_to_all(x, mesh, split_dim=-3, concat_dim=-2,
+                                       axis=SEQ_AXIS)) for x in blocks]
+
+    def ulysses(mesh, comm):
+        qb, kb, vb, dyb = (x.chunk(SEQ_N, -2)[mesh.axis_index(SEQ_AXIS)]
+                           .contiguous() for x in full)
+        y, res = sq.ulysses_attention_fwd(qb, kb, vb, mesh, attn=flash_mha,
+                                          comm=comm)
+        return (y, *sq.ulysses_attention_bwd(res, dyb, mesh, comm=comm))
+
+    t0 = time.perf_counter()
+    same = launch(reshards, make_mesh({SEQ_AXIS: SEQ_N}, loopback=True),
+                  timeout=300)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    kern = launch(ulysses, make_mesh({SEQ_AXIS: SEQ_N}, loopback=True),
+                  "pallas_a2a", timeout=300)
+    torch.cuda.synchronize()
+    launches = launch_counts().get("all_to_all_dma", 0)
+    plain = launch(ulysses, make_mesh({SEQ_AXIS: SEQ_N}, loopback=True),
+                   "psum", timeout=300)
+    equal = all(torch.equal(a, c) for ko, po in zip(kern, plain)
+                for a, c in zip(ko, po))
+    finite = all(bool(torch.isfinite(a).all()) for ko in kern for a in ko)
+    row = dict(shape_per_rank=[b, h, t // SEQ_N, SEQ_DH], ranks=SEQ_N,
+               reshards_bit_equal=same, ulysses_bit_equal_psum=equal,
+               finite=finite, all_to_all_dma_launches=launches,
+               want_launches=8, seconds=time.perf_counter() - t0, card=card)
+    print("seq-a2a " + json.dumps(row), flush=True)
+    check(all(all(s) for s in same), "the all-to-all kernel's re-shard "
+          "differs from the plain exchange")
+    check(equal and finite, "Ulysses on the all-to-all kernel differs from "
+          "the psum transport's")
+    # four exchanges forward (q, k, v, y), four backward (dy, dq, dk, dv)
+    check(launches == 8, f"{launches} all_to_all_dma launches, expected 8")
+    return launches
+
+
+def seq_phase(torch, np, card, cards: int = 0):
+    """``train_lm_seq`` at ``SEQ_LM`` (the GPT-2-small LM at 4096 positions
+    over SEQ_N seq ranks), flash attention and the fused head, ring and
+    Ulysses, ``SEQ_LM["steps"]`` steps each (``seq-train-run``: the step,
+    tokens/s, peak memory, each LM kernel's launches held exactly against
+    ``seq_want``, and in loopback the ring's flash calls by rank);
+    ``train_lm_single`` at the same shape and kernels on one card
+    (``seq-single-run``); a run of 3 steps of each with steps 2-3 traced
+    (``seq-train-profile``: the device's busy time and idle share, each
+    rank's on four cards, and the flash kernels' device time: the causal
+    ring's rank r runs r + 1 of the n blocks); then one step of each at
+    ``CHECK_LR`` against a float64 update, over the error of
+    ``train_lm_single``'s (``LM_GRAD_RATIO``; unchanged weights as the
+    control, ``seq-train-check``). ``cards`` 0: the ranks in loopback on
+    one card; else one rank a card over NCCL (the hops on
+    ``batch_isend_irecv``). Returns each run's launches over the ranks."""
+    from distributed_llm_code_samples_tpu_torch import LR
+    from distributed_llm_code_samples_tpu_torch.data import (
+        lm_batch_from_seed, make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.lm import (
+        init_lm, lm_from_leaves, lm_leaves)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        flash_attention as fa)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        SEQ_AXIS, launch, lm_grads, make_mesh, train_lm_single)
+    t_phase = time.perf_counter()
+    mode = f"{cards} cards" if cards else "loopback"
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM["random_seed"])
+    params = init_lm(gen, LM["vocab"], LM["d_model"], LM["n_layers"],
+                     SEQ_LM["seq_len"], n_heads=LM["n_heads"])
+    host = lm_from_leaves([t.cpu() for t in lm_leaves(params)]) if cards \
+        else params
+    seeds = make_seed_schedule(SEQ_LM["steps"], LM["random_seed"])
+    kw = dict(attn_impl="flash", head_impl="fused")
+
+    def run(seq_impl, seeds, lr, keep=False, traced=False):
+        mesh = make_mesh({SEQ_AXIS: SEQ_N}, **(dict(device="cuda") if cards
+                                                else dict(loopback=True)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        _SEQ_THREAD_RANK.clear()
+        fwd, by_rank = fa.flash_attention_fwd, [0] * SEQ_N
+
+        def counted(*a, **k):      # the rank threads' forward calls
+            r = _SEQ_THREAD_RANK.get(threading.get_ident())
+            if r is not None:
+                by_rank[r] += 1
+            return fwd(*a, **k)
+
+        fa.flash_attention_fwd = counted
+        try:
+            outs = launch(seq_rank, mesh, (host, seeds, lr, keep, traced,
+                                           dict(kw, seq_impl=seq_impl)),
+                          timeout=600)
+        finally:
+            fa.flash_attention_fwd = fwd
+        if cards:
+            per_rank = [o["launches"] for o in outs]
+            total = {n: sum(p.get(n, 0) for p in per_rank)
+                     for n in set().union(*per_rank)}
+            mem = [o["max_memory_allocated_gb"] for o in outs]
+        else:
+            total = launch_counts()
+            per_rank = None
+            mem = [torch.cuda.max_memory_allocated() / 2 ** 30]
+        check(all(o["finite"] for o in outs),
+              f"seq {seq_impl}: trained params are not finite")
+        got = outs[0]["params"]
+        return (None if got is None else [t.cuda() for t in got], outs,
+                total, per_rank, by_rank, mem)
+
+    launches = {}
+    for seq_impl in SEQ_IMPLS:
+        _, outs, total, per_rank, by_rank, mem = run(seq_impl, seeds, LR)
+        r0 = outs[0]
+        steps = [b_ - a for a, b_ in zip([r0["t0"]] + r0["stamps"],
+                                         r0["stamps"])]
+        med = statistics.median(steps[1:])
+        want = seq_want(seq_impl, len(steps))
+        want_by_rank = [seq_want(seq_impl, len(steps), r)["flash_attn_fwd"]
+                        for r in range(SEQ_N)]
+        print("seq-train-run " + json.dumps(dict(
+            run=f"lm-seq-{seq_impl}-{'nccl' if cards else 'loopback'}",
+            mode=mode, seq_impl=seq_impl, attn_impl="flash",
+            head_impl="fused", mesh={"seq": SEQ_N},
+            seq_len=SEQ_LM["seq_len"], tokens_per_rank=SEQ_TOKENS // SEQ_N,
+            steps=len(steps), tokens_per_step=SEQ_TOKENS,
+            median_step_ms=1e3 * med, first_step_ms=1e3 * steps[0],
+            tokens_per_s=SEQ_TOKENS / med,
+            model_tflops_per_s=SEQ_FLOPS / med / 1e12,
+            f32_peak_share=SEQ_FLOPS / med / (F32_FLOPS_PER_S * (cards or 1)),
+            max_memory_allocated_gb=mem if cards else mem[0],
+            launches=total, want_launches=want,
+            launches_per_rank_per_step=None if per_rank is None else [
+                {n: c / len(steps) for n, c in p.items()} for p in per_rank],
+            ring_flash_fwd_calls_by_rank=None if cards else by_rank,
+            want_flash_fwd_by_rank=want_by_rank, card=card)), flush=True)
+        for name, n in want.items():
+            check(total.get(name, 0) == n, f"seq {seq_impl}: "
+                  f"{total.get(name, 0)} launches of {name}, expected {n}")
+            check(n > 0, f"seq {seq_impl}: no launch of {name}")
+        check(set(total) <= set(want), f"seq {seq_impl}: launches {total}")
+        if per_rank is not None:
+            for r, p in enumerate(per_rank):
+                check(p == seq_want(seq_impl, len(steps), r),
+                      f"seq {seq_impl} rank {r}: launches {p}")
+        elif seq_impl == "ring":
+            check(by_rank == want_by_rank, f"seq ring: the ranks' flash "
+                  f"forward calls {by_rank}, expected {want_by_rank}")
+        launches[seq_impl] = total
+
+    # the same steps on one card, and where a traced run's device time goes
+    stamps = []
+
+    def on_step(_):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_lm_single(params, seeds, SEQ_TOKENS, LM["d_model"], lr=LR,
+                    seq_len=SEQ_LM["seq_len"], n_heads=LM["n_heads"],
+                    on_step=on_step, **kw)
+    steps = [b_ - a for a, b_ in zip([t0] + stamps, stamps)]
+    single_ms = 1e3 * statistics.median(steps[1:])
+    print("seq-single-run " + json.dumps(dict(
+        seq_len=SEQ_LM["seq_len"], tokens_per_step=SEQ_TOKENS,
+        steps=len(steps), median_step_ms=single_ms,
+        tokens_per_s=1e3 * SEQ_TOKENS / single_ms,
+        model_tflops_per_s=SEQ_FLOPS / single_ms / 1e9, card=card)),
+        flush=True)
+    for seq_impl in SEQ_IMPLS:
+        outs = run(seq_impl, seeds[:3], LR, traced=True)[1]
+        device = [o["device"] for o in outs if o["device"] is not None]
+        print("seq-train-profile " + json.dumps(dict(
+            run=f"lm-seq-{seq_impl}-{'nccl' if cards else 'loopback'}",
+            mode=mode, traced_steps=2, device_by_rank=device if cards
+            else None, device=None if cards else device[0],
+            flash_ms_by_rank=[d["flash_ms"] for d in device],
+            idle_share_by_rank=[d["device_idle_share"] for d in device],
+            card=card)), flush=True)
+
+    # one step at CHECK_LR: each run's update against a float64 update
+    # (the oracle head, float64 attention) over the error of
+    # train_lm_single's at the same 4096 positions with the same kernels
+    toks, tgts = lm_batch_from_seed(int(seeds[0]), SEQ_LM["batch"],
+                                    SEQ_LM["seq_len"], LM["vocab"],
+                                    device="cuda")
+    p64 = lm_from_leaves([t.double() for t in lm_leaves(params)])
+    g64 = lm_grads(p64, toks, tgts, LM["n_heads"],
+                   float64_attention(torch))[1]
+    want64 = [p - CHECK_LR * g for p, g in zip(lm_leaves(p64), g64)]
+    del p64, g64
+    torch.cuda.empty_cache()
+    single = lm_leaves(train_lm_single(
+        params, seeds[:1], SEQ_TOKENS, LM["d_model"], lr=CHECK_LR,
+        seq_len=SEQ_LM["seq_len"], n_heads=LM["n_heads"], **kw))
+    base = [update_err(torch, g, w, p0) for g, w, p0 in
+            zip(single, want64, lm_leaves(params))]
+    del single
+    names = ("wte", "wpe", "ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w2",
+             "ln_f")
+    row = dict(mode=mode, check_lr=CHECK_LR, grad_ratio_limit=LM_GRAD_RATIO,
+               single_update_err_vs_f64=dict(zip(names, base)))
+    ratios = {}
+    for seq_impl in SEQ_IMPLS:
+        got = run(seq_impl, seeds[:1], CHECK_LR, keep=True)[0]
+        errs = [update_err(torch, g, w, p0) for g, w, p0 in
+                zip(got, want64, lm_leaves(params))]
+        del got
+        ratios[seq_impl] = max(e / c for e, c in zip(errs, base))
+        row[f"{seq_impl}_update_err_vs_f64"] = dict(zip(names, errs))
+        row[f"{seq_impl}_update_err_ratio_max"] = ratios[seq_impl]
+    unchanged = min(1.0 / c for c in base)
+    row.update(unchanged_ratio_min=unchanged,
+               phase_s=time.perf_counter() - t_phase, card=card)
+    print("seq-train-check " + json.dumps(row), flush=True)
+    del want64
+    for seq_impl, ratio in ratios.items():
+        check(ratio <= LM_GRAD_RATIO, f"seq {seq_impl}'s update {ratio:.2f}x "
+              "as far from float64 as train_lm_single's")
+    check(unchanged > LM_GRAD_RATIO,
           "the update check cannot tell unchanged weights from trained")
     return launches
 
@@ -5997,7 +6548,9 @@ def dist_phase(torch, part: str = "all"):
     all-to-all's entries of the kernels line. ``part`` ``"tp"`` (``--phase
     dist-tp``) runs TP, ``-m 0`` and LM TP with their CLI runs alone;
     ``"lmdp"`` (``--phase dist-lmdp``) the data-parallel LM and
-    transformer alone; ``"bf16"`` (``--phase dist-bf16``) the bf16 ring
+    transformer alone; ``"seq"`` (``--phase dist-seq``, which ``"all"``
+    does not run) ``seq_phase`` over NCCL and ``cli.py -m 13`` ring and
+    Ulysses alone; ``"bf16"`` (``--phase dist-bf16``) the bf16 ring
     sums across the cards (``dist_bf16_rank``), ``cli.py -m 0 --dtype
     bfloat16``, and the bf16 hop, all-to-all, EP, LM TP and ``cli.py -m
     11``, ``-m 8``, ``-m 7`` on bf16 (``dist_lm_bf16_phase``) alone, which
@@ -6044,6 +6597,10 @@ def dist_phase(torch, part: str = "all"):
             cli_m0_phase(cards, argv, tag)
     if part in ("all", "lmdp"):
         lmdp_phase(torch, np, cards, cards=RING_N)
+    if part == "seq":
+        seq_phase(torch, np, cards, cards=SEQ_N)
+        for tag, argv in CLI_SEQ:
+            cli_m0_phase(cards, argv, tag)
     if part in ("all", "bf16"):
         cases = launch(dist_bf16_rank, make_mesh({DATA_AXIS: RING_N},
                                                  device="cuda"),
@@ -6060,8 +6617,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
                     choices=["all", "kernel", "train", "lm", "ring", "ep",
-                             "tp", "opt", "lmtp", "lmdp", "bf16", "dist",
-                             "dist-tp", "dist-lmdp", "dist-bf16"],
+                             "tp", "opt", "lmtp", "lmdp", "bf16", "seq",
+                             "dist", "dist-tp", "dist-lmdp", "dist-bf16",
+                             "dist-seq"],
                     default="all")
     args = ap.parse_args(argv)
     try:
@@ -6096,7 +6654,8 @@ def main(argv=None) -> int:
     print("ptxas-spills " + json.dumps(ptxas_spills(_build.build_logs)),
           flush=True)
 
-    if args.phase in ("dist", "dist-tp", "dist-lmdp", "dist-bf16"):
+    if args.phase in ("dist", "dist-tp", "dist-lmdp", "dist-bf16",
+                      "dist-seq"):
         kernels = dist_phase(torch, part=args.phase[5:] or "all")
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0 if all(k["ok"] for k in kernels) else 1
@@ -6104,7 +6663,7 @@ def main(argv=None) -> int:
     timer = Timer(torch)
     kernels, bad = [], []
     ffn_phases, lm_phases = ("all", "kernel", "train"), ("all", "lm")
-    lm_kernel_phases = ("all", "lm", "lmtp", "lmdp")
+    lm_kernel_phases = ("all", "lm", "lmtp", "lmdp", "seq")
     ring_phases, ep_phases = ("all", "ring"), ("all", "ep")
     opt_phases, bf16_phases = ("all", "opt"), ("all", "bf16")
     if args.phase in ("all", "kernel"):
@@ -6132,9 +6691,14 @@ def main(argv=None) -> int:
         bad += [c for c in dtype_cases if not c["ok"]]
         lm_bf16_cases = lm_bf16_kernel_phase(torch, np, timer)
         bad += [c for c in lm_bf16_cases if not c["ok"]]
+    if args.phase in ("all", "seq"):
+        seq_cases = seq_kernel_phase(torch, np, timer, card)
+        bad += [c for c in seq_cases if not c["ok"]]
+        lm_cases = lm_cases + [c for c in seq_cases
+                               if c["shape"] == "seq-hop"]
     launches = ffn_launches = lm_launches = ring_launches = None
     ep_launches = bf16_launches = lmtp_launches = lmdp_launches = None
-    dtype_launches = lm_bf16_launches = None
+    dtype_launches = lm_bf16_launches = seq_launches = seq_a2a = None
     if not bad and args.phase == "all":
         launches = serving_phase(torch, np, card)
     if not bad and args.phase in ("all", "train"):
@@ -6157,6 +6721,9 @@ def main(argv=None) -> int:
         lmtp_launches = lmtp_phase(torch, np, card)
     if not bad and args.phase in ("all", "lmdp"):
         lmdp_launches = lmdp_phase(torch, np, card)
+    if not bad and args.phase in ("all", "seq"):
+        seq_a2a = seq_a2a_phase(torch, card)
+        seq_launches = seq_phase(torch, np, card)
     if args.phase in ("all", "kernel"):
         main_case = next(c for c in cases if c["shape"] == "serving"
                          and c["kv_dtype"] == "f32")
@@ -6178,11 +6745,12 @@ def main(argv=None) -> int:
         kernels += ffn_kernel_rows(ffn_cases, ffn_launches)
     if args.phase in lm_kernel_phases:
         kernels += lm_kernel_rows(lm_cases, lm_launches, lmtp_launches,
-                                  lmdp_launches)
+                                  lmdp_launches, seq_launches)
     if args.phase in ring_phases:
         kernels += ring_kernel_rows(ring_cases, ring_launches)
     if args.phase in ep_phases:
-        kernels.append(a2a_kernel_row(a2a_cases, ep_launches))
+        kernels.append(a2a_kernel_row(a2a_cases, ep_launches,
+                                      seq_launches=seq_a2a))
     if args.phase in opt_phases:
         kernels += bf16_kernel_rows(bf16_cases, bf16_launches,
                                     dp_launches=lmdp_launches)

@@ -4,8 +4,9 @@ that are ported: ``-m 0`` (methods 1-4, then the cross-strategy check),
 (Megatron TP; ``--tp_sp`` its sequence-parallel form), ``-m 5`` (the
 hybrid DDP x TP on a ``--dp`` x ``--tp`` mesh), ``-m 7`` (expert
 parallelism of the MoE stack), ``-m 8`` (Megatron TP of the transformer
-blocks) and ``-m 11`` (Megatron TP of the language model on the real
-cross-entropy, vocab-parallel).
+blocks), ``-m 11`` (Megatron TP of the language model on the real
+cross-entropy, vocab-parallel) and ``-m 13`` (the language model with its
+sequence sharded over the ranks: ring attention or Ulysses).
 
     python -m distributed_llm_code_samples_tpu_torch.cli -m 1 -s 8 \\
         -bs 8 -n 1024 -l 24 -d 768 -r 7 --pallas
@@ -23,11 +24,15 @@ cross-entropy, vocab-parallel).
     python -m distributed_llm_code_samples_tpu_torch.cli --device cpu \\
         --fake_devices 4 --tp 4 -m 11 --head fused --attn flash -s 4 \\
         -bs 2 -n 16 -l 2 -d 32 -r 7 --vocab 256 --heads 4
+    python -m distributed_llm_code_samples_tpu_torch.cli --device cpu \\
+        --fake_devices 4 -m 13 --seq_impl ulysses --attn flash \\
+        --head fused -s 4 -bs 2 -n 64 -l 2 -d 32 -r 7 --vocab 256
 
 The reference's seven flags keep their short names and defaults; the
 default method is 0, as the reference's; any method not listed exits 2.
 It runs on the card unless ``--device cpu`` is given. Methods 2, 3, 4, 5,
-7, 8 and 11 spawn one rank per visible card (fewer than 2 cards exit 2), or
+7, 8, 11 and 13 spawn one rank per visible card (fewer than 2 cards exit
+2), or
 ``--fake_devices`` gloo ranks on the CPU; ``-s`` is the global step
 count, split stride-wise over the data ranks (TP's ranks each take every
 step). ``--comm`` picks the transport of methods 2 and 3 (``psum``:
@@ -43,11 +48,15 @@ are the whole EP group's. Methods 8 and 11 run on a model axis of
 ``--heads`` heads, ``--attn`` (oracle, rope or flash), 8 also ``--tp_sp``,
 11 ``--vocab``, ``--kv_heads`` (grouped-query attention; it must divide
 ``--heads`` and be divisible by the model axis) and ``--head`` (oracle
-or the fused kernels); ``-n`` is the sequence length.
+or the fused kernels); ``-n`` is the sequence length. Method 13 trains
+the LM as ``train_lm_seq`` does, on a seq axis of the most ranks that
+divide ``-n`` (and, under ``--seq_impl ulysses``, ``--heads``), as the
+JAX CLI's: ``--seq_impl`` (ring or ulysses), ``--attn`` (oracle or
+flash), ``--head``, ``--heads`` and ``--vocab``; full MHA only.
 
 ``--dtype bfloat16`` stores the params in bf16, as the JAX CLI's does,
 for every ported method under SGD: the FFN stack's (methods 1-5 and 0),
-the MoE stack's (7), the transformer's (8) and the LM's (11). Every
+the MoE stack's (7), the transformer's (8) and the LM's (11, 13). Every
 block, gradient, sum and update is then bf16 (the kernels' f32 sums
 rounded once where the Pallas kernels round them, the ring kernels'
 sums rounded every add); the fused head (``-m 11 --head fused``) keeps
@@ -75,8 +84,8 @@ options, and from it tokens/s
 and the model TFLOP/s (``12 * T * d * ffn * L`` a step for each batch
 the mesh takes: once for TP, whose ranks share one batch, once a data
 rank for DDP, FSDP and the hybrid; for method 7 T counts every routed
-token, dropped ones too; for 8 and 11 ``bench.py``'s count of the blocks,
-and 11 adds the head's ``6 * T * d * V``); the device, the kernel launch counts (rank
+token, dropped ones too; for 8, 11 and 13 ``bench.py``'s count of the
+blocks, and 11 and 13 add the head's ``6 * T * d * V``); the device, the kernel launch counts (rank
 0's, and every rank's) and a per-layer checksum of the final
 parameters. Method 0 then holds DDP against FSDP and single-device
 against TP, leaf by leaf, within rtol 1e-5 and atol 1e-7 (1e-4 and 1e-5
@@ -96,11 +105,11 @@ import statistics
 import sys
 import time
 
-PORTED_METHODS = (0, 1, 2, 3, 4, 5, 7, 8, 11)
-RANK_METHODS = (2, 3, 4, 5, 7, 8, 11)
+PORTED_METHODS = (0, 1, 2, 3, 4, 5, 7, 8, 11, 13)
+RANK_METHODS = (2, 3, 4, 5, 7, 8, 11, 13)
 TRAINERS = {1: "train_single", 2: "train_ddp", 3: "train_fsdp",
             4: "train_tp", 5: "train_hybrid", 7: "train_moe_ep",
-            8: "train_transformer_tp", 11: "train_lm_tp"}
+            8: "train_transformer_tp", 11: "train_lm_tp", 13: "train_lm_seq"}
 # method 0's checks (JAX cli.py:944-955): (rtol, atol), under --pallas and
 # under --mixed
 CHECK_TOL, PALLAS_CHECK_TOL = (1e-5, 1e-7), (1e-4, 1e-5)
@@ -123,7 +132,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "DDP x TP, 7=MoE expert parallelism, 8=transformer "
                         "blocks (Megatron TP; --heads), 11=language model on "
                         "the real cross-entropy (vocab-parallel Megatron "
-                        "TP; --vocab --heads) (the methods ported so far)")
+                        "TP; --vocab --heads), 13=long-context LM (the "
+                        "sequence sharded; --seq_impl --vocab --heads) (the "
+                        "methods ported so far)")
     p.add_argument("-r", "--random_seed", type=int, default=0,
                    help="!=0 makes runs reproducible (train_ffns.py:350)")
     p.add_argument("--pallas", action="store_true",
@@ -163,6 +174,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "gloo on the CPU; the default) or pallas_ring (the "
                         "ring kernels: DDP grad all-reduce; FSDP param "
                         "all-gathers and grad reduce-scatters)")
+    p.add_argument("--seq_impl", choices=["ring", "ulysses"],
+                   default="ring",
+                   help="with --method 13: the attention across the seq "
+                        "ranks, ring (K/V blocks passed round the ring) or "
+                        "ulysses (two all-to-alls trade heads for sequence)")
     p.add_argument("--tp_sp", action="store_true",
                    help="with --method 4 or 8: sequence-parallel TP (the "
                         "stream between blocks token-sharded; all-gather "
@@ -174,23 +190,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --method 5, 8 or 11: model-axis size "
                         "(default 2; 8 and 11 take min(--tp, ranks))")
     p.add_argument("--heads", type=int, default=4,
-                   help="attention heads for --method 8 and 11")
+                   help="attention heads for --method 8, 11 and 13")
     p.add_argument("--vocab", type=int, default=256,
                    help="vocabulary size for --method 11 (divisible by the "
-                        "model-axis size)")
+                        "model-axis size) and 13")
     p.add_argument("--kv_heads", type=int, default=0,
                    help="with --method 11: grouped-query attention with this "
                         "many KV heads (0 = full MHA; must divide --heads "
                         "and the model-axis size must divide it)")
     p.add_argument("--attn", choices=["oracle", "rope", "flash"],
                    default="oracle",
-                   help="attention for --method 8 and 11: the hand-VJP "
-                        "oracle, rotary positions, or the flash kernels "
-                        "(their plain versions on the CPU)")
+                   help="attention for --method 8, 11 and 13: the hand-VJP "
+                        "oracle, rotary positions (not 13), or the flash "
+                        "kernels (their plain versions on the CPU)")
     p.add_argument("--head", choices=["oracle", "fused"], default="oracle",
-                   help="LM head and loss for --method 11: the logits and "
-                        "the hand-VJP cross-entropy, or the fused head's "
-                        "kernels (vocab-parallel merge)")
+                   help="LM head and loss for --method 11 and 13: the logits "
+                        "and the hand-VJP cross-entropy, or the fused head's "
+                        "kernels (11: vocab-parallel merge)")
     p.add_argument("--strict", action="store_true",
                    help="with --method 0: a failed cross-strategy check "
                         "exits 1 (the reference only soft-asserts, "
@@ -198,8 +214,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--experts", type=int, default=8,
                    help="expert count for --method 7 (MoE)")
     p.add_argument("--fake_devices", type=int, default=0,
-                   help="with --device cpu and --method 0, 2, 3, 4, 5, 7, 8 "
-                        "or 11: run on N gloo ranks (default 1)")
+                   help="with --device cpu and --method 0, 2, 3, 4, 5, 7, 8, "
+                        "11 or 13: run on N gloo ranks (default 1)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
@@ -232,8 +248,8 @@ def _flag_error(args) -> str | None:
     if args.clip_norm < 0:
         return f"--clip_norm must be >= 0 (got {args.clip_norm})"
     if args.fake_devices and m not in (0,) + RANK_METHODS:
-        return ("--fake_devices applies to --method 0, 2, 3, 4, 5, 7, 8 or "
-                "11")
+        return ("--fake_devices applies to --method 0, 2, 3, 4, 5, 7, 8, 11 "
+                "or 13")
     if args.fake_devices and args.device != "cpu":
         return ("--fake_devices runs gloo ranks on the CPU: pass --device "
                 "cpu (on the card there is one rank a card)")
@@ -247,9 +263,15 @@ def _flag_error(args) -> str | None:
     if args.tp is not None and m not in (5, 8, 11):
         return "--tp applies to --method 5, 8 or 11 only"
     # the transformer and LM flags, with the JAX CLI's messages
-    if args.attn != "oracle" and m not in (8, 11):
+    if args.attn != "oracle" and m not in (8, 11, 13):
         return ("--attn applies to --method 8, 11, 13, or 6 with "
                 "--pp_family transformer/lm")
+    if m == 13 and args.kv_heads:
+        return ("--method 13 (sequence-parallel LM) supports full MHA only "
+                "(no --kv_heads): the ring vmaps equal q/kv heads")
+    if m == 13 and args.attn == "rope":
+        return ("--attn rope is not supported by --method 13 (the ring's "
+                "per-hop programs take oracle or flash)")
     if args.kv_heads < 0:
         return f"--kv_heads must be >= 0 (got {args.kv_heads})"
     if args.kv_heads and m != 11:
@@ -258,7 +280,7 @@ def _flag_error(args) -> str | None:
     if args.kv_heads and args.heads % args.kv_heads:
         return (f"--heads {args.heads} not divisible by --kv_heads "
                 f"{args.kv_heads}")
-    if args.head != "oracle" and m != 11:
+    if args.head != "oracle" and m not in (11, 13):
         return ("--head fused applies to --method 11 (LM TP), 12 (MoE LM "
                 "EP), 13 (sequence-parallel LM), or the --method 9 sweep "
                 "(which verifies them)")
@@ -291,7 +313,8 @@ def _meshes(args, tokens: int, seeds, device) -> dict:
     import torch
 
     from .data import shard_seeds_strided
-    from .parallel import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, make_mesh
+    from .parallel import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS,
+                           make_mesh)
     methods = [1, 2, 3, 4] if args.method == 0 else [args.method]
     methods = [m for m in methods if m in RANK_METHODS]
     if not methods:
@@ -308,6 +331,18 @@ def _meshes(args, tokens: int, seeds, device) -> dict:
         if m in (8, 11):
             meshes[m] = _tp_family_mesh(args, m, min(args.tp or 2, n),
                                         device)
+            continue
+        if m == 13:
+            # the seq axis over the most ranks that divide the sequence
+            # (and, for Ulysses, the heads it scatters): JAX cli.py
+            k = max(k for k in range(1, n + 1)
+                    if n % k == 0 and args.seq_len % k == 0
+                    and (args.seq_impl == "ring" or args.heads % k == 0))
+            if args.model_size % args.heads:
+                raise ValueError(f"model_size={args.model_size} not "
+                                 f"divisible by n_heads={args.heads} (head "
+                                 "dim must be whole)")
+            meshes[m] = make_mesh({SEQ_AXIS: k}, device=device.type)
             continue
         if m in (2, 3):
             shard_seeds_strided(seeds, n)
@@ -381,8 +416,9 @@ def _rank_run(mesh, payload):
     from .ops import launch_counts, reset_launch_counts
     from .optim import leaves
     from .parallel import (train_ddp, train_ddp_zero1, train_fsdp,
-                           train_hybrid, train_lm_tp, train_moe_ep, train_tp,
-                           train_tp_sp, train_transformer_tp)
+                           train_hybrid, train_lm_seq, train_lm_tp,
+                           train_moe_ep, train_tp, train_tp_sp,
+                           train_transformer_tp)
     params, seeds, tokens, d, lr, method, comm, tp_sp, options = payload
     cuda = mesh.torch_device.type == "cuda"
 
@@ -401,7 +437,8 @@ def _rank_run(mesh, payload):
         kwargs["comm"] = comm
     train = {2: train_ddp, 3: train_fsdp, 4: train_tp_sp if tp_sp
              else train_tp, 5: train_hybrid, 7: train_moe_ep,
-             8: train_transformer_tp, 11: train_lm_tp}[method]
+             8: train_transformer_tp, 11: train_lm_tp,
+             13: train_lm_seq}[method]
     if kwargs.pop("zero1", False):
         train = train_ddp_zero1
     sync()
@@ -409,7 +446,7 @@ def _rank_run(mesh, payload):
     t0 = time.perf_counter()
     out = train(params, seeds, tokens, d, mesh, lr, **kwargs)
     wall = time.perf_counter() - t0
-    keep = method != 2 or mesh.rank == 0
+    keep = method not in (2, 13) or mesh.rank == 0   # replicas: rank 0's
     return dict(steps=[b - a for a, b in zip([t0] + stamps, stamps)],
                 wall=wall, launches=launch_counts(),
                 params=[t.cpu() for t in leaves(out)] if keep else None,
@@ -458,7 +495,7 @@ def _init(args, gen):
         return init_moe_stack(gen, d, layers, args.experts, dtype=dtype)
     if args.method == 8:
         return init_transformer(gen, d, layers, dtype=dtype)
-    if args.method == 11:
+    if args.method in (11, 13):
         return init_lm(gen, args.vocab, d, layers, max_seq_len=args.seq_len,
                        n_heads=args.heads, n_kv_heads=args.kv_heads or None,
                        dtype=dtype)
@@ -471,11 +508,11 @@ def _model_flops(args, tokens: int, m: int) -> float:
     transformer blocks (``3 B L (8 S d^2 + 2 S^2 d + 16 d^2 S)``, B the
     sequences, S their length), plus the head's ``6 T d V`` for the LM."""
     d, layers, seq = args.model_size, args.layers, args.seq_len
-    if m not in (8, 11):
+    if m not in (8, 11, 13):
         return 12 * tokens * d * 4 * d * layers
     flops = 3 * (tokens // seq) * layers * (
         8 * seq * d ** 2 + 2 * seq ** 2 * d + 16 * d ** 2 * seq)
-    return flops + (6 * tokens * d * args.vocab if m == 11 else 0)
+    return flops + (6 * tokens * d * args.vocab if m in (11, 13) else 0)
 
 
 def main(argv=None) -> int:
@@ -618,9 +655,10 @@ def _run_ranks(args, m: int, mesh, params, seeds, tokens: int, lr: float,
     from .parallel import transformer as tf_mod
     n = mesh.size
     # the batches the mesh takes a step: one a data rank (DDP, FSDP, the
-    # hybrid); TP's ranks share one, and EP's tokens are the group's
+    # hybrid); TP's and the seq axis's ranks share one, and EP's tokens
+    # are the group's
     batches = {2: n, 3: n, 4: 1, 5: mesh.shape.get(DATA_AXIS, 1), 7: 1,
-               8: 1, 11: 1}[m]
+               8: 1, 11: 1, 13: 1}[m]
     comm = comm if m in (2, 3, 7) and not args.zero1 else "psum"
     options = _rank_options(args, m)
     t0 = time.perf_counter()
@@ -631,9 +669,10 @@ def _run_ranks(args, m: int, mesh, params, seeds, tokens: int, lr: float,
     name = "train_ddp_zero1" if args.zero1 else TRAINERS[m]
     print(f"\n{name} takes {wall} seconds")
     make = {7: MoEStackParams, 8: TransformerParams,
-            11: lambda *ls: lm_from_leaves(ls)}.get(m, FFNStackParams)
+            11: lambda *ls: lm_from_leaves(ls),
+            13: lambda *ls: lm_from_leaves(ls)}.get(m, FFNStackParams)
     shards = [make(*o["params"]) for o in outs if o["params"] is not None]
-    if m == 2:
+    if m in (2, 13):
         out = shards[0]
     elif m == 5:
         out = hybrid.unshard_params(shards, mesh)
@@ -666,11 +705,13 @@ def _run_ranks(args, m: int, mesh, params, seeds, tokens: int, lr: float,
     }
     if m in (4, 8):
         payload["sequence_parallel"] = args.tp_sp
-    if m in (8, 11):
+    if m in (8, 11, 13):
         payload.update(heads=args.heads, attn=args.attn)
-    if m == 11:
+    if m in (11, 13):
         payload.update(vocab=args.vocab, kv_heads=args.kv_heads,
                        head=args.head)
+    if m == 13:
+        payload["seq_impl"] = args.seq_impl
     if m == 7:
         payload["experts"] = args.experts
         payload["router_checksums"] = [float(out.wg[l].double().sum())
@@ -683,8 +724,8 @@ def _rank_options(args, m: int) -> dict:
     ``cli.py``'s): ``mixed`` for 2-5, ``accum`` for 2, and for 2 and 3
     the optimizer, clipped (over the data axis where the update runs on
     shards) when ``--clip_norm`` is set; ``zero1`` picks
-    ``train_ddp_zero1``; for 8 and 11 the sequence length, the heads and
-    the attention (and head) policy."""
+    ``train_ddp_zero1``; for 8, 11 and 13 the sequence length, the heads
+    and the attention (and head) policy, for 13 also ``seq_impl``."""
     from .optim import OPTIMIZERS, clipped
     from .parallel import DATA_AXIS
     out = {}
@@ -702,15 +743,17 @@ def _rank_options(args, m: int) -> dict:
         out["optimizer"] = opt
     if args.zero1:
         out["zero1"] = True
-    if m in (8, 11):
-        # the trainer keywords of JAX cli.py:715-721
+    if m in (8, 11, 13):
+        # the trainer keywords of JAX cli.py:715-729
         out.update(seq_len=args.seq_len, n_heads=args.heads)
         if args.attn != "oracle":
             out["attn_impl"] = args.attn
         if m == 8 and args.tp_sp:
             out["sequence_parallel"] = True
-        if m == 11 and args.head != "oracle":
+        if m in (11, 13) and args.head != "oracle":
             out["head_impl"] = args.head
+        if m == 13:
+            out["seq_impl"] = args.seq_impl
     return out
 
 

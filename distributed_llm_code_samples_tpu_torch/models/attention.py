@@ -12,11 +12,13 @@ from __future__ import annotations
 import torch
 
 
-def causal_mask(tq: int, tk: int, q_offset=0, device=None) -> torch.Tensor:
+def causal_mask(tq: int, tk: int, q_offset=0, device=None,
+                k_offset=0) -> torch.Tensor:
     """True where query position may attend key position
-    (``q_offset + i >= j``)."""
+    (``q_offset + i >= k_offset + j``); the offsets are the global
+    positions of sequence blocks (``parallel/sequence.py``'s ring)."""
     q_pos = q_offset + torch.arange(tq, device=device)[:, None]
-    return q_pos >= torch.arange(tk, device=device)[None, :]
+    return q_pos >= k_offset + torch.arange(tk, device=device)[None, :]
 
 
 def attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

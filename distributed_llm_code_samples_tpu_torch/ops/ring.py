@@ -61,9 +61,12 @@ _OPS = {HOP: 0, ALL_REDUCE: 1, REDUCE_SCATTER: 2, ALL_GATHER: 3,
 # not kernels: a loopback mesh's ``torch.distributed`` collectives in
 # plain torch (parallel/collectives.py), each over the ranks' dim-0
 # tensors: the sum in rank order, the concatenation in rank order, the
-# sum's block of each rank, and the elementwise max
-SUM, CAT, SUM_SCATTER, MAX = "sum", "cat", "sum_scatter", "max"
-_PLAIN = (SUM, CAT, SUM_SCATTER, MAX)
+# sum's block of each rank, the elementwise max, the ring's one hop
+# (rank r's tensor to rank r+1, ``lax.ppermute``) and the dense
+# all-to-all (chunk j of rank r to chunk r of rank j)
+SUM, CAT, SUM_SCATTER, MAX, PERM, A2A = ("sum", "cat", "sum_scatter", "max",
+                                         "perm", "a2a")
+_PLAIN = (SUM, CAT, SUM_SCATTER, MAX, PERM, A2A)
 # csrc/ring_common.cuh: kMaxRanks, kDataOff
 _MAX_RANKS = 8
 _DATA_OFF = 20480
@@ -279,8 +282,12 @@ class PeerWorkspace:
 
 def _plain(op: str, xs: list) -> list:
     """The plain collective ``op`` (``SUM``, ``CAT``, ``SUM_SCATTER``,
-    ``MAX``) over one dim-0 tensor a rank: one output a rank, in rank
-    order."""
+    ``MAX``, ``PERM``, ``A2A``) over one dim-0 tensor a rank: one output
+    a rank, in rank order."""
+    if op == PERM:
+        return loopback_ref(HOP, xs)
+    if op == A2A:
+        return loopback_ref(ALL_TO_ALL, xs)
     if op == CAT:
         out = torch.cat(xs)
         return [out] + [out.clone() for _ in xs[1:]]
@@ -299,14 +306,15 @@ class Loopback:
     """n virtual ranks as n threads of one process on one card. Each
     collective call waits until all n threads have handed in their
     operands; one of them then makes the one cooperative launch that
-    serves all n (or, for ``SUM``, ``CAT``, ``SUM_SCATTER`` and ``MAX``,
-    computes every output in plain torch), and each thread takes its own
-    output.
+    serves all n (or, for the plain collectives ``_PLAIN``, computes
+    every output in plain torch), and each thread takes its own output.
     All threads use the device's default stream, so their work is ordered
     around the launch. The kernels need ``workspace``, a
     ``PeerWorkspace`` of n regions that its owner attaches; the plain
-    collectives need none. ``abort()`` releases the threads waiting in a
-    call (a rank that failed elsewhere)."""
+    collectives need none, and neither does a kernel's call on CPU
+    tensors (n threads on the CPU), which runs ``loopback_ref``.
+    ``abort()`` releases the threads waiting in a call (a rank that
+    failed elsewhere)."""
 
     def __init__(self, n: int, timeout: float = 10 * WAIT_TIMEOUT_S):
         self.workspace: Optional[PeerWorkspace] = None
@@ -325,6 +333,9 @@ class Loopback:
                                    f"collectives: {self._ops}")
             if self._ops[0] in _PLAIN:
                 self._outs = _plain(self._ops[0], self._ins)
+            elif not _build.on_card(self._ops[0], *self._ins):
+                # CPU threads: the kernel's plain version of the call
+                self._outs = loopback_ref(self._ops[0], self._ins)
             elif self.workspace is None:
                 raise RuntimeError(f"loopback {self._ops[0]} is a kernel: "
                                    "it needs the ranks' workspace")
@@ -603,10 +614,10 @@ def _collective(op: str, x: torch.Tensor, ring) -> torch.Tensor:
     if n == 1:
         return x
     ring = _as_ring(op, x, ring)
-    if not _build.on_card(op, x):
-        return _REFS[op](x, ring)
     if ring.loopback is not None:
         return ring.loopback.call(op, x, ring.rank)
+    if not _build.on_card(op, x):
+        return _REFS[op](x, ring)
     ws = ring.workspace
     if ws is None:
         raise RuntimeError(f"{op} on the card needs the ring's "

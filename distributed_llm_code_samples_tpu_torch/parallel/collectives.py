@@ -7,7 +7,7 @@ returns a new tensor; the caller's is not changed.
 A loopback mesh has no process group: there the threads of the rank's
 axis group meet in their ``LoopbackState`` and one of them computes
 every rank's result in plain torch (no kernel; a sum adds in rank order
-within the group)."""
+within the group; the hop and the all-to-all move the blocks)."""
 
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..ops.ring import CAT, MAX, SUM, SUM_SCATTER, Ring, tiled_all_to_all
+from ..ops.ring import (A2A, CAT, MAX, PERM, SUM, SUM_SCATTER, Ring,
+                        tiled_all_to_all)
 
 
 def axis_index(mesh, axis: Optional[str] = None) -> int:
@@ -100,6 +101,34 @@ def reduce_scatter(x: torch.Tensor, mesh, *, dim: int = 0,
     return out.movedim(0, dim)
 
 
+def ppermute(x: torch.Tensor, mesh, *,
+             axis: Optional[str] = None) -> torch.Tensor:
+    """The ring's one hop over the ranks of ``axis`` (``lax.ppermute``
+    with ``perm=[(i, (i + 1) % n)]``): the rank of index i returns the
+    block of the rank of index i - 1. One ``isend`` to the right
+    neighbour and one ``irecv`` from the left in one
+    ``batch_isend_irecv`` (NCCL or gloo); in loopback the plain hop. It
+    is not the hop kernel ``ops.ring.ppermute_dma``: JAX's ring
+    attention hops over XLA's ``ppermute``."""
+    n = mesh.axis_size(axis)
+    xm = x.contiguous()
+    if n == 1:
+        return xm.clone()
+    if mesh.loopback:
+        return _loopback(PERM, xm, mesh, axis)
+    group, i = mesh.axis_group(axis), mesh.axis_index(axis)
+
+    def peer(j: int) -> int:     # P2POp takes the peer's global rank
+        return j if group is None else dist.get_global_rank(group, j)
+
+    out = torch.empty_like(xm)
+    ops = [dist.P2POp(dist.isend, xm, peer((i + 1) % n), group=group),
+           dist.P2POp(dist.irecv, out, peer((i - 1) % n), group=group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
 def _all_to_all_single(xm: torch.Tensor, ring: Ring) -> torch.Tensor:
     if xm.shape[0] % ring.n:
         raise ValueError(f"leading dim {xm.shape[0]} not divisible by "
@@ -115,11 +144,15 @@ def all_to_all(x: torch.Tensor, mesh, *, split_dim: int, concat_dim: int,
     of ``axis``: ``split_dim`` splits into n blocks, block j goes to the
     rank of index j, and the received blocks concatenate along
     ``concat_dim`` in their order (``dist.all_to_all_single`` on the split
-    dim moved to the front)."""
+    dim moved to the front; in loopback the plain exchange)."""
     peers = Ring(mesh.axis_size(axis), mesh.axis_index(axis),
                  group=mesh.axis_group(axis))
+    exchange = _all_to_all_single
+    if mesh.loopback:
+        def exchange(xm, ring):
+            return _loopback(A2A, xm, mesh, axis)
     return tiled_all_to_all(x, peers, split_dim, concat_dim,
-                            exchange=_all_to_all_single)
+                            exchange=exchange)
 
 
 COMMS = ("psum", "pallas_ring")

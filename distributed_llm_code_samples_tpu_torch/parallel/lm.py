@@ -1,7 +1,9 @@
 """LM trainers, as in the JAX package's ``parallel/lm.py``: the
 single-device trainer, DDP, FSDP/ZeRO-3, Megatron TP with the
-vocab-parallel embedding, cross-entropy and fused head, and the DDP x TP
-hybrid.
+vocab-parallel embedding, cross-entropy and fused head, the DDP x TP
+hybrid, and sequence parallelism (``train_lm_seq``, the long-context
+path: ``parallel/sequence.py``'s ring or Ulysses, the head on each
+rank's token block).
 
 ``train_lm_single``: per step, a batch of next-token sequences, the
 mean cross-entropy of the tied head, its gradients (autograd composing
@@ -63,7 +65,9 @@ from .collectives import (all_gather, all_reduce, axis_index, pmax,
 from .launcher import (DEFAULT_TIMEOUT_S, launch_replicated, launch_strided,
                        refuse_unported, run_replicated, run_strided,
                        to_device)
-from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, require_axes
+from .mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, require_axes
+from .sequence import (SeqAttention, check_mha, resolve_seq_attn,
+                       seq_blocks_backward, seq_blocks_forward, sum_grads)
 from .transformer import (FIELDS, FSDP_SPECS, TP_SPECS, TPComm, _check_fsdp,
                           _leaf, _validate_shapes, _validate_tp,
                           blocks_backward, blocks_forward,
@@ -713,6 +717,104 @@ def train_lm_hybrid(params: LMParams, seeds, batch_size: int,
                        axis=DATA_AXIS)
 
 
+# -- sequence parallelism (long context) --------------------------------------
+
+def lm_seq_grads(params: LMParams, tokens, targets, n_heads: int, *,
+                 mesh: Mesh, op: SeqAttention, head=None):
+    """``(loss, grads)`` of the rank's share of the LM loss on its token
+    block ``tokens, targets [B, T/n]`` of the seq axis (JAX
+    ``train_lm_seq``'s ``loss_fn``): the embedding with the ``wpe`` rows
+    of the block's global positions, the blocks through ``op``
+    (``parallel/sequence.py``'s split block), the final LayerNorm, the
+    head and the cross-entropy on the block, the local mean scaled by
+    ``1/n``. ``grads`` (``lm_leaves`` order) are partial sums over the
+    rank's tokens; the sum over the ranks is the single-device gradient.
+    The backward runs in pieces from the rank's thread: the head, the
+    blocks from the top, the embedding."""
+    n, r = mesh.axis_size(SEQ_AXIS), mesh.axis_index(SEQ_AXIS)
+    dev, t_local = params.device, tokens.shape[1]
+    tokens, targets = tokens.to(dev).long(), targets.reshape(-1).to(dev)
+    wte_e, wpe = _leaf(params.wte), _leaf(params.wpe)
+    with torch.enable_grad():
+        x0 = wte_e[tokens] + wpe[r * t_local:(r + 1) * t_local]
+    x, blocks = seq_blocks_forward(params.blocks, x0.detach(), n_heads, op,
+                                   mesh, True)
+    x, ln_f, wte_h = _leaf(x), _leaf(params.ln_f), _leaf(params.wte)
+    with torch.enable_grad():
+        h = layernorm(ln_f, x)
+        h = h.reshape(-1, h.shape[-1])
+        loss = (head(h, wte_h, targets) if head is not None
+                else xent_loss(h @ wte_h.T, targets)) / n
+    dx, dln_f, dwte_h = torch.autograd.grad(loss, [x, ln_f, wte_h])
+    dx, dblocks = seq_blocks_backward(blocks, dx)
+    dwte_e, dwpe = torch.autograd.grad(x0, [wte_e, wpe], dx)
+    return loss.detach(), [dwte_e + dwte_h, dwpe, *dblocks, dln_f]
+
+
+def train_lm_seq(params: LMParams, seeds, batch_size: int, model_size: int,
+                 mesh: Mesh, lr: float = LR, *, seq_len: int, n_heads: int,
+                 seq_impl: str = "ring", attn_impl: str | None = None,
+                 head_impl: str | None = None, optimizer=None,
+                 mixed: bool = False, guard=None,
+                 batch_fn: Optional[Callable] = None,
+                 on_step: Optional[Callable[[int], None]] = None,
+                 timeout: float = DEFAULT_TIMEOUT_S) -> LMParams:
+    """Long-context LM training (JAX ``train_lm_seq``): the sequence
+    sharded over the seq axis, attention across the ranks by the ring or
+    Ulysses (``seq_impl``), and everything token-pointwise, the head and
+    the cross-entropy included, on the rank's ``T/n`` tokens
+    (``lm_seq_grads``). Every seq rank makes the step's whole batch from
+    the seed and takes its own token block. The gradients, partial sums
+    of the ``1/n``-scaled local losses, are summed by one all-reduce over
+    the mesh, then SGD. On a data x seq mesh the seeds are strided over
+    the data axis and the sum spans both axes. ``attn_impl`` (oracle or
+    flash: the flash kernels on each ring hop, or on Ulysses' local
+    heads) and ``head_impl`` (oracle or the fused head's kernels on the
+    rank's block) as ``train_lm_single``'s; full MHA only. So the seq mesh
+    alone takes ``train_lm_single``'s steps and data x seq
+    ``train_lm_ddp``'s over the data axis. JAX's trainer has no
+    optimizer, ``mixed`` or guard, and neither has this one (they raise).
+    Given the whole mesh it returns rank 0's params (every rank holds the
+    same) on the device of ``params``; given a rank's view, that rank's.
+    ``batch_fn`` as ``train_lm_tp``'s (the whole batch)."""
+    refuse_unported(optimizer=(optimizer, None), mixed=(mixed, False),
+                    guard=(guard, None))
+    require_axes(mesh, SEQ_AXIS)
+    n = mesh.axis_size(SEQ_AXIS)
+    dp = mesh.shape.get(DATA_AXIS, 1)
+    _validate_lm(batch_size, seq_len, model_size, n_heads, params)
+    check_mha(params.blocks)
+    op = resolve_seq_attn(seq_impl, n, n_heads, seq_len, attn_impl=attn_impl)
+    head = resolve_head(head_impl)
+    if not mesh.in_rank:
+        kw = dict(seq_len=seq_len, n_heads=n_heads, seq_impl=seq_impl,
+                  attn_impl=attn_impl, head_impl=head_impl,
+                  batch_fn=batch_fn)
+        args = (_lm_dp_rank, params, seeds, mesh, batch_size, model_size, lr,
+                None, ("seq", kw))
+        outs = (launch_strided(*args, axis=DATA_AXIS, timeout=timeout)
+                if dp > 1 else launch_replicated(*args, timeout=timeout))
+        return to_device(outs[0], params.device)
+    b, t_local = batch_size // seq_len, seq_len // n
+    r = mesh.axis_index(SEQ_AXIS)
+
+    def step(params: LMParams, seed) -> LMParams:
+        tokens, targets = (batch_fn(seed) if batch_fn is not None else
+                           lm_batch_from_seed(seed, b, seq_len, params.vocab,
+                                              device=params.device))
+        tokens, targets = (t[:, r * t_local:(r + 1) * t_local]
+                           for t in (tokens, targets))
+        grads = lm_seq_grads(params, tokens, targets, n_heads, mesh=mesh,
+                             op=op, head=head)[1]
+        sgd(lm_leaves(params), sum_grads(grads, mesh), lr)
+        return params
+
+    local = to_device(clone_lm(params), mesh.torch_device)
+    if dp > 1:
+        return run_strided(step, local, seeds, mesh, on_step, axis=DATA_AXIS)
+    return run_replicated(step, local, seeds, mesh, on_step)
+
+
 def _trip(opt_state, mesh: Mesh):
     """An optimizer state for the trip to the ranks (on the CPU unless
     the ranks are threads)."""
@@ -722,13 +824,13 @@ def _trip(opt_state, mesh: Mesh):
 
 
 _DP_TRAINERS = {"ddp": train_lm_ddp, "fsdp": train_lm_fsdp,
-                "hybrid": train_lm_hybrid}
+                "hybrid": train_lm_hybrid, "seq": train_lm_seq}
 
 
 def _lm_dp_rank(mesh: Mesh, payload):
-    """One rank of a whole-mesh DDP, FSDP or hybrid run: its shards (with
-    an optimizer, and its state's) on the CPU; DDP: rank 0's replica
-    alone."""
+    """One rank of a whole-mesh DDP, FSDP, hybrid or sequence-parallel
+    run: its shards (with an optimizer, and its state's) on the CPU; DDP
+    and seq: rank 0's replica alone."""
     params, seeds, batch_size, model_size, lr, opt_state, (kind, kw) = \
         payload
     if opt_state is not None:
@@ -738,4 +840,6 @@ def _lm_dp_rank(mesh: Mesh, payload):
         kw = dict(kw, return_state=True)
     out = _DP_TRAINERS[kind](params, seeds, batch_size, model_size, mesh, lr,
                              **kw)
-    return None if kind == "ddp" and mesh.rank else to_device(out, "cpu")
+    if kind in ("ddp", "seq") and mesh.rank:
+        return None
+    return to_device(out, "cpu")

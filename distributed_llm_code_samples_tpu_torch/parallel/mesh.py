@@ -3,12 +3,14 @@
 A JAX mesh names devices along axes and collectives address an axis by
 name. Here a mesh names a world size along the ported axes,
 ``DATA_AXIS`` (DDP, FSDP), ``EXPERT_AXIS`` (expert parallelism) or
-``MODEL_AXIS`` (tensor parallelism), alone or as the 2-D data x model
-mesh of the hybrid, and a device kind: on CUDA one process a card over
-NCCL, on the CPU n gloo processes (``parallel/launcher.py`` spawns
-both), or, with ``loopback=True``, n threads of one process on one card
-whose peer collectives are single cooperative launches over n
-workspaces.
+``MODEL_AXIS`` (tensor parallelism) or ``SEQ_AXIS`` (sequence
+parallelism), alone or as the 2-D data x model mesh of the hybrid or the
+data x seq mesh of long context, and a device kind: on CUDA one process
+a card over NCCL, on the CPU n gloo processes (``parallel/launcher.py``
+spawns both), or, with ``loopback=True``, n threads of one process on
+one card whose peer collectives are single cooperative launches over n
+workspaces (on the CPU, for tests, n threads whose collectives are the
+plain versions).
 
 Ranks sit on the mesh as JAX's devices do: JAX reshapes its device list
 to the axes' sizes in their order, so rank r's coordinates are r
@@ -39,9 +41,10 @@ from ..ops.ring import Loopback, PeerWorkspace, Ring, ppermute_dma
 DATA_AXIS = "data"
 EXPERT_AXIS = "expert"
 MODEL_AXIS = "model"
-AXES = (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS)
+SEQ_AXIS = "seq"
+AXES = (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS)
 # the meshes of two axes that are ported, in either order
-MESHES_2D = ({DATA_AXIS, MODEL_AXIS},)
+MESHES_2D = ({DATA_AXIS, MODEL_AXIS}, {DATA_AXIS, SEQ_AXIS})
 
 
 class LoopbackState:
@@ -180,10 +183,14 @@ class Mesh:
         if ring is not None and (ws is None or ws.capacity >= nbytes):
             return ring
         n, r = self.size, self.rank
-        if n == 1 or self.device == "cpu":
+        if n > 1 and self.loopback:
+            # CPU threads need no workspace: their calls run the plain
+            # versions (ops/ring.py ``Loopback``)
+            ring = Ring(n, r, loopback=self._loop_state.loop
+                        if self.device == "cpu"
+                        else self._loop_state.get(nbytes))
+        elif n == 1 or self.device == "cpu":
             ring = Ring(n, r, group=self.group)
-        elif self.loopback:
-            ring = Ring(n, r, loopback=self._loop_state.get(nbytes))
         else:
             if ws is not None:
                 ws.close()
@@ -205,7 +212,8 @@ class Mesh:
         ring = self._ring
         if ring is not None and ring.workspace is not None:
             ring.workspace.check()
-        if ring is not None and ring.loopback is not None:
+        if ring is not None and ring.loopback is not None \
+                and ring.loopback.workspace is not None:
             ring.loopback.workspace.check()
 
     def close(self) -> None:
@@ -217,8 +225,9 @@ class Mesh:
 
 def make_mesh(axes: Mapping[str, int] | None = None, device=None,
               loopback: bool = False) -> Mesh:
-    """A mesh of ``axes`` (one of ``DATA_AXIS``, ``EXPERT_AXIS`` and
-    ``MODEL_AXIS``, or ``{DATA_AXIS: dp, MODEL_AXIS: tp}``) on ``device``:
+    """A mesh of ``axes`` (one of ``DATA_AXIS``, ``EXPERT_AXIS``,
+    ``MODEL_AXIS`` and ``SEQ_AXIS``, or ``{DATA_AXIS: dp, MODEL_AXIS: tp}``
+    or ``{DATA_AXIS: dp, SEQ_AXIS: n}``) on ``device``:
     CUDA unless the CPU is asked for (``resolve_device``). ``axes=None``
     on CUDA takes every visible card on the data axis, as the JAX
     ``make_mesh`` takes every device. On CUDA each rank needs a card of
@@ -236,7 +245,8 @@ def make_mesh(axes: Mapping[str, int] | None = None, device=None,
         raise NotImplementedError(
             f"mesh axes {list(axes)}: the ported meshes are the 1-D mesh "
             f"of one of {list(AXES)} and the {DATA_AXIS!r} x {MODEL_AXIS!r} "
-            "mesh (the data x expert mesh and the other axes are not yet)")
+            f"and {DATA_AXIS!r} x {SEQ_AXIS!r} meshes (the data x expert "
+            "mesh and the other axes are not yet)")
     n = math.prod(axes.values())
     if n < 1:
         raise ValueError(f"mesh {axes} has no ranks")

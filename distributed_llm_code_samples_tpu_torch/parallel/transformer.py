@@ -76,7 +76,9 @@ from ..optim import sgd
 from .collectives import all_gather, all_reduce, axis_index, reduce_scatter
 from .launcher import (DEFAULT_TIMEOUT_S, launch_replicated, launch_strided,
                        run_replicated, run_strided, to_device)
-from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, require_axes
+from .mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, require_axes
+from .sequence import (check_mha, resolve_seq_attn, seq_blocks_backward,
+                       seq_blocks_forward, sum_grads)
 
 # TP layout: the model-axis dim of each stacked leaf in FIELDS order
 # (column-parallel projections shard their output dim, row-parallel their
@@ -660,14 +662,72 @@ def train_transformer_hybrid(params: TransformerParams, seeds,
                        axis=DATA_AXIS)
 
 
+def train_transformer_seq(params: TransformerParams, seeds, batch_size: int,
+                          model_size: int, mesh: Mesh, lr: float = LR, *,
+                          seq_len: int, n_heads: int, causal: bool = True,
+                          seq_impl: str = "ring",
+                          batch_fn: Callable = batch_from_seed,
+                          on_step: Optional[Callable[[int], None]] = None,
+                          timeout: float = DEFAULT_TIMEOUT_S
+                          ) -> TransformerParams:
+    """Long-context training (JAX ``train_transformer_seq``): the sequence
+    sharded over the seq axis, attention across the ranks by the ring or
+    Ulysses (``seq_impl``, ``parallel/sequence.py``), everything else on
+    the rank's own ``T/n`` tokens. Every seq rank makes the step's whole
+    batch from the seed and takes its own token block, so the global
+    causal positions are exact. The weight gradients are partial sums over
+    the rank's tokens, summed by one all-reduce over the mesh, then SGD at
+    the unscaled LR. On a data x seq mesh the seeds are strided over the
+    data axis (each data row trains its own steps, DDP's) and the sum
+    spans both axes. So the seq mesh alone takes the steps of
+    ``train_transformer_single`` and data x seq those of
+    ``train_transformer_ddp`` over the data axis. Given the whole mesh it
+    returns rank 0's params (every rank holds the same) on the device of
+    ``params``; given a rank's view, that rank's."""
+    require_axes(mesh, SEQ_AXIS)
+    n = mesh.axis_size(SEQ_AXIS)
+    dp = mesh.shape.get(DATA_AXIS, 1)
+    _validate_shapes(batch_size, seq_len, model_size, n_heads)
+    check_mha(params)
+    op = resolve_seq_attn(seq_impl, n, n_heads, seq_len)
+    if not mesh.in_rank:
+        kw = dict(seq_len=seq_len, n_heads=n_heads, causal=causal,
+                  seq_impl=seq_impl, batch_fn=batch_fn)
+        args = (_transformer_dp_rank, params, seeds, mesh, batch_size,
+                model_size, lr, ("seq", kw))
+        outs = (launch_strided(*args, axis=DATA_AXIS, timeout=timeout)
+                if dp > 1 else launch_replicated(*args, timeout=timeout))
+        return to_device(outs[0], params.w1.device)
+    t_local = seq_len // n
+    r = axis_index(mesh, SEQ_AXIS)
+
+    def step(params: TransformerParams, seed) -> TransformerParams:
+        x, dloss_dx = (t[:, r * t_local:(r + 1) * t_local].contiguous()
+                       for t in _reshape_batch(seed, batch_size, seq_len,
+                                               model_size, params.w1.dtype,
+                                               params.w1.device, batch_fn))
+        _, blocks = seq_blocks_forward(params, x, n_heads, op, mesh, causal)
+        grads = seq_blocks_backward(blocks, dloss_dx)[1]
+        return sgd(params, sum_grads(grads, mesh), lr)
+
+    local = params.with_leaves([t.to(mesh.torch_device, copy=True)
+                                for _, t in params.named_leaves()])
+    if dp > 1:
+        return run_strided(step, local, seeds, mesh, on_step, axis=DATA_AXIS)
+    return run_replicated(step, local, seeds, mesh, on_step)
+
+
 _DP_TRAINERS = {"ddp": train_transformer_ddp, "fsdp": train_transformer_fsdp,
-                "hybrid": train_transformer_hybrid}
+                "hybrid": train_transformer_hybrid,
+                "seq": train_transformer_seq}
 
 
 def _transformer_dp_rank(mesh: Mesh, payload):
-    """One rank of a whole-mesh DDP, FSDP or hybrid run: its shards on the
-    CPU (DDP: rank 0's replica alone)."""
+    """One rank of a whole-mesh DDP, FSDP, hybrid or sequence-parallel
+    run: its shards on the CPU (DDP, seq: rank 0's replica alone)."""
     params, seeds, batch_size, model_size, lr, (kind, kw) = payload
     out = _DP_TRAINERS[kind](params, seeds, batch_size, model_size, mesh, lr,
                              **kw)
-    return None if kind == "ddp" and mesh.rank else to_device(out, "cpu")
+    if kind in ("ddp", "seq") and mesh.rank:
+        return None
+    return to_device(out, "cpu")

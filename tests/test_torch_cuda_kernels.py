@@ -1645,3 +1645,71 @@ def test_ring_bf16_moves_in_sequence_with_other_calls(card, n):
         ws.check()
     finally:
         ws.close()
+
+
+# -- the flash kernels as the ring attention of sequence parallelism calls them
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_impl", [None, "flash"])
+def test_ring_attention_flash_pair_under_global_lse(card, attn_impl):
+    """The causal ring of 4 loopback ranks (``parallel/sequence.py``) at 2
+    sequences x 3 heads of 4 x 48 positions (blocks no tile divides), the
+    flash kernels on each hop's block with the backward handed the ring's
+    global ``y`` and ``lse``: ``y``, ``lse``, ``dq``, ``dk``, ``dv``
+    within 1e-4 of float64 attention over the whole sequence, as the
+    plain ring's (``attn_impl=None``); the kernels launched on the 10 of
+    16 hops the mask leaves, forward and backward. Handing each hop's
+    backward its own ``lse`` instead misses by far more."""
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        SEQ_AXIS, launch, make_mesh)
+    from distributed_llm_code_samples_tpu_torch.parallel import sequence
+    rng = np.random.default_rng(90)
+    q, k, v = (normal(rng, 2, 3, 192, 40) for _ in range(3))
+    dy = normal(rng, 2, 3, 192, 40, scale=0.1)
+
+    def ring(mesh, _):
+        r = mesh.axis_index(SEQ_AXIS)
+        qb, kb, vb, dyb = (t.chunk(4, -2)[r].contiguous()
+                           for t in (q, k, v, dy))
+        y, lse = sequence.ring_attention_fwd(qb, kb, vb, mesh,
+                                             attn_impl=attn_impl)
+        return (y, lse, *sequence.ring_attention_bwd(
+            qb, kb, vb, y, lse, dyb, mesh, attn_impl=attn_impl))
+
+    def run():
+        outs = launch(ring, make_mesh({SEQ_AXIS: 4}, loopback=True),
+                      timeout=120)
+        torch.cuda.synchronize()
+        return [torch.cat([o[i] for o in outs], -1 if i == 1 else -2)
+                for i in range(5)]
+
+    before = _build.launch_counts()
+    got = run()
+    after = _build.launch_counts()
+    hops = 10 if attn_impl == "flash" else 0
+    for name in ("flash_attn_fwd", "flash_attn_dkv", "flash_attn_dq"):
+        assert after.get(name, 0) == before.get(name, 0) + hops
+    q64, k64, v64, dy64 = (t.double() for t in (q, k, v, dy))
+    y64, lse64 = flash_attention_fwd_ref(q64, k64, v64)
+    want = [y64, lse64, *flash_attention_bwd_ref(dy64, q64, k64, v64, y64,
+                                                 lse64)]
+
+    def err(g, w):
+        return float((g.double() - w).abs().max() / w.abs().max())
+
+    for g, w in zip(got, want):
+        assert err(g, w) <= 1e-4
+    if attn_impl == "flash":
+        bwd = p_fa.flash_attention_bwd
+
+        def own_lse(dy_, q_, k_, v_, y_, lse_, **kw):
+            return bwd(dy_, q_, k_, v_, y_,
+                       flash_attention_fwd(q_, k_, v_, causal=kw["causal"])[1],
+                       **kw)
+
+        p_fa.flash_attention_bwd = own_lse
+        try:
+            control = run()
+        finally:
+            p_fa.flash_attention_bwd = bwd
+        assert min(err(g, w) for g, w in zip(control[2:], want[2:])) > 1e-2

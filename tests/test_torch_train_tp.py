@@ -42,8 +42,9 @@ from distributed_llm_code_samples_tpu_torch.models import (
 from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
     FFNStackParams)
 from distributed_llm_code_samples_tpu_torch.parallel import (
-    DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, Mesh, launch, make_mesh, train_ddp,
-    train_hybrid, train_single, train_tp, train_tp_sp, unshard_tp_params)
+    DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, launch, make_mesh,
+    train_ddp, train_hybrid, train_single, train_tp, train_tp_sp,
+    unshard_tp_params)
 from distributed_llm_code_samples_tpu_torch.parallel import hybrid, tp
 from distributed_llm_code_samples_tpu_torch.parallel.launcher import (
     MESH, call_each)
@@ -170,7 +171,8 @@ def test_tp_sp_saves_token_shards(setup):
 
 @pytest.mark.parametrize("axes", [{MODEL_AXIS: 4}, {DATA_AXIS: 2,
                                                     MODEL_AXIS: 2},
-                                  {DATA_AXIS: 4, MODEL_AXIS: 2}])
+                                  {DATA_AXIS: 4, MODEL_AXIS: 2},
+                                  {DATA_AXIS: 2, SEQ_AXIS: 4}])
 def test_rank_coordinates_are_jax_device_positions(axes):
     """Rank r sits where device r sits in the JAX mesh's device array, and
     each axis group is a line of that array."""
