@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phase kernel   # build + hold the kernels only
+    python3 chip_smoke.py --phase serve    # the paged kernel + serving,
+                                           # serve-prefix, serve-pressure
     python3 chip_smoke.py --phase train    # the FFN kernels + training
     python3 chip_smoke.py --phase lm       # the LM kernels + LM training
     python3 chip_smoke.py --phase ring     # the ring kernels + DDP/FSDP,
@@ -56,7 +58,16 @@ each split size, ``paged-splits``), then drives the port's paths:
   the GPT-2-small LM of ``bench_decode.py`` (d=768, 12 layers, 12 heads,
   vocab 50304, max_seq_len 1024, random weights from a seed), once per
   ``kv_dtype`` with ``kernel="fused"`` and once at f32 with
-  ``kernel="gather"``;
+  ``kernel="gather"``; then ``serve-prefix`` (the eight prompts behind
+  one shared 256-token system prompt, the radix prefix cache on and off
+  at each ``kv_dtype``, equal tokens, and ``serve-prefix-partial``:
+  ``prefix_partial`` behind a 200-token one) and ``serve-pressure`` (the
+  eight prompts on a pool of 48 usable blocks with
+  ``preempt_after_steps=2``, replayed through the paged kernel, equal to
+  the unpressured run at each ``kv_dtype``, and
+  ``serve-pressure-retry``: one poisoned request retried to its clean
+  tokens); the paged kernel's launches equal layers x decode dispatches
+  in every run;
 - training: ``train_single`` for 8 steps at ``bench.py``'s FFN-stack
   headline shape (d 768, 24 layers, ffn 3072, 8192 tokens a step,
   random weights from a seed), through the three FFN kernels
@@ -252,6 +263,20 @@ PROMPT_LENS = (17, 300, 45, 128, 64, 191, 100, 256)
 MAX_NEW = 32
 ENGINE = dict(max_slots=8, block_size=16, prefill_chunk=64,
               max_blocks_per_seq=64, n_blocks=1 + 8 * 64)
+# staggered arrivals (request indices by engine step): three requests, two
+# steps later three more, one step later the last two
+ARRIVALS = {0: (0, 1, 2), 2: (3, 4, 5), 3: (6, 7)}
+# serve-prefix: one shared system prompt of 256 tokens (16 full blocks)
+# before every prompt, and a 200-token one (12 blocks and 8 rows) for the
+# sub-block run; serve-pressure: a pool of 48 usable blocks for requests
+# that reserve 86, preempting after 2 starved steps
+PREFIX_LEN = 256
+PARTIAL_PREFIX_LEN = 200
+# the sub-block run's arrivals: the rest come once the first request's
+# prompt (6 chunks) is cached, block 12 (8 shared rows) included
+PARTIAL_ARRIVALS = {0: (0,), 6: (1, 2, 3, 4, 5, 6, 7)}
+PRESSURE_BLOCKS = 1 + 48
+PREEMPT_AFTER = 2
 SEED = 0
 TOL = 2e-5                       # max |kernel - plain| / max |plain|
 # the paged kernel at a table past the old kernel's shared-memory cap
@@ -442,10 +467,13 @@ class Timer:
 
 # -- kernel phase ------------------------------------------------------------
 
-def make_case(torch, np, kv_dtype, b, hq, hkv, dh, blk, mb, lengths, seed):
+def make_case(torch, np, kv_dtype, b, hq, hkv, dh, blk, mb, lengths, seed,
+              shared=0):
     """One paged-attention case on the card: a pool with random content
     (block 0 the zero scratch block), per-slot tables of distinct blocks
-    in shuffled order with scratch tails, ragged ``lengths``."""
+    in shuffled order with scratch tails, ragged ``lengths``. With
+    ``shared``, the first ``shared`` entries of every table name the same
+    blocks (the prefix cache's shared system prompt)."""
     from distributed_llm_code_samples_tpu_torch.decode.paged import _quantize
     rng = np.random.default_rng(seed)
     nb = 1 + b * mb
@@ -466,6 +494,7 @@ def make_case(torch, np, kv_dtype, b, hq, hkv, dh, blk, mb, lengths, seed):
     for i, n in enumerate(lengths):
         used = -(-int(n) // blk)
         tables[i, :used] = perm[i * mb:i * mb + used]
+        tables[i, :min(shared, used)] = perm[:min(shared, used)]
     q = torch.from_numpy(rng.normal(size=(b, hq, dh)).astype(
         np.float32)).cuda()
     return dict(q=q, pool_k=k.contiguous(), pool_v=v.contiguous(),
@@ -476,15 +505,18 @@ def make_case(torch, np, kv_dtype, b, hq, hkv, dh, blk, mb, lengths, seed):
 
 
 def bound(case, blk):
-    """Least time of one launch: the bytes it must move (live KV blocks
-    at the storage type, int8 scales, q, y, tables, lengths) over HBM
-    rate, against its flops (QK and PV) over f32 rate."""
+    """Least time of one launch: the bytes it must move (the distinct live
+    KV blocks at the storage type, each read once however many tables
+    name it, int8 scales, q, y, tables, lengths) over HBM rate, against
+    its flops (QK and PV) over f32 rate."""
     q, k = case["q"], case["pool_k"]
     b, hq, dh = q.shape
     hkv = k.shape[1]
     lens = case["lengths"].tolist()
-    live_rows = sum(-(-n // blk) * blk for n in lens)
-    live_blocks = sum(-(-n // blk) for n in lens)
+    tables = case["tables"].tolist()
+    live_blocks = len({tables[i][j] for i, n in enumerate(lens)
+                       for j in range(-(-n // blk))})
+    live_rows = live_blocks * blk
     nbytes = (2 * live_rows * hkv * dh * k.element_size()
               + (2 * live_blocks * hkv * 4 if case["k_scale"] is not None
                  else 0)
@@ -529,19 +561,23 @@ def kernel_phase(torch, np, timer):
     tcap = blk * mb
     # ragged: 1 (a pad row), a block boundary and one past it, tcap
     ragged = (1, blk, blk + 1, 300, 77, tcap, 5, 513)
-    # the serving shapes: 8 slots, 12 heads, lengths of a decode step
+    # the serving shapes: 8 slots, 12 heads, lengths of a decode step; and
+    # serve-prefix's, every table naming the shared prompt's 16 blocks
     serving = tuple(n + 20 for n in PROMPT_LENS)
+    shared = tuple(PREFIX_LEN + n + 20 for n in PROMPT_LENS)
     cases = []
     for kv_dtype in ("f32", "bf16", "int8"):
         for hq, hkv, lens, tag in ((12, 12, serving, "serving"),
                                    (12, 12, ragged, "ragged"),
-                                   (12, 4, ragged, "gqa")):
+                                   (12, 4, ragged, "gqa"),
+                                   (12, 12, shared, "shared")):
             cases.append((kv_dtype, hq, hkv, dh, mb, lens, tag))
         cases.append((kv_dtype,) + LONG_TABLE)
     results = []
     for n, (kv_dtype, hq, hkv, hd, nblk, lens, tag) in enumerate(cases):
         case = make_case(torch, np, kv_dtype, len(lens), hq, hkv, hd, blk,
-                         nblk, lens, seed=n)
+                         nblk, lens, seed=n,
+                         shared=PREFIX_LEN // blk if tag == "shared" else 0)
         y = paged_decode_attn(**case)
         again = paged_decode_attn(**case)
         torch.cuda.synchronize()
@@ -725,13 +761,10 @@ def lm_parts(prof):
     return out
 
 
-def serving_phase(torch, np, card):
-    from distributed_llm_code_samples_tpu_torch.decode import (DecodeEngine,
-                                                               EngineConfig)
-    from distributed_llm_code_samples_tpu_torch.models.lm import (generate,
-                                                                  init_lm)
-    from distributed_llm_code_samples_tpu_torch.ops import (
-        launch_counts, reset_launch_counts)
+def served_model(torch, np):
+    """The served model (random weights from ``SEED``) and the eight
+    prompts of ``PROMPT_LENS`` (drawn from ``SEED``)."""
+    from distributed_llm_code_samples_tpu_torch.models.lm import init_lm
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     params = init_lm(gen, MODEL["vocab"], MODEL["d_model"],
@@ -740,62 +773,25 @@ def serving_phase(torch, np, card):
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, MODEL["vocab"], size=n).tolist()
                for n in PROMPT_LENS]
-    # staggered: three requests, two steps later three more, one step
-    # later the last two, so admission happens between steps
-    arrivals = {0: prompts[:3], 2: prompts[3:6], 3: prompts[6:]}
+    return params, prompts
+
+
+def serving_phase(torch, np, card, params, prompts):
+    from distributed_llm_code_samples_tpu_torch.models.lm import generate
 
     def serve(kv_dtype, kernel, rep):
-        eng = DecodeEngine(params, MODEL["n_heads"], EngineConfig(
-            **ENGINE, kv_dtype=kv_dtype, kernel=kernel))
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        uids, t_sub, t_tok = [], {}, {}
-        t0 = time.perf_counter()
-        step = 0
-        while step <= max(arrivals) or eng.waiting or eng.active:
-            for p in arrivals.get(step, []):
-                uid = eng.submit(p, MAX_NEW)
-                uids.append(uid)
-                t_sub[uid], t_tok[uid] = time.perf_counter(), []
-            check(eng.step(), "engine stalled")
-            now = time.perf_counter()       # the step read its picks back
-            for u in uids:
-                seq = next((s for s in eng.slots
-                            if s is not None and s.uid == u), None)
-                n = (len(eng.finished[u]) - eng.prompt_lens[u]
-                     if u in eng.finished else len(seq.out) if seq else 0)
-                t_tok[u] += [now] * (n - len(t_tok[u]))
-            step += 1
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = launch_counts().get("paged_decode_attn", 0)
-        done = eng.finished
-        toks = [done.get(u) for u in uids]
-        check(not eng.failed, f"requests failed: {eng.failed}")
-        check(all(t is not None and len(t) == len(p) + MAX_NEW
-                  and all(0 <= x < MODEL["vocab"] for x in t)
-                  for t, p in zip(toks, prompts)), "bad token lists")
-        ttft = [t_tok[u][0] - t_sub[u] for u in uids]
-        itl = [b - a for u in uids for a, b in zip(t_tok[u], t_tok[u][1:])]
+        toks, eng, r = serve_run(torch, params, prompts,
+                                 dict(kv_dtype=kv_dtype, kernel=kernel))
         run = dict(kv_dtype=kv_dtype, kernel=kernel, rep=rep,
-                   requests=len(uids), failed=len(eng.failed),
-                   tokens_generated=eng.tokens_generated, wall_s=wall,
-                   tokens_per_sec=eng.tokens_generated / wall,
-                   ttft_ms_median=1e3 * statistics.median(ttft),
-                   ttft_ms_max=1e3 * max(ttft), ttft_n=len(ttft),
-                   itl_ms_median=1e3 * statistics.median(itl),
-                   itl_ms_p90=1e3 * pct(itl, 0.9), itl_n=len(itl),
-                   engine_steps=eng.steps,
-                   decode_dispatches=eng.decode_dispatches,
-                   prefill_dispatches=eng.prefill_dispatches,
-                   mean_occupancy=eng.mean_occupancy(),
-                   kernel_launches=launches, card=card)
+                   requests=len(prompts), failed=len(eng.failed),
+                   **{k: r[k] for k in (
+                       "tokens_generated", "wall_s", "tokens_per_sec",
+                       "ttft_ms_median", "ttft_ms_max", "ttft_n",
+                       "itl_ms_median", "itl_ms_p90", "itl_n",
+                       "engine_steps", "decode_dispatches",
+                       "prefill_dispatches", "mean_occupancy",
+                       "kernel_launches")}, card=card)
         print("serve-run " + json.dumps(run), flush=True)
-        want = (MODEL["n_layers"] * eng.decode_dispatches
-                if kernel == "fused" else 0)
-        check(launches == want,
-              f"{kernel} {kv_dtype}: {launches} kernel launches, expected "
-              f"{want} (layers x decode dispatches)")
         return toks, run
 
     # two passes over the four configurations: the first one pays the
@@ -855,6 +851,192 @@ def serving_phase(torch, np, card):
           flush=True)
     return fused_launches
 
+
+
+def serve_run(torch, params, prompts, cfg_kw=None, policy=None,
+              poison_uid=None, arrivals=ARRIVALS):
+    """One run of ``prompts`` through a fresh ``DecodeEngine`` (``ENGINE``
+    with ``cfg_kw``, the fused kernel unless overridden, and ``policy``),
+    arriving by ``arrivals`` (staggered, so admission happens between
+    steps), each request's uid its index; each token is stamped when the
+    step that picked it returns (the step reads its picks back). With
+    ``poison_uid``, ``arm_poison`` fires once, the first step that uid is
+    running with two tokens out. The paged kernel's launches are counted
+    from 0 over the run and must equal layers x decode dispatches.
+    Returns the token lists, the engine and the run's numbers."""
+    from distributed_llm_code_samples_tpu_torch.decode import (
+        DecodeEngine, EngineConfig, ServePolicy)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    cfg = EngineConfig(**dict(ENGINE, **(cfg_kw or {})))
+    eng = DecodeEngine(params, MODEL["n_heads"], cfg,
+                       policy=ServePolicy(**(policy or {})))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t_sub, t_tok, poisoned = {}, {}, None
+    step = 0
+    t0 = time.perf_counter()
+    while step <= max(arrivals) or eng.waiting or eng.active:
+        for i in arrivals.get(step, ()):
+            eng.submit(prompts[i], MAX_NEW, uid=i)
+            t_sub[i], t_tok[i] = time.perf_counter(), []
+        if poison_uid is not None and poisoned is None:
+            seq = next((s for s in eng.slots
+                        if s is not None and s.uid == poison_uid), None)
+            if seq is not None and len(seq.out) >= 2:
+                eng.arm_poison(poison_uid)
+                poisoned = step
+        check(eng.step(), "engine stalled")
+        now = time.perf_counter()           # the step read its picks back
+        out = {s.uid: len(s.out) for s in eng.slots if s is not None}
+        for u, times in t_tok.items():
+            n = (len(eng.finished[u]) - eng.prompt_lens[u]
+                 if u in eng.finished else out.get(u, 0))
+            times += [now] * (n - len(times))
+        step += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts().get("paged_decode_attn", 0)
+    toks = [eng.finished.get(i) for i in range(len(prompts))]
+    check(not eng.failed, f"requests failed: {eng.failed}")
+    check(all(t is not None and len(t) == len(p) + MAX_NEW
+              and all(0 <= x < MODEL["vocab"] for x in t)
+              for t, p in zip(toks, prompts)), "bad token lists")
+    want = (MODEL["n_layers"] * eng.decode_dispatches
+            if cfg.kernel == "fused" else 0)
+    check(launches == want,
+          f"{launches} paged kernel launches, expected {want} (layers x "
+          f"decode dispatches)")
+    ttft = [t_tok[u][0] - t_sub[u] for u in sorted(t_sub)]
+    itl = [b - a for times in t_tok.values()
+           for a, b in zip(times, times[1:])]
+    run = dict(kv_dtype=cfg.kv_dtype, prefix_cache=cfg.prefix_cache,
+               prefix_partial=cfg.prefix_partial, n_blocks=cfg.n_blocks,
+               policy=policy or {}, wall_s=wall,
+               tokens_generated=eng.tokens_generated,
+               tokens_per_sec=eng.tokens_generated / wall,
+               ttft_ms_median=1e3 * statistics.median(ttft),
+               ttft_ms_max=1e3 * max(ttft), ttft_n=len(ttft),
+               itl_ms_median=1e3 * statistics.median(itl),
+               itl_ms_p90=1e3 * pct(itl, 0.9), itl_n=len(itl),
+               engine_steps=eng.steps,
+               mean_occupancy=eng.mean_occupancy(),
+               prefill_dispatches=eng.prefill_dispatches,
+               decode_dispatches=eng.decode_dispatches,
+               kernel_launches=launches,
+               prefix_hit_blocks=eng.prefix_hit_blocks,
+               prefix_lookup_blocks=eng.prefix_lookup_blocks,
+               prefill_tokens_saved=eng.prefill_tokens_saved,
+               partial_hits=eng.partial_hits,
+               shared_blocks_peak=eng.shared_blocks_peak,
+               cow_copies=eng.cow_copies, preempted=eng.preempted,
+               replayed_tokens=sum(e["replay"] for e in eng.request_events
+                                   if e["event"] == "admitted"),
+               quarantined=eng.quarantined, retried=eng.retried,
+               poisoned_at_step=poisoned)
+    return toks, eng, run
+
+
+def serve_prefix_phase(torch, np, card, params, prompts):
+    """``serve-prefix``: the eight prompts behind one shared 256-token
+    system prompt, with the prefix cache on and off at each kv_dtype:
+    equal tokens, hits, no copy-on-write; the f32 run against the
+    contiguous-cache decode on the shortest prompt (a mismatch passes only
+    at a near tie, as in the serving phase). Then ``serve-prefix-partial``:
+    a 200-token shared prompt under ``prefix_partial`` at f32, arriving by
+    ``PARTIAL_ARRIVALS``, whose tokens equal the unshared run's with
+    sub-block hits. Returns the paged
+    kernel's launches by run."""
+    from distributed_llm_code_samples_tpu_torch.models.lm import generate
+    rng = np.random.default_rng([SEED, PREFIX_LEN])
+    head = rng.integers(0, MODEL["vocab"], size=PREFIX_LEN).tolist()
+    shared = [head + p for p in prompts]
+    launches = {}
+    for kv_dtype in ("f32", "bf16", "int8"):
+        on_toks, on, run_on = serve_run(torch, params, shared,
+                                        dict(kv_dtype=kv_dtype))
+        off_toks, _, run_off = serve_run(
+            torch, params, shared, dict(kv_dtype=kv_dtype,
+                                        prefix_cache=False))
+        same = on_toks == off_toks
+        print("serve-prefix " + json.dumps(dict(
+            kv_dtype=kv_dtype, prefix_len=PREFIX_LEN,
+            prompt_lens=[len(p) for p in shared], tokens_equal=same,
+            on=run_on, off=run_off, card=card)), flush=True)
+        check(same, f"serve-prefix {kv_dtype}: cache on != off")
+        check(on.prefix_hit_blocks > 0 and on.cow_copies == 0,
+              f"serve-prefix {kv_dtype}: {on.prefix_hit_blocks} hits, "
+              f"{on.cow_copies} copies")
+        launches[f"prefix-{kv_dtype}-on"] = run_on["kernel_launches"]
+        launches[f"prefix-{kv_dtype}-off"] = run_off["kernel_launches"]
+        if kv_dtype == "f32":
+            want = generate(params, torch.tensor([shared[0]]), MAX_NEW,
+                            MODEL["n_heads"])[0].tolist()
+            if want != on_toks[0]:
+                pos = next(t for t in range(len(want))
+                           if want[t] != on_toks[0][t])
+                gap = top2_gap(torch, params, want, pos)
+                print(f"serve-prefix-vs-generate mismatch position {pos} "
+                      f"top2-gap {gap:.3e}", flush=True)
+                check(gap < 1e-3, "serve-prefix != generate")
+    part = [head[:PARTIAL_PREFIX_LEN] + p for p in prompts]
+    on_toks, on, run_on = serve_run(torch, params, part,
+                                    dict(prefix_partial=True),
+                                    arrivals=PARTIAL_ARRIVALS)
+    off_toks, _, run_off = serve_run(torch, params, part,
+                                     dict(prefix_cache=False),
+                                     arrivals=PARTIAL_ARRIVALS)
+    same = on_toks == off_toks
+    print("serve-prefix-partial " + json.dumps(dict(
+        kv_dtype="f32", prefix_len=PARTIAL_PREFIX_LEN, tokens_equal=same,
+        on=run_on, off=run_off, card=card)), flush=True)
+    check(same, "serve-prefix-partial: shared != unshared")
+    check(on.partial_hits > 0 and on.cow_copies == 0,
+          f"serve-prefix-partial: {on.partial_hits} sub-block hits")
+    launches["partial-f32-on"] = run_on["kernel_launches"]
+    launches["partial-f32-off"] = run_off["kernel_launches"]
+    return launches
+
+
+def serve_pressure_phase(torch, np, card, params, prompts):
+    """``serve-pressure``: the eight prompts on a pool of 48 usable blocks
+    under ``preempt_after_steps=2`` at each kv_dtype: preemptions, their
+    replayed tokens through the decode dispatch (so through the paged
+    kernel), nothing failed, and the unpressured run's tokens. Then
+    ``serve-pressure-retry``: request 1 poisoned once while running,
+    ``max_retries=1``: one retry, and the clean tokens. Returns the paged
+    kernel's launches by run."""
+    launches = {}
+    clean = None
+    for kv_dtype in ("f32", "bf16", "int8"):
+        free_toks, _, run_free = serve_run(torch, params, prompts,
+                                           dict(kv_dtype=kv_dtype))
+        toks, eng, run = serve_run(
+            torch, params, prompts,
+            dict(kv_dtype=kv_dtype, n_blocks=PRESSURE_BLOCKS),
+            policy=dict(preempt_after_steps=PREEMPT_AFTER))
+        same = toks == free_toks
+        print("serve-pressure " + json.dumps(dict(
+            kv_dtype=kv_dtype, tokens_equal=same, pressured=run,
+            unpressured=run_free, card=card)), flush=True)
+        check(same, f"serve-pressure {kv_dtype}: pressured != unpressured")
+        check(eng.preempted > 0, f"serve-pressure {kv_dtype}: no preemption")
+        launches[f"pressure-{kv_dtype}"] = run["kernel_launches"]
+        launches[f"pressure-{kv_dtype}-free"] = run_free["kernel_launches"]
+        if kv_dtype == "f32":
+            clean = free_toks
+    toks, eng, run = serve_run(torch, params, prompts,
+                               policy=dict(max_retries=1), poison_uid=1)
+    retries = next(e["retries"] for e in eng.request_events
+                   if e["event"] == "completed" and e["uid"] == 1)
+    print("serve-pressure-retry " + json.dumps(dict(
+        kv_dtype="f32", poisoned_uid=1, retries=retries,
+        tokens_equal=toks == clean, run=run, card=card)), flush=True)
+    check(run["poisoned_at_step"] is not None and eng.retried == 1
+          and retries == 1, "serve-pressure-retry: no single retry")
+    check(toks == clean, "serve-pressure-retry: tokens != clean run's")
+    launches["retry-f32"] = run["kernel_launches"]
+    return launches
 
 # -- FFN kernels -------------------------------------------------------------
 
@@ -6616,7 +6798,8 @@ def dist_phase(torch, part: str = "all"):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
-                    choices=["all", "kernel", "train", "lm", "ring", "ep",
+                    choices=["all", "kernel", "serve", "train", "lm", "ring",
+                             "ep",
                              "tp", "opt", "lmtp", "lmdp", "bf16", "seq",
                              "dist", "dist-tp", "dist-lmdp", "dist-bf16",
                              "dist-seq"],
@@ -6666,7 +6849,7 @@ def main(argv=None) -> int:
     lm_kernel_phases = ("all", "lm", "lmtp", "lmdp", "seq")
     ring_phases, ep_phases = ("all", "ring"), ("all", "ep")
     opt_phases, bf16_phases = ("all", "opt"), ("all", "bf16")
-    if args.phase in ("all", "kernel"):
+    if args.phase in ("all", "kernel", "serve"):
         cases = kernel_phase(torch, np, timer)
         bad += [c for c in cases if not c["ok"]]
         if not bad:
@@ -6699,8 +6882,14 @@ def main(argv=None) -> int:
     launches = ffn_launches = lm_launches = ring_launches = None
     ep_launches = bf16_launches = lmtp_launches = lmdp_launches = None
     dtype_launches = lm_bf16_launches = seq_launches = seq_a2a = None
-    if not bad and args.phase == "all":
-        launches = serving_phase(torch, np, card)
+    serve_launches = None
+    if not bad and args.phase in ("all", "serve"):
+        params, prompts = served_model(torch, np)
+        launches = serving_phase(torch, np, card, params, prompts)
+        serve_launches = dict(
+            serve_prefix_phase(torch, np, card, params, prompts),
+            **serve_pressure_phase(torch, np, card, params, prompts))
+        del params
     if not bad and args.phase in ("all", "train"):
         ffn_launches = train_phase(torch, np, card)
     if not bad and args.phase in lm_phases:
@@ -6724,9 +6913,11 @@ def main(argv=None) -> int:
     if not bad and args.phase in ("all", "seq"):
         seq_a2a = seq_a2a_phase(torch, card)
         seq_launches = seq_phase(torch, np, card)
-    if args.phase in ("all", "kernel"):
+    if args.phase in ("all", "kernel", "serve"):
         main_case = next(c for c in cases if c["shape"] == "serving"
                          and c["kv_dtype"] == "f32")
+        shared_case = next(c for c in cases if c["shape"] == "shared"
+                           and c["kv_dtype"] == "f32")
         kernels.append({
             "name": "paged_decode_attn", "route": "cuda",
             "source": "distributed_llm_code_samples_tpu_torch/csrc/"
@@ -6734,6 +6925,9 @@ def main(argv=None) -> int:
             "replaces": "distributed_llm_code_samples_tpu/ops/"
                         "pallas_paged_attention.py:129",
             "launches": launches,
+            "serve_launches": serve_launches,
+            "shared_table_ms": shared_case["ms"],
+            "shared_table_bound_ms": shared_case["bound_ms"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_rel_err": max(c["rel_err"] for c in cases),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -1,5 +1,5 @@
 """Decode engine: paged KV and continuous batching, as in the JAX
-package's ``decode/engine.py`` (the core of ``DecodeEngine``).
+package's ``decode/engine.py``.
 
 - **Paged KV** (``decode/paged.py``): one block pool for every sequence;
   a finished sequence frees its blocks with a host-side table edit.
@@ -20,22 +20,48 @@ package's ``decode/engine.py`` (the core of ``DecodeEngine``).
   ``"gather"``; on the card the plain path must not be the main path.
 - **Sampling** (``decode/sampling.py``): keyed on ``(seed, uid,
   position)``, so a sequence's tokens never depend on its batch.
-- **Guardrail**: each step checks every row's logits are finite; a
-  non-finite row fails that request (reason ``nonfinite_logits``, no
-  retry) and scrubs its blocks, leaving every other sequence untouched.
+- **Radix prefix cache** (``decode/prefix.py``, ``prefix_cache``, on by
+  default as in JAX): every fully prefilled full prompt block enters a
+  host-side radix tree; admission maps each cached block of a new prompt
+  into its table (refcounted) and starts its prefill past them. A hit
+  block holds the bytes the sequence's own prefill would have written,
+  and at least one prompt token always prefills, so shared output equals
+  unshared output at every ``kv_dtype``. ``prefix_partial`` also shares
+  part of a block: the donor's leading rows are copied into a private
+  block (``paged.copy_block_rows``) and the prefill starts mid-block.
+- **Copy-on-write**: a shared block is read-only. No scheduler write
+  aims at one (hits cover only fully prefilled prompt blocks), and
+  ``_cow_private`` enforces it with a bit-identical private copy
+  (``paged.copy_block``) before any write window that would touch one;
+  ``cow_copies`` counts them (0 in steady state). The copy is queued on
+  the stream the next dispatch reads on.
+- **Guardrail and quarantine**: each step checks every row's logits are
+  finite; a non-finite row quarantines its request (reason
+  ``nonfinite_logits``): private blocks scrubbed, shared blocks only
+  released while sharers remain, every other sequence untouched. With
+  ``ServePolicy.max_retries`` left the request is replayed, else it
+  fails.
+- **Replay**: a preempted or retried request re-prefills its prompt and
+  then teacher-forces its recorded tokens through the decode dispatch
+  (``_Seq.emitted``), so its KV write history, int8 requant included, is
+  the uninterrupted run's.
+- **ServePolicy**: a bounded queue (``AdmissionError``), per-request
+  deadlines counted from the original submission, quarantine retries,
+  and pool-pressure preemption of the youngest resident (never the last
+  one).
 
 PyTorch runs eagerly: each step is a sequence of launches, and there is
 no compiled-program cache. The pool is updated in place. Left out of
 this port (a non-default value of their ``EngineConfig`` fields raises
-``NotImplementedError``): speculative decoding, the prefix cache, the
-spill tier, sub-block sharing; and, with no field here, preemption,
-deadlines, queue limits, QoS, telemetry, tracing, snapshots, weight
-hot-swap, KV handoff and tensor parallelism.
+``NotImplementedError``): speculative decoding and the spill tier; and,
+with no field here, QoS, telemetry, tracing, snapshots, weight hot-swap,
+KV handoff and tensor parallelism.
 """
 
 from __future__ import annotations
 
 import collections
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -45,9 +71,26 @@ from ..models.attention import chunk_attn, rope
 from ..models.lm import LMParams, decode_attn
 from ..ops.norm import layernorm
 from ..runtime.guardrails import rows_finite
-from .paged import (SCRATCH_BLOCK, PagedKV, fused_decode_attn, gather_layer,
-                    init_pool, scrub_blocks, write_chunk, write_rows)
+from .paged import (SCRATCH_BLOCK, PagedKV, copy_block, copy_block_rows,
+                    fused_decode_attn, gather_layer, init_pool, scrub_blocks,
+                    write_chunk, write_rows)
+from .paged import corrupt_block as _pool_corrupt_block
+from .prefix import PrefixCache
 from .sampling import check_sampling, make_pick
+
+# the poison operand of ``arm_poison``: no row, or every row
+POISON_NONE = -1
+POISON_ALL = -2
+
+
+class AdmissionError(RuntimeError):
+    """A request was shed at submit time (the bounded queue is full): the
+    serving 503, distinct from the ``ValueError`` of a malformed request.
+    ``reason`` names the cause."""
+
+    def __init__(self, msg: str, reason: str = "queue_full"):
+        super().__init__(msg)
+        self.reason = reason
 
 
 def blocks_needed(prompt_len: int, max_new: int, block_size: int) -> int:
@@ -77,20 +120,20 @@ def _bucket_for(n: int, buckets: tuple[int, ...]) -> int:
 
 # fields of the JAX EngineConfig this port does not implement, with the
 # only value it accepts for each
-_NOT_PORTED = {"speculate": 0, "prefix_cache": False, "spill_blocks": 0,
-               "spill_restore_per_step": 2, "spill_low_water": 0,
-               "prefix_partial": False}
+_NOT_PORTED = {"speculate": 0, "spill_blocks": 0,
+               "spill_restore_per_step": 2, "spill_low_water": 0}
 
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """Static engine configuration, with the JAX field names.
-    ``block_size`` and ``prefill_chunk`` are powers of two (so a chunk
-    never straddles a block); ``n_blocks`` includes the scratch block;
-    ``temperature=0`` is greedy and ``top_k=0`` / ``top_p=0`` disable
-    those truncations. ``kernel`` is ``"fused"`` (default) or
-    ``"gather"``. The fields in ``_NOT_PORTED`` accept only their
-    default; ``prefix_cache`` defaults to False here (True in JAX)."""
+    """Static engine configuration, with the JAX field names and
+    defaults but ``kernel``. ``block_size`` and ``prefill_chunk`` are
+    powers of two (so a chunk never straddles a block); ``n_blocks``
+    includes the scratch block; ``temperature=0`` is greedy and
+    ``top_k=0`` / ``top_p=0`` disable those truncations. ``kernel`` is
+    ``"fused"`` (default) or ``"gather"``. ``prefix_cache`` turns on the
+    radix prefix cache and ``prefix_partial`` (which needs it) sub-block
+    sharing. The fields in ``_NOT_PORTED`` accept only their default."""
     block_size: int = 16
     n_blocks: int = 65
     max_slots: int = 4
@@ -104,7 +147,7 @@ class EngineConfig:
     use_rope: bool = False
     speculate: int = 0
     kernel: str = "fused"
-    prefix_cache: bool = False
+    prefix_cache: bool = True
     spill_blocks: int = 0
     spill_restore_per_step: int = 2
     spill_low_water: int = 0
@@ -116,35 +159,83 @@ class EngineConfig:
         return self.max_blocks_per_seq * self.block_size
 
 
+@dataclass(frozen=True)
+class ServePolicy:
+    """Host-side scheduling and reliability settings, as in JAX; all
+    zeros (the default) is strict reserve-on-admit FCFS.
+
+    - ``queue_limit``: bounded waiting queue; a submit past it raises
+      ``AdmissionError``. 0 = off.
+    - ``deadline_steps``: per-request time to live in engine steps from
+      the original submit; an unfinished request past it fails with
+      reason ``deadline``, waiting or running. 0 = off.
+    - ``max_retries``: how often a quarantined request is queued again
+      for replay before it is reported failed. 0 = fail at once.
+    - ``preempt_after_steps``: when the head of the queue has a free slot
+      but not its blocks for this many consecutive steps, the youngest
+      running sequence goes back to the queue (replayed later). The
+      last running sequence is never evicted. 0 = off."""
+    queue_limit: int = 0
+    deadline_steps: int = 0
+    max_retries: int = 0
+    preempt_after_steps: int = 0
+
+    def __post_init__(self):
+        for name in ("queue_limit", "deadline_steps", "max_retries",
+                     "preempt_after_steps"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0, got "
+                                 f"{getattr(self, name)}")
+
+
 @dataclass
 class _Seq:
-    """Host-side record of one request."""
+    """Host-side record of one request.
+
+    ``nodes[i]`` is the ``PrefixNode`` backing ``blocks[i]`` while that
+    leading block is shared through the radix cache, None when private.
+    ``emitted`` counts the ``out`` tokens fed through the decode path
+    since the last admission: ``emitted < len(out)`` is the replay state
+    after a retry or a preemption, in which the recorded tokens are
+    teacher-forced and the fresh picks discarded."""
     uid: int
     prompt: list[int]
     max_new: int
     out: list[int] = field(default_factory=list)
     prefilled: int = 0
     blocks: list[int] = field(default_factory=list)
+    nodes: list = field(default_factory=list)
+    emitted: int = 0
+    retries: int = 0
+    submit_step: int = 0
+    admit_index: int = -1
+    t_submit: float = field(default_factory=time.time)
+    t_first: float | None = None
 
     @property
     def prompt_done(self) -> bool:
         return self.prefilled >= len(self.prompt)
 
     @property
+    def replaying(self) -> bool:
+        return self.emitted < len(self.out)
+
+    @property
     def finished(self) -> bool:
-        return len(self.out) >= self.max_new
+        return len(self.out) >= self.max_new and not self.replaying
 
 
 class DecodeEngine:
     """The serving loop. ``submit()`` queues prompts; ``step()`` runs one
-    scheduler iteration (admit -> at most one prefill chunk -> one decode
-    dispatch over every ready slot); ``run()`` drains everything and
-    returns ``{uid: prompt + generated tokens}``. Runs on the device of
-    ``params``. ``noise_fn`` is handed to ``make_pick`` (tests pass JAX's
-    Gumbel draws)."""
+    scheduler iteration (expire deadlines -> admit -> at most one prefill
+    chunk -> one decode dispatch over every ready slot); ``run()`` drains
+    everything and returns ``{uid: prompt + generated tokens}``. Runs on
+    the device of ``params``. ``noise_fn`` is handed to ``make_pick``
+    (tests pass JAX's Gumbel draws)."""
 
     def __init__(self, params: LMParams, n_heads: int,
-                 config: EngineConfig | None = None, noise_fn=None):
+                 config: EngineConfig | None = None,
+                 policy: ServePolicy | None = None, noise_fn=None):
         cfg = config or EngineConfig()
         for name, ok in _NOT_PORTED.items():
             if getattr(cfg, name) != ok:
@@ -161,6 +252,9 @@ class DecodeEngine:
                                      & (cfg.prefill_chunk - 1)):
             raise ValueError(f"prefill_chunk must be a power of two >= 1, "
                              f"got {cfg.prefill_chunk}")
+        if cfg.prefix_partial and not cfg.prefix_cache:
+            raise ValueError("prefix_partial extends the radix prefix "
+                             "cache; it requires prefix_cache=True")
         if cfg.kernel not in ("gather", "fused"):
             raise ValueError(f"kernel must be 'gather' or 'fused', got "
                              f"{cfg.kernel!r}")
@@ -168,6 +262,7 @@ class DecodeEngine:
         self.params = params
         self.n_heads = n_heads
         self.cfg = cfg
+        self.policy = policy or ServePolicy()
         self.device = params.device
         self.dh = params.d_model // n_heads
         self.kv_heads = params.blocks.wk.shape[1] // self.dh
@@ -189,18 +284,46 @@ class DecodeEngine:
         self.free_blocks = list(range(1, cfg.n_blocks))
         self.slot_buckets = _buckets(cfg.max_slots)
         self.chunk_buckets = _buckets(cfg.prefill_chunk)
+        self.prefix = (PrefixCache(cfg.block_size) if cfg.prefix_cache
+                       else None)
         self.steps = 0
         self.tokens_generated = 0
         self.prefill_dispatches = 0
         self.decode_dispatches = 0
         self._occ_sum = 0.0
         self._next_uid = 0
+        # the audit ring of request records (bounded)
+        self.request_events: collections.deque[dict] = \
+            collections.deque(maxlen=4096)
+        self._corrupted: set[int] = set()   # corrupt_block's block ids
+        self._poison_uid = POISON_NONE      # armed for the next step only
+        self._admit_counter = 0             # admission order
+        self._head_blocked = 0              # the head's pool-starved streak
+        self._head_blocked_uid: int | None = None   # whose streak it is
+        self.quarantined = 0
+        self.retried = 0
+        self.preempted = 0
+        self.rejected = 0
+        self.expired = 0
+        self.block_allocs = 0
+        self.block_frees = 0
+        self.block_scrubs = 0
+        # the prefix cache's counters: hit blocks mapped at admission,
+        # candidate full blocks walked (the hit rate's denominator),
+        # prompt tokens the hits skipped, sub-block hits, copy-on-write
+        # copies, and the most blocks shared at the end of a step
+        self.prefix_hit_blocks = 0
+        self.prefix_lookup_blocks = 0
+        self.prefill_tokens_saved = 0
+        self.partial_hits = 0
+        self.cow_copies = 0
+        self.shared_blocks_peak = 0
 
     # -- requests --------------------------------------------------------
 
     def submit(self, prompt, max_new: int, uid: int | None = None) -> int:
         """Queue one request; an impossible one fails here, never
-        mid-serve."""
+        mid-serve. A full queue sheds it with ``AdmissionError``."""
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -224,36 +347,130 @@ class DecodeEngine:
                 > self.cfg.n_blocks - 1):
             raise ValueError("request needs more blocks than the pool "
                              f"holds ({self.cfg.n_blocks - 1} usable)")
-        if uid is None:
+        auto_uid = uid is None
+        if auto_uid:
             uid = self._next_uid
         elif uid < 0:
+            # negative uids are the poison sentinels
             raise ValueError(f"uid must be >= 0, got {uid}")
         elif (uid in self.finished or uid in self.failed
               or any(s is not None and s.uid == uid for s in self.slots)
               or any(s.uid == uid for s in self.waiting)):
+            # a twin would sample in lockstep (the key folds the uid)
             raise ValueError(f"uid {uid} already in use")
+        if (self.policy.queue_limit
+                and len(self.waiting) >= self.policy.queue_limit):
+            # an auto uid is not consumed, so its record carries -1
+            self.rejected += 1
+            self._event("rejected", -1 if auto_uid else uid,
+                        reason="queue_full", queue_len=len(self.waiting))
+            raise AdmissionError(
+                f"waiting queue full ({len(self.waiting)} >= "
+                f"queue_limit {self.policy.queue_limit}); request "
+                f"uid {uid} shed")
         self._next_uid = max(self._next_uid, uid) + 1
         self.prompt_lens[uid] = len(prompt)
-        self.waiting.append(_Seq(uid=uid, prompt=prompt, max_new=max_new))
+        self.waiting.append(_Seq(uid=uid, prompt=prompt, max_new=max_new,
+                                 submit_step=self.steps))
         return uid
+
+    def _event(self, event: str, uid: int, reason: str | None = None,
+               **extra) -> None:
+        self.request_events.append({"step": self.steps, "uid": int(uid),
+                                    "event": event, "reason": reason,
+                                    **extra})
+
+    def arm_poison(self, uid: int) -> None:
+        """Test hook: ``uid``'s logits row (every row for ``POISON_ALL``)
+        comes out NaN in the next engine step's dispatches, which the
+        guardrail then flags."""
+        self._poison_uid = int(uid)
+
+    def corrupt_block(self, block: int) -> None:
+        """Test hook: poison one physical pool block between steps
+        (``paged.corrupt_block``). The block is scrubbed on any later
+        release, and a block the radix cache holds is poisoned in the
+        tree at once: no new sharer matches it, while its bytes stay
+        until the last live sharer releases it."""
+        _pool_corrupt_block(self.pool, block)
+        self._corrupted.add(int(block))
+        if self.prefix is not None:
+            node = self.prefix.node_for_block(block)
+            if node is not None:
+                node.poisoned = True
+
+    # -- admission ---------------------------------------------------------
 
     def _admit(self) -> int:
         """FCFS admission while both a free slot and the head request's
         whole block reservation are available; a head that does not fit
-        blocks the queue."""
+        blocks the queue. With the prefix cache on, the head's cached
+        prompt blocks are mapped (locked before any eviction) and only the
+        rest draw on the free list, refs-0 cached blocks counting as free.
+        With ``preempt_after_steps``, a head starved of blocks for that
+        many consecutive steps evicts the youngest running sequence."""
         admitted = 0
+        bumped = False
+        bs = self.cfg.block_size
         while self.waiting:
+            seq = self.waiting[0]
+            need = blocks_needed(len(seq.prompt), seq.max_new, bs)
             free_slots = [i for i, s in enumerate(self.slots) if s is None]
             if not free_slots:
                 break
-            seq = self.waiting[0]
-            need = blocks_needed(len(seq.prompt), seq.max_new,
-                                 self.cfg.block_size)
-            if need > len(self.free_blocks):
+            hits = [] if self.prefix is None else self.prefix.match(
+                seq.prompt)
+            avail = len(self.free_blocks)
+            if self.prefix is not None:
+                # hit nodes are about to be locked, not evicted
+                avail += (self.prefix.evictable_blocks()
+                          - sum(1 for n in hits if n.refs == 0))
+            if need - len(hits) > avail:
+                pa = self.policy.preempt_after_steps
+                if pa > 0:
+                    if self._head_blocked_uid != seq.uid:
+                        # a new head earns its own streak
+                        self._head_blocked = 0
+                        self._head_blocked_uid = seq.uid
+                    if not bumped:          # one tick a step
+                        self._head_blocked += 1
+                        bumped = True
+                    if (self._head_blocked >= pa
+                            and self._preempt_youngest()):
+                        continue
                 break
+            self._head_blocked = 0
+            self._head_blocked_uid = None
             self.waiting.popleft()
             slot = free_slots[0]
-            seq.blocks = [self.free_blocks.pop(0) for _ in range(need)]
+            need_priv = need - len(hits)
+            if hits:
+                self.prefix.lock(hits, self.steps)
+                self.prefix_hit_blocks += len(hits)
+                self.prefill_tokens_saved += len(hits) * bs
+            if self.prefix is not None:
+                self.prefix_lookup_blocks += self.prefix.match_cap(
+                    len(seq.prompt))
+                if need_priv > len(self.free_blocks):
+                    self._reclaim_cached(need_priv - len(self.free_blocks))
+            seq.nodes = list(hits)
+            seq.blocks = [n.block for n in hits] + [
+                self.free_blocks.pop(0) for _ in range(need_priv)]
+            # the hit region is prefilled content: the clock starts past it
+            seq.prefilled = len(hits) * bs
+            if self.cfg.prefix_partial:
+                # the donor's first m rows into the first private block
+                # (need_priv >= 1: the final-token block is never a hit)
+                part = self.prefix.partial_match(seq.prompt, hits)
+                if part is not None:
+                    donor, m = part
+                    copy_block_rows(self.pool, donor.block,
+                                    seq.blocks[len(hits)], m)
+                    donor.last_use = self.steps
+                    seq.prefilled += m
+                    self.partial_hits += 1
+                    self.prefill_tokens_saved += m
+            self.block_allocs += need
             row = np.full((self.cfg.max_blocks_per_seq,), SCRATCH_BLOCK,
                           np.int32)
             row[:need] = seq.blocks
@@ -261,17 +478,119 @@ class DecodeEngine:
             self.lengths[slot] = 0
             self.uids[slot] = seq.uid
             self.slots[slot] = seq
+            seq.admit_index = self._admit_counter
+            self._admit_counter += 1
+            self._event("admitted", seq.uid,
+                        wait_steps=self.steps - seq.submit_step,
+                        replay=len(seq.out), prefix_hit_blocks=len(hits))
             admitted += 1
         return admitted
 
-    def _evict(self, slot: int, scrub: bool = False) -> _Seq:
+    def _scrub(self, blocks) -> None:
+        scrub_blocks(self.pool, blocks)
+        self._corrupted.difference_update(blocks)
+        self.block_scrubs += len(blocks)
+
+    def _reclaim_cached(self, n: int) -> None:
+        """Turn up to ``n`` refs-0 cached blocks back into free blocks
+        (LRU leaves); a corrupted one is scrubbed on the way out."""
+        got = self.prefix.evict_lru(n, self.steps)
+        bad = [b for b in got if b in self._corrupted]
+        if bad:
+            self._scrub(bad)
+        self.free_blocks.extend(got)
+
+    # -- block sharing -----------------------------------------------------
+
+    def _cache_full_blocks(self, slot: int) -> None:
+        """Insert a slot's newly fully prefilled full prompt blocks into
+        the radix tree (after every prefill chunk). The sequence keeps
+        each block and holds one ref. When another sequence cached the
+        same path meanwhile (both prefilled at once), the slot remaps onto
+        the cached block and frees its own copy, whose bytes are the
+        same."""
+        if self.prefix is None:
+            return
         seq = self.slots[slot]
-        if scrub:
-            # a non-finite run may have left NaN in its blocks and in
-            # the scratch block every pad row and table tail points at
-            scrub_blocks(self.pool, seq.blocks + [SCRATCH_BLOCK])
-        self.free_blocks.extend(seq.blocks)
+        full = min(seq.prefilled, len(seq.prompt)) // self.cfg.block_size
+        while len(seq.nodes) < full:
+            i = len(seq.nodes)
+            node = self.prefix.insert(seq.prompt, i, seq.blocks[i],
+                                      self.steps)
+            if node is None:            # parent evicted or poisoned
+                seq.nodes.append(None)
+                continue
+            if node.block != seq.blocks[i]:
+                # late dedup: remap onto the cached twin, free ours
+                self.free_blocks.append(seq.blocks[i])
+                self.block_frees += 1
+                self.block_allocs += 1
+                seq.blocks[i] = node.block
+                self.tables[slot][i] = node.block
+            self.prefix.lock([node], self.steps)
+            seq.nodes.append(node)
+
+    def _cow_private(self, slot: int, lo: int, hi: int) -> None:
+        """The copy-on-write barrier: before a write to table entries
+        ``lo..hi`` of ``slot``, any of them still backed by a radix node
+        becomes a private bit-identical copy (table remapped, the node's
+        ref released), so no write lands in a block another sequence or
+        the cache reads."""
+        seq = self.slots[slot]
+        if self.prefix is None or not seq.nodes:
+            return
+        for li in range(lo, min(hi + 1, len(seq.nodes))):
+            node = seq.nodes[li]
+            if node is None:
+                continue
+            if not self.free_blocks:
+                self._reclaim_cached(1)
+            if not self.free_blocks:
+                raise RuntimeError(
+                    "copy-on-write of a shared block needs a free "
+                    "block and the pool has none (refs-0 cache empty)")
+            dst = self.free_blocks.pop(0)
+            copy_block(self.pool, node.block, dst)
+            self.prefix.release(node, self.steps)
+            seq.nodes[li] = None
+            seq.blocks[li] = dst
+            self.tables[slot][li] = dst
+            self.block_allocs += 1
+            self.block_frees += 1
+            self.cow_copies += 1
+
+    def _evict(self, slot: int, drop_shared: bool = False) -> _Seq:
+        """Take a sequence off its slot. Private blocks go back to the
+        free list, scrubbed if corrupted or under ``drop_shared`` (the
+        quarantine: a poisoned run's bytes are not trusted). Shared
+        blocks are released instead: while sharers remain their bytes are
+        untouched; a clean last release leaves the block cached, a
+        distrusted one scrubs it and detaches it with its descendants.
+        Released deepest first, so refcounts stay monotone."""
+        seq = self.slots[slot]
+        to_free: list[int] = []
+        to_scrub: set[int] = set()
+        for li in reversed(range(len(seq.blocks))):
+            b = seq.blocks[li]
+            node = seq.nodes[li] if li < len(seq.nodes) else None
+            if node is not None:
+                self.prefix.release(node, self.steps)
+                if node.refs == 0 and (drop_shared
+                                       or b in self._corrupted):
+                    sub = self.prefix.detach_subtree(node)
+                    to_scrub.update(x for x in sub
+                                    if x == b or x in self._corrupted)
+                    to_free.extend(sub)
+            else:
+                if drop_shared or b in self._corrupted:
+                    to_scrub.add(b)
+                to_free.append(b)
+        if to_scrub:
+            self._scrub(sorted(to_scrub))
+        self.block_frees += len(seq.blocks)
+        self.free_blocks.extend(to_free)
         seq.blocks = []
+        seq.nodes = []
         self.tables[slot] = SCRATCH_BLOCK
         self.lengths[slot] = 0
         self.next_token[slot] = 0
@@ -279,21 +598,125 @@ class DecodeEngine:
         self.slots[slot] = None
         return seq
 
+    # -- lifecycle ---------------------------------------------------------
+
     def _release(self, slot: int) -> None:
         seq = self.slots[slot]
         self.finished[seq.uid] = seq.prompt + seq.out
+        now = time.time()
+        self._event("completed", seq.uid,
+                    latency_s=round(now - seq.t_submit, 4),
+                    ttft_s=(None if seq.t_first is None
+                            else round(seq.t_first - seq.t_submit, 4)),
+                    n_new=len(seq.out), retries=seq.retries)
         self._evict(slot)
 
-    def _quarantine(self, slot: int, reason: str) -> None:
-        seq = self._evict(slot, scrub=True)
-        self.failed[seq.uid] = {"reason": reason, "retries": 0,
+    def _requeue(self, seq: _Seq) -> None:
+        """Back to the queue for replay: prefill restarts from zero and
+        the recorded tokens will be teacher-forced. ``submit_step`` stays,
+        so the deadline still counts from the original submission."""
+        seq.prefilled = 0
+        seq.emitted = 0
+        self.waiting.append(seq)
+
+    def _preempt_youngest(self) -> bool:
+        """Evict the most recently admitted running sequence back to the
+        queue. Never the last running one: the oldest resident always
+        makes progress. Returns whether one was evicted."""
+        victims = [(s.admit_index, i) for i, s in enumerate(self.slots)
+                   if s is not None]
+        if len(victims) < 2:
+            return False
+        _, slot = max(victims)
+        seq = self._evict(slot)
+        self.preempted += 1
+        self._event("preempted", seq.uid, reason="pool_pressure",
+                    n_out=len(seq.out))
+        self._requeue(seq)
+        self._head_blocked = 0
+        return True
+
+    def _fail_or_retry(self, seq: _Seq, reason: str) -> None:
+        """The quarantine's verdict: replay with retry budget left (the
+        fault's pick was never appended), else report the uid failed."""
+        self.quarantined += 1
+        if seq.retries < self.policy.max_retries:
+            seq.retries += 1
+            self.retried += 1
+            self._event("quarantined", seq.uid, reason=reason,
+                        retrying=True)
+            self._event("retried", seq.uid, reason=reason,
+                        attempt=seq.retries,
+                        max_retries=self.policy.max_retries)
+            self._requeue(seq)
+            return
+        self._event("quarantined", seq.uid, reason=reason,
+                    retrying=False, retries=seq.retries)
+        self.failed[seq.uid] = {"reason": reason, "retries": seq.retries,
                                 "n_out": len(seq.out)}
 
+    def _quarantine(self, slot: int, reason: str) -> None:
+        """Free exactly this sequence's slot and blocks, scrubbing what it
+        alone held, and the scratch block every pad row and table tail
+        points at (a NaN there would poison every gather)."""
+        seq = self._evict(slot, drop_shared=True)
+        self._scrub([SCRATCH_BLOCK])
+        self._fail_or_retry(seq, reason)
+
+    def _quarantine_waiting(self, head_i: int, reason: str) -> None:
+        """Quarantine a request that faulted before taking a slot: no
+        blocks to free, the same retry-or-fail verdict."""
+        seq = self.waiting[head_i]
+        del self.waiting[head_i]
+        self._fail_or_retry(seq, reason)
+
+    def _expire_deadlines(self) -> None:
+        """Fail every request, waiting or running, still unfinished
+        ``deadline_steps`` engine steps after its original submission.
+        Runs before admission, so an expired waiter never takes a slot."""
+        dl = self.policy.deadline_steps
+        if dl <= 0:
+            return
+
+        def expire(seq: _Seq) -> None:
+            self.expired += 1
+            self._event("expired", seq.uid, reason="deadline",
+                        n_out=len(seq.out))
+            self.failed[seq.uid] = {"reason": "deadline",
+                                    "retries": seq.retries,
+                                    "n_out": len(seq.out)}
+
+        def overdue(seq: _Seq) -> bool:
+            return self.steps - seq.submit_step >= dl
+
+        for slot, seq in enumerate(self.slots):
+            if seq is not None and overdue(seq):
+                self._evict(slot)
+                expire(seq)
+        if any(overdue(seq) for seq in self.waiting):
+            keep = collections.deque()
+            for seq in self.waiting:
+                if overdue(seq):
+                    expire(seq)
+                else:
+                    keep.append(seq)
+            self.waiting = keep
+
     def _emit(self, slot: int, pick: int) -> None:
+        """Fold one picked token into a slot: a live sequence appends the
+        pick; a replaying one discards it and teacher-forces its recorded
+        token."""
         seq = self.slots[slot]
-        seq.out.append(pick)
-        self.tokens_generated += 1
-        self.next_token[slot] = pick
+        if seq.replaying:
+            tok = seq.out[seq.emitted]
+        else:
+            tok = pick
+            seq.out.append(tok)
+            self.tokens_generated += 1
+            if seq.t_first is None:
+                seq.t_first = time.time()
+        seq.emitted += 1
+        self.next_token[slot] = tok
         if seq.finished:
             self._release(slot)
 
@@ -327,8 +750,14 @@ class DecodeEngine:
             x = x + torch.relu(h @ blk.w1[l].T) @ blk.w2[l].T
         return x
 
-    def _logits(self, h):
-        return h @ self.params.wte.T
+    def _logits(self, h, uids):
+        """The tied head; rows of the armed poison uid come out NaN."""
+        logits = h @ self.params.wte.T
+        poison = self._poison_uid
+        if poison != POISON_NONE:
+            bad = [poison in (int(u), POISON_ALL) for u in uids]
+            logits[torch.tensor(bad, device=logits.device)] = float("nan")
+        return logits
 
     def _cached_attn(self, l: int, q, tables, n_attend):
         """Single-query attention over the block tables: the paged
@@ -346,11 +775,18 @@ class DecodeEngine:
     @torch.no_grad()
     def _prefill_step(self, slot: int) -> None:
         seq = self.slots[slot]
+        bs = self.cfg.block_size
         remaining = len(seq.prompt) - seq.prefilled
-        # largest power-of-two bucket that fits: chunk starts stay
-        # multiples of the chunk, so no chunk straddles a block
+        # largest power-of-two bucket that fits: from a block boundary the
+        # chunks stay block-aligned, so no chunk straddles a block
         c = max(b for b in self.chunk_buckets if b <= remaining)
+        if seq.prefilled % bs:
+            # a sub-block hit started mid-block: stay inside this block
+            # until the boundary, then chunk as usual
+            gap = bs - seq.prefilled % bs
+            c = max(b for b in self.chunk_buckets if b <= min(c, gap))
         pos0 = seq.prefilled
+        self._cow_private(slot, pos0 // bs, (pos0 + c - 1) // bs)
         self.prefill_dispatches += 1
         p = self.params
         table = self._tensor(self.tables[slot], torch.int32)
@@ -364,13 +800,14 @@ class DecodeEngine:
             return chunk_attn(q.transpose(0, 1), ck, cv, pos0).transpose(0, 1)
 
         x = self._trunk(x, positions, write_attn)
-        logits = self._logits(layernorm(p.ln_f, x[-1:]))
+        logits = self._logits(layernorm(p.ln_f, x[-1:]), [seq.uid])
         nxt = self.pick(logits, [seq.uid], [pos0 + c])
         nxt, ok = torch.stack([nxt[0], rows_finite(logits)[0].long()]).tolist()
         if not ok:
             self._quarantine(slot, "nonfinite_logits")
             return
         seq.prefilled += c
+        self._cache_full_blocks(slot)
         if seq.prompt_done:
             self.lengths[slot] = len(seq.prompt)
             self._emit(slot, int(nxt))
@@ -393,6 +830,9 @@ class DecodeEngine:
     @torch.no_grad()
     def _decode_dispatch(self, ready: list[int]) -> None:
         bs = self.cfg.block_size
+        for slot in ready:                  # the copy-on-write barrier
+            self._cow_private(slot, int(self.lengths[slot]) // bs,
+                              int(self.lengths[slot]) // bs)
         b, tables, lengths, tokens, uids = self._marshal(ready)
         self.decode_dispatches += 1
         p = self.params
@@ -409,7 +849,7 @@ class DecodeEngine:
             return self._cached_attn(l, q, tables_t, n_attend)
 
         x = self._trunk(x, pos_t, write_attn)
-        logits = self._logits(layernorm(p.ln_f, x))
+        logits = self._logits(layernorm(p.ln_f, x), uids)
         picks = self.pick(logits, uids.tolist(), (lengths + 1).tolist())
         out = torch.stack([picks, rows_finite(logits).long()]).cpu().numpy()
         for j, slot in enumerate(ready):
@@ -422,9 +862,11 @@ class DecodeEngine:
     # -- the loop ----------------------------------------------------------
 
     def step(self) -> bool:
-        """One scheduler iteration: admit, at most one prefill chunk, then
-        one decode dispatch over every ready slot. Returns whether any
-        work ran."""
+        """One scheduler iteration: expire deadlines, admit (preempting
+        when the policy says so), at most one prefill chunk, then one
+        decode dispatch over every ready slot. Returns whether any work
+        ran. An armed poison applies to exactly this step."""
+        self._expire_deadlines()
         self._admit()
         did = False
         pre = next((i for i, s in enumerate(self.slots)
@@ -439,7 +881,11 @@ class DecodeEngine:
             did = True
         if did:
             self.steps += 1
+            self._poison_uid = POISON_NONE
             self._occ_sum += self.active / self.cfg.max_slots
+            if self.prefix is not None:
+                self.shared_blocks_peak = max(self.shared_blocks_peak,
+                                              self.prefix.shared_blocks())
         return did
 
     @property
@@ -450,9 +896,26 @@ class DecodeEngine:
         return self._occ_sum / self.steps if self.steps else 0.0
 
     def run(self) -> dict[int, list[int]]:
-        """Step until every submitted request finished or failed."""
+        """Step until every submitted request finished or failed. A step
+        that only expired requests runs no work and is not a stall."""
         while self.waiting or self.active:
             if not self.step():
-                raise RuntimeError("decode engine stalled: waiting "
-                                   "requests but no admissible work")
+                if self.waiting or self.active:
+                    raise RuntimeError("decode engine stalled: waiting "
+                                       "requests but no admissible work")
+                break
         return dict(self.finished)
+
+    def generate(self, prompts, max_new: int) -> list[list[int] | None]:
+        """Submit every prompt, drain, and return the full token lists in
+        submission order; a request shed by ``queue_limit`` or failed
+        for good yields None (the reason is in ``failed`` or
+        ``request_events``)."""
+        uids = []
+        for p in prompts:
+            try:
+                uids.append(self.submit(p, max_new))
+            except AdmissionError:
+                uids.append(None)
+        done = self.run()
+        return [None if u is None else done.get(u) for u in uids]

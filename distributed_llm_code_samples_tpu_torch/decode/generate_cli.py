@@ -9,6 +9,16 @@ The model is the LM family at the flagged shape with random weights
 from ``-r``; prompts are explicit token-id lists (``--prompts "3,1,4;9,2"``)
 or seeded random draws (``--prompt_lens`` with ``--prompt_seed``). It runs
 on the card unless ``--device cpu`` is given.
+
+``--prefix_cache`` (default on; ``--no-prefix_cache``) and
+``--prefix_partial`` set the radix prefix cache, and ``--max_retries``,
+``--deadline_steps``, ``--queue_limit`` and ``--preempt_after`` the
+engine's ``ServePolicy``; a bad value exits 2. A request shed by the
+queue limit is counted, not an error. Beside the JSON line, standard
+error gets JAX's prefix-cache summary line ("prefix cache hit N block(s)
+(rate r), saved S prefill token(s), peak P shared block(s), C CoW
+cop(ies)") and the counts of shed, preempted, expired, retried and
+failed requests.
 """
 
 from __future__ import annotations
@@ -63,8 +73,47 @@ def build_generate_parser() -> argparse.ArgumentParser:
                    help="decode attention: 'fused' (the paged CUDA "
                         "kernel; its plain version on the CPU) or "
                         "'gather' (gather + decode_attn, the oracle)")
+    p.add_argument("--prefix_cache", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="shared-prefix KV reuse (decode/prefix.py): "
+                        "requests sharing a prompt prefix map its cached "
+                        "full blocks instead of prefilling them again, "
+                        "refcounted and copy-on-write; the output is "
+                        "unchanged (default on)")
+    p.add_argument("--prefix_partial", default=False,
+                   action=argparse.BooleanOptionalAction,
+                   help="sub-block sharing: a partial-block hit copies "
+                        "the shared leading rows into a private block "
+                        "(f32 and bf16 output unchanged; int8 rows keep "
+                        "the donor's frozen scale); needs --prefix_cache")
+    p.add_argument("--max_retries", type=int, default=0,
+                   help="per-request retry budget for quarantined "
+                        "sequences (replayed; 0 = fail on the first "
+                        "fault)")
+    p.add_argument("--deadline_steps", type=int, default=0,
+                   help="per-request time to live in engine steps from "
+                        "submit (0 = none); an expired request fails with "
+                        "reason 'deadline'")
+    p.add_argument("--queue_limit", type=int, default=0,
+                   help="bounded waiting queue: submissions past it are "
+                        "shed (rejected, not an error; 0 = unbounded)")
+    p.add_argument("--preempt_after", type=int, default=0,
+                   help="pool-pressure preemption: a head-of-line request "
+                        "starved of blocks for N steps evicts the "
+                        "youngest running sequence (0 = off)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
+
+
+def prefix_summary(engine) -> str:
+    """The JAX report's prefix-cache line."""
+    rate = (round(engine.prefix_hit_blocks / engine.prefix_lookup_blocks, 4)
+            if engine.prefix_lookup_blocks else None)
+    return (f"prefix cache hit {engine.prefix_hit_blocks} block(s)"
+            + (f" (rate {rate})" if rate is not None else "")
+            + f", saved {engine.prefill_tokens_saved} prefill token(s), "
+            f"peak {engine.shared_blocks_peak} shared block(s), "
+            f"{engine.cow_copies} CoW cop(ies)")
 
 
 def generate_main(argv=None) -> int:
@@ -76,7 +125,8 @@ def generate_main(argv=None) -> int:
     from .. import resolve_device
     from ..models.lm import init_lm
     from ..ops import launch_counts, reset_launch_counts
-    from .engine import DecodeEngine, EngineConfig
+    from .engine import (AdmissionError, DecodeEngine, EngineConfig,
+                         ServePolicy)
 
     if (args.prompts is None) == (args.prompt_lens is None):
         print("error: pass exactly one of --prompts / --prompt_lens",
@@ -112,15 +162,26 @@ def generate_main(argv=None) -> int:
             prefill_chunk=args.prefill_chunk, kv_dtype=args.kv_dtype,
             temperature=args.temperature, top_k=args.top_k,
             top_p=args.top_p, seed=args.sample_seed,
-            use_rope=args.use_rope, kernel=args.kernel)
+            use_rope=args.use_rope, kernel=args.kernel,
+            prefix_cache=args.prefix_cache,
+            prefix_partial=args.prefix_partial)
+        policy = ServePolicy(
+            queue_limit=args.queue_limit,
+            deadline_steps=args.deadline_steps,
+            max_retries=args.max_retries,
+            preempt_after_steps=args.preempt_after)
         gen = torch.Generator(device=device)
         gen.manual_seed(args.random_seed)
         params = init_lm(gen, args.vocab, args.model_size, args.layers,
                          max_seq_len=args.max_seq_len, n_heads=args.heads,
                          n_kv_heads=args.kv_heads or None)
-        engine = DecodeEngine(params, args.heads, cfg)
+        engine = DecodeEngine(params, args.heads, cfg, policy=policy)
+        shed = 0
         for pr in prompts:
-            engine.submit(pr, args.max_new)
+            try:
+                engine.submit(pr, args.max_new)
+            except AdmissionError:
+                shed += 1       # recorded as a `rejected` event
     except (ValueError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -145,7 +206,27 @@ def generate_main(argv=None) -> int:
         "kernel": args.kernel,
         "device": str(device),
         "kernel_launches": launch_counts(),
+        "prefix_cache": args.prefix_cache,
+        "prefix_partial": args.prefix_partial,
+        "prefix_hit_blocks": engine.prefix_hit_blocks,
+        "prefix_lookup_blocks": engine.prefix_lookup_blocks,
+        "prefill_tokens_saved": engine.prefill_tokens_saved,
+        "prefill_dispatches": engine.prefill_dispatches,
+        "shared_blocks_peak": engine.shared_blocks_peak,
+        "cow_copies": engine.cow_copies,
+        "partial_hits": engine.partial_hits,
+        "quarantined": engine.quarantined,
+        "retried": engine.retried,
+        "preempted": engine.preempted,
+        "rejected": engine.rejected,
+        "expired": engine.expired,
+        "shed": shed,
     }
+    if args.prefix_cache:
+        print(prefix_summary(engine), file=sys.stderr)
+    print(f"requests: {shed} shed, {engine.preempted} preempted, "
+          f"{engine.expired} expired, {engine.retried} retried, "
+          f"{len(engine.failed)} failed", file=sys.stderr)
     print(json.dumps(payload))
     return 0
 

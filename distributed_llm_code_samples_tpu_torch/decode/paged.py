@@ -204,6 +204,55 @@ def scrub_blocks(pool: PagedKV, blocks) -> PagedKV:
     return pool
 
 
+def copy_block(pool: PagedKV, src: int, dst: int) -> PagedKV:
+    """Copy one physical block's bytes (values and int8 scales) from
+    ``src`` to ``dst`` in every layer, in place: the device half of
+    copy-on-write. The copy is queued on the current stream, so a kernel
+    launched after it on that stream reads the new block."""
+    pool.k[:, dst] = pool.k[:, src]
+    pool.v[:, dst] = pool.v[:, src]
+    if pool.k_scale is not None:
+        pool.k_scale[:, dst] = pool.k_scale[:, src]
+        pool.v_scale[:, dst] = pool.v_scale[:, src]
+    return pool
+
+
+def copy_block_rows(pool: PagedKV, src: int, dst: int,
+                    n_rows: int) -> PagedKV:
+    """Copy the first ``n_rows`` token rows of block ``src`` into ``dst``
+    and zero the rest, in place: the device half of sub-block prefix
+    sharing. The int8 per-block scales copy whole, so the borrowed rows
+    keep the donor's frozen scale (a per-row share of a per-block scale
+    does not exist), as in JAX."""
+    rows = torch.arange(pool.block_size, device=pool.k.device) < n_rows
+    mask = rows[None, None, :, None]
+    for side in (pool.k, pool.v):
+        side[:, dst] = torch.where(mask, side[:, src],
+                                   torch.zeros((), dtype=side.dtype,
+                                               device=side.device))
+    if pool.k_scale is not None:
+        pool.k_scale[:, dst] = pool.k_scale[:, src]
+        pool.v_scale[:, dst] = pool.v_scale[:, src]
+    return pool
+
+
+def corrupt_block(pool: PagedKV, block: int) -> PagedKV:
+    """Poison one physical block in place, as a flipped memory page
+    would: NaN values for the float storage types, NaN per-block scales
+    at int8 (int8 codes have no NaN). A sequence whose table names the
+    block reads NaN and fails the logits guardrail at its next step."""
+    n_blocks = pool.k.shape[1]
+    if not 0 <= block < n_blocks:
+        raise ValueError(f"block {block} outside pool [0, {n_blocks})")
+    if pool.k_scale is not None:
+        pool.k_scale[:, block] = float("nan")
+        pool.v_scale[:, block] = float("nan")
+    else:
+        pool.k[:, block] = float("nan")
+        pool.v[:, block] = float("nan")
+    return pool
+
+
 def fused_decode_attn(pool: PagedKV, layer: int, q: torch.Tensor,
                       tables: torch.Tensor,
                       lengths: torch.Tensor) -> torch.Tensor:

@@ -1093,6 +1093,35 @@ def test_paged_kernel_splits_match_plain(card, case, kv_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["f32", "bf16", "int8"])
+def test_paged_kernel_on_shared_block_tables(card, kv_dtype):
+    """Tables in which every slot names the same leading blocks (the
+    prefix cache's shared system prompt, 16 blocks) and one slot's table
+    is another's (a full hit): each slot agrees with the plain version,
+    and the twin slots with each other bit for bit."""
+    from distributed_llm_code_samples_tpu_torch.ops import paged_attention
+    tag, hq, hkv, dh, blk, mb, lengths = PAGED_CASES[0]
+    lengths = tuple(256 + n for n in lengths)
+    args = list(paged_case(kv_dtype, hq, hkv, dh, blk, mb, lengths, 7))
+    tables = args[5].clone()
+    tables[:, :16] = tables[0, :16]
+    tables[1] = tables[0]
+    lens = args[6].clone()
+    lens[1] = lens[0]
+    q = args[0].clone()
+    q[1] = q[0]
+    args[0], args[5], args[6] = q, tables, lens
+    before = _build.launch_counts().get("paged_decode_attn", 0)
+    got = paged_attention.paged_decode_attn(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["paged_decode_attn"] == before + 1
+    want = paged_attention.paged_decode_attn_ref(*args)
+    err = float((got - want).abs().max())
+    assert err <= PAGED_TOL * float(want.abs().max()), err
+    assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("split_positions", [16, 32, 128, 256])
 def test_paged_kernel_at_each_split_size(card, monkeypatch, split_positions):
     """The sweep's split sizes at the serving shape: each agrees with the

@@ -148,7 +148,13 @@ def test_nonfinite_row_fails_that_request_only(models, prompts):
             if u != victim:
                 assert done[u] == want
         assert not torch.isnan(eng.pool.k).any()
-        assert sorted(eng.free_blocks) == list(range(1, BASE["n_blocks"]))
+        # the finished requests' full prompt blocks stay cached at refs 0
+        # (the prefix cache's reuse); with the free list they make up the
+        # whole pool
+        cached = [n.block for n in eng.prefix.nodes()]
+        assert all(n.refs == 0 for n in eng.prefix.nodes())
+        assert sorted(eng.free_blocks + cached) == list(
+            range(1, BASE["n_blocks"]))
 
 
 def test_config_surface(models):
@@ -156,8 +162,8 @@ def test_config_surface(models):
     assert EngineConfig().kernel == "fused"
     assert [f.name for f in dataclasses.fields(EngineConfig)] == [
         f.name for f in dataclasses.fields(JConfig)]
-    for name, value in (("speculate", 2), ("prefix_cache", True),
-                        ("spill_blocks", 4), ("prefix_partial", True),
+    assert EngineConfig().prefix_cache is JConfig().prefix_cache is True
+    for name, value in (("speculate", 2), ("spill_blocks", 4),
                         ("spill_low_water", 1),
                         ("spill_restore_per_step", 3)):
         with pytest.raises(NotImplementedError, match=name):
