@@ -5,6 +5,9 @@
     python3 chip_smoke.py --phase kernel   # build + hold the kernels only
     python3 chip_smoke.py --phase serve    # the paged kernel + serving,
                                            # serve-prefix, serve-pressure
+    python3 chip_smoke.py --phase spec     # the paged kernel + speculative
+                                           # decoding, the spill tier and
+                                           # the livelock reproduction
     python3 chip_smoke.py --phase train    # the FFN kernels + training
     python3 chip_smoke.py --phase lm       # the LM kernels + LM training
     python3 chip_smoke.py --phase ring     # the ring kernels + DDP/FSDP,
@@ -68,6 +71,18 @@ each split size, ``paged-splits``), then drives the port's paths:
   ``serve-pressure-retry``: one poisoned request retried to its clean
   tokens); the paged kernel's launches equal layers x decode dispatches
   in every run;
+- speculative decoding and the spill tier (``--phase spec`` too):
+  ``serve-spec`` (the eight prompts with ``speculate=4`` at each
+  ``kv_dtype``, equal to the plain run's tokens, the paged kernel's
+  launches layers x 5 x verify dispatches), ``serve-spec-pressure`` (the
+  same under ``serve-pressure``'s pool and policy: replays verified as
+  drafts), ``serve-spill`` (16 sessions returning three times through a
+  pool of 96 usable blocks with a host tier of 160 blocks, every return
+  equal to a big-pool oracle, fewer prefill dispatches than without the
+  tier), ``serve-spill-corrupt`` (one spilled entry corrupted: the
+  restoring request quarantined and retried to its clean tokens) and
+  ``serve-livelock`` (the CPU tests' livelock reproduction at the served
+  width: it ends, with the unpressured tokens);
 - training: ``train_single`` for 8 steps at ``bench.py``'s FFN-stack
   headline shape (d 768, 24 layers, ffn 3072, 8192 tokens a step,
   random weights from a seed), through the three FFN kernels
@@ -277,6 +292,23 @@ PARTIAL_PREFIX_LEN = 200
 PARTIAL_ARRIVALS = {0: (0,), 6: (1, 2, 3, 4, 5, 6, 7)}
 PRESSURE_BLOCKS = 1 + 48
 PREEMPT_AFTER = 2
+# serve-spec: the draft length; serve-spill: 16 sessions (the eight
+# prompts and eight more of their lengths) returning SPILL_ROUNDS times
+# through a pool that holds one set's reservations (86 blocks) and the
+# largest single one, never the 132 full prompt blocks of all 16, with a
+# host tier of 160 blocks
+SPEC_K = 4
+SPILL_POOL = 1 + 96
+SPILL_TIER = 160
+SPILL_ROUNDS = 3
+# serve-livelock: tests/test_torch_livelock.py's reproduction (block 8,
+# 9 blocks, 4 slots, 5 blocks a sequence, chunk 2, the prefix cache off)
+# at the served width; (prompt length, max_new, arrival step) a request
+LIVELOCK = dict(block_size=8, n_blocks=9, max_slots=4, max_blocks_per_seq=5,
+                prefill_chunk=2, prefix_cache=False)
+LIVELOCK_REQS = ((29, 7, 7), (13, 6, 2), (12, 9, 10), (13, 6, 5),
+                 (19, 5, 11), (10, 3, 6))
+LIVELOCK_STEPS = 400
 SEED = 0
 TOL = 2e-5                       # max |kernel - plain| / max |plain|
 # the paged kernel at a table past the old kernel's shared-memory cap
@@ -565,12 +597,16 @@ def kernel_phase(torch, np, timer):
     # serve-prefix's, every table naming the shared prompt's 16 blocks
     serving = tuple(n + 20 for n in PROMPT_LENS)
     shared = tuple(PREFIX_LEN + n + 20 for n in PROMPT_LENS)
+    # a verify dispatch's last sub-step: every slot SPEC_K positions on,
+    # and one dead row clamped to the table's end
+    verify = tuple(n + 20 + SPEC_K for n in PROMPT_LENS[:-1]) + (tcap,)
     cases = []
     for kv_dtype in ("f32", "bf16", "int8"):
         for hq, hkv, lens, tag in ((12, 12, serving, "serving"),
                                    (12, 12, ragged, "ragged"),
                                    (12, 4, ragged, "gqa"),
-                                   (12, 12, shared, "shared")):
+                                   (12, 12, shared, "shared"),
+                                   (12, 12, verify, "verify")):
             cases.append((kv_dtype, hq, hkv, dh, mb, lens, tag))
         cases.append((kv_dtype,) + LONG_TABLE)
     results = []
@@ -854,16 +890,21 @@ def serving_phase(torch, np, card, params, prompts):
 
 
 def serve_run(torch, params, prompts, cfg_kw=None, policy=None,
-              poison_uid=None, arrivals=ARRIVALS):
+              poison_uid=None, arrivals=ARRIVALS, max_new=MAX_NEW,
+              max_steps=None, engine=None):
     """One run of ``prompts`` through a fresh ``DecodeEngine`` (``ENGINE``
     with ``cfg_kw``, the fused kernel unless overridden, and ``policy``),
     arriving by ``arrivals`` (staggered, so admission happens between
-    steps), each request's uid its index; each token is stamped when the
-    step that picked it returns (the step reads its picks back). With
+    steps), each request's uid its index and ``max_new`` its new tokens
+    (one count, or one a request); each token is stamped when the step
+    that picked it returns (the step reads its picks back). With
     ``poison_uid``, ``arm_poison`` fires once, the first step that uid is
-    running with two tokens out. The paged kernel's launches are counted
-    from 0 over the run and must equal layers x decode dispatches.
-    Returns the token lists, the engine and the run's numbers."""
+    running with two tokens out. With ``max_steps``, the run fails past
+    that many steps. The paged kernel's launches are counted from 0 over
+    the run and must equal layers x decode dispatches, x ``speculate + 1``
+    under speculation (one launch a layer a verify sub-step); the tokens
+    a verify dispatch emits for a replaying slot are recorded. Returns
+    the token lists, the engine and the run's numbers."""
     from distributed_llm_code_samples_tpu_torch.decode import (
         DecodeEngine, EngineConfig, ServePolicy)
     from distributed_llm_code_samples_tpu_torch.ops import (
@@ -871,14 +912,20 @@ def serve_run(torch, params, prompts, cfg_kw=None, policy=None,
     cfg = EngineConfig(**dict(ENGINE, **(cfg_kw or {})))
     eng = DecodeEngine(params, MODEL["n_heads"], cfg,
                        policy=ServePolicy(**(policy or {})))
+    news = ([max_new] * len(prompts) if isinstance(max_new, int)
+            else list(max_new))
+    slot_steps = watch_verify(eng) if cfg.speculate else []
     torch.cuda.synchronize()
     reset_launch_counts()
     t_sub, t_tok, poisoned = {}, {}, None
     step = 0
     t0 = time.perf_counter()
     while step <= max(arrivals) or eng.waiting or eng.active:
+        check(max_steps is None or step < max_steps,
+              f"not drained after {step} steps ({eng.preempted} "
+              f"preemptions, {len(eng.finished)} finished)")
         for i in arrivals.get(step, ()):
-            eng.submit(prompts[i], MAX_NEW, uid=i)
+            eng.submit(prompts[i], news[i], uid=i)
             t_sub[i], t_tok[i] = time.perf_counter(), []
         if poison_uid is not None and poisoned is None:
             seq = next((s for s in eng.slots
@@ -886,7 +933,8 @@ def serve_run(torch, params, prompts, cfg_kw=None, policy=None,
             if seq is not None and len(seq.out) >= 2:
                 eng.arm_poison(poison_uid)
                 poisoned = step
-        check(eng.step(), "engine stalled")
+        check(eng.step() or not (eng.waiting or eng.active),
+              "engine stalled")
         now = time.perf_counter()           # the step read its picks back
         out = {s.uid: len(s.out) for s in eng.slots if s is not None}
         for u, times in t_tok.items():
@@ -899,14 +947,14 @@ def serve_run(torch, params, prompts, cfg_kw=None, policy=None,
     launches = launch_counts().get("paged_decode_attn", 0)
     toks = [eng.finished.get(i) for i in range(len(prompts))]
     check(not eng.failed, f"requests failed: {eng.failed}")
-    check(all(t is not None and len(t) == len(p) + MAX_NEW
+    check(all(t is not None and len(t) == len(p) + n
               and all(0 <= x < MODEL["vocab"] for x in t)
-              for t, p in zip(toks, prompts)), "bad token lists")
-    want = (MODEL["n_layers"] * eng.decode_dispatches
+              for t, p, n in zip(toks, prompts, news)), "bad token lists")
+    want = (MODEL["n_layers"] * (cfg.speculate + 1) * eng.decode_dispatches
             if cfg.kernel == "fused" else 0)
     check(launches == want,
           f"{launches} paged kernel launches, expected {want} (layers x "
-          f"decode dispatches)")
+          f"{cfg.speculate + 1} sub-steps x decode dispatches)")
     ttft = [t_tok[u][0] - t_sub[u] for u in sorted(t_sub)]
     itl = [b - a for times in t_tok.values()
            for a, b in zip(times, times[1:])]
@@ -933,8 +981,36 @@ def serve_run(torch, params, prompts, cfg_kw=None, policy=None,
                replayed_tokens=sum(e["replay"] for e in eng.request_events
                                    if e["event"] == "admitted"),
                quarantined=eng.quarantined, retried=eng.retried,
-               poisoned_at_step=poisoned)
+               poisoned_at_step=poisoned, speculate=cfg.speculate,
+               drafted=eng.drafted_tokens, accepted=eng.accepted_tokens,
+               tokens_per_slot_dispatch=mean_or_none(
+                   [n for _, n in slot_steps]),
+               replay_slot_dispatches=sum(r for r, _ in slot_steps),
+               replay_tokens_per_slot_dispatch=mean_or_none(
+                   [n for r, n in slot_steps if r]))
     return toks, eng, run
+
+
+def mean_or_none(xs):
+    return sum(xs) / len(xs) if xs else None
+
+
+def watch_verify(eng) -> list:
+    """Record ``(replaying, tokens emitted)`` for each slot of each verify
+    dispatch (its ``emitted`` clock's advance; a quarantined slot is left
+    out); the list fills as the engine runs."""
+    seen = []
+    inner = eng._verify_dispatch
+
+    def verify(ready):
+        before = [(eng.slots[s], eng.slots[s].replaying,
+                   eng.slots[s].emitted) for s in ready]
+        inner(ready)
+        seen.extend((rep, seq.emitted - e0) for seq, rep, e0 in before
+                    if seq.emitted > e0)
+
+    eng._verify_dispatch = verify
+    return seen
 
 
 def serve_prefix_phase(torch, np, card, params, prompts):
@@ -1037,6 +1113,220 @@ def serve_pressure_phase(torch, np, card, params, prompts):
     check(toks == clean, "serve-pressure-retry: tokens != clean run's")
     launches["retry-f32"] = run["kernel_launches"]
     return launches
+
+def serve_spec_phase(torch, np, card, params, prompts):
+    """``serve-spec``: the eight prompts by ``ARRIVALS`` with
+    ``speculate=SPEC_K`` (greedy) at each kv_dtype against the plain run
+    of the same kv_dtype: equal tokens, the paged kernel's launches layers
+    x (k + 1) x verify dispatches (``serve_run``'s check), drafted and
+    accepted tokens, tokens a slot a verify dispatch, TTFT and ITL. Then
+    ``serve-spec-pressure``: the same under ``serve-pressure``'s pool and
+    policy, with preemptions, replays verified as drafts (more than one
+    token a replaying slot a dispatch) and the unpressured tokens.
+    Returns the paged kernel's launches by run."""
+    launches = {}
+    for kv_dtype in ("f32", "bf16", "int8"):
+        base, _, run_base = serve_run(torch, params, prompts,
+                                      dict(kv_dtype=kv_dtype))
+        toks, eng, run = serve_run(torch, params, prompts,
+                                   dict(kv_dtype=kv_dtype, speculate=SPEC_K))
+        same = toks == base
+        print("serve-spec " + json.dumps(dict(
+            kv_dtype=kv_dtype, speculate=SPEC_K, tokens_equal=same,
+            spec=run, plain=run_base, card=card)), flush=True)
+        check(same, f"serve-spec {kv_dtype}: speculative != plain tokens")
+        check(eng.drafted_tokens > 0, f"serve-spec {kv_dtype}: no drafts")
+        launches[f"spec-{kv_dtype}"] = run["kernel_launches"]
+        ptoks, peng, prun = serve_run(
+            torch, params, prompts,
+            dict(kv_dtype=kv_dtype, speculate=SPEC_K,
+                 n_blocks=PRESSURE_BLOCKS),
+            policy=dict(preempt_after_steps=PREEMPT_AFTER))
+        same = ptoks == toks
+        print("serve-spec-pressure " + json.dumps(dict(
+            kv_dtype=kv_dtype, speculate=SPEC_K, tokens_equal=same,
+            pressured=prun, card=card)), flush=True)
+        check(same, f"serve-spec-pressure {kv_dtype}: pressured != "
+              "unpressured tokens")
+        check(peng.preempted > 0, f"serve-spec-pressure {kv_dtype}: no "
+              "preemption")
+        check((prun["replay_tokens_per_slot_dispatch"] or 0) > 1,
+              f"serve-spec-pressure {kv_dtype}: replays not verified as "
+              "drafts")
+        launches[f"spec-pressure-{kv_dtype}"] = prun["kernel_launches"]
+    return launches
+
+
+def spill_sessions(np, prompts):
+    """The eight prompts and eight more of the same lengths from
+    ``[SEED, 1]``."""
+    rng = np.random.default_rng([SEED, 1])
+    return list(prompts) + [rng.integers(0, MODEL["vocab"], size=n).tolist()
+                            for n in PROMPT_LENS]
+
+
+def spill_churn(torch, params, sessions, cfg_kw, rounds=SPILL_ROUNDS,
+                policy=None, before_round=None):
+    """Every session returns ``rounds`` times through one engine, a round
+    submitted at once and drained before the next (uid ``round x
+    sessions + index``); ``before_round(eng, r)`` runs before round ``r``
+    is submitted. The paged kernel's launches over the churn must equal
+    layers x decode dispatches. Returns the tokens by uid, the engine and
+    the run's numbers."""
+    from distributed_llm_code_samples_tpu_torch.decode import (
+        DecodeEngine, EngineConfig, ServePolicy)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    cfg = EngineConfig(**dict(ENGINE, **cfg_kw))
+    eng = DecodeEngine(params, MODEL["n_heads"], cfg,
+                       policy=ServePolicy(**(policy or {})))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        if before_round is not None:
+            before_round(eng, r)
+        for i, p in enumerate(sessions):
+            eng.submit(p, MAX_NEW, uid=r * len(sessions) + i)
+        while eng.waiting or eng.active:
+            check(eng.step(), "engine stalled")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts().get("paged_decode_attn", 0)
+    want = (MODEL["n_layers"] * eng.decode_dispatches
+            if cfg.kernel == "fused" else 0)
+    check(launches == want, f"{launches} paged kernel launches, expected "
+          f"{want} (layers x decode dispatches)")
+    run = dict(kv_dtype=cfg.kv_dtype, spill_blocks=cfg.spill_blocks,
+               n_blocks=cfg.n_blocks, sessions=len(sessions), rounds=rounds,
+               wall_s=wall, engine_steps=eng.steps,
+               tokens_generated=eng.tokens_generated,
+               prefill_dispatches=eng.prefill_dispatches,
+               decode_dispatches=eng.decode_dispatches,
+               kernel_launches=launches,
+               prefix_hit_blocks=eng.prefix_hit_blocks,
+               prefill_tokens_saved=eng.prefill_tokens_saved,
+               spilled_blocks=eng.spilled_blocks,
+               spill_bytes=eng.spill_bytes, restores=eng.restores,
+               restore_tokens_saved=eng.restore_tokens_saved,
+               restore_stall_s=eng.restore_stall_s,
+               host_bytes_resident=(eng.spill.bytes_resident
+                                    if eng.spill is not None else 0),
+               quarantined=eng.quarantined, retried=eng.retried)
+    return dict(eng.finished), eng, run
+
+
+def serve_spill_phase(torch, np, card, params, prompts):
+    """``serve-spill``: 16 sessions returning ``SPILL_ROUNDS`` times
+    through ``SPILL_POOL`` blocks with a host tier of ``SPILL_TIER``
+    blocks, at each kv_dtype: every return's tokens equal a one-round
+    big-pool oracle's, blocks spilled and restored (each restore saving
+    a block of prefill), fewer prefill dispatches than the same churn
+    without the tier (run at f32; the schedule is the same at every
+    kv_dtype, which the dispatch counts show). Then
+    ``serve-spill-corrupt`` (f32, ``max_retries=1``): one spilled entry
+    that a returning session will restore is corrupted before round 2;
+    that request is quarantined (``corrupt_spill``), retried once to its
+    clean tokens, and every other session keeps its tokens. Returns the
+    paged kernel's launches by run."""
+    sessions = spill_sessions(np, prompts)
+    n = len(sessions)
+    launches, oracles, prefills = {}, {}, {}
+    for kv_dtype in ("f32", "bf16", "int8"):
+        oracle, _, run_o = spill_churn(torch, params, sessions,
+                                       dict(kv_dtype=kv_dtype), rounds=1)
+        oracles[kv_dtype] = oracle
+        toks, eng, run = spill_churn(
+            torch, params, sessions,
+            dict(kv_dtype=kv_dtype, n_blocks=SPILL_POOL,
+                 spill_blocks=SPILL_TIER))
+        same = all(t == oracle[u % n] for u, t in toks.items())
+        no_tier = None
+        if kv_dtype == "f32":
+            _, _, no_tier = spill_churn(
+                torch, params, sessions,
+                dict(kv_dtype=kv_dtype, n_blocks=SPILL_POOL))
+            launches["spill-f32-no-tier"] = no_tier["kernel_launches"]
+        prefills[kv_dtype] = run["prefill_dispatches"]
+        print("serve-spill " + json.dumps(dict(
+            kv_dtype=kv_dtype, tokens_equal=same, tier=run,
+            no_tier=no_tier, oracle=run_o, card=card)), flush=True)
+        check(same, f"serve-spill {kv_dtype}: a return's tokens != oracle")
+        check(len(toks) == SPILL_ROUNDS * n and not eng.failed,
+              f"serve-spill {kv_dtype}: {len(toks)} finished")
+        check(eng.spilled_blocks > 0 and eng.restores > 0,
+              f"serve-spill {kv_dtype}: {eng.spilled_blocks} spilled, "
+              f"{eng.restores} restored")
+        check(eng.restore_tokens_saved == eng.restores * ENGINE[
+            "block_size"], f"serve-spill {kv_dtype}: saved tokens")
+        check(prefills[kv_dtype] == prefills["f32"],
+              f"serve-spill {kv_dtype}: another schedule than f32's")
+        if no_tier is not None:
+            check(run["prefill_dispatches"] < no_tier["prefill_dispatches"],
+                  "serve-spill: the tier saved no prefill dispatch")
+        launches[f"spill-{kv_dtype}"] = run["kernel_launches"]
+
+    def corrupt(eng, r):
+        if r != 1:
+            return
+        # an entry a returning session's match reaches (a final-token
+        # block is cached but never matched)
+        reached = {id(node) for p in sessions
+                   for node in eng.prefix.match(p)}
+        sid = min(s for s, node in eng.spill._nodes.items()
+                  if id(node) in reached)
+        check(eng.corrupt_spill(sid), "serve-spill-corrupt: no entry")
+
+    toks, eng, run = spill_churn(
+        torch, params, sessions,
+        dict(n_blocks=SPILL_POOL, spill_blocks=SPILL_TIER), rounds=2,
+        policy=dict(max_retries=1), before_round=corrupt)
+    bad = [e for e in eng.request_events if e["event"] == "quarantined"]
+    same = all(t == oracles["f32"][u % n] for u, t in toks.items())
+    print("serve-spill-corrupt " + json.dumps(dict(
+        kv_dtype="f32", quarantined=bad, tokens_equal=same, run=run,
+        card=card)), flush=True)
+    check(len(bad) == 1 and bad[0]["reason"] == "corrupt_spill"
+          and eng.retried == 1 and not eng.failed,
+          f"serve-spill-corrupt: {bad}, {eng.retried} retried, "
+          f"{eng.failed}")
+    check(same and len(toks) == 2 * n, "serve-spill-corrupt: tokens")
+    launches["spill-corrupt-f32"] = run["kernel_launches"]
+    return launches
+
+
+def serve_livelock_phase(torch, np, card, params):
+    """``serve-livelock``: ``LIVELOCK_REQS`` on ``LIVELOCK``'s pool at the
+    served width, f32, ``preempt_after_steps`` 1, 2 and 3: each run drains
+    within ``LIVELOCK_STEPS`` steps, with preemptions, and its tokens
+    equal the unpressured pool's. Returns the paged kernel's launches by
+    run."""
+    rng = np.random.default_rng([SEED, 2])
+    prompts = [rng.integers(0, MODEL["vocab"], size=n).tolist()
+               for n, _, _ in LIVELOCK_REQS]
+    news = [m for _, m, _ in LIVELOCK_REQS]
+    arrivals = {}
+    for i, (_, _, at) in enumerate(LIVELOCK_REQS):
+        arrivals.setdefault(at, []).append(i)
+    free_kw = dict(LIVELOCK, n_blocks=1 + LIVELOCK["max_slots"]
+                   * LIVELOCK["max_blocks_per_seq"])
+    free, _, run_free = serve_run(torch, params, prompts, free_kw,
+                                  arrivals=arrivals, max_new=news)
+    launches = {"livelock-free": run_free["kernel_launches"]}
+    for pa in (1, 2, 3):
+        toks, eng, run = serve_run(
+            torch, params, prompts, LIVELOCK,
+            policy=dict(preempt_after_steps=pa), arrivals=arrivals,
+            max_new=news, max_steps=LIVELOCK_STEPS)
+        same = toks == free
+        print("serve-livelock " + json.dumps(dict(
+            kv_dtype="f32", preempt_after_steps=pa, tokens_equal=same,
+            pressured=run, unpressured=run_free, card=card)), flush=True)
+        check(same, f"serve-livelock {pa}: tokens != unpressured")
+        check(eng.preempted > 0, f"serve-livelock {pa}: no preemption")
+        launches[f"livelock-{pa}"] = run["kernel_launches"]
+    return launches
+
 
 # -- FFN kernels -------------------------------------------------------------
 
@@ -6798,7 +7088,8 @@ def dist_phase(torch, part: str = "all"):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
-                    choices=["all", "kernel", "serve", "train", "lm", "ring",
+                    choices=["all", "kernel", "serve", "spec", "train", "lm",
+                             "ring",
                              "ep",
                              "tp", "opt", "lmtp", "lmdp", "bf16", "seq",
                              "dist", "dist-tp", "dist-lmdp", "dist-bf16",
@@ -6849,7 +7140,8 @@ def main(argv=None) -> int:
     lm_kernel_phases = ("all", "lm", "lmtp", "lmdp", "seq")
     ring_phases, ep_phases = ("all", "ring"), ("all", "ep")
     opt_phases, bf16_phases = ("all", "opt"), ("all", "bf16")
-    if args.phase in ("all", "kernel", "serve"):
+    serve_phases = ("all", "kernel", "serve", "spec")
+    if args.phase in serve_phases:
         cases = kernel_phase(torch, np, timer)
         bad += [c for c in cases if not c["ok"]]
         if not bad:
@@ -6883,12 +7175,21 @@ def main(argv=None) -> int:
     ep_launches = bf16_launches = lmtp_launches = lmdp_launches = None
     dtype_launches = lm_bf16_launches = seq_launches = seq_a2a = None
     serve_launches = None
-    if not bad and args.phase in ("all", "serve"):
+    if not bad and args.phase in ("all", "serve", "spec"):
         params, prompts = served_model(torch, np)
-        launches = serving_phase(torch, np, card, params, prompts)
-        serve_launches = dict(
-            serve_prefix_phase(torch, np, card, params, prompts),
-            **serve_pressure_phase(torch, np, card, params, prompts))
+        serve_launches = {}
+        if args.phase != "spec":
+            launches = serving_phase(torch, np, card, params, prompts)
+            serve_launches.update(
+                serve_prefix_phase(torch, np, card, params, prompts),
+                **serve_pressure_phase(torch, np, card, params, prompts))
+        if args.phase != "serve":
+            serve_launches.update(
+                serve_spec_phase(torch, np, card, params, prompts),
+                **serve_spill_phase(torch, np, card, params, prompts),
+                **serve_livelock_phase(torch, np, card, params))
+            if args.phase == "spec":
+                launches = serve_launches["spec-f32"]
         del params
     if not bad and args.phase in ("all", "train"):
         ffn_launches = train_phase(torch, np, card)
@@ -6913,10 +7214,12 @@ def main(argv=None) -> int:
     if not bad and args.phase in ("all", "seq"):
         seq_a2a = seq_a2a_phase(torch, card)
         seq_launches = seq_phase(torch, np, card)
-    if args.phase in ("all", "kernel", "serve"):
+    if args.phase in serve_phases:
         main_case = next(c for c in cases if c["shape"] == "serving"
                          and c["kv_dtype"] == "f32")
         shared_case = next(c for c in cases if c["shape"] == "shared"
+                           and c["kv_dtype"] == "f32")
+        verify_case = next(c for c in cases if c["shape"] == "verify"
                            and c["kv_dtype"] == "f32")
         kernels.append({
             "name": "paged_decode_attn", "route": "cuda",
@@ -6928,6 +7231,8 @@ def main(argv=None) -> int:
             "serve_launches": serve_launches,
             "shared_table_ms": shared_case["ms"],
             "shared_table_bound_ms": shared_case["bound_ms"],
+            "verify_table_ms": verify_case["ms"],
+            "verify_table_bound_ms": verify_case["bound_ms"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_rel_err": max(c["rel_err"] for c in cases),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -48,14 +48,30 @@ package's ``decode/engine.py``.
 - **ServePolicy**: a bounded queue (``AdmissionError``), per-request
   deadlines counted from the original submission, quarantine retries,
   and pool-pressure preemption of the youngest resident (never the last
-  one).
+  one). Each step's one prefill chunk goes to the OLDEST resident with an
+  unfinished prompt (smallest ``admit_index``), so the oldest resident
+  always progresses and preemption cannot livelock.
+- **Speculative decoding** (``speculate=k``, greedy only): every decode
+  dispatch is a verify dispatch of ``k + 1`` single-query sub-steps over
+  the trunk. Sub-step 0 feeds each slot's pending token, sub-step ``i``
+  the ``i``-th draft (``decode/draft.py``; during replay the recorded
+  tokens). The acceptance chain stays on the device: a row stays alive
+  while its drafts equal the previous picks, and a dead row's KV write
+  goes to the scratch block, so the pool's write history is the plain
+  engine's at every ``kv_dtype``. One read-back after the loop gives the
+  picks, the accepted counts and the finite flags; a slot emits ``1 +
+  accepted`` tokens.
+- **Spill tier** (``spill_blocks``, ``decode/spill.py``): pool pressure
+  demotes refs-0 cached blocks to host RAM (one CRC-checked wire
+  document each) instead of discarding them; a hit on a spilled edge
+  restores it into a fresh block (at most ``spill_restore_per_step`` a
+  step; the admission waits for the rest). A restore that fails its CRC
+  quarantines the request that asked for it (reason ``corrupt_spill``).
 
 PyTorch runs eagerly: each step is a sequence of launches, and there is
 no compiled-program cache. The pool is updated in place. Left out of
-this port (a non-default value of their ``EngineConfig`` fields raises
-``NotImplementedError``): speculative decoding and the spill tier; and,
-with no field here, QoS, telemetry, tracing, snapshots, weight hot-swap,
-KV handoff and tensor parallelism.
+this port, with no field here: QoS, telemetry, tracing, snapshots,
+weight hot-swap, KV handoff and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -71,12 +87,16 @@ from ..models.attention import chunk_attn, rope
 from ..models.lm import LMParams, decode_attn
 from ..ops.norm import layernorm
 from ..runtime.guardrails import rows_finite
+from ..runtime import wire
+from .draft import draft_tokens
 from .paged import (SCRATCH_BLOCK, PagedKV, copy_block, copy_block_rows,
-                    fused_decode_attn, gather_layer, init_pool, scrub_blocks,
-                    write_chunk, write_rows)
+                    extract_blocks, fused_decode_attn, gather_layer,
+                    implant_block, init_pool, scrub_blocks, write_chunk,
+                    write_rows)
 from .paged import corrupt_block as _pool_corrupt_block
 from .prefix import PrefixCache
-from .sampling import check_sampling, make_pick
+from .sampling import check_sampling, check_speculation, make_pick
+from .spill import SpillTier
 
 # the poison operand of ``arm_poison``: no row, or every row
 POISON_NONE = -1
@@ -118,12 +138,6 @@ def _bucket_for(n: int, buckets: tuple[int, ...]) -> int:
     return buckets[-1]
 
 
-# fields of the JAX EngineConfig this port does not implement, with the
-# only value it accepts for each
-_NOT_PORTED = {"speculate": 0, "spill_blocks": 0,
-               "spill_restore_per_step": 2, "spill_low_water": 0}
-
-
 @dataclass(frozen=True)
 class EngineConfig:
     """Static engine configuration, with the JAX field names and
@@ -133,7 +147,11 @@ class EngineConfig:
     ``top_k=0`` / ``top_p=0`` disable those truncations. ``kernel`` is
     ``"fused"`` (default) or ``"gather"``. ``prefix_cache`` turns on the
     radix prefix cache and ``prefix_partial`` (which needs it) sub-block
-    sharing. The fields in ``_NOT_PORTED`` accept only their default."""
+    sharing. ``speculate`` drafts that many tokens a decode step (greedy
+    only). ``spill_blocks`` arms the host tier of that many blocks (needs
+    the prefix cache), ``spill_restore_per_step`` bounds its restores a
+    step and ``spill_low_water`` demotes at the top of a step until that
+    many blocks are free (0 = only on demand)."""
     block_size: int = 16
     n_blocks: int = 65
     max_slots: int = 4
@@ -237,11 +255,6 @@ class DecodeEngine:
                  config: EngineConfig | None = None,
                  policy: ServePolicy | None = None, noise_fn=None):
         cfg = config or EngineConfig()
-        for name, ok in _NOT_PORTED.items():
-            if getattr(cfg, name) != ok:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(cfg, name)!r} is not "
-                    f"ported (only {ok!r})")
         if cfg.block_size < 1 or cfg.block_size & (cfg.block_size - 1):
             raise ValueError(f"block_size must be a power of two, got "
                              f"{cfg.block_size}")
@@ -252,13 +265,27 @@ class DecodeEngine:
                                      & (cfg.prefill_chunk - 1)):
             raise ValueError(f"prefill_chunk must be a power of two >= 1, "
                              f"got {cfg.prefill_chunk}")
-        if cfg.prefix_partial and not cfg.prefix_cache:
-            raise ValueError("prefix_partial extends the radix prefix "
-                             "cache; it requires prefix_cache=True")
+        if cfg.spill_blocks < 0:
+            raise ValueError(f"spill_blocks must be >= 0, got "
+                             f"{cfg.spill_blocks}")
+        if cfg.spill_restore_per_step < 1:
+            raise ValueError(
+                f"spill_restore_per_step must be >= 1, got "
+                f"{cfg.spill_restore_per_step} (a zero budget would "
+                "starve every admission whose prefix spilled)")
+        if cfg.spill_low_water < 0:
+            raise ValueError(f"spill_low_water must be >= 0, got "
+                             f"{cfg.spill_low_water}")
+        if (cfg.spill_blocks > 0 or cfg.prefix_partial) \
+                and not cfg.prefix_cache:
+            raise ValueError("spill_blocks / prefix_partial extend the "
+                             "radix prefix cache; they require "
+                             "prefix_cache=True")
         if cfg.kernel not in ("gather", "fused"):
             raise ValueError(f"kernel must be 'gather' or 'fused', got "
                              f"{cfg.kernel!r}")
         check_sampling(cfg.temperature, cfg.top_k, cfg.top_p, params.vocab)
+        check_speculation(cfg.speculate, cfg.temperature)
         self.params = params
         self.n_heads = n_heads
         self.cfg = cfg
@@ -284,8 +311,10 @@ class DecodeEngine:
         self.free_blocks = list(range(1, cfg.n_blocks))
         self.slot_buckets = _buckets(cfg.max_slots)
         self.chunk_buckets = _buckets(cfg.prefill_chunk)
-        self.prefix = (PrefixCache(cfg.block_size) if cfg.prefix_cache
-                       else None)
+        self.spill = (SpillTier(cfg.spill_blocks)
+                      if cfg.prefix_cache and cfg.spill_blocks > 0 else None)
+        self.prefix = (PrefixCache(cfg.block_size, spill=self.spill)
+                       if cfg.prefix_cache else None)
         self.steps = 0
         self.tokens_generated = 0
         self.prefill_dispatches = 0
@@ -318,6 +347,21 @@ class DecodeEngine:
         self.partial_hits = 0
         self.cow_copies = 0
         self.shared_blocks_peak = 0
+        # speculation: drafted tokens proposed to verify dispatches, and
+        # those the verify kept (replayed tokens count in neither)
+        self.drafted_tokens = 0
+        self.accepted_tokens = 0
+        # the spill tier: blocks demoted, their wire bytes, blocks
+        # restored, prompt tokens the restores kept off the prefill path,
+        # and the host seconds the restores took
+        self.spilled_blocks = 0
+        self.spill_bytes = 0
+        self.restores = 0
+        self.restore_tokens_saved = 0
+        self.restore_stall_s = 0.0
+        # this step's restore budget and restores (reset in step())
+        self._restores_left = cfg.spill_restore_per_step
+        self._step_restores = 0
 
     # -- requests --------------------------------------------------------
 
@@ -399,6 +443,16 @@ class DecodeEngine:
             if node is not None:
                 node.poisoned = True
 
+    def corrupt_spill(self, spill_id: int) -> bool:
+        """Test hook: flip one byte of a host-tier entry
+        (``SpillTier.corrupt``). The damage shows when a hit restores the
+        entry: its CRC check fails, the edge detaches, and the restoring
+        request is quarantined (reason ``corrupt_spill``). False when the
+        entry is gone or there is no tier."""
+        if self.spill is None:
+            return False
+        return self.spill.corrupt(int(spill_id))
+
     # -- admission ---------------------------------------------------------
 
     def _admit(self) -> int:
@@ -408,7 +462,14 @@ class DecodeEngine:
         prompt blocks are mapped (locked before any eviction) and only the
         rest draw on the free list, refs-0 cached blocks counting as free.
         With ``preempt_after_steps``, a head starved of blocks for that
-        many consecutive steps evicts the youngest running sequence."""
+        many consecutive steps evicts the youngest running sequence.
+
+        With the spill tier, the matched path splits into a resident
+        prefix and a spilled suffix. The suffix draws on the free list
+        like misses and is restored first, at most the step's restore
+        budget; past it the admission waits for the next step, keeping
+        what was restored. A restore that fails its CRC check detaches
+        the edge and quarantines the head (``corrupt_spill``)."""
         admitted = 0
         bumped = False
         bs = self.cfg.block_size
@@ -420,12 +481,16 @@ class DecodeEngine:
                 break
             hits = [] if self.prefix is None else self.prefix.match(
                 seq.prompt)
+            n_res = 0
+            while n_res < len(hits) and not hits[n_res].spilled:
+                n_res += 1
+            resident, spilled_sfx = hits[:n_res], hits[n_res:]
             avail = len(self.free_blocks)
             if self.prefix is not None:
                 # hit nodes are about to be locked, not evicted
                 avail += (self.prefix.evictable_blocks()
-                          - sum(1 for n in hits if n.refs == 0))
-            if need - len(hits) > avail:
+                          - sum(1 for n in resident if n.refs == 0))
+            if need - n_res > avail:
                 pa = self.policy.preempt_after_steps
                 if pa > 0:
                     if self._head_blocked_uid != seq.uid:
@@ -441,6 +506,35 @@ class DecodeEngine:
                 break
             self._head_blocked = 0
             self._head_blocked_uid = None
+            if spilled_sfx:
+                todo = spilled_sfx[:max(0, self._restores_left)]
+                # lock the resident prefix and each restored node, so a
+                # demotion the restores force cannot take the path away
+                self.prefix.lock(resident, self.steps)
+                locked = list(resident)
+                corrupt = None
+                try:
+                    for node in todo:
+                        self._restore_node(node)
+                        self.prefix.lock([node], self.steps)
+                        locked.append(node)
+                except wire.WireError:
+                    corrupt = todo[len(locked) - n_res]
+                finally:
+                    for n in locked:
+                        self.prefix.release(n, self.steps)
+                if corrupt is not None:
+                    # the damaged edge and its spilled descendants leave
+                    # the tree; the request that would read them is
+                    # quarantined before it takes a slot
+                    self.free_blocks.extend(
+                        self.prefix.detach_subtree(corrupt))
+                    self._quarantine_waiting(0, "corrupt_spill")
+                    continue
+                if len(todo) < len(spilled_sfx):
+                    # budget spent: the restored blocks stay cached and
+                    # the admission continues next step
+                    break
             self.waiting.popleft()
             slot = free_slots[0]
             need_priv = need - len(hits)
@@ -493,12 +587,74 @@ class DecodeEngine:
 
     def _reclaim_cached(self, n: int) -> None:
         """Turn up to ``n`` refs-0 cached blocks back into free blocks
-        (LRU leaves); a corrupted one is scrubbed on the way out."""
+        (LRU leaves); a corrupted one is scrubbed on the way out. With the
+        spill tier the same blocks are demoted instead (``_demote``)."""
+        if self.spill is not None:
+            self._demote(n)
+            return
         got = self.prefix.evict_lru(n, self.steps)
         bad = [b for b in got if b in self._corrupted]
         if bad:
             self._scrub(bad)
         self.free_blocks.extend(got)
+
+    def _demote(self, n: int) -> None:
+        """Spill up to ``n`` refs-0 cached device leaves to the host tier
+        (``prefix.spill_victims``, LRU): each block's bytes leave through
+        ``extract_blocks`` as one wire document, the node turns spilled
+        and the block joins the free list. A poisoned or corrupted victim
+        never spills: it is detached and scrubbed. Entries the tier drops
+        for room take their now unrestorable edges out of the tree."""
+        for node in self.prefix.spill_victims(n, self.steps):
+            b = node.block
+            if node.poisoned or b in self._corrupted:
+                sub = self.prefix.detach_subtree(node)
+                bad = [x for x in sub if x in self._corrupted]
+                if bad:
+                    self._scrub(bad)
+                self.free_blocks.extend(sub)
+                continue
+            got = extract_blocks(self.pool, [b])
+            doc = {"k": got["k"][:, 0], "v": got["v"][:, 0],
+                   "k_scale": (None if got["k_scale"] is None
+                               else got["k_scale"][:, 0]),
+                   "v_scale": (None if got["v_scale"] is None
+                               else got["v_scale"][:, 0])}
+            before = self.spill.bytes_spilled
+            sid, dropped = self.spill.put(node, doc)
+            self.prefix.mark_spilled(node, sid)
+            self.spilled_blocks += 1
+            self.spill_bytes += self.spill.bytes_spilled - before
+            self.free_blocks.append(b)
+            for victim in dropped:
+                if victim.parent is not None:    # still in the tree
+                    self.free_blocks.extend(
+                        self.prefix.detach_subtree(victim))
+
+    def _restore_node(self, node) -> None:
+        """Bring one spilled node back into a fresh device block: take
+        the tier entry (``WireError`` on a failed CRC, the caller's
+        quarantine), copy its bytes in (``implant_block``), and make the
+        node resident with a fresh LRU clock. ``restore_stall_s`` adds
+        the host time this takes."""
+        t0 = time.perf_counter()
+        # a free block first: a corrupt entry must leave the free list as
+        # it was
+        if not self.free_blocks:
+            self._reclaim_cached(1)
+        if not self.free_blocks:
+            raise RuntimeError("spill restore needs a free block and the "
+                               "pool has none")
+        doc = self.spill.take(node.spill_id)
+        dst = self.free_blocks.pop(0)
+        implant_block(self.pool, dst, doc["k"], doc["v"], doc["k_scale"],
+                      doc["v_scale"])
+        self.prefix.mark_restored(node, dst, self.steps)
+        self.restores += 1
+        self.restore_tokens_saved += self.cfg.block_size
+        self.restore_stall_s += time.perf_counter() - t0
+        self._step_restores += 1
+        self._restores_left -= 1
 
     # -- block sharing -----------------------------------------------------
 
@@ -508,7 +664,9 @@ class DecodeEngine:
         each block and holds one ref. When another sequence cached the
         same path meanwhile (both prefilled at once), the slot remaps onto
         the cached block and frees its own copy, whose bytes are the
-        same."""
+        same. When that cached twin is spilled, the slot's block becomes
+        its device copy and the tier entry goes (JAX's engine remaps the
+        table onto the spilled twin's block id, -1)."""
         if self.prefix is None:
             return
         seq = self.slots[slot]
@@ -520,7 +678,13 @@ class DecodeEngine:
             if node is None:            # parent evicted or poisoned
                 seq.nodes.append(None)
                 continue
-            if node.block != seq.blocks[i]:
+            if node.spilled:
+                # the cached twin was demoted meanwhile (the final-token
+                # block, which no match covers, or a concurrent sharer's):
+                # our block holds its bytes and becomes its device copy
+                self.spill.drop(node.spill_id)
+                self.prefix.mark_restored(node, seq.blocks[i], self.steps)
+            elif node.block != seq.blocks[i]:
                 # late dedup: remap onto the cached twin, free ours
                 self.free_blocks.append(seq.blocks[i])
                 self.block_frees += 1
@@ -621,8 +785,9 @@ class DecodeEngine:
 
     def _preempt_youngest(self) -> bool:
         """Evict the most recently admitted running sequence back to the
-        queue. Never the last running one: the oldest resident always
-        makes progress. Returns whether one was evicted."""
+        queue. Never the last running one, and ``step`` gives the prefill
+        chunk to the oldest resident, so the oldest resident always makes
+        progress. Returns whether one was evicted."""
         victims = [(s.admit_index, i) for i, s in enumerate(self.slots)
                    if s is not None]
         if len(victims) < 2:
@@ -859,25 +1024,149 @@ class DecodeEngine:
             self.lengths[slot] += 1
             self._emit(slot, int(out[0, j]))
 
+    # -- speculative decoding ----------------------------------------------
+
+    def _draft_for(self, seq: _Seq, budget: int) -> tuple[list[int], int]:
+        """Up to ``budget`` draft tokens for one slot and how many of them
+        are replayed tokens. During replay the recorded tokens are the
+        draft (all accepted on a healthy replay); past them the n-gram
+        drafter proposes from ``prompt + out``. Both are functions of the
+        history alone."""
+        if budget <= 0:
+            return [], 0
+        rec = seq.out[seq.emitted:seq.emitted + budget]
+        if len(rec) < budget:
+            guess = draft_tokens(seq.prompt + seq.out, budget - len(rec))
+            return rec + guess[:budget - len(rec)], len(rec)
+        return rec[:budget], budget
+
+    @torch.no_grad()
+    def _verify_dispatch(self, ready: list[int]) -> None:
+        """The speculative decode dispatch: draft for each slot (at most
+        ``max_new - emitted - 1`` tokens, so no emission passes
+        ``max_new`` or the reservation), run ``speculate + 1`` sub-steps,
+        read back once, and emit each slot's ``1 + accepted`` picks. A
+        non-finite row within a slot's used sub-steps ``0..accepted``
+        quarantines it with nothing emitted: its drafted rows landed only
+        in its own blocks, which the quarantine scrubs."""
+        k = self.cfg.speculate
+        bs = self.cfg.block_size
+        for slot in ready:
+            # the window lengths .. lengths + k is barred as a whole: a
+            # dead row writes to scratch, but no write may aim at a
+            # shared block
+            self._cow_private(slot, int(self.lengths[slot]) // bs,
+                              (int(self.lengths[slot]) + k) // bs)
+        b, tables, lengths, tokens, uids = self._marshal(ready)
+        drafts = np.zeros((b, k), np.int64)
+        dlens = np.zeros((b,), np.int64)
+        replayed = np.zeros((b,), np.int64)
+        for j, slot in enumerate(ready):
+            seq = self.slots[slot]
+            d, n_rec = self._draft_for(seq,
+                                       min(k, seq.max_new - seq.emitted - 1))
+            dlens[j] = len(d)
+            drafts[j, :len(d)] = d
+            replayed[j] = n_rec
+            self.drafted_tokens += len(d) - n_rec
+        self.decode_dispatches += 1
+        p = self.params
+        mb = tables.shape[1]
+        # a dead row's position can pass the table and the position
+        # table near the end of a reservation; its result is thrown away,
+        # so its reads are clamped (a live row never gets that far)
+        top = min(mb * bs, p.max_seq_len) - 1
+        rows = torch.arange(b, device=self.device)
+        tables_t = self._tensor(tables, torch.int32)
+        tables_l = tables_t.long()
+        len_t = self._tensor(lengths)
+        drafts_t = self._tensor(drafts)
+        dlens_t = self._tensor(dlens)
+        uid_list = uids.tolist()
+        cur = self._tensor(tokens)
+        alive = torch.ones((b,), dtype=torch.bool, device=self.device)
+        acc = torch.zeros((b,), dtype=torch.int64, device=self.device)
+        picks, finite = [], []
+        for i in range(k + 1):
+            pos = len_t + i
+            x = p.wte[cur] + p.wpe[pos.clamp(max=top)]
+            phys = torch.where(
+                alive, tables_l[rows, (pos // bs).clamp(max=mb - 1)],
+                SCRATCH_BLOCK)
+            off = pos % bs
+            n_attend = (pos + 1).clamp(max=mb * bs).to(torch.int32)
+
+            def write_attn(l, q, kk, vv, phys=phys, off=off,
+                           n_attend=n_attend):
+                write_rows(self.pool, l, phys, off, kk, vv,
+                           self.cfg.kv_dtype)
+                return self._cached_attn(l, q, tables_t, n_attend)
+
+            x = self._trunk(x, pos, write_attn)
+            logits = self._logits(layernorm(p.ln_f, x), uids)
+            pk = self.pick(logits, uid_list, (lengths + i + 1).tolist())
+            picks.append(pk)
+            finite.append(rows_finite(logits).long())
+            if i < k:
+                d = drafts_t[:, i]
+                alive = alive & (dlens_t > i) & (d == pk)
+                acc = acc + alive.long()
+                cur = d
+        out = torch.cat([torch.stack(picks, 1), torch.stack(finite, 1),
+                         acc[:, None]], 1).cpu().numpy()
+        for j, slot in enumerate(ready):
+            m = int(out[j, -1])
+            if not out[j, k + 1:k + 2 + m].all():
+                self._quarantine(slot, "nonfinite_logits")
+                continue
+            self.accepted_tokens += max(0, m - int(replayed[j]))
+            self.lengths[slot] += m + 1
+            for t in range(m + 1):
+                if self.slots[slot] is None:
+                    break               # released at its final emission
+                self._emit(slot, int(out[j, t]))
+
     # -- the loop ----------------------------------------------------------
 
+    def _prefill_slot(self) -> int | None:
+        """The slot that gets this step's prefill chunk: the resident with
+        an unfinished prompt admitted first. A refilled slot can sit below
+        an older resident, so the lowest slot index would let the youngest
+        take every chunk while the head's streak evicts it again (a
+        livelock); the oldest first always progresses."""
+        pending = [(s.admit_index, i) for i, s in enumerate(self.slots)
+                   if s is not None and not s.prompt_done]
+        return min(pending)[1] if pending else None
+
     def step(self) -> bool:
-        """One scheduler iteration: expire deadlines, admit (preempting
-        when the policy says so), at most one prefill chunk, then one
-        decode dispatch over every ready slot. Returns whether any work
-        ran. An armed poison applies to exactly this step."""
+        """One scheduler iteration: demote to the low water mark, expire
+        deadlines, admit (preempting when the policy says so), at most one
+        prefill chunk, for the oldest resident with an unfinished prompt,
+        then one decode dispatch over every ready slot (a verify dispatch
+        under speculation). Returns whether any work ran; restores alone
+        count. An armed poison applies to exactly this step."""
+        self._restores_left = self.cfg.spill_restore_per_step
+        self._step_restores = 0
+        if (self.spill is not None and self.cfg.spill_low_water > 0
+                and len(self.free_blocks) < self.cfg.spill_low_water):
+            self._demote(self.cfg.spill_low_water - len(self.free_blocks))
         self._expire_deadlines()
         self._admit()
         did = False
-        pre = next((i for i, s in enumerate(self.slots)
-                    if s is not None and not s.prompt_done), None)
+        pre = self._prefill_slot()
         if pre is not None:
             self._prefill_step(pre)
             did = True
         ready = [i for i, s in enumerate(self.slots)
                  if s is not None and s.prompt_done]
         if ready:
-            self._decode_dispatch(ready)
+            if self.cfg.speculate:
+                self._verify_dispatch(ready)
+            else:
+                self._decode_dispatch(ready)
+            did = True
+        if self._step_restores:
+            # a budget-deferred admission restored blocks: progress
             did = True
         if did:
             self.steps += 1

@@ -14,11 +14,16 @@ on the card unless ``--device cpu`` is given.
 ``--prefix_partial`` set the radix prefix cache, and ``--max_retries``,
 ``--deadline_steps``, ``--queue_limit`` and ``--preempt_after`` the
 engine's ``ServePolicy``; a bad value exits 2. A request shed by the
-queue limit is counted, not an error. Beside the JSON line, standard
-error gets JAX's prefix-cache summary line ("prefix cache hit N block(s)
-(rate r), saved S prefill token(s), peak P shared block(s), C CoW
-cop(ies)") and the counts of shed, preempted, expired, retried and
-failed requests.
+queue limit is counted, not an error. ``--speculate K`` drafts K tokens a
+decode step (greedy only; with ``--temperature`` above 0 it exits 2), and
+``--spill_blocks N`` arms the host spill tier of N blocks behind the
+prefix cache, restoring at most ``--spill_restore_per_step`` blocks a
+step. Beside the JSON line, standard error gets JAX's prefix-cache
+summary line ("prefix cache hit N block(s) (rate r), saved S prefill
+token(s), peak P shared block(s), C CoW cop(ies)"), the counts of shed,
+preempted, expired, retried and failed requests, and, when they are on,
+a speculation line (drafted, accepted, tokens a decode dispatch) and a
+spill line (blocks spilled, restores, host bytes, restore seconds).
 """
 
 from __future__ import annotations
@@ -69,6 +74,11 @@ def build_generate_parser() -> argparse.ArgumentParser:
                    help="per-sequence table width (0 = cover the longest "
                         "request, up to max_seq_len)")
     p.add_argument("--prefill_chunk", type=int, default=16)
+    p.add_argument("--speculate", type=int, default=0,
+                   help="speculative decoding: draft tokens a decode step "
+                        "from the n-gram prompt-copy drafter, verified "
+                        "greedily (requires temperature 0; a step emits "
+                        "1 + accepted tokens; 0 = off)")
     p.add_argument("--kernel", choices=["gather", "fused"], default="fused",
                    help="decode attention: 'fused' (the paged CUDA "
                         "kernel; its plain version on the CPU) or "
@@ -80,6 +90,16 @@ def build_generate_parser() -> argparse.ArgumentParser:
                         "full blocks instead of prefilling them again, "
                         "refcounted and copy-on-write; the output is "
                         "unchanged (default on)")
+    p.add_argument("--spill_blocks", type=int, default=0,
+                   help="host-RAM KV spill tier capacity in blocks "
+                        "(decode/spill.py): pool-pressure evictions of "
+                        "cached prefix blocks move their bytes to host "
+                        "RAM, and a hit on a spilled edge restores them "
+                        "instead of prefilling again (0 = off; needs "
+                        "--prefix_cache)")
+    p.add_argument("--spill_restore_per_step", type=int, default=2,
+                   help="most spilled blocks restored an engine step; an "
+                        "admission past it waits for the next step")
     p.add_argument("--prefix_partial", default=False,
                    action=argparse.BooleanOptionalAction,
                    help="sub-block sharing: a partial-block hit copies "
@@ -164,7 +184,9 @@ def generate_main(argv=None) -> int:
             top_p=args.top_p, seed=args.sample_seed,
             use_rope=args.use_rope, kernel=args.kernel,
             prefix_cache=args.prefix_cache,
-            prefix_partial=args.prefix_partial)
+            prefix_partial=args.prefix_partial, speculate=args.speculate,
+            spill_blocks=args.spill_blocks,
+            spill_restore_per_step=args.spill_restore_per_step)
         policy = ServePolicy(
             queue_limit=args.queue_limit,
             deadline_steps=args.deadline_steps,
@@ -206,6 +228,13 @@ def generate_main(argv=None) -> int:
         "kernel": args.kernel,
         "device": str(device),
         "kernel_launches": launch_counts(),
+        "speculate": args.speculate,
+        "decode_dispatches": engine.decode_dispatches,
+        "drafted_tokens": engine.drafted_tokens,
+        "accepted_tokens": engine.accepted_tokens,
+        "accept_rate": (round(engine.accepted_tokens
+                              / engine.drafted_tokens, 4)
+                        if engine.drafted_tokens else None),
         "prefix_cache": args.prefix_cache,
         "prefix_partial": args.prefix_partial,
         "prefix_hit_blocks": engine.prefix_hit_blocks,
@@ -214,6 +243,12 @@ def generate_main(argv=None) -> int:
         "prefill_dispatches": engine.prefill_dispatches,
         "shared_blocks_peak": engine.shared_blocks_peak,
         "cow_copies": engine.cow_copies,
+        "spill_blocks": args.spill_blocks,
+        "spilled_blocks": engine.spilled_blocks,
+        "spill_bytes": engine.spill_bytes,
+        "restores": engine.restores,
+        "restore_tokens_saved": engine.restore_tokens_saved,
+        "restore_stall_s": round(engine.restore_stall_s, 6),
         "partial_hits": engine.partial_hits,
         "quarantined": engine.quarantined,
         "retried": engine.retried,
@@ -227,6 +262,19 @@ def generate_main(argv=None) -> int:
     print(f"requests: {shed} shed, {engine.preempted} preempted, "
           f"{engine.expired} expired, {engine.retried} retried, "
           f"{len(engine.failed)} failed", file=sys.stderr)
+    if args.speculate:
+        per = (round(engine.tokens_generated / engine.decode_dispatches, 4)
+               if engine.decode_dispatches else None)
+        print(f"speculation: {engine.drafted_tokens} drafted, "
+              f"{engine.accepted_tokens} accepted (rate "
+              f"{payload['accept_rate']}), {per} token(s) a decode "
+              "dispatch", file=sys.stderr)
+    if args.spill_blocks:
+        print(f"spill tier: {engine.spilled_blocks} block(s) spilled "
+              f"({engine.spill_bytes} bytes), {engine.restores} "
+              f"restore(s) saving {engine.restore_tokens_saved} prefill "
+              f"token(s) in {engine.restore_stall_s:.6f} s",
+              file=sys.stderr)
     print(json.dumps(payload))
     return 0
 

@@ -236,6 +236,38 @@ def copy_block_rows(pool: PagedKV, src: int, dst: int,
     return pool
 
 
+def extract_blocks(pool: PagedKV, blocks) -> dict:
+    """A host copy of the named physical blocks' bytes at the storage
+    dtype (int8 codes stay int8, bf16 stays bf16): ``k``/``v`` CPU tensors
+    ``[L, n, H_kv, block, dh]``, ``k_scale``/``v_scale`` ``[L, n, H_kv]``
+    f32 (None unless int8). A device-to-host copy: the host waits for
+    the pool's pending writes."""
+    idx = torch.as_tensor(list(blocks), dtype=torch.long,
+                          device=pool.k.device)
+    out = {"k": pool.k[:, idx].cpu(), "v": pool.v[:, idx].cpu(),
+           "k_scale": None, "v_scale": None}
+    if pool.k_scale is not None:
+        out["k_scale"] = pool.k_scale[:, idx].cpu()
+        out["v_scale"] = pool.v_scale[:, idx].cpu()
+    return out
+
+
+def implant_block(pool: PagedKV, dst: int, k_blk: torch.Tensor,
+                  v_blk: torch.Tensor, k_scale: torch.Tensor | None = None,
+                  v_scale: torch.Tensor | None = None) -> PagedKV:
+    """Write one block's bytes (values and int8 scales) at physical block
+    ``dst`` in every layer, in place: ``k_blk``/``v_blk`` ``[L, H_kv,
+    block, dh]`` at the pool's storage dtype, the scales ``[L, H_kv]``.
+    A host-to-device copy queued on the current stream, so a kernel
+    launched after it on that stream reads the new block."""
+    pool.k[:, dst] = k_blk.to(pool.k.device)
+    pool.v[:, dst] = v_blk.to(pool.v.device)
+    if pool.k_scale is not None:
+        pool.k_scale[:, dst] = k_scale.to(pool.k_scale.device)
+        pool.v_scale[:, dst] = v_scale.to(pool.v_scale.device)
+    return pool
+
+
 def corrupt_block(pool: PagedKV, block: int) -> PagedKV:
     """Poison one physical block in place, as a flipped memory page
     would: NaN values for the float storage types, NaN per-block scales

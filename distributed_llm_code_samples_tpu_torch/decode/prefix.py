@@ -37,6 +37,15 @@ Refcounts and lifetime:
   remain (a poisoned sharer never zeroes an innocent survivor's
   prefix). The engine scrubs and detaches it at refs 0.
 
+The spill tier (``decode/spill.py``, ``spill=``): with it, pool pressure
+demotes refs-0 device leaves (``spill_victims``) into host RAM instead of
+detaching them. A spilled node (``spilled``, ``spill_id``; ``block`` -1)
+keeps its place in the tree and still matches; it leaves every
+block-indexed view. Only a node whose children are all spilled is
+demoted, so spilled nodes form a suffix of every path and a resident
+node's ancestors are resident. Poisoned nodes never spill. Detaching a
+node in any way drops its tier entry.
+
 Each weights version has a root of its own (``version``, 0 by default):
 a block's bytes also depend on the weights, so a match never crosses
 versions, while eviction and refcounts stay global.
@@ -56,8 +65,8 @@ class PrefixNode:
     ``refs`` the live-sequence lock count, ``last_use`` the engine step of
     the last lock, release or insert (the LRU clock)."""
 
-    __slots__ = ("edge", "block", "refs", "last_use", "poisoned", "parent",
-                 "children")
+    __slots__ = ("edge", "block", "refs", "last_use", "poisoned", "spilled",
+                 "spill_id", "parent", "children")
 
     def __init__(self, edge, block, parent, step):
         self.edge = edge
@@ -65,6 +74,8 @@ class PrefixNode:
         self.refs = 0
         self.last_use = int(step)
         self.poisoned = False
+        self.spilled = False
+        self.spill_id: int | None = None
         self.parent = parent
         self.children: dict[tuple[int, ...], PrefixNode] = {}
 
@@ -81,8 +92,10 @@ class PrefixNode:
 class PrefixCache:
     """The host-side radix tree over full prompt blocks."""
 
-    def __init__(self, block_size: int):
+    def __init__(self, block_size: int, spill=None):
         self.block_size = int(block_size)
+        # the host tier (decode/spill.py) or None: detach drops its entries
+        self.spill = spill
         self.root = PrefixNode((), -1, None, 0)     # version-0 root
         self._roots: dict[int, PrefixNode] = {0: self.root}
         self._by_block: dict[int, PrefixNode] = {}
@@ -136,7 +149,8 @@ class PrefixCache:
     def match(self, prompt, version: int = 0) -> list[PrefixNode]:
         """The longest cached path of full prompt blocks under
         ``version``'s root, capped by ``match_cap``, root outward. Stops
-        at the first miss or poisoned node. Does not lock."""
+        at the first miss or poisoned node. Spilled nodes match (a restore
+        beats a prefill) and form a suffix of the path. Does not lock."""
         blk = self.block_size
         node = self._roots.get(int(version))
         if node is None:
@@ -158,8 +172,8 @@ class PrefixCache:
     def partial_match(self, prompt, hits,
                       version: int = 0) -> tuple[PrefixNode, int] | None:
         """Sub-block probe past the full-block walk: among the children of
-        the last hit (the root when ``hits`` is empty), the non-poisoned
-        edge sharing the longest leading run of the remaining prompt
+        the last hit (the root when ``hits`` is empty), the resident,
+        non-poisoned edge sharing the longest leading run of the remaining prompt
         tokens. Returns ``(donor, m)``, or None when no edge shares a
         token. ``m`` is capped at ``len(remaining) - 1`` (one token always
         prefills) and is below ``block_size``. Read-only."""
@@ -170,7 +184,7 @@ class PrefixCache:
         rest = [int(t) for t in prompt[len(hits) * blk:]]
         best, best_m = None, 0
         for edge, child in node.children.items():
-            if child.poisoned:
+            if child.poisoned or child.spilled:
                 continue
             m = 0
             for a, b in zip(edge, rest):
@@ -205,13 +219,16 @@ class PrefixCache:
         block: a new node owning ``block``, or the existing node when
         another sequence already cached this path (late dedup: the caller
         remaps its table onto the cached block and frees its duplicate).
-        Returns None when the parent path is not cached or is poisoned:
-        the block stays private."""
+        Returns None when the parent path is not cached, poisoned or
+        spilled (a resident node under a spilled one would break the
+        spilled-suffix rule): the block stays private. The returned node
+        may itself be spilled; the caller then makes ``block`` its device
+        copy."""
         blk = self.block_size
         node = self._root(version)
         for i in range(block_index):
             node = node.children.get(tuple(prompt[i * blk:(i + 1) * blk]))
-            if node is None or node.poisoned:
+            if node is None or node.poisoned or node.spilled:
                 return None
         edge = tuple(int(t) for t in
                      prompt[block_index * blk:(block_index + 1) * blk])
@@ -248,14 +265,71 @@ class PrefixCache:
                                (parent.last_use, parent.block, parent))
         return out
 
+    # -- the spill tier: demotion and restore ---------------------------
+
+    def spill_victims(self, n_blocks: int, step: int) -> list[PrefixNode]:
+        """Up to ``n_blocks`` demotion victims, least recently used first:
+        refs-0 resident nodes whose children are all spilled. Nothing is
+        detached; the engine spills each victim (``mark_spilled``) or, if
+        poisoned, detaches and scrubs it. A parent becomes a candidate in
+        the same call once its last resident child is picked."""
+        heap = [(n.last_use, n.block, n) for n in self._by_block.values()
+                if n.refs == 0
+                and all(c.spilled for c in n.children.values())]
+        heapq.heapify(heap)
+        picked: list[PrefixNode] = []
+        picked_ids: set[int] = set()
+        while heap and len(picked) < n_blocks:
+            _, _, victim = heapq.heappop(heap)
+            picked.append(victim)
+            picked_ids.add(id(victim))
+            parent = victim.parent
+            if (parent.edge and parent.refs == 0
+                    and all(c.spilled or id(c) in picked_ids
+                            for c in parent.children.values())):
+                heapq.heappush(heap,
+                               (parent.last_use, parent.block, parent))
+        return picked
+
+    def mark_spilled(self, node: PrefixNode, spill_id: int) -> int:
+        """The node's bytes now live in tier entry ``spill_id``; returns
+        its former device block (for the free list). The node stays in
+        the tree and still matches."""
+        block = node.block
+        self._by_block.pop(block, None)
+        node.block = -1
+        node.spilled = True
+        node.spill_id = int(spill_id)
+        return block
+
+    def mark_restored(self, node: PrefixNode, block: int,
+                      step: int) -> None:
+        """The node's bytes are in device ``block`` again; its LRU clock
+        restarts at ``step``."""
+        node.spilled = False
+        node.spill_id = None
+        node.block = int(block)
+        node.last_use = int(step)
+        self._by_block[node.block] = node
+
+    def _forget(self, node: PrefixNode) -> None:
+        """Drop a detaching node's tier entry: an unreachable edge's host
+        copy is garbage."""
+        if node.spilled and self.spill is not None:
+            self.spill.drop(node.spill_id)
+        node.spilled = False
+        node.spill_id = None
+
     def _detach(self, node: PrefixNode) -> None:
         del node.parent.children[node.edge]
         self._by_block.pop(node.block, None)
+        self._forget(node)
         node.parent = None
 
     def detach_subtree(self, node: PrefixNode) -> list[int]:
         """Remove ``node`` and every descendant (all refs 0 by the
-        monotone-refs rule), returning their blocks. Used when a block can
+        monotone-refs rule), returning their device blocks (spilled ones
+        hold none; their tier entries are dropped). Used when a block can
         no longer be trusted: the descendants stay clean but become
         unreachable, so they return to the free list with it."""
         if node.refs != 0:
@@ -266,8 +340,11 @@ class PrefixCache:
         self._detach(node)
         while stack:
             cur = stack.pop()
-            out.append(cur.block)
+            if cur.block >= 0:
+                out.append(cur.block)
             self._by_block.pop(cur.block, None)
+            if cur is not node:
+                self._forget(cur)
             stack.extend(cur.children.values())
             cur.children = {}
         return out
@@ -290,6 +367,7 @@ class PrefixCache:
             "refs": n.refs,
             "last_use": n.last_use,
             "poisoned": n.poisoned,
+            "spilled": n.spilled,
             "version": _version(n),
             "parent": (None if not n.parent.edge
                        else index[id(n.parent)]),

@@ -38,6 +38,22 @@ def check_sampling(temperature: float, top_k: int, top_p: float,
                          "(greedy ignores them)")
 
 
+def check_speculation(speculate: int, temperature: float) -> None:
+    """``speculate`` is the draft length (0 = off). The verify step keeps
+    a drafted token only when it equals the argmax pick, so an accepted
+    token is the one the plain engine would have emitted; sampled
+    decoding would need another acceptance rule, so ``speculate > 0``
+    requires ``temperature == 0``."""
+    if speculate < 0:
+        raise ValueError(f"speculate must be >= 0 (0 = off), got "
+                         f"{speculate}")
+    if speculate and temperature != 0:
+        raise ValueError(
+            "speculative decoding verifies greedily: speculate > 0 "
+            f"requires temperature == 0, got {temperature} (sampled "
+            "decoding runs non-speculatively)")
+
+
 def _nucleus_mask(z: torch.Tensor, top_p: float) -> torch.Tensor:
     """Keep the smallest descending-probability prefix whose mass reaches
     ``top_p`` (the crossing token is kept, so the argmax always

@@ -163,11 +163,22 @@ def test_config_surface(models):
     assert [f.name for f in dataclasses.fields(EngineConfig)] == [
         f.name for f in dataclasses.fields(JConfig)]
     assert EngineConfig().prefix_cache is JConfig().prefix_cache is True
-    for name, value in (("speculate", 2), ("spill_blocks", 4),
-                        ("spill_low_water", 1),
-                        ("spill_restore_per_step", 3)):
-        with pytest.raises(NotImplementedError, match=name):
-            DecodeEngine(tp, H, EngineConfig(**BASE, **{name: value}))
+    # JAX's validations of the speculation and spill-tier fields
+    for kw, msg in (({"speculate": -1}, "speculate"),
+                    ({"speculate": 2, "temperature": 0.9}, "greedily"),
+                    ({"spill_blocks": -1}, "spill_blocks"),
+                    ({"spill_low_water": -1}, "spill_low_water"),
+                    ({"spill_blocks": 4, "spill_restore_per_step": 0},
+                     "spill_restore_per_step"),
+                    ({"spill_blocks": 4, "prefix_cache": False},
+                     "prefix_cache")):
+        with pytest.raises(ValueError, match=msg):
+            DecodeEngine(tp, H, EngineConfig(**BASE, **kw))
+    eng = DecodeEngine(tp, H, EngineConfig(**BASE, speculate=2,
+                                           spill_blocks=4,
+                                           spill_restore_per_step=3,
+                                           spill_low_water=1))
+    assert eng.spill.capacity == 4 and eng.prefix.spill is eng.spill
     with pytest.raises(ValueError, match="kernel"):
         DecodeEngine(tp, H, EngineConfig(**BASE, kernel="flash"))
     with pytest.raises(ValueError, match="power of two"):

@@ -33,7 +33,11 @@ from distributed_llm_code_samples_tpu_torch.decode import paged as tpaged
 from distributed_llm_code_samples_tpu_torch.decode.prefix import (
     PrefixCache)
 from torch_serve_refs import (CASE_IDS, CASES, KV_DTYPES, Engines,
-                              counters, shared_prompts, staggered)
+                              counters, drained_invariants, one_thread,
+                              shared_prompts,
+                              staggered)  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
@@ -144,12 +148,6 @@ TREE_SCRIPTS = ((script_refs_and_dedup, 4), (script_lru_and_poison, 2),
                 (script_versions_and_snapshot, 2))
 
 
-def _snapshot(pc):
-    # the spill tier's key is not ported (it comes with the spill tier)
-    return [{k: v for k, v in n.items() if k != "spilled"}
-            for n in pc.snapshot()]
-
-
 @pytest.mark.parametrize("script,block_size", TREE_SCRIPTS,
                          ids=[s.__name__ for s, _ in TREE_SCRIPTS])
 def test_prefix_cache_equals_jax_node_for_node(script, block_size):
@@ -158,7 +156,7 @@ def test_prefix_cache_equals_jax_node_for_node(script, block_size):
         pc, log = cls(block_size), []
         script(pc, log)
         logs.append(log)
-        snaps.append(_snapshot(pc))
+        snaps.append(pc.snapshot())
     assert logs[0] == logs[1]
     assert snaps[0] == snaps[1]
 
@@ -428,7 +426,10 @@ def test_corrupt_shared_block_poisons_tree_then_heals(engines):
     """A block the tree holds is corrupted: the node is poisoned at once
     (no new sharer matches it), the sharers quarantine as their
     dispatches read the NaN, the last release scrubs and detaches the
-    path, and the retries recover the clean tokens."""
+    path, and the retries recover the clean tokens. The retries' prefill
+    chunks are scheduled otherwise than in JAX: the port under JAX's rule
+    gives JAX's counters, the port JAX's tokens and its own
+    invariants."""
     prompts = shared_prompts()
 
     def drive(eng):
@@ -447,7 +448,10 @@ def test_corrupt_shared_block_poisons_tree_then_heals(engines):
     got = drive(eng)
     jeng = engines.jax(policy=policy)
     assert got == drive(jeng)
-    assert counters(eng) == counters(jeng)
+    twin = engines.port(policy=policy, jax_rule=True)
+    assert drive(twin) == got
+    assert counters(twin) == counters(jeng)
+    drained_invariants(eng)
     assert eng.failed == {} and eng.quarantined >= 2
     assert got == staggered(engines.port(), prompts, steps_between=0)
     assert not eng._corrupted

@@ -28,7 +28,10 @@ from distributed_llm_code_samples_tpu_torch.decode import (AdmissionError,
 from distributed_llm_code_samples_tpu_torch.decode.generate_cli import (
     generate_main)
 from torch_serve_refs import (CASE_IDS, CASES, MAX_NEW, Engines, counters,
-                              plain_prompts)
+                              drained_invariants, one_thread,
+                              plain_prompts)  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 # JAX's request records carry keys whose slices are not ported yet
 UNPORTED_KEYS = {"weights_version", "trace_id", "tenant"}
@@ -72,13 +75,19 @@ def test_preempt_resume_equals_jax_and_uninterrupted(engines, prompts,
     """Three requests needing 12 blocks on a pool of 10: the youngest is
     preempted and later replayed, re-prefilled with its recorded tokens
     teacher-forced, and every request's tokens equal the uninterrupted
-    run's (the write history, int8 requant included, is the same)."""
+    run's (the write history, int8 requant included, is the same). The
+    port's oldest-first prefill chunk schedules this case otherwise than
+    JAX's lowest slot: the port under JAX's rule gives JAX's counters and
+    records, and the port itself JAX's tokens and its own invariants."""
     jeng = engines.jax(kv_dtype, sampled, policy=PREEMPT)
     want = drain(jeng, prompts)
+    twin = engines.port(kv_dtype, sampled, policy=PREEMPT, jax_rule=True)
+    assert drain(twin, prompts) == want
+    assert_like_jax(twin, jeng)
     eng = engines.port(kv_dtype, sampled, policy=PREEMPT)
     assert drain(eng, prompts) == want
     assert eng.preempted >= 1 and not eng.failed
-    assert_like_jax(eng, jeng)
+    drained_invariants(eng)
     assert any(e["event"] == "admitted" and e["replay"] > 0
                for e in eng.request_events)
     assert drain(engines.port(kv_dtype, sampled), prompts) == want
@@ -88,7 +97,10 @@ def test_preempt_resume_equals_jax_and_uninterrupted(engines, prompts,
 def test_quarantine_retry_equals_jax(engines, prompts, kv_dtype, sampled):
     """``arm_poison`` of a running uid: it is quarantined, replayed once
     (``max_retries=1``) and ends with the clean run's tokens, as in JAX's
-    engine with ``arm_poison``; without budget it fails."""
+    engine with ``arm_poison``; without budget it fails. The replay's
+    prefill chunks are scheduled otherwise than in JAX: the port under
+    JAX's rule gives JAX's counters and records, the port JAX's tokens
+    and its own invariants."""
     def drive(eng):
         for i, p in enumerate(prompts):
             eng.submit(p, MAX_NEW, uid=i)
@@ -101,9 +113,12 @@ def test_quarantine_retry_equals_jax(engines, prompts, kv_dtype, sampled):
     policy = dict(max_retries=1)
     jeng = engines.jax(kv_dtype, sampled, policy=policy)
     want = drive(jeng)
+    twin = engines.port(kv_dtype, sampled, policy=policy, jax_rule=True)
+    assert drive(twin) == want
+    assert_like_jax(twin, jeng)
     eng = engines.port(kv_dtype, sampled, policy=policy)
     assert drive(eng) == want == clean
-    assert_like_jax(eng, jeng)
+    drained_invariants(eng)
     assert eng.quarantined == eng.retried == 1 and eng.failed == {}
     eng = engines.port(kv_dtype, sampled)
     assert drive(eng) == {u: clean[u] for u in (0, 2)}

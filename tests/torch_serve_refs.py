@@ -5,15 +5,25 @@ a tiny LM made by JAX's ``init_lm`` and crossed over with
 Gumbel draws for the sampled cases, and matched engine pairs.
 
 One ``Engines`` object per test module keeps one set of the JAX engine's
-compiled programs for each (kv_dtype, sampled) pair: the programs depend
-on the shapes, the storage type and the sampling settings alone, never on
-the host-side options (``prefix_cache``, ``prefix_partial``, the
-``ServePolicy``), so every JAX engine of that pair reuses them.
+compiled programs for each (kv_dtype, sampled, speculate) case: the
+programs depend on the shapes, the storage type, the sampling settings
+and the draft length alone, never on the host-side options
+(``prefix_cache``, ``prefix_partial``, the spill tier, the
+``ServePolicy``), so every JAX engine of that case reuses them.
+
+The port gives each step's prefill chunk to the oldest resident with an
+unfinished prompt; JAX's engine to the lowest slot index, which can
+livelock under preemption. Where the two rules schedule a case
+differently, ``LowestSlotChunk`` (the port's engine under JAX's rule)
+holds the port's machinery against JAX's counters and records, and the
+port itself is held to the same tokens and to ``drained_invariants``.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from distributed_llm_code_samples_tpu.decode import (
     DecodeEngine as JEngine, EngineConfig as JConfig,
@@ -36,6 +46,17 @@ CASES = [(kv, s) for kv in KV_DTYPES for s in (False, True)]
 CASE_IDS = [f"{kv}-{'sampled' if s else 'greedy'}" for kv, s in CASES]
 PLAIN_LENS = (5, 9, 13)
 MAX_NEW = 8
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """Run a module's tiny torch ops on one thread (restored after it):
+    under the suite's parallel workers, every process taking every core
+    for ops of a few thousand elements mostly waits on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def models():
@@ -69,6 +90,15 @@ def jax_noise(seed):
         for u, p in zip(uids, positions)])
 
 
+class LowestSlotChunk(DecodeEngine):
+    """The port's engine with JAX's prefill-chunk rule: the lowest slot
+    index with an unfinished prompt."""
+
+    def _prefill_slot(self):
+        return next((i for i, s in enumerate(self.slots)
+                     if s is not None and not s.prompt_done), None)
+
+
 class Engines:
     """Matched JAX and port engines on one model."""
 
@@ -86,19 +116,20 @@ class Engines:
         eng = JEngine(self.jp, H, JConfig(**self.config(kv_dtype, sampled,
                                                         **kw)),
                       policy=JPolicy(**(policy or {})))
-        eng._programs = self._programs.setdefault((kv_dtype, sampled), {})
+        eng._programs = self._programs.setdefault(
+            (kv_dtype, sampled, kw.get("speculate", 0)), {})
         return eng
 
-    def port(self, kv_dtype="f32", sampled=False, policy=None, **kw):
+    def port(self, kv_dtype="f32", sampled=False, policy=None,
+             jax_rule=False, **kw):
         noise = None
         if sampled:
             noise = self._noise.setdefault(SAMPLED["seed"],
                                            jax_noise(SAMPLED["seed"]))
-        return DecodeEngine(self.tp, H,
-                            EngineConfig(**self.config(kv_dtype, sampled,
-                                                       **kw)),
-                            policy=ServePolicy(**(policy or {})),
-                            noise_fn=noise)
+        cls = LowestSlotChunk if jax_rule else DecodeEngine
+        return cls(self.tp, H,
+                   EngineConfig(**self.config(kv_dtype, sampled, **kw)),
+                   policy=ServePolicy(**(policy or {})), noise_fn=noise)
 
 
 def staggered(eng, prompts, max_new=6, steps_between=3, uid0=0):
@@ -121,3 +152,34 @@ def counters(eng):
         "prefill_tokens_saved", "partial_hits", "cow_copies",
         "block_allocs", "block_frees", "block_scrubs", "quarantined",
         "retried", "preempted", "rejected", "expired", "steps")}
+
+
+def drained_invariants(eng):
+    """What a drained port engine holds whatever its schedule: every uid
+    completed or failed exactly once; a preempted or retried uid was
+    admitted again replaying the tokens it had; every block is free or
+    cached at refs 0, with no corrupted block left; allocations equal
+    frees; the live tokens are the finished requests' new tokens and the
+    failed ones' kept tokens."""
+    ev = list(eng.request_events)
+    done = [e["uid"] for e in ev if e["event"] == "completed"]
+    assert sorted(done) == sorted(eng.finished)
+    assert not set(done) & set(eng.failed)
+    assert [e["step"] for e in ev] == sorted(e["step"] for e in ev)
+    for i, e in enumerate(ev):
+        if e["event"] in ("preempted", "retried"):
+            back = next(a for a in ev[i + 1:] if a["uid"] == e["uid"]
+                        and a["event"] in ("admitted", "expired"))
+            if back["event"] == "admitted" and e["event"] == "preempted":
+                assert back["replay"] == e["n_out"]
+    cached = ([] if eng.prefix is None else
+              [n.block for n in eng.prefix.nodes() if not n.spilled])
+    assert eng.prefix is None or all(n.refs == 0
+                                     for n in eng.prefix.nodes())
+    assert sorted(eng.free_blocks + cached) == list(
+        range(1, eng.cfg.n_blocks))
+    assert not eng._corrupted and not eng.active and not eng.waiting
+    assert eng.block_allocs == eng.block_frees
+    assert eng.tokens_generated == sum(
+        len(t) - eng.prompt_lens[u] for u, t in eng.finished.items()) + sum(
+        info["n_out"] for info in eng.failed.values())
