@@ -29,7 +29,12 @@
                                            # sums, hop and all-to-all on
                                            # bf16; the FFN stack's, the
                                            # LM's, the transformer's and
-                                           # the MoE stack's training
+                                           # the MoE stack's training; the
+                                           # optimizers, clipping, ZeRO-1
+                                           # and mixed on bf16 params
+    python3 chip_smoke.py --phase guard    # the skip-step guardrail:
+                                           # train_single, DDP/FSDP under
+                                           # mixed with loss scaling, LM TP
     python3 chip_smoke.py --phase seq      # the LM kernels, ring attention
                                            # and Ulysses, the LM at 4096
                                            # positions on 4 virtual ranks
@@ -219,6 +224,23 @@ each split size, ``paged-splits``), then drives the port's paths:
   --head fused --attn flash``, ``-m 8 --attn flash`` and ``-m 7`` with
   ``--dtype bfloat16`` at their full widths (``dist-cli-m11-bf16``,
   ``dist-cli-m8-bf16``, ``dist-cli-m7-bf16``).
+- ``--dtype bfloat16`` under the optimizer options (``--phase bf16``
+  too): DDP and FSDP over the ring kernels and ZeRO-1 on 4 virtual
+  ranks at the FFN stack's training shape, under clipped AdamW and
+  clipped momentum, and DDP and FSDP under ``mixed`` (``bf16-opt-run``,
+  exact ring launches, bf16 params and state), then one step of each
+  rule and strategy against the rule in float64 over the single-device
+  bf16 rule's error (``bf16-opt-check``). ``--phase dist`` and
+  ``dist-bf16`` run ``cli.py -m 2 --dtype bfloat16 --optimizer adamw
+  --comm pallas_ring`` (``dist-cli-m2-adamw-bf16``).
+- the skip-step guardrail (``--phase guard`` too): ``train_single``
+  through the FFN kernels with a poisoned seed (one skip, bit for bit
+  the run without it), DDP and FSDP under ``mixed`` with a loss scale
+  that overflows on 4 virtual ranks over the ring kernels (the scale
+  halves, bit for bit the run without that step) and ``train_lm_tp``
+  through the flash and fused-head kernels, clean, bit for bit the
+  unguarded run; each step time beside the unguarded one
+  (``guard-run``).
 
 - sequence parallelism (``--phase seq`` too): the flash kernels as the
   causal ring of 4 loopback ranks calls them at the GPT-2-small LM's
@@ -5855,6 +5877,424 @@ def dtype_bf16_train_phase(torch, np, card):
     return launches
 
 
+# the bf16 optimizer runs (dtype_bf16_opt_phase): steps a rank (2 keeps
+# the phase near a minute), and the LR of each rule's one step held
+# against float64: Adam's step is about the LR on every weight, some 100
+# bf16 steps of a weight of 0.02 at 1e-2; momentum's first step is SGD's
+# (BF16_CHECK_LR)
+BF16_OPT_STEPS = 2
+BF16_OPT_CHECK_LR = {"adamw": 1e-2, "momentum": BF16_CHECK_LR}
+# the guard phase: the step of train_single's schedule that takes the
+# poisoned seed, DDP's and FSDP's initial loss scale under --mixed, and
+# the LM TP's guarded steps
+GUARD_POISON_STEP = 3
+GUARD_SCALE = 2.0 ** 15
+GUARD_LM_STEPS = 2
+
+
+def dtype_bf16_opt_phase(torch, np, card):
+    """``--dtype bfloat16`` under the optimizer options at ``TRAIN``'s
+    width on ``RING_N`` loopback ranks: DDP and FSDP over the ring kernels
+    and ZeRO-1 (its plain collectives in loopback), each under clipped
+    AdamW and clipped momentum (clip 1.0; FSDP and ZeRO-1 sum the norm
+    over the data axis), and DDP and FSDP under ``mixed`` with clipped
+    AdamW, ``BF16_OPT_STEPS`` steps a rank (``bf16-opt-run``: exact ring
+    launches, bf16 params and state out); then one step of each rule and
+    strategy at ``BF16_OPT_CHECK_LR`` against the same rule in float64
+    on float64 gradients of the same bf16 params, over the error of the
+    rule on the single-device bf16 gradients (``UPDATE_RATIO``;
+    ``bf16-opt-check``). The CLI's ``-m 2 --dtype bfloat16 --optimizer
+    adamw --comm pallas_ring`` needs a card a rank: ``--phase dist-bf16``
+    runs it. Returns the ring kernels' launches, summed over the runs."""
+    from distributed_llm_code_samples_tpu_torch import LR, optim
+    from distributed_llm_code_samples_tpu_torch.data import (
+        batch_from_seed, make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        FFNStackParams, init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        ffn_block, launch_counts, reset_launch_counts, stack_grads)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        DATA_AXIS, launch, make_mesh, train_ddp, train_ddp_zero1,
+        train_fsdp, unshard_params)
+    t_phase = time.perf_counter()
+    d, n_layers, tokens = TRAIN["d_model"], TRAIN["n_layers"], TRAIN["tokens"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TRAIN["random_seed"])
+    params = init_ffn_stack(gen, d, n_layers, dtype=torch.bfloat16)
+    seeds = make_seed_schedule(RING_N * BF16_OPT_STEPS,
+                               TRAIN["random_seed"])
+    mesh = make_mesh({DATA_AXIS: RING_N}, loopback=True)
+    flops = 12 * tokens * d * FFN_DIM * n_layers * RING_N
+    trainers = {"ddp": train_ddp, "fsdp": train_fsdp,
+                "zero1": train_ddp_zero1}
+
+    def rule(name, kind):
+        axis = None if kind == "ddp" else DATA_AXIS
+        inner = optim.adamw() if name == "adamw" else optim.momentum()
+        return optim.clipped(inner, 1.0, axis=axis)
+
+    runs = {f"{kind}-{name}": (kind, name, False)
+            for kind in ("ddp", "fsdp", "zero1")
+            for name in ("adamw", "momentum")}
+    runs.update({"ddp-mixed-adamw": ("ddp", "adamw", True),
+                 "fsdp-mixed-adamw": ("fsdp", "adamw", True)})
+    layer_calls = n_layers * BF16_OPT_STEPS
+
+    def want(kind, mixed):
+        if kind == "zero1":
+            return {}
+        if kind == "ddp":
+            return {"ring_all_reduce" + ("" if mixed else "[bf16]"):
+                    2 * layer_calls, "ppermute_dma": 1}
+        return {"ring_all_gather[bf16]": 4 * layer_calls,
+                "ring_reduce_scatter" + ("" if mixed else "[bf16]"):
+                2 * layer_calls, "ppermute_dma": 1}
+
+    def run(label, seeds, lr):
+        kind, name, mixed = runs[label]
+        kw = dict(optimizer=rule(name, kind), return_state=True)
+        if kind != "zero1":
+            kw["comm"] = "pallas_ring"
+        if mixed:
+            kw["mixed"] = True
+
+        def body(me, _):
+            stamps = []
+
+            def on_step(_):
+                if me.rank == 0:
+                    torch.cuda.synchronize()
+                    stamps.append(time.perf_counter())
+            out = trainers[kind](params, seeds, tokens, d, me, lr=lr,
+                                 on_step=on_step, **kw)
+            return out, stamps
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = launch(body, mesh, timeout=600)
+        got = launch_counts()
+        per_rank = [o[0] for o in outs]
+        full = (unshard_params([p for p, _ in per_rank]) if kind == "fsdp"
+                else per_rank[0][0])
+        states = [s for _, s in per_rank]
+        return full, states, outs[0][1], t0, got
+
+    launches = {}
+    for label, (kind, name, mixed) in runs.items():
+        full, states, stamps, t0, got = run(label, seeds, LR)
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        med = statistics.median(steps[1:])
+        state_dtypes = sorted({str(t.dtype) for s in states
+                               for t in optim.tree_tensors(s)})
+        print("bf16-opt-run " + json.dumps(dict(
+            run=f"{label}-bf16-loopback", ranks=RING_N, mode="loopback",
+            optimizer=rule(name, kind).name, mixed=mixed,
+            steps_per_rank=len(steps), tokens_per_rank_step=tokens,
+            median_step_ms=1e3 * med, first_step_ms=1e3 * steps[0],
+            tokens_per_s=RING_N * tokens / med,
+            model_tflops_per_s=flops / med / 1e12,
+            out_dtype=str(full.w1.dtype), state_dtypes=state_dtypes,
+            kernel_launches=got, card=card)), flush=True)
+        check(got == want(kind, mixed), f"{label} bf16: launches {got}, "
+              f"expected {want(kind, mixed)}")
+        check(full.w1.dtype == torch.bfloat16
+              and all(bool(torch.isfinite(t).all()) for t in full),
+              f"{label}: params not bf16 or not finite")
+        check(set(state_dtypes) <= {"torch.bfloat16", "torch.int32"},
+              f"{label}: optimizer state in {state_dtypes}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        del full, states
+
+    # one step a rank of each rule at its check LR, against the rule in
+    # float64 on float64 gradients of the same bf16 params (summed over
+    # the RING_N seeds), over the same rule on the single-device bf16
+    # gradients (summed in bf16)
+    p64 = FFNStackParams(*(t.double() for t in params))
+    g64 = g16 = None
+    for seed in seeds[:RING_N]:
+        x, dl = batch_from_seed(seed, tokens, d, dtype=torch.bfloat16,
+                                device="cuda")
+        g = stack_grads(p64.w1, p64.w2, x.double(), dl.double(),
+                        block=ffn_block)[1]
+        g64 = g if g64 is None else tuple(a + b for a, b in zip(g64, g))
+        g = stack_grads(params.w1, params.w2, x, dl, block=ffn_block)[1]
+        g16 = g if g16 is None else tuple(a + b for a, b in zip(g16, g))
+    row = dict(mode="loopback", update_ratio_limit=UPDATE_RATIO,
+               check_lr=BF16_OPT_CHECK_LR)
+    ratios, unchanged = {}, {}
+    for name in ("adamw", "momentum"):
+        lr = BF16_OPT_CHECK_LR[name]
+        r64 = rule(name, "ddp")
+        want64 = r64.update(FFNStackParams(*g64), r64.init(p64), p64,
+                            lr)[0]
+        base = r64.update(FFNStackParams(*g16), r64.init(params), params,
+                          lr)[0]
+        base_errs = [update_err(torch, g, w, p0)
+                     for g, w, p0 in zip(base, want64, params)]
+        row[f"{name}_single_bf16_update_err_vs_f64"] = base_errs
+        unchanged[name] = min(1.0 / b for b in base_errs)
+        del base
+        for kind in ("ddp", "fsdp", "zero1"):
+            got = run(f"{kind}-{name}", seeds[:RING_N], lr)[0]
+            e = [update_err(torch, g, w, p0)
+                 for g, w, p0 in zip(got, want64, params)]
+            row[f"{kind}-{name}_update_err_vs_f64"] = e
+            ratios[f"{kind}-{name}"] = max(a / b for a, b in zip(e,
+                                                                 base_errs))
+            del got
+        del want64
+    del g64, g16, p64
+    row.update(update_err_ratio_max=ratios, unchanged_ratio_min=unchanged,
+               phase_s=time.perf_counter() - t_phase, card=card)
+    print("bf16-opt-check " + json.dumps(row), flush=True)
+    for label, ratio in ratios.items():
+        check(ratio <= UPDATE_RATIO, f"{label} bf16: its update {ratio:.2f}x "
+              "as far from float64 as the single-device bf16 rule's")
+    for name, u in unchanged.items():
+        check(u > UPDATE_RATIO, f"{name}: the bf16 update check cannot tell "
+              "unchanged weights from trained")
+    return launches
+
+
+def guard_lm_rank(mesh, payload):
+    """One rank of the guard phase's LM run: ``train_lm_tp`` at ``LM``'s
+    shape, guarded or not, rank 0's steps stamped; returns its shards on
+    the CPU, the stamps and the guard's state as the host reads it."""
+    import torch
+
+    from distributed_llm_code_samples_tpu_torch.optim import leaves
+    from distributed_llm_code_samples_tpu_torch.parallel import train_lm_tp
+    from distributed_llm_code_samples_tpu_torch.runtime.guardrails import (
+        summarize)
+    params, seeds, kw = payload
+    stamps = []
+
+    def on_step(_):
+        if mesh.rank == 0:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_lm_tp(params, seeds, LM_TOKENS, LM["d_model"], mesh,
+                      seq_len=LM["seq_len"], n_heads=LM["n_heads"],
+                      attn_impl="flash", head_impl="fused", on_step=on_step,
+                      **kw)
+    guard = None
+    if kw.get("return_guard"):
+        out, g = out
+        guard = summarize(g)
+    return dict(shards=[t.cpu() for t in leaves(out)], t0=t0, stamps=stamps,
+                guard=guard)
+
+
+def guard_phase(torch, np, card):
+    """The skip-step guardrail on the card (``runtime/guardrails.py``):
+
+    - ``train_single`` through the FFN kernels at ``TRAIN``'s width, 8
+      steps with a NaN-poisoned seed at ``GUARD_POISON_STEP``: one skip,
+      and the params bit for bit those of the 7-step run without that
+      seed; a clean guarded run bit for bit the unguarded one;
+    - DDP and FSDP under ``mixed`` on ``RING_N`` loopback ranks over the
+      ring kernels, scale ``GUARD_SCALE``, an Inf-poisoned seed at step 0
+      (an overflow): one skip, one overflow, the scale halved, and the
+      params bit for bit the one-step run at the halved scale;
+    - ``train_lm_tp`` at ``LM``'s width through the flash and fused-head
+      kernels on ``RING_N`` loopback ranks, ``GUARD_LM_STEPS`` steps:
+      clean, bit for bit the unguarded run.
+
+    Each run's step time beside the unguarded one (``guard-run``), with
+    exact kernel launches. Returns the launches of the guarded runs."""
+    from distributed_llm_code_samples_tpu_torch import LR
+    from distributed_llm_code_samples_tpu_torch.data import (
+        POISON_INF_BIT, POISON_NAN_BIT, make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models import init_lm
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        DATA_AXIS, MODEL_AXIS, launch, make_mesh, train_ddp, train_fsdp,
+        train_single, unshard_params)
+    from distributed_llm_code_samples_tpu_torch.runtime.guardrails import (
+        GuardrailConfig, summarize)
+    t_phase = time.perf_counter()
+    d, n_layers, tokens = TRAIN["d_model"], TRAIN["n_layers"], TRAIN["tokens"]
+    steps_n = TRAIN["steps"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TRAIN["random_seed"])
+    params = init_ffn_stack(gen, d, n_layers)
+    seeds = make_seed_schedule(steps_n, TRAIN["random_seed"])
+    bad = np.array(seeds)
+    bad[GUARD_POISON_STEP] |= POISON_NAN_BIT
+    launches = {}
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def timed(fn):
+        stamps = []
+
+        def on_step(_):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(on_step)
+        got = launch_counts()
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        return out, statistics.median(steps[1:] or steps), got
+
+    def single(s, **kw):
+        return timed(lambda on_step: train_single(
+            params, s, tokens, d, lr=LR, use_pallas=True, on_step=on_step,
+            **kw))
+
+    plain, plain_ms, plain_l = single(seeds)
+    (clean, gc), clean_ms, _ = single(seeds, guard=GuardrailConfig(),
+                                      return_guard=True)
+    (out, g), guard_ms, got = single(bad, guard=GuardrailConfig(),
+                                     return_guard=True)
+    ref = single(np.delete(seeds, GUARD_POISON_STEP))[0]
+    want = {name: n_layers * steps_n for name, _, _ in FFN_KERNELS}
+    row = dict(run="single-pallas", steps=steps_n,
+               poisoned_step=GUARD_POISON_STEP, guard=summarize(g),
+               clean_guard=summarize(gc),
+               equal_to_run_without_the_seed=equal(out, ref),
+               clean_equal_to_unguarded=equal(clean, plain),
+               median_step_ms=1e3 * guard_ms,
+               clean_guarded_median_step_ms=1e3 * clean_ms,
+               unguarded_median_step_ms=1e3 * plain_ms,
+               kernel_launches=got, card=card)
+    print("guard-run " + json.dumps(row), flush=True)
+    check(row["guard"]["skipped"] == 1 and row["clean_guard"]["skipped"] == 0,
+          f"guarded train_single: {row['guard']} {row['clean_guard']}")
+    check(row["equal_to_run_without_the_seed"]
+          and row["clean_equal_to_unguarded"],
+          "guarded train_single differs from the run without the skipped "
+          "seed, or the clean guarded run from the unguarded one")
+    check(got == want == plain_l, f"guarded train_single launched {got}, "
+          f"expected {want}")
+    launches["single"] = got
+    del plain, clean, out, ref
+
+    # DDP and FSDP under mixed on the ring kernels, an overflow at step 0
+    mesh = make_mesh({DATA_AXIS: RING_N}, loopback=True)
+    dp_seeds = make_seed_schedule(RING_N * 2, TRAIN["random_seed"])
+    over = np.array(dp_seeds)
+    over[2] |= POISON_INF_BIT          # rank 2's first step overflows
+
+    def dp(trainer, s, cfg):
+        def body(me, _):
+            stamps = []
+
+            def on_step(_):
+                if me.rank == 0:
+                    torch.cuda.synchronize()
+                    stamps.append(time.perf_counter())
+            kw = ({} if cfg is None else
+                  dict(guard=cfg, return_guard=True))
+            out = trainer(params, s, tokens, d, me, lr=LR, mixed=True,
+                          comm="pallas_ring", on_step=on_step, **kw)
+            return out, stamps
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = launch(body, mesh, timeout=600)
+        got = launch_counts()
+        stamps = outs[0][1]
+        steps = [b - a for a, b in zip([t0] + stamps, stamps)]
+        per_rank = [o[0] for o in outs]
+        g = None
+        if cfg is not None:
+            g = summarize(per_rank[0][1])
+            per_rank = [p for p, _ in per_rank]
+        full = (unshard_params(per_rank) if trainer is train_fsdp
+                else per_rank[0])
+        return full, g, steps, got
+
+    for name, trainer in (("ddp", train_ddp), ("fsdp", train_fsdp)):
+        plain, _, plain_steps, _ = dp(trainer, dp_seeds, None)
+        out, g, steps, got = dp(trainer, over,
+                                GuardrailConfig(loss_scale=GUARD_SCALE))
+        ref, gr, _, _ = dp(trainer, dp_seeds[RING_N:],
+                           GuardrailConfig(loss_scale=GUARD_SCALE / 2))
+        row = dict(run=f"{name}-mixed-loopback", ranks=RING_N,
+                   steps_per_rank=len(steps), overflow_step=0,
+                   initial_loss_scale=GUARD_SCALE, guard=g,
+                   equal_to_run_without_the_step=equal(out, ref),
+                   step_ms=[1e3 * s for s in steps],
+                   unguarded_step_ms=[1e3 * s for s in plain_steps],
+                   kernel_launches=got, card=card)
+        print("guard-run " + json.dumps(row), flush=True)
+        check(g == {"skipped": 1, "overflows": 1,
+                    "loss_scale": GUARD_SCALE / 2, "good_steps": 1},
+              f"guarded {name} mixed: {g}")
+        check(row["equal_to_run_without_the_step"],
+              f"guarded {name}: params differ from the run without the "
+              "overflowed step")
+        check(got.get("ring_all_reduce" if name == "ddp"
+                      else "ring_reduce_scatter", 0) == 4 * n_layers,
+              f"guarded {name} launched {got}")
+        launches[name] = got
+        del plain, out, ref
+
+    # train_lm_tp guarded through the flash and fused-head kernels: clean
+    lm_mesh = make_mesh({MODEL_AXIS: RING_N}, loopback=True)
+    gen.manual_seed(LM["random_seed"])
+    lm = init_lm(gen, LM["vocab"], LM["d_model"], LM["n_layers"],
+                 LM["seq_len"], n_heads=LM["n_heads"])
+    lm_seeds = make_seed_schedule(GUARD_LM_STEPS, LM["random_seed"])
+    res = {}
+    for label, kw in (("plain", {}), ("guarded", dict(
+            guard=GuardrailConfig(), return_guard=True))):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        outs = launch(guard_lm_rank, lm_mesh, (lm, lm_seeds, kw),
+                      timeout=600)
+        steps = [b - a for a, b in zip([outs[0]["t0"]] + outs[0]["stamps"],
+                                       outs[0]["stamps"])]
+        res[label] = (outs, steps, launch_counts())
+    (po, psteps, _), (go, gsteps, glaunch) = res["plain"], res["guarded"]
+    same = all(torch.equal(a, b) for p, q in zip(po, go)
+               for a, b in zip(p["shards"], q["shards"]))
+    per_rank = {k: v / RING_N for k, v in glaunch.items()}
+    row = dict(run="lm-tp-flash-fused-loopback", ranks=RING_N,
+               steps=GUARD_LM_STEPS, guard=go[0]["guard"],
+               equal_to_unguarded=same, step_ms=[1e3 * s for s in gsteps],
+               unguarded_step_ms=[1e3 * s for s in psteps],
+               kernel_launches_per_rank=per_rank, card=card)
+    print("guard-run " + json.dumps(row), flush=True)
+    check(all(o["guard"]["skipped"] == 0 for o in go) and same,
+          f"guarded LM TP: {row['guard']}, equal to unguarded: {same}")
+    check(per_rank.get("flash_attn_fwd", 0) == LM["n_layers"] * GUARD_LM_STEPS
+          and per_rank.get("head_xent_bwd", 0) == GUARD_LM_STEPS,
+          f"guarded LM TP launched {per_rank}")
+    launches["lm-tp"] = glaunch
+    print("guard-phase " + json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, card=card)), flush=True)
+    return launches
+
+
+def path_launches(kernels, key, runs) -> None:
+    """Each kernels-line row's launches on a later slice's path, summed
+    over its runs (``runs``: ``{run: launch counts}``, None where the path
+    did not run), under ``key``."""
+    if runs is None:
+        return
+    for row in kernels:
+        base, _, tag = row["name"].partition("[")
+        names = ([f"flash_attn_{p}" + (f"[{tag}" if tag else "")
+                  for p in ("dkv", "dq")] if base == "flash_attn_bwd"
+                 else [row["name"]])     # the backward counts both kernels
+        row[key] = sum(r.get(n, 0) for r in runs.values() for n in names)
+
+
 def dtype_bf16_rows(cases, launches, mode="loopback"):
     """The bf16 forms of the FFN kernels and of the ring sums in the
     kernels line: launches from the main path's runs (``launches``), the
@@ -6939,6 +7379,10 @@ CLI_OPT = (
 # -m 0 on bf16 params over the ring kernels at the same shape on every
 # card (--phase dist, dist-bf16)
 CLI_M0_BF16 = CLI_M0 + ("--dtype", "bfloat16")
+# DDP on bf16 params under AdamW over the ring kernels through the CLI at
+# the same shape on every card (--phase dist, dist-bf16)
+CLI_ADAMW_BF16 = ("-m", "2", "--dtype", "bfloat16", "--optimizer", "adamw",
+                  "--comm", "pallas_ring") + CLI_M0[2:14]
 
 
 # the LM's and the transformer's TP through the CLI at LM's shape on every
@@ -7078,6 +7522,7 @@ def dist_phase(torch, part: str = "all"):
                                                  device="cuda"),
                        {"card": cards}, timeout=600)[0]
         cli_m0_phase(cards, CLI_M0_BF16, "dist-cli-m0-bf16")
+        cli_m0_phase(cards, CLI_ADAMW_BF16, "dist-cli-m2-adamw-bf16")
         bf16_rows = dtype_bf16_rows(cases, None, mode="4 cards")
         for row in bf16_rows:
             row["cards"] = cards
@@ -7092,6 +7537,7 @@ def main(argv=None) -> int:
                              "ring",
                              "ep",
                              "tp", "opt", "lmtp", "lmdp", "bf16", "seq",
+                             "guard",
                              "dist", "dist-tp", "dist-lmdp", "dist-bf16",
                              "dist-seq"],
                     default="all")
@@ -7174,7 +7620,7 @@ def main(argv=None) -> int:
     launches = ffn_launches = lm_launches = ring_launches = None
     ep_launches = bf16_launches = lmtp_launches = lmdp_launches = None
     dtype_launches = lm_bf16_launches = seq_launches = seq_a2a = None
-    serve_launches = None
+    serve_launches = bf16_opt_launches = guard_launches = None
     if not bad and args.phase in ("all", "serve", "spec"):
         params, prompts = served_model(torch, np)
         serve_launches = {}
@@ -7206,6 +7652,7 @@ def main(argv=None) -> int:
                              **opt_lm_phase(torch, np, card))
     if not bad and args.phase in bf16_phases:
         dtype_launches = dtype_bf16_train_phase(torch, np, card)
+        bf16_opt_launches = {"opt": dtype_bf16_opt_phase(torch, np, card)}
         lm_bf16_launches = lm_bf16_train_phase(torch, np, card)
     if not bad and args.phase in ("all", "lmtp"):
         lmtp_launches = lmtp_phase(torch, np, card)
@@ -7214,6 +7661,8 @@ def main(argv=None) -> int:
     if not bad and args.phase in ("all", "seq"):
         seq_a2a = seq_a2a_phase(torch, card)
         seq_launches = seq_phase(torch, np, card)
+    if not bad and args.phase in ("all", "guard"):
+        guard_launches = guard_phase(torch, np, card)
     if args.phase in serve_phases:
         main_case = next(c for c in cases if c["shape"] == "serving"
                          and c["kv_dtype"] == "f32")
@@ -7256,6 +7705,8 @@ def main(argv=None) -> int:
     if args.phase in bf16_phases:
         kernels += dtype_bf16_rows(dtype_cases, dtype_launches)
         kernels += lm_bf16_rows(lm_bf16_cases, lm_bf16_launches)
+    path_launches(kernels, "bf16_opt_launches", bf16_opt_launches)
+    path_launches(kernels, "guard_launches", guard_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     if bad:
         print(f"error: kernel disagrees with its plain version: {bad}",

@@ -55,15 +55,24 @@ JAX CLI's: ``--seq_impl`` (ring or ulysses), ``--attn`` (oracle or
 flash), ``--head``, ``--heads`` and ``--vocab``; full MHA only.
 
 ``--dtype bfloat16`` stores the params in bf16, as the JAX CLI's does,
-for every ported method under SGD: the FFN stack's (methods 1-5 and 0),
-the MoE stack's (7), the transformer's (8) and the LM's (11, 13). Every
-block, gradient, sum and update is then bf16 (the kernels' f32 sums
-rounded once where the Pallas kernels round them, the ring kernels'
-sums rounded every add); the fused head (``-m 11 --head fused``) keeps
-its statistics in f32 and returns bf16 gradients, so it trains where
-the JAX CLI's asserts (its wrapper promotes them to f32). The optimizer
-flags (``--optimizer`` other than sgd, ``--zero1``, ``--clip_norm``,
-``--mixed``) refuse it for now (exit 2, ROADMAP.md Queue 1).
+for every ported method: the FFN stack's (methods 1-5 and 0), the MoE
+stack's (7), the transformer's (8) and the LM's (11, 13). Every block,
+gradient, sum and update is then bf16 (the kernels' f32 sums rounded
+once where the Pallas kernels round them, the ring kernels' sums rounded
+every add); the fused head (``-m 11 --head fused``) keeps its statistics
+in f32 and returns bf16 gradients, so it trains where the JAX CLI's
+asserts (its wrapper promotes them to f32). The optimizers' state is
+bf16 too, and their rules compute in JAX's types (``optim.py``); Adam's
+f32 step is rounded to bf16 once a step, where JAX's scan fails.
+``--mixed`` with bf16 params exits 2 on method 1 (and so 0), where
+JAX's step crashes (ROADMAP.md Queue 3).
+
+``--guardrails`` arms the skip-step guardrail of methods 1, 2, 3 and 11
+(also inside 0): a step whose update is not finite is skipped on every
+rank, and the payload's ``guard`` holds the skipped and overflowed
+counts and the final loss scale. Under ``--mixed``, methods 2 and 3 also
+scale the loss dynamically from ``--loss_scale`` (default 2^15). Not
+with ``--zero1``, as in the JAX CLI.
 
 The training options follow the JAX CLI's rules: ``--optimizer``
 (``optim.OPTIMIZERS``) and ``--clip_norm`` apply to methods 2 and 3
@@ -143,13 +152,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "versions on the CPU)")
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32",
-                   help="the param storage of every method (SGD only): "
-                        "bf16 params, blocks, gradients and sums with "
+                   help="the param storage of every method: bf16 params, "
+                        "blocks, gradients, sums and optimizer state with "
                         "--dtype bfloat16 (distinct from --mixed)")
     p.add_argument("--mixed", action="store_true",
                    help="with --method 1-5 (also inside 0, with --zero1 and "
                         "--tp_sp): bf16 matmul operands, f32 params/grads/"
-                        "sums; FSDP gathers its shards in bf16")
+                        "sums; FSDP gathers its shards in bf16. Accepted "
+                        "and not passed on for --method 8 and 11, as in the "
+                        "JAX CLI")
     p.add_argument("--accum", type=int, default=1,
                    help="with --method 1 or 2 (also --zero1): gradient-"
                         "accumulation chunks per step (SUM semantics)")
@@ -162,6 +173,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--zero1", action="store_true",
                    help="with --method 2: ZeRO-1, the optimizer state "
                         "sharded over the ranks (train_ddp_zero1)")
+    p.add_argument("--guardrails", action="store_true",
+                   help="arm the skip-step anomaly guardrail in the "
+                        "training step (runtime/guardrails.py, methods "
+                        "1/2/3/11): a non-finite update is skipped on the "
+                        "device — params and optimizer state untouched, "
+                        "no restart — and the skip counters come back in "
+                        "the payload's `guard`. With --mixed (methods 2/3) "
+                        "adds dynamic loss scaling")
+    p.add_argument("--loss_scale", type=float, default=0.0,
+                   help="with --guardrails --mixed (methods 2/3): "
+                        "initial dynamic loss scale (0 = auto 2^15; "
+                        "grows 2x per 200 clean steps, halves on "
+                        "overflow)")
     p.add_argument("--lr", type=float, default=None,
                    help="learning rate (default: the reference's 1e-5)")
     p.add_argument("--scan", action="store_true",
@@ -237,8 +261,9 @@ def _flag_error(args) -> str | None:
     if args.mixed and args.pallas:
         return ("--mixed cannot combine with --pallas: the fused kernel "
                 "block has its own residual and precision policy")
-    if args.mixed and m not in (0, 1, 2, 3, 4, 5):
-        return "--mixed applies to --method 1-5 (also inside 0)"
+    if args.mixed and m not in (0, 1, 2, 3, 4, 5, 8, 11):
+        return ("--mixed applies to --method 1-5 (also inside 0; 8 and 11 "
+                "accept it and do not use it, as the JAX CLI)")
     if args.accum != 1 and m not in (1, 2):
         return "--accum applies to --method 1 or 2 only"
     if args.optimizer != "sgd" and m not in (2, 3):
@@ -286,24 +311,46 @@ def _flag_error(args) -> str | None:
                 "(which verifies them)")
     if args.strict and m != 0:
         return "--strict applies to --method 0 only (its checks)"
-    if args.dtype == "bfloat16":
-        return _bf16_error(args)
+    if args.dtype == "bfloat16" and args.mixed and m in (0, 1):
+        return ("--mixed with --dtype bfloat16 on --method 1 (also inside "
+                "0): the JAX reference's single-device mixed step crashes on "
+                "bf16 params (a VJP that expects f32 cotangents gets bf16, "
+                "ROADMAP.md Queue 3), so there is no step to hold the port "
+                "to; drop one of the flags")
+    return _guard_error(args)
+
+
+def _guard_error(args) -> str | None:
+    """``--guardrails`` and ``--loss_scale``, with the JAX CLI's rules and
+    messages (its ``cli.py:325-350``)."""
+    if args.guardrails and args.method not in (0, 1, 2, 3, 9, 11):
+        return ("--guardrails applies to --method 1, 2, 3, or 11 (or the "
+                "0/9 sweeps, which guard those strategies)")
+    if args.guardrails and args.zero1:
+        return ("--guardrails does not support --zero1: train_ddp_zero1 has "
+                "no guard surface (its re-assembled params are typed "
+                "shard-varying)")
+    if args.loss_scale < 0:
+        return f"--loss_scale must be >= 0 (got {args.loss_scale})"
+    if args.loss_scale > 0 and not (args.guardrails and args.mixed
+                                    and args.method in (0, 2, 3, 9)):
+        return ("--loss_scale applies with --guardrails --mixed on --method "
+                "2 or 3 (or the 0/9 sweeps; dynamic scaling protects the "
+                "bf16 backward)")
     return None
 
 
-def _bf16_error(args) -> str | None:
-    """What ``--dtype bfloat16`` does not take yet: the optimizer options,
-    whose bf16 forms are the next slice's work."""
-    queued = ("is ported under SGD only so far (every method); the "
-              "optimizers, ZeRO-1, clipping and --mixed on bf16 params are "
-              "queued in ROADMAP.md Queue 1")
-    for flag, on in (("--optimizer " + args.optimizer,
-                      args.optimizer != "sgd"), ("--zero1", args.zero1),
-                     ("--clip_norm", bool(args.clip_norm)),
-                     ("--mixed", args.mixed)):
-        if on:
-            return f"--dtype bfloat16 with {flag}: bf16 storage " + queued
-    return None
+def _guard(args, m: int):
+    """The guard config of method ``m`` (JAX ``cli.py:733-741``), or None:
+    methods 1, 2, 3 and 11 under ``--guardrails``; under ``--mixed``
+    methods 2 and 3 scale the loss, from ``--loss_scale`` or 2^15."""
+    if not args.guardrails or m not in (1, 2, 3, 11):
+        return None
+    from .runtime.guardrails import GuardrailConfig
+    scale0 = 0.0
+    if args.mixed and m in (2, 3):
+        scale0 = args.loss_scale if args.loss_scale > 0 else 2.0 ** 15
+    return GuardrailConfig(loss_scale=scale0)
 
 
 def _meshes(args, tokens: int, seeds, device) -> dict:
@@ -441,14 +488,22 @@ def _rank_run(mesh, payload):
              13: train_lm_seq}[method]
     if kwargs.pop("zero1", False):
         train = train_ddp_zero1
+    guarded = kwargs.get("guard") is not None
+    if guarded:
+        kwargs["return_guard"] = True
     sync()
     reset_launch_counts()
     t0 = time.perf_counter()
     out = train(params, seeds, tokens, d, mesh, lr, **kwargs)
     wall = time.perf_counter() - t0
+    guard = None
+    if guarded:
+        from .runtime.guardrails import summarize
+        out, g = out
+        guard = summarize(g)
     keep = method not in (2, 13) or mesh.rank == 0   # replicas: rank 0's
     return dict(steps=[b - a for a, b in zip([t0] + stamps, stamps)],
-                wall=wall, launches=launch_counts(),
+                wall=wall, launches=launch_counts(), guard=guard,
                 params=[t.cpu() for t in leaves(out)] if keep else None,
                 device=(torch.cuda.get_device_name(mesh.torch_device)
                         if cuda else "cpu"))
@@ -581,7 +636,8 @@ def main(argv=None) -> int:
                       lr=lr, dtype=args.dtype, build_s=build_s)
         if m == 1:
             out, payload = _run_single(args, params, seeds, tokens, device,
-                                       single_kwargs)
+                                       dict(single_kwargs,
+                                            guard=_guard(args, 1)))
         else:
             out, payload = _run_ranks(args, m, meshes[m], params, seeds,
                                       tokens, lr, comm)
@@ -617,12 +673,18 @@ def _run_single(args, params, seeds, tokens: int, device, kwargs):
         stamps.append(time.perf_counter())
 
     params = type(params)(*(t.to(device) for t in params))
+    guarded = kwargs["guard"] is not None
     sync()
     reset_launch_counts()
     t0 = time.perf_counter()
     out = train_single(params, seeds, tokens, args.model_size,
-                       on_step=on_step, **kwargs)
+                       on_step=on_step, return_guard=guarded, **kwargs)
     wall = time.perf_counter() - t0
+    guard = None
+    if guarded:
+        from .runtime.guardrails import summarize
+        out, g = out
+        guard = summarize(g)
     print(f"\ntrain_single takes {wall} seconds")
     steps = [b - a for a, b in zip([t0] + stamps, stamps)]
     step_s = _median_step(steps)
@@ -639,6 +701,7 @@ def _run_single(args, params, seeds, tokens: int, device, kwargs):
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "kernel_launches": launch_counts(),
+        "guard": guard,
     }
 
 
@@ -699,9 +762,10 @@ def _run_ranks(args, m: int, mesh, params, seeds, tokens: int, lr: float,
         "device": outs[0]["device"],
         "kernel_launches": outs[0]["launches"],
         "kernel_launches_per_rank": [o["launches"] for o in outs],
-        "mixed": args.mixed, "accum": args.accum,
+        "mixed": options.get("mixed", False), "accum": args.accum,
         "optimizer": (getattr(options.get("optimizer"), "name", None)),
         "zero1": args.zero1,
+        "guard": outs[0]["guard"],
     }
     if m in (4, 8):
         payload["sequence_parallel"] = args.tp_sp
@@ -743,6 +807,9 @@ def _rank_options(args, m: int) -> dict:
         out["optimizer"] = opt
     if args.zero1:
         out["zero1"] = True
+    guard = _guard(args, m)
+    if guard is not None:
+        out["guard"] = guard
     if m in (8, 11, 13):
         # the trainer keywords of JAX cli.py:715-729
         out.update(seq_len=args.seq_len, n_heads=args.heads)

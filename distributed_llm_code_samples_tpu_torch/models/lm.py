@@ -179,16 +179,20 @@ def lm_loss(params: LMParams, tokens: torch.Tensor, targets: torch.Tensor,
     ``mixed`` is the LM's bf16 policy (JAX ``models/lm.py:140-160``): the
     trunk (embedding gather, blocks, final LN) runs on a bf16 cast of the
     params with a bf16 residual stream, ``h`` returns to f32, and the head
-    and the cross-entropy run in f32 on the f32 master ``wte``. The
-    embedding's share of ``wte``'s gradient comes back through the
-    cast's backward (a cast to f32) and sums with the head's."""
+    and the cross-entropy run in f32 on the f32 master ``wte`` (bf16
+    params: on ``wte`` promoted to f32). The embedding's share of
+    ``wte``'s gradient comes back through the cast's backward and sums
+    with the head's."""
     if mixed:
         trunk = lm_from_leaves(t.to(torch.bfloat16) for t in lm_leaves(params))
         h = lm_hidden(trunk, tokens, n_heads, attn)
         h = h.reshape(-1, h.shape[-1]).to(torch.float32)
+        # bf16 params: the f32 head promotes wte, as jnp promotes
+        # ``h @ wte.T``; its gradient comes back through the cast
+        wte = params.wte.to(torch.float32)
         if head is not None:
-            return head(h, params.wte, targets.reshape(-1))
-        return xent_loss(h @ params.wte.T, targets.reshape(-1))
+            return head(h, wte, targets.reshape(-1))
+        return xent_loss(h @ wte.T, targets.reshape(-1))
     if head is not None:
         h = lm_hidden(params, tokens, n_heads, attn)
         return head(h.reshape(-1, h.shape[-1]), params.wte,

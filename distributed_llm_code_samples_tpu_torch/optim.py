@@ -11,9 +11,11 @@ hands it to spawned ranks. ``params`` is one of the port's parameter
 containers (a tuple type such as ``FFNStackParams``, or ``LMParams``),
 and the state's param-shaped leaves come in the same container. The
 update math is written out by hand, leaf by leaf, in the JAX order of
-operations; ``torch.optim`` is not used. ``mesh`` is the rank's mesh
-view: ``clipped(axis=...)`` sums its squared norm over that axis, the
-counterpart of JAX's ``lax.psum`` inside ``shard_map``.
+operations and in JAX's types (a Python constant rounded to a bf16
+leaf's dtype before it multiplies, ``weak``; an f32 tensor promoting a
+bf16 leaf, ``scale_by``); ``torch.optim`` is not used. ``mesh`` is the
+rank's mesh view: ``clipped(axis=...)`` sums its squared norm over that
+axis, the counterpart of JAX's ``lax.psum`` inside ``shard_map``.
 """
 
 from __future__ import annotations
@@ -76,19 +78,61 @@ def tree_tensors(tree) -> list[torch.Tensor]:
 
 # -- SGD ----------------------------------------------------------------------
 
+def weak(c: float, like: torch.Tensor) -> float:
+    """The Python constant ``c`` as JAX's weak typing takes it against a
+    leaf of ``like``'s dtype: rounded to that dtype before it multiplies
+    (0.9 is 0.8984375 in bf16). Torch would multiply a bf16 leaf by the
+    constant at f32 width and round once; against an f32 leaf the two
+    agree."""
+    return float(torch.tensor(c, dtype=like.dtype))
+
+
+def scale_by(c, t: torch.Tensor) -> torch.Tensor:
+    """``c * t`` in JAX's types: a Python constant ``c`` takes ``t``'s dtype
+    first (``weak``); a tensor ``c`` (a scheduled f32 LR, Adam's bias
+    correction) is strongly typed, so a bf16 ``t`` is promoted to f32, as
+    ``jnp`` promotes and as torch does not for a 0-d tensor."""
+    if not isinstance(c, torch.Tensor):
+        return t * weak(c, t)
+    a, b = promoted(t, c)
+    return a * b
+
+
+def promoted(a: torch.Tensor, b: torch.Tensor):
+    """``a`` and ``b`` in the dtype a JAX binary op of the two computes in
+    (bf16 with f32 is f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def rounded_like(new, old):
+    """Each leaf of ``new`` in the dtype of its leaf in ``old``, rounded to
+    nearest even: where JAX's rule promotes a bf16 param to f32 (Adam's
+    step, a scheduled LR), the port rounds the result once, at the end of
+    the step (JAX's own scan cannot carry the f32 result; ROADMAP Queue
+    3)."""
+    return tree_map(lambda n, o: n if n.dtype == o.dtype else n.to(o.dtype),
+                    new, old)
+
+
 @torch.no_grad()
 def sgd(params, grads, lr: float = LR):
     """``p - lr * g`` for every tensor of ``params`` (a tuple type such as
     ``FFNStackParams``, or a list of tensors), the JAX ``sgd``'s
-    arithmetic: ``lr`` is a weak-typed scalar there, so it takes the
-    param dtype first (0.1 is 0.10009765625 in bf16), then ``lr * g`` is
-    rounded to the param dtype and subtracted.
+    arithmetic: a float ``lr`` is weak-typed there, so it takes the param
+    dtype first (0.1 is 0.10009765625 in bf16), then ``lr * g`` is rounded
+    to the param dtype and subtracted. A tensor ``lr`` (a schedule's f32)
+    promotes a bf16 step to f32, rounded to the param dtype once.
 
     It updates ``params`` in place and returns it, which saves one copy
     of the parameters; callers that need the old values clone first, as
     ``train_single`` does."""
     for p, g in zip(leaves(params), leaves(grads)):
-        p.sub_(g.to(p.dtype) * float(torch.tensor(lr, dtype=p.dtype)))
+        step = scale_by(lr, g.to(p.dtype))
+        if step.dtype == p.dtype:
+            p.sub_(step)
+        else:
+            p.copy_(p.to(step.dtype) - step)
     return params
 
 
@@ -136,7 +180,10 @@ def sgd_optimizer() -> Optimizer:
 
 @dataclass(frozen=True)
 class Momentum(Optimizer):
-    """Heavy-ball momentum: ``v = beta*v + g``, ``p = p - lr*v``."""
+    """Heavy-ball momentum: ``v = beta*v + g``, ``p = p - lr*v``, with
+    ``beta`` and a float ``lr`` rounded to the param dtype first (JAX's
+    weak types); a tensor ``lr`` (a schedule's) promotes the step to f32,
+    rounded to the param dtype at the end."""
     beta: float = 0.9
 
     @property
@@ -148,8 +195,11 @@ class Momentum(Optimizer):
 
     @torch.no_grad()
     def update(self, grads, vel, params, lr, mesh=None):
-        vel = tree_map(lambda v, g: self.beta * v + g.to(v.dtype), vel, grads)
-        return tree_map(lambda p, v: p - lr * v, params, vel), vel
+        vel = tree_map(lambda v, g: scale_by(self.beta, v) + g.to(v.dtype),
+                       vel, grads)
+        new = tree_map(lambda p, v: torch.sub(*promoted(p, scale_by(lr, v))),
+                       params, vel)
+        return rounded_like(new, params), vel
 
 
 def momentum(beta: float = 0.9) -> Optimizer:
@@ -166,7 +216,15 @@ class AdamState(NamedTuple):
 class Adam(Optimizer):
     """Adam with bias correction, written out: ``mu = b1*mu + (1-b1)*g``;
     ``nu = b2*nu + (1-b2)*g^2``; ``p -= lr * (mu/(1-b1^t)) /
-    (sqrt(nu/(1-b2^t)) + eps)``, ``t`` the int32 count as float32."""
+    (sqrt(nu/(1-b2^t)) + eps)``, ``t`` the int32 count as float32.
+
+    On bf16 params it computes in JAX's types: the moments stay in the
+    param dtype (JAX's ``zeros_like`` state) with ``b1``, ``1 - b1``,
+    ``b2`` and ``1 - b2`` rounded to bf16 first; the f32 bias corrections
+    promote ``mu / c1`` and everything after it to f32, as ``jnp`` does.
+    JAX's rule then returns f32 params, which its scan cannot carry
+    (ROADMAP Queue 3); the port rounds each new param to the param dtype
+    once, at the end of the step (round to nearest even)."""
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
@@ -189,14 +247,21 @@ class Adam(Optimizer):
         t = count.to(torch.float32)
         c1 = 1.0 - torch.pow(b1, t)
         c2 = 1.0 - torch.pow(b2, t)
-        mu = tree_map(lambda m, g: b1 * m + (1.0 - b1) * g.to(m.dtype),
-                      state.mu, grads)
-        nu = tree_map(lambda n, g: b2 * n + (1.0 - b2) * torch.square(
-            g.to(n.dtype)), state.nu, grads)
-        params = tree_map(
-            lambda p, m, n: p - lr * (m / c1) / (torch.sqrt(n / c2) + eps),
-            params, mu, nu)
-        return params, AdamState(mu=mu, nu=nu, count=count)
+        mu = tree_map(lambda m, g: scale_by(b1, m) + scale_by(
+            1.0 - b1, g.to(m.dtype)), state.mu, grads)
+        nu = tree_map(lambda n, g: scale_by(b2, n) + scale_by(
+            1.0 - b2, torch.square(g.to(n.dtype))), state.nu, grads)
+
+        def step(p, m, n):
+            # c1 and c2 are f32 tensors: from here on JAX computes in f32
+            m, c = promoted(m, c1)
+            n, c_ = promoted(n, c2)
+            u = scale_by(lr, m / c) / (torch.sqrt(n / c_) + eps)
+            return torch.sub(*promoted(p, u))
+
+        new = tree_map(step, params, mu, nu)
+        return rounded_like(new, params), AdamState(mu=mu, nu=nu,
+                                                    count=count)
 
 
 def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
@@ -243,9 +308,11 @@ class AdamW(Optimizer):
     def update(self, grads, state, params, lr, mesh=None):
         factor = 1.0 - lr * self.weight_decay
         mask = iter(self.decays(params))
-        params = tree_map(lambda p: p * factor if next(mask) else p, params)
-        return Adam(self.b1, self.b2, self.eps).update(grads, state, params,
-                                                       lr)
+        decayed = tree_map(lambda p: scale_by(factor, p) if next(mask)
+                           else p, params)
+        new, state = Adam(self.b1, self.b2, self.eps).update(
+            grads, state, decayed, lr)
+        return rounded_like(new, params), state
 
 
 def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -291,19 +358,27 @@ class Clipped(Optimizer):
 
     @torch.no_grad()
     def update(self, grads, state, params, lr, mesh=None):
-        sq = _sum_squares(grads)
-        if self.axis is not None:
-            if mesh is None:
-                raise ValueError(f"clipped(axis={self.axis!r}) sums its norm "
-                                 "over a mesh axis: the update needs the "
-                                 "rank's mesh")
-            from .parallel.collectives import psum_scalar
-            sq = psum_scalar(sq, mesh, axis=self.axis)
-        norm = torch.sqrt(sq)
-        scale = torch.clamp(self.max_norm / torch.clamp(norm, min=1e-16),
-                            max=1.0)
-        grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
+        grads = clip_by_norm(grads, self.max_norm, mesh, self.axis)
         return self.opt.update(grads, state, params, lr, mesh=mesh)
+
+
+def clip_by_norm(grads, max_norm: float, mesh=None,
+                 axis: Optional[str] = None):
+    """Every leaf of ``grads`` times ``min(1, max_norm / ||g||)``, the
+    squared norm summed in f32 (and with ``axis`` over that axis of the
+    rank's ``mesh``, ``collectives.psum_scalar``: the gradients are
+    shards), the scale cast to each leaf's dtype: ``Clipped``'s step and
+    the guard's ``clip_by_global_norm``."""
+    sq = _sum_squares(grads)
+    if axis is not None:
+        if mesh is None:
+            raise ValueError(f"clipping over axis {axis!r} sums its norm "
+                             "over a mesh axis: it needs the rank's mesh")
+        from .parallel.collectives import psum_scalar
+        sq = psum_scalar(sq, mesh, axis=axis)
+    norm = torch.sqrt(sq)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-16), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads)
 
 
 def clipped(opt: Optimizer, max_norm: float,

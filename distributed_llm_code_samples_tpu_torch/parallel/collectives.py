@@ -59,6 +59,13 @@ def psum_scalar(x: torch.Tensor, mesh, *,
     return all_reduce(x.reshape(1), mesh, axis=axis).reshape(())
 
 
+def psum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of a 0-d tensor over every rank of the mesh (``lax.psum``
+    over all of its axes): the guard's finite flag as an int32
+    (``runtime/guardrails.py``), 0-d."""
+    return all_reduce(x.reshape(1), mesh).reshape(())
+
+
 def all_gather(x: torch.Tensor, mesh, *, dim: int = 0,
                axis: Optional[str] = None) -> torch.Tensor:
     """Concatenate the blocks of the ranks of ``axis`` along ``dim`` in

@@ -24,7 +24,9 @@ on, ``parallel/zero1.py``); ``opt_state``/``return_state`` carry it in
 and out. ``accum`` sums the gradients of that many token chunks
 unreduced and reduces the sum once, tree-wide.
 
-Not ported yet, and refused: ``guard`` and the elastic ``seed_accum``.
+``guard`` arms the skip-step guardrail with, under ``mixed``, dynamic
+loss scaling (``runtime/guardrails.py``). Not ported yet, and refused:
+the elastic ``seed_accum``.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from ..ops.ring import ring_all_reduce
 from ..ops.stack import accumulated_grads, stack_bwd, stack_fwd
 from .collectives import all_reduce, check_comm
 from .launcher import (DEFAULT_TIMEOUT_S, launch_strided, refuse_unported,
-                       run_strided, to_device)
+                       run_guarded, to_device)
 from .mesh import DATA_AXIS, Mesh, require_axes
 
 
@@ -57,14 +59,18 @@ def grads_for_batch(params: FFNStackParams, x, dy, grad_hook=None,
 
 def local_grads(params: FFNStackParams, seed, batch_size: int,
                 model_size: int, grad_hook=None, accum: int = 1,
-                mixed: bool = False,
+                mixed: bool = False, dy_scale=None,
                 batch_fn: Callable = batch_from_seed) -> FFNStackParams:
     """A rank's step gradients from its seed. With ``accum > 1`` they are
     summed over the token chunks UNREDUCED (the hook does not run): the
     caller reduces the sum once (DDP's all-reduce, ZeRO-1's
-    reduce-scatter)."""
+    reduce-scatter). ``dy_scale`` (the guard's live loss scale, a 0-d
+    tensor) multiplies the upstream gradient before the backward, in its
+    dtype (JAX ``ddp.local_grads``)."""
     x, dloss_dx = batch_fn(seed, batch_size, model_size,
                            dtype=params.w1.dtype, device=params.w1.device)
+    if dy_scale is not None:
+        dloss_dx = dloss_dx * dy_scale.to(dloss_dx.dtype)
     if accum == 1:
         return grads_for_batch(params, x, dloss_dx, grad_hook, mixed)
     return accumulated_grads(
@@ -83,8 +89,16 @@ def make_step(batch_size: int, model_size: int, lr: float = LR,
     of the chunks' sum), then the update. Without ``optimizer`` the step
     is ``(params, seed) -> params`` with SGD in place; with one it maps
     ``((params, state), seed) -> (params, state)``. ``unroll`` changes
-    nothing (one Python loop)."""
-    refuse_unported(guard=(guard, None), seed_accum=(seed_accum, 1))
+    nothing (one Python loop).
+
+    ``guard`` arms the hooks inside the step: under ``mixed`` with
+    scaling the step takes the live loss scale as a third argument and
+    multiplies the upstream gradient by it; after the reduction
+    ``finalize_grads`` unscales and clips to ``guard.clip_norm``. The
+    skip itself is ``runtime.guardrails.guarded_step``'s."""
+    from ..runtime.guardrails import finalize_grads, require_mixed_for_scaling
+    refuse_unported(seed_accum=(seed_accum, 1))
+    require_mixed_for_scaling(guard, mixed)
     require_axes(mesh, axis)
     check_comm(comm, mesh)
     if comm == "pallas_ring":
@@ -95,21 +109,25 @@ def make_step(batch_size: int, model_size: int, lr: float = LR,
     def grad_hook(dw1, dw2):      # fires per layer, train_ffns.py:164-165
         return reduce(dw1), reduce(dw2)
 
-    def grads_of(params, seed) -> FFNStackParams:
+    def grads_of(params, seed, scale=None) -> FFNStackParams:
         if accum == 1:
-            return local_grads(params, seed, batch_size, model_size,
-                               grad_hook, mixed=mixed, batch_fn=batch_fn)
-        total = local_grads(params, seed, batch_size, model_size,
-                            accum=accum, mixed=mixed, batch_fn=batch_fn)
-        return FFNStackParams(*map(reduce, total))   # one tree-wide sum
+            grads = local_grads(params, seed, batch_size, model_size,
+                                grad_hook, mixed=mixed, dy_scale=scale,
+                                batch_fn=batch_fn)
+        else:
+            total = local_grads(params, seed, batch_size, model_size,
+                                accum=accum, mixed=mixed, dy_scale=scale,
+                                batch_fn=batch_fn)
+            grads = FFNStackParams(*map(reduce, total))  # one tree-wide sum
+        return finalize_grads(grads, scale, guard)
 
-    def step(params: FFNStackParams, seed) -> FFNStackParams:
-        return sgd(params, grads_of(params, seed), lr)
+    def step(params: FFNStackParams, seed, scale=None) -> FFNStackParams:
+        return sgd(params, grads_of(params, seed, scale), lr)
 
-    def step_opt(carry, seed):
+    def step_opt(carry, seed, scale=None):
         params, state = carry
-        return optimizer.update(grads_of(params, seed), state, params, lr,
-                                mesh=mesh)
+        return optimizer.update(grads_of(params, seed, scale), state,
+                                params, lr, mesh=mesh)
 
     return step if optimizer is None else step_opt
 
@@ -135,18 +153,30 @@ def train_ddp(params: FFNStackParams, seeds, batch_size: int,
     process group that exists, it runs that rank's share and returns its
     replica (``on_step(t)`` after each of its steps). ``batch_fn`` makes
     a step's batch (default ``batch_from_seed``; it must pickle to reach
-    spawned ranks, as must ``optimizer``)."""
-    refuse_unported(guard_state=(guard_state, None),
-                    return_guard=(return_guard, False))
+    spawned ranks, as must ``optimizer``).
+
+    ``guard``/``guard_state``/``return_guard`` arm the skip-step
+    guardrail (``runtime/guardrails.py``): a step whose new params or
+    optimizer state are not finite on any rank is skipped on every rank,
+    and with ``return_guard`` the result is ``(result, GuardState)``.
+    Under ``mixed`` a scaling config scales the upstream gradient by the
+    live loss scale and unscales the summed gradients."""
+    from ..runtime.guardrails import check_guard_args
+    check_guard_args(guard, guard_state, return_guard)
+    refuse_unported(seed_accum=(seed_accum, 1))
     require_axes(mesh, DATA_AXIS)
     check_comm(comm, mesh)
     check_state_args(optimizer, opt_state, return_state)
     if not mesh.in_rank:
-        refuse_unported(guard=(guard, None), seed_accum=(seed_accum, 1))
+        make_step(batch_size, model_size, lr, optimizer=optimizer,
+                  mixed=mixed, comm=comm, guard=guard,
+                  mesh=mesh)             # the bad combinations, here
         outs = launch_strided(
             _ddp_rank, params, seeds, mesh, batch_size, model_size, lr,
             comm, batch_fn, optimizer, to_device(opt_state, "cpu"),
-            return_state, accum, mixed, timeout=timeout)
+            return_state, accum, mixed,
+            (guard, to_device(guard_state, "cpu"), return_guard),
+            timeout=timeout)
         return to_device(outs[0], params.w1.device)
     step = make_step(batch_size, model_size, lr, unroll,
                      optimizer=optimizer, accum=accum, mixed=mixed,
@@ -158,19 +188,21 @@ def train_ddp(params: FFNStackParams, seeds, batch_size: int,
         # the workspace holds the largest gradient reduced at once: a
         # layer's, or with accumulation a whole stacked leaf
         mesh.ring(4 * (local.w1 if accum > 1 else local.w1[0]).numel())
-    if optimizer is None:
-        return run_strided(step, local, seeds, mesh, on_step)
-    state = (optimizer.init(local) if opt_state is None
-             else to_device(opt_state, dev))
-    local, state = run_strided(step, (local, state), seeds, mesh, on_step)
-    return (local, state) if return_state else local
+    carry = (local if optimizer is None else
+             (local, optimizer.init(local) if opt_state is None
+              else to_device(opt_state, dev)))
+    return run_guarded(step, carry, seeds, mesh, on_step, guard,
+                       guard_state, return_guard,
+                       keep=optimizer is None or return_state)
 
 
 def _ddp_rank(mesh: Mesh, payload):
     (params, seeds, batch_size, model_size, lr, comm, batch_fn, optimizer,
-     opt_state, return_state, accum, mixed) = payload
+     opt_state, return_state, accum, mixed,
+     (guard, guard_state, return_guard)) = payload
     out = train_ddp(params, seeds, batch_size, model_size, mesh, lr,
                     optimizer=optimizer, accum=accum, opt_state=opt_state,
                     return_state=return_state, mixed=mixed, comm=comm,
-                    batch_fn=batch_fn)
+                    guard=guard, guard_state=guard_state,
+                    return_guard=return_guard, batch_fn=batch_fn)
     return to_device(out, "cpu") if mesh.rank == 0 else None

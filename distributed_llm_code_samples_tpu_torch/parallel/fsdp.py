@@ -29,7 +29,10 @@ bytes of FSDP's largest collective (under ``"pallas_ring"`` the gather
 kernel moves the bf16 bits), and runs the bf16-operand blocks; the
 master shards and the gradient reduce-scatter stay f32.
 
-Not ported yet, and refused: ``guard`` and the elastic ``seed_accum``.
+``guard`` arms the skip-step guardrail with, under ``mixed``, dynamic
+loss scaling (``runtime/guardrails.py``); its clipping sums the squared
+norm over the data axis. Not ported yet, and refused: the elastic
+``seed_accum``.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from ..ops.ring import ring_all_gather, ring_reduce_scatter
 from ..ops.stack import stack_bwd, stack_fwd
 from .collectives import all_gather, check_comm, reduce_scatter
 from .launcher import (DEFAULT_TIMEOUT_S, launch_strided, refuse_unported,
-                       run_strided, to_device)
+                       run_guarded, to_device)
 from .mesh import DATA_AXIS, Mesh, require_axes
 
 # the sharded dim of the stacked layout: dim 0 of each layer's weights
@@ -113,8 +116,15 @@ def make_step(batch_size: int, model_size: int, lr: float = LR,
     """One FSDP step for the rank of ``mesh`` (a rank's view): ``(shards,
     seed) -> shards`` with SGD in place on the shards, or with
     ``optimizer`` ``((shards, state), seed) -> (shards, state)``, the
-    state the shards'. ``unroll`` changes nothing (one Python loop)."""
-    refuse_unported(guard=(guard, None), seed_accum=(seed_accum, 1))
+    state the shards'. ``unroll`` changes nothing (one Python loop).
+
+    ``guard``: under ``mixed`` with scaling the step takes the live loss
+    scale as a third argument and multiplies the upstream gradient by it;
+    after the reduce-scatter ``finalize_grads`` unscales and clips, the
+    squared norm summed over the data axis (the update sees shards)."""
+    from ..runtime.guardrails import finalize_grads, require_mixed_for_scaling
+    refuse_unported(seed_accum=(seed_accum, 1))
+    require_mixed_for_scaling(guard, mixed)
     require_axes(mesh, axis)
     check_comm(comm, mesh)
     if comm == "pallas_ring":
@@ -141,24 +151,27 @@ def make_step(batch_size: int, model_size: int, lr: float = LR,
         # the VJP of the gather: full grads -> summed shard (:255-256)
         return scatter(dw1), scatter(dw2)
 
-    def grads_of(params: FFNStackParams, seed) -> FFNStackParams:
+    def grads_of(params: FFNStackParams, seed, scale=None):
         x, dloss_dx = batch_fn(seed, batch_size, model_size,
                                dtype=params.w1.dtype,
                                device=params.w1.device)
+        if scale is not None:
+            dloss_dx = dloss_dx * scale.to(dloss_dx.dtype)
         _, acts = stack_fwd(params.w1, params.w2, x, block_fwd=block_fwd)
         _, grads = stack_bwd(dloss_dx, params.w1, params.w2, acts,
                              block_bwd=block_bwd, grad_hook=grad_hook)
-        return FFNStackParams(*grads)
+        return finalize_grads(FFNStackParams(*grads), scale, guard, mesh,
+                              axis=axis)
 
-    def step(params: FFNStackParams, seed) -> FFNStackParams:
-        return sgd(params, grads_of(params, seed), lr)
+    def step(params: FFNStackParams, seed, scale=None) -> FFNStackParams:
+        return sgd(params, grads_of(params, seed, scale), lr)
 
-    def step_opt(carry, seed):
+    def step_opt(carry, seed, scale=None):
         # the update is elementwise on the shards: the state needs no
         # collective (a clipped norm sums over the axis itself)
         params, state = carry
-        return optimizer.update(grads_of(params, seed), state, params, lr,
-                                mesh=mesh)
+        return optimizer.update(grads_of(params, seed, scale), state,
+                                params, lr, mesh=mesh)
 
     return step if optimizer is None else step_opt
 
@@ -183,24 +196,40 @@ def train_fsdp(params: FFNStackParams, seeds, batch_size: int,
     With ``return_state`` the result is ``(params, opt_state)``: given the
     whole mesh, the full state re-assembled as the params are
     (``unshard_state``), which ``opt_state`` takes back and shards again;
-    given a rank's view, the rank's shard of it, in and out."""
-    refuse_unported(guard_state=(guard_state, None),
-                    return_guard=(return_guard, False))
+    given a rank's view, the rank's shard of it, in and out.
+
+    ``guard``/``guard_state``/``return_guard``: the skip-step guardrail,
+    as ``train_ddp``'s; the finite flag sums every rank's view of its
+    shards, so a skip leaves every shard and its optimizer state as they
+    were."""
+    from ..runtime.guardrails import check_guard_args
+    check_guard_args(guard, guard_state, return_guard)
+    refuse_unported(seed_accum=(seed_accum, 1))
     require_axes(mesh, DATA_AXIS)
     check_comm(comm, mesh)
     check_state_args(optimizer, opt_state, return_state)
     _check_divisible(params, mesh.size)
     if not mesh.in_rank:
-        refuse_unported(guard=(guard, None), seed_accum=(seed_accum, 1))
+        make_step(batch_size, model_size, lr, optimizer=optimizer,
+                  mixed=mixed, comm=comm, guard=guard,
+                  mesh=mesh)             # the bad combinations, here
         outs = launch_strided(
             _fsdp_rank, params, seeds, mesh, batch_size, model_size, lr,
             comm, batch_fn, optimizer, to_device(opt_state, "cpu"),
-            return_state, mixed, timeout=timeout)
+            return_state, mixed,
+            (guard, to_device(guard_state, "cpu"), return_guard),
+            timeout=timeout)
         dev = params.w1.device
+        g = None
+        if guard is not None and return_guard:
+            g = to_device(outs[0][1], dev)
+            outs = [o[0] for o in outs]
         if return_state:
-            return (to_device(unshard_params([o[0] for o in outs]), dev),
-                    to_device(unshard_state([o[1] for o in outs]), dev))
-        return to_device(unshard_params(outs), dev)
+            out = (to_device(unshard_params([o[0] for o in outs]), dev),
+                   to_device(unshard_state([o[1] for o in outs]), dev))
+        else:
+            out = to_device(unshard_params(outs), dev)
+        return out if g is None else (out, g)
     step = make_step(batch_size, model_size, lr, unroll,
                      optimizer=optimizer, mixed=mixed, comm=comm,
                      guard=guard, seed_accum=seed_accum, mesh=mesh,
@@ -209,21 +238,23 @@ def train_fsdp(params: FFNStackParams, seeds, batch_size: int,
     if comm == "pallas_ring":
         # the workspace holds a gathered layer weight
         mesh.ring(4 * params.w1[0].numel())
-    if optimizer is None:
-        return run_strided(step, local, seeds, mesh, on_step)
-    state = (optimizer.init(local) if opt_state is None
-             else to_device(opt_state, mesh.torch_device))
-    local, state = run_strided(step, (local, state), seeds, mesh, on_step)
-    return (local, state) if return_state else local
+    carry = (local if optimizer is None else
+             (local, optimizer.init(local) if opt_state is None
+              else to_device(opt_state, mesh.torch_device)))
+    return run_guarded(step, carry, seeds, mesh, on_step, guard,
+                       guard_state, return_guard,
+                       keep=optimizer is None or return_state)
 
 
 def _fsdp_rank(mesh: Mesh, payload):
     (params, seeds, batch_size, model_size, lr, comm, batch_fn, optimizer,
-     opt_state, return_state, mixed) = payload
+     opt_state, return_state, mixed,
+     (guard, guard_state, return_guard)) = payload
     if opt_state is not None:
         opt_state = shard_state(opt_state, mesh)
     out = train_fsdp(params, seeds, batch_size, model_size, mesh, lr,
                      optimizer=optimizer, opt_state=opt_state,
                      return_state=return_state, mixed=mixed, comm=comm,
-                     batch_fn=batch_fn)
+                     guard=guard, guard_state=guard_state,
+                     return_guard=return_guard, batch_fn=batch_fn)
     return to_device(out, "cpu")

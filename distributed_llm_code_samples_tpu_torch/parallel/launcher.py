@@ -112,6 +112,32 @@ def run_strided(step: Callable, params, seeds, mesh: Mesh,
                           mesh, on_step)
 
 
+def run_guarded(step: Callable, carry, seeds, mesh: Mesh,
+                on_step: Optional[Callable[[int], None]] = None,
+                guard=None, guard_state=None, return_guard: bool = False,
+                *, keep: bool = True, strided: bool = True,
+                axis: Optional[str] = None):
+    """``run_strided`` (``strided=False``: ``run_replicated``) of a rank's
+    ``step`` over ``carry`` (params, or ``(params, opt_state)``), under
+    the skip-step ``guard`` when one is given
+    (``runtime.guardrails.guarded_step``: the finite flag summed over
+    every rank of ``mesh``, the live loss scale handed to the step when
+    the config scales). Returns the carry, or its params alone unless
+    ``keep``; with ``return_guard`` also the ``GuardState``."""
+    run = ((lambda st, c: run_strided(st, c, seeds, mesh, on_step, axis))
+           if strided else
+           (lambda st, c: run_replicated(st, c, seeds, mesh, on_step)))
+    if guard is None:
+        out = run(step, carry)
+        return out if keep else out[0]
+    from ..runtime.guardrails import guarded_step, host_state
+    gstep = guarded_step(step, guard, mesh, takes_scale=guard.scaling)
+    out, g = run(gstep, (carry, host_state(guard_state, guard,
+                                           mesh.torch_device)))
+    out = out if keep else out[0]
+    return (out, g) if return_guard else out
+
+
 def _watch_parent(parent_pid: int) -> None:
     while True:
         if os.getppid() != parent_pid:

@@ -63,8 +63,8 @@ from ..optim import check_state_args, sgd
 from .collectives import (all_gather, all_reduce, axis_index, pmax,
                           reduce_scatter)
 from .launcher import (DEFAULT_TIMEOUT_S, launch_replicated, launch_strided,
-                       refuse_unported, run_replicated, run_strided,
-                       to_device)
+                       refuse_unported, run_guarded, run_replicated,
+                       run_strided, to_device)
 from .mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, require_axes
 from .sequence import (SeqAttention, check_mha, resolve_seq_attn,
                        seq_blocks_backward, seq_blocks_forward, sum_grads)
@@ -445,9 +445,14 @@ def train_lm_tp(params: LMParams, seeds, batch_size: int, model_size: int,
     state) on the device of ``params``; given a rank's view it runs that
     rank and returns its shards, and ``opt_state`` is the rank's shard.
     ``batch_fn(seed) -> (tokens, targets)`` overrides the batches (it
-    must pickle to reach spawned ranks). ``guard`` is not ported yet."""
-    refuse_unported(guard=(guard, None), guard_state=(guard_state, None),
-                    return_guard=(return_guard, False))
+    must pickle to reach spawned ranks).
+
+    ``guard``/``guard_state``/``return_guard`` arm the skip-step
+    guardrail (``runtime/guardrails.py``): a step whose new shards or
+    state are not finite on any rank is skipped on every rank; with
+    ``return_guard`` the result is ``(result, GuardState)``. There is no
+    loss-scale hook here: a scaling config raises, as JAX's."""
+    from ..runtime.guardrails import check_guard_args, require_scale_hook
     require_axes(mesh, MODEL_AXIS)
     n = mesh.axis_size(MODEL_AXIS)
     h_local = _validate_tp(params.blocks, n_heads, n)
@@ -458,42 +463,53 @@ def train_lm_tp(params: LMParams, seeds, batch_size: int, model_size: int,
                          f"model-axis size {n}")
     resolve_head(head_impl)
     attn = resolve_attn(attn_impl)
+    check_guard_args(guard, guard_state, return_guard)
+    require_scale_hook(guard, takes_scale=False)
     if not mesh.in_rank:
         outs = launch_replicated(
             _lm_tp_rank, params, seeds, mesh, batch_size, model_size, lr,
             _trip(opt_state, mesh), dict(seq_len=seq_len, n_heads=n_heads,
                             attn_impl=attn_impl, optimizer=optimizer,
-                            head_impl=head_impl, batch_fn=batch_fn),
+                            head_impl=head_impl, batch_fn=batch_fn,
+                            guard=guard,
+                            guard_state=_trip(guard_state, mesh)),
             timeout=timeout)
         dev = params.device
         out = to_device(lm_tp_unshard([o[0] for o in outs]), dev)
-        if optimizer is None or not return_state:
-            return out
-        return out, to_device(lm_tp_unshard_state([o[1] for o in outs]), dev)
+        if optimizer is not None and return_state:
+            out = (out, to_device(lm_tp_unshard_state([o[1] for o in outs]),
+                                  dev))
+        if return_guard:
+            return out, to_device(outs[0][2], dev)
+        return out
     step = _make_tp_step(batch_size, model_size, seq_len, h_local,
                          params.vocab, lr, attn, optimizer=optimizer,
                          head_impl=head_impl, mesh=mesh, batch_fn=batch_fn)
     shards = lm_tp_shard(params, mesh)
-    if optimizer is None:
-        return run_replicated(step, shards, seeds, mesh, on_step)
-    state = (optimizer.init(shards) if opt_state is None
-             else to_device(opt_state, mesh.torch_device))
-    carry = run_replicated(step, (shards, state), seeds, mesh, on_step)
-    return carry if return_state else carry[0]
+    carry = (shards if optimizer is None else
+             (shards, optimizer.init(shards) if opt_state is None
+              else to_device(opt_state, mesh.torch_device)))
+    return run_guarded(step, carry, seeds, mesh, on_step, guard,
+                       guard_state, return_guard, strided=False,
+                       keep=optimizer is None or return_state)
 
 
 def _lm_tp_rank(mesh: Mesh, payload):
     """One rank of a whole-mesh ``train_lm_tp``: its shards (and its
-    optimizer state's) on the CPU."""
+    optimizer state's, and the guard's state) on the CPU."""
     params, seeds, batch_size, model_size, lr, opt_state, kw = payload
     if opt_state is not None:
         opt_state = lm_tp_shard_state(opt_state, mesh)
+    guarded = kw["guard"] is not None
     out = train_lm_tp(params, seeds, batch_size, model_size, mesh, lr,
                       opt_state=opt_state,
-                      return_state=kw["optimizer"] is not None, **kw)
+                      return_state=kw["optimizer"] is not None,
+                      return_guard=guarded, **kw)
+    out, g = out if guarded else (out, None)
+    g = to_device(g, "cpu")
     if kw["optimizer"] is None:
-        return to_device(out, "cpu"), None
-    return to_device(out[0], "cpu"), to_device(out[1], "cpu")
+        return to_device(out, "cpu"), None, g
+    return to_device(out[0], "cpu"), to_device(out[1], "cpu"), g
 
 
 # -- data parallelism: DDP, FSDP/ZeRO-3 and the DDP x TP hybrid ------------------
@@ -517,32 +533,38 @@ def train_lm_ddp(params: LMParams, seeds, batch_size: int, model_size: int,
     whole mesh it launches the ranks and returns rank 0's params (and
     state) on the device of ``params``; given a rank's view it runs that
     rank and returns its replica. ``batch_fn`` as ``train_lm_tp``'s.
-    ``guard`` is not ported yet."""
-    refuse_unported(guard=(guard, None), guard_state=(guard_state, None),
-                    return_guard=(return_guard, False))
+    ``guard``/``guard_state``/``return_guard``: the skip-step guardrail,
+    as ``train_lm_tp``'s (no loss-scale hook)."""
+    from ..runtime.guardrails import check_guard_args, require_scale_hook
     require_axes(mesh, DATA_AXIS)
     _validate_lm(batch_size, seq_len, model_size, n_heads, params)
     check_state_args(optimizer, opt_state, return_state)
+    check_guard_args(guard, guard_state, return_guard)
+    require_scale_hook(guard, takes_scale=False)
     head = resolve_head(head_impl)
     attn = resolve_attn(attn_impl)
     kw = dict(seq_len=seq_len, n_heads=n_heads, attn_impl=attn_impl,
               optimizer=optimizer, head_impl=head_impl, mixed=mixed,
-              batch_fn=batch_fn)
+              batch_fn=batch_fn, guard=guard,
+              guard_state=_trip(guard_state, mesh),
+              return_guard=return_guard)
     if not mesh.in_rank:
         outs = launch_strided(_lm_dp_rank, params, seeds, mesh, batch_size,
                               model_size, lr, _trip(opt_state, mesh),
                               ("ddp", kw), timeout=timeout)
         out = to_device(outs[0], params.device)
-        return out if optimizer is None or return_state else out[0]
+        if optimizer is None or return_state:
+            return out
+        return (out[0][0], out[1]) if return_guard else out[0]
     step = _make_step(batch_size, model_size, seq_len, n_heads, lr, attn,
                       batch_fn, head, mixed, optimizer, mesh=mesh)
     local = to_device(clone_lm(params), mesh.torch_device)
-    if optimizer is None:
-        return run_strided(step, local, seeds, mesh, on_step)
-    state = (optimizer.init(local) if opt_state is None
-             else to_device(opt_state, mesh.torch_device))
-    carry = run_strided(step, (local, state), seeds, mesh, on_step)
-    return carry if return_state else carry[0]
+    carry = (local if optimizer is None else
+             (local, optimizer.init(local) if opt_state is None
+              else to_device(opt_state, mesh.torch_device)))
+    return run_guarded(step, carry, seeds, mesh, on_step, guard,
+                       guard_state, return_guard,
+                       keep=optimizer is None or return_state)
 
 
 def _lm_fsdp_specs() -> list:

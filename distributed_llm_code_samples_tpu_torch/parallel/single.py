@@ -87,22 +87,36 @@ def train_single(params: FFNStackParams, seeds, batch_size: int,
                  unroll: bool = True, use_pallas: bool = False,
                  manual_loop: bool = False, remat: bool | None = None,
                  mixed: bool = False, accum: int = 1, guard=None,
+                 guard_state=None, return_guard: bool = False,
                  batch_fn: Callable = batch_from_seed,
                  on_step: Optional[Callable[[int], None]] = None
                  ) -> FFNStackParams:
     """Train a copy of ``params`` over the seed schedule and return it;
     the caller's params are not touched. ``mesh`` is ignored (the
     launcher signature of every strategy). ``on_step(i)`` is called after
-    step ``i`` (the CLI times steps with it). The skip-step ``guard`` is
-    not ported yet and raises ``NotImplementedError``."""
-    if guard is not None:
-        raise NotImplementedError("guard (the skip-step guardrail) is not "
-                                  "ported yet; pass guard=None")
+    step ``i`` (the CLI times steps with it).
+
+    ``guard`` (a ``runtime.guardrails.GuardrailConfig``) arms the
+    skip-step guardrail: a step whose new params are not finite is
+    skipped (the params kept, ``skipped`` counted) on the device, with no
+    read to the host. ``guard_state`` carries the counters in from an
+    earlier call; with ``return_guard`` the result is ``(params,
+    GuardState)``. The single-device path has no loss-scale hook: a
+    scaling config raises, as JAX's."""
+    from ..runtime.guardrails import (check_guard_args, guarded_step,
+                                      host_state, require_scale_hook)
+    check_guard_args(guard, guard_state, return_guard)
+    require_scale_hook(guard, takes_scale=False)
     step = make_step(batch_size, model_size, lr, unroll, use_pallas,
                      manual_loop, remat, mixed, accum, batch_fn)
     params = clone_params(params)
+    if guard is not None:
+        step = guarded_step(step, guard)
+        params = (params, host_state(guard_state, guard, params.w1.device))
     for i, seed in enumerate(seeds):
         params = step(params, int(seed))
         if on_step is not None:
             on_step(i)
+    if guard is not None and not return_guard:
+        return params[0]
     return params

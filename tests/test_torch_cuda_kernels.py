@@ -1742,3 +1742,42 @@ def test_ring_attention_flash_pair_under_global_lse(card, attn_impl):
         finally:
             p_fa.flash_attention_bwd = bwd
         assert min(err(g, w) for g, w in zip(control[2:], want[2:])) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_guarded_step_skips_a_poisoned_seed_on_the_card(card, dtype):
+    """The skip-step guard through the FFN kernels (``train_single``,
+    ``use_pallas``): a clean guarded step equals the unguarded one bit for
+    bit, a poisoned seed (a NaN upstream gradient) leaves the params bit
+    for bit unchanged and counts one skip, and no step reads anything
+    back to the host (``torch.cuda.set_sync_debug_mode("error")`` raises
+    on any synchronising call)."""
+    from distributed_llm_code_samples_tpu_torch.data import POISON_NAN_BIT
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.parallel import train_single
+    from distributed_llm_code_samples_tpu_torch.runtime.guardrails import (
+        GuardrailConfig, summarize)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    params = init_ffn_stack(gen, 128, 2, dtype=dtype)
+    kw = dict(lr=0.1, use_pallas=True)
+    clean = train_single(params, [11], 256, 128, **kw)
+    torch.cuda.synchronize()
+    before = _build.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, g = train_single(params, [11, 11 | POISON_NAN_BIT], 256, 128,
+                              guard=GuardrailConfig(), return_guard=True,
+                              **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = _build.launch_counts()
+    tag = "[bf16]" if dtype == torch.bfloat16 else ""
+    assert after.get("ffn_fwd" + tag, 0) - before.get("ffn_fwd" + tag, 0) \
+        == 4
+    assert summarize(g) == {"skipped": 1, "overflows": 0, "loss_scale": 1.0,
+                            "good_steps": 0}
+    assert all(torch.equal(a, b) for a, b in zip(out, clean))

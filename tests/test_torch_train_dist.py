@@ -141,11 +141,15 @@ def test_strided_seeds_and_refusals(setup):
     with pytest.raises(ValueError, match="not divisible by 3 shards"):
         train_fsdp(start, seeds[:6], TOKENS, D,
                    make_mesh({DATA_AXIS: 3}, device="cpu"))
-    # guard and the elastic seed_accum are still refused
-    for kw in ({"guard": object()}, {"seed_accum": 2}):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # a guard that is not a GuardrailConfig raises JAX's TypeError
+    # (check_guard_args); the elastic seed_accum is still refused
+    for kw, err, match in (({"guard": object()}, TypeError,
+                            "GuardrailConfig"),
+                           ({"seed_accum": 2}, NotImplementedError,
+                            "not ported")):
+        with pytest.raises(err, match=match):
             train_fsdp(start, seeds, TOKENS, D, mesh, **kw)
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(err, match=match):
             train_ddp(start, seeds, TOKENS, D, mesh, **kw)
     # the optimizers, mixed and accumulation run (one launch of all three;
     # test_torch_optim.py and test_torch_mixed.py hold them against JAX)

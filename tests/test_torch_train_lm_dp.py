@@ -501,7 +501,7 @@ def test_refusals_before_anything_is_spawned(setup):
     seeds = setup["seeds"]
     kw = dict(seq_len=SEQ, n_heads=H)
     data2 = make_mesh({DATA_AXIS: 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="guard"):
+    with pytest.raises(TypeError, match="GuardrailConfig"):
         train_lm_ddp(start, seeds, TOKENS, D, data2, guard=object(), **kw)
     odd = lm_params_from_numpy(setup["odd"])
     with pytest.raises(ValueError, match="wte dim 66 not divisible by 4 "

@@ -402,7 +402,7 @@ def test_refusals_before_anything_is_spawned(setup, gqa_setup):
                     make_mesh({MODEL_AXIS: 3}, device="cpu"), **kw)
     with pytest.raises(ValueError, match="need an optimizer"):
         train_lm_tp(start, seeds, TOKENS, D, model4, return_state=True, **kw)
-    with pytest.raises(NotImplementedError, match="guard"):
+    with pytest.raises(TypeError, match="GuardrailConfig"):
         train_lm_tp(start, seeds, TOKENS, D, model4, guard=object(), **kw)
     with pytest.raises(ValueError, match="head_impl"):
         train_lm_tp(start, seeds, TOKENS, D, model4, head_impl="nope", **kw)

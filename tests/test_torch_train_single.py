@@ -96,8 +96,11 @@ def test_invalid_combinations_raise_like_jax():
 
 
 def test_guard_is_not_ported(setup):
+    """The guard is ported (``test_torch_train_guard.py``); a guard that
+    is not a ``GuardrailConfig`` raises JAX's ``TypeError`` from
+    ``check_guard_args``."""
     params, seeds = setup
-    with pytest.raises(NotImplementedError, match="guard"):
+    with pytest.raises(TypeError, match="GuardrailConfig"):
         train_single(ffn_params_from_numpy(params), seeds, TOKENS, D,
                      guard=object())
 
