@@ -38,6 +38,9 @@
     python3 chip_smoke.py --phase seq      # the LM kernels, ring attention
                                            # and Ulysses, the LM at 4096
                                            # positions on 4 virtual ranks
+    python3 chip_smoke.py --phase ckpt     # the FFN and LM kernels,
+                                           # checkpoints, chaos and the
+                                           # supervisor, train_real_text
     python3 chip_smoke.py --phase dist     # ring, DDP/FSDP, all-to-all,
                                            # EP, TP, the hybrid, LM TP,
                                            # cli.py -m 0, 8, 11 and LM DP
@@ -56,6 +59,9 @@
                                              # cards over NCCL and cli.py
                                              # -m 13 ring and Ulysses (not
                                              # in --phase dist)
+    python3 chip_smoke.py --phase dist-ckpt  # cli.py -m 11 killed at a
+                                             # publish and resumed on 4
+                                             # cards (also in dist-tp)
 
 Builds every kernel of the port from ``csrc/`` (printing ptxas's spill
 counts as ``ptxas-spills``), holds each against its plain PyTorch
@@ -260,6 +266,20 @@ each split size, ``paged-splits``), then drives the port's paths:
   over NCCL and ``cli.py -m 13 --attn flash --head fused`` at that shape,
   ring and Ulysses (``dist-cli-m13-ring``, ``-ulysses``).
 
+- checkpoints, chaos and the failure supervisor (``--phase ckpt`` too):
+  ``cli.py -m 1 --pallas`` at the FFN stack's shape publishing a step
+  every 4 on the native backend, uninterrupted, SIGKILLed at step 4 by
+  ``--chaos kill@4`` and resumed by the same command: the resumed step 8
+  bit for bit the uninterrupted one, with half its FFN kernel launches
+  (``ckpt-ffn-kill``); ``supervise(train_lm_single)`` at the LM's shape
+  with the flash and fused-head kernels under AdamW and a loss spike at
+  step 6: one rollback, no restart, params and AdamW state bit for bit an
+  uninterrupted run's, 12 steps of launches (``ckpt-lm-spike``); the
+  newest step torn and the fallback to step 4 (``ckpt-corrupt``); the
+  bytes and seconds of a publish and a restore (``ckpt-io``); and
+  ``train_real_text`` at its defaults (``textlm-run``). Every file goes
+  under a temporary directory that is removed.
+
 It fails (exit code 1) if there is no CUDA device, if a kernel does not
 build, launch or agree, if a kernel path did not go through its
 kernels, if the head backward's bits differ from those its build gave
@@ -278,9 +298,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import itertools
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -7466,7 +7489,9 @@ def dist_phase(torch, part: str = "all"):
     ``"lmdp"`` (``--phase dist-lmdp``) the data-parallel LM and
     transformer alone; ``"seq"`` (``--phase dist-seq``, which ``"all"``
     does not run) ``seq_phase`` over NCCL and ``cli.py -m 13`` ring and
-    Ulysses alone; ``"bf16"`` (``--phase dist-bf16``) the bf16 ring
+    Ulysses alone; ``"ckpt"`` (``--phase dist-ckpt``, which ``"tp"`` and
+    ``"all"`` run too) ``cli.py -m 11`` killed and resumed
+    (``dist_ckpt_phase``) alone; ``"bf16"`` (``--phase dist-bf16``) the bf16 ring
     sums across the cards (``dist_bf16_rank``), ``cli.py -m 0 --dtype
     bfloat16``, and the bf16 hop, all-to-all, EP, LM TP and ``cli.py -m
     11``, ``-m 8``, ``-m 7`` on bf16 (``dist_lm_bf16_phase``) alone, which
@@ -7508,6 +7533,8 @@ def dist_phase(torch, part: str = "all"):
         lmtp_phase(torch, np, cards, cards=RING_N)
         for tag, argv in CLI_LMTP:
             cli_m0_phase(cards, argv, tag)
+    if part in ("all", "tp", "ckpt"):
+        dist_ckpt_phase(torch, cards)
     if part == "all":
         for tag, argv in CLI_OPT:
             cli_m0_phase(cards, argv, tag)
@@ -7530,6 +7557,344 @@ def dist_phase(torch, part: str = "all"):
     return rows
 
 
+# --phase ckpt: checkpoints, chaos and the failure supervisor, then the
+# real-text trainer. cli.py -m 1 --pallas at TRAIN's shape, a published
+# step every CKPT_EVERY steps on the native backend, killed at step
+# CKPT_EVERY and resumed; train_lm_single at LM's shape under AdamW with
+# the flash and fused-head kernels, a spike at CKPT_SPIKE_STEP rolled back
+# by the supervisor (npz backend); train_real_text at its defaults
+CKPT_EVERY = 4
+CKPT_CLI = ("-m", "1", "-s", str(TRAIN["steps"]), "-bs", "8", "-n", "1024",
+            "-l", str(TRAIN["n_layers"]), "-d", str(TRAIN["d_model"]), "-r",
+            str(TRAIN["random_seed"]), "--pallas", "--checkpoint_every",
+            str(CKPT_EVERY), "--checkpoint_backend", "native")
+CKPT_SPIKE = "loss_spike@6:100"
+CKPT_SPIKE_FACTOR = 10.0
+UNIFORM_BYTE_LOSS = 5.5452       # ln 256, rounded as the payload rounds it
+TEXTLM_KEYS = {"metric", "value", "unit", "best_step", "best_train_loss",
+               "final_holdout_loss", "final_train_loss",
+               "generalization_gap", "initial_holdout_loss", "uniform_loss",
+               "loss_curve", "corpus_bytes", "train_bytes", "holdout_bytes",
+               "schedule", "shape", "tokens_per_sec", "train_seconds",
+               "sample", "device_kind"}
+
+
+def ckpt_cli(tag, ck_dir, *extra, argv=CKPT_CLI):
+    """``cli.py`` with ``argv`` into ``ck_dir`` as a subprocess; prints its
+    exit code and payload (``ckpt-cli``) and returns both."""
+    cmd = [sys.executable, "-m", "distributed_llm_code_samples_tpu_torch.cli",
+           *argv, "--checkpoint_dir", ck_dir, *extra]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    runs = [json.loads(l) for l in out.stdout.splitlines()
+            if l.startswith("{")]
+    payload = runs[-1] if runs else None
+    print("ckpt-cli " + json.dumps(dict(
+        run=tag, argv=list(argv) + list(extra), rc=out.returncode,
+        seconds=time.perf_counter() - t0, payload=payload)), flush=True)
+    if out.returncode not in (0, -9):
+        print("ckpt-cli-stderr\n" + out.stderr[-4000:], flush=True)
+    return out.returncode, payload
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def ckpt_io(torch, ck, tag, tree, root):
+    """Seconds to publish ``tree`` on each backend (the native one waited
+    for) and to restore it onto the card, and the bytes a publish;
+    prints ``ckpt-io``."""
+    row = dict(tree=tag)
+    for backend in ("npz", "native"):
+        d = os.path.join(root, f"io-{tag}-{backend}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ck.save_checkpoint(d, tree, 1, backend=backend)
+        ck.wait_pending()
+        row[f"{backend}_publish_s"] = time.perf_counter() - t0
+        row[f"{backend}_bytes"] = dir_bytes(path)
+        t0 = time.perf_counter()
+        got, _, _ = ck.restore_checkpoint(d, tree, step=1)
+        torch.cuda.synchronize()
+        row[f"{backend}_restore_s"] = time.perf_counter() - t0
+        check(all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            ck._named(got), ck._named(tree))), f"ckpt-io {tag} {backend}: "
+              "the restore differs from the saved tree")
+        shutil.rmtree(d)
+    print("ckpt-io " + json.dumps(row), flush=True)
+
+
+def kill_resume(tag, root, argv, trainer):
+    """``argv`` through ``ckpt_cli`` three times into ``root``: (a)
+    uninterrupted, (b) with ``--chaos kill@4`` (SIGKILLed with step 4 the
+    newest verified), (c) the same command again (resumed, step 8).
+    Returns the payloads of (a) and (c) and the directories of their
+    ``trainer`` runs."""
+    from distributed_llm_code_samples_tpu_torch import checkpoint as ck
+    kill = ("--chaos", f"kill@{CKPT_EVERY}")
+    rc_a, pay_a = ckpt_cli(f"{tag}uninterrupted", os.path.join(root, "a"),
+                           argv=argv)
+    rc_b, _ = ckpt_cli(f"{tag}kill@{CKPT_EVERY}", os.path.join(root, "b"),
+                       *kill, argv=argv)
+    sub_b = os.path.join(root, "b", trainer)
+    killed_at = ck.latest_verified_step(sub_b)
+    rc_c, pay_c = ckpt_cli(f"{tag}resumed", os.path.join(root, "b"), *kill,
+                           argv=argv)
+    check(rc_a == 0 and rc_c == 0, f"{tag}kill: exit codes {rc_a}, {rc_c}")
+    check(rc_b == -9 and killed_at == CKPT_EVERY,
+          f"{tag}kill: the killed run ended {rc_b} at step {killed_at}, not "
+          f"SIGKILL at step {CKPT_EVERY}")
+    return pay_a, pay_c, os.path.join(root, "a", trainer), sub_b
+
+
+def dist_ckpt_phase(torch, cards):
+    """``--phase dist-ckpt`` (also in ``dist-tp`` and ``dist``):
+    ``cli.py -m 11 --head fused --attn flash`` at ``LM``'s shape, one rank
+    a card over NCCL, with ``--checkpoint_every 4``: uninterrupted, killed
+    at step 4 and resumed (``kill_resume``); the resumed step 8 bit for
+    bit the uninterrupted run's (``dist-ckpt-kill``). The ranks' kernel
+    launches stay in their processes."""
+    import tempfile
+
+    from distributed_llm_code_samples_tpu_torch import checkpoint as ck
+    from distributed_llm_code_samples_tpu_torch.models.lm import init_lm
+    root = tempfile.mkdtemp(prefix="dist-ckpt-")
+    t0 = time.perf_counter()
+    try:
+        argv = CLI_LMTP[0][1] + ("--checkpoint_every", str(CKPT_EVERY))
+        pay_a, pay_c, dir_a, dir_c = kill_resume("dist-", root, argv,
+                                                 "train_lm_tp")
+        gen = torch.Generator()
+        gen.manual_seed(7)
+        target = init_lm(gen, LM["vocab"], LM["d_model"], LM["n_layers"],
+                         max_seq_len=LM["seq_len"], n_heads=LM["n_heads"])
+        full, step_a, _ = ck.restore_checkpoint(dir_a, target)
+        resumed, step_c, _ = ck.restore_checkpoint(dir_c, target)
+        diffs = [n for (n, a), (_, b) in zip(ck._named(full),
+                                             ck._named(resumed))
+                 if not torch.equal(a, b)]
+        print("dist-ckpt-kill " + json.dumps(dict(
+            argv=list(argv), step_a=step_a, step_c=step_c,
+            leaves_differing=diffs, wall_a_s=pay_a["wall_s"],
+            wall_c_s=pay_c["wall_s"], seconds=time.perf_counter() - t0,
+            cards=cards)), flush=True)
+        check(step_a == step_c == 8 and not diffs,
+              f"dist-ckpt-kill: leaves {diffs} of the resumed step 8 differ")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def ckpt_phase(torch, np, card):
+    """Checkpoints, chaos and the supervisor on the card, then
+    ``train_real_text``:
+
+    - ``ckpt-ffn-kill``: ``cli.py -m 1 --pallas`` at ``TRAIN``'s shape
+      with ``--checkpoint_every 4 --checkpoint_backend native``, (a)
+      uninterrupted, (b) with ``--chaos kill@4``: SIGKILLed with step 4
+      the newest verified, (c) the same command again: it resumes and
+      publishes step 8, bit for bit (a)'s, with 96 launches of each FFN
+      kernel against (a)'s 192;
+    - ``ckpt-lm-spike``: ``supervise(train_lm_single)`` at ``LM``'s shape,
+      flash attention and the fused head, AdamW threaded, 8 steps in
+      segments of 4 on the npz backend, ``loss_spike@6:100`` under
+      ``spike_factor=10``: one rollback, no restart, the final params and
+      AdamW state bit for bit an uninterrupted ``run_with_checkpointing``
+      run's, and 12 steps of flash and fused-head launches;
+    - ``ckpt-corrupt``: the LM run's step 8 truncated: the newest verified
+      step falls back to 4, an explicit restore of 8 raises
+      ``CorruptCheckpointError``, a plain restore lands on 4;
+    - ``ckpt-io``: bytes a publish and seconds a publish and a restore of
+      the FFN stack and of the LM with its AdamW state, both backends;
+    - ``textlm-run``: ``train_real_text`` at its defaults: the best
+      held-out loss below the initial one and below ln 256, JAX's
+      payload keys, a sample that decodes.
+
+    Every file goes under a temporary directory removed at the end.
+    Returns the launches of the resumed CLI run and of the supervised LM
+    run."""
+    import tempfile
+
+    from distributed_llm_code_samples_tpu_torch import LR
+    from distributed_llm_code_samples_tpu_torch import checkpoint as ck
+    from distributed_llm_code_samples_tpu_torch import train_real_text
+    from distributed_llm_code_samples_tpu_torch.data import (
+        make_seed_schedule)
+    from distributed_llm_code_samples_tpu_torch.models.ffn_stack import (
+        init_ffn_stack)
+    from distributed_llm_code_samples_tpu_torch.models.lm import init_lm
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        launch_counts, reset_launch_counts)
+    from distributed_llm_code_samples_tpu_torch.ops.fused_ffn import (
+        BWD_DW, BWD_DX, FWD)
+    from distributed_llm_code_samples_tpu_torch.optim import adamw
+    from distributed_llm_code_samples_tpu_torch.parallel import (
+        train_lm_single)
+    from distributed_llm_code_samples_tpu_torch.runtime.chaos import (
+        FaultPlan, truncate_checkpoint)
+    from distributed_llm_code_samples_tpu_torch.runtime.failure import (
+        supervise)
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ckpt-phase-")
+    runs = {}
+    try:
+        # -- ckpt-ffn-kill ----------------------------------------------------
+        steps, layers = TRAIN["steps"], TRAIN["n_layers"]
+        pay_a, pay_c, dir_a, dir_c = kill_resume("", root, CKPT_CLI,
+                                                 "train_single")
+        gen = torch.Generator()
+        gen.manual_seed(TRAIN["random_seed"])
+        target = init_ffn_stack(gen, TRAIN["d_model"], layers)
+        target = type(target)(*(t.cuda() for t in target))
+        full, step_a, _ = ck.restore_checkpoint(dir_a, target)
+        resumed, step_c, _ = ck.restore_checkpoint(dir_c, target)
+        equal = all(torch.equal(a, b) for a, b in zip(full, resumed))
+        want = {FWD: steps * layers, BWD_DX: steps * layers,
+                BWD_DW: steps * layers}
+        got_a, got_c = pay_a["kernel_launches"], pay_c["kernel_launches"]
+        print("ckpt-ffn-kill " + json.dumps(dict(
+            killed_at=CKPT_EVERY, step_a=step_a,
+            step_c=step_c, bit_equal=equal, launches_a=got_a,
+            launches_c=got_c, wall_a_s=pay_a["wall_s"],
+            wall_c_s=pay_c["wall_s"],
+            bytes_a_publish=dir_bytes(os.path.join(dir_a, f"step_{steps}")),
+            card=card)), flush=True)
+        check(step_a == step_c == steps and equal,
+              "ckpt-ffn-kill: the resumed step 8 differs from the "
+              "uninterrupted run's")
+        check(got_a == want and got_c == {k: v // 2 for k, v in want.items()},
+              f"ckpt-ffn-kill: launches {got_a}, {got_c}, want {want} and "
+              "half of it")
+        runs["ffn-kill-resumed"] = got_c
+        ckpt_io(torch, ck, "ffn", full, root)
+        del full, resumed, target
+        shutil.rmtree(os.path.join(root, "a"))
+        shutil.rmtree(os.path.join(root, "b"))
+
+        # -- ckpt-lm-spike ----------------------------------------------------
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(LM["random_seed"])
+        params = init_lm(gen, LM["vocab"], LM["d_model"], LM["n_layers"],
+                         LM["seq_len"], n_heads=LM["n_heads"])
+        seeds = make_seed_schedule(LM["steps"], LM["random_seed"])
+        kw = dict(lr=LR, seq_len=LM["seq_len"], n_heads=LM["n_heads"],
+                  attn_impl="flash", head_impl="fused", every=CKPT_EVERY,
+                  backend="npz", optimizer=adamw(), thread_state=True)
+        ref_dir, sup_dir = os.path.join(root, "ref"), os.path.join(root,
+                                                                   "sup")
+        t0 = time.perf_counter()
+        ck.run_with_checkpointing(train_lm_single, params, seeds, LM_TOKENS,
+                                  LM["d_model"], ckpt_dir=ref_dir, **kw)
+        ref_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        supervise(train_lm_single, params, seeds, LM_TOKENS, LM["d_model"],
+                  ckpt_dir=sup_dir, chaos=FaultPlan.parse(CKPT_SPIKE),
+                  spike_factor=CKPT_SPIKE_FACTOR, max_restarts=0,
+                  backoff_base_s=0.0, **kw)
+        torch.cuda.synchronize()
+        sup_s = time.perf_counter() - t0
+        lm_launches = launch_counts()
+        with open(os.path.join(sup_dir, "supervise.jsonl")) as f:
+            log = [json.loads(l) for l in f]
+        events = [r["event"] for r in log]
+        tree = (params, adamw().init(params))
+        ref_tree, ref_step, _ = ck.restore_checkpoint(ref_dir, tree)
+        sup_tree, sup_step, _ = ck.restore_checkpoint(sup_dir, tree)
+        diffs = [n for (n, a), (_, b) in zip(ck._named(ref_tree),
+                                             ck._named(sup_tree))
+                 if not torch.equal(a, b)]
+        n_steps = LM["steps"] + CKPT_EVERY
+        want = {"flash_attn_fwd": LM["n_layers"] * n_steps,
+                "flash_attn_dkv": LM["n_layers"] * n_steps,
+                "flash_attn_dq": LM["n_layers"] * n_steps,
+                "head_xent_stats": n_steps, "head_xent_bwd": n_steps}
+        print("ckpt-lm-spike " + json.dumps(dict(
+            events=events, rollbacks=events.count("rollback"),
+            restarts=events.count("attempt_failed"),
+            rollback=[r for r in log if r["event"] == "rollback"],
+            loss_spike=[r for r in log if r["event"] == "loss_spike"],
+            steps=(ref_step, sup_step), leaves_differing=diffs,
+            launches=lm_launches, want_launches=want,
+            uninterrupted_s=ref_s, supervised_s=sup_s,
+            bytes_a_publish=dir_bytes(os.path.join(sup_dir, "step_8")),
+            card=card)), flush=True)
+        check(events.count("rollback") == 1
+              and events.count("attempt_failed") == 0
+              and events[-1] == "completed",
+              f"ckpt-lm-spike: the supervisor's story {events}")
+        check(ref_step == sup_step == LM["steps"] and not diffs,
+              f"ckpt-lm-spike: leaves {diffs} differ from the uninterrupted "
+              "run's")
+        check(lm_launches == want, f"ckpt-lm-spike: launches {lm_launches},"
+              f" want {want}")
+        runs["lm-spike"] = lm_launches
+        ckpt_io(torch, ck, "lm-adamw", sup_tree, root)
+        del ref_tree, sup_tree
+
+        # -- ckpt-corrupt -----------------------------------------------------
+        damaged = truncate_checkpoint(os.path.join(sup_dir, "step_8"))
+        fallback = ck.latest_verified_step(sup_dir)
+        try:
+            ck.restore_checkpoint(sup_dir, tree, step=8)
+            refused = False
+        except ck.CorruptCheckpointError:
+            refused = True
+        _, landed, _ = ck.restore_checkpoint(sup_dir, tree)
+        print("ckpt-corrupt " + json.dumps(dict(
+            damaged=os.path.basename(damaged), latest_verified_step=fallback,
+            explicit_restore_refused=refused, plain_restore_step=landed)),
+            flush=True)
+        check(fallback == landed == CKPT_EVERY and refused,
+              "ckpt-corrupt: no fallback to step 4")
+        del tree, params
+        torch.cuda.empty_cache()
+
+        # -- textlm-run -------------------------------------------------------
+        saved_env = {k: os.environ.get(k) for k in ("TEXTLM_ARTIFACT",
+                                                    "BENCH_PLATFORM")}
+        os.environ["TEXTLM_ARTIFACT"] = os.path.join(root, "textlm.json")
+        os.environ.pop("BENCH_PLATFORM", None)
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as lines:
+                rc = train_real_text.main()
+            text_s = time.perf_counter() - t0
+            text_launches = launch_counts()
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        with open(os.path.join(root, "textlm.json")) as f:
+            payload = json.load(f)
+        curve_lines = lines.getvalue().strip().splitlines()[:-1]
+        print("textlm-run " + json.dumps(dict(
+            payload, seconds=text_s, launches=text_launches,
+            curve_lines=len(curve_lines), card=card)), flush=True)
+        check(rc == 0 and set(payload) == TEXTLM_KEYS,
+              f"textlm-run: rc {rc}, keys {sorted(payload)}")
+        check(payload["value"] < payload["initial_holdout_loss"]
+              and payload["value"] < UNIFORM_BYTE_LOSS,
+              f"textlm-run: best holdout loss {payload['value']} not below "
+              f"the initial {payload['initial_holdout_loss']} and ln 256")
+        check(isinstance(payload["sample"], str) and payload["sample"]
+              .startswith(train_real_text.PROMPT),
+              "textlm-run: the sample does not decode to the prompt and a "
+              "continuation")
+        check(payload["device_kind"] == torch.cuda.get_device_name(0),
+              "textlm-run: not on the card")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("ckpt-phase " + json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, card=card)), flush=True)
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
@@ -7537,11 +7902,12 @@ def main(argv=None) -> int:
                              "ring",
                              "ep",
                              "tp", "opt", "lmtp", "lmdp", "bf16", "seq",
-                             "guard",
+                             "guard", "ckpt",
                              "dist", "dist-tp", "dist-lmdp", "dist-bf16",
-                             "dist-seq"],
+                             "dist-seq", "dist-ckpt"],
                     default="all")
     args = ap.parse_args(argv)
+    t_run = time.perf_counter()
     try:
         import numpy as np
         import torch
@@ -7575,15 +7941,15 @@ def main(argv=None) -> int:
           flush=True)
 
     if args.phase in ("dist", "dist-tp", "dist-lmdp", "dist-bf16",
-                      "dist-seq"):
+                      "dist-seq", "dist-ckpt"):
         kernels = dist_phase(torch, part=args.phase[5:] or "all")
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0 if all(k["ok"] for k in kernels) else 1
 
     timer = Timer(torch)
     kernels, bad = [], []
-    ffn_phases, lm_phases = ("all", "kernel", "train"), ("all", "lm")
-    lm_kernel_phases = ("all", "lm", "lmtp", "lmdp", "seq")
+    ffn_phases, lm_phases = ("all", "kernel", "train", "ckpt"), ("all", "lm")
+    lm_kernel_phases = ("all", "lm", "lmtp", "lmdp", "seq", "ckpt")
     ring_phases, ep_phases = ("all", "ring"), ("all", "ep")
     opt_phases, bf16_phases = ("all", "opt"), ("all", "bf16")
     serve_phases = ("all", "kernel", "serve", "spec")
@@ -7621,6 +7987,7 @@ def main(argv=None) -> int:
     ep_launches = bf16_launches = lmtp_launches = lmdp_launches = None
     dtype_launches = lm_bf16_launches = seq_launches = seq_a2a = None
     serve_launches = bf16_opt_launches = guard_launches = None
+    ckpt_launches = None
     if not bad and args.phase in ("all", "serve", "spec"):
         params, prompts = served_model(torch, np)
         serve_launches = {}
@@ -7663,6 +8030,8 @@ def main(argv=None) -> int:
         seq_launches = seq_phase(torch, np, card)
     if not bad and args.phase in ("all", "guard"):
         guard_launches = guard_phase(torch, np, card)
+    if not bad and args.phase in ("all", "ckpt"):
+        ckpt_launches = ckpt_phase(torch, np, card)
     if args.phase in serve_phases:
         main_case = next(c for c in cases if c["shape"] == "serving"
                          and c["kv_dtype"] == "f32")
@@ -7707,6 +8076,11 @@ def main(argv=None) -> int:
         kernels += lm_bf16_rows(lm_bf16_cases, lm_bf16_launches)
     path_launches(kernels, "bf16_opt_launches", bf16_opt_launches)
     path_launches(kernels, "guard_launches", guard_launches)
+    path_launches(kernels, "ckpt_launches", ckpt_launches)
+    # the whole run's wall time, the kernels' build included
+    print("smoke-wall " + json.dumps(dict(
+        phase=args.phase, seconds=time.perf_counter() - t_run, card=card)),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if bad:
         print(f"error: kernel disagrees with its plain version: {bad}",

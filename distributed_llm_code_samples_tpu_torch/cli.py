@@ -83,6 +83,19 @@ with ``--comm pallas_ring``); ``--mixed`` (bf16 matmul operands) applies
 to methods 1-5, also inside 0, and not with ``--pallas``; ``--accum``
 to methods 1 and 2.
 
+``--checkpoint_dir`` runs each method through the checkpoint layer
+(``checkpoint.py``), as the JAX CLI's does: a published step every
+``--checkpoint_every`` steps in ``<dir>/<trainer>``, on the ``npz`` or
+``native`` backend (``--checkpoint_backend``; JAX's ``orbax`` exits 2),
+and a re-run of the same command resumes from the newest verified step
+(``--no_resume`` starts over). ``--chaos`` (a fault plan of
+``runtime/chaos.py``, a single method) and ``--spike_factor`` run it under
+the failure supervisor (``runtime/failure.py``) with its rollback and
+restart budgets (``--max_rollbacks``, ``--max_restarts``); ``kill@s``
+SIGKILLs the process after step ``s`` is published, and the same command
+run again resumes past it. Its payload replaces the step times by the
+wall time and the step the directory ended on.
+
 It prints the reference's banner, ``PARAMS:`` line and the first layer's
 5x5 corners, then for each method its ``<trainer> takes N seconds`` line,
 its final corners and one JSON line: steps, tokens per step (a rank;
@@ -186,6 +199,46 @@ def build_parser() -> argparse.ArgumentParser:
                         "initial dynamic loss scale (0 = auto 2^15; "
                         "grows 2x per 200 clean steps, halves on "
                         "overflow)")
+    p.add_argument("--checkpoint_dir", default=None,
+                   help="enable checkpoint/resume: save params + seed "
+                        "schedule here (per-method subdirs); a re-run with "
+                        "the same dir resumes from the latest verified "
+                        "checkpoint")
+    p.add_argument("--checkpoint_backend",
+                   choices=["npz", "orbax", "native"], default="npz",
+                   help="checkpoint array I/O: npz (portable), native "
+                        "(async C++ writer: training overlaps the disk "
+                        "write); orbax, the JAX package's multi-host "
+                        "backend, is not ported and exits 2")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="save every N steps (0 = final only); for methods "
+                        "that shard the seed schedule (2, 3, 5, 7) pick N "
+                        "divisible by the sharding-axis size")
+    p.add_argument("--no_resume", action="store_true",
+                   help="ignore existing checkpoints (restart from step 0)")
+    p.add_argument("--chaos", default=None, metavar="SPEC",
+                   help="run the strategy under deterministic fault load "
+                        "(runtime/chaos.py): comma-separated "
+                        "KIND@STEP[:ARG] entries plus optional seed=N, "
+                        "KIND in {nan_grad, inf_grad, loss_spike, "
+                        "slow_step, hang, kill, corrupt_ckpt}. The run goes "
+                        "through the failure supervisor (rollback, restart "
+                        "and verified-checkpoint recovery); requires "
+                        "--checkpoint_dir and a single --method")
+    p.add_argument("--max_restarts", type=int, default=3,
+                   help="with --chaos or --spike_factor: the supervisor's "
+                        "restart budget")
+    p.add_argument("--spike_factor", type=float, default=0.0,
+                   help="with --checkpoint_dir: arm the loss-spike guard — "
+                        "a segment whose param-update norm exceeds this "
+                        "multiple of the previous segment's raises for the "
+                        "supervisor's in-process rollback rung instead of "
+                        "being checkpointed (0 = off)")
+    p.add_argument("--max_rollbacks", type=int, default=2,
+                   help="with --chaos or --spike_factor: budget for the "
+                        "supervisor's in-process rollback rung (rewind to "
+                        "the last verified checkpoint without a restart) "
+                        "before escalating to full restarts")
     p.add_argument("--lr", type=float, default=None,
                    help="learning rate (default: the reference's 1e-5)")
     p.add_argument("--scan", action="store_true",
@@ -317,7 +370,53 @@ def _flag_error(args) -> str | None:
                 "bf16 params (a VJP that expects f32 cotangents gets bf16, "
                 "ROADMAP.md Queue 3), so there is no step to hold the port "
                 "to; drop one of the flags")
-    return _guard_error(args)
+    return _guard_error(args) or _checkpoint_error(args)
+
+
+def _checkpoint_error(args) -> str | None:
+    """The checkpoint, chaos and spike flags, with the JAX CLI's rules and
+    messages (its ``cli.py:295-323, 351-372, 494-501``); the orbax
+    backend is not ported."""
+    if args.checkpoint_backend == "orbax" and args.checkpoint_dir:
+        return ("--checkpoint_backend orbax is the JAX package's multi-host "
+                "backend and is not ported (ROADMAP.md: checkpoints); use "
+                "npz or native")
+    if args.chaos:
+        if not args.checkpoint_dir:
+            return ("--chaos requires --checkpoint_dir (recovery resumes "
+                    "from published checkpoints)")
+        if args.method in (0, 9):
+            return ("--chaos applies to a single --method (not 0/9): "
+                    "restarts would desync the cross-strategy verification")
+        from .runtime.chaos import FaultPlan, IN_SEGMENT_KINDS, PUBLISH_KINDS
+        try:
+            plan = FaultPlan.parse(args.chaos)
+        except ValueError as e:
+            return str(e)
+        train_kinds = IN_SEGMENT_KINDS + PUBLISH_KINDS
+        bad_kinds = [f.kind for f in plan.faults if f.kind not in train_kinds]
+        if bad_kinds:
+            return (f"--chaos kind(s) {bad_kinds} are decode faults; the "
+                    f"train CLI accepts {train_kinds} (use the generate "
+                    "subcommand for serving faults)")
+    if args.spike_factor < 0:
+        return f"--spike_factor must be >= 0 (got {args.spike_factor})"
+    if args.spike_factor and not args.checkpoint_dir:
+        return ("--spike_factor requires --checkpoint_dir (the spike guard "
+                "compares checkpoint-segment deltas and the rollback rung "
+                "rewinds to a published checkpoint)")
+    if args.spike_factor and not args.checkpoint_every:
+        return ("--spike_factor requires --checkpoint_every > 0: the spike "
+                "guard compares successive segment deltas, and one "
+                "whole-run segment has nothing to compare")
+    if args.max_rollbacks < 0:
+        return f"--max_rollbacks must be >= 0 (got {args.max_rollbacks})"
+    if (args.zero1 and args.optimizer != "sgd" and args.checkpoint_dir
+            and args.checkpoint_every):
+        return ("--checkpoint_every does not checkpoint ZeRO-1's sharded "
+                "optimizer state; with --zero1 only whole-run checkpoints "
+                "(0) are supported")
+    return None
 
 
 def _guard_error(args) -> str | None:
@@ -634,7 +733,11 @@ def main(argv=None) -> int:
     for m in methods:
         common = dict(method=m, steps=args.num_steps, tokens_per_step=tokens,
                       lr=lr, dtype=args.dtype, build_s=build_s)
-        if m == 1:
+        if args.checkpoint_dir:
+            out, payload = _run_checkpointed(args, m, meshes.get(m), params,
+                                             seeds, tokens, device, lr, comm,
+                                             single_kwargs)
+        elif m == 1:
             out, payload = _run_single(args, params, seeds, tokens, device,
                                        dict(single_kwargs,
                                             guard=_guard(args, 1)))
@@ -653,6 +756,88 @@ def main(argv=None) -> int:
                                     else CHECK_TOL))
         return 1 if failed and args.strict else 0
     return 0
+
+
+def _run_checkpointed(args, m: int, mesh, params, seeds, tokens: int,
+                      device, lr: float, comm: str, single_kwargs: dict):
+    """Method ``m`` through ``checkpoint.run_with_checkpointing`` (JAX
+    ``cli.py:781-850``), in ``--checkpoint_dir/<trainer>``; under
+    ``--chaos`` or ``--spike_factor`` through ``runtime.failure.supervise``
+    (under ``--chaos`` with ``nonfinite="raise"``). The multi-rank
+    trainers take the whole mesh and launch their ranks a segment. The
+    payload has the wall time, the checkpoint settings, the step the
+    directory ended on and the kernel launches of this process."""
+    import os
+
+    import torch
+
+    from . import parallel
+    from .checkpoint import latest_verified_step, run_with_checkpointing
+    from .ops import launch_counts, reset_launch_counts
+    from .parallel import DATA_AXIS, EXPERT_AXIS
+    name = "train_ddp_zero1" if m == 2 and args.zero1 else TRAINERS[m]
+    if m == 1:
+        kwargs = dict(single_kwargs)
+        guard = _guard(args, 1)
+        params = type(params)(*(t.to(device) for t in params))
+    else:
+        kwargs = _rank_options(args, m)
+        kwargs.pop("zero1", None)
+        guard = kwargs.pop("guard", None)
+        if m in (2, 3, 7) and not args.zero1:
+            kwargs["comm"] = comm
+        if m == 4 and args.tp_sp:
+            name = "train_tp_sp"
+        kwargs.update(mesh=mesh, lr=lr)
+    fn = getattr(parallel, name)
+    opt = kwargs.pop("optimizer", None)
+    stateful_opt = opt is not None and not opt.stateless
+    seed_stride = 1 if mesh is None else (mesh.shape.get(DATA_AXIS, 1)
+                                          * mesh.shape.get(EXPERT_AXIS, 1))
+    runner, ck = run_with_checkpointing, {}
+    if args.chaos or args.spike_factor > 0:
+        from .runtime.chaos import FaultPlan
+        from .runtime.failure import supervise as runner
+        ck = dict(max_restarts=args.max_restarts,
+                  max_rollbacks=args.max_rollbacks)
+        if args.chaos:
+            ck.update(chaos=FaultPlan.parse(args.chaos), nonfinite="raise")
+    ckpt_dir = os.path.join(args.checkpoint_dir, name)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = runner(fn, params, seeds, tokens, args.model_size,
+                 ckpt_dir=ckpt_dir, every=args.checkpoint_every,
+                 resume=not args.no_resume, seeds_divisor=seed_stride,
+                 backend=args.checkpoint_backend, optimizer=opt,
+                 thread_state=stateful_opt and not args.zero1,
+                 stateful=stateful_opt and args.zero1, guard=guard,
+                 spike_factor=args.spike_factor,
+                 # seed poison reaches a float gradient only in the FFN
+                 # family; the others keep the host-level poison
+                 in_graph_chaos=guard is not None and m in (1, 2, 3, 4, 5),
+                 **ck, **kwargs)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    print(f"\n{name} takes {wall} seconds")
+    return _to_cpu(out), {
+        "wall_s": wall,
+        "checkpoint_dir": ckpt_dir,
+        "checkpoint_every": args.checkpoint_every,
+        "checkpoint_backend": args.checkpoint_backend,
+        "latest_verified_step": latest_verified_step(ckpt_dir),
+        "supervised": runner is not run_with_checkpointing,
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "kernel_launches": launch_counts(),
+    }
+
+
+def _to_cpu(params):
+    from .optim import tree_map
+    return tree_map(lambda t: t.detach().cpu(), params)
 
 
 def _run_single(args, params, seeds, tokens: int, device, kwargs):

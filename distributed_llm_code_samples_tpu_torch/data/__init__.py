@@ -82,6 +82,44 @@ def lm_batch_from_seed(seed, batch: int, seq_len: int, vocab: int, *,
     return toks[:, :-1], toks[:, 1:]
 
 
+_CORPUS = None
+
+
+def load_text_corpus() -> np.ndarray:
+    """The embedded real-text corpus as a ``uint8`` byte array, the port's
+    own copy of the JAX package's ``data_assets/corpus.txt`` (about 237 KB
+    of English prose: the license texts of a Debian image, freely
+    redistributable). Byte-level vocabulary (256): every byte is a
+    token."""
+    global _CORPUS
+    if _CORPUS is None:
+        import os
+        path = os.path.join(os.path.dirname(__file__), "..", "data_assets",
+                            "corpus.txt")
+        with open(path, "rb") as f:
+            _CORPUS = np.frombuffer(f.read(), dtype=np.uint8)
+    return _CORPUS
+
+
+def text_batch_from_seed(seed, batch: int, seq_len: int, corpus=None):
+    """One real-text LM step from its integer seed: ``batch`` windows of
+    ``seq_len + 1`` bytes of the corpus, split next-token style like
+    ``lm_batch_from_seed`` (int64 ``tokens, targets [batch, seq_len]`` on
+    the CPU). The window starts come from a ``torch.Generator`` seeded
+    with the seed, in ``[0, len - seq_len)`` as JAX's bound (the last
+    window ends on the corpus's final byte); their numbers differ from
+    JAX's draws, and the tests hand JAX's windows across through
+    ``TokenTable``. ``corpus`` defaults to the embedded one."""
+    data = np.asarray(load_text_corpus() if corpus is None else corpus)
+    gen = torch.Generator()
+    gen.manual_seed(int(seed))
+    starts = torch.randint(0, data.shape[0] - seq_len, (batch,),
+                           generator=gen).numpy()
+    seqs = torch.from_numpy(data[starts[:, None] + np.arange(seq_len + 1)]
+                            .astype(np.int64))
+    return seqs[:, :-1], seqs[:, 1:]
+
+
 def make_seed_schedule(num_steps: int, random_seed: int = 0) -> np.ndarray:
     """``num_steps`` int32 seeds in ``[0, 100_000)`` (``train_ffns.py:360``),
     bit for bit the JAX package's schedule: ``random_seed != 0`` seeds

@@ -9,7 +9,7 @@ from .ffn_stack import (FFNStackParams, clone_params, ffn_params_from_numpy,
                         init_ffn_stack, params_size_gb)
 from .lm import (LMParams, clone_lm, decode_attn, decode_step, generate,
                  init_lm, lm_from_leaves, lm_hidden, lm_leaves, lm_logits,
-                 lm_loss, lm_params_from_numpy)
+                 lm_loss, lm_params_from_numpy, sample, sample_pick)
 from .moe import (MoEStackParams, clone_moe, init_moe_stack,
                   moe_params_from_numpy)
 from .transformer import (TransformerParams, init_transformer,
@@ -25,5 +25,6 @@ __all__ = ["FFNStackParams", "LMParams", "MoEStackParams",
            "init_transformer", "lm_from_leaves", "lm_hidden", "lm_leaves",
            "lm_logits", "lm_loss", "lm_params_from_numpy", "mha",
            "moe_params_from_numpy",
-           "params_size_gb", "rope", "rope_mha", "transformer_block",
+           "params_size_gb", "rope", "rope_mha", "sample", "sample_pick",
+           "transformer_block",
            "transformer_fwd", "transformer_params_from_numpy"]

@@ -7,17 +7,18 @@ next-token cross-entropy, with a ``head`` hook for the fused head), and
 the parameters as a list of leaves in ``jax.tree_util.tree_leaves``
 order (``lm_leaves``, ``lm_from_leaves``, ``clone_lm``) for the trainer.
 Serving: ``decode_attn`` (the single-query attention the decode engine's
-gather path and the kernel's plain version share) and a greedy lockstep
+gather path and the kernel's plain version share), a greedy lockstep
 ``generate`` over a contiguous cache (an oracle for the engine that
-shares no paged code with it). ``lm_params_from_numpy`` carries the JAX
-package's weights across so that both packages compute the same thing
-in the tests.
+shares no paged code with it) and its sampled form ``sample``.
+``lm_params_from_numpy`` carries the JAX package's weights across so
+that both packages compute the same thing in the tests.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -250,11 +251,12 @@ def decode_step(params: LMParams, cache_k, cache_v, token, pos: int,
 
 
 @torch.no_grad()
-def generate(params: LMParams, prompt, n_new: int, n_heads: int, *,
-             use_rope: bool = False) -> torch.Tensor:
-    """Greedy lockstep decode over a contiguous cache: ``prompt [B, T0]``
-    int -> ``[B, T0 + n_new]``. Step ``pos`` feeds the prompt token while
-    ``pos < T0`` (filling the cache) and the previous pick after."""
+def _decode_loop(params: LMParams, prompt, n_new: int, n_heads: int, pick,
+                 use_rope: bool = False) -> torch.Tensor:
+    """Lockstep decode over a contiguous cache: ``prompt [B, T0]`` int ->
+    ``[B, T0 + n_new]``. Step ``pos`` feeds the prompt token while ``pos <
+    T0`` (filling the cache) and the previous pick after; ``pick(logits,
+    pos)`` chooses the token at ``pos + 1``."""
     dev = params.device
     prompt = torch.as_tensor(prompt, device=dev).long()
     b, t0 = prompt.shape
@@ -273,5 +275,58 @@ def generate(params: LMParams, prompt, n_new: int, n_heads: int, *,
         logits = decode_step(params, ck, cv, toks[:, pos], pos, n_heads,
                              use_rope)
         if pos + 1 >= t0:
-            toks[:, pos + 1] = torch.argmax(logits, dim=-1)
+            toks[:, pos + 1] = pick(logits, pos)
     return toks
+
+
+def generate(params: LMParams, prompt, n_new: int, n_heads: int, *,
+             use_rope: bool = False) -> torch.Tensor:
+    """Greedy lockstep decode: ``prompt [B, T0]`` int -> ``[B, T0 +
+    n_new]`` (``_decode_loop`` with the argmax pick)."""
+    return _decode_loop(params, prompt, n_new, n_heads,
+                        lambda z, pos: torch.argmax(z, dim=-1), use_rope)
+
+
+def sample_pick(temperature: float, top_k: int, vocab: int, seed: int,
+                noise_fn=None):
+    """The stochastic ``pick(logits, pos)`` of ``_decode_loop`` (JAX
+    ``models/lm.py:333``): temperature-scaled, optionally top-k-truncated
+    categorical draws, as ``argmax(z + gumbel)`` (JAX's ``categorical``).
+    ``noise_fn(pos, shape)`` gives the Gumbel noise of position ``pos``
+    (the tests hand JAX's draws in); by default row ``i`` draws from the
+    serving sampler's generator keyed on ``(seed, i, pos)``
+    (``decode.sampling.gumbel_noise``), so a continuation is reproducible
+    with no carried state; its numbers are not ``jax.random``'s. Raises
+    JAX's ``ValueError``s."""
+    if temperature <= 0:
+        raise ValueError(f"temperature must be > 0, got {temperature} "
+                         "(use the greedy decoder — generate/"
+                         "moe_generate — for the argmax limit)")
+    if top_k < 0 or top_k > vocab:
+        raise ValueError(f"top_k={top_k} outside [0, vocab={vocab}]")
+
+    def pick(logits, pos):
+        z = logits.float() / temperature
+        if top_k:
+            kth = torch.topk(z, top_k, dim=-1).values[:, -1:]
+            z = torch.where(z < kth, torch.full_like(z, float("-inf")), z)
+        if noise_fn is None:
+            from ..decode.sampling import gumbel_noise
+            g = gumbel_noise(seed, range(z.shape[0]), [pos] * z.shape[0],
+                             z.shape[1], z.device)
+        else:
+            g = torch.from_numpy(np.array(noise_fn(pos, tuple(z.shape)),
+                                          dtype=np.float32)).to(z.device)
+        return torch.argmax(z + g, dim=-1)
+
+    return pick
+
+
+def sample(params: LMParams, prompt, n_new: int, n_heads: int, *,
+           temperature: float = 1.0, top_k: int = 0, seed: int = 0,
+           use_rope: bool = False, noise_fn=None) -> torch.Tensor:
+    """Stochastic decode (JAX ``models/lm.py:359``; see ``sample_pick``).
+    ``top_k=0`` samples the whole distribution; ``top_k=1`` is greedy."""
+    return _decode_loop(params, prompt, n_new, n_heads,
+                        sample_pick(temperature, top_k, params.vocab, seed,
+                                    noise_fn), use_rope)

@@ -1,7 +1,9 @@
 """The wire format of one document of arrays, as in the JAX package's
 ``runtime/wire.py`` (``WireError``, ``serialize_doc``,
 ``deserialize_doc``): the spill tier (``decode/spill.py``) keeps each
-spilled KV block as one such document in host RAM.
+spilled KV block as one such document in host RAM. Its integrity
+primitives (``crc_file``, ``fsync_file``, ``fsync_dir``, ``np_dtype``)
+are the checkpoint layer's (``checkpoint.py``), as in JAX.
 
 One document is one npz byte string. Each array rides as the raw bytes
 of its storage, a flat ``uint8`` entry; a JSON header (one more entry)
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import zlib
 
 import numpy as np
@@ -37,6 +40,42 @@ _HEADER_ENTRY = "__wire_header__"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int8": torch.int8}
 _NAMES = {v: k for k, v in _DTYPES.items()}
+
+
+# -- integrity primitives (the checkpoint layer's) ---------------------------
+
+def crc_file(path: str, chunk: int = 1 << 20) -> int:
+    """Streaming CRC-32 of a file (the checkpoint verify primitive)."""
+    crc = 0
+    with open(path, "rb") as f:
+        while block := f.read(chunk):
+            crc = zlib.crc32(block, crc)
+    return crc
+
+
+def fsync_file(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def fsync_dir(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY | getattr(os, "O_DIRECTORY", 0))
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass  # some filesystems refuse directory fsync; rename still atomic
+    finally:
+        os.close(fd)
+
+
+def np_dtype(name: str) -> np.dtype:
+    """Resolve a saved dtype name: numpy's own, and ``bfloat16``, which
+    numpy lacks, as the 2-byte word it is stored in (the port rebuilds it
+    through ``torch.Tensor.view``)."""
+    return np.dtype(np.uint16) if name == "bfloat16" else np.dtype(name)
 
 
 class WireError(ValueError):

@@ -27,6 +27,10 @@ from distributed_llm_code_samples_tpu_torch.decode import (DecodeEngine,
                                                            EngineConfig)
 from distributed_llm_code_samples_tpu_torch.models.lm import (
     generate, lm_params_from_numpy)
+from torch_serve_refs import one_thread  # noqa: F401 - a fixture
+
+# tiny models: one torch thread a worker process (the suite runs six)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 V, D, L, H = 64, 32, 2, 4
 BASE = dict(block_size=8, n_blocks=33, max_slots=3, max_blocks_per_seq=6,

@@ -30,7 +30,7 @@ def _modules():
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
 
@@ -43,7 +43,9 @@ def test_every_module_imports_without_jax():
               "parallel.transformer", "ops.ring", "parallel.mesh",
               "parallel.collectives", "parallel.launcher", "parallel.ddp",
               "parallel.fsdp", "ops.moe", "models.moe", "parallel.expert",
-              "parallel.tp", "parallel.hybrid", "parallel.zero1"):
+              "parallel.tp", "parallel.hybrid", "parallel.zero1",
+              "checkpoint", "runtime.chaos", "runtime.failure",
+              "runtime.native", "runtime.wire", "train_real_text"):
         assert f"distributed_llm_code_samples_tpu_torch.{m}" in mods
     code = ("import sys; sys.modules['jax'] = None; "
             "import importlib; "
