@@ -64,7 +64,9 @@
                                              # cards (also in dist-tp)
 
 Builds every kernel of the port from ``csrc/`` (printing ptxas's spill
-counts as ``ptxas-spills``), holds each against its plain PyTorch
+counts as ``ptxas-spills``; the HGMMA instructions of the FFN libraries'
+SASS as ``ffn-tc-sass`` and the tensor-core passes' registers as
+``ffn-tc-ptxas``), holds each against its plain PyTorch
 version on the card, times both (the paged decode attention also at
 each split size, ``paged-splits``), then drives the port's paths:
 
@@ -194,7 +196,10 @@ each split size, ``paged-splits``), then drives the port's paths:
   (``BF16_SHARE``, with a control that must fail), timed beside their f32
   calls and the cuBLAS bf16 composition, and the all-reduce and the
   reduce-scatter of bf16 in loopback bit for bit against the plain ring
-  (``bf16-ffn-kernel-case``, ``bf16-ring-kernel-case``); ``train_single``
+  (``bf16-ffn-kernel-case``, ``bf16-ring-kernel-case``); the backward
+  kernels' tensor-core pass 2 under each plan of ``tc_sweep_plans``
+  (``ffn-tc-dx-slices``, ``ffn-tc-dw-slices``) and the three kernels'
+  device time by pass (``bf16-ffn-passes``); ``train_single``
   on bf16 params at the training shape through the kernels and through
   cuBLAS bf16 blocks (``bf16-train-run``: 24 launches of each FFN
   kernel's ``[bf16]`` form a step, exact), ``cli.py -m 1 --pallas
@@ -456,18 +461,27 @@ LM_LOSS_TOL = 1e-5
 # change one bit (tests/test_torch_cuda_kernels.py checks it too).
 HEAD_BITS_SHA256 = (
     "974dab8abf840cd5e8d2d97d47b3923a3a9e28519c68237878b4f85754883daa")
-# The weight-gradient kernel's bits from before it moved onto the passes
-# it shares with the forward and the input gradient (csrc/ffn_gemm.cuh):
-# ffn_dw_bits_digest on the previous build of ffn_bwd_dw.cu, on an NVIDIA
-# H100 80GB HBM3. The move must not change one bit.
+# The weight-gradient kernel's f32 bits (mode 0) from before it moved
+# onto the passes it shares with the forward and the input gradient
+# (csrc/ffn_gemm.cuh): ffn_dw_bits_digest on the build before the
+# tensor-core passes, on an NVIDIA H100 80GB HBM3, where the digest of
+# both operand modes still equalled the one stored before the move
+# (ffdac082...f4c7). Neither change may move one bit of mode 0.
 FFN_DW_BITS_SHA256 = (
-    "ffdac082593112373c6865e0dc12449ebe1d9ccca14d6c44bfe14e5b7007f4c7")
+    "26590fdab37cb4c8e1dddbd02d3c47c5d4b0fbece34627e15b82a8ed3fa16866")
 # the passes of the three FFN kernels (csrc/ffn_gemm.cuh) by the names of
 # their kernels in a profile: the template's tag names the FFN kernel
 FFN_PASS = re.compile(
-    r"(gemm_prep|hidden|slice|reduce)_kernel<ffn_gemm::(fwd|dx|dw)\b")
+    r"(gemm_prep|bf16_prep|wgmma_hidden|wgmma_slice|split_reduce|hidden"
+    r"|slice|reduce)_kernel<ffn_gemm::(fwd|dx|dw)\b")
 FFN_PASS_NAMES = {"gemm_prep": "copies", "hidden": "pass1",
-                  "slice": "pass2", "reduce": "reduce"}
+                  "slice": "pass2", "reduce": "reduce",
+                  "bf16_prep": "tc_copies", "wgmma_hidden": "tc_pass1",
+                  "wgmma_slice": "tc_pass2", "split_reduce": "tc_reduce"}
+# the tensor-core passes of the backward kernels' modes 1 and 2
+# (csrc/ffn_wgmma.cuh), by the names of their CUDA kernels in the SASS
+# (ffn-tc-sass) and the ptxas report (ffn-tc-ptxas)
+FFN_TC_KERNELS = ("wgmma_hidden_kernel", "wgmma_slice_kernel")
 FFN_TAGS = {"fwd": "ffn_fwd", "dx": "ffn_bwd_dx", "dw": "ffn_bwd_dw"}
 # the LM kernels' launches by the names of their CUDA kernels in a
 # profile: (LM kernel, part, pattern)
@@ -1389,16 +1403,76 @@ def ffn_bound(name, flop_mult, t, d, f, mxu_bf16):
                    else (t_bytes, "bytes"))
 
 
+def ffn_tc_sass():
+    """The ``ffn-tc-sass`` and ``ffn-tc-ptxas`` lines: the HGMMA
+    instructions in the SASS of each FFN library (``cuobjdump -sass`` on
+    its ``.so``), by CUDA kernel, which must be some in each tensor-core
+    pass of both backward kernels and none in ``ffn_fwd``; and those
+    passes' registers and spill bytes from the ptxas report of the build
+    (``_build.build_logs``). Returns the ``ffn-tc-sass`` row."""
+    from distributed_llm_code_samples_tpu_torch.ops import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    per = {}
+    for name in ("ffn_fwd", "ffn_bwd_dx", "ffn_bwd_dw"):
+        out = subprocess.run([cuobjdump, "-sass", _build._target(name)],
+                             capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0,
+              f"cuobjdump -sass failed on {name}: {out.stderr[-2000:]}")
+        fn, rows = None, {}
+        for line in out.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m[1]
+                rows.setdefault(fn, 0)
+            elif fn is not None and "HGMMA" in line:
+                rows[fn] += 1
+        per[name] = rows
+    passes = {name: {k: sum(v for f, v in rows.items() if k in f)
+                     for k in FFN_TC_KERNELS} for name, rows in per.items()}
+    total = {name: sum(rows.values()) for name, rows in per.items()}
+    row = dict(kernel="ffn-tc-sass", hgmma=passes, hgmma_total=total,
+               ok=total["ffn_fwd"] == 0 and all(
+                   passes[n][k] > 0 for n in ("ffn_bwd_dx", "ffn_bwd_dw")
+                   for k in FFN_TC_KERNELS))
+    print("ffn-tc-sass " + json.dumps(row), flush=True)
+    usage = {}
+    for name in ("ffn_bwd_dx", "ffn_bwd_dw"):
+        kernel = None
+        for line in _build.build_logs.get(name, "").splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([^' ]+)", line)
+            if m:
+                kernel = m[1] if any(k in m[1] for k in FFN_TC_KERNELS) \
+                    else None
+                continue
+            if kernel is None:
+                continue
+            entry = usage.setdefault(name, {}).setdefault(kernel, {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                entry["spill_bytes"] = int(m[1]) + int(m[2])
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entry["registers"] = int(m[1])
+    print("ffn-tc-ptxas " + json.dumps(dict(
+        usage=usage, build_seconds={n: _build.build_seconds.get(n)
+                                    for n in ("ffn_bwd_dx", "ffn_bwd_dw")})),
+        flush=True)
+    return row
+
+
 def ffn_kernel_phase(torch, np, timer):
     """Each FFN kernel against its plain version at every shape of
-    ``FFN_SHAPES``, both operand modes: error, determinism, times."""
+    ``FFN_SHAPES``, both operand modes: error, determinism, times; first
+    the tensor-core passes' SASS (``ffn_tc_sass``)."""
     from distributed_llm_code_samples_tpu_torch.ops import fused_ffn as ff
     # (kernel, plain) with the backward wrappers' argument order
     fns = {"ffn_fwd": (lambda dy, *w, **k: ff.ffn_fwd_fused(*w, **k),
                        lambda dy, *w, **k: ff.ffn_fwd_ref(*w, **k)),
            "ffn_bwd_dx": (ff.ffn_bwd_dx_fused, ff.ffn_bwd_dx_ref),
            "ffn_bwd_dw": (ff.ffn_bwd_dw_fused, ff.ffn_bwd_dw_ref)}
-    results = []
+    results = [ffn_tc_sass()]
     for n, (shape, t, d, f) in enumerate(FFN_SHAPES):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(100 + n)
@@ -1485,10 +1559,12 @@ def slice_sweep(torch, timer, ff, attr, depth, counts, kern, plain):
 
 
 def ffn_dw_bits_digest(torch, np, ff):
-    """sha256 over dw1 and dw2 of ``ffn_bwd_dw`` calls in each operand
-    mode, on inputs made with numpy: a ragged shape whose tokens split
-    into three slices (the partials and their ordered sum) and one with
-    no dim a multiple of 4 (the padded copies), also in three slices."""
+    """sha256 over dw1 and dw2 of f32 ``ffn_bwd_dw`` calls (mode 0, the
+    CUDA-core passes), on inputs made with numpy: a ragged shape whose
+    tokens split into three slices (the partials and their ordered sum)
+    and one with no dim a multiple of 4 (the padded copies), also in
+    three slices. The inputs are drawn as when the digest also covered
+    the ``mxu_bf16`` calls, whose passes moved to the tensor cores."""
     import hashlib
     rng = np.random.default_rng(2025)
     out = hashlib.sha256()
@@ -1498,9 +1574,8 @@ def ffn_dw_bits_digest(torch, np, ff):
         x = rng.normal(size=(t, d)).astype(np.float32)
         dy = (0.1 * rng.normal(size=(t, d))).astype(np.float32)
         args = [torch.from_numpy(a).cuda() for a in (dy, w1, w2, x)]
-        for mxu_bf16 in (False, True):
-            for g in ff.ffn_bwd_dw_fused(*args, mxu_bf16=mxu_bf16):
-                out.update(g.cpu().numpy().tobytes())
+        for g in ff.ffn_bwd_dw_fused(*args):
+            out.update(g.cpu().numpy().tobytes())
     return out.hexdigest()
 
 
@@ -5511,6 +5586,12 @@ DTYPE_RING_CASES = (("ring_all_reduce", "dw1", (FFN_DIM, D_MODEL)),
 # the outputs to the other neighbour, so it must differ in more than
 # BF16_SHARE of them.
 BF16_SHARE = 0.05
+# plans of the backward kernels' tensor-core pass 2 (the weight
+# gradients' token axis, tc_dw_plan; the input gradient's ffn axis,
+# tc_dx_plan) timed at the main shape on bf16 storage, beside the
+# default (whole tiles for the full rounds, the rest split): every tile
+# whole, and every tile in each of these slice counts
+TC_SPLIT_SWEEP = (2, 3, 4, 8)
 # bf16 training runs: loopback DDP and FSDP steps a rank (each launches
 # exact counts; 4 keeps the phase near a minute), and the LR of the one
 # step held against float64: at CHECK_LR a step's largest update is some
@@ -5572,16 +5653,29 @@ def ffn_bf16_bound(flops, t, d, f, name):
             else "bytes", max(t_f32, t_bytes))
 
 
-def ffn_bf16_staging(ff, name, t, d, f):
-    """Bytes of a kernel's f32 scratch at one slice: its padded f32
-    copies of the operands (``copy_bytes``, what bf16 storage stages in
-    f32) and the f32 hidden activation (``hidden_bytes``)."""
-    pieces = {"ffn_fwd": ff.fwd_scratch, "ffn_bwd_dx": ff.dx_scratch,
-              "ffn_bwd_dw": ff.dw_scratch}[name](t, d, f, (1, 0))
-    hidden = sum(4 * (pieces[k][0][0] * pieces[k][0][1])
-                 for k in ("aT", "dhT", "a", "dh") if k in pieces)
-    return dict(copy_bytes=4 * pieces["total"] - hidden,
-                hidden_bytes=hidden)
+def ffn_bf16_staging(ff, name, dy, w1, w2, x):
+    """Bytes of a bf16 call's scratch at one slice: its operand copies
+    (``copy_bytes``: the forward's padded f32 copies; the backward
+    kernels' staged bf16 copies, none where TMA reads an operand in
+    place) and its hidden activation (``hidden_bytes``: f32 in the
+    forward, bf16 in the backward kernels)."""
+    t, d = x.shape
+    f = w1.shape[0]
+    if name == "ffn_fwd":
+        pieces = ff.fwd_scratch(t, d, f, (1, 0))
+        hidden = 4 * pieces["aT"][0][0] * pieces["aT"][0][1]
+        return dict(copy_bytes=4 * pieces["total"] - hidden,
+                    hidden_bytes=hidden)
+    staged = ff.tc_staged(2, {"xs": (x.data_ptr(), d),
+                              "dys": (dy.data_ptr(), d),
+                              "w1s": (w1.data_ptr(), d),
+                              "w2s": (w2.data_ptr(), f)})
+    pieces = {"ffn_bwd_dx": ff.tc_dx_scratch,
+              "ffn_bwd_dw": ff.tc_dw_scratch}[name](t, d, f, (1, 0, 0), staged)
+    size = (lambda k: 2 * pieces[k][0][0] * pieces[k][0][1]
+            if k in pieces else 0)
+    return dict(copy_bytes=sum(size(k) for k in staged),
+                hidden_bytes=size("a") + size("dh"), staged=list(staged))
 
 
 def ffn_cublas_bf16(torch, name, dy, w1, w2, x):
@@ -5666,10 +5760,12 @@ def dtype_bf16_kernel_phase(torch, np, timer):
                                             *args)),
                 bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b32_ms,
                 tflops_per_s=flops / ms / 1e9,
-                **ffn_bf16_staging(ff, name, t, d, f))
+                **ffn_bf16_staging(ff, name, *args))
             rows.append(row)
             print("bf16-ffn-kernel-case " + json.dumps(row), flush=True)
             del got, again, want, want64, control64
+        if shape == "main":
+            rows += ffn_tc_sweeps(torch, timer, ff, fns, args)
         del w1, w2, x, dy, args, args32
 
     ws = ring.PeerWorkspace(4 * FFN_DIM * D_MODEL, "cuda", n=RING_N)
@@ -5710,6 +5806,68 @@ def dtype_bf16_kernel_phase(torch, np, timer):
             del xs, xs32, got, again, want
     finally:
         ws.close()
+    return rows
+
+
+def tc_sweep_plans(ff, depth, tiles, sms):
+    """``{label: (S, L, U)}``: the default tensor-core plan, every tile
+    over the whole depth, and every tile in each slice count of
+    ``TC_SPLIT_SWEEP``."""
+    up = (lambda v: -(-v // ff.TC_BK) * ff.TC_BK)
+    plans = {"default": ff.tc_plan(depth, tiles, sms),
+             "whole": (1, up(depth), tiles)}
+    for s in TC_SPLIT_SWEEP:
+        length = up(-(-depth // s))
+        plans[f"split{-(-depth // length)}"] = (-(-depth // length),
+                                                length, 0)
+    return plans
+
+
+def ffn_tc_sweeps(torch, timer, ff, fns, args):
+    """At the main shape on bf16 storage: each backward kernel's time
+    under each plan of its tensor-core pass 2 (``tc_sweep_plans``; the
+    plan function replaced for the run, restored after), every run within
+    one bf16 step of the plain version in at most ``BF16_SHARE``
+    (``ffn-tc-dw-slices``, ``ffn-tc-dx-slices``); and the device time of
+    one call of each of the three kernels by pass (``bf16-ffn-passes``).
+    Returns a row for each sweep."""
+    from torch.profiler import ProfilerActivity, profile
+    dy, w1, w2, x = args
+    t, d = x.shape
+    f = w1.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for name, tag, attr, depth, tiles in (
+            ("ffn_bwd_dx", "dx", "tc_dx_plan", f,
+             -(-t // ff.TC_BM) * -(-d // ff.TC_BN)),
+            ("ffn_bwd_dw", "dw", "tc_dw_plan", t, ff.tc_dw_tiles(d, f))):
+        kern = partial(fns[name][0], *args)
+        want = fns[name][1](*args)
+        want = want if isinstance(want, tuple) else (want,)
+        default, out, ok = getattr(ff, attr), {}, True
+        try:
+            for label, plan in tc_sweep_plans(ff, depth, tiles, sms).items():
+                setattr(ff, attr, lambda *_, plan=plan: plan)
+                got = kern()
+                got = got if isinstance(got, tuple) else (got,)
+                steps = [bf16_steps(torch, g, w) for g, w in zip(got, want)]
+                good = (max(v[0] for v in steps) <= 1
+                        and max(v[1] for v in steps) <= BF16_SHARE)
+                ok = ok and good
+                out[label] = dict(plan=list(plan), ms=timer.ms(kern),
+                                  share_vs_plain=max(v[1] for v in steps),
+                                  ok=good)
+        finally:
+            setattr(ff, attr, default)
+        row = dict(kernel=f"ffn-tc-{tag}-slices", shape="main",
+                   plan=list(default(t, d, f, sms)), ms=out, ok=ok)
+        print(f"ffn-tc-{tag}-slices " + json.dumps(row), flush=True)
+        rows.append(row)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for name in ("ffn_fwd", "ffn_bwd_dx", "ffn_bwd_dw"):
+            fns[name][0](*args)
+        torch.cuda.synchronize()
+    print("bf16-ffn-passes " + json.dumps(ffn_passes(prof)), flush=True)
     return rows
 
 

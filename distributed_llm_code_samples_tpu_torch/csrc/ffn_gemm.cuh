@@ -28,6 +28,9 @@
 // arrays) is that mode on bf16 operands, which the copies widen exactly,
 // and outputs of type Out = __nv_bfloat16: each output element is rounded
 // to bf16 once, from its f32 sum (pass 2's, or with S > 1 the reduce's).
+// Only the forward runs these bf16 modes here: the backward kernels run
+// theirs on the tensor cores (ffn_wgmma.cuh) and use these passes in f32
+// alone.
 
 #pragma once
 

@@ -20,9 +20,13 @@ from run to run.
 On bf16 tensors (``--dtype bfloat16``, all operands bf16) each function
 computes what the Pallas kernels compute on bf16 arrays: that operand
 mode, whatever ``mxu_bf16`` says, and bf16 outputs, each element rounded
-once from its f32 sum (``pallas_ffn.py:126, 187, 246-247``). The kernels
-copy the bf16 operands into f32 scratch, exactly, and count their
-launches as ``<name>[bf16]``.
+once from its f32 sum (``pallas_ffn.py:126, 187, 246-247``), counted as
+``<name>[bf16]``. The forward copies the bf16 operands into f32 scratch,
+exactly, and runs its CUDA-core passes. The two backward kernels run
+their bf16 operand modes (``mxu_bf16`` on f32, mode 1; bf16 storage,
+mode 2) on the tensor cores (``csrc/ffn_wgmma.cuh``): TMA reads bf16
+operands where they lie, or from a bf16 copy the kernel makes (mode 1's
+rounding, or bf16 that TMA cannot read in place: ``tc_staged``).
 """
 
 from __future__ import annotations
@@ -220,6 +224,129 @@ def dx_scratch(t: int, d: int, ffn: int, plan) -> dict:
     return _layout(shapes)
 
 
+# -- the tensor-core passes of modes 1 and 2 (csrc/ffn_wgmma.cuh) ----------
+
+# a block's output tile (two consumer warpgroups of 64 rows, one
+# m64n256k16 product a k16 step), the depth of a ring stage (one 128-byte
+# swizzled row of bf16) and blocks an SM (the ring takes up to 193 KB of
+# shared memory; the passes are persistent, one block an SM)
+TC_BM, TC_BN, TC_BK, TC_BLOCKS_PER_SM = 128, 256, 64, 1
+# the shortest slice of pass 2's depth, and the fewest slices a split
+# tile takes: on an H100 at the main shape (chip_smoke.py's
+# ffn-tc-dx-slices, PERF.md) splitting dx's last 60 of 192 tiles in two
+# saved half a round but lost 2% to the partials and their reduce, while
+# dw's last 12 of 144 in eleven saved 13% against every tile whole
+TC_MIN_SLICE, TC_MIN_SPLIT = 512, 3
+# TMA reads a bf16 operand in place when its base is TC_ALIGN-byte
+# aligned and its rows are a multiple of TC_ROW elements (16 bytes);
+# scratch pieces start TC_PIECE bytes apart
+TC_ALIGN, TC_ROW, TC_PIECE = 16, 8, 256
+
+
+def _tc_tiles(m: int, n: int) -> int:
+    return -(-m // TC_BM) * -(-n // TC_BN)
+
+
+def tc_plan(depth: int, tiles: int, sms: int = H100_SMS):
+    """``(S, L, U)``: a tensor-core pass 2 of ``tiles`` output tiles over
+    ``depth``. The tiles that fill whole rounds of the card's SMs, U of
+    them, run over the whole depth; the rest, which would leave the last
+    round part idle, run over S slices of L each (L a multiple of
+    TC_BK, the last slice shorter, S = ceil(depth / L)), as many as the
+    last round holds, as long as each keeps TC_MIN_SLICE of the depth
+    and there are TC_MIN_SPLIT at least; else every tile runs whole (S
+    1, U = tiles). The split tiles' f32 partials are summed in slice
+    order, so the bits do not depend on the timing."""
+    slots = sms * TC_BLOCKS_PER_SM
+    full, rem = divmod(tiles, slots)
+    s = min(slots // rem, depth // TC_MIN_SLICE) if rem else 1
+    if s >= TC_MIN_SPLIT:
+        length = _up(-(-depth // s), TC_BK)
+        s = -(-depth // length)
+    if s < TC_MIN_SPLIT:
+        return 1, _up(depth, TC_BK), tiles
+    return s, length, full * slots
+
+
+def tc_dw_tiles(d: int, ffn: int) -> int:
+    """The tensor-core weight gradients' pass-2 tiles: dw1 ``[ffn, d]``'s,
+    then dw2 ``[d, ffn]``'s."""
+    return _tc_tiles(ffn, d) + _tc_tiles(d, ffn)
+
+
+def tc_dw_plan(t: int, d: int, ffn: int, sms: int = H100_SMS):
+    """The tensor-core weight gradients' pass 2 over the token axis."""
+    return tc_plan(t, tc_dw_tiles(d, ffn), sms)
+
+
+def tc_dx_plan(t: int, d: int, ffn: int, sms: int = H100_SMS):
+    """The tensor-core input gradient's pass 2 over the ffn axis, the
+    tiles of ``dx [T, d]``."""
+    return tc_plan(ffn, _tc_tiles(t, d), sms)
+
+
+def tc_staged(mode: int, operands: dict) -> tuple:
+    """The operands of a tensor-core call that the kernel copies into bf16
+    scratch before TMA reads them: ``operands`` is ``{piece: (data_ptr,
+    row elements)}`` for ``xs``, ``dys``, ``w1s``, ``w2s``. Mode 1 (f32
+    storage) copies all four, rounding them; mode 2 (bf16) those whose
+    base is not TC_ALIGN-byte aligned or whose rows are not a multiple of
+    TC_ROW elements. The copy has the same values, so a staged call gives
+    the bits an aligned one gives."""
+    return tuple(name for name, (ptr, row) in operands.items()
+                 if mode == 1 or ptr % TC_ALIGN or row % TC_ROW)
+
+
+def _tc_layout(pieces: dict) -> dict:
+    """``{name: (shape, offset)}`` in bytes from the start of one buffer,
+    each offset a multiple of TC_PIECE, for ``pieces`` ``{name: (shape,
+    bytes an element)}`` in the order given, and the buffer's bytes under
+    ``"total"``."""
+    out, off = {}, 0
+    for name, (shape, size) in pieces.items():
+        out[name] = (shape, off)
+        off += _up(size * _numel(shape), TC_PIECE)
+    out["total"] = off
+    return out
+
+
+def _tc_staging(t: int, d: int, ffn: int, staged) -> dict:
+    d8, f8 = _up(d, TC_ROW), _up(ffn, TC_ROW)
+    shapes = {"xs": (t, d8), "dys": (t, d8), "w1s": (ffn, d8),
+              "w2s": (d, f8)}
+    return {k: (v, 2) for k, v in shapes.items() if k in staged}
+
+
+def _tc_partials(plan, tiles: int) -> dict:
+    """The split tiles' f32 partials, ``[S, tiles - U, 128, 256]`` (none
+    for a one-slice plan)."""
+    s, _, whole = plan
+    if s == 1:
+        return {}
+    return {"part": ((s, tiles - whole, TC_BM, TC_BN), 4)}
+
+
+def tc_dw_scratch(t: int, d: int, ffn: int, plan, staged=()) -> dict:
+    """The tensor-core weight gradients' scratch (``_tc_layout``): the
+    staged bf16 copies (``tc_staged``), ``a`` and ``dh`` as bf16 ``[T,
+    ffn8]`` and the split tiles' partials."""
+    f8 = _up(ffn, TC_ROW)
+    pieces = _tc_staging(t, d, ffn, staged)
+    pieces.update(a=((t, f8), 2), dh=((t, f8), 2))
+    pieces.update(_tc_partials(plan, tc_dw_tiles(d, ffn)))
+    return _tc_layout(pieces)
+
+
+def tc_dx_scratch(t: int, d: int, ffn: int, plan, staged=()) -> dict:
+    """The tensor-core input gradient's scratch (``_tc_layout``): the
+    staged bf16 copies, ``dh`` as bf16 ``[T, ffn8]`` and the split tiles'
+    partials."""
+    pieces = _tc_staging(t, d, ffn, staged)
+    pieces["dh"] = ((t, _up(ffn, TC_ROW)), 2)
+    pieces.update(_tc_partials(plan, _tc_tiles(t, d)))
+    return _tc_layout(pieces)
+
+
 def _sms(x) -> int:
     return torch.cuda.get_device_properties(x.device).multi_processor_count
 
@@ -247,6 +374,40 @@ def _launch(name, tensors, pieces, ints, mxu_bf16):
                   tensors[0].device, name + "[bf16]" if bf16 else name)
 
 
+# the scratch pieces each tensor-core launch takes, in its pointer order
+_TC_PIECES = {BWD_DX: ("xs", "dys", "w1s", "w2s", "dh", "part"),
+              BWD_DW: ("xs", "dys", "w1s", "w2s", "a", "dh", "part")}
+
+
+def _tc_mode(x, mxu_bf16) -> int:
+    """0: the CUDA-core passes (f32); 1: the tensor-core passes on f32
+    storage (``mxu_bf16``); 2: on bf16 storage."""
+    return 2 if x.dtype == torch.bfloat16 else int(bool(mxu_bf16))
+
+
+def _launch_tc(name, tensors, scratch_fn, plan, t, d, ffn, mode, sms):
+    """Launch ``<name>_tc_launch`` of ``csrc/<name>.cu`` on ``tensors``
+    (x, dy, w1, w2, then the outputs) with the scratch ``scratch_fn(t, d,
+    ffn, plan, staged)`` carved from one ``torch.empty`` buffer (pieces
+    it leaves out are null pointers), its persistent passes on ``sms``
+    blocks at most."""
+    x, dy, w1, w2 = tensors[:4]
+    staged = tc_staged(mode, {"xs": (x.data_ptr(), d),
+                              "dys": (dy.data_ptr(), d),
+                              "w1s": (w1.data_ptr(), d),
+                              "w2s": (w2.data_ptr(), ffn)})
+    pieces = scratch_fn(t, d, ffn, plan, staged)
+    scratch = torch.empty(pieces["total"], dtype=torch.uint8,
+                          device=x.device)
+    base = scratch.data_ptr()
+    ptrs = [v.data_ptr() for v in tensors]
+    ptrs += [base + pieces[p][1] if p in pieces else 0
+             for p in _TC_PIECES[name]]
+    _build.launch(name, f"{name}_tc_launch", ptrs,
+                  (t, d, ffn, *plan, mode, sms), x.device,
+                  name + "[bf16]" if mode == 2 else name)
+
+
 def ffn_fwd_fused(w1, w2, x, *, mxu_bf16: bool = False):
     """Linear -> ReLU -> linear forward, ``[T, d]``. The kernel's scratch
     (``fwd_scratch``: the padded operand copies, ``a^T`` as ``[ffn, T]``
@@ -265,14 +426,22 @@ def ffn_fwd_fused(w1, w2, x, *, mxu_bf16: bool = False):
 
 def ffn_bwd_dx_fused(dy, w1, w2, x, *, mxu_bf16: bool = False):
     """Input gradient ``dx [T, d]`` with the pre-activation recomputed.
-    The kernel's scratch (``dx_scratch``: the padded operand copies,
-    ``dh^T`` as ``[ffn, T]`` and the slices' partials) is one
-    ``torch.empty`` buffer; ``csrc/ffn_bwd_dx.cu`` says why each is
-    there. CPU tensors run ``ffn_bwd_dx_ref``."""
+    The kernel's scratch is one ``torch.empty`` buffer: in f32
+    (``dx_scratch``) the padded operand copies, ``dh^T`` as ``[ffn, T]``
+    and the slices' partials; with bf16 operands (``tc_dx_scratch``) the
+    staged bf16 copies, ``dh`` as bf16 ``[T, ffn]`` and the partials.
+    ``csrc/ffn_bwd_dx.cu`` says why each is there. CPU tensors run
+    ``ffn_bwd_dx_ref``."""
     t, d, ffn = _check(x, w1, w2, dy)
     if not _build.on_card(BWD_DX, x, dy, w1, w2):
         return ffn_bwd_dx_ref(dy, w1, w2, x, mxu_bf16=mxu_bf16)
     dx = torch.empty_like(x)
+    mode = _tc_mode(x, mxu_bf16)
+    if mode:
+        sms = _sms(x)
+        _launch_tc(BWD_DX, [x, dy, w1, w2, dx], tc_dx_scratch,
+                   tc_dx_plan(t, d, ffn, sms), t, d, ffn, mode, sms)
+        return dx
     plan = out_plan(t, d, ffn, _sms(x))
     _launch(BWD_DX, [x, dy, w1, w2, dx], dx_scratch(t, d, ffn, plan),
             (t, d, ffn, *plan), mxu_bf16)
@@ -281,14 +450,22 @@ def ffn_bwd_dx_fused(dy, w1, w2, x, *, mxu_bf16: bool = False):
 
 def ffn_bwd_dw_fused(dy, w1, w2, x, *, mxu_bf16: bool = False):
     """Both weight gradients ``(dw1 [ffn, d], dw2 [d, ffn])``, reduced
-    over tokens. The kernel's scratch (``dw_scratch``: the padded operand
-    copies, ``a`` and ``dh`` as ``[T, ffn]`` and the slices' partials) is
-    one ``torch.empty`` buffer; ``csrc/ffn_bwd_dw.cu`` says why each is
-    there. CPU tensors run ``ffn_bwd_dw_ref``."""
+    over tokens. The kernel's scratch is one ``torch.empty`` buffer: in
+    f32 (``dw_scratch``) the padded operand copies, ``a`` and ``dh`` as
+    ``[T, ffn]`` and the slices' partials; with bf16 operands
+    (``tc_dw_scratch``) the staged bf16 copies, ``a`` and ``dh`` as bf16
+    and the partials. ``csrc/ffn_bwd_dw.cu`` says why each is there. CPU
+    tensors run ``ffn_bwd_dw_ref``."""
     t, d, ffn = _check(x, w1, w2, dy)
     if not _build.on_card(BWD_DW, x, dy, w1, w2):
         return ffn_bwd_dw_ref(dy, w1, w2, x, mxu_bf16=mxu_bf16)
     dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
+    mode = _tc_mode(x, mxu_bf16)
+    if mode:
+        sms = _sms(x)
+        _launch_tc(BWD_DW, [x, dy, w1, w2, dw1, dw2], tc_dw_scratch,
+                   tc_dw_plan(t, d, ffn, sms), t, d, ffn, mode, sms)
+        return dw1, dw2
     plan = dw_plan(t, d, ffn, _sms(x))
     _launch(BWD_DW, [x, dy, w1, w2, dw1, dw2], dw_scratch(t, d, ffn, plan),
             (t, d, ffn, *plan), mxu_bf16)

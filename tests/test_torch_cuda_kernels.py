@@ -449,9 +449,10 @@ def test_ffn_bwd_dw_kernel_matches_plain(card, shape, mxu_bf16):
 
 @pytest.mark.cuda
 def test_ffn_bwd_dw_bits_unchanged_by_the_shared_passes(card):
-    """The weight-gradient kernel's bits equal those its build gave
-    before its passes moved into csrc/ffn_gemm.cuh: chip_smoke.py's
-    stored digest of calls in each operand mode, through the partials."""
+    """The weight-gradient kernel's f32 bits (mode 0) equal those its
+    build gave before its passes moved into csrc/ffn_gemm.cuh:
+    chip_smoke.py's stored digest, through the partials. The
+    ``mxu_bf16`` calls it once covered moved to the tensor cores."""
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
     import chip_smoke
     assert chip_smoke.ffn_dw_bits_digest(torch, np, p_ff) == \
@@ -1378,8 +1379,9 @@ def test_ffn_kernels_bf16_storage_match_plain(card, kernel, shape):
 def test_ffn_bf16_kernels_take_weights_that_are_not_16_byte_aligned(
         card, kernel):
     """bf16 weights one element (2 bytes) into their storage give the
-    same bits as aligned ones: the kernels read them only through the
-    f32 copies."""
+    same bits as aligned ones: the forward reads them only through its
+    f32 copies, and the backward kernels stage them into an aligned bf16
+    copy for TMA and run the same tensor-core passes on it."""
     _, kern, _ = FFN_BF16[kernel]
     w1, w2, x, dy = (t.bfloat16() for t in ffn_case((300, 64, 256)))
     w1s = torch.empty(w1.numel() + 1, device="cuda",
@@ -1410,6 +1412,170 @@ def test_ffn_f32_bits_unchanged_beside_bf16(card):
     before = run((dy, w1, w2, x))
     run(tuple(t.bfloat16() for t in (dy, w1, w2, x)))
     for a, b in zip(before, run((dy, w1, w2, x))):
+        assert torch.equal(a, b)
+
+
+# -- the tensor-core passes of the backward kernels (modes 1 and 2) -------
+#
+# ffn_bwd_dx and ffn_bwd_dw with bf16 operands (mxu_bf16 on f32 storage,
+# mode 1; bf16 storage, mode 2) run wgmma fed by TMA (csrc/ffn_wgmma.cuh).
+# Shapes: DW_SHAPES, then a T under one slice of the weight gradients, a
+# ragged T whose last token slice is partial and a ragged ffn whose last
+# slice of the input gradient is partial. The reference is float64 on the
+# kernel's bf16 operands with its roundings (a and dh to bf16); mode 2's
+# outputs are held in bf16 steps as chip_smoke.py holds them
+# (BF16_SHARE), mode 1's f32 outputs to TOL[True] of the largest.
+
+TC_SHAPES = DW_SHAPES + ((100, 64, 256), (5000, 200, 520), (256, 72, 3000))
+BF16_SHARE = 0.05
+
+
+def tc_args(shape, mode):
+    w1, w2, x, dy = ffn_case(shape)
+    if mode == 2:
+        return tuple(v.bfloat16() for v in (dy, w1, w2, x)), {}
+    return (dy, w1, w2, x), dict(mxu_bf16=True)
+
+
+def tc_want64(kernel, dy, w1, w2, x):
+    """float64 on the bf16-rounded operands, a and dh rounded to bf16."""
+    x, dy, w1, w2 = (v.bfloat16().double() for v in (x, dy, w1, w2))
+    h = x @ w1.T
+    dh = torch.where(h <= 0, 0.0, dy @ w2).bfloat16().double()
+    if kernel == "dx":
+        return (dh @ w1,)
+    return dh.T @ x, dy.T @ torch.where(h <= 0, 0.0, h).bfloat16().double()
+
+
+def bf16_step_share(got, want):
+    """``(max steps, share that differ)`` of bf16 ``got`` against float64
+    ``want`` rounded to bf16, a step at the larger of an element's
+    magnitude and the output's RMS."""
+    w = want.bfloat16().double()
+    g = got.double()
+    rms = w.pow(2).mean().sqrt()
+    _, e = torch.frexp(torch.maximum(torch.maximum(g.abs(), w.abs()), rms))
+    steps = (g - w).abs() / torch.ldexp(torch.ones_like(w), e - 8)
+    return float(steps.max()), float((g != w).double().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2])
+@pytest.mark.parametrize("shape", TC_SHAPES)
+@pytest.mark.parametrize("kernel", ["dx", "dw"])
+def test_ffn_tc_passes_against_float64(card, kernel, shape, mode):
+    """Both modes at every shape: two calls bit-equal, counted once each
+    (as ``<name>[bf16]`` on bf16 storage), mode 2 within one bf16 step of
+    float64 in at most BF16_SHARE of the elements, mode 1 within
+    TOL[True]."""
+    name, kern, _ = FFN_BF16[kernel]
+    args, kw = tc_args(shape, mode)
+    count = name + "[bf16]" if mode == 2 else name
+    before = _build.launch_counts().get(count, 0)
+    tup = (lambda v: v if isinstance(v, tuple) else (v,))
+    got, again = tup(kern(*args, **kw)), tup(kern(*args, **kw))
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[count] == before + 2
+    for g, a, w in zip(got, again, tc_want64(kernel, *args)):
+        assert g.dtype == args[0].dtype and torch.equal(g, a)
+        if mode == 2:
+            most, share = bf16_step_share(g, w)
+            assert most <= 1 and share <= BF16_SHARE, (most, share)
+        else:
+            err = float((g.double() - w).abs().max())
+            assert err <= TOL[True] * float(w.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dx", "dw"])
+def test_ffn_tc_activations_not_16_byte_aligned(card, kernel):
+    """bf16 x and dy one element into their storage go through the
+    kernel's staged copies and give the bits of aligned ones."""
+    _, kern, _ = FFN_BF16[kernel]
+    (dy, w1, w2, x), _ = tc_args((300, 64, 256), 2)
+    xs, dys = (torch.empty(v.numel() + 1, device="cuda",
+                           dtype=torch.bfloat16)[1:].view_as(v)
+               for v in (x, dy))
+    xs.copy_(x)
+    dys.copy_(dy)
+    assert xs.data_ptr() % 16 and dys.data_ptr() % 16
+    tup = (lambda v: v if isinstance(v, tuple) else (v,))
+    for g, w in zip(tup(kern(dys, w1, w2, xs)), tup(kern(dy, w1, w2, x))):
+        assert bf16_bits(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2])
+@pytest.mark.parametrize("kernel", ["dx", "dw"])
+def test_ffn_tc_nan_in_h_passes_the_mask(card, kernel, mode):
+    """A NaN in x makes a row of h NaN. where(h <= 0, 0, da) lets da
+    through there, as the plain version does: dx's row stays finite and
+    agrees; every output has NaN exactly where the plain version's has."""
+    _, kern, plain = FFN_BF16[kernel]
+    (dy, w1, w2, x), kw = tc_args((300, 64, 256), mode)
+    x = x.clone()
+    x[5, 3] = float("nan")
+    tup = (lambda v: v if isinstance(v, tuple) else (v,))
+    got, want = tup(kern(dy, w1, w2, x, **kw)), tup(plain(dy, w1, w2, x, **kw))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        ok = ~torch.isnan(w)
+        if not bool(ok.any()):      # dw2 sums a's NaN row into every element
+            continue
+        scale = float(w[ok].float().abs().max())
+        err = float((g[ok].float() - w[ok].float()).abs().max())
+        assert err <= (TOL[True] + 2 ** -8) * scale, err
+    if kernel == "dx":
+        assert bool(torch.isfinite(got[0][5].float()).all())
+
+
+@pytest.mark.cuda
+def test_ffn_tc_from_a_thread_of_its_own_and_from_autograd(card):
+    """The tensor-core passes encode their TMA maps with a libcuda call,
+    which needs a current context on the calling thread: called from a
+    new thread, and from the fused block's backward on autograd's device
+    thread, they give the main thread's bits."""
+    import threading
+    from distributed_llm_code_samples_tpu_torch.ops.fused_ffn import (
+        fused_ffn_block)
+    (dy, w1, w2, x), _ = tc_args((300, 64, 256), 2)
+    want = (p_ff.ffn_bwd_dx_fused(dy, w1, w2, x),
+            *p_ff.ffn_bwd_dw_fused(dy, w1, w2, x))
+    got = []
+    th = threading.Thread(target=lambda: got.extend(
+        (p_ff.ffn_bwd_dx_fused(dy, w1, w2, x),
+         *p_ff.ffn_bwd_dw_fused(dy, w1, w2, x))))
+    th.start()
+    th.join()
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert bf16_bits(g, w)
+    w1g, w2g, xg = (v.clone().requires_grad_() for v in (w1, w2, x))
+    fused_ffn_block(w1g, w2g, xg).backward(dy)
+    for g, w in zip((xg.grad, w1g.grad, w2g.grad), want):
+        assert bf16_bits(g, w)
+
+
+@pytest.mark.cuda
+def test_ffn_f32_bits_unchanged_beside_tc_calls(card):
+    """f32 calls of all three kernels (mode 0, the CUDA-core passes; the
+    weight gradients through three token slices) give the same bits
+    before and after tensor-core calls of both backward kernels in both
+    modes."""
+    w1, w2, x, dy = ffn_case((1000, 200, 520))
+    tup = (lambda v: v if isinstance(v, tuple) else (v,))
+
+    def f32_calls():
+        return [o.clone() for _, kern, _ in FFN_BF16.values()
+                for o in tup(kern(dy, w1, w2, x))]
+
+    before = f32_calls()
+    for mode in (1, 2):
+        args, kw = tc_args((1000, 200, 520), mode)
+        for kernel in ("dx", "dw"):
+            FFN_BF16[kernel][1](*args, **kw)
+    for a, b in zip(before, f32_calls()):
         assert torch.equal(a, b)
 
 
