@@ -65,10 +65,12 @@
 
 Builds every kernel of the port from ``csrc/`` (printing ptxas's spill
 counts as ``ptxas-spills``; the HGMMA instructions of the FFN libraries'
-SASS as ``ffn-tc-sass`` and the tensor-core passes' registers as
-``ffn-tc-ptxas``), holds each against its plain PyTorch
-version on the card, times both (the paged decode attention also at
-each split size, ``paged-splits``), then drives the port's paths:
+and the head backward's SASS as ``ffn-tc-sass`` and ``head-tc-sass``,
+and their tensor-core passes' registers and spills as ``ffn-tc-ptxas``
+and ``head-tc-ptxas``), holds each against its plain PyTorch version
+on the card, times both beside the library's composition of the same
+function where one exists (the paged decode attention also at each
+split size, ``paged-splits``), then drives the port's paths:
 
 - serving: requests through the ``DecodeEngine`` at the full width of
   the GPT-2-small LM of ``bench_decode.py`` (d=768, 12 layers, 12 heads,
@@ -196,10 +198,12 @@ each split size, ``paged-splits``), then drives the port's paths:
   (``BF16_SHARE``, with a control that must fail), timed beside their f32
   calls and the cuBLAS bf16 composition, and the all-reduce and the
   reduce-scatter of bf16 in loopback bit for bit against the plain ring
-  (``bf16-ffn-kernel-case``, ``bf16-ring-kernel-case``); the backward
-  kernels' tensor-core pass 2 under each plan of ``tc_sweep_plans``
-  (``ffn-tc-dx-slices``, ``ffn-tc-dw-slices``) and the three kernels'
-  device time by pass (``bf16-ffn-passes``); ``train_single``
+  (``bf16-ffn-kernel-case``, ``bf16-ring-kernel-case``); the kernels'
+  tensor-core pass 2 under each plan of ``tc_sweep_plans``
+  (``ffn-tc-fwd-slices``, ``ffn-tc-dx-slices``, ``ffn-tc-dw-slices``),
+  the three kernels' device time by pass (``bf16-ffn-passes``) and the
+  near-zero re-sums' cost in each pass 1 (``bf16-ffn-resums``);
+  ``train_single``
   on bf16 params at the training shape through the kernels and through
   cuBLAS bf16 blocks (``bf16-train-run``: 24 launches of each FFN
   kernel's ``[bf16]`` form a step, exact), ``cli.py -m 1 --pallas
@@ -218,13 +222,19 @@ each split size, ``paged-splits``), then drives the port's paths:
   statistics within ``FFN_TOL``, the gradients within one bf16 step in
   at most ``BF16_SHARE`` of them, each with a control that must fail)
   and their plain versions, timed beside the f32 kernel on the same
-  values (``lm-bf16-head-case``); the hop and the all-to-all of bf16 in
+  values and the cuBLAS bf16 composition (``lm-bf16-head-case``); the
+  backward's tensor-core passes under each vocabulary chunk of
+  ``HEAD_CHUNK_SWEEP`` (``head-tc-chunks``) and by pass, on bf16 storage
+  and under ``mxu_bf16`` (``lm-bf16-head-passes``); the hop and the
+  all-to-all of bf16 in
   loopback bit for bit at the hop's block, EP's dispatch operand and an
   odd element count (``lm-bf16-move-case``); ``train_lm_single`` on bf16
   params at the LM shape under flash and the fused head, ``train_lm_tp``
   (flash, fused head) and ``train_transformer_tp`` (flash) on 4 virtual
   ranks, and ``train_moe_ep`` at the EP headline under ``pallas_a2a``
-  and ``psum``, 8 steps each with exact launches (``lm-bf16-train-run``);
+  and ``psum``, 8 steps each with exact launches (``lm-bf16-train-run``),
+  the device time of two traced steps of the first
+  (``lm-bf16-train-profile``);
   ``lm-bf16-train-check`` (one fused-head step at ``CHECK_LR`` against
   float64 over the bf16 oracle path's error; EP's two transports' routes
   and weights bit for bit). ``--phase dist`` and ``dist-bf16`` hold the
@@ -455,12 +465,14 @@ HEAD_SHAPES = (("main", LM_TOKENS, LM["d_model"], LM["vocab"]),
 # path's (two f32 paths are not held to a fixed tolerance, PERF.md §6).
 LM_GRAD_RATIO = 2.0
 LM_LOSS_TOL = 1e-5
-# The head backward's bits from before its GEMM core moved into
-# csrc/gemm_core.cuh (head_bits_digest on the previous build of
-# head_xent_bwd.cu, on an NVIDIA H100 80GB HBM3): the move must not
-# change one bit (tests/test_torch_cuda_kernels.py checks it too).
+# The head backward's f32 bits (mode 0): head_bits_digest on the build
+# from before its bf16 operand modes moved to the tensor cores, on an
+# NVIDIA H100 80GB HBM3, where its digest of both operand modes still
+# equalled the one stored when the GEMM core moved into
+# csrc/gemm_core.cuh (974dab8a...3daa). Neither change may move one bit
+# of mode 0 (tests/test_torch_cuda_kernels.py checks it too).
 HEAD_BITS_SHA256 = (
-    "974dab8abf840cd5e8d2d97d47b3923a3a9e28519c68237878b4f85754883daa")
+    "22a03a4210b2c18c813027dce38e54381c3b08d6b35730541efc93352ab95695")
 # The weight-gradient kernel's f32 bits (mode 0) from before it moved
 # onto the passes it shares with the forward and the input gradient
 # (csrc/ffn_gemm.cuh): ffn_dw_bits_digest on the build before the
@@ -469,6 +481,8 @@ HEAD_BITS_SHA256 = (
 # (ffdac082...f4c7). Neither change may move one bit of mode 0.
 FFN_DW_BITS_SHA256 = (
     "26590fdab37cb4c8e1dddbd02d3c47c5d4b0fbece34627e15b82a8ed3fa16866")
+# small kernels a single-call trace runs before the call (traced)
+TRACE_PAD = 4
 # the passes of the three FFN kernels (csrc/ffn_gemm.cuh) by the names of
 # their kernels in a profile: the template's tag names the FFN kernel
 FFN_PASS = re.compile(
@@ -478,10 +492,13 @@ FFN_PASS_NAMES = {"gemm_prep": "copies", "hidden": "pass1",
                   "slice": "pass2", "reduce": "reduce",
                   "bf16_prep": "tc_copies", "wgmma_hidden": "tc_pass1",
                   "wgmma_slice": "tc_pass2", "split_reduce": "tc_reduce"}
-# the tensor-core passes of the backward kernels' modes 1 and 2
+# the tensor-core passes of the FFN kernels' modes 1 and 2
 # (csrc/ffn_wgmma.cuh), by the names of their CUDA kernels in the SASS
-# (ffn-tc-sass) and the ptxas report (ffn-tc-ptxas)
+# (ffn-tc-sass) and the ptxas report (ffn-tc-ptxas); the head backward's
+# (csrc/head_xent_bwd.cu: its z pass, then both products in one launch;
+# head-tc-sass, head-tc-ptxas)
 FFN_TC_KERNELS = ("wgmma_hidden_kernel", "wgmma_slice_kernel")
+HEAD_TC_KERNELS = ("head_dz_kernel", "wgmma_slice_kernel")
 FFN_TAGS = {"fwd": "ffn_fwd", "dx": "ffn_bwd_dx", "dw": "ffn_bwd_dw"}
 # the LM kernels' launches by the names of their CUDA kernels in a
 # profile: (LM kernel, part, pattern)
@@ -815,6 +832,23 @@ def profile_summary(prof, wall_ms):
             "device_events": sum(c for _, _, c in per),
             "top": [{"kernel": k[:80], "ms": t, "calls": c}
                     for t, k, c in per[:10]]}
+
+
+def traced(torch, fn):
+    """A CUDA trace of ``fn`` and a synchronize. A handful of small
+    kernels run first inside the trace: a trace started late in the
+    default run (on an NVIDIA H100 80GB HBM3) lost the first two kernels
+    it should have recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad = torch.zeros(8, device="cuda")
+        for _ in range(TRACE_PAD):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return prof
 
 
 def ffn_passes(prof):
@@ -1403,17 +1437,18 @@ def ffn_bound(name, flop_mult, t, d, f, mxu_bf16):
                    else (t_bytes, "bytes"))
 
 
-def ffn_tc_sass():
-    """The ``ffn-tc-sass`` and ``ffn-tc-ptxas`` lines: the HGMMA
-    instructions in the SASS of each FFN library (``cuobjdump -sass`` on
-    its ``.so``), by CUDA kernel, which must be some in each tensor-core
-    pass of both backward kernels and none in ``ffn_fwd``; and those
-    passes' registers and spill bytes from the ptxas report of the build
-    (``_build.build_logs``). Returns the ``ffn-tc-sass`` row."""
+def tc_sass(tag, libs, kernels):
+    """The ``<tag>-sass`` and ``<tag>-ptxas`` lines of the tensor-core
+    passes of the libraries ``libs``: the HGMMA instructions in the SASS
+    of each (``cuobjdump -sass`` on its ``.so``), by CUDA kernel, which
+    must be some in each of ``kernels`` of every library; and those
+    kernels' registers and spill bytes from the ptxas report of the build
+    (``_build.build_logs``), which must spill nothing. Returns the
+    ``<tag>-sass`` row."""
     from distributed_llm_code_samples_tpu_torch.ops import _build
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     per = {}
-    for name in ("ffn_fwd", "ffn_bwd_dx", "ffn_bwd_dw"):
+    for name in libs:
         out = subprocess.run([cuobjdump, "-sass", _build._target(name)],
                              capture_output=True, text=True, timeout=300)
         check(out.returncode == 0,
@@ -1428,22 +1463,16 @@ def ffn_tc_sass():
                 rows[fn] += 1
         per[name] = rows
     passes = {name: {k: sum(v for f, v in rows.items() if k in f)
-                     for k in FFN_TC_KERNELS} for name, rows in per.items()}
+                     for k in kernels} for name, rows in per.items()}
     total = {name: sum(rows.values()) for name, rows in per.items()}
-    row = dict(kernel="ffn-tc-sass", hgmma=passes, hgmma_total=total,
-               ok=total["ffn_fwd"] == 0 and all(
-                   passes[n][k] > 0 for n in ("ffn_bwd_dx", "ffn_bwd_dw")
-                   for k in FFN_TC_KERNELS))
-    print("ffn-tc-sass " + json.dumps(row), flush=True)
     usage = {}
-    for name in ("ffn_bwd_dx", "ffn_bwd_dw"):
+    for name in libs:
         kernel = None
         for line in _build.build_logs.get(name, "").splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties "
                           r"for) '?([^' ]+)", line)
             if m:
-                kernel = m[1] if any(k in m[1] for k in FFN_TC_KERNELS) \
-                    else None
+                kernel = m[1] if any(k in m[1] for k in kernels) else None
                 continue
             if kernel is None:
                 continue
@@ -1455,24 +1484,30 @@ def ffn_tc_sass():
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 entry["registers"] = int(m[1])
-    print("ffn-tc-ptxas " + json.dumps(dict(
+    spills = [e.get("spill_bytes") for k in usage.values() for e in k.values()]
+    row = dict(kernel=f"{tag}-sass", hgmma=passes, hgmma_total=total,
+               ok=all(passes[n][k] > 0 for n in libs for k in kernels)
+               and bool(spills) and all(v == 0 for v in spills))
+    print(f"{tag}-sass " + json.dumps(row), flush=True)
+    print(f"{tag}-ptxas " + json.dumps(dict(
         usage=usage, build_seconds={n: _build.build_seconds.get(n)
-                                    for n in ("ffn_bwd_dx", "ffn_bwd_dw")})),
-        flush=True)
+                                    for n in libs})), flush=True)
     return row
 
 
 def ffn_kernel_phase(torch, np, timer):
     """Each FFN kernel against its plain version at every shape of
-    ``FFN_SHAPES``, both operand modes: error, determinism, times; first
-    the tensor-core passes' SASS (``ffn_tc_sass``)."""
+    ``FFN_SHAPES``, both operand modes: error, determinism, times, and
+    the cuBLAS composition of the same function in the operands' type
+    (``ffn_cublas``: f32, or bf16 copies under ``mxu_bf16``); first the
+    tensor-core passes' SASS (``tc_sass``)."""
     from distributed_llm_code_samples_tpu_torch.ops import fused_ffn as ff
     # (kernel, plain) with the backward wrappers' argument order
     fns = {"ffn_fwd": (lambda dy, *w, **k: ff.ffn_fwd_fused(*w, **k),
                        lambda dy, *w, **k: ff.ffn_fwd_ref(*w, **k)),
            "ffn_bwd_dx": (ff.ffn_bwd_dx_fused, ff.ffn_bwd_dx_ref),
            "ffn_bwd_dw": (ff.ffn_bwd_dw_fused, ff.ffn_bwd_dw_ref)}
-    results = [ffn_tc_sass()]
+    results = [tc_sass("ffn-tc", tuple(FFN_TAGS.values()), FFN_TC_KERNELS)]
     for n, (shape, t, d, f) in enumerate(FFN_SHAPES):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(100 + n)
@@ -1481,6 +1516,8 @@ def ffn_kernel_phase(torch, np, timer):
         x = torch.randn(t, d, generator=gen, device="cuda")
         dy = 0.1 * torch.randn(t, d, generator=gen, device="cuda")
         for mxu_bf16 in (False, True):
+            lib_args = tuple(v.bfloat16() if mxu_bf16 else v
+                             for v in (dy, w1, w2, x))
             for name, mult, _ in FFN_KERNELS:
                 kern = partial(fns[name][0], dy, w1, w2, x,
                                mxu_bf16=mxu_bf16)
@@ -1508,7 +1545,8 @@ def ffn_kernel_phase(torch, np, timer):
                            ms=ms, plain_ms=timer.ms(plain),
                            bound_ms=b_ms, bound_by=b_by,
                            tflops_per_s=flops / ms / 1e9,
-                           library_ms=None)
+                           library_ms=timer.ms(partial(ffn_cublas, torch,
+                                                       name, *lib_args)))
                 results.append(row)
                 print("ffn-kernel-case " + json.dumps(row), flush=True)
         if shape == "main":
@@ -1822,7 +1860,8 @@ def ffn_kernel_rows(cases, launches):
             "max_rel_err": max(c["rel_err"] for c in mine),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "ok": all(c["ok"] for c in mine)})
+            "library_ms": main["library_ms"],
+            "ok": all(c["ok"] for c in mine)})
     return rows
 
 
@@ -1903,14 +1942,37 @@ def lm_case_row(torch, timer, name, shape_tag, shape, mxu_bf16, kern, plain,
     return row
 
 
+def head_cublas(torch, stats, h, w, tgt, lse=None):
+    """The head's function from cuBLAS products in the operands' type,
+    the ``[N, V]`` logits stored whole (1.65 GB in f32 at the main
+    shape): the statistics (``stats``: logsumexp and the target logit)
+    or the backward (``dz``, then ``dz w`` and ``dz^T h``). The library
+    yardstick, never the port's path."""
+    z = h @ w.T
+    n, v = z.shape
+    valid = (tgt >= 0) & (tgt < v)
+    col = torch.where(valid, tgt, 0).long()[:, None]
+    if stats:
+        return (torch.logsumexp(z, dim=-1),
+                z.gather(-1, col)[:, 0] * valid.to(z.dtype))
+    dz = (z - lse[:, None].to(z.dtype)).exp_()
+    del z
+    dz.scatter_add_(1, col, -valid[:, None].to(dz.dtype))
+    dz.mul_(1.0 / n)
+    return dz @ w, dz.T @ h
+
+
 def lm_kernel_phase(torch, np, timer):
     """The four LM kernels against their plain versions at the main
     path's shapes and ragged ones, both operand modes (limits
-    ``FFN_TOL``: 1e-4 f32, 2e-3 bf16 operands)."""
+    ``FFN_TOL``: 1e-4 f32, 2e-3 bf16 operands), the head's beside its
+    cuBLAS composition (``head_cublas``: f32, or bf16 copies under
+    ``mxu_bf16``); first the head backward's tensor-core passes' SASS
+    (``tc_sass``)."""
     from distributed_llm_code_samples_tpu_torch.ops import fused_xent as fx
     from distributed_llm_code_samples_tpu_torch.ops import (
         flash_attention as fa)
-    rows = []
+    rows = [tc_sass("head-tc", ("head_xent_bwd",), HEAD_TC_KERNELS)]
     for n, (tag, bh, t, dh, causal) in enumerate(FLASH_SHAPES):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(200 + n)
@@ -1958,15 +2020,19 @@ def lm_kernel_phase(torch, np, timer):
         dy = torch.tensor(1.0, device="cuda")
         for mxu_bf16 in (False, True):
             kw = dict(mxu_bf16=mxu_bf16)
+            hl, wl = ((h.bfloat16(), w.bfloat16()) if mxu_bf16 else (h, w))
             rows.append(lm_case_row(
                 torch, timer, "head_xent_stats", tag, (tokens, d, vocab),
                 mxu_bf16, partial(fx.head_xent_stats, h, w, tgt, **kw),
-                partial(fx.head_xent_stats_ref, h, w, tgt, **kw), None))
+                partial(fx.head_xent_stats_ref, h, w, tgt, **kw),
+                timer.ms(partial(head_cublas, torch, True, hl, wl, tgt))))
             rows.append(lm_case_row(
                 torch, timer, "head_xent_bwd", tag, (tokens, d, vocab),
                 mxu_bf16, partial(fx.head_xent_bwd, dy, h, w, tgt, lse, **kw),
                 partial(fx.head_xent_bwd_ref, dy, h, w, tgt, lse, **kw),
-                None))
+                timer.ms(partial(head_cublas, torch, False, hl, wl, tgt,
+                                 lse))))
+            del hl, wl
         if tag == "main":
             print("head-stats-slices " + json.dumps(dict(
                 shape=tag, plan=list(fx.stats_plan(tokens, vocab)),
@@ -2058,9 +2124,10 @@ def flash_bwd_sweep(torch, timer, fa, dy, q, k, v, y, lse, causal):
 
 
 def head_bits_digest(torch, np, fx):
-    """sha256 over dh and dw of one small ``head_xent_bwd`` call in each
-    operand mode, on inputs made with numpy (lse in float64 on the host),
-    so that only the kernel runs on the card."""
+    """sha256 over dh and dw of one small f32 ``head_xent_bwd`` call
+    (mode 0, the CUDA-core passes), on inputs made with numpy (lse in
+    float64 on the host), so that only the kernel runs on the card. The
+    ``mxu_bf16`` call it once covered moved to the tensor cores."""
     import hashlib
     rng = np.random.default_rng(2024)
     n, d, v = 96, 40, 777
@@ -2072,11 +2139,8 @@ def head_bits_digest(torch, np, fx):
     lse = (m + np.log(np.exp(z - m[:, None]).sum(axis=1))).astype(np.float32)
     args = [torch.from_numpy(a).cuda() for a in (h, w, t, lse)]
     out = hashlib.sha256()
-    for mxu_bf16 in (False, True):
-        dh, dw = fx.head_xent_bwd(torch.tensor(1.0, device="cuda"), *args,
-                                  mxu_bf16=mxu_bf16)
-        for g in (dh, dw):
-            out.update(g.cpu().numpy().tobytes())
+    for g in fx.head_xent_bwd(torch.tensor(1.0, device="cuda"), *args):
+        out.update(g.cpu().numpy().tobytes())
     return out.hexdigest()
 
 
@@ -5592,6 +5656,8 @@ BF16_SHARE = 0.05
 # default (whole tiles for the full rounds, the rest split): every tile
 # whole, and every tile in each of these slice counts
 TC_SPLIT_SWEEP = (2, 3, 4, 8)
+# calls of each FFN kernel traced for bf16-ffn-resums
+RESUM_CALLS = 5
 # bf16 training runs: loopback DDP and FSDP steps a rank (each launches
 # exact counts; 4 keeps the phase near a minute), and the LR of the one
 # step held against float64: at CHECK_LR a step's largest update is some
@@ -5654,23 +5720,17 @@ def ffn_bf16_bound(flops, t, d, f, name):
 
 
 def ffn_bf16_staging(ff, name, dy, w1, w2, x):
-    """Bytes of a bf16 call's scratch at one slice: its operand copies
-    (``copy_bytes``: the forward's padded f32 copies; the backward
-    kernels' staged bf16 copies, none where TMA reads an operand in
-    place) and its hidden activation (``hidden_bytes``: f32 in the
-    forward, bf16 in the backward kernels)."""
+    """Bytes of a bf16 call's scratch at one slice: its staged bf16
+    operand copies (``copy_bytes``, none where TMA reads an operand in
+    place) and its bf16 hidden activation (``hidden_bytes``: ``a`` and
+    ``dh``, those the kernel writes)."""
     t, d = x.shape
     f = w1.shape[0]
-    if name == "ffn_fwd":
-        pieces = ff.fwd_scratch(t, d, f, (1, 0))
-        hidden = 4 * pieces["aT"][0][0] * pieces["aT"][0][1]
-        return dict(copy_bytes=4 * pieces["total"] - hidden,
-                    hidden_bytes=hidden)
-    staged = ff.tc_staged(2, {"xs": (x.data_ptr(), d),
-                              "dys": (dy.data_ptr(), d),
-                              "w1s": (w1.data_ptr(), d),
-                              "w2s": (w2.data_ptr(), f)})
-    pieces = {"ffn_bwd_dx": ff.tc_dx_scratch,
+    rows = {"xs": (x, d), "dys": (dy, d), "w1s": (w1, d), "w2s": (w2, f)}
+    staged = ff.tc_staged(2, {k: (rows[k][0].data_ptr(), rows[k][1])
+                              for k in ff._TC_OPERANDS[name]})
+    pieces = {"ffn_fwd": ff.tc_fwd_scratch,
+              "ffn_bwd_dx": ff.tc_dx_scratch,
               "ffn_bwd_dw": ff.tc_dw_scratch}[name](t, d, f, (1, 0, 0), staged)
     size = (lambda k: 2 * pieces[k][0][0] * pieces[k][0][1]
             if k in pieces else 0)
@@ -5678,9 +5738,10 @@ def ffn_bf16_staging(ff, name, dy, w1, w2, x):
                 hidden_bytes=size("a") + size("dh"), staged=list(staged))
 
 
-def ffn_cublas_bf16(torch, name, dy, w1, w2, x):
-    """The same function from cuBLAS bf16 products (tensor cores, f32
-    sums, every product rounded to bf16): the library yardstick."""
+def ffn_cublas(torch, name, dy, w1, w2, x):
+    """The same function from cuBLAS products in the operands' type (f32;
+    or bf16 on the tensor cores, f32 sums, every product rounded to
+    bf16): the library yardstick, never the port's path."""
     h = x @ w1.T
     if name == "ffn_fwd":
         return torch.relu(h) @ w2.T
@@ -5756,7 +5817,7 @@ def dtype_bf16_kernel_phase(torch, np, timer):
                 and min(s[1] for s in control) > BF16_SHARE,
                 ms=ms, plain_ms=timer.ms(plain),
                 f32_ms=timer.ms(partial(fns[name][0], *args32)),
-                library_ms=timer.ms(partial(ffn_cublas_bf16, torch, name,
+                library_ms=timer.ms(partial(ffn_cublas, torch, name,
                                             *args)),
                 bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b32_ms,
                 tflops_per_s=flops / ms / 1e9,
@@ -5824,20 +5885,21 @@ def tc_sweep_plans(ff, depth, tiles, sms):
 
 
 def ffn_tc_sweeps(torch, timer, ff, fns, args):
-    """At the main shape on bf16 storage: each backward kernel's time
-    under each plan of its tensor-core pass 2 (``tc_sweep_plans``; the
-    plan function replaced for the run, restored after), every run within
-    one bf16 step of the plain version in at most ``BF16_SHARE``
-    (``ffn-tc-dw-slices``, ``ffn-tc-dx-slices``); and the device time of
+    """At the main shape on bf16 storage: each kernel's time under each
+    plan of its tensor-core pass 2 (``tc_sweep_plans``; the plan function
+    replaced for the run, restored after), every run within one bf16 step
+    of the plain version in at most ``BF16_SHARE`` (``ffn-tc-fwd-slices``,
+    ``ffn-tc-dx-slices``, ``ffn-tc-dw-slices``); and the device time of
     one call of each of the three kernels by pass (``bf16-ffn-passes``).
     Returns a row for each sweep."""
-    from torch.profiler import ProfilerActivity, profile
     dy, w1, w2, x = args
     t, d = x.shape
     f = w1.shape[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for name, tag, attr, depth, tiles in (
+            ("ffn_fwd", "fwd", "tc_fwd_plan", f,
+             -(-t // ff.TC_BM) * -(-d // ff.TC_BN)),
             ("ffn_bwd_dx", "dx", "tc_dx_plan", f,
              -(-t // ff.TC_BM) * -(-d // ff.TC_BN)),
             ("ffn_bwd_dw", "dw", "tc_dw_plan", t, ff.tc_dw_tiles(d, f))):
@@ -5863,11 +5925,22 @@ def ffn_tc_sweeps(torch, timer, ff, fns, args):
                    plan=list(default(t, d, f, sms)), ms=out, ok=ok)
         print(f"ffn-tc-{tag}-slices " + json.dumps(row), flush=True)
         rows.append(row)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for name in ("ffn_fwd", "ffn_bwd_dx", "ffn_bwd_dw"):
-            fns[name][0](*args)
-        torch.cuda.synchronize()
+    prof = traced(torch, lambda: [fns[name][0](*args) for name in (
+        "ffn_fwd", "ffn_bwd_dx", "ffn_bwd_dw")])
     print("bf16-ffn-passes " + json.dumps(ffn_passes(prof)), flush=True)
+    # the near-zero re-sums' cost in each pass 1 (exact_h, serial_h): its
+    # mean device time on these inputs against the same shapes with x and
+    # w1 positive, where no h lies near zero and none is summed again
+    far = (dy, w1.abs() + 0.01, w2, x.abs())
+    resums = {}
+    for label, a in (("inputs", args), ("far_from_zero", far)):
+        prof = traced(torch, lambda: [
+            fns[name][0](*a) for name in ("ffn_fwd", "ffn_bwd_dx",
+                                          "ffn_bwd_dw")
+            for _ in range(RESUM_CALLS)])
+        resums[label] = {k: v["tc_pass1"]["ms"] / v["tc_pass1"]["calls"]
+                         for k, v in ffn_passes(prof).items()}
+    print("bf16-ffn-resums " + json.dumps(resums), flush=True)
     return rows
 
 
@@ -6594,6 +6667,15 @@ LM_BF16_MOVE_MAIN = {"ppermute_dma": "block", "all_to_all_dma": "dispatch"}
 # call beside each bf16 one)
 LM_BF16_MOVE_BYTES = max(4 * EP["n_experts"] * EP_CAP * EP["d_model"],
                          4 * D_MODEL * FFN_DIM)
+# the tensor-core head backward's vocabulary chunks timed at the main
+# shape on bf16 storage (head-tc-chunks; fused_xent.HEAD_TC_CHUNK the
+# default), and its passes by the names of their CUDA kernels in a
+# profile (lm-bf16-head-passes)
+HEAD_CHUNK_SWEEP = (2048, 4096, 6400, 8448, 12800, 16896, 25344, 50304)
+HEAD_TC_PARTS = (("copies", r"bf16_prep_kernel<xent::bwd_tc\b"),
+                 ("dz", r"head_dz_kernel"),
+                 ("products", r"wgmma_slice_kernel<xent::bwd_tc\b"),
+                 ("round", r"head_xent_round_kernel"))
 # the bf16 EP runs' LR: at the package's 1e-5 no bf16 weight of 0.02
 # moves (its step is 2^-13), so two runs would agree trivially; 1e-4
 # moves them and stays finite (1e-3 overflows within 8 steps on an
@@ -6641,6 +6723,56 @@ def head_bf16_want(torch, stats, h, w, tgt, lse=None, control=False):
     if not control:
         dz = dz.to(torch.bfloat16).double()
     return dz @ w64, dz.T @ h64
+
+
+def head_chunk_sweep(torch, timer, fx, kern, want):
+    """``head-tc-chunks``: the bf16 head backward ``kern`` at the main
+    shape under each vocabulary chunk of ``HEAD_CHUNK_SWEEP``
+    (``fx.HEAD_TC_CHUNK`` replaced for the run, restored after), each run
+    within one bf16 step of the plain version ``want`` in at most
+    ``BF16_SHARE`` of the elements. Returns the row."""
+    v = kern.args[2].shape[0]
+    default, out, ok = fx.HEAD_TC_CHUNK, {}, True
+    try:
+        for chunk in HEAD_CHUNK_SWEEP:
+            fx.HEAD_TC_CHUNK = chunk
+            steps = [bf16_steps(torch, g, x.double())
+                     for g, x in zip(kern(), want)]
+            good = (max(s[0] for s in steps) <= 1
+                    and max(s[1] for s in steps) <= BF16_SHARE)
+            ok = ok and good
+            out[chunk] = dict(plan=list(fx.head_tc_plan(v)),
+                              ms=timer.ms(kern),
+                              share_vs_plain=max(s[1] for s in steps),
+                              ok=good)
+    finally:
+        fx.HEAD_TC_CHUNK = default
+    row = dict(kernel="head-tc-chunks", shape="main",
+               plan=list(fx.head_tc_plan(v)), ms=out, ok=ok)
+    print("head-tc-chunks " + json.dumps(row), flush=True)
+    return row
+
+
+def head_tc_passes(torch, calls) -> None:
+    """``lm-bf16-head-passes``: the device time of one call of each of
+    ``calls`` (``{label: head backward}``) by pass (``HEAD_TC_PARTS``),
+    each traced alone after a warm call."""
+    out = {}
+    for label, fn in calls.items():
+        fn()
+        prof = traced(torch, fn)
+        parts = {}
+        for e in prof.key_averages():
+            if getattr(e.device_type, "name", str(e.device_type)) == "CPU":
+                continue
+            for part, pattern in HEAD_TC_PARTS:
+                if re.search(pattern, e.key):
+                    row = parts.setdefault(part, {"ms": 0.0, "calls": 0})
+                    row["ms"] += e.device_time_total / 1e3
+                    row["calls"] += e.count
+        out[label] = dict(parts=parts,
+                          ms=sum(p["ms"] for p in parts.values()))
+    print("lm-bf16-head-passes " + json.dumps(out), flush=True)
 
 
 def rel_err(got, want) -> float:
@@ -6733,11 +6865,19 @@ def lm_bf16_kernel_phase(torch, np, timer):
             row.update(ok=ok and finite and same and dtypes, ms=ms,
                        f32_ms=timer.ms(f32), plain_ms=timer.ms(plain),
                        bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b32_ms,
-                       library_ms=None,
+                       library_ms=timer.ms(partial(
+                           head_cublas, torch, stats, h, w, tgt,
+                           None if stats else lse)),
                        tflops_per_s=(2 if stats else 6) * n * d * v / ms
                        / 1e9)
             rows.append(row)
             print("lm-bf16-head-case " + json.dumps(row), flush=True)
+            if tag == "main" and not stats:
+                rows.append(head_chunk_sweep(torch, timer, fx, kern, want))
+                head_tc_passes(torch, {
+                    "bf16": kern, "mxu_bf16": partial(
+                        fx.head_xent_bwd, dy, h.float(), w.float(), tgt,
+                        lse, mxu_bf16=True)})
             del got, again, want, want64, control64
         del h, w, tgt, lse
 
@@ -6795,7 +6935,8 @@ def lm_bf16_train_phase(torch, np, card):
     ``train_moe_ep(comm="pallas_a2a")`` at ``EP`` on ``EP_N`` loopback
     ranks through the kernel and through its plain version
     (``plain_loopback_calls``), whose routes and final weights must agree
-    bit for bit. Then ``lm-bf16-train-check``: one step of the
+    bit for bit; two traced steps of the first (``lm-bf16-train-profile``).
+    Then ``lm-bf16-train-check``: one step of the
     fused-head LM at ``CHECK_LR`` against a float64 step of the oracle
     ops, over the bf16 oracle-head path's error (``UPDATE_RATIO``, with
     unchanged weights as the control). Returns the launches (a rank's for
@@ -6865,6 +7006,18 @@ def lm_bf16_train_phase(torch, np, card):
           "are not finite")
     del out
     launches = dict(single)
+    # where the device time of the bf16 LM goes: two traced steps
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_lm_single(params, seeds[:2], LM_TOKENS, d, lr=LR,
+                        seq_len=LM["seq_len"], n_heads=LM["n_heads"],
+                        attn_impl="flash", head_impl="fused")
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    print("lm-bf16-train-profile " + json.dumps(dict(
+        profile_summary(prof, wall_ms), steps=2, card=card)), flush=True)
 
     # TP of the LM and of the trunk on loopback ranks, a rank's launches
     mesh = make_mesh({MODEL_AXIS: LMTP_N}, loopback=True)

@@ -111,8 +111,8 @@ cudaError_t launch_tc(const Elem* x, const Elem* dy, const Elem* w1,
       (e = ffn_tc::operand<dw>(w2, d, ffn, w2s, st, &w2o)) != cudaSuccess)
     return e;
   // a = relu(h), dh: bf16 [T][ffn8]
-  if ((e = ffn_tc::hidden<dw>(xo, dyo, w1o, w2o, a, dh, T, d, ffn, sms,
-                              st)) != cudaSuccess)
+  if ((e = ffn_tc::hidden<dw, true, true>(xo, w1o, dyo, w2o, a, dh, T, d,
+                                          ffn, sms, st)) != cudaSuccess)
     return e;
   const long long f8 = ffn_tc::up8(ffn);
   ffn_tc::SliceParams p{};
@@ -124,10 +124,10 @@ cudaError_t launch_tc(const Elem* x, const Elem* dy, const Elem* w1,
           cudaSuccess ||
       (e = ffn_tc::tensor_map(&p.b[1], a, T, ffn, f8, 64)) != cudaSuccess)
     return e;
-  ffn_tc::product(p, 0, dw1, ffn, d);
-  ffn_tc::product(p, 1, dw2, d, ffn);
+  ffn_tc::product(p, 0, dw1, ffn, d, T);
+  ffn_tc::product(p, 1, dw2, d, ffn, T);
   return ffn_tc::sliced<dw, Out, ffn_tc::kMNMajor, ffn_tc::kMNMajor>(
-      p, part, T, S, L, U, sms, st);
+      p, part, S, L, U, sms, st);
 }
 
 }  // namespace

@@ -110,8 +110,9 @@ cudaError_t launch_tc(const Elem* x, const Elem* dy, const Elem* w1,
       (e = ffn_tc::operand<Tag>(w2, d, ffn, w2s, st, &w2o)) != cudaSuccess)
     return e;
   // dh: bf16 [T][ffn8]
-  if ((e = ffn_tc::hidden<Tag>(xo, dyo, w1o, w2o, nullptr, dh, T, d, ffn,
-                               sms, st)) != cudaSuccess)
+  if ((e = ffn_tc::hidden<Tag, false, true>(xo, w1o, dyo, w2o, nullptr, dh,
+                                            T, d, ffn, sms, st)) !=
+      cudaSuccess)
     return e;
   ffn_tc::SliceParams p{};
   // dx [T][d] = dh w1: dh K-major, w1 [ffn][d] MN-major, ffn the depth
@@ -120,9 +121,9 @@ cudaError_t launch_tc(const Elem* x, const Elem* dy, const Elem* w1,
       (e = ffn_tc::tensor_map(&p.b[0], w1o.p, ffn, d, w1o.ld, 64)) !=
           cudaSuccess)
     return e;
-  ffn_tc::product(p, 0, dx, T, d);
+  ffn_tc::product(p, 0, dx, T, d, ffn);
   return ffn_tc::sliced<Tag, Out, ffn_tc::kKMajor, ffn_tc::kMNMajor>(
-      p, part, ffn, S, L, U, sms, st);
+      p, part, S, L, U, sms, st);
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
-// The tensor-core passes of the FFN backward kernels for Hopper (sm_90a):
-// modes 1 and 2 of ffn_bwd_dx.cu and ffn_bwd_dw.cu (bf16 operands, f32
-// sums). Mode 0 (f32) keeps the CUDA-core passes of ffn_gemm.cuh.
+// The tensor-core passes of the FFN kernels for Hopper (sm_90a): modes 1
+// and 2 of ffn_fwd.cu, ffn_bwd_dx.cu and ffn_bwd_dw.cu (bf16 operands,
+// f32 sums), and the products of head_xent_bwd.cu's modes 1 and 2. Mode
+// 0 (f32) keeps the CUDA-core passes of ffn_gemm.cuh.
 //
 // Every product is bf16 x bf16 -> f32 on wgmma.mma_async m64n256k16, its
 // operands brought into shared memory by TMA straight from row-major bf16
@@ -18,17 +19,19 @@
 //   pass 1 (wgmma_hidden_kernel, a 3-stage ring): a [128 tokens x 256 ffn]
 //     tile of h = x w1^T over d (both K-major); its mask !(h <= 0) kept as
 //     128 bits a thread (an h near zero summed again: exact_h,
-//     serial_h), a = relu(h) stored as bf16 when asked; then da = dy w2
-//     over d into the same registers (w2 MN-major) and dh = mask ? da : 0
-//     stored as bf16, both [T][ffn8] through a swizzled shared buffer and
-//     a TMA store that the next tile's products overlap. NaN passes the
-//     mask.
-//   pass 2 (wgmma_slice_kernel, a 4-stage ring): one or two products; the
-//     tiles that fill whole rounds of the card run over the whole depth,
-//     the rest (only where they would leave the last round part idle)
-//     over S slices of L (a multiple of 64) each, their f32 partials
-//     summed in slice order by split_reduce_kernel. No atomics, and wgmma
-//     sums a k16 step in a fixed order: two calls give the same bits.
+//     serial_h), a = relu(h) stored as bf16 when asked (kStoreA); then,
+//     in the backward kernels (kDh), da = dy w2 over d into the same
+//     registers (w2 MN-major) and dh = mask ? da : 0 stored as bf16, both
+//     [T][ffn8] through a swizzled shared buffer and a TMA store that the
+//     next tile's products overlap. NaN passes the mask.
+//   pass 2 (wgmma_slice_kernel, a 4-stage ring): one or two products,
+//     each with its own depth, operand layouts and output type, the
+//     first optionally added to what its output holds; the tiles that
+//     fill whole rounds of the card run over the whole depth, the rest
+//     (only where they would leave the last round part idle) over S
+//     slices of L (a multiple of 64) each, their f32 partials summed in
+//     slice order by split_reduce_kernel. No atomics, and wgmma sums a
+//     k16 step in a fixed order: two calls give the same bits.
 // TMA zero-fills loads past an array's edge and clips its stores there;
 // pass 2's stores are masked. The tensor maps come from
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint at run
@@ -359,7 +362,7 @@ __device__ __forceinline__ void consume(float (&acc)[128], int n,
   }
   wg_wait<0>();
   fence_acc(acc);
-  if (leader) bar_arrive(r.empty + 8 * prev);
+  if (leader && prev >= 0) bar_arrive(r.empty + 8 * prev);
 }
 
 __device__ __forceinline__ void zero(float (&acc)[128]) {
@@ -390,15 +393,22 @@ __device__ __forceinline__ void put2(float* row, int c, int ncols, bool vec,
   if (c + 1 < ncols) row[c + 1] = v1;
 }
 
+__device__ __forceinline__ float value(const float* p) { return *p; }
+__device__ __forceinline__ float value(const bf16* p) {
+  return __bfloat162float(*p);
+}
+
 // A warpgroup's 64 x 256 accumulators out to rows < rows and columns <
-// ncols of out [.][ld], the tile's corner at (m0, n0). Thread t of the
-// warpgroup holds rows m0 + 16 (t / 32) + (t % 32) / 4 (+ 8) and columns
-// n0 + 8 j + 2 (t % 4) (+ 1), j < 32: acc[4 j + 2 h + e] at row + 8 h,
-// column + e.
+// ncols of out [.][ld], the tile's corner at (m0, n0); with `add`, each
+// output is what out holds plus the accumulator, rounded once. Thread t
+// of the warpgroup holds rows m0 + 16 (t / 32) + (t % 32) / 4 (+ 8) and
+// columns n0 + 8 j + 2 (t % 4) (+ 1), j < 32: acc[4 j + 2 h + e] at row
+// + 8 h, column + e.
 template <typename Out>
 __device__ __forceinline__ void store_acc(Out* out, long long ld, int rows,
-                                          int ncols, bool vec, int m0,
-                                          int n0, const float (&acc)[128]) {
+                                          int ncols, bool vec, bool add,
+                                          int m0, int n0,
+                                          const float (&acc)[128]) {
   const int t = threadIdx.x % 128;
   const int r = m0 + 16 * (t / 32) + (t % 32) / 4;
   const int c = n0 + 2 * (t % 4);
@@ -407,9 +417,15 @@ __device__ __forceinline__ void store_acc(Out* out, long long ld, int rows,
     if (r + 8 * h >= rows) continue;
     Out* row = out + static_cast<size_t>(r + 8 * h) * ld;
 #pragma unroll
-    for (int j = 0; j < 32; ++j)
-      put2(row, c + 8 * j, ncols, vec, acc[4 * j + 2 * h],
-           acc[4 * j + 2 * h + 1]);
+    for (int j = 0; j < 32; ++j) {
+      const int cj = c + 8 * j;
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (add) {
+        if (cj < ncols) v0 = value(row + cj) + v0;
+        if (cj + 1 < ncols) v1 = value(row + cj + 1) + v1;
+      }
+      put2(row, cj, ncols, vec, v0, v1);
+    }
   }
 }
 
@@ -427,9 +443,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Pass 1. x, dy [T][d] (boxes 64 x 128), w1 [ffn][d] (64 x 256), w2
 // [d][ffn] (64 x 64); a_out (unused without kStoreA) and dh_out: bf16
-// [T][ffn] with rows ffn8 apart (boxes 64 x 64). xg, w1g: the bf16
-// arrays of the x and w1 maps, rows ldx and ldw1 apart (exact_h,
-// serial_h).
+// [T][ffn] with rows ffn8 apart (boxes 64 x 64); dy, w2 and dh_out unused
+// without kDh (the forward). xg, w1g: the bf16 arrays of the x and w1
+// maps, rows ldx and ldw1 apart (exact_h, serial_h).
 struct HiddenParams {
   CUtensorMap x, w1, dy, w2, a_out, dh_out;
   const bf16* xg;
@@ -545,9 +561,10 @@ __device__ __forceinline__ void staged_free(int wg) {
   wg_sync(wg);
 }
 
-template <typename Tag, bool kStoreA>
+template <typename Tag, bool kStoreA, bool kDh>
 __global__ void __launch_bounds__(kThreads, 1)
     wgmma_hidden_kernel(const __grid_constant__ HiddenParams p) {
+  static_assert(kStoreA || kDh, "pass 1 stores a, dh or both");
   extern __shared__ uint8_t smem[];
   __shared__ __align__(8) uint64_t bars[2 * kStages];
   const Ring r = ring_setup(smem, bars, kHiddenStages);
@@ -560,7 +577,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x != 256) return;
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
       const int m0 = (tile / p.tiles_n) * kBM, n0 = (tile % p.tiles_n) * kBN;
-      for (int i = 0; i < 2 * nk; ++i) {
+      for (int i = 0; i < (kDh ? 2 : 1) * nk; ++i) {
         uint32_t bar;
         const uint32_t a = produce(r, stage, phase, bar);
         if (i < nk) {
@@ -636,6 +653,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       if (kStoreA) store_staged(&p.a_out, out_u32, wg, mw, n0);
+      if (!kDh) continue;
       // da; dh = where(h <= 0, 0, da) out
       zero(acc);
       consume<kKMajor, kMNMajor>(acc, nk, r, stage, phase, wg);
@@ -650,21 +668,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Pass 2: up to two products out[q] [M][N] = sum over depth of A B (A
-// [M][K] as kTA, B [K][N] as kTB; A boxes of 64 x 128 or 64 x 64, B of
-// 64 x 256 or 64 x 64). Tiles are numbered product 0's, then product
-// 1's. Tiles [0, U) are summed over the whole depth and stored; the
-// other nsplit tiles (S > 1 only) over S slices of L each, one work item
-// a (slice, tile), their f32 partials to part [S][nsplit][128][256] for
-// split_reduce_kernel. U is a multiple of the card's SMs, so the unsplit
-// tiles fill whole rounds and the split ones share the last: the round
-// that 144 tiles on 132 SMs would leave 91% idle.
+// Pass 2: up to two products out[q] [M][N] = sum over depth K[q] of A B
+// (product 0: A [M][K] as kTA, B [K][N] as kTB, out of type Out; product
+// 1: kTA1, kTB1, Out1; A boxes of 64 x 128 or 64 x 64, B of 64 x 256 or
+// 64 x 64); with add[q], out[q] += the sum (f32 out only). Tiles are
+// numbered product 0's, then product 1's. Tiles [0, U) are summed over
+// the whole depth and stored; the other nsplit tiles (S > 1 only) over S
+// slices of L each, one work item a (slice, tile), their f32 partials to
+// part [S][nsplit][128][256] for split_reduce_kernel. U is a multiple of
+// the card's SMs, so the unsplit tiles fill whole rounds and the split
+// ones share the last: the round that 144 tiles on 132 SMs would leave
+// 91% idle.
 struct SliceParams {
   CUtensorMap a[2], b[2];
   void* out[2];
   float* part;
-  int M[2], N[2], tiles_n[2], tiles[2];
-  int K, S, L, U, nsplit;
+  int M[2], N[2], K[2], tiles_n[2], tiles[2], add[2];
+  int S, L, U, nsplit;
 };
 
 // A tile's product and corner.
@@ -683,7 +703,7 @@ __host__ __device__ inline Tile tile_of(const int (&tiles)[2],
 }
 
 // Work item `item` of pass 2: its tile, slice (-1: the whole depth) and
-// depth in ring stages.
+// depth in ring stages (none for a slice past its product's depth).
 struct Item {
   Tile t;
   int split, s, k0, nk;
@@ -691,7 +711,7 @@ struct Item {
 
 __device__ __forceinline__ Item item_of(const SliceParams& p, int item) {
   Item it;
-  int tile = item, k1 = p.K;
+  int tile = item;
   it.split = -1;
   it.s = 0;
   it.k0 = 0;
@@ -701,16 +721,20 @@ __device__ __forceinline__ Item item_of(const SliceParams& p, int item) {
     it.s = j / p.nsplit;
     tile = p.U + it.split;
     it.k0 = it.s * p.L;
-    k1 = min(p.K, it.k0 + p.L);
   }
   it.t = tile_of(p.tiles, p.tiles_n, tile);
-  it.nk = (k1 - it.k0 + kBK - 1) / kBK;
+  const int K = p.K[it.t.q];
+  const int k1 = it.split < 0 ? K : min(K, it.k0 + p.L);
+  it.nk = k1 > it.k0 ? (k1 - it.k0 + kBK - 1) / kBK : 0;
   return it;
 }
 
-template <typename Tag, typename Out, int kTA, int kTB>
+template <typename Tag, typename Out, int kTA, int kTB, typename Out1 = Out,
+          int kTA1 = kTA, int kTB1 = kTB>
 __global__ void __launch_bounds__(kThreads, 1)
     wgmma_slice_kernel(const __grid_constant__ SliceParams p) {
+  // one operand layout for both products: one load and product path
+  constexpr bool kOne = kTA == kTA1 && kTB == kTB1;
   extern __shared__ uint8_t smem[];
   __shared__ __align__(8) uint64_t bars[2 * kStages];
   const Ring r = ring_setup(smem, bars, kStages);
@@ -728,8 +752,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < it.nk; ++i) {
         uint32_t bar;
         const uint32_t a = produce(r, stage, phase, bar);
-        load<kTA, kBM>(a, am, bar, it.t.m0, it.k0 + i * kBK);
-        load<kTB, kBN>(a + kABytes, bm, bar, it.t.n0, it.k0 + i * kBK);
+        const int k = it.k0 + i * kBK;
+        if (kOne || it.t.q == 0) {
+          load<kTA, kBM>(a, am, bar, it.t.m0, k);
+          load<kTB, kBN>(a + kABytes, bm, bar, it.t.n0, k);
+        } else {
+          load<kTA1, kBM>(a, am, bar, it.t.m0, k);
+          load<kTB1, kBN>(a + kABytes, bm, bar, it.t.n0, k);
+        }
       }
     }
   } else {
@@ -738,15 +768,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       const Item it = item_of(p, item);
       float acc[128];
       zero(acc);
-      consume<kTA, kTB>(acc, it.nk, r, stage, phase, wg);
-      const int M = p.M[it.t.q], N = p.N[it.t.q], mw = it.t.m0 + 64 * wg;
+      if (kOne || it.t.q == 0)
+        consume<kTA, kTB>(acc, it.nk, r, stage, phase, wg);
+      else
+        consume<kTA1, kTB1>(acc, it.nk, r, stage, phase, wg);
+      const int q = it.t.q, M = p.M[q], N = p.N[q], mw = it.t.m0 + 64 * wg;
       if (it.split >= 0)
         store_acc(p.part + (static_cast<size_t>(it.s) * p.nsplit + it.split) *
                                (kBM * kBN),
-                  kBN, kBM, kBN, true, 64 * wg, 0, acc);
+                  kBN, kBM, kBN, true, false, 64 * wg, 0, acc);
+      else if (q == 0)
+        store_acc(static_cast<Out*>(p.out[0]), N, M, N, N % 2 == 0,
+                  p.add[0] != 0, mw, it.t.n0, acc);
       else
-        store_acc(static_cast<Out*>(p.out[it.t.q]), N, M, N, N % 2 == 0, mw,
-                  it.t.n0, acc);
+        store_acc(static_cast<Out1*>(p.out[1]), N, M, N, N % 2 == 0,
+                  p.add[1] != 0, mw, it.t.n0, acc);
     }
   }
 }
@@ -756,16 +792,23 @@ __device__ __forceinline__ void put(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// An output element: v (plus what o holds, with add) rounded once.
+template <typename Out>
+__device__ __forceinline__ void put_sum(Out* o, float v, bool add) {
+  put(o, add ? value(o) + v : v);
+}
+
 // The split tiles' outputs: each element the sum of its S partials in
-// slice order, rounded once to Out; elements past M or N not stored.
+// slice order (added to the output with add), rounded once to the
+// product's output type; elements past M or N not stored.
 struct ReduceParams {
   const float* part;
   void* out[2];
-  int M[2], N[2], tiles_n[2], tiles[2];
+  int M[2], N[2], tiles_n[2], tiles[2], add[2];
   int S, U, nsplit;
 };
 
-template <typename Tag, typename Out>
+template <typename Tag, typename Out, typename Out1 = Out>
 __global__ void split_reduce_kernel(const ReduceParams p) {
   constexpr int kTile = kBM * kBN;
   const long long n = static_cast<long long>(p.nsplit) * kTile;
@@ -780,8 +823,11 @@ __global__ void split_reduce_kernel(const ReduceParams p) {
     float acc = __ldg(p.part + i);
     for (int s = 1; s < p.S; ++s)
       acc = acc + __ldg(p.part + static_cast<long long>(s) * n + i);
-    put(static_cast<Out*>(p.out[t.q]) + static_cast<size_t>(m) * p.N[t.q] + c,
-        acc);
+    const size_t at = static_cast<size_t>(m) * p.N[t.q] + c;
+    if (t.q == 0)
+      put_sum(static_cast<Out*>(p.out[0]) + at, acc, p.add[0] != 0);
+    else
+      put_sum(static_cast<Out1*>(p.out[1]) + at, acc, p.add[1] != 0);
   }
 }
 
@@ -907,21 +953,23 @@ inline int tiles(long long n, int tile) {
   return static_cast<int>((n + tile - 1) / tile);
 }
 
-// Pass 1 on [T, d] x, dy and the weights: dh (and a, when given) [T][ld].
-template <typename Tag>
-cudaError_t hidden(const Operand& x, const Operand& dy, const Operand& w1,
+// Pass 1 on [T, d] x (and dy) and the weights: a (kStoreA) and dh (kDh)
+// [T][ld]; dy and w2 are read only with kDh.
+template <typename Tag, bool kStoreA, bool kDh>
+cudaError_t hidden(const Operand& x, const Operand& w1, const Operand& dy,
                    const Operand& w2, bf16* a, bf16* dh, int T, int d,
                    int ffn, int sms, cudaStream_t st) {
   HiddenParams p{};
   cudaError_t e;
   const long long ld = up8(ffn);
   if ((e = tensor_map(&p.x, x.p, T, d, x.ld, kBM)) != cudaSuccess ||
-      (e = tensor_map(&p.dy, dy.p, T, d, dy.ld, kBM)) != cudaSuccess ||
       (e = tensor_map(&p.w1, w1.p, ffn, d, w1.ld, kBN)) != cudaSuccess ||
-      (e = tensor_map(&p.w2, w2.p, d, ffn, w2.ld, 64)) != cudaSuccess ||
-      (e = tensor_map(&p.dh_out, dh, T, ffn, ld, 64)) != cudaSuccess ||
-      (a != nullptr &&
-       (e = tensor_map(&p.a_out, a, T, ffn, ld, 64)) != cudaSuccess))
+      (kStoreA &&
+       (e = tensor_map(&p.a_out, a, T, ffn, ld, 64)) != cudaSuccess) ||
+      (kDh &&
+       ((e = tensor_map(&p.dy, dy.p, T, d, dy.ld, kBM)) != cudaSuccess ||
+        (e = tensor_map(&p.w2, w2.p, d, ffn, w2.ld, 64)) != cudaSuccess ||
+        (e = tensor_map(&p.dh_out, dh, T, ffn, ld, 64)) != cudaSuccess)))
     return e;
   p.xg = x.p;
   p.w1g = w1.p;
@@ -932,38 +980,37 @@ cudaError_t hidden(const Operand& x, const Operand& dy, const Operand& w1,
   p.ffn = ffn;
   p.tiles_n = tiles(ffn, kBN);
   p.tiles = tiles(T, kBM) * p.tiles_n;
-  const int blocks = p.tiles < sms ? p.tiles : sms;
-  return a != nullptr ? launch(wgmma_hidden_kernel<Tag, true>, blocks,
-                               kHiddenSmem, p, st)
-                      : launch(wgmma_hidden_kernel<Tag, false>, blocks,
-                               kHiddenSmem, p, st);
+  return launch(wgmma_hidden_kernel<Tag, kStoreA, kDh>,
+                p.tiles < sms ? p.tiles : sms, kHiddenSmem, p, st);
 }
 
-// One product of pass 2: its A and B maps filled by the caller.
-inline void product(SliceParams& p, int q, void* out, int M, int N) {
+// One product of pass 2 over depth K: its A and B maps filled by the
+// caller.
+inline void product(SliceParams& p, int q, void* out, int M, int N, int K) {
   p.out[q] = out;
   p.M[q] = M;
   p.N[q] = N;
+  p.K[q] = K;
   p.tiles_n[q] = tiles(N, kBN);
   p.tiles[q] = tiles(M, kBM) * p.tiles_n[q];
 }
 
-// Pass 2 over depth K on up to sms blocks: tiles [0, U) whole, the
-// rest in S slices of L (S 1: every tile whole), then the split tiles'
-// reduce from part.
-template <typename Tag, typename Out, int kTA, int kTB>
-cudaError_t sliced(SliceParams& p, float* part, int K, int S, int L, int U,
-                   int sms, cudaStream_t st) {
+// Pass 2 on up to sms blocks: tiles [0, U) whole, the rest in S slices
+// of L (S 1: every tile whole), then the split tiles' reduce from part.
+template <typename Tag, typename Out, int kTA, int kTB, typename Out1 = Out,
+          int kTA1 = kTA, int kTB1 = kTB>
+cudaError_t sliced(SliceParams& p, float* part, int S, int L, int U, int sms,
+                   cudaStream_t st) {
   const int all = p.tiles[0] + p.tiles[1];
-  p.K = K;
   p.S = S;
   p.L = L;
   p.U = S > 1 ? U : all;
   p.nsplit = all - p.U;
   p.part = part;
   const int items = p.U + S * p.nsplit;
-  cudaError_t e = launch(wgmma_slice_kernel<Tag, Out, kTA, kTB>,
-                         items < sms ? items : sms, kSliceSmem, p, st);
+  cudaError_t e =
+      launch(wgmma_slice_kernel<Tag, Out, kTA, kTB, Out1, kTA1, kTB1>,
+             items < sms ? items : sms, kSliceSmem, p, st);
   if (e != cudaSuccess || p.nsplit == 0) return e;
   ReduceParams r{};
   r.part = part;
@@ -973,11 +1020,12 @@ cudaError_t sliced(SliceParams& p, float* part, int K, int S, int L, int U,
     r.N[q] = p.N[q];
     r.tiles_n[q] = p.tiles_n[q];
     r.tiles[q] = p.tiles[q];
+    r.add[q] = p.add[q];
   }
   r.S = S;
   r.U = p.U;
   r.nsplit = p.nsplit;
-  split_reduce_kernel<Tag, Out><<<1024, 256, 0, st>>>(r);
+  split_reduce_kernel<Tag, Out, Out1><<<1024, 256, 0, st>>>(r);
   return cudaGetLastError();
 }
 

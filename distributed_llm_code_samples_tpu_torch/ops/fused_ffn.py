@@ -21,12 +21,12 @@ On bf16 tensors (``--dtype bfloat16``, all operands bf16) each function
 computes what the Pallas kernels compute on bf16 arrays: that operand
 mode, whatever ``mxu_bf16`` says, and bf16 outputs, each element rounded
 once from its f32 sum (``pallas_ffn.py:126, 187, 246-247``), counted as
-``<name>[bf16]``. The forward copies the bf16 operands into f32 scratch,
-exactly, and runs its CUDA-core passes. The two backward kernels run
-their bf16 operand modes (``mxu_bf16`` on f32, mode 1; bf16 storage,
-mode 2) on the tensor cores (``csrc/ffn_wgmma.cuh``): TMA reads bf16
-operands where they lie, or from a bf16 copy the kernel makes (mode 1's
-rounding, or bf16 that TMA cannot read in place: ``tc_staged``).
+``<name>[bf16]``. All three kernels run their bf16 operand modes
+(``mxu_bf16`` on f32, mode 1; bf16 storage, mode 2) on the tensor cores
+(``csrc/ffn_wgmma.cuh``): TMA reads bf16 operands where they lie, or
+from a bf16 copy the kernel makes (mode 1's rounding, or bf16 that TMA
+cannot read in place: ``tc_staged``). Mode 0 (f32) runs the CUDA-core
+passes of ``csrc/ffn_gemm.cuh``.
 """
 
 from __future__ import annotations
@@ -285,14 +285,22 @@ def tc_dx_plan(t: int, d: int, ffn: int, sms: int = H100_SMS):
     return tc_plan(ffn, _tc_tiles(t, d), sms)
 
 
+def tc_fwd_plan(t: int, d: int, ffn: int, sms: int = H100_SMS):
+    """The tensor-core forward's pass 2 over the ffn axis, the tiles of
+    ``y [T, d]``: at the main shape 64 x 3 tiles, every one over all
+    3072 columns of ffn (as ``tc_dx_plan``)."""
+    return tc_plan(ffn, _tc_tiles(t, d), sms)
+
+
 def tc_staged(mode: int, operands: dict) -> tuple:
     """The operands of a tensor-core call that the kernel copies into bf16
     scratch before TMA reads them: ``operands`` is ``{piece: (data_ptr,
-    row elements)}`` for ``xs``, ``dys``, ``w1s``, ``w2s``. Mode 1 (f32
-    storage) copies all four, rounding them; mode 2 (bf16) those whose
-    base is not TC_ALIGN-byte aligned or whose rows are not a multiple of
-    TC_ROW elements. The copy has the same values, so a staged call gives
-    the bits an aligned one gives."""
+    row elements)}`` (the FFN kernels' ``xs``, ``dys``, ``w1s``, ``w2s``;
+    the head's ``hs``, ``ws``). Mode 1 (f32 storage) copies all of them,
+    rounding them; mode 2 (bf16) those whose base is not TC_ALIGN-byte
+    aligned or whose rows are not a multiple of TC_ROW elements. The copy
+    has the same values, so a staged call gives the bits an aligned one
+    gives."""
     return tuple(name for name, (ptr, row) in operands.items()
                  if mode == 1 or ptr % TC_ALIGN or row % TC_ROW)
 
@@ -337,6 +345,16 @@ def tc_dw_scratch(t: int, d: int, ffn: int, plan, staged=()) -> dict:
     return _tc_layout(pieces)
 
 
+def tc_fwd_scratch(t: int, d: int, ffn: int, plan, staged=()) -> dict:
+    """The tensor-core forward's scratch (``_tc_layout``): the staged bf16
+    copies (``xs``, ``w1s``, ``w2s``), ``a`` as bf16 ``[T, ffn8]`` and
+    the split tiles' partials."""
+    pieces = _tc_staging(t, d, ffn, staged)
+    pieces["a"] = ((t, _up(ffn, TC_ROW)), 2)
+    pieces.update(_tc_partials(plan, _tc_tiles(t, d)))
+    return _tc_layout(pieces)
+
+
 def tc_dx_scratch(t: int, d: int, ffn: int, plan, staged=()) -> dict:
     """The tensor-core input gradient's scratch (``_tc_layout``): the
     staged bf16 copies, ``dh`` as bf16 ``[T, ffn8]`` and the split tiles'
@@ -355,14 +373,11 @@ def _sms(x) -> int:
 _PARTIALS = {FWD: ("part",), BWD_DX: ("part",), BWD_DW: ("part1", "part2")}
 
 
-def _launch(name, tensors, pieces, ints, mxu_bf16):
-    """Launch ``csrc/<name>.cu`` on ``tensors`` (inputs, then outputs)
-    and the f32 scratch ``pieces``, carved from one ``torch.empty``
-    buffer; a one-slice plan has no partials, and null pointers take
-    their place. The kernel's mode: 0 f32, 1 f32 with bf16 operands
-    (``mxu_bf16``), 2 bf16 storage (counted as ``<name>[bf16]``)."""
-    bf16 = tensors[0].dtype == torch.bfloat16
-    mode = 2 if bf16 else int(bool(mxu_bf16))
+def _launch(name, tensors, pieces, ints):
+    """Launch the CUDA-core passes of ``csrc/<name>.cu`` (mode 0, f32) on
+    ``tensors`` (inputs, then outputs) and the f32 scratch ``pieces``,
+    carved from one ``torch.empty`` buffer; a one-slice plan has no
+    partials, and null pointers take their place."""
     pieces = dict(pieces)
     scratch = torch.empty(pieces.pop("total"), dtype=torch.float32,
                           device=tensors[0].device)
@@ -370,12 +385,17 @@ def _launch(name, tensors, pieces, ints, mxu_bf16):
     ptrs = [t.data_ptr() for t in tensors]
     ptrs += [base + 4 * off for _, off in pieces.values()]
     ptrs += [0 for part in _PARTIALS[name] if part not in pieces]
-    _build.launch(name, f"{name}_launch", ptrs, (*ints, mode),
-                  tensors[0].device, name + "[bf16]" if bf16 else name)
+    _build.launch(name, f"{name}_launch", ptrs, (*ints, 0),
+                  tensors[0].device, name)
 
 
-# the scratch pieces each tensor-core launch takes, in its pointer order
-_TC_PIECES = {BWD_DX: ("xs", "dys", "w1s", "w2s", "dh", "part"),
+# the operands each tensor-core launch takes first, by their staged
+# pieces, and the scratch pieces it takes, in its pointer order
+_TC_OPERANDS = {FWD: ("xs", "w1s", "w2s"),
+                BWD_DX: ("xs", "dys", "w1s", "w2s"),
+                BWD_DW: ("xs", "dys", "w1s", "w2s")}
+_TC_PIECES = {FWD: ("xs", "w1s", "w2s", "a", "part"),
+              BWD_DX: ("xs", "dys", "w1s", "w2s", "dh", "part"),
               BWD_DW: ("xs", "dys", "w1s", "w2s", "a", "dh", "part")}
 
 
@@ -387,15 +407,15 @@ def _tc_mode(x, mxu_bf16) -> int:
 
 def _launch_tc(name, tensors, scratch_fn, plan, t, d, ffn, mode, sms):
     """Launch ``<name>_tc_launch`` of ``csrc/<name>.cu`` on ``tensors``
-    (x, dy, w1, w2, then the outputs) with the scratch ``scratch_fn(t, d,
-    ffn, plan, staged)`` carved from one ``torch.empty`` buffer (pieces
-    it leaves out are null pointers), its persistent passes on ``sms``
-    blocks at most."""
-    x, dy, w1, w2 = tensors[:4]
-    staged = tc_staged(mode, {"xs": (x.data_ptr(), d),
-                              "dys": (dy.data_ptr(), d),
-                              "w1s": (w1.data_ptr(), d),
-                              "w2s": (w2.data_ptr(), ffn)})
+    (x, dy (not the forward's), w1, w2, then the outputs) with the
+    scratch ``scratch_fn(t, d, ffn, plan, staged)`` carved from one
+    ``torch.empty`` buffer (pieces it leaves out are null pointers), its
+    persistent passes on ``sms`` blocks at most. Returns the buffer and
+    its pieces (what the passes left there: the card tests read ``a``)."""
+    x = tensors[0]
+    rows = {"xs": d, "dys": d, "w1s": d, "w2s": ffn}
+    staged = tc_staged(mode, {p: (v.data_ptr(), rows[p]) for p, v in
+                              zip(_TC_OPERANDS[name], tensors)})
     pieces = scratch_fn(t, d, ffn, plan, staged)
     scratch = torch.empty(pieces["total"], dtype=torch.uint8,
                           device=x.device)
@@ -406,21 +426,29 @@ def _launch_tc(name, tensors, scratch_fn, plan, t, d, ffn, mode, sms):
     _build.launch(name, f"{name}_tc_launch", ptrs,
                   (t, d, ffn, *plan, mode, sms), x.device,
                   name + "[bf16]" if mode == 2 else name)
+    return scratch, pieces
 
 
 def ffn_fwd_fused(w1, w2, x, *, mxu_bf16: bool = False):
     """Linear -> ReLU -> linear forward, ``[T, d]``. The kernel's scratch
-    (``fwd_scratch``: the padded operand copies, ``a^T`` as ``[ffn, T]``
-    and the slices' partials) is one ``torch.empty`` buffer;
-    ``csrc/ffn_fwd.cu`` says why each is there. CPU tensors run
-    ``ffn_fwd_ref``."""
+    is one ``torch.empty`` buffer: in f32 (``fwd_scratch``) the padded
+    operand copies, ``a^T`` as ``[ffn, T]`` and the slices' partials;
+    with bf16 operands (``tc_fwd_scratch``) the staged bf16 copies, ``a``
+    as bf16 ``[T, ffn]`` and the partials. ``csrc/ffn_fwd.cu`` says why
+    each is there. CPU tensors run ``ffn_fwd_ref``."""
     t, d, ffn = _check(x, w1, w2)
     if not _build.on_card(FWD, x, w1, w2):
         return ffn_fwd_ref(w1, w2, x, mxu_bf16=mxu_bf16)
     y = torch.empty_like(x)
+    mode = _tc_mode(x, mxu_bf16)
+    if mode:
+        sms = _sms(x)
+        _launch_tc(FWD, [x, w1, w2, y], tc_fwd_scratch,
+                   tc_fwd_plan(t, d, ffn, sms), t, d, ffn, mode, sms)
+        return y
     plan = out_plan(t, d, ffn, _sms(x))
     _launch(FWD, [x, w1, w2, y], fwd_scratch(t, d, ffn, plan),
-            (t, d, ffn, *plan), mxu_bf16)
+            (t, d, ffn, *plan))
     return y
 
 
@@ -444,7 +472,7 @@ def ffn_bwd_dx_fused(dy, w1, w2, x, *, mxu_bf16: bool = False):
         return dx
     plan = out_plan(t, d, ffn, _sms(x))
     _launch(BWD_DX, [x, dy, w1, w2, dx], dx_scratch(t, d, ffn, plan),
-            (t, d, ffn, *plan), mxu_bf16)
+            (t, d, ffn, *plan))
     return dx
 
 
@@ -468,7 +496,7 @@ def ffn_bwd_dw_fused(dy, w1, w2, x, *, mxu_bf16: bool = False):
         return dw1, dw2
     plan = dw_plan(t, d, ffn, _sms(x))
     _launch(BWD_DW, [x, dy, w1, w2, dw1, dw2], dw_scratch(t, d, ffn, plan),
-            (t, d, ffn, *plan), mxu_bf16)
+            (t, d, ffn, *plan))
     return dw1, dw2
 
 

@@ -7,12 +7,13 @@ path's ``head_impl="fused"``.
 Port of ``distributed_llm_code_samples_tpu/ops/pallas_xent.py``
 (``head_xent_stats``, ``head_xent_fwd``, ``head_xent_bwd``,
 ``head_xent``). On a CUDA tensor each wrapper launches its CUDA kernels
-(``csrc/head_xent_fwd.cu``'s copies, sliced statistics and merge;
-``csrc/head_xent_bwd.cu``'s chunked products; both on the GEMM core of
-``csrc/gemm_core.cuh``; built at first use by ``ops/_build.py``, bound
-with ctypes) or raises; on a CPU tensor it runs its plain PyTorch
-version ``*_ref``. There is no fallback from a kernel to its plain
-version.
+(``csrc/head_xent_fwd.cu``'s copies, sliced statistics and merge, on
+the GEMM core of ``csrc/gemm_core.cuh``; ``csrc/head_xent_bwd.cu``'s
+chunked products, on that core in f32 and on the tensor cores with bf16
+operands, ``csrc/ffn_wgmma.cuh``; built at first use by
+``ops/_build.py``, bound with ctypes) or raises; on a CPU tensor it
+runs its plain PyTorch version ``*_ref``. There is no fallback from a
+kernel to its plain version.
 
 ``h [N, d]``, ``w [V, d]`` (the tied embedding), ``targets [N]`` int. A
 target outside ``[0, V)`` matches no column. The kernels mask the vocab
@@ -41,8 +42,10 @@ import torch
 
 from . import _build
 # the GEMM core's (csrc/gemm_core.cuh) tile and blocks an SM, shared
-# with the FFN kernels
-from .fused_ffn import BLOCKS_PER_SM, H100_SMS, TILE, _layout, _sms, _up
+# with the FFN kernels, and the tensor-core passes' (csrc/ffn_wgmma.cuh)
+# tile width, row rule, staging rule and scratch layout
+from .fused_ffn import (BLOCKS_PER_SM, H100_SMS, TC_BN, TC_ROW, TILE,
+                        _layout, _sms, _tc_layout, _up, tc_staged)
 
 FWD, BWD = "head_xent_fwd", "head_xent_bwd"
 STATS_COUNT, BWD_COUNT = "head_xent_stats", "head_xent_bwd"
@@ -186,18 +189,84 @@ def head_xent_fwd(h, w, targets, *, mxu_bf16: bool = False):
     return (lse - tz).mean(), lse
 
 
-def _bwd_scratch_floats(n: int, d: int, v: int, mode: int) -> int:
+# -- the backward's chunks and scratch (csrc/head_xent_bwd.cu) --------------
+
+# mode 0 (f32): the most vocabulary columns a chunk (kMaxChunk)
+BWD_MAX_CHUNK = 8192
+# modes 1 and 2 (the tensor cores): the most vocabulary columns a chunk.
+# At the main shape it gives 6 chunks of 8448 columns (the last 8064):
+# each chunk's 192 dh tiles and 198 dw tiles fill 2.95 rounds of an
+# H100's 132 SMs, and dz takes 138 MB of scratch. On an H100 at the main
+# shape (chip_smoke.py's head-tc-chunks, PERF.md) it ran within 1% of
+# the fastest chunk, 25344, with a third of its scratch; 2048 ran 41%
+# slower, one chunk of the whole vocabulary 9%.
+HEAD_TC_CHUNK = 8448
+
+
+def bwd_scratch_floats(n: int, d: int, v: int) -> int:
+    """Floats of mode 0's scratch (``head_xent_bwd_scratch_floats``):
+    ``h^T [d, N4]``, ``h [N, d4]``, ``w^T [d, V4]``, ``w [V, d4]``, and
+    one chunk's ``dz [N, width]`` and ``dz^T [width, N4]`` (4-rounded
+    rows; chunks of equal width, a multiple of the GEMM tile)."""
+    n4, d4, v4 = _up(n, 4), _up(d, 4), _up(v, 4)
+    k = _cdiv(v, BWD_MAX_CHUNK)
+    width = _up(_cdiv(v, k), TILE)
+    return d * n4 + n * d4 + d * v4 + v * d4 + n * width + width * n4
+
+
+def head_tc_plan(v: int, chunk: int | None = None):
+    """``(chunks, width)``: the tensor-core backward's vocabulary in
+    chunks of ``width`` columns (a multiple of the tile width TC_BN, the
+    last chunk shorter), as few as keep each at most ``chunk`` wide
+    (``HEAD_TC_CHUNK`` by default; one chunk when V is under one
+    tile)."""
+    chunk = HEAD_TC_CHUNK if chunk is None else chunk
+    k = _cdiv(v, max(chunk, TC_BN))
+    width = _up(_cdiv(v, k), TC_BN)
+    return _cdiv(v, width), width
+
+
+def head_tc_chunks(v: int, plan) -> list[tuple[int, int]]:
+    """The column range ``[v0, v1)`` of each chunk of ``plan``, in the
+    order the kernel walks them (and adds them into ``dh``)."""
+    return [(v0, min(v, v0 + plan[1])) for v0 in range(0, v, plan[1])]
+
+
+def head_tc_scratch(n: int, d: int, v: int, plan, mode: int,
+                    staged=()) -> dict:
+    """The tensor-core backward's scratch (``fused_ffn._tc_layout``, in
+    ``head_xent_bwd_tc_launch``'s pointer order): the staged bf16 copies
+    (``tc_staged``: ``hs [N, d8]``, ``ws [V, d8]``), one chunk's ``dz`` as
+    bf16 ``[N, width8]`` and, on bf16 storage (mode 2), dh's f32 sum
+    ``dh32 [N, d]``."""
+    d8 = _up(d, TC_ROW)
+    pieces = {k: (shape, 2) for k, shape in (("hs", (n, d8)),
+                                              ("ws", (v, d8)))
+              if k in staged}
+    pieces["dz"] = ((n, _up(plan[1], TC_ROW)), 2)
+    if mode == 2:
+        pieces["dh32"] = ((n, d), 4)
+    return _tc_layout(pieces)
+
+
+_TC_PIECES = ("hs", "ws", "dz", "dh32")
+
+
+def _bwd_scratch_floats(n: int, d: int, v: int) -> int:
     fn = _build.load_library(BWD).head_xent_bwd_scratch_floats
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
-    return int(fn(n, d, v, mode))
+    return int(fn(n, d, v, 0))
 
 
 def head_xent_bwd(dy, h, w, targets, lse, *, mxu_bf16: bool = False):
     """``(dh, dw)`` with each logit tile computed once: for each chunk of
     the vocabulary one launch forms the chunk's ``dz`` in a bounded
     scratch and one takes ``dh += dz w_c`` and ``dw_c = dz^T h`` from it
-    (``csrc/head_xent_bwd.cu``). ``dz`` carries ``1/N``; the scalar ``dy``
+    (``csrc/head_xent_bwd.cu``): in f32 on the CUDA cores, with bf16
+    operands (``mxu_bf16``, or bf16 storage) on the tensor cores in the
+    chunks of ``head_tc_plan``, ``dz`` stored once as bf16
+    (``head_tc_scratch``). ``dz`` carries ``1/N``; the scalar ``dy``
     scales both outside the kernels. ``dh`` and ``dw`` take the storage
     type of ``h`` and ``w``; ``lse`` is f32. CPU tensors run
     ``head_xent_bwd_ref``."""
@@ -210,14 +279,27 @@ def head_xent_bwd(dy, h, w, targets, lse, *, mxu_bf16: bool = False):
         return head_xent_bwd_ref(dy, h, w, targets, lse, mxu_bf16=mxu_bf16)
     t32 = _targets32(targets)
     dh, dw = torch.empty_like(h), torch.empty_like(w)
+    ptrs = [h.data_ptr(), w.data_ptr(), t32.data_ptr(), lse.data_ptr(),
+            dh.data_ptr(), dw.data_ptr()]
     mode, suffix = _mode(h, mxu_bf16)
-    scratch = torch.empty(_bwd_scratch_floats(n, d, v, mode),
+    if mode:
+        plan = head_tc_plan(v)
+        staged = tc_staged(mode, {"hs": (h.data_ptr(), d),
+                                  "ws": (w.data_ptr(), d)})
+        pieces = head_tc_scratch(n, d, v, plan, mode, staged)
+        scratch = torch.empty(pieces["total"], dtype=torch.uint8,
+                              device=h.device)
+        base = scratch.data_ptr()
+        ptrs += [base + pieces[p][1] if p in pieces else 0
+                 for p in _TC_PIECES]
+        _build.launch(BWD, "head_xent_bwd_tc_launch", ptrs,
+                      (n, d, v, plan[1], mode, _sms(h)), h.device,
+                      BWD_COUNT + suffix)
+        return dy * dh, dy * dw
+    scratch = torch.empty(_bwd_scratch_floats(n, d, v),
                           dtype=torch.float32, device=h.device)
-    _build.launch(BWD, "head_xent_bwd_launch",
-                  [h.data_ptr(), w.data_ptr(), t32.data_ptr(),
-                   lse.data_ptr(), dh.data_ptr(), dw.data_ptr(),
-                   scratch.data_ptr()],
-                  (n, d, v, mode), h.device, BWD_COUNT + suffix)
+    _build.launch(BWD, "head_xent_bwd_launch", ptrs + [scratch.data_ptr()],
+                  (n, d, v, 0), h.device, BWD_COUNT)
     return dy * dh, dy * dw
 
 

@@ -252,9 +252,11 @@ def test_head_bwd_kernels_match_plain(card, shape, mxu_bf16):
 
 @pytest.mark.cuda
 def test_head_bwd_bits_unchanged_by_the_shared_core(card):
-    """The head backward's bits equal those its build gave before its
-    GEMM core moved into csrc/gemm_core.cuh: chip_smoke.py's stored
-    digest of one small call in each operand mode."""
+    """The head backward's f32 bits (mode 0) equal those its build gave
+    before its bf16 operand modes moved to the tensor cores (whose digest
+    of both modes equalled the one from before its GEMM core moved into
+    csrc/gemm_core.cuh): chip_smoke.py's stored digest of one small f32
+    call."""
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
     import chip_smoke
     assert chip_smoke.head_bits_digest(torch, np, p_fx) == \
@@ -1379,9 +1381,8 @@ def test_ffn_kernels_bf16_storage_match_plain(card, kernel, shape):
 def test_ffn_bf16_kernels_take_weights_that_are_not_16_byte_aligned(
         card, kernel):
     """bf16 weights one element (2 bytes) into their storage give the
-    same bits as aligned ones: the forward reads them only through its
-    f32 copies, and the backward kernels stage them into an aligned bf16
-    copy for TMA and run the same tensor-core passes on it."""
+    same bits as aligned ones: the kernels stage them into an aligned
+    bf16 copy for TMA and run the same tensor-core passes on it."""
     _, kern, _ = FFN_BF16[kernel]
     w1, w2, x, dy = (t.bfloat16() for t in ffn_case((300, 64, 256)))
     w1s = torch.empty(w1.numel() + 1, device="cuda",
@@ -1415,10 +1416,11 @@ def test_ffn_f32_bits_unchanged_beside_bf16(card):
         assert torch.equal(a, b)
 
 
-# -- the tensor-core passes of the backward kernels (modes 1 and 2) -------
+# -- the tensor-core passes of the FFN kernels (modes 1 and 2) ------------
 #
-# ffn_bwd_dx and ffn_bwd_dw with bf16 operands (mxu_bf16 on f32 storage,
-# mode 1; bf16 storage, mode 2) run wgmma fed by TMA (csrc/ffn_wgmma.cuh).
+# ffn_fwd, ffn_bwd_dx and ffn_bwd_dw with bf16 operands (mxu_bf16 on f32
+# storage, mode 1; bf16 storage, mode 2) run wgmma fed by TMA
+# (csrc/ffn_wgmma.cuh).
 # Shapes: DW_SHAPES, then a T under one slice of the weight gradients, a
 # ragged T whose last token slice is partial and a ragged ffn whose last
 # slice of the input gradient is partial. The reference is float64 on the
@@ -1441,6 +1443,8 @@ def tc_want64(kernel, dy, w1, w2, x):
     """float64 on the bf16-rounded operands, a and dh rounded to bf16."""
     x, dy, w1, w2 = (v.bfloat16().double() for v in (x, dy, w1, w2))
     h = x @ w1.T
+    if kernel == "fwd":
+        return (torch.where(h <= 0, 0.0, h).bfloat16().double() @ w2.T,)
     dh = torch.where(h <= 0, 0.0, dy @ w2).bfloat16().double()
     if kernel == "dx":
         return (dh @ w1,)
@@ -1462,7 +1466,7 @@ def bf16_step_share(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", [1, 2])
 @pytest.mark.parametrize("shape", TC_SHAPES)
-@pytest.mark.parametrize("kernel", ["dx", "dw"])
+@pytest.mark.parametrize("kernel", ["fwd", "dx", "dw"])
 def test_ffn_tc_passes_against_float64(card, kernel, shape, mode):
     """Both modes at every shape: two calls bit-equal, counted once each
     (as ``<name>[bf16]`` on bf16 storage), mode 2 within one bf16 step of
@@ -1487,7 +1491,7 @@ def test_ffn_tc_passes_against_float64(card, kernel, shape, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["dx", "dw"])
+@pytest.mark.parametrize("kernel", ["fwd", "dx", "dw"])
 def test_ffn_tc_activations_not_16_byte_aligned(card, kernel):
     """bf16 x and dy one element into their storage go through the
     kernel's staged copies and give the bits of aligned ones."""
@@ -1506,11 +1510,12 @@ def test_ffn_tc_activations_not_16_byte_aligned(card, kernel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", [1, 2])
-@pytest.mark.parametrize("kernel", ["dx", "dw"])
+@pytest.mark.parametrize("kernel", ["fwd", "dx", "dw"])
 def test_ffn_tc_nan_in_h_passes_the_mask(card, kernel, mode):
     """A NaN in x makes a row of h NaN. where(h <= 0, 0, da) lets da
     through there, as the plain version does: dx's row stays finite and
-    agrees; every output has NaN exactly where the plain version's has."""
+    agrees; every output has NaN exactly where the plain version's has
+    (the forward's y: that row, a = relu(h) keeping the NaN)."""
     _, kern, plain = FFN_BF16[kernel]
     (dy, w1, w2, x), kw = tc_args((300, 64, 256), mode)
     x = x.clone()
@@ -1541,19 +1546,22 @@ def test_ffn_tc_from_a_thread_of_its_own_and_from_autograd(card):
         fused_ffn_block)
     (dy, w1, w2, x), _ = tc_args((300, 64, 256), 2)
     want = (p_ff.ffn_bwd_dx_fused(dy, w1, w2, x),
-            *p_ff.ffn_bwd_dw_fused(dy, w1, w2, x))
+            *p_ff.ffn_bwd_dw_fused(dy, w1, w2, x),
+            p_ff.ffn_fwd_fused(w1, w2, x))
     got = []
     th = threading.Thread(target=lambda: got.extend(
         (p_ff.ffn_bwd_dx_fused(dy, w1, w2, x),
-         *p_ff.ffn_bwd_dw_fused(dy, w1, w2, x))))
+         *p_ff.ffn_bwd_dw_fused(dy, w1, w2, x),
+         p_ff.ffn_fwd_fused(w1, w2, x))))
     th.start()
     th.join()
-    assert len(got) == 3
+    assert len(got) == 4
     for g, w in zip(got, want):
         assert bf16_bits(g, w)
     w1g, w2g, xg = (v.clone().requires_grad_() for v in (w1, w2, x))
-    fused_ffn_block(w1g, w2g, xg).backward(dy)
-    for g, w in zip((xg.grad, w1g.grad, w2g.grad), want):
+    y = fused_ffn_block(w1g, w2g, xg)
+    y.backward(dy)
+    for g, w in zip((xg.grad, w1g.grad, w2g.grad, y.detach()), want):
         assert bf16_bits(g, w)
 
 
@@ -1947,3 +1955,157 @@ def test_guarded_step_skips_a_poisoned_seed_on_the_card(card, dtype):
     assert summarize(g) == {"skipped": 1, "overflows": 0, "loss_scale": 1.0,
                             "good_steps": 0}
     assert all(torch.equal(a, b) for a, b in zip(out, clean))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2])
+@pytest.mark.parametrize("shape", [(8192, 768, 3072), (1000, 200, 520),
+                                   (1001, 13, 9)])
+def test_ffn_fwd_tc_a_equals_the_weight_gradients(card, shape, mode):
+    """The forward's pass 1 stores a = relu(x w1^T) as bf16 with the
+    near-zero re-sums of the backward kernels' pass 1: its a is bit for
+    bit the a that ffn_bwd_dw's pass 1 stores for the same inputs."""
+    (dy, w1, w2, x), _ = tc_args(shape, mode)
+    t, d = x.shape
+    f = w1.shape[0]
+    sms = p_ff._sms(x)
+
+    def a_of(name, tensors, scratch_fn, plan_fn):
+        buf, pieces = p_ff._launch_tc(name, tensors, scratch_fn,
+                                      plan_fn(t, d, f, sms), t, d, f, mode,
+                                      sms)
+        torch.cuda.synchronize()
+        (rows, cols), off = pieces["a"]
+        return buf[off:off + 2 * rows * cols].view(torch.bfloat16).view(
+            rows, cols)[:, :f]
+
+    a_fwd = a_of(p_ff.FWD, [x, w1, w2, torch.empty_like(x)],
+                 p_ff.tc_fwd_scratch, p_ff.tc_fwd_plan)
+    a_dw = a_of(p_ff.BWD_DW, [x, dy, w1, w2, torch.empty_like(w1),
+                              torch.empty_like(w2)],
+                p_ff.tc_dw_scratch, p_ff.tc_dw_plan)
+    assert bf16_bits(a_fwd, a_dw)
+    want = torch.relu(x.bfloat16().double() @ w1.bfloat16().double().T)
+    assert bf16_near(a_fwd, want, BF16_SHARE)
+
+
+# -- the tensor-core passes of the head backward (modes 1 and 2) ----------
+#
+# head_xent_bwd with bf16 operands (mxu_bf16 on f32 storage, mode 1; bf16
+# storage, mode 2) runs its z pass and both products as wgmma fed by TMA,
+# the vocabulary in the chunks of head_tc_plan. (N, d, V, target shift):
+# the LM's shape, one TP rank's 12576 rows of it with the targets shifted
+# by the rank's first row (three in four outside the shard), a ragged one
+# with no dim a multiple of 8 (the staged copies), a prime V past one
+# chunk with d 45, and a vocabulary under one tile.
+
+HEAD_TC_SHAPES = ((8192, 768, 50304, 0), (8192, 768, 12576, 12576),
+                  (1001, 203, 1013, 0), (300, 45, 16411, 0),
+                  (37, 20, 201, 0))
+
+
+def head_tc_case(shape, mode):
+    n, d, v, shift = shape
+    rng = np.random.default_rng(n + v)
+    h, w = normal(rng, n, d), normal(rng, v, d, scale=0.02)
+    t = torch.from_numpy(rng.integers(0, v + shift + 3, size=n)).cuda()
+    t = t - shift
+    t[0], t[1], t[2], t[-1] = -1, v, 0, v - 1
+    if mode == 2:
+        h, w = h.bfloat16(), w.bfloat16()
+    kw = {} if mode == 2 else dict(mxu_bf16=True)
+    lse, _ = p_fx.head_xent_stats_ref(h, w, t, **kw)
+    return h, w, t, lse, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2])
+@pytest.mark.parametrize("shape", HEAD_TC_SHAPES,
+                         ids=["main", "tp_shard", "ragged", "prime", "tiny"])
+def test_head_tc_passes_against_float64(card, shape, mode):
+    """Both modes: two calls bit-equal, counted once each (as
+    ``head_xent_bwd[bf16]`` on bf16 storage); against float64 on the
+    bf16 operands with dz rounded to bf16 (``head_want_bf16``), mode 2
+    within one bf16 step in at most BF16_SHARE of the elements and mode 1
+    within TOL[True] of the largest output; and against the plain
+    version."""
+    h, w, t, lse, kw = head_tc_case(shape, mode)
+    dy = torch.tensor(1.0, device="cuda")
+    count = p_fx.BWD_COUNT + ("[bf16]" if mode == 2 else "")
+    before = _build.launch_counts().get(count, 0)
+    got = p_fx.head_xent_bwd(dy, h, w, t, lse, **kw)
+    again = p_fx.head_xent_bwd(dy, h, w, t, lse, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[count] == before + 2
+    want64 = head_want_bf16(h.bfloat16(), w.bfloat16(), t, lse)
+    plain = p_fx.head_xent_bwd_ref(dy, h, w, t, lse, **kw)
+    for g, a, w64, p in zip(got, again, want64, plain):
+        assert g.dtype == h.dtype and torch.equal(g, a)
+        if mode == 2:
+            assert bf16_near(g, w64, BF16_SHARE)
+            assert bf16_near(g, p.double(), BF16_SHARE)
+        else:
+            for ref in (w64, p.double()):
+                err = float((g.double() - ref).abs().max())
+                assert err <= TOL[True] * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2])
+def test_head_tc_operands_not_16_byte_aligned(card, mode):
+    """h and w one element into their storage (mode 2: staged into bf16
+    copies; mode 1 copies them anyway) give the bits of aligned ones."""
+    h, w, t, lse, kw = head_tc_case((300, 64, 1000, 0), mode)
+    dy = torch.tensor(1.0, device="cuda")
+    hs, ws = (torch.empty(v.numel() + 1, device="cuda",
+                          dtype=v.dtype)[1:].view_as(v) for v in (h, w))
+    hs.copy_(h)
+    ws.copy_(w)
+    assert hs.data_ptr() % 16 and ws.data_ptr() % 16
+    for g, a in zip(p_fx.head_xent_bwd(dy, hs, ws, t, lse, **kw),
+                    p_fx.head_xent_bwd(dy, h, w, t, lse, **kw)):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [256, 1024, 4096])
+def test_head_tc_chunks_agree(card, monkeypatch, chunk):
+    """Other vocabulary chunks (dh summed over more of them in f32) stay
+    within one bf16 step of float64 and repeat bit for bit."""
+    h, w, t, lse, _ = head_tc_case((300, 45, 16411, 0), 2)
+    monkeypatch.setattr(p_fx, "HEAD_TC_CHUNK", chunk)
+    assert p_fx.head_tc_plan(16411)[0] == -(-16411 // chunk)
+    dy = torch.tensor(1.0, device="cuda")
+    got = p_fx.head_xent_bwd(dy, h, w, t, lse)
+    again = p_fx.head_xent_bwd(dy, h, w, t, lse)
+    for g, a, w64 in zip(got, again, head_want_bf16(h, w, t, lse)):
+        assert bf16_bits(g, a) and bf16_near(g, w64, BF16_SHARE)
+
+
+@pytest.mark.cuda
+def test_head_tc_from_autograd(card):
+    """The fused head's backward runs on autograd's device thread, which
+    holds no current context until the tensor-core call binds the
+    operand's device: its gradients equal the direct call's bits."""
+    h, w, t, _, _ = head_tc_case((256, 64, 1000, 0), 2)
+    lse, _ = p_fx.head_xent_stats(h, w, t)
+    want = p_fx.head_xent_bwd(torch.tensor(1.0, device="cuda"), h, w, t,
+                              lse)
+    hg, wg = (v.clone().requires_grad_() for v in (h, w))
+    p_fx.head_xent(hg, wg, t).backward()
+    for g, x in zip((hg.grad, wg.grad), want):
+        assert bf16_bits(g, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8192, 768, 50304), (8192, 768, 12576),
+                                   (1001, 203, 1013), (37, 20, 201)])
+def test_head_bwd_scratch_mirror_equals_the_library(card, shape):
+    """``fused_xent.bwd_scratch_floats`` (mode 0's layout in Python)
+    equals the library's own ``head_xent_bwd_scratch_floats``; the
+    library refuses the tensor-core modes, whose pieces come from
+    ``head_tc_scratch``."""
+    assert p_fx._bwd_scratch_floats(*shape) == \
+        p_fx.bwd_scratch_floats(*shape)
+    fn = _build.load_library(p_fx.BWD).head_xent_bwd_scratch_floats
+    assert fn(*shape, 1) == -1 and fn(*shape, 2) == -1

@@ -1,8 +1,8 @@
-"""The tensor-core passes of the FFN backward kernels on the CPU
+"""The tensor-core passes of the FFN kernels on the CPU
 (``ops/fused_ffn.py``): modes 1 (``mxu_bf16`` on f32) and 2 (bf16
-storage) of ``csrc/ffn_bwd_dx.cu`` and ``csrc/ffn_bwd_dw.cu`` run on
-``csrc/ffn_wgmma.cuh``, and the wrapper hands them plans, scratch and a
-staging decision that these tests hold.
+storage) of ``csrc/ffn_fwd.cu``, ``csrc/ffn_bwd_dx.cu`` and
+``csrc/ffn_bwd_dw.cu`` run on ``csrc/ffn_wgmma.cuh``, and the wrapper
+hands them plans, scratch and a staging decision that these tests hold.
 
 The kernels cannot run here. These hold the plain Python functions: the
 tensor-core slice plans cover the depth in order, each slice a whole
@@ -16,7 +16,9 @@ sums, ``a`` and ``dh`` rounded to bf16, split tiles summed slice by
 slice in order and each output rounded once) is held against JAX's
 Pallas kernels in interpret mode at a shape of several tiles, under the
 main path's rule and a plan of one whole tile and the rest in three
-slices, with the same tolerances as the plain versions' tests.
+slices, with the same tolerances as the plain versions' tests: the
+forward's ``y = a w2^T`` over ffn, the input gradient's and the weight
+gradients'.
 """
 
 import jax.numpy as jnp
@@ -36,7 +38,8 @@ SHAPES = {"main": (8192, 768, 3072), "ragged": (1000, 200, 520),
           "small": (24, 40, 72), "no_eight": (1001, 13, 9),
           "one_slice": (100, 64, 256), "ragged_tokens": (5000, 200, 520),
           "ragged_ffn": (256, 72, 3000)}
-PLANS = {"dw": (ff.tc_dw_plan, 0), "dx": (ff.tc_dx_plan, 2)}
+PLANS = {"dw": (ff.tc_dw_plan, 0), "dx": (ff.tc_dx_plan, 2),
+         "fwd": (ff.tc_fwd_plan, 2)}
 
 
 def _up(v, m):
@@ -52,7 +55,7 @@ def _tiles(kernel, t, d, ffn):
 @pytest.mark.parametrize("kernel", sorted(PLANS))
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_tc_slices_cover_the_depth_in_order(name, kernel):
-    """dw's slices cover the tokens, dx's the ffn axis: no gap, no
+    """dw's slices cover the tokens, dx's and fwd's the ffn axis: no gap, no
     overlap, each whole ring stages of TC_BK but the last, at least
     TC_MIN_SLICE long when split; the kernels' own check S = ceil(K /
     L). The whole tiles fill whole rounds of the SMs and the split ones
@@ -81,12 +84,14 @@ def test_tc_plans_at_the_main_shape():
     """dw's 72 + 72 tiles of 128 x 256: 132 fill one round of the SMs
     over all 8192 tokens, and the last 12 run in 11 slices of 768 (the
     last 512), 132 work items of a twelfth of the depth in one more
-    round. dx's 192 tiles run whole: its last 60 would take only two
-    slices, fewer than TC_MIN_SPLIT."""
+    round. dx's 192 tiles run whole, and so do the forward's (the same
+    64 x 3 tiles of a [T, d] output over ffn): the last 60 would take
+    only two slices, fewer than TC_MIN_SPLIT."""
     t, d, ffn = SHAPES["main"]
     assert ff.tc_dw_tiles(d, ffn) == 144
     assert ff.tc_dw_plan(t, d, ffn) == (11, 768, 132)
     assert ff.tc_dx_plan(t, d, ffn) == (1, 3072, 192)
+    assert ff.tc_fwd_plan(t, d, ffn) == (1, 3072, 192)
     assert (t // ff.TC_BM) * (d // ff.TC_BN) == 192
     # a card with 144 SMs would run every tile whole in one round
     assert ff.tc_dw_plan(t, d, ffn, sms=144) == (1, t, 144)
@@ -101,6 +106,7 @@ def test_tc_plans_split_a_ragged_depth():
     t, d, ffn = SHAPES["ragged_ffn"]
     s, length, whole = ff.tc_dx_plan(t, d, ffn)
     assert s > 1 and whole == 0 and ffn % length
+    assert ff.tc_fwd_plan(t, d, ffn) == (s, length, whole)
     assert ff.tc_dw_plan(*SHAPES["one_slice"]) == (1, 128, 3)
 
 
@@ -125,6 +131,16 @@ def test_tc_staging_decision():
     assert ff.tc_staged(2, odd_d) == ("xs", "dys", "w1s")
     odd_f = dict(ALIGNED, w2s=(ALIGNED["w2s"][0], 9))
     assert ff.tc_staged(2, odd_f) == ("w2s",)
+
+
+def test_tc_staging_decision_of_the_forward():
+    """The forward takes no dy: mode 1 rounds x, w1 and w2 into bf16
+    copies, mode 2 stages only an operand TMA cannot read in place."""
+    fwd = {k: v for k, v in ALIGNED.items() if k != "dys"}
+    assert ff.tc_staged(2, fwd) == ()
+    assert ff.tc_staged(1, fwd) == ("xs", "w1s", "w2s")
+    assert ff.tc_staged(2, dict(fwd, xs=(fwd["xs"][0] + 2, 768))) == ("xs",)
+    assert ff.tc_staged(2, dict(fwd, w2s=(fwd["w2s"][0], 9))) == ("w2s",)
 
 
 def test_tc_staging_of_a_view_into_storage():
@@ -175,6 +191,23 @@ def test_tc_dw_scratch_holds_what_the_kernel_reads(name, staged):
     _check_tc_layout(ff.tc_dw_scratch(t, d, ffn, plan, staged), want)
 
 
+@pytest.mark.parametrize("staged", [(), ("xs", "w1s", "w2s"), ("w1s",)])
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_tc_fwd_scratch_holds_what_the_kernel_reads(name, staged):
+    """The forward's staged copies, a bf16 [T, ffn8] (pass 1 writes it,
+    pass 2 reads it) and the split tiles' partials of y [T, d]."""
+    t, d, ffn = SHAPES[name]
+    plan = ff.tc_fwd_plan(t, d, ffn)
+    d8, f8 = _up(d, 8), _up(ffn, 8)
+    copies = {"xs": 2 * t * d8, "w1s": 2 * ffn * d8, "w2s": 2 * d * f8}
+    want = {k: v for k, v in copies.items() if k in staged}
+    want["a"] = 2 * t * f8
+    if plan[0] > 1:
+        want["part"] = 4 * plan[0] * (_tiles("fwd", t, d, ffn) - plan[2]) * \
+            ff.TC_BM * ff.TC_BN
+    _check_tc_layout(ff.tc_fwd_scratch(t, d, ffn, plan, staged), want)
+
+
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_tc_dx_scratch_holds_what_the_kernel_reads(name):
     t, d, ffn = SHAPES[name]
@@ -199,6 +232,13 @@ def test_tc_scratch_at_the_main_shape_has_no_f32_copies():
     assert 4 * 11 * 12 * 128 * 256 == 17301504
     dx = ff.tc_dx_scratch(t, d, ffn, ff.tc_dx_plan(t, d, ffn))
     assert [k for k in dx if k != "total"] == ["dh"]
+    # the forward: a alone, 50.3 MB, where its CUDA-core passes copied x,
+    # w1 and w2 into 44.0 MB of f32 and a^T into 100.7 MB
+    fwd = ff.tc_fwd_scratch(t, d, ffn, ff.tc_fwd_plan(t, d, ffn))
+    assert [k for k in fwd if k != "total"] == ["a"]
+    assert fwd["a"][0] == (t, ffn) and fwd["total"] == 2 * t * ffn
+    f32 = ff.fwd_scratch(t, d, ffn, ff.out_plan(t, d, ffn))
+    assert 4 * (f32["total"] - t * ffn) == 44040192
 
 
 def test_mode0_plans_and_scratch_unchanged():
@@ -212,6 +252,7 @@ def test_mode0_plans_and_scratch_unchanged():
     assert ff.out_plan(1000, 200, 520) == (2, 272)
     assert ff.dw_scratch(t, d, ffn, (4, 2048))["total"] == 99090432
     assert ff.dx_scratch(t, d, ffn, (1, 3072))["total"] == 44826624
+    assert ff.fwd_scratch(t, d, ffn, (1, 3072))["total"] == 36175872
 
 
 # -- the tensor-core arithmetic against JAX's Pallas kernels ---------------
@@ -220,18 +261,23 @@ def tc_model(dy, w1, w2, x, plan, kernel):
     """What the tensor-core passes compute, in torch: bf16 operands
     widened to f32, h and da summed in f32, a and dh rounded to bf16;
     pass 2's tiles [0, U) (dw1's, then dw2's; 128 x 256, row-major)
-    summed over the whole depth (tokens for dw, ffn for dx), the others
-    one slice of ``plan`` at a time with the slices' f32 partials added
-    in order; each output rounded once to the storage type."""
+    summed over the whole depth (tokens for dw, ffn for dx and the
+    forward's y = a w2^T), the others one slice of ``plan`` at a time
+    with the slices' f32 partials added in order; each output rounded
+    once to the storage type. The forward takes no dy (pass None)."""
     out_dtype = x.dtype
-    x, dy, w1, w2 = (v.to(torch.bfloat16).float() for v in (x, dy, w1, w2))
+    x, w1, w2 = (v.to(torch.bfloat16).float() for v in (x, w1, w2))
     h = x @ w1.T
     keep = ~(h <= 0)
-    dh = torch.where(keep, dy @ w2, 0.0).to(torch.bfloat16).float()
+    if dy is not None:
+        dy = dy.to(torch.bfloat16).float()
+        dh = torch.where(keep, dy @ w2, 0.0).to(torch.bfloat16).float()
     a = torch.where(keep, h, 0.0).to(torch.bfloat16).float()
     s, length, whole = plan
     if kernel == "dw":
         depth, pairs = x.shape[0], ((dh.T, x), (dy.T, a))
+    elif kernel == "fwd":
+        depth, pairs = w1.shape[0], ((a, w2.T),)
     else:
         depth, pairs = w1.shape[0], ((dh, w1),)
     outs, tile = [], 0
@@ -282,7 +328,7 @@ TC_JAX_SHAPE = (320, 64, 512)
 
 @pytest.mark.parametrize("slices", ["plan", 3])
 @pytest.mark.parametrize("bf16", [True, False])
-@pytest.mark.parametrize("kernel", ["dw", "dx"])
+@pytest.mark.parametrize("kernel", ["dw", "dx", "fwd"])
 def test_tc_model_matches_jax_pallas_interpret(kernel, bf16, slices):
     """bf16 storage (mode 2): each output within one bf16 step of JAX's,
     in at most 1% of the elements. f32 storage under ``mxu_bf16`` (mode
@@ -295,14 +341,21 @@ def test_tc_model_matches_jax_pallas_interpret(kernel, bf16, slices):
     depth = t if kernel == "dw" else ffn
     # "plan": the main path's rule (one slice at this depth); 3: the
     # first tile whole and the others in three slices
-    plan = ((ff.tc_dw_plan if kernel == "dw" else ff.tc_dx_plan)(t, d, ffn)
-            if slices == "plan" else (3, _up(-(-depth // 3), ff.TC_BK), 1))
+    plan = (PLANS[kernel][0](t, d, ffn) if slices == "plan"
+            else (3, _up(-(-depth // 3), ff.TC_BK), 1))
     assert slices == "plan" or ff.plan_slices(depth, plan[:2])[-1][0] > 0
-    fn = j_pf.ffn_bwd_dw_pallas if kernel == "dw" else j_pf.ffn_bwd_dx_pallas
-    want = fn(jdy, jw1, jw2, jx, interpret=True, block_t=32, block_f=128,
+    kw = dict(interpret=True, block_t=32, block_f=128,
               **({} if bf16 else {"mxu_bf16": True}))
+    if kernel == "fwd":
+        want = j_pf.ffn_fwd_pallas(jw1, jw2, jx, **kw)
+    else:
+        fn = (j_pf.ffn_bwd_dw_pallas if kernel == "dw"
+              else j_pf.ffn_bwd_dx_pallas)
+        want = fn(jdy, jw1, jw2, jx, **kw)
     want = want if isinstance(want, tuple) else (want,)
     args = [tensor_from_numpy(np.asarray(a)) for a in (jdy, jw1, jw2, jx)]
+    if kernel == "fwd":
+        args[0] = None
     got = tc_model(*args, plan, kernel)
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape
