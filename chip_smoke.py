@@ -481,6 +481,15 @@ HEAD_BITS_SHA256 = (
 # (ffdac082...f4c7). Neither change may move one bit of mode 0.
 FFN_DW_BITS_SHA256 = (
     "26590fdab37cb4c8e1dddbd02d3c47c5d4b0fbece34627e15b82a8ed3fa16866")
+# The statistics' f32 bits (mode 0) and the flash forward's (f32, mode
+# 0): stats_bits_digest and flash_fwd_bits_digest on the build before
+# their bf16 forms moved to the tensor cores (ae4fef6), on an NVIDIA H100
+# 80GB HBM3, twice each with the same digest. The move may not change
+# one bit of mode 0 (tests/test_torch_cuda_kernels.py checks it too).
+STATS_BITS_SHA256 = (
+    "4ce554ef3db74db7499b85cf34c0d4ece88d323a47f5d8915cac73cb7363180b")
+FLASH_FWD_BITS_SHA256 = (
+    "38dbe827df1ad12d5660b6add86a4b26d7f7532f52fdcff07e2367bff2c8b10c")
 # small kernels a single-call trace runs before the call (traced)
 TRACE_PAD = 4
 # the passes of the three FFN kernels (csrc/ffn_gemm.cuh) by the names of
@@ -499,6 +508,11 @@ FFN_PASS_NAMES = {"gemm_prep": "copies", "hidden": "pass1",
 # head-tc-sass, head-tc-ptxas)
 FFN_TC_KERNELS = ("wgmma_hidden_kernel", "wgmma_slice_kernel")
 HEAD_TC_KERNELS = ("head_dz_kernel", "wgmma_slice_kernel")
+# the statistics' modes 1 and 2 (csrc/head_xent_fwd.cu; head-stats-tc-sass)
+# and the flash forward on bf16 storage (csrc/flash_attn_fwd.cu;
+# flash-tc-sass)
+HEAD_STATS_TC_KERNELS = ("head_stats_tc_kernel",)
+FLASH_TC_KERNELS = ("flash_fwd_tc_kernel",)
 FFN_TAGS = {"fwd": "ffn_fwd", "dx": "ffn_bwd_dx", "dw": "ffn_bwd_dw"}
 # the LM kernels' launches by the names of their CUDA kernels in a
 # profile: (LM kernel, part, pattern)
@@ -1902,18 +1916,43 @@ def lm_bound(name, shape, mxu_bf16):
 
 
 def sdpa_ms(torch, timer, q, k, v, dy, causal, backward):
-    """The library yardstick: f32 scaled_dot_product_attention on the
-    same inputs, forward alone or forward + backward."""
+    """The library yardstick of a flash call: ``{"library_ms",
+    "library_backend"}`` (and, for the backward, ``"library_fwd_bwd_ms"``)
+    of ``scaled_dot_product_attention`` on the same inputs. A ``[BH, T,
+    dh]`` operand is viewed ``[1, BH, T, dh]``: SDPA sends every fused
+    backend away from 3-D operands, and its math backend stores the
+    ``[T, T]`` scores. The backend is pinned (``sdpa_kernel``):
+    FlashAttention on bf16, memory-efficient on f32, which FlashAttention
+    does not take; a backend that refuses the shape raises. The backward
+    is timed alone, ``autograd.grad`` on a graph built once outside the
+    timer; forward + backward beside it as ``library_fwd_bwd_ms``."""
     import torch.nn.functional as F
-    if not backward:
-        return timer.ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal))
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    flash = q.dtype == torch.bfloat16
+    backend = (SDPBackend.FLASH_ATTENTION if flash
+               else SDPBackend.EFFICIENT_ATTENTION)
+    out = {"library_backend": "flash" if flash else "efficient"}
 
-    def fwd_bwd():
-        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-        torch.autograd.grad(out, leaves, dy)
-    return timer.ms(fwd_bwd)
+    def four(t):
+        return t.detach().reshape((1,) * (4 - t.dim()) + tuple(t.shape))
+
+    q4, k4, v4, dy4 = (four(t) for t in (q, k, v, dy))
+    with sdpa_kernel([backend]):
+        if not backward:
+            out["library_ms"] = timer.ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                       is_causal=causal))
+            return out
+        leaves = [t.clone().requires_grad_() for t in (q4, k4, v4)]
+        y4 = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        out["library_ms"] = timer.ms(lambda: torch.autograd.grad(
+            y4, leaves, dy4, retain_graph=True))
+
+        def fwd_bwd():
+            y = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            torch.autograd.grad(y, leaves, dy4)
+        out["library_fwd_bwd_ms"] = timer.ms(fwd_bwd)
+    return out
 
 
 def lm_case_row(torch, timer, name, shape_tag, shape, mxu_bf16, kern, plain,
@@ -1936,8 +1975,9 @@ def lm_case_row(torch, timer, name, shape_tag, shape, mxu_bf16, kern, plain,
                deterministic=same,
                ok=finite and same and rel <= FFN_TOL[mxu_bf16],
                ms=ms, plain_ms=timer.ms(plain), bound_ms=b_ms,
-               bound_by=b_by, tflops_per_s=flops / ms / 1e9,
-               library_ms=library)
+               bound_by=b_by, tflops_per_s=flops / ms / 1e9)
+    row.update(library if isinstance(library, dict)
+               else dict(library_ms=library))
     print("lm-kernel-case " + json.dumps(row), flush=True)
     return row
 
@@ -1967,12 +2007,16 @@ def lm_kernel_phase(torch, np, timer):
     path's shapes and ragged ones, both operand modes (limits
     ``FFN_TOL``: 1e-4 f32, 2e-3 bf16 operands), the head's beside its
     cuBLAS composition (``head_cublas``: f32, or bf16 copies under
-    ``mxu_bf16``); first the head backward's tensor-core passes' SASS
-    (``tc_sass``)."""
+    ``mxu_bf16``), flash beside SDPA (``sdpa_ms``); first the SASS of the
+    tensor-core passes of the head backward, the statistics and the flash
+    forward (``tc_sass``); last the digests of mode 0's bits."""
     from distributed_llm_code_samples_tpu_torch.ops import fused_xent as fx
     from distributed_llm_code_samples_tpu_torch.ops import (
         flash_attention as fa)
-    rows = [tc_sass("head-tc", ("head_xent_bwd",), HEAD_TC_KERNELS)]
+    rows = [tc_sass("head-tc", ("head_xent_bwd",), HEAD_TC_KERNELS),
+            tc_sass("head-stats-tc", ("head_xent_fwd",),
+                    HEAD_STATS_TC_KERNELS),
+            tc_sass("flash-tc", ("flash_attn_fwd",), FLASH_TC_KERNELS)]
     for n, (tag, bh, t, dh, causal) in enumerate(FLASH_SHAPES):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(200 + n)
@@ -2039,12 +2083,18 @@ def lm_kernel_phase(torch, np, timer):
                 ms=stats_slice_sweep(torch, timer, fx, h, w, tgt))),
                 flush=True)
         del h, w, tgt, lse
-    digest = head_bits_digest(torch, np, fx)
-    row = dict(kernel="head_xent_bwd", shape="bits", mxu_bf16=None,
-               sha256=digest, want=HEAD_BITS_SHA256, max_abs_err=0.0,
-               rel_err=0.0, ok=digest == HEAD_BITS_SHA256)
-    print("lm-head-bits " + json.dumps(row), flush=True)
-    rows.append(row)
+    for tag, name, digest, want in (
+            ("lm-head-bits", "head_xent_bwd",
+             head_bits_digest(torch, np, fx), HEAD_BITS_SHA256),
+            ("lm-stats-bits", "head_xent_stats",
+             stats_bits_digest(torch, np, fx), STATS_BITS_SHA256),
+            ("flash-fwd-bits", "flash_attn_fwd",
+             flash_fwd_bits_digest(torch, np, fa), FLASH_FWD_BITS_SHA256)):
+        row = dict(kernel=name, shape="bits", mxu_bf16=None, sha256=digest,
+                   want=want, max_abs_err=0.0, rel_err=0.0,
+                   ok=digest == want)
+        print(f"{tag} " + json.dumps(row), flush=True)
+        rows.append(row)
     return rows
 
 
@@ -2141,6 +2191,39 @@ def head_bits_digest(torch, np, fx):
     out = hashlib.sha256()
     for g in fx.head_xent_bwd(torch.tensor(1.0, device="cuda"), *args):
         out.update(g.cpu().numpy().tobytes())
+    return out.hexdigest()
+
+
+def stats_bits_digest(torch, np, fx):
+    """sha256 over lse and tz of one small f32 ``head_xent_stats`` call
+    (mode 0, the GEMM-core statistics), on inputs made with numpy: a
+    target in the last column and one outside ``[0, V)``."""
+    import hashlib
+    rng = np.random.default_rng(2026)
+    n, d, v = 300, 72, 1111
+    h = rng.normal(size=(n, d)).astype(np.float32)
+    w = (0.05 * rng.normal(size=(v, d))).astype(np.float32)
+    t = rng.integers(0, v, size=n).astype(np.int64)
+    t[0], t[1] = v - 1, v + 3
+    args = [torch.from_numpy(a).cuda() for a in (h, w, t)]
+    out = hashlib.sha256()
+    for g in fx.head_xent_stats(*args):
+        out.update(g.cpu().numpy().tobytes())
+    return out.hexdigest()
+
+
+def flash_fwd_bits_digest(torch, np, fa):
+    """sha256 over y and lse of two small f32 ``flash_attention_fwd``
+    calls (mode 0, the CUDA-core kernel), causal and not, at a ragged
+    shape (T 150, dh 40), on inputs made with numpy."""
+    import hashlib
+    rng = np.random.default_rng(2027)
+    q, k, v = (torch.from_numpy(rng.normal(size=(6, 150, 40)).astype(
+        np.float32)).cuda() for _ in range(3))
+    out = hashlib.sha256()
+    for causal in (True, False):
+        for g in fa.flash_attention_fwd(q, k, v, causal=causal):
+            out.update(g.cpu().numpy().tobytes())
     return out.hexdigest()
 
 
@@ -2377,6 +2460,7 @@ def lm_kernel_rows(cases, launches, tp_launches=None, dp_launches=None,
                                 if c["shape"] == "seq-hop"), None),
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library_backend": main.get("library_backend"),
             "ok": all(c["ok"] for c in mine)})
     return rows
 
@@ -5139,6 +5223,20 @@ BF16_GATHER_CASES = (("w1_shard", (FFN_DIM // RING_N, D_MODEL)),
 # FFN_TOL[True].
 BF16_BLOCK_TOL = 2 ** -7
 BF16_STEP = 2 ** -8
+# the flash forward on bf16 storage at the shape of every path that
+# hands it bf16 (tag, BH, T, dh, causal): the LM's heads, one LM TP
+# rank's 3 heads, a hop of the causal ring at 4096 positions over SEQ_N
+# ranks (an earlier block, and the diagonal), the ragged shapes; the
+# backward at the first alone
+FLASH_BF16_SHAPES = (
+    FLASH_SHAPES[0],
+    ("tp", LM["batch"] * LM["n_heads"] // LMTP_N, LM["seq_len"],
+     LM["d_model"] // LM["n_heads"], True),
+    ("seq-hop", SEQ_LM["batch"] * LM["n_heads"], SEQ_LM["seq_len"] // SEQ_N,
+     SEQ_DH, False),
+    ("seq-diag", SEQ_LM["batch"] * LM["n_heads"],
+     SEQ_LM["seq_len"] // SEQ_N, SEQ_DH, True),
+    FLASH_SHAPES[1], FLASH_SHAPES[2])
 # DDP, ZeRO-1 and FSDP under Adam (and DDP and FSDP under mixed AdamW),
 # step by step: from DDP's params and Adam state after each of its 8
 # steps, one step of each strategy, |a - b| / |a - p| (Frobenius, pooled
@@ -5182,10 +5280,11 @@ def bf16_kernel_phase(torch, np, timer):
     """The kernels that take bf16 storage, at the main path's shapes: the
     all-gather of FSDP's two bf16 shards in loopback (``RING_N`` virtual
     ranks), bit for bit against its plain ring and the concatenation in
-    float64; the flash forward and backward at the LM shape against their
-    plain versions and against float64 on their own inputs
-    (``BF16_BLOCK_TOL``, with the causal-flipped control). Each is timed
-    beside the f32 call on the same values."""
+    float64; the flash forward at every shape of ``FLASH_BF16_SHAPES``
+    and the backward at the LM shape against their plain versions and
+    against float64 on their own inputs (``flash_bf16_case``:
+    ``BF16_BLOCK_TOL``, with the causal-flipped control). Each is timed
+    beside the f32 call on the same values and the library's."""
     from distributed_llm_code_samples_tpu_torch.ops import (
         flash_attention as fa)
     from distributed_llm_code_samples_tpu_torch.ops import ring
@@ -5235,68 +5334,83 @@ def bf16_kernel_phase(torch, np, timer):
     finally:
         ws.close()
 
-    tag, bh, t, dh, causal = FLASH_SHAPES[0]
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(610)
-    q, k, v = (torch.randn(bh, t, dh, generator=gen,
-                           device="cuda").bfloat16() for _ in range(3))
-    dy = (0.1 * torch.randn(bh, t, dh, generator=gen,
-                            device="cuda")).bfloat16()
-    y, lse = fa.flash_attention_fwd_ref(q, k, v, causal=causal)
-    f32 = [a.float() for a in (q, k, v, dy, y)]
-    cases = (
-        ("flash_attn_fwd[bf16]", fa.flash_attention_fwd, (q, k, v),
-         (f32[0], f32[1], f32[2]), False),
-        ("flash_attn_bwd[bf16]", fa.flash_attention_bwd,
-         (dy, q, k, v, y, lse), (f32[3], f32[0], f32[1], f32[2], f32[4],
-                                 lse), True))
-    for name, kern_fn, args, args32, backward in cases:
-        ref_fn = getattr(fa, kern_fn.__name__ + "_ref")
-        kern = partial(kern_fn, *args, causal=causal)
-        got, again = kern(), kern()
-        torch.cuda.synchronize()
-        want = ref_fn(*args, causal=causal)
-        errs = [float((g.float() - w.float()).abs().max())
-                for g, w in zip(got, want)]
-        scales = [float(w.float().abs().max()) for w in want]
-        rel = max(e / s for e, s in zip(errs, scales))
-        args64 = [a.double() for a in args]
-        want64 = ref_fn(*args64, causal=causal, mxu_bf16=True)
-        flipped = kern_fn(*args, causal=not causal)
-
-        def err64(outs):
-            return max(row_err(torch, o.reshape(-1, o.shape[-1]) if o.dim()
-                               > 1 else o.reshape(1, -1),
-                               w.reshape(-1, w.shape[-1]) if w.dim() > 1
-                               else w.reshape(1, -1))
-                       for o, w in zip(outs, want64))
-        same = all(torch.equal(g, a) for g, a in zip(got, again))
-        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
-        dtypes = [str(g.dtype) for g in got]
-        want_dtypes = [str(w.dtype) for w in want]
-        f64, control = err64(got), err64(flipped)
-        flops, (b_ms, b_by) = flash_bf16_bound(name, (bh, t, dh, causal))
-        ms = timer.ms(kern)
-        row = dict(kernel=name, shape=tag, dims=[bh, t, dh, causal],
-                   out_dtypes=dtypes, max_abs_err=max(errs), rel_err=rel,
-                   tol=FFN_TOL[True] + BF16_STEP, err_vs_f64=f64,
-                   control_err_vs_f64=control, bf16_block_tol=BF16_BLOCK_TOL,
-                   deterministic=same,
-                   ok=finite and same and dtypes == want_dtypes
-                   and rel <= FFN_TOL[True] + BF16_STEP
-                   and f64 <= BF16_BLOCK_TOL and control > BF16_BLOCK_TOL,
-                   ms=ms, plain_ms=timer.ms(partial(ref_fn, *args,
-                                                    causal=causal)),
-                   f32_ms=timer.ms(partial(kern_fn, *args32,
-                                           causal=causal)),
-                   bound_ms=b_ms, bound_by=b_by,
-                   tflops_per_s=flops / ms / 1e9,
-                   library_ms=sdpa_ms(torch, timer, q, k, v, dy, causal,
-                                      backward))
-        rows.append(row)
-        print("bf16-kernel-case " + json.dumps(row), flush=True)
-        del got, again, want, want64, flipped, args64
+    for n, (tag, bh, t, dh, causal) in enumerate(FLASH_BF16_SHAPES):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(610 + n)
+        q, k, v = (torch.randn(bh, t, dh, generator=gen,
+                               device="cuda").bfloat16() for _ in range(3))
+        dy = (0.1 * torch.randn(bh, t, dh, generator=gen,
+                                device="cuda")).bfloat16()
+        y, lse = fa.flash_attention_fwd_ref(q, k, v, causal=causal)
+        f32 = [a.float() for a in (q, k, v, dy, y)]
+        cases = [("flash_attn_fwd[bf16]", fa.flash_attention_fwd, (q, k, v),
+                  (f32[0], f32[1], f32[2]), False)]
+        if tag == "main":
+            cases.append(("flash_attn_bwd[bf16]", fa.flash_attention_bwd,
+                          (dy, q, k, v, y, lse),
+                          (f32[3], f32[0], f32[1], f32[2], f32[4], lse),
+                          True))
+        for name, kern_fn, args, args32, backward in cases:
+            rows.append(flash_bf16_case(
+                torch, timer, name, tag, (bh, t, dh, causal), kern_fn, args,
+                args32, backward, (q, k, v, dy)))
+        del q, k, v, dy, y, lse, f32
     return rows
+
+
+def flash_bf16_case(torch, timer, name, tag, shape, kern_fn, args, args32,
+                    backward, qkvd):
+    """One bf16-storage flash call against its plain version and against
+    float64 on its own inputs (``BF16_BLOCK_TOL``, the causal-flipped
+    control that must fail), repeated bit for bit, the forward also from
+    autograd's thread; timed beside the f32 call on the same values and
+    the library's (``sdpa_ms``). Returns the row."""
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        flash_attention as fa)
+    causal = shape[3]
+    ref_fn = getattr(fa, kern_fn.__name__ + "_ref")
+    kern = partial(kern_fn, *args, causal=causal)
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    want = ref_fn(*args, causal=causal)
+    errs = [float((g.float() - w.float()).abs().max())
+            for g, w in zip(got, want)]
+    scales = [float(w.float().abs().max()) for w in want]
+    rel = max(e / s for e, s in zip(errs, scales))
+    args64 = [a.double() for a in args]
+    want64 = ref_fn(*args64, causal=causal, mxu_bf16=True)
+    flipped = kern_fn(*args, causal=not causal)
+
+    def err64(outs):
+        return max(row_err(torch, o.reshape(-1, o.shape[-1]) if o.dim()
+                           > 1 else o.reshape(1, -1),
+                           w.reshape(-1, w.shape[-1]) if w.dim() > 1
+                           else w.reshape(1, -1))
+                   for o, w in zip(outs, want64))
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+    dtypes = [str(g.dtype) for g in got]
+    want_dtypes = [str(w.dtype) for w in want]
+    f64, control = err64(got), err64(flipped)
+    flops, (b_ms, b_by) = flash_bf16_bound(name, shape)
+    thread = backward or autograd_bits(torch, kern)
+    ms = timer.ms(kern)
+    row = dict(kernel=name, shape=tag, dims=list(shape),
+               out_dtypes=dtypes, max_abs_err=max(errs), rel_err=rel,
+               tol=FFN_TOL[True] + BF16_STEP, err_vs_f64=f64,
+               control_err_vs_f64=control, bf16_block_tol=BF16_BLOCK_TOL,
+               deterministic=same, autograd_thread_bits=thread,
+               ok=finite and same and thread and dtypes == want_dtypes
+               and rel <= FFN_TOL[True] + BF16_STEP
+               and f64 <= BF16_BLOCK_TOL and control > BF16_BLOCK_TOL,
+               ms=ms, plain_ms=timer.ms(partial(ref_fn, *args,
+                                                causal=causal)),
+               f32_ms=timer.ms(partial(kern_fn, *args32, causal=causal)),
+               bound_ms=b_ms, bound_by=b_by,
+               tflops_per_s=flops / ms / 1e9,
+               **sdpa_ms(torch, timer, *qkvd, causal, backward))
+    print("bf16-kernel-case " + json.dumps(row), flush=True)
+    return row
 
 
 def opt_train_phase(torch, np, card):
@@ -6652,7 +6766,11 @@ LM_BF16_KERNELS = (
 LM_BF16_HEAD_SHAPES = (
     ("main", LM_TOKENS, LM["d_model"], LM["vocab"], 0),
     ("shard", LM_TOKENS, LM["d_model"], LM["vocab"] // LMTP_N,
-     LM["vocab"] // LMTP_N))
+     LM["vocab"] // LMTP_N), ("ragged", *HEAD_SHAPES[1][1:], 0))
+# the tensor-core statistics' vocabulary slices timed at the main shape on
+# bf16 storage (head-stats-tc-slices; fused_xent.stats_tc_plan the
+# default): slices of these many 256-column tiles
+STATS_TC_SLICE_TILES = (1, 2, 3, 6, 12, 25, 50, 197)
 # the hop and the all-to-all on bf16 in loopback, bit for bit: (op, tag,
 # per-rank shape) at the hop's main block and EP's dispatch operand, and
 # one whose chunk holds an odd element count (105 and 15; they move
@@ -6702,15 +6820,19 @@ def head_bf16_want(torch, stats, h, w, tgt, lse=None, control=False):
     statistics (``stats``) of the exact logits, or the backward as the
     kernels compute it, ``dz`` rounded to bf16 before the products. The
     controls that must fail: the statistics of the logits rounded to bf16
-    (what the plain version computed on bf16 before this slice), the
+    (what the plain version once computed on bf16) and, with
+    ``control="tile"``, the statistics without the last 256-column
+    vocabulary tile (the tensor-core kernel's tile walk cut short); the
     backward with ``dz`` not rounded."""
     h64, w64 = h.double(), w.double()
+    if stats and control == "tile":
+        w64 = w64[:(w64.shape[0] - 1) // 256 * 256]
     z = h64 @ w64.T
     n, v = z.shape
     t = tgt.long()
     valid = (t >= 0) & (t < v)
     if stats:
-        if control:
+        if control is True:
             z = z.to(torch.bfloat16).double()
         m = z.amax(dim=-1, keepdim=True)
         lse64 = (m + (z - m).exp().sum(dim=-1, keepdim=True).log())[:, 0]
@@ -6751,6 +6873,56 @@ def head_chunk_sweep(torch, timer, fx, kern, want):
                plan=list(fx.head_tc_plan(v)), ms=out, ok=ok)
     print("head-tc-chunks " + json.dumps(row), flush=True)
     return row
+
+
+def stats_tc_sweep(torch, timer, fx, kern, want64):
+    """``head-stats-tc-slices``: the bf16 statistics ``kern`` at the main
+    shape with the vocabulary in slices of each of
+    ``STATS_TC_SLICE_TILES`` 256-column tiles (``fx.stats_tc_plan``
+    replaced for the run, restored after), each run within ``FFN_TOL``
+    of float64 ``want64``. Returns the row."""
+    v = kern.args[1].shape[0]
+    vt = -(-v // 256)
+    default, out, ok = fx.stats_tc_plan, {}, True
+    try:
+        for per in STATS_TC_SLICE_TILES:
+            plan = (-(-vt // per), per * 256)
+            fx.stats_tc_plan = lambda *_, plan=plan: plan
+            rel = rel_err(kern(), want64)
+            ok = ok and rel <= FFN_TOL[False]
+            out[plan[0]] = dict(tiles=per, ms=timer.ms(kern), rel_err=rel)
+    finally:
+        fx.stats_tc_plan = default
+    n = kern.args[0].shape[0]
+    row = dict(kernel="head-stats-tc-slices", shape="main",
+               plan=list(fx.stats_tc_plan(n, v)), ms=out, ok=ok)
+    print("head-stats-tc-slices " + json.dumps(row), flush=True)
+    return row
+
+
+def autograd_bits(torch, fn) -> bool:
+    """Whether ``fn()`` called from a backward, on autograd's device
+    thread (which holds no current context until a kernel's wrapper binds
+    its operands' device), gives a direct call's bits."""
+    want, got = fn(), []
+
+    class CallInBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            got.append(fn())
+            return g
+
+    x = torch.zeros(1, device="cuda", requires_grad=True)
+    CallInBackward.apply(x).sum().backward()
+    torch.cuda.synchronize()
+    return len(got) == 1 and all(
+        torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                    b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+        for a, b in zip(got[0], want))
 
 
 def head_tc_passes(torch, calls) -> None:
@@ -6839,13 +7011,20 @@ def lm_bf16_kernel_phase(torch, np, timer):
                                        for g, x in zip(got, want)),
                        deterministic=same, out_dtype=str(got[0].dtype))
             if stats:
+                tile64 = head_bf16_want(torch, True, h, w, tgt,
+                                        control="tile")
                 row.update(rel_err_vs_plain=rel_err(got, want),
                            rel_err_vs_f64=rel_err(got, want64),
                            control_rel_err_vs_f64=rel_err(got, control64),
+                           tile_control_rel_err_vs_f64=rel_err(got, tile64),
+                           autograd_thread_bits=autograd_bits(torch, kern),
                            tol=tol)
                 ok = (row["rel_err_vs_plain"] <= tol
                       and row["rel_err_vs_f64"] <= tol
-                      and row["control_rel_err_vs_f64"] > tol)
+                      and row["control_rel_err_vs_f64"] > tol
+                      and row["tile_control_rel_err_vs_f64"] > tol
+                      and row["autograd_thread_bits"])
+                del tile64
             else:
                 vs_plain = [bf16_steps(torch, g, x.double())
                             for g, x in zip(got, want)]
@@ -6870,8 +7049,20 @@ def lm_bf16_kernel_phase(torch, np, timer):
                            None if stats else lse)),
                        tflops_per_s=(2 if stats else 6) * n * d * v / ms
                        / 1e9)
+            if stats:
+                mode1 = partial(fx.head_xent_stats, h.float(), w.float(),
+                                tgt, mxu_bf16=True)
+                row.update(mxu_bf16_ms=timer.ms(mode1),
+                           mxu_bf16_rel_err_vs_plain=rel_err(
+                               mode1(), fx.head_xent_stats_ref(
+                                   h.float(), w.float(), tgt,
+                                   mxu_bf16=True)))
+                row["ok"] = (row["ok"]
+                             and row["mxu_bf16_rel_err_vs_plain"] <= tol)
             rows.append(row)
             print("lm-bf16-head-case " + json.dumps(row), flush=True)
+            if tag == "main" and stats:
+                rows.append(stats_tc_sweep(torch, timer, fx, kern, want64))
             if tag == "main" and not stats:
                 rows.append(head_chunk_sweep(torch, timer, fx, kern, want))
                 head_tc_passes(torch, {
@@ -7423,6 +7614,7 @@ def bf16_kernel_rows(cases, launches, mode="loopback", dp_launches=None):
             "ms": main["ms"], "f32_ms": main["f32_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library_backend": main.get("library_backend"),
             "ok": all(c["ok"] for c in mine)})
     return rows
 
@@ -8259,38 +8451,55 @@ def main(argv=None) -> int:
 
     timer = Timer(torch)
     kernels, bad = [], []
+    # seconds of each phase (phase-seconds), so a later slice knows where
+    # the default run's time limit goes
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
     ffn_phases, lm_phases = ("all", "kernel", "train", "ckpt"), ("all", "lm")
     lm_kernel_phases = ("all", "lm", "lmtp", "lmdp", "seq", "ckpt")
     ring_phases, ep_phases = ("all", "ring"), ("all", "ep")
     opt_phases, bf16_phases = ("all", "opt"), ("all", "bf16")
     serve_phases = ("all", "kernel", "serve", "spec")
     if args.phase in serve_phases:
-        cases = kernel_phase(torch, np, timer)
+        cases = timed("kernel_phase", kernel_phase, torch, np, timer)
         bad += [c for c in cases if not c["ok"]]
         if not bad:
-            paged_split_sweep(torch, np, timer)
+            timed("paged_split_sweep", paged_split_sweep, torch, np, timer)
     if args.phase in ffn_phases:
-        ffn_cases = ffn_kernel_phase(torch, np, timer)
+        ffn_cases = timed("ffn_kernel_phase", ffn_kernel_phase,
+                          torch, np, timer)
         bad += [c for c in ffn_cases if not c["ok"]]
     if args.phase in lm_kernel_phases:
-        lm_cases = lm_kernel_phase(torch, np, timer)
+        lm_cases = timed("lm_kernel_phase", lm_kernel_phase, torch, np, timer)
         bad += [c for c in lm_cases if not c["ok"]]
     if args.phase in ring_phases:
-        ring_cases = ring_kernel_phase(torch, np, timer)
+        ring_cases = timed("ring_kernel_phase", ring_kernel_phase,
+                           torch, np, timer)
         bad += [c for c in ring_cases if not c["ok"]]
     if args.phase in ep_phases:
-        a2a_cases = a2a_kernel_phase(torch, np, timer)
+        a2a_cases = timed("a2a_kernel_phase", a2a_kernel_phase,
+                          torch, np, timer)
         bad += [c for c in a2a_cases if not c["ok"]]
     if args.phase in opt_phases:
-        bf16_cases = bf16_kernel_phase(torch, np, timer)
+        bf16_cases = timed("bf16_kernel_phase", bf16_kernel_phase,
+                           torch, np, timer)
         bad += [c for c in bf16_cases if not c["ok"]]
     if args.phase in bf16_phases:
-        dtype_cases = dtype_bf16_kernel_phase(torch, np, timer)
+        dtype_cases = timed("dtype_bf16_kernel_phase", dtype_bf16_kernel_phase,
+                            torch, np, timer)
         bad += [c for c in dtype_cases if not c["ok"]]
-        lm_bf16_cases = lm_bf16_kernel_phase(torch, np, timer)
+        lm_bf16_cases = timed("lm_bf16_kernel_phase", lm_bf16_kernel_phase,
+                              torch, np, timer)
         bad += [c for c in lm_bf16_cases if not c["ok"]]
     if args.phase in ("all", "seq"):
-        seq_cases = seq_kernel_phase(torch, np, timer, card)
+        seq_cases = timed("seq_kernel_phase", seq_kernel_phase,
+                          torch, np, timer, card)
         bad += [c for c in seq_cases if not c["ok"]]
         lm_cases = lm_cases + [c for c in seq_cases
                                if c["shape"] == "seq-hop"]
@@ -8300,49 +8509,61 @@ def main(argv=None) -> int:
     serve_launches = bf16_opt_launches = guard_launches = None
     ckpt_launches = None
     if not bad and args.phase in ("all", "serve", "spec"):
-        params, prompts = served_model(torch, np)
+        params, prompts = timed("served_model", served_model, torch, np)
         serve_launches = {}
         if args.phase != "spec":
-            launches = serving_phase(torch, np, card, params, prompts)
+            launches = timed("serving_phase", serving_phase,
+                             torch, np, card, params, prompts)
             serve_launches.update(
-                serve_prefix_phase(torch, np, card, params, prompts),
-                **serve_pressure_phase(torch, np, card, params, prompts))
+                timed("serve_prefix_phase", serve_prefix_phase,
+                      torch, np, card, params, prompts),
+                **timed("serve_pressure_phase", serve_pressure_phase,
+                        torch, np, card, params, prompts))
         if args.phase != "serve":
             serve_launches.update(
-                serve_spec_phase(torch, np, card, params, prompts),
-                **serve_spill_phase(torch, np, card, params, prompts),
-                **serve_livelock_phase(torch, np, card, params))
+                timed("serve_spec_phase", serve_spec_phase,
+                      torch, np, card, params, prompts),
+                **timed("serve_spill_phase", serve_spill_phase,
+                        torch, np, card, params, prompts),
+                **timed("serve_livelock_phase", serve_livelock_phase,
+                        torch, np, card, params))
             if args.phase == "spec":
                 launches = serve_launches["spec-f32"]
         del params
     if not bad and args.phase in ("all", "train"):
-        ffn_launches = train_phase(torch, np, card)
+        ffn_launches = timed("train_phase", train_phase, torch, np, card)
     if not bad and args.phase in lm_phases:
-        lm_launches = lm_train_phase(torch, np, card)
+        lm_launches = timed("lm_train_phase", lm_train_phase, torch, np, card)
     if not bad and args.phase in ring_phases:
-        ring_launches = ring_train_phase(torch, np, card)
+        ring_launches = timed("ring_train_phase", ring_train_phase,
+                              torch, np, card)
     if not bad and args.phase in ep_phases:
-        ep_launches = ep_train_phase(torch, np, card)
+        ep_launches = timed("ep_train_phase", ep_train_phase, torch, np, card)
     if not bad and args.phase in ("all", "tp"):
-        tp_phase(torch, card)
+        timed("tp_phase", tp_phase, torch, card)
     if not bad and args.phase in opt_phases:
-        bf16_launches = dict(opt_train_phase(torch, np, card),
-                             **opt_lm_phase(torch, np, card))
+        bf16_launches = dict(timed("opt_train_phase", opt_train_phase,
+                                   torch, np, card),
+                             **timed("opt_lm_phase", opt_lm_phase,
+                                     torch, np, card))
     if not bad and args.phase in bf16_phases:
-        dtype_launches = dtype_bf16_train_phase(torch, np, card)
-        bf16_opt_launches = {"opt": dtype_bf16_opt_phase(torch, np, card)}
-        lm_bf16_launches = lm_bf16_train_phase(torch, np, card)
+        dtype_launches = timed("dtype_bf16_train_phase",
+                               dtype_bf16_train_phase, torch, np, card)
+        bf16_opt_launches = {"opt": timed(
+            "dtype_bf16_opt_phase", dtype_bf16_opt_phase, torch, np, card)}
+        lm_bf16_launches = timed("lm_bf16_train_phase", lm_bf16_train_phase,
+                                 torch, np, card)
     if not bad and args.phase in ("all", "lmtp"):
-        lmtp_launches = lmtp_phase(torch, np, card)
+        lmtp_launches = timed("lmtp_phase", lmtp_phase, torch, np, card)
     if not bad and args.phase in ("all", "lmdp"):
-        lmdp_launches = lmdp_phase(torch, np, card)
+        lmdp_launches = timed("lmdp_phase", lmdp_phase, torch, np, card)
     if not bad and args.phase in ("all", "seq"):
-        seq_a2a = seq_a2a_phase(torch, card)
-        seq_launches = seq_phase(torch, np, card)
+        seq_a2a = timed("seq_a2a_phase", seq_a2a_phase, torch, card)
+        seq_launches = timed("seq_phase", seq_phase, torch, np, card)
     if not bad and args.phase in ("all", "guard"):
-        guard_launches = guard_phase(torch, np, card)
+        guard_launches = timed("guard_phase", guard_phase, torch, np, card)
     if not bad and args.phase in ("all", "ckpt"):
-        ckpt_launches = ckpt_phase(torch, np, card)
+        ckpt_launches = timed("ckpt_phase", ckpt_phase, torch, np, card)
     if args.phase in serve_phases:
         main_case = next(c for c in cases if c["shape"] == "serving"
                          and c["kv_dtype"] == "f32")
@@ -8388,6 +8609,18 @@ def main(argv=None) -> int:
     path_launches(kernels, "bf16_opt_launches", bf16_opt_launches)
     path_launches(kernels, "guard_launches", guard_launches)
     path_launches(kernels, "ckpt_launches", ckpt_launches)
+    # rule 2's order: each bf16 form by how far it loses to its library
+    # call (the repaired SDPA yardstick for flash, cuBLAS bf16 for the
+    # FFN and head kernels)
+    rank = sorted(({"kernel": k["name"], "ms": k["ms"],
+                    "library_ms": k["library_ms"],
+                    "library_backend": k.get("library_backend"),
+                    "factor": k["ms"] / k["library_ms"]}
+                   for k in kernels if k["name"].endswith("[bf16]")
+                   and k.get("library_ms")), key=lambda r: -r["factor"])
+    if rank:
+        print("rule2-rank " + json.dumps(rank), flush=True)
+    print("phase-seconds " + json.dumps(phase_s), flush=True)
     # the whole run's wall time, the kernels' build included
     print("smoke-wall " + json.dumps(dict(
         phase=args.phase, seconds=time.perf_counter() - t_run, card=card)),

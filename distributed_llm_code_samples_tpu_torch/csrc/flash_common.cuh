@@ -9,16 +9,18 @@
 // is f32 or bf16 (the JAX kernels' outputs take their inputs' dtype);
 // lse and D are f32 either way.
 //
-// bf16 storage: a tile is read as bf16 (8 bytes for 4 elements, half the
-// f32 bytes), widened to f32 in shared memory, and computed on exactly as
-// the f32 kernels compute with kBf16 on: every operand is already a bf16
-// value, p and ds are rounded to bf16 where formed, products and sums are
-// f32, and each output is rounded to bf16 once, when stored. Its copies
+// bf16 storage in the backward (the forward's runs on the tensor cores,
+// flash_attn_fwd.cu): a tile is read as bf16 (8 bytes for 4 elements,
+// half the f32 bytes), widened to f32 in shared memory, and computed on
+// exactly as the f32 kernels compute with kBf16 on: every operand is
+// already a bf16 value, p and ds are rounded to bf16 where formed,
+// products and sums are f32, and each output is rounded to bf16 once,
+// when stored. Its copies
 // are plain loads and stores, not cp.async (which cannot widen): the
 // threads that copy a tile stall on it, and the barrier that publishes
 // the tile is the same.
 //
-// Arithmetic is f32 FMA on the CUDA cores (no tensor cores yet). With
+// Arithmetic here is f32 FMA on the CUDA cores. With
 // kBf16 (the Pallas kernels' `mxu_bf16`) every operand tile is rounded to
 // bf16 once it is in shared memory, and so are the probability and
 // score-gradient tiles where they are formed; products of two bf16 values

@@ -51,12 +51,13 @@
 // (6.6 GB at the main shape, about 2 ms at 3.35 TB/s).
 //
 // Modes 1 and 2 run on the tensor cores (wgmma m64n256k16 fed by TMA,
-// the pieces of ffn_wgmma.cuh: a 128 x 256 tile a block, two consumer
-// warpgroups and a producer warp, persistent blocks). TMA reads h and w
-// where they lie on bf16 storage, or from bf16 copies (mode 1's rounding,
-// or bf16 that TMA cannot read in place: a base not 16-byte aligned or
-// rows not a multiple of 8 elements). For each chunk of `width` columns
-// (a multiple of 256, fused_xent.py's head_tc_plan; the last shorter):
+// the pieces of tc_core.cuh and ffn_wgmma.cuh: a 128 x 256 tile a block,
+// two consumer warpgroups and a producer warp, persistent blocks). TMA
+// reads h and w where they lie on bf16 storage, or from bf16 copies (mode
+// 1's rounding, or bf16 that TMA cannot read in place: a base not 16-byte
+// aligned or rows not a multiple of 8 elements). For each chunk of
+// `width` columns (a multiple of 256, fused_xent.py's head_tc_plan; the
+// last shorter):
 //  1. head_dz_kernel: z_c = h w_c^T (both K-major, a 3-stage ring) over
 //     d; its epilogue forms dz_c in f32 (zero past N and past the chunk),
 //     rounds it to bf16 and stores it once, [N][width8], through a
@@ -331,7 +332,6 @@ cudaError_t run(const float* h, const float* w, const int* targets,
 // -- modes 1 and 2: the tensor cores ----------------------------------------
 
 using bf = __nv_bfloat16;
-namespace tc = ffn_tc;
 
 // The z pass of one chunk: h [N][d] (boxes 64 x 128), w_c [vc][d] (64 x
 // 256), dz [N][vc] bf16 with rows `width8` apart (64 x 64); the chunk's
@@ -460,7 +460,7 @@ cudaError_t run_tc(const Elem* h, const Elem* w, const int* targets,
         (e = tc::launch(head_dz_kernel, z.tiles < sms ? z.tiles : sms,
                         tc::kHiddenSmem, z, st)) != cudaSuccess)
       return e;
-    tc::SliceParams p{};
+    ffn_tc::SliceParams p{};
     // dh [N][d] (+)= dz_c w_c: dz K-major, w_c [vc][d] MN-major, vc deep;
     // dw_c [vc][d] = dz_c^T h: dz MN-major, h [N][d] MN-major, N deep
     if ((e = tc::tensor_map(&p.a[0], dz, N, vc, ldz, tc::kBM)) !=
@@ -469,10 +469,10 @@ cudaError_t run_tc(const Elem* h, const Elem* w, const int* targets,
         (e = tc::tensor_map(&p.a[1], dz, N, vc, ldz, 64)) != cudaSuccess ||
         (e = tc::tensor_map(&p.b[1], ho.p, N, d, ho.ld, 64)) != cudaSuccess)
       return e;
-    tc::product(p, 0, dh_sum, N, d, vc);
+    ffn_tc::product(p, 0, dh_sum, N, d, vc);
     p.add[0] = v0 > 0;
-    tc::product(p, 1, dw + static_cast<size_t>(v0) * d, vc, d, N);
-    if ((e = tc::sliced<Tag, float, tc::kKMajor, tc::kMNMajor, Out,
+    ffn_tc::product(p, 1, dw + static_cast<size_t>(v0) * d, vc, d, N);
+    if ((e = ffn_tc::sliced<Tag, float, tc::kKMajor, tc::kMNMajor, Out,
                         tc::kMNMajor, tc::kMNMajor>(p, nullptr, 1, 0, 0, sms,
                                                     st)) != cudaSuccess)
       return e;

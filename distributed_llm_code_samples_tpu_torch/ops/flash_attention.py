@@ -5,7 +5,8 @@ from ``(q, k, v, y, lse)``. The training path's ``attn_impl="flash"``.
 Port of ``distributed_llm_code_samples_tpu/ops/pallas_attention.py``
 (``flash_attention_fwd``, ``flash_attention_bwd``, ``flash_attention``,
 ``flash_mha``). On a CUDA tensor each wrapper launches its CUDA kernels
-(``csrc/flash_attn_fwd.cu`` under ``FWD_PLAN``;
+(``csrc/flash_attn_fwd.cu``: on the CUDA cores under ``FWD_PLAN`` in
+f32, on the tensor cores (``FWD_TC``) on bf16 storage;
 ``csrc/flash_attn_bwd.cu``'s dkv and dq kernels under ``BWD_PLAN``;
 built at first use by ``ops/_build.py``, bound with ctypes) or raises;
 on a CPU tensor it runs its plain PyTorch version ``*_ref``. There is
@@ -27,7 +28,9 @@ the JAX kernels' ``out_shape``s give them; the arithmetic is the
 ``mxu_bf16`` arithmetic on the bf16 values (the JAX kernels round p and
 ds to the operands' dtype before their products), each output rounded
 to bf16 once. The kernels read bf16 tiles (half the bytes) and count
-their launches as ``<name>[bf16]``.
+their launches as ``<name>[bf16]``; the forward runs its products on
+wgmma (``p`` rounded to bf16 against its tile's running max, as the
+Pallas kernel rounds it).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fused_ffn import _layout, _up
+from .fused_ffn import TC_ROW, _layout, _tc_layout, _up, tc_staged
 
 FWD, BWD = "flash_attn_fwd", "flash_attn_bwd"
 DQ, DKV = "flash_attn_dq", "flash_attn_dkv"     # the backward's launches
@@ -153,15 +156,26 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         return flash_attention_fwd_ref(q, k, v, causal=causal,
                                        mxu_bf16=mxu_bf16)
     _kernel_dims(FWD, dh)
-    bf16 = q.dtype == torch.bfloat16
     y = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
-    _build.launch(FWD, "flash_attn_fwd_launch",
-                  [q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
-                   lse.data_ptr()],
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
+            lse.data_ptr()]
+    if q.dtype == torch.bfloat16:
+        staged = tc_staged(2, {"qs": (q.data_ptr(), dh),
+                               "ks": (k.data_ptr(), dh),
+                               "vs": (v.data_ptr(), dh)})
+        pieces = fwd_tc_scratch(bh, tq, tk, dh, staged)
+        scratch = torch.empty(pieces["total"], dtype=torch.uint8,
+                              device=q.device)
+        ptrs += [scratch.data_ptr() + pieces[p][1] if p in pieces else 0
+                 for p in ("qs", "ks", "vs")]
+        _build.launch(FWD, "flash_attn_fwd_tc_launch", ptrs,
+                      (bh, tq, tk, dh, int(bool(causal))), q.device,
+                      FWD + BF16)
+        return y, lse
+    _build.launch(FWD, "flash_attn_fwd_launch", ptrs,
                   (bh, tq, tk, dh, int(bool(causal)), *FWD_PLAN,
-                   int(bool(mxu_bf16)), int(bf16)), q.device,
-                  FWD + BF16 * bf16)
+                   int(bool(mxu_bf16))), q.device, FWD)
     return y, lse
 
 
@@ -194,6 +208,55 @@ def fwd_blocks_per_sm(plan) -> int:
     at least as many."""
     by_smem = SMEM_PER_SM // (fwd_smem_bytes(plan) + SMEM_RESERVED)
     return min(by_smem, 2048 // (2 * plan[0]))
+
+
+# -- the forward on the tensor cores (bf16 storage) ------------------------
+
+# flash_fwd_tc_kernel's tiles (csrc/flash_attn_fwd.cu, fwd_tc): a block of
+# two consumer warpgroups (64 query rows each) and a producer warp per
+# (head, query tile), a ring of (K, V) stages of key tile keys, q kept
+# once; bf16 boxes of 64 head-dim columns (128 bytes) a row.
+FWD_TC = dict(query_tile=128, key_tile=64, stages=4, threads=288)
+
+
+def fwd_tc_smem_bytes() -> int:
+    """Shared memory of a tensor-core forward block: q ``[query tile][64]``
+    and the ring's stages of k and v ``[key tile][64]``, bf16, and the
+    1024 bytes that align them to a swizzle atom."""
+    row = 64 * 2
+    return (FWD_TC["query_tile"] * row
+            + FWD_TC["stages"] * 2 * FWD_TC["key_tile"] * row + 1024)
+
+
+def fwd_tc_walk(tq: int, tk: int, causal: bool):
+    """``[(query tile start, block key tiles, (warpgroup 0's, 1's))]``
+    in the kernel's launch order over one head: the last query tile
+    first; a block loads the key tiles up to its last row's diagonal
+    (all of them when not causal), and each warpgroup computes those up
+    to its own 64 rows' (none for rows wholly past Tq) and releases the
+    rest unread."""
+    qt, kt = FWD_TC["query_tile"], FWD_TC["key_tile"]
+    every = -(-tk // kt)
+
+    def tiles(q0, q1):
+        if q0 >= tq:
+            return 0
+        return min(every, (min(q1, tq) - 1) // kt + 1) if causal else every
+    nq = -(-tq // qt)
+    return [(q0, tiles(q0, q0 + qt),
+             (tiles(q0, q0 + qt // 2), tiles(q0 + qt // 2, q0 + qt)))
+            for q0 in ((nq - 1 - i) * qt for i in range(nq))]
+
+
+def fwd_tc_scratch(bh: int, tq: int, tk: int, dh: int, staged=()) -> dict:
+    """The tensor-core forward's scratch (``fused_ffn._tc_layout``, in
+    ``flash_attn_fwd_tc_launch``'s pointer order): zero-padded bf16
+    copies ``[BH * T, dh8]`` of the operands that ``tc_staged`` names
+    (TMA reads a base 16-byte aligned, rows a multiple of 8 elements)."""
+    d8 = _up(dh, TC_ROW)
+    shapes = {"qs": (bh * tq, d8), "ks": (bh * tk, d8), "vs": (bh * tk, d8)}
+    return _tc_layout({k: (shapes[k], 2) for k in ("qs", "ks", "vs")
+                       if k in staged})
 
 
 # -- the backward's plan and scratch (csrc/flash_attn_bwd.cu) -------------

@@ -7,9 +7,10 @@ path's ``head_impl="fused"``.
 Port of ``distributed_llm_code_samples_tpu/ops/pallas_xent.py``
 (``head_xent_stats``, ``head_xent_fwd``, ``head_xent_bwd``,
 ``head_xent``). On a CUDA tensor each wrapper launches its CUDA kernels
-(``csrc/head_xent_fwd.cu``'s copies, sliced statistics and merge, on
-the GEMM core of ``csrc/gemm_core.cuh``; ``csrc/head_xent_bwd.cu``'s
-chunked products, on that core in f32 and on the tensor cores with bf16
+(``csrc/head_xent_fwd.cu``'s sliced statistics and merge, on the GEMM
+core of ``csrc/gemm_core.cuh`` in f32 and on the tensor cores with bf16
+operands, ``csrc/tc_core.cuh``; ``csrc/head_xent_bwd.cu``'s chunked
+products, on that core in f32 and on the tensor cores with bf16
 operands, ``csrc/ffn_wgmma.cuh``; built at first use by
 ``ops/_build.py``, bound with ctypes) or raises; on a CPU tensor it
 runs its plain PyTorch version ``*_ref``. There is no fallback from a
@@ -42,9 +43,9 @@ import torch
 
 from . import _build
 # the GEMM core's (csrc/gemm_core.cuh) tile and blocks an SM, shared
-# with the FFN kernels, and the tensor-core passes' (csrc/ffn_wgmma.cuh)
-# tile width, row rule, staging rule and scratch layout
-from .fused_ffn import (BLOCKS_PER_SM, H100_SMS, TC_BN, TC_ROW, TILE,
+# with the FFN kernels, and the tensor-core passes' (csrc/tc_core.cuh)
+# tile, row rule, staging rule and scratch layout
+from .fused_ffn import (BLOCKS_PER_SM, H100_SMS, TC_BM, TC_BN, TC_ROW, TILE,
                         _layout, _sms, _tc_layout, _up, tc_staged)
 
 FWD, BWD = "head_xent_fwd", "head_xent_bwd"
@@ -155,30 +156,92 @@ def stats_scratch(n: int, d: int, v: int, plan) -> dict:
                     "part": (3, plan[0], n)})
 
 
+def _staged_pieces(n: int, d: int, v: int, staged) -> dict:
+    """The staged bf16 copies of h and w that both tensor-core kernels
+    take first: ``hs [N, d8]``, ``ws [V, d8]`` where ``staged`` names
+    them (``tc_staged``), 2 bytes an element."""
+    d8 = _up(d, TC_ROW)
+    return {k: (shape, 2) for k, shape in (("hs", (n, d8)), ("ws", (v, d8)))
+            if k in staged}
+
+
+def stats_tc_plan(n: int, v: int, sms: int = H100_SMS):
+    """``(S, L)``: the tensor-core statistics' vocabulary cut into S
+    slices of L columns (L a multiple of ``TC_BN``, the last slice
+    shorter; S = ceil(V / L)). A work item is one (row tile of
+    ``TC_BM``, slice), and the card's ``sms`` persistent blocks take the
+    items in turn, one a block at a time, so a block's work is at most
+    ceil(R * S / sms) items of L / TC_BN tiles (R row tiles). The plan
+    takes the slices that make that least, and of those the widest (the
+    fewest partials to merge): 33 slices of 6 tiles at the main shape
+    (64 x 33 = 2112 items, 16 whole rounds of an H100's 132 SMs), 2 of
+    25 on one TP rank's 12576 rows (128 items, one round)."""
+    rows, vt = _cdiv(n, TC_BM), _cdiv(v, TC_BN)
+    best = None
+    for per in range(1, vt + 1):
+        s = _cdiv(vt, per)
+        if _cdiv(vt, s) != per:           # the same slices as a wider per
+            continue
+        cost = _cdiv(rows * s, sms) * per
+        if best is None or cost <= best[0]:
+            best = (cost, s, per)
+    return best[1], best[2] * TC_BN
+
+
+def stats_tc_scratch(n: int, d: int, v: int, plan, staged=()) -> dict:
+    """The tensor-core statistics' scratch (``fused_ffn._tc_layout``, in
+    ``head_xent_stats_tc_launch``'s pointer order): the staged bf16
+    copies (``tc_staged``: ``hs [N, d8]``, ``ws [V, d8]``) and the
+    slices' f32 partials ``part [3, S, N]``."""
+    pieces = _staged_pieces(n, d, v, staged)
+    pieces["part"] = ((3, plan[0], n), 4)
+    return _tc_layout(pieces)
+
+
+_STATS_TC_PIECES = ("hs", "ws", "part")
+
+
 def head_xent_stats(h, w, targets, *, mxu_bf16: bool = False):
-    """``(lse [N], tz [N])``: h and w copied into the GEMM core's operand
-    layout, one block per (row tile, vocab slice) folds each logit tile
-    into running statistics (``stats_plan``), and a merge over the
-    slices (``csrc/head_xent_fwd.cu``). The scratch (``stats_scratch``)
-    is one ``torch.empty`` buffer. CPU tensors run
-    ``head_xent_stats_ref``."""
+    """``(lse [N], tz [N])``: one block per (row tile, vocab slice) folds
+    each logit tile into running statistics, then a merge over the
+    slices (``csrc/head_xent_fwd.cu``). f32 (mode 0): h and w copied into
+    the GEMM core's operand layout, the slices of ``stats_plan``, the
+    scratch (``stats_scratch``) one f32 buffer. With bf16 operands
+    (``mxu_bf16``, or bf16 storage) on the tensor cores: TMA reads h and
+    w (or their staged bf16 copies, ``tc_staged``), the slices of
+    ``stats_tc_plan``, the scratch (``stats_tc_scratch``) one byte
+    buffer. CPU tensors run ``head_xent_stats_ref``."""
     n, d, v = _check(h, w, targets)
     if not _build.on_card(FWD, h, w):
         return head_xent_stats_ref(h, w, targets, mxu_bf16=mxu_bf16)
     t32 = _targets32(targets)
     lse = torch.empty(n, dtype=torch.float32, device=h.device)
     tz = torch.empty_like(lse)
+    ptrs = [h.data_ptr(), w.data_ptr(), t32.data_ptr(), lse.data_ptr(),
+            tz.data_ptr()]
+    mode, suffix = _mode(h, mxu_bf16)
+    if mode:
+        plan = stats_tc_plan(n, v, _sms(h))
+        staged = tc_staged(mode, {"hs": (h.data_ptr(), d),
+                                  "ws": (w.data_ptr(), d)})
+        pieces = stats_tc_scratch(n, d, v, plan, staged)
+        scratch = torch.empty(pieces["total"], dtype=torch.uint8,
+                              device=h.device)
+        base = scratch.data_ptr()
+        ptrs += [base + pieces[p][1] if p in pieces else 0
+                 for p in _STATS_TC_PIECES]
+        _build.launch(FWD, "head_xent_stats_tc_launch", ptrs,
+                      (n, d, v, *plan, mode, _sms(h)), h.device,
+                      STATS_COUNT + suffix)
+        return lse, tz
     plan = stats_plan(n, v, _sms(h))
     pieces = stats_scratch(n, d, v, plan)
     scratch = torch.empty(pieces.pop("total"), dtype=torch.float32,
                           device=h.device)
     base = scratch.data_ptr()
-    mode, suffix = _mode(h, mxu_bf16)
     _build.launch(FWD, "head_xent_stats_launch",
-                  [h.data_ptr(), w.data_ptr(), t32.data_ptr(),
-                   lse.data_ptr(), tz.data_ptr()]
-                  + [base + 4 * off for _, off in pieces.values()],
-                  (n, d, v, *plan, mode), h.device, STATS_COUNT + suffix)
+                  ptrs + [base + 4 * off for _, off in pieces.values()],
+                  (n, d, v, *plan, 0), h.device, STATS_COUNT)
     return lse, tz
 
 
@@ -239,10 +302,7 @@ def head_tc_scratch(n: int, d: int, v: int, plan, mode: int,
     (``tc_staged``: ``hs [N, d8]``, ``ws [V, d8]``), one chunk's ``dz`` as
     bf16 ``[N, width8]`` and, on bf16 storage (mode 2), dh's f32 sum
     ``dh32 [N, d]``."""
-    d8 = _up(d, TC_ROW)
-    pieces = {k: (shape, 2) for k, shape in (("hs", (n, d8)),
-                                              ("ws", (v, d8)))
-              if k in staged}
+    pieces = _staged_pieces(n, d, v, staged)
     pieces["dz"] = ((n, _up(plan[1], TC_ROW)), 2)
     if mode == 2:
         pieces["dh32"] = ((n, d), 4)

@@ -2109,3 +2109,221 @@ def test_head_bwd_scratch_mirror_equals_the_library(card, shape):
         p_fx.bwd_scratch_floats(*shape)
     fn = _build.load_library(p_fx.BWD).head_xent_bwd_scratch_floats
     assert fn(*shape, 1) == -1 and fn(*shape, 2) == -1
+
+
+# -- the statistics and the flash forward on the tensor cores ----------------
+#
+# Modes 1 and 2 of head_xent_stats (csrc/head_xent_fwd.cu,
+# head_stats_tc_kernel) and the flash forward on bf16 storage
+# (csrc/flash_attn_fwd.cu, flash_fwd_tc_kernel) run wgmma fed by TMA. The
+# statistics stay f32: within 1e-4 of float64 on the bf16 values (the
+# tensor cores sum a k16 step in another order than an FMA chain). The
+# flash forward's y rounds to bf16 once: within two bf16 steps of float64
+# row by row (chip_smoke.py's BF16_BLOCK_TOL), and its plain version
+# within TOL[True] plus one step.
+
+# (N, d, V, target shift): the LM's TP shard scaled down, a vocabulary
+# past many slices with its last tile ragged, d not a multiple of 8
+# (mode 2 stages it), one under a tile
+STATS_TC_SHAPES = ((300, 64, 1000, 0), (1000, 200, 50257, 0),
+                   (256, 96, 12576, 12576), (131, 45, 8209, 0),
+                   (37, 20, 201, 0))
+
+
+def stats_want64(h, w, t):
+    """lse and tz in float64 on the operands as given (bf16 values, or
+    f32 rounded to bf16 for mode 1)."""
+    return p_fx.head_xent_stats_ref(h.double(), w.double(), t)
+
+
+def rel_close(got, want, tol=1e-4):
+    err = float((got.double() - want).abs().max())
+    return err <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2])
+@pytest.mark.parametrize("shape", STATS_TC_SHAPES)
+def test_head_stats_tc_matches_float64_and_plain(card, shape, mode):
+    """lse and tz f32 within 1e-4 of float64 on the bf16 operands and of
+    the plain version, two calls bit-equal, counted as
+    ``head_xent_stats[bf16]`` (mode 2) or ``head_xent_stats`` (mode 1);
+    targets -1, V and the shifted ones outside the shard give tz 0. The
+    statistics without the last vocabulary tile fail the check."""
+    h, w, t, _, kw = head_tc_case(shape, mode)
+    name = p_fx.STATS_COUNT + ("[bf16]" if mode == 2 else "")
+    before = _build.launch_counts().get(name, 0)
+    got = p_fx.head_xent_stats(h, w, t, **kw)
+    again = p_fx.head_xent_stats(h, w, t, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 2
+    hb, wb = h.bfloat16(), w.bfloat16()
+    want64 = stats_want64(hb, wb, t)
+    plain = p_fx.head_xent_stats_ref(h, w, t, **kw)
+    for g, a, w64, p in zip(got, again, want64, plain):
+        assert g.dtype == torch.float32 and torch.equal(g, a)
+        assert rel_close(g, w64) and rel_close(g, p.double())
+    outside = (t < 0) | (t >= w.shape[0])
+    assert bool(outside.any()) and bool((got[1][outside] == 0).all())
+    v = w.shape[0]
+    if v > 256:
+        cut = (v - 1) // 256 * 256
+        control = stats_want64(hb, wb[:cut], t)
+        assert not all(rel_close(g, c) for g, c in zip(got, control))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slices", [1, 2, 7])
+def test_head_stats_tc_other_slices_agree(card, monkeypatch, slices):
+    """Other vocabulary slicings (the merge over more or fewer slices)
+    stay within 1e-4 of float64 and repeat bit for bit."""
+    h, w, t, _, _ = head_tc_case((300, 64, 16411, 0), 2)
+    vt = -(-16411 // 256)
+    per = -(-vt // slices)
+    plan = (-(-vt // per), per * 256)
+    monkeypatch.setattr(p_fx, "stats_tc_plan", lambda *_: plan)
+    got = p_fx.head_xent_stats(h, w, t)
+    again = p_fx.head_xent_stats(h, w, t)
+    for g, a, w64 in zip(got, again, stats_want64(h, w, t)):
+        assert torch.equal(g, a) and rel_close(g, w64)
+
+
+@pytest.mark.cuda
+def test_head_stats_tc_operands_not_16_byte_aligned(card):
+    """bf16 h and w one element into their storage are staged into bf16
+    copies and give the bits of aligned ones."""
+    h, w, t, _, _ = head_tc_case((300, 64, 1000, 0), 2)
+    hs, ws = (torch.empty(v.numel() + 1, device="cuda",
+                          dtype=v.dtype)[1:].view_as(v) for v in (h, w))
+    hs.copy_(h)
+    ws.copy_(w)
+    assert hs.data_ptr() % 16 and ws.data_ptr() % 16
+    for g, a in zip(p_fx.head_xent_stats(hs, ws, t),
+                    p_fx.head_xent_stats(h, w, t)):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_head_stats_tc_from_a_thread_and_from_autograd(card):
+    """The statistics encode their TMA maps with a libcuda call, which
+    needs a current context: from a thread of its own and from autograd's
+    device thread they give the main thread's bits."""
+    import threading
+    h, w, t, _, _ = head_tc_case((256, 64, 1000, 0), 2)
+    want = p_fx.head_xent_stats(h, w, t)
+    got = []
+    th = threading.Thread(target=lambda: got.append(
+        p_fx.head_xent_stats(h, w, t)))
+    th.start()
+    th.join()
+    assert len(got) == 1
+    x = torch.zeros(1, device="cuda", requires_grad=True)
+    _CallInBackward.apply(x, lambda: got.append(
+        p_fx.head_xent_stats(h, w, t))).sum().backward()
+    assert len(got) == 2
+    for call in got:
+        for g, a in zip(call, want):
+            assert torch.equal(g, a)
+
+
+class _CallInBackward(torch.autograd.Function):
+    """Runs ``fn`` from the backward, on autograd's device thread."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.fn()
+        return g, None
+
+
+@pytest.mark.cuda
+def test_head_stats_bits_unchanged_by_the_tensor_cores(card):
+    """Mode 0 (f32, the GEMM core) keeps its bits: chip_smoke.py's digest
+    of one small f32 call, stored from the build before modes 1 and 2
+    moved to the tensor cores."""
+    import chip_smoke
+    assert chip_smoke.stats_bits_digest(torch, np, p_fx) == \
+        chip_smoke.STATS_BITS_SHA256
+
+
+def flash_f64_err(got, q, k, v, causal):
+    """The worst row of y against float64 on the bf16 values (p rounded
+    to bf16, as the kernel rounds it), |row - row64| / |row64|, and lse's
+    largest error over its largest magnitude."""
+    y64, lse64 = flash_attention_fwd_ref(q.double(), k.double(), v.double(),
+                                         causal=causal, mxu_bf16=True)
+    y, lse = (g.double() for g in got)
+    rows = ((y - y64).norm(dim=-1) / y64.norm(dim=-1).clamp_min(1e-30))
+    return max(float(rows.max()), float((lse - lse64).abs().max())
+               / float(lse64.abs().max()))
+
+
+# (BH, Tq, Tk, dh): the LM's heads, one TP rank's 3 heads, a sequence
+# hop, the ragged shapes of chip_smoke.py, Tq != Tk, dh 16
+FLASH_TC_SHAPES = ((192, 512, 512, 64), (48, 512, 512, 64),
+                   (24, 1024, 1024, 64), (24, 200, 200, 40),
+                   (2, 80, 130, 64), (3, 64, 64, 16), (4, 257, 257, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_TC_SHAPES)
+def test_flash_fwd_tc_matches_float64(card, shape, causal):
+    """y within two bf16 steps of float64 row by row, lse within 1e-4,
+    two calls bit-equal; causal flipped fails the check."""
+    q, k, v, _ = bf16_flash_case(shape)
+    got = flash_attention_fwd(q, k, v, causal=causal)
+    again = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert flash_f64_err(got, q, k, v, causal) <= 2 ** -7
+    flipped = flash_attention_fwd(q, k, v, causal=not causal)
+    assert flash_f64_err(flipped, q, k, v, causal) > 2 ** -7
+
+
+@pytest.mark.cuda
+def test_flash_fwd_tc_staged_operands(card):
+    """dh 36 (rows not a multiple of 8 elements) and operands one element
+    into their storage go through zero-padded copies: within the limits
+    of the plain version, and an unaligned call gives the aligned one's
+    bits."""
+    q, k, v, _ = bf16_flash_case((4, 100, 100, 36))
+    got = flash_attention_fwd(q, k, v)
+    agree_bf16(got, flash_attention_fwd(q, k, v),
+               flash_attention_fwd_ref(q, k, v))
+    q, k, v, _ = bf16_flash_case((4, 100, 100, 64))
+    off = [torch.empty(x.numel() + 1, device="cuda",
+                       dtype=x.dtype)[1:].view_as(x) for x in (q, k, v)]
+    for o, x in zip(off, (q, k, v)):
+        o.copy_(x)
+    assert all(o.data_ptr() % 16 for o in off)
+    for g, a in zip(flash_attention_fwd(*off), flash_attention_fwd(q, k, v)):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_tc_from_autograd(card):
+    """The forward called on autograd's device thread (as FSDP's backward
+    recomputes a block) gives the main thread's bits."""
+    q, k, v, _ = bf16_flash_case((24, 200, 200, 40))
+    want = flash_attention_fwd(q, k, v)
+    got = []
+    x = torch.zeros(1, device="cuda", requires_grad=True)
+    _CallInBackward.apply(x, lambda: got.append(
+        flash_attention_fwd(q, k, v))).sum().backward()
+    assert len(got) == 1
+    assert all(torch.equal(g, a) for g, a in zip(got[0], want))
+
+
+@pytest.mark.cuda
+def test_flash_fwd_bits_unchanged_by_the_tensor_cores(card):
+    """Mode 0 (f32, the CUDA cores) keeps its bits: chip_smoke.py's digest
+    of two small f32 calls, stored from the build before bf16 storage
+    moved to the tensor cores."""
+    import chip_smoke
+    assert chip_smoke.flash_fwd_bits_digest(torch, np, p_fa) == \
+        chip_smoke.FLASH_FWD_BITS_SHA256
