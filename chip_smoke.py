@@ -490,6 +490,13 @@ STATS_BITS_SHA256 = (
     "4ce554ef3db74db7499b85cf34c0d4ece88d323a47f5d8915cac73cb7363180b")
 FLASH_FWD_BITS_SHA256 = (
     "38dbe827df1ad12d5660b6add86a4b26d7f7532f52fdcff07e2367bff2c8b10c")
+# The flash backward's f32 bits (modes 0 and 1, the CUDA cores):
+# flash_bwd_bits_digest on the build before its bf16 form moved to the
+# tensor cores (435e4ce), on an NVIDIA H100 80GB HBM3. The move may not
+# change one bit of either mode (tests/test_torch_cuda_kernels.py checks
+# it too).
+FLASH_BWD_BITS_SHA256 = (
+    "517eae7f4799bcedb054394785ffc5fe11467cb8b3d302f99cf96fda8a419839")
 # small kernels a single-call trace runs before the call (traced)
 TRACE_PAD = 4
 # the passes of the three FFN kernels (csrc/ffn_gemm.cuh) by the names of
@@ -509,18 +516,25 @@ FFN_PASS_NAMES = {"gemm_prep": "copies", "hidden": "pass1",
 FFN_TC_KERNELS = ("wgmma_hidden_kernel", "wgmma_slice_kernel")
 HEAD_TC_KERNELS = ("head_dz_kernel", "wgmma_slice_kernel")
 # the statistics' modes 1 and 2 (csrc/head_xent_fwd.cu; head-stats-tc-sass)
-# and the flash forward on bf16 storage (csrc/flash_attn_fwd.cu;
-# flash-tc-sass)
+# and the flash forward and backward on bf16 storage (csrc/flash_attn_fwd.cu,
+# csrc/flash_attn_bwd.cu; flash-tc-sass), by library
 HEAD_STATS_TC_KERNELS = ("head_stats_tc_kernel",)
-FLASH_TC_KERNELS = ("flash_fwd_tc_kernel",)
+FLASH_TC_KERNELS = {"flash_attn_fwd": ("flash_fwd_tc_kernel",),
+                    "flash_attn_bwd": ("flash_dkv_tc_kernel",
+                                       "flash_dq_tc_kernel")}
 FFN_TAGS = {"fwd": "ffn_fwd", "dx": "ffn_bwd_dx", "dw": "ffn_bwd_dw"}
 # the LM kernels' launches by the names of their CUDA kernels in a
 # profile: (LM kernel, part, pattern)
 LM_PARTS = (
     ("flash_attn_fwd", "fwd", r"flash_fwd_kernel<"),
+    ("flash_attn_fwd", "tc_copies", r"bf16_prep_kernel<flash::fwd_tc\b"),
+    ("flash_attn_fwd", "fwd_tc", r"flash_fwd_tc_kernel"),
     ("flash_attn_bwd", "rowsum", r"flash_rowsum_kernel"),
     ("flash_attn_bwd", "dkv", r"flash_dkv_kernel<"),
     ("flash_attn_bwd", "dq", r"flash_dq_kernel<"),
+    ("flash_attn_bwd", "tc_copies", r"bf16_prep_kernel<flash::bwd_tc\b"),
+    ("flash_attn_bwd", "dkv_tc", r"flash_dkv_tc_kernel"),
+    ("flash_attn_bwd", "dq_tc", r"flash_dq_tc_kernel"),
     ("head_xent_stats", "copies", r"gemm_prep_kernel<xent::stats\b"),
     ("head_xent_stats", "main", r"head_xent_stats_kernel"),
     ("head_xent_stats", "merge", r"head_xent_merge_kernel"),
@@ -1455,11 +1469,14 @@ def tc_sass(tag, libs, kernels):
     """The ``<tag>-sass`` and ``<tag>-ptxas`` lines of the tensor-core
     passes of the libraries ``libs``: the HGMMA instructions in the SASS
     of each (``cuobjdump -sass`` on its ``.so``), by CUDA kernel, which
-    must be some in each of ``kernels`` of every library; and those
-    kernels' registers and spill bytes from the ptxas report of the build
-    (``_build.build_logs``), which must spill nothing. Returns the
+    must be some in each of ``kernels`` of every library (or, where
+    ``kernels`` is a dict by library, in each of that library's); and
+    those kernels' registers and spill bytes from the ptxas report of the
+    build (``_build.build_logs``), which must spill nothing. Returns the
     ``<tag>-sass`` row."""
     from distributed_llm_code_samples_tpu_torch.ops import _build
+    if not isinstance(kernels, dict):
+        kernels = {name: kernels for name in libs}
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     per = {}
     for name in libs:
@@ -1477,7 +1494,7 @@ def tc_sass(tag, libs, kernels):
                 rows[fn] += 1
         per[name] = rows
     passes = {name: {k: sum(v for f, v in rows.items() if k in f)
-                     for k in kernels} for name, rows in per.items()}
+                     for k in kernels[name]} for name, rows in per.items()}
     total = {name: sum(rows.values()) for name, rows in per.items()}
     usage = {}
     for name in libs:
@@ -1486,7 +1503,8 @@ def tc_sass(tag, libs, kernels):
             m = re.search(r"(?:Compiling entry function|Function properties "
                           r"for) '?([^' ]+)", line)
             if m:
-                kernel = m[1] if any(k in m[1] for k in kernels) else None
+                kernel = m[1] if any(k in m[1] for k in kernels[name]) \
+                    else None
                 continue
             if kernel is None:
                 continue
@@ -1500,7 +1518,7 @@ def tc_sass(tag, libs, kernels):
                 entry["registers"] = int(m[1])
     spills = [e.get("spill_bytes") for k in usage.values() for e in k.values()]
     row = dict(kernel=f"{tag}-sass", hgmma=passes, hgmma_total=total,
-               ok=all(passes[n][k] > 0 for n in libs for k in kernels)
+               ok=all(passes[n][k] > 0 for n in libs for k in kernels[n])
                and bool(spills) and all(v == 0 for v in spills))
     print(f"{tag}-sass " + json.dumps(row), flush=True)
     print(f"{tag}-ptxas " + json.dumps(dict(
@@ -2016,7 +2034,7 @@ def lm_kernel_phase(torch, np, timer):
     rows = [tc_sass("head-tc", ("head_xent_bwd",), HEAD_TC_KERNELS),
             tc_sass("head-stats-tc", ("head_xent_fwd",),
                     HEAD_STATS_TC_KERNELS),
-            tc_sass("flash-tc", ("flash_attn_fwd",), FLASH_TC_KERNELS)]
+            tc_sass("flash-tc", tuple(FLASH_TC_KERNELS), FLASH_TC_KERNELS)]
     for n, (tag, bh, t, dh, causal) in enumerate(FLASH_SHAPES):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(200 + n)
@@ -2089,7 +2107,9 @@ def lm_kernel_phase(torch, np, timer):
             ("lm-stats-bits", "head_xent_stats",
              stats_bits_digest(torch, np, fx), STATS_BITS_SHA256),
             ("flash-fwd-bits", "flash_attn_fwd",
-             flash_fwd_bits_digest(torch, np, fa), FLASH_FWD_BITS_SHA256)):
+             flash_fwd_bits_digest(torch, np, fa), FLASH_FWD_BITS_SHA256),
+            ("flash-bwd-bits", "flash_attn_bwd",
+             flash_bwd_bits_digest(torch, np, fa), FLASH_BWD_BITS_SHA256)):
         row = dict(kernel=name, shape="bits", mxu_bf16=None, sha256=digest,
                    want=want, max_abs_err=0.0, rel_err=0.0,
                    ok=digest == want)
@@ -2224,6 +2244,31 @@ def flash_fwd_bits_digest(torch, np, fa):
     for causal in (True, False):
         for g in fa.flash_attention_fwd(q, k, v, causal=causal):
             out.update(g.cpu().numpy().tobytes())
+    return out.hexdigest()
+
+
+def flash_bwd_bits_digest(torch, np, fa):
+    """sha256 over dq, dk and dv of four small f32 ``flash_attention_bwd``
+    calls (modes 0 and 1, the CUDA-core kernels), causal and not, at a
+    ragged shape (Tq 150, Tk 170, dh 40), on inputs made with numpy (y
+    and lse too: the backward takes them as given)."""
+    import hashlib
+    rng = np.random.default_rng(2028)
+
+    def cuda(*shape, lo=None):
+        a = (rng.uniform(lo, lo + 2, size=shape) if lo is not None
+             else rng.normal(size=shape))
+        return torch.from_numpy(a.astype(np.float32)).cuda()
+    q, dy, y = cuda(6, 150, 40), cuda(6, 150, 40), cuda(6, 150, 40)
+    k, v = cuda(6, 170, 40), cuda(6, 170, 40)
+    lse = cuda(6, 150, lo=2.0)
+    out = hashlib.sha256()
+    for mxu_bf16 in (False, True):
+        for causal in (True, False):
+            for g in fa.flash_attention_bwd(dy, q, k, v, y, lse,
+                                            causal=causal,
+                                            mxu_bf16=mxu_bf16):
+                out.update(g.cpu().numpy().tobytes())
     return out.hexdigest()
 
 
@@ -5223,11 +5268,10 @@ BF16_GATHER_CASES = (("w1_shard", (FFN_DIM // RING_N, D_MODEL)),
 # FFN_TOL[True].
 BF16_BLOCK_TOL = 2 ** -7
 BF16_STEP = 2 ** -8
-# the flash forward on bf16 storage at the shape of every path that
-# hands it bf16 (tag, BH, T, dh, causal): the LM's heads, one LM TP
-# rank's 3 heads, a hop of the causal ring at 4096 positions over SEQ_N
-# ranks (an earlier block, and the diagonal), the ragged shapes; the
-# backward at the first alone
+# the flash forward and backward on bf16 storage at the shape of every
+# path that hands them bf16 (tag, BH, T, dh, causal): the LM's heads, one
+# LM TP rank's 3 heads, a hop of the causal ring at 4096 positions over
+# SEQ_N ranks (an earlier block, and the diagonal), the ragged shapes
 FLASH_BF16_SHAPES = (
     FLASH_SHAPES[0],
     ("tp", LM["batch"] * LM["n_heads"] // LMTP_N, LM["seq_len"],
@@ -5280,11 +5324,13 @@ def bf16_kernel_phase(torch, np, timer):
     """The kernels that take bf16 storage, at the main path's shapes: the
     all-gather of FSDP's two bf16 shards in loopback (``RING_N`` virtual
     ranks), bit for bit against its plain ring and the concatenation in
-    float64; the flash forward at every shape of ``FLASH_BF16_SHAPES``
-    and the backward at the LM shape against their plain versions and
-    against float64 on their own inputs (``flash_bf16_case``:
-    ``BF16_BLOCK_TOL``, with the causal-flipped control). Each is timed
-    beside the f32 call on the same values and the library's."""
+    float64; the flash forward and backward at every shape of
+    ``FLASH_BF16_SHAPES`` against their plain versions and against
+    float64 on their own inputs (``flash_bf16_case``: ``BF16_BLOCK_TOL``,
+    with the causal-flipped control), and the backward through
+    ``flash_mha`` with 4 heads on 2 KV heads (``flash_bf16_gqa``). Each
+    is timed beside the f32 call on the same values and the
+    library's."""
     from distributed_llm_code_samples_tpu_torch.ops import (
         flash_attention as fa)
     from distributed_llm_code_samples_tpu_torch.ops import ring
@@ -5344,27 +5390,86 @@ def bf16_kernel_phase(torch, np, timer):
         y, lse = fa.flash_attention_fwd_ref(q, k, v, causal=causal)
         f32 = [a.float() for a in (q, k, v, dy, y)]
         cases = [("flash_attn_fwd[bf16]", fa.flash_attention_fwd, (q, k, v),
-                  (f32[0], f32[1], f32[2]), False)]
-        if tag == "main":
-            cases.append(("flash_attn_bwd[bf16]", fa.flash_attention_bwd,
-                          (dy, q, k, v, y, lse),
-                          (f32[3], f32[0], f32[1], f32[2], f32[4], lse),
-                          True))
+                  (f32[0], f32[1], f32[2]), False),
+                 ("flash_attn_bwd[bf16]", fa.flash_attention_bwd,
+                  (dy, q, k, v, y, lse),
+                  (f32[3], f32[0], f32[1], f32[2], f32[4], lse), True)]
         for name, kern_fn, args, args32, backward in cases:
             rows.append(flash_bf16_case(
                 torch, timer, name, tag, (bh, t, dh, causal), kern_fn, args,
                 args32, backward, (q, k, v, dy)))
         del q, k, v, dy, y, lse, f32
+    rows.append(flash_bf16_gqa(torch))
     return rows
+
+
+def autograd_grad_bits(torch, fa, dy, q, k, v, causal) -> bool:
+    """Whether ``torch.autograd.grad`` of ``flash_attention`` on bf16
+    leaves (the backward's launches on autograd's device thread, which
+    binds its device in the launch) gives the bits of a direct backward
+    call on the kernel forward's y and lse."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention(*leaves, causal), leaves,
+                              dy)
+    y, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    want = fa.flash_attention_bwd(dy, q, k, v, y, lse, causal=causal)
+    torch.cuda.synchronize()
+    return all(torch.equal(g.view(torch.int16), w.view(torch.int16))
+               for g, w in zip(got, want))
+
+
+def flash_bf16_gqa(torch):
+    """The bf16 backward through ``flash_mha`` with 4 heads on 2 KV heads
+    (each KV head's gradients the sum of its query group's), at the LM's
+    T and dh, twice bit for bit, against the plain backward on the
+    fanned-out heads: within ``FFN_TOL[True] + BF16_STEP`` of each
+    gradient's largest element (the group's two bf16 gradients are
+    summed in bf16 by the fan-out's backward, one rounding more)."""
+    from distributed_llm_code_samples_tpu_torch.ops import (
+        flash_attention as fa)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(619)
+    b, hq, hkv, t, dh = 2, 4, 2, LM["seq_len"], LM["d_model"] // LM["n_heads"]
+    q, k, v = (torch.randn(b, h, t, dh, generator=gen, device="cuda")
+               .bfloat16() for h in (hq, hkv, hkv))
+    dy = (0.1 * torch.randn(b, hq, t, dh, generator=gen,
+                            device="cuda")).bfloat16()
+
+    def grads():
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        return torch.autograd.grad(fa.flash_mha(*leaves, causal=True),
+                                   leaves, dy)
+    got, again = grads(), grads()
+    kr, vr = (x.repeat_interleave(hq // hkv, dim=-3) for x in (k, v))
+    y, lse = fa.flash_attention_fwd_ref(q, kr, vr, causal=True)
+    dq, dk, dv = fa.flash_attention_bwd_ref(dy, q, kr, vr, y, lse,
+                                            causal=True)
+    want = [dq] + [g.float().view(b, hkv, hq // hkv, t, dh).sum(2)
+                   for g in (dk, dv)]
+    errs = [float((g.float() - w.float()).abs().max())
+            / float(w.float().abs().max()) for g, w in zip(got, want)]
+    same = all(torch.equal(g.view(torch.int16), a.view(torch.int16))
+               for g, a in zip(got, again))
+    row = dict(kernel="flash_attn_bwd[bf16]", shape="gqa",
+               dims=[b, hq, hkv, t, dh], max_abs_err=max(
+                   float((g.float() - w.float()).abs().max())
+                   for g, w in zip(got, want)),
+               rel_err=max(errs), tol=FFN_TOL[True] + BF16_STEP,
+               deterministic=same,
+               ok=same and max(errs) <= FFN_TOL[True] + BF16_STEP)
+    print("bf16-kernel-case " + json.dumps(row), flush=True)
+    return row
 
 
 def flash_bf16_case(torch, timer, name, tag, shape, kern_fn, args, args32,
                     backward, qkvd):
     """One bf16-storage flash call against its plain version and against
     float64 on its own inputs (``BF16_BLOCK_TOL``, the causal-flipped
-    control that must fail), repeated bit for bit, the forward also from
-    autograd's thread; timed beside the f32 call on the same values and
-    the library's (``sdpa_ms``). Returns the row."""
+    control that must fail), repeated bit for bit, and from autograd's
+    thread (the forward called in a backward, ``autograd_bits``; the
+    backward through ``torch.autograd.grad``, ``autograd_grad_bits``);
+    timed beside the f32 call on the same values and the library's
+    (``sdpa_ms``). Returns the row."""
     from distributed_llm_code_samples_tpu_torch.ops import (
         flash_attention as fa)
     causal = shape[3]
@@ -5393,7 +5498,9 @@ def flash_bf16_case(torch, timer, name, tag, shape, kern_fn, args, args32,
     want_dtypes = [str(w.dtype) for w in want]
     f64, control = err64(got), err64(flipped)
     flops, (b_ms, b_by) = flash_bf16_bound(name, shape)
-    thread = backward or autograd_bits(torch, kern)
+    q, k, v, dy = qkvd
+    thread = (autograd_grad_bits(torch, fa, dy, q, k, v, causal)
+              if backward else autograd_bits(torch, kern))
     ms = timer.ms(kern)
     row = dict(kernel=name, shape=tag, dims=list(shape),
                out_dtypes=dtypes, max_abs_err=max(errs), rel_err=rel,
@@ -7207,8 +7314,11 @@ def lm_bf16_train_phase(torch, np, card):
                         attn_impl="flash", head_impl="fused")
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    # lm_kernels: each LM kernel's device time by launch (LM_PARTS), the
+    # tensor-core forms' too
     print("lm-bf16-train-profile " + json.dumps(dict(
-        profile_summary(prof, wall_ms), steps=2, card=card)), flush=True)
+        profile_summary(prof, wall_ms), steps=2, lm_kernels=lm_parts(prof),
+        card=card)), flush=True)
 
     # TP of the LM and of the trunk on loopback ranks, a rank's launches
     mesh = make_mesh({MODEL_AXIS: LMTP_N}, loopback=True)

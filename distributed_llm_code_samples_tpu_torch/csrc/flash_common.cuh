@@ -1,24 +1,15 @@
 // Pieces the flash-attention kernels for Hopper (sm_90a) share
 // (flash_attn_fwd.cu, flash_attn_bwd.cu): the largest head dim (kDH), the
-// mask (keep), the copies of row-major [rows][dh] operand tiles into
-// shared memory (load_rows) with their bf16 rounding (round_rows), and
-// the stores of output rows (store4, store1).
+// mask (keep), the copies of row-major [rows][dh] f32 operand tiles into
+// shared memory (load_rows) with their bf16 rounding (round_rows), the
+// f32 view of an element (widen) and the store of four f32 outputs
+// (store4).
 // Layouts: q, dy, y [BH, Tq, dh]; k, v [BH, Tk, dh]; lse, D [BH, Tq]; all
 // row-major, contiguous. BH is every (batch, head) pair: one launch
-// covers them all. The storage type T of q, k, v, dy, y and the outputs
-// is f32 or bf16 (the JAX kernels' outputs take their inputs' dtype);
-// lse and D are f32 either way.
-//
-// bf16 storage in the backward (the forward's runs on the tensor cores,
-// flash_attn_fwd.cu): a tile is read as bf16 (8 bytes for 4 elements,
-// half the f32 bytes), widened to f32 in shared memory, and computed on
-// exactly as the f32 kernels compute with kBf16 on: every operand is
-// already a bf16 value, p and ds are rounded to bf16 where formed,
-// products and sums are f32, and each output is rounded to bf16 once,
-// when stored. Its copies
-// are plain loads and stores, not cp.async (which cannot widen): the
-// threads that copy a tile stall on it, and the barrier that publishes
-// the tile is the same.
+// covers them all. The storage type of q, k, v, dy, y and the outputs is
+// f32 or bf16 (the JAX kernels' outputs take their inputs' dtype); lse
+// and D are f32 either way. bf16 storage runs on the tensor cores
+// (tc_core.cuh): the copies here serve the f32 kernels.
 //
 // Arithmetic here is f32 FMA on the CUDA cores. With
 // kBf16 (the Pallas kernels' `mxu_bf16`) every operand tile is rounded to
@@ -86,74 +77,20 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
   }
 }
 
-// The same copy from bf16 storage: each chunk of 4 elements read as one
-// 8-byte load (4 two-byte loads when !vec), widened, stored as a float4.
-template <int kRows, int kThreadsN>
-__device__ __forceinline__ void load_rows(float* dst, int ld,
-                                          const __nv_bfloat16* src, int r0,
-                                          int rows, int dh, bool vec) {
-  static_assert(kRows * 16 % kThreadsN == 0, "whole rounds of copies");
-#pragma unroll
-  for (int q = 0; q < kRows * 16 / kThreadsN; ++q) {
-    int r, c;
-    chunk<kThreadsN>(q, r, c);
-    const bool row = r0 + r < rows;
-    const __nv_bfloat16* at = src + static_cast<size_t>(r0 + r) * dh + c;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (vec) {
-      if (row && c < dh) {
-        const uint2 u = *reinterpret_cast<const uint2*>(at);
-        const float2 a =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-        const float2 b =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-        x = make_float4(a.x, a.y, b.x, b.y);
-      }
-    } else if (row) {
-      float e[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (c + i < dh) e[i] = __bfloat162float(at[i]);
-      x = make_float4(e[0], e[1], e[2], e[3]);
-    }
-    *reinterpret_cast<float4*>(dst + r * ld + c) = x;
-  }
-}
-
 // One element of an operand as f32.
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// An f32 result into its storage type (bf16: round to nearest even).
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Four consecutive outputs (16 bytes of f32 or 8 of bf16, aligned).
+// Four consecutive f32 outputs (16 bytes, aligned).
 __device__ __forceinline__ void store4(float* out, float a, float b, float c,
                                        float d) {
   *reinterpret_cast<float4*>(out) = make_float4(a, b, c, d);
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* out, float a, float b,
-                                       float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<unsigned*>(&lo);
-  u.y = *reinterpret_cast<unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(out) = u;
-}
 
-// This thread's chunks of the same tile rounded to bf16, after its wait.
+// This thread's chunks of a load_rows tile rounded to bf16, after its
+// wait.
 template <int kRows, int kThreadsN>
 __device__ __forceinline__ void round_rows(float* dst, int ld) {
 #pragma unroll

@@ -142,9 +142,8 @@ def load_library(name: str) -> ctypes.CDLL:
 # (the paged decode kernel's pool also int8; its wrapper checks its own
 # operands). The ring all-gather, the hop and the all-to-all move bf16 as
 # bytes; the ring all-reduce and reduce-scatter sum it; the flash
-# backward reads bf16 tiles (the LM's mixed trunk and --dtype bfloat16);
-# the flash forward, the FFN kernels and the fused head read it with TMA
-# into their tensor-core passes.
+# kernels (the LM's mixed trunk and --dtype bfloat16), the FFN kernels
+# and the fused head read it with TMA into their tensor-core passes.
 _BOTH = (torch.float32, torch.bfloat16)
 DTYPES = {name: _BOTH for name in (
     "ppermute_dma", "ring_all_gather", "ring_all_reduce",

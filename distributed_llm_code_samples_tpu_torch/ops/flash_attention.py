@@ -7,10 +7,11 @@ Port of ``distributed_llm_code_samples_tpu/ops/pallas_attention.py``
 ``flash_mha``). On a CUDA tensor each wrapper launches its CUDA kernels
 (``csrc/flash_attn_fwd.cu``: on the CUDA cores under ``FWD_PLAN`` in
 f32, on the tensor cores (``FWD_TC``) on bf16 storage;
-``csrc/flash_attn_bwd.cu``'s dkv and dq kernels under ``BWD_PLAN``;
-built at first use by ``ops/_build.py``, bound with ctypes) or raises;
-on a CPU tensor it runs its plain PyTorch version ``*_ref``. There is
-no fallback from a kernel to its plain version.
+``csrc/flash_attn_bwd.cu``'s dkv and dq kernels: on the CUDA cores under
+``BWD_PLAN`` in f32, on the tensor cores (``BWD_TC``, ``DQ_TC``) on
+bf16 storage; built at first use by ``ops/_build.py``, bound with
+ctypes) or raises; on a CPU tensor it runs its plain PyTorch version
+``*_ref``. There is no fallback from a kernel to its plain version.
 
 Shapes: ``q [..., Tq, dh]``, ``k, v [..., Tk, dh]``, any leading dims
 (batch and heads), which one launch covers: the JAX package ``vmap``s a
@@ -27,10 +28,11 @@ Storage is f32 or bf16 (the LM's ``mixed`` trunk). With bf16 q, k, v
 the JAX kernels' ``out_shape``s give them; the arithmetic is the
 ``mxu_bf16`` arithmetic on the bf16 values (the JAX kernels round p and
 ds to the operands' dtype before their products), each output rounded
-to bf16 once. The kernels read bf16 tiles (half the bytes) and count
-their launches as ``<name>[bf16]``; the forward runs its products on
-wgmma (``p`` rounded to bf16 against its tile's running max, as the
-Pallas kernel rounds it).
+to bf16 once. The kernels read bf16 tiles (half the bytes) by TMA, run
+their products on wgmma and count their launches as ``<name>[bf16]``:
+the forward rounds ``p`` to bf16 against its tile's running max, as the
+Pallas kernel rounds it; the backward forms ``ds`` from the unrounded
+``p`` and rounds both before their products.
 """
 
 from __future__ import annotations
@@ -235,7 +237,11 @@ def fwd_tc_walk(tq: int, tk: int, causal: bool):
     (all of them when not causal), and each warpgroup computes those up
     to its own 64 rows' (none for rows wholly past Tq) and releases the
     rest unread."""
-    qt, kt = FWD_TC["query_tile"], FWD_TC["key_tile"]
+    return _row_walk(tq, tk, causal, FWD_TC["query_tile"],
+                     FWD_TC["key_tile"])
+
+
+def _row_walk(tq: int, tk: int, causal: bool, qt: int, kt: int):
     every = -(-tk // kt)
 
     def tiles(q0, q1):
@@ -281,13 +287,83 @@ def bwd_scratch(bh: int, tq: int, tk: int) -> dict:
                     "dsT": (bh, _up(tk, SCRATCH_KEYS), _up(tq, QUERY_TILE))})
 
 
+# -- the backward on the tensor cores (bf16 storage) -----------------------
+
+# flash_dkv_tc_kernel's tiles (csrc/flash_attn_bwd.cu, bwd_tc): a block of
+# two consumer warpgroups (64 keys each) and a producer warp per (head,
+# key tile), K and V kept once, a ring of (Q, dY) stages of query tile
+# rows; flash_dq_tc_kernel's: a block per (head, query tile), two
+# warpgroups of 64 rows, Q and dY kept once, a ring of (K, V) stages of
+# key tile keys. bf16 boxes of 64 head-dim columns (128 bytes) a row.
+BWD_TC = dict(key_tile=128, query_tile=64, stages=4, threads=288)
+DQ_TC = dict(query_tile=128, key_tile=64, stages=4, threads=288)
+
+
+def bwd_tc_smem_bytes() -> dict:
+    """Shared memory of a block of each tensor-core launch: the operands
+    kept for the walk (``[128][64]`` bf16 twice), the ring's stages of
+    two ``[64][64]`` bf16 tiles and the 1024 bytes that align them to a
+    swizzle atom; the dkv block adds each stage's lse and D (64 f32
+    each)."""
+    row = 64 * 2
+    kept = 2 * 128 * row
+    ring = BWD_TC["stages"] * 2 * 64 * row
+    return {"dkv": kept + ring + 1024 + BWD_TC["stages"] * 2 * 64 * 4,
+            "dq": kept + ring + 1024}
+
+
+def dkv_tc_walk(tq: int, tk: int, causal: bool):
+    """``[(key tile start, block query tiles, (warpgroup 0's, 1's))]`` in
+    the dkv kernel's launch order over one head: the first key tile (the
+    longest causal walk) first; a block loads the query tiles (their
+    starts) from the one holding its first key on when causal (all of
+    them otherwise), and each warpgroup computes those that hold a query
+    on or below its 64 keys' diagonal (none for keys wholly past Tk) and
+    releases the rest unread."""
+    kb, qt = BWD_TC["key_tile"], BWD_TC["query_tile"]
+    nq = -(-tq // qt)
+    out = []
+    for k0 in range(0, tk, kb):
+        first = min(nq, k0 // qt) if causal else 0
+        block = [i * qt for i in range(first, nq)]
+        halves = tuple([q0 for q0 in block
+                        if kw < tk and (not causal or q0 + qt - 1 >= kw)]
+                       for kw in (k0, k0 + kb // 2))
+        out.append((k0, block, halves))
+    return out
+
+
+def dq_tc_walk(tq: int, tk: int, causal: bool):
+    """The dq kernel's walk, as ``fwd_tc_walk`` gives the forward's: its
+    blocks are laid out as the forward's."""
+    return _row_walk(tq, tk, causal, DQ_TC["query_tile"], DQ_TC["key_tile"])
+
+
+def bwd_tc_scratch(bh: int, tq: int, tk: int, dh: int, staged=()) -> dict:
+    """The tensor-core backward's scratch (``fused_ffn._tc_layout``, in
+    the launches' pointer order): ``D = rowsum(dy * y)`` as ``[BH * Tq]``
+    f32, and zero-padded bf16 copies ``[BH * T, dh8]`` of the operands
+    that ``tc_staged`` names. No ``ds^T``: the dq launch computes its
+    tiles again."""
+    d8 = _up(dh, TC_ROW)
+    shapes = {"qs": (bh * tq, d8), "ks": (bh * tk, d8), "vs": (bh * tk, d8),
+              "dys": (bh * tq, d8)}
+    pieces = {"D": ((bh * tq,), 4)}
+    pieces.update({k: (shapes[k], 2) for k in ("qs", "ks", "vs", "dys")
+                   if k in staged})
+    return _tc_layout(pieces)
+
+
 def flash_attention_bwd(dy, q, k, v, y, lse, *, causal: bool = True,
                         mxu_bf16: bool = False):
-    """``(dq, dk, dv)`` with the score tiles recomputed once: the dkv
-    launch (``D = rowsum(dy * y)``, then a block per key tile: s, p, dp
-    and ds, dk and dv, and ``ds^T`` into the scratch ``bwd_scratch``) and
-    the dq launch (a block per query tile: ``dq = ds k`` from the
-    scratch). CPU tensors run ``flash_attention_bwd_ref``."""
+    """``(dq, dk, dv)`` in two launches: the dkv launch (``D =
+    rowsum(dy * y)``, then a block per key tile: s, p, dp and ds, dk and
+    dv) and the dq launch (a block per query tile: ``dq = ds k``). In f32
+    the dkv launch also writes ``ds^T`` into the scratch ``bwd_scratch``,
+    which the dq launch reads; on bf16 storage (the tensor cores) the dq
+    launch computes s, p, dp and ds again, and the scratch
+    (``bwd_tc_scratch``) holds D and the staged copies alone. CPU tensors
+    run ``flash_attention_bwd_ref``."""
     bh, tq, tk, dh = _check(q, k, v)
     if dy.shape != q.shape or y.shape != q.shape \
             or lse.shape != q.shape[:-1]:
@@ -305,23 +381,38 @@ def flash_attention_bwd(dy, q, k, v, y, lse, *, causal: bool = True,
     _kernel_dims(BWD, dh)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dims = (bh, tq, tk, dh, int(bool(causal)))
+    if q.dtype == torch.bfloat16:
+        staged = tc_staged(2, {n: (t.data_ptr(), dh) for n, t in (
+            ("qs", q), ("ks", k), ("vs", v), ("dys", dy))})
+        pieces = bwd_tc_scratch(bh, tq, tk, dh, staged)
+        scratch = torch.empty(pieces["total"], dtype=torch.uint8,
+                              device=q.device)
+        d_ptr = scratch.data_ptr() + pieces["D"][1]
+        copies = [scratch.data_ptr() + pieces[p][1] if p in pieces else 0
+                  for p in ("qs", "ks", "vs", "dys")]
+        ops = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dy.data_ptr(),
+               lse.data_ptr()]
+        _build.launch(BWD, "flash_attn_dkv_tc_launch",
+                      ops + [y.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                             d_ptr] + copies, dims, q.device, DKV + BF16)
+        _build.launch(BWD, "flash_attn_dq_tc_launch",
+                      ops + [d_ptr, dq.data_ptr()] + copies, dims, q.device,
+                      DQ + BF16)
+        return dq, dk, dv
     pieces = bwd_scratch(bh, tq, tk)
     scratch = torch.empty(pieces["total"], dtype=torch.float32,
                           device=q.device)
     d_ptr, ds_ptr = (scratch.data_ptr() + 4 * pieces[n][1]
                      for n in ("D", "dsT"))
-    dims = (bh, tq, tk, dh, int(bool(causal)))
-    bf16 = q.dtype == torch.bfloat16
     _build.launch(BWD, "flash_attn_dkv_launch",
                   [q.data_ptr(), k.data_ptr(), v.data_ptr(), dy.data_ptr(),
                    lse.data_ptr(), y.data_ptr(), dk.data_ptr(),
                    dv.data_ptr(), d_ptr, ds_ptr],
-                  (*dims, *BWD_PLAN, int(bool(mxu_bf16)), int(bf16)),
-                  q.device, DKV + BF16 * bf16)
+                  (*dims, *BWD_PLAN, int(bool(mxu_bf16))), q.device, DKV)
     _build.launch(BWD, "flash_attn_dq_launch",
                   [k.data_ptr(), ds_ptr, dq.data_ptr()],
-                  (*dims, int(bool(mxu_bf16)), int(bf16)), q.device,
-                  DQ + BF16 * bf16)
+                  (*dims, int(bool(mxu_bf16))), q.device, DQ)
     return dq, dk, dv
 
 

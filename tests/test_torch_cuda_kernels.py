@@ -2327,3 +2327,139 @@ def test_flash_fwd_bits_unchanged_by_the_tensor_cores(card):
     import chip_smoke
     assert chip_smoke.flash_fwd_bits_digest(torch, np, p_fa) == \
         chip_smoke.FLASH_FWD_BITS_SHA256
+
+
+# -- the flash backward on the tensor cores (bf16 storage) -----------------
+
+def flash_bwd_f64_err(got, dy, q, k, v, y, lse, causal):
+    """The worst of dq, dk and dv against float64 on the bf16 values (p
+    and ds rounded to bf16, as the kernels round them), by chip_smoke.py's
+    measure: the 99th percentile over rows of |row - row64| / |row64|,
+    over the rows that are not zero in exact arithmetic (each head's
+    first dq row when causal: ds_00 = p_00 (dp_00 - D_0) = 0), which here
+    are under 1e-3 of the largest row."""
+    want = flash_attention_bwd_ref(*(a.double() for a in (dy, q, k, v, y)),
+                                   lse.double(), causal=causal, mxu_bf16=True)
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = (x.double().reshape(-1, x.shape[-1]) for x in (g, w))
+        norm = w.norm(dim=1)
+        rows = norm > 1e-3 * norm.max()
+        err = (g - w).norm(dim=1)[rows] / norm[rows]
+        worst = max(worst, float(torch.quantile(err, 0.99)))
+    return worst
+
+
+def flash_bwd_tc_case(shape, causal):
+    q, k, v, dy = bf16_flash_case(shape)
+    y, lse = flash_attention_fwd(q, k, v, causal=causal)
+    return dy, q, k, v, y, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_TC_SHAPES)
+def test_flash_bwd_tc_matches_float64(card, shape, causal):
+    """dq, dk and dv within two bf16 steps of float64 row by row (the
+    limit chip_smoke.py's BF16_BLOCK_TOL holds), two calls bit-equal, one
+    launch of each of the two tensor-core kernels a call and none of the
+    f32 ones; causal flipped fails the check."""
+    args = flash_bwd_tc_case(shape, causal)
+    counts = _build.launch_counts()
+    got = flash_attention_bwd(*args, causal=causal)
+    again = flash_attention_bwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for name in ("flash_attn_dkv[bf16]", "flash_attn_dq[bf16]"):
+        assert after[name] == counts.get(name, 0) + 2
+    for name in (p_fa.DKV, p_fa.DQ):
+        assert after.get(name, 0) == counts.get(name, 0)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    assert all(torch.equal(g.view(torch.int16), a.view(torch.int16))
+               for g, a in zip(got, again))
+    assert flash_bwd_f64_err(got, *args, causal) <= 2 ** -7
+    flipped = flash_attention_bwd(*args, causal=not causal)
+    assert flash_bwd_f64_err(flipped, *args, causal) > 2 ** -7
+
+
+@pytest.mark.cuda
+def test_flash_bwd_tc_staged_operands(card):
+    """dh 36 (rows not a multiple of 8 elements) and operands one element
+    into their storage go through zero-padded copies: within the limits
+    of the plain version, and an unaligned call gives the aligned one's
+    bits."""
+    for causal in (True, False):
+        dy, q, k, v, y, lse = flash_bwd_tc_case((4, 100, 100, 36), causal)
+        got = flash_attention_bwd(dy, q, k, v, y, lse, causal=causal)
+        agree_bf16(got, flash_attention_bwd(dy, q, k, v, y, lse,
+                                            causal=causal),
+                   flash_attention_bwd_ref(dy, q, k, v, y, lse,
+                                           causal=causal))
+    args = flash_bwd_tc_case((4, 100, 100, 64), True)
+    off = [torch.empty(x.numel() + 1, device="cuda",
+                       dtype=x.dtype)[1:].view_as(x) for x in args[:4]]
+    for o, x in zip(off, args):
+        o.copy_(x)
+    assert all(o.data_ptr() % 16 for o in off)
+    for g, a in zip(flash_attention_bwd(*off, *args[4:]),
+                    flash_attention_bwd(*args)):
+        assert torch.equal(g.view(torch.int16), a.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_tc_from_autograd(card):
+    """The backward called on autograd's device thread, inside a backward
+    and through ``torch.autograd.grad`` of ``flash_attention`` on bf16
+    leaves, gives a direct call's bits."""
+    dy, q, k, v, y, lse = flash_bwd_tc_case((24, 200, 200, 40), True)
+    want = flash_attention_bwd(dy, q, k, v, y, lse)
+    got = []
+    x = torch.zeros(1, device="cuda", requires_grad=True)
+    _CallInBackward.apply(x, lambda: got.append(
+        flash_attention_bwd(dy, q, k, v, y, lse))).sum().backward()
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    got.append(torch.autograd.grad(p_fa.flash_attention(*leaves), leaves,
+                                   dy))
+    torch.cuda.synchronize()
+    assert len(got) == 2
+    for call in got:
+        for g, a in zip(call, want):
+            assert torch.equal(g.view(torch.int16), a.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_flash_mha_bf16_backward_with_four_heads_on_two_kv_heads(card):
+    """flash_mha's bf16 gradients through the tensor-core kernels: each
+    KV head's the sum of its query group's, against the plain backward on
+    the fanned-out heads, within the bf16 limit plus one step (the fan-out
+    sums the group's bf16 gradients in bf16); two runs bit-equal."""
+    rng = np.random.default_rng(8)
+    b, hq, hkv, t, dh = 2, 4, 2, 96, 32
+    q = normal(rng, b, hq, t, dh).bfloat16()
+    k, v = (normal(rng, b, hkv, t, dh).bfloat16() for _ in range(2))
+    dy = normal(rng, b, hq, t, dh, scale=0.1).bfloat16()
+
+    def grads():
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        return torch.autograd.grad(flash_mha(*leaves, causal=True), leaves,
+                                   dy)
+    got, again = grads(), grads()
+    kr, vr = (x.repeat_interleave(hq // hkv, dim=-3) for x in (k, v))
+    y, lse = flash_attention_fwd_ref(q, kr, vr, causal=True)
+    dq, dk, dv = flash_attention_bwd_ref(dy, q, kr, vr, y, lse, causal=True)
+    want = (dq.float(), dk.float().view(b, hkv, hq // hkv, t, dh).sum(2),
+            dv.float().view(b, hkv, hq // hkv, t, dh).sum(2))
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, a)
+        err = float((g.float() - w).abs().max())
+        assert err <= (TOL[True] + 2 ** -8) * float(w.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_flash_bwd_bits_unchanged_by_the_tensor_cores(card):
+    """Modes 0 and 1 (f32, the CUDA cores) keep their bits: chip_smoke.py's
+    digest of four small f32 calls, stored from the build before bf16
+    storage moved to the tensor cores."""
+    import chip_smoke
+    assert chip_smoke.flash_bwd_bits_digest(torch, np, p_fa) == \
+        chip_smoke.FLASH_BWD_BITS_SHA256
